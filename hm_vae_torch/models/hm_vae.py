@@ -1,0 +1,329 @@
+"""Two-level hierarchical skeleton-aware sequence VAE (PyTorch).
+
+Port of ``hm_vae_tpu.models.hm_vae``.  Module and parameter names follow the
+flax tree (``encoder.conv_0.weight``, ``encoder.latent_head_0.weight``, ...),
+with the latent Linear weights stored (out, in) as torch does.
+
+Every skeleton conv runs through :func:`~hm_vae_torch.ops.fused_conv_pool.fused_conv_pool`,
+which fuses the conv with what follows it in the JAX model:
+
+- an encoder level is conv -> skeleton pool -> LeakyReLU(0.2), one launch;
+  the kernel applies the pool matrix to the conv tile it holds, the same
+  linear map as the JAX module's fold ``P @ (W*mask)``, ``P @ b``;
+- a decoder level is the unpool-folded conv ``(W*mask) @ U`` -> LeakyReLU,
+  or no activation at the last level, one launch.
+
+Hierarchical latents (shallow -> deep), for len-64/SMPL-24:
+``[(B,14,2*shallow_d), (B,9,2*latent_d), (B,7,2*latent_d), (B,7,2*latent_d)]``.
+The decoder reads only the deepest z (seeds level 0) and the shallowest z
+(channel-concat at the last level); the middle latents are ignored.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops import skeleton_nn as snn
+from ..ops.fused_conv_pool import fused_conv_pool
+from ..utils.config import ModelConfig
+from .structure import ConvSpec, get_structure
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+Operands = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor],
+                 Optional[torch.Tensor]]
+
+
+def _block_uniform(spec: ConvSpec, shape, generator) -> torch.Tensor:
+    """Per-edge-block kaiming-uniform init: output block i draws
+    U(-b_i, b_i) with ``b_i = 1/sqrt(fan_in_block_i)``."""
+    bounds = np.repeat(spec.block_bounds, spec.out_channels // spec.n_edges)
+    u = torch.rand(shape, generator=generator) * 2.0 - 1.0
+    return u * torch.from_numpy(bounds).reshape((-1,) + (1,) * (len(shape) - 1))
+
+
+def dense_kernel_init(init_type: str, out_f: int, in_f: int, generator) -> torch.Tensor:
+    """The reference trainer's ``weights_init`` for the latent Linear heads,
+    as a (out, in) weight; the bias is zero in every scheme.
+
+      gaussian   normal(0, 0.02)
+      xavier     normal, std 2/sqrt(fan_in + fan_out)   (gain sqrt(2))
+      kaiming    normal, std sqrt(2/fan_in)
+      orthogonal semi-orthogonal, gain sqrt(2)
+      default    uniform(+-1/sqrt(fan_in))
+    """
+    shape = (out_f, in_f)
+    if init_type == "gaussian":
+        return torch.randn(shape, generator=generator) * 0.02
+    if init_type == "xavier":
+        return torch.randn(shape, generator=generator) * (2.0 / math.sqrt(in_f + out_f))
+    if init_type == "kaiming":
+        return torch.randn(shape, generator=generator) * math.sqrt(2.0 / in_f)
+    if init_type == "orthogonal":
+        a = torch.randn((max(shape), min(shape)), generator=generator)
+        q, r = torch.linalg.qr(a)
+        q = q * torch.sign(torch.diagonal(r))
+        return (q if out_f >= in_f else q.T) * math.sqrt(2.0)
+    if init_type == "default":
+        return (torch.rand(shape, generator=generator) * 2.0 - 1.0) / math.sqrt(in_f)
+    raise ValueError(f"unsupported init: {init_type!r} "
+                     "(expected gaussian|xavier|kaiming|orthogonal|default)")
+
+
+def _linear(in_f: int, out_f: int, init_type: str, generator) -> nn.Linear:
+    lin = nn.Linear(in_f, out_f)
+    with torch.no_grad():
+        lin.weight.copy_(dense_kernel_init(init_type, out_f, in_f, generator))
+        lin.bias.zero_()
+    return lin
+
+
+def _const(a: Optional[np.ndarray]) -> Optional[torch.Tensor]:
+    return None if a is None else torch.from_numpy(np.ascontiguousarray(a, np.float32))
+
+
+class SkeletonConv(nn.Module):
+    """Masked temporal conv over (B, C, T), fused with an optional skeleton
+    pool after it (``pool_matrix`` (Q, C_out)), an optional skeleton unpool
+    folded in before it (``unpool_matrix`` (C_in, P)) and a LeakyReLU
+    (``negative_slope`` 1.0 is none)."""
+
+    def __init__(self, spec: ConvSpec, compute_dtype: str = "float32",
+                 pool_matrix: Optional[np.ndarray] = None,
+                 unpool_matrix: Optional[np.ndarray] = None,
+                 negative_slope: float = 1.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.spec = spec
+        self.dtype = _DTYPES[compute_dtype]
+        self.negative_slope = negative_slope
+        self.weight = nn.Parameter(_block_uniform(
+            spec, (spec.out_channels, spec.in_channels, spec.kernel_size), generator))
+        self.bias = (nn.Parameter(_block_uniform(spec, (spec.out_channels,), generator))
+                     if spec.bias else None)
+        # a fully dense level (enc3, dec0 at len-64) skips the mask multiply
+        dense = bool(spec.mask.all())
+        self.register_buffer("mask", None if dense else _const(spec.mask),
+                             persistent=False)
+        self.register_buffer("pool", _const(pool_matrix), persistent=False)
+        self.register_buffer("unpool", _const(unpool_matrix), persistent=False)
+        # the folded weight's live pattern: the kernel skips its zero blocks
+        live = None
+        if unpool_matrix is not None:
+            nz = (spec.mask @ unpool_matrix) != 0
+            live = None if nz.all() else nz.astype(np.float32)
+        self.register_buffer("unpool_mask", _const(live), persistent=False)
+
+    def _masked(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        w = self.weight.to(self.dtype)
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        if self.mask is not None:
+            w = w * self.mask.to(self.dtype)[:, :, None]
+        return w, b
+
+    def kernel_operands(self) -> Operands:
+        """(weight, bias, mask, pool) for the kernel, in the compute dtype.
+
+        Without an unpool the kernel takes the raw weight and applies the
+        mask itself; with one, the weight is ``(W*mask) @ U`` and the mask
+        passed on is that weight's 0/1 live pattern (None if dense).
+        """
+        cast = lambda t: None if t is None else t.to(self.dtype)  # noqa: E731
+        if self.unpool is None:
+            b = None if self.bias is None else self.bias.to(self.dtype)
+            return self.weight.to(self.dtype), b, cast(self.mask), cast(self.pool)
+        w, b = self._masked()
+        w = torch.einsum("ock,cp->opk", w, self.unpool.to(self.dtype)).contiguous()
+        return w, b, cast(self.unpool_mask), cast(self.pool)
+
+    def folded_weight(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The JAX module's single conv weight and bias: ``W*mask`` with the
+        unpool folded in (``@ U``) and the pool folded on (``P @``, ``P @ b``)."""
+        w, b = self._masked()
+        if self.unpool is not None:
+            w = torch.einsum("ock,cp->opk", w, self.unpool.to(self.dtype))
+        if self.pool is not None:
+            P = self.pool.to(self.dtype)
+            w = torch.einsum("qo,ock->qck", P, w)
+            b = None if b is None else P @ b
+        return w.contiguous(), b
+
+    def forward(self, x: torch.Tensor, operands: Optional[Operands] = None) -> torch.Tensor:
+        w, b, m, p = self.kernel_operands() if operands is None else operands
+        s = self.spec
+        return fused_conv_pool(x.to(w.dtype).contiguous(), w, b, m, p, s.stride,
+                               s.padding, s.padding_mode, self.negative_slope)
+
+
+OperandMap = Dict[SkeletonConv, Operands]
+
+
+def _run(conv: SkeletonConv, x: torch.Tensor, ops: Optional[OperandMap]) -> torch.Tensor:
+    return conv(x, None if ops is None else ops[conv])
+
+
+class Encoder(nn.Module):
+    """4-level skeleton conv/pool encoder with per-level latent heads.
+
+    Input (B, n_joints*input_dim, T); returns the deepest feature map and the
+    per-level latent stats (B, k_edges, 2*latent_d), shallow -> deep.
+    """
+
+    def __init__(self, cfg: ModelConfig, init_type: str = "kaiming",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.structure = st = get_structure(cfg)
+        for i, lvl in enumerate(st.encoder_levels):
+            for e, espec in enumerate(lvl.extra_convs):
+                self.add_module(f"conv_{i}_extra_{e}", SkeletonConv(
+                    espec, cfg.compute_dtype, generator=generator))
+            self.add_module(f"conv_{i}", SkeletonConv(
+                lvl.conv, cfg.compute_dtype, pool_matrix=lvl.pool_matrix,
+                negative_slope=0.2, generator=generator))
+            self.add_module(f"latent_head_{i}", _linear(
+                lvl.latent_in, lvl.latent_out, init_type, generator))
+
+    def forward(self, x: torch.Tensor, ops: Optional[OperandMap] = None):
+        z_stats: List[torch.Tensor] = []
+        for i, lvl in enumerate(self.structure.encoder_levels):
+            for e in range(len(lvl.extra_convs)):
+                x = _run(getattr(self, f"conv_{i}_extra_{e}"), x, ops)
+            x = _run(getattr(self, f"conv_{i}"), x, ops)
+            x = x.float()  # latent heads and stats stay f32
+            # (B, k_edges*cpe, T') -> (B, k_edges, cpe*T'): needs (B, C, T) layout
+            per_edge = x.reshape(x.shape[0], lvl.pooled_edges, -1)
+            z_stats.append(getattr(self, f"latent_head_{i}")(per_edge))
+        return x, z_stats
+
+
+class Decoder(nn.Module):
+    """Mirror decoder: latent re-inflation, then upsample and unpool-folded
+    conv per level.  Takes the z list (shallow -> deep) and returns
+    (B, n_joints*output_dim, T)."""
+
+    def __init__(self, cfg: ModelConfig, init_type: str = "kaiming",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.structure = st = get_structure(cfg)
+        nl = cfg.num_layers
+        for i, lvl in enumerate(st.decoder_levels):
+            self.add_module(f"latent_dec_{i}", _linear(
+                lvl.latent_in, lvl.latent_out, init_type, generator))
+        for i, lvl in enumerate(st.decoder_levels):
+            slope = 0.2 if lvl.leaky else 1.0
+            for e, espec in enumerate(lvl.extra_convs):
+                self.add_module(f"conv_{i}_extra_{e}", SkeletonConv(
+                    espec, cfg.compute_dtype, generator=generator))
+            if lvl.extra_convs:
+                # extra convs sit between the unpool and the main conv: the
+                # unpool is applied as a matrix, not folded
+                self.register_buffer(f"unpool_{i}", _const(lvl.unpool_matrix),
+                                     persistent=False)
+            self.add_module(f"conv_{i}", SkeletonConv(
+                lvl.conv, cfg.compute_dtype,
+                unpool_matrix=None if lvl.extra_convs else lvl.unpool_matrix,
+                negative_slope=slope, generator=generator))
+        self.num_layers = nl
+
+    def forward(self, z_list: Sequence[torch.Tensor],
+                ops: Optional[OperandMap] = None) -> torch.Tensor:
+        st = self.structure
+        nl = self.num_layers
+        B = z_list[0].shape[0]
+
+        def feats(i):
+            z = z_list[nl - i - 1]
+            out = getattr(self, f"latent_dec_{i}")(z)
+            return out.reshape(B, -1, st.decoder_levels[i].timestep)
+
+        x = None
+        for i, lvl in enumerate(st.decoder_levels):
+            if i == 0:
+                x = feats(0)
+            elif i == nl - 1:
+                # channel-concat the shallow latent features per edge, on the
+                # pre-unpool edge count
+                pre_edges = st.cascade.pooled_edge_num[0]
+                T_i = x.shape[-1]
+                f = feats(i)
+                dt = torch.promote_types(x.dtype, f.dtype)
+                x = torch.cat((x.to(dt).reshape(B, pre_edges, -1, T_i),
+                               f.to(dt).reshape(B, pre_edges, -1, T_i)),
+                              dim=2).reshape(B, -1, T_i)
+            if lvl.upsample:
+                x = snn.upsample_linear(x, 2)
+            if lvl.extra_convs:
+                x = snn.apply_channel_matrix(x, getattr(self, f"unpool_{i}").to(x.dtype))
+                for e in range(len(lvl.extra_convs)):
+                    x = _run(getattr(self, f"conv_{i}_extra_{e}"), x, ops)
+            x = _run(getattr(self, f"conv_{i}"), x, ops)
+        return x
+
+
+class HMVAE(nn.Module):
+    """Hierarchical skeleton-aware VAE: encode to z stats, decode z lists."""
+
+    def __init__(self, cfg: ModelConfig, init_type: str = "kaiming",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.lora_rank > 0:
+            raise NotImplementedError("lora_rank > 0 is not ported yet")
+        if cfg.param_layout != "dense":
+            raise NotImplementedError(f"param_layout {cfg.param_layout!r} is not "
+                                      "ported yet (dense only)")
+        self.cfg = cfg
+        self.encoder = Encoder(cfg, init_type, generator)
+        self.decoder = Decoder(cfg, init_type, generator)
+
+    def conv_operands(self) -> OperandMap:
+        """Every conv's kernel operands, computed once (see
+        :meth:`SkeletonConv.kernel_operands`)."""
+        return {m: m.kernel_operands() for m in self.modules()
+                if isinstance(m, SkeletonConv)}
+
+    def forward(self, x6d: torch.Tensor):
+        """x6d (B, T, n_joints, 6) -> (z stats list, decoding of the means)."""
+        _, z_stats = self.encode(x6d)
+        z_means = [split_stats(s, self.cfg, i)[0] for i, s in enumerate(z_stats)]
+        return z_stats, self.decode(z_means)
+
+    def encode(self, x6d: torch.Tensor, ops: Optional[OperandMap] = None):
+        """x6d (B, T, n_joints, 6) -> (deep feature, z stats list)."""
+        B, T, J, D = x6d.shape
+        x = x6d.reshape(B, T, J * D).transpose(1, 2).contiguous()
+        return self.encoder(x, ops)
+
+    def decode(self, z_list: Sequence[torch.Tensor],
+               ops: Optional[OperandMap] = None) -> torch.Tensor:
+        """z list (shallow -> deep) -> 6D output (B, T, n_joints, output_dim)."""
+        out = self.decoder(z_list, ops).float()
+        B, _, T = out.shape
+        return out.transpose(1, 2).reshape(B, T, self.cfg.n_joints, self.cfg.output_dim)
+
+
+def split_stats(stats: torch.Tensor, cfg: ModelConfig, level: int):
+    """(B, k, 2*d) -> (mu, logvar), d = shallow_latent_d at level 0."""
+    d = cfg.shallow_latent_d if level == 0 else cfg.latent_d
+    return stats[..., :d], stats[..., d:]
+
+
+def prior_z_list(cfg: ModelConfig, batch: int,
+                 generator: Optional[torch.Generator] = None,
+                 device="cpu") -> List[torch.Tensor]:
+    """z ~ N(0, I) for the deepest and shallowest levels, zeros for the
+    unused middles.  Drawn on the CPU from ``generator``, then moved."""
+    st = get_structure(cfg)
+    zs = []
+    for i in range(cfg.num_layers):
+        shape = (batch, st.z_edges[i], st.z_dims[i])
+        if i == 0 or i == cfg.num_layers - 1:
+            z = torch.randn(shape, generator=generator)
+        else:
+            z = torch.zeros(shape)
+        zs.append(z.to(device))
+    return zs

@@ -1,0 +1,104 @@
+"""Weight bridges into the port's :class:`~hm_vae_torch.models.hm_vae.HMVAE`.
+
+- :func:`params_from_flax`: a flax parameter tree of the JAX package (nested
+  dicts of numpy arrays) -> the port's ``state_dict``.
+- :func:`state_dict_from_reference` / :func:`load_reference_checkpoint`: the
+  reference implementation's ``gen_*.pt`` checkpoints -> the port's
+  ``state_dict``.  The key mapping and the checks of the constant buffers
+  (conv masks, pool/unpool matrices) are the port's own copy of
+  ``hm_vae_tpu.utils.torch_import``; a constant that does not match this
+  configuration fails loudly instead of mis-loading.
+
+The port's names follow the flax tree; Linear weights are (out, in), the
+transpose of a flax Dense kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from ..models.structure import get_structure
+from .config import ModelConfig
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def params_from_flax(params_np: Mapping, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """Flax ``{'encoder': {...}, 'decoder': {...}}`` (optionally under
+    ``'params'``) -> port state_dict."""
+    if cfg.param_layout != "dense":
+        raise NotImplementedError("only the dense parameter layout is ported")
+    tree = params_np.get("params", params_np)
+    sd: Dict[str, torch.Tensor] = {}
+    for part in ("encoder", "decoder"):
+        for name, leaf in tree[part].items():
+            if "kernel" in leaf:  # Dense: (in, out) -> Linear (out, in)
+                sd[f"{part}.{name}.weight"] = _t(np.asarray(leaf["kernel"]).T)
+                sd[f"{part}.{name}.bias"] = _t(leaf["bias"])
+            else:
+                for k, v in leaf.items():
+                    sd[f"{part}.{name}.{k}"] = _t(v)
+    return sd
+
+
+def load_reference_checkpoint(path: str) -> Dict[str, np.ndarray]:
+    """Read a reference ``gen_*.pt`` into a flat name -> numpy dict."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    sd = blob.get("state_dict", blob)
+    return {k: v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
+            for k, v in sd.items()}
+
+
+def _check_constant(sd: Mapping[str, np.ndarray], name: str, ours: np.ndarray):
+    if name in sd:
+        theirs = np.asarray(sd[name])
+        if theirs.shape != ours.shape or not np.allclose(theirs, ours, atol=1e-5):
+            raise ValueError(
+                f"checkpoint constant {name} does not match this config "
+                f"(shape {theirs.shape} vs {ours.shape}) — wrong architecture?")
+
+
+def state_dict_from_reference(sd: Mapping[str, np.ndarray],
+                              cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """Reference ``TwoHierSAVAEModel`` state dict -> port state_dict.
+
+    Encoder Sequential: ``[extra_conv x E, conv, pool, leaky]``; decoder
+    Sequential: ``[upsample?, unpool, extra_conv x E, conv, leaky?]``.
+    """
+    st = get_structure(cfg)
+    E = cfg.extra_conv
+    out: Dict[str, torch.Tensor] = {}
+    for i, lvl in enumerate(st.encoder_levels):
+        for e in range(E):
+            out[f"encoder.conv_{i}_extra_{e}.weight"] = _t(sd[f"enc.layers.{i}.{e}.weight"])
+            out[f"encoder.conv_{i}_extra_{e}.bias"] = _t(sd[f"enc.layers.{i}.{e}.bias"])
+        w = _t(sd[f"enc.layers.{i}.{E}.weight"])
+        out[f"encoder.conv_{i}.weight"] = w
+        if lvl.conv.bias:
+            out[f"encoder.conv_{i}.bias"] = _t(sd[f"enc.layers.{i}.{E}.bias"])
+        _check_constant(sd, f"enc.layers.{i}.{E}.mask",
+                        np.broadcast_to(lvl.conv.mask[:, :, None], tuple(w.shape)))
+        _check_constant(sd, f"enc.layers.{i}.{E + 1}.weight", lvl.pool_matrix)
+        out[f"encoder.latent_head_{i}.weight"] = _t(sd[f"enc.latent_enc_layers.{i}.weight"])
+        out[f"encoder.latent_head_{i}.bias"] = _t(sd[f"enc.latent_enc_layers.{i}.bias"])
+
+    for i, lvl in enumerate(st.decoder_levels):
+        unpool_idx = 1 if lvl.upsample else 0
+        conv_idx = unpool_idx + 1 + E
+        for e in range(E):
+            key = f"dec.layers.{i}.{unpool_idx + 1 + e}"
+            out[f"decoder.conv_{i}_extra_{e}.weight"] = _t(sd[f"{key}.weight"])
+            if lvl.conv.bias:
+                out[f"decoder.conv_{i}_extra_{e}.bias"] = _t(sd[f"{key}.bias"])
+        out[f"decoder.conv_{i}.weight"] = _t(sd[f"dec.layers.{i}.{conv_idx}.weight"])
+        if lvl.conv.bias:
+            out[f"decoder.conv_{i}.bias"] = _t(sd[f"dec.layers.{i}.{conv_idx}.bias"])
+        _check_constant(sd, f"dec.unpools.{i}.weight", lvl.unpool_matrix)
+        out[f"decoder.latent_dec_{i}.weight"] = _t(sd[f"dec.latent_dec_layers.{i}.weight"])
+        out[f"decoder.latent_dec_{i}.bias"] = _t(sd[f"dec.latent_dec_layers.{i}.bias"])
+    return out
