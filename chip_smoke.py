@@ -6,7 +6,8 @@ Phases, each of which exits non-zero on failure:
 
 0. print the card (``nvidia-smi``); turn TF32 off so that f32 references
    are f32;
-1. build every CUDA kernel from ``hm_vae_torch/csrc`` (``nvcc``, sm_90a);
+1. build the kernel from ``hm_vae_torch/csrc/fused_conv_pool.cu`` (``nvcc``,
+   sm_90a);
 2. hold ``fused_conv_pool`` against its plain PyTorch version at the eight
    level shapes of the len-64 model at batch 8 (its real operands: masks,
    pool matrices, unpool-folded weights), in f32 and bf16, plus one stride-1
@@ -50,9 +51,18 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # kernel vs plain version on the same inputs: f32 sums differ only in order;
 # bf16 rounds its operands and output
 TOL = {torch.float32: lambda ref: 1e-4 * max(1.0, ref), torch.bfloat16: lambda ref: 0.02 * ref}
-# end to end, 6D out of the GPU against the CPU on the same weights: f32 sums
-# in another order over 8 levels; bf16 rounds at every level
-E2E_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.05}
+# end to end, GPU against CPU on the same weights, in units of the output's
+# scale: f32 sums in another order over 8 levels; bf16 rounds at every level
+# (its output step is 2^-8 of the scale).  6D: |gpu - cpu| <= E2E_TOL * max|cpu|.
+E2E_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.02}
+# Rotation matrices (entries in [-1, 1]) on joints whose 6D -> rotmat is well
+# conditioned (condition > COND_MIN, where Gram-Schmidt amplifies a 6D error
+# by at most ~1/COND_MIN), and FK positions (metres) of joints whose
+# ancestors all are: random weights decode short or near-parallel 6D vectors
+# on some joints, where the rotation is undetermined at bf16 precision.
+COND_MIN = 0.1
+ROT_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.1}
+POSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.1}
 
 
 def fail(msg: str) -> None:
@@ -79,16 +89,18 @@ def time_ms(fn, reps: int = 20, samples: int = 7) -> float:
 
 
 def level_work(x, w, b, m, p, out):
-    """(bytes, operations) one call needs: each input read once, the output
-    written once; multiply-adds only where the mask and pool are nonzero."""
+    """(bytes, operations) one call needs: each input read once and the
+    output written once, but of the weight only the live entries, those the
+    mask keeps in the conv rows the pool reads; multiply-adds only where the
+    mask and pool are nonzero."""
     B, C_in, _ = x.shape
     C_out, _, K = w.shape
     T_out = out.shape[-1]
-    nbytes = sum(t.numel() * t.element_size() for t in (x, w, b, m, p, out)
-                 if t is not None)
     rows = (torch.ones(C_out, dtype=torch.bool, device=w.device) if p is None
             else (p != 0).any(0))
     live = int(rows.sum()) * C_in if m is None else int((m[rows] != 0).sum())
+    nbytes = live * K * w.element_size() + sum(
+        t.numel() * t.element_size() for t in (x, b, m, p, out) if t is not None)
     ops = 2 * B * T_out * K * live
     if p is not None:
         ops += 2 * B * T_out * int((p != 0).sum())
@@ -163,6 +175,18 @@ def kernel_phase(model, st, dtype, gen):
     return rows
 
 
+def ancestors_ok(ok):
+    """ok (..., 24) per joint -> (..., 24): every strict ancestor of the
+    joint is ok (the root has none)."""
+    from hm_vae_torch.ops.topology import SMPL24_PARENTS
+
+    out = torch.ones_like(ok)
+    for j, par in enumerate(SMPL24_PARENTS):
+        if par >= 0:  # parents come before their children
+            out[..., j] = out[..., par] & ok[..., par]
+    return out
+
+
 def gram_schmidt_condition(rot6d):
     """min(|a|, |a/|a| x b|) per joint: small values make 6D -> rotmat
     ill-conditioned (the outputs of a random-weight model often are)."""
@@ -175,12 +199,11 @@ def gram_schmidt_condition(rot6d):
 def e2e_phase(cfg, dtype, x6d):
     """Reconstruct on the GPU against the same weights on the CPU.
 
-    6D: |gpu - cpu| <= E2E_TOL * max(1, max|cpu|).  Rotation matrices: the
-    6D error propagated through Gram-Schmidt, per joint
-    4 * tol_6d / condition (capped at 2, the largest possible difference).
-    Positions: the GPU's FK against the CPU's FK of the same (GPU) rotation
-    matrices, 1e-4 * max(1, max|cpu|); the GPU-vs-CPU position error is
-    printed as well.
+    6D: |gpu - cpu| <= E2E_TOL * max|cpu| on every joint.  Rotation matrices
+    within ROT_TOL on joints of condition > COND_MIN; FK positions within
+    POSE_TOL on joints whose ancestors all are.  On every joint, the GPU's FK
+    against the CPU's FK of the same (GPU) rotation matrices, 1e-4 * max(1,
+    max|cpu|).
     """
     from hm_vae_torch.apps.inference import VAEInference
     from hm_vae_torch.models.hm_vae import HMVAE
@@ -205,27 +228,36 @@ def e2e_phase(cfg, dtype, x6d):
     for what, o, r in (("rot6d", o6, r6), ("rotmat", om, rm), ("pose", op, rp)):
         if o.shape != r.shape or not torch.isfinite(o).all():
             fail(f"{name} {what}: shape {tuple(o.shape)} vs {tuple(r.shape)} or non-finite")
-    tol6 = E2E_TOL[dtype] * max(1.0, float(r6.abs().max()))
+    scale6 = float(r6.abs().max())
+    tol6 = E2E_TOL[dtype] * scale6
     err6 = float((o6 - r6).abs().max())
     if not err6 <= tol6:
         fail(f"{name} rot6d: max |gpu - cpu| {err6:.3e} > {tol6:.3e}")
-    cond = gram_schmidt_condition(r6)
+    well = gram_schmidt_condition(r6) > COND_MIN
+    chain = ancestors_ok(well)
+    if not (bool(well.any()) and bool(chain[..., 1:].any())):
+        fail(f"{name}: no joint with condition > {COND_MIN} to check rotmat and pose on")
     err_m = (om - rm).abs().amax(dim=(-1, -2))
-    tol_m = (4 * tol6 / cond.clamp_min(1e-12)).clamp_max(2.0)
-    if not bool((err_m <= tol_m).all()):
-        i = int((err_m - tol_m).argmax())
-        fail(f"{name} rotmat: |gpu - cpu| {float(err_m.flatten()[i]):.3e} > "
-             f"{float(tol_m.flatten()[i]):.3e} at condition {float(cond.flatten()[i]):.3e}")
+    err_p = (op - rp).abs().amax(dim=-1)
+    checks = (("rotmat", float(err_m[well].max()), ROT_TOL[dtype]),
+              ("pose", float(err_p[chain].max()), POSE_TOL[dtype]))
+    for what, err, tol in checks:
+        if not err <= tol:
+            fail(f"{name} {what}: max |gpu - cpu| {err:.3e} > {tol:.3e} where "
+                 f"well conditioned")
     fk_ref = fk_mod.fk_from_rotmat(om, fk_mod.default_offsets())
     tol_p = 1e-4 * max(1.0, float(fk_ref.abs().max()))
     err_fk = float((op - fk_ref).abs().max())
     if not err_fk <= tol_p:
         fail(f"{name} pose: FK on the GPU vs the CPU {err_fk:.3e} > {tol_p:.3e}")
-    well = cond > 0.1
-    errs = {"rot6d": err6, "rotmat": float(err_m.max()),
-            "rotmat_condition_gt_0.1": float(err_m[well].max()),
-            "share_condition_gt_0.1": float(well.float().mean()),
-            "pose_fk": err_fk, "pose_vs_cpu": float((op - rp).abs().max())}
+    errs = {"rot6d": err6, "rot6d_tol": tol6, "rot6d_max_abs": scale6,
+            "rot6d_median_abs": float(r6.abs().median()),
+            "rotmat_well": checks[0][1], "rotmat_tol": checks[0][2],
+            "share_well": float(well.float().mean()),
+            "pose_well": checks[1][1], "pose_tol": checks[1][2],
+            "share_pose_well": float(chain.float().mean()),
+            "rotmat_all": float(err_m.max()), "pose_all": float(err_p.max()),
+            "pose_fk": err_fk}
     reps = 20
     fused_conv_pool.launches = 0
     ms = time_ms(lambda: gpu.mean_reconstruction(x6d), reps=reps, samples=5)
@@ -312,10 +344,9 @@ def main() -> None:
     from hm_vae_torch.utils.config import load_config
 
     # 1. build
-    seconds = _build.build_all(verbose=True)
-    print(f"build: {seconds:.1f} s", flush=True)
-    for name, log in _build.BUILD_LOG.items():
-        print(f"--- nvcc {name}\n{log.strip()}", flush=True)
+    t0 = time.perf_counter()
+    _build.load("fused_conv_pool")
+    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
 
     cfg = load_config(CONFIG)
     st = get_structure(cfg.model)

@@ -15,20 +15,23 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..models.hm_vae import HMVAE, OperandMap, prior_z_list, split_stats
+from ..models.hm_vae import HMVAE, prior_z_list, split_stats
 from ..ops import fk as fk_mod
 from ..ops import rotations as rot
 from ..utils.config import Config
 from ..utils.device import resolve_device
 
 
-def make_inference_fns(model: HMVAE, cfg: Config, ops: Optional[OperandMap] = None):
+def make_inference_fns(model: HMVAE, cfg: Config):
     """The inference functions over ``model``'s parameters:
     ``{"encode_mean", "decode_full", "reconstruct"}``.  z lists are tuples.
 
-    ``ops`` are precomputed conv operands (:meth:`HMVAE.conv_operands`);
-    without them each call derives the masked and folded weights anew.
+    Like the JAX version, which closes over its parameters as constants, it
+    prepares the kernel operands of every conv (compute-dtype cast, mask,
+    unpool fold) once, here: later changes to the parameters are not seen.
     """
+    with torch.no_grad():
+        ops = model.conv_operands()
     offsets = torch.as_tensor(fk_mod.default_offsets(),
                               device=next(model.parameters()).device)
 
@@ -52,19 +55,15 @@ def make_inference_fns(model: HMVAE, cfg: Config, ops: Optional[OperandMap] = No
 class VAEInference:
     """A model bound for inference on one device (``cuda`` unless told).
 
-    Like the JAX version, which closes over its parameters as constants, it
-    prepares the kernel operands of every conv (compute-dtype cast, mask,
-    unpool fold) once when it is built: later changes to the model's
-    parameters are not seen.  The model is moved to ``device``.
+    The model is moved to ``device``; its conv operands are prepared once,
+    when this is built (:func:`make_inference_fns`).
     """
 
     def __init__(self, model: HMVAE, cfg: Config, device="cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = model.to(self.device).eval()
-        with torch.no_grad():
-            self._ops = model.conv_operands()
-        fns = make_inference_fns(self.model, cfg, self._ops)
+        fns = make_inference_fns(self.model, cfg)
         self._encode_mean = fns["encode_mean"]
         self._decode_full = fns["decode_full"]
         self._reconstruct = fns["reconstruct"]

@@ -16,7 +16,7 @@
 //
 // What bounds it on an H100: at the len-64 model's batch of 8 one level
 // reads 1.4-15.5 MB and does 0.08-0.43 GFLOP once the neighbourhood mask's
-// zeros are skipped: 0.4-6.5 us at the data-sheet 3.35 TB/s and 67 TFLOP/s
+// zeros are skipped: 0.2-6.5 us at the data-sheet 3.35 TB/s and 67 TFLOP/s
 // (f32 without tensor cores), so f32 levels sit near the balance of bytes
 // and FMA rate and bf16 ones are bound by bytes.  The levels are small
 // matrix products (C_out <= 672 rows, B*T_out = 32..512 columns) with a

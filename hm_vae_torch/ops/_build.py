@@ -1,13 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface and loaded with ``ctypes``.  The build runs
-at first use, one ``nvcc`` per source, all started together, into
-``build/hm_vae_torch_kernels/`` beside the package.  A library's file name
-carries a hash of its source, so an edited source is rebuilt.
+``load(name)`` compiles ``csrc/<name>.cu`` with one ``nvcc`` command for
+``sm_90a`` into a shared library with a plain C interface, at first use, into
+``build/hm_vae_torch_kernels/`` beside the package, and loads it with
+``ctypes``.  A library's file name carries a hash of its source and flags, so
+an edited source is rebuilt.
 
 Nothing here runs at import: the CPU tests import every module of the port,
-and this machine class has no ``nvcc``.
+and a machine without a GPU has no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -18,9 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
-from typing import Dict, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hm_vae_torch_kernels"
@@ -28,8 +26,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
-BUILD_LOG: Dict[str, str] = {}  # source name -> nvcc output (``-Xptxas -v``)
 
 
 def _nvcc() -> str:
@@ -39,57 +35,27 @@ def _nvcc() -> str:
     return path
 
 
-def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
-
-
-def build_all(verbose: bool = False) -> float:
-    """Compile every source whose library is missing; returns the seconds
-    spent.  With ``verbose`` the compiler reports each kernel's registers,
-    shared memory and spills (kept in :data:`BUILD_LOG`)."""
-    t0 = time.perf_counter()
-    with _lock:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        jobs = []
-        for src in sorted(CSRC_DIR.glob("*.cu")):
-            target = _target(src)
-            if target.exists():
-                continue
-            tmp = target.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-                   "-o", str(tmp), str(src)]
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True)
-            jobs.append((src, target, tmp, proc))
-        failures = []
-        for src, target, tmp, proc in jobs:
-            out, _ = proc.communicate()
-            BUILD_LOG[src.name] = out
-            if proc.returncode != 0:
-                failures.append(f"{src.name}:\n{out}")
-            else:
-                os.replace(tmp, target)
-        if failures:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
-    return time.perf_counter() - t0
-
-
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    with _lock:
-        lib = _libs.get(name)
-    if lib is not None:
-        return lib
+    """The library of ``csrc/<name>.cu``, compiled first if it is missing.
+
+    Every library exports ``hmvae_error_string(int) -> const char*``.
+    """
     src = CSRC_DIR / f"{name}.cu"
-    if not src.exists():
-        raise FileNotFoundError(src)
-    if not _target(src).exists():
-        build_all()
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    target = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     with _lock:
-        if name not in _libs:
-            _libs[name] = ctypes.CDLL(str(_target(src)))
-        return _libs[name]
+        if not target.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stdout}{proc.stderr}")
+            os.replace(tmp, target)
+    lib = ctypes.CDLL(str(target))
+    lib.hmvae_error_string.argtypes = [ctypes.c_int]
+    lib.hmvae_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
@@ -97,14 +63,3 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.hmvae_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
-
-
-def signature(lib: ctypes.CDLL, fn: str, argtypes: Tuple, restype=ctypes.c_int):
-    """Declare a C function's argument and return types once per process."""
-    f = getattr(lib, fn)
-    if f.argtypes is None:
-        f.argtypes = list(argtypes)
-        f.restype = restype
-        lib.hmvae_error_string.argtypes = [ctypes.c_int]
-        lib.hmvae_error_string.restype = ctypes.c_char_p
-    return f

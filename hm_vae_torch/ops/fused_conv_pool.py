@@ -21,6 +21,7 @@ decimation matmul and a padded copy.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -48,6 +49,17 @@ def fused_conv_pool_reference(
     if pool_matrix is not None:
         y = apply_channel_matrix(y, pool_matrix)
     return leaky_relu(y, negative_slope)
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    """The kernel's library, built at first use, and its C entry point."""
+    lib = _build.load("fused_conv_pool")
+    fn = lib.hmvae_fused_conv_pool
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib, fn
 
 
 def _check(name: str, t: Optional[torch.Tensor], x: torch.Tensor, shape) -> None:
@@ -114,10 +126,7 @@ def fused_conv_pool(
         raise ValueError(f"batch x output steps {B * T_out} outside the kernel's grid "
                          f"range (1..{65535 * 32})")
 
-    lib = _build.load("fused_conv_pool")
-    fn = _build.signature(lib, "hmvae_fused_conv_pool",
-                          [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
-                          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib, fn = _library()
     out = torch.empty((B, P, T_out), dtype=x.dtype, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(x.device):
