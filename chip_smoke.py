@@ -7,11 +7,18 @@ Phases, each of which exits non-zero on failure:
 0. print the card (``nvidia-smi``); turn TF32 off so that f32 references
    are f32;
 1. build the kernel from ``hm_vae_torch/csrc/fused_conv_pool.cu`` (``nvcc``,
-   sm_90a);
-2. hold ``fused_conv_pool`` against its plain PyTorch version at the eight
-   level shapes of the len-64 model at batch 8 (its real operands: masks,
-   pool matrices, unpool-folded weights), in f32 and bf16, plus one stride-1
-   case with a pool; time kernel, plain version and a cuDNN yardstick;
+   sm_90a), and beside it a cubin whose ``-Xptxas -v`` report (registers,
+   shared memory, spills) and SASS (``HGMMA``: wgmma; ``UBLKCP``: bulk
+   copies) are printed; the bf16 instantiation must issue wgmma;
+2. hold the kernel against its plain PyTorch version at the eight level
+   shapes of the len-64 model (its real operands: masks, pool matrices,
+   unpool-folded weights), in f32 and bf16, at batch 8 (plus one stride-1
+   case with a pool) and at refine_vibe's batch of 237: the packed entry
+   against unpack + plain version, and the Pallas-signature entry against
+   the plain version on the raw operands.  Time kernel, plain version and a
+   cuDNN yardstick on the device (``device_ms``: calls captured in a CUDA
+   graph, replays timed with events), and the kernel's eager calls
+   (``eager_ms``);
 3. the serving path end to end: ``VAEInference.mean_reconstruction`` of the
    full-width len-64 model (seeded random weights) at batch 8 on the GPU,
    against the same weights on the CPU, in f32 and bf16; the kernel must be
@@ -45,9 +52,12 @@ BATCH = 8
 SEED = 0
 DEV = "cuda"
 
-# H100 SXM data-sheet peaks (dense): memory, f32 outside the tensor cores, bf16
+VIBE_BATCH = 237  # refine_vibe's windows for a 300-frame sequence
+# H100 SXM data-sheet peaks (dense): memory; the fastest unit the kernel uses
+# for each dtype: bf16 tensor cores, and for f32 3xTF32 (three TF32 products
+# per multiply-add) on the TF32 tensor cores
 MEM_BPS = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 # kernel vs plain version on the same inputs: f32 sums differ only in order;
 # bf16 rounds its operands and output
 TOL = {torch.float32: lambda ref: 1e-4 * max(1.0, ref), torch.bfloat16: lambda ref: 0.02 * ref}
@@ -65,13 +75,21 @@ ROT_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.1}
 POSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.1}
 
 
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
 def time_ms(fn, reps: int = 20, samples: int = 7) -> float:
-    """Median over `samples` of CUDA-event time per call, `reps` calls each."""
+    """Median over `samples` of CUDA-event time per call, `reps` eager calls
+    each: at a few microseconds a call this is the host's enqueue rate."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -88,23 +106,68 @@ def time_ms(fn, reps: int = 20, samples: int = 7) -> float:
     return statistics.median(times)
 
 
-def level_work(x, w, b, m, p, out):
-    """(bytes, operations) one call needs: each input read once and the
-    output written once, but of the weight only the live entries, those the
-    mask keeps in the conv rows the pool reads; multiply-adds only where the
-    mask and pool are nonzero."""
+def device_ms(fn, reps: int = 20, samples: int = 7) -> float:
+    """Device time per call: `reps` calls captured in one CUDA graph, the
+    median over `samples` replays timed with CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return statistics.median(times)
+
+
+def raw_operands(conv, dtype):
+    """(weight, bias, mask, pool) of the Pallas wrapper's signature for one
+    conv: the raw weight with its mask and pool, or with the unpool folded
+    in (the wrapper takes no unpool)."""
+    cast = lambda t: None if t is None else t.detach().to(dtype).contiguous()  # noqa: E731
+    w, b, m, p = cast(conv.weight), cast(conv.bias), cast(conv.mask), cast(conv.pool)
+    if conv.unpool is not None:
+        wm = w if m is None else w * m[:, :, None]
+        w, m = torch.einsum("ock,cp->opk", wm, conv.unpool.to(dtype)).contiguous(), None
+    return w, b, m, p
+
+
+def level_work(x, raw, folded, out):
+    """(bytes, operations) one call needs at the least, whatever the design:
+    x read once and the output written once, plus the fewer weight bytes of
+    the two forms (the raw live entries, those the mask keeps in the conv
+    rows the pool reads, with mask and pool; or the folded weight's nonzeros
+    and its bias), and the fewer multiply-adds (raw: masked conv + pool;
+    folded: its nonzeros)."""
+    w, b, m, p = raw
     B, C_in, _ = x.shape
     C_out, _, K = w.shape
-    T_out = out.shape[-1]
+    N = B * out.shape[-1]
     rows = (torch.ones(C_out, dtype=torch.bool, device=w.device) if p is None
             else (p != 0).any(0))
     live = int(rows.sum()) * C_in if m is None else int((m[rows] != 0).sum())
-    nbytes = live * K * w.element_size() + sum(
-        t.numel() * t.element_size() for t in (x, b, m, p, out) if t is not None)
-    ops = 2 * B * T_out * K * live
-    if p is not None:
-        ops += 2 * B * T_out * int((p != 0).sum())
-    return nbytes, ops
+    raw_bytes = live * K * w.element_size() + sum(
+        t.numel() * t.element_size() for t in (b, m, p) if t is not None)
+    raw_ops = 2 * N * K * live + (2 * N * int((p != 0).sum()) if p is not None else 0)
+    fw, fb = folded
+    nnz = int((fw != 0).sum())
+    fold_bytes = nnz * fw.element_size() + (0 if fb is None else fb.numel() * fb.element_size())
+    io = sum(t.numel() * t.element_size() for t in (x, out))
+    return io + min(raw_bytes, fold_bytes), min(raw_ops, 2 * N * nnz)
 
 
 def level_cases(model, st):
@@ -118,34 +181,51 @@ def level_cases(model, st):
     return cases
 
 
+def check(name, out, ref, dtype):
+    """max |out - ref| within TOL, else fail; returns (err, tol)."""
+    if out.shape != ref.shape or not torch.isfinite(out).all():
+        fail(f"{name}: shape {tuple(out.shape)} vs {tuple(ref.shape)} or non-finite output")
+    err = float((out.float() - ref.float()).abs().max())
+    tol = TOL[dtype](float(ref.float().abs().max()))
+    if not err <= tol:
+        fail(f"{name}: max |kernel - plain| {err:.3e} > {tol:.3e}")
+    return err, tol
+
+
 @torch.inference_mode()
-def kernel_phase(model, st, dtype, gen):
-    from hm_vae_torch.ops.fused_conv_pool import fused_conv_pool, fused_conv_pool_reference
+def kernel_phase(model, st, dtype, batch, gen):
+    """Every level at `batch`: the packed entry against unpack + plain
+    version, the Pallas-signature entry against the plain version, and the
+    device times of kernel, plain version and cuDNN."""
+    from hm_vae_torch.ops.fused_conv_pool import (
+        CHUNK_CHANNELS, fused_conv_pool, fused_conv_pool_packed, fused_conv_pool_reference,
+        unpack_level)
 
     rows = []
     cases = [(n, c, T, c.spec.stride) for n, c, T in level_cases(model, st)]
-    n0, c0, T0, _ = cases[0]
-    cases.append((f"{n0}_stride1", c0, T0, 1))  # stride 1 with a pool
+    if batch == BATCH:
+        n0, c0, T0, _ = cases[0]
+        cases.append((f"{n0}_stride1", c0, T0, 1))  # stride 1 with a pool
+    dt = str(dtype).replace("torch.", "")
     for name, conv, T_in, stride in cases:
         conv = copy.deepcopy(conv)
         conv.dtype = dtype
-        w, b, m, p = conv.kernel_operands()
-        fw, fb = conv.folded_weight()
+        conv.spec = dataclasses.replace(conv.spec, stride=stride)
+        packed = conv.packed_operands()  # prepared once, outside the timing
+        fw, fb = unpack_level(packed)
+        raw = raw_operands(conv, dtype)
         s = conv.spec
         slope = conv.negative_slope
-        x = torch.randn((BATCH, w.shape[1], T_in), generator=gen).to(DEV, dtype)
-        args = (x, w, b, m, p, stride, s.padding, s.padding_mode, slope)
-        out = fused_conv_pool(*args)
-        ref = fused_conv_pool_reference(*args)
+        x = torch.randn((batch, fw.shape[1], T_in), generator=gen).to(DEV, dtype)
+        out = fused_conv_pool_packed(x, packed)
+        ref = fused_conv_pool_reference(x, fw, fb, None, None, stride, s.padding,
+                                        s.padding_mode, slope)
         torch.cuda.synchronize()
-        if out.shape != ref.shape or not torch.isfinite(out).all():
-            fail(f"{name} {dtype}: shape {tuple(out.shape)} vs {tuple(ref.shape)} "
-                 "or non-finite output")
-        err = float((out.float() - ref.float()).abs().max())
-        scale = float(ref.float().abs().max())
-        tol = TOL[dtype](scale)
-        if not err <= tol:
-            fail(f"{name} {dtype}: max |kernel - plain| {err:.3e} > {tol:.3e}")
+        err, tol = check(f"{name} {dt} B={batch} packed", out, ref, dtype)
+        args = (x, *raw, stride, s.padding, s.padding_mode, slope)
+        plain = fused_conv_pool_reference(*args)
+        err_api, _ = check(f"{name} {dt} B={batch} unpacked", fused_conv_pool(*args),
+                           plain, dtype)
         pad = s.padding
 
         def library():
@@ -153,19 +233,22 @@ def kernel_phase(model, st, dtype, gen):
                        else "constant")
             return F.leaky_relu(F.conv1d(xp, fw, fb, stride=stride), slope)
 
-        lib_out = library()
-        lib_err = float((lib_out.float() - ref.float()).abs().max())
-        nbytes, ops = level_work(*args[:5], out)
+        lib_err = float((library().float() - ref.float()).abs().max())
+        nbytes, ops = level_work(x, raw, (fw, fb), out)
         t_bytes, t_ops = nbytes / MEM_BPS * 1e3, ops / PEAK_FLOPS[dtype] * 1e3
+        kernel = lambda: fused_conv_pool_packed(x, packed)  # noqa: E731
         row = {
-            "level": name, "dtype": str(dtype).replace("torch.", ""),
-            "shape": {"B": BATCH, "C_in": w.shape[1], "T": T_in, "C_out": w.shape[0],
+            "level": name, "dtype": dt, "batch": batch,
+            "shape": {"C_in": fw.shape[1], "T": T_in, "C_out": s.out_channels,
                       "P": out.shape[1], "T_out": out.shape[2], "stride": stride,
-                      "mask": m is not None, "pool": p is not None},
-            "max_abs_err": err, "tol": tol, "library_err": lib_err,
-            "ms": time_ms(lambda: fused_conv_pool(*args)),
-            "plain_ms": time_ms(lambda: fused_conv_pool_reference(*args)),
-            "library_ms": time_ms(library),
+                      "mask": raw[2] is not None, "pool": raw[3] is not None},
+            "live_tiles": int(packed.tile_start[-1]),
+            "tiles": (packed.tile_start.numel() - 1) * -(-fw.shape[1] // CHUNK_CHANNELS[dtype]),
+            "max_abs_err": max(err, err_api), "tol": tol, "library_err": lib_err,
+            "ms": device_ms(kernel),
+            "plain_ms": device_ms(lambda: fused_conv_pool_reference(*args)),
+            "library_ms": device_ms(library),
+            "eager_ms": time_ms(kernel),
             "bytes": nbytes, "ops": ops,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -173,6 +256,34 @@ def kernel_phase(model, st, dtype, gen):
         print(json.dumps(row), flush=True)
         rows.append(row)
     return rows
+
+
+def build_report(proc, cubin):
+    """Registers, shared memory and spills per instantiation from
+    ``nvcc -Xptxas -v``, and the count of HGMMA (wgmma) and UBLKCP (bulk
+    copy) instructions in each one's SASS."""
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"nvcc -cubin failed:\n{out}{err}")
+    report = {}
+    dtype = None
+    for line in (out + err).splitlines():
+        if "Compiling entry function" in line:
+            dtype = "bf16" if "nv_bfloat16" in line else "f32"
+        elif dtype and "Used" in line and "registers" in line:
+            report.setdefault(dtype, {})["ptxas"] = line.split("info    :")[-1].strip()
+        elif dtype and "spill" in line:
+            report.setdefault(dtype, {})["spills"] = line.strip()
+    from hm_vae_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True, text=True,
+                          check=True).stdout
+    for part in sass.split("Function : ")[1:]:
+        dtype = "bf16" if "nv_bfloat16" in part.splitlines()[0] else "f32"
+        report.setdefault(dtype, {}).update(
+            hgmma=part.count("HGMMA"), ublkcp=part.count("UBLKCP"))
+    return report
 
 
 def ancestors_ok(ok):
@@ -328,9 +439,7 @@ def cli_phase(rng):
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     print(smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
@@ -343,18 +452,31 @@ def main() -> None:
     from hm_vae_torch.ops import rotations as rot
     from hm_vae_torch.utils.config import load_config
 
-    # 1. build
+    # 1. build: the library, and beside it (in parallel) a cubin whose
+    #    compiler report and SASS show registers, spills and wgmma
+    os.makedirs(OUT_DIR, exist_ok=True)
+    cubin = os.path.join(OUT_DIR, "fused_conv_pool.cubin")
+    report_proc = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS[:4], "-cubin", "-Xptxas", "-v", "-o", cubin,
+         str(_build.CSRC_DIR / "fused_conv_pool.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     t0 = time.perf_counter()
     _build.load("fused_conv_pool")
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    report = build_report(report_proc, cubin)
+    print(json.dumps({"phase": "build_report", **report}), flush=True)
+    if not report.get("bf16", {}).get("hgmma"):
+        fail("the bf16 instantiation has no HGMMA (wgmma) instruction")
 
     cfg = load_config(CONFIG)
     st = get_structure(cfg.model)
     gen = torch.Generator().manual_seed(SEED)
     model = HMVAE(cfg.model, cfg.optim.init, generator=gen).to(DEV)
 
-    # 2. kernel against its plain version at the main path's shapes
-    levels = {dt: kernel_phase(model, st, dt, gen) for dt in (torch.float32, torch.bfloat16)}
+    # 2. kernel against its plain version at the main path's shapes: the
+    #    batch-8 reconstruct and refine_vibe's batch of 237 windows
+    levels = {(dt, b): kernel_phase(model, st, dt, b, gen)
+              for b in (BATCH, VIBE_BATCH) for dt in (torch.float32, torch.bfloat16)}
 
     # 3. the serving path end to end
     rng = np.random.default_rng(SEED)
@@ -365,26 +487,31 @@ def main() -> None:
     # 4. the serving entry point
     cli_phase(rng)
 
-    # 5. summary
-    main_levels, bf16_levels = ([r for r in levels[dt] if not r["level"].endswith("stride1")]
-                                for dt in (torch.float32, torch.bfloat16))
-    total = lambda key, rows: sum(r[key] for r in rows)  # noqa: E731
-    by_bytes = sum(r["bound_ms"] for r in main_levels if r["bound_by"] == "bytes")
+    # 5. summary: sums over the 8 levels of one reconstruct
+    def sums(dtype, batch):
+        rows = [r for r in levels[(dtype, batch)] if not r["level"].endswith("stride1")]
+        out = {k: sum(r[k] for r in rows)
+               for k in ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms")}
+        by_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
+        out["bound_by"] = "bytes" if by_bytes >= out["bound_ms"] / 2 else "operations"
+        out["max_abs_err"] = max(r["max_abs_err"] for r in levels[(dtype, batch)])
+        return out
+
+    f32, bf16 = sums(torch.float32, BATCH), sums(torch.bfloat16, BATCH)
     summary = {"kernels": [{
         "name": "fused_conv_pool", "route": "cuda",
         "source": "hm_vae_torch/csrc/fused_conv_pool.cu",
         "replaces": "hm_vae_tpu/ops/pallas_kernels.py:65",
         "launches": e2e[torch.float32]["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in main_levels),
-        "ms": total("ms", main_levels), "plain_ms": total("plain_ms", main_levels),
-        "bound_ms": total("bound_ms", main_levels),
-        "bound_by": "bytes" if by_bytes >= total("bound_ms", main_levels) / 2 else "operations",
-        "library_ms": total("library_ms", main_levels),
-        "note": "times and bounds are sums over the 8 levels of one len-64 reconstruct "
-                "at batch 8, in f32 (top level) and in bf16 (\"bf16\")",
-        "bf16": {"max_abs_err": max(r["max_abs_err"] for r in bf16_levels),
-                 **{k: total(k, bf16_levels)
-                    for k in ("ms", "plain_ms", "library_ms", "bound_ms")}},
+        **f32,
+        "note": "times (device time from CUDA-graph replays; eager_ms: eager calls) and "
+                "bounds are sums over the 8 levels of one len-64 reconstruct at batch 8, "
+                "in f32 (top level) and in bf16 (\"bf16\"); \"b237\": the same at "
+                "refine_vibe's batch of 237 windows",
+        "bf16": bf16,
+        "b237": {"f32": sums(torch.float32, VIBE_BATCH),
+                 "bf16": sums(torch.bfloat16, VIBE_BATCH)},
+        "build": report,
     }]}
     print(json.dumps(summary), flush=True)
     print(smi, flush=True)

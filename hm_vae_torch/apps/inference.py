@@ -27,8 +27,9 @@ def make_inference_fns(model: HMVAE, cfg: Config):
     ``{"encode_mean", "decode_full", "reconstruct"}``.  z lists are tuples.
 
     Like the JAX version, which closes over its parameters as constants, it
-    prepares the kernel operands of every conv (compute-dtype cast, mask,
-    unpool fold) once, here: later changes to the parameters are not seen.
+    prepares the kernel operands of every conv once, here (the folded weight
+    in the compute dtype, packed into block-sparse tiles): later changes to
+    the parameters are not seen.
     """
     with torch.no_grad():
         ops = model.conv_operands()
@@ -55,7 +56,7 @@ def make_inference_fns(model: HMVAE, cfg: Config):
 class VAEInference:
     """A model bound for inference on one device (``cuda`` unless told).
 
-    The model is moved to ``device``; its conv operands are prepared once,
+    The model is moved to ``device``; its conv operands are packed once,
     when this is built (:func:`make_inference_fns`).
     """
 

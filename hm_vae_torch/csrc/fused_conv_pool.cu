@@ -1,73 +1,188 @@
-// One level of the skeleton-aware VAE in one kernel: masked temporal
-// convolution (+ bias), an optional channel-pool matrix, then LeakyReLU.
+// One level of the skeleton-aware VAE as a block-sparse implicit GEMM on
+// Hopper: the level's conv weight with the skeleton mask, the pool and the
+// unpool folded in, bf16 products on the tensor cores (wgmma), weight tiles
+// brought by bulk asynchronous copies (cp.async.bulk + mbarrier).
 //
 // Replaces the Pallas TPU kernel hm_vae_tpu/ops/pallas_kernels.py
-// (fused_conv_pool, body _fused_kernel).  It computes what that kernel
-// computes, for x (B, C_in, T), weight (C_out, C_in, K), mask (C_out, C_in),
-// bias (C_out), pool (P, C_out):
+// (fused_conv_pool, body _fused_kernel).  The wrapper
+// (hm_vae_torch/ops/fused_conv_pool.py) folds the operands once, as the JAX
+// module does (hm_vae_tpu/models/hm_vae.py: P @ (W*mask) @ U, P @ b), into
+// Wf (P, C_in, K) and bf (P,), and this kernel computes
 //
-//   out[b, p, t] = act( sum_o pool[p, o] * (bias[o] + sum_{c,k} mask[o, c]
-//                       * weight[o, c, k] * xpad[b, c, t*stride + k]) )
+//   out[b, p, t] = act( bf[p] + sum_{c,k} Wf[p, c, k] * xpad[b, c, t*stride + k] )
 //
-// where xpad is x padded in time by `padding` (reflect without edge repeat,
-// or zeros), act(v) = v >= 0 ? v : slope * v, and a null bias / mask / pool
-// means zero / all ones / identity.  Operands are f32 or bf16 (all of one
-// type); products are summed in f32 and the output has the operands' type.
+// for x (B, C_in, T_in), where xpad is x padded in time by `padding`
+// (reflect without edge repeat, or zeros) and act(v) = v >= 0 ? v : slope*v.
+// x must be 16-byte aligned with C_in a multiple of 8 (the wrapper pads
+// other shapes), so that every chunk's rows of x are whole bulk copies.
+// As a GEMM: rows p, reduction j = (c, k), columns n = (b, t); the columns'
+// operand is the im2col of xpad, built here in shared memory.
 //
-// What bounds it on an H100: at the len-64 model's batch of 8 one level
-// reads 1.4-15.5 MB and does 0.08-0.43 GFLOP once the neighbourhood mask's
-// zeros are skipped: 0.2-6.5 us at the data-sheet 3.35 TB/s and 67 TFLOP/s
-// (f32 without tensor cores), so f32 levels sit near the balance of bytes
-// and FMA rate and bf16 ones are bound by bytes.  The levels are small
-// matrix products (C_out <= 672 rows, B*T_out = 32..512 columns) with a
-// long reduction (C_in*K = 2,160..10,080): output tiles alone give too few
-// blocks for 132 SMs, and a sum of one output per thread runs at the
-// latency of its load-and-FMA chain.
+// Packed weight (pack_level in the wrapper): rows in tiles of 64, the
+// reduction in chunks of CC input channels (16 in bf16, 8 in f32), so a
+// chunk is J = CC*K reduction steps (240 at K = 15), tap-major (j = k*CC +
+// c): one wgmma k-step per tap.  Only the (row tile, chunk) tiles holding a
+// nonzero are stored, one after the other, each in the layout wgmma reads
+// from shared memory (8x16-byte core matrices, no swizzle: row group stride
+// 256 B, k half stride 128 B, k-step stride 2048 B), so one bulk copy
+// brings a whole tile.  tile_start[rt] ..
+// tile_start[rt+1] index the live tiles of row tile rt, tile_chunk their
+// channel chunk.  In f32 a tile is two planes: big = Wf rounded to TF32 and
+// small = Wf - big; the products are 3xTF32 (big*big + big*small +
+// small*big, f32 accumulate), which keeps ~21 bits of the operands.  The
+// tensor cores sum one chunk at a time; the chunks' sums add in f32 on the
+// CUDA cores, which keeps long reductions (dec0: 42-84 chunks) accurate.
+//
+// What bounds it on an H100 (data sheet: 3.35 TB/s, 989 TFLOP/s bf16 and
+// 495 TFLOP/s TF32 dense).  At the len-64 model's batch of 8 the eight
+// levels stream ~23 MB of live bf16 weight (46 MB as f32 big+small) for
+// 1.6 GFLOP: a few microseconds of bytes and under 2 us of products, so a
+// level is bound by the weight stream and by launch and pipeline latency;
+// the products are tiny next to them.  At refine_vibe's batch of 237 the
+// same levels need ~48 GFLOP for the same bytes: bound by operations
+// (~50 us in bf16).
 //
 // What the design does about it:
-// - each output is a column n = (b, t) of a product over (c, k); a block
-//   owns 32 output rows x 32 columns, and each thread sums a 4 x 8 register
-//   tile, 32 FMAs for every 6 shared-memory loads;
-// - the reduction is split over the 8 warps of a block (each takes every
-//   8th (c, k) of a staged chunk) and over the S blocks of a thread-block
-//   cluster (each takes every S-th chunk of 8 input channels); the partial
-//   tiles are summed through shared and distributed shared memory, so a
-//   level launches 168-320 blocks without a second pass or atomics;
-// - a chunk whose mask tile (32 rows x 8 channels) is all zero is skipped
-//   before anything is loaded: the skeleton mask removes 60-80% of most
-//   levels' products, mostly in such whole tiles;
-// - weights are read once per block from L2 (the whole f32 model, ~48 MB,
-//   fits in its 50 MB), staged with the mask applied; padding and stride
-//   are index arithmetic on the staged input (the TPU kernel padded outside
-//   and strided through a 0/1 decimation matmul, a lane workaround);
-// - with a pool matrix a block lists the conv rows its 32 pooled rows read
-//   (nonzero pool columns, 1-2 per row for a skeleton mean-pool), computes
-//   them in passes of 32 and applies the pool rows to each pass in shared
-//   memory, so the pre-pool activation never reaches device memory.
-// It uses no tensor cores (no wgmma, no TMA): the products run on the f32
-// FMA units in both dtypes.
+// - block-sparse: all-zero 64x16-channel weight tiles (the skeleton mask
+//   and pool leave 0-69% of them per level) are neither stored nor loaded;
+// - a block owns a 64-row x 64-column output tile; each of its two
+//   warpgroups runs wgmma.m64n32k16 (bf16) or m64n32k8 (TF32) on 32 of the
+//   columns, f32 sums in registers, and both build the im2col tile;
+// - thread 0 keeps kStages chunks in flight with cp.async.bulk: the weight
+//   tile and, for each batch the block's columns touch, the chunk's rows
+//   x[b, c0:c0+CC, :] (contiguous), all completing on the stage's mbarrier,
+//   so no thread waits on a load of its own and the copies overlap the
+//   products and the im2col work;
+// - with the reduction tap-major, a 16-byte group of the im2col tile is
+//   one tap's 8 (4) channels at one time step, gathered from shared memory
+//   with padding and stride as index arithmetic on the time step;
+// - levels with few output tiles (enc3: 11 at batch 8) split the live
+//   chunks of a row tile over a thread-block cluster of up to 8 blocks and
+//   sum the partial tiles in a fixed order through distributed shared
+//   memory: no atomics, no second pass, the same bits every run;
+// - the epilogue adds bf, applies LeakyReLU, casts and stores (B, P, T_out).
+// A block builds a chunk's im2col tile and then runs its products; two
+// blocks per SM (bf16) overlap the two.  Times against the bounds are in
+// PERF.md.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <stddef.h>
+#include <stdint.h>
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBM = 32;       // conv rows per pass (4 per lane, 8 lane rows)
-constexpr int kBN = 32;       // columns (b, t) per block (8 per lane, 4 lane columns)
-constexpr int kTP = 32;       // output rows per block
-constexpr int kCC = 8;        // input channels per staged chunk
-constexpr int kMaxSplit = 8;  // blocks per cluster (the portable maximum)
-constexpr int kTile = kBM * kBN;
+constexpr int kThreads = 256;       // two warpgroups
+constexpr int kBM = 64;             // rows per tile (wgmma M)
+constexpr int kBN = 64;             // columns per tile
+constexpr int kWN = 32;             // columns per warpgroup (wgmma N)
+constexpr int kKStep = 2048;        // bytes of one k-step of a 64-row operand
+constexpr int kMaxSplit = 8;        // blocks per cluster (the portable maximum)
+constexpr int kRedBytes = kBM * kBN * 4;
+constexpr int kSmemPerSM = 233472;  // 228 KB
+constexpr int kMaxSmem = 232448;    // 227 KB a block
+constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T> struct Traits;
+template <> struct Traits<__nv_bfloat16> {
+  static constexpr int kCC = 16;     // input channels per chunk
+  static constexpr int kPlanes = 1;  // weight and im2col planes
+  static constexpr int kVec = 8;     // values per 16-byte core-matrix row
+  static constexpr int kStages = 2;  // weight tiles in flight
+};
+template <> struct Traits<float> {
+  static constexpr int kCC = 8;
+  static constexpr int kPlanes = 2;  // TF32 big and small
+  static constexpr int kVec = 4;
+  static constexpr int kStages = 2;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Waits for the phase after `parity`; traps (a launch error, not a hang) if a
+// copy never completes.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t spins = 0; !done; ++spins) {
+    if (spins == (1u << 26)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// Arrive on `bar` and make its phase wait for `bytes` of bulk copies.
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// One bulk copy of `bytes` contiguous bytes (16-byte aligned, a multiple of
+// 16) into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, no swizzle, K-major: core matrices of
+// 8 rows x 16 bytes; the two along k 128 bytes apart (leading byte offset),
+// row groups of 8 rows 256 bytes apart (stride byte offset).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32);
+}
+
+__device__ __forceinline__ void fence_acc(float (&d)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define HMVAE_D16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define HMVAE_ACC16(d)                                                                      \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),       \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15])
+
+// d = A (64 x 16, bf16) * B (16 x 32, bf16) + (acc ? d : 0), A and B
+// K-major in shared memory.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " HMVAE_D16
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : HMVAE_ACC16(d)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d = A (64 x 8, tf32) * B (8 x 32, tf32) + (acc ? d : 0), A and B K-major
+// in shared memory.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " HMVAE_D16
+      ", %16, %17, p, 1, 1;\n}\n"
+      : HMVAE_ACC16(d)
+      : "l"(a), "l"(b), "r"(acc));
+}
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
@@ -75,253 +190,261 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);
 }
 
-// Row stride of the staged weight tile: >= J and 1 mod 8, so that the 8 lane
-// rows of a warp (4 rows apart) read 8 different banks.
-__host__ __device__ inline int padded_j(int J) { return J + (9 - J % 8) % 8; }
+__device__ __forceinline__ uint32_t tf32_round(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
 
-// Floats of shared memory before the int row list.
-__host__ __device__ inline size_t smem_floats(int J) {
-  const size_t stage = (size_t)kBM * padded_j(J) + (size_t)J * kBN;
-  const size_t partial = (size_t)kWarps * kTile;
-  return (stage > partial ? stage : partial) + 4 * (size_t)kTile + (size_t)kBM * kCC;
+// The byte offset of the 16-byte core-matrix row (row r, value group g) in a
+// 64-row operand tile: k-step g/2, k half g%2, row group r/8, row r%8.
+__device__ __forceinline__ int core_offset(int r, int g) {
+  return (g >> 1) * kKStep + (g & 1) * 128 + (r >> 3) * 256 + (r & 7) * 16;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-fused_conv_pool_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                       const T* __restrict__ bias, const T* __restrict__ mask,
-                       const T* __restrict__ pool, T* __restrict__ out,
-                       int C_in, int T_in, int C_out, int K, int P, int T_out,
-                       int N, int stride, int padding, int reflect, float slope) {
+__global__ void __launch_bounds__(kThreads, 2)
+conv_gemm_kernel(const T* __restrict__ x, const T* __restrict__ wpack,
+                 const float* __restrict__ bias, const int* __restrict__ tile_start,
+                 const int* __restrict__ tile_chunk, T* __restrict__ out, int C_in, int T_in,
+                 int K, int P, int T_out, int N, int stride, int padding, int reflect,
+                 float slope, int nb_max) {
+  using Tr = Traits<T>;
+  constexpr int CC = Tr::kCC;
+  static_assert(CC == 2 * Tr::kVec, "a tap's CC channels are two 16-byte groups");
   cg::cluster_group cluster = cg::this_cluster();
-  const int split = (int)cluster.block_rank();
-  const int n_split = (int)cluster.num_blocks();
+  const int split = static_cast<int>(cluster.block_rank());
+  const int n_split = static_cast<int>(cluster.num_blocks());
 
-  const int J = kCC * K;
-  const int Jp = padded_j(J);
-  extern __shared__ __align__(16) float smem[];
-  float* ws = smem;                    // [kBM][Jp] masked weights of a chunk
-  float* xs = ws + (size_t)kBM * Jp;   // [J][kBN] input of a chunk
-  float* part = smem;                  // [kWarps][kTile], after the chunks
-  float* red = smem + smem_floats(J) - 4 * (size_t)kTile - (size_t)kBM * kCC;
-  float* conv = red + kTile;           // [kBM][kBN] summed over the cluster, + bias
-  float* ps = conv + kTile;            // [kTP][kBM] pool columns of a pass
-  float* pacc = ps + kTile;            // [kTP][kBN] pooled sums
-  float* ms = pacc + kTile;            // [kBM][kCC] mask tile of a chunk
-  int* rows = reinterpret_cast<int*>(ms + kBM * kCC);  // [C_out]
-  __shared__ int warp_base[kWarps];
-  __shared__ int n_rows_s;
+  const int J = CC * K;  // reduction per chunk, one k-step per tap
+  const uint32_t plane_bytes = static_cast<uint32_t>(kBM) * J * sizeof(T);
+  const uint32_t tile_bytes = plane_bytes * Tr::kPlanes;
+  const uint32_t b_bytes = tile_bytes > kRedBytes ? tile_bytes : kRedBytes;
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~static_cast<uintptr_t>(127));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);                 // [kStages]
+  float* bias_s = reinterpret_cast<float*>(smem + 64);                // [kBM]
+  int* chunk_s = reinterpret_cast<int*>(smem + 320);                  // [kStages]
+  unsigned char* a_s = smem + 384;                                    // [kStages][tile]
+  unsigned char* b_s = a_s + static_cast<size_t>(Tr::kStages) * tile_bytes;  // im2col
+  T* xs = reinterpret_cast<T*>(b_s + b_bytes);  // [kStages][nb_max][x_row]
+  float* red = reinterpret_cast<float*>(b_s);                         // [kBM][kBN], at the end
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int p0 = blockIdx.x * kTP;
-  const int n0 = blockIdx.y * kBN;
-  const int np = min(kTP, P - p0);
-  const int nn = min(kBN, N - n0);
+  const int wg = tid >> 7;  // warpgroup: columns 32*wg.. of the tile
+  const int n0 = blockIdx.x * kBN;
+  const int rt = blockIdx.y;
+  const int p0 = rt * kBM;
+  const int first = tile_start[rt];
+  const int live = tile_start[rt + 1] - first;
+  const int n_mine = live > split ? (live - split + n_split - 1) / n_split : 0;
 
-  // 1. The conv rows this block reads: its own rows, or with a pool matrix
-  //    the columns of pool[p0:p0+np] holding a nonzero, in ascending order.
-  if (pool == nullptr) {
-    for (int r = tid; r < np; r += kThreads) rows[r] = p0 + r;
-    if (tid == 0) n_rows_s = np;
-  } else {
-    if (tid == 0) n_rows_s = 0;
-    __syncthreads();
-    for (int base = 0; base < C_out; base += kThreads) {
-      const int o = base + tid;
-      bool used = false;
-      if (o < C_out)
-        for (int p = 0; p < np; ++p)
-          used |= to_f32(pool[(size_t)(p0 + p) * C_out + o]) != 0.f;
-      const unsigned ballot = __ballot_sync(0xffffffffu, used);
-      if (lane == 0) warp_base[warp] = __popc(ballot);
-      __syncthreads();
-      if (tid == 0) {
-        int acc = n_rows_s;
-        for (int i = 0; i < kWarps; ++i) {
-          const int n = warp_base[i];
-          warp_base[i] = acc;
-          acc += n;
-        }
-        n_rows_s = acc;
-      }
-      __syncthreads();
-      if (used) rows[warp_base[warp] + __popc(ballot & ((1u << lane) - 1u))] = o;
-      __syncthreads();
-    }
-  }
-  for (int e = tid; e < kTile; e += kThreads) pacc[e] = 0.f;
-  __syncthreads();
-  const int n_rows = n_rows_s;
+  // The batches this block's columns read, and the im2col work of this
+  // thread: column `col`, channel group h, taps kp, kp+2, ...
+  const int b_lo = n0 / T_out;
+  const int b_hi = (min(n0 + kBN, N) - 1) / T_out;
+  const int n_b = b_hi - b_lo + 1;
+  const int col = wg * kWN + (tid & 31);
+  const int h = (tid >> 5) & 1, kp = (tid >> 6) & 1;
+  const int n = n0 + col;
+  const bool col_ok = n < N;
+  const int b_n = col_ok ? n / T_out : b_lo;
+  const int t_base = (n - b_n * T_out) * stride - padding;
+  // A batch's CC x T_in rows of x, 16 bytes apart from the next batch's so
+  // that columns of different batches read different banks.
+  const int x_row = CC * T_in + 16 / static_cast<int>(sizeof(T));
+  const int xs_stage = nb_max * x_row;  // elements of x a stage holds
+  const int x_col = (b_n - b_lo) * x_row + h * Tr::kVec * T_in;
 
-  // The column this thread stages: n = n0 + lane, i.e. (b, t).
-  const int n_st = n0 + lane;
-  const bool col_ok = lane < nn;
-  const int b_st = col_ok ? n_st / T_out : 0;
-  const int t_st = n_st - b_st * T_out;
-  const T* xb = x + (size_t)b_st * C_in * T_in;
-  const int src0 = t_st * stride - padding;
-  // The register tile this thread sums: rows 4*lr.., columns 8*lc..
-  const int lr = lane & 7, lc = lane >> 3;
-  const int n_chunks = (C_in + kCC - 1) / kCC;
-
-  for (int pr = 0; pr < n_rows; pr += kBM) {
-    const int rows_here = min(kBM, n_rows - pr);
-    float acc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int q = 0; q < 8; ++q) acc[i][q] = 0.f;
-
-    for (int ch = split; ch < n_chunks; ch += n_split) {
-      const int c0 = ch * kCC;
-      const int nc = min(kCC, C_in - c0);
-      // 2a. The mask tile; skip the chunk if it is all zero.  The barrier
-      //     also ends the previous chunk's reads of ws and xs.
-      float m = 0.f;
-      {
-        const int r = tid / kCC, c = tid % kCC;
-        if (r < rows_here && c < nc)
-          m = mask ? to_f32(mask[(size_t)rows[pr + r] * C_in + c0 + c]) : 1.f;
-        ms[tid] = m;
-      }
-      if (!__syncthreads_or(m != 0.f)) continue;
-      // 2b. Stage the masked weights [kBM][J] and the input [J][kBN].
-      for (int e = tid; e < kBM * J; e += kThreads) {
-        const int r = e / J;
-        const int j = e - r * J;
-        const int c = j / K;
-        float v = 0.f;
-        if (r < rows_here && c < nc) {
-          const float mv = ms[r * kCC + c];
-          if (mv != 0.f) v = mv * to_f32(w[((size_t)rows[pr + r] * C_in + c0) * K + j]);
-        }
-        ws[r * Jp + j] = v;
-      }
-      for (int j = warp; j < J; j += kWarps) {
-        const int c = j / K;
-        const int k = j - c * K;
-        float v = 0.f;
-        if (col_ok && c < nc) {
-          int src = src0 + k;
-          if (src < 0 || src >= T_in)
-            src = reflect ? (src < 0 ? -src : 2 * (T_in - 1) - src) : -1;
-          if (src >= 0) v = to_f32(xb[(size_t)(c0 + c) * T_in + src]);
-        }
-        xs[j * kBN + lane] = v;
-      }
-      __syncthreads();
-      // 2c. This warp's share of the chunk's (c, k): every kWarps-th.
-      for (int j = warp; j < J; j += kWarps) {
-        const float4 xa = *reinterpret_cast<const float4*>(xs + j * kBN + lc * 8);
-        const float4 xc = *reinterpret_cast<const float4*>(xs + j * kBN + lc * 8 + 4);
-        const float xv[8] = {xa.x, xa.y, xa.z, xa.w, xc.x, xc.y, xc.z, xc.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float wv = ws[(lr * 4 + i) * Jp + j];
-#pragma unroll
-          for (int q = 0; q < 8; ++q) acc[i][q] = fmaf(wv, xv[q], acc[i][q]);
-        }
-      }
-    }
-
-    // 3. Sum the warps' tiles into red, then the cluster's into block 0's
-    //    conv (+ bias), each block summing one slice.
-    __syncthreads();  // the last chunk's reads of ws/xs are done
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float* dst = part + (size_t)warp * kTile + (lr * 4 + i) * kBN + lc * 8;
-      *reinterpret_cast<float4*>(dst) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      *reinterpret_cast<float4*>(dst + 4) =
-          make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-    }
-    __syncthreads();
-    for (int e = tid; e < kTile; e += kThreads) {
-      float v = 0.f;
-#pragma unroll
-      for (int g = 0; g < kWarps; ++g) v += part[(size_t)g * kTile + e];
-      red[e] = v;
-    }
-    cluster.sync();  // every block's red is complete
-    {
-      float* conv0 = cluster.map_shared_rank(conv, 0);
-      const int lo = kTile * split / n_split, hi = kTile * (split + 1) / n_split;
-      for (int e = lo + tid; e < hi; e += kThreads) {
-        float v = 0.f;
-        for (int q = 0; q < n_split; ++q) v += cluster.map_shared_rank(red, q)[e];
-        const int r = e / kBN;
-        if (bias != nullptr && r < rows_here) v += to_f32(bias[rows[pr + r]]);
-        conv0[e] = v;
-      }
-    }
-    cluster.sync();  // block 0's conv is complete; no block reads red any more
-
-    // 4. Block 0: activation and store, or this pass's pool rows.
-    if (split != 0) continue;
-    if (pool == nullptr) {  // a single pass: rows_here == np
-      for (int e = tid; e < kTile; e += kThreads) {
-        const int p = e / kBN, n = e - p * kBN;
-        if (p >= np || n >= nn) continue;
-        float v = conv[e];
-        v = v >= 0.f ? v : slope * v;
-        const int b = (n0 + n) / T_out, t = (n0 + n) - b * T_out;
-        out[((size_t)b * P + p0 + p) * T_out + t] = from_f32<T>(v);
-      }
-    } else {
-      for (int e = tid; e < kTile; e += kThreads) {
-        const int p = e / kBM, r = e - p * kBM;
-        ps[e] = (p < np && r < rows_here)
-                    ? to_f32(pool[(size_t)(p0 + p) * C_out + rows[pr + r]]) : 0.f;
-      }
-      __syncthreads();
-      for (int e = tid; e < kTile; e += kThreads) {
-        const int p = e / kBN, n = e - p * kBN;
-        float v = pacc[e];
-        for (int r = 0; r < rows_here; ++r) v = fmaf(ps[p * kBM + r], conv[r * kBN + n], v);
-        pacc[e] = v;
-      }
-    }
+  if (tid < kBM) bias_s[tid] = p0 + tid < P ? bias[p0 + tid] : 0.f;
+  // Stage `slot` of the ring: chunk i's weight tile and x[b_lo:b_lo+n_b,
+  // c0:c0+nc, :], one bulk copy each, all completing on the slot's barrier.
+  auto issue = [&](int i, int slot) {
+    const int idx = first + split + i * n_split;
+    const int c0 = tile_chunk[idx] * CC;
+    chunk_s[slot] = c0;  // published to the block by the barrier's phase
+    const uint32_t x_bytes = static_cast<uint32_t>(min(CC, C_in - c0) * T_in * sizeof(T));
+    const uint32_t bar = smem_addr(bars + slot);
+    mbar_expect(bar, tile_bytes + n_b * x_bytes);
+    bulk_copy(smem_addr(a_s + slot * tile_bytes),
+              wpack + static_cast<size_t>(idx) * (tile_bytes / sizeof(T)), tile_bytes, bar);
+    for (int bb = 0; bb < n_b; ++bb)
+      bulk_copy(smem_addr(xs + slot * xs_stage + bb * x_row),
+                x + (static_cast<size_t>(b_lo + bb) * C_in + c0) * T_in, x_bytes, bar);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < Tr::kStages; ++s) mbar_init(smem_addr(bars + s), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < Tr::kStages && i < n_mine; ++i) issue(i, i);
   }
 
-  if (pool != nullptr && split == 0) {
+  // acc: one chunk's products, summed by the tensor cores; sum: the chunks'
+  // sums, added in f32 here, so that no tensor-core sum runs longer than a
+  // chunk (J terms)
+  float acc[16], sum[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = sum[i] = 0.f;
+
+  for (int i = 0; i < n_mine; ++i) {
+    const int stage = i % Tr::kStages;
+    // Every thread has waited for the previous wgmma and reads nothing of
+    // the previous stage any more: refill that stage.
     __syncthreads();
-    for (int e = tid; e < kTile; e += kThreads) {
-      const int p = e / kBN, n = e - p * kBN;
-      if (p >= np || n >= nn) continue;
-      float v = pacc[e];
+    if (tid == 0 && i > 0 && i - 1 + Tr::kStages < n_mine)
+      issue(i - 1 + Tr::kStages, (i - 1) % Tr::kStages);
+    mbar_wait(smem_addr(bars + stage), (i / Tr::kStages) & 1);
+
+    // The im2col tile.  A chunk's reduction runs tap-major (j = k*CC + c),
+    // so the 16-byte group 2k + h of a column is the kVec channels h*kVec..
+    // of x at time t*stride + k - padding.
+    const bool group_ok = col_ok && h * Tr::kVec < C_in - chunk_s[stage];
+    const T* xcol = xs + stage * xs_stage + x_col;
+#pragma unroll 4
+    for (int k = kp; k < K; k += 2) {
+      int s = t_base + k;
+      if (s < 0 || s >= T_in) s = reflect ? (s < 0 ? -s : 2 * (T_in - 1) - s) : -1;
+      uint4 q = make_uint4(0u, 0u, 0u, 0u);
+      if (group_ok && s >= 0) {
+        uint32_t* qv = reinterpret_cast<uint32_t*>(&q);
+        if constexpr (Tr::kPlanes == 1) {
+          const uint16_t* xv = reinterpret_cast<const uint16_t*>(xcol) + s;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            qv[e] = static_cast<uint32_t>(xv[(2 * e) * T_in]) |
+                    (static_cast<uint32_t>(xv[(2 * e + 1) * T_in]) << 16);
+        } else {
+          const uint32_t* xv = reinterpret_cast<const uint32_t*>(xcol) + s;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qv[e] = xv[e * T_in];
+        }
+      }
+      unsigned char* dst = b_s + core_offset(col, 2 * k + h);
+      if constexpr (Tr::kPlanes == 1) {
+        *reinterpret_cast<uint4*>(dst) = q;
+      } else {
+        uint4 big, small;
+        const uint32_t* v = reinterpret_cast<const uint32_t*>(&q);
+        uint32_t* bp = reinterpret_cast<uint32_t*>(&big);
+        uint32_t* sp = reinterpret_cast<uint32_t*>(&small);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          bp[e] = tf32_round(__uint_as_float(v[e]));
+          sp[e] = __float_as_uint(__uint_as_float(v[e]) - __uint_as_float(bp[e]));
+        }
+        *reinterpret_cast<uint4*>(dst) = big;
+        *reinterpret_cast<uint4*>(dst + plane_bytes) = small;
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // the im2col tile is complete
+
+    // This warpgroup's 64 x 32 part of the tile: B columns 32*wg.. start
+    // four row groups (1024 bytes) into each k-step.
+    const uint32_t a0 = smem_addr(a_s + stage * tile_bytes);
+    const uint32_t b0 = smem_addr(b_s) + wg * (kWN / 8) * 256;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    fence_acc(acc);
+    for (int k = 0; k < K; ++k) {
+      const uint32_t off = k * kKStep;
+      if constexpr (Tr::kPlanes == 1) {
+        wgmma_bf16(acc, gmma_desc(a0 + off), gmma_desc(b0 + off), k > 0);
+      } else {
+        wgmma_tf32(acc, gmma_desc(a0 + plane_bytes + off), gmma_desc(b0 + off), k > 0);
+        wgmma_tf32(acc, gmma_desc(a0 + off), gmma_desc(b0 + plane_bytes + off), 1);
+        wgmma_tf32(acc, gmma_desc(a0 + off), gmma_desc(b0 + off), 1);
+      }
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+#pragma unroll
+    for (int r = 0; r < 16; ++r) sum[r] += acc[r];
+  }
+
+  // wgmma's accumulator: warp w of a warpgroup holds rows 16w..16w+15;
+  // register r is row lane/4 (+8 if r&2), column 8*(r/4) + 2*(lane%4) +
+  // (r&1) of the warpgroup's 32.
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  auto store = [&](int row, int c, float v) {
+    const int p = p0 + row, nn = n0 + c;
+    if (p < P && nn < N) {
+      v += bias_s[row];
       v = v >= 0.f ? v : slope * v;
-      const int b = (n0 + n) / T_out, t = (n0 + n) - b * T_out;
-      out[((size_t)b * P + p0 + p) * T_out + t] = from_f32<T>(v);
+      const int b = nn / T_out, t = nn - b * T_out;
+      out[(static_cast<size_t>(b) * P + p) * T_out + t] = from_f32<T>(v);
+    }
+  };
+  if (n_split == 1) {  // the whole sum is in registers: store it
+#pragma unroll
+    for (int r = 0; r < 16; ++r)
+      store(warp * 16 + (lane >> 2) + ((r & 2) ? 8 : 0),
+            wg * kWN + (r >> 2) * 8 + (lane & 3) * 2 + (r & 1), sum[r]);
+    return;
+  }
+
+  // Partial tile -> red, then block `split` sums its slice of rows over the
+  // cluster, in rank order.
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 16; r += 2) {
+    const int row = warp * 16 + (lane >> 2) + ((r & 2) ? 8 : 0);
+    const int c = wg * kWN + (r >> 2) * 8 + (lane & 3) * 2;
+    *reinterpret_cast<float2*>(red + row * kBN + c) = make_float2(sum[r], sum[r + 1]);
+  }
+  cluster.sync();  // every block's partial tile is in its shared memory
+  {
+    const float* part[kMaxSplit];
+#pragma unroll
+    for (int q = 0; q < kMaxSplit; ++q) part[q] = cluster.map_shared_rank(red, min(q, n_split - 1));
+    const int lo = kBM * split / n_split, hi = kBM * (split + 1) / n_split;
+#pragma unroll 4
+    for (int e = lo * kBN + tid; e < hi * kBN; e += kThreads) {
+      float v = part[0][e];
+#pragma unroll
+      for (int q = 1; q < kMaxSplit; ++q)
+        if (q < n_split) v += part[q][e];
+      store(e / kBN, e % kBN, v);
     }
   }
+  cluster.sync();  // no block leaves while another reads its partial tile
 }
 
 template <typename T>
-cudaError_t launch(const void* x, const void* w, const void* bias,
-                   const void* mask, const void* pool, void* out, int B,
-                   int C_in, int T_in, int C_out, int K, int P, int T_out,
-                   int stride, int padding, int reflect, float slope,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* x, const void* w, const void* bias, const void* tile_start,
+                   const void* tile_chunk, void* out, int B, int C_in, int T_in, int K, int P,
+                   int T_out, int stride, int padding, int reflect, float slope, int max_live,
+                   int device, int sms, cudaStream_t stream) {
+  using Tr = Traits<T>;
+  auto kernel = conv_gemm_kernel<T>;
+  // The shared-memory cap is set once per device, not per launch.
+  static bool ready[kMaxDevices] = {};
+  if (!ready[device]) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    ready[device] = true;
+  }
   const int N = B * T_out;
-  const size_t smem = sizeof(float) * smem_floats(kCC * K) + sizeof(int) * (size_t)C_out;
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  auto kernel = fused_conv_pool_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int device = 0, sms = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
-      cudaSuccess)
-    return err;
-  const int gx = (P + kTP - 1) / kTP, gy = (N + kBN - 1) / kBN;
-  const int n_chunks = (C_in + kCC - 1) / kCC;
-  // enough clusters' blocks for two per SM, each keeping a chunk or more
-  int split = (2 * sms + gx * gy - 1) / (gx * gy);
-  split = max(1, min(split, min(kMaxSplit, n_chunks)));
+  const size_t J = static_cast<size_t>(Tr::kCC) * K;
+  const size_t tile = static_cast<size_t>(kBM) * J * sizeof(T) * Tr::kPlanes;
+  const size_t b_bytes = tile > kRedBytes ? tile : kRedBytes;
+  // batches one block's 64 columns span, at most
+  const int nb = min(B, (kBN - 1) / T_out + 2);
+  const size_t xs_bytes =
+      static_cast<size_t>(Tr::kStages) * nb * (Tr::kCC * T_in * sizeof(T) + 16);
+  const size_t smem = 384 + 127 + Tr::kStages * tile + b_bytes + xs_bytes;
+  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+
+  const int nt = (N + kBN - 1) / kBN, rts = (P + kBM - 1) / kBM;
+  const int per_sm = max(1, min(8, kSmemPerSM / static_cast<int>(smem + 1024)));
+  // split the live chunks until the grid fills the card once
+  int split = (per_sm * sms + nt * rts - 1) / (nt * rts);
+  split = max(1, min(split, min(kMaxSplit, max_live)));
 
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(gx, gy, split);
+  cfg.gridDim = dim3(nt, rts, split);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -332,10 +455,11 @@ cudaError_t launch(const void* x, const void* w, const void* bias,
   attr[0].val.clusterDim.z = split;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), static_cast<const T*>(w),
-                           static_cast<const T*>(bias), static_cast<const T*>(mask),
-                           static_cast<const T*>(pool), static_cast<T*>(out), C_in, T_in,
-                           C_out, K, P, T_out, N, stride, padding, reflect, slope);
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const float*>(bias), static_cast<const int*>(tile_start),
+      static_cast<const int*>(tile_chunk), static_cast<T*>(out), C_in, T_in, K, P, T_out, N,
+      stride, padding, reflect, slope, nb);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -345,26 +469,33 @@ cudaError_t launch(const void* x, const void* w, const void* bias,
 extern "C" {
 
 // Launches on `stream` and returns the first CUDA error (0 on success).
-// dtype: 0 = float32, 1 = bfloat16.  bias, mask and pool may be null.
+// w, bias, tile_start, tile_chunk: a level packed by pack_level (the
+// wrapper); max_live: the most live tiles of any row tile.  dtype: 0 =
+// float32, 1 = bfloat16.  device: the CUDA device of the tensors; sms: its
+// multiprocessor count.
 int hmvae_fused_conv_pool(const void* x, const void* w, const void* bias,
-                          const void* mask, const void* pool, void* out, int B,
-                          int C_in, int T_in, int C_out, int K, int P,
-                          int T_out, int stride, int padding, int reflect,
-                          float negative_slope, int dtype, void* stream) {
-  if (B <= 0 || C_in <= 0 || T_in <= 0 || C_out <= 0 || K <= 0 || P <= 0 ||
-      T_out <= 0 || stride <= 0 || padding < 0 || (reflect && padding >= T_in) ||
-      (T_out - 1) * stride + K > T_in + 2 * padding || (pool == nullptr && P != C_out) ||
-      (long long)B * T_out > 65535LL * kBN)
-    return (int)cudaErrorInvalidValue;
+                          const void* tile_start, const void* tile_chunk, void* out, int B,
+                          int C_in, int T_in, int K, int P, int T_out, int stride, int padding,
+                          int reflect, float negative_slope, int max_live, int dtype,
+                          int device, int sms, void* stream) {
+  if (B <= 0 || C_in <= 0 || T_in <= 0 || K <= 0 || P <= 0 || T_out <= 0 || stride <= 0 ||
+      padding < 0 || (reflect && padding >= T_in) ||
+      (T_out - 1) * stride + K > T_in + 2 * padding || max_live < 0 || device < 0 ||
+      C_in % 8 != 0 || (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
+      device >= kMaxDevices || sms <= 0 || static_cast<long long>(B) * T_out > 0x7FFFFFFFLL ||
+      (P + kBM - 1) / kBM > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<float>(x, w, bias, mask, pool, out, B, C_in, T_in, C_out, K, P,
-                              T_out, stride, padding, reflect, negative_slope, s);
+    return static_cast<int>(launch<float>(x, w, bias, tile_start, tile_chunk, out, B, C_in, T_in,
+                                          K, P, T_out, stride, padding, reflect, negative_slope,
+                                          max_live, device, sms, s));
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(x, w, bias, mask, pool, out, B, C_in, T_in, C_out,
-                                      K, P, T_out, stride, padding, reflect,
-                                      negative_slope, s);
-  return (int)cudaErrorInvalidValue;
+    return static_cast<int>(launch<__nv_bfloat16>(x, w, bias, tile_start, tile_chunk, out, B,
+                                                  C_in, T_in, K, P, T_out, stride, padding,
+                                                  reflect, negative_slope, max_live, device,
+                                                  sms, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* hmvae_error_string(int err) {

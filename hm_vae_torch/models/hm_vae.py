@@ -4,14 +4,12 @@ Port of ``hm_vae_tpu.models.hm_vae``.  Module and parameter names follow the
 flax tree (``encoder.conv_0.weight``, ``encoder.latent_head_0.weight``, ...),
 with the latent Linear weights stored (out, in) as torch does.
 
-Every skeleton conv runs through :func:`~hm_vae_torch.ops.fused_conv_pool.fused_conv_pool`,
-which fuses the conv with what follows it in the JAX model:
-
-- an encoder level is conv -> skeleton pool -> LeakyReLU(0.2), one launch;
-  the kernel applies the pool matrix to the conv tile it holds, the same
-  linear map as the JAX module's fold ``P @ (W*mask)``, ``P @ b``;
-- a decoder level is the unpool-folded conv ``(W*mask) @ U`` -> LeakyReLU,
-  or no activation at the last level, one launch.
+Every skeleton conv runs through
+:func:`~hm_vae_torch.ops.fused_conv_pool.fused_conv_pool_packed`, one launch
+per level on a CUDA device, on operands packed once
+(:meth:`SkeletonConv.packed_operands`): the JAX module's single folded weight
+``P @ (W*mask) @ U`` and bias ``P @ b``, then LeakyReLU(0.2), or no
+activation at the last decoder level.
 
 Hierarchical latents (shallow -> deep), for len-64/SMPL-24:
 ``[(B,14,2*shallow_d), (B,9,2*latent_d), (B,7,2*latent_d), (B,7,2*latent_d)]``.
@@ -29,15 +27,12 @@ import torch
 from torch import nn
 
 from ..ops import skeleton_nn as snn
-from ..ops.fused_conv_pool import fused_conv_pool
+from ..ops.fused_conv_pool import (PackedLevel, fold_operands, fused_conv_pool_packed,
+                                   pack_level)
 from ..utils.config import ModelConfig
 from .structure import ConvSpec, get_structure
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-Operands = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor],
-                 Optional[torch.Tensor]]
-
 
 def _block_uniform(spec: ConvSpec, shape, generator) -> torch.Tensor:
     """Per-edge-block kaiming-uniform init: output block i draws
@@ -112,12 +107,6 @@ class SkeletonConv(nn.Module):
                              persistent=False)
         self.register_buffer("pool", _const(pool_matrix), persistent=False)
         self.register_buffer("unpool", _const(unpool_matrix), persistent=False)
-        # the folded weight's live pattern: the kernel skips its zero blocks
-        live = None
-        if unpool_matrix is not None:
-            nz = (spec.mask @ unpool_matrix) != 0
-            live = None if nz.all() else nz.astype(np.float32)
-        self.register_buffer("unpool_mask", _const(live), persistent=False)
 
     def _masked(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         w = self.weight.to(self.dtype)
@@ -126,41 +115,28 @@ class SkeletonConv(nn.Module):
             w = w * self.mask.to(self.dtype)[:, :, None]
         return w, b
 
-    def kernel_operands(self) -> Operands:
-        """(weight, bias, mask, pool) for the kernel, in the compute dtype.
-
-        Without an unpool the kernel takes the raw weight and applies the
-        mask itself; with one, the weight is ``(W*mask) @ U`` and the mask
-        passed on is that weight's 0/1 live pattern (None if dense).
-        """
-        cast = lambda t: None if t is None else t.to(self.dtype)  # noqa: E731
-        if self.unpool is None:
-            b = None if self.bias is None else self.bias.to(self.dtype)
-            return self.weight.to(self.dtype), b, cast(self.mask), cast(self.pool)
-        w, b = self._masked()
-        w = torch.einsum("ock,cp->opk", w, self.unpool.to(self.dtype)).contiguous()
-        return w, b, cast(self.unpool_mask), cast(self.pool)
-
     def folded_weight(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The JAX module's single conv weight and bias: ``W*mask`` with the
         unpool folded in (``@ U``) and the pool folded on (``P @``, ``P @ b``)."""
         w, b = self._masked()
         if self.unpool is not None:
             w = torch.einsum("ock,cp->opk", w, self.unpool.to(self.dtype))
-        if self.pool is not None:
-            P = self.pool.to(self.dtype)
-            w = torch.einsum("qo,ock->qck", P, w)
-            b = None if b is None else P @ b
-        return w.contiguous(), b
+        pool = None if self.pool is None else self.pool.to(self.dtype)
+        return fold_operands(w, b, None, pool)
 
-    def forward(self, x: torch.Tensor, operands: Optional[Operands] = None) -> torch.Tensor:
-        w, b, m, p = self.kernel_operands() if operands is None else operands
+    def packed_operands(self) -> PackedLevel:
+        """The folded weight and bias packed for the kernel (block-sparse
+        tiles in the compute dtype)."""
+        w, b = self.folded_weight()
         s = self.spec
-        return fused_conv_pool(x.to(w.dtype).contiguous(), w, b, m, p, s.stride,
-                               s.padding, s.padding_mode, self.negative_slope)
+        return pack_level(w, b, s.stride, s.padding, s.padding_mode, self.negative_slope)
+
+    def forward(self, x: torch.Tensor, packed: Optional[PackedLevel] = None) -> torch.Tensor:
+        packed = self.packed_operands() if packed is None else packed
+        return fused_conv_pool_packed(x.to(packed.dtype).contiguous(), packed)
 
 
-OperandMap = Dict[SkeletonConv, Operands]
+OperandMap = Dict[SkeletonConv, PackedLevel]
 
 
 def _run(conv: SkeletonConv, x: torch.Tensor, ops: Optional[OperandMap]) -> torch.Tensor:
@@ -281,9 +257,9 @@ class HMVAE(nn.Module):
         self.decoder = Decoder(cfg, init_type, generator)
 
     def conv_operands(self) -> OperandMap:
-        """Every conv's kernel operands, computed once (see
-        :meth:`SkeletonConv.kernel_operands`)."""
-        return {m: m.kernel_operands() for m in self.modules()
+        """Every conv's packed operands, computed once (see
+        :meth:`SkeletonConv.packed_operands`)."""
+        return {m: m.packed_operands() for m in self.modules()
                 if isinstance(m, SkeletonConv)}
 
     def forward(self, x6d: torch.Tensor):

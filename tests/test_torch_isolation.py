@@ -1,5 +1,5 @@
 """The port stands alone: importing all of ``hm_vae_torch`` (and
-chip_smoke.py) loads neither JAX nor the JAX package, and no source of the
+chip_smoke.py, kernel_trace.py) loads neither JAX nor the JAX package, and no source of the
 port imports them."""
 
 import ast
@@ -17,6 +17,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "kernel_trace.py")
 
 
 def test_import_leaves_jax_out():
@@ -25,7 +26,7 @@ def test_import_leaves_jax_out():
         "import hm_vae_torch\n"
         "for m in pkgutil.walk_packages(hm_vae_torch.__path__, 'hm_vae_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, kernel_trace\n"
         f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
         "print(len([n for n in sys.modules if n.startswith('hm_vae_torch.')]))\n"
         "assert not bad, bad\n"

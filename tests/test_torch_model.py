@@ -132,24 +132,29 @@ def test_init_bounds_and_prior_layout():
 
 
 def test_conv_operands_and_folded_weight_agree():
-    """The kernel operands (raw weight + mask + pool, or unpool-folded weight
-    + live mask) compute the same level as the JAX module's single folded
-    weight."""
+    """The packed operands unpack to the JAX module's single folded weight,
+    and the packed level computes the same as the raw weight + mask + pool
+    (or the unpool folded into the weight)."""
     cfg = tcfg.ModelConfig(**LEN8)
     m = HMVAE(cfg, generator=torch.Generator().manual_seed(3))
-    from hm_vae_torch.ops.fused_conv_pool import fused_conv_pool_reference
-    from hm_vae_torch.ops.skeleton_nn import leaky_relu, skeleton_conv_w
+    from hm_vae_torch.ops.fused_conv_pool import (fused_conv_pool_packed,
+                                                  fused_conv_pool_reference, unpack_level)
 
     with torch.no_grad():
         for conv in (c for c in m.modules() if isinstance(c, SkeletonConv)):
-            w, b, mask, pool = conv.kernel_operands()
+            packed = conv.packed_operands()
             fw, fb = conv.folded_weight()
+            w2, b2 = unpack_level(packed)
+            torch.testing.assert_close(w2, fw, atol=0, rtol=0)
+            torch.testing.assert_close(b2, fb, atol=0, rtol=0)
+            w = conv.weight if conv.mask is None else conv.weight * conv.mask[:, :, None]
+            if conv.unpool is not None:
+                w = torch.einsum("ock,cp->opk", w, conv.unpool)
             x = torch.randn(2, w.shape[1], 8, generator=torch.Generator().manual_seed(4))
             s = conv.spec
-            ours = fused_conv_pool_reference(x, w, b, mask, pool, s.stride, s.padding,
-                                             s.padding_mode, conv.negative_slope)
-            ref = leaky_relu(skeleton_conv_w(x, fw, fb, s.stride, s.padding, s.padding_mode),
-                             conv.negative_slope)
+            ours = fused_conv_pool_packed(x, packed)
+            ref = fused_conv_pool_reference(x, w, conv.bias, None, conv.pool, s.stride,
+                                            s.padding, s.padding_mode, conv.negative_slope)
             torch.testing.assert_close(ours, ref, atol=1e-5, rtol=0)
 
 
