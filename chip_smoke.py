@@ -6,12 +6,13 @@ Phases, each of which exits non-zero on failure:
 
 0. print the card (``nvidia-smi``); turn TF32 off so that f32 references
    are f32;
-1. build the kernel from ``hm_vae_torch/csrc/fused_conv_pool.cu`` (``nvcc``,
-   sm_90a), and beside it a cubin whose ``-Xptxas -v`` report (registers,
-   shared memory, spills) and SASS (``HGMMA``: wgmma; ``UBLKCP``: bulk
-   copies) are printed; the bf16 instantiation must issue wgmma;
-2. hold the kernel against its plain PyTorch version at the eight level
-   shapes of the len-64 model (its real operands: masks, pool matrices,
+1. build the kernels from ``hm_vae_torch/csrc/fused_conv_pool.cu`` and
+   ``fused_conv_pool_bwd.cu`` (one ``nvcc`` each, sm_90a, started together),
+   and beside them cubins whose ``-Xptxas -v`` reports (registers, shared
+   memory, spills) and SASS (``HGMMA``: wgmma; ``UBLKCP``: bulk copies) are
+   printed; the forward's bf16 instantiation must contain wgmma;
+2. hold the forward kernel against its plain PyTorch version at the eight
+   level shapes of the len-64 model (its real operands: masks, pool matrices,
    unpool-folded weights), in f32 and bf16, at batch 8 (plus one stride-1
    case with a pool) and at refine_vibe's batch of 237: the packed entry
    against unpack + plain version, and the Pallas-signature entry against
@@ -25,17 +26,31 @@ Phases, each of which exits non-zero on failure:
    launched exactly 8 times per reconstruct;
 4. the serving entry point: ``hm_vae_torch.cli.refine_vibe`` on a synthetic
    300-frame sequence (237 windows in one batch);
-5. print the kernel summary line and, last, the device line.
+5. the backward kernels (dgrad; wgrad + bias grad) against their plain
+   versions and against autograd of the plain forward at the eight level
+   shapes, batch 8, f32, timed on the device beside the plain versions and
+   ``torch.nn.grad.conv1d_input`` / ``conv1d_weight``;
+6. training end to end: 20 steps of ``Trainer.fit`` on the full-width len-64
+   config with synthetic data made from the seed, on the GPU and on the CPU
+   from the same init, batches and noise; per-step losses compared, kernel
+   launches per step counted, step time by CUDA events, device time and
+   idle share by ``torch.profiler``;
+7. the training entry point: ``hm_vae_torch.cli.train`` for a few steps with
+   a checkpoint, then ``--resume``;
+8. print the kernel summary line and, last, the device line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -58,6 +73,8 @@ VIBE_BATCH = 237  # refine_vibe's windows for a 300-frame sequence
 # per multiply-add) on the TF32 tensor cores
 MEM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+F32_FMA_FLOPS = 67e12  # f32 on the CUDA cores: the backward kernels' unit
+TRAIN_STEPS = 20
 # kernel vs plain version on the same inputs: f32 sums differ only in order;
 # bf16 rounds its operands and output
 TOL = {torch.float32: lambda ref: 1e-4 * max(1.0, ref), torch.bfloat16: lambda ref: 0.02 * ref}
@@ -258,32 +275,39 @@ def kernel_phase(model, st, dtype, batch, gen):
     return rows
 
 
-def build_report(proc, cubin):
-    """Registers, shared memory and spills per instantiation from
-    ``nvcc -Xptxas -v``, and the count of HGMMA (wgmma) and UBLKCP (bulk
-    copy) instructions in each one's SASS."""
+def build_report(proc, cubin, kind):
+    """Registers, shared memory and spills per kernel from ``nvcc -Xptxas
+    -v``, and the count of HGMMA (wgmma) and UBLKCP (bulk copy) instructions
+    in each one's SASS; ``kind(mangled name)`` names the kernel."""
     out, err = proc.communicate()
     if proc.returncode != 0:
         fail(f"nvcc -cubin failed:\n{out}{err}")
     report = {}
-    dtype = None
+    key = None
     for line in (out + err).splitlines():
         if "Compiling entry function" in line:
-            dtype = "bf16" if "nv_bfloat16" in line else "f32"
-        elif dtype and "Used" in line and "registers" in line:
-            report.setdefault(dtype, {})["ptxas"] = line.split("info    :")[-1].strip()
-        elif dtype and "spill" in line:
-            report.setdefault(dtype, {})["spills"] = line.strip()
+            key = kind(line)
+        elif key and "Used" in line and "registers" in line:
+            report.setdefault(key, {})["ptxas"] = line.split("info    :")[-1].strip()
+        elif key and "spill" in line:
+            report.setdefault(key, {})["spills"] = line.strip()
     from hm_vae_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True, text=True,
                           check=True).stdout
     for part in sass.split("Function : ")[1:]:
-        dtype = "bf16" if "nv_bfloat16" in part.splitlines()[0] else "f32"
-        report.setdefault(dtype, {}).update(
+        report.setdefault(kind(part.splitlines()[0]), {}).update(
             hgmma=part.count("HGMMA"), ublkcp=part.count("UBLKCP"))
     return report
+
+
+def fwd_kind(name):
+    return "bf16" if "nv_bfloat16" in name else "f32"
+
+
+def bwd_kind(name):
+    return "dgrad" if "dgrad" in name else "wgrad"
 
 
 def ancestors_ok(ok):
@@ -377,33 +401,38 @@ def e2e_phase(cfg, dtype, x6d):
         fail(f"{name}: {per_call} launches per reconstruct in the timed runs")
     row = {"phase": "reconstruct", "dtype": name, "batch": int(x6d.shape[0]),
            "launches": launches, "max_abs_err": errs, "ms_per_reconstruct": ms,
-           "profile": profile_reconstruct(gpu, x6d)}
+           "profile": profile_calls(lambda: gpu.mean_reconstruction(x6d))}
     print(json.dumps(row), flush=True)
     return row
 
 
-def profile_reconstruct(infer, x6d, calls: int = 10):
-    """Device time by kernel over `calls` reconstructs (torch.profiler), the
-    wall time they took, and the device's idle share of that wall time."""
+def profile_calls(fn, calls: int = 10):
+    """Device time by kernel over `calls` calls of `fn` (torch.profiler), the
+    wall time they took, the device's idle share of that wall time, and the
+    device operations (kernels, copies, sets) per call."""
     from torch.profiler import ProfilerActivity, profile
 
-    infer.mean_reconstruction(x6d)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
-            infer.mean_reconstruction(x6d)
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = {}
+    kernels, count = {}, 0
     for ev in prof.events():
-        if ev.device_type.name == "CUDA":
+        # a user annotation (such as Optimizer.step) is a range on the
+        # device's timeline over kernels counted on their own
+        if ev.device_type.name == "CUDA" and not getattr(ev, "is_user_annotation", False):
             kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+            count += 1
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     return {"calls": calls, "wall_us_per_call": wall_us / calls,
             "device_us_per_call": busy / calls,
             "idle_share": 1.0 - busy / wall_us if wall_us > 0 else None,
+            "device_ops_per_call": count / calls,
             "top_us_per_call": {k[:60]: v / calls for k, v in top}}
 
 
@@ -436,6 +465,222 @@ def cli_phase(rng):
     return row
 
 
+def bwd_work(gy, y, x, wf):
+    """(dgrad bytes, wgrad bytes, operations of each) one call needs at the
+    least: gy and y read once, the folded weight's nonzeros (dgrad reads
+    them; wgrad writes their gradient and the bias's), x read (wgrad) or its
+    gradient written (dgrad), and the multiply-adds of the nonzeros over the
+    B*T_out columns (wgrad: plus the bias sums)."""
+    nnz = int((wf != 0).sum())
+    B, P, T_out = gy.shape
+    N = B * T_out
+    io = 2 * gy.numel() * gy.element_size() + nnz * wf.element_size()
+    x_bytes = x.numel() * x.element_size()
+    ops = 2 * N * nnz
+    return io + x_bytes, io + x_bytes + P * wf.element_size(), ops, ops + N * P
+
+
+def bwd_phase(model, st, gen):
+    """The backward kernels at the eight level shapes, batch 8, f32: each
+    against its plain version on the same gy, y and x, and, with y from the
+    plain forward, against autograd of the plain forward (cuDNN, TF32 off);
+    device times of kernel, plain version and torch.nn.grad's conv1d_input /
+    conv1d_weight on the folded weight (with the activation's mask; no
+    reflect fold); and bounds."""
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+
+    rows = []
+    for name, conv, T_in in level_cases(model, st):
+        s = conv.structure()
+        with torch.no_grad():
+            wf, bf = conv.folded_weight()
+        wf = wf.detach().contiguous()
+        bf = None if bf is None else bf.detach()
+        mode = "reflect" if s.reflect else "constant"
+        slope, pad, stride, K = s.negative_slope, s.padding, s.stride, s.kernel_size
+        x = torch.randn((BATCH, wf.shape[1], T_in), generator=gen).to(DEV)
+        with torch.no_grad():
+            y = fcp.FusedConvPoolFn.apply(x, wf, bf, s)
+        gy = torch.randn(y.shape, generator=gen).to(DEV)
+        live = s.live_elements()
+
+        def dgrad(y=y):
+            return fcp.fused_conv_pool_dgrad(gy, y, wf, s, T_in)
+
+        def wgrad(y=y):
+            return fcp.fused_conv_pool_wgrad(gy, y, x, s)
+
+        def d_plain():
+            return fcp.fused_conv_pool_dgrad_reference(gy, y, wf, T_in, stride, pad, mode, slope)
+
+        def w_plain():
+            return fcp.fused_conv_pool_wgrad_reference(gy, y, x, K, stride, pad, mode, slope,
+                                                       live)
+
+        def d_lib():
+            g = torch.where(y >= 0, gy, gy * slope)
+            return torch.nn.grad.conv1d_input((BATCH, wf.shape[1], T_in + 2 * pad), wf, g,
+                                              stride=stride)
+
+        def w_lib():
+            g = torch.where(y >= 0, gy, gy * slope)
+            return (torch.nn.grad.conv1d_weight(F.pad(x, (pad, pad), mode=mode), wf.shape, g,
+                                                stride=stride), g.sum((0, 2)))
+
+        gx, (gw, gb) = dgrad(), wgrad()
+        rx, (rw, rb) = d_plain(), w_plain()
+        # autograd of the plain forward, the kernels reading its output
+        leaves = [x.clone().requires_grad_(), wf.clone().requires_grad_()]
+        if bf is not None:
+            leaves.append(bf.clone().requires_grad_())
+        ya = fcp.fused_conv_pool_reference(leaves[0], leaves[1], leaves[2] if bf is not None
+                                           else None, None, None, stride, pad, mode, slope)
+        ag = torch.autograd.grad(ya, leaves, gy)
+        ya = ya.detach()
+        gx_a, (gw_a, gb_a) = dgrad(ya), wgrad(ya)
+        torch.cuda.synchronize()
+        f32 = torch.float32
+        err_d = max(check(f"{name} dgrad", gx, rx, f32)[0],
+                    check(f"{name} dgrad vs autograd", gx_a, ag[0], f32)[0])
+        err_w = max(check(f"{name} wgrad", gw, rw, f32)[0],
+                    check(f"{name} wgrad vs autograd", gw_a, ag[1] * live[:, :, None], f32)[0])
+        if bf is not None:
+            err_w = max(err_w, check(f"{name} bias grad", gb, rb, f32)[0],
+                        check(f"{name} bias grad vs autograd", gb_a, ag[2], f32)[0])
+        if not torch.equal(wgrad()[0], gw):
+            fail(f"{name}: wgrad differs between two runs on the same inputs")
+        d_bytes, w_bytes, d_ops, w_ops = bwd_work(gy, y, x, wf)
+        row = {"level": name, "batch": BATCH, "C_in": wf.shape[1], "T_in": T_in, "P": wf.shape[0],
+               "T_out": y.shape[2], "stride": stride, "live_tiles": int(s.tile_chunk.numel()),
+               "chunks": s.chunk_start.numel() - 1}
+        for what, fn, plain, lib, err, nbytes, ops in (
+                ("dgrad", dgrad, d_plain, d_lib, err_d, d_bytes, d_ops),
+                ("wgrad", wgrad, w_plain, w_lib, err_w, w_bytes, w_ops)):
+            t_bytes, t_ops = nbytes / MEM_BPS * 1e3, ops / F32_FMA_FLOPS * 1e3
+            row[what] = {"max_abs_err": err, "ms": device_ms(fn), "plain_ms": device_ms(plain),
+                         "library_ms": device_ms(lib), "eager_ms": time_ms(fn),
+                         "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+                         "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def train_config(data_root):
+    """The full-width len-64 config on synthetic data made from the seed,
+    logging every step, no validation or snapshot inside the run."""
+    from hm_vae_torch.utils.config import load_config
+
+    cfg = load_config(CONFIG)
+    big = 10 ** 9
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, synthetic=True, data_root=data_root),
+        run=dataclasses.replace(cfg.run, log_iter=1, validation_iter=big,
+                                snapshot_save_iter=big, image_save_iter=big))
+
+
+def train_phase(data_root):
+    """TRAIN_STEPS steps of Trainer.fit on the GPU and on the CPU from the
+    same init, batches and noise, and a third GPU run from the init scaled
+    by 1 + 1e-7: Adam amplifies last-place differences, so the GPU-vs-CPU
+    losses must agree to 1e-4 relative over the first 5 steps and stay
+    within 10x the perturbed run's spread (so far) + 1e-4 after.  Then
+    kernel launches per step, step time (CUDA events) and the profile."""
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+    from hm_vae_torch.train.train_step import to_device, train_step
+    from hm_vae_torch.train.trainer import build_trainer
+
+    cfg = train_config(data_root)
+    counters = (fcp.fused_conv_pool, fcp.fused_conv_pool_dgrad, fcp.fused_conv_pool_wgrad)
+    losses, launches, wall = {}, None, {}
+    for run, dev, scale in (("gpu", DEV, 1.0), ("cpu", "cpu", 1.0), ("gpu_perturbed", DEV,
+                                                                    1.0 + 1e-7)):
+        trainer, train_ds, _, _ = build_trainer(cfg, os.path.join(OUT_DIR, f"train_{run}"),
+                                                device=dev)
+        with torch.no_grad():
+            for p in trainer.state.model.parameters():
+                p.mul_(scale)
+        out = []
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        trainer.fit(train_ds, None, max_iter=TRAIN_STEPS,
+                    log_cb=lambda step, m: out.append(m["loss_total"]))
+        wall[run] = time.perf_counter() - t0
+        if run == "gpu":
+            in_run = {c.__name__: c.launches for c in counters}
+            launches = {k: v // TRAIN_STEPS if v % TRAIN_STEPS == 0 else v / TRAIN_STEPS
+                        for k, v in in_run.items()}
+            gpu, gpu_ds = trainer, train_ds
+        losses[run] = np.array(out)
+    if any(len(v) != TRAIN_STEPS or not np.isfinite(v).all() for v in losses.values()):
+        fail(f"training: losses {losses}")
+    want = {"fused_conv_pool": 8, "fused_conv_pool_dgrad": 7, "fused_conv_pool_wgrad": 8}
+    if launches != want:
+        fail(f"training: kernel launches per step {launches}, expected {want} (8 convs; "
+             "enc0's input is data and needs no input gradient)")
+    rel = np.abs(losses["gpu"] / losses["cpu"] - 1)
+    spread = np.maximum.accumulate(np.abs(losses["gpu_perturbed"] / losses["gpu"] - 1))
+    band = 10 * spread + 1e-4
+    if not ((rel[:5] <= 1e-4).all() and (rel <= band).all()):
+        fail(f"training: GPU vs CPU loss relative difference {rel.tolist()} outside "
+             f"{band.tolist()} (first 5 steps: 1e-4)")
+    # step time and profile on the GPU trainer's state (training on)
+    batch = to_device(gpu_ds.sample_batch(cfg.optim.batch_size), DEV)
+    noise = torch.Generator()
+
+    def step():
+        return train_step(gpu.state, batch, cfg, generator=noise.manual_seed(0))
+
+    # the value-only repack of the 8 convs, which every step's forward runs
+    from hm_vae_torch.models.hm_vae import SkeletonConv
+    from hm_vae_torch.ops.fused_conv_pool import repack
+
+    convs = [m for m in gpu.state.model.modules() if isinstance(m, SkeletonConv)]
+
+    @torch.no_grad()
+    def repack_all():
+        return [repack(c.structure(), *c.folded_weight()) for c in convs]
+
+    row = {"phase": "train", "config": os.path.relpath(CONFIG, ROOT), "batch": cfg.optim.batch_size,
+           "steps": TRAIN_STEPS, "loss_gpu": losses["gpu"].tolist(),
+           "loss_cpu": losses["cpu"].tolist(), "max_rel_diff": float(rel.max()),
+           "rel_diff": rel.tolist(), "band": band.tolist(),
+           "launches_per_step": launches, "launches_in_run": in_run, "fit_seconds": wall,
+           "ms_per_step": time_ms(step, reps=10, samples=5),
+           "profile": profile_calls(step, calls=5),
+           "repack_profile": profile_calls(repack_all, calls=5)}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def train_cli_phase(data_root):
+    """``python -m hm_vae_torch.cli.train`` (in this process) for 3 steps,
+    which writes gen_00000003.pt, then ``--resume`` to step 5."""
+    from hm_vae_torch.cli import train as train_cli
+
+    out = os.path.join(OUT_DIR, "cli_train")
+    shutil.rmtree(out, ignore_errors=True)
+    args = ["--config", CONFIG, "--output_path", out, "--data_root", data_root, "--device", DEV]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        train_cli.main(args + ["--max_iter", "3"])
+        train_cli.main(args + ["--max_iter", "5", "--resume"])
+    text = buf.getvalue()
+    ck = os.path.join(out, "outputs", os.path.splitext(os.path.basename(CONFIG))[0],
+                      "checkpoints")
+    names = sorted(os.listdir(ck)) if os.path.isdir(ck) else []
+    resumed = [line for line in text.splitlines() if line.startswith("Resume from")]
+    if resumed != ["Resume from iteration 3"] or names != ["gen_00000003.pt", "gen_00000005.pt"]:
+        fail(f"train CLI: resume lines {resumed}, checkpoints {names}:\n{text}")
+    row = {"phase": "train_cli", "resumed": resumed[0], "checkpoints": names,
+           "seconds": time.perf_counter() - t0,
+           "finish": [line for line in text.splitlines() if line.startswith("Finish")][-1][:200]}
+    print(json.dumps(row), flush=True)
+    return row
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
@@ -452,20 +697,23 @@ def main() -> None:
     from hm_vae_torch.ops import rotations as rot
     from hm_vae_torch.utils.config import load_config
 
-    # 1. build: the library, and beside it (in parallel) a cubin whose
-    #    compiler report and SASS show registers, spills and wgmma
+    # 1. build: the libraries (one nvcc each, all started together), and
+    #    beside them cubins whose compiler reports and SASS show registers,
+    #    spills and wgmma
     os.makedirs(OUT_DIR, exist_ok=True)
-    cubin = os.path.join(OUT_DIR, "fused_conv_pool.cubin")
-    report_proc = subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS[:4], "-cubin", "-Xptxas", "-v", "-o", cubin,
-         str(_build.CSRC_DIR / "fused_conv_pool.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    reports = {}
+    for src, kind in (("fused_conv_pool", fwd_kind), ("fused_conv_pool_bwd", bwd_kind)):
+        cubin = os.path.join(OUT_DIR, f"{src}.cubin")
+        reports[src] = (subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS[:4], "-cubin", "-Xptxas", "-v", "-o", cubin,
+             str(_build.CSRC_DIR / f"{src}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), cubin, kind)
     t0 = time.perf_counter()
-    _build.load("fused_conv_pool")
+    _build.load_all(list(reports))
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
-    report = build_report(report_proc, cubin)
+    report = {src: build_report(*r) for src, r in reports.items()}
     print(json.dumps({"phase": "build_report", **report}), flush=True)
-    if not report.get("bf16", {}).get("hgmma"):
+    if not report["fused_conv_pool"].get("bf16", {}).get("hgmma"):
         fail("the bf16 instantiation has no HGMMA (wgmma) instruction")
 
     cfg = load_config(CONFIG)
@@ -487,17 +735,39 @@ def main() -> None:
     # 4. the serving entry point
     cli_phase(rng)
 
-    # 5. summary: sums over the 8 levels of one reconstruct
-    def sums(dtype, batch):
-        rows = [r for r in levels[(dtype, batch)] if not r["level"].endswith("stride1")]
+    # 5. the backward kernels against their plain versions
+    bwd = bwd_phase(model, st, gen)
+
+    # 6-7. training end to end, and its entry point
+    data_root = os.path.join(OUT_DIR, "train_data")
+    shutil.rmtree(data_root, ignore_errors=True)
+    train = train_phase(data_root)
+    train_cli_phase(data_root)
+
+    # 8. summary: sums over the 8 levels of one reconstruct (forward) or of
+    #    one training step (backward)
+    def total(rows):
         out = {k: sum(r[k] for r in rows)
                for k in ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms")}
         by_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
         out["bound_by"] = "bytes" if by_bytes >= out["bound_ms"] / 2 else "operations"
+        out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+        return out
+
+    def sums(dtype, batch):
+        out = total([r for r in levels[(dtype, batch)] if not r["level"].endswith("stride1")])
         out["max_abs_err"] = max(r["max_abs_err"] for r in levels[(dtype, batch)])
         return out
 
+    def bwd_sums(what):
+        return total([r[what] for r in bwd])
+
     f32, bf16 = sums(torch.float32, BATCH), sums(torch.bfloat16, BATCH)
+    bwd_note = ("f32; times (device time from CUDA-graph replays; eager_ms: eager calls) and "
+                "bounds are sums over the 8 levels at batch 8 (dgrad: enc0 runs it in this "
+                "timing but not in training); launches: per training step (launches_in_run: "
+                f"the {TRAIN_STEPS} steps of the GPU run); library_ms: "
+                "torch.nn.grad.conv1d_%s on the folded weight, TF32 off")
     summary = {"kernels": [{
         "name": "fused_conv_pool", "route": "cuda",
         "source": "hm_vae_torch/csrc/fused_conv_pool.cu",
@@ -507,12 +777,23 @@ def main() -> None:
         "note": "times (device time from CUDA-graph replays; eager_ms: eager calls) and "
                 "bounds are sums over the 8 levels of one len-64 reconstruct at batch 8, "
                 "in f32 (top level) and in bf16 (\"bf16\"); \"b237\": the same at "
-                "refine_vibe's batch of 237 windows",
+                "refine_vibe's batch of 237 windows; launches_per_train_step: in training",
+        "launches_per_train_step": train["launches_per_step"]["fused_conv_pool"],
         "bf16": bf16,
         "b237": {"f32": sums(torch.float32, VIBE_BATCH),
                  "bf16": sums(torch.bfloat16, VIBE_BATCH)},
-        "build": report,
-    }]}
+        "build": report["fused_conv_pool"],
+    }] + [{
+        "name": f"fused_conv_pool_{what}", "route": "cuda",
+        "source": "hm_vae_torch/csrc/fused_conv_pool_bwd.cu",
+        "replaces": "hm_vae_tpu/models/hm_vae.py:200 (JAX autodiff of the level; no Pallas "
+                    "backward exists)",
+        "launches": train["launches_per_step"][f"fused_conv_pool_{what}"],
+        "launches_in_run": train["launches_in_run"][f"fused_conv_pool_{what}"],
+        **bwd_sums(what),
+        "note": bwd_note % ("input" if what == "dgrad" else "weight"),
+        "build": report["fused_conv_pool_bwd"][what],
+    } for what in ("dgrad", "wgrad")]}
     print(json.dumps(summary), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,12 +4,17 @@ Port of ``hm_vae_tpu.models.hm_vae``.  Module and parameter names follow the
 flax tree (``encoder.conv_0.weight``, ``encoder.latent_head_0.weight``, ...),
 with the latent Linear weights stored (out, in) as torch does.
 
-Every skeleton conv runs through
-:func:`~hm_vae_torch.ops.fused_conv_pool.fused_conv_pool_packed`, one launch
-per level on a CUDA device, on operands packed once
-(:meth:`SkeletonConv.packed_operands`): the JAX module's single folded weight
+Every skeleton conv is one launch of the ``fused_conv_pool`` kernel per
+level on a CUDA device, on the JAX module's single folded weight
 ``P @ (W*mask) @ U`` and bias ``P @ b``, then LeakyReLU(0.2), or no
-activation at the last decoder level.
+activation at the last decoder level.  Two paths:
+
+- serving passes operands packed once (:meth:`HMVAE.conv_operands`) to
+  :func:`~hm_vae_torch.ops.fused_conv_pool.fused_conv_pool_packed`;
+- without them (training) a conv folds its weight with plain differentiable
+  torch and runs :class:`~hm_vae_torch.ops.fused_conv_pool.FusedConvPoolFn`
+  on its structure (the live tiles, decided once per device and dtype), so
+  autograd carries the kernels' gradients back to the raw parameters.
 
 Hierarchical latents (shallow -> deep), for len-64/SMPL-24:
 ``[(B,14,2*shallow_d), (B,9,2*latent_d), (B,7,2*latent_d), (B,7,2*latent_d)]``.
@@ -27,8 +32,9 @@ import torch
 from torch import nn
 
 from ..ops import skeleton_nn as snn
-from ..ops.fused_conv_pool import (PackedLevel, fold_operands, fused_conv_pool_packed,
-                                   pack_level)
+from ..ops.fused_conv_pool import (FusedConvPoolFn, LevelStructure, PackedLevel,
+                                   fold_operands, fused_conv_pool_packed, pack_structure,
+                                   repack)
 from ..utils.config import ModelConfig
 from .structure import ConvSpec, get_structure
 
@@ -70,8 +76,16 @@ def dense_kernel_init(init_type: str, out_f: int, in_f: int, generator) -> torch
                      "(expected gaussian|xavier|kaiming|orthogonal|default)")
 
 
-def _linear(in_f: int, out_f: int, init_type: str, generator) -> nn.Linear:
-    lin = nn.Linear(in_f, out_f)
+class Linear(nn.Linear):
+    """``nn.Linear`` that computes in its input's dtype, as a flax Dense
+    promotes bf16-stored parameters (``param_dtype: bfloat16``) to f32."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return nn.functional.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+def _linear(in_f: int, out_f: int, init_type: str, generator) -> Linear:
+    lin = Linear(in_f, out_f)
     with torch.no_grad():
         lin.weight.copy_(dense_kernel_init(init_type, out_f, in_f, generator))
         lin.bias.zero_()
@@ -107,6 +121,7 @@ class SkeletonConv(nn.Module):
                              persistent=False)
         self.register_buffer("pool", _const(pool_matrix), persistent=False)
         self.register_buffer("unpool", _const(unpool_matrix), persistent=False)
+        self._structures: Dict[tuple, LevelStructure] = {}
 
     def _masked(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         w = self.weight.to(self.dtype)
@@ -124,16 +139,35 @@ class SkeletonConv(nn.Module):
         pool = None if self.pool is None else self.pool.to(self.dtype)
         return fold_operands(w, b, None, pool)
 
+    def structure(self) -> LevelStructure:
+        """The tiles of the folded weight that may be nonzero, from the
+        structure alone (mask, unpool and pool folded over a weight of
+        ones), so that a trained value of zero keeps its tile; made once per
+        device, compute dtype and spec."""
+        key = (self.weight.device, self.dtype, self.spec)
+        if key not in self._structures:
+            live = self.spec.mask != 0
+            if self.unpool is not None:
+                live = (live.astype(np.float64) @ (self.unpool.cpu().numpy() != 0)) > 0
+            if self.pool is not None:
+                live = ((self.pool.cpu().numpy() != 0).astype(np.float64) @ live) > 0
+            s = self.spec
+            self._structures[key] = pack_structure(
+                torch.from_numpy(live), s.kernel_size, self.dtype, s.stride, s.padding,
+                s.padding_mode, self.negative_slope, device=self.weight.device)
+        return self._structures[key]
+
+    @torch.no_grad()
     def packed_operands(self) -> PackedLevel:
         """The folded weight and bias packed for the kernel (block-sparse
         tiles in the compute dtype)."""
-        w, b = self.folded_weight()
-        s = self.spec
-        return pack_level(w, b, s.stride, s.padding, s.padding_mode, self.negative_slope)
+        return repack(self.structure(), *self.folded_weight())
 
     def forward(self, x: torch.Tensor, packed: Optional[PackedLevel] = None) -> torch.Tensor:
-        packed = self.packed_operands() if packed is None else packed
-        return fused_conv_pool_packed(x.to(packed.dtype).contiguous(), packed)
+        if packed is not None:
+            return fused_conv_pool_packed(x.to(packed.dtype).contiguous(), packed)
+        w, b = self.folded_weight()
+        return FusedConvPoolFn.apply(x.to(self.dtype).contiguous(), w, b, self.structure())
 
 
 OperandMap = Dict[SkeletonConv, PackedLevel]
@@ -286,6 +320,11 @@ def split_stats(stats: torch.Tensor, cfg: ModelConfig, level: int):
     """(B, k, 2*d) -> (mu, logvar), d = shallow_latent_d at level 0."""
     d = cfg.shallow_latent_d if level == 0 else cfg.latent_d
     return stats[..., :d], stats[..., d:]
+
+
+def reparametrize(mu: torch.Tensor, logvar: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+    """z = mu + eps * exp(logvar/2), with the noise ``eps`` given."""
+    return mu + eps * torch.exp(0.5 * logvar)
 
 
 def prior_z_list(cfg: ModelConfig, batch: int,

@@ -3,8 +3,9 @@
 ``load(name)`` compiles ``csrc/<name>.cu`` with one ``nvcc`` command for
 ``sm_90a`` into a shared library with a plain C interface, at first use, into
 ``build/hm_vae_torch_kernels/`` beside the package, and loads it with
-``ctypes``.  A library's file name carries a hash of its source and flags, so
-an edited source is rebuilt.
+``ctypes``.  ``load_all(names)`` starts the ``nvcc`` of every missing library
+at once and waits for them together.  A library's file name carries a hash
+of its source and flags, so an edited source is rebuilt.
 
 Nothing here runs at import: the CPU tests import every module of the port,
 and a machine without a GPU has no ``nvcc``.
@@ -19,6 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import List, Sequence
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hm_vae_torch_kernels"
@@ -35,27 +37,50 @@ def _nvcc() -> str:
     return path
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The library of ``csrc/<name>.cu``, compiled first if it is missing.
+def _target(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def load_all(names: Sequence[str]) -> List[ctypes.CDLL]:
+    """The libraries of ``csrc/<name>.cu`` for each name, the missing ones
+    compiled first, all at once.
 
     Every library exports ``hmvae_error_string(int) -> const char*``.
     """
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    target = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     with _lock:
-        if not target.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = target.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                                  capture_output=True, text=True)
+        jobs = []
+        for name in names:
+            target = _target(name)
+            if not target.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = target.with_suffix(f".{os.getpid()}.tmp")
+                src = CSRC_DIR / f"{name}.cu"
+                jobs.append((src, tmp, target, subprocess.Popen(
+                    [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for src, tmp, target, proc in jobs:
+            out, err = proc.communicate()
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stdout}{proc.stderr}")
-            os.replace(tmp, target)
-    lib = ctypes.CDLL(str(target))
-    lib.hmvae_error_string.argtypes = [ctypes.c_int]
-    lib.hmvae_error_string.restype = ctypes.c_char_p
-    return lib
+                failed.append(f"nvcc failed on {src.name}:\n{out}{err}")
+            else:
+                os.replace(tmp, target)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    libs = []
+    for name in names:
+        lib = ctypes.CDLL(str(_target(name)))
+        lib.hmvae_error_string.argtypes = [ctypes.c_int]
+        lib.hmvae_error_string.restype = ctypes.c_char_p
+        libs.append(lib)
+    return libs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``, compiled first if it is missing."""
+    return load_all([name])[0]
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -71,3 +71,25 @@ def fk_from_rotmat(
     if return_global_rot:
         return pos, g.reshape(lead + (J, 3, 3))
     return pos
+
+
+def fk_numpy(rotmats: np.ndarray, offsets: np.ndarray | None = None,
+             parents: Tuple[int, ...] = SMPL24_PARENTS) -> np.ndarray:
+    """Host-side numpy FK for data preparation, (..., J, 3, 3) ->
+    (..., J, 3): the same level-batched steps, in the rotations' dtype."""
+    if offsets is None:
+        offsets = default_offsets()
+    off = np.asarray(offsets, dtype=rotmats.dtype)
+    J = len(parents)
+    lead = rotmats.shape[:-3]
+    r = rotmats.reshape((-1, J, 3, 3))
+    g = np.zeros_like(r)
+    g[:, 0] = r[:, 0]
+    pos = np.zeros(r.shape[:-2] + (3,), dtype=r.dtype)
+    pos[:, 0] = off[0]
+    for joints, par in level_schedule(tuple(parents)):
+        j = np.asarray(joints)
+        p = np.asarray(par)
+        g[:, j] = g[:, p] @ r[:, j]
+        pos[:, j] = pos[:, p] + np.einsum("nlij,lj->nli", g[:, p], off[j])
+    return pos.reshape(lead + (J, 3))

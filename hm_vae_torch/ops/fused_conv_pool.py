@@ -1,27 +1,38 @@
 """One skeleton-conv level in one kernel: masked temporal conv (+ bias), an
-optional channel-pool matrix, then LeakyReLU.
+optional channel-pool matrix, then LeakyReLU; and its backward.
 
 Replaces the Pallas TPU kernel ``hm_vae_tpu/ops/pallas_kernels.py``
 (``fused_conv_pool``, body ``_fused_kernel``) with the hand-written CUDA
 kernel ``hm_vae_torch/csrc/fused_conv_pool.cu`` for Hopper (``sm_90a``): a
 block-sparse implicit GEMM on the level's folded weight, bf16 (or 3xTF32 for
-f32) on ``wgmma``, weight tiles by bulk asynchronous copy.  The source's
-header note says what bounds it on an H100 and what its design does about
-that.
+f32) on ``wgmma``, weight tiles by bulk asynchronous copy.  Its gradient is
+two more hand-written kernels, ``hm_vae_torch/csrc/fused_conv_pool_bwd.cu``
+(dgrad and wgrad + bias grad, f32), the counterparts of the JAX package's
+autodiff of its XLA level (``hm_vae_tpu/models/hm_vae.py``; the JAX package
+has no backward kernel).  Each source's header note says what bounds it on
+an H100 and what its design does about that.
 
-The operands are prepared once by :func:`pack_level`: the mask, the pool and
-the unpool folded into one conv weight, as the JAX module folds them, laid
-out as the kernel reads it, with its all-zero tiles dropped.  Two entries:
+The operands are the mask, the pool and the unpool folded into one conv
+weight (P, C_in, K) and bias (P,), as the JAX module folds them, laid out as
+the kernel reads it: 64-row x channel-chunk tiles, all-zero tiles dropped.
+Which tiles are live is decided once (:func:`pack_structure`, a
+:class:`LevelStructure`); the values are written into those tiles by
+:func:`repack`, with no host sync, whenever the weight changes.  Entries:
 
 - :func:`fused_conv_pool` takes the Pallas wrapper's arguments and packs on
-  the fly; the tests and one phase of ``chip_smoke.py`` use it;
-- :func:`fused_conv_pool_packed` takes a :class:`PackedLevel`; the model
-  calls it with operands prepared once per model.
+  the fly (:func:`pack_level`, live tiles from the values);
+- :func:`fused_conv_pool_packed` takes a :class:`PackedLevel`; serving calls
+  it with operands prepared once per model;
+- :class:`FusedConvPoolFn` is the differentiable level on a folded weight
+  and a structure: forward by repack + kernel, backward by
+  :func:`fused_conv_pool_dgrad` and :func:`fused_conv_pool_wgrad`.
 
-On CPU tensors both run their plain PyTorch version
-(:func:`fused_conv_pool_reference`, after :func:`unpack_level` for the packed
-entry); on CUDA tensors they launch the kernel or raise.
-``fused_conv_pool.launches`` counts kernel launches from either entry.
+On CPU tensors every entry runs its plain PyTorch version
+(:func:`fused_conv_pool_reference`, :func:`fused_conv_pool_dgrad_reference`,
+:func:`fused_conv_pool_wgrad_reference`); on CUDA tensors they launch the
+kernel or raise.  ``fused_conv_pool.launches``,
+``fused_conv_pool_dgrad.launches`` and ``fused_conv_pool_wgrad.launches``
+count kernel launches.
 """
 
 from __future__ import annotations
@@ -34,13 +45,17 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .skeleton_nn import PAD_ALIASES, apply_channel_matrix, leaky_relu, skeleton_conv_w
+from .skeleton_nn import PAD_ALIASES, apply_channel_matrix, leaky_relu, pad_temporal, \
+    skeleton_conv_w
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROWS = 64  # rows of a weight tile (the kernel's wgmma M)
 # input channels per reduction chunk: one tap's channels are one wgmma
 # k-step (16 bf16 or 8 TF32 values)
 CHUNK_CHANNELS = {torch.bfloat16: 16, torch.float32: 8}
+# the backward kernels keep a row's taps of one chunk (8 channels x K) in
+# registers: K up to 16
+MAX_BWD_K = 16
 
 
 def fused_conv_pool_reference(
@@ -62,6 +77,51 @@ def fused_conv_pool_reference(
     return leaky_relu(y, negative_slope)
 
 
+def _act_grad(gy: torch.Tensor, y: torch.Tensor, slope: float) -> torch.Tensor:
+    """LeakyReLU's gradient from its output: with slope > 0, ``y >= 0``
+    exactly where the pre-activation is (``jnp.where(x >= 0, ...)``)."""
+    return torch.where(y >= 0, gy, gy * slope)
+
+
+def fused_conv_pool_dgrad_reference(gy, y, weight, T_in: int, stride: int, padding: int,
+                                    padding_mode: str = "reflect",
+                                    negative_slope: float = 0.2) -> torch.Tensor:
+    """Plain PyTorch input gradient of one folded level: the transposed conv
+    of ``g = gy * act'(y)`` onto the padded input, then the padding's
+    adjoint (reflected columns add onto their sources).  (B, C_in, T_in)."""
+    g = _act_grad(gy, y, negative_slope)
+    K, T_out = weight.shape[2], g.shape[2]
+    Tp = T_in + 2 * padding
+    gxp = torch.nn.functional.conv_transpose1d(
+        g, weight, stride=stride, output_padding=Tp - ((T_out - 1) * stride + K))
+    gx = gxp[..., padding:padding + T_in].clone()
+    if padding and PAD_ALIASES.get(padding_mode, padding_mode) == "reflect":
+        dev = gx.device
+        # padded column j < padding reads x[padding - j]; column
+        # padding + T_in + i reads x[T_in - 2 - i]
+        gx.index_add_(2, torch.arange(padding, 0, -1, device=dev), gxp[..., :padding])
+        gx.index_add_(2, T_in - 2 - torch.arange(padding, device=dev),
+                      gxp[..., padding + T_in:])
+    return gx
+
+
+def fused_conv_pool_wgrad_reference(gy, y, x, K: int, stride: int, padding: int,
+                                    padding_mode: str = "reflect",
+                                    negative_slope: float = 0.2,
+                                    live: Optional[torch.Tensor] = None):
+    """Plain PyTorch weight and bias gradient of one folded level:
+    ``sum_{b,t} g[b,p,t] * xpad[b,c,t*stride+k]`` (P, C_in, K) and
+    ``sum_{b,t} g`` (P,).  ``live`` (P, C_in) zeroes the dead tiles, as the
+    kernel leaves them (their entries are structural zeros of the fold, so
+    the raw weight's gradient does not read them)."""
+    g = _act_grad(gy, y, negative_slope)
+    cols = pad_temporal(x, padding, padding_mode).unfold(2, K, stride)  # (B, C, T_out, K)
+    gw = torch.einsum("bpt,bctk->pck", g, cols)
+    if live is not None:
+        gw = gw * live[:, :, None].to(gw.dtype)
+    return gw, g.sum((0, 2))
+
+
 def fold_operands(
     weight: torch.Tensor,
     bias: Optional[torch.Tensor],
@@ -78,30 +138,67 @@ def fold_operands(
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
-class PackedLevel:
-    """One level's folded operands as the kernel reads them.
+class LevelStructure:
+    """Which tiles of one level's folded weight the kernels read, decided once.
 
-    ``tiles`` holds the live (row tile, channel chunk) tiles of the folded
-    weight, row tile by row tile, each ``planes`` x 64 rows x ``chunk*K``
-    values (tap-major: j = k*chunk + c) in wgmma's core-matrix order; in
-    f32 the planes are the TF32 rounding and the remainder.  ``tile_start`` (row tiles + 1) and
-    ``tile_chunk`` (live tiles) index them; ``bias`` is f32, zero-padded to
-    the row tiles.
+    ``live`` (row tiles, channel chunks) marks the 64-row x chunk tiles that
+    may hold a nonzero.  The forward kernel walks them row tile by row tile
+    (``tile_start`` (row tiles + 1) indexes ``tile_chunk``); the wgrad kernel
+    takes one tile a block (``tile_row``, ``tile_chunk``); the dgrad kernel
+    walks them chunk by chunk (``chunk_start`` (chunks + 1) indexes
+    ``chunk_row``).  ``live_index`` (row tile * chunks + chunk, int64) is
+    the gather that :func:`repack` writes the values through.
     """
 
-    tiles: torch.Tensor
-    bias: torch.Tensor
+    live: torch.Tensor
     tile_start: torch.Tensor
     tile_chunk: torch.Tensor
+    tile_row: torch.Tensor
+    chunk_start: torch.Tensor
+    chunk_row: torch.Tensor
+    live_index: torch.Tensor
+    dtype: torch.dtype
     rows: int
     in_channels: int
     kernel_size: int
-    has_bias: bool
     max_live: int
     stride: int
     padding: int
     reflect: bool
     negative_slope: float
+
+    @property
+    def device(self) -> torch.device:
+        return self.tile_start.device
+
+    def live_elements(self) -> torch.Tensor:
+        """(P, C_in) bool: the entries of the live tiles."""
+        cc = CHUNK_CHANNELS[self.dtype]
+        t = self.live.repeat_interleave(ROWS, 0).repeat_interleave(cc, 1)
+        return t[:self.rows, :self.in_channels]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PackedLevel:
+    """One level's folded operands as the forward kernel reads them.
+
+    ``tiles`` holds the live tiles of the folded weight, in the structure's
+    order, each ``planes`` x 64 rows x ``chunk*K`` values (tap-major:
+    j = k*chunk + c) in wgmma's core-matrix order; in f32 the planes are the
+    TF32 rounding and the remainder.  ``bias`` is f32, zero-padded to the
+    row tiles.  The structure's fields (``tile_start``, ``rows``,
+    ``stride``, ...) read through.
+    """
+
+    tiles: torch.Tensor
+    bias: torch.Tensor
+    has_bias: bool
+    structure: LevelStructure
+
+    def __getattr__(self, name):
+        if name == "structure":  # not set yet (copy, unpickle)
+            raise AttributeError(name)
+        return getattr(self.structure, name)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -117,13 +214,97 @@ def _tf32(t: torch.Tensor) -> torch.Tensor:
     return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
 
 
-def _tile_shape(dtype: torch.dtype, K: int):
+def _tile_shape(dtype: torch.dtype):
     """(planes, chunk channels, values per 16-byte core-matrix row)."""
     planes = 2 if dtype == torch.float32 else 1
     return planes, CHUNK_CHANNELS[dtype], 16 // torch.empty((), dtype=dtype).element_size()
 
 
-@torch.no_grad()
+def _mode(padding_mode: str) -> str:
+    mode = PAD_ALIASES.get(padding_mode, padding_mode)
+    if mode not in ("reflect", "constant"):
+        raise ValueError(f"unsupported padding_mode {padding_mode!r}")
+    return mode
+
+
+def pack_structure(
+    live: torch.Tensor,
+    kernel_size: int,
+    dtype: torch.dtype,
+    stride: int,
+    padding: int,
+    padding_mode: str = "reflect",
+    negative_slope: float = 0.2,
+    device=None,
+) -> LevelStructure:
+    """The tile lists of a level whose folded weight may be nonzero where
+    ``live`` (P, C_in) is true, on ``device`` (default: ``live``'s).  The
+    lists are made on the host: one sync if ``live`` is on a GPU."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"fused_conv_pool takes float32 or bfloat16, not {dtype}")
+    mode = _mode(padding_mode)
+    device = live.device if device is None else torch.device(device)
+    P, C_in = live.shape
+    cc = CHUNK_CHANNELS[dtype]
+    rt, nc = -(-P // ROWS), -(-C_in // cc)
+    pad = torch.zeros(rt * ROWS, nc * cc, dtype=torch.bool)
+    pad[:P, :C_in] = live.cpu()
+    tiles = pad.reshape(rt, ROWS, nc, cc).any(3).any(1)  # (rt, nc)
+    by_row = tiles.nonzero()  # row-major: row tile, then chunk
+    by_chunk = tiles.T.nonzero()  # chunk, then row tile
+    start = torch.zeros(rt + 1, dtype=torch.int32)
+    start[1:] = tiles.sum(1).cumsum(0)
+    cstart = torch.zeros(nc + 1, dtype=torch.int32)
+    cstart[1:] = tiles.sum(0).cumsum(0)
+
+    def put(t, dt=torch.int32):
+        return t.to(dt).contiguous().to(device)
+
+    return LevelStructure(
+        live=tiles.to(device), tile_start=put(start), tile_chunk=put(by_row[:, 1]),
+        tile_row=put(by_row[:, 0]), chunk_start=put(cstart), chunk_row=put(by_chunk[:, 1]),
+        live_index=put(by_row[:, 0] * nc + by_row[:, 1], torch.int64), dtype=dtype,
+        rows=P, in_channels=C_in, kernel_size=kernel_size,
+        max_live=int(tiles.sum(1).max()) if rt else 0, stride=stride, padding=padding,
+        reflect=mode == "reflect", negative_slope=float(negative_slope))
+
+
+def repack(structure: LevelStructure, weight: torch.Tensor,
+           bias: Optional[torch.Tensor]) -> PackedLevel:
+    """The current values of a folded weight (P, C_in, K) and bias (P,)
+    written into ``structure``'s live tiles, with no host sync (f32: the
+    TF32 rounding and the remainder).  Entries outside the live tiles are
+    dropped: they must be zero."""
+    s = structure
+    if weight.dtype != s.dtype:
+        raise TypeError(f"the structure is for {s.dtype}, the weight is {weight.dtype}")
+    P, C_in, K = weight.shape
+    if (P, C_in, K) != (s.rows, s.in_channels, s.kernel_size):
+        raise ValueError(f"weight {tuple(weight.shape)} does not fit the structure "
+                         f"({s.rows}, {s.in_channels}, {s.kernel_size})")
+    planes, cc, vec = _tile_shape(weight.dtype)
+    rt, nc, J = s.tile_start.numel() - 1, -(-C_in // cc), cc * K
+    n = s.live_index.numel()
+    with torch.no_grad():
+        w = weight.new_zeros((rt * ROWS, nc * cc, K))
+        w[:P, :C_in] = weight
+        # (rt*nc, 64, J), the reduction tap-major within a chunk: j = k*cc + c
+        tiles = w.reshape(rt, ROWS, nc, cc, K).permute(0, 2, 1, 4, 3).reshape(rt * nc, ROWS, J)
+        tiles = tiles.index_select(0, s.live_index)
+        if planes == 2:
+            big = _tf32(tiles)
+            tiles = torch.stack((big, tiles - big), dim=1)
+        else:
+            tiles = tiles[:, None]
+        # (64, J) -> (k-step, row group, k half, row in group, value)
+        tiles = tiles.reshape(n, planes, 8, 8, J // (2 * vec), 2, vec)
+        tiles = tiles.permute(0, 1, 4, 2, 5, 3, 6).reshape(n, planes * ROWS * J).contiguous()
+        b = torch.zeros(rt * ROWS, dtype=torch.float32, device=weight.device)
+        if bias is not None:
+            b[:P] = bias.float()
+    return PackedLevel(tiles=tiles, bias=b, has_bias=bias is not None, structure=s)
+
+
 def pack_level(
     weight: torch.Tensor,
     bias: Optional[torch.Tensor],
@@ -133,53 +314,24 @@ def pack_level(
     negative_slope: float = 0.2,
 ) -> PackedLevel:
     """Pack a folded weight (P, C_in, K) and bias (P,) for the kernel, on
-    the weight's device (one host sync, to list the live tiles)."""
+    the weight's device, its live tiles those where the values are nonzero
+    (one host sync)."""
     if weight.dtype not in _DTYPES:
         raise TypeError(f"fused_conv_pool takes float32 or bfloat16, not {weight.dtype}")
-    mode = PAD_ALIASES.get(padding_mode, padding_mode)
-    if mode not in ("reflect", "constant"):
-        raise ValueError(f"unsupported padding_mode {padding_mode!r}")
-    P, C_in, K = weight.shape
-    planes, cc, vec = _tile_shape(weight.dtype, K)
-    rt, nc, J = -(-P // ROWS), -(-C_in // cc), cc * K
-    w = weight.new_zeros((rt * ROWS, nc * cc, K))
-    w[:P, :C_in] = weight
-    # (rt, nc, 64, J), the reduction tap-major within a chunk: j = k*cc + c
-    tiles = w.reshape(rt, ROWS, nc, cc, K).permute(0, 2, 1, 4, 3).reshape(rt, nc, ROWS, J)
-    live = (tiles != 0).flatten(2).any(-1)  # (rt, nc)
-    if planes == 2:
-        big = _tf32(tiles.contiguous())
-        tiles = torch.stack((big, tiles - big), dim=2)
-    else:
-        tiles = tiles[:, :, None]
-    # (64, J) -> (k-step, row group, k half, row in group, value)
-    tiles = tiles.reshape(rt, nc, planes, 8, 8, J // (2 * vec), 2, vec)
-    tiles = tiles.permute(0, 1, 2, 5, 3, 6, 4, 7).reshape(rt * nc, -1)
-    per_row = live.sum(1)
-    b = torch.zeros(rt * ROWS, dtype=torch.float32, device=weight.device)
-    if bias is not None:
-        b[:P] = bias.float()
-    start = torch.zeros(rt + 1, dtype=torch.int32, device=weight.device)
-    start[1:] = per_row.cumsum(0)
-    return PackedLevel(
-        tiles=tiles[live.flatten()].contiguous(), bias=b, tile_start=start,
-        tile_chunk=live.nonzero()[:, 1].to(torch.int32).contiguous(),
-        rows=P, in_channels=C_in, kernel_size=K, has_bias=bias is not None,
-        max_live=int(per_row.max()), stride=stride, padding=padding,
-        reflect=mode == "reflect", negative_slope=float(negative_slope))
+    s = pack_structure((weight != 0).any(-1), weight.shape[2], weight.dtype, stride,
+                       padding, padding_mode, negative_slope)
+    return repack(s, weight, bias)
 
 
 def unpack_level(packed: PackedLevel) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The folded weight (P, C_in, K) and bias (P,) back from the packing,
     exactly (f32: TF32 rounding + remainder is the weight)."""
     P, C_in, K = packed.rows, packed.in_channels, packed.kernel_size
-    planes, cc, vec = _tile_shape(packed.dtype, K)
+    planes, cc, vec = _tile_shape(packed.dtype)
     rt = packed.tile_start.numel() - 1
     nc, J = -(-C_in // cc), cc * K
-    flat = packed.tiles.new_zeros((rt, nc, packed.tiles.shape[-1]))
-    row = torch.repeat_interleave(torch.arange(rt, device=packed.device),
-                                  (packed.tile_start[1:] - packed.tile_start[:-1]).long())
-    flat[row, packed.tile_chunk.long()] = packed.tiles
+    flat = packed.tiles.new_zeros((rt * nc, packed.tiles.shape[-1]))
+    flat[packed.live_index] = packed.tiles
     t = flat.reshape(rt, nc, planes, J // (2 * vec), 8, 2, 8, vec)
     t = t.permute(0, 1, 2, 4, 6, 3, 5, 7).reshape(rt, nc, planes, ROWS, K, cc).sum(2)
     w = t.permute(0, 2, 1, 4, 3).reshape(rt * ROWS, nc * cc, K)[:P, :C_in].contiguous()
@@ -192,16 +344,36 @@ def unpack_level(packed: PackedLevel) -> Tuple[torch.Tensor, Optional[torch.Tens
 # sms, stream)
 ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float]
             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+# hmvae_conv_dgrad(gy, y, w, chunk_start, chunk_row, gx, B, C_in, T_in, K, P,
+# T_out, stride, padding, reflect, slope, device, stream)
+DGRAD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float]
+                  + [ctypes.c_int, ctypes.c_void_p])
+# hmvae_conv_wgrad(gy, y, x, tile_row, tile_chunk, gw, gb, n_live, row_tiles,
+# B, C_in, T_in, K, P, T_out, stride, padding, reflect, slope, device, stream)
+WGRAD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_float]
+                  + [ctypes.c_int, ctypes.c_void_p])
+
+
+def _bind(lib, name, argtypes):
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    """The kernel's library, built at first use, and its C entry point."""
+    """The forward kernel's library, built at first use, and its entry."""
     lib = _build.load("fused_conv_pool")
-    fn = lib.hmvae_fused_conv_pool
-    fn.argtypes = ARGTYPES
-    fn.restype = ctypes.c_int
-    return lib, fn
+    return lib, _bind(lib, "hmvae_fused_conv_pool", ARGTYPES)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_library():
+    """The backward kernels' library, built at first use, and its entries."""
+    lib = _build.load("fused_conv_pool_bwd")
+    return (lib, _bind(lib, "hmvae_conv_dgrad", DGRAD_ARGTYPES),
+            _bind(lib, "hmvae_conv_wgrad", WGRAD_ARGTYPES))
 
 
 @functools.lru_cache(maxsize=None)
@@ -222,10 +394,20 @@ def _check(name: str, t: Optional[torch.Tensor], x: torch.Tensor, shape) -> None
         raise ValueError(f"{name} must be contiguous")
 
 
-def _no_grad_guard(*tensors) -> None:
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError("fused_conv_pool has no backward yet: call it under "
-                           "torch.no_grad() or torch.inference_mode()")
+def _on_device(x: torch.Tensor, call) -> int:
+    """Run a C entry point with ``x``'s device current."""
+    if x.device.index == torch.cuda.current_device():
+        return call()
+    with torch.cuda.device(x.device):
+        return call()
+
+
+def _t_out(T: int, K: int, stride: int, pad: int, reflect: bool) -> int:
+    if stride < 1 or pad < 0 or T + 2 * pad < K:
+        raise ValueError(f"bad stride/padding: stride={stride} padding={pad} T={T} K={K}")
+    if reflect and pad >= T:
+        raise ValueError(f"reflect padding {pad} needs T > padding, got T={T}")
+    return (T + 2 * pad - K) // stride + 1
 
 
 def _launch(x: torch.Tensor, packed: PackedLevel) -> torch.Tensor:
@@ -241,11 +423,7 @@ def _launch(x: torch.Tensor, packed: PackedLevel) -> torch.Tensor:
         raise ValueError("x must be contiguous")
     B, C_in, T = x.shape
     K, stride, pad = packed.kernel_size, packed.stride, packed.padding
-    if stride < 1 or pad < 0 or T + 2 * pad < K:
-        raise ValueError(f"bad stride/padding: stride={stride} padding={pad} T={T} K={K}")
-    if packed.reflect and pad >= T:
-        raise ValueError(f"reflect padding {pad} needs T > padding, got T={T}")
-    T_out = (T + 2 * pad - K) // stride + 1
+    T_out = _t_out(T, K, stride, pad, packed.reflect)
     if B * T_out >= 2 ** 31:
         raise ValueError(f"batch x output steps {B * T_out} outside the kernel's range")
 
@@ -258,35 +436,34 @@ def _launch(x: torch.Tensor, packed: PackedLevel) -> torch.Tensor:
     lib, fn = _library()
     out = torch.empty((B, packed.rows, T_out), dtype=x.dtype, device=x.device)
     dev = x.device.index
-
-    def call():
-        return fn(x.data_ptr(), packed.tiles.data_ptr(), packed.bias.data_ptr(),
-                  packed.tile_start.data_ptr(), packed.tile_chunk.data_ptr(),
-                  out.data_ptr(), B, C_in, T, K, packed.rows, T_out, stride, pad,
-                  int(packed.reflect), packed.negative_slope, packed.max_live,
-                  _DTYPES[x.dtype], dev, _sm_count(dev),
-                  torch.cuda.current_stream(x.device).cuda_stream)
-
-    if dev == torch.cuda.current_device():
-        err = call()
-    else:
-        with torch.cuda.device(x.device):
-            err = call()
+    err = _on_device(x, lambda: fn(
+        x.data_ptr(), packed.tiles.data_ptr(), packed.bias.data_ptr(),
+        packed.tile_start.data_ptr(), packed.tile_chunk.data_ptr(), out.data_ptr(), B, C_in,
+        T, K, packed.rows, T_out, stride, pad, int(packed.reflect), packed.negative_slope,
+        packed.max_live, _DTYPES[x.dtype], dev, _sm_count(dev),
+        torch.cuda.current_stream(x.device).cuda_stream))
     _build.check(lib, err, "fused_conv_pool")
     fused_conv_pool.launches += 1
     return out
 
 
+def _plain(x: torch.Tensor, packed: PackedLevel) -> torch.Tensor:
+    w, b = unpack_level(packed)
+    return fused_conv_pool_reference(
+        x, w, b, None, None, packed.stride, packed.padding,
+        "reflect" if packed.reflect else "constant", packed.negative_slope)
+
+
 def fused_conv_pool_packed(x: torch.Tensor, packed: PackedLevel) -> torch.Tensor:
-    """x (B, C_in, T) through a packed level -> (B, P, T_out)."""
+    """x (B, C_in, T) through a packed level -> (B, P, T_out).  Not
+    differentiable on CUDA (use :class:`FusedConvPoolFn`)."""
     if x.device.type == "cpu":
-        w, b = unpack_level(packed)
-        return fused_conv_pool_reference(
-            x, w, b, None, None, packed.stride, packed.padding,
-            "reflect" if packed.reflect else "constant", packed.negative_slope)
+        return _plain(x, packed)
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv_pool runs on cpu or cuda tensors, not {x.device}")
-    _no_grad_guard(x)
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError("fused_conv_pool_packed has no gradient: train through "
+                           "FusedConvPoolFn")
     return _launch(x, packed)
 
 
@@ -313,7 +490,9 @@ def fused_conv_pool(
                                          padding, padding_mode, negative_slope)
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv_pool runs on cpu or cuda tensors, not {x.device}")
-    _no_grad_guard(x, weight, bias, mask, pool_matrix)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, weight, bias, mask, pool_matrix)):
+        raise RuntimeError("fused_conv_pool has no gradient: train through FusedConvPoolFn")
     if x.dim() != 3 or weight.dim() != 3:
         raise ValueError("x must be (B, C_in, T) and weight (C_out, C_in, K)")
     C_out, C_in, K = weight.shape
@@ -327,3 +506,136 @@ def fused_conv_pool(
 
 
 fused_conv_pool.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# backward
+
+
+def _bwd_checks(s: LevelStructure, gy: torch.Tensor, y: torch.Tensor, **tensors) -> None:
+    if gy.dtype != torch.float32 or s.dtype != torch.float32:
+        raise TypeError("the fused_conv_pool backward kernels run in float32 only "
+                        f"(got {gy.dtype}, structure {s.dtype})")
+    if s.kernel_size > MAX_BWD_K:
+        raise ValueError(f"the backward kernels take K <= {MAX_BWD_K}, not {s.kernel_size}")
+    if not s.negative_slope > 0:
+        raise ValueError("the backward reads LeakyReLU's gradient from its output: "
+                         f"slope must be > 0, not {s.negative_slope}")
+    _check("y", y, gy, gy.shape)
+    for name, t in tensors.items():
+        if t.device != gy.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 tensor on {gy.device}")
+    if gy.device != s.device:
+        raise ValueError(f"gy is on {gy.device}, the structure on {s.device}")
+    if not gy.is_contiguous():
+        raise ValueError("gy must be contiguous")
+
+
+def fused_conv_pool_dgrad(gy: torch.Tensor, y: torch.Tensor, weight: torch.Tensor,
+                          structure: LevelStructure, T_in: int) -> torch.Tensor:
+    """The input gradient (B, C_in, T_in) of a folded level, from the output
+    gradient ``gy`` and output ``y`` (B, P, T_out) and the folded weight
+    (P, C_in, K).  One kernel launch on CUDA (f32), the plain version on the
+    CPU."""
+    s = structure
+    mode = "reflect" if s.reflect else "constant"
+    if gy.device.type == "cpu":
+        return fused_conv_pool_dgrad_reference(gy, y, weight, T_in, s.stride, s.padding, mode,
+                                               s.negative_slope)
+    _bwd_checks(s, gy, y, weight=weight)
+    B, P, T_out = gy.shape
+    K = s.kernel_size
+    if tuple(weight.shape) != (s.rows, s.in_channels, K) or P != s.rows:
+        raise ValueError(f"weight {tuple(weight.shape)} / gy {tuple(gy.shape)} do not fit "
+                         "the structure")
+    if _t_out(T_in, K, s.stride, s.padding, s.reflect) != T_out:
+        raise ValueError(f"T_in {T_in} does not give T_out {T_out}")
+    lib, dgrad, _ = _bwd_library()
+    gx = torch.empty((B, s.in_channels, T_in), dtype=gy.dtype, device=gy.device)
+    err = _on_device(gy, lambda: dgrad(
+        gy.data_ptr(), y.data_ptr(), weight.data_ptr(), s.chunk_start.data_ptr(),
+        s.chunk_row.data_ptr(), gx.data_ptr(), B, s.in_channels, T_in, K, P, T_out,
+        s.stride, s.padding, int(s.reflect), s.negative_slope, gy.device.index,
+        torch.cuda.current_stream(gy.device).cuda_stream))
+    _build.check(lib, err, "fused_conv_pool_dgrad")
+    fused_conv_pool_dgrad.launches += 1
+    return gx
+
+
+def fused_conv_pool_wgrad(gy: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
+                          structure: LevelStructure):
+    """The folded weight's gradient (P, C_in, K), zero outside the live
+    tiles, and the bias gradient (P,), from ``gy`` and ``y`` (B, P, T_out)
+    and the input x (B, C_in, T_in).  One kernel launch on CUDA (f32),
+    fixed-order sums (the same bits every run); the plain version on the
+    CPU."""
+    s = structure
+    mode = "reflect" if s.reflect else "constant"
+    if gy.device.type == "cpu":
+        return fused_conv_pool_wgrad_reference(gy, y, x, s.kernel_size, s.stride, s.padding,
+                                               mode, s.negative_slope, s.live_elements())
+    _bwd_checks(s, gy, y, x=x)
+    B, P, T_out = gy.shape
+    K, C_in, T_in = s.kernel_size, s.in_channels, x.shape[2]
+    if tuple(x.shape[:2]) != (B, C_in) or P != s.rows:
+        raise ValueError(f"x {tuple(x.shape)} / gy {tuple(gy.shape)} do not fit the structure")
+    if _t_out(T_in, K, s.stride, s.padding, s.reflect) != T_out:
+        raise ValueError(f"T_in {T_in} does not give T_out {T_out}")
+    lib, _, wgrad = _bwd_library()
+    gw = torch.zeros((P, C_in, K), dtype=gy.dtype, device=gy.device)
+    gb = torch.empty((P,), dtype=gy.dtype, device=gy.device)
+    n_live, row_tiles = s.tile_chunk.numel(), s.tile_start.numel() - 1
+    err = _on_device(gy, lambda: wgrad(
+        gy.data_ptr(), y.data_ptr(), x.data_ptr(), s.tile_row.data_ptr(),
+        s.tile_chunk.data_ptr(), gw.data_ptr(), gb.data_ptr(), n_live, row_tiles, B, C_in,
+        T_in, K, P, T_out, s.stride, s.padding, int(s.reflect), s.negative_slope,
+        gy.device.index, torch.cuda.current_stream(gy.device).cuda_stream))
+    _build.check(lib, err, "fused_conv_pool_wgrad")
+    fused_conv_pool_wgrad.launches += 1
+    return gw, gb
+
+
+fused_conv_pool_dgrad.launches = 0
+fused_conv_pool_wgrad.launches = 0
+
+
+class FusedConvPoolFn(torch.autograd.Function):
+    """One folded level, differentiable: ``FusedConvPoolFn.apply(x, weight,
+    bias, structure)`` with x (B, C_in, T), the folded weight (P, C_in, K)
+    and bias (P,) or None in the structure's dtype.
+
+    On CUDA the forward writes the weight's current values into the
+    structure's tiles (:func:`repack`) and launches the forward kernel; the
+    backward launches the dgrad kernel (only when x needs a gradient) and
+    the wgrad kernel.  The weight's entries outside the live tiles must be
+    zero, as a fold of the structure leaves them.  It saves x and the output:
+    LeakyReLU's gradient is read from the output's sign.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, structure: LevelStructure):
+        s = structure
+        if x.device.type == "cpu":
+            y = fused_conv_pool_reference(x, weight, bias, None, None, s.stride, s.padding,
+                                          "reflect" if s.reflect else "constant",
+                                          s.negative_slope)
+        elif x.device.type == "cuda":
+            y = _launch(x, repack(s, weight, bias))
+        else:
+            raise ValueError(f"fused_conv_pool runs on cpu or cuda tensors, not {x.device}")
+        ctx.structure = s
+        ctx.has_bias = bias is not None
+        ctx.save_for_backward(x, weight, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, weight, y = ctx.saved_tensors
+        s = ctx.structure
+        gy = gy.contiguous()
+        gx = gw = gb = None
+        if ctx.needs_input_grad[0]:
+            gx = fused_conv_pool_dgrad(gy, y, weight, s, x.shape[2])
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            gw, gb = fused_conv_pool_wgrad(gy, y, x, s)
+        return gx, gw, gb if ctx.has_bias else None, None

@@ -1,0 +1,208 @@
+"""Adam with L2 weight decay, torch's ``grad is None`` skip, StepLR, and the
+bf16 storage modes of the JAX package's optimizer.
+
+Port of ``hm_vae_tpu.train.optim``: ``torch_adam_l2`` and the plain chain
+``add_decayed_weights -> scale_by_adam_stored -> scale_by_learning_rate`` as
+one :class:`torch.optim.Optimizer` (:class:`TorchAdamL2`, made by
+:func:`make_optimizer`), ``make_schedule`` / ``make_schedule_raw``,
+``stochastic_round_bf16_hash`` and its counter hash.
+
+The update is the JAX package's expression, ``(m/c1) / (sqrt(v/c2) + eps)``
+with ``c1 = 1 - b1**count`` in f32 (not torch's fused Adam: equal
+algebraically, not bit for bit).  L2 is added into the gradient.  With
+``none_grad_skip`` a parameter whose ``grad`` is None is skipped: no decay, no
+moments, its own count does not advance (the JAX package's proxy is an
+all-zero gradient leaf); without it every parameter steps on one global
+count, a missing gradient counting as zeros.  The learning rate is read at
+the global count before the step.
+
+``param_dtype: bfloat16`` writes the new value back by stochastic rounding
+with bits from :func:`_hash_bits16`, salted by the parameter's index + 1 in
+the flax tree-flatten order of the JAX package's parameters and hashed over
+the flax leaf's layout (a Linear weight is the transpose of a flax kernel),
+so that both packages round the same way.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Iterable, Tuple
+
+import torch
+
+from ..utils.config import OptimConfig
+
+B1, B2, EPS = 0.9, 0.999, 1e-8
+_M32 = 0xFFFFFFFF
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _f32(v) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32)
+
+
+def make_schedule_raw(lr: float, policy: str, step_size, gamma: float
+                      ) -> Callable[[int], torch.Tensor]:
+    """count -> learning rate (an f32 scalar): constant, StepLR
+    (``lr * gamma ** (count // step_size)``) or MultiStepLR (``gamma`` once
+    per milestone ``<= count``)."""
+    if policy == "constant" or not policy:
+        return lambda count: _f32(lr)
+    if policy == "step":
+        return lambda count: _f32(lr) * _f32(gamma) ** float(count // int(step_size))
+    if policy == "mstep":
+        milestones = sorted(int(m) for m in step_size)
+
+        def mstep(count):
+            v = _f32(lr)
+            for m in milestones:
+                if count >= m:
+                    v = v * _f32(gamma)
+            return v
+
+        return mstep
+    raise ValueError(f"unknown lr_policy: {policy}")
+
+
+def make_schedule(cfg: OptimConfig) -> Callable[[int], torch.Tensor]:
+    return make_schedule_raw(cfg.lr, cfg.lr_policy, cfg.step_size, cfg.gamma)
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """(h * c) mod 2**32 for int64 h in [0, 2**32), without overflow."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (h * lo + (((h * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _hash_bits16(shape, salt: int, count: int, device=None) -> torch.Tensor:
+    """16 uniform bits per element (int64) from a murmur3-finalised counter
+    hash of (element index, salt, count): the JAX package's ``_hash_bits16``
+    bit for bit."""
+    n = 1
+    for d in shape:
+        n *= int(d)
+    base = ((salt * 0x9E3779B1) + (count * 0x85EBCA6B)) & _M32
+    h = (torch.arange(n, dtype=torch.int64, device=device) + base) & _M32
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    return (h & 0xFFFF).reshape(tuple(shape))
+
+
+def stochastic_round_bf16_hash(x32: torch.Tensor, salt: int, count: int,
+                               transposed: bool = False) -> torch.Tensor:
+    """Stochastically round f32 values to the bf16 grid, returned as f32:
+    add 16 hashed random bits to the IEEE bits and truncate the low 16, so
+    ``E[round(x)] == x``.  ``transposed``: hash over the transposed layout
+    (a flax kernel of this Linear weight).  Not inf/NaN-safe."""
+    x32 = x32.float()
+    r = _hash_bits16(x32.T.shape if transposed else x32.shape, salt, count, x32.device)
+    if transposed:
+        r = r.T
+    bits = x32.contiguous().view(torch.int32).to(torch.int64) & _M32
+    bits = (bits + r) & 0xFFFF0000
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def _adam_math(g32, m, v, c1, c2):
+    """The bias-corrected Adam update (f32 moments in, f32 out)."""
+    m32 = B1 * m.float() + (1 - B1) * g32
+    v32 = B2 * v.float() + (1 - B2) * g32 * g32
+    u = (m32 / c1) / (torch.sqrt(v32 / c2) + EPS)
+    return u, m32, v32
+
+
+def flax_salts(names: Iterable[str]) -> Dict[str, Tuple[int, bool]]:
+    """Port parameter name -> (salt, transposed): the salt is the index + 1
+    of the parameter in the tree-flatten order (sorted keys) of the JAX
+    package's flax parameters, where a latent Linear's ``weight`` is the
+    transposed ``kernel``."""
+    paths = {}
+    for name in names:
+        *mods, leaf = name.split(".")
+        kernel = leaf == "weight" and mods[-1].startswith("latent_")
+        paths[name] = (tuple(mods), "kernel" if kernel else leaf)
+    order = sorted(paths, key=lambda n: (*paths[n][0], paths[n][1]))
+    return {n: (i + 1, paths[n][1] == "kernel") for i, n in enumerate(order)}
+
+
+class TorchAdamL2(torch.optim.Optimizer):
+    """Adam + L2-in-gradient + the LR schedule over named parameters (see
+    the module docstring).  State per parameter: ``step`` (its count),
+    ``exp_avg``, ``exp_avg_sq`` (``moment_dtype``); the group's ``step`` is
+    the global count."""
+
+    def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
+                 cfg: OptimConfig):
+        named = list(named_params)
+        self.cfg = cfg
+        self.schedule = make_schedule(cfg)
+        self.moment_dtype = _DTYPES[cfg.moment_dtype]
+        if cfg.param_dtype not in _DTYPES:
+            raise ValueError(f"unsupported param_dtype: {cfg.param_dtype!r} "
+                             "(expected float32 | bfloat16)")
+        self.param_sr = cfg.param_dtype == "bfloat16"
+        if self.param_sr and not cfg.none_grad_skip:
+            raise ValueError("param_dtype=bfloat16 requires none_grad_skip=True")
+        names = [n for n, _ in named]
+        salts = flax_salts(names)
+        super().__init__([{"params": [p for _, p in named],
+                           "salts": [salts[n] for n in names], "step": 0}],
+                         {"lr": cfg.lr})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("TorchAdamL2 takes no closure")
+        wd = float(self.cfg.weight_decay or 0.0)
+        skip = self.cfg.none_grad_skip
+        for group in self.param_groups:
+            gcount = group["step"]
+            lr = self.schedule(gcount)
+            group["step"] = gcount + 1
+            for p, (salt, transposed) in zip(group["params"], group["salts"]):
+                g = p.grad
+                if g is None and skip:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    state["exp_avg"] = torch.zeros_like(p, dtype=self.moment_dtype)
+                    state["exp_avg_sq"] = torch.zeros_like(p, dtype=self.moment_dtype)
+                count = state["step"] + 1 if skip else gcount + 1
+                state["step"] = count
+                p32 = p.float()
+                g32 = torch.zeros_like(p32) if g is None else g.float()
+                if wd:
+                    g32 = g32 + wd * p32
+                cf = _f32(float(count))
+                u, m32, v32 = _adam_math(g32, state["exp_avg"], state["exp_avg_sq"],
+                                         1 - _f32(B1) ** cf, 1 - _f32(B2) ** cf)
+                u = -lr * u  # CPU 0-dim tensors act as scalars on any device
+                if self.param_sr:
+                    p.copy_(stochastic_round_bf16_hash(p32 + u, salt, gcount + 1, transposed))
+                else:
+                    p.add_(u.to(p.dtype))
+                state["exp_avg"] = m32.to(self.moment_dtype)
+                state["exp_avg_sq"] = v32.to(self.moment_dtype)
+        return None
+
+    def load_state_dict(self, state_dict) -> None:
+        # torch casts floating state to the parameter's dtype: keep the
+        # moments in moment_dtype, bit for bit
+        moments = {i: {k: v.clone() for k, v in s.items() if k != "step"}
+                   for i, s in state_dict["state"].items()}
+        super().load_state_dict(state_dict)
+        params = self.param_groups[0]["params"]
+        for i, s in moments.items():
+            p = params[i]
+            for k, v in s.items():
+                self.state[p][k] = v.to(device=p.device, dtype=self.moment_dtype)
+
+
+def make_optimizer(named_params, cfg: OptimConfig) -> TorchAdamL2:
+    """The training optimizer: torch-exact Adam with L2 and the grad-None
+    skip (``none_grad_skip``, the default), else the plain chain."""
+    return TorchAdamL2(named_params, cfg)

@@ -4,7 +4,10 @@
   dicts of numpy arrays) -> the port's ``state_dict``.
 - :func:`state_dict_from_reference` / :func:`load_reference_checkpoint`: the
   reference implementation's ``gen_*.pt`` checkpoints -> the port's
-  ``state_dict``.  The key mapping and the checks of the constant buffers
+  ``state_dict``; :func:`reference_state_dict` is the inverse, with the
+  constant buffers, which the port's training checkpoints store (so that
+  ``hm_vae_tpu.utils.torch_import.import_hmvae_params`` reads them).  The
+  key mapping and the checks of the constant buffers
   (conv masks, pool/unpool matrices) are the port's own copy of
   ``hm_vae_tpu.utils.torch_import``; a constant that does not match this
   configuration fails loudly instead of mis-loading.
@@ -52,6 +55,42 @@ def load_reference_checkpoint(path: str) -> Dict[str, np.ndarray]:
     sd = blob.get("state_dict", blob)
     return {k: v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
             for k, v in sd.items()}
+
+
+def reference_state_dict(sd: Mapping[str, torch.Tensor],
+                         cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """Port state_dict -> the reference ``TwoHierSAVAEModel`` state dict
+    (f32, on the CPU), with the conv masks and the pool/unpool matrices."""
+    st = get_structure(cfg)
+    E = cfg.extra_conv
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(name, v):
+        out[name] = v.detach().float().cpu() if torch.is_tensor(v) else _t(v)
+
+    def conv(dst, src, spec):
+        put(f"{dst}.weight", sd[f"{src}.weight"])
+        if f"{src}.bias" in sd:
+            put(f"{dst}.bias", sd[f"{src}.bias"])
+        put(f"{dst}.mask", np.broadcast_to(spec.mask[:, :, None], tuple(sd[f"{src}.weight"].shape)))
+
+    for i, lvl in enumerate(st.encoder_levels):
+        for e, espec in enumerate(lvl.extra_convs):
+            conv(f"enc.layers.{i}.{e}", f"encoder.conv_{i}_extra_{e}", espec)
+        conv(f"enc.layers.{i}.{E}", f"encoder.conv_{i}", lvl.conv)
+        put(f"enc.layers.{i}.{E + 1}.weight", lvl.pool_matrix)
+        put(f"enc.latent_enc_layers.{i}.weight", sd[f"encoder.latent_head_{i}.weight"])
+        put(f"enc.latent_enc_layers.{i}.bias", sd[f"encoder.latent_head_{i}.bias"])
+    for i, lvl in enumerate(st.decoder_levels):
+        unpool_idx = 1 if lvl.upsample else 0
+        for e, espec in enumerate(lvl.extra_convs):
+            conv(f"dec.layers.{i}.{unpool_idx + 1 + e}", f"decoder.conv_{i}_extra_{e}", espec)
+        conv(f"dec.layers.{i}.{unpool_idx + 1 + E}", f"decoder.conv_{i}", lvl.conv)
+        put(f"dec.unpools.{i}.weight", lvl.unpool_matrix)
+        put(f"dec.layers.{i}.{unpool_idx}.weight", lvl.unpool_matrix)
+        put(f"dec.latent_dec_layers.{i}.weight", sd[f"decoder.latent_dec_{i}.weight"])
+        put(f"dec.latent_dec_layers.{i}.bias", sd[f"decoder.latent_dec_{i}.bias"])
+    return out
 
 
 def _check_constant(sd: Mapping[str, np.ndarray], name: str, ours: np.ndarray):

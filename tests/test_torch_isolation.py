@@ -1,6 +1,6 @@
 """The port stands alone: importing all of ``hm_vae_torch`` (and
-chip_smoke.py, kernel_trace.py) loads neither JAX nor the JAX package, and no source of the
-port imports them."""
+chip_smoke.py, kernel_trace.py), the training path included, loads neither JAX
+nor the JAX package, and no source of the port imports them."""
 
 import ast
 import os
@@ -9,6 +9,10 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "hm_vae_tpu")
+# the training path's modules, which must be among those imported
+TRAINING = tuple(f"hm_vae_torch.{m}" for m in (
+    "train.losses", "train.optim", "train.train_step", "train.trainer", "data.synthetic",
+    "data.layout", "data.dataset", "utils.logging", "cli.train"))
 
 
 def _port_sources():
@@ -30,12 +34,14 @@ def test_import_leaves_jax_out():
         f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
         "print(len([n for n in sys.modules if n.startswith('hm_vae_torch.')]))\n"
         "assert not bad, bad\n"
+        f"missing = [n for n in {TRAINING!r} if n not in sys.modules]\n"
+        "assert not missing, missing\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15  # every submodule was imported
+    assert int(out.stdout.split()[-1]) >= 25  # every submodule was imported
 
 
 def test_sources_import_no_jax():
