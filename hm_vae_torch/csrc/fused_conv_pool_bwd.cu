@@ -1,6 +1,6 @@
 // The backward of one skeleton-conv level (fused_conv_pool.cu's forward) on
 // Hopper, in f32: the input gradient (dgrad) and the folded weight's and
-// bias's gradients (wgrad), two kernels on the CUDA cores.
+// bias's gradients (wgrad), two kernels on the tensor cores.
 //
 // The JAX package has no backward kernel: it differentiates its XLA level in
 // hm_vae_tpu/models/hm_vae.py (SkeletonConv: the conv on the folded weight
@@ -10,258 +10,701 @@
 //
 //   y[b, p, t] = act( bf[p] + sum_{c,k} Wf[p, c, k] * xpad[b, c, t*stride + k] )
 //
-// with x (B, C_in, T_in), xpad x padded in time by `padding` (reflect
-// without edge repeat, or zeros) and act(v) = v >= 0 ? v : slope*v, and the
-// output gradient gy, both kernels read g = gy * act'(y), act'(y) = y >= 0 ?
-// 1 : slope (slope > 0, so y >= 0 exactly where the pre-activation is):
+// with x (B, C, T_in), xpad x padded in time by `padding` (reflect without
+// edge repeat, or zeros) and act(v) = v >= 0 ? v : slope*v, and the output
+// gradient gy, both kernels read g = gy * act'(y), act'(y) = y >= 0 ? 1 :
+// slope (slope > 0, so y >= 0 exactly where the pre-activation is):
 //
 //   dgrad: gx[b, c, i] = sum over the padded columns u that read x[., ., i]
 //          (u = i + padding, and under reflect the mirrored columns) of
-//          sum_{p, k: u = t*stride + k} Wf[p, c, k] * g[b, p, t];
+//          gxpad[b, c, u] = sum_{p, k: u = t*stride + k} Wf[p, c, k] * g[b, p, t];
 //   wgrad: gWf[p, c, k] = sum_{b, t} g[b, p, t] * xpad[b, c, t*stride + k],
 //          gbf[p] = sum_{b, t} g[b, p, t].
 //
-// Both walk only the live tiles of the folded weight (64 rows x 8 input
-// channels, the f32 packing of pack_structure in the wrapper,
-// hm_vae_torch/ops/fused_conv_pool.py): the dgrad kernel a channel chunk's
-// live row tiles (chunk_start / chunk_row), the wgrad kernel one live tile a
-// block (tile_row / tile_chunk).  Entries of dead tiles are structural zeros
-// of the fold: wgrad leaves them as the wrapper zeroed them.
+// Both read only the live tiles of the folded weight (64 rows x 8 input
+// channels; pack_structure in hm_vae_torch/ops/fused_conv_pool.py): dgrad
+// the row tiles live in a pair of chunks (dgrad_start / dgrad_row), wgrad
+// one live tile a block (wgrad_row / wgrad_chunk, where chunk -1 is a row
+// tile with no live tile, whose bias gradient is still summed).  Entries of dead tiles
+// are structural zeros of the fold: wgrad leaves them as the wrapper zeroed
+// them.  The wrapper chooses the work split (dgrad_plan, wgrad_plan), a pure
+// function of the shapes that the CPU tests check.
 //
-// What bounds them on an H100 (data sheet: 3.35 TB/s, 67 TFLOP/s f32 on the
-// CUDA cores).  At the len-64 model's batch of 8 each kernel does ~1/3 of the
-// forward's multiply-adds per level over the live tiles (a few GFLOP over the
-// eight levels) and moves the folded weight (or its gradient), x, y and gy:
-// tens of megabytes.  Both bounds are microseconds; a simple kernel is far
-// from them.  The design is the simple one, exact and deterministic:
-// - f32 FMA: at least as accurate as the forward's 3xTF32, so the GPU's
-//   training trajectory tracks the CPU's;
-// - every output is summed by one thread in a fixed order (no atomics, no
-//   split reductions), so a step gives the same bits every run;
-// - dgrad: a block owns 8 channels x 128 (b, i) columns; a thread 4
-//   channels of one column.  For each live row tile of its chunk the block
-//   stages the weight (64 rows x K taps x 8 channels) and g (64 rows x the
-//   block's batches x T_out) in shared memory; a thread sums over the
-//   padded columns of its input step, the taps of matching stride phase and
-//   the 64 rows, with the weight's four channels as one 16-byte read;
-// - wgrad: a block owns one live tile (64 rows x 8*K reduction entries) and
-//   walks the B*T_out columns 32 at a time: x rows of the batches touched,
-//   g (64 x 32) and the im2col tile (32 x 8*K) are staged in shared memory,
-//   and a thread sums a 4-row x 8-entry register tile.  One more block per
-//   row tile sums the bias gradient.
-// Times against the bounds are in PERF.md.
+// What bounds them on an H100 (data sheet: 3.35 TB/s; 495 TFLOP/s TF32 on
+// the tensor cores, 165 as 3xTF32).  At the len-64 model's batch of 8 each
+// kernel does ~1/3 of the forward's multiply-adds per level (a few GFLOP
+// over the eight levels) and moves the live weight (or its gradient), x, y
+// and gy: tens of megabytes.  Both bounds are microseconds: a launch is
+// bound by latency (copies in flight, the dependent steps of a block) and
+// by how many blocks fill the 132 SMs, not by the units.  What the design
+// does about it:
+// - the products are mma.sync.m16n8k8 in 3xTF32 (big*big + big*small +
+//   small*big, f32 accumulate), each operand split into its TF32 rounding
+//   and the remainder (g and x where they are staged, dgrad's weight where
+//   its fragments are loaded); the tensor cores' sums are added in f32
+//   after every k-step (wgrad: 8 columns) or tap (dgrad), so that no
+//   tensor-core sum runs long (as the forward adds each chunk's).  mma.sync,
+//   not wgmma: TF32 wgmma takes both operands K-major from shared memory,
+//   but dgrad's weight operand is the folded weight transposed (its
+//   reduction runs over the rows p) and its g operand is g shifted by the
+//   tap; both kernels' tiles are narrow (8 channels, 64 rows).  mma.sync's
+//   fragments are loaded by each lane from shared memory in whatever layout
+//   is staged;
+// - every copy from global memory is a cp.async.bulk onto an mbarrier, and
+//   the next stage's copies are in flight while the current stage
+//   multiplies: dgrad keeps two weight stages and refills its one stage of
+//   gy and y as soon as it is rewritten for the products; wgrad does the
+//   same with one or two stages of gy and y, as many as let two blocks
+//   share an SM;
+// - sums run in a fixed order, the cluster split's partial tiles are added
+//   in rank order through distributed shared memory: no atomics, the same
+//   bits every run;
+// - dgrad: a block owns a pair of 8-channel chunks (two mma N tiles, so
+//   that each g fragment read from shared memory feeds two products) and
+//   whole padded input rows of a group of batches (the M side: 16-column
+//   tiles over (b, v), one per warp).  At stride 2 a padded column
+//   u = 2v + phi reads only taps k = 2m + phi, so the columns are split by
+//   phase and each phase is a stride-1 product over its ~K/2 taps with g
+//   shifted by m: no zero tap is multiplied and no im2col is built.  The
+//   block walks the row tiles live in either chunk (the reduction: 64 rows x
+//   a phase's taps; a dead tile's weight is zeros), half a tile a stage:
+//   the weight rows (32 bulk copies of 16*K floats, read by the lanes in
+//   fragment order and split) and g's rows, written once per stage split
+//   and zero-padded in time, so a fragment load needs no bounds test.
+//   Where pairs x batch groups are too few to fill the card the row tiles
+//   are split over a cluster.  The epilogue writes gxpad to shared memory,
+//   sums the cluster's partials, adds each reflected edge column onto its
+//   source (the padding's adjoint) and stores gx row by row;
+// - wgrad: a block owns one live tile (64 rows x the chunk's 8 channels x K
+//   taps, plus a ones-column for the bias: the mma's N runs over 8-channel
+//   tap tiles, K + 1 of them) and a range of batches (the reduction over the
+//   (b, t) columns); a cluster splits the batches where the live tiles are
+//   too few to fill the card.  x's rows for the block's batches are staged
+//   once, padded and split by stride phase (so that a tap's columns read
+//   consecutive words); g is staged a few batches at a time and written in
+//   the mma's fragment order, so each lane reads its A fragment as two
+//   16-byte loads.
+// Times against the bounds, and traces of both kernels (kernel_trace.py),
+// are in PERF.md.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <stddef.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 64;    // rows of a weight tile
-constexpr int kCC = 8;       // input channels of a chunk (f32 packing)
-constexpr int kCols = 128;   // dgrad: (b, i) columns per block
-constexpr int kNB = 32;      // wgrad: reduction columns staged at a time
-constexpr int kGS = kRows + 4;  // wgrad: g row stride (16-byte aligned, fewer conflicts)
-constexpr int kMaxK = 16;    // wgrad: 8*K reduction entries <= 16 threads x 8
-constexpr int kMaxSmem = 232448;
+constexpr int kThreads = 256;  // eight warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 64;      // rows of a weight tile
+constexpr int kHalf = 32;      // dgrad: weight rows of a stage (half a tile)
+constexpr int kDC = 16;        // dgrad: input channels of a block (two chunks)
+constexpr int kCC = 8;         // input channels of a chunk (the mma's N)
+constexpr int kStages = 2;     // stages in flight
+constexpr int kMaxSplit = 8;   // blocks per cluster (the portable maximum)
+constexpr int kMaxK = 16;
+constexpr int kMaxSmem = 232448;   // a block
+constexpr int kSmemPerSM = 233472;  // 228 KB
 constexpr int kMaxDevices = 64;
 
-// The input step a padded column s - padding reads, or -1 (zero padding).
-__device__ __forceinline__ int source_step(int s, int T_in, int reflect) {
-  if (s >= 0 && s < T_in) return s;
-  if (!reflect) return -1;
-  return s < 0 ? -s : 2 * (T_in - 1) - s;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ float act_grad(const float* gy, const float* y, size_t o,
-                                          float slope) {
-  const float v = gy[o];
-  return y[o] >= 0.f ? v : v * slope;
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Waits for the phase after `parity`; traps (a launch error, not a hang) if a
+// copy never completes.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t spins = 0; !done; ++spins) {
+    if (spins == (1u << 26)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// Arrive on `bar` and make its phase wait for `bytes` of bulk copies.
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// One bulk copy of `bytes` contiguous bytes (16-byte aligned, a multiple of
+// 16) into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float tf32_round(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return __uint_as_float(r);
+}
+
+// v ~ big + small: big is v rounded to TF32, small the remainder rounded to
+// TF32 too (the tensor cores would truncate it, a bias that long sums of
+// like-signed terms add up).
+__device__ __forceinline__ float2 split_tf32(float v) {
+  const float big = tf32_round(v);
+  return make_float2(big, tf32_round(v - big));
+}
+
+__device__ __forceinline__ float act_grad(float gy, float y, float slope) {
+  return y >= 0.f ? gy : gy * slope;
+}
+
+// d += A (16 x 8, row) * B (8 x 8, col), TF32 in, f32 accumulate.  Lane
+// (g = lane/4, q = lane%4) holds a = A[g][q], A[g+8][q], A[g][q+4],
+// A[g+8][q+4]; b = B[q][g], B[q+4][g]; d = D[g][2q], D[g][2q+1],
+// D[g+8][2q], D[g+8][2q+1].
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The smallest row stride >= len (in 8-byte words) that is 4 mod 16: a
+// half-warp's 16 lanes, four rows of four consecutive words, read 16
+// different bank pairs.
+__host__ __device__ __forceinline__ int frag_stride(int len) { return (len + 11) / 16 * 16 + 4; }
+
+__host__ __device__ __forceinline__ size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
+
+// ---------------------------------------------------------------------------
+// dgrad
+
+struct DgradLayout {
+  int Tp, off, rs, wr;  // padded width, g's time offset (a phase's taps - 1),
+                        // g2's row stride (8-byte words), a weight row (floats)
+  size_t bars, w, g, g2, out, total;  // byte offsets in shared memory
+};
+
+// A stage is half a row tile: 32 weight rows of the block's 16 channels and
+// the same rows of gy and y, so that two blocks fit an SM.  Two weight
+// stages in flight (a stage's rows are read by the products); one stage of
+// gy and y, refilled as soon as it is rewritten into g2.  gxpad (16
+// channels x the group's padded rows) reuses the weight stages.
+__host__ __device__ inline DgradLayout dgrad_layout(int T_in, int K, int T_out, int t_ld,
+                                                    int stride, int padding, int nbb) {
+  DgradLayout L;
+  L.Tp = T_in + 2 * padding;
+  L.off = (K + stride - 1) / stride - 1;
+  const int V0 = (L.Tp + stride - 1) / stride;
+  L.rs = frag_stride(L.off + (V0 > T_out ? V0 : T_out));
+  L.wr = kDC * K + 8;  // 16-byte rows; 8 more floats spread a fragment's rows over the banks
+  L.bars = 0;
+  L.w = 64;
+  L.g = L.w + align16(size_t(kStages) * kHalf * L.wr * 4);
+  L.g2 = L.g + align16(size_t(2) * nbb * kHalf * t_ld * 4);
+  const size_t out_bytes = size_t(kDC) * nbb * L.Tp * 4;
+  const size_t g2_end = L.g2 + size_t(nbb) * kHalf * L.rs * 8;
+  L.out = out_bytes <= L.g - L.w ? L.w : align16(g2_end);
+  L.total = L.out == L.w ? g2_end : L.out + out_bytes;
+  return L;
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
 dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
-             const float* __restrict__ w, const int* __restrict__ chunk_start,
-             const int* __restrict__ chunk_row, float* __restrict__ gx, int B, int C_in,
-             int T_in, int K, int P, int T_out, int stride, int padding, int reflect,
-             float slope) {
-  extern __shared__ __align__(16) float smem[];
-  float* w_s = smem;                    // [kRows][K][kCC]
-  float* g_s = w_s + kRows * K * kCC;   // [batch][kRows][T_out]
+             const float* __restrict__ w, const int* __restrict__ dgrad_start,
+             const int* __restrict__ dgrad_row, float* __restrict__ gx, int B, int C, int T_in,
+             int K, int P, int T_out, int t_ld, int stride, int padding, int reflect,
+             float slope, int nbb) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int split = static_cast<int>(cluster.num_blocks());
+  const DgradLayout L = dgrad_layout(T_in, K, T_out, t_ld, stride, padding, nbb);
 
-  const int tid = threadIdx.x;
-  const int c0 = blockIdx.y * kCC;
-  const int n0 = blockIdx.x * kCols;
-  const int N = B * T_in;
-  const int b_lo = n0 / T_in;
-  const int n_b = (min(n0 + kCols, N) - 1) / T_in - b_lo + 1;
-  const int half = tid / kCols;  // channels c0 + 4*half ..
-  const int n = n0 + tid % kCols;
-  const bool col_ok = n < N;
-  const int b = col_ok ? n / T_in : b_lo;
-  const int i = col_ok ? n - b * T_in : 0;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);  // weight [kStages], then g
+  float* w_s = reinterpret_cast<float*>(smem + L.w);             // [kStages][32][wr]
+  float* g_s = reinterpret_cast<float*>(smem + L.g);             // [2][nbb][32][t_ld]
+  float2* g2 = reinterpret_cast<float2*>(smem + L.g2);           // [nbb][32][rs]
+  float* out_s = reinterpret_cast<float*>(smem + L.out);         // [16][nbb][Tp]
 
-  // the padded columns that read x[b, ., i]
-  int u[3];
-  int nu = 0;
-  u[nu++] = i + padding;
-  if (reflect && i >= 1 && i <= padding) u[nu++] = padding - i;
-  if (reflect && i <= T_in - 2 && i >= T_in - 1 - padding) u[nu++] = padding + 2 * (T_in - 1) - i;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int c0 = blockIdx.x * kDC;
+  const int cw = min(kDC, C - c0);  // 16, or 8 for a last odd chunk
+  const int b0 = blockIdx.y * nbb;
+  const int nbl = min(nbb, B - b0);
+  const int first = dgrad_start[blockIdx.x];
+  const int live = dgrad_start[blockIdx.x + 1] - first;
+  // stages: both halves of each of the block's live row tiles
+  const int n_mine = live > rank ? 2 * ((live - rank + split - 1) / split) : 0;
+  const int wt = kHalf * L.wr;        // floats of a weight stage
+  const int gt = nbb * kHalf * t_ld;  // floats of gy (or y) in a stage
+  auto stage_row = [&](int i) {
+    return dgrad_row[first + rank + (i >> 1) * split] * kRows + (i & 1) * kHalf;
+  };
 
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  const int e_end = chunk_start[blockIdx.y + 1];
-  for (int e = chunk_start[blockIdx.y]; e < e_end; ++e) {
-    const int p0 = chunk_row[e] * kRows;
-    __syncthreads();  // the previous tile is read
-    for (int q = tid; q < kRows * kCC * K; q += kThreads) {
-      const int r = q / (kCC * K), rem = q - r * (kCC * K);
-      const int c = rem / K, k = rem - c * K;
-      const int p = p0 + r, cc = c0 + c;
-      w_s[(r * K + k) * kCC + c] =
-          (p < P && cc < C_in) ? w[(static_cast<size_t>(p) * C_in + cc) * K + k] : 0.f;
+  // Stage i: its weight rows (cw*K contiguous floats each; thread r copies
+  // row r) into weight stage `slot`, or the batches' rows of gy and y (one
+  // contiguous run each; threads 32.. copy).  Thread 0 arms the barrier; a
+  // copy may land before it does, the phase completes only after both.
+  auto issue_w = [&](int i, int slot) {
+    const int p0 = stage_row(i), nrows = max(0, min(kHalf, P - p0));
+    const uint32_t w_row = cw * K * 4;
+    if (tid == 0) mbar_expect(smem_addr(bars + slot), nrows * w_row);
+    if (tid < nrows) {
+      fence_async();
+      bulk_copy(w_s + slot * wt + tid * L.wr, w + (size_t(p0 + tid) * C + c0) * K, w_row,
+                bars + slot);
     }
-    for (int q = tid; q < n_b * kRows * T_out; q += kThreads) {
-      const int bb = q / (kRows * T_out), rem = q - bb * (kRows * T_out);
+  };
+  auto issue_g = [&](int i) {
+    const int p0 = stage_row(i), nrows = max(0, min(kHalf, P - p0));
+    const uint32_t g_bytes = nrows * t_ld * 4;
+    if (tid == 0) mbar_expect(smem_addr(bars + kStages), 2 * nbl * g_bytes);
+    const int q = tid - kHalf;
+    if (nrows > 0 && q >= 0 && q < 2 * nbl) {
+      const int which = q / nbl, bb = q - which * nbl;
+      fence_async();
+      bulk_copy(g_s + which * gt + bb * kHalf * t_ld,
+                (which ? y : gy) + (size_t(b0 + bb) * P + p0) * t_ld, g_bytes,
+                bars + kStages);
+    }
+  };
+  if (tid == 0) {
+    for (int s = 0; s < kStages + 1; ++s) mbar_init(smem_addr(bars + s), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // g's time padding stays zero (a stage writes only t in [0, T_out)), and
+  // so do the weight rows' second chunk where the block has one chunk
+  for (int q = tid; q < nbb * kHalf * L.rs; q += kThreads) g2[q] = make_float2(0.f, 0.f);
+  if (cw < kDC)
+    for (int q = tid; q < kStages * wt; q += kThreads) w_s[q] = 0.f;
+  __syncthreads();
+  for (int i = 0; i < kStages && i < n_mine; ++i) issue_w(i, i);
+  if (n_mine > 0) issue_g(0);
+
+  // This warp's 16-column tile: phase phi, rows (b, v) of that phase.
+  int phi = 0, mt = warp, V = 0;
+  for (; phi < stride; ++phi) {
+    V = (L.Tp - phi + stride - 1) / stride;
+    const int n = (nbl * V + 15) / 16;
+    if (mt < n) break;
+    mt -= n;
+  }
+  const bool has_tile = phi < stride;
+  const int taps = has_tile ? (K - phi + stride - 1) / stride : 0;
+  int base[2], bbv[2], vv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = mt * 16 + gid + 8 * h;
+    bbv[h] = has_tile ? r / max(V, 1) : 0;
+    vv[h] = has_tile ? r - bbv[h] * V : 0;
+    const bool ok = has_tile && bbv[h] < nbl;
+    base[h] = ok ? bbv[h] * kHalf * L.rs + L.off + vv[h] : L.off;
+  }
+
+  float sum[2][4] = {};  // the two chunks' 16 x 8 tiles
+  for (int i = 0; i < n_mine; ++i) {
+    const int slot = i % kStages;
+    const int nrows = max(0, min(kHalf, P - stage_row(i)));
+    mbar_wait(smem_addr(bars + kStages), i & 1);
+    // g = gy * act'(y), split, into its zero-padded rows
+    for (int q = tid; q < nbl * kHalf * T_out; q += kThreads) {
+      const int bb = q / (kHalf * T_out), rem = q - bb * (kHalf * T_out);
       const int r = rem / T_out, t = rem - r * T_out;
-      const int p = p0 + r;
-      g_s[q] = p < P ? act_grad(gy, y, (static_cast<size_t>(b_lo + bb) * P + p) * T_out + t,
-                                slope)
-                     : 0.f;
+      const int o = (bb * kHalf + r) * t_ld + t;
+      const float v = r < nrows ? act_grad(g_s[o], g_s[gt + o], slope) : 0.f;
+      g2[(bb * kHalf + r) * L.rs + L.off + t] = split_tf32(v);
     }
+    mbar_wait(smem_addr(bars + slot), (i / kStages) & 1);
+    // weight rows past P (a ragged last tile) read as zeros
+    for (int q = nrows * L.wr + tid; q < wt; q += kThreads) w_s[slot * wt + q] = 0.f;
+    __syncthreads();  // g and the weight rows are staged
+    if (i + 1 < n_mine) issue_g(i + 1);  // overlaps the products
+
+    if (has_tile) {
+      // per chunk four independent sums (small and big products, even and
+      // odd rows of 8), so that consecutive mma.sync do not wait on each
+      // other, added in f32 after each tap; each g fragment feeds both chunks
+      const float* ws = w_s + slot * wt;
+      for (int m = 0; m < taps; ++m) {
+        const int k = phi + stride * m;
+        float acc[2][4][4] = {};
+#pragma unroll
+        for (int j = 0; j < kHalf / 8; ++j) {
+          const int pr = 8 * j + tig;
+          const float2 a0 = g2[base[0] + pr * L.rs - m];
+          const float2 a1 = g2[base[1] + pr * L.rs - m];
+          const float2 a2 = g2[base[0] + (pr + 4) * L.rs - m];
+          const float2 a3 = g2[base[1] + (pr + 4) * L.rs - m];
+          const uint32_t ab[4] = {__float_as_uint(a0.x), __float_as_uint(a1.x),
+                                  __float_as_uint(a2.x), __float_as_uint(a3.x)};
+          const uint32_t as[4] = {__float_as_uint(a0.y), __float_as_uint(a1.y),
+                                  __float_as_uint(a2.y), __float_as_uint(a3.y)};
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            const float2 b0v = split_tf32(ws[pr * L.wr + (n * kCC + gid) * K + k]);
+            const float2 b1v = split_tf32(ws[(pr + 4) * L.wr + (n * kCC + gid) * K + k]);
+            const uint32_t bb[2] = {__float_as_uint(b0v.x), __float_as_uint(b1v.x)};
+            const uint32_t bs[2] = {__float_as_uint(b0v.y), __float_as_uint(b1v.y)};
+            mma_tf32(acc[n][j & 1], as, bb);
+            mma_tf32(acc[n][j & 1], ab, bs);
+            mma_tf32(acc[n][2 + (j & 1)], ab, bb);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            sum[n][r] += ((acc[n][0][r] + acc[n][1][r]) + acc[n][2][r]) + acc[n][3][r];
+      }
+    }
+    __syncthreads();  // every warp is done with this stage's weight rows and g2
+    if (i + kStages < n_mine) issue_w(i + kStages, slot);
+  }
+
+  // gxpad of the block's rows -> out_s (over the weight stages, now unread);
+  // a block alone in its cluster skips the cluster barriers
+  if (has_tile) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (bbv[h] >= nbl) continue;
+      const int u = vv[h] * stride + phi;
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc)
+          out_s[((n * kCC + 2 * tig + cc) * nbb + bbv[h]) * L.Tp + u] = sum[n][2 * h + cc];
+    }
+  }
+  if (split > 1)
+    cluster.sync();  // every block's partial gxpad is in its shared memory
+  else
     __syncthreads();
-    if (!col_ok) continue;
-    const float* gcol = g_s + (b - b_lo) * kRows * T_out;
-    for (int a = 0; a < nu; ++a) {
-      const int uu = u[a];
-      // taps k = uu - t*stride, 0 <= k < K, 0 <= t < T_out
-      const int k_lo = max(uu % stride, uu - (T_out - 1) * stride);
-      const int k_hi = min(K - 1, uu);
-      for (int k = k_lo; k <= k_hi; k += stride) {
-        const float* wr = w_s + k * kCC + half * 4;
-        const float* gr = gcol + (uu - k) / stride;
-#pragma unroll 8
-        for (int r = 0; r < kRows; ++r) {
-          const float gv = gr[r * T_out];
-          const float4 wv = *reinterpret_cast<const float4*>(wr + r * K * kCC);
-          acc[0] = fmaf(wv.x, gv, acc[0]);
-          acc[1] = fmaf(wv.y, gv, acc[1]);
-          acc[2] = fmaf(wv.z, gv, acc[2]);
-          acc[3] = fmaf(wv.w, gv, acc[3]);
+  {
+    const float* part[kMaxSplit];
+#pragma unroll
+    for (int q = 0; q < kMaxSplit; ++q)
+      part[q] = q == rank ? out_s : cluster.map_shared_rank(out_s, min(q, split - 1));
+    const int n_el = cw * nbl * T_in;
+    const int lo = n_el * rank / split, hi = n_el * (rank + 1) / split;
+    for (int el = lo + tid; el < hi; el += kThreads) {
+      const int c = el / (nbl * T_in), rem = el - c * (nbl * T_in);
+      const int bb = rem / T_in, i = rem - bb * T_in;
+      const int row = (c * nbb + bb) * L.Tp;
+      // the padded columns that read x[b, c, i]: i + padding, and under
+      // reflect the mirrored columns, each summed over the cluster in order
+      auto column = [&](int u) {
+        float s = part[0][row + u];
+#pragma unroll
+        for (int q = 1; q < kMaxSplit; ++q)
+          if (q < split) s += part[q][row + u];
+        return s;
+      };
+      float v = column(i + padding);
+      if (reflect && i >= 1 && i <= padding) v += column(padding - i);
+      if (reflect && i <= T_in - 2 && i >= T_in - 1 - padding)
+        v += column(padding + 2 * (T_in - 1) - i);
+      gx[(size_t(b0 + bb) * C + c0 + c) * T_in + i] = v;
+    }
+  }
+  if (split > 1) cluster.sync();  // no block leaves while another reads its partial gxpad
+}
+
+// ---------------------------------------------------------------------------
+// wgrad
+
+struct WgradLayout {
+  int Lh, rsx;       // x: a stride phase's padded columns, the row stride (8-byte words)
+  int ks, rj;        // k-steps of a stage; a row of the gradient tile: (c, k), the bias, pad
+  int nb_max, slots;  // the most batches of a block; stages of gy and y in flight
+  size_t bars, xp, g, gf, total;  // byte offsets in shared memory
+};
+
+// x's raw rows wait in the fragment buffer until x is padded; the partial
+// gradient tile reuses the stages at the end.  Two stages of gy and y are
+// in flight where the block still fits two to an SM, else one.
+__host__ __device__ inline WgradLayout wgrad_layout(int B, int T_in, int K, int T_out, int t_ld,
+                                                    int stride, int sb, int split) {
+  WgradLayout L;
+  L.nb_max = (B + split - 1) / split;
+  const int n_st = (L.nb_max + sb - 1) / sb;
+  const int Lx = (T_out - 1) * stride + K;  // padded columns the taps read
+  L.Lh = (Lx + stride - 1) / stride;
+  L.rsx = frag_stride(stride * L.Lh);
+  L.ks = (sb * T_out + 7) / 8;
+  L.rj = kCC * K + 4;  // 16-byte rows
+  L.bars = 0;
+  L.xp = 64;
+  L.g = L.xp + align16(size_t(L.nb_max) * kCC * L.rsx * 8);
+  const size_t stage = align16(size_t(2) * sb * kRows * t_ld * 4);
+  const size_t gf = size_t(L.ks) * 4 * 32 * 8 * 4;
+  const size_t x_raw = size_t(L.nb_max) * kCC * T_in * 4;
+  const size_t red = size_t(kRows) * L.rj * 4;
+  for (L.slots = n_st < kStages ? n_st : kStages;; --L.slots) {
+    L.gf = L.g + L.slots * stage;
+    L.total = L.gf + (gf > x_raw ? gf : x_raw);
+    if (L.total < L.g + red) L.total = L.g + red;
+    if (L.slots == 1 || L.total <= kSmemPerSM / 2 - 1024) break;
+  }
+  return L;
+}
+
+template <int NQ>  // 8-column tiles of the gradient (taps, then the bias) per warp
+__global__ void __launch_bounds__(kThreads, NQ == 2 ? 2 : 1)
+wgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
+             const float* __restrict__ x, const int* __restrict__ wrow,
+             const int* __restrict__ wchunk, float* __restrict__ gw, float* __restrict__ gb,
+             int B, int C, int T_in, int K, int P, int T_out, int t_ld, int stride, int padding,
+             int reflect, float slope, int sb) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int split = static_cast<int>(cluster.num_blocks());
+  const WgradLayout L = wgrad_layout(B, T_in, K, T_out, t_ld, stride, sb, split);
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);  // x, then [slots]
+  float2* xp = reinterpret_cast<float2*>(smem + L.xp);           // [nb_max][8][rsx]
+  float* g_s = reinterpret_cast<float*>(smem + L.g);             // [slots][2][sb][64][t_ld]
+  float4* gf = reinterpret_cast<float4*>(smem + L.gf);           // [ks][4][32][2]
+  float* x_s = reinterpret_cast<float*>(smem + L.gf);            // [nb_max][8][T_in], first
+  float* red = reinterpret_cast<float*>(smem + L.g);             // [64][rj], last
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int e = blockIdx.y;
+  const int rt = wrow[e], chunk = wchunk[e];
+  const bool has_x = chunk >= 0;
+  const bool writes_bias = e == 0 || wrow[e - 1] != rt;
+  const int p0 = rt * kRows, nrows = min(kRows, P - p0);
+  const int c0 = has_x ? chunk * kCC : 0;
+  const int b_lo = B * rank / split, nb = B * (rank + 1) / split - b_lo;
+  const int n_st = (nb + sb - 1) / sb;
+  const int gt = sb * kRows * t_ld;  // floats of gy (or y) in a stage
+  const size_t stage_floats = (L.gf - L.g) / 4 / L.slots;
+
+  // Stage i into `slot`: batches b_lo + i*sb .. of gy and y, rows p0.. (one
+  // contiguous run per batch and tensor).  Thread 0 issues.
+  auto issue = [&](int i, int slot) {
+    const int nbs = min(sb, nb - i * sb);
+    const uint32_t bytes = nrows * t_ld * 4;
+    float* dst = g_s + slot * stage_floats;
+    mbar_expect(smem_addr(bars + 1 + slot), 2 * nbs * bytes);
+    for (int bb = 0; bb < nbs; ++bb) {
+      const size_t src = (size_t(b_lo + i * sb + bb) * P + p0) * t_ld;
+      bulk_copy(dst + bb * kRows * t_ld, gy + src, bytes, bars + 1 + slot);
+      bulk_copy(dst + gt + bb * kRows * t_ld, y + src, bytes, bars + 1 + slot);
+    }
+  };
+  if (tid == 0) {
+    for (int s = 0; s < 1 + kStages; ++s) mbar_init(smem_addr(bars + s), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (has_x) {
+      const uint32_t bytes = kCC * T_in * 4;
+      mbar_expect(smem_addr(bars), nb * bytes);
+      for (int bb = 0; bb < nb; ++bb)
+        bulk_copy(x_s + bb * kCC * T_in, x + (size_t(b_lo + bb) * C + c0) * T_in, bytes, bars);
+    }
+    for (int i = 0; i < L.slots && i < n_st; ++i) issue(i, i);
+  }
+  __syncthreads();
+
+  // x's rows, padded in time and split by stride phase: padded column
+  // u = w*stride + ph at ph*Lh + w, so tap k of column t reads
+  // (k % stride)*Lh + k/stride + t
+  if (has_x) mbar_wait(smem_addr(bars), 0);
+  const int Tp = T_in + 2 * padding;
+  for (int q = tid; q < nb * kCC * stride * L.Lh; q += kThreads) {
+    const int row = q / (stride * L.Lh), idx = q - row * (stride * L.Lh);
+    const int ph = idx / L.Lh, u = (idx - ph * L.Lh) * stride + ph;
+    int s = u - padding;
+    if ((s < 0 || s >= T_in) && u < Tp) s = reflect ? (s < 0 ? -s : 2 * (T_in - 1) - s) : -1;
+    const float v = has_x && s >= 0 && s < T_in ? x_s[row * T_in + s] : 0.f;
+    xp[row * L.rsx + idx] = split_tf32(v);
+  }
+
+  // This warp's tiles: q = warp + 8*qq, tap q (q < K) or the bias (q == K).
+  float sum[4][NQ][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int qq = 0; qq < NQ; ++qq)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) sum[a][qq][r] = 0.f;
+  int koff[NQ];
+#pragma unroll
+  for (int qq = 0; qq < NQ; ++qq) {
+    const int q = warp + kWarps * qq;
+    koff[qq] = (q % stride) * L.Lh + q / stride;
+  }
+
+  for (int i = 0; i < n_st; ++i) {
+    const int slot = i % L.slots;
+    __syncthreads();  // x is padded (x_s is read); the previous fragments are read
+    mbar_wait(smem_addr(bars + 1 + slot), (i / L.slots) & 1);
+    const int nbs = min(sb, nb - i * sb), ncols = nbs * T_out;
+    // g = gy * act'(y), split, in the A fragments' order: a thread writes
+    // one lane's four values of one k-step and row tile (rows r, r + 8 at
+    // columns n, n + 4) as a 16-byte big and a 16-byte small part
+    const float* gys = g_s + slot * stage_floats;
+    for (int it = tid; it < L.ks * 4 * 32; it += kThreads) {
+      const int ln = it & 31, mt = (it >> 5) & 3, ks = it >> 7;
+      const int r0 = mt * 16 + (ln >> 2), n0 = ks * 8 + (ln & 3);
+      float v[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = n0 + 4 * h;
+        const int bb = n / T_out, t = n - bb * T_out;
+#pragma unroll
+        for (int lo = 0; lo < 2; ++lo) {
+          const int r = r0 + 8 * lo;
+          const int o = (bb * kRows + r) * t_ld + t;
+          v[2 * h + lo] = n < ncols && r < nrows ? act_grad(gys[o], gys[gt + o], slope) : 0.f;
         }
       }
+      float4 hi, lo;
+      float* hv = reinterpret_cast<float*>(&hi);
+      float* lv = reinterpret_cast<float*>(&lo);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float2 s = split_tf32(v[q]);
+        hv[q] = s.x;
+        lv[q] = s.y;
+      }
+      gf[2 * it] = hi;
+      gf[2 * it + 1] = lo;
+    }
+    __syncthreads();  // the fragments are staged; the stage's copies are read
+    if (tid == 0 && i + L.slots < n_st) {  // the next copy overlaps the products
+      fence_async();
+      issue(i + L.slots, slot);
+    }
+
+    for (int ks = 0; ks < L.ks; ++ks) {
+      // B: x at the lane's two columns n = 8*ks + tig (+4); padded columns
+      // past the stage read column 0 (their g is zero)
+      uint32_t bbig[NQ][2], bsml[NQ][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = ks * 8 + tig + 4 * h;
+        const int bb = n < ncols ? n / T_out : 0, t = n < ncols ? n - bb * T_out : 0;
+        const int xb = ((i * sb + bb) * kCC + gid) * L.rsx + t;
+#pragma unroll
+        for (int qq = 0; qq < NQ; ++qq) {
+          const int q = warp + kWarps * qq;
+          const float2 v = q < K ? xp[xb + koff[qq]]
+                                 : make_float2(gid == 0 ? 1.f : 0.f, 0.f);  // the bias: ones
+          bbig[qq][h] = __float_as_uint(v.x);
+          bsml[qq][h] = __float_as_uint(v.y);
+        }
+      }
+      uint32_t ab[4][4], as[4][4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const float4 hi = gf[((ks * 4 + a) * 32 + lane) * 2];
+        const float4 lo = gf[((ks * 4 + a) * 32 + lane) * 2 + 1];
+        ab[a][0] = __float_as_uint(hi.x), ab[a][1] = __float_as_uint(hi.y);
+        ab[a][2] = __float_as_uint(hi.z), ab[a][3] = __float_as_uint(hi.w);
+        as[a][0] = __float_as_uint(lo.x), as[a][1] = __float_as_uint(lo.y);
+        as[a][2] = __float_as_uint(lo.z), as[a][3] = __float_as_uint(lo.w);
+      }
+      // 3xTF32, each kind over all 4*NQ independent tiles before the next;
+      // a k-step's sum (24 products) is added in f32
+      float acc[4][NQ][4] = {};
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int qq = 0; qq < NQ; ++qq)
+          if (warp + kWarps * qq <= K) mma_tf32(acc[a][qq], as[a], bbig[qq]);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int qq = 0; qq < NQ; ++qq)
+          if (warp + kWarps * qq <= K) mma_tf32(acc[a][qq], ab[a], bsml[qq]);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int qq = 0; qq < NQ; ++qq)
+          if (warp + kWarps * qq <= K) mma_tf32(acc[a][qq], ab[a], bbig[qq]);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int qq = 0; qq < NQ; ++qq)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) sum[a][qq][r] += acc[a][qq][r];
     }
   }
-  if (!col_ok) return;
+
+  // The partial gradient tile -> red[p][c*K + k] (bias at 8*K), over the
+  // stages, now unread; then block `rank` sums its rows over the cluster in
+  // rank order and stores them, 16 bytes at a time (row p's chunk is 8*K
+  // contiguous floats of gw).  A block alone in its cluster skips the
+  // cluster barriers.
+  __syncthreads();
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int c = c0 + half * 4 + q;
-    if (c < C_in) gx[(static_cast<size_t>(b) * C_in + c) * T_in + i] = acc[q];
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-wgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
-             const float* __restrict__ x, const int* __restrict__ tile_row,
-             const int* __restrict__ tile_chunk, float* __restrict__ gw,
-             float* __restrict__ gb, int n_live, int B, int C_in, int T_in, int K, int P,
-             int T_out, int stride, int padding, int reflect, float slope) {
-  extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x;
-  const int N = B * T_out;
-
-  if (static_cast<int>(blockIdx.x) >= n_live) {
-    // the bias gradient of row tile blockIdx.x - n_live: four threads a
-    // row, each a fixed quarter of the columns, added in order
-    const int p = (blockIdx.x - n_live) * kRows + tid / 4, part = tid % 4;
-    float s = 0.f;
-    if (p < P)
-      for (int n = part; n < N; n += 4) {
-        const int b = n / T_out, t = n - b * T_out;
-        s += act_grad(gy, y, (static_cast<size_t>(b) * P + p) * T_out + t, slope);
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int qq = 0; qq < NQ; ++qq) {
+      const int q = warp + kWarps * qq;
+      if (q > K) continue;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int p = a * 16 + gid + ((r & 2) ? 8 : 0), c = 2 * tig + (r & 1);
+        if (q < K)
+          red[p * L.rj + c * K + q] = sum[a][qq][r];
+        else if (c == 0)
+          red[p * L.rj + kCC * K] = sum[a][qq][r];
       }
-    smem[tid] = s;
+    }
+  if (split > 1)
+    cluster.sync();  // every block's partial tile is in its shared memory
+  else
     __syncthreads();
-    if (part == 0 && p < P) gb[p] = ((smem[tid] + smem[tid + 1]) + smem[tid + 2]) + smem[tid + 3];
-    return;
+  const float* part[kMaxSplit];
+#pragma unroll
+  for (int q = 0; q < kMaxSplit; ++q)
+    part[q] = q == rank ? red : cluster.map_shared_rank(red, min(q, split - 1));
+  const int r_lo = nrows * rank / split, r_hi = nrows * (rank + 1) / split;
+  const int row4 = kCC * K / 4;  // 16-byte groups of a row's (c, k)
+  for (int el = r_lo * row4 + tid; has_x && el < r_hi * row4; el += kThreads) {
+    const int r = el / row4, j4 = el - r * row4;
+    const int o = r * L.rj + 4 * j4;
+    float4 v = *reinterpret_cast<const float4*>(part[0] + o);
+#pragma unroll
+    for (int q = 1; q < kMaxSplit; ++q) {
+      if (q >= split) break;
+      const float4 w = *reinterpret_cast<const float4*>(part[q] + o);
+      v.x += w.x, v.y += w.y, v.z += w.z, v.w += w.w;
+    }
+    *reinterpret_cast<float4*>(gw + (size_t(p0 + r) * C + c0) * K + 4 * j4) = v;
   }
-
-  const int J = kCC * K;                  // reduction entries j = c*K + k
-  float* g_s = smem;                      // [kNB][kGS]
-  float* col_s = g_s + kNB * kGS;         // [kNB][J]
-  float* x_s = col_s + kNB * J;           // [batch][kCC][T_in]
-  const int p0 = tile_row[blockIdx.x] * kRows;
-  const int c0 = tile_chunk[blockIdx.x] * kCC;
-  const int rg = tid / 16, jl = tid % 16;  // rows 4*rg.., entries jl + 16*q
-
-  float acc[4][8];
+  if (writes_bias && tid < r_hi - r_lo) {
+    const int o = (r_lo + tid) * L.rj + kCC * K;
+    float v = part[0][o];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int q = 0; q < 8; ++q) acc[r][q] = 0.f;
-
-  for (int n0 = 0; n0 < N; n0 += kNB) {
-    const int n_cols = min(kNB, N - n0);
-    const int b_lo = n0 / T_out;
-    const int n_b = (n0 + n_cols - 1) / T_out - b_lo + 1;
-    __syncthreads();  // the previous columns are read
-    for (int q = tid; q < n_b * kCC * T_in; q += kThreads) {
-      const int bb = q / (kCC * T_in), rem = q - bb * (kCC * T_in);
-      const int c = rem / T_in, s = rem - c * T_in;
-      x_s[q] = c0 + c < C_in ? x[(static_cast<size_t>(b_lo + bb) * C_in + c0 + c) * T_in + s]
-                             : 0.f;
-    }
-    for (int q = tid; q < kNB * kRows; q += kThreads) {
-      const int r = q / kNB, nn = q - r * kNB;
-      const int nc = n0 + nn, p = p0 + r;
-      float v = 0.f;
-      if (nn < n_cols && p < P) {
-        const int b = nc / T_out, t = nc - b * T_out;
-        v = act_grad(gy, y, (static_cast<size_t>(b) * P + p) * T_out + t, slope);
-      }
-      g_s[nn * kGS + r] = v;
-    }
-    __syncthreads();  // x rows staged
-    for (int q = tid; q < kNB * J; q += kThreads) {
-      const int nn = q / J, j = q - nn * J;
-      const int c = j / K, k = j - c * K;
-      float v = 0.f;
-      if (nn < n_cols) {
-        const int nc = n0 + nn;
-        const int b = nc / T_out, t = nc - b * T_out;
-        const int s = source_step(t * stride + k - padding, T_in, reflect);
-        if (s >= 0) v = x_s[((b - b_lo) * kCC + c) * T_in + s];
-      }
-      col_s[q] = v;
-    }
-    __syncthreads();  // g and the im2col tile staged
-    for (int nn = 0; nn < n_cols; ++nn) {
-      const float4 gv = *reinterpret_cast<const float4*>(g_s + nn * kGS + rg * 4);
-      const float* cr = col_s + nn * J + jl;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const float cv = jl + 16 * q < J ? cr[16 * q] : 0.f;
-        acc[0][q] = fmaf(gv.x, cv, acc[0][q]);
-        acc[1][q] = fmaf(gv.y, cv, acc[1][q]);
-        acc[2][q] = fmaf(gv.z, cv, acc[2][q]);
-        acc[3][q] = fmaf(gv.w, cv, acc[3][q]);
-      }
-    }
+    for (int q = 1; q < kMaxSplit; ++q)
+      if (q < split) v += part[q][o];
+    gb[p0 + r_lo + tid] = v;
   }
-
-  // gWf (P, C_in, K): the tile's row p holds entries c0*K .. c0*K + J
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int p = p0 + rg * 4 + r;
-    if (p >= P) continue;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int j = jl + 16 * q;
-      if (j < J && c0 + j / K < C_in)
-        gw[static_cast<size_t>(p) * C_in * K + static_cast<size_t>(c0) * K + j] = acc[r][q];
-    }
-  }
+  if (split > 1) cluster.sync();  // no block leaves while another reads its partial tile
 }
 
 // Sets a kernel's shared-memory cap once per device.
@@ -274,71 +717,104 @@ cudaError_t allow_smem(Kernel kernel, bool (&ready)[kMaxDevices], int device) {
   return err;
 }
 
-bool shape_ok(int B, int C_in, int T_in, int K, int P, int T_out, int stride, int padding,
-              int reflect, int device) {
-  return B > 0 && C_in > 0 && T_in > 0 && K > 0 && K <= kMaxK && P > 0 && T_out > 0 &&
-         stride > 0 && padding >= 0 && !(reflect && padding >= T_in) &&
-         (T_out - 1) * stride + K <= T_in + 2 * padding &&
+bool shape_ok(int B, int C, int T_in, int K, int P, int T_out, int t_ld, int stride,
+              int padding, int reflect, int device, const void* const* ptrs, int n_ptrs) {
+  for (int i = 0; i < n_ptrs; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) & 15) return false;
+  return B > 0 && C > 0 && C % kCC == 0 && T_in > 0 && K > 0 && K <= kMaxK && P > 0 &&
+         T_out > 0 && t_ld >= T_out && t_ld % 4 == 0 && stride > 0 && padding >= 0 &&
+         !(reflect && padding >= T_in) && (T_out - 1) * stride + K <= T_in + 2 * padding &&
          T_in + 2 * padding - K < T_out * stride && device >= 0 && device < kMaxDevices &&
-         static_cast<long long>(B) * T_in < 0x7FFFFFFFLL &&
-         static_cast<long long>(B) * T_out < 0x7FFFFFFFLL;
+         static_cast<long long>(B) * C * T_in < 0x7FFFFFFFLL &&
+         static_cast<long long>(B) * P * t_ld < 0x7FFFFFFFLL;
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch_cluster(Kernel kernel, dim3 grid, int cluster_z, int cluster_x, size_t smem,
+                           void* stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster_x;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = cluster_z;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Input gradient gx (B, C_in, T_in) of a level from gy, y (B, P, T_out) and
-// the folded weight w (P, C_in, K), all f32; chunk_start / chunk_row: the
-// live tiles by 8-channel chunk (pack_structure).  Launches on `stream`,
-// returns the first CUDA error (0 on success).
-int hmvae_conv_dgrad(const void* gy, const void* y, const void* w, const void* chunk_start,
-                     const void* chunk_row, void* gx, int B, int C_in, int T_in, int K, int P,
-                     int T_out, int stride, int padding, int reflect, float slope, int device,
-                     void* stream) {
-  if (!shape_ok(B, C_in, T_in, K, P, T_out, stride, padding, reflect, device))
+// Input gradient gx (B, C, T_in) of a level from gy, y (B, P, rows of t_ld
+// >= T_out floats) and the folded weight w (P, C, K), all f32, C a multiple
+// of 8, every pointer 16-byte aligned; dgrad_start / dgrad_row: the row
+// tiles live in either chunk of each pair of 8-channel chunks
+// (pack_structure).  The plan (dgrad_plan in the wrapper): batch groups of
+// nbb batches, the row tiles of a pair split over `split` blocks of a
+// cluster.  Launches on `stream`, returns the first CUDA error (0 on
+// success).
+int hmvae_conv_dgrad(const void* gy, const void* y, const void* w, const void* dgrad_start,
+                     const void* dgrad_row, void* gx, int B, int C, int T_in, int K, int P,
+                     int T_out, int t_ld, int stride, int padding, int reflect, float slope,
+                     int nbb, int split, int device, void* stream) {
+  const void* ptrs[] = {gy, y, w, gx};
+  if (!shape_ok(B, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, device, ptrs, 4) ||
+      nbb < 1 || nbb > B || split < 1 || split > kMaxSplit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DgradLayout L = dgrad_layout(T_in, K, T_out, t_ld, stride, padding, nbb);
+  int tiles = 0;  // 16-column tiles of a batch group: one per warp
+  for (int phi = 0; phi < stride; ++phi)
+    tiles += (nbb * ((L.Tp - phi + stride - 1) / stride) + 15) / 16;
+  const int groups = (B + nbb - 1) / nbb;
+  if (tiles > kWarps || L.total > static_cast<size_t>(kMaxSmem) || groups > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   static bool ready[kMaxDevices] = {};
   cudaError_t err = allow_smem(dgrad_kernel, ready, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int N = B * T_in;
-  const int n_b = min(B, (kCols - 1) / T_in + 2);  // batches 128 columns span, at most
-  const size_t smem = (static_cast<size_t>(kRows) * K * kCC +
-                       static_cast<size_t>(n_b) * kRows * T_out) * sizeof(float);
-  if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((N + kCols - 1) / kCols, (C_in + kCC - 1) / kCC);
-  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  dgrad_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(gy), static_cast<const float*>(y),
-      static_cast<const float*>(w), static_cast<const int*>(chunk_start),
-      static_cast<const int*>(chunk_row), static_cast<float*>(gx), B, C_in, T_in, K, P, T_out,
-      stride, padding, reflect, slope);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_cluster(
+      dgrad_kernel, dim3((C + kDC - 1) / kDC, groups, split), split, 1, L.total, stream,
+      static_cast<const float*>(gy), static_cast<const float*>(y), static_cast<const float*>(w),
+      static_cast<const int*>(dgrad_start), static_cast<const int*>(dgrad_row),
+      static_cast<float*>(gx), B, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, slope,
+      nbb));
 }
 
-// Folded-weight gradient gw (P, C_in, K) on the n_live live tiles (tile_row,
-// tile_chunk: pack_structure; the caller zeroes the rest) and bias gradient
-// gb (P,), from gy, y (B, P, T_out) and x (B, C_in, T_in), all f32.
-int hmvae_conv_wgrad(const void* gy, const void* y, const void* x, const void* tile_row,
-                     const void* tile_chunk, void* gw, void* gb, int n_live, int row_tiles,
-                     int B, int C_in, int T_in, int K, int P, int T_out, int stride,
-                     int padding, int reflect, float slope, int device, void* stream) {
-  if (!shape_ok(B, C_in, T_in, K, P, T_out, stride, padding, reflect, device) || n_live < 0 ||
-      row_tiles != (P + kRows - 1) / kRows)
+// Folded-weight gradient gw (P, C, K) on the n_tiles entries of wgrad_row /
+// wgrad_chunk (pack_structure: the live tiles by row tile, chunk -1 for a
+// row tile with none; the caller zeroes the rest) and bias gradient gb (P,),
+// from gy, y (B, P, rows of t_ld floats) and x (B, C, T_in), all f32, C a
+// multiple of 8, every pointer 16-byte aligned.  The plan (wgrad_plan in
+// the wrapper): the batches split over `split` blocks of a cluster, staged
+// sb at a time.
+int hmvae_conv_wgrad(const void* gy, const void* y, const void* x, const void* wrow,
+                     const void* wchunk, void* gw, void* gb, int n_tiles, int B, int C,
+                     int T_in, int K, int P, int T_out, int t_ld, int stride, int padding,
+                     int reflect, float slope, int sb, int split, int device, void* stream) {
+  const void* ptrs[] = {gy, y, x, gw};
+  if (!shape_ok(B, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, device, ptrs, 4) ||
+      n_tiles < 0 || n_tiles > 65535 || sb < 1 || split < 1 || split > kMaxSplit || split > B)
     return static_cast<int>(cudaErrorInvalidValue);
-  static bool ready[kMaxDevices] = {};
-  cudaError_t err = allow_smem(wgrad_kernel, ready, device);
+  if (n_tiles == 0) return 0;
+  const WgradLayout L = wgrad_layout(B, T_in, K, T_out, t_ld, stride, sb, split);
+  if (L.total > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool wide = K + 1 > 2 * kWarps;  // K = 16: 17 tiles, three a warp
+  auto kernel = wide ? wgrad_kernel<3> : wgrad_kernel<2>;
+  static bool ready[2][kMaxDevices] = {};
+  cudaError_t err = allow_smem(kernel, ready[wide], device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_b = min(B, (kNB - 1) / T_out + 2);  // batches 32 columns span, at most
-  const size_t smem = (static_cast<size_t>(kNB) * kGS + static_cast<size_t>(kNB) * kCC * K +
-                       static_cast<size_t>(n_b) * kCC * T_in) * sizeof(float);
-  if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
-  wgrad_kernel<<<n_live + row_tiles, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(gy), static_cast<const float*>(y),
-      static_cast<const float*>(x), static_cast<const int*>(tile_row),
-      static_cast<const int*>(tile_chunk), static_cast<float*>(gw), static_cast<float*>(gb),
-      n_live, B, C_in, T_in, K, P, T_out, stride, padding, reflect, slope);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_cluster(
+      kernel, dim3(split, n_tiles, 1), 1, split, L.total, stream, static_cast<const float*>(gy),
+      static_cast<const float*>(y), static_cast<const float*>(x),
+      static_cast<const int*>(wrow), static_cast<const int*>(wchunk), static_cast<float*>(gw),
+      static_cast<float*>(gb), B, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, slope,
+      sb));
 }
 
 const char* hmvae_error_string(int err) {

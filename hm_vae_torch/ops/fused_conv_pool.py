@@ -7,7 +7,8 @@ kernel ``hm_vae_torch/csrc/fused_conv_pool.cu`` for Hopper (``sm_90a``): a
 block-sparse implicit GEMM on the level's folded weight, bf16 (or 3xTF32 for
 f32) on ``wgmma``, weight tiles by bulk asynchronous copy.  Its gradient is
 two more hand-written kernels, ``hm_vae_torch/csrc/fused_conv_pool_bwd.cu``
-(dgrad and wgrad + bias grad, f32), the counterparts of the JAX package's
+(dgrad and wgrad + bias grad, f32 as 3xTF32 on ``mma.sync``, planned by
+:func:`dgrad_plan` and :func:`wgrad_plan`), the counterparts of the JAX package's
 autodiff of its XLA level (``hm_vae_tpu/models/hm_vae.py``; the JAX package
 has no backward kernel).  Each source's header note says what bounds it on
 an H100 and what its design does about that.
@@ -53,9 +54,14 @@ ROWS = 64  # rows of a weight tile (the kernel's wgmma M)
 # input channels per reduction chunk: one tap's channels are one wgmma
 # k-step (16 bf16 or 8 TF32 values)
 CHUNK_CHANNELS = {torch.bfloat16: 16, torch.float32: 8}
-# the backward kernels keep a row's taps of one chunk (8 channels x K) in
-# registers: K up to 16
+# the backward kernels' tiles: K up to 16 taps
 MAX_BWD_K = 16
+MAX_SPLIT = 8  # blocks of a cluster (the portable maximum)
+BWD_WARPS = 8  # dgrad: one 16-column tile of a batch group per warp
+DGRAD_CHUNKS = 2  # dgrad: channel chunks of a block
+MAX_SMEM = 232448  # shared memory a block may use
+MAX_SMEM_PER_SM = 233472
+WGRAD_STAGE_COLS = 32  # wgrad: (b, t) columns staged at a time, at least one batch
 
 
 def fused_conv_pool_reference(
@@ -144,24 +150,30 @@ class LevelStructure:
     ``live`` (row tiles, channel chunks) marks the 64-row x chunk tiles that
     may hold a nonzero.  The forward kernel walks them row tile by row tile
     (``tile_start`` (row tiles + 1) indexes ``tile_chunk``); the wgrad kernel
-    takes one tile a block (``tile_row``, ``tile_chunk``); the dgrad kernel
-    walks them chunk by chunk (``chunk_start`` (chunks + 1) indexes
-    ``chunk_row``).  ``live_index`` (row tile * chunks + chunk, int64) is
-    the gather that :func:`repack` writes the values through.
+    takes one entry a block (``wgrad_row``, ``wgrad_chunk``: the live tiles
+    by row tile, and ``(row tile, -1)`` for a row tile with none, whose bias
+    gradient is still summed); the dgrad kernel walks, for each pair of
+    chunks, the row tiles live in either (``dgrad_start`` (pairs + 1)
+    indexes ``dgrad_row``).  ``live_index`` (row tile * chunks + chunk,
+    int64) is the gather that :func:`repack` writes the values through.
+    ``max_live`` and ``dgrad_max_live``: the most live tiles of a row tile,
+    and row tiles of a pair.
     """
 
     live: torch.Tensor
     tile_start: torch.Tensor
     tile_chunk: torch.Tensor
-    tile_row: torch.Tensor
-    chunk_start: torch.Tensor
-    chunk_row: torch.Tensor
+    wgrad_row: torch.Tensor
+    wgrad_chunk: torch.Tensor
+    dgrad_start: torch.Tensor
+    dgrad_row: torch.Tensor
     live_index: torch.Tensor
     dtype: torch.dtype
     rows: int
     in_channels: int
     kernel_size: int
     max_live: int
+    dgrad_max_live: int
     stride: int
     padding: int
     reflect: bool
@@ -251,21 +263,29 @@ def pack_structure(
     pad[:P, :C_in] = live.cpu()
     tiles = pad.reshape(rt, ROWS, nc, cc).any(3).any(1)  # (rt, nc)
     by_row = tiles.nonzero()  # row-major: row tile, then chunk
-    by_chunk = tiles.T.nonzero()  # chunk, then row tile
+    pairs = torch.zeros(rt, -(-nc // DGRAD_CHUNKS) * DGRAD_CHUNKS, dtype=torch.bool)
+    pairs[:, :nc] = tiles
+    pairs = pairs.reshape(rt, -1, DGRAD_CHUNKS).any(2)  # (rt, pairs)
     start = torch.zeros(rt + 1, dtype=torch.int32)
     start[1:] = tiles.sum(1).cumsum(0)
-    cstart = torch.zeros(nc + 1, dtype=torch.int32)
-    cstart[1:] = tiles.sum(0).cumsum(0)
+    dstart = torch.zeros(pairs.shape[1] + 1, dtype=torch.int32)
+    dstart[1:] = pairs.sum(0).cumsum(0)
+    # wgrad's entries: the live tiles by row, (row, -1) where a row has none
+    empty = (~tiles.any(1)).nonzero()[:, 0]
+    wg = torch.cat([by_row, torch.stack([empty, torch.full_like(empty, -1)], 1)])
+    wg = wg[torch.argsort(wg[:, 0] * (nc + 1) + wg[:, 1], stable=True)]
 
     def put(t, dt=torch.int32):
         return t.to(dt).contiguous().to(device)
 
     return LevelStructure(
         live=tiles.to(device), tile_start=put(start), tile_chunk=put(by_row[:, 1]),
-        tile_row=put(by_row[:, 0]), chunk_start=put(cstart), chunk_row=put(by_chunk[:, 1]),
+        wgrad_row=put(wg[:, 0]), wgrad_chunk=put(wg[:, 1]), dgrad_start=put(dstart),
+        dgrad_row=put(pairs.T.nonzero()[:, 1]),
         live_index=put(by_row[:, 0] * nc + by_row[:, 1], torch.int64), dtype=dtype,
         rows=P, in_channels=C_in, kernel_size=kernel_size,
-        max_live=int(tiles.sum(1).max()) if rt else 0, stride=stride, padding=padding,
+        max_live=int(tiles.sum(1).max()) if rt else 0,
+        dgrad_max_live=int(pairs.sum(0).max()) if nc else 0, stride=stride, padding=padding,
         reflect=mode == "reflect", negative_slope=float(negative_slope))
 
 
@@ -344,14 +364,15 @@ def unpack_level(packed: PackedLevel) -> Tuple[torch.Tensor, Optional[torch.Tens
 # sms, stream)
 ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float]
             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-# hmvae_conv_dgrad(gy, y, w, chunk_start, chunk_row, gx, B, C_in, T_in, K, P,
-# T_out, stride, padding, reflect, slope, device, stream)
-DGRAD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float]
-                  + [ctypes.c_int, ctypes.c_void_p])
-# hmvae_conv_wgrad(gy, y, x, tile_row, tile_chunk, gw, gb, n_live, row_tiles,
-# B, C_in, T_in, K, P, T_out, stride, padding, reflect, slope, device, stream)
+# hmvae_conv_dgrad(gy, y, w, dgrad_start, dgrad_row, gx, B, C, T_in, K, P,
+# T_out, t_ld, stride, padding, reflect, slope, nbb, split, device, stream)
+DGRAD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_float]
+                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+# hmvae_conv_wgrad(gy, y, x, wgrad_row, wgrad_chunk, gw, gb, n_tiles, B, C,
+# T_in, K, P, T_out, t_ld, stride, padding, reflect, slope, sb, split, device,
+# stream)
 WGRAD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_float]
-                  + [ctypes.c_int, ctypes.c_void_p])
+                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def _bind(lib, name, argtypes):
@@ -531,12 +552,84 @@ def _bwd_checks(s: LevelStructure, gy: torch.Tensor, y: torch.Tensor, **tensors)
         raise ValueError("gy must be contiguous")
 
 
+def dgrad_plan(B: int, T_in: int, K: int, stride: int, padding: int, t_ld: int,
+               pairs: int, max_live: int, sms: int) -> Tuple[int, int, int]:
+    """(nbb, groups, split) of the dgrad kernel: a block owns a pair of
+    channel chunks and the padded rows of ``nbb`` batches (``groups`` batch
+    groups), as many as its eight warps' 16-column tiles hold (the columns
+    of each stride phase tiled apart), and ``split`` blocks of a cluster
+    share the pair's live row tiles (at most ``max_live``).  Chosen for the
+    least time on an SM, counted in row tiles: waves of blocks (two to an SM
+    where their shared memory allows) times the row tiles a block walks,
+    plus one for its prologue and epilogue; ties go to fewer blocks."""
+    Tp = T_in + 2 * padding
+    widths = [-(-(Tp - phi) // stride) for phi in range(stride)]
+    if sum(-(-v // 16) for v in widths) > BWD_WARPS:
+        raise ValueError(f"the dgrad kernel takes T_in + 2*padding <= {16 * BWD_WARPS // stride}"
+                         f" at stride {stride}, not {Tp}")
+    best = None
+    for nb in range(1, B + 1):
+        smem = _dgrad_smem(T_in, K, t_ld, stride, padding, nb)
+        if nb > 1 and (sum(-(-nb * v // 16) for v in widths) > BWD_WARPS or smem > MAX_SMEM):
+            continue
+        groups = -(-B // nb)
+        nbb = -(-B // groups)  # the same groups, batches spread evenly
+        per_sm = 2 if smem <= MAX_SMEM_PER_SM // 2 - 1024 else 1
+        for split in range(1, min(MAX_SPLIT, max(1, max_live)) + 1):
+            blocks = pairs * groups * split
+            # a block's prologue and epilogue cost about one row tile
+            cost = (-(-blocks // (sms * per_sm)) * (-(-max_live // split) + 1), blocks)
+            if best is None or cost < best[0]:
+                best = (cost, (nbb, groups, split))
+    return best[1]
+
+
+def _dgrad_smem(T_in: int, K: int, t_ld: int, stride: int, padding: int, nbb: int) -> int:
+    """Bytes of shared memory a dgrad block takes (``dgrad_layout`` in the
+    kernel's source): two weight stages (32 rows of 16 channels), one of gy
+    and y, g split and padded, and gxpad (over the weight stages when it
+    fits)."""
+    Tp, kmax = T_in + 2 * padding, -(-K // stride)
+    T_out = (Tp - K) // stride + 1
+    rs = (kmax - 1 + max(-(-Tp // stride), T_out) + 11) // 16 * 16 + 4
+    a16 = lambda n: -(-n // 16) * 16  # noqa: E731
+    half = ROWS // 2  # a stage: half a row tile
+    w_ring = a16(2 * half * (8 * DGRAD_CHUNKS * K + 8) * 4)
+    g2_end = 64 + w_ring + a16(2 * nbb * half * t_ld * 4) + nbb * half * rs * 8
+    out = 8 * DGRAD_CHUNKS * nbb * Tp * 4
+    return g2_end if out <= w_ring else a16(g2_end) + out
+
+
+def wgrad_plan(B: int, T_out: int, entries: int, sms: int) -> Tuple[int, int]:
+    """(sb, split) of the wgrad kernel: one block per entry (a live tile), its
+    batches split over ``split`` blocks of a cluster until the grid fills
+    the card once, and staged ``sb`` batches (at most 32 columns, at least
+    one batch) at a time."""
+    split = max(1, min(MAX_SPLIT, B, -(-sms // max(1, entries))))
+    return max(1, min(-(-B // split), WGRAD_STAGE_COLS // T_out)), split
+
+
+def _aligned(t: torch.Tensor, dim: int, multiple: int) -> torch.Tensor:
+    """``t`` zero-padded along ``dim`` to a multiple of ``multiple``, on a
+    16-byte aligned address: the kernels bulk-copy whole rows (``t`` itself
+    when it already is)."""
+    n = t.shape[dim]
+    pad = -n % multiple
+    if not pad and t.data_ptr() % 16 == 0:
+        return t
+    shape = list(t.shape)
+    shape[dim] += pad
+    out = t.new_zeros(shape)
+    out.narrow(dim, 0, n).copy_(t)
+    return out
+
+
 def fused_conv_pool_dgrad(gy: torch.Tensor, y: torch.Tensor, weight: torch.Tensor,
                           structure: LevelStructure, T_in: int) -> torch.Tensor:
     """The input gradient (B, C_in, T_in) of a folded level, from the output
     gradient ``gy`` and output ``y`` (B, P, T_out) and the folded weight
-    (P, C_in, K).  One kernel launch on CUDA (f32), the plain version on the
-    CPU."""
+    (P, C_in, K).  One kernel launch on CUDA (f32), fixed-order sums (the
+    same bits every run); the plain version on the CPU."""
     s = structure
     mode = "reflect" if s.reflect else "constant"
     if gy.device.type == "cpu":
@@ -544,22 +637,28 @@ def fused_conv_pool_dgrad(gy: torch.Tensor, y: torch.Tensor, weight: torch.Tenso
                                                s.negative_slope)
     _bwd_checks(s, gy, y, weight=weight)
     B, P, T_out = gy.shape
-    K = s.kernel_size
-    if tuple(weight.shape) != (s.rows, s.in_channels, K) or P != s.rows:
+    K, C_in = s.kernel_size, s.in_channels
+    if tuple(weight.shape) != (s.rows, C_in, K) or P != s.rows:
         raise ValueError(f"weight {tuple(weight.shape)} / gy {tuple(gy.shape)} do not fit "
                          "the structure")
     if _t_out(T_in, K, s.stride, s.padding, s.reflect) != T_out:
         raise ValueError(f"T_in {T_in} does not give T_out {T_out}")
+    gy, y = _aligned(gy, 2, 4), _aligned(y, 2, 4)
+    w = _aligned(weight, 1, CHUNK_CHANNELS[torch.float32])
+    C, t_ld = w.shape[1], gy.shape[2]
+    dev = gy.device.index
+    nbb, _, split = dgrad_plan(B, T_in, K, s.stride, s.padding, t_ld,
+                               s.dgrad_start.numel() - 1, s.dgrad_max_live, _sm_count(dev))
     lib, dgrad, _ = _bwd_library()
-    gx = torch.empty((B, s.in_channels, T_in), dtype=gy.dtype, device=gy.device)
+    gx = torch.empty((B, C, T_in), dtype=gy.dtype, device=gy.device)
     err = _on_device(gy, lambda: dgrad(
-        gy.data_ptr(), y.data_ptr(), weight.data_ptr(), s.chunk_start.data_ptr(),
-        s.chunk_row.data_ptr(), gx.data_ptr(), B, s.in_channels, T_in, K, P, T_out,
-        s.stride, s.padding, int(s.reflect), s.negative_slope, gy.device.index,
+        gy.data_ptr(), y.data_ptr(), w.data_ptr(), s.dgrad_start.data_ptr(),
+        s.dgrad_row.data_ptr(), gx.data_ptr(), B, C, T_in, K, P, T_out, t_ld, s.stride,
+        s.padding, int(s.reflect), s.negative_slope, nbb, split, dev,
         torch.cuda.current_stream(gy.device).cuda_stream))
     _build.check(lib, err, "fused_conv_pool_dgrad")
     fused_conv_pool_dgrad.launches += 1
-    return gx
+    return gx if C == C_in else gx[:, :C_in].contiguous()
 
 
 def fused_conv_pool_wgrad(gy: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
@@ -581,18 +680,23 @@ def fused_conv_pool_wgrad(gy: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"x {tuple(x.shape)} / gy {tuple(gy.shape)} do not fit the structure")
     if _t_out(T_in, K, s.stride, s.padding, s.reflect) != T_out:
         raise ValueError(f"T_in {T_in} does not give T_out {T_out}")
+    gy, y = _aligned(gy, 2, 4), _aligned(y, 2, 4)
+    x = _aligned(x, 1, CHUNK_CHANNELS[torch.float32])
+    C, t_ld = x.shape[1], gy.shape[2]
+    dev = gy.device.index
+    entries = s.wgrad_row.numel()
+    sb, split = wgrad_plan(B, T_out, entries, _sm_count(dev))
     lib, _, wgrad = _bwd_library()
-    gw = torch.zeros((P, C_in, K), dtype=gy.dtype, device=gy.device)
+    gw = torch.zeros((P, C, K), dtype=gy.dtype, device=gy.device)
     gb = torch.empty((P,), dtype=gy.dtype, device=gy.device)
-    n_live, row_tiles = s.tile_chunk.numel(), s.tile_start.numel() - 1
     err = _on_device(gy, lambda: wgrad(
-        gy.data_ptr(), y.data_ptr(), x.data_ptr(), s.tile_row.data_ptr(),
-        s.tile_chunk.data_ptr(), gw.data_ptr(), gb.data_ptr(), n_live, row_tiles, B, C_in,
-        T_in, K, P, T_out, s.stride, s.padding, int(s.reflect), s.negative_slope,
-        gy.device.index, torch.cuda.current_stream(gy.device).cuda_stream))
+        gy.data_ptr(), y.data_ptr(), x.data_ptr(), s.wgrad_row.data_ptr(),
+        s.wgrad_chunk.data_ptr(), gw.data_ptr(), gb.data_ptr(), entries, B, C, T_in, K, P,
+        T_out, t_ld, s.stride, s.padding, int(s.reflect), s.negative_slope, sb, split, dev,
+        torch.cuda.current_stream(gy.device).cuda_stream))
     _build.check(lib, err, "fused_conv_pool_wgrad")
     fused_conv_pool_wgrad.launches += 1
-    return gw, gb
+    return (gw if C == C_in else gw[:, :C_in].contiguous()), gb
 
 
 fused_conv_pool_dgrad.launches = 0

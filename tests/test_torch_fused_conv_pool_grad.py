@@ -204,11 +204,14 @@ def test_trained_zero_keeps_its_tile():
     packed = fcp.repack(s, w, b)
     assert packed.tiles.shape[0] == s.tile_chunk.numel() > 0
     assert fcp.pack_level(w, b, 1, 1).tiles.shape[0] == 0
-    # the dgrad lists are the same tiles read by channel chunk
-    by_row = {(int(r), int(c)) for r, c in zip(s.tile_row, s.tile_chunk)}
-    by_chunk = {(int(s.chunk_row[e]), c) for c in range(s.chunk_start.numel() - 1)
-                for e in range(int(s.chunk_start[c]), int(s.chunk_start[c + 1]))}
-    assert by_row == by_chunk
+    # wgrad's entries with a chunk are the live tiles, by row tile
+    by_row = {(int(r), int(c)) for r, c in zip(s.wgrad_row, s.wgrad_chunk) if c >= 0}
+    assert by_row == {(r, int(c)) for r in range(s.tile_start.numel() - 1)
+                      for c in s.tile_chunk[int(s.tile_start[r]):int(s.tile_start[r + 1])]}
+    # the dgrad lists are the row tiles live in either chunk of each pair
+    by_pair = {(int(s.dgrad_row[e]), q) for q in range(s.dgrad_start.numel() - 1)
+               for e in range(int(s.dgrad_start[q]), int(s.dgrad_start[q + 1]))}
+    assert by_pair == {(r, c // fcp.DGRAD_CHUNKS) for r, c in by_row}
 
 
 def test_backward_wrappers_take_float32_only():

@@ -223,12 +223,14 @@ def test_packed_entry_on_cpu_never_launches_and_meta_raises():
         fcp.pack_level(wf, None, 1, 1, "circular")
 
 
-@pytest.mark.parametrize("variant", ["base", "nobuild", "nomma"])
-def test_kernel_trace_still_patches_the_kernel(variant):
-    """kernel_trace.py stamps the kernel source at fixed anchors; each must
+@pytest.mark.parametrize("kernel,variant", [("fwd", "base"), ("fwd", "nobuild"),
+                                            ("fwd", "nomma"), ("dgrad", "base"),
+                                            ("wgrad", "base")])
+def test_kernel_trace_still_patches_the_kernel(kernel, variant):
+    """kernel_trace.py stamps the kernel sources at fixed anchors; each must
     still be found exactly once."""
     import kernel_trace
 
-    src = kernel_trace.patched_source(variant)
-    assert src.count("gtime()") == 11
+    src = kernel_trace.patched_source(variant, kernel)
+    assert src.count("gtime()") == (11 if kernel == "fwd" else 9)
     assert ("k < 0" in src) == (variant != "base")
