@@ -39,7 +39,26 @@ Phases, each of which exits non-zero on failure:
    idle share by ``torch.profiler``;
 7. the training entry point: ``hm_vae_torch.cli.train`` for a few steps with
    a checkpoint, then ``--resume``;
-8. print the kernel summary line and, last, the device line.
+8. the windowed kernels of the test-time solver (each window of a batch
+   through its own decoder clone): forward, dgrad and wgrad at the four
+   decoder levels of ``configs/len_64_test_interpolation.yaml`` with 10
+   windows of one batch each, against their plain versions, the backward
+   also against autograd of the plain forward, each giving the same bits on
+   two runs, and against 10 one-window launches; timed on the device beside
+   the plain versions and cuDNN's grouped convolution;
+9. a short 10-window solve (12 iterations across the z-to-decoder switch)
+   through ``LatentOptApps.interpolate`` on the GPU against the CPU, from
+   the same weights and z, losses inside a band calibrated by runs from
+   weights scaled by 1 + 1e-7 on both sides; and a 7-iteration solve (the
+   z phase, then the last iteration through the per-window clones) whose
+   6D outputs agree as the reconstruct's do;
+10. the full solve on the card (10 windows, 150 iterations, per-window
+   clones): ms per solve, kernel launches per iteration and phase, the
+   profile; the shared-clone and ``last_conv`` solves' times;
+11. the evaluation entry point: ``hm_vae_torch.cli.eval_recovery`` on the
+   synthetic test split with the training CLI's checkpoint, and completion
+   and generation through ``LatentOptApps``;
+12. print the kernel summary line and, last, the device line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -64,6 +83,7 @@ import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "len64_no_aug_hm_vae.yaml")
+LATENT_CONFIG = os.path.join(ROOT, "configs", "len_64_test_interpolation.yaml")
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 BATCH = 8
 SEED = 0
@@ -77,6 +97,7 @@ VIBE_BATCH = 237  # refine_vibe's windows for a 300-frame sequence
 MEM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 TRAIN_STEPS = 20
+WINDOWS = 10  # the solve's windows (bench.py's latent-opt shape)
 # kernel vs plain version on the same inputs: f32 sums differ only in order;
 # bf16 rounds its operands and output
 TOL = {torch.float32: lambda ref: 1e-4 * max(1.0, ref), torch.bfloat16: lambda ref: 0.02 * ref}
@@ -434,12 +455,15 @@ def profile_calls(fn, calls: int = 10):
             kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.time_range.elapsed_us()
             count += 1
     busy = sum(kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    by_name = {}  # kernel names cut to 60 characters, their times summed
+    for k, v in kernels.items():
+        by_name[k[:60]] = by_name.get(k[:60], 0.0) + v
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return {"calls": calls, "wall_us_per_call": wall_us / calls,
             "device_us_per_call": busy / calls,
             "idle_share": 1.0 - busy / wall_us if wall_us > 0 else None,
             "device_ops_per_call": count / calls,
-            "top_us_per_call": {k[:60]: v / calls for k, v in top}}
+            "top_us_per_call": {k: v / calls for k, v in top}}
 
 
 def cli_phase(rng):
@@ -705,6 +729,406 @@ def train_cli_phase(data_root):
     return row
 
 
+def latent_config(**lat):
+    """``configs/len_64_test_interpolation.yaml`` with solver overrides."""
+    from hm_vae_torch.utils.config import load_config
+
+    cfg = load_config(LATENT_CONFIG)
+    return dataclasses.replace(cfg, latent_opt=dataclasses.replace(cfg.latent_opt, **lat))
+
+
+def windowed_inputs(conv, T_in, gen):
+    """One decoder level's operands for WINDOWS windows of one batch each, on
+    the card: the conv's fold scaled per window (the structure's zeros
+    kept) and its bias, x, the windowed forward's output y, a random gy."""
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+
+    s = conv.structure()
+    wf, bf = (None if t is None else t.detach().cpu() for t in conv.folded_weight())
+    scale = 1.0 + 0.3 * torch.randn((WINDOWS, 1, 1, 1), generator=gen)
+    w = (wf[None] * scale).contiguous().to(DEV)
+    b = None if bf is None else (bf[None] * scale[:, :, 0, 0]).contiguous().to(DEV)
+    x = torch.randn((WINDOWS, wf.shape[1], T_in), generator=gen).to(DEV)
+    packed = fcp.repack(s, w, b)
+    y = fcp.fused_conv_pool_windowed(x, packed)
+    gy = torch.randn(y.shape, generator=gen).to(DEV)
+    return s, w, b, packed, x, y, gy
+
+
+def windowed_phase(model, st, gen):
+    """The windowed forward, dgrad and wgrad at the four decoder levels, 10
+    windows of one batch each, f32: against their plain versions, the
+    backward also against autograd of the plain forward, each against 10
+    one-window launches on each window's weight, two runs bit-equal; device
+    times of kernel, plain version and cuDNN's grouped convolution
+    (``groups=WINDOWS`` on the stacked folded weights, and its
+    conv1d_input / conv1d_weight), beside the bounds (each window's
+    least bytes and operations, times WINDOWS)."""
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+
+    f32, G = torch.float32, WINDOWS
+    rows = []
+    for name, conv, T_in in level_cases(model, st):
+        if not name.startswith("dec"):
+            continue
+        s, w, b, packed, x, y, gy = windowed_inputs(conv, T_in, gen)
+        mode = "reflect" if s.reflect else "constant"
+        slope, pad, stride, K = s.negative_slope, s.padding, s.stride, s.kernel_size
+        live = s.live_elements()[None, :, :, None]
+        C, P, T_out = x.shape[1], y.shape[1], y.shape[2]
+        xg, wg = x.reshape(1, G * C, T_in), w.reshape(G * P, C, K)
+        bg = None if b is None else b.reshape(-1)
+
+        def fwd():
+            return fcp.fused_conv_pool_windowed(x, packed)
+
+        def dgrad(y=y):
+            return fcp.fused_conv_pool_dgrad_windowed(gy, y, w, s, T_in)
+
+        def wgrad(y=y):
+            return fcp.fused_conv_pool_wgrad_windowed(gy, y, x, s, G)
+
+        def f_plain():
+            return fcp.fused_conv_pool_windowed_reference(x, w, b, stride, pad, mode, slope)
+
+        def d_plain():
+            return fcp.fused_conv_pool_dgrad_windowed_reference(gy, y, w, T_in, stride, pad,
+                                                                mode, slope)
+
+        def w_plain():
+            return fcp.fused_conv_pool_wgrad_windowed_reference(gy, y, x, K, stride, pad, G,
+                                                                mode, slope, live[0, :, :, 0])
+
+        def g_grouped():
+            return torch.where(y >= 0, gy, gy * slope).reshape(1, G * P, T_out)
+
+        def f_lib():
+            xp = F.pad(xg, (pad, pad), mode=mode)
+            return F.leaky_relu(F.conv1d(xp, wg, bg, stride=stride, groups=G), slope)
+
+        def d_lib():
+            return torch.nn.grad.conv1d_input((1, G * C, T_in + 2 * pad), wg, g_grouped(),
+                                              stride=stride, groups=G)
+
+        def w_lib():
+            g = g_grouped()
+            return (torch.nn.grad.conv1d_weight(F.pad(xg, (pad, pad), mode=mode), wg.shape, g,
+                                                stride=stride, groups=G), g.sum((0, 2)))
+
+        out, gx, (gw, gb) = fwd(), dgrad(), wgrad()
+        err_f = check(f"{name} windowed", out, f_plain(), f32)[0]
+        err_d = check(f"{name} windowed dgrad", gx, d_plain(), f32)[0]
+        rw, rb = w_plain()
+        err_w = check(f"{name} windowed wgrad", gw, rw, f32)[0]
+        if b is not None:
+            err_w = max(err_w, check(f"{name} windowed bias grad", gb, rb, f32)[0])
+        # autograd of the plain forward, the kernels reading its output
+        leaves = [t.clone().requires_grad_() for t in (x, w) + (() if b is None else (b,))]
+        ya = fcp.fused_conv_pool_windowed_reference(leaves[0], leaves[1],
+                                                    leaves[2] if b is not None else None,
+                                                    stride, pad, mode, slope)
+        ag = torch.autograd.grad(ya, leaves, gy)
+        ya = ya.detach()
+        gw_a, gb_a = wgrad(ya)
+        err_d = max(err_d, check(f"{name} windowed dgrad vs autograd", dgrad(ya), ag[0],
+                                 f32)[0])
+        err_w = max(err_w, check(f"{name} windowed wgrad vs autograd", gw_a, ag[1] * live,
+                                 f32)[0])
+        if b is not None:
+            err_w = max(err_w, check(f"{name} windowed bias grad vs autograd", gb_a, ag[2],
+                                     f32)[0])
+        if not (torch.equal(wgrad()[0], gw) and torch.equal(dgrad(), gx)):
+            fail(f"{name}: a windowed backward kernel differs between two runs")
+        # against G one-window launches on each window's weight
+        one = {"fwd": 0.0, "dgrad": 0.0, "wgrad": 0.0}
+        with torch.no_grad():
+            for g in range(G):
+                sl = slice(g, g + 1)
+                single = fcp.repack(s, w[g], None if b is None else b[g])
+                one["fwd"] = max(one["fwd"], check(
+                    f"{name} window {g} vs one launch", out[sl],
+                    fcp.fused_conv_pool_packed(x[sl], single), f32)[0])
+                one["dgrad"] = max(one["dgrad"], check(
+                    f"{name} window {g} dgrad vs one launch", gx[sl],
+                    fcp.fused_conv_pool_dgrad(gy[sl], y[sl], w[g], s, T_in), f32)[0])
+                one["wgrad"] = max(one["wgrad"], check(
+                    f"{name} window {g} wgrad vs one launch", gw[g],
+                    fcp.fused_conv_pool_wgrad(gy[sl], y[sl], x[sl], s)[0], f32)[0])
+        torch.cuda.synchronize()
+        nbytes, ops = level_work(x[:1], raw_operands(conv, f32),
+                                 (w[0], None if b is None else b[0]), out[:1])
+        d_bytes, w_bytes, d_ops, w_ops = bwd_work(gy[:1], y[:1], x[:1], w[0])
+        row = {"level": name, "windows": G, "batch_per_window": 1, "C_in": C, "T_in": T_in,
+               "P": P, "T_out": T_out, "stride": stride,
+               "live_tiles": int(s.tile_chunk.numel())}
+        for what, fn, plain, lib, err, nb, no in (
+                ("fwd", fwd, f_plain, f_lib, err_f, nbytes, ops),
+                ("dgrad", dgrad, d_plain, d_lib, err_d, d_bytes, d_ops),
+                ("wgrad", wgrad, w_plain, w_lib, err_w, w_bytes, w_ops)):
+            t_bytes, t_ops = G * nb / MEM_BPS * 1e3, G * no / PEAK_FLOPS[f32] * 1e3
+            row[what] = {"max_abs_err": err, "vs_one_window_err": one[what],
+                         "ms": device_ms(fn), "plain_ms": device_ms(plain),
+                         "library_ms": device_ms(lib), "eager_ms": time_ms(fn),
+                         "bytes": G * nb, "ops": G * no, "bound_ms": max(t_bytes, t_ops),
+                         "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def solve_sequence(rng):
+    """(WINDOWS*64, 24, 3, 3) rotations of a smooth synthetic motion."""
+    from hm_vae_torch.data import layout, synthetic
+
+    T = WINDOWS * 64
+    return synthetic.synth_sequence(rng, T)[:, layout.ROTMAT].reshape(T, 24, 3, 3)
+
+
+def solve_agreement_phase(seq):
+    """A 12-iteration 10-window interpolation (z phase 6, decoder phase 5,
+    the last a decoder step) through ``LatentOptApps.interpolate`` on the
+    GPU and on the CPU from the same weights and z, and on each side from
+    the weights scaled by 1 + 1e-7: the losses agree to 1e-4 relative over
+    the first 5 iterations and within 10x the larger perturbed spread (so
+    far) + 1e-4 after; 6D within 10x the larger perturbed 6D spread +
+    1e-4 * max|cpu|; rotations (joints of condition > COND_MIN) and
+    positions (joints whose ancestors all are) likewise, + ROT_TOL /
+    POSE_TOL.  Then a 7-iteration solve (6 z iterations, the last one's
+    forward through the per-window clones), before Adam's amplification:
+    losses within 1e-4 relative, 6D as the reconstruct's (E2E_TOL), and
+    rotations and positions on the same joints within the 6D tolerance
+    amplified by Gram-Schmidt (1/COND_MIN) and FK (the pose's extent)."""
+    from hm_vae_torch.apps.tasks import LatentOptApps
+    from hm_vae_torch.models.hm_vae import HMVAE
+
+    cfg = latent_config(opt_it=12, prev_epochs=5)
+    base = HMVAE(cfg.model, cfg.optim.init, generator=torch.Generator().manual_seed(SEED))
+    outs, wall = {}, {}
+
+    def run_on(dev, scale, cfg):
+        m = copy.deepcopy(base)
+        with torch.no_grad():
+            for prm in m.parameters():
+                prm.mul_(scale)
+        apps = LatentOptApps(m.to(dev), cfg)
+        t0 = time.perf_counter()
+        out = apps.interpolate(seq, torch.Generator().manual_seed(SEED))
+        return {k: v.cpu() for k, v in out.items()}, time.perf_counter() - t0
+
+    for run, dev, scale in (("gpu", DEV, 1.0), ("cpu", "cpu", 1.0),
+                            ("gpu_perturbed", DEV, 1.0 + 1e-7),
+                            ("cpu_perturbed", "cpu", 1.0 + 1e-7)):
+        outs[run], wall[run] = run_on(dev, scale, cfg)
+    loss = {k: v["loss_history"].numpy().astype(np.float64) for k, v in outs.items()}
+    if any(len(v) != 12 or not np.isfinite(v).all() for v in loss.values()):
+        fail(f"short solve: loss histories {loss}")
+    rel = np.abs(loss["gpu"] / loss["cpu"] - 1)
+    spread = {d: np.maximum.accumulate(np.abs(loss[f"{d}_perturbed"] / loss[d] - 1))
+              for d in ("gpu", "cpu")}
+    band = 10 * np.maximum(spread["gpu"], spread["cpu"]) + 1e-4
+    if not ((rel[:5] <= 1e-4).all() and (rel <= band).all()):
+        fail(f"short solve: GPU vs CPU loss relative difference {rel.tolist()} outside "
+             f"{band.tolist()} (first 5 iterations: 1e-4)")
+    g, c = outs["gpu"], outs["cpu"]
+    well = gram_schmidt_condition(c["rot_6d"]) > COND_MIN
+    chain = ancestors_ok(well)
+    errs = {}
+    for what, sel, tol0 in (("rot_6d", None, 1e-4 * float(c["rot_6d"].abs().max())),
+                            ("rot_mat", well, ROT_TOL[torch.float32]),
+                            ("pose", chain, POSE_TOL[torch.float32])):
+        def dev_of(a, b):
+            d = (a[what] - b[what]).abs()
+            d = d.reshape(d.shape[:2] + (-1,)).amax(-1)  # per frame and joint
+            return float(d.max() if sel is None else d[sel].max())
+
+        err = dev_of(g, c)
+        tol = 10 * max(dev_of(outs["gpu_perturbed"], g), dev_of(outs["cpu_perturbed"], c)) + tol0
+        if not err <= tol:
+            fail(f"short solve {what}: max |gpu - cpu| {err:.3e} > {tol:.3e}")
+        errs[what] = {"err": err, "tol": tol}
+    # before Adam's amplification: 6 z iterations, the last iteration's
+    # forward through the 10 per-window clones (the windowed forward), held
+    # as the reconstruct is (e2e_phase's tolerances)
+    tight = {}
+    for dev in (DEV, "cpu"):
+        tight[dev], wall[f"tight_{dev}"] = run_on(dev, 1.0, latent_config(opt_it=7,
+                                                                          prev_epochs=5))
+    g, c = tight[DEV], tight["cpu"]
+    well = gram_schmidt_condition(c["rot_6d"]) > COND_MIN
+    chain = ancestors_ok(well)
+    err6 = float((g["rot_6d"] - c["rot_6d"]).abs().max())
+    err_m = float((g["rot_mat"] - c["rot_mat"]).abs().amax(dim=(-1, -2))[well].max())
+    err_p = float((g["pose"] - c["pose"]).abs().amax(dim=-1)[chain].max())
+    rel7 = np.abs(g["loss_history"].numpy() / c["loss_history"].numpy() - 1)
+    # 6D as the reconstruct's; Gram-Schmidt amplifies a 6D difference by up
+    # to 1/COND_MIN on the joints held, and FK carries a rotation's
+    # difference out along the chain (at most the pose's extent)
+    tol6 = E2E_TOL[torch.float32] * float(c["rot_6d"].abs().max())
+    tol_rot = tol6 / COND_MIN
+    checks = (("rot_6d", err6, tol6), ("rot_mat", err_m, tol_rot),
+              ("pose", err_p, tol_rot * max(1.0, float(c["pose"].abs().max()))),
+              ("loss", float(rel7.max()), 1e-4))
+    for what, err, tol in checks:
+        errs[f"tight_{what}"] = {"err": err, "tol": tol}
+    if not all(err <= tol for _, err, tol in checks):
+        fail(f"7-iteration solve: max |gpu - cpu| against tolerance {errs}")
+    row = {"phase": "solve_agreement", "config": os.path.relpath(LATENT_CONFIG, ROOT),
+           "windows": WINDOWS, "opt_it": 12, "prev_epochs": 5,
+           "loss_gpu": loss["gpu"].tolist(), "loss_cpu": loss["cpu"].tolist(),
+           "rel_diff": rel.tolist(), "band": band.tolist(),
+           "spread": {k: v.tolist() for k, v in spread.items()}, "outputs": errs,
+           "share_well": float(well.float().mean()), "seconds": wall}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+LAUNCH_NAMES = ("fused_conv_pool", "fused_conv_pool_dgrad", "fused_conv_pool_wgrad",
+                "fused_conv_pool_windowed", "fused_conv_pool_dgrad_windowed",
+                "fused_conv_pool_wgrad_windowed")
+
+
+def launch_counters():
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+
+    return [getattr(fcp, n) for n in LAUNCH_NAMES]
+
+
+def timed_solve(apps, seq, reps=2):
+    """Kernel launches of one solve (counts set to 0 just before), its
+    loss history, and ms per solve by CUDA events over ``reps`` solves."""
+    counters = launch_counters()
+    for c in counters:
+        c.launches = 0
+    out = apps.interpolate(seq, torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    ms = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        apps.interpolate(seq, torch.Generator().manual_seed(SEED))
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return out, launches, ms
+
+
+def solve_phase(model, seq):
+    """The full solve of the config (10 windows, 150 iterations, per-window
+    clones, full scope) on the card: launches per phase (z phase: 4 forward
+    and 4 dgrad a iteration, no wgrad; decoder phase: 4 windowed forward,
+    dgrad and wgrad; the last iteration its forward only), the loss falls,
+    ms per solve, the profile; then the shared-clone and last_conv solves."""
+    from hm_vae_torch.apps.tasks import LatentOptApps
+
+    cfg = latent_config()
+    lat = cfg.latent_opt
+    n_z = min(lat.prev_epochs + 1, lat.opt_it - 1)
+    n_d = lat.opt_it - 1 - n_z
+    LatentOptApps(model, latent_config(opt_it=3, prev_epochs=0)).interpolate(
+        seq, torch.Generator().manual_seed(SEED))  # warm-up: structures, libraries
+    rows = {}
+    for mode, overrides, want in (
+            ("per_window", {}, (4 * n_z, 4 * n_z, 0, 4 * (n_d + 1), 4 * n_d, 4 * n_d)),
+            ("shared", {"per_window_decoder": False},
+             (4 * (n_z + n_d + 1), 4 * (n_z + n_d), 4 * n_d, 0, 0, 0)),
+            ("last_conv", {"finetune_scope": "last_conv"},
+             (4 * n_z + 3 * (n_d + 1), 4 * n_z, 0, n_d + 1, 0, n_d))):
+        apps = LatentOptApps(model, latent_config(**overrides))
+        out, launches, ms = timed_solve(apps, seq, reps=2 if mode == "per_window" else 1)
+        hist = out["loss_history"].cpu().numpy()
+        if launches != dict(zip(LAUNCH_NAMES, want)):
+            fail(f"{mode} solve: kernel launches {launches}, expected "
+                 f"{dict(zip(LAUNCH_NAMES, want))} (z phase {n_z}, decoder phase {n_d} + 1)")
+        if not (np.isfinite(hist).all() and len(hist) == lat.opt_it and hist[-1] < hist[0]):
+            fail(f"{mode} solve: loss history {hist.tolist()}")
+        for k in ("rot_6d", "rot_mat", "pose"):
+            if out[k].shape[0] != seq.shape[0] or not torch.isfinite(out[k]).all():
+                fail(f"{mode} solve: {k} of shape {tuple(out[k].shape)} or non-finite")
+        rows[mode] = {"ms_per_solve": ms, "launches": launches,
+                      "loss_first": float(hist[0]), "loss_last": float(hist[-1])}
+        if mode == "per_window":
+            rows[mode]["profile"] = profile_calls(
+                lambda: apps.interpolate(seq, torch.Generator().manual_seed(SEED)), calls=1)
+            main_launches = launches
+    per_iter = {"z_phase": {"fwd": 4, "dgrad": 4, "wgrad": 0},
+                "decoder_phase": {"fwd_windowed": 4, "dgrad_windowed": 4, "wgrad_windowed": 4}}
+    row = {"phase": "solve", "config": os.path.relpath(LATENT_CONFIG, ROOT), "windows": WINDOWS,
+           "opt_it": lat.opt_it, "z_iterations": n_z, "decoder_iterations": n_d,
+           "launches_per_iteration": per_iter, **rows}
+    print(json.dumps(row), flush=True)
+    return row, main_launches
+
+
+def eval_phase(data_root, model):
+    """``python -m hm_vae_torch.cli.eval_recovery`` (in this process) on two
+    sequences of the synthetic test split with the training CLI's
+    checkpoint; then completion and generation through LatentOptApps at a
+    shorter solve."""
+    from hm_vae_torch.apps.tasks import LatentOptApps
+    from hm_vae_torch.cli import eval_recovery
+    from hm_vae_torch.data.dataset import EvalMotionDataset
+
+    out = os.path.join(OUT_DIR, "eval")
+    shutil.rmtree(out, ignore_errors=True)
+    ck = os.path.join(OUT_DIR, "cli_train", "outputs",
+                      os.path.splitext(os.path.basename(CONFIG))[0], "checkpoints",
+                      "gen_00000005.pt")
+    counters = launch_counters()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    eval_recovery.main(["--config", LATENT_CONFIG, "--output_path", out, "--data_root",
+                        data_root, "--test_model", ck, "--final_try_long_seq_interpolation",
+                        "--max_seqs", "2", "--device", DEV, "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    cli_launches = {c.__name__: c.launches for c in counters}
+    d = os.path.join(out, "eval_long_seq_interpolation",
+                     os.path.splitext(os.path.basename(LATENT_CONFIG))[0])
+    files = sorted(os.listdir(d)) if os.path.isdir(d) else []
+    res = [f for f in files if f.endswith("_rot_opt_res.npy")]
+    if len(res) != 2 or "summary.json" not in files:
+        fail(f"eval_recovery wrote {files}, expected two *_rot_opt_res.npy and summary.json")
+    for f in res:
+        a = np.load(os.path.join(d, f))
+        if a.ndim != 4 or a.shape[1:] != (24, 3, 3) or a.shape[0] % 64 or not np.isfinite(a).all():
+            fail(f"eval_recovery {f}: shape {a.shape} or non-finite")
+    with open(os.path.join(d, "summary.json")) as f:
+        summary = json.load(f)
+    if not (cli_launches["fused_conv_pool_dgrad"]
+            and cli_launches["fused_conv_pool_wgrad_windowed"]):
+        fail(f"eval_recovery: kernel launches {cli_launches}: the solves did not run the "
+             "kernels of both phases")
+
+    cfg = latent_config(opt_it=30, prev_epochs=10, prev_epochs_completion=20)
+    apps = LatentOptApps(model, cfg)
+    ds = EvalMotionDataset(os.path.join(data_root, "seqs"), os.path.join(data_root, "test.json"))
+    seqs = [ds[i]["rot_mat"] for i in range(2)]
+    t1 = time.perf_counter()
+    comp = apps.complete_many(seqs, torch.Generator().manual_seed(SEED))
+    gen = apps.generate_many([q[:64] for q in seqs], torch.Generator().manual_seed(SEED),
+                             num_windows=2, overlap=10)
+    torch.cuda.synchronize()
+    apps_seconds = time.perf_counter() - t1
+    for i, q in enumerate(seqs):
+        n_c = (q.shape[0] - 64) // 63 + 1
+        for what, o, T in (("completion", comp[i], 64 + 63 * (n_c - 1)),
+                           ("generation", gen[i], 64 + 2 * 54)):
+            for k in ("rot_6d", "rot_mat", "pose"):
+                v = torch.as_tensor(o[k])
+                if v.shape[0] != T or not torch.isfinite(v).all():
+                    fail(f"{what} of sequence {i}: {k} of shape {tuple(v.shape)}, expected "
+                         f"{T} frames, or non-finite")
+    row = {"phase": "eval_recovery", "task": "final_try_long_seq_interpolation",
+           "sequences": len(res), "files": files, "summary": summary, "seconds": seconds,
+           "launches": cli_launches, "completion_generation_seconds": apps_seconds,
+           "completion_frames": [int(o["pose"].shape[0]) for o in comp],
+           "generation_frames": [int(o["pose"].shape[0]) for o in gen]}
+    print(json.dumps(row), flush=True)
+    return row
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
@@ -772,8 +1196,20 @@ def main() -> None:
     train = train_phase(data_root)
     train_cli_phase(data_root)
 
-    # 8. summary: sums over the 8 levels of one reconstruct (forward) or of
-    #    one training step (backward)
+    # 8-11. the test-time solver: its windowed kernels, the GPU against the
+    #    CPU, the full solve, the evaluation entry point
+    lcfg = latent_config()
+    lmodel = HMVAE(lcfg.model, lcfg.optim.init,
+                   generator=torch.Generator().manual_seed(SEED)).to(DEV)
+    windowed = windowed_phase(lmodel, get_structure(lcfg.model), gen)
+    seq = solve_sequence(np.random.default_rng(SEED))
+    solve_agreement_phase(seq)
+    solve, solve_launches = solve_phase(lmodel, seq)
+    eval_phase(data_root, lmodel)
+
+    # 12. summary: sums over the 8 levels of one reconstruct (forward) or of
+    #    one training step (backward), and over the 4 decoder levels of a
+    #    solve's iteration (windowed)
     def total(rows):
         out = {k: sum(r[k] for r in rows)
                for k in ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms")}
@@ -821,7 +1257,26 @@ def main() -> None:
         **bwd_sums(what),
         "note": bwd_note % ("input" if what == "dgrad" else "weight"),
         "build": report["fused_conv_pool_bwd"][what],
-    } for what in ("dgrad", "wgrad")]}
+    } for what in ("dgrad", "wgrad")] + [{
+        "name": f"fused_conv_pool{suffix}_windowed", "route": "cuda",
+        "source": f"hm_vae_torch/csrc/{src}",
+        "replaces": f"{replaces} under jax.vmap over windows (per-window decoder clones, "
+                    "hm_vae_tpu/apps/latent_opt.py:423)",
+        "launches": solve_launches[f"fused_conv_pool{suffix}_windowed"],
+        **total([r[what] for r in windowed]),
+        "note": f"f32, {WINDOWS} windows of one batch each; times (device time from CUDA-graph "
+                "replays; eager_ms: eager calls) and bounds are sums over the 4 decoder levels; "
+                "launches: in one 150-iteration solve (4 a decoder-phase iteration); "
+                f"library_ms: cuDNN's grouped {lib} (groups = windows) on the stacked folded "
+                "weights, TF32 off",
+    } for what, suffix, src, replaces, lib in (
+        ("fwd", "", "fused_conv_pool.cu", "hm_vae_tpu/ops/pallas_kernels.py:65", "conv1d"),
+        ("dgrad", "_dgrad", "fused_conv_pool_bwd.cu", "hm_vae_tpu/models/hm_vae.py:200",
+         "torch.nn.grad.conv1d_input"),
+        ("wgrad", "_wgrad", "fused_conv_pool_bwd.cu", "hm_vae_tpu/models/hm_vae.py:200",
+         "torch.nn.grad.conv1d_weight"))]}
+    for row in summary["kernels"][:3]:
+        row["launches_per_solve"] = solve_launches[row["name"]]
     print(json.dumps(summary), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

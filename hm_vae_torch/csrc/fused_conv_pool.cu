@@ -60,7 +60,14 @@
 //   chunks of a row tile over a thread-block cluster of up to 8 blocks and
 //   sum the partial tiles in a fixed order through distributed shared
 //   memory: no atomics, no second pass, the same bits every run;
-// - the epilogue adds bf, applies LeakyReLU, casts and stores (B, P, T_out).
+// - the epilogue adds bf, applies LeakyReLU, casts and stores (B, P, T_out);
+// - windows: the test-time solver gives every window of its batch its own
+//   decoder clone (hm_vae_tpu/apps/latent_opt.py, jax.vmap over windows
+//   with the decoder on axis 0).  The packed weights and biases of the
+//   windows then lie one after the other, and the columns are tiled window
+//   by window, so that a block's columns read one window's weight tiles (at
+//   the decoder's T_out of 8-64 steps and one batch a window, a 64-column
+//   tile is then 1/8 to all full).  One window is the kernel's plain form.
 // A block builds a chunk's im2col tile and then runs its products; two
 // blocks per SM (bf16) overlap the two.  Times against the bounds are in
 // PERF.md.
@@ -207,8 +214,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 conv_gemm_kernel(const T* __restrict__ x, const T* __restrict__ wpack,
                  const float* __restrict__ bias, const int* __restrict__ tile_start,
                  const int* __restrict__ tile_chunk, T* __restrict__ out, int C_in, int T_in,
-                 int K, int P, int T_out, int N, int stride, int padding, int reflect,
-                 float slope, int nb_max) {
+                 int K, int P, int T_out, int win_cols, int win_tiles, size_t w_stride,
+                 int stride, int padding, int reflect, float slope, int nb_max) {
   using Tr = Traits<T>;
   constexpr int CC = Tr::kCC;
   static_assert(CC == 2 * Tr::kVec, "a tap's CC channels are two 16-byte groups");
@@ -234,7 +241,13 @@ conv_gemm_kernel(const T* __restrict__ x, const T* __restrict__ wpack,
 
   const int tid = threadIdx.x;
   const int wg = tid >> 7;  // warpgroup: columns 32*wg.. of the tile
-  const int n0 = blockIdx.x * kBN;
+  // Window `win` of the batch owns the columns [win*win_cols, n_end), its
+  // own packed weight and bias; a column tile never straddles two windows.
+  const int win = blockIdx.x / win_tiles;
+  const int n_end = (win + 1) * win_cols;
+  const int n0 = win * win_cols + (blockIdx.x - win * win_tiles) * kBN;
+  const T* wtiles = wpack + win * w_stride;
+  const float* bias_w = bias + static_cast<size_t>(win) * gridDim.y * kBM;
   const int rt = blockIdx.y;
   const int p0 = rt * kBM;
   const int first = tile_start[rt];
@@ -244,12 +257,12 @@ conv_gemm_kernel(const T* __restrict__ x, const T* __restrict__ wpack,
   // The batches this block's columns read, and the im2col work of this
   // thread: column `col`, channel group h, taps kp, kp+2, ...
   const int b_lo = n0 / T_out;
-  const int b_hi = (min(n0 + kBN, N) - 1) / T_out;
+  const int b_hi = (min(n0 + kBN, n_end) - 1) / T_out;
   const int n_b = b_hi - b_lo + 1;
   const int col = wg * kWN + (tid & 31);
   const int h = (tid >> 5) & 1, kp = (tid >> 6) & 1;
   const int n = n0 + col;
-  const bool col_ok = n < N;
+  const bool col_ok = n < n_end;
   const int b_n = col_ok ? n / T_out : b_lo;
   const int t_base = (n - b_n * T_out) * stride - padding;
   // A batch's CC x T_in rows of x, 16 bytes apart from the next batch's so
@@ -258,7 +271,7 @@ conv_gemm_kernel(const T* __restrict__ x, const T* __restrict__ wpack,
   const int xs_stage = nb_max * x_row;  // elements of x a stage holds
   const int x_col = (b_n - b_lo) * x_row + h * Tr::kVec * T_in;
 
-  if (tid < kBM) bias_s[tid] = p0 + tid < P ? bias[p0 + tid] : 0.f;
+  if (tid < kBM) bias_s[tid] = p0 + tid < P ? bias_w[p0 + tid] : 0.f;
   // Stage `slot` of the ring: chunk i's weight tile and x[b_lo:b_lo+n_b,
   // c0:c0+nc, :], one bulk copy each, all completing on the slot's barrier.
   auto issue = [&](int i, int slot) {
@@ -269,7 +282,7 @@ conv_gemm_kernel(const T* __restrict__ x, const T* __restrict__ wpack,
     const uint32_t bar = smem_addr(bars + slot);
     mbar_expect(bar, tile_bytes + n_b * x_bytes);
     bulk_copy(smem_addr(a_s + slot * tile_bytes),
-              wpack + static_cast<size_t>(idx) * (tile_bytes / sizeof(T)), tile_bytes, bar);
+              wtiles + static_cast<size_t>(idx) * (tile_bytes / sizeof(T)), tile_bytes, bar);
     for (int bb = 0; bb < n_b; ++bb)
       bulk_copy(smem_addr(xs + slot * xs_stage + bb * x_row),
                 x + (static_cast<size_t>(b_lo + bb) * C_in + c0) * T_in, x_bytes, bar);
@@ -369,7 +382,7 @@ conv_gemm_kernel(const T* __restrict__ x, const T* __restrict__ wpack,
   const int warp = (tid >> 5) & 3, lane = tid & 31;
   auto store = [&](int row, int c, float v) {
     const int p = p0 + row, nn = n0 + c;
-    if (p < P && nn < N) {
+    if (p < P && nn < n_end) {
       v += bias_s[row];
       v = v >= 0.f ? v : slope * v;
       const int b = nn / T_out, t = nn - b * T_out;
@@ -415,7 +428,7 @@ template <typename T>
 cudaError_t launch(const void* x, const void* w, const void* bias, const void* tile_start,
                    const void* tile_chunk, void* out, int B, int C_in, int T_in, int K, int P,
                    int T_out, int stride, int padding, int reflect, float slope, int max_live,
-                   int device, int sms, cudaStream_t stream) {
+                   int windows, int n_tiles, int device, int sms, cudaStream_t stream) {
   using Tr = Traits<T>;
   auto kernel = conv_gemm_kernel<T>;
   // The shared-memory cap is set once per device, not per launch.
@@ -426,18 +439,20 @@ cudaError_t launch(const void* x, const void* w, const void* bias, const void* t
     if (err != cudaSuccess) return err;
     ready[device] = true;
   }
-  const int N = B * T_out;
+  // the batch is `windows` windows of B / windows batches each
+  const int win_cols = B / windows * T_out;
+  const int win_tiles = (win_cols + kBN - 1) / kBN;
   const size_t J = static_cast<size_t>(Tr::kCC) * K;
   const size_t tile = static_cast<size_t>(kBM) * J * sizeof(T) * Tr::kPlanes;
   const size_t b_bytes = tile > kRedBytes ? tile : kRedBytes;
   // batches one block's 64 columns span, at most
-  const int nb = min(B, (kBN - 1) / T_out + 2);
+  const int nb = min(B / windows, (kBN - 1) / T_out + 2);
   const size_t xs_bytes =
       static_cast<size_t>(Tr::kStages) * nb * (Tr::kCC * T_in * sizeof(T) + 16);
   const size_t smem = 384 + 127 + Tr::kStages * tile + b_bytes + xs_bytes;
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
 
-  const int nt = (N + kBN - 1) / kBN, rts = (P + kBM - 1) / kBM;
+  const int nt = windows * win_tiles, rts = (P + kBM - 1) / kBM;
   const int per_sm = max(1, min(8, kSmemPerSM / static_cast<int>(smem + 1024)));
   // split the live chunks until the grid fills the card once
   int split = (per_sm * sms + nt * rts - 1) / (nt * rts);
@@ -458,8 +473,9 @@ cudaError_t launch(const void* x, const void* w, const void* bias, const void* t
   cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const float*>(bias), static_cast<const int*>(tile_start),
-      static_cast<const int*>(tile_chunk), static_cast<T*>(out), C_in, T_in, K, P, T_out, N,
-      stride, padding, reflect, slope, nb);
+      static_cast<const int*>(tile_chunk), static_cast<T*>(out), C_in, T_in, K, P, T_out,
+      win_cols, win_tiles, static_cast<size_t>(n_tiles) * (tile / sizeof(T)), stride, padding,
+      reflect, slope, nb);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -469,16 +485,19 @@ cudaError_t launch(const void* x, const void* w, const void* bias, const void* t
 extern "C" {
 
 // Launches on `stream` and returns the first CUDA error (0 on success).
-// w, bias, tile_start, tile_chunk: a level packed by pack_level (the
-// wrapper); max_live: the most live tiles of any row tile.  dtype: 0 =
-// float32, 1 = bfloat16.  device: the CUDA device of the tensors; sms: its
-// multiprocessor count.
+// w, bias, tile_start, tile_chunk: a level packed by pack_level or repack
+// (the wrapper); max_live: the most live tiles of any row tile.  windows:
+// the batch's windows, each of B / windows batches with its own packed
+// weight (n_tiles live tiles) and bias, one after the other in w and bias
+// (1: one weight for the whole batch).  dtype: 0 = float32, 1 = bfloat16.
+// device: the CUDA device of the tensors; sms: its multiprocessor count.
 int hmvae_fused_conv_pool(const void* x, const void* w, const void* bias,
                           const void* tile_start, const void* tile_chunk, void* out, int B,
                           int C_in, int T_in, int K, int P, int T_out, int stride, int padding,
-                          int reflect, float negative_slope, int max_live, int dtype,
-                          int device, int sms, void* stream) {
+                          int reflect, float negative_slope, int max_live, int windows,
+                          int n_tiles, int dtype, int device, int sms, void* stream) {
   if (B <= 0 || C_in <= 0 || T_in <= 0 || K <= 0 || P <= 0 || T_out <= 0 || stride <= 0 ||
+      windows <= 0 || B % windows != 0 || n_tiles < 0 ||
       padding < 0 || (reflect && padding >= T_in) ||
       (T_out - 1) * stride + K > T_in + 2 * padding || max_live < 0 || device < 0 ||
       C_in % 8 != 0 || (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
@@ -489,12 +508,12 @@ int hmvae_fused_conv_pool(const void* x, const void* w, const void* bias,
   if (dtype == 0)
     return static_cast<int>(launch<float>(x, w, bias, tile_start, tile_chunk, out, B, C_in, T_in,
                                           K, P, T_out, stride, padding, reflect, negative_slope,
-                                          max_live, device, sms, s));
+                                          max_live, windows, n_tiles, device, sms, s));
   if (dtype == 1)
     return static_cast<int>(launch<__nv_bfloat16>(x, w, bias, tile_start, tile_chunk, out, B,
                                                   C_in, T_in, K, P, T_out, stride, padding,
-                                                  reflect, negative_slope, max_live, device,
-                                                  sms, s));
+                                                  reflect, negative_slope, max_live, windows,
+                                                  n_tiles, device, sms, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -84,6 +84,13 @@
 //   consecutive words); g is staged a few batches at a time and written in
 //   the mma's fragment order, so each lane reads its A fragment as two
 //   16-byte loads.
+// - windows: the test-time solver gives every window of its batch its own
+//   decoder clone (hm_vae_tpu/apps/latent_opt.py, jax.vmap over windows
+//   with the decoder on axis 0).  Both kernels then take `windows` weights
+//   (dgrad) or gradients (wgrad), one after the other: a dgrad block's
+//   batch group lies inside one window and stages that window's weight
+//   rows; a wgrad block (grid z: the window) sums over its window's batches
+//   only, its cluster split too.  One window is the kernels' plain form.
 // Times against the bounds, and traces of both kernels (kernel_trace.py),
 // are in PERF.md.
 
@@ -232,7 +239,7 @@ dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
              const float* __restrict__ w, const int* __restrict__ dgrad_start,
              const int* __restrict__ dgrad_row, float* __restrict__ gx, int B, int C, int T_in,
              int K, int P, int T_out, int t_ld, int stride, int padding, int reflect,
-             float slope, int nbb) {
+             float slope, int nbb, int gpw, size_t w_stride) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int split = static_cast<int>(cluster.num_blocks());
@@ -249,8 +256,12 @@ dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
   const int gid = lane >> 2, tig = lane & 3;
   const int c0 = blockIdx.x * kDC;
   const int cw = min(kDC, C - c0);  // 16, or 8 for a last odd chunk
-  const int b0 = blockIdx.y * nbb;
-  const int nbl = min(nbb, B - b0);
+  // window `win` owns the batches [win*B, (win+1)*B) in gpw groups, and its
+  // own folded weight
+  const int win = blockIdx.y / gpw;
+  const int b0 = win * B + (blockIdx.y - win * gpw) * nbb;
+  const int nbl = min(nbb, (win + 1) * B - b0);
+  const float* wwin = w + win * w_stride;
   const int first = dgrad_start[blockIdx.x];
   const int live = dgrad_start[blockIdx.x + 1] - first;
   // stages: both halves of each of the block's live row tiles
@@ -271,7 +282,7 @@ dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
     if (tid == 0) mbar_expect(smem_addr(bars + slot), nrows * w_row);
     if (tid < nrows) {
       fence_async();
-      bulk_copy(w_s + slot * wt + tid * L.wr, w + (size_t(p0 + tid) * C + c0) * K, w_row,
+      bulk_copy(w_s + slot * wt + tid * L.wr, wwin + (size_t(p0 + tid) * C + c0) * K, w_row,
                 bars + slot);
     }
   };
@@ -496,7 +507,13 @@ wgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
   const bool writes_bias = e == 0 || wrow[e - 1] != rt;
   const int p0 = rt * kRows, nrows = min(kRows, P - p0);
   const int c0 = has_x ? chunk * kCC : 0;
-  const int b_lo = B * rank / split, nb = B * (rank + 1) / split - b_lo;
+  // window blockIdx.z: its batches [z*B, (z+1)*B), split over the cluster,
+  // and its own gradient
+  const int win = static_cast<int>(blockIdx.z);
+  const int b_lo = win * B + B * rank / split;
+  const int nb = B * (rank + 1) / split - B * rank / split;
+  float* gw_w = gw + size_t(win) * P * C * K;
+  float* gb_w = gb + size_t(win) * P;
   const int n_st = (nb + sb - 1) / sb;
   const int gt = sb * kRows * t_ld;  // floats of gy (or y) in a stage
   const size_t stage_floats = (L.gf - L.g) / 4 / L.slots;
@@ -694,7 +711,7 @@ wgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
       const float4 w = *reinterpret_cast<const float4*>(part[q] + o);
       v.x += w.x, v.y += w.y, v.z += w.z, v.w += w.w;
     }
-    *reinterpret_cast<float4*>(gw + (size_t(p0 + r) * C + c0) * K + 4 * j4) = v;
+    *reinterpret_cast<float4*>(gw_w + (size_t(p0 + r) * C + c0) * K + 4 * j4) = v;
   }
   if (writes_bias && tid < r_hi - r_lo) {
     const int o = (r_lo + tid) * L.rj + kCC * K;
@@ -702,7 +719,7 @@ wgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
 #pragma unroll
     for (int q = 1; q < kMaxSplit; ++q)
       if (q < split) v += part[q][o];
-    gb[p0 + r_lo + tid] = v;
+    gb_w[p0 + r_lo + tid] = v;
   }
   if (split > 1) cluster.sync();  // no block leaves while another reads its partial tile
 }
@@ -753,56 +770,64 @@ cudaError_t launch_cluster(Kernel kernel, dim3 grid, int cluster_z, int cluster_
 extern "C" {
 
 // Input gradient gx (B, C, T_in) of a level from gy, y (B, P, rows of t_ld
-// >= T_out floats) and the folded weight w (P, C, K), all f32, C a multiple
-// of 8, every pointer 16-byte aligned; dgrad_start / dgrad_row: the row
-// tiles live in either chunk of each pair of 8-channel chunks
+// >= T_out floats) and the folded weight w (windows x (P, C, K): window i
+// of the batch, B / windows batches, reads the i-th), all f32, C a
+// multiple of 8, every pointer 16-byte aligned; dgrad_start / dgrad_row:
+// the row tiles live in either chunk of each pair of 8-channel chunks
 // (pack_structure).  The plan (dgrad_plan in the wrapper): batch groups of
-// nbb batches, the row tiles of a pair split over `split` blocks of a
-// cluster.  Launches on `stream`, returns the first CUDA error (0 on
-// success).
+// nbb batches within a window, the row tiles of a pair split over `split`
+// blocks of a cluster.  Launches on `stream`, returns the first CUDA error
+// (0 on success).
 int hmvae_conv_dgrad(const void* gy, const void* y, const void* w, const void* dgrad_start,
                      const void* dgrad_row, void* gx, int B, int C, int T_in, int K, int P,
                      int T_out, int t_ld, int stride, int padding, int reflect, float slope,
-                     int nbb, int split, int device, void* stream) {
+                     int nbb, int split, int windows, int device, void* stream) {
   const void* ptrs[] = {gy, y, w, gx};
   if (!shape_ok(B, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, device, ptrs, 4) ||
-      nbb < 1 || nbb > B || split < 1 || split > kMaxSplit)
+      windows < 1 || B % windows != 0 || nbb < 1 || nbb > B / windows || split < 1 ||
+      split > kMaxSplit)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int n_win = B / windows;
   const DgradLayout L = dgrad_layout(T_in, K, T_out, t_ld, stride, padding, nbb);
   int tiles = 0;  // 16-column tiles of a batch group: one per warp
   for (int phi = 0; phi < stride; ++phi)
     tiles += (nbb * ((L.Tp - phi + stride - 1) / stride) + 15) / 16;
-  const int groups = (B + nbb - 1) / nbb;
-  if (tiles > kWarps || L.total > static_cast<size_t>(kMaxSmem) || groups > 65535)
+  const int gpw = (n_win + nbb - 1) / nbb;  // batch groups of a window
+  if (tiles > kWarps || L.total > static_cast<size_t>(kMaxSmem) ||
+      static_cast<long long>(windows) * gpw > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   static bool ready[kMaxDevices] = {};
   cudaError_t err = allow_smem(dgrad_kernel, ready, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_cluster(
-      dgrad_kernel, dim3((C + kDC - 1) / kDC, groups, split), split, 1, L.total, stream,
+      dgrad_kernel, dim3((C + kDC - 1) / kDC, windows * gpw, split), split, 1, L.total, stream,
       static_cast<const float*>(gy), static_cast<const float*>(y), static_cast<const float*>(w),
       static_cast<const int*>(dgrad_start), static_cast<const int*>(dgrad_row),
-      static_cast<float*>(gx), B, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, slope,
-      nbb));
+      static_cast<float*>(gx), n_win, C, T_in, K, P, T_out, t_ld, stride, padding, reflect,
+      slope, nbb, gpw, size_t(P) * C * K));
 }
 
-// Folded-weight gradient gw (P, C, K) on the n_tiles entries of wgrad_row /
-// wgrad_chunk (pack_structure: the live tiles by row tile, chunk -1 for a
-// row tile with none; the caller zeroes the rest) and bias gradient gb (P,),
-// from gy, y (B, P, rows of t_ld floats) and x (B, C, T_in), all f32, C a
-// multiple of 8, every pointer 16-byte aligned.  The plan (wgrad_plan in
-// the wrapper): the batches split over `split` blocks of a cluster, staged
-// sb at a time.
+// Folded-weight gradient gw (windows x (P, C, K)) on the n_tiles entries of
+// wgrad_row / wgrad_chunk (pack_structure: the live tiles by row tile,
+// chunk -1 for a row tile with none; the caller zeroes the rest) and bias
+// gradient gb (windows x (P,)), from gy, y (B, P, rows of t_ld floats) and x
+// (B, C, T_in), all f32, C a multiple of 8, every pointer 16-byte aligned.
+// Window i's gradient sums over its own B / windows batches only.  The plan
+// (wgrad_plan in the wrapper): a window's batches split over `split` blocks
+// of a cluster, staged sb at a time.
 int hmvae_conv_wgrad(const void* gy, const void* y, const void* x, const void* wrow,
                      const void* wchunk, void* gw, void* gb, int n_tiles, int B, int C,
                      int T_in, int K, int P, int T_out, int t_ld, int stride, int padding,
-                     int reflect, float slope, int sb, int split, int device, void* stream) {
+                     int reflect, float slope, int sb, int split, int windows, int device,
+                     void* stream) {
   const void* ptrs[] = {gy, y, x, gw};
   if (!shape_ok(B, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, device, ptrs, 4) ||
-      n_tiles < 0 || n_tiles > 65535 || sb < 1 || split < 1 || split > kMaxSplit || split > B)
+      n_tiles < 0 || n_tiles > 65535 || sb < 1 || split < 1 || split > kMaxSplit ||
+      windows < 1 || windows > 65535 || B % windows != 0 || split > B / windows)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_tiles == 0) return 0;
-  const WgradLayout L = wgrad_layout(B, T_in, K, T_out, t_ld, stride, sb, split);
+  const int n_win = B / windows;
+  const WgradLayout L = wgrad_layout(n_win, T_in, K, T_out, t_ld, stride, sb, split);
   if (L.total > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
   const bool wide = K + 1 > 2 * kWarps;  // K = 16: 17 tiles, three a warp
   auto kernel = wide ? wgrad_kernel<3> : wgrad_kernel<2>;
@@ -810,11 +835,11 @@ int hmvae_conv_wgrad(const void* gy, const void* y, const void* x, const void* w
   cudaError_t err = allow_smem(kernel, ready[wide], device);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_cluster(
-      kernel, dim3(split, n_tiles, 1), 1, split, L.total, stream, static_cast<const float*>(gy),
-      static_cast<const float*>(y), static_cast<const float*>(x),
+      kernel, dim3(split, n_tiles, windows), 1, split, L.total, stream,
+      static_cast<const float*>(gy), static_cast<const float*>(y), static_cast<const float*>(x),
       static_cast<const int*>(wrow), static_cast<const int*>(wchunk), static_cast<float*>(gw),
-      static_cast<float*>(gb), B, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, slope,
-      sb));
+      static_cast<float*>(gb), n_win, C, T_in, K, P, T_out, t_ld, stride, padding, reflect,
+      slope, sb));
 }
 
 const char* hmvae_error_string(int err) {

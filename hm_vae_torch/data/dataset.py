@@ -1,7 +1,7 @@
 """Host-side data pipeline: window sampling, normalisation, augmentation.
 
 A numpy copy of ``hm_vae_tpu.data.dataset`` (``MotionDataset``,
-``PrefetchIterator``, ``make_loaders``): sequences are memory-resident numpy
+``EvalMotionDataset``, ``PrefetchIterator``, ``make_loaders``): sequences are memory-resident numpy
 arrays, a batch is a dict keyed by :data:`layout.BATCH_FIELDS`, augmentations
 are vectorised per batch, and a background thread assembles the next
 batches while the device computes.
@@ -141,6 +141,55 @@ class MotionDataset:
             finally:
                 self.fps_aug = fps
                 self.random_root_rot = aug
+
+
+class EvalMotionDataset:
+    """Full-sequence eval loader with per-joint visibility masks: unnormalised
+    rot6d / rotmat / positions, their masked copies and the (T, 24) mask.
+
+    ``mask_dir``: a folder of precomputed per-frame (T, 24) mask npys named
+    like the sequences; otherwise ``missing='random'`` draws masks with
+    ``missing_joint_prob`` from this instance's seed, and ``'upper'`` /
+    ``'lower'`` hide those joints.
+    """
+
+    UPPER_JOINTS = (0, 3, 6, 9, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23)
+    LOWER_JOINTS = (1, 2, 4, 5, 7, 8, 10, 11)
+
+    def __init__(self, seq_dir: str, index_json: str, missing: str = "none",
+                 missing_joint_prob: float = 0.0, mask_dir: Optional[str] = None,
+                 seed: int = 0):
+        with open(index_json) as f:
+            ids = json.load(f)
+        self.names = [ids[k] for k in sorted(ids, key=int)]
+        self.seq_dir = seq_dir
+        self.missing = missing
+        self.missing_joint_prob = missing_joint_prob
+        self.mask_dir = mask_dir
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+        seq = np.load(os.path.join(self.seq_dir, self.names[i])).astype(np.float32)
+        T = seq.shape[0]
+        rot6d = seq[:, layout.ROT6D].reshape(T, 24, 6)
+        rotmat = seq[:, layout.ROTMAT].reshape(T, 24, 3, 3)
+        pos = seq[:, layout.COORD].reshape(T, 24, 3)
+        mask = np.ones((T, 24), dtype=np.float32)
+        if self.missing == "upper":
+            mask[:, list(self.UPPER_JOINTS)] = 0.0
+        elif self.missing == "lower":
+            mask[:, list(self.LOWER_JOINTS)] = 0.0
+        elif self.mask_dir is not None:
+            mask = np.load(os.path.join(self.mask_dir, self.names[i])).astype(np.float32)[:T]
+        elif self.missing == "random":
+            mask = (self.rng.random((T, 24)) >= self.missing_joint_prob).astype(np.float32)
+        return {"name": self.names[i], "rot_6d": rot6d, "rot_mat": rotmat, "rot_pos": pos,
+                "masked_6d": rot6d * mask[..., None], "masked_rot": rotmat * mask[..., None, None],
+                "masked_pos": pos * mask[..., None], "mask": mask,
+                "root_v": seq[:, layout.ROOT_V]}
 
 
 class PrefetchIterator:

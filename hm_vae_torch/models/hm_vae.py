@@ -16,6 +16,14 @@ activation at the last decoder level.  Two paths:
   on its structure (the live tiles, decided once per device and dtype), so
   autograd carries the kernels' gradients back to the raw parameters.
 
+:meth:`HMVAE.decode` also decodes through given decoder parameters (the
+test-time solver's clones, ``model.apply(dec_sub, z, method=HMVAE.decode)``
+in the JAX package).  A parameter with a leading window axis G is one clone
+per window of a batch of G*n: the latent heads become batched matrix
+products and the convs run
+:class:`~hm_vae_torch.ops.fused_conv_pool.WindowedFusedConvPoolFn` on the
+G folded weights.
+
 Hierarchical latents (shallow -> deep), for len-64/SMPL-24:
 ``[(B,14,2*shallow_d), (B,9,2*latent_d), (B,7,2*latent_d), (B,7,2*latent_d)]``.
 The decoder reads only the deepest z (seeds level 0) and the shallowest z
@@ -25,7 +33,7 @@ The decoder reads only the deepest z (seeds level 0) and the shallowest z
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,8 +41,8 @@ from torch import nn
 
 from ..ops import skeleton_nn as snn
 from ..ops.fused_conv_pool import (FusedConvPoolFn, LevelStructure, PackedLevel,
-                                   fold_operands, fused_conv_pool_packed, pack_structure,
-                                   repack)
+                                   WindowedFusedConvPoolFn, fold_operands,
+                                   fused_conv_pool_packed, pack_structure, repack)
 from ..utils.config import ModelConfig
 from .structure import ConvSpec, get_structure
 
@@ -84,6 +92,18 @@ class Linear(nn.Linear):
         return nn.functional.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
+def windowed_linear(z: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``z @ weight.T + bias`` in z's dtype: for a (out, in) weight as a
+    :class:`Linear` computes it; for G windows' (G, out, in) weights and (G,
+    out) biases, window g's rows of z (G*n, ..., in) through weight g."""
+    w, b = weight.to(z.dtype), bias.to(z.dtype)
+    if w.dim() == 2:
+        return nn.functional.linear(z, w, b)
+    G = w.shape[0]
+    out = torch.baddbmm(b[:, None, :], z.reshape(G, -1, z.shape[-1]), w.transpose(1, 2))
+    return out.reshape(z.shape[:-1] + (w.shape[1],))
+
+
 def _linear(in_f: int, out_f: int, init_type: str, generator) -> Linear:
     lin = Linear(in_f, out_f)
     with torch.no_grad():
@@ -123,21 +143,32 @@ class SkeletonConv(nn.Module):
         self.register_buffer("unpool", _const(unpool_matrix), persistent=False)
         self._structures: Dict[tuple, LevelStructure] = {}
 
-    def _masked(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        w = self.weight.to(self.dtype)
-        b = None if self.bias is None else self.bias.to(self.dtype)
+    def fold(self, weight: torch.Tensor, bias: Optional[torch.Tensor]
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The JAX module's single conv weight and bias from this conv's
+        ``weight`` and ``bias``: ``W*mask`` with the unpool folded in
+        (``@ U``) and the pool folded on (``P @``, ``P @ b``).  G windows'
+        weights (G, C_out, C_in, K) and biases (G, C_out) fold each."""
+        w = weight.to(self.dtype)
+        b = None if bias is None else bias.to(self.dtype)
         if self.mask is not None:
             w = w * self.mask.to(self.dtype)[:, :, None]
-        return w, b
+        if w.dim() == 3:
+            if self.unpool is not None:
+                w = torch.einsum("ock,cp->opk", w, self.unpool.to(self.dtype))
+            pool = None if self.pool is None else self.pool.to(self.dtype)
+            return fold_operands(w, b, None, pool)
+        if self.unpool is not None:
+            w = torch.einsum("gock,cp->gopk", w, self.unpool.to(self.dtype))
+        if self.pool is not None:
+            pool = self.pool.to(self.dtype)
+            w = torch.einsum("qo,gock->gqck", pool, w)
+            b = None if b is None else b @ pool.T
+        return w.contiguous(), b
 
     def folded_weight(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """The JAX module's single conv weight and bias: ``W*mask`` with the
-        unpool folded in (``@ U``) and the pool folded on (``P @``, ``P @ b``)."""
-        w, b = self._masked()
-        if self.unpool is not None:
-            w = torch.einsum("ock,cp->opk", w, self.unpool.to(self.dtype))
-        pool = None if self.pool is None else self.pool.to(self.dtype)
-        return fold_operands(w, b, None, pool)
+        """:meth:`fold` of this conv's own parameters."""
+        return self.fold(self.weight, self.bias)
 
     def structure(self) -> LevelStructure:
         """The tiles of the folded weight that may be nonzero, from the
@@ -166,14 +197,25 @@ class SkeletonConv(nn.Module):
     def forward(self, x: torch.Tensor, packed: Optional[PackedLevel] = None) -> torch.Tensor:
         if packed is not None:
             return fused_conv_pool_packed(x.to(packed.dtype).contiguous(), packed)
-        w, b = self.folded_weight()
-        return FusedConvPoolFn.apply(x.to(self.dtype).contiguous(), w, b, self.structure())
+        return self.forward_with(x, self.weight, self.bias)
+
+    def forward_with(self, x: torch.Tensor, weight: torch.Tensor,
+                     bias: Optional[torch.Tensor]) -> torch.Tensor:
+        """The conv on given parameters, differentiable: G windows' weights
+        (G, C_out, C_in, K) take x (G*n, ...) window by window."""
+        w, b = self.fold(weight, bias)
+        fn = WindowedFusedConvPoolFn if w.dim() == 4 else FusedConvPoolFn
+        return fn.apply(x.to(self.dtype).contiguous(), w, b, self.structure())
 
 
 OperandMap = Dict[SkeletonConv, PackedLevel]
+ParamMap = Mapping[str, torch.Tensor]
 
 
-def _run(conv: SkeletonConv, x: torch.Tensor, ops: Optional[OperandMap]) -> torch.Tensor:
+def _run(conv: SkeletonConv, x: torch.Tensor, ops: Optional[OperandMap],
+         params: Optional[ParamMap] = None, name: str = "") -> torch.Tensor:
+    if params is not None:
+        return conv.forward_with(x, params[f"{name}.weight"], params.get(f"{name}.bias"))
     return conv(x, None if ops is None else ops[conv])
 
 
@@ -214,7 +256,9 @@ class Encoder(nn.Module):
 class Decoder(nn.Module):
     """Mirror decoder: latent re-inflation, then upsample and unpool-folded
     conv per level.  Takes the z list (shallow -> deep) and returns
-    (B, n_joints*output_dim, T)."""
+    (B, n_joints*output_dim, T).  With ``params`` (every decoder parameter
+    by its name here, ``latent_dec_0.weight``, ...) it decodes through those
+    tensors instead of its own."""
 
     def __init__(self, cfg: ModelConfig, init_type: str = "kaiming",
                  generator: Optional[torch.Generator] = None):
@@ -240,15 +284,19 @@ class Decoder(nn.Module):
                 negative_slope=slope, generator=generator))
         self.num_layers = nl
 
-    def forward(self, z_list: Sequence[torch.Tensor],
-                ops: Optional[OperandMap] = None) -> torch.Tensor:
+    def forward(self, z_list: Sequence[torch.Tensor], ops: Optional[OperandMap] = None,
+                params: Optional[ParamMap] = None) -> torch.Tensor:
         st = self.structure
         nl = self.num_layers
         B = z_list[0].shape[0]
 
         def feats(i):
             z = z_list[nl - i - 1]
-            out = getattr(self, f"latent_dec_{i}")(z)
+            name = f"latent_dec_{i}"
+            if params is None:
+                out = getattr(self, name)(z)
+            else:
+                out = windowed_linear(z, params[f"{name}.weight"], params[f"{name}.bias"])
             return out.reshape(B, -1, st.decoder_levels[i].timestep)
 
         x = None
@@ -270,8 +318,9 @@ class Decoder(nn.Module):
             if lvl.extra_convs:
                 x = snn.apply_channel_matrix(x, getattr(self, f"unpool_{i}").to(x.dtype))
                 for e in range(len(lvl.extra_convs)):
-                    x = _run(getattr(self, f"conv_{i}_extra_{e}"), x, ops)
-            x = _run(getattr(self, f"conv_{i}"), x, ops)
+                    name = f"conv_{i}_extra_{e}"
+                    x = _run(getattr(self, name), x, ops, params, name)
+            x = _run(getattr(self, f"conv_{i}"), x, ops, params, f"conv_{i}")
         return x
 
 
@@ -308,10 +357,12 @@ class HMVAE(nn.Module):
         x = x6d.reshape(B, T, J * D).transpose(1, 2).contiguous()
         return self.encoder(x, ops)
 
-    def decode(self, z_list: Sequence[torch.Tensor],
-               ops: Optional[OperandMap] = None) -> torch.Tensor:
-        """z list (shallow -> deep) -> 6D output (B, T, n_joints, output_dim)."""
-        out = self.decoder(z_list, ops).float()
+    def decode(self, z_list: Sequence[torch.Tensor], ops: Optional[OperandMap] = None,
+               params: Optional[ParamMap] = None) -> torch.Tensor:
+        """z list (shallow -> deep) -> 6D output (B, T, n_joints, output_dim),
+        through the decoder's own parameters, its packed ``ops``, or the
+        decoder parameters ``params`` (see :class:`Decoder`)."""
+        out = self.decoder(z_list, ops, params).float()
         B, _, T = out.shape
         return out.transpose(1, 2).reshape(B, T, self.cfg.n_joints, self.cfg.output_dim)
 

@@ -28,12 +28,22 @@ Which tiles are live is decided once (:func:`pack_structure`, a
   and a structure: forward by repack + kernel, backward by
   :func:`fused_conv_pool_dgrad` and :func:`fused_conv_pool_wgrad`.
 
+Windowed forms: the test-time solver gives each window of its batch its own
+decoder clone (``hm_vae_tpu/apps/latent_opt.py``, ``jax.vmap`` over windows
+with the decoder parameters on axis 0).  For a batch of B = G*n (G windows
+of n batches), :func:`repack` takes G folded weights (G, P, C_in, K) and
+biases (G, P) and :class:`WindowedFusedConvPoolFn` runs the same three
+kernels with each window reading its own weight:
+:func:`fused_conv_pool_windowed`, :func:`fused_conv_pool_dgrad_windowed` and
+:func:`fused_conv_pool_wgrad_windowed` (one gradient per window, no sum
+across windows).  A ``torch.func.vmap`` cannot see inside a ``ctypes``
+launch, so the window axis is written out.
+
 On CPU tensors every entry runs its plain PyTorch version
 (:func:`fused_conv_pool_reference`, :func:`fused_conv_pool_dgrad_reference`,
-:func:`fused_conv_pool_wgrad_reference`); on CUDA tensors they launch the
-kernel or raise.  ``fused_conv_pool.launches``,
-``fused_conv_pool_dgrad.launches`` and ``fused_conv_pool_wgrad.launches``
-count kernel launches.
+:func:`fused_conv_pool_wgrad_reference` and their ``_windowed`` forms); on
+CUDA tensors they launch the kernel or raise.  The ``launches`` attribute of
+each of the six entries counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -128,6 +138,41 @@ def fused_conv_pool_wgrad_reference(gy, y, x, K: int, stride: int, padding: int,
     return gw, g.sum((0, 2))
 
 
+def fused_conv_pool_windowed_reference(x, weight, bias, stride: int, padding: int,
+                                       padding_mode: str = "reflect",
+                                       negative_slope: float = 0.2) -> torch.Tensor:
+    """Plain PyTorch windowed level: x (G*n, C_in, T), folded weights
+    (G, P, C_in, K) and biases (G, P) or None; window g's n batches go
+    through its own weight, with :func:`fused_conv_pool_reference`."""
+    G = weight.shape[0]
+    return torch.cat([fused_conv_pool_reference(
+        xg, weight[g], None if bias is None else bias[g], None, None, stride, padding,
+        padding_mode, negative_slope) for g, xg in enumerate(x.chunk(G))])
+
+
+def fused_conv_pool_dgrad_windowed_reference(gy, y, weight, T_in: int, stride: int,
+                                             padding: int, padding_mode: str = "reflect",
+                                             negative_slope: float = 0.2) -> torch.Tensor:
+    """Plain windowed input gradient: :func:`fused_conv_pool_dgrad_reference`
+    of each window's batches on its own weight (G, P, C_in, K)."""
+    G = weight.shape[0]
+    return torch.cat([fused_conv_pool_dgrad_reference(
+        gg, yg, weight[g], T_in, stride, padding, padding_mode, negative_slope)
+        for g, (gg, yg) in enumerate(zip(gy.chunk(G), y.chunk(G)))])
+
+
+def fused_conv_pool_wgrad_windowed_reference(gy, y, x, K: int, stride: int, padding: int,
+                                             windows: int, padding_mode: str = "reflect",
+                                             negative_slope: float = 0.2,
+                                             live: Optional[torch.Tensor] = None):
+    """Plain windowed weight and bias gradients, (G, P, C_in, K) and (G, P):
+    :func:`fused_conv_pool_wgrad_reference` over each window's batches."""
+    parts = [fused_conv_pool_wgrad_reference(gg, yg, xg, K, stride, padding, padding_mode,
+                                             negative_slope, live)
+             for gg, yg, xg in zip(gy.chunk(windows), y.chunk(windows), x.chunk(windows))]
+    return torch.stack([w for w, _ in parts]), torch.stack([b for _, b in parts])
+
+
 def fold_operands(
     weight: torch.Tensor,
     bias: Optional[torch.Tensor],
@@ -198,8 +243,9 @@ class PackedLevel:
     order, each ``planes`` x 64 rows x ``chunk*K`` values (tap-major:
     j = k*chunk + c) in wgmma's core-matrix order; in f32 the planes are the
     TF32 rounding and the remainder.  ``bias`` is f32, zero-padded to the
-    row tiles.  The structure's fields (``tile_start``, ``rows``,
-    ``stride``, ...) read through.
+    row tiles.  Windowed (G weights, :func:`repack` of a (G, P, C_in, K)
+    weight), both have a leading window axis.  The structure's fields
+    (``tile_start``, ``rows``, ``stride``, ...) read through.
     """
 
     tiles: torch.Tensor
@@ -220,6 +266,11 @@ class PackedLevel:
     def device(self) -> torch.device:
         return self.tiles.device
 
+    @property
+    def windows(self) -> Optional[int]:
+        """G for a windowed packing, else None."""
+        return self.tiles.shape[0] if self.tiles.dim() == 3 else None
+
 
 def _tf32(t: torch.Tensor) -> torch.Tensor:
     """f32 rounded to TF32 (10 mantissa bits, ties away from zero)."""
@@ -230,6 +281,10 @@ def _tile_shape(dtype: torch.dtype):
     """(planes, chunk channels, values per 16-byte core-matrix row)."""
     planes = 2 if dtype == torch.float32 else 1
     return planes, CHUNK_CHANNELS[dtype], 16 // torch.empty((), dtype=dtype).element_size()
+
+
+def _mode_of(s: "LevelStructure") -> str:
+    return "reflect" if s.reflect else "constant"
 
 
 def _mode(padding_mode: str) -> str:
@@ -294,35 +349,41 @@ def repack(structure: LevelStructure, weight: torch.Tensor,
     """The current values of a folded weight (P, C_in, K) and bias (P,)
     written into ``structure``'s live tiles, with no host sync (f32: the
     TF32 rounding and the remainder).  Entries outside the live tiles are
-    dropped: they must be zero."""
+    dropped: they must be zero.  G windows' weights (G, P, C_in, K) and
+    biases (G, P) give a windowed packing, each window's tiles packed as one
+    weight's."""
     s = structure
     if weight.dtype != s.dtype:
         raise TypeError(f"the structure is for {s.dtype}, the weight is {weight.dtype}")
-    P, C_in, K = weight.shape
-    if (P, C_in, K) != (s.rows, s.in_channels, s.kernel_size):
+    lead, (P, C_in, K) = tuple(weight.shape[:-3]), weight.shape[-3:]
+    if len(lead) > 1 or (P, C_in, K) != (s.rows, s.in_channels, s.kernel_size):
         raise ValueError(f"weight {tuple(weight.shape)} does not fit the structure "
-                         f"({s.rows}, {s.in_channels}, {s.kernel_size})")
+                         f"([G,] {s.rows}, {s.in_channels}, {s.kernel_size})")
+    G = lead[0] if lead else 1
     planes, cc, vec = _tile_shape(weight.dtype)
     rt, nc, J = s.tile_start.numel() - 1, -(-C_in // cc), cc * K
     n = s.live_index.numel()
     with torch.no_grad():
-        w = weight.new_zeros((rt * ROWS, nc * cc, K))
-        w[:P, :C_in] = weight
-        # (rt*nc, 64, J), the reduction tap-major within a chunk: j = k*cc + c
-        tiles = w.reshape(rt, ROWS, nc, cc, K).permute(0, 2, 1, 4, 3).reshape(rt * nc, ROWS, J)
-        tiles = tiles.index_select(0, s.live_index)
+        w = weight.new_zeros((G, rt * ROWS, nc * cc, K))
+        w[:, :P, :C_in] = weight
+        # (G, rt*nc, 64, J), the reduction tap-major within a chunk: j = k*cc + c
+        tiles = w.reshape(G, rt, ROWS, nc, cc, K).permute(0, 1, 3, 2, 5, 4)
+        tiles = tiles.reshape(G, rt * nc, ROWS, J).index_select(1, s.live_index)
         if planes == 2:
             big = _tf32(tiles)
-            tiles = torch.stack((big, tiles - big), dim=1)
+            tiles = torch.stack((big, tiles - big), dim=2)
         else:
-            tiles = tiles[:, None]
+            tiles = tiles[:, :, None]
         # (64, J) -> (k-step, row group, k half, row in group, value)
-        tiles = tiles.reshape(n, planes, 8, 8, J // (2 * vec), 2, vec)
-        tiles = tiles.permute(0, 1, 4, 2, 5, 3, 6).reshape(n, planes * ROWS * J).contiguous()
-        b = torch.zeros(rt * ROWS, dtype=torch.float32, device=weight.device)
+        tiles = tiles.reshape(G, n, planes, 8, 8, J // (2 * vec), 2, vec)
+        tiles = tiles.permute(0, 1, 2, 5, 3, 6, 4, 7).reshape(G, n, planes * ROWS * J)
+        b = torch.zeros((G, rt * ROWS), dtype=torch.float32, device=weight.device)
         if bias is not None:
-            b[:P] = bias.float()
-    return PackedLevel(tiles=tiles, bias=b, has_bias=bias is not None, structure=s)
+            b[:, :P] = bias.float().reshape(G, P)
+        if not lead:
+            tiles, b = tiles[0], b[0]
+    return PackedLevel(tiles=tiles.contiguous(), bias=b, has_bias=bias is not None,
+                       structure=s)
 
 
 def pack_level(
@@ -345,34 +406,39 @@ def pack_level(
 
 def unpack_level(packed: PackedLevel) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The folded weight (P, C_in, K) and bias (P,) back from the packing,
-    exactly (f32: TF32 rounding + remainder is the weight)."""
+    exactly (f32: TF32 rounding + remainder is the weight); windowed,
+    (G, P, C_in, K) and (G, P)."""
     P, C_in, K = packed.rows, packed.in_channels, packed.kernel_size
     planes, cc, vec = _tile_shape(packed.dtype)
     rt = packed.tile_start.numel() - 1
     nc, J = -(-C_in // cc), cc * K
-    flat = packed.tiles.new_zeros((rt * nc, packed.tiles.shape[-1]))
-    flat[packed.live_index] = packed.tiles
-    t = flat.reshape(rt, nc, planes, J // (2 * vec), 8, 2, 8, vec)
-    t = t.permute(0, 1, 2, 4, 6, 3, 5, 7).reshape(rt, nc, planes, ROWS, K, cc).sum(2)
-    w = t.permute(0, 2, 1, 4, 3).reshape(rt * ROWS, nc * cc, K)[:P, :C_in].contiguous()
-    b = packed.bias[:P].to(packed.dtype) if packed.has_bias else None
-    return w, b
+    G = packed.windows or 1
+    flat = packed.tiles.new_zeros((G, rt * nc, packed.tiles.shape[-1]))
+    flat[:, packed.live_index] = packed.tiles.reshape(G, -1, packed.tiles.shape[-1])
+    t = flat.reshape(G, rt, nc, planes, J // (2 * vec), 8, 2, 8, vec)
+    t = t.permute(0, 1, 2, 3, 5, 7, 4, 6, 8).reshape(G, rt, nc, planes, ROWS, K, cc).sum(3)
+    w = t.permute(0, 1, 3, 2, 5, 4).reshape(G, rt * ROWS, nc * cc, K)[:, :P, :C_in]
+    b = packed.bias[..., :P].to(packed.dtype) if packed.has_bias else None
+    if packed.windows is None:
+        w = w[0]
+    return w.contiguous(), b
 
 
 # hmvae_fused_conv_pool(x, tiles, bias, tile_start, tile_chunk, out, B, C_in,
-# T_in, K, P, T_out, stride, padding, reflect, slope, max_live, dtype, device,
-# sms, stream)
+# T_in, K, P, T_out, stride, padding, reflect, slope, max_live, windows,
+# n_tiles, dtype, device, sms, stream)
 ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float]
-            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 # hmvae_conv_dgrad(gy, y, w, dgrad_start, dgrad_row, gx, B, C, T_in, K, P,
-# T_out, t_ld, stride, padding, reflect, slope, nbb, split, device, stream)
-DGRAD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_float]
-                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-# hmvae_conv_wgrad(gy, y, x, wgrad_row, wgrad_chunk, gw, gb, n_tiles, B, C,
-# T_in, K, P, T_out, t_ld, stride, padding, reflect, slope, sb, split, device,
+# T_out, t_ld, stride, padding, reflect, slope, nbb, split, windows, device,
 # stream)
+DGRAD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_float]
+                  + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+# hmvae_conv_wgrad(gy, y, x, wgrad_row, wgrad_chunk, gw, gb, n_tiles, B, C,
+# T_in, K, P, T_out, t_ld, stride, padding, reflect, slope, sb, split,
+# windows, device, stream)
 WGRAD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_float]
-                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                  + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def _bind(lib, name, argtypes):
@@ -432,7 +498,9 @@ def _t_out(T: int, K: int, stride: int, pad: int, reflect: bool) -> int:
 
 
 def _launch(x: torch.Tensor, packed: PackedLevel) -> torch.Tensor:
-    """The kernel on CUDA tensors: checks, then one launch."""
+    """The kernel on CUDA tensors: checks, then one launch, counted by
+    :func:`fused_conv_pool` or, for a windowed packing,
+    :func:`fused_conv_pool_windowed`."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"fused_conv_pool takes float32 or bfloat16, not {x.dtype}")
     if x.dim() != 3 or x.shape[1] != packed.in_channels:
@@ -443,6 +511,9 @@ def _launch(x: torch.Tensor, packed: PackedLevel) -> torch.Tensor:
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     B, C_in, T = x.shape
+    G = packed.windows or 1
+    if B % G:
+        raise ValueError(f"a batch of {B} is not {G} windows of equal size")
     K, stride, pad = packed.kernel_size, packed.stride, packed.padding
     T_out = _t_out(T, K, stride, pad, packed.reflect)
     if B * T_out >= 2 ** 31:
@@ -461,23 +532,29 @@ def _launch(x: torch.Tensor, packed: PackedLevel) -> torch.Tensor:
         x.data_ptr(), packed.tiles.data_ptr(), packed.bias.data_ptr(),
         packed.tile_start.data_ptr(), packed.tile_chunk.data_ptr(), out.data_ptr(), B, C_in,
         T, K, packed.rows, T_out, stride, pad, int(packed.reflect), packed.negative_slope,
-        packed.max_live, _DTYPES[x.dtype], dev, _sm_count(dev),
+        packed.max_live, G, packed.live_index.numel(), _DTYPES[x.dtype], dev, _sm_count(dev),
         torch.cuda.current_stream(x.device).cuda_stream))
-    _build.check(lib, err, "fused_conv_pool")
-    fused_conv_pool.launches += 1
+    entry = fused_conv_pool if packed.windows is None else fused_conv_pool_windowed
+    _build.check(lib, err, entry.__name__)
+    entry.launches += 1
     return out
 
 
 def _plain(x: torch.Tensor, packed: PackedLevel) -> torch.Tensor:
     w, b = unpack_level(packed)
-    return fused_conv_pool_reference(
-        x, w, b, None, None, packed.stride, packed.padding,
-        "reflect" if packed.reflect else "constant", packed.negative_slope)
+    mode = "reflect" if packed.reflect else "constant"
+    if packed.windows is not None:
+        return fused_conv_pool_windowed_reference(x, w, b, packed.stride, packed.padding, mode,
+                                                  packed.negative_slope)
+    return fused_conv_pool_reference(x, w, b, None, None, packed.stride, packed.padding, mode,
+                                     packed.negative_slope)
 
 
 def fused_conv_pool_packed(x: torch.Tensor, packed: PackedLevel) -> torch.Tensor:
     """x (B, C_in, T) through a packed level -> (B, P, T_out).  Not
     differentiable on CUDA (use :class:`FusedConvPoolFn`)."""
+    if packed.windows is not None:
+        raise ValueError("a windowed packing goes through fused_conv_pool_windowed")
     if x.device.type == "cpu":
         return _plain(x, packed)
     if x.device.type != "cuda":
@@ -529,6 +606,26 @@ def fused_conv_pool(
 fused_conv_pool.launches = 0
 
 
+def fused_conv_pool_windowed(x: torch.Tensor, packed: PackedLevel) -> torch.Tensor:
+    """x (G*n, C_in, T) through a windowed packing of G weights (window g's
+    n batches through weight g) -> (G*n, P, T_out).  Not differentiable on
+    CUDA (use :class:`WindowedFusedConvPoolFn`)."""
+    if packed.windows is None:
+        raise ValueError("fused_conv_pool_windowed takes a windowed packing (repack of "
+                         "(G, P, C_in, K) weights)")
+    if x.device.type == "cpu":
+        return _plain(x, packed)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_conv_pool runs on cpu or cuda tensors, not {x.device}")
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError("fused_conv_pool_windowed has no gradient: go through "
+                           "WindowedFusedConvPoolFn")
+    return _launch(x, packed)
+
+
+fused_conv_pool_windowed.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # backward
 
@@ -553,15 +650,17 @@ def _bwd_checks(s: LevelStructure, gy: torch.Tensor, y: torch.Tensor, **tensors)
 
 
 def dgrad_plan(B: int, T_in: int, K: int, stride: int, padding: int, t_ld: int,
-               pairs: int, max_live: int, sms: int) -> Tuple[int, int, int]:
+               pairs: int, max_live: int, sms: int, windows: int = 1) -> Tuple[int, int, int]:
     """(nbb, groups, split) of the dgrad kernel: a block owns a pair of
     channel chunks and the padded rows of ``nbb`` batches (``groups`` batch
-    groups), as many as its eight warps' 16-column tiles hold (the columns
-    of each stride phase tiled apart), and ``split`` blocks of a cluster
-    share the pair's live row tiles (at most ``max_live``).  Chosen for the
-    least time on an SM, counted in row tiles: waves of blocks (two to an SM
-    where their shared memory allows) times the row tiles a block walks,
-    plus one for its prologue and epilogue; ties go to fewer blocks."""
+    groups of each of ``windows`` windows of ``B`` batches: a group never
+    crosses a window), as many as its eight warps' 16-column tiles hold (the
+    columns of each stride phase tiled apart), and ``split`` blocks of a
+    cluster share the pair's live row tiles (at most ``max_live``).  Chosen
+    for the least time on an SM, counted in row tiles: waves of blocks (two
+    to an SM where their shared memory allows) times the row tiles a block
+    walks, plus one for its prologue and epilogue; ties go to fewer
+    blocks."""
     Tp = T_in + 2 * padding
     widths = [-(-(Tp - phi) // stride) for phi in range(stride)]
     if sum(-(-v // 16) for v in widths) > BWD_WARPS:
@@ -576,7 +675,7 @@ def dgrad_plan(B: int, T_in: int, K: int, stride: int, padding: int, t_ld: int,
         nbb = -(-B // groups)  # the same groups, batches spread evenly
         per_sm = 2 if smem <= MAX_SMEM_PER_SM // 2 - 1024 else 1
         for split in range(1, min(MAX_SPLIT, max(1, max_live)) + 1):
-            blocks = pairs * groups * split
+            blocks = pairs * windows * groups * split
             # a block's prologue and epilogue cost about one row tile
             cost = (-(-blocks // (sms * per_sm)) * (-(-max_live // split) + 1), blocks)
             if best is None or cost < best[0]:
@@ -600,12 +699,13 @@ def _dgrad_smem(T_in: int, K: int, t_ld: int, stride: int, padding: int, nbb: in
     return g2_end if out <= w_ring else a16(g2_end) + out
 
 
-def wgrad_plan(B: int, T_out: int, entries: int, sms: int) -> Tuple[int, int]:
-    """(sb, split) of the wgrad kernel: one block per entry (a live tile), its
-    batches split over ``split`` blocks of a cluster until the grid fills
-    the card once, and staged ``sb`` batches (at most 32 columns, at least
-    one batch) at a time."""
-    split = max(1, min(MAX_SPLIT, B, -(-sms // max(1, entries))))
+def wgrad_plan(B: int, T_out: int, entries: int, sms: int, windows: int = 1) -> Tuple[int, int]:
+    """(sb, split) of the wgrad kernel: one block per entry (a live tile) of
+    each of ``windows`` windows of ``B`` batches, a window's batches split
+    over ``split`` blocks of a cluster until the grid fills the card once,
+    and staged ``sb`` batches (at most 32 columns, at least one batch) at a
+    time."""
+    split = max(1, min(MAX_SPLIT, B, -(-sms // max(1, entries * windows))))
     return max(1, min(-(-B // split), WGRAD_STAGE_COLS // T_out)), split
 
 
@@ -624,6 +724,72 @@ def _aligned(t: torch.Tensor, dim: int, multiple: int) -> torch.Tensor:
     return out
 
 
+def _dgrad(gy, y, weight, s: LevelStructure, T_in: int, windows: Optional[int]):
+    """Checks, then one dgrad launch; ``weight`` is (P, C_in, K), or
+    (G, P, C_in, K) when ``windows`` is G."""
+    entry = fused_conv_pool_dgrad if windows is None else fused_conv_pool_dgrad_windowed
+    _bwd_checks(s, gy, y, weight=weight)
+    B, P, T_out = gy.shape
+    K, C_in = s.kernel_size, s.in_channels
+    G = windows or 1
+    shape = (s.rows, C_in, K) if windows is None else (G, s.rows, C_in, K)
+    if tuple(weight.shape) != shape or P != s.rows or B % G:
+        raise ValueError(f"weight {tuple(weight.shape)} / gy {tuple(gy.shape)} do not fit "
+                         f"the structure and {G} windows")
+    if _t_out(T_in, K, s.stride, s.padding, s.reflect) != T_out:
+        raise ValueError(f"T_in {T_in} does not give T_out {T_out}")
+    gy, y = _aligned(gy, 2, 4), _aligned(y, 2, 4)
+    w = _aligned(weight, weight.dim() - 2, CHUNK_CHANNELS[torch.float32])
+    C, t_ld = w.shape[-2], gy.shape[2]
+    dev = gy.device.index
+    nbb, _, split = dgrad_plan(B // G, T_in, K, s.stride, s.padding, t_ld,
+                               s.dgrad_start.numel() - 1, s.dgrad_max_live, _sm_count(dev), G)
+    lib, dgrad, _ = _bwd_library()
+    gx = torch.empty((B, C, T_in), dtype=gy.dtype, device=gy.device)
+    err = _on_device(gy, lambda: dgrad(
+        gy.data_ptr(), y.data_ptr(), w.data_ptr(), s.dgrad_start.data_ptr(),
+        s.dgrad_row.data_ptr(), gx.data_ptr(), B, C, T_in, K, P, T_out, t_ld, s.stride,
+        s.padding, int(s.reflect), s.negative_slope, nbb, split, G, dev,
+        torch.cuda.current_stream(gy.device).cuda_stream))
+    _build.check(lib, err, entry.__name__)
+    entry.launches += 1
+    return gx if C == C_in else gx[:, :C_in].contiguous()
+
+
+def _wgrad(gy, y, x, s: LevelStructure, windows: Optional[int]):
+    """Checks, then one wgrad launch: (P, C_in, K) and (P,), or per window
+    (G, P, C_in, K) and (G, P) when ``windows`` is G."""
+    entry = fused_conv_pool_wgrad if windows is None else fused_conv_pool_wgrad_windowed
+    _bwd_checks(s, gy, y, x=x)
+    B, P, T_out = gy.shape
+    K, C_in, T_in = s.kernel_size, s.in_channels, x.shape[2]
+    G = windows or 1
+    if tuple(x.shape[:2]) != (B, C_in) or P != s.rows or B % G:
+        raise ValueError(f"x {tuple(x.shape)} / gy {tuple(gy.shape)} do not fit the structure "
+                         f"and {G} windows")
+    if _t_out(T_in, K, s.stride, s.padding, s.reflect) != T_out:
+        raise ValueError(f"T_in {T_in} does not give T_out {T_out}")
+    gy, y = _aligned(gy, 2, 4), _aligned(y, 2, 4)
+    x = _aligned(x, 1, CHUNK_CHANNELS[torch.float32])
+    C, t_ld = x.shape[1], gy.shape[2]
+    dev = gy.device.index
+    entries = s.wgrad_row.numel()
+    sb, split = wgrad_plan(B // G, T_out, entries, _sm_count(dev), G)
+    lib, _, wgrad = _bwd_library()
+    gw = torch.zeros((G, P, C, K), dtype=gy.dtype, device=gy.device)
+    gb = torch.empty((G, P), dtype=gy.dtype, device=gy.device)
+    err = _on_device(gy, lambda: wgrad(
+        gy.data_ptr(), y.data_ptr(), x.data_ptr(), s.wgrad_row.data_ptr(),
+        s.wgrad_chunk.data_ptr(), gw.data_ptr(), gb.data_ptr(), entries, B, C, T_in, K, P,
+        T_out, t_ld, s.stride, s.padding, int(s.reflect), s.negative_slope, sb, split, G, dev,
+        torch.cuda.current_stream(gy.device).cuda_stream))
+    _build.check(lib, err, entry.__name__)
+    entry.launches += 1
+    if C != C_in:
+        gw = gw[:, :, :C_in].contiguous()
+    return (gw[0], gb[0]) if windows is None else (gw, gb)
+
+
 def fused_conv_pool_dgrad(gy: torch.Tensor, y: torch.Tensor, weight: torch.Tensor,
                           structure: LevelStructure, T_in: int) -> torch.Tensor:
     """The input gradient (B, C_in, T_in) of a folded level, from the output
@@ -631,34 +797,10 @@ def fused_conv_pool_dgrad(gy: torch.Tensor, y: torch.Tensor, weight: torch.Tenso
     (P, C_in, K).  One kernel launch on CUDA (f32), fixed-order sums (the
     same bits every run); the plain version on the CPU."""
     s = structure
-    mode = "reflect" if s.reflect else "constant"
     if gy.device.type == "cpu":
-        return fused_conv_pool_dgrad_reference(gy, y, weight, T_in, s.stride, s.padding, mode,
-                                               s.negative_slope)
-    _bwd_checks(s, gy, y, weight=weight)
-    B, P, T_out = gy.shape
-    K, C_in = s.kernel_size, s.in_channels
-    if tuple(weight.shape) != (s.rows, C_in, K) or P != s.rows:
-        raise ValueError(f"weight {tuple(weight.shape)} / gy {tuple(gy.shape)} do not fit "
-                         "the structure")
-    if _t_out(T_in, K, s.stride, s.padding, s.reflect) != T_out:
-        raise ValueError(f"T_in {T_in} does not give T_out {T_out}")
-    gy, y = _aligned(gy, 2, 4), _aligned(y, 2, 4)
-    w = _aligned(weight, 1, CHUNK_CHANNELS[torch.float32])
-    C, t_ld = w.shape[1], gy.shape[2]
-    dev = gy.device.index
-    nbb, _, split = dgrad_plan(B, T_in, K, s.stride, s.padding, t_ld,
-                               s.dgrad_start.numel() - 1, s.dgrad_max_live, _sm_count(dev))
-    lib, dgrad, _ = _bwd_library()
-    gx = torch.empty((B, C, T_in), dtype=gy.dtype, device=gy.device)
-    err = _on_device(gy, lambda: dgrad(
-        gy.data_ptr(), y.data_ptr(), w.data_ptr(), s.dgrad_start.data_ptr(),
-        s.dgrad_row.data_ptr(), gx.data_ptr(), B, C, T_in, K, P, T_out, t_ld, s.stride,
-        s.padding, int(s.reflect), s.negative_slope, nbb, split, dev,
-        torch.cuda.current_stream(gy.device).cuda_stream))
-    _build.check(lib, err, "fused_conv_pool_dgrad")
-    fused_conv_pool_dgrad.launches += 1
-    return gx if C == C_in else gx[:, :C_in].contiguous()
+        return fused_conv_pool_dgrad_reference(gy, y, weight, T_in, s.stride, s.padding,
+                                               _mode_of(s), s.negative_slope)
+    return _dgrad(gy, y, weight, s, T_in, None)
 
 
 def fused_conv_pool_wgrad(gy: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
@@ -669,38 +811,43 @@ def fused_conv_pool_wgrad(gy: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
     fixed-order sums (the same bits every run); the plain version on the
     CPU."""
     s = structure
-    mode = "reflect" if s.reflect else "constant"
     if gy.device.type == "cpu":
         return fused_conv_pool_wgrad_reference(gy, y, x, s.kernel_size, s.stride, s.padding,
-                                               mode, s.negative_slope, s.live_elements())
-    _bwd_checks(s, gy, y, x=x)
-    B, P, T_out = gy.shape
-    K, C_in, T_in = s.kernel_size, s.in_channels, x.shape[2]
-    if tuple(x.shape[:2]) != (B, C_in) or P != s.rows:
-        raise ValueError(f"x {tuple(x.shape)} / gy {tuple(gy.shape)} do not fit the structure")
-    if _t_out(T_in, K, s.stride, s.padding, s.reflect) != T_out:
-        raise ValueError(f"T_in {T_in} does not give T_out {T_out}")
-    gy, y = _aligned(gy, 2, 4), _aligned(y, 2, 4)
-    x = _aligned(x, 1, CHUNK_CHANNELS[torch.float32])
-    C, t_ld = x.shape[1], gy.shape[2]
-    dev = gy.device.index
-    entries = s.wgrad_row.numel()
-    sb, split = wgrad_plan(B, T_out, entries, _sm_count(dev))
-    lib, _, wgrad = _bwd_library()
-    gw = torch.zeros((P, C, K), dtype=gy.dtype, device=gy.device)
-    gb = torch.empty((P,), dtype=gy.dtype, device=gy.device)
-    err = _on_device(gy, lambda: wgrad(
-        gy.data_ptr(), y.data_ptr(), x.data_ptr(), s.wgrad_row.data_ptr(),
-        s.wgrad_chunk.data_ptr(), gw.data_ptr(), gb.data_ptr(), entries, B, C, T_in, K, P,
-        T_out, t_ld, s.stride, s.padding, int(s.reflect), s.negative_slope, sb, split, dev,
-        torch.cuda.current_stream(gy.device).cuda_stream))
-    _build.check(lib, err, "fused_conv_pool_wgrad")
-    fused_conv_pool_wgrad.launches += 1
-    return (gw if C == C_in else gw[:, :C_in].contiguous()), gb
+                                               _mode_of(s), s.negative_slope, s.live_elements())
+    return _wgrad(gy, y, x, s, None)
+
+
+def fused_conv_pool_dgrad_windowed(gy: torch.Tensor, y: torch.Tensor, weight: torch.Tensor,
+                                   structure: LevelStructure, T_in: int) -> torch.Tensor:
+    """:func:`fused_conv_pool_dgrad` of G windows: gy, y (G*n, P, T_out),
+    folded weights (G, P, C_in, K), window g's batches through weight g.
+    One kernel launch on CUDA."""
+    s = structure
+    if gy.device.type == "cpu":
+        return fused_conv_pool_dgrad_windowed_reference(gy, y, weight, T_in, s.stride,
+                                                        s.padding, _mode_of(s),
+                                                        s.negative_slope)
+    return _dgrad(gy, y, weight, s, T_in, weight.shape[0])
+
+
+def fused_conv_pool_wgrad_windowed(gy: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
+                                   structure: LevelStructure, windows: int):
+    """:func:`fused_conv_pool_wgrad` of ``windows`` windows of gy, y
+    (G*n, P, T_out) and x (G*n, C_in, T_in): each window's gradients
+    (G, P, C_in, K) and (G, P), summed over its own n batches only.  One
+    kernel launch on CUDA."""
+    s = structure
+    if gy.device.type == "cpu":
+        return fused_conv_pool_wgrad_windowed_reference(
+            gy, y, x, s.kernel_size, s.stride, s.padding, windows, _mode_of(s),
+            s.negative_slope, s.live_elements())
+    return _wgrad(gy, y, x, s, windows)
 
 
 fused_conv_pool_dgrad.launches = 0
 fused_conv_pool_wgrad.launches = 0
+fused_conv_pool_dgrad_windowed.launches = 0
+fused_conv_pool_wgrad_windowed.launches = 0
 
 
 class FusedConvPoolFn(torch.autograd.Function):
@@ -742,4 +889,45 @@ class FusedConvPoolFn(torch.autograd.Function):
             gx = fused_conv_pool_dgrad(gy, y, weight, s, x.shape[2])
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             gw, gb = fused_conv_pool_wgrad(gy, y, x, s)
+        return gx, gw, gb if ctx.has_bias else None, None
+
+
+class WindowedFusedConvPoolFn(torch.autograd.Function):
+    """G folded levels over the G windows of a batch, differentiable:
+    ``WindowedFusedConvPoolFn.apply(x, weight, bias, structure)`` with x
+    (G*n, C_in, T), folded weights (G, P, C_in, K) and biases (G, P) or None
+    (f32), window g's n batches through weight g.
+
+    On CUDA the forward repacks the G weights (:func:`repack`) and launches
+    :func:`fused_conv_pool_windowed`; the backward launches
+    :func:`fused_conv_pool_dgrad_windowed` (only when x needs a gradient)
+    and :func:`fused_conv_pool_wgrad_windowed` (one gradient per window).
+    As :class:`FusedConvPoolFn` otherwise.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, structure: LevelStructure):
+        s = structure
+        if x.device.type == "cpu":
+            y = fused_conv_pool_windowed_reference(x, weight, bias, s.stride, s.padding,
+                                                   _mode_of(s), s.negative_slope)
+        elif x.device.type == "cuda":
+            y = fused_conv_pool_windowed(x, repack(s, weight, bias))
+        else:
+            raise ValueError(f"fused_conv_pool runs on cpu or cuda tensors, not {x.device}")
+        ctx.structure = s
+        ctx.has_bias = bias is not None
+        ctx.save_for_backward(x, weight, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, weight, y = ctx.saved_tensors
+        s = ctx.structure
+        gy = gy.contiguous()
+        gx = gw = gb = None
+        if ctx.needs_input_grad[0]:
+            gx = fused_conv_pool_dgrad_windowed(gy, y, weight, s, x.shape[2])
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            gw, gb = fused_conv_pool_wgrad_windowed(gy, y, x, s, weight.shape[0])
         return gx, gw, gb if ctx.has_bias else None, None

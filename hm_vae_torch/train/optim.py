@@ -5,7 +5,10 @@ Port of ``hm_vae_tpu.train.optim``: ``torch_adam_l2`` and the plain chain
 ``add_decayed_weights -> scale_by_adam_stored -> scale_by_learning_rate`` as
 one :class:`torch.optim.Optimizer` (:class:`TorchAdamL2`, made by
 :func:`make_optimizer`), ``make_schedule`` / ``make_schedule_raw``,
-``stochastic_round_bf16_hash`` and its counter hash.
+``stochastic_round_bf16_hash`` and its counter hash.  The same chain as a
+functional update on lists of tensors (:func:`chain_init`,
+:func:`chain_update`) serves the test-time solver, whose per-window state is
+stacked (G, ...) tensors under the same elementwise update.
 
 The update is the JAX package's expression, ``(m/c1) / (sqrt(v/c2) + eps)``
 with ``c1 = 1 - b1**count`` in f32 (not torch's fused Adam: equal
@@ -25,7 +28,8 @@ so that both packages round the same way.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Tuple
+import dataclasses
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -112,6 +116,47 @@ def _adam_math(g32, m, v, c1, c2):
     v32 = B2 * v.float() + (1 - B2) * g32 * g32
     u = (m32 / c1) / (torch.sqrt(v32 / c2) + EPS)
     return u, m32, v32
+
+
+@dataclasses.dataclass
+class ChainState:
+    """The chain's state: its step count (the schedule's and Adam's) and the
+    two moments of each tensor, stored in the moment dtype."""
+
+    count: int
+    mu: List[torch.Tensor]
+    nu: List[torch.Tensor]
+
+
+def chain_init(params: Sequence[torch.Tensor], moment_dtype: str = "float32") -> ChainState:
+    dt = _DTYPES[moment_dtype]
+    return ChainState(0, [torch.zeros_like(p, dtype=dt) for p in params],
+                      [torch.zeros_like(p, dtype=dt) for p in params])
+
+
+@torch.no_grad()
+def chain_update(params: Sequence[torch.Tensor], grads: Sequence[Optional[torch.Tensor]],
+                 state: ChainState, schedule: Callable[[int], torch.Tensor],
+                 weight_decay: float) -> List[torch.Tensor]:
+    """One step of ``add_decayed_weights(weight_decay) ->
+    scale_by_adam_stored -> scale_by_learning_rate(schedule)`` (the JAX
+    package's optax chain): new parameter tensors, ``state`` updated in
+    place.  A None gradient counts as zeros; the learning rate is read at
+    the count before the step."""
+    lr = schedule(state.count)
+    state.count += 1
+    cf = _f32(float(state.count))
+    c1, c2 = 1 - _f32(B1) ** cf, 1 - _f32(B2) ** cf
+    out = []
+    for i, (p, g) in enumerate(zip(params, grads)):
+        p32 = p.float()
+        g32 = torch.zeros_like(p32) if g is None else g.float()
+        g32 = g32 + weight_decay * p32
+        u, m32, v32 = _adam_math(g32, state.mu[i], state.nu[i], c1, c2)
+        state.mu[i] = m32.to(state.mu[i].dtype)
+        state.nu[i] = v32.to(state.nu[i].dtype)
+        out.append(p + (-lr * u).to(p.dtype))
+    return out
 
 
 def flax_salts(names: Iterable[str]) -> Dict[str, Tuple[int, bool]]:
