@@ -58,7 +58,25 @@ Phases, each of which exits non-zero on failure:
 11. the evaluation entry point: ``hm_vae_torch.cli.eval_recovery`` on the
    synthetic test split with the training CLI's checkpoint, and completion
    and generation through ``LatentOptApps``;
-12. print the kernel summary line and, last, the device line.
+12. (run right after phase 5, beside the other kernels) the three kernels at
+   the root-trajectory model's four level shapes (``configs/
+   trajectory_model.yaml``: K 31, stride 1, C_in 72 / 84 / 108 / 168):
+   forward, dgrad and wgrad at batch 8 and T 128 (training), forward and
+   dgrad at 10 windows of T 64 (the solver's trajectory loss), the forward
+   at batch 1 and T 300 (``eval_trajectory``), each as phases 2 and 5 hold
+   and time theirs;
+13. trajectory training: 20 steps of ``Trainer.fit`` on the GPU against the
+   CPU as in phase 6 (4 / 3 / 4 launches a step), then
+   ``hm_vae_torch.cli.train`` on its config with a checkpoint and resume;
+14. ``hm_vae_torch.cli.eval_trajectory`` with phase 7's VAE checkpoint and
+   phase 13's trajectory checkpoint: prior samples, GT test windows and a
+   300-frame sequence in one call;
+15. the solve under the keyframe trajectory loss: a short 10-window solve on
+   the GPU against the CPU as in phase 9, the full 150-iteration solve
+   (ms, launches per phase, profile), and ``eval_recovery
+   --try_interpolation_w_trajectory_single_window`` on the synthetic test
+   split;
+16. print the kernel summary line and, last, the device line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -234,68 +252,72 @@ def check(name, out, ref, dtype):
 
 @torch.inference_mode()
 def kernel_phase(model, st, dtype, batch, gen):
-    """Every level at `batch`: the packed entry against unpack + plain
+    """Every level at `batch`: :func:`fwd_level_row` of each."""
+    cases = [(n, c, T, c.spec.stride) for n, c, T in level_cases(model, st)]
+    if batch == BATCH:
+        n0, c0, T0, _ = cases[0]
+        cases.append((f"{n0}_stride1", c0, T0, 1))  # stride 1 with a pool
+    return [fwd_level_row(name, conv, T_in, stride, batch, dtype, gen)
+            for name, conv, T_in, stride in cases]
+
+
+@torch.inference_mode()
+def fwd_level_row(name, conv, T_in, stride, batch, dtype, gen):
+    """One level at `batch`: the packed entry against unpack + plain
     version, the Pallas-signature entry against the plain version, and the
     device times of kernel, plain version and cuDNN."""
     from hm_vae_torch.ops.fused_conv_pool import (
         CHUNK_CHANNELS, fused_conv_pool, fused_conv_pool_packed, fused_conv_pool_reference,
         unpack_level)
 
-    rows = []
-    cases = [(n, c, T, c.spec.stride) for n, c, T in level_cases(model, st)]
-    if batch == BATCH:
-        n0, c0, T0, _ = cases[0]
-        cases.append((f"{n0}_stride1", c0, T0, 1))  # stride 1 with a pool
     dt = str(dtype).replace("torch.", "")
-    for name, conv, T_in, stride in cases:
-        conv = copy.deepcopy(conv)
-        conv.dtype = dtype
-        conv.spec = dataclasses.replace(conv.spec, stride=stride)
-        packed = conv.packed_operands()  # prepared once, outside the timing
-        fw, fb = unpack_level(packed)
-        raw = raw_operands(conv, dtype)
-        s = conv.spec
-        slope = conv.negative_slope
-        x = torch.randn((batch, fw.shape[1], T_in), generator=gen).to(DEV, dtype)
-        out = fused_conv_pool_packed(x, packed)
-        ref = fused_conv_pool_reference(x, fw, fb, None, None, stride, s.padding,
-                                        s.padding_mode, slope)
-        torch.cuda.synchronize()
-        err, tol = check(f"{name} {dt} B={batch} packed", out, ref, dtype)
-        args = (x, *raw, stride, s.padding, s.padding_mode, slope)
-        plain = fused_conv_pool_reference(*args)
-        err_api, _ = check(f"{name} {dt} B={batch} unpacked", fused_conv_pool(*args),
-                           plain, dtype)
-        pad = s.padding
+    conv = copy.deepcopy(conv)
+    conv.dtype = dtype
+    conv.spec = dataclasses.replace(conv.spec, stride=stride)
+    packed = conv.packed_operands()  # prepared once, outside the timing
+    fw, fb = unpack_level(packed)
+    raw = raw_operands(conv, dtype)
+    s = conv.spec
+    slope = conv.negative_slope
+    x = torch.randn((batch, fw.shape[1], T_in), generator=gen).to(DEV, dtype)
+    out = fused_conv_pool_packed(x, packed)
+    ref = fused_conv_pool_reference(x, fw, fb, None, None, stride, s.padding,
+                                    s.padding_mode, slope)
+    torch.cuda.synchronize()
+    err, tol = check(f"{name} {dt} B={batch} packed", out, ref, dtype)
+    args = (x, *raw, stride, s.padding, s.padding_mode, slope)
+    plain = fused_conv_pool_reference(*args)
+    err_api, _ = check(f"{name} {dt} B={batch} unpacked", fused_conv_pool(*args),
+                       plain, dtype)
+    pad = s.padding
 
-        def library():
-            xp = F.pad(x, (pad, pad), mode="reflect" if s.padding_mode == "reflect"
-                       else "constant")
-            return F.leaky_relu(F.conv1d(xp, fw, fb, stride=stride), slope)
+    def library():
+        xp = F.pad(x, (pad, pad), mode="reflect" if s.padding_mode == "reflect"
+                   else "constant")
+        return F.leaky_relu(F.conv1d(xp, fw, fb, stride=stride), slope)
 
-        lib_err = float((library().float() - ref.float()).abs().max())
-        nbytes, ops = level_work(x, raw, (fw, fb), out)
-        t_bytes, t_ops = nbytes / MEM_BPS * 1e3, ops / PEAK_FLOPS[dtype] * 1e3
-        kernel = lambda: fused_conv_pool_packed(x, packed)  # noqa: E731
-        row = {
-            "level": name, "dtype": dt, "batch": batch,
-            "shape": {"C_in": fw.shape[1], "T": T_in, "C_out": s.out_channels,
-                      "P": out.shape[1], "T_out": out.shape[2], "stride": stride,
-                      "mask": raw[2] is not None, "pool": raw[3] is not None},
-            "live_tiles": int(packed.tile_start[-1]),
-            "tiles": (packed.tile_start.numel() - 1) * -(-fw.shape[1] // CHUNK_CHANNELS[dtype]),
-            "max_abs_err": max(err, err_api), "tol": tol, "library_err": lib_err,
-            "ms": device_ms(kernel),
-            "plain_ms": device_ms(lambda: fused_conv_pool_reference(*args)),
-            "library_ms": device_ms(library),
-            "eager_ms": time_ms(kernel),
-            "bytes": nbytes, "ops": ops,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        }
-        print(json.dumps(row), flush=True)
-        rows.append(row)
-    return rows
+    lib_err = float((library().float() - ref.float()).abs().max())
+    nbytes, ops = level_work(x, raw, (fw, fb), out)
+    t_bytes, t_ops = nbytes / MEM_BPS * 1e3, ops / PEAK_FLOPS[dtype] * 1e3
+    kernel = lambda: fused_conv_pool_packed(x, packed)  # noqa: E731
+    row = {
+        "level": name, "dtype": dt, "batch": batch,
+        "shape": {"C_in": fw.shape[1], "T": T_in, "C_out": s.out_channels,
+                  "P": out.shape[1], "T_out": out.shape[2], "stride": stride,
+                  "mask": raw[2] is not None, "pool": raw[3] is not None},
+        "live_tiles": int(packed.tile_start[-1]),
+        "tiles": (packed.tile_start.numel() - 1) * -(-fw.shape[1] // CHUNK_CHANNELS[dtype]),
+        "max_abs_err": max(err, err_api), "tol": tol, "library_err": lib_err,
+        "ms": device_ms(kernel),
+        "plain_ms": device_ms(lambda: fused_conv_pool_reference(*args)),
+        "library_ms": device_ms(library),
+        "eager_ms": time_ms(kernel),
+        "bytes": nbytes, "ops": ops,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+    print(json.dumps(row), flush=True)
+    return row
 
 
 def build_report(proc, cubin, kind):
@@ -331,10 +353,15 @@ def fwd_kind(name):
 
 
 def bwd_kind(name):
-    """dgrad, wgrad (K <= 15: two tap tiles a warp) or wgrad_k16 (three)."""
+    """dgrad, or wgrad by its tap tiles a warp: two (K <= 15, "wgrad"),
+    three (K <= 23, "wgrad_nq3") or four (K <= 31, "wgrad_nq4", the
+    trajectory model's K 31)."""
     if "dgrad" in name:
         return "dgrad"
-    return "wgrad_k16" if "ILi3E" in name else "wgrad"
+    for nq in (3, 4):
+        if f"ILi{nq}E" in name:
+            return f"wgrad_nq{nq}"
+    return "wgrad"
 
 
 def ancestors_ok(ok):
@@ -510,8 +537,8 @@ def bwd_work(gy, y, x, wf):
     return io + x_bytes, io + x_bytes + P * wf.element_size(), ops, ops + N * P
 
 
-def bwd_inputs(conv, T_in, gen):
-    """One level's backward operands at batch 8, f32, on the card: the
+def bwd_inputs(conv, T_in, gen, batch=BATCH):
+    """One level's backward operands at `batch`, f32, on the card: the
     structure, the folded weight and bias, x, the forward's output y and a
     random output gradient gy."""
     from hm_vae_torch.ops import fused_conv_pool as fcp
@@ -521,7 +548,7 @@ def bwd_inputs(conv, T_in, gen):
         wf, bf = conv.folded_weight()
     wf = wf.detach().contiguous()
     bf = None if bf is None else bf.detach()
-    x = torch.randn((BATCH, wf.shape[1], T_in), generator=gen).to(DEV)
+    x = torch.randn((batch, wf.shape[1], T_in), generator=gen).to(DEV)
     with torch.no_grad():
         y = fcp.FusedConvPoolFn.apply(x, wf, bf, s)
     gy = torch.randn(y.shape, generator=gen).to(DEV)
@@ -529,91 +556,101 @@ def bwd_inputs(conv, T_in, gen):
 
 
 def bwd_phase(model, st, gen):
-    """The backward kernels at the eight level shapes, batch 8, f32: each
-    against its plain version on the same gy, y and x, and, with y from the
-    plain forward, against autograd of the plain forward (cuDNN, TF32 off);
-    device times of kernel, plain version and torch.nn.grad's conv1d_input /
+    """The backward kernels at the eight level shapes, batch 8, f32:
+    :func:`bwd_level_row` of each."""
+    return [bwd_level_row(name, conv, T_in, BATCH, gen)
+            for name, conv, T_in in level_cases(model, st)]
+
+
+def bwd_level_row(name, conv, T_in, batch, gen, with_wgrad=True):
+    """The backward kernels (dgrad, and wgrad unless `with_wgrad` is false)
+    of one level at `batch`, f32: each against its plain version on the
+    same gy, y and x, and, with y from the plain forward, against autograd
+    of the plain forward (cuDNN, TF32 off); two runs bit-equal; device
+    times of kernel, plain version and torch.nn.grad's conv1d_input /
     conv1d_weight on the folded weight (with the activation's mask; no
     reflect fold); and bounds."""
     from hm_vae_torch.ops import fused_conv_pool as fcp
 
-    rows = []
-    for name, conv, T_in in level_cases(model, st):
-        s, wf, bf, x, y, gy = bwd_inputs(conv, T_in, gen)
-        mode = "reflect" if s.reflect else "constant"
-        slope, pad, stride, K = s.negative_slope, s.padding, s.stride, s.kernel_size
-        live = s.live_elements()
+    s, wf, bf, x, y, gy = bwd_inputs(conv, T_in, gen, batch)
+    mode = "reflect" if s.reflect else "constant"
+    slope, pad, stride, K = s.negative_slope, s.padding, s.stride, s.kernel_size
+    live = s.live_elements()
 
-        def dgrad(y=y):
-            return fcp.fused_conv_pool_dgrad(gy, y, wf, s, T_in)
+    def dgrad(y=y):
+        return fcp.fused_conv_pool_dgrad(gy, y, wf, s, T_in)
 
-        def wgrad(y=y):
-            return fcp.fused_conv_pool_wgrad(gy, y, x, s)
+    def wgrad(y=y):
+        return fcp.fused_conv_pool_wgrad(gy, y, x, s)
 
-        def d_plain():
-            return fcp.fused_conv_pool_dgrad_reference(gy, y, wf, T_in, stride, pad, mode, slope)
+    def d_plain():
+        return fcp.fused_conv_pool_dgrad_reference(gy, y, wf, T_in, stride, pad, mode, slope)
 
-        def w_plain():
-            return fcp.fused_conv_pool_wgrad_reference(gy, y, x, K, stride, pad, mode, slope,
-                                                       live)
+    def w_plain():
+        return fcp.fused_conv_pool_wgrad_reference(gy, y, x, K, stride, pad, mode, slope,
+                                                   live)
 
-        def d_lib():
-            g = torch.where(y >= 0, gy, gy * slope)
-            return torch.nn.grad.conv1d_input((BATCH, wf.shape[1], T_in + 2 * pad), wf, g,
-                                              stride=stride)
+    def d_lib():
+        g = torch.where(y >= 0, gy, gy * slope)
+        return torch.nn.grad.conv1d_input((batch, wf.shape[1], T_in + 2 * pad), wf, g,
+                                          stride=stride)
 
-        def w_lib():
-            g = torch.where(y >= 0, gy, gy * slope)
-            return (torch.nn.grad.conv1d_weight(F.pad(x, (pad, pad), mode=mode), wf.shape, g,
-                                                stride=stride), g.sum((0, 2)))
+    def w_lib():
+        g = torch.where(y >= 0, gy, gy * slope)
+        return (torch.nn.grad.conv1d_weight(F.pad(x, (pad, pad), mode=mode), wf.shape, g,
+                                            stride=stride), g.sum((0, 2)))
 
-        gx, (gw, gb) = dgrad(), wgrad()
-        rx, (rw, rb) = d_plain(), w_plain()
-        # autograd of the plain forward, the kernels reading its output
-        leaves = [x.clone().requires_grad_(), wf.clone().requires_grad_()]
-        if bf is not None:
-            leaves.append(bf.clone().requires_grad_())
-        ya = fcp.fused_conv_pool_reference(leaves[0], leaves[1], leaves[2] if bf is not None
-                                           else None, None, None, stride, pad, mode, slope)
-        ag = torch.autograd.grad(ya, leaves, gy)
-        ya = ya.detach()
-        gx_a, (gw_a, gb_a) = dgrad(ya), wgrad(ya)
+    f32 = torch.float32
+    gx, rx = dgrad(), d_plain()
+    # autograd of the plain forward, the kernels reading its output
+    leaves = [x.clone().requires_grad_(), wf.clone().requires_grad_()]
+    if bf is not None:
+        leaves.append(bf.clone().requires_grad_())
+    ya = fcp.fused_conv_pool_reference(leaves[0], leaves[1], leaves[2] if bf is not None
+                                       else None, None, None, stride, pad, mode, slope)
+    ag = torch.autograd.grad(ya, leaves, gy)
+    ya = ya.detach()
+    gx_a = dgrad(ya)
+    torch.cuda.synchronize()
+    err_d = max(check(f"{name} dgrad", gx, rx, f32)[0],
+                check(f"{name} dgrad vs autograd", gx_a, ag[0], f32)[0])
+    if not torch.equal(dgrad(), gx):
+        fail(f"{name}: dgrad differs between two runs on the same inputs")
+    d_bytes, w_bytes, d_ops, w_ops = bwd_work(gy, y, x, wf)
+    cases = [("dgrad", dgrad, d_plain, d_lib, err_d, d_bytes, d_ops)]
+    if with_wgrad:
+        (gw, gb), (rw, rb) = wgrad(), w_plain()
+        gw_a, gb_a = wgrad(ya)
         torch.cuda.synchronize()
-        f32 = torch.float32
-        err_d = max(check(f"{name} dgrad", gx, rx, f32)[0],
-                    check(f"{name} dgrad vs autograd", gx_a, ag[0], f32)[0])
         err_w = max(check(f"{name} wgrad", gw, rw, f32)[0],
-                    check(f"{name} wgrad vs autograd", gw_a, ag[1] * live[:, :, None], f32)[0])
+                    check(f"{name} wgrad vs autograd", gw_a, ag[1] * live[:, :, None],
+                          f32)[0])
         if bf is not None:
             err_w = max(err_w, check(f"{name} bias grad", gb, rb, f32)[0],
                         check(f"{name} bias grad vs autograd", gb_a, ag[2], f32)[0])
         if not torch.equal(wgrad()[0], gw):
             fail(f"{name}: wgrad differs between two runs on the same inputs")
-        if not torch.equal(dgrad(), gx):
-            fail(f"{name}: dgrad differs between two runs on the same inputs")
-        d_bytes, w_bytes, d_ops, w_ops = bwd_work(gy, y, x, wf)
-        row = {"level": name, "batch": BATCH, "C_in": wf.shape[1], "T_in": T_in, "P": wf.shape[0],
-               "T_out": y.shape[2], "stride": stride, "live_tiles": int(s.tile_chunk.numel()),
-               "chunk_pairs": s.dgrad_start.numel() - 1}
-        for what, fn, plain, lib, err, nbytes, ops in (
-                ("dgrad", dgrad, d_plain, d_lib, err_d, d_bytes, d_ops),
-                ("wgrad", wgrad, w_plain, w_lib, err_w, w_bytes, w_ops)):
-            t_bytes, t_ops = nbytes / MEM_BPS * 1e3, ops / PEAK_FLOPS[f32] * 1e3
-            row[what] = {"max_abs_err": err, "ms": device_ms(fn), "plain_ms": device_ms(plain),
-                         "library_ms": device_ms(lib), "eager_ms": time_ms(fn),
-                         "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
-                         "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        print(json.dumps(row), flush=True)
-        rows.append(row)
-    return rows
+        cases.append(("wgrad", wgrad, w_plain, w_lib, err_w, w_bytes, w_ops))
+    row = {"level": name, "batch": batch, "C_in": wf.shape[1], "T_in": T_in,
+           "P": wf.shape[0], "T_out": y.shape[2], "stride": stride,
+           "live_tiles": int(s.tile_chunk.numel()), "chunk_pairs": s.dgrad_start.numel() - 1}
+    for what, fn, plain, lib, err, nbytes, ops in cases:
+        t_bytes, t_ops = nbytes / MEM_BPS * 1e3, ops / PEAK_FLOPS[f32] * 1e3
+        row[what] = {"max_abs_err": err, "ms": device_ms(fn), "plain_ms": device_ms(plain),
+                     "library_ms": device_ms(lib), "eager_ms": time_ms(fn),
+                     "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print(json.dumps(row), flush=True)
+    return row
 
 
-def train_config(data_root):
-    """The full-width len-64 config on synthetic data made from the seed,
-    logging every step, no validation or snapshot inside the run."""
+def train_config(data_root, path=CONFIG):
+    """A full-width config (the len-64 VAE's unless `path` names another) on
+    synthetic data made from the seed, logging every step, no validation or
+    snapshot inside the run."""
     from hm_vae_torch.utils.config import load_config
 
-    cfg = load_config(CONFIG)
+    cfg = load_config(path)
     big = 10 ** 9
     return dataclasses.replace(
         cfg, data=dataclasses.replace(cfg.data, synthetic=True, data_root=data_root),
@@ -621,8 +658,16 @@ def train_config(data_root):
                                 snapshot_save_iter=big, image_save_iter=big))
 
 
-def train_phase(data_root):
-    """TRAIN_STEPS steps of Trainer.fit on the GPU and on the CPU from the
+# kernel launches a training step: the VAE's 8 convs (enc0's input is data,
+# no dgrad); the trajectory model's 4 levels (level 0's input is data)
+TRAIN_LAUNCHES = {"fused_conv_pool": 8, "fused_conv_pool_dgrad": 7, "fused_conv_pool_wgrad": 8}
+TRAJ_TRAIN_LAUNCHES = {"fused_conv_pool": 4, "fused_conv_pool_dgrad": 3,
+                       "fused_conv_pool_wgrad": 4}
+
+
+def train_phase(data_root, path=CONFIG, want=TRAIN_LAUNCHES, phase="train"):
+    """TRAIN_STEPS steps of Trainer.fit of `path`'s model (the len-64 VAE,
+    or the trajectory model) on the GPU and on the CPU from the
     same init, batches and noise, and on each a run from the init scaled by
     1 + 1e-7: Adam amplifies last-place differences (and the random-weight
     model's ill-conditioned 6D -> rotmat amplifies them further), so the
@@ -632,16 +677,16 @@ def train_phase(data_root):
     between them at some steps.  Then kernel launches per step, step time
     (CUDA events) and the profile."""
     from hm_vae_torch.ops import fused_conv_pool as fcp
-    from hm_vae_torch.train.train_step import to_device, train_step
+    from hm_vae_torch.train.train_step import loss_fields, to_device, train_step
     from hm_vae_torch.train.trainer import build_trainer
 
-    cfg = train_config(data_root)
+    cfg = train_config(data_root, path)
     counters = (fcp.fused_conv_pool, fcp.fused_conv_pool_dgrad, fcp.fused_conv_pool_wgrad)
     losses, launches, wall = {}, None, {}
     for run, dev, scale in (("gpu", DEV, 1.0), ("cpu", "cpu", 1.0),
                             ("gpu_perturbed", DEV, 1.0 + 1e-7),
                             ("cpu_perturbed", "cpu", 1.0 + 1e-7)):
-        trainer, train_ds, _, _ = build_trainer(cfg, os.path.join(OUT_DIR, f"train_{run}"),
+        trainer, train_ds, _, _ = build_trainer(cfg, os.path.join(OUT_DIR, f"{phase}_{run}"),
                                                 device=dev)
         with torch.no_grad():
             for p in trainer.state.model.parameters():
@@ -660,24 +705,24 @@ def train_phase(data_root):
             gpu, gpu_ds = trainer, train_ds
         losses[run] = np.array(out)
     if any(len(v) != TRAIN_STEPS or not np.isfinite(v).all() for v in losses.values()):
-        fail(f"training: losses {losses}")
-    want = {"fused_conv_pool": 8, "fused_conv_pool_dgrad": 7, "fused_conv_pool_wgrad": 8}
+        fail(f"{phase}: losses {losses}")
     if launches != want:
-        fail(f"training: kernel launches per step {launches}, expected {want} (8 convs; "
-             "enc0's input is data and needs no input gradient)")
+        fail(f"{phase}: kernel launches per step {launches}, expected {want} (the first "
+             "conv's input is data and needs no input gradient)")
     rel = np.abs(losses["gpu"] / losses["cpu"] - 1)
     spread = {dev: np.maximum.accumulate(np.abs(losses[f"{dev}_perturbed"] / losses[dev] - 1))
               for dev in ("gpu", "cpu")}
     band = 10 * np.maximum(spread["gpu"], spread["cpu"]) + 1e-4
     if not ((rel[:5] <= 1e-4).all() and (rel <= band).all()):
-        fail(f"training: GPU vs CPU loss relative difference {rel.tolist()} outside "
+        fail(f"{phase}: GPU vs CPU loss relative difference {rel.tolist()} outside "
              f"{band.tolist()} (first 5 steps: 1e-4)")
     # step time and profile on the GPU trainer's state (training on)
-    batch = to_device(gpu_ds.sample_batch(cfg.optim.batch_size), DEV)
+    batch = to_device(gpu_ds.sample_batch(cfg.optim.batch_size), DEV, loss_fields(gpu.state.model))
     noise = torch.Generator()
 
     def step():
-        return train_step(gpu.state, batch, cfg, generator=noise.manual_seed(0))
+        return train_step(gpu.state, batch, cfg, generator=noise.manual_seed(0),
+                          mean_std=gpu.mean_std)
 
     # the value-only repack of the 8 convs, which every step's forward runs
     from hm_vae_torch.models.hm_vae import SkeletonConv
@@ -689,7 +734,7 @@ def train_phase(data_root):
     def repack_all():
         return [repack(c.structure(), *c.folded_weight()) for c in convs]
 
-    row = {"phase": "train", "config": os.path.relpath(CONFIG, ROOT), "batch": cfg.optim.batch_size,
+    row = {"phase": phase, "config": os.path.relpath(path, ROOT), "batch": cfg.optim.batch_size,
            "steps": TRAIN_STEPS, "loss_gpu": losses["gpu"].tolist(),
            "loss_cpu": losses["cpu"].tolist(), "max_rel_diff": float(rel.max()),
            "rel_diff": rel.tolist(), "band": band.tolist(),
@@ -702,31 +747,33 @@ def train_phase(data_root):
     return row
 
 
-def train_cli_phase(data_root):
-    """``python -m hm_vae_torch.cli.train`` (in this process) for 3 steps,
-    which writes gen_00000003.pt, then ``--resume`` to step 5."""
+def train_cli_phase(data_root, path=CONFIG, phase="train_cli"):
+    """``python -m hm_vae_torch.cli.train`` (in this process) on `path` for 3
+    steps, which writes gen_00000003.pt, then ``--resume`` to step 5; returns
+    the checkpoint of step 5."""
     from hm_vae_torch.cli import train as train_cli
 
-    out = os.path.join(OUT_DIR, "cli_train")
+    out = os.path.join(OUT_DIR, phase)
     shutil.rmtree(out, ignore_errors=True)
-    args = ["--config", CONFIG, "--output_path", out, "--data_root", data_root, "--device", DEV]
+    args = ["--config", path, "--output_path", out, "--data_root", data_root, "--device", DEV]
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         train_cli.main(args + ["--max_iter", "3"])
         train_cli.main(args + ["--max_iter", "5", "--resume"])
     text = buf.getvalue()
-    ck = os.path.join(out, "outputs", os.path.splitext(os.path.basename(CONFIG))[0],
+    ck = os.path.join(out, "outputs", os.path.splitext(os.path.basename(path))[0],
                       "checkpoints")
     names = sorted(os.listdir(ck)) if os.path.isdir(ck) else []
     resumed = [line for line in text.splitlines() if line.startswith("Resume from")]
     if resumed != ["Resume from iteration 3"] or names != ["gen_00000003.pt", "gen_00000005.pt"]:
-        fail(f"train CLI: resume lines {resumed}, checkpoints {names}:\n{text}")
-    row = {"phase": "train_cli", "resumed": resumed[0], "checkpoints": names,
+        fail(f"{phase}: resume lines {resumed}, checkpoints {names}:\n{text}")
+    row = {"phase": phase, "config": os.path.relpath(path, ROOT), "resumed": resumed[0],
+           "checkpoints": names,
            "seconds": time.perf_counter() - t0,
            "finish": [line for line in text.splitlines() if line.startswith("Finish")][-1][:200]}
     print(json.dumps(row), flush=True)
-    return row
+    return os.path.join(ck, names[-1])
 
 
 def latent_config(**lat):
@@ -877,14 +924,19 @@ def windowed_phase(model, st, gen):
 
 
 def solve_sequence(rng):
-    """(WINDOWS*64, 24, 3, 3) rotations of a smooth synthetic motion."""
+    """(WINDOWS*64, 24, 3, 3) rotations of a smooth synthetic motion, and its
+    root translation (WINDOWS*64, 3): the root's steps accumulated, the
+    first zeroed."""
     from hm_vae_torch.data import layout, synthetic
 
     T = WINDOWS * 64
-    return synthetic.synth_sequence(rng, T)[:, layout.ROTMAT].reshape(T, 24, 3, 3)
+    frames = synthetic.synth_sequence(rng, T)
+    steps = frames[:, layout.ROOT_V].copy()
+    steps[0] = 0.0
+    return frames[:, layout.ROTMAT].reshape(T, 24, 3, 3), np.cumsum(steps, axis=0)
 
 
-def solve_agreement_phase(seq):
+def solve_agreement_phase(seq, traj=None, root_trans=None, phase="solve_agreement"):
     """A 12-iteration 10-window interpolation (z phase 6, decoder phase 5,
     the last a decoder step) through ``LatentOptApps.interpolate`` on the
     GPU and on the CPU from the same weights and z, and on each side from
@@ -897,11 +949,16 @@ def solve_agreement_phase(seq):
     forward through the per-window clones), before Adam's amplification:
     losses within 1e-4 relative, 6D as the reconstruct's (E2E_TOL), and
     rotations and positions on the same joints within the 6D tolerance
-    amplified by Gram-Schmidt (1/COND_MIN) and FK (the pose's extent)."""
+    amplified by Gram-Schmidt (1/COND_MIN) and FK (the pose's extent).
+
+    With `traj` = (trajectory model, mean_std) and the sequence's
+    `root_trans`: the 12-iteration solve under the keyframe trajectory loss
+    (reg_w_trajectory 1), the trajectory model on each side's device."""
     from hm_vae_torch.apps.tasks import LatentOptApps
     from hm_vae_torch.models.hm_vae import HMVAE
 
-    cfg = latent_config(opt_it=12, prev_epochs=5)
+    extra = {} if traj is None else {"optimize_trajectory": True, "reg_w_trajectory": 1.0}
+    cfg = latent_config(opt_it=12, prev_epochs=5, **extra)
     base = HMVAE(cfg.model, cfg.optim.init, generator=torch.Generator().manual_seed(SEED))
     outs, wall = {}, {}
 
@@ -910,9 +967,10 @@ def solve_agreement_phase(seq):
         with torch.no_grad():
             for prm in m.parameters():
                 prm.mul_(scale)
-        apps = LatentOptApps(m.to(dev), cfg)
+        t = None if traj is None else (copy.deepcopy(traj[0]).to(dev), traj[1])
+        apps = LatentOptApps(m.to(dev), cfg, trajectory=t)
         t0 = time.perf_counter()
-        out = apps.interpolate(seq, torch.Generator().manual_seed(SEED))
+        out = apps.interpolate(seq, torch.Generator().manual_seed(SEED), root_trans=root_trans)
         return {k: v.cpu() for k, v in out.items()}, time.perf_counter() - t0
 
     for run, dev, scale in (("gpu", DEV, 1.0), ("cpu", "cpu", 1.0),
@@ -921,13 +979,13 @@ def solve_agreement_phase(seq):
         outs[run], wall[run] = run_on(dev, scale, cfg)
     loss = {k: v["loss_history"].numpy().astype(np.float64) for k, v in outs.items()}
     if any(len(v) != 12 or not np.isfinite(v).all() for v in loss.values()):
-        fail(f"short solve: loss histories {loss}")
+        fail(f"{phase}: loss histories {loss}")
     rel = np.abs(loss["gpu"] / loss["cpu"] - 1)
     spread = {d: np.maximum.accumulate(np.abs(loss[f"{d}_perturbed"] / loss[d] - 1))
               for d in ("gpu", "cpu")}
     band = 10 * np.maximum(spread["gpu"], spread["cpu"]) + 1e-4
     if not ((rel[:5] <= 1e-4).all() and (rel <= band).all()):
-        fail(f"short solve: GPU vs CPU loss relative difference {rel.tolist()} outside "
+        fail(f"{phase}: GPU vs CPU loss relative difference {rel.tolist()} outside "
              f"{band.tolist()} (first 5 iterations: 1e-4)")
     g, c = outs["gpu"], outs["cpu"]
     well = gram_schmidt_condition(c["rot_6d"]) > COND_MIN
@@ -944,8 +1002,17 @@ def solve_agreement_phase(seq):
         err = dev_of(g, c)
         tol = 10 * max(dev_of(outs["gpu_perturbed"], g), dev_of(outs["cpu_perturbed"], c)) + tol0
         if not err <= tol:
-            fail(f"short solve {what}: max |gpu - cpu| {err:.3e} > {tol:.3e}")
+            fail(f"{phase} {what}: max |gpu - cpu| {err:.3e} > {tol:.3e}")
         errs[what] = {"err": err, "tol": tol}
+    row = {"phase": phase, "config": os.path.relpath(LATENT_CONFIG, ROOT),
+           "windows": WINDOWS, "opt_it": 12, "prev_epochs": 5, "trajectory": traj is not None,
+           "loss_gpu": loss["gpu"].tolist(), "loss_cpu": loss["cpu"].tolist(),
+           "rel_diff": rel.tolist(), "band": band.tolist(),
+           "spread": {k: v.tolist() for k, v in spread.items()}, "outputs": errs,
+           "share_well": float(well.float().mean()), "seconds": wall}
+    if traj is not None:
+        print(json.dumps(row), flush=True)
+        return row
     # before Adam's amplification: 6 z iterations, the last iteration's
     # forward through the 10 per-window clones (the windowed forward), held
     # as the reconstruct is (e2e_phase's tolerances)
@@ -972,12 +1039,7 @@ def solve_agreement_phase(seq):
         errs[f"tight_{what}"] = {"err": err, "tol": tol}
     if not all(err <= tol for _, err, tol in checks):
         fail(f"7-iteration solve: max |gpu - cpu| against tolerance {errs}")
-    row = {"phase": "solve_agreement", "config": os.path.relpath(LATENT_CONFIG, ROOT),
-           "windows": WINDOWS, "opt_it": 12, "prev_epochs": 5,
-           "loss_gpu": loss["gpu"].tolist(), "loss_cpu": loss["cpu"].tolist(),
-           "rel_diff": rel.tolist(), "band": band.tolist(),
-           "spread": {k: v.tolist() for k, v in spread.items()}, "outputs": errs,
-           "share_well": float(well.float().mean()), "seconds": wall}
+    row["share_well"] = float(well.float().mean())
     print(json.dumps(row), flush=True)
     return row
 
@@ -993,20 +1055,20 @@ def launch_counters():
     return [getattr(fcp, n) for n in LAUNCH_NAMES]
 
 
-def timed_solve(apps, seq, reps=2):
+def timed_solve(apps, seq, reps=2, root_trans=None):
     """Kernel launches of one solve (counts set to 0 just before), its
     loss history, and ms per solve by CUDA events over ``reps`` solves."""
     counters = launch_counters()
     for c in counters:
         c.launches = 0
-    out = apps.interpolate(seq, torch.Generator().manual_seed(SEED))
+    out = apps.interpolate(seq, torch.Generator().manual_seed(SEED), root_trans=root_trans)
     torch.cuda.synchronize()
     launches = {c.__name__: c.launches for c in counters}
     ms = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        apps.interpolate(seq, torch.Generator().manual_seed(SEED))
+        apps.interpolate(seq, torch.Generator().manual_seed(SEED), root_trans=root_trans)
         end.record()
         end.synchronize()
         ms.append(start.elapsed_time(end))
@@ -1060,20 +1122,17 @@ def solve_phase(model, seq):
     return row, main_launches
 
 
-def eval_phase(data_root, model):
+def eval_phase(data_root, model, ck):
     """``python -m hm_vae_torch.cli.eval_recovery`` (in this process) on two
     sequences of the synthetic test split with the training CLI's
-    checkpoint; then completion and generation through LatentOptApps at a
-    shorter solve."""
+    checkpoint `ck`; then completion and generation through LatentOptApps
+    at a shorter solve."""
     from hm_vae_torch.apps.tasks import LatentOptApps
     from hm_vae_torch.cli import eval_recovery
     from hm_vae_torch.data.dataset import EvalMotionDataset
 
     out = os.path.join(OUT_DIR, "eval")
     shutil.rmtree(out, ignore_errors=True)
-    ck = os.path.join(OUT_DIR, "cli_train", "outputs",
-                      os.path.splitext(os.path.basename(CONFIG))[0], "checkpoints",
-                      "gen_00000005.pt")
     counters = launch_counters()
     for c in counters:
         c.launches = 0
@@ -1129,6 +1188,171 @@ def eval_phase(data_root, model):
     return row
 
 
+TRAJ_CONFIG = os.path.join(ROOT, "configs", "trajectory_model.yaml")
+TRAJ_SERVE_T = 300  # eval_trajectory runs a whole sequence in one call
+
+
+def traj_kernel_phase(tmodel, gen):
+    """The three kernels at the trajectory model's four levels (K 31,
+    stride 1, C_in 72 / 84 / 108 / 168, the pool folded in), f32: forward,
+    dgrad and wgrad at batch 8 and T 128 (a training step); forward and
+    dgrad at 10 windows of one batch and T 64 (the solver's trajectory term,
+    non-windowed: the weights are shared); the forward at batch 1 and T 300
+    (eval_trajectory).  Each row as phases 2 and 5 check and time them.
+    Returns {(case, kernel): [rows over the levels]}."""
+    f32, T = torch.float32, tmodel.cfg.train_seq_len
+    rows = {}
+    for i in range(len(tmodel.encoder.structure.levels)):
+        conv = getattr(tmodel.encoder, f"conv_{i}")
+        for case, batch, T_in, kinds in (("train", BATCH, T, ("fwd", "dgrad", "wgrad")),
+                                         ("solve", WINDOWS, 64, ("fwd", "dgrad")),
+                                         ("serve", 1, TRAJ_SERVE_T, ("fwd",))):
+            name = f"traj{i}_{case}"
+            rows.setdefault((case, "fwd"), []).append(
+                fwd_level_row(name, conv, T_in, 1, batch, f32, gen))
+            if "dgrad" in kinds:
+                b = bwd_level_row(name, conv, T_in, batch, gen, with_wgrad="wgrad" in kinds)
+                for k in kinds[1:]:
+                    rows.setdefault((case, k), []).append(b[k])
+    return rows
+
+
+def eval_trajectory_phase(data_root, vae_ck, traj_ck):
+    """``python -m hm_vae_torch.cli.eval_trajectory`` (in this process) with
+    the VAE checkpoint of phase 7 and the trajectory model's of its training
+    CLI phase: prior samples (--pred_trajectory_for_single_window), GT test
+    windows (--debug_trajectory) and a 300-frame rotation sequence in one
+    call (--seq_generation_npy_path); the files must exist, be finite and
+    of their shapes; 4 forward launches for the VAE's decode and 4 for each
+    of the three trajectory runs."""
+    from hm_vae_torch.cli import eval_trajectory
+    from hm_vae_torch.data import layout, synthetic
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+
+    out = os.path.join(OUT_DIR, "eval_trajectory")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    seq = os.path.join(out, "synthetic_300.npy")
+    frames = synthetic.synth_sequence(np.random.default_rng(SEED + 1), TRAJ_SERVE_T)
+    np.save(seq, frames[:, layout.ROTMAT].reshape(TRAJ_SERVE_T, 24, 3, 3))
+    counters = launch_counters()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    eval_trajectory.main(["--config", CONFIG, "--test_model", vae_ck, "--trajectory_config",
+                          TRAJ_CONFIG, "--trajectory_test_model", traj_ck, "--output_path", out,
+                          "--data_root", data_root, "--num_samples", "4",
+                          "--pred_trajectory_for_single_window", "--debug_trajectory",
+                          "--seq_generation_npy_path", seq, "--device", DEV])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    if launches["fused_conv_pool"] != 16 or sum(launches.values()) != 16:
+        fail(f"eval_trajectory: kernel launches {launches}, expected 16 forward (the VAE's "
+             "decode, then 4 a trajectory run)")
+    d = os.path.join(out, "eval_trajectory", os.path.splitext(os.path.basename(CONFIG))[0])
+    shapes = {}
+    for tag, n, T in (("sampled_single_window", 4, 64), ("debug_gt_window", 4, 64),
+                      ("synthetic_300_traj", 1, TRAJ_SERVE_T)):
+        for b in range(n):
+            for suffix, shape in (("", (T, 24, 9)), ("_trans", (T, 3))):
+                f = os.path.join(d, f"{tag}_{b}{suffix}.npy")
+                a = np.load(f) if os.path.exists(f) else None
+                if a is None or a.shape != shape or not np.isfinite(a).all():
+                    fail(f"eval_trajectory {f}: {None if a is None else a.shape}, expected "
+                         f"{shape}, finite")
+                shapes[f"{tag}{suffix}"] = list(shape)
+    row = {"phase": "eval_trajectory", "files": shapes, "launches": launches,
+           "seconds": seconds}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def traj_solve_phase(model, traj, seq, root_trans):
+    """The full solve (10 windows, 150 iterations, per-window clones) under
+    the keyframe trajectory loss (reg_w_trajectory 1): ms per solve, kernel
+    launches per phase (the solve's, plus 4 non-windowed forward launches of
+    the trajectory model every iteration and 4 dgrad every iteration but the
+    last, forward-only one), the profile."""
+    from hm_vae_torch.apps.tasks import LatentOptApps
+
+    cfg = latent_config(optimize_trajectory=True, reg_w_trajectory=1.0)
+    lat = cfg.latent_opt
+    n_z = min(lat.prev_epochs + 1, lat.opt_it - 1)
+    n_d = lat.opt_it - 1 - n_z
+    apps = LatentOptApps(model, cfg, trajectory=traj)
+    LatentOptApps(model, latent_config(opt_it=3, prev_epochs=0, optimize_trajectory=True,
+                                       reg_w_trajectory=1.0), trajectory=traj).interpolate(
+        seq, torch.Generator().manual_seed(SEED), root_trans=root_trans)  # warm-up
+    out, launches, ms = timed_solve(apps, seq, reps=2, root_trans=root_trans)
+    want = dict(zip(LAUNCH_NAMES, (4 * n_z + 4 * lat.opt_it, 4 * n_z + 4 * (lat.opt_it - 1), 0,
+                                   4 * (n_d + 1), 4 * n_d, 4 * n_d)))
+    if launches != want:
+        fail(f"trajectory solve: kernel launches {launches}, expected {want}")
+    hist = out["loss_history"].cpu().numpy()
+    if not (np.isfinite(hist).all() and len(hist) == lat.opt_it and hist[-1] < hist[0]):
+        fail(f"trajectory solve: loss history {hist.tolist()}")
+    for k in ("rot_6d", "rot_mat", "pose"):
+        if out[k].shape[0] != seq.shape[0] or not torch.isfinite(out[k]).all():
+            fail(f"trajectory solve: {k} of shape {tuple(out[k].shape)} or non-finite")
+    per_iter = {"z_phase": {"fwd": 4 + 4, "dgrad": 4 + 4, "wgrad": 0},
+                "decoder_phase": {"fwd": 4, "dgrad": 4, "fwd_windowed": 4, "dgrad_windowed": 4,
+                                  "wgrad_windowed": 4}}
+    row = {"phase": "solve_trajectory", "config": os.path.relpath(LATENT_CONFIG, ROOT),
+           "windows": WINDOWS, "opt_it": lat.opt_it, "z_iterations": n_z,
+           "decoder_iterations": n_d, "launches_per_iteration": per_iter,
+           "ms_per_solve": ms, "launches": launches, "loss_first": float(hist[0]),
+           "loss_last": float(hist[-1]),
+           "profile": profile_calls(lambda: apps.interpolate(
+               seq, torch.Generator().manual_seed(SEED), root_trans=root_trans), calls=1)}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def eval_traj_recovery_phase(data_root, vae_ck, traj_ck):
+    """``eval_recovery --try_interpolation_w_trajectory_single_window`` (in
+    this process) on two sequences of the synthetic test split, with the
+    checkpoints of phase 7 and of the trajectory training CLI phase."""
+    from hm_vae_torch.cli import eval_recovery
+
+    out = os.path.join(OUT_DIR, "eval_traj")
+    shutil.rmtree(out, ignore_errors=True)
+    counters = launch_counters()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    eval_recovery.main(["--config", LATENT_CONFIG, "--output_path", out, "--data_root",
+                        data_root, "--test_model", vae_ck, "--trajectory_config", TRAJ_CONFIG,
+                        "--trajectory_test_model", traj_ck,
+                        "--try_interpolation_w_trajectory_single_window", "--max_seqs", "2",
+                        "--device", DEV, "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    d = os.path.join(out, "eval_interpolation_w_trajectory_single_window",
+                     os.path.splitext(os.path.basename(LATENT_CONFIG))[0])
+    files = sorted(os.listdir(d)) if os.path.isdir(d) else []
+    if "summary.json" not in files:
+        fail(f"eval_recovery (trajectory) wrote {files}, no summary.json")
+    with open(os.path.join(d, "summary.json")) as f:
+        summary = json.load(f)
+    n = summary["num_seqs"]
+    for suffix, shape in (("_rot_opt_res.npy", (64, 24, 3, 3)),
+                          ("_root_trans_opt_res.npy", (64, 24, 3))):
+        got = [f for f in files if f.endswith(suffix)]
+        if len(got) != n or not all(
+                np.load(os.path.join(d, f)).shape == shape
+                and np.isfinite(np.load(os.path.join(d, f))).all() for f in got):
+            fail(f"eval_recovery (trajectory): {suffix} files {got}, expected {n} of {shape}")
+    if not (launches["fused_conv_pool_dgrad"] and launches["fused_conv_pool_wgrad_windowed"]):
+        fail(f"eval_recovery (trajectory): kernel launches {launches}")
+    row = {"phase": "eval_recovery_trajectory",
+           "task": "try_interpolation_w_trajectory_single_window", "files": files,
+           "summary": summary, "seconds": seconds, "launches": launches}
+    print(json.dumps(row), flush=True)
+    return row
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
@@ -1163,7 +1387,7 @@ def main() -> None:
     print(json.dumps({"phase": "build_report", **report}), flush=True)
     if not report["fused_conv_pool"].get("bf16", {}).get("hgmma"):
         fail("the bf16 instantiation has no HGMMA (wgmma) instruction")
-    for what in ("dgrad", "wgrad"):
+    for what in ("dgrad", "wgrad", "wgrad_nq4"):
         r = report["fused_conv_pool_bwd"].get(what, {})
         if not (r.get("hgmma") or r.get("hmma")):
             fail(f"the {what} kernel has no HGMMA or HMMA (tensor-core) instruction")
@@ -1189,12 +1413,21 @@ def main() -> None:
 
     # 5. the backward kernels against their plain versions
     bwd = bwd_phase(model, st, gen)
+    # 12 (run here, beside the other kernels). the three kernels at the
+    #    trajectory model's level shapes
+    from hm_vae_torch.data.dataset import make_loaders
+    from hm_vae_torch.models.trajectory import TrajectoryModel
+
+    tcfg = load_config(TRAJ_CONFIG)
+    tmodel = TrajectoryModel(tcfg.model, tcfg.optim.init,
+                             generator=torch.Generator().manual_seed(SEED)).to(DEV)
+    traj_rows = traj_kernel_phase(tmodel, gen)
 
     # 6-7. training end to end, and its entry point
     data_root = os.path.join(OUT_DIR, "train_data")
     shutil.rmtree(data_root, ignore_errors=True)
     train = train_phase(data_root)
-    train_cli_phase(data_root)
+    vae_ck = train_cli_phase(data_root)
 
     # 8-11. the test-time solver: its windowed kernels, the GPU against the
     #    CPU, the full solve, the evaluation entry point
@@ -1202,14 +1435,27 @@ def main() -> None:
     lmodel = HMVAE(lcfg.model, lcfg.optim.init,
                    generator=torch.Generator().manual_seed(SEED)).to(DEV)
     windowed = windowed_phase(lmodel, get_structure(lcfg.model), gen)
-    seq = solve_sequence(np.random.default_rng(SEED))
+    seq, root_trans = solve_sequence(np.random.default_rng(SEED))
     solve_agreement_phase(seq)
     solve, solve_launches = solve_phase(lmodel, seq)
-    eval_phase(data_root, lmodel)
+    eval_phase(data_root, lmodel, vae_ck)
 
-    # 12. summary: sums over the 8 levels of one reconstruct (forward) or of
-    #    one training step (backward), and over the 4 decoder levels of a
-    #    solve's iteration (windowed)
+    # 13-15. the trajectory model: training end to end and its entry point,
+    #    eval_trajectory, the solve under the keyframe trajectory loss (GPU
+    #    against CPU, the full solve) and eval_recovery's trajectory-guided
+    #    interpolation
+    traj_train = train_phase(data_root, TRAJ_CONFIG, TRAJ_TRAIN_LAUNCHES, "train_trajectory")
+    traj_ck = train_cli_phase(data_root, TRAJ_CONFIG, "train_cli_trajectory")
+    traj_eval = eval_trajectory_phase(data_root, vae_ck, traj_ck)
+    train_ds = make_loaders(train_config(data_root))[0]
+    traj = (tmodel, np.stack([train_ds.mean, train_ds.std]))
+    solve_agreement_phase(seq, traj, root_trans, "solve_agreement_trajectory")
+    traj_solve = traj_solve_phase(lmodel, traj, seq, root_trans)
+    eval_traj_recovery_phase(data_root, vae_ck, traj_ck)
+
+    # 16. summary: sums over the 8 levels of one reconstruct (forward) or of
+    #    one training step (backward), over the 4 decoder levels of a solve's
+    #    iteration (windowed), and over the trajectory model's 4 levels
     def total(rows):
         out = {k: sum(r[k] for r in rows)
                for k in ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms")}
@@ -1277,6 +1523,34 @@ def main() -> None:
          "torch.nn.grad.conv1d_weight"))]}
     for row in summary["kernels"][:3]:
         row["launches_per_solve"] = solve_launches[row["name"]]
+    traj_launches = {"train": traj_train["launches_per_step"],
+                     "solve": traj_solve["launches"], "serve": traj_eval["launches"]}
+    traj_notes = {
+        "train": "a training step of configs/trajectory_model.yaml, batch 8, T 128; launches: "
+                 "per training step",
+        "solve": f"the trajectory loss of a {WINDOWS}-window solve, one batch a window, T 64 "
+                 "(non-windowed: the weights are shared); launches: in one 150-iteration "
+                 "solve under the loss, with the decoder's z-phase launches",
+        "serve": f"eval_trajectory on a whole sequence, batch 1, T {TRAJ_SERVE_T}; launches: "
+                 "in the eval_trajectory run (the VAE's decode, then 4 a trajectory run)"}
+    for (case, what), rows in traj_rows.items():
+        suffix = {"fwd": "", "dgrad": "_dgrad", "wgrad": "_wgrad"}[what]
+        name = f"fused_conv_pool{suffix}"
+        summary["kernels"].append({
+            "name": f"{name}@trajectory_{case}", "route": "cuda",
+            "source": "hm_vae_torch/csrc/" + ("fused_conv_pool.cu" if what == "fwd"
+                                              else "fused_conv_pool_bwd.cu"),
+            "replaces": ("hm_vae_tpu/ops/pallas_kernels.py:65 (at hm_vae_tpu/models/"
+                         "trajectory.py:45-50)" if what == "fwd" else
+                         "hm_vae_tpu/models/trajectory.py:45-50 (JAX autodiff of the level; "
+                         "no Pallas backward exists)"),
+            "launches": traj_launches[case][name],
+            **total(rows),
+            "note": f"f32, K 31, sums over the 4 trajectory levels; {traj_notes[case]}; "
+                    "times: device time from CUDA-graph replays; library_ms: "
+                    + {"fwd": "cuDNN conv1d", "dgrad": "torch.nn.grad.conv1d_input",
+                       "wgrad": "torch.nn.grad.conv1d_weight"}[what]
+                    + " on the folded weight, TF32 off"})
     print(json.dumps(summary), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

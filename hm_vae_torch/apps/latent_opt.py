@@ -24,26 +24,41 @@ decoder convs and, through autograd, dgrad where a conv's input needs a
 gradient and wgrad where its weight does: z phase 4 / 4 / 0, decoder phase
 (full scope) 4 / 4 / 4, windowed under per-window clones.
 
+With ``trajectory=(traj_model, mean_std)``, ``latent_opt.optimize_trajectory``
+and keyframe indices, the keyframe trajectory loss is added: the trajectory
+model runs on the decoded pose inside the loop (the stats read as given),
+and the root displacements between consecutive keyframes are pulled toward
+the ground truth's (``targets['root_trans']``, (B, T, 3)).  Under per-window
+clones the term is each window's own mean, added into that window's total,
+as the vmapped JAX loss computes it on a batch of one.  The trajectory
+model's weights are frozen (a copy taken when the solver is made, as the JAX
+solver closes over them) and shared by every window: each iteration adds 4
+non-windowed forward and 4 dgrad launches (level 0's input is the decoded
+pose), no wgrad.
+
 The optimizer is the JAX package's optax chain, ``add_decayed_weights ->
 scale_by_adam_stored -> scale_by_learning_rate(StepLR)``, as a functional
 update (:func:`~hm_vae_torch.train.optim.chain_update`): the z chain counts
 z steps only; the decoder chain counts from 0 at the switch, at lr * 1e-3.
 
 Not ported, each raising ``NotImplementedError``: the ``lora`` scope
-(ROADMAP Queue 1 item 6), the keyframe trajectory loss (item 7), the bf16
-clone (``opt_param_dtype: bfloat16``) and ``track_best``.
+(ROADMAP Queue 1 item 6), the bf16 clone (``opt_param_dtype: bfloat16``,
+item 5b) and ``track_best``.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..data import layout
 from ..models.hm_vae import HMVAE
 from ..models.structure import get_structure
+from ..models.trajectory import accumulate_root_trajectory
 from ..ops import fk as fk_mod
 from ..ops import rotations as rot
 from ..train.optim import chain_init, chain_update, make_schedule_raw
@@ -116,15 +131,21 @@ def make_latent_optimizer(model: HMVAE, cfg: Config, lat: Optional[LatentOptConf
 
     Returns ``solve(targets, mask, z_init, z_reg_target) -> LatentOptResult``
     with targets ``{rot_6d (B,T,24,6), rot_mat (B,T,24,3,3), pose
-    (B,T,24,3)}``, mask (B, T, 24) (1 = supervised) and z lists (shallow ->
-    deep, batched), as tensors or arrays; they are moved to the model's
-    device as f32.
+    (B,T,24,3)}`` (and ``root_trans`` (B,T,3) under the trajectory loss),
+    mask (B, T, 24) (1 = supervised) and z lists (shallow -> deep, batched),
+    as tensors or arrays; they are moved to the model's device as f32.
+    ``trajectory=(traj_model, mean_std)`` with ``lat.optimize_trajectory``
+    and ``key_frames`` (frame indices) adds the keyframe trajectory loss.
     """
     lat = lat or cfg.latent_opt
     lcfg = cfg.loss
-    if trajectory is not None or key_frames is not None:
-        raise NotImplementedError("the keyframe trajectory loss needs the trajectory model, "
-                                  "not ported yet (ROADMAP Queue 1 item 7)")
+    use_traj = trajectory is not None and lat.optimize_trajectory
+    if use_traj:
+        if key_frames is None:
+            raise ValueError("the keyframe trajectory loss needs key_frames")
+        traj_model = copy.deepcopy(trajectory[0]).requires_grad_(False)
+        traj_ms = np.asarray(trajectory[1], np.float32)
+        key = torch.as_tensor(np.asarray(key_frames, np.int64))
     if lat.finetune_scope == "lora":
         raise NotImplementedError("finetune_scope 'lora' needs the lora_rank adapters, not "
                                   "ported yet (ROADMAP Queue 1 item 6)")
@@ -152,6 +173,21 @@ def make_latent_optimizer(model: HMVAE, cfg: Config, lat: Optional[LatentOptConf
                                    dtype=torch.float32).to(dev)
 
         tgt = {k: put(targets[k]) for k in ("rot_6d", "rot_mat", "pose")}
+        traj_term = None
+        if use_traj:
+            traj = traj_model.to(dev)
+            pos_mean = put(traj_ms[0][layout.COORD].reshape(24, 3))
+            pos_std = put(traj_ms[1][layout.COORD].reshape(24, 3))
+            rv_mean, rv_std = put(traj_ms[0][layout.ROOT_V]), put(traj_ms[1][layout.ROOT_V])
+            kf = key.to(dev)
+            rel_gt = torch.diff(put(targets["root_trans"])[:, kf], dim=1)
+
+            def traj_term(pose):
+                """Per window: the mean squared error of the predicted root
+                displacements between consecutive keyframes."""
+                root_v = rv_mean + rv_std * traj((pose - pos_mean) / pos_std)
+                rel = torch.diff(accumulate_root_trajectory(root_v)[:, kf], dim=1)
+                return ((rel - rel_gt) ** 2).mean(dim=(1, 2))
         mask_t = put(mask)
         z = [put(t) for t in z_init]
         zr = [put(t) for t in z_reg_target]
@@ -185,6 +221,8 @@ def make_latent_optimizer(model: HMVAE, cfg: Config, lat: Optional[LatentOptConf
                 if dec_p is not None:
                     total = total + lat.reg_w_decoder * sum(
                         ((dec_p[n] - train0[n]) ** 2).reshape(B, -1).mean(1) for n in names)
+                if traj_term is not None:
+                    total = total + lat.reg_w_trajectory * traj_term(op)
                 return total.sum(), total.mean()
             total = (lcfg.rec_6d_w * torch.mean((o6 - tgt["rot_6d"]) ** 2 * m6)
                      + lcfg.rec_rot_w * torch.mean((orm - tgt["rot_mat"]) ** 2 * mm)
@@ -194,6 +232,8 @@ def make_latent_optimizer(model: HMVAE, cfg: Config, lat: Optional[LatentOptConf
             if dec_p is not None:
                 total = total + lat.reg_w_decoder * sum(
                     torch.mean((dec_p[n] - train0[n]) ** 2) for n in names)
+            if traj_term is not None:
+                total = total + lat.reg_w_trajectory * traj_term(op).mean()
             return total, total
 
         history = []

@@ -76,15 +76,14 @@ def completion_joint_mask(missing: str) -> np.ndarray:
 
 class LatentOptApps:
     """The applications over one model (its weights at each call), on the
-    model's device."""
+    model's device.  ``trajectory=(traj_model, mean_std)`` with
+    ``cfg.latent_opt.optimize_trajectory`` set adds the keyframe trajectory
+    loss to interpolation given a ``root_trans``."""
 
     def __init__(self, model: HMVAE, cfg: Config, trajectory=None, mesh=None):
         if mesh is not None:
             raise NotImplementedError("sharding the window batch over a device mesh is not "
                                       "ported yet (ROADMAP Queue 1 item 11)")
-        if trajectory is not None:
-            raise NotImplementedError("the in-loop trajectory loss needs the trajectory "
-                                      "model, not ported yet (ROADMAP Queue 1 item 7)")
         self.model = model
         self.cfg = cfg
         self.W = cfg.model.train_seq_len
@@ -96,6 +95,11 @@ class LatentOptApps:
                 model, cfg, lat=dataclasses.replace(lat, prev_epochs=lat.prev_epochs_completion))
         else:
             self.solve_completion = self.solve
+        self._traj_solve = None
+        if trajectory is not None and lat.optimize_trajectory:
+            key = tuple(np.nonzero(interpolation_mask(self.W, lat.interpolation_window))[0])
+            self._traj_solve = make_latent_optimizer(model, cfg, trajectory=trajectory,
+                                                     key_frames=key)
 
     @property
     def device(self) -> torch.device:
@@ -111,8 +115,8 @@ class LatentOptApps:
         """Temporal interpolation of one long sequence (T, 24, 3, 3): the
         stitched (n_win * W, ...) outputs.  ``restarts > 1`` solves that many
         random starts per window in the same batch and keeps each window's
-        best by final loss.  ``root_trans`` is accepted for the trajectory
-        loss, which is not ported (ignored, as without a trajectory model)."""
+        best by final loss.  With ``root_trans`` (T, 3) and a trajectory
+        solve, the keyframe trajectory loss is on."""
         lat = self.cfg.latent_opt
         W = self.W
         seq = _np(rotmat_seq)
@@ -127,7 +131,12 @@ class LatentOptApps:
         mask = self._put(np.tile(tmask[None, :, None], (n_win * R, 1, 24)))
         z_init = init_z(generator, self.cfg, n_win * R)
         z_reg = [torch.zeros_like(z) for z in z_init]
-        res = self.solve(targets, mask, z_init, z_reg)
+        if self._traj_solve is not None and root_trans is not None:
+            rt = _np(root_trans)[: n_win * W].reshape(n_win, W, 3)
+            res = self._traj_solve(dict(targets, root_trans=np.repeat(rt, R, axis=0)), mask,
+                                   z_init, z_reg)
+        else:
+            res = self.solve(targets, mask, z_init, z_reg)
 
         if R > 1:
             per = res.final_loss.reshape(n_win, R)
@@ -203,8 +212,8 @@ class LatentOptApps:
     def interpolate_single_window(self, rotmat_wins, generator: Optional[torch.Generator],
                                   root_trans=None) -> Dict:
         """One-window temporal interpolation of (B, W, 24, 3, 3), one window
-        per sequence, in one batched solve (``root_trans``: as in
-        :meth:`interpolate`)."""
+        per sequence, in one batched solve; ``root_trans`` (B, W, 3) turns
+        the keyframe trajectory loss on, as in :meth:`interpolate`."""
         lat = self.cfg.latent_opt
         B, W = rotmat_wins.shape[:2]
         if W != self.W:
@@ -214,7 +223,10 @@ class LatentOptApps:
         mask = self._put(np.tile(tmask[None, :, None], (B, 1, 24)))
         z_init = init_z(generator, self.cfg, B)
         z_reg = [torch.zeros_like(z) for z in z_init]
-        res = self.solve(targets, mask, z_init, z_reg)
+        if self._traj_solve is not None and root_trans is not None:
+            res = self._traj_solve(dict(targets, root_trans=root_trans), mask, z_init, z_reg)
+        else:
+            res = self.solve(targets, mask, z_init, z_reg)
         out6d, outrot, outpose = res.last_6d, res.last_rotmat, res.last_pose
         if lat.replace_frame_with_gt:
             out6d = replace_with_target(out6d, targets["rot_6d"], mask)

@@ -8,17 +8,21 @@
 Tasks: ``--final_try_long_seq_interpolation`` (``--batch_across_seqs``
 flattens a chunk's windows into one solve), ``--final_motion_completion_long_seq``,
 ``--try_final_long_seq_generation``, ``--final_motion_completion`` (one
-window per sequence, random per-frame joint masks or ``--mask_dir``) and
+window per sequence, random per-frame joint masks or ``--mask_dir``),
+``--try_interpolation_w_trajectory_single_window`` (one window per sequence
+under the keyframe trajectory loss, against the ground truth's root
+translation from ``root_v``; needs ``--trajectory_config``) and
 ``--test_model_rec`` (posterior-mean reconstruction quality, no solve).  Each
 writes ``<name>_rot_opt_res.npy`` per sequence and ``summary.json`` under
-``<output_path>/<task dir>/<config name>/``.  ``--device`` defaults to
-``cuda`` and raises without CUDA unless ``--device cpu`` is given.
+``<output_path>/<task dir>/<config name>/``; with ``--trajectory_config``
+(and ``--trajectory_test_model``, a ``gen_*.pt``) also the trajectory
+model's world-space poses, ``<name>_root_trans_opt_res.npy``.  ``--device``
+defaults to ``cuda`` and raises without CUDA unless ``--device cpu`` is
+given.
 
 Not ported: the lora scope and the bf16 clone (their flags are not taken),
-and, each raising with the ROADMAP item that brings it:
-``--try_interpolation_w_trajectory_single_window`` and ``--trajectory_*``
-(the trajectory model, Queue 1 item 7), ``--gen_vis`` (``utils/viz.py``,
-item 10) and ``--data_parallel`` (item 11).
+and, each raising with the ROADMAP item that brings it: ``--gen_vis``
+(``utils/viz.py``, item 10) and ``--data_parallel`` (item 11).
 """
 
 from __future__ import annotations
@@ -77,10 +81,6 @@ def main(argv=None):
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
 
-    if args.try_interpolation_w_trajectory_single_window or args.trajectory_config \
-            or args.trajectory_test_model:
-        raise NotImplementedError("the trajectory model is not ported yet (ROADMAP Queue 1 "
-                                  "item 7)")
     if args.gen_vis:
         raise NotImplementedError("--gen_vis needs utils/viz.py, not ported yet (ROADMAP "
                                   "Queue 1 item 10)")
@@ -122,6 +122,8 @@ def main(argv=None):
              ("final_motion_completion_long_seq", "completion", "eval_long_seq_completion"),
              ("try_final_long_seq_generation", "generation", "eval_long_seq_generation"),
              ("final_motion_completion", "completion_sw", "eval_completion_single_window"),
+             ("try_interpolation_w_trajectory_single_window", "interpolation_sw",
+              "eval_interpolation_w_trajectory_single_window"),
              ("test_model_rec", "reconstruction", "eval_reconstruction"))
     chosen = [(task, out) for flag, task, out in tasks if getattr(args, flag)]
     if not chosen:
@@ -135,6 +137,24 @@ def main(argv=None):
         trainer.load_params(args.test_model)
     model = trainer.state.model
 
+    traj_runner = traj = None
+    if args.trajectory_config:
+        from ..models.trajectory import TrajectoryRunner
+        from ..train.trainer import Trainer
+
+        t_trainer = Trainer(load_config(args.trajectory_config),
+                            os.path.join(output_dir, "traj"), device=device,
+                            mean_std=trainer.mean_std)
+        if args.trajectory_test_model:
+            t_trainer.load_params(args.trajectory_test_model)
+        traj = (t_trainer.state.model, trainer.mean_std)
+        traj_runner = TrajectoryRunner(*traj)
+    if task == "interpolation_sw" and traj is None:
+        # without a trajectory model the run would be plain interpolation
+        # written into the *_w_trajectory directory
+        p.error("--try_interpolation_w_trajectory_single_window requires "
+                "--trajectory_config/--trajectory_test_model")
+
     mprob = args.missing_joint_prob
     if mprob is None:
         mprob = cfg.data.missing_joint_prob or 0.3
@@ -146,17 +166,24 @@ def main(argv=None):
                                 resolve_split_json(cfg, "test"), **eval_kwargs)
     W = cfg.model.train_seq_len
     n_eval = len(eval_ds) if args.max_seqs < 0 else min(args.max_seqs, len(eval_ds))
-    run = dict(args=args, eval_ds=eval_ds, n_eval=n_eval, W=W, output_dir=output_dir)
+    run = dict(args=args, eval_ds=eval_ds, n_eval=n_eval, W=W, output_dir=output_dir,
+               traj_runner=traj_runner)
 
     if task == "reconstruction":
         from ..apps.inference import VAEInference
 
         _run_reconstruction(VAEInference(model, cfg, device=device), **run)
         return
-    apps = LatentOptApps(model, cfg)
+    if task == "interpolation_sw":
+        # the keyframe trajectory loss inside the solver
+        lat = dataclasses.replace(cfg.latent_opt, optimize_trajectory=True,
+                                  reg_w_trajectory=cfg.latent_opt.reg_w_trajectory or 1.0)
+        apps = LatentOptApps(model, dataclasses.replace(cfg, latent_opt=lat), trajectory=traj)
+    else:
+        apps = LatentOptApps(model, cfg)
     seed = cfg.run.seed
-    if task == "completion_sw":
-        _run_single_window(apps, seed, **run)
+    if task in ("completion_sw", "interpolation_sw"):
+        _run_single_window(apps, seed, task, **run)
     elif task == "completion":
         missing = "upper" if cfg.latent_opt.missing_upper_completion else "lower"
         _run_completion_batched(apps, seed, missing, **run)
@@ -210,8 +237,15 @@ def _pad_chunk(chunk, size, ci):
     return chunk + [chunk[-1]] * (size - n_real), n_real
 
 
-def _save_seq_outputs(name, rotmat, output_dir):
+def _save_seq_outputs(name, rotmat, output_dir, traj_runner=None):
+    """The optimised rotations and, with a trajectory model, its world-space
+    poses of them."""
     np.save(os.path.join(output_dir, f"{name}_rot_opt_res.npy"), _np(rotmat))
+    if traj_runner is not None:
+        from ..ops import rotations as rot
+
+        world, _ = traj_runner(rot.rotmat_to_rot6d(torch.as_tensor(_np(rotmat)))[None])
+        np.save(os.path.join(output_dir, f"{name}_root_trans_opt_res.npy"), _np(world[0]))
 
 
 def _write_summary(results, output_dir):
@@ -226,7 +260,7 @@ def _write_summary(results, output_dir):
         json.dump(summary, f, indent=2)
 
 
-def _run_interpolation(apps, seed, cfg, args, eval_ds, n_eval, W, output_dir):
+def _run_interpolation(apps, seed, cfg, args, eval_ds, n_eval, W, output_dir, traj_runner):
     """Long-sequence interpolation: one batched solve per sequence (its
     windows), or per chunk of sequences with --batch_across_seqs; MPJPE and
     acceleration error against the ground truth's FK, and the SLERP
@@ -255,13 +289,13 @@ def _run_interpolation(apps, seed, cfg, args, eval_ds, n_eval, W, output_dir):
                 m["slerp_mpjpe"] = float(mpjpe(torch.as_tensor(fk_mod.fk_numpy(slerp)),
                                                torch.as_tensor(gt_pose)))
             name = it["name"].replace(".npy", "")
-            _save_seq_outputs(name, out["rot_mat"], output_dir)
+            _save_seq_outputs(name, out["rot_mat"], output_dir, traj_runner)
             results.append((name, m))
             print(name, m, flush=True)
     _write_summary(results, output_dir)
 
 
-def _run_reconstruction(infer, args, eval_ds, n_eval, W, output_dir):
+def _run_reconstruction(infer, args, eval_ds, n_eval, W, output_dir, traj_runner):
     """Posterior-mean reconstruction over the test split: every sequence cut
     into non-overlapping windows, a chunk's windows reconstructed in batches
     of 128; MPJPE, PA-MPJPE and acceleration error against the ground
@@ -289,13 +323,14 @@ def _run_reconstruction(infer, args, eval_ds, n_eval, W, output_dir):
             m = _metrics(seq_pose, gt_pose)
             m["pa_mpjpe"] = float(pa_mpjpe(torch.as_tensor(seq_pose), torch.as_tensor(gt_pose)))
             name = it["name"].replace(".npy", "")
-            _save_seq_outputs(name, seq_rm, output_dir)
+            _save_seq_outputs(name, seq_rm, output_dir, traj_runner)
             results.append((name, m))
             print(name, m, flush=True)
     _write_summary(results, output_dir)
 
 
-def _run_completion_batched(apps, seed, missing, args, eval_ds, n_eval, W, output_dir):
+def _run_completion_batched(apps, seed, missing, args, eval_ds, n_eval, W, output_dir,
+                            traj_runner):
     """Long-sequence completion, batched across a chunk's sequences per
     window index."""
     from ..ops import fk as fk_mod
@@ -309,13 +344,13 @@ def _run_completion_batched(apps, seed, missing, args, eval_ds, n_eval, W, outpu
             pose = _np(out["pose"])
             m = _metrics(pose, fk_mod.fk_numpy(it["rot_mat"][:pose.shape[0]]))
             name = it["name"].replace(".npy", "")
-            _save_seq_outputs(name, out["rot_mat"], output_dir)
+            _save_seq_outputs(name, out["rot_mat"], output_dir, traj_runner)
             results.append((name, m))
             print(name, m, flush=True)
     _write_summary(results, output_dir)
 
 
-def _run_generation_batched(apps, seed, args, eval_ds, n_eval, W, output_dir):
+def _run_generation_batched(apps, seed, args, eval_ds, n_eval, W, output_dir, traj_runner):
     """Autoregressive generation, batched across a chunk's sequences per
     window round, from each sequence's first window."""
     results = []
@@ -326,23 +361,32 @@ def _run_generation_batched(apps, seed, args, eval_ds, n_eval, W, output_dir):
         for it, out in zip(chunk[:n_real], outs[:n_real]):
             m = {"length": out["pose"].shape[0]}
             name = it["name"].replace(".npy", "")
-            _save_seq_outputs(name, out["rot_mat"], output_dir)
+            _save_seq_outputs(name, out["rot_mat"], output_dir, traj_runner)
             results.append((name, m))
             print(name, m, flush=True)
     _write_summary(results, output_dir)
 
 
-def _run_single_window(apps, seed, args, eval_ds, n_eval, W, output_dir):
-    """One-window completion, a chunk of sequences per batched solve, with
-    the MPJPE of the missing joints."""
+def _run_single_window(apps, seed, task, args, eval_ds, n_eval, W, output_dir, traj_runner):
+    """One-window completion, or interpolation under the keyframe trajectory
+    loss, a chunk of sequences per batched solve, with the MPJPE of the
+    missing (unsupervised) joints."""
     from ..ops import fk as fk_mod
 
     results = []
     for ci, chunk in enumerate(_chunked(_iter_eligible(eval_ds, n_eval, W), args.chunk)):
         chunk, n_real = _pad_chunk(chunk, args.chunk, ci)
         wins = np.stack([it["rot_mat"][:W] for it in chunk])
-        masks = np.stack([it["mask"][:W] for it in chunk])
-        out = apps.complete_single_window(wins, masks, _gen(seed, 1000 + ci))
+        if task == "completion_sw":
+            masks = np.stack([it["mask"][:W] for it in chunk])
+            out = apps.complete_single_window(wins, masks, _gen(seed, 1000 + ci))
+        else:
+            # the ground truth's root translation: frame-0 velocity zeroed,
+            # then accumulated
+            rv = np.stack([it["root_v"][:W] for it in chunk]).astype(np.float32)
+            rv[:, 0] = 0.0
+            out = apps.interpolate_single_window(wins, _gen(seed, 1000 + ci),
+                                                 root_trans=np.cumsum(rv, axis=1))
         pose, mask, rotm = _np(out["pose"]), _np(out["mask"]), _np(out["rot_mat"])
         for j, it in enumerate(chunk[:n_real]):
             gt_pose = fk_mod.fk_numpy(it["rot_mat"][:W])
@@ -352,7 +396,7 @@ def _run_single_window(apps, seed, args, eval_ds, n_eval, W, output_dir):
                 err = np.linalg.norm(pose[j] - gt_pose, axis=-1)
                 m["mpjpe_missing"] = float((err * missing).sum() / missing.sum())
             name = it["name"].replace(".npy", "")
-            _save_seq_outputs(name, rotm[j], output_dir)
+            _save_seq_outputs(name, rotm[j], output_dir, traj_runner)
             results.append((name, m))
             print(name, m, flush=True)
     _write_summary(results, output_dir)

@@ -68,7 +68,15 @@
 //   by window, so that a block's columns read one window's weight tiles (at
 //   the decoder's T_out of 8-64 steps and one batch a window, a 64-column
 //   tile is then 1/8 to all full).  One window is the kernel's plain form.
-// A block builds a chunk's im2col tile and then runs its products; two
+// - long kernels: a stage is one chunk's weight tile and im2col tile, both
+//   CC x K wide.  Where two stages and the im2col tile of all K taps do not
+//   fit a block's shared memory (f32 at K = 31, the trajectory model: a
+//   127 KB tile), each chunk runs as ceil(K / seg) stages of at most `seg`
+//   taps: the tap range's k-steps of each plane (contiguous in the packing)
+//   are one bulk copy each, and the im2col tile is built for those taps
+//   only.  The launcher picks the fewest segments that fit; at K <= 16 a
+//   chunk is one stage, as before.
+// A block builds a stage's im2col tile and then runs its products; two
 // blocks per SM (bf16) overlap the two.  Times against the bounds are in
 // PERF.md.
 
@@ -215,7 +223,7 @@ conv_gemm_kernel(const T* __restrict__ x, const T* __restrict__ wpack,
                  const float* __restrict__ bias, const int* __restrict__ tile_start,
                  const int* __restrict__ tile_chunk, T* __restrict__ out, int C_in, int T_in,
                  int K, int P, int T_out, int win_cols, int win_tiles, size_t w_stride,
-                 int stride, int padding, int reflect, float slope, int nb_max) {
+                 int stride, int padding, int reflect, float slope, int nb_max, int seg) {
   using Tr = Traits<T>;
   constexpr int CC = Tr::kCC;
   static_assert(CC == 2 * Tr::kVec, "a tap's CC channels are two 16-byte groups");
@@ -226,7 +234,11 @@ conv_gemm_kernel(const T* __restrict__ x, const T* __restrict__ wpack,
   const int J = CC * K;  // reduction per chunk, one k-step per tap
   const uint32_t plane_bytes = static_cast<uint32_t>(kBM) * J * sizeof(T);
   const uint32_t tile_bytes = plane_bytes * Tr::kPlanes;
-  const uint32_t b_bytes = tile_bytes > kRedBytes ? tile_bytes : kRedBytes;
+  // a stage: `seg` taps of a chunk (all K where they fit), nseg stages a chunk
+  const int nseg = (K + seg - 1) / seg;
+  const uint32_t seg_plane = static_cast<uint32_t>(kBM) * CC * seg * sizeof(T);
+  const uint32_t seg_bytes = seg_plane * Tr::kPlanes;
+  const uint32_t b_bytes = seg_bytes > kRedBytes ? seg_bytes : kRedBytes;
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -235,7 +247,7 @@ conv_gemm_kernel(const T* __restrict__ x, const T* __restrict__ wpack,
   float* bias_s = reinterpret_cast<float*>(smem + 64);                // [kBM]
   int* chunk_s = reinterpret_cast<int*>(smem + 320);                  // [kStages]
   unsigned char* a_s = smem + 384;                                    // [kStages][tile]
-  unsigned char* b_s = a_s + static_cast<size_t>(Tr::kStages) * tile_bytes;  // im2col
+  unsigned char* b_s = a_s + static_cast<size_t>(Tr::kStages) * seg_bytes;  // im2col
   T* xs = reinterpret_cast<T*>(b_s + b_bytes);  // [kStages][nb_max][x_row]
   float* red = reinterpret_cast<float*>(b_s);                         // [kBM][kBN], at the end
 
@@ -252,7 +264,7 @@ conv_gemm_kernel(const T* __restrict__ x, const T* __restrict__ wpack,
   const int p0 = rt * kBM;
   const int first = tile_start[rt];
   const int live = tile_start[rt + 1] - first;
-  const int n_mine = live > split ? (live - split + n_split - 1) / n_split : 0;
+  const int n_mine = live > split ? (live - split + n_split - 1) / n_split * nseg : 0;
 
   // The batches this block's columns read, and the im2col work of this
   // thread: column `col`, channel group h, taps kp, kp+2, ...
@@ -272,17 +284,28 @@ conv_gemm_kernel(const T* __restrict__ x, const T* __restrict__ wpack,
   const int x_col = (b_n - b_lo) * x_row + h * Tr::kVec * T_in;
 
   if (tid < kBM) bias_s[tid] = p0 + tid < P ? bias_w[p0 + tid] : 0.f;
-  // Stage `slot` of the ring: chunk i's weight tile and x[b_lo:b_lo+n_b,
-  // c0:c0+nc, :], one bulk copy each, all completing on the slot's barrier.
+  // Stage `slot` of the ring: stage i's taps of its chunk's weight tile
+  // (the whole tile in one bulk copy, or one copy per plane) and
+  // x[b_lo:b_lo+n_b, c0:c0+nc, :], all completing on the slot's barrier.
   auto issue = [&](int i, int slot) {
-    const int idx = first + split + i * n_split;
+    const int idx = first + split + (i / nseg) * n_split;
+    const int k0 = (i % nseg) * seg, nk = min(seg, K - k0);
     const int c0 = tile_chunk[idx] * CC;
     chunk_s[slot] = c0;  // published to the block by the barrier's phase
     const uint32_t x_bytes = static_cast<uint32_t>(min(CC, C_in - c0) * T_in * sizeof(T));
     const uint32_t bar = smem_addr(bars + slot);
-    mbar_expect(bar, tile_bytes + n_b * x_bytes);
-    bulk_copy(smem_addr(a_s + slot * tile_bytes),
-              wtiles + static_cast<size_t>(idx) * (tile_bytes / sizeof(T)), tile_bytes, bar);
+    const uint32_t w_bytes = static_cast<uint32_t>(nk) * kKStep;  // a plane's taps
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(wtiles) +
+                               static_cast<size_t>(idx) * tile_bytes +
+                               static_cast<size_t>(k0) * kKStep;
+    mbar_expect(bar, w_bytes * Tr::kPlanes + n_b * x_bytes);
+    if (nk == K) {
+      bulk_copy(smem_addr(a_s + slot * seg_bytes), src, tile_bytes, bar);
+    } else {
+      for (int pl = 0; pl < Tr::kPlanes; ++pl)
+        bulk_copy(smem_addr(a_s + slot * seg_bytes + pl * seg_plane), src + pl * plane_bytes,
+                  w_bytes, bar);
+    }
     for (int bb = 0; bb < n_b; ++bb)
       bulk_copy(smem_addr(xs + slot * xs_stage + bb * x_row),
                 x + (static_cast<size_t>(b_lo + bb) * C_in + c0) * T_in, x_bytes, bar);
@@ -293,9 +316,9 @@ conv_gemm_kernel(const T* __restrict__ x, const T* __restrict__ wpack,
     for (int i = 0; i < Tr::kStages && i < n_mine; ++i) issue(i, i);
   }
 
-  // acc: one chunk's products, summed by the tensor cores; sum: the chunks'
-  // sums, added in f32 here, so that no tensor-core sum runs longer than a
-  // chunk (J terms)
+  // acc: one stage's products (a chunk, or a tap segment of one), summed by
+  // the tensor cores; sum: the stages' sums, added in f32 here, so that no
+  // tensor-core sum runs longer than a chunk (J terms)
   float acc[16], sum[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) acc[i] = sum[i] = 0.f;
@@ -309,14 +332,15 @@ conv_gemm_kernel(const T* __restrict__ x, const T* __restrict__ wpack,
       issue(i - 1 + Tr::kStages, (i - 1) % Tr::kStages);
     mbar_wait(smem_addr(bars + stage), (i / Tr::kStages) & 1);
 
-    // The im2col tile.  A chunk's reduction runs tap-major (j = k*CC + c),
-    // so the 16-byte group 2k + h of a column is the kVec channels h*kVec..
-    // of x at time t*stride + k - padding.
+    // The im2col tile of the stage's taps k0 + k.  A chunk's reduction runs
+    // tap-major (j = k*CC + c), so the 16-byte group 2k + h of a column is
+    // the kVec channels h*kVec.. of x at time t*stride + k0 + k - padding.
+    const int k0 = (i % nseg) * seg, nk = min(seg, K - k0);
     const bool group_ok = col_ok && h * Tr::kVec < C_in - chunk_s[stage];
     const T* xcol = xs + stage * xs_stage + x_col;
 #pragma unroll 4
-    for (int k = kp; k < K; k += 2) {
-      int s = t_base + k;
+    for (int k = kp; k < nk; k += 2) {
+      int s = t_base + k0 + k;
       if (s < 0 || s >= T_in) s = reflect ? (s < 0 ? -s : 2 * (T_in - 1) - s) : -1;
       uint4 q = make_uint4(0u, 0u, 0u, 0u);
       if (group_ok && s >= 0) {
@@ -347,7 +371,7 @@ conv_gemm_kernel(const T* __restrict__ x, const T* __restrict__ wpack,
           sp[e] = __float_as_uint(__uint_as_float(v[e]) - __uint_as_float(bp[e]));
         }
         *reinterpret_cast<uint4*>(dst) = big;
-        *reinterpret_cast<uint4*>(dst + plane_bytes) = small;
+        *reinterpret_cast<uint4*>(dst + seg_plane) = small;
       }
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -355,17 +379,17 @@ conv_gemm_kernel(const T* __restrict__ x, const T* __restrict__ wpack,
 
     // This warpgroup's 64 x 32 part of the tile: B columns 32*wg.. start
     // four row groups (1024 bytes) into each k-step.
-    const uint32_t a0 = smem_addr(a_s + stage * tile_bytes);
+    const uint32_t a0 = smem_addr(a_s + stage * seg_bytes);
     const uint32_t b0 = smem_addr(b_s) + wg * (kWN / 8) * 256;
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
     fence_acc(acc);
-    for (int k = 0; k < K; ++k) {
+    for (int k = 0; k < nk; ++k) {
       const uint32_t off = k * kKStep;
       if constexpr (Tr::kPlanes == 1) {
         wgmma_bf16(acc, gmma_desc(a0 + off), gmma_desc(b0 + off), k > 0);
       } else {
-        wgmma_tf32(acc, gmma_desc(a0 + plane_bytes + off), gmma_desc(b0 + off), k > 0);
-        wgmma_tf32(acc, gmma_desc(a0 + off), gmma_desc(b0 + plane_bytes + off), 1);
+        wgmma_tf32(acc, gmma_desc(a0 + seg_plane + off), gmma_desc(b0 + off), k > 0);
+        wgmma_tf32(acc, gmma_desc(a0 + off), gmma_desc(b0 + seg_plane + off), 1);
         wgmma_tf32(acc, gmma_desc(a0 + off), gmma_desc(b0 + off), 1);
       }
     }
@@ -442,15 +466,21 @@ cudaError_t launch(const void* x, const void* w, const void* bias, const void* t
   // the batch is `windows` windows of B / windows batches each
   const int win_cols = B / windows * T_out;
   const int win_tiles = (win_cols + kBN - 1) / kBN;
-  const size_t J = static_cast<size_t>(Tr::kCC) * K;
-  const size_t tile = static_cast<size_t>(kBM) * J * sizeof(T) * Tr::kPlanes;
-  const size_t b_bytes = tile > kRedBytes ? tile : kRedBytes;
   // batches one block's 64 columns span, at most
   const int nb = min(B / windows, (kBN - 1) / T_out + 2);
   const size_t xs_bytes =
       static_cast<size_t>(Tr::kStages) * nb * (Tr::kCC * T_in * sizeof(T) + 16);
-  const size_t smem = 384 + 127 + Tr::kStages * tile + b_bytes + xs_bytes;
+  // the fewest tap segments a chunk splits into for the stages to fit
+  int seg = K;
+  size_t smem = 0;
+  for (int nseg = 1;; ++nseg) {
+    seg = (K + nseg - 1) / nseg;
+    const size_t stage = static_cast<size_t>(kBM) * Tr::kCC * seg * sizeof(T) * Tr::kPlanes;
+    smem = 384 + 127 + Tr::kStages * stage + (stage > kRedBytes ? stage : kRedBytes) + xs_bytes;
+    if (smem <= static_cast<size_t>(kMaxSmem) || seg == 1) break;
+  }
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  const size_t tile = static_cast<size_t>(kBM) * Tr::kCC * K * sizeof(T) * Tr::kPlanes;
 
   const int nt = windows * win_tiles, rts = (P + kBM - 1) / kBM;
   const int per_sm = max(1, min(8, kSmemPerSM / static_cast<int>(smem + 1024)));
@@ -475,7 +505,7 @@ cudaError_t launch(const void* x, const void* w, const void* bias, const void* t
       static_cast<const float*>(bias), static_cast<const int*>(tile_start),
       static_cast<const int*>(tile_chunk), static_cast<T*>(out), C_in, T_in, K, P, T_out,
       win_cols, win_tiles, static_cast<size_t>(n_tiles) * (tile / sizeof(T)), stride, padding,
-      reflect, slope, nb);
+      reflect, slope, nb, seg);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -62,7 +62,10 @@
 // - dgrad: a block owns a pair of 8-channel chunks (two mma N tiles, so
 //   that each g fragment read from shared memory feeds two products) and
 //   whole padded input rows of a group of batches (the M side: 16-column
-//   tiles over (b, v), one per warp).  At stride 2 a padded column
+//   tiles over (b, v), one per warp; a single batch's row may take up to
+//   two tiles a warp, tiles warp and warp + 8, run one after the other in
+//   a stage, so that a padded row of up to 256 columns fits one block: the
+//   trajectory model's 128 + 30 at K 31).  At stride 2 a padded column
 //   u = 2v + phi reads only taps k = 2m + phi, so the columns are split by
 //   phase and each phase is a stride-1 product over its ~K/2 taps with g
 //   shifted by m: no zero tap is multiplied and no im2col is built.  The
@@ -77,7 +80,9 @@
 //   source (the padding's adjoint) and stores gx row by row;
 // - wgrad: a block owns one live tile (64 rows x the chunk's 8 channels x K
 //   taps, plus a ones-column for the bias: the mma's N runs over 8-channel
-//   tap tiles, K + 1 of them) and a range of batches (the reduction over the
+//   tap tiles, K + 1 of them, 2, 3 or 4 a warp: a template parameter, so
+//   K <= 15 keeps its registers and two blocks an SM, and K 31 takes all
+//   32 tiles over the 8 warps) and a range of batches (the reduction over the
 //   (b, t) columns); a cluster splits the batches where the live tiles are
 //   too few to fill the card.  x's rows for the block's batches are staged
 //   once, padded and split by stride phase (so that a tap's columns read
@@ -91,6 +96,12 @@
 //   batch group lies inside one window and stages that window's weight
 //   rows; a wgrad block (grid z: the window) sums over its window's batches
 //   only, its cluster split too.  One window is the kernels' plain form.
+// Limits: f32, C a multiple of 8 (the wrappers pad), K <= 31 (wgrad's 32
+// tap tiles), and shared memory: dgrad's two weight stages are 32 rows of
+// 16 channels x K taps (127 KB at K 31, so one block an SM there) beside
+// g's padded rows; dgrad's padded rows of a batch group fill at most 16
+// column tiles (dgrad_plan gives a group of several batches at most one
+// tile a warp, so a padded row of up to 256 / stride columns).
 // Times against the bounds, and traces of both kernels (kernel_trace.py),
 // are in PERF.md.
 
@@ -112,7 +123,8 @@ constexpr int kDC = 16;        // dgrad: input channels of a block (two chunks)
 constexpr int kCC = 8;         // input channels of a chunk (the mma's N)
 constexpr int kStages = 2;     // stages in flight
 constexpr int kMaxSplit = 8;   // blocks per cluster (the portable maximum)
-constexpr int kMaxK = 16;
+constexpr int kMaxTiles = 2;  // dgrad: 16-column tiles of a warp
+constexpr int kMaxK = 31;     // wgrad: K + 1 tap tiles (the bias's last) over 8 warps, 4 each
 constexpr int kMaxSmem = 232448;   // a block
 constexpr int kSmemPerSM = 233472;  // 228 KB
 constexpr int kMaxDevices = 64;
@@ -312,27 +324,30 @@ dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
   for (int i = 0; i < kStages && i < n_mine; ++i) issue_w(i, i);
   if (n_mine > 0) issue_g(0);
 
-  // This warp's 16-column tile: phase phi, rows (b, v) of that phase.
-  int phi = 0, mt = warp, V = 0;
-  for (; phi < stride; ++phi) {
-    V = (L.Tp - phi + stride - 1) / stride;
-    const int n = (nbl * V + 15) / 16;
-    if (mt < n) break;
-    mt -= n;
-  }
-  const bool has_tile = phi < stride;
-  const int taps = has_tile ? (K - phi + stride - 1) / stride : 0;
-  int base[2], bbv[2], vv[2];
+  // This warp's 16-column tiles warp + 8w (w < kMaxTiles): phase phi[w],
+  // rows (b, v) of that phase; taps[w] = 0 where the warp has no such tile.
+  int phis[kMaxTiles], mts[kMaxTiles], Vs[kMaxTiles], taps[kMaxTiles], base[kMaxTiles][2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = mt * 16 + gid + 8 * h;
-    bbv[h] = has_tile ? r / max(V, 1) : 0;
-    vv[h] = has_tile ? r - bbv[h] * V : 0;
-    const bool ok = has_tile && bbv[h] < nbl;
-    base[h] = ok ? bbv[h] * kHalf * L.rs + L.off + vv[h] : L.off;
+  for (int w = 0; w < kMaxTiles; ++w) {
+    int phi = 0, mt = warp + kWarps * w, V = 0;
+    for (; phi < stride; ++phi) {
+      V = (L.Tp - phi + stride - 1) / stride;
+      const int n = (nbl * V + 15) / 16;
+      if (mt < n) break;
+      mt -= n;
+    }
+    const bool has_tile = phi < stride;
+    phis[w] = phi, mts[w] = mt, Vs[w] = max(V, 1);
+    taps[w] = has_tile ? (K - phi + stride - 1) / stride : 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = mt * 16 + gid + 8 * h;
+      const int bb = r / Vs[w];
+      base[w][h] = has_tile && bb < nbl ? bb * kHalf * L.rs + L.off + r - bb * Vs[w] : L.off;
+    }
   }
 
-  float sum[2][4] = {};  // the two chunks' 16 x 8 tiles
+  float sum[kMaxTiles][2][4] = {};  // per tile, the two chunks' 16 x 8 tiles
   for (int i = 0; i < n_mine; ++i) {
     const int slot = i % kStages;
     const int nrows = max(0, min(kHalf, P - stage_row(i)));
@@ -351,21 +366,22 @@ dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
     __syncthreads();  // g and the weight rows are staged
     if (i + 1 < n_mine) issue_g(i + 1);  // overlaps the products
 
-    if (has_tile) {
+#pragma unroll
+    for (int w = 0; w < kMaxTiles; ++w) {
       // per chunk four independent sums (small and big products, even and
       // odd rows of 8), so that consecutive mma.sync do not wait on each
       // other, added in f32 after each tap; each g fragment feeds both chunks
       const float* ws = w_s + slot * wt;
-      for (int m = 0; m < taps; ++m) {
-        const int k = phi + stride * m;
+      for (int m = 0; m < taps[w]; ++m) {
+        const int k = phis[w] + stride * m;
         float acc[2][4][4] = {};
 #pragma unroll
         for (int j = 0; j < kHalf / 8; ++j) {
           const int pr = 8 * j + tig;
-          const float2 a0 = g2[base[0] + pr * L.rs - m];
-          const float2 a1 = g2[base[1] + pr * L.rs - m];
-          const float2 a2 = g2[base[0] + (pr + 4) * L.rs - m];
-          const float2 a3 = g2[base[1] + (pr + 4) * L.rs - m];
+          const float2 a0 = g2[base[w][0] + pr * L.rs - m];
+          const float2 a1 = g2[base[w][1] + pr * L.rs - m];
+          const float2 a2 = g2[base[w][0] + (pr + 4) * L.rs - m];
+          const float2 a3 = g2[base[w][1] + (pr + 4) * L.rs - m];
           const uint32_t ab[4] = {__float_as_uint(a0.x), __float_as_uint(a1.x),
                                   __float_as_uint(a2.x), __float_as_uint(a3.x)};
           const uint32_t as[4] = {__float_as_uint(a0.y), __float_as_uint(a1.y),
@@ -385,7 +401,7 @@ dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
         for (int n = 0; n < 2; ++n)
 #pragma unroll
           for (int r = 0; r < 4; ++r)
-            sum[n][r] += ((acc[n][0][r] + acc[n][1][r]) + acc[n][2][r]) + acc[n][3][r];
+            sum[w][n][r] += ((acc[n][0][r] + acc[n][1][r]) + acc[n][2][r]) + acc[n][3][r];
       }
     }
     __syncthreads();  // every warp is done with this stage's weight rows and g2
@@ -394,16 +410,19 @@ dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
 
   // gxpad of the block's rows -> out_s (over the weight stages, now unread);
   // a block alone in its cluster skips the cluster barriers
-  if (has_tile) {
+#pragma unroll
+  for (int w = 0; w < kMaxTiles; ++w) {
+    if (taps[w] == 0) continue;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      if (bbv[h] >= nbl) continue;
-      const int u = vv[h] * stride + phi;
+      const int r = mts[w] * 16 + gid + 8 * h;
+      const int bb = r / Vs[w], u = (r - bb * Vs[w]) * stride + phis[w];
+      if (bb >= nbl) continue;
 #pragma unroll
       for (int n = 0; n < 2; ++n)
 #pragma unroll
         for (int cc = 0; cc < 2; ++cc)
-          out_s[((n * kCC + 2 * tig + cc) * nbb + bbv[h]) * L.Tp + u] = sum[n][2 * h + cc];
+          out_s[((n * kCC + 2 * tig + cc) * nbb + bb) * L.Tp + u] = sum[w][n][2 * h + cc];
     }
   }
   if (split > 1)
@@ -793,7 +812,7 @@ int hmvae_conv_dgrad(const void* gy, const void* y, const void* w, const void* d
   for (int phi = 0; phi < stride; ++phi)
     tiles += (nbb * ((L.Tp - phi + stride - 1) / stride) + 15) / 16;
   const int gpw = (n_win + nbb - 1) / nbb;  // batch groups of a window
-  if (tiles > kWarps || L.total > static_cast<size_t>(kMaxSmem) ||
+  if (tiles > kWarps * kMaxTiles || L.total > static_cast<size_t>(kMaxSmem) ||
       static_cast<long long>(windows) * gpw > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   static bool ready[kMaxDevices] = {};
@@ -829,10 +848,11 @@ int hmvae_conv_wgrad(const void* gy, const void* y, const void* x, const void* w
   const int n_win = B / windows;
   const WgradLayout L = wgrad_layout(n_win, T_in, K, T_out, t_ld, stride, sb, split);
   if (L.total > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
-  const bool wide = K + 1 > 2 * kWarps;  // K = 16: 17 tiles, three a warp
-  auto kernel = wide ? wgrad_kernel<3> : wgrad_kernel<2>;
-  static bool ready[2][kMaxDevices] = {};
-  cudaError_t err = allow_smem(kernel, ready[wide], device);
+  // K + 1 tap tiles over the 8 warps: 2 a warp up to K = 15, 3 up to 23, 4 up to 31
+  const int nq = (K + kWarps) / kWarps;
+  auto kernel = nq <= 2 ? wgrad_kernel<2> : nq == 3 ? wgrad_kernel<3> : wgrad_kernel<4>;
+  static bool ready[3][kMaxDevices] = {};
+  cudaError_t err = allow_smem(kernel, ready[max(nq, 2) - 2], device);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_cluster(
       kernel, dim3(split, n_tiles, windows), 1, split, L.total, stream,

@@ -204,3 +204,68 @@ def _block_bounds(neighbours, in_cpe: int, kernel: int) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def get_structure(cfg: ModelConfig) -> HMVAEStructure:
     return HMVAEStructure(cfg)
+
+
+# --------------------------------------------------------------------------
+# The root-trajectory model: the same conv/pool cascade, stride 1 at every
+# level, no latent heads (``hm_vae_tpu.models.structure``, trajectory part).
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(eq=False)
+class TrajectoryLevel:
+    conv: ConvSpec
+    pool_matrix: np.ndarray        # (k_edges*cpe, n_edges*cpe)
+    pooled_edges: int
+
+
+class TrajectoryStructure:
+    """Encoder cascade metadata of the trajectory model for one
+    :class:`ModelConfig`: channel base 3 for joint-position input (else the
+    input dim), doubled per level."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        nl = cfg.num_layers
+        casc = tp.get_cascade(tp.SMPL24_PARENTS, nl, cfg.skeleton_dist)
+        self.cascade = casc
+        pad_mode = {"reflection": "reflect", "zeros": "constant"}.get(
+            cfg.padding_mode, cfg.padding_mode)
+        k = cfg.kernel_size
+        padding = (k - 1) // 2
+        base0 = 3 if cfg.trajectory_input_joint_pos else cfg.input_dim
+        self.channel_base = [base0]
+        for _ in range(nl):
+            self.channel_base.append(self.channel_base[-1] * 2)
+        self.d_model = self.channel_base[-1]
+
+        self.levels: List[TrajectoryLevel] = []
+        for i in range(nl):
+            n_edges = casc.edge_num[i]
+            in_ch = self.channel_base[i] * n_edges
+            out_ch = self.channel_base[i + 1] * n_edges
+            conv = ConvSpec(
+                in_channels=in_ch, out_channels=out_ch, kernel_size=k,
+                stride=1, padding=padding, padding_mode=pad_mode, bias=True,
+                mask=tp.conv_channel_mask(casc.neighbours[i], self.channel_base[i],
+                                          self.channel_base[i + 1]),
+                block_bounds=_block_bounds(casc.neighbours[i], self.channel_base[i], k),
+                n_edges=n_edges,
+            )
+            self.levels.append(TrajectoryLevel(
+                conv=conv,
+                pool_matrix=tp.pooling_matrix(casc.pooling_lists[i], n_edges,
+                                              out_ch // n_edges),
+                pooled_edges=casc.pooled_edge_num[i],
+            ))
+        self.out_edges = self.levels[-1].pooled_edges  # 7
+
+    def __hash__(self):
+        return id(self)
+
+    def __eq__(self, other):
+        return self is other
+
+
+@functools.lru_cache(maxsize=None)
+def get_trajectory_structure(cfg: ModelConfig) -> TrajectoryStructure:
+    return TrajectoryStructure(cfg)

@@ -64,10 +64,11 @@ ROWS = 64  # rows of a weight tile (the kernel's wgmma M)
 # input channels per reduction chunk: one tap's channels are one wgmma
 # k-step (16 bf16 or 8 TF32 values)
 CHUNK_CHANNELS = {torch.bfloat16: 16, torch.float32: 8}
-# the backward kernels' tiles: K up to 16 taps
-MAX_BWD_K = 16
+# the backward kernels' tiles: K up to 31 taps (wgrad: K + 1 tap tiles, 4 a warp)
+MAX_BWD_K = 31
 MAX_SPLIT = 8  # blocks of a cluster (the portable maximum)
-BWD_WARPS = 8  # dgrad: one 16-column tile of a batch group per warp
+BWD_WARPS = 8  # dgrad: one 16-column tile of a batch group per warp,
+DGRAD_TILES = 2  # or up to two for a group of one batch (a padded row <= 256 / stride)
 DGRAD_CHUNKS = 2  # dgrad: channel chunks of a block
 MAX_SMEM = 232448  # shared memory a block may use
 MAX_SMEM_PER_SM = 233472
@@ -654,18 +655,22 @@ def dgrad_plan(B: int, T_in: int, K: int, stride: int, padding: int, t_ld: int,
     """(nbb, groups, split) of the dgrad kernel: a block owns a pair of
     channel chunks and the padded rows of ``nbb`` batches (``groups`` batch
     groups of each of ``windows`` windows of ``B`` batches: a group never
-    crosses a window), as many as its eight warps' 16-column tiles hold (the
-    columns of each stride phase tiled apart), and ``split`` blocks of a
-    cluster share the pair's live row tiles (at most ``max_live``).  Chosen
-    for the least time on an SM, counted in row tiles: waves of blocks (two
-    to an SM where their shared memory allows) times the row tiles a block
-    walks, plus one for its prologue and epilogue; ties go to fewer
-    blocks."""
+    crosses a window), as many as its eight warps' 16-column tiles hold, one
+    a warp (the columns of each stride phase tiled apart; one batch alone
+    may take two a warp, so a padded row of up to 256 / stride columns),
+    and ``split`` blocks of a cluster share the pair's live row tiles (at
+    most ``max_live``).  Chosen for the least time on an SM, counted in row
+    tiles: waves of blocks (two to an SM where their shared memory allows)
+    times the row tiles a block walks, plus one for its prologue and
+    epilogue; ties go to fewer blocks."""
     Tp = T_in + 2 * padding
     widths = [-(-(Tp - phi) // stride) for phi in range(stride)]
-    if sum(-(-v // 16) for v in widths) > BWD_WARPS:
-        raise ValueError(f"the dgrad kernel takes T_in + 2*padding <= {16 * BWD_WARPS // stride}"
-                         f" at stride {stride}, not {Tp}")
+    if sum(-(-v // 16) for v in widths) > BWD_WARPS * DGRAD_TILES:
+        raise ValueError(f"the dgrad kernel takes T_in + 2*padding <= "
+                         f"{16 * BWD_WARPS * DGRAD_TILES // stride} at stride {stride}, not {Tp}")
+    if _dgrad_smem(T_in, K, t_ld, stride, padding, 1) > MAX_SMEM:
+        raise ValueError(f"the dgrad kernel's shared memory at K={K}, T_in={T_in} exceeds "
+                         f"{MAX_SMEM} bytes")
     best = None
     for nb in range(1, B + 1):
         smem = _dgrad_smem(T_in, K, t_ld, stride, padding, nb)
@@ -697,6 +702,30 @@ def _dgrad_smem(T_in: int, K: int, t_ld: int, stride: int, padding: int, nbb: in
     g2_end = 64 + w_ring + a16(2 * nbb * half * t_ld * 4) + nbb * half * rs * 8
     out = 8 * DGRAD_CHUNKS * nbb * Tp * 4
     return g2_end if out <= w_ring else a16(g2_end) + out
+
+
+def _wgrad_smem(B: int, T_in: int, K: int, T_out: int, t_ld: int, stride: int, sb: int,
+                split: int) -> int:
+    """Bytes of shared memory a wgrad block takes (``wgrad_layout`` in the
+    kernel's source): x's rows of the block's batches padded and split, one
+    or two stages of gy and y, and g in fragment order (x's raw rows first,
+    the partial gradient tile over the stages last)."""
+    a16 = lambda n: -(-n // 16) * 16  # noqa: E731
+    nb_max = -(-B // split)
+    n_st = -(-nb_max // sb)
+    Lh = -(-((T_out - 1) * stride + K) // stride)
+    rsx = (stride * Lh + 11) // 16 * 16 + 4
+    g = 64 + a16(nb_max * 8 * rsx * 8)
+    stage = a16(2 * sb * ROWS * t_ld * 4)
+    frags = -(-sb * T_out // 8) * 4 * 32 * 8 * 4
+    tail = max(frags, nb_max * 8 * T_in * 4)
+    red = ROWS * (8 * K + 4) * 4
+    slots = min(n_st, 2)
+    while True:
+        total = max(g + slots * stage + tail, g + red)
+        if slots == 1 or total <= MAX_SMEM_PER_SM // 2 - 1024:
+            return total
+        slots -= 1
 
 
 def wgrad_plan(B: int, T_out: int, entries: int, sms: int, windows: int = 1) -> Tuple[int, int]:
@@ -775,6 +804,9 @@ def _wgrad(gy, y, x, s: LevelStructure, windows: Optional[int]):
     dev = gy.device.index
     entries = s.wgrad_row.numel()
     sb, split = wgrad_plan(B // G, T_out, entries, _sm_count(dev), G)
+    if _wgrad_smem(B // G, T_in, K, T_out, t_ld, s.stride, sb, split) > MAX_SMEM:
+        raise ValueError(f"the wgrad kernel's shared memory at K={K}, T_in={T_in} and "
+                         f"{B // G} batches a window exceeds {MAX_SMEM} bytes")
     lib, _, wgrad = _bwd_library()
     gw = torch.zeros((G, P, C, K), dtype=gy.dtype, device=gy.device)
     gb = torch.empty((G, P), dtype=gy.dtype, device=gy.device)

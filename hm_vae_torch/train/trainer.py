@@ -13,8 +13,13 @@ Port of ``hm_vae_tpu.train.trainer`` (``Trainer``, ``build_trainer``):
   so the reference's loaders and the JAX package's ``import_hmvae_params``
   read them.
 
+Trains the VAE or, with ``model_name: TrajectoryModel``, the root-trajectory
+model on the dataset's ``mean_std`` (``build_trainer`` passes it; without it
+a trajectory step raises, as in the JAX package), its checkpoints in the
+reference ``TrajectoryModel``'s names.
+
 Runs on ``cuda`` unless told otherwise.  Not ported, each raising or logging:
-the trajectory model, a device mesh and multi-host runs, ``steps_per_call >
+a device mesh and multi-host runs, ``steps_per_call >
 1`` (the TPU's scan dispatch; CUDA graphs are not measured yet), random root
 rotation on the device (``device_augment``), the native loader's compact
 wire and superbatches (the numpy sampler runs instead), asynchronous
@@ -40,7 +45,7 @@ from ..utils.config import Config
 from ..utils.device import resolve_device
 from ..utils.logging import MetricWriter, make_result_folders
 from ..utils.weights import reference_state_dict, state_dict_from_reference
-from .train_step import TrainState, create_state, eval_step, to_device, train_step
+from .train_step import TrainState, create_state, eval_step, loss_fields, to_device, train_step
 
 log = logging.getLogger(__name__)
 
@@ -53,11 +58,10 @@ def step_generator(seed: int, step: int) -> torch.Generator:
 
 
 class Trainer:
-    def __init__(self, cfg: Config, output_dir: str = "outputs/run", device="cuda"):
+    def __init__(self, cfg: Config, output_dir: str = "outputs/run", device="cuda",
+                 mean_std: Optional[np.ndarray] = None):
         name = cfg.model.model_name
-        if name == "TrajectoryModel":
-            raise NotImplementedError("the trajectory model is not ported yet")
-        if name != "TwoHierSAVAEModel":
+        if name not in ("TwoHierSAVAEModel", "TrajectoryModel"):
             raise ValueError(f"unknown model_name: {name}")
         if cfg.run.steps_per_call > 1:
             raise NotImplementedError(
@@ -74,11 +78,13 @@ class Trainer:
         if cfg.run.async_checkpoint:
             log.warning("asynchronous checkpoints are not ported: writing them synchronously")
         self.cfg = cfg
+        self.mean_std = mean_std
         self.device = resolve_device(device)
         self.output_dir = output_dir
         self.ckpt_dir, self.image_dir = make_result_folders(output_dir)
         self.writer = MetricWriter(os.path.join(output_dir, "logs"))
         self.state: TrainState = create_state(cfg, self.device)
+        self._fields = loss_fields(self.state.model)
         self._preempted = False
         n = sum(p.numel() for p in self.state.model.parameters())
         log.info("%s: %.2fM params on %s", name, n / 1e6, self.device)
@@ -140,8 +146,9 @@ class Trainer:
         vals = []
         for vi, vb in enumerate(val_ds.ordered_batches(cfg.optim.batch_size, max_batches=50,
                                                        seed=cfg.run.seed)):
-            vm = eval_step(self.state, to_device(vb, self.device), cfg,
-                           generator=step_generator(cfg.run.seed, 10_000_000 + vi))
+            vm = eval_step(self.state, to_device(vb, self.device, self._fields), cfg,
+                           generator=step_generator(cfg.run.seed, 10_000_000 + vi),
+                           mean_std=self.mean_std)
             vals.append({k: float(v) for k, v in vm.items()})
         if vals:  # a val split smaller than one batch yields none
             self.writer.write(step, {f"val_{k}": float(np.mean([v[k] for v in vals]))
@@ -178,8 +185,9 @@ class Trainer:
                     log.warning("SIGTERM received: checkpointed at step %d, exiting fit "
                                 "cleanly (resume with --resume)", i)
                     break
-                metrics = train_step(self.state, to_device(next(it), self.device), cfg,
-                                     generator=step_generator(cfg.run.seed, i))
+                metrics = train_step(self.state, to_device(next(it), self.device, self._fields),
+                                     cfg, generator=step_generator(cfg.run.seed, i),
+                                     mean_std=self.mean_std)
                 i = self.state.step
 
                 def crossed(interval):
@@ -219,7 +227,9 @@ class Trainer:
 
 
 def build_trainer(cfg: Config, output_dir: str, device="cuda") -> tuple:
-    """(trainer, train_ds, val_ds, test_ds)."""
+    """(trainer, train_ds, val_ds, test_ds), the trainer on the training
+    split's mean/std."""
     train_ds, val_ds, test_ds = make_loaders(cfg)
-    return Trainer(cfg, output_dir, device=device), train_ds, val_ds, test_ds
+    ms = np.stack([train_ds.mean, train_ds.std])
+    return Trainer(cfg, output_dir, device=device, mean_std=ms), train_ds, val_ds, test_ds
 

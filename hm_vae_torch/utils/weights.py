@@ -1,7 +1,9 @@
-"""Weight bridges into the port's :class:`~hm_vae_torch.models.hm_vae.HMVAE`.
+"""Weight bridges into the port's :class:`~hm_vae_torch.models.hm_vae.HMVAE`
+and :class:`~hm_vae_torch.models.trajectory.TrajectoryModel`.
 
 - :func:`params_from_flax`: a flax parameter tree of the JAX package (nested
-  dicts of numpy arrays) -> the port's ``state_dict``.
+  dicts of numpy arrays) -> the port's ``state_dict``
+  (:func:`trajectory_params_from_flax` for the trajectory model).
 - :func:`state_dict_from_reference` / :func:`load_reference_checkpoint`: the
   reference implementation's ``gen_*.pt`` checkpoints -> the port's
   ``state_dict``; :func:`reference_state_dict` is the inverse, with the
@@ -10,7 +12,12 @@
   key mapping and the checks of the constant buffers
   (conv masks, pool/unpool matrices) are the port's own copy of
   ``hm_vae_tpu.utils.torch_import``; a constant that does not match this
-  configuration fails loudly instead of mis-loading.
+  configuration fails loudly instead of mis-loading.  The trajectory
+  model's reference names (``enc.layers.{i}.0.*`` the conv,
+  ``enc.layers.{i}.1.weight`` the pool, ``fc_mapping.*``) are those of
+  ``import_trajectory_params`` (:func:`trajectory_state_dict_from_reference`,
+  :func:`trajectory_reference_state_dict`); the generic functions dispatch
+  on ``cfg.model_name``.
 
 The port's names follow the flax tree; Linear weights are (out, in), the
 transpose of a flax Dense kernel.
@@ -23,7 +30,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from ..models.structure import get_structure
+from ..models.structure import get_structure, get_trajectory_structure
 from .config import ModelConfig
 
 
@@ -36,6 +43,8 @@ def params_from_flax(params_np: Mapping, cfg: ModelConfig) -> Dict[str, torch.Te
     ``'params'``) -> port state_dict."""
     if cfg.param_layout != "dense":
         raise NotImplementedError("only the dense parameter layout is ported")
+    if cfg.model_name == "TrajectoryModel":
+        return trajectory_params_from_flax(params_np, cfg)
     tree = params_np.get("params", params_np)
     sd: Dict[str, torch.Tensor] = {}
     for part in ("encoder", "decoder"):
@@ -46,6 +55,21 @@ def params_from_flax(params_np: Mapping, cfg: ModelConfig) -> Dict[str, torch.Te
             else:
                 for k, v in leaf.items():
                     sd[f"{part}.{name}.{k}"] = _t(v)
+    return sd
+
+
+def trajectory_params_from_flax(params_np: Mapping, cfg: ModelConfig
+                                ) -> Dict[str, torch.Tensor]:
+    """Flax trajectory tree ``{'encoder': {conv_i: {weight, bias}},
+    'fc_mapping': {kernel, bias}}`` (optionally under ``'params'``) -> port
+    state_dict."""
+    if cfg.param_layout != "dense":
+        raise NotImplementedError("only the dense parameter layout is ported")
+    tree = params_np.get("params", params_np)
+    sd = {f"encoder.{name}.{k}": _t(v)
+          for name, leaf in tree["encoder"].items() for k, v in leaf.items()}
+    sd["fc_mapping.weight"] = _t(np.asarray(tree["fc_mapping"]["kernel"]).T)
+    sd["fc_mapping.bias"] = _t(tree["fc_mapping"]["bias"])
     return sd
 
 
@@ -60,7 +84,10 @@ def load_reference_checkpoint(path: str) -> Dict[str, np.ndarray]:
 def reference_state_dict(sd: Mapping[str, torch.Tensor],
                          cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """Port state_dict -> the reference ``TwoHierSAVAEModel`` state dict
-    (f32, on the CPU), with the conv masks and the pool/unpool matrices."""
+    (f32, on the CPU), with the conv masks and the pool/unpool matrices
+    (the trajectory model's: :func:`trajectory_reference_state_dict`)."""
+    if cfg.model_name == "TrajectoryModel":
+        return trajectory_reference_state_dict(sd, cfg)
     st = get_structure(cfg)
     E = cfg.extra_conv
     out: Dict[str, torch.Tensor] = {}
@@ -107,8 +134,11 @@ def state_dict_from_reference(sd: Mapping[str, np.ndarray],
     """Reference ``TwoHierSAVAEModel`` state dict -> port state_dict.
 
     Encoder Sequential: ``[extra_conv x E, conv, pool, leaky]``; decoder
-    Sequential: ``[upsample?, unpool, extra_conv x E, conv, leaky?]``.
+    Sequential: ``[upsample?, unpool, extra_conv x E, conv, leaky?]``.  (The
+    trajectory model's: :func:`trajectory_state_dict_from_reference`.)
     """
+    if cfg.model_name == "TrajectoryModel":
+        return trajectory_state_dict_from_reference(sd, cfg)
     st = get_structure(cfg)
     E = cfg.extra_conv
     out: Dict[str, torch.Tensor] = {}
@@ -140,4 +170,41 @@ def state_dict_from_reference(sd: Mapping[str, np.ndarray],
         _check_constant(sd, f"dec.unpools.{i}.weight", lvl.unpool_matrix)
         out[f"decoder.latent_dec_{i}.weight"] = _t(sd[f"dec.latent_dec_layers.{i}.weight"])
         out[f"decoder.latent_dec_{i}.bias"] = _t(sd[f"dec.latent_dec_layers.{i}.bias"])
+    return out
+
+
+def trajectory_reference_state_dict(sd: Mapping[str, torch.Tensor],
+                                    cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """Port trajectory state_dict -> the reference ``TrajectoryModel`` state
+    dict (f32, on the CPU): each level's Sequential ``[conv, pool, leaky]``
+    with the conv mask and the pool matrix, and ``fc_mapping``."""
+    st = get_trajectory_structure(cfg)
+    out: Dict[str, torch.Tensor] = {}
+    for i, lvl in enumerate(st.levels):
+        w = sd[f"encoder.conv_{i}.weight"]
+        out[f"enc.layers.{i}.0.weight"] = w.detach().float().cpu()
+        out[f"enc.layers.{i}.0.bias"] = sd[f"encoder.conv_{i}.bias"].detach().float().cpu()
+        out[f"enc.layers.{i}.0.mask"] = _t(np.broadcast_to(lvl.conv.mask[:, :, None],
+                                                           tuple(w.shape)))
+        out[f"enc.layers.{i}.1.weight"] = _t(lvl.pool_matrix)
+    for k in ("weight", "bias"):
+        out[f"fc_mapping.{k}"] = sd[f"fc_mapping.{k}"].detach().float().cpu()
+    return out
+
+
+def trajectory_state_dict_from_reference(sd: Mapping[str, np.ndarray],
+                                         cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """Reference ``TrajectoryModel`` state dict -> port state_dict, the
+    conv masks and pool matrices checked against this configuration's."""
+    st = get_trajectory_structure(cfg)
+    out: Dict[str, torch.Tensor] = {}
+    for i, lvl in enumerate(st.levels):
+        w = _t(sd[f"enc.layers.{i}.0.weight"])
+        out[f"encoder.conv_{i}.weight"] = w
+        out[f"encoder.conv_{i}.bias"] = _t(sd[f"enc.layers.{i}.0.bias"])
+        _check_constant(sd, f"enc.layers.{i}.0.mask",
+                        np.broadcast_to(lvl.conv.mask[:, :, None], tuple(w.shape)))
+        _check_constant(sd, f"enc.layers.{i}.1.weight", lvl.pool_matrix)
+    out["fc_mapping.weight"] = _t(sd["fc_mapping.weight"])
+    out["fc_mapping.bias"] = _t(sd["fc_mapping.bias"])
     return out

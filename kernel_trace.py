@@ -69,10 +69,10 @@ def _fwd_patches(variant):
         (last, last + "  " + stamp(22) + "\n"),
     ]
     if variant == "nobuild":
-        patches.append(("    for (int k = kp; k < K; k += 2) {",
+        patches.append(("    for (int k = kp; k < nk; k += 2) {",
                         "    for (int k = kp; k < 0; k += 2) {"))
     elif variant == "nomma":
-        patches.append(("    for (int k = 0; k < K; ++k) {\n      const uint32_t off",
+        patches.append(("    for (int k = 0; k < nk; ++k) {\n      const uint32_t off",
                         "    for (int k = 0; k < 0; ++k) {\n      const uint32_t off"))
     return patches
 

@@ -12,7 +12,11 @@ holds them against their plain versions):
   pair, every batch and every live tile is covered exactly once, in a fixed
   order, within the kernels' limits;
 - wgrad's entries, which keep a row tile with no live tile for its bias
-  gradient, and the wrappers' alignment padding.
+  gradient, and the wrappers' alignment padding;
+- the same plans at the trajectory model's four levels (K 31, stride 1,
+  C_in 72 / 84 / 108 / 168), at its training shape (batch 8, T 128: a
+  padded row of 158 columns, two tiles a warp) and the solver's (10
+  windows, T 64), each within the kernels' shared memory.
 
 Tolerance (f32): 1e-4 * max(1, max|ref|): the sums run in another order.
 """
@@ -27,11 +31,13 @@ import torch
 
 from hm_vae_tpu.ops import skeleton_nn as jsnn
 from hm_vae_torch.models.hm_vae import HMVAE
-from hm_vae_torch.models.structure import get_structure
+from hm_vae_torch.models.structure import get_structure, get_trajectory_structure
+from hm_vae_torch.models.trajectory import TrajectoryModel
 from hm_vae_torch.ops import fused_conv_pool as fcp
 from hm_vae_torch.utils import config as tcfg
 
 CONFIG = os.path.join(os.path.dirname(__file__), "..", "configs", "len64_no_aug_hm_vae.yaml")
+TRAJ_CONFIG = os.path.join(os.path.dirname(__file__), "..", "configs", "trajectory_model.yaml")
 BATCH, SMS = 8, 132  # the training batch; an H100's SMs
 
 
@@ -207,3 +213,59 @@ def test_aligned_pads_with_zeros_only_when_needed(dim, multiple):
     assert not out.narrow(dim, t.shape[dim], out.shape[dim] - t.shape[dim]).any()
     ok = torch.zeros(2, 16, 8)
     assert fcp._aligned(ok, dim, multiple) is ok
+
+
+_TRAJ = []
+
+
+def _traj_levels():
+    """The structures of the full-width trajectory model's four levels."""
+    if not _TRAJ:
+        cfg = tcfg.load_config(TRAJ_CONFIG)
+        m = TrajectoryModel(cfg.model, generator=torch.Generator().manual_seed(0))
+        _TRAJ.extend(getattr(m.encoder, f"conv_{i}").structure()
+                     for i in range(len(get_trajectory_structure(cfg.model).levels)))
+    return _TRAJ
+
+
+@pytest.mark.parametrize("B,T", [(8, 128), (10, 64)], ids=["train", "solver"])
+@pytest.mark.parametrize("level", range(4))
+def test_plans_at_the_trajectory_shapes(level, B, T):
+    """dgrad: one batch a group where the padded row needs more than one
+    tile a warp, every group and live row tile covered once, the block in
+    shared memory; wgrad: the batches covered once, the block in shared
+    memory."""
+    s = _traj_levels()[level]
+    assert (s.kernel_size, s.stride, s.padding) == (31, 1, 15)
+    assert s.in_channels == (72, 84, 108, 168)[level]
+    T_out = _t_out(s, T)
+    assert T_out == T
+    pairs = s.dgrad_start.numel() - 1
+    assert pairs == -(-s.in_channels // 16)  # C_in 84, 108: a last single chunk
+    nbb, groups, split = fcp.dgrad_plan(B, T, 31, 1, 15, T_out, pairs, s.dgrad_max_live, SMS)
+    Tp = T + 30
+    tiles = -(-nbb * Tp // 16)
+    assert tiles <= fcp.BWD_WARPS * fcp.DGRAD_TILES
+    assert nbb == 1 or tiles <= fcp.BWD_WARPS
+    if T == 128:
+        assert Tp == 158 and nbb == 1 and tiles == 10
+    assert fcp._dgrad_smem(T, 31, T_out, 1, 15, nbb) <= fcp.MAX_SMEM
+    assert 1 <= split <= min(fcp.MAX_SPLIT, s.dgrad_max_live)
+    assert [b for g in range(groups) for b in range(g * nbb, min(B, (g + 1) * nbb))] == list(
+        range(B))
+    sb, wsplit = fcp.wgrad_plan(B, T_out, s.wgrad_row.numel(), SMS)
+    assert sb == 1 and 1 <= wsplit <= min(fcp.MAX_SPLIT, B)
+    assert fcp._wgrad_smem(B, T, 31, T_out, T_out, 1, sb, wsplit) <= fcp.MAX_SMEM
+    shares = [list(cluster_share(B, r, wsplit, interleaved=False)) for r in range(wsplit)]
+    assert sum(shares, []) == list(range(B)) and all(shares)
+
+
+def test_plans_reject_what_the_kernels_cannot_take():
+    """A padded row beyond 16 tiles, or K past wgrad's 32 tap tiles."""
+    with pytest.raises(ValueError, match="T_in \\+ 2\\*padding <= 256"):
+        fcp.dgrad_plan(1, 240, 31, 1, 15, 240, 2, 1, SMS)
+    live = torch.ones(64, 8, dtype=torch.bool)
+    s = fcp.pack_structure(live, 33, torch.float32, 1, 16)
+    gy = torch.zeros(1, 64, 8)
+    with pytest.raises(ValueError, match="K <= 31"):
+        fcp._bwd_checks(s, gy, gy)

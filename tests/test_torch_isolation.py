@@ -15,7 +15,9 @@ TRAINING = tuple(f"hm_vae_torch.{m}" for m in (
     "train.losses", "train.optim", "train.train_step", "train.trainer", "data.synthetic",
     "data.layout", "data.dataset", "utils.logging", "cli.train",
     # the latent-optimization path
-    "apps.latent_opt", "apps.tasks", "apps.metrics", "apps.baselines", "cli.eval_recovery"))
+    "apps.latent_opt", "apps.tasks", "apps.metrics", "apps.baselines", "cli.eval_recovery",
+    # the trajectory model
+    "models.trajectory", "cli.eval_trajectory"))
 
 
 def _port_sources():

@@ -15,7 +15,8 @@ same weights, targets, mask and numpy z, with ``opt_it`` crossing
   10x the spread of a JAX run from the weights scaled by 1 + 1e-7, + 1e-5
   (the self-perturb band of tests/test_app_parity.py), and within 1e-5 over
   the first 3 iterations;
-- the unported options raise.
+- the unported options raise.  (The keyframe trajectory loss:
+  ``test_torch_trajectory.py``.)
 """
 
 import dataclasses
@@ -163,12 +164,10 @@ def test_unported_options_raise(change, match):
 def test_unported_arguments_raise():
     tc = _cfgs()[1]
     tm = _setup()["tm"]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tlo.make_latent_optimizer(tm, tc, trajectory=(None, None, None), key_frames=(0, 7))
     with pytest.raises(NotImplementedError, match="item 11"):
         LatentOptApps(tm, tc, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        LatentOptApps(tm, tc, trajectory=(None, None, None))
+    # a trajectory without optimize_trajectory is not used, as in the JAX package
+    assert LatentOptApps(tm, tc, trajectory=(None, None))._traj_solve is None
     with pytest.raises(ValueError, match="opt_param_dtype"):
         tlo.make_latent_optimizer(tm, dataclasses.replace(
             tc, latent_opt=dataclasses.replace(tc.latent_opt, opt_param_dtype="float16")))

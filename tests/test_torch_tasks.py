@@ -278,8 +278,6 @@ def test_eval_recovery_cli_runs_every_task(tmp_path, capsys):
 
 @pytest.mark.parametrize("extra,match", [
     (["--final_try_long_seq_interpolation", "--gen_vis"], "item 10"),
-    (["--final_try_long_seq_interpolation", "--trajectory_config", "x.yaml"], "item 7"),
-    (["--try_interpolation_w_trajectory_single_window"], "item 7"),
     (["--final_try_long_seq_interpolation", "--data_parallel", "2"], "item 11"),
 ])
 def test_eval_recovery_unported_flags_raise(tmp_path, extra, match):

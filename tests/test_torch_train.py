@@ -4,6 +4,7 @@ package's ``import_hmvae_params`` reads; a 20-step loss trajectory tracks the
 JAX ``Trainer`` from the same init on the same batches; the KL curriculum's
 heads keep their optimizer counts at 0 until ``iteration_interval``; the NaN
 guard restores; the training CLI trains and resumes; unported options raise.
+(The trajectory model's training: ``test_torch_trajectory.py``.)
 """
 
 import dataclasses
@@ -212,7 +213,7 @@ def test_cli_trains_and_resumes(tmp_path, capsys):
 
 @pytest.mark.parametrize("change", [
     {"run": {"steps_per_call": 2}},
-    {"model": {"model_name": "TrajectoryModel"}},
+    {"model": {"lora_rank": 2}},
     {"data": {"random_root_rot_flag": True}},
     {"run": {"model_parallel": 2}},
 ])
