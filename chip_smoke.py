@@ -76,7 +76,25 @@ Phases, each of which exits non-zero on failure:
    (ms, launches per phase, profile), and ``eval_recovery
    --try_interpolation_w_trajectory_single_window`` on the synthetic test
    split;
-16. print the kernel summary line and, last, the device line.
+16. the lora scope's base convs (``finetune_scope: lora``: each decoder
+   conv's folded weight shared by every window, at slope 1.0 and with no
+   bias, the adapters' delta and the activation added after): forward and
+   dgrad at the four decoder levels with 10 windows of one batch, held and
+   timed as phases 2 and 5 hold theirs, two runs bit-equal; the adapters'
+   rank-r convs, forward and backward, profiled beside cuDNN's grouped
+   ``conv1d`` of the same function;
+17. the lora solve: a short 10-window solve on the GPU against the CPU as in
+   phase 9 (the solver draws the same adapters on both sides), then the full
+   solve: 600 / 596 / 0 non-windowed and no windowed launches, ms, peak
+   memory, profile;
+18. the bf16 clone (``opt_param_dtype`` and ``opt_moment_dtype``
+   bfloat16): the short solve on the GPU against the CPU, then the full
+   solve: the f32 solve's launches, ms and peak memory beside the f32
+   solve's, and the clones' bytes;
+19. ``eval_recovery --finetune_scope lora``, and ``eval_recovery`` under
+   ``configs/len64_production.yaml`` (the bf16 clone and moments) with
+   phase 7's checkpoint, on the synthetic test split;
+20. print the kernel summary line and, last, the device line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -463,12 +481,15 @@ def e2e_phase(cfg, dtype, x6d):
 def profile_calls(fn, calls: int = 10):
     """Device time by kernel over `calls` calls of `fn` (torch.profiler), the
     wall time they took, the device's idle share of that wall time, and the
-    device operations (kernels, copies, sets) per call."""
+    device operations (kernels, copies, sets) per call.  It records the
+    device's activity only: the host's operator events are read by nothing
+    here, and at a solve's ~140k device operations they cost over a minute
+    of processing."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
@@ -936,7 +957,8 @@ def solve_sequence(rng):
     return frames[:, layout.ROTMAT].reshape(T, 24, 3, 3), np.cumsum(steps, axis=0)
 
 
-def solve_agreement_phase(seq, traj=None, root_trans=None, phase="solve_agreement"):
+def solve_agreement_phase(seq, traj=None, root_trans=None, phase="solve_agreement",
+                          lat=None):
     """A 12-iteration 10-window interpolation (z phase 6, decoder phase 5,
     the last a decoder step) through ``LatentOptApps.interpolate`` on the
     GPU and on the CPU from the same weights and z, and on each side from
@@ -953,12 +975,15 @@ def solve_agreement_phase(seq, traj=None, root_trans=None, phase="solve_agreemen
 
     With `traj` = (trajectory model, mean_std) and the sequence's
     `root_trans`: the 12-iteration solve under the keyframe trajectory loss
-    (reg_w_trajectory 1), the trajectory model on each side's device."""
+    (reg_w_trajectory 1), the trajectory model on each side's device.  With
+    `lat` (solver overrides: the lora scope, the bf16 clone) the
+    12-iteration solve in that mode, its adapters drawn on the CPU by the
+    solver on both sides.  Either runs the 12-iteration solve only."""
     from hm_vae_torch.apps.tasks import LatentOptApps
     from hm_vae_torch.models.hm_vae import HMVAE
 
     extra = {} if traj is None else {"optimize_trajectory": True, "reg_w_trajectory": 1.0}
-    cfg = latent_config(opt_it=12, prev_epochs=5, **extra)
+    cfg = latent_config(opt_it=12, prev_epochs=5, **extra, **(lat or {}))
     base = HMVAE(cfg.model, cfg.optim.init, generator=torch.Generator().manual_seed(SEED))
     outs, wall = {}, {}
 
@@ -1006,11 +1031,12 @@ def solve_agreement_phase(seq, traj=None, root_trans=None, phase="solve_agreemen
         errs[what] = {"err": err, "tol": tol}
     row = {"phase": phase, "config": os.path.relpath(LATENT_CONFIG, ROOT),
            "windows": WINDOWS, "opt_it": 12, "prev_epochs": 5, "trajectory": traj is not None,
+           "overrides": lat or {},
            "loss_gpu": loss["gpu"].tolist(), "loss_cpu": loss["cpu"].tolist(),
            "rel_diff": rel.tolist(), "band": band.tolist(),
            "spread": {k: v.tolist() for k, v in spread.items()}, "outputs": errs,
            "share_well": float(well.float().mean()), "seconds": wall}
-    if traj is not None:
+    if traj is not None or lat:
         print(json.dumps(row), flush=True)
         return row
     # before Adam's amplification: 6 z iterations, the last iteration's
@@ -1089,76 +1115,65 @@ def solve_phase(model, seq):
     n_d = lat.opt_it - 1 - n_z
     LatentOptApps(model, latent_config(opt_it=3, prev_epochs=0)).interpolate(
         seq, torch.Generator().manual_seed(SEED))  # warm-up: structures, libraries
-    rows = {}
-    for mode, overrides, want in (
-            ("per_window", {}, (4 * n_z, 4 * n_z, 0, 4 * (n_d + 1), 4 * n_d, 4 * n_d)),
-            ("shared", {"per_window_decoder": False},
-             (4 * (n_z + n_d + 1), 4 * (n_z + n_d), 4 * n_d, 0, 0, 0)),
-            ("last_conv", {"finetune_scope": "last_conv"},
-             (4 * n_z + 3 * (n_d + 1), 4 * n_z, 0, n_d + 1, 0, n_d))):
-        apps = LatentOptApps(model, latent_config(**overrides))
-        out, launches, ms = timed_solve(apps, seq, reps=2 if mode == "per_window" else 1)
-        hist = out["loss_history"].cpu().numpy()
-        if launches != dict(zip(LAUNCH_NAMES, want)):
-            fail(f"{mode} solve: kernel launches {launches}, expected "
-                 f"{dict(zip(LAUNCH_NAMES, want))} (z phase {n_z}, decoder phase {n_d} + 1)")
-        if not (np.isfinite(hist).all() and len(hist) == lat.opt_it and hist[-1] < hist[0]):
-            fail(f"{mode} solve: loss history {hist.tolist()}")
-        for k in ("rot_6d", "rot_mat", "pose"):
-            if out[k].shape[0] != seq.shape[0] or not torch.isfinite(out[k]).all():
-                fail(f"{mode} solve: {k} of shape {tuple(out[k].shape)} or non-finite")
-        rows[mode] = {"ms_per_solve": ms, "launches": launches,
-                      "loss_first": float(hist[0]), "loss_last": float(hist[-1])}
-        if mode == "per_window":
-            rows[mode]["profile"] = profile_calls(
-                lambda: apps.interpolate(seq, torch.Generator().manual_seed(SEED)), calls=1)
-            main_launches = launches
+    rows = {mode: mode_solve(model, seq, f"{mode} solve", overrides, want,
+                             reps=2 if mode == "per_window" else 1,
+                             profile=mode == "per_window")
+            for mode, overrides, want in (
+                ("per_window", {}, (4 * n_z, 4 * n_z, 0, 4 * (n_d + 1), 4 * n_d, 4 * n_d)),
+                ("shared", {"per_window_decoder": False},
+                 (4 * (n_z + n_d + 1), 4 * (n_z + n_d), 4 * n_d, 0, 0, 0)),
+                ("last_conv", {"finetune_scope": "last_conv"},
+                 (4 * n_z + 3 * (n_d + 1), 4 * n_z, 0, n_d + 1, 0, n_d)))}
     per_iter = {"z_phase": {"fwd": 4, "dgrad": 4, "wgrad": 0},
                 "decoder_phase": {"fwd_windowed": 4, "dgrad_windowed": 4, "wgrad_windowed": 4}}
     row = {"phase": "solve", "config": os.path.relpath(LATENT_CONFIG, ROOT), "windows": WINDOWS,
            "opt_it": lat.opt_it, "z_iterations": n_z, "decoder_iterations": n_d,
            "launches_per_iteration": per_iter, **rows}
     print(json.dumps(row), flush=True)
-    return row, main_launches
+    return row, rows["per_window"]["launches"]
+
+
+def mode_solve(model, seq, name, overrides, want, reps=1, profile=True):
+    """The full solve (10 windows, 150 iterations; the config's solver with
+    `overrides`) on the card: its kernel launches must be exactly `want`
+    (LAUNCH_NAMES order; the first, counted solve warms up), the loss fall,
+    the outputs be finite; ms per solve by CUDA events over `reps` solves,
+    the peak of allocated device memory, and the profile of one solve."""
+    from hm_vae_torch.apps.tasks import LatentOptApps
+
+    apps = LatentOptApps(model, latent_config(**overrides))
+    torch.cuda.reset_peak_memory_stats()
+    out, launches, ms = timed_solve(apps, seq, reps=reps)
+    peak = torch.cuda.max_memory_allocated()
+    want = dict(zip(LAUNCH_NAMES, want))
+    if launches != want:
+        fail(f"{name}: kernel launches {launches}, expected {want}")
+    hist = out["loss_history"].cpu().numpy()
+    if not (np.isfinite(hist).all() and len(hist) == apps.cfg.latent_opt.opt_it
+            and hist[-1] < hist[0]):
+        fail(f"{name}: loss history {hist.tolist()}")
+    for k in ("rot_6d", "rot_mat", "pose"):
+        if out[k].shape[0] != seq.shape[0] or not torch.isfinite(out[k]).all():
+            fail(f"{name}: {k} of shape {tuple(out[k].shape)} or non-finite")
+    row = {"ms_per_solve": ms, "launches": launches, "peak_memory_bytes": peak,
+           "loss_first": float(hist[0]), "loss_last": float(hist[-1])}
+    if profile:
+        row["profile"] = profile_calls(
+            lambda: apps.interpolate(seq, torch.Generator().manual_seed(SEED)), calls=1)
+    return row
 
 
 def eval_phase(data_root, model, ck):
     """``python -m hm_vae_torch.cli.eval_recovery`` (in this process) on two
     sequences of the synthetic test split with the training CLI's
-    checkpoint `ck`; then completion and generation through LatentOptApps
-    at a shorter solve."""
+    checkpoint `ck` (:func:`eval_cli`), its solves running the kernels of
+    both phases; then completion and generation through LatentOptApps at a
+    shorter solve."""
     from hm_vae_torch.apps.tasks import LatentOptApps
-    from hm_vae_torch.cli import eval_recovery
     from hm_vae_torch.data.dataset import EvalMotionDataset
 
-    out = os.path.join(OUT_DIR, "eval")
-    shutil.rmtree(out, ignore_errors=True)
-    counters = launch_counters()
-    for c in counters:
-        c.launches = 0
-    t0 = time.perf_counter()
-    eval_recovery.main(["--config", LATENT_CONFIG, "--output_path", out, "--data_root",
-                        data_root, "--test_model", ck, "--final_try_long_seq_interpolation",
-                        "--max_seqs", "2", "--device", DEV, "--seed", str(SEED)])
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    cli_launches = {c.__name__: c.launches for c in counters}
-    d = os.path.join(out, "eval_long_seq_interpolation",
-                     os.path.splitext(os.path.basename(LATENT_CONFIG))[0])
-    files = sorted(os.listdir(d)) if os.path.isdir(d) else []
-    res = [f for f in files if f.endswith("_rot_opt_res.npy")]
-    if len(res) != 2 or "summary.json" not in files:
-        fail(f"eval_recovery wrote {files}, expected two *_rot_opt_res.npy and summary.json")
-    for f in res:
-        a = np.load(os.path.join(d, f))
-        if a.ndim != 4 or a.shape[1:] != (24, 3, 3) or a.shape[0] % 64 or not np.isfinite(a).all():
-            fail(f"eval_recovery {f}: shape {a.shape} or non-finite")
-    with open(os.path.join(d, "summary.json")) as f:
-        summary = json.load(f)
-    if not (cli_launches["fused_conv_pool_dgrad"]
-            and cli_launches["fused_conv_pool_wgrad_windowed"]):
-        fail(f"eval_recovery: kernel launches {cli_launches}: the solves did not run the "
-             "kernels of both phases")
+    row = eval_cli(data_root, ck, "eval_recovery", LATENT_CONFIG, [],
+                   lambda n: n["fused_conv_pool_dgrad"] and n["fused_conv_pool_wgrad_windowed"])
 
     cfg = latent_config(opt_it=30, prev_epochs=10, prev_epochs_completion=20)
     apps = LatentOptApps(model, cfg)
@@ -1179,16 +1194,15 @@ def eval_phase(data_root, model, ck):
                 if v.shape[0] != T or not torch.isfinite(v).all():
                     fail(f"{what} of sequence {i}: {k} of shape {tuple(v.shape)}, expected "
                          f"{T} frames, or non-finite")
-    row = {"phase": "eval_recovery", "task": "final_try_long_seq_interpolation",
-           "sequences": len(res), "files": files, "summary": summary, "seconds": seconds,
-           "launches": cli_launches, "completion_generation_seconds": apps_seconds,
-           "completion_frames": [int(o["pose"].shape[0]) for o in comp],
-           "generation_frames": [int(o["pose"].shape[0]) for o in gen]}
+    row.update(completion_generation_seconds=apps_seconds,
+               completion_frames=[int(o["pose"].shape[0]) for o in comp],
+               generation_frames=[int(o["pose"].shape[0]) for o in gen])
     print(json.dumps(row), flush=True)
     return row
 
 
 TRAJ_CONFIG = os.path.join(ROOT, "configs", "trajectory_model.yaml")
+PRODUCTION_CONFIG = os.path.join(ROOT, "configs", "len64_production.yaml")
 TRAJ_SERVE_T = 300  # eval_trajectory runs a whole sequence in one call
 
 
@@ -1352,6 +1366,127 @@ def eval_traj_recovery_phase(data_root, vae_ck, traj_ck):
     print(json.dumps(row), flush=True)
     return row
 
+LORA = {"finetune_scope": "lora"}
+BF16_CLONE = {"opt_param_dtype": "bfloat16", "opt_moment_dtype": "bfloat16"}
+
+
+def lora_base_phase(model, st, gen):
+    """The lora scope's base convs: the four decoder levels' shared folded
+    weights at slope 1.0 and with no bias, on 10 windows of one batch each
+    (one batch of 10 through one weight), f32: the forward and dgrad as
+    phases 2 and 5 hold and time them (dgrad also against autograd of the
+    plain forward, two runs bit-equal), the forward also bit-equal on two
+    runs.  Then the adapters' rank-r convs (``lora_delta``: im2col products
+    batched over windows, rank ``lora_rank``), forward and backward at the
+    four levels, as the decoder phase runs them an iteration: device time by
+    ``torch.profiler``, beside the same function as cuDNN's ``conv1d``
+    grouped by window (the yardstick, used nowhere in the port), which must
+    agree with it."""
+    from hm_vae_torch.models.hm_vae import lora_b_init, lora_delta
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+
+    rank = latent_config().latent_opt.lora_rank
+    fwd, bwd, deltas = [], [], []
+    for name, conv, T_in in level_cases(model, st):
+        if not name.startswith("dec"):
+            continue
+        base = copy.deepcopy(conv)
+        base.negative_slope, base.bias = 1.0, None
+        fwd.append(fwd_level_row(f"{name}_lora_base", base, T_in, base.spec.stride, WINDOWS,
+                                 torch.float32, gen))
+        bwd.append(bwd_level_row(f"{name}_lora_base", base, T_in, WINDOWS, gen,
+                                 with_wgrad=False))
+        with torch.no_grad():
+            packed = base.packed_operands()
+            x = torch.randn((WINDOWS, packed.in_channels, T_in), generator=gen).to(DEV)
+            if not torch.equal(fcp.fused_conv_pool_packed(x, packed),
+                               fcp.fused_conv_pool_packed(x, packed)):
+                fail(f"{name}: the slope-1.0 forward differs between two runs")
+        out_f, in_f = conv.folded_shape()
+        s = conv.spec
+        a = (0.1 * torch.randn((WINDOWS, out_f, rank), generator=gen)).to(DEV)
+        b = torch.stack([lora_b_init(rank, in_f, s.kernel_size, gen)
+                         for _ in range(WINDOWS)]).to(DEV)
+        deltas.append((x.requires_grad_(), a.requires_grad_(), b.requires_grad_(), s))
+
+    def port(x, a, b, s):
+        return lora_delta(x, a, b, s.stride, s.padding, s.padding_mode)
+
+    def grouped(x, a, b, s):
+        G, r, K = b.shape[0], b.shape[1], b.shape[-1]
+        xp = F.pad(x.reshape(1, -1, x.shape[-1]), (s.padding, s.padding),
+                   mode="reflect" if s.padding_mode == "reflect" else "constant")
+        lo = F.conv1d(xp, b.reshape(G * r, -1, K), stride=s.stride, groups=G)
+        return torch.einsum("gor,grt->got", a, lo.reshape(G, r, -1))
+
+    def iteration(delta):
+        def run():
+            outs = [delta(*d) for d in deltas]
+            leaves = [t for x, a, b, _ in deltas for t in (x, a, b)]
+            torch.autograd.grad(sum(o.sum() for o in outs), leaves)
+        return run
+
+    with torch.no_grad():
+        err = max(float((port(*d) - grouped(*d)).abs().max()) for d in deltas)
+        scale = max(float(grouped(*d).abs().max()) for d in deltas)
+    if not err <= 1e-4 * max(1.0, scale):
+        fail(f"lora_delta against the grouped conv1d: max |diff| {err:.3e}")
+    row = {"phase": "lora_rank_conv", "windows": WINDOWS, "rank": rank,
+           "note": "the adapters' rank-r convs and A products, forward and backward at the 4 "
+                   "decoder levels: one decoder-phase iteration's; grouped_conv1d: the same "
+                   "function by cuDNN's conv1d grouped by window, TF32 off",
+           "max_abs_err": err, "profile": profile_calls(iteration(port), calls=10),
+           "grouped_conv1d_profile": profile_calls(iteration(grouped), calls=10)}
+    print(json.dumps(row), flush=True)
+    return fwd, bwd, row
+
+
+def clone_bytes(model, dtype):
+    """Bytes of the full-scope per-window clones of `model`'s decoder (the
+    decoder phase's stacked parameters, WINDOWS of each) stored in `dtype`."""
+    n = sum(p.numel() for p in model.decoder.parameters())
+    return WINDOWS * n * torch.empty((), dtype=dtype).element_size()
+
+
+def eval_cli(data_root, ck, phase, config, extra, check):
+    """``eval_recovery --final_try_long_seq_interpolation`` (in this
+    process) on two sequences of the synthetic test split with the training
+    CLI's checkpoint `ck`, under `config` and the flags `extra`; the files
+    and the summary (two outputs of whole windows, finite), and
+    `check(launches)` on the kernel launches of the run; returns its row."""
+    from hm_vae_torch.cli import eval_recovery
+
+    out = os.path.join(OUT_DIR, phase)
+    shutil.rmtree(out, ignore_errors=True)
+    counters = launch_counters()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    eval_recovery.main(["--config", config, "--output_path", out, "--data_root", data_root,
+                        "--test_model", ck, "--final_try_long_seq_interpolation",
+                        "--max_seqs", "2", "--device", DEV, "--seed", str(SEED)] + extra)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    d = os.path.join(out, "eval_long_seq_interpolation",
+                     os.path.splitext(os.path.basename(config))[0])
+    files = sorted(os.listdir(d)) if os.path.isdir(d) else []
+    res = [f for f in files if f.endswith("_rot_opt_res.npy")]
+    if len(res) != 2 or "summary.json" not in files:
+        fail(f"{phase} wrote {files}, expected two *_rot_opt_res.npy and summary.json")
+    for f in res:
+        a = np.load(os.path.join(d, f))
+        if a.ndim != 4 or a.shape[1:] != (24, 3, 3) or a.shape[0] % 64 or not np.isfinite(a).all():
+            fail(f"{phase} {f}: shape {a.shape} or non-finite")
+    with open(os.path.join(d, "summary.json")) as f:
+        summary = json.load(f)
+    if not check(launches):
+        fail(f"{phase}: kernel launches {launches}")
+    return {"phase": phase, "task": "final_try_long_seq_interpolation",
+            "config": os.path.relpath(config, ROOT), "flags": extra, "files": files,
+            "summary": summary, "seconds": seconds, "launches": launches}
+
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -1453,7 +1588,48 @@ def main() -> None:
     traj_solve = traj_solve_phase(lmodel, traj, seq, root_trans)
     eval_traj_recovery_phase(data_root, vae_ck, traj_ck)
 
-    # 16. summary: sums over the 8 levels of one reconstruct (forward) or of
+    # 16. the lora scope's base convs: forward and dgrad at slope 1.0, no
+    #     bias, 10 windows through one weight; the adapters' rank-r convs
+    lat0 = lcfg.latent_opt
+    n_z = min(lat0.prev_epochs + 1, lat0.opt_it - 1)
+    n_d = lat0.opt_it - 1 - n_z
+    lora_fwd, lora_bwd, rank_row = lora_base_phase(lmodel, get_structure(lcfg.model), gen)
+    # 17. the lora solve: GPU against CPU, then the full solve (the base
+    #     convs non-windowed, no wgrad: 4 forward an iteration, 4 dgrad but
+    #     the last)
+    solve_agreement_phase(seq, phase="solve_agreement_lora", lat=LORA)
+    lora_solve = {"phase": "solve_lora", "config": os.path.relpath(LATENT_CONFIG, ROOT),
+                  "overrides": LORA, "windows": WINDOWS, "opt_it": lat0.opt_it,
+                  **mode_solve(lmodel, seq, "lora solve", LORA,
+                               (4 * lat0.opt_it, 4 * (n_z + n_d), 0, 0, 0, 0)),
+                  "rank_conv_device_us_per_iteration":
+                      rank_row["profile"]["device_us_per_call"]}
+    print(json.dumps(lora_solve), flush=True)
+    # 18. the bf16 clone: GPU against CPU, then the full solve (the launches
+    #     of the f32 solve), its clone bytes and time beside the f32 solve's
+    solve_agreement_phase(seq, phase="solve_agreement_bf16_clone", lat=BF16_CLONE)
+    bf16_solve = {"phase": "solve_bf16_clone", "config": os.path.relpath(LATENT_CONFIG, ROOT),
+                  "overrides": BF16_CLONE, "windows": WINDOWS, "opt_it": lat0.opt_it,
+                  **mode_solve(lmodel, seq, "bf16-clone solve", BF16_CLONE,
+                               tuple(solve_launches[n] for n in LAUNCH_NAMES)),
+                  "clone_bytes": {"bfloat16": clone_bytes(lmodel, torch.bfloat16),
+                                  "float32": clone_bytes(lmodel, torch.float32)},
+                  "f32_solve": {k: solve["per_window"][k]
+                                for k in ("ms_per_solve", "peak_memory_bytes")}}
+    print(json.dumps(bf16_solve), flush=True)
+    # 19. the entry points: eval_recovery under the lora scope, and under the
+    #     production config (its bf16 clone and moments; its training keys
+    #     stay out of the evaluation) with phase 7's checkpoint
+    for row in (eval_cli(data_root, vae_ck, "eval_recovery_lora", LATENT_CONFIG,
+                         ["--finetune_scope", "lora"],
+                         lambda n: n["fused_conv_pool_dgrad"] and not n["fused_conv_pool_wgrad"]
+                         and not any(n[k] for k in LAUNCH_NAMES[3:])),
+                eval_cli(data_root, vae_ck, "eval_recovery_production", PRODUCTION_CONFIG, [],
+                         lambda n: n["fused_conv_pool_dgrad"]
+                         and n["fused_conv_pool_wgrad_windowed"])):
+        print(json.dumps(row), flush=True)
+
+    # 20. summary: sums over the 8 levels of one reconstruct (forward) or of
     #    one training step (backward), over the 4 decoder levels of a solve's
     #    iteration (windowed), and over the trajectory model's 4 levels
     def total(rows):
@@ -1521,8 +1697,28 @@ def main() -> None:
          "torch.nn.grad.conv1d_input"),
         ("wgrad", "_wgrad", "fused_conv_pool_bwd.cu", "hm_vae_tpu/models/hm_vae.py:200",
          "torch.nn.grad.conv1d_weight"))]}
-    for row in summary["kernels"][:3]:
-        row["launches_per_solve"] = solve_launches[row["name"]]
+    for row in summary["kernels"][:6]:
+        if row["name"] in LAUNCH_NAMES[:3]:
+            row["launches_per_solve"] = solve_launches[row["name"]]
+        row["launches_per_lora_solve"] = lora_solve["launches"][row["name"]]
+        row["launches_per_bf16_clone_solve"] = bf16_solve["launches"][row["name"]]
+    for what, rows, lib in (("", lora_fwd, "cuDNN conv1d"),
+                            ("_dgrad", [r["dgrad"] for r in lora_bwd],
+                             "torch.nn.grad.conv1d_input")):
+        summary["kernels"].append({
+            "name": f"fused_conv_pool{what}@lora_base", "route": "cuda",
+            "source": "hm_vae_torch/csrc/" + ("fused_conv_pool_bwd.cu" if what
+                                              else "fused_conv_pool.cu"),
+            "replaces": ("hm_vae_tpu/ops/pallas_kernels.py:65" if not what else
+                         "hm_vae_tpu/models/hm_vae.py:200 (JAX autodiff of the level)")
+                        + " at the lora scope's base conv (hm_vae_tpu/models/hm_vae.py:200-226, "
+                          "the weight shared by every window under jax.vmap)",
+            "launches": lora_solve["launches"][f"fused_conv_pool{what}"],
+            **total(rows),
+            "note": f"f32, slope 1.0, no bias, {WINDOWS} windows of one batch through one "
+                    "weight; sums over the 4 decoder levels; launches: in one 150-iteration "
+                    "lora solve; times: device time from CUDA-graph replays; library_ms: "
+                    f"{lib} on the folded weight, TF32 off"})
     traj_launches = {"train": traj_train["launches_per_step"],
                      "solve": traj_solve["launches"], "serve": traj_eval["launches"]}
     traj_notes = {

@@ -20,9 +20,18 @@ model's world-space poses, ``<name>_root_trans_opt_res.npy``.  ``--device``
 defaults to ``cuda`` and raises without CUDA unless ``--device cpu`` is
 given.
 
-Not ported: the lora scope and the bf16 clone (their flags are not taken),
-and, each raising with the ROADMAP item that brings it: ``--gen_vis``
-(``utils/viz.py``, item 10) and ``--data_parallel`` (item 11).
+The solver's modes: ``--finetune_scope`` (``full``, ``lora``, ``last_conv``,
+``heads``), ``--lora_rank`` and ``--lora_lr_mult`` for the lora scope,
+``--opt_param_dtype`` (the bf16 stochastically rounded clone) and
+``--opt_moment_dtype``, each overriding the config's ``latent_opt``.  A
+training config's execution keys (``steps_per_call``, ``async_checkpoint``,
+``param_dtype``, ``compact_transfer``, ``wire_format``, ...) do not reach
+the evaluation: the model is built at the defaults, f32, so that
+``configs/len64_production.yaml`` evaluates as it solves (its bf16 clone
+and moments).
+
+Not ported, each raising with the ROADMAP item that brings it:
+``--gen_vis`` (``utils/viz.py``, item 10) and ``--data_parallel`` (item 11).
 """
 
 from __future__ import annotations
@@ -65,8 +74,17 @@ def main(argv=None):
     p.add_argument("--shared_decoder_clone", action="store_true",
                    help="latent_opt.per_window_decoder=False: one decoder clone shared by "
                         "each batched solve (default: a clone per window)")
-    p.add_argument("--finetune_scope", default=None, choices=["full", "last_conv", "heads"],
-                   help="decoder part the fine-tune phase optimizes")
+    p.add_argument("--finetune_scope", default=None,
+                   choices=["full", "lora", "last_conv", "heads"],
+                   help="decoder part the fine-tune phase optimizes (lora: rank-r adapters, "
+                        "conv biases and latent heads)")
+    p.add_argument("--lora_rank", type=int, default=None,
+                   help="adapter rank of --finetune_scope lora (latent_opt.lora_rank)")
+    p.add_argument("--lora_lr_mult", type=float, default=None,
+                   help="learning-rate multiplier of the adapters (latent_opt.lora_lr_mult)")
+    p.add_argument("--opt_param_dtype", default=None, choices=["float32", "bfloat16"],
+                   help="storage dtype of the solver's decoder clone (bfloat16: stochastically "
+                        "rounded write-back)")
     p.add_argument("--opt_moment_dtype", default=None, choices=["float32", "bfloat16"],
                    help="the solver's Adam moment storage dtype")
     p.add_argument("--final_motion_completion_long_seq", action="store_true")
@@ -95,10 +113,11 @@ def main(argv=None):
     from ..utils.device import resolve_device
 
     device = resolve_device(args.device)
-    cfg = load_config(args.config)
+    cfg = eval_config(load_config(args.config))
     lat_kw = {k: v for k, v in (
         ("per_window_decoder", False if args.shared_decoder_clone else None),
-        ("finetune_scope", args.finetune_scope),
+        ("finetune_scope", args.finetune_scope), ("lora_rank", args.lora_rank),
+        ("lora_lr_mult", args.lora_lr_mult), ("opt_param_dtype", args.opt_param_dtype),
         ("opt_moment_dtype", args.opt_moment_dtype)) if v is not None}
     cfg = dataclasses.replace(cfg, latent_opt=dataclasses.replace(cfg.latent_opt, **lat_kw))
     if args.data_root:
@@ -191,6 +210,22 @@ def main(argv=None):
         _run_generation_batched(apps, seed, **run)
     else:
         _run_interpolation(apps, seed, cfg, **run)
+
+
+def eval_config(cfg):
+    """``cfg`` without its training execution keys: the optimizer's
+    parameter and moment storage, the data wire and the run's dispatch and
+    checkpoint modes at their defaults (the solver's own dtypes are
+    ``latent_opt``'s)."""
+    from ..utils.config import DataConfig, OptimConfig, RunConfig
+
+    def defaults(section, cls, names):
+        return dataclasses.replace(section, **{n: getattr(cls, n) for n in names})
+
+    return dataclasses.replace(
+        cfg, optim=defaults(cfg.optim, OptimConfig, ("param_dtype", "moment_dtype")),
+        data=defaults(cfg.data, DataConfig, ("compact_transfer", "wire_format")),
+        run=defaults(cfg.run, RunConfig, ("steps_per_call", "async_checkpoint")))
 
 
 def _gen(seed: int, offset: int) -> torch.Generator:

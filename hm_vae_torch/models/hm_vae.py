@@ -24,6 +24,18 @@ products and the convs run
 :class:`~hm_vae_torch.ops.fused_conv_pool.WindowedFusedConvPoolFn` on the
 G folded weights.
 
+With ``lora_rank`` r > 0 every decoder conv (its extra convs included; the
+encoder has none) carries a rank-r adapter in folded weight space, as the
+JAX module's ``SkeletonConv.lora_rank``: ``lora_a`` (out_f, r), zero at
+init, and ``lora_b`` (r, in_f, K), uniform within +-1/sqrt(in_f*K), with
+in_f the folded (pre-unpool) input channels.  Such a conv runs its base
+conv through the kernel at slope 1.0 with no bias, adds the bias and
+``A @ conv(x, B)`` (plain PyTorch: the rank-r conv as an im2col product,
+batched over windows under per-window adapters), then the LeakyReLU: with
+``lora_a == 0`` it is the base conv exactly.  The test-time solver's lora
+scope passes the adapters in its parameter dict, beside the shared base
+weights.
+
 Hierarchical latents (shallow -> deep), for len-64/SMPL-24:
 ``[(B,14,2*shallow_d), (B,9,2*latent_d), (B,7,2*latent_d), (B,7,2*latent_d)]``.
 The decoder reads only the deepest z (seeds level 0) and the shallowest z
@@ -112,6 +124,28 @@ def _linear(in_f: int, out_f: int, init_type: str, generator) -> Linear:
     return lin
 
 
+def lora_b_init(rank: int, in_f: int, kernel_size: int, generator) -> torch.Tensor:
+    """A fresh ``lora_b`` (r, in_f, K): uniform within +-1/sqrt(in_f*K), the
+    folded fan-in."""
+    u = torch.rand((rank, in_f, kernel_size), generator=generator) * 2.0 - 1.0
+    return u / math.sqrt(in_f * kernel_size)
+
+
+def lora_delta(x: torch.Tensor, lora_a: torch.Tensor, lora_b: torch.Tensor, stride: int,
+               padding: int, padding_mode: str) -> torch.Tensor:
+    """``A @ conv(x, B)`` of an adapter on x (B, in_f, T): the rank-r conv
+    as an im2col product (``unfold``, then one matrix product), and A; for
+    G windows' adapters (G, out_f, r) and (G, r, in_f, K), window g's rows
+    of x (G*n, ...) through adapter g, one batched product over windows."""
+    a, b = lora_a.to(x.dtype), lora_b.to(x.dtype)
+    cols = snn.pad_temporal(x, padding, padding_mode).unfold(2, b.shape[-1], stride)
+    if a.dim() == 2:  # cols (B, in_f, T_out, K)
+        return torch.einsum("or,brt->bot", a, torch.einsum("bctk,rck->brt", cols, b))
+    G = a.shape[0]
+    lo = torch.einsum("gnctk,grck->gnrt", cols.reshape((G, -1) + cols.shape[1:]), b)
+    return torch.einsum("gor,gnrt->gnot", a, lo).reshape(x.shape[0], a.shape[1], -1)
+
+
 def _const(a: Optional[np.ndarray]) -> Optional[torch.Tensor]:
     return None if a is None else torch.from_numpy(np.ascontiguousarray(a, np.float32))
 
@@ -120,13 +154,14 @@ class SkeletonConv(nn.Module):
     """Masked temporal conv over (B, C, T), fused with an optional skeleton
     pool after it (``pool_matrix`` (Q, C_out)), an optional skeleton unpool
     folded in before it (``unpool_matrix`` (C_in, P)) and a LeakyReLU
-    (``negative_slope`` 1.0 is none)."""
+    (``negative_slope`` 1.0 is none); with ``lora_rank`` > 0, a rank-r
+    adapter on the folded weight (see the module docstring)."""
 
     def __init__(self, spec: ConvSpec, compute_dtype: str = "float32",
                  pool_matrix: Optional[np.ndarray] = None,
                  unpool_matrix: Optional[np.ndarray] = None,
                  negative_slope: float = 1.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, lora_rank: int = 0):
         super().__init__()
         self.spec = spec
         self.dtype = _DTYPES[compute_dtype]
@@ -142,6 +177,20 @@ class SkeletonConv(nn.Module):
         self.register_buffer("pool", _const(pool_matrix), persistent=False)
         self.register_buffer("unpool", _const(unpool_matrix), persistent=False)
         self._structures: Dict[tuple, LevelStructure] = {}
+        if lora_rank > 0:
+            out_f, in_f = self.folded_shape()
+            self.lora_a = nn.Parameter(torch.zeros(out_f, lora_rank))
+            self.lora_b = nn.Parameter(lora_b_init(lora_rank, in_f, spec.kernel_size,
+                                                   generator))
+        else:
+            self.lora_a = self.lora_b = None
+
+    def folded_shape(self) -> Tuple[int, int]:
+        """(out_f, in_f) of the folded weight: the pool's rows, the unpool's
+        (pre-unpool) columns."""
+        out_f = self.spec.out_channels if self.pool is None else self.pool.shape[0]
+        in_f = self.spec.in_channels if self.unpool is None else self.unpool.shape[1]
+        return out_f, in_f
 
     def fold(self, weight: torch.Tensor, bias: Optional[torch.Tensor]
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -170,12 +219,14 @@ class SkeletonConv(nn.Module):
         """:meth:`fold` of this conv's own parameters."""
         return self.fold(self.weight, self.bias)
 
-    def structure(self) -> LevelStructure:
+    def structure(self, negative_slope: Optional[float] = None) -> LevelStructure:
         """The tiles of the folded weight that may be nonzero, from the
         structure alone (mask, unpool and pool folded over a weight of
         ones), so that a trained value of zero keeps its tile; made once per
-        device, compute dtype and spec."""
-        key = (self.weight.device, self.dtype, self.spec)
+        device, compute dtype, spec and slope (default: the conv's own; an
+        adapter's base conv runs at 1.0)."""
+        slope = self.negative_slope if negative_slope is None else float(negative_slope)
+        key = (self.weight.device, self.dtype, self.spec, slope)
         if key not in self._structures:
             live = self.spec.mask != 0
             if self.unpool is not None:
@@ -185,27 +236,51 @@ class SkeletonConv(nn.Module):
             s = self.spec
             self._structures[key] = pack_structure(
                 torch.from_numpy(live), s.kernel_size, self.dtype, s.stride, s.padding,
-                s.padding_mode, self.negative_slope, device=self.weight.device)
+                s.padding_mode, slope, device=self.weight.device)
         return self._structures[key]
 
     @torch.no_grad()
     def packed_operands(self) -> PackedLevel:
         """The folded weight and bias packed for the kernel (block-sparse
         tiles in the compute dtype)."""
+        if self.lora_a is not None:
+            raise ValueError("a conv with adapters runs through forward_with (the base conv "
+                             "at slope 1.0, then bias, adapter and activation)")
         return repack(self.structure(), *self.folded_weight())
 
     def forward(self, x: torch.Tensor, packed: Optional[PackedLevel] = None) -> torch.Tensor:
         if packed is not None:
             return fused_conv_pool_packed(x.to(packed.dtype).contiguous(), packed)
-        return self.forward_with(x, self.weight, self.bias)
+        return self.forward_with(x, self.weight, self.bias, self.lora_a, self.lora_b)
 
     def forward_with(self, x: torch.Tensor, weight: torch.Tensor,
-                     bias: Optional[torch.Tensor]) -> torch.Tensor:
+                     bias: Optional[torch.Tensor], lora_a: Optional[torch.Tensor] = None,
+                     lora_b: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The conv on given parameters, differentiable: G windows' weights
-        (G, C_out, C_in, K) take x (G*n, ...) window by window."""
-        w, b = self.fold(weight, bias)
-        fn = WindowedFusedConvPoolFn if w.dim() == 4 else FusedConvPoolFn
-        return fn.apply(x.to(self.dtype).contiguous(), w, b, self.structure())
+        (G, C_out, C_in, K) take x (G*n, ...) window by window.  With an
+        adapter (``lora_a``, ``lora_b``; G windows' stacked, with their
+        biases (G, C_out)) the one shared base weight runs through the
+        kernel at slope 1.0 without its bias, then the bias and the
+        adapter's delta are added and the activation applied."""
+        x = x.to(self.dtype).contiguous()
+        if lora_a is None:
+            w, b = self.fold(weight, bias)
+            fn = WindowedFusedConvPoolFn if w.dim() == 4 else FusedConvPoolFn
+            return fn.apply(x, w, b, self.structure())
+        if weight.dim() != 3:
+            raise ValueError("an adapter's base weight is shared by every window")
+        w, _ = self.fold(weight, None)
+        out = FusedConvPoolFn.apply(x, w, None, self.structure(1.0))
+        if bias is not None:
+            b = bias.to(out.dtype)
+            if b.dim() == 1:
+                out = out + b[:, None]
+            else:
+                out = (out.reshape((b.shape[0], -1) + out.shape[1:]) + b[:, None, :, None]
+                       ).reshape(out.shape)
+        s = self.spec
+        out = out + lora_delta(x, lora_a, lora_b, s.stride, s.padding, s.padding_mode)
+        return snn.leaky_relu(out, self.negative_slope)
 
 
 OperandMap = Dict[SkeletonConv, PackedLevel]
@@ -215,7 +290,8 @@ ParamMap = Mapping[str, torch.Tensor]
 def _run(conv: SkeletonConv, x: torch.Tensor, ops: Optional[OperandMap],
          params: Optional[ParamMap] = None, name: str = "") -> torch.Tensor:
     if params is not None:
-        return conv.forward_with(x, params[f"{name}.weight"], params.get(f"{name}.bias"))
+        return conv.forward_with(x, params[f"{name}.weight"], params.get(f"{name}.bias"),
+                                 params.get(f"{name}.lora_a"), params.get(f"{name}.lora_b"))
     return conv(x, None if ops is None else ops[conv])
 
 
@@ -257,8 +333,9 @@ class Decoder(nn.Module):
     """Mirror decoder: latent re-inflation, then upsample and unpool-folded
     conv per level.  Takes the z list (shallow -> deep) and returns
     (B, n_joints*output_dim, T).  With ``params`` (every decoder parameter
-    by its name here, ``latent_dec_0.weight``, ...) it decodes through those
-    tensors instead of its own."""
+    by its name here, ``latent_dec_0.weight``, ..., and a conv's adapter
+    ``conv_0.lora_a`` / ``conv_0.lora_b`` where it has one) it decodes
+    through those tensors instead of its own."""
 
     def __init__(self, cfg: ModelConfig, init_type: str = "kaiming",
                  generator: Optional[torch.Generator] = None):
@@ -272,7 +349,7 @@ class Decoder(nn.Module):
             slope = 0.2 if lvl.leaky else 1.0
             for e, espec in enumerate(lvl.extra_convs):
                 self.add_module(f"conv_{i}_extra_{e}", SkeletonConv(
-                    espec, cfg.compute_dtype, generator=generator))
+                    espec, cfg.compute_dtype, generator=generator, lora_rank=cfg.lora_rank))
             if lvl.extra_convs:
                 # extra convs sit between the unpool and the main conv: the
                 # unpool is applied as a matrix, not folded
@@ -281,7 +358,7 @@ class Decoder(nn.Module):
             self.add_module(f"conv_{i}", SkeletonConv(
                 lvl.conv, cfg.compute_dtype,
                 unpool_matrix=None if lvl.extra_convs else lvl.unpool_matrix,
-                negative_slope=slope, generator=generator))
+                negative_slope=slope, generator=generator, lora_rank=cfg.lora_rank))
         self.num_layers = nl
 
     def forward(self, z_list: Sequence[torch.Tensor], ops: Optional[OperandMap] = None,
@@ -330,8 +407,6 @@ class HMVAE(nn.Module):
     def __init__(self, cfg: ModelConfig, init_type: str = "kaiming",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.lora_rank > 0:
-            raise NotImplementedError("lora_rank > 0 is not ported yet")
         if cfg.param_layout != "dense":
             raise NotImplementedError(f"param_layout {cfg.param_layout!r} is not "
                                       "ported yet (dense only)")

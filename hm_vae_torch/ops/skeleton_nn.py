@@ -37,9 +37,10 @@ def skeleton_conv_w(
     padding_mode: str = "reflect",
 ) -> torch.Tensor:
     """Temporal conv of (B, C_in, T) with an already masked (C_out, C_in, K)
-    weight: pad, then a valid strided ``conv1d``."""
-    return F.conv1d(pad_temporal(x, padding, padding_mode), weight, bias,
-                    stride=stride)
+    weight: pad, then a valid strided ``conv1d``, then the bias added to its
+    sums (as the JAX package adds it, not inside the conv's accumulation)."""
+    out = F.conv1d(pad_temporal(x, padding, padding_mode), weight, stride=stride)
+    return out if bias is None else out + bias[:, None]
 
 
 def apply_channel_matrix(x: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:

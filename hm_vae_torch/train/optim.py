@@ -8,7 +8,10 @@ one :class:`torch.optim.Optimizer` (:class:`TorchAdamL2`, made by
 ``stochastic_round_bf16_hash`` and its counter hash.  The same chain as a
 functional update on lists of tensors (:func:`chain_init`,
 :func:`chain_update`) serves the test-time solver, whose per-window state is
-stacked (G, ...) tensors under the same elementwise update.
+stacked (G, ...) tensors under the same elementwise update, with the
+solver's two further elements: a per-tensor learning-rate multiplier and
+the bf16 clone's stochastically rounded write-back
+(``stochastic_round_updates``).
 
 The update is the JAX package's expression, ``(m/c1) / (sqrt(v/c2) + eps)``
 with ``c1 = 1 - b1**count`` in f32 (not torch's fused Adam: equal
@@ -95,13 +98,16 @@ def _hash_bits16(shape, salt: int, count: int, device=None) -> torch.Tensor:
 
 
 def stochastic_round_bf16_hash(x32: torch.Tensor, salt: int, count: int,
-                               transposed: bool = False) -> torch.Tensor:
+                               transposed: bool = False, lead: int = 0) -> torch.Tensor:
     """Stochastically round f32 values to the bf16 grid, returned as f32:
     add 16 hashed random bits to the IEEE bits and truncate the low 16, so
     ``E[round(x)] == x``.  ``transposed``: hash over the transposed layout
-    (a flax kernel of this Linear weight).  Not inf/NaN-safe."""
+    (a flax kernel of this Linear weight).  ``lead``: leading (window) axes
+    the hash does not see, every window drawing the same bits, as the JAX
+    hash under ``jax.vmap`` over windows.  Not inf/NaN-safe."""
     x32 = x32.float()
-    r = _hash_bits16(x32.T.shape if transposed else x32.shape, salt, count, x32.device)
+    shape = tuple(x32.shape[lead:])
+    r = _hash_bits16(shape[::-1] if transposed else shape, salt, count, x32.device)
     if transposed:
         r = r.T
     bits = x32.contiguous().view(torch.int32).to(torch.int64) & _M32
@@ -137,25 +143,43 @@ def chain_init(params: Sequence[torch.Tensor], moment_dtype: str = "float32") ->
 @torch.no_grad()
 def chain_update(params: Sequence[torch.Tensor], grads: Sequence[Optional[torch.Tensor]],
                  state: ChainState, schedule: Callable[[int], torch.Tensor],
-                 weight_decay: float) -> List[torch.Tensor]:
+                 weight_decay: float, scales: Optional[Sequence[Optional[float]]] = None,
+                 sr_salts: Optional[Sequence[Tuple[int, bool]]] = None,
+                 lead: int = 0) -> List[torch.Tensor]:
     """One step of ``add_decayed_weights(weight_decay) ->
     scale_by_adam_stored -> scale_by_learning_rate(schedule)`` (the JAX
     package's optax chain): new parameter tensors, ``state`` updated in
     place.  A None gradient counts as zeros; the learning rate is read at
-    the count before the step."""
+    the count before the step.  The weight decay is added in the
+    parameter's dtype, as optax adds it (bf16: each operation rounded).
+
+    Two more elements of the solver's chain, after the learning rate:
+    ``scales``, a multiplier per tensor (None: none), as
+    ``optax.masked(optax.scale(m))``; ``sr_salts``, a (salt, transposed)
+    per bf16-stored tensor, its new value written back by stochastic
+    rounding (``stochastic_round_updates``; the count is the chain's),
+    hashed without the ``lead`` window axes."""
     lr = schedule(state.count)
     state.count += 1
     cf = _f32(float(state.count))
     c1, c2 = 1 - _f32(B1) ** cf, 1 - _f32(B2) ** cf
     out = []
     for i, (p, g) in enumerate(zip(params, grads)):
-        p32 = p.float()
-        g32 = torch.zeros_like(p32) if g is None else g.float()
-        g32 = g32 + weight_decay * p32
+        g = torch.zeros_like(p) if g is None else g.to(p.dtype)
+        g32 = (g + p * torch.tensor(weight_decay, dtype=p.dtype)).float()
         u, m32, v32 = _adam_math(g32, state.mu[i], state.nu[i], c1, c2)
         state.mu[i] = m32.to(state.mu[i].dtype)
         state.nu[i] = v32.to(state.nu[i].dtype)
-        out.append(p + (-lr * u).to(p.dtype))
+        u = -lr * u
+        if scales is not None and scales[i] is not None:
+            u = u * scales[i]
+        if sr_salts is None:
+            out.append(p + u.to(p.dtype))
+            continue
+        p32 = p.float()
+        salt, transposed = sr_salts[i]
+        sr = stochastic_round_bf16_hash(p32 + u, salt, state.count, transposed, lead)
+        out.append((p32 + (sr - p32)).to(p.dtype))
     return out
 
 

@@ -19,7 +19,8 @@ a trajectory step raises, as in the JAX package), its checkpoints in the
 reference ``TrajectoryModel``'s names.
 
 Runs on ``cuda`` unless told otherwise.  Not ported, each raising or logging:
-a device mesh and multi-host runs, ``steps_per_call >
+a model with adapters (``model.lora_rank > 0``; no config trains one), a
+device mesh and multi-host runs, ``steps_per_call >
 1`` (the TPU's scan dispatch; CUDA graphs are not measured yet), random root
 rotation on the device (``device_augment``), the native loader's compact
 wire and superbatches (the numpy sampler runs instead), asynchronous
@@ -67,6 +68,10 @@ class Trainer:
             raise NotImplementedError(
                 "steps_per_call > 1 (several steps per dispatch) is not ported: its GPU "
                 "counterpart, CUDA graphs, is not measured yet")
+        if cfg.model.lora_rank > 0:
+            raise NotImplementedError(
+                "model.lora_rank > 0: the adapters are the test-time solver's (finetune_scope "
+                "lora); training a model with them is not ported (ROADMAP Queue 1 item 6b)")
         if cfg.run.model_parallel > 1:
             raise NotImplementedError("model_parallel > 1: the port trains on one device")
         if cfg.data.random_root_rot_flag and cfg.data.device_augment:

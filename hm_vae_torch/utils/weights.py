@@ -20,7 +20,9 @@ and :class:`~hm_vae_torch.models.trajectory.TrajectoryModel`.
   on ``cfg.model_name``.
 
 The port's names follow the flax tree; Linear weights are (out, in), the
-transpose of a flax Dense kernel.
+transpose of a flax Dense kernel.  A decoder conv's adapters
+(``decoder/conv_*/lora_a``, ``lora_b``, of a model with ``lora_rank`` > 0)
+keep their names and layout (``decoder.conv_*.lora_a``, ...).
 """
 
 from __future__ import annotations

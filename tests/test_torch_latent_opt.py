@@ -15,11 +15,17 @@ same weights, targets, mask and numpy z, with ``opt_it`` crossing
   10x the spread of a JAX run from the weights scaled by 1 + 1e-7, + 1e-5
   (the self-perturb band of tests/test_app_parity.py), and within 1e-5 over
   the first 3 iterations;
+- the bf16 clone (``opt_param_dtype: bfloat16``): two decoder-chain steps
+  bit-equal to the JAX chain's, per scope, per window and shared; a solve in
+  the self-perturb band above, and within 1e-5 over its first 3 iterations;
+- ``track_best``: the same best iterations as JAX's, per window and shared,
+  the outputs in the self-perturb band;
 - the unported options raise.  (The keyframe trajectory loss:
-  ``test_torch_trajectory.py``.)
+  ``test_torch_trajectory.py``; the lora scope: ``test_torch_lora.py``.)
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -151,14 +157,128 @@ def test_no_kernel_launches_on_the_cpu():
     assert all(c.launches == 0 for c in counters)
 
 
-@pytest.mark.parametrize("change,match", [
-    (dict(finetune_scope="lora"), "item 6"),
-    (dict(opt_param_dtype="bfloat16"), "later slice"),
-    (dict(track_best=True), "track_best"),
-])
-def test_unported_options_raise(change, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tlo.make_latent_optimizer(_setup()["tm"], _cfgs(**change)[1])
+def _flax_to_port(tree, name):
+    """The port's layout of a decoder leaf from a flax (sub)tree of numpy
+    arrays: a latent head's ``weight`` is its ``kernel`` transposed."""
+    mod, leaf = name.split(".")
+    if leaf == "weight" and mod.startswith("latent_"):
+        return np.ascontiguousarray(np.swapaxes(tree[mod]["kernel"], -1, -2))
+    return np.asarray(tree[mod][leaf])
+
+
+@pytest.mark.parametrize("per_window", [True, False], ids=["per_window", "shared"])
+@pytest.mark.parametrize("scope", ["full", "last_conv", "heads"])
+def test_sr_chain_steps_are_the_jax_bits(scope, per_window):
+    """Two steps of the decoder chain on a bf16 clone, from given f32 values
+    cast to bf16 and bf16 gradients (as both solvers' gradients of bf16
+    leaves are), bit-equal to the JAX solver's chain (add_decayed_weights
+    -> scale_by_adam_stored(bf16) -> scale_by_learning_rate ->
+    stochastic_round_updates), under jax.vmap over 3 windows (every window
+    the same hash bits) or on one shared clone: the trainable leaves, their
+    order (the salts) and the transposed heads."""
+    import optax
+
+    from hm_vae_tpu.train.optim import scale_by_adam_stored, stochastic_round_updates
+    from hm_vae_torch.train.optim import chain_init
+
+    wd = 1e-4
+    jc, tc = _cfgs(finetune_scope=scope, opt_param_dtype="bfloat16", opt_lr=0.1,
+                   opt_moment_dtype="bfloat16", per_window_decoder=per_window)
+    lat = jc.latent_opt
+    dec_all = jax.tree.map(np.asarray, _setup()["params"]["params"]["decoder"])
+    keys = jlo._scope_keys(dec_all, scope)
+    rng = np.random.default_rng(4)
+    lead = (3,) if per_window else ()
+
+    def draw(scale):
+        return {k: jax.tree.map(lambda a: (scale(a) * rng.normal(size=lead + a.shape)
+                                           ).astype(np.float32), dec_all[k]) for k in keys}
+
+    tree = draw(lambda a: np.abs(a).max())
+    grads = [draw(lambda a: 1e-2), draw(lambda a: 1e-2)]
+    bf16 = jnp.bfloat16
+    tx = optax.chain(optax.add_decayed_weights(wd), scale_by_adam_stored(moment_dtype="bfloat16"),
+                     optax.scale_by_learning_rate(jlo._steplr(lat.opt_lr * 1e-3, lat)),
+                     stochastic_round_updates("bfloat16"))
+    init, update = (jax.vmap(tx.init), jax.vmap(tx.update)) if per_window else (tx.init,
+                                                                               tx.update)
+    p = jax.tree.map(lambda a: jnp.asarray(a).astype(bf16), tree)
+    state = init(p)
+    for g in grads:
+        u, state = update(jax.tree.map(lambda a: jnp.asarray(a).astype(bf16), g), state, p)
+        p = optax.apply_updates(p, u)
+    want = jax.tree.map(lambda a: np.asarray(a.astype(jnp.float32)), p)
+
+    names = tlo.trainable_names([n for n, _ in _setup()["tm"].decoder.named_parameters()],
+                                tc.latent_opt)
+    assert {n.split(".")[0] for n in names} == set(keys)
+
+    def port(t):
+        return [torch.from_numpy(_flax_to_port(t, n)).to(torch.bfloat16) for n in names]
+
+    leaves = port(tree)
+    d_state = chain_init(leaves, "bfloat16")
+    step = tlo.decoder_chain(names, tc.latent_opt, wd, per_window)
+    for g in grads:
+        leaves = step(leaves, port(g), d_state)
+    for n, v in zip(names, leaves):
+        assert v.dtype == torch.bfloat16
+        np.testing.assert_array_equal(v.float().numpy(), _flax_to_port(want, n), err_msg=n)
+
+
+@pytest.mark.parametrize("per_window", [True, False], ids=["per_window", "shared"])
+def test_bf16_clone_solve_within_the_jax_self_perturb_band(per_window):
+    """opt_param_dtype bfloat16 (with bf16 moments, as the production
+    config): the clone stored in bf16, written back by stochastic rounding.
+    At opt_lr 0.1 the port's loss history stays in the band of a JAX run from
+    weights scaled by 1 + 1e-7, and within 1e-5 over the first 3 iterations
+    (the f32 clone's history is 1e-4 away from the first iteration on)."""
+    jc, tc = _cfgs(opt_lr=0.1, opt_it=10, prev_epochs=5, opt_step_size=5,
+                   opt_param_dtype="bfloat16", opt_moment_dtype="bfloat16",
+                   per_window_decoder=per_window)
+    params = _setup()["params"]
+    ref = _jax_solve(jc, params).loss_history
+    perturbed = _jax_solve(jc, jax.tree.map(lambda a: a * (1 + 1e-7), params)).loss_history
+    ours = _port_solve(tc).loss_history.numpy()
+    err = np.abs(ours / ref - 1)
+    band = 10 * np.maximum.accumulate(np.abs(perturbed / ref - 1)) + 1e-5
+    assert (err[:3] <= 1e-5).all(), err
+    assert (err <= band).all(), (err, band)
+
+
+@pytest.mark.parametrize("per_window,opt_it", [(True, 6), (False, 5)],
+                         ids=["per_window", "shared"])
+def test_track_best_matches_jax(per_window, opt_it):
+    """track_best at opt_lr 1.0, where the loss rises after the second
+    iteration: ``best_*`` are the outputs of the least total per window (or
+    of the batch), the last iteration compared too.  The port picks the
+    iterations JAX picks (best equal to last in the same windows), and its
+    best outputs agree with JAX's within 10x the spread of a JAX run from
+    weights scaled by 1 + 1e-7, + 1e-5 (6D; rotations and positions 10x
+    that, as Gram-Schmidt and FK amplify a 6D difference)."""
+    jc, tc = _cfgs(opt_lr=1.0, opt_it=opt_it, prev_epochs=3, opt_step_size=50,
+                   track_best=True, per_window_decoder=per_window)
+    params = _setup()["params"]
+    ref = _jax_solve(jc, params)
+    perturbed = _jax_solve(jc, jax.tree.map(lambda a: a * (1 + 1e-7), params))
+    ours = _port_solve(tc)
+    same_j = (ref.best_6d == ref.last_6d).reshape(B, -1).all(1)
+    same_t = (ours.best_6d == ours.last_6d).reshape(B, -1).all(1).numpy()
+    np.testing.assert_array_equal(same_t, same_j)
+    assert not same_j.all()
+    for f, amp in (("best_6d", 1), ("best_rotmat", 10), ("best_pose", 10)):
+        spread = float(np.abs(getattr(perturbed, f) - getattr(ref, f)).max())
+        np.testing.assert_allclose(getattr(ours, f).numpy(), getattr(ref, f),
+                                   atol=amp * (10 * spread + 1e-5), rtol=0, err_msg=f)
+
+
+def test_production_config_solves_with_the_bf16_clone():
+    """configs/len64_production.yaml's solver keys: the bf16 clone and bf16
+    moments, in the port's config as in the JAX package's."""
+    path = os.path.join(os.path.dirname(__file__), "..", "configs", "len64_production.yaml")
+    for lat in (tcfg.load_config(path).latent_opt, jcfg.load_config(path).latent_opt):
+        assert (lat.opt_param_dtype, lat.opt_moment_dtype) == ("bfloat16", "bfloat16")
+        assert lat.finetune_scope == "full" and lat.per_window_decoder
 
 
 def test_unported_arguments_raise():

@@ -106,7 +106,7 @@ def test_reference_checkpoint_keys_round_trip(tmp_path):
 
 
 def test_unported_options_raise():
-    for kw in (dict(lora_rank=4), dict(param_layout="compact")):
+    for kw in (dict(param_layout="compact"),):
         with pytest.raises(NotImplementedError):
             HMVAE(tcfg.ModelConfig(**LEN8, **kw))
 

@@ -276,6 +276,55 @@ def test_eval_recovery_cli_runs_every_task(tmp_path, capsys):
     assert "summary:" in capsys.readouterr().out
 
 
+_PRODUCTION_KEYS = ("compact_transfer: true\nwire_format: aa\ntransfer_dtype: float16\n"
+                    "moment_dtype: bfloat16\nparam_dtype: bfloat16\nsteps_per_call: 32\n"
+                    "async_checkpoint: true\nopt_param_dtype: bfloat16\n"
+                    "opt_moment_dtype: bfloat16\n")
+
+
+@pytest.mark.parametrize("extra,config_tail,want", [
+    (["--finetune_scope", "lora", "--lora_rank", "2", "--lora_lr_mult", "5"], "",
+     dict(finetune_scope="lora", lora_rank=2, lora_lr_mult=5.0)),
+    (["--opt_param_dtype", "bfloat16", "--opt_moment_dtype", "bfloat16",
+      "--shared_decoder_clone"], "",
+     dict(opt_param_dtype="bfloat16", opt_moment_dtype="bfloat16", per_window_decoder=False)),
+    ([], _PRODUCTION_KEYS,
+     dict(opt_param_dtype="bfloat16", opt_moment_dtype="bfloat16", finetune_scope="full")),
+], ids=["lora", "bf16_clone", "production_keys"])
+def test_eval_recovery_cli_solver_modes(tmp_path, monkeypatch, extra, config_tail, want):
+    """The solver-mode flags reach the solver (and LatentOptApps passes them
+    on untouched), and a config with the production config's training
+    execution keys evaluates: an f32 model, its solver's bf16 clone and
+    moments, per-sequence outputs and a summary."""
+    tmp = str(tmp_path)
+    cfg = _cli_config(tmp)
+    data = os.path.join(tmp, "data")
+    train_cli.main(["--config", cfg, "--output_path", tmp, "--data_root", data,
+                    "--device", "cpu", "--max_iter", "2"])
+    ck = os.path.join(tmp, "outputs", "len16_eval", "checkpoints", "gen_00000002.pt")
+    with open(cfg, "a") as f:
+        f.write(config_tail)
+    seen = []
+    real = ttasks.make_latent_optimizer
+
+    def spy(model, cfg, lat=None, **kw):
+        seen.append((lat or cfg.latent_opt, next(model.parameters()).dtype))
+        return real(model, cfg, lat=lat, **kw)
+
+    monkeypatch.setattr(ttasks, "make_latent_optimizer", spy)
+    eval_recovery.main(["--config", cfg, "--output_path", tmp, "--data_root", data,
+                        "--device", "cpu", "--test_model", ck, "--max_seqs", "1",
+                        "--final_try_long_seq_interpolation"] + extra)
+    assert seen and all(dt == torch.float32 for _, dt in seen)
+    for lat, _ in seen:
+        assert {k: getattr(lat, k) for k in want} == want
+    d = os.path.join(tmp, "eval_long_seq_interpolation", "len16_eval")
+    files = sorted(os.listdir(d))
+    res = [f for f in files if f.endswith("_rot_opt_res.npy")]
+    assert "summary.json" in files and len(res) == 1, files
+    assert np.isfinite(np.load(os.path.join(d, res[0]))).all()
+
+
 @pytest.mark.parametrize("extra,match", [
     (["--final_try_long_seq_interpolation", "--gen_vis"], "item 10"),
     (["--final_try_long_seq_interpolation", "--data_parallel", "2"], "item 11"),
