@@ -33,7 +33,8 @@ Phases, each of which exits non-zero on failure:
    device beside the plain versions and ``torch.nn.grad.conv1d_input`` /
    ``conv1d_weight``;
 6. training end to end: 20 steps of ``Trainer.fit`` on the full-width len-64
-   config with synthetic data made from the seed, on the GPU and on the CPU
+   config with synthetic data made from the seed (sampled by the native C++
+   sampler on the compact rot6d wire), on the GPU and on the CPU
    from the same init, batches and noise; per-step losses compared, kernel
    launches per step counted, step time by CUDA events, device time and
    idle share by ``torch.profiler``;
@@ -94,7 +95,31 @@ Phases, each of which exits non-zero on failure:
 19. ``eval_recovery --finetune_scope lora``, and ``eval_recovery`` under
    ``configs/len64_production.yaml`` (the bf16 clone and moments) with
    phase 7's checkpoint, on the synthetic test split;
-20. print the kernel summary line and, last, the device line.
+20. (run right after phase 12, beside the other kernels) the three kernels
+   at ``configs/len64_production.yaml``'s batch of 64, f32, at the eight
+   len-64 levels, held and timed as phases 2 and 5 hold and time theirs,
+   each giving the same bits on two runs;
+21. the production config's steps: 32 steps at batch 64, one step captured
+   in a CUDA graph and replayed 32 times, against the same steps run
+   eagerly, from one init and one superbatch of the f16 aa wire, the
+   curriculum boundary inside the call (parameters, moments and counts
+   compared; the entries count 8 / 7 / 8 launches a step in the warm-up and
+   the capture, none at a replay); then its dtypes at batch 8, 4 steps a call, across a boundary
+   inside a call, GPU against CPU in a band calibrated by runs whose
+   batches are scaled by 1 + 1e-7 on both sides;
+22. ``hm_vae_torch.cli.train --config configs/len64_production.yaml`` (in
+   this process, log, snapshot and retention set for a short run): four
+   32-step calls with an asynchronous snapshot after each and
+   keep_checkpoints 2, then ``--resume``; the train split the native
+   sampler on the aa wire, the steps a CUDA graph; then the step's cost
+   through ``Trainer.fit``: ms a step by CUDA events, the kernels'
+   launches a call in the device trace (256 / 224 / 256), peak memory,
+   device time and idle share, beside the same config at
+   ``steps_per_call: 1`` (eager);
+23. random root rotation on the card: ``configs/len8_data_aug_hm_vae.yaml``
+   trains through the native sampler with ``device_augment``, and
+   ``apply_root_rot`` on the GPU agrees with the CPU on the same rotations;
+24. print the kernel summary line and, last, the device line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -107,6 +132,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -280,10 +306,11 @@ def kernel_phase(model, st, dtype, batch, gen):
 
 
 @torch.inference_mode()
-def fwd_level_row(name, conv, T_in, stride, batch, dtype, gen):
+def fwd_level_row(name, conv, T_in, stride, batch, dtype, gen, bits=False):
     """One level at `batch`: the packed entry against unpack + plain
-    version, the Pallas-signature entry against the plain version, and the
-    device times of kernel, plain version and cuDNN."""
+    version, the Pallas-signature entry against the plain version (and,
+    with `bits`, two runs bit-equal), and the device times of kernel, plain
+    version and cuDNN."""
     from hm_vae_torch.ops.fused_conv_pool import (
         CHUNK_CHANNELS, fused_conv_pool, fused_conv_pool_packed, fused_conv_pool_reference,
         unpack_level)
@@ -303,6 +330,8 @@ def fwd_level_row(name, conv, T_in, stride, batch, dtype, gen):
                                     s.padding_mode, slope)
     torch.cuda.synchronize()
     err, tol = check(f"{name} {dt} B={batch} packed", out, ref, dtype)
+    if bits and not torch.equal(fused_conv_pool_packed(x, packed), out):
+        fail(f"{name} {dt} B={batch}: the forward differs between two runs on the same inputs")
     args = (x, *raw, stride, s.padding, s.padding_mode, slope)
     plain = fused_conv_pool_reference(*args)
     err_api, _ = check(f"{name} {dt} B={batch} unpacked", fused_conv_pool(*args),
@@ -478,10 +507,18 @@ def e2e_phase(cfg, dtype, x6d):
     return row
 
 
+# the port's kernels by their names in a device trace (a CUDA-graph replay
+# runs them with no call of their entries, so only the trace sees them)
+TRACE_KERNELS = re.compile(r"::(conv_gemm_kernel|dgrad_kernel|wgrad_kernel)[<(]")
+TRACE_NAME = {"fused_conv_pool": "conv_gemm_kernel", "fused_conv_pool_dgrad": "dgrad_kernel",
+              "fused_conv_pool_wgrad": "wgrad_kernel"}
+
+
 def profile_calls(fn, calls: int = 10):
     """Device time by kernel over `calls` calls of `fn` (torch.profiler), the
-    wall time they took, the device's idle share of that wall time, and the
-    device operations (kernels, copies, sets) per call.  It records the
+    wall time they took, the device's idle share of that wall time, the
+    device operations (kernels, copies, sets) per call, and the port's
+    kernels' launches per call in the trace (TRACE_KERNELS).  It records the
     device's activity only: the host's operator events are read by nothing
     here, and at a solve's ~140k device operations they cost over a minute
     of processing."""
@@ -495,13 +532,16 @@ def profile_calls(fn, calls: int = 10):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels, count = {}, 0
+    kernels, count, ours = {}, 0, {}
     for ev in prof.events():
         # a user annotation (such as Optimizer.step) is a range on the
         # device's timeline over kernels counted on their own
         if ev.device_type.name == "CUDA" and not getattr(ev, "is_user_annotation", False):
             kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.time_range.elapsed_us()
             count += 1
+            m = TRACE_KERNELS.search(ev.name)
+            if m:
+                ours[m.group(1)] = ours.get(m.group(1), 0) + 1
     busy = sum(kernels.values())
     by_name = {}  # kernel names cut to 60 characters, their times summed
     for k, v in kernels.items():
@@ -511,6 +551,7 @@ def profile_calls(fn, calls: int = 10):
             "device_us_per_call": busy / calls,
             "idle_share": 1.0 - busy / wall_us if wall_us > 0 else None,
             "device_ops_per_call": count / calls,
+            "trace_launches_per_call": {k: v / calls for k, v in sorted(ours.items())},
             "top_us_per_call": {k: v / calls for k, v in top}}
 
 
@@ -1078,7 +1119,7 @@ LAUNCH_NAMES = ("fused_conv_pool", "fused_conv_pool_dgrad", "fused_conv_pool_wgr
 def launch_counters():
     from hm_vae_torch.ops import fused_conv_pool as fcp
 
-    return [getattr(fcp, n) for n in LAUNCH_NAMES]
+    return list(fcp.launch_entries())  # in LAUNCH_NAMES' order
 
 
 def timed_solve(apps, seq, reps=2, root_trans=None):
@@ -1488,6 +1529,352 @@ def eval_cli(data_root, ck, phase, config, extra, check):
 
 
 
+# ---------------------------------------------------------------------------
+# the production training path (configs/len64_production.yaml)
+
+PROD_BATCH = 64  # the production config's batch
+AUG_CONFIG = os.path.join(ROOT, "configs", "len8_data_aug_hm_vae.yaml")
+
+
+def b64_kernel_phase(model, st, gen):
+    """The three kernels at the 8 len-64 levels, f32, at the production
+    batch of 64 (the bf16 parameters are cast to the f32 compute dtype before
+    the fold, so production runs the f32 kernels): the forward as phase 2
+    holds it, two runs bit-equal; dgrad and wgrad as phase 5 holds them
+    (plain versions, autograd, two runs bit-equal)."""
+    fwd = [fwd_level_row(f"{n}@b{PROD_BATCH}", c, T, c.spec.stride, PROD_BATCH,
+                         torch.float32, gen, bits=True)
+           for n, c, T in level_cases(model, st)]
+    bwd = [bwd_level_row(f"{n}@b{PROD_BATCH}", c, T, PROD_BATCH, gen)
+           for n, c, T in level_cases(model, st)]
+    return fwd, bwd
+
+
+def production_config(data_root, path=PRODUCTION_CONFIG, **sections):
+    """`path` (the production config unless another is named) on synthetic
+    data made from the seed, no validation, snapshot or image inside the
+    run, with `sections` ({section: {key: value}}) replaced."""
+    cfg = train_config(data_root, path)
+    return dataclasses.replace(cfg, **{k: dataclasses.replace(getattr(cfg, k), **v)
+                                       for k, v in sections.items()})
+
+
+def state_diff(a, b):
+    """Largest |a - b| over two train states' parameters, moments and
+    counts, by kind (0 everywhere: the same bits)."""
+    out = {"params": 0.0, "moments": 0.0, "counts": 0}
+    for (n, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+        out["params"] = max(out["params"], float((p.detach().float() - q.detach().float())
+                                                  .abs().max()))
+        sa, sb = a.optimizer.state.get(p, {}), b.optimizer.state.get(q, {})
+        if sa.keys() != sb.keys():
+            fail(f"optimizer state of {n}: {sorted(sa)} against {sorted(sb)}")
+        for k in sa:
+            d = float((sa[k].double() - sb[k].double()).abs().max())
+            kind = "counts" if k == "step" else "moments"
+            out[kind] = max(out[kind], d)
+    ga, gb = a.optimizer.param_groups[0]["step"], b.optimizer.param_groups[0]["step"]
+    out["counts"] = max(out["counts"], abs(int(ga) - int(gb)), abs(a.step - b.step))
+    return out
+
+
+def graph_agreement_phase(data_root):
+    """(a) 32 steps of the production config at batch 64 from one init and
+    one superbatch (the native sampler's f16 aa wire, upcast on the card),
+    the curriculum boundary set at step 16 inside the call: MultiStep's CUDA
+    graph (one step captured, replayed 32 times) against the same 32 steps
+    run eagerly.  Parameters, moments and per-leaf counts are compared; the
+    largest difference is printed (0: the same bits).  The entries' launch
+    counts (set to 0 before each run) are a step's launches 3 times on the
+    graph (two warm-up steps and the capture; a replay calls no entry) and
+    32 times eagerly."""
+    from hm_vae_torch.data.dataset import make_loaders
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+    from hm_vae_torch.train.losses import draw_noise, eps_shapes
+    from hm_vae_torch.train.train_step import MultiStep, create_state
+    from hm_vae_torch.train.trainer import step_generator
+
+    cfg = production_config(data_root, loss={"iteration_interval": 16})
+    K, B = cfg.run.steps_per_call, cfg.optim.batch_size
+    train_ds = make_loaders(cfg)[0]
+    stream = train_ds.iter_compact_superbatches(K, B, False, cfg.data.native_threads, "aa",
+                                                dtype=np.float16)
+    host = next(stream)
+    batches = {"aa": torch.from_numpy(host["aa"]).to(DEV).float()}
+    stream.close()
+    shapes = eps_shapes(cfg, B)
+    draws = [draw_noise(shapes, step_generator(cfg.run.seed, k)) for k in range(K)]
+    eps = [torch.stack([d[lv] for d in draws]).to(DEV) for lv in range(len(shapes))]
+    states, metrics, launches = {}, {}, {}
+    for mode in ("graph", "eager"):
+        states[mode] = create_state(cfg, DEV)
+        multi = MultiStep(states[mode], cfg, graph=mode == "graph")
+        for c in fcp.launch_entries():
+            c.launches = 0
+        metrics[mode] = {k: float(v) for k, v in multi(batches, eps).items()}
+        torch.cuda.synchronize()
+        launches[mode] = {k: v for k, v in fcp.launch_counts().items() if v}
+    diff = state_diff(states["graph"], states["eager"])
+    same = all(v == 0 for v in diff.values()) and metrics["graph"] == metrics["eager"]
+    head = states["graph"].model.encoder.latent_head_0.weight
+    head_count = int(states["graph"].optimizer.state[head]["step"])
+    if head_count != K - 16:
+        fail(f"production graph: the shallow head stepped {head_count} times, expected "
+             f"{K - 16} (from the boundary at 16)")
+    want = {m: {k: n * v for k, v in TRAIN_LAUNCHES.items()} for m, n in (("graph", 3),
+                                                                         ("eager", K))}
+    if launches != want:
+        fail(f"production graph: entry launch counts {launches}, expected {want} (graph: "
+             "two warm-up steps and the capture)")
+    if not all(np.isfinite(v) for m in metrics.values() for v in m.values()):
+        fail(f"production graph: metrics {metrics}")
+    row = {"phase": "production_graph_vs_eager", "config": os.path.relpath(PRODUCTION_CONFIG, ROOT),
+           "batch": B, "steps": K, "iteration_interval": 16, "bit_equal": same,
+           "max_abs_diff": diff, "metrics": metrics, "launches": launches}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def perturb_inputs(trainer, scale):
+    """Scale by `scale` the batches `trainer` steps on, after their upcast
+    on the device (the one f32 operand of a step under bf16 parameters)."""
+    consume = type(trainer)._consume
+    trainer._consume = lambda staged: {k: v * scale for k, v in consume(trainer, staged).items()}
+
+
+def production_agreement_phase(data_root, steps=20):
+    """(b) The production config's dtypes (bf16 parameters and moments, the
+    f16 aa wire) at batch 8, 4 steps a call (a CUDA graph on the card), the
+    curriculum boundary at step 10 inside the third call: Trainer.fit on the
+    GPU against the CPU from the same init and windows, the loss after every
+    call within 10x the larger spread of runs whose batches are scaled by
+    1 + 1e-7 after the upcast on each side, + 1e-4 (the bf16 gradients and
+    stochastic write-back amplify last places, as the CPU test of the
+    production path calibrates its band), and within 1e-4 after the first
+    call."""
+    from hm_vae_torch.train.trainer import build_trainer
+
+    cfg = production_config(data_root, optim={"batch_size": BATCH},
+                            run={"steps_per_call": 4, "log_iter": 1},
+                            loss={"iteration_interval": 10})
+    losses, wall = {}, {}
+    for run, dev, scale in (("gpu", DEV, 1.0), ("cpu", "cpu", 1.0),
+                            ("gpu_perturbed", DEV, 1.0 + 1e-7),
+                            ("cpu_perturbed", "cpu", 1.0 + 1e-7)):
+        trainer, train_ds, _, _ = build_trainer(
+            cfg, os.path.join(OUT_DIR, f"production_agreement_{run}"), device=dev)
+        if scale != 1.0:
+            perturb_inputs(trainer, scale)
+        out = []
+        t0 = time.perf_counter()
+        trainer.fit(train_ds, None, max_iter=steps, log_cb=lambda s, m: out.append(m["loss_total"]))
+        wall[run] = time.perf_counter() - t0
+        losses[run] = np.array(out)
+    if any(len(v) != steps // 4 or not np.isfinite(v).all() for v in losses.values()):
+        fail(f"production agreement: losses {losses}")
+    rel = np.abs(losses["gpu"] / losses["cpu"] - 1)
+    spread = {d: np.maximum.accumulate(np.abs(losses[f"{d}_perturbed"] / losses[d] - 1))
+              for d in ("gpu", "cpu")}
+    band = 10 * np.maximum(spread["gpu"], spread["cpu"]) + 1e-4
+    if not (rel[0] <= 1e-4 and (rel <= band).all()):
+        fail(f"production agreement: GPU vs CPU loss relative difference {rel.tolist()} "
+             f"outside {band.tolist()} (first call: 1e-4)")
+    row = {"phase": "production_agreement", "config": os.path.relpath(PRODUCTION_CONFIG, ROOT),
+           "batch": BATCH, "steps": steps, "steps_per_call": 4, "iteration_interval": 10,
+           "loss_gpu": losses["gpu"].tolist(), "loss_cpu": losses["cpu"].tolist(),
+           "rel_diff": rel.tolist(), "band": band.tolist(),
+           "spread": {k: v.tolist() for k, v in spread.items()}, "fit_seconds": wall}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def production_cli_phase(data_root):
+    """``python -m hm_vae_torch.cli.train --config <production>`` (in this
+    process) on synthetic data: 4 calls of 32 steps with an asynchronous
+    snapshot after every call and keep_checkpoints 2, then ``--resume`` for
+    one more call.  The train split must be the native sampler on the aa
+    wire, the steps a CUDA graph; returns the checkpoint names."""
+    from hm_vae_torch.cli import train as train_cli
+    from hm_vae_torch.data.native_loader import NativeMotionLoader
+    from hm_vae_torch.train import trainer as trainer_mod
+
+    with open(PRODUCTION_CONFIG) as f:
+        text = f.read()
+    for key, value in (("log_iter", 32), ("snapshot_save_iter", 32), ("keep_checkpoints", 2)):
+        text, n = re.subn(rf"(?m)^{key}: .*$", f"{key}: {value}", text)
+        if n != 1:
+            fail(f"production CLI: no single {key} line in {PRODUCTION_CONFIG}")
+    path = os.path.join(OUT_DIR, "len64_production_smoke.yaml")
+    with open(path, "w") as f:
+        f.write(text)
+    out = os.path.join(OUT_DIR, "production_cli")
+    shutil.rmtree(out, ignore_errors=True)
+    seen = []
+    fit = trainer_mod.Trainer.fit
+
+    def recorded_fit(self, train_ds, *a, **kw):
+        r = fit(self, train_ds, *a, **kw)
+        seen.append({"train_split": type(train_ds).__name__, "wire": self.cfg.data.wire_format,
+                     "transfer_dtype": self.cfg.data.transfer_dtype,
+                     "graph": bool(self._multi and self._multi.graph),
+                     "async_checkpoint": self.cfg.run.async_checkpoint,
+                     "native": isinstance(train_ds, NativeMotionLoader)})
+        return r
+
+    args = ["--config", path, "--output_path", out, "--data_root", data_root, "--device", DEV]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    trainer_mod.Trainer.fit = recorded_fit
+    try:
+        with contextlib.redirect_stdout(buf):
+            train_cli.main(args + ["--max_iter", "128"])
+            first = sorted(os.listdir(os.path.join(out, "outputs", "len64_production_smoke",
+                                                   "checkpoints")))
+            train_cli.main(args + ["--max_iter", "160", "--resume"])
+    finally:
+        trainer_mod.Trainer.fit = fit
+    text = buf.getvalue()
+    ck = os.path.join(out, "outputs", "len64_production_smoke", "checkpoints")
+    names = sorted(os.listdir(ck))
+    resumed = [line for line in text.splitlines() if line.startswith("Resume from")]
+    if (resumed != ["Resume from iteration 128"] or first != ["gen_00000096.pt", "gen_00000128.pt"]
+            or names != ["gen_00000128.pt", "gen_00000160.pt"]):
+        fail(f"production CLI: resume lines {resumed}, checkpoints {first} then {names}:\n{text}")
+    if not all(s["native"] and s["wire"] == "aa" and s["graph"] and s["async_checkpoint"]
+               for s in seen) or len(seen) != 2:
+        fail(f"production CLI: the runs were {seen}")
+    blob = torch.load(os.path.join(ck, names[-1]), map_location="cpu", weights_only=True)
+    if blob["step"] != 160 or not all(torch.isfinite(v).all() for v in blob["state_dict"].values()):
+        fail(f"production CLI: checkpoint step {blob['step']} or non-finite weights")
+    logged = [line for line in text.splitlines() if line.startswith("[")]
+    row = {"phase": "production_train_cli", "config": os.path.relpath(PRODUCTION_CONFIG, ROOT),
+           "overrides": {"log_iter": 32, "snapshot_save_iter": 32, "keep_checkpoints": 2},
+           "runs": seen, "resumed": resumed[0], "checkpoints_after_128": first,
+           "checkpoints_after_resume": names, "logged_steps": [line[1:9] for line in logged],
+           "seconds": time.perf_counter() - t0,
+           "finish": [line for line in text.splitlines() if line.startswith("Finish")][-1][:200]}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def production_step_phase(data_root, calls=4):
+    """The production step's cost through Trainer.fit at batch 64 (32 steps
+    a call, a CUDA graph; the native sampler's f16 aa wire, double-buffered
+    ingest): ms a step by CUDA events over `calls` calls after a first call
+    (the capture), peak memory, and the device time, idle share and the
+    port's kernels' launches a call in the device trace (torch.profiler,
+    device only) over two calls; then the same config at steps_per_call 1
+    (eager steps), measured the same way in the same run over half as many
+    steps (one unit profiled).  The entries' own launch counts, set to 0
+    before the run and read after it, are the warm-up's and the capture's
+    on the graph (a replay calls no entry) and every step's eagerly; the
+    trace must show 256 / 224 / 256 launches per 32 steps either way."""
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+    from hm_vae_torch.train.trainer import build_trainer
+
+    per_32 = {k: 32 * v for k, v in TRAIN_LAUNCHES.items()}
+    trace_want = {TRACE_NAME[k]: v for k, v in per_32.items()}
+    out = {}
+    for K, units, profiled in ((32, calls, 2), (1, calls // 2, 1)):
+        cfg = production_config(data_root, run={"steps_per_call": K, "log_iter": 10 ** 9})
+        trainer, train_ds, _, _ = build_trainer(cfg, os.path.join(OUT_DIR, f"production_K{K}"),
+                                                device=DEV)
+        for c in fcp.launch_entries():
+            c.launches = 0
+        n = 32  # steps a measured unit: one call, or 32 eager steps
+        trainer.fit(train_ds, None, max_iter=n)  # the first call captures the graph
+        torch.cuda.synchronize()
+        first = {k: v for k, v in fcp.launch_counts().items() if v}
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.fit(train_ds, None, max_iter=n * (1 + units))
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / (n * units)
+        peak = torch.cuda.max_memory_allocated()
+        state = {"i": n * (1 + units)}
+
+        def unit():
+            state["i"] += n
+            trainer.fit(train_ds, None, max_iter=state["i"])
+
+        prof = profile_calls(unit, calls=profiled)
+        in_run = {k: v for k, v in fcp.launch_counts().items() if v}
+        steps = state["i"]
+        want_first = {k: (3 if K > 1 else n) * v for k, v in TRAIN_LAUNCHES.items()}
+        want_run = {k: (3 if K > 1 else steps) * v for k, v in TRAIN_LAUNCHES.items()}
+        if first != want_first or in_run != want_run:
+            fail(f"production step K={K}: entry launch counts {first} after the first call, "
+                 f"{in_run} after {steps} steps; expected {want_first}, {want_run}")
+        if prof["trace_launches_per_call"] != trace_want:
+            fail(f"production step K={K}: {prof['trace_launches_per_call']} kernel launches "
+                 f"per 32 steps in the device trace, expected {trace_want}")
+        out[K] = {"ms_per_step": ms, "steps": steps, "entry_launches_in_run": in_run,
+                  "trace_launches_per_32_steps": prof["trace_launches_per_call"],
+                  "peak_memory_bytes": peak, "profile_per_32_steps": prof,
+                  "device_ms_per_step": prof["device_us_per_call"] / n / 1e3,
+                  "idle_share": prof["idle_share"]}
+    row = {"phase": "production_step", "config": os.path.relpath(PRODUCTION_CONFIG, ROOT),
+           "batch": PROD_BATCH, "graph_steps_per_call_32": out[32],
+           "eager_steps_per_call_1": out[1]}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def device_aug_phase(data_root, steps=12):
+    """Random root rotation on the card: ``configs/len8_data_aug_hm_vae.yaml``
+    (fps and root-rotation augmentation, device_augment) trains `steps`
+    steps through the native sampler, the rotation applied on the card; and
+    ``apply_root_rot`` on the GPU against the CPU on the same rotations, for
+    every wire field of a (K, B) superbatch."""
+    from hm_vae_torch.data import device_aug
+    from hm_vae_torch.data.native_loader import NativeMotionLoader
+    from hm_vae_torch.ops import rotations
+    from hm_vae_torch.train.trainer import build_trainer
+
+    cfg = production_config(data_root, AUG_CONFIG)
+    if not (cfg.data.random_root_rot_flag and cfg.data.device_augment):
+        fail(f"{AUG_CONFIG} does not rotate the root on the device")
+    trainer, train_ds, _, _ = build_trainer(cfg, os.path.join(OUT_DIR, "device_aug"), device=DEV)
+    if not isinstance(train_ds, NativeMotionLoader) or trainer._augment is None:
+        fail(f"device aug: train split {type(train_ds).__name__}, augment {trainer._augment}")
+    losses = []
+    t0 = time.perf_counter()
+    trainer.fit(train_ds, None, max_iter=steps, log_cb=lambda s, m: losses.append(m["loss_total"]))
+    seconds = time.perf_counter() - t0
+    if len(losses) != steps or not np.isfinite(losses).all():
+        fail(f"device aug: losses {losses}")
+    # apply_root_rot: the GPU against the CPU on the same rotations
+    gen = torch.Generator().manual_seed(SEED)
+    prefix, T = (4, 8), 16
+    R = device_aug.random_rotation_matrices(device_aug.aug_generator(SEED, 0), prefix)
+    aa = torch.randn(prefix + (T, 24, 3), generator=gen) * 0.7
+    batch = {"aa": aa, "rot_mat": rotations.aa_to_rotmat(aa),
+             "rot_6d": torch.randn(prefix + (T, 24, 6), generator=gen),
+             "root_v": torch.randn(prefix + (T, 3), generator=gen)}
+    mean, std = torch.randn(3, generator=gen), torch.rand(3, generator=gen) + 0.5
+    cpu = device_aug.apply_root_rot(batch, R, mean, std)
+    gpu = device_aug.apply_root_rot({k: v.to(DEV) for k, v in batch.items()}, R.to(DEV),
+                                    mean.to(DEV), std.to(DEV))
+    errs = {}
+    for k in batch:
+        errs[k] = float((gpu[k].cpu() - cpu[k]).abs().max())
+        scale = max(1.0, float(cpu[k].abs().max()))
+        if not errs[k] <= 1e-5 * scale:
+            fail(f"device aug: apply_root_rot {k} GPU vs CPU {errs[k]:.3e} > {1e-5 * scale:.3e}")
+    Rg = device_aug.random_rotation_matrices(device_aug.aug_generator(SEED, 0), prefix, DEV)
+    orth = float((Rg @ Rg.transpose(-1, -2) - torch.eye(3, device=DEV)).abs().max())
+    if orth > 1e-5 or float((torch.linalg.det(Rg) - 1).abs().max()) > 1e-5:
+        fail(f"device aug: the card's draws are not rotations ({orth:.3e})")
+    row = {"phase": "device_aug", "config": os.path.relpath(AUG_CONFIG, ROOT), "steps": steps,
+           "train_split": type(train_ds).__name__, "wire": cfg.data.wire_format,
+           "losses": losses, "seconds": seconds, "apply_root_rot_gpu_vs_cpu": errs,
+           "draw_orthogonality_err": orth}
+    print(json.dumps(row), flush=True)
+    return row
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
@@ -1557,6 +1944,9 @@ def main() -> None:
     tmodel = TrajectoryModel(tcfg.model, tcfg.optim.init,
                              generator=torch.Generator().manual_seed(SEED)).to(DEV)
     traj_rows = traj_kernel_phase(tmodel, gen)
+    # 20 (run here, beside the other kernels). the three kernels at the
+    #    production batch of 64
+    b64_fwd, b64_bwd = b64_kernel_phase(model, st, gen)
 
     # 6-7. training end to end, and its entry point
     data_root = os.path.join(OUT_DIR, "train_data")
@@ -1629,7 +2019,16 @@ def main() -> None:
                          and n["fused_conv_pool_wgrad_windowed"])):
         print(json.dumps(row), flush=True)
 
-    # 20. summary: sums over the 8 levels of one reconstruct (forward) or of
+    # 21-23. the production training path: the graphed steps against eager
+    #    ones and the GPU against the CPU, the training CLI with asynchronous
+    #    snapshots and a resume, the step's cost; root rotation on the card
+    graph_agreement_phase(data_root)
+    production_agreement_phase(data_root)
+    prod_cli = production_cli_phase(data_root)
+    prod_step = production_step_phase(data_root)
+    device_aug_phase(data_root)
+
+    # 24. summary: sums over the 8 levels of one reconstruct (forward) or of
     #    one training step (backward), over the 4 decoder levels of a solve's
     #    iteration (windowed), and over the trajectory model's 4 levels
     def total(rows):
@@ -1747,6 +2146,32 @@ def main() -> None:
                     + {"fwd": "cuDNN conv1d", "dgrad": "torch.nn.grad.conv1d_input",
                        "wgrad": "torch.nn.grad.conv1d_weight"}[what]
                     + " on the folded weight, TF32 off"})
+    prod_run = prod_step["graph_steps_per_call_32"]
+    for what, rows, lib in (("", b64_fwd, "cuDNN conv1d"),
+                            ("_dgrad", [r["dgrad"] for r in b64_bwd],
+                             "torch.nn.grad.conv1d_input"),
+                            ("_wgrad", [r["wgrad"] for r in b64_bwd],
+                             "torch.nn.grad.conv1d_weight")):
+        name = f"fused_conv_pool{what}"
+        summary["kernels"].append({
+            "name": f"{name}@b{PROD_BATCH}", "route": "cuda",
+            "source": "hm_vae_torch/csrc/" + ("fused_conv_pool_bwd.cu" if what
+                                              else "fused_conv_pool.cu"),
+            "replaces": ("hm_vae_tpu/ops/pallas_kernels.py:65" if not what else
+                         "hm_vae_tpu/models/hm_vae.py:200 (JAX autodiff of the level; no "
+                         "Pallas backward exists)")
+                        + " at configs/len64_production.yaml's batch of 64",
+            "launches": prod_run["entry_launches_in_run"].get(name, 0),
+            **total(rows),
+            "trace_launches_per_call": prod_run["trace_launches_per_32_steps"][TRACE_NAME[name]],
+            "note": f"f32 (bf16 parameters are cast to f32 before the fold), batch "
+                    f"{PROD_BATCH}; sums over the 8 len-64 levels (dgrad: enc0 runs it in this "
+                    "timing but not in training); launches: the entry's count over the graphed "
+                    f"production step's {prod_run['steps']} steps (the two warm-up steps and the "
+                    "capture: a replay calls no entry); trace_launches_per_call: the kernel's "
+                    "launches in the device trace of one 32-step call (CUDA-graph replays); "
+                    "times: device time from CUDA-graph replays; library_ms: "
+                    f"{lib} on the folded weight, TF32 off"})
     print(json.dumps(summary), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

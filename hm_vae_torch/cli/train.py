@@ -62,6 +62,7 @@ def main(argv=None):
     metrics = trainer.fit(train_ds, val_ds, max_iter=args.max_iter, log_cb=log_cb,
                           test_ds=test_ds)
     trainer.save()
+    trainer.wait_for_saves()  # an asynchronous write lands before the run ends
     print("Finish Training", metrics, flush=True)
 
 

@@ -6,14 +6,15 @@ arrays, a batch is a dict keyed by :data:`layout.BATCH_FIELDS`, augmentations
 are vectorised per batch, and a background thread assembles the next
 batches while the device computes.
 
-The JAX package's native C++ sampler is not ported: with
-``use_native_loader`` set, ``make_loaders`` logs that it samples with numpy.
+With ``use_native_loader`` (the default) and no augmentation on the host,
+``make_loaders`` samples the train split with the native C++ sampler
+(:mod:`.native_loader`), as the JAX package does; a failed build of the
+sampler raises (the JAX package falls back to numpy with a warning).
 """
 
 from __future__ import annotations
 
 import json
-import logging
 import os
 import queue
 import threading
@@ -23,8 +24,6 @@ import numpy as np
 
 from ..utils.config import Config
 from . import layout
-
-log = logging.getLogger(__name__)
 
 FPS_AUG_STRIDES = (1, 2, 3, 4, 5, 6, 8, 10, 12)
 
@@ -240,9 +239,12 @@ def resolve_split_json(cfg: Config, split: str, data_dir: Optional[str] = None) 
 
 
 def make_loaders(cfg: Config, data_dir: Optional[str] = None):
-    """(train, val, test) MotionDatasets from a processed or synthetic data
-    dir; with ``cfg.data.synthetic`` (or no train manifest) a synthetic
-    dataset is generated there from ``cfg.run.seed`` first."""
+    """(train, val, test) datasets from a processed or synthetic data dir:
+    the train split a :class:`~.native_loader.NativeMotionLoader` under
+    ``use_native_loader`` without host augmentation, else a
+    :class:`MotionDataset` as val and test are.  With ``cfg.data.synthetic``
+    (or no train manifest) a synthetic dataset is generated there from
+    ``cfg.run.seed`` first."""
     from . import synthetic
 
     d = data_dir or cfg.data.data_root
@@ -256,15 +258,23 @@ def make_loaders(cfg: Config, data_dir: Optional[str] = None):
     mean_std = (np.load(ms_path).astype(np.float32) if os.path.exists(ms_path)
                 else layout.load_mean_std(cfg.data.mean_std_path))
     mean_std[1, mean_std[1] == 0] = 1.0
-    # random_root_rot on the device is not ported (the Trainer raises for
-    # it); device_augment=False keeps it in the numpy sampler
+    # with device_augment (the default) the Trainer rotates the root on the
+    # device (data/device_aug.py), so the host samplers stay unaugmented and
+    # the native sampler serves the train split; device_augment: false keeps
+    # the rotation in the numpy sampler
     host_aug = cfg.data.random_root_rot_flag and not cfg.data.device_augment
-    if cfg.data.use_native_loader:
-        log.info("the native C++ loader is not ported: sampling with numpy")
 
     def mk(split, seed):
         return MotionDataset(seq_dir, resolve_split_json(cfg, split, d), mean_std,
                              cfg.model.train_seq_len, fps_aug=cfg.data.fps_aug_flag,
                              random_root_rot=host_aug, seed=seed)
 
-    return mk("train", cfg.run.seed), mk("val", cfg.run.seed + 1), mk("test", cfg.run.seed + 2)
+    if cfg.data.use_native_loader and not host_aug:
+        from .native_loader import NativeMotionLoader
+
+        train = NativeMotionLoader(seq_dir, resolve_split_json(cfg, "train", d), mean_std,
+                                   cfg.model.train_seq_len, fps_aug=cfg.data.fps_aug_flag,
+                                   seed=cfg.run.seed)
+    else:
+        train = mk("train", cfg.run.seed)
+    return train, mk("val", cfg.run.seed + 1), mk("test", cfg.run.seed + 2)

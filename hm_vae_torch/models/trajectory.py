@@ -95,7 +95,12 @@ def add_trajectory(pose: torch.Tensor, root_v: torch.Tensor) -> torch.Tensor:
     return pose + accumulate_root_trajectory(root_v)[:, :, None, :]
 
 
-def _stat(mean_std: np.ndarray, row: int, sl, device, zero_to_one: bool = False):
+def _stat(mean_std, row: int, sl, device, zero_to_one: bool = False):
+    """A slice of one row of the (2, 579) stats on ``device``: from a numpy
+    array, or from a tensor (already on the device: no host copy)."""
+    if torch.is_tensor(mean_std):
+        v = mean_std[row, sl].to(device)
+        return torch.where(v == 0, torch.ones_like(v), v) if zero_to_one else v
     v = np.asarray(mean_std[row], np.float32)[sl]
     if zero_to_one:
         v = np.where(v == 0, 1, v).astype(np.float32)
@@ -166,8 +171,7 @@ def trajectory_losses(model: TrajectoryModel, batch: Dict[str, torch.Tensor], cf
         if rot_mat is None:
             rot_mat = (rot.rot6d_to_rotmat(batch["rot_6d"]) if "rot_6d" in batch
                        else rot.aa_to_rotmat(batch["aa"].float()))
-        pose = fk_mod.fk_from_rotmat(rot_mat, torch.as_tensor(fk_mod.default_offsets(),
-                                                              device=dev))
+        pose = fk_mod.fk_from_rotmat(rot_mat, fk_mod.offsets_on(dev))
         mean_c = _stat(mean_std, 0, layout.COORD, dev).reshape(24, 3)
         std_c = _stat(mean_std, 1, layout.COORD, dev, zero_to_one=True).reshape(24, 3)
         batch = dict(batch, rot_mat=rot_mat, rot_pos=pose, joint_pos=(pose - mean_c) / std_c)

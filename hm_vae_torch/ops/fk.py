@@ -49,6 +49,15 @@ def default_offsets() -> np.ndarray:
     return np.load(os.path.join(ASSETS_DIR, "skeleton_offsets.npy")).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def offsets_on(device: torch.device) -> torch.Tensor:
+    """:func:`default_offsets` as an f32 tensor on ``device``, made once (a
+    normal tensor, as :func:`_level_index`'s), so that a step captured in a
+    CUDA graph copies nothing from the host."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(default_offsets()).to(device)
+
+
 def fk_from_rotmat(
     rotmats: torch.Tensor,
     offsets,

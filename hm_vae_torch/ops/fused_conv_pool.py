@@ -728,14 +728,23 @@ def _wgrad_smem(B: int, T_in: int, K: int, T_out: int, t_ld: int, stride: int, s
         slots -= 1
 
 
-def wgrad_plan(B: int, T_out: int, entries: int, sms: int, windows: int = 1) -> Tuple[int, int]:
+def wgrad_plan(B: int, T_out: int, entries: int, sms: int, windows: int = 1,
+               smem=None) -> Tuple[int, int]:
     """(sb, split) of the wgrad kernel: one block per entry (a live tile) of
     each of ``windows`` windows of ``B`` batches, a window's batches split
     over ``split`` blocks of a cluster until the grid fills the card once,
     and staged ``sb`` batches (at most 32 columns, at least one batch) at a
-    time."""
+    time.  ``smem(sb, split)``, where given, is a block's shared memory: a
+    block holds x's rows of all its batches, so a large batch splits
+    further until a block fits (``_wgrad_smem``)."""
     split = max(1, min(MAX_SPLIT, B, -(-sms // max(1, entries * windows))))
-    return max(1, min(-(-B // split), WGRAD_STAGE_COLS // T_out)), split
+
+    def stage(split):
+        return max(1, min(-(-B // split), WGRAD_STAGE_COLS // T_out))
+
+    while smem is not None and split < min(MAX_SPLIT, B) and smem(stage(split), split) > MAX_SMEM:
+        split += 1
+    return stage(split), split
 
 
 def _aligned(t: torch.Tensor, dim: int, multiple: int) -> torch.Tensor:
@@ -803,7 +812,9 @@ def _wgrad(gy, y, x, s: LevelStructure, windows: Optional[int]):
     C, t_ld = x.shape[1], gy.shape[2]
     dev = gy.device.index
     entries = s.wgrad_row.numel()
-    sb, split = wgrad_plan(B // G, T_out, entries, _sm_count(dev), G)
+    sb, split = wgrad_plan(B // G, T_out, entries, _sm_count(dev), G,
+                           lambda sb, split: _wgrad_smem(B // G, T_in, K, T_out, t_ld, s.stride,
+                                                         sb, split))
     if _wgrad_smem(B // G, T_in, K, T_out, t_ld, s.stride, sb, split) > MAX_SMEM:
         raise ValueError(f"the wgrad kernel's shared memory at K={K}, T_in={T_in} and "
                          f"{B // G} batches a window exceeds {MAX_SMEM} bytes")
@@ -963,3 +974,15 @@ class WindowedFusedConvPoolFn(torch.autograd.Function):
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             gw, gb = fused_conv_pool_wgrad_windowed(gy, y, x, s, weight.shape[0])
         return gx, gw, gb if ctx.has_bias else None, None
+
+
+def launch_entries():
+    """The six entries whose ``launches`` count their kernel's launches."""
+    return (fused_conv_pool, fused_conv_pool_dgrad, fused_conv_pool_wgrad,
+            fused_conv_pool_windowed, fused_conv_pool_dgrad_windowed,
+            fused_conv_pool_wgrad_windowed)
+
+
+def launch_counts() -> dict:
+    """Every entry's launch count by its name."""
+    return {f.__name__: f.launches for f in launch_entries()}

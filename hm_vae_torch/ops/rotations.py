@@ -65,3 +65,54 @@ def aa_to_rotmat(aa: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     row1 = torch.stack([xy + sz, cc + yy, yz - sx], dim=-1)
     row2 = torch.stack([xz - sy, yz + sx, cc + zz], dim=-1)
     return torch.stack([row0, row1, row2], dim=-2)
+
+
+def rotmat_to_aa(rotmat: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> axis-angle (..., 3), a robust SO(3)
+    log map (the C++ sampler's sidecar computes the same):
+    ``theta = atan2(|skew|, tr - 1)``, well conditioned over all of [0, pi];
+    near pi the axis comes from the symmetric part
+    (``a_i^2 = (R_ii - cos) / (1 - cos)``, signs fixed off the largest
+    component and the skew part), elsewhere from the skew part.  Both
+    branches are computed with guarded denominators and selected by
+    ``torch.where``."""
+    r = rotmat
+    tr = r[..., 0, 0] + r[..., 1, 1] + r[..., 2, 2]
+    vx = r[..., 2, 1] - r[..., 1, 2]
+    vy = r[..., 0, 2] - r[..., 2, 0]
+    vz = r[..., 1, 0] - r[..., 0, 1]
+    vn = torch.sqrt(vx * vx + vy * vy + vz * vz)
+    theta = torch.atan2(vn, tr - 1.0)
+
+    # skew-part axis; theta / vn -> 1/2 as theta -> 0
+    k = torch.where(vn < 1e-12, torch.full_like(vn, 0.5), theta / vn.clamp_min(eps))
+    aa_skew = k[..., None] * torch.stack([vx, vy, vz], dim=-1)
+
+    # symmetric-part axis near pi
+    cos_t = ((tr - 1.0) / 2.0).clamp(-1.0, 1.0)
+    d = (1.0 - cos_t).clamp_min(eps)
+
+    def sq(x):
+        return torch.sqrt(x.clamp_min(0.0))
+
+    ax = sq((r[..., 0, 0] - cos_t) / d)
+    ay = sq((r[..., 1, 1] - cos_t) / d)
+    az = sq((r[..., 2, 2] - cos_t) / d)
+    sxy = r[..., 0, 1] + r[..., 1, 0]
+    sxz = r[..., 0, 2] + r[..., 2, 0]
+    syz = r[..., 1, 2] + r[..., 2, 1]
+    two_d = 2.0 * d
+    ay_x = sxy / (two_d * ax).clamp_min(eps)
+    az_x = sxz / (two_d * ax).clamp_min(eps)
+    ax_y = sxy / (two_d * ay).clamp_min(eps)
+    az_y = syz / (two_d * ay).clamp_min(eps)
+    ax_z = sxz / (two_d * az).clamp_min(eps)
+    ay_z = syz / (two_d * az).clamp_min(eps)
+    cx = (ax >= ay) & (ax >= az)
+    cy = (~cx) & (ay >= az)
+    axf = torch.where(cx, ax, torch.where(cy, ax_y, ax_z))
+    ayf = torch.where(cx, ay_x, torch.where(cy, ay, ay_z))
+    azf = torch.where(cx, az_x, torch.where(cy, az_y, az))
+    flip = torch.where(vx * axf + vy * ayf + vz * azf < 0, -1.0, 1.0)
+    aa_sym = (theta * flip)[..., None] * torch.stack([axf, ayf, azf], dim=-1)
+    return torch.where(theta[..., None] < 3.0, aa_skew, aa_sym)

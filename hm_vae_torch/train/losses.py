@@ -1,12 +1,15 @@
 """Loss functions of the VAE.
 
 Port of ``hm_vae_tpu.train.losses`` (``kl_normal``, ``l2``,
-``hmvae_forward``, ``decode_full``).  The JAX package gates the shallow
-latent's gradient with a ``where`` between live and ``stop_gradient``
-branches; here the KL curriculum is a ``detach`` below
-``iteration_interval``, so the shallow latent head then gets no gradient
-(``grad is None``), as in the reference.  The two middle latents are never
-read by the decoder: their heads get none either.
+``hmvae_forward``, ``decode_full``).  The KL curriculum gates the shallow
+latent's gradient below ``iteration_interval`` as the JAX package's
+``_grad_gate`` does: the value always, the gradient through a ``where``
+only when ``step >= iteration_interval``, with the step a tensor (the
+training step's, on the model's device), so that the gate is decided on the
+device and one CUDA graph serves both sides of the boundary.  The shallow
+head's gradient is exact zeros before it, which the optimizer reads as
+untouched (as torch's ``grad is None`` skip in the reference).  The two
+middle latents are never read by the decoder: their heads get no gradient.
 
 Noise is explicit: ``eps`` (one tensor per level, as the JAX side would
 draw them) or a ``torch.Generator`` that draws them on the CPU, so that the
@@ -20,6 +23,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..models.hm_vae import HMVAE, reparametrize, split_stats
+from ..models.structure import get_structure
 from ..ops import fk as fk_mod
 from ..ops import rotations as rot
 from ..utils.config import Config
@@ -36,7 +40,13 @@ def l2(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 
 def _offsets(device) -> torch.Tensor:
-    return torch.as_tensor(fk_mod.default_offsets(), device=device)
+    return fk_mod.offsets_on(torch.device(device))
+
+
+def _grad_gate(x: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """The value of x always; its gradient only where ``active`` (a bool
+    tensor, decided on the device)."""
+    return torch.where(active, x, x.detach())
 
 
 def ground_truth(batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -54,18 +64,29 @@ def ground_truth(batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Te
     return rot6d, rotmat
 
 
+def eps_shapes(cfg: Config, batch: int) -> List[Tuple[int, int, int]]:
+    """Each level's mu shape (B, edges, latent dim), shallow -> deep."""
+    st = get_structure(cfg.model)
+    return [(batch, st.z_edges[i], st.z_dims[i]) for i in range(cfg.model.num_layers)]
+
+
+def draw_noise(shapes: Sequence[Tuple[int, ...]], generator: Optional[torch.Generator]
+               ) -> List[torch.Tensor]:
+    """Standard normal noise of each shape, drawn on the CPU from
+    ``generator`` in level order."""
+    return [torch.randn(s, generator=generator) for s in shapes]
+
+
 def draw_eps(z_stats: Sequence[torch.Tensor], cfg: Config,
              generator: Optional[torch.Generator]) -> List[torch.Tensor]:
     """Standard normal noise of each level's mu shape, drawn on the CPU
     from ``generator`` and moved to the stats' device."""
-    out = []
-    for i, s in enumerate(z_stats):
-        mu, _ = split_stats(s, cfg.model, i)
-        out.append(torch.randn(mu.shape, generator=generator).to(s.device))
-    return out
+    shapes = [split_stats(s, cfg.model, i)[0].shape for i, s in enumerate(z_stats)]
+    return [e.to(s.device) for e, s in zip(draw_noise(shapes, generator), z_stats)]
 
 
-def hmvae_forward(model: HMVAE, batch: Dict[str, torch.Tensor], step: int, cfg: Config,
+def hmvae_forward(model: HMVAE, batch: Dict[str, torch.Tensor],
+                  step: torch.Tensor, cfg: Config,
                   sample: bool = True, eps: Optional[Sequence[torch.Tensor]] = None,
                   generator: Optional[torch.Generator] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -75,8 +96,9 @@ def hmvae_forward(model: HMVAE, batch: Dict[str, torch.Tensor], step: int, cfg: 
 
     ``batch`` holds unnormalised ``rot_6d`` (B,T,24,6) and/or ``rot_mat``
     (B,T,24,3,3), or ``aa`` (B,T,24,3).  ``step`` is the iteration of the KL
-    curriculum.  With ``kl_w != 0`` and ``sample`` the latents are sampled
-    with ``eps`` if given, else with noise from ``generator``.
+    curriculum, a 0-dim integer tensor (see the module docstring).  With
+    ``kl_w != 0`` and ``sample`` the latents are sampled with ``eps`` if
+    given, else with noise from ``generator``.
 
     Returns (total loss, metrics) with every logged scalar as a tensor.
     """
@@ -97,9 +119,9 @@ def hmvae_forward(model: HMVAE, batch: Dict[str, torch.Tensor], step: int, cfg: 
     kl_list: List[torch.Tensor] = []
     for i, stats in enumerate(z_stats):
         mu, logvar = split_stats(stats, mcfg, i)
-        if i == 0 and not active_shallow:
-            # curriculum: the value is computed, the gradient is cut
-            mu, logvar = mu.detach(), logvar.detach()
+        if i == 0:
+            # curriculum: the value always, the gradient from the boundary on
+            mu, logvar = _grad_gate(mu, active_shallow), _grad_gate(logvar, active_shallow)
         z = reparametrize(mu, logvar, eps[i]) if sampling else mu
         if i == nl - 1 or i == 0:
             kl_list.append(kl_normal(mu, logvar))

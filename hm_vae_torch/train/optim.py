@@ -51,15 +51,28 @@ def make_schedule_raw(lr: float, policy: str, step_size, gamma: float
                       ) -> Callable[[int], torch.Tensor]:
     """count -> learning rate (an f32 scalar): constant, StepLR
     (``lr * gamma ** (count // step_size)``) or MultiStepLR (``gamma`` once
-    per milestone ``<= count``)."""
+    per milestone ``<= count``).  A count given as a tensor gives the rate
+    on its device, computed there (no host sync; the constants enter as CPU
+    0-dim tensors, which act as scalars on any device)."""
     if policy == "constant" or not policy:
         return lambda count: _f32(lr)
     if policy == "step":
-        return lambda count: _f32(lr) * _f32(gamma) ** float(count // int(step_size))
+        def step(count):
+            if torch.is_tensor(count):
+                q = torch.div(count, int(step_size), rounding_mode="floor").float()
+                return _f32(lr) * _f32(gamma) ** q
+            return _f32(lr) * _f32(gamma) ** float(count // int(step_size))
+
+        return step
     if policy == "mstep":
         milestones = sorted(int(m) for m in step_size)
 
         def mstep(count):
+            if torch.is_tensor(count):
+                v = _f32(lr) * torch.ones((), device=count.device)
+                for m in milestones:
+                    v = torch.where(count >= m, v * _f32(gamma), v)
+                return v
             v = _f32(lr)
             for m in milestones:
                 if count >= m:
@@ -80,10 +93,10 @@ def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
     return (h * lo + (((h * hi) & 0xFFFF) << 16)) & _M32
 
 
-def _hash_bits16(shape, salt: int, count: int, device=None) -> torch.Tensor:
+def _hash_bits16(shape, salt: int, count, device=None) -> torch.Tensor:
     """16 uniform bits per element (int64) from a murmur3-finalised counter
     hash of (element index, salt, count): the JAX package's ``_hash_bits16``
-    bit for bit."""
+    bit for bit.  ``count`` is an int or an int64 tensor on ``device``."""
     n = 1
     for d in shape:
         n *= int(d)
@@ -97,7 +110,7 @@ def _hash_bits16(shape, salt: int, count: int, device=None) -> torch.Tensor:
     return (h & 0xFFFF).reshape(tuple(shape))
 
 
-def stochastic_round_bf16_hash(x32: torch.Tensor, salt: int, count: int,
+def stochastic_round_bf16_hash(x32: torch.Tensor, salt: int, count,
                                transposed: bool = False, lead: int = 0) -> torch.Tensor:
     """Stochastically round f32 values to the bf16 grid, returned as f32:
     add 16 hashed random bits to the IEEE bits and truncate the low 16, so
@@ -199,9 +212,23 @@ def flax_salts(names: Iterable[str]) -> Dict[str, Tuple[int, bool]]:
 
 class TorchAdamL2(torch.optim.Optimizer):
     """Adam + L2-in-gradient + the LR schedule over named parameters (see
-    the module docstring).  State per parameter: ``step`` (its count),
+    the module docstring).  State per parameter, made with the optimizer on
+    the parameter's device: ``step`` (its count, an int64 0-dim tensor),
     ``exp_avg``, ``exp_avg_sq`` (``moment_dtype``); the group's ``step`` is
-    the global count."""
+    the global count (an int64 0-dim tensor on the first parameter's
+    device).
+
+    A step is device work only, so that a CUDA graph can capture it: the
+    counts, the learning rate, the bias corrections and the SR hash's count
+    are tensors the step updates in place, and whether a parameter steps is
+    decided on the device.  A parameter whose ``grad`` is None is skipped
+    (with ``none_grad_skip``), as torch's Adam skips it; one whose gradient
+    is all zeros is untouched, as the JAX package's traceable proxy reads it
+    (``touched = any(g != 0)``): its value, moments and count are carried
+    through by ``where``.  (A parameter in the graph never has an all-zero
+    f32 gradient in practice; the curriculum's gated head always has one.)
+    ``load_state_dict`` writes into the existing state tensors, so a
+    captured step stays valid across a resume."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
                  cfg: OptimConfig):
@@ -217,9 +244,18 @@ class TorchAdamL2(torch.optim.Optimizer):
             raise ValueError("param_dtype=bfloat16 requires none_grad_skip=True")
         names = [n for n, _ in named]
         salts = flax_salts(names)
+        device = named[0][1].device if named else torch.device("cpu")
         super().__init__([{"params": [p for _, p in named],
-                           "salts": [salts[n] for n in names], "step": 0}],
+                           "salts": [salts[n] for n in names],
+                           "step": torch.zeros((), dtype=torch.int64, device=device)}],
                          {"lr": cfg.lr})
+
+    def _fresh_state(self, p: torch.Tensor) -> dict:
+        st = self.state[p]
+        st["step"] = torch.zeros((), dtype=torch.int64, device=p.device)
+        st["exp_avg"] = torch.zeros_like(p, dtype=self.moment_dtype)
+        st["exp_avg_sq"] = torch.zeros_like(p, dtype=self.moment_dtype)
+        return st
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -228,47 +264,66 @@ class TorchAdamL2(torch.optim.Optimizer):
         wd = float(self.cfg.weight_decay or 0.0)
         skip = self.cfg.none_grad_skip
         for group in self.param_groups:
-            gcount = group["step"]
-            lr = self.schedule(gcount)
-            group["step"] = gcount + 1
+            gstep = group["step"]
+            lr = self.schedule(gstep)  # at the count before the step
+            gstep.add_(1)
             for p, (salt, transposed) in zip(group["params"], group["salts"]):
                 g = p.grad
                 if g is None and skip:
                     continue
-                state = self.state[p]
-                if not state:
-                    state["step"] = 0
-                    state["exp_avg"] = torch.zeros_like(p, dtype=self.moment_dtype)
-                    state["exp_avg_sq"] = torch.zeros_like(p, dtype=self.moment_dtype)
-                count = state["step"] + 1 if skip else gcount + 1
-                state["step"] = count
+                state = self.state[p] or self._fresh_state(p)
                 p32 = p.float()
                 g32 = torch.zeros_like(p32) if g is None else g.float()
+                if skip:
+                    touched = torch.any(g32 != 0)
+                    state["step"].add_(touched.to(torch.int64))
+                    # an untouched count may be 0: clamp the discarded branch
+                    cf = state["step"].clamp_min(1).float()
+                else:
+                    touched = None
+                    state["step"].copy_(gstep)
+                    cf = gstep.float()
                 if wd:
                     g32 = g32 + wd * p32
-                cf = _f32(float(count))
-                u, m32, v32 = _adam_math(g32, state["exp_avg"], state["exp_avg_sq"],
-                                         1 - _f32(B1) ** cf, 1 - _f32(B2) ** cf)
+                m, v = state["exp_avg"], state["exp_avg_sq"]
+                u, m32, v32 = _adam_math(g32, m, v, 1 - _f32(B1) ** cf, 1 - _f32(B2) ** cf)
                 u = -lr * u  # CPU 0-dim tensors act as scalars on any device
                 if self.param_sr:
-                    p.copy_(stochastic_round_bf16_hash(p32 + u, salt, gcount + 1, transposed))
+                    new = stochastic_round_bf16_hash(p32 + u, salt, gstep, transposed)
                 else:
-                    p.add_(u.to(p.dtype))
-                state["exp_avg"] = m32.to(self.moment_dtype)
-                state["exp_avg_sq"] = v32.to(self.moment_dtype)
+                    new = p + u.to(p.dtype)
+                if touched is not None:
+                    new = torch.where(touched, new, p32 if self.param_sr else p)
+                    m32 = torch.where(touched, m32, m.float())
+                    v32 = torch.where(touched, v32, v.float())
+                p.copy_(new)
+                m.copy_(m32)
+                v.copy_(v32)
         return None
 
     def load_state_dict(self, state_dict) -> None:
-        # torch casts floating state to the parameter's dtype: keep the
-        # moments in moment_dtype, bit for bit
-        moments = {i: {k: v.clone() for k, v in s.items() if k != "step"}
-                   for i, s in state_dict["state"].items()}
+        """Restore the counts and moments into the existing state tensors
+        (bit for bit: torch would cast floating state to the parameter's
+        dtype); a parameter without saved state but with state here is
+        zeroed, as fresh."""
+        group = self.param_groups[0]
+        keep = {p: self.state[p] for p in group["params"] if self.state.get(p)}
+        gstep = group["step"]
+        saved = state_dict["state"]
         super().load_state_dict(state_dict)
-        params = self.param_groups[0]["params"]
-        for i, s in moments.items():
-            p = params[i]
-            for k, v in s.items():
-                self.state[p][k] = v.to(device=p.device, dtype=self.moment_dtype)
+        gstep.copy_(torch.as_tensor(self.param_groups[0]["step"]))
+        self.param_groups[0]["step"] = gstep
+        self.state.clear()
+        for i, p in enumerate(group["params"]):
+            s = saved.get(i)
+            if s is None and p not in keep:
+                continue
+            st = self.state[p] = keep[p] if p in keep else self._fresh_state(p)
+            for k, t in st.items():
+                if s is None:
+                    t.zero_()
+                else:
+                    t.copy_(torch.as_tensor(s[k]))
 
 
 def make_optimizer(named_params, cfg: OptimConfig) -> TorchAdamL2:

@@ -1,7 +1,8 @@
 """The port stands alone: importing all of ``hm_vae_torch`` (and
 chip_smoke.py, kernel_trace.py), the training and latent-optimization paths
 included, loads neither JAX nor the JAX package, and no source of the port
-imports them."""
+imports them (its C++ sampler, ``native/loader.cpp``, includes nothing of
+them either)."""
 
 import ast
 import os
@@ -14,6 +15,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "hm_vae_tpu")
 TRAINING = tuple(f"hm_vae_torch.{m}" for m in (
     "train.losses", "train.optim", "train.train_step", "train.trainer", "data.synthetic",
     "data.layout", "data.dataset", "utils.logging", "cli.train",
+    # the production training path
+    "data.native_loader", "data.device_aug",
     # the latent-optimization path
     "apps.latent_opt", "apps.tasks", "apps.metrics", "apps.baselines", "cli.eval_recovery",
     # the trajectory model
@@ -66,3 +69,9 @@ def test_sources_import_no_jax():
                 names = [str(node.args[0].value)]
             for n in names:
                 assert n.split(".")[0] not in FORBIDDEN, (path, node.lineno, n)
+
+
+def test_native_source_includes_only_the_standard_library():
+    with open(os.path.join(ROOT, "hm_vae_torch", "native", "loader.cpp")) as f:
+        includes = [line.split()[1] for line in f if line.startswith("#include")]
+    assert includes and all(i.startswith("<") for i in includes), includes

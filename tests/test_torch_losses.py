@@ -89,21 +89,25 @@ def test_loss_metrics_and_grads_match_jax(pair, step):
 
     tm.zero_grad(set_to_none=True)
     tb = {k: torch.tensor(batch[k]) for k in ("rot_6d", "rot_mat")}
-    total, metrics = tlosses.hmvae_forward(tm, tb, step, tc, eps=eps)
+    total, metrics = tlosses.hmvae_forward(tm, tb, torch.tensor(step), tc, eps=eps)
     total.backward()
     assert set(metrics) == set(metrics_ref)
     for k, v in metrics.items():
         np.testing.assert_allclose(float(v.detach()), float(metrics_ref[k]), rtol=0,
                                    atol=_tol(metrics_ref[k]), err_msg=k)
     active = step >= LOSS["iteration_interval"]
-    skipped = {"encoder.latent_head_1", "encoder.latent_head_2", "decoder.latent_dec_1",
-               "decoder.latent_dec_2"} | (set() if active else {"encoder.latent_head_0"})
+    unread = {"encoder.latent_head_1", "encoder.latent_head_2", "decoder.latent_dec_1",
+              "decoder.latent_dec_2"}
+    gated = set() if active else {"encoder.latent_head_0"}
     for name, ref in _flat_grads(grads_ref).items():
         p = tm.get_parameter(name)
-        if name.rsplit(".", 1)[0] in skipped:
-            # detached (curriculum) or never read by the decoder: no gradient
-            # in torch, an all-zero leaf in JAX
+        if name.rsplit(".", 1)[0] in unread:
+            # never read by the decoder: no gradient in torch, an all-zero
+            # leaf in JAX
             assert p.grad is None and not ref.any(), name
+        elif name.rsplit(".", 1)[0] in gated:
+            # the curriculum's gate before the boundary: all zeros, as in JAX
+            assert p.grad is not None and not p.grad.any() and not ref.any(), name
         else:
             np.testing.assert_allclose(p.grad.numpy(), ref, rtol=0, atol=_tol(ref),
                                        err_msg=name)
@@ -118,7 +122,8 @@ def test_wire_forms_match_jax(pair, wire):
     total_ref, _ = fwd(variables["params"], {wire: jnp.asarray(batch[wire])})
     eps = [torch.from_numpy(e) for e in _jax_eps(jm, variables, batch, rng, jc)]
     with torch.no_grad():
-        total, _ = tlosses.hmvae_forward(tm, {wire: torch.from_numpy(batch[wire])}, 9, tc,
+        total, _ = tlosses.hmvae_forward(tm, {wire: torch.from_numpy(batch[wire])},
+                                         torch.tensor(9), tc,
                                          eps=eps)
     np.testing.assert_allclose(float(total), float(total_ref), rtol=0, atol=_tol(total_ref))
 
@@ -130,14 +135,15 @@ def test_noise_from_generator_and_no_sampling(pair):
 
     _, tc, _, _, tm, batch = pair
     tb = {"rot_mat": torch.from_numpy(batch["rot_mat"])}
+    step0 = torch.tensor(0)
     with torch.no_grad():
         _, stats = tm.encode(tlosses.ground_truth(tb)[0])
         eps = tlosses.draw_eps(stats, tc, torch.Generator().manual_seed(4))
-        a, _ = tlosses.hmvae_forward(tm, tb, 0, tc, eps=eps)
-        b, _ = tlosses.hmvae_forward(tm, tb, 0, tc, generator=torch.Generator().manual_seed(4))
+        a, _ = tlosses.hmvae_forward(tm, tb, step0, tc, eps=eps)
+        b, _ = tlosses.hmvae_forward(tm, tb, step0, tc, generator=torch.Generator().manual_seed(4))
         assert torch.equal(a, b)
         no_kl = dataclasses.replace(tc, loss=dataclasses.replace(tc.loss, kl_w=0.0))
-        m1, _ = tlosses.hmvae_forward(tm, tb, 0, no_kl, generator=torch.Generator())
-        m2, _ = tlosses.hmvae_forward(tm, tb, 0, tc, sample=False)
-        mean = tlosses.hmvae_forward(tm, tb, 0, no_kl, sample=False)[0]
+        m1, _ = tlosses.hmvae_forward(tm, tb, step0, no_kl, generator=torch.Generator())
+        m2, _ = tlosses.hmvae_forward(tm, tb, step0, tc, sample=False)
+        mean = tlosses.hmvae_forward(tm, tb, step0, no_kl, sample=False)[0]
     assert torch.equal(m1, mean) and not torch.equal(m2, a)

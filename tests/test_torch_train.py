@@ -4,7 +4,8 @@ package's ``import_hmvae_params`` reads; a 20-step loss trajectory tracks the
 JAX ``Trainer`` from the same init on the same batches; the KL curriculum's
 heads keep their optimizer counts at 0 until ``iteration_interval``; the NaN
 guard restores; the training CLI trains and resumes; unported options raise.
-(The trajectory model's training: ``test_torch_trajectory.py``.)
+(The trajectory model's training: ``test_torch_trajectory.py``; the
+production path's options: ``test_torch_production.py``.)
 """
 
 import dataclasses
@@ -212,9 +213,7 @@ def test_cli_trains_and_resumes(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("change", [
-    {"run": {"steps_per_call": 2}},
     {"model": {"lora_rank": 2}},
-    {"data": {"random_root_rot_flag": True}},
     {"run": {"model_parallel": 2}},
 ])
 def test_unported_options_raise(tmp_path, change):
