@@ -119,6 +119,18 @@ Phases, each of which exits non-zero on failure:
 23. random root rotation on the card: ``configs/len8_data_aug_hm_vae.yaml``
    trains through the native sampler with ``device_augment``, and
    ``apply_root_rot`` on the GPU agrees with the CPU on the same rotations;
+25. (run before 24) the serving export (``hm_vae_torch/apps/export.py``):
+   the len-64 model with the trajectory model exported on the card in f32
+   and bf16 and the len-64 functions on the CPU; the bundles loaded by
+   ``python3 chip_smoke.py --serve-exported <dir>``, a process that cannot
+   import the port's model code, where ``reconstruct``, ``encode_mean`` and
+   ``decode`` run at batch 1, 8 and 237 and ``trajectory`` at (1, 16),
+   (8, 128) and (1, 300), each call counting its kernel launches (8 / 4 / 4
+   / 4), and are timed (events, device time) beside the in-process path;
+   their outputs against ``VAEInference`` and ``TrajectoryRunner`` on the
+   card (f32 1e-4 * max(1, max|ref|), bf16 0.02 * max|ref|), the CPU export
+   moved to the card against the card's own; the operator's dispatch beside
+   the direct launch; ``cli/export_model.py`` and ``cli/explore_latent.py``;
 24. print the kernel summary line and, last, the device line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -432,6 +444,41 @@ def gram_schmidt_condition(rot6d):
     return torch.minimum(na, cross)
 
 
+def reconstruct_agreement(name, outs, refs, dtype):
+    """(rot6d, rotmat, pose) against a reference's, on the CPU.  6D:
+    |out - ref| <= E2E_TOL * max|ref| on every joint; rotation matrices
+    within ROT_TOL on joints of condition > COND_MIN; FK positions within
+    POSE_TOL on joints whose ancestors all are.  Returns the errors."""
+    (o6, om, op), (r6, rm, rp) = outs, refs
+    for what, o, r in (("rot6d", o6, r6), ("rotmat", om, rm), ("pose", op, rp)):
+        if o.shape != r.shape or not torch.isfinite(o).all():
+            fail(f"{name} {what}: shape {tuple(o.shape)} vs {tuple(r.shape)} or non-finite")
+    scale6 = float(r6.abs().max())
+    tol6 = E2E_TOL[dtype] * scale6
+    err6 = float((o6 - r6).abs().max())
+    if not err6 <= tol6:
+        fail(f"{name} rot6d: max |out - ref| {err6:.3e} > {tol6:.3e}")
+    well = gram_schmidt_condition(r6) > COND_MIN
+    chain = ancestors_ok(well)
+    if not (bool(well.any()) and bool(chain[..., 1:].any())):
+        fail(f"{name}: no joint with condition > {COND_MIN} to check rotmat and pose on")
+    err_m = (om - rm).abs().amax(dim=(-1, -2))
+    err_p = (op - rp).abs().amax(dim=-1)
+    checks = (("rotmat", float(err_m[well].max()), ROT_TOL[dtype]),
+              ("pose", float(err_p[chain].max()), POSE_TOL[dtype]))
+    for what, err, tol in checks:
+        if not err <= tol:
+            fail(f"{name} {what}: max |out - ref| {err:.3e} > {tol:.3e} where "
+                 f"well conditioned")
+    return {"rot6d": err6, "rot6d_tol": tol6, "rot6d_max_abs": scale6,
+            "rot6d_median_abs": float(r6.abs().median()),
+            "rotmat_well": checks[0][1], "rotmat_tol": checks[0][2],
+            "share_well": float(well.float().mean()),
+            "pose_well": checks[1][1], "pose_tol": checks[1][2],
+            "share_pose_well": float(chain.float().mean()),
+            "rotmat_all": float(err_m.max()), "pose_all": float(err_p.max())}
+
+
 def e2e_phase(cfg, dtype, x6d):
     """Reconstruct on the GPU against the same weights on the CPU.
 
@@ -460,40 +507,14 @@ def e2e_phase(cfg, dtype, x6d):
     if launches != 8:
         fail(f"{name}: {launches} fused_conv_pool launches per reconstruct, expected 8")
     o6, om, op = (t.cpu() for t in outs)
-    r6, rm, rp = cpu.mean_reconstruction(x6d.cpu())
-    for what, o, r in (("rot6d", o6, r6), ("rotmat", om, rm), ("pose", op, rp)):
-        if o.shape != r.shape or not torch.isfinite(o).all():
-            fail(f"{name} {what}: shape {tuple(o.shape)} vs {tuple(r.shape)} or non-finite")
-    scale6 = float(r6.abs().max())
-    tol6 = E2E_TOL[dtype] * scale6
-    err6 = float((o6 - r6).abs().max())
-    if not err6 <= tol6:
-        fail(f"{name} rot6d: max |gpu - cpu| {err6:.3e} > {tol6:.3e}")
-    well = gram_schmidt_condition(r6) > COND_MIN
-    chain = ancestors_ok(well)
-    if not (bool(well.any()) and bool(chain[..., 1:].any())):
-        fail(f"{name}: no joint with condition > {COND_MIN} to check rotmat and pose on")
-    err_m = (om - rm).abs().amax(dim=(-1, -2))
-    err_p = (op - rp).abs().amax(dim=-1)
-    checks = (("rotmat", float(err_m[well].max()), ROT_TOL[dtype]),
-              ("pose", float(err_p[chain].max()), POSE_TOL[dtype]))
-    for what, err, tol in checks:
-        if not err <= tol:
-            fail(f"{name} {what}: max |gpu - cpu| {err:.3e} > {tol:.3e} where "
-                 f"well conditioned")
+    errs = reconstruct_agreement(f"{name} gpu vs cpu", (o6, om, op),
+                                 cpu.mean_reconstruction(x6d.cpu()), dtype)
     fk_ref = fk_mod.fk_from_rotmat(om, fk_mod.default_offsets())
     tol_p = 1e-4 * max(1.0, float(fk_ref.abs().max()))
     err_fk = float((op - fk_ref).abs().max())
     if not err_fk <= tol_p:
         fail(f"{name} pose: FK on the GPU vs the CPU {err_fk:.3e} > {tol_p:.3e}")
-    errs = {"rot6d": err6, "rot6d_tol": tol6, "rot6d_max_abs": scale6,
-            "rot6d_median_abs": float(r6.abs().median()),
-            "rotmat_well": checks[0][1], "rotmat_tol": checks[0][2],
-            "share_well": float(well.float().mean()),
-            "pose_well": checks[1][1], "pose_tol": checks[1][2],
-            "share_pose_well": float(chain.float().mean()),
-            "rotmat_all": float(err_m.max()), "pose_all": float(err_p.max()),
-            "pose_fk": err_fk}
+    errs["pose_fk"] = err_fk
     reps = 20
     fused_conv_pool.launches = 0
     ms = time_ms(lambda: gpu.mean_reconstruction(x6d), reps=reps, samples=5)
@@ -1253,18 +1274,24 @@ def traj_kernel_phase(tmodel, gen):
     dgrad and wgrad at batch 8 and T 128 (a training step); forward and
     dgrad at 10 windows of one batch and T 64 (the solver's trajectory term,
     non-windowed: the weights are shared); the forward at batch 1 and T 300
-    (eval_trajectory).  Each row as phases 2 and 5 check and time them.
+    (eval_trajectory); the forward in bf16 at batch 8, T 128 and at batch 1,
+    T 300 (the bf16 serving bundle's trajectory, phase 25).  Each row as
+    phases 2 and 5 check and time them.
     Returns {(case, kernel): [rows over the levels]}."""
-    f32, T = torch.float32, tmodel.cfg.train_seq_len
+    f32, bf16, T = torch.float32, torch.bfloat16, tmodel.cfg.train_seq_len
     rows = {}
     for i in range(len(tmodel.encoder.structure.levels)):
         conv = getattr(tmodel.encoder, f"conv_{i}")
-        for case, batch, T_in, kinds in (("train", BATCH, T, ("fwd", "dgrad", "wgrad")),
-                                         ("solve", WINDOWS, 64, ("fwd", "dgrad")),
-                                         ("serve", 1, TRAJ_SERVE_T, ("fwd",))):
+        for case, batch, T_in, kinds, dtype in (
+                ("train", BATCH, T, ("fwd", "dgrad", "wgrad"), f32),
+                ("solve", WINDOWS, 64, ("fwd", "dgrad"), f32),
+                ("serve", 1, TRAJ_SERVE_T, ("fwd",), f32),
+                # the bf16 serving bundle's trajectory (export phase)
+                ("serve_bf16_b8", BATCH, T, ("fwd",), bf16),
+                ("serve_bf16", 1, TRAJ_SERVE_T, ("fwd",), bf16)):
             name = f"traj{i}_{case}"
             rows.setdefault((case, "fwd"), []).append(
-                fwd_level_row(name, conv, T_in, 1, batch, f32, gen))
+                fwd_level_row(name, conv, T_in, 1, batch, dtype, gen))
             if "dgrad" in kinds:
                 b = bwd_level_row(name, conv, T_in, batch, gen, with_wgrad="wgrad" in kinds)
                 for k in kinds[1:]:
@@ -1875,15 +1902,282 @@ def device_aug_phase(data_root, steps=12):
     return row
 
 
+EXPORT_DIR = os.path.join(OUT_DIR, "export")
+# kernel launches a call of each exported function (one a skeleton conv)
+EXPORT_LAUNCHES = {"reconstruct": 8, "encode_mean": 4, "decode": 4, "trajectory": 4}
+EXPORT_BATCHES = (1, BATCH, VIBE_BATCH)  # batch 1, the reconstruct's 8, refine_vibe's 237
+TRAJ_EXPORT_CASES = ((1, 16), (BATCH, 128), (1, TRAJ_SERVE_T))  # (batch, T)
+EXPORT_TIMED = {"reconstruct": (BATCH, VIBE_BATCH), "encode_mean": (BATCH, VIBE_BATCH),
+                "decode": (BATCH, VIBE_BATCH), "trajectory": ((BATCH, 128), (1, TRAJ_SERVE_T))}
+# the modules a serving process may hold: the operator's registration and
+# load_exported, no model code
+SERVE_MODULES = {"hm_vae_torch", "hm_vae_torch.ops", "hm_vae_torch.ops.fused_conv_pool",
+                 "hm_vae_torch.ops._build", "hm_vae_torch.ops.skeleton_nn", "hm_vae_torch.apps",
+                 "hm_vae_torch.apps.export"}
+
+
+def export_cases(cfg, st):
+    """{function: {case: input}} on the card, made from the seed: random
+    rotations (6D) at EXPORT_BATCHES, z lists at the same batches, FK
+    positions of random rotations at TRAJ_EXPORT_CASES."""
+    from hm_vae_torch.ops import fk as fk_mod
+    from hm_vae_torch.ops import rotations as rot
+
+    rng = np.random.default_rng(SEED + 3)
+
+    def rotations(b, T):
+        aa = torch.from_numpy((rng.normal(size=(b, T, 24, 3)) * 0.3).astype(np.float32))
+        return rot.aa_to_rotmat(aa)
+
+    x = {b: rot.rotmat_to_rot6d(rotations(b, cfg.model.train_seq_len)).to(DEV)
+         for b in EXPORT_BATCHES}
+    z = {b: tuple(torch.from_numpy(rng.normal(size=(b, st.z_edges[i], st.z_dims[i]))
+                                   .astype(np.float32)).to(DEV)
+                  for i in range(cfg.model.num_layers)) for b in EXPORT_BATCHES}
+    pose = {c: fk_mod.fk_from_rotmat(rotations(*c), fk_mod.default_offsets()).to(DEV)
+            for c in TRAJ_EXPORT_CASES}
+    return {"reconstruct": x, "encode_mean": x, "decode": z, "trajectory": pose}
+
+
+def timing(fn):
+    """ms a call by CUDA events (eager calls) and device time a call (the
+    calls captured in a CUDA graph and replayed), on the card."""
+    return {"ms": time_ms(fn, reps=10, samples=5), "device_ms": device_ms(fn, reps=10, samples=5)}
+
+
+def export_phase(model, tmodel, data_root, vae_ck):
+    """25. The serving export (``hm_vae_torch/apps/export.py``): the len-64
+    model (full width, seeded random weights) with the trajectory model,
+    exported on the card in f32 (by ``cli/export_model.py``) and bf16, and
+    the f32 len-64 functions exported on the CPU; the bundles loaded in a
+    process that imports torch and the operator's module only
+    (:func:`serve_exported`), where every function runs on its inputs
+    (counting 8 / 4 / 4 / 4 kernel launches a call) and is timed; its
+    outputs against the in-process serving path on the card
+    (``VAEInference``, ``TrajectoryRunner``), the CPU export moved to the
+    card against the card's own; the operator's dispatch beside the direct
+    launch; then ``cli/explore_latent.py`` with the training CLI's
+    checkpoint on the synthetic data root."""
+    from hm_vae_torch.apps import export as texport
+    from hm_vae_torch.apps.inference import VAEInference
+    from hm_vae_torch.cli import explore_latent, export_model
+    from hm_vae_torch.data import layout
+    from hm_vae_torch.models.structure import get_structure
+    from hm_vae_torch.models.trajectory import TrajectoryRunner
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+    from hm_vae_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    cfg = load_config(CONFIG)
+    st = get_structure(cfg.model)
+    ms = layout.load_mean_std()
+    bundles = {}
+    # f32: the export CLI, with no checkpoint: the configs' seeded init (run.seed
+    # 0), the weights of `model` and `tmodel`, the vendored stats
+    counters = launch_counters()
+    for cnt in counters:
+        cnt.launches = 0
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        export_model.main(["--config", CONFIG, "--trajectory_config", TRAJ_CONFIG, "--out",
+                           os.path.join(EXPORT_DIR, "float32"), "--device", DEV])
+    bundles["float32"] = {"seconds": time.perf_counter() - t0}
+    summary = json.loads(printed.getvalue().strip().splitlines()[-1])
+    with open(os.path.join(EXPORT_DIR, "float32", texport.MANIFEST_NAME)) as f:
+        bundles["float32"]["manifest"] = json.load(f)
+    export_cli_launches = {c.__name__: c.launches for c in counters}
+    if summary != {"out": os.path.join(EXPORT_DIR, "float32"),
+                   "device": str(next(model.parameters()).device),
+                   "serve_dtype": "float32", "functions": {
+                       k: v["bytes"] for k, v in bundles["float32"]["manifest"]["functions"]
+                       .items()}} or sorted(summary["functions"]) != sorted(EXPORT_LAUNCHES):
+        fail(f"export_model printed {summary}")
+    # bf16, and the len-64 functions exported on the CPU, through the API
+    t0 = time.perf_counter()
+    man = texport.export_bundle(os.path.join(EXPORT_DIR, "bfloat16"), model, cfg,
+                                trajectory=(tmodel, ms), serve_dtype="bfloat16")
+    bundles["bfloat16"] = {"seconds": time.perf_counter() - t0, "manifest": man}
+    t0 = time.perf_counter()
+    man = texport.export_bundle(os.path.join(EXPORT_DIR, "cpu"), copy.deepcopy(model).cpu(), cfg)
+    bundles["cpu"] = {"seconds": time.perf_counter() - t0, "manifest": man}
+    for dt, b in bundles.items():
+        print(json.dumps({"phase": "export_bundle", "bundle": dt, "seconds": b["seconds"],
+                          "device": b["manifest"]["device"],
+                          "functions": {k: {"bytes": v["bytes"], "seconds": v["seconds"]}
+                                        for k, v in b["manifest"]["functions"].items()}}),
+              flush=True)
+
+    # the in-process serving path on the same inputs: references and times
+    cases = export_cases(cfg, st)
+    torch.save({"inputs": cases}, os.path.join(EXPORT_DIR, "inputs.pt"))
+    refs, inproc_times = {}, {}
+    for dt in ("float32", "bfloat16"):
+        m = model if dt == "float32" else texport._bf16_copy(model)
+        t = tmodel if dt == "float32" else texport._bf16_copy(tmodel)
+        infer, runner = VAEInference(m, cfg, device=DEV), TrajectoryRunner(t, ms)
+
+        @torch.inference_mode()
+        def predict(pose):
+            return runner._predict(pose)
+
+        fns = {"reconstruct": infer.mean_reconstruction, "encode_mean": infer.mean_z,
+               "decode": infer.decode_full, "trajectory": predict}
+        for name, fn in fns.items():
+            for c, x in cases[name].items():
+                refs[(dt, name, c)] = [o.float().cpu() for o in
+                                       torch.utils._pytree.tree_leaves(fn(x))]
+            for c in EXPORT_TIMED[name]:
+                inproc_times[(dt, name, c)] = timing(lambda fn=fn, x=cases[name][c]: fn(x))
+
+    # the bundles served in a process without the model code
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve-exported",
+                           EXPORT_DIR], cwd=ROOT, capture_output=True, text=True, timeout=900)
+    serve_seconds = time.perf_counter() - t0
+    sys.stdout.write(proc.stdout)
+    if proc.returncode != 0:
+        fail(f"serving the exported bundles failed:\n{proc.stderr[-6000:]}")
+    served = torch.load(os.path.join(EXPORT_DIR, "served.pt"))
+    rows = []
+    for (bundle, name, c), r in sorted(served["runs"].items(), key=str):
+        dt = "float32" if bundle == "cpu" else bundle
+        dtype = getattr(torch, dt)
+        ref = refs[(dt, name, c)]
+        if bundle == "cpu":  # against the card's own export, not the in-process path
+            ref = served["runs"][("float32", name, c)]["outputs"]
+        what = f"export {bundle} {name} {c}"
+        if name in ("reconstruct", "decode"):
+            errs = reconstruct_agreement(what, r["outputs"], ref, dtype)
+        else:
+            errs = {}
+            for i, (o, w) in enumerate(zip(r["outputs"], ref)):
+                errs[f"out{i}"] = check(f"{what} out{i}", o, w, dtype)[0]
+        row = {"bundle": bundle, "function": name, "case": list(c) if isinstance(c, tuple)
+               else c, "launches": r["launches"], "max_abs_err": errs}
+        if bundle != "cpu" and c in EXPORT_TIMED[name]:
+            row.update(loaded=r["timing"], in_process=inproc_times[(dt, name, c)])
+        rows.append(row)
+        print(json.dumps({"phase": "export_serve", **row}), flush=True)
+
+    # the operator's cost: the same launch through the dispatcher and direct
+    f32 = {}
+    for name, conv, T_in in level_cases(model, st):
+        p = conv.packed_operands()
+        x = torch.randn((BATCH, p.in_channels, T_in), generator=torch.Generator()
+                        .manual_seed(SEED)).to(DEV)
+        f32[name] = {"op_ms": time_ms(lambda: fcp.fused_conv_pool_packed(x, p)),
+                     "direct_ms": time_ms(lambda: fcp._launch_packed(x, p))}
+    dispatch = {"op_ms": sum(v["op_ms"] for v in f32.values()),
+                "direct_ms": sum(v["direct_ms"] for v in f32.values()), "levels": f32}
+
+    # the latent-space CLI on the training CLI's checkpoint and the synthetic
+    # data root
+    z_path = os.path.join(EXPORT_DIR, "z.npz")
+    np.savez(z_path, **{f"z{i}": z.cpu().numpy()
+                        for i, z in enumerate(cases["decode"][1])})
+    for cnt in counters:
+        cnt.launches = 0
+    explore_latent.main(["--config", CONFIG, "--test_model", vae_ck, "--data_root", data_root,
+                         "--output_path", EXPORT_DIR, "--check_hier_latent_space",
+                         "--vis_given_z_vec", z_path, "--num_samples", "2", "--num_lerp", "3",
+                         "--device", DEV])
+    explore_launches = {c.__name__: c.launches for c in counters}
+    d = os.path.join(EXPORT_DIR, "latent_space", os.path.splitext(os.path.basename(CONFIG))[0])
+    with open(os.path.join(d, "index.json")) as f:
+        index = json.load(f)
+    want = {"given_z", "sweep_baseline", "swap_shallow_from_b", "swap_deep_from_b"} | {
+        f"sweep_level_{i}" for i in range(cfg.model.num_layers)} | {f"lerp_{i}" for i in range(3)}
+    if set(index) != want:
+        fail(f"explore_latent wrote {sorted(index)}, expected {sorted(want)}")
+    for probe in index:
+        for suffix in ("_pose.npy", "_rot.npy"):
+            a = np.load(os.path.join(d, probe + suffix))
+            if not np.isfinite(a).all() or a.shape[:2] != (index[probe][0], cfg.model.train_seq_len):
+                fail(f"explore_latent {probe}{suffix}: shape {a.shape} or non-finite")
+    if not explore_launches["fused_conv_pool"] or sum(explore_launches.values()) != \
+            explore_launches["fused_conv_pool"]:
+        fail(f"explore_latent: kernel launches {explore_launches}")
+    row = {"phase": "export", "seconds": time.perf_counter() - t_phase,
+           "serve_process_seconds": serve_seconds, "serve_modules": served["modules"],
+           "load_seconds": served["load_seconds"], "bytes": {
+               dt: {k: v["bytes"] for k, v in b["manifest"]["functions"].items()}
+               for dt, b in bundles.items()},
+           "operator_dispatch_b8_f32": dispatch, "export_cli": summary,
+           "export_cli_launches": export_cli_launches, "explore_latent_probes": len(index),
+           "explore_latent_launches": explore_launches}
+    print(json.dumps(row), flush=True)
+    return rows, row
+
+
+def serve_exported(export_dir):
+    """``--serve-exported``: load the bundles of :func:`export_phase` with
+    ``load_exported`` in a process where the port's model code cannot be
+    imported (the CPU bundle moved to the card), run every function on its
+    inputs (the launches of each call counted) and time the cases of
+    EXPORT_TIMED; write the outputs, counts and times to ``served.pt``."""
+    import importlib.abc
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path, target=None):
+            if name.split(".")[0] in ("jax", "hm_vae_tpu") or (
+                    name.startswith("hm_vae_torch.") and name not in SERVE_MODULES):
+                raise ImportError(f"a serving process does not import {name}")
+
+    sys.meta_path.insert(0, Block())
+    from hm_vae_torch.apps.export import load_exported
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+
+    inputs = torch.load(os.path.join(export_dir, "inputs.pt"))["inputs"]
+    fns, load_seconds = {}, {}
+    for bundle, device in (("float32", None), ("bfloat16", None), ("cpu", DEV)):
+        t0 = time.perf_counter()
+        fns[bundle] = load_exported(os.path.join(export_dir, bundle), device=device)
+        load_seconds[bundle] = time.perf_counter() - t0
+    runs = {}
+    with torch.inference_mode():
+        for bundle, table in fns.items():
+            for name, fn in table.items():
+                for c, x in inputs[name].items():
+                    fcp.fused_conv_pool.launches = 0
+                    out = fn(x)
+                    torch.cuda.synchronize()
+                    launches = fcp.fused_conv_pool.launches
+                    if launches != EXPORT_LAUNCHES[name]:
+                        fail(f"{bundle} {name} {c}: {launches} kernel launches, expected "
+                             f"{EXPORT_LAUNCHES[name]}")
+                    runs[(bundle, name, c)] = {
+                        "launches": launches,
+                        "outputs": [o.float().cpu() for o in torch.utils._pytree.tree_leaves(out)]}
+                    if bundle != "cpu" and c in EXPORT_TIMED[name]:
+                        runs[(bundle, name, c)]["timing"] = timing(lambda fn=fn, x=x: fn(x))
+    modules = sorted(n for n in sys.modules if n.startswith("hm_vae_torch"))
+    if not set(modules) <= SERVE_MODULES:
+        fail(f"the serving process imported {modules}")
+    torch.save({"runs": runs, "modules": modules, "load_seconds": load_seconds},
+               os.path.join(export_dir, "served.pt"))
+    print(json.dumps({"phase": "serve_exported", "modules": modules,
+                      "load_seconds": load_seconds, "runs": len(runs)}), flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
+    if sys.argv[1:2] == ["--serve-exported"]:
+        serve_exported(sys.argv[2])
+        return
     smi = nvidia_smi()
     print(smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    def elapsed(phases):
+        print(json.dumps({"phases_done": phases, "elapsed_s": time.perf_counter() - t_start}),
+              flush=True)
 
     from hm_vae_torch.models.hm_vae import HMVAE
     from hm_vae_torch.models.structure import get_structure
@@ -1919,20 +2213,24 @@ def main() -> None:
     gen = torch.Generator().manual_seed(SEED)
     model = HMVAE(cfg.model, cfg.optim.init, generator=gen).to(DEV)
 
+    elapsed("1")
     # 2. kernel against its plain version at the main path's shapes: the
     #    batch-8 reconstruct and refine_vibe's batch of 237 windows
     levels = {(dt, b): kernel_phase(model, st, dt, b, gen)
               for b in (BATCH, VIBE_BATCH) for dt in (torch.float32, torch.bfloat16)}
 
+    elapsed("2")
     # 3. the serving path end to end
     rng = np.random.default_rng(SEED)
     aa = torch.from_numpy((rng.normal(size=(BATCH, 64, 24, 3)) * 0.3).astype(np.float32))
     x6d = rot.rotmat_to_rot6d(rot.aa_to_rotmat(aa)).to(DEV)
     e2e = {dt: e2e_phase(cfg, dt, x6d) for dt in (torch.float32, torch.bfloat16)}
 
+    elapsed("3")
     # 4. the serving entry point
     cli_phase(rng)
 
+    elapsed("4")
     # 5. the backward kernels against their plain versions
     bwd = bwd_phase(model, st, gen)
     # 12 (run here, beside the other kernels). the three kernels at the
@@ -1948,12 +2246,14 @@ def main() -> None:
     #    production batch of 64
     b64_fwd, b64_bwd = b64_kernel_phase(model, st, gen)
 
+    elapsed("5, 12, 20")
     # 6-7. training end to end, and its entry point
     data_root = os.path.join(OUT_DIR, "train_data")
     shutil.rmtree(data_root, ignore_errors=True)
     train = train_phase(data_root)
     vae_ck = train_cli_phase(data_root)
 
+    elapsed("6-7")
     # 8-11. the test-time solver: its windowed kernels, the GPU against the
     #    CPU, the full solve, the evaluation entry point
     lcfg = latent_config()
@@ -1965,6 +2265,7 @@ def main() -> None:
     solve, solve_launches = solve_phase(lmodel, seq)
     eval_phase(data_root, lmodel, vae_ck)
 
+    elapsed("8-11")
     # 13-15. the trajectory model: training end to end and its entry point,
     #    eval_trajectory, the solve under the keyframe trajectory loss (GPU
     #    against CPU, the full solve) and eval_recovery's trajectory-guided
@@ -1978,6 +2279,7 @@ def main() -> None:
     traj_solve = traj_solve_phase(lmodel, traj, seq, root_trans)
     eval_traj_recovery_phase(data_root, vae_ck, traj_ck)
 
+    elapsed("13-15")
     # 16. the lora scope's base convs: forward and dgrad at slope 1.0, no
     #     bias, 10 windows through one weight; the adapters' rank-r convs
     lat0 = lcfg.latent_opt
@@ -2019,6 +2321,7 @@ def main() -> None:
                          and n["fused_conv_pool_wgrad_windowed"])):
         print(json.dumps(row), flush=True)
 
+    elapsed("16-19")
     # 21-23. the production training path: the graphed steps against eager
     #    ones and the GPU against the CPU, the training CLI with asynchronous
     #    snapshots and a resume, the step's cost; root rotation on the card
@@ -2028,6 +2331,13 @@ def main() -> None:
     prod_step = production_step_phase(data_root)
     device_aug_phase(data_root)
 
+    elapsed("21-23")
+    # 25. the serving export: bundles exported on the card and the CPU,
+    #    served from a process without the model code, against the
+    #    in-process path; the export and latent-space CLIs
+    export_rows, export_row = export_phase(model, tmodel, data_root, vae_ck)
+
+    elapsed("25")
     # 24. summary: sums over the 8 levels of one reconstruct (forward) or of
     #    one training step (backward), over the 4 decoder levels of a solve's
     #    iteration (windowed), and over the trajectory model's 4 levels
@@ -2118,8 +2428,12 @@ def main() -> None:
                     "weight; sums over the 4 decoder levels; launches: in one 150-iteration "
                     "lora solve; times: device time from CUDA-graph replays; library_ms: "
                     f"{lib} on the folded weight, TF32 off"})
+    served_bf16 = {tuple(r["case"]): r["launches"] for r in export_rows
+                   if r["bundle"] == "bfloat16" and r["function"] == "trajectory"}
     traj_launches = {"train": traj_train["launches_per_step"],
-                     "solve": traj_solve["launches"], "serve": traj_eval["launches"]}
+                     "solve": traj_solve["launches"], "serve": traj_eval["launches"],
+                     "serve_bf16_b8": {"fused_conv_pool": served_bf16[(BATCH, 128)]},
+                     "serve_bf16": {"fused_conv_pool": served_bf16[(1, TRAJ_SERVE_T)]}}
     traj_notes = {
         "train": "a training step of configs/trajectory_model.yaml, batch 8, T 128; launches: "
                  "per training step",
@@ -2127,7 +2441,11 @@ def main() -> None:
                  "(non-windowed: the weights are shared); launches: in one 150-iteration "
                  "solve under the loss, with the decoder's z-phase launches",
         "serve": f"eval_trajectory on a whole sequence, batch 1, T {TRAJ_SERVE_T}; launches: "
-                 "in the eval_trajectory run (the VAE's decode, then 4 a trajectory run)"}
+                 "in the eval_trajectory run (the VAE's decode, then 4 a trajectory run)",
+        "serve_bf16_b8": "the bf16 serving bundle's trajectory function (phase 25), batch 8, "
+                         "T 128; launches: in one call of the loaded artifact",
+        "serve_bf16": f"the bf16 serving bundle's trajectory function (phase 25), batch 1, T "
+                      f"{TRAJ_SERVE_T}; launches: in one call of the loaded artifact"}
     for (case, what), rows in traj_rows.items():
         suffix = {"fwd": "", "dgrad": "_dgrad", "wgrad": "_wgrad"}[what]
         name = f"fused_conv_pool{suffix}"
@@ -2141,7 +2459,8 @@ def main() -> None:
                          "no Pallas backward exists)"),
             "launches": traj_launches[case][name],
             **total(rows),
-            "note": f"f32, K 31, sums over the 4 trajectory levels; {traj_notes[case]}; "
+            "note": f"{'bf16' if 'bf16' in case else 'f32'}, K 31, sums over the 4 "
+                    f"trajectory levels; {traj_notes[case]}; "
                     "times: device time from CUDA-graph replays; library_ms: "
                     + {"fwd": "cuDNN conv1d", "dgrad": "torch.nn.grad.conv1d_input",
                        "wgrad": "torch.nn.grad.conv1d_weight"}[what]

@@ -133,6 +133,12 @@ def adjust_root_rot(seq_rotmat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
     return out, rel_t
 
 
+def apply_root_rot_to_translation(rel_rot: torch.Tensor, root_v: torch.Tensor) -> torch.Tensor:
+    """(B, T, 3, 3) x (B, T, 3) -> the root velocities rotated by
+    :func:`adjust_root_rot`'s relative rotation."""
+    return (rel_rot @ root_v[..., None])[..., 0]
+
+
 def aa_to_all_reps(aa_seq: torch.Tensor):
     """Axis-angle (B, T, 24*3) -> (rot6d, rotmat, FK positions)."""
     B, T = aa_seq.shape[:2]

@@ -23,7 +23,10 @@ Which tiles are live is decided once (:func:`pack_structure`, a
 - :func:`fused_conv_pool` takes the Pallas wrapper's arguments and packs on
   the fly (:func:`pack_level`, live tiles from the values);
 - :func:`fused_conv_pool_packed` takes a :class:`PackedLevel`; serving calls
-  it with operands prepared once per model;
+  it with operands prepared once per model.  It calls the registered
+  operator ``torch.ops.hm_vae_torch.fused_conv_pool`` (:data:`OP_NAME`) on
+  the packing's tensors, so that ``torch.export`` records a level as one
+  node (``hm_vae_torch/apps/export.py``);
 - :class:`FusedConvPoolFn` is the differentiable level on a folded weight
   and a structure: forward by repack + kernel, backward by
   :func:`fused_conv_pool_dgrad` and :func:`fused_conv_pool_wgrad`.
@@ -409,18 +412,24 @@ def unpack_level(packed: PackedLevel) -> Tuple[torch.Tensor, Optional[torch.Tens
     """The folded weight (P, C_in, K) and bias (P,) back from the packing,
     exactly (f32: TF32 rounding + remainder is the weight); windowed,
     (G, P, C_in, K) and (G, P)."""
-    P, C_in, K = packed.rows, packed.in_channels, packed.kernel_size
-    planes, cc, vec = _tile_shape(packed.dtype)
-    rt = packed.tile_start.numel() - 1
+    return _unpack(packed.tiles, packed.bias if packed.has_bias else None, packed.tile_start,
+                   packed.live_index, packed.in_channels, packed.kernel_size, packed.rows)
+
+
+def _unpack(tiles, bias, tile_start, live_index, C_in: int, K: int, P: int):
+    """:func:`unpack_level` on the packing's tensors (``bias`` None: no bias)."""
+    planes, cc, vec = _tile_shape(tiles.dtype)
+    rt = tile_start.numel() - 1
     nc, J = -(-C_in // cc), cc * K
-    G = packed.windows or 1
-    flat = packed.tiles.new_zeros((G, rt * nc, packed.tiles.shape[-1]))
-    flat[:, packed.live_index] = packed.tiles.reshape(G, -1, packed.tiles.shape[-1])
+    windowed = tiles.dim() == 3
+    G = tiles.shape[0] if windowed else 1
+    flat = tiles.new_zeros((G, rt * nc, tiles.shape[-1]))
+    flat[:, live_index] = tiles.reshape(G, -1, tiles.shape[-1])
     t = flat.reshape(G, rt, nc, planes, J // (2 * vec), 8, 2, 8, vec)
     t = t.permute(0, 1, 2, 3, 5, 7, 4, 6, 8).reshape(G, rt, nc, planes, ROWS, K, cc).sum(3)
     w = t.permute(0, 1, 3, 2, 5, 4).reshape(G, rt * ROWS, nc * cc, K)[:, :P, :C_in]
-    b = packed.bias[..., :P].to(packed.dtype) if packed.has_bias else None
-    if packed.windows is None:
+    b = None if bias is None else bias[..., :P].to(tiles.dtype)
+    if not windowed:
         w = w[0]
     return w.contiguous(), b
 
@@ -498,25 +507,39 @@ def _t_out(T: int, K: int, stride: int, pad: int, reflect: bool) -> int:
     return (T + 2 * pad - K) // stride + 1
 
 
-def _launch(x: torch.Tensor, packed: PackedLevel) -> torch.Tensor:
-    """The kernel on CUDA tensors: checks, then one launch, counted by
-    :func:`fused_conv_pool` or, for a windowed packing,
-    :func:`fused_conv_pool_windowed`."""
+def _launch(x: torch.Tensor, tiles: torch.Tensor, bias: torch.Tensor, tile_start: torch.Tensor,
+            tile_chunk: torch.Tensor, n_tiles: int, C_packed: int, K: int, P: int, stride: int,
+            pad: int, reflect: bool, slope: float, max_live: int) -> torch.Tensor:
+    """The kernel on CUDA tensors: checks, then one launch (uncounted) of a
+    packing of ``C_packed`` input channels, its bias f32 (zero where the
+    level has none); tiles with a leading window axis are a windowed
+    packing."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"fused_conv_pool takes float32 or bfloat16, not {x.dtype}")
-    if x.dim() != 3 or x.shape[1] != packed.in_channels:
-        raise ValueError(f"x must be (B, {packed.in_channels}, T), got {tuple(x.shape)}")
-    if x.device != packed.device or x.dtype != packed.dtype:
+    if x.dim() != 3 or x.shape[1] != C_packed:
+        raise ValueError(f"x must be (B, {C_packed}, T), got {tuple(x.shape)}")
+    if x.device != tiles.device or x.dtype != tiles.dtype:
         raise ValueError(f"x is {x.dtype} on {x.device}, the packed level "
-                         f"{packed.dtype} on {packed.device}")
+                         f"{tiles.dtype} on {tiles.device}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     B, C_in, T = x.shape
-    G = packed.windows or 1
+    G = tiles.shape[0] if tiles.dim() == 3 else 1
     if B % G:
         raise ValueError(f"a batch of {B} is not {G} windows of equal size")
-    K, stride, pad = packed.kernel_size, packed.stride, packed.padding
-    T_out = _t_out(T, K, stride, pad, packed.reflect)
+    planes, J = 2 if x.dtype == torch.float32 else 1, CHUNK_CHANNELS[x.dtype] * K
+    if tiles.shape[-2:] != (n_tiles, planes * ROWS * J) or not tiles.is_contiguous():
+        raise ValueError(f"tiles {tuple(tiles.shape)} are not {n_tiles} contiguous tiles of "
+                         f"{planes} x {ROWS} x {J}")
+    if (bias.dtype != torch.float32 or bias.device != x.device or not bias.is_contiguous()
+            or bias.numel() != G * ROWS * (tile_start.numel() - 1)):
+        raise ValueError(f"bias must be a contiguous float32 tensor of {G} x "
+                         f"{ROWS * (tile_start.numel() - 1)} on {x.device}")
+    if any(t.dtype != torch.int32 or t.device != x.device or not t.is_contiguous()
+           for t in (tile_start, tile_chunk)):
+        raise ValueError(f"tile_start and tile_chunk must be contiguous int32 tensors on "
+                         f"{x.device}")
+    T_out = _t_out(T, K, stride, pad, reflect)
     if B * T_out >= 2 ** 31:
         raise ValueError(f"batch x output steps {B * T_out} outside the kernel's range")
 
@@ -527,43 +550,104 @@ def _launch(x: torch.Tensor, packed: PackedLevel) -> torch.Tensor:
         x, C_in = xp, xp.shape[1]
 
     lib, fn = _library()
-    out = torch.empty((B, packed.rows, T_out), dtype=x.dtype, device=x.device)
+    out = torch.empty((B, P, T_out), dtype=x.dtype, device=x.device)
     dev = x.device.index
     err = _on_device(x, lambda: fn(
-        x.data_ptr(), packed.tiles.data_ptr(), packed.bias.data_ptr(),
-        packed.tile_start.data_ptr(), packed.tile_chunk.data_ptr(), out.data_ptr(), B, C_in,
-        T, K, packed.rows, T_out, stride, pad, int(packed.reflect), packed.negative_slope,
-        packed.max_live, G, packed.live_index.numel(), _DTYPES[x.dtype], dev, _sm_count(dev),
+        x.data_ptr(), tiles.data_ptr(), bias.data_ptr(), tile_start.data_ptr(),
+        tile_chunk.data_ptr(), out.data_ptr(), B, C_in, T, K, P, T_out, stride, pad,
+        int(reflect), slope, max_live, G, n_tiles, _DTYPES[x.dtype], dev, _sm_count(dev),
         torch.cuda.current_stream(x.device).cuda_stream))
-    entry = fused_conv_pool if packed.windows is None else fused_conv_pool_windowed
-    _build.check(lib, err, entry.__name__)
+    _build.check(lib, err, "fused_conv_pool" if tiles.dim() == 2 else "fused_conv_pool_windowed")
+    return out
+
+
+def _launch_packed(x: torch.Tensor, p: PackedLevel) -> torch.Tensor:
+    """:func:`_launch` of a non-windowed packing, counted by
+    :func:`fused_conv_pool` (training's and the Pallas-signature entry's
+    launch, which do not go through the registered operator)."""
+    out = _launch(x, p.tiles, p.bias, p.tile_start, p.tile_chunk, p.live_index.numel(),
+                  p.in_channels, p.kernel_size, p.rows, p.stride, p.padding, p.reflect,
+                  p.negative_slope, p.max_live)
+    fused_conv_pool.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The forward as a registered operator: ``torch.ops.hm_vae_torch.fused_conv_pool``
+# takes a packing's tensors and its ints, so that ``torch.export`` records one
+# node per level (a ``ctypes`` call on ``data_ptr()`` cannot be traced) and
+# any process that imports this module can run an exported graph.  It is
+# registered with ``torch.library.define`` + ``impl`` + ``register_fake``:
+# the dispatcher then calls the implementation with no Python layer between
+# (``torch.library.custom_op`` adds one per call, on paths that are
+# host-bound).  Nothing is built here: the kernel is built at its first launch.
+
+OP_NAME = "hm_vae_torch::fused_conv_pool"
+torch.library.define(
+    OP_NAME,
+    "(Tensor x, Tensor tiles, Tensor? bias, Tensor tile_start, Tensor tile_chunk, "
+    "Tensor live_index, int in_channels, int K, int rows, int stride, int padding, "
+    "bool reflect, float slope, int max_live) -> Tensor")
+
+
+def _op_cpu(x, tiles, bias, tile_start, tile_chunk, live_index, in_channels, K, rows, stride,
+            padding, reflect, slope, max_live):
+    """The plain version: the folded weight unpacked, then
+    :func:`fused_conv_pool_reference` (window by window for a windowed
+    packing)."""
+    w, b = _unpack(tiles, bias, tile_start, live_index, in_channels, K, rows)
+    mode = "reflect" if reflect else "constant"
+    if tiles.dim() == 3:
+        return fused_conv_pool_windowed_reference(x, w, b, stride, padding, mode, slope)
+    return fused_conv_pool_reference(x, w, b, None, None, stride, padding, mode, slope)
+
+
+def _op_cuda(x, tiles, bias, tile_start, tile_chunk, live_index, in_channels, K, rows, stride,
+             padding, reflect, slope, max_live):
+    """One launch of the kernel, counted by :func:`fused_conv_pool` or, for
+    a windowed packing, :func:`fused_conv_pool_windowed`."""
+    if bias is None:  # one zero bias per window of a windowed packing
+        bias = torch.zeros(tiles.shape[:-2] + (ROWS * (tile_start.numel() - 1),),
+                           dtype=torch.float32, device=tiles.device)
+    out = _launch(x, tiles, bias, tile_start, tile_chunk, live_index.numel(), in_channels, K,
+                  rows, stride, padding, reflect, slope, max_live)
+    entry = fused_conv_pool if tiles.dim() == 2 else fused_conv_pool_windowed
     entry.launches += 1
     return out
 
 
-def _plain(x: torch.Tensor, packed: PackedLevel) -> torch.Tensor:
-    w, b = unpack_level(packed)
-    mode = "reflect" if packed.reflect else "constant"
-    if packed.windows is not None:
-        return fused_conv_pool_windowed_reference(x, w, b, packed.stride, packed.padding, mode,
-                                                  packed.negative_slope)
-    return fused_conv_pool_reference(x, w, b, None, None, packed.stride, packed.padding, mode,
-                                     packed.negative_slope)
+def _op_fake(x, tiles, bias, tile_start, tile_chunk, live_index, in_channels, K, rows, stride,
+             padding, reflect, slope, max_live):
+    """(B, rows, T_out) in x's dtype, for symbolic B and T too."""
+    return x.new_empty((x.shape[0], rows, _t_out(x.shape[2], K, stride, padding, reflect)))
+
+
+torch.library.impl(OP_NAME, "CPU", _op_cpu)
+torch.library.impl(OP_NAME, "CUDA", _op_cuda)
+torch.library.register_fake(OP_NAME, _op_fake)
+
+
+def _op(x: torch.Tensor, p: PackedLevel) -> torch.Tensor:
+    # the packing's bias is zero where the level has none: passed as it is,
+    # the kernel reads it with no zero tensor made per call
+    return torch.ops.hm_vae_torch.fused_conv_pool(
+        x, p.tiles, p.bias, p.tile_start, p.tile_chunk, p.live_index,
+        p.in_channels, p.kernel_size, p.rows, p.stride, p.padding, p.reflect,
+        p.negative_slope, p.max_live)
 
 
 def fused_conv_pool_packed(x: torch.Tensor, packed: PackedLevel) -> torch.Tensor:
-    """x (B, C_in, T) through a packed level -> (B, P, T_out).  Not
-    differentiable on CUDA (use :class:`FusedConvPoolFn`)."""
+    """x (B, C_in, T) through a packed level -> (B, P, T_out), by the
+    registered operator (:data:`OP_NAME`).  Not differentiable on CUDA (use
+    :class:`FusedConvPoolFn`)."""
     if packed.windows is not None:
         raise ValueError("a windowed packing goes through fused_conv_pool_windowed")
-    if x.device.type == "cpu":
-        return _plain(x, packed)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_conv_pool runs on cpu or cuda tensors, not {x.device}")
-    if torch.is_grad_enabled() and x.requires_grad:
+    if x.device.type == "cuda" and torch.is_grad_enabled() and x.requires_grad:
         raise RuntimeError("fused_conv_pool_packed has no gradient: train through "
                            "FusedConvPoolFn")
-    return _launch(x, packed)
+    return _op(x, packed)
 
 
 def fused_conv_pool(
@@ -601,7 +685,7 @@ def fused_conv_pool(
     _check("mask", mask, x, (C_out, C_in))
     _check("pool_matrix", pool_matrix, x, (P, C_out))
     wf, bf = fold_operands(weight, bias, mask, pool_matrix)
-    return _launch(x, pack_level(wf, bf, stride, padding, padding_mode, negative_slope))
+    return _launch_packed(x, pack_level(wf, bf, stride, padding, padding_mode, negative_slope))
 
 
 fused_conv_pool.launches = 0
@@ -609,19 +693,18 @@ fused_conv_pool.launches = 0
 
 def fused_conv_pool_windowed(x: torch.Tensor, packed: PackedLevel) -> torch.Tensor:
     """x (G*n, C_in, T) through a windowed packing of G weights (window g's
-    n batches through weight g) -> (G*n, P, T_out).  Not differentiable on
-    CUDA (use :class:`WindowedFusedConvPoolFn`)."""
+    n batches through weight g) -> (G*n, P, T_out), by the registered
+    operator.  Not differentiable on CUDA (use
+    :class:`WindowedFusedConvPoolFn`)."""
     if packed.windows is None:
         raise ValueError("fused_conv_pool_windowed takes a windowed packing (repack of "
                          "(G, P, C_in, K) weights)")
-    if x.device.type == "cpu":
-        return _plain(x, packed)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_conv_pool runs on cpu or cuda tensors, not {x.device}")
-    if torch.is_grad_enabled() and x.requires_grad:
+    if x.device.type == "cuda" and torch.is_grad_enabled() and x.requires_grad:
         raise RuntimeError("fused_conv_pool_windowed has no gradient: go through "
                            "WindowedFusedConvPoolFn")
-    return _launch(x, packed)
+    return _op(x, packed)
 
 
 fused_conv_pool_windowed.launches = 0
@@ -914,7 +997,7 @@ class FusedConvPoolFn(torch.autograd.Function):
                                           "reflect" if s.reflect else "constant",
                                           s.negative_slope)
         elif x.device.type == "cuda":
-            y = _launch(x, repack(s, weight, bias))
+            y = _launch_packed(x, repack(s, weight, bias))
         else:
             raise ValueError(f"fused_conv_pool runs on cpu or cuda tensors, not {x.device}")
         ctx.structure = s

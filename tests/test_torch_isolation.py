@@ -20,7 +20,9 @@ TRAINING = tuple(f"hm_vae_torch.{m}" for m in (
     # the latent-optimization path
     "apps.latent_opt", "apps.tasks", "apps.metrics", "apps.baselines", "cli.eval_recovery",
     # the trajectory model
-    "models.trajectory", "cli.eval_trajectory"))
+    "models.trajectory", "cli.eval_trajectory",
+    # the serving export and the latent-space probes
+    "apps.export", "cli.export_model", "apps.latent_space", "cli.explore_latent"))
 
 
 def _port_sources():
