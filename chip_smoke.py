@@ -131,6 +131,25 @@ Phases, each of which exits non-zero on failure:
    card (f32 1e-4 * max(1, max|ref|), bf16 0.02 * max|ref|), the CPU export
    moved to the card against the card's own; the operator's dispatch beside
    the direct launch; ``cli/export_model.py`` and ``cli/explore_latent.py``;
+26. (run after 25) trajectories of any length: the forward kernel at the
+   trajectory model's four K-31 levels at batch 1, T 7,200 (a 4-minute
+   take at 30 fps), batch 4, T 2,048 and batch 2, T 4,096, f32 and bf16,
+   rows longer than a block's window staged as windows, held and timed as
+   phase 2 holds and times its rows; ``TrajectoryRunner`` on the card at
+   (1, 7200) and (4, 2048) against the CPU; phase 25's exported f32 and
+   bf16 ``trajectory`` functions at those lengths against the in-process
+   path, 4 launches a call;
+27. data preparation: raw AMASS-layout takes made from the seed (SMPL-H
+   poses at 120 fps in three subsets, 1,200-28,800 frames, one of 4
+   minutes) through ``python -m hm_vae_torch.cli.prep_data`` and its
+   ``--gen_masks``; a few ``Trainer`` steps of the len-64 VAE on the
+   prepared data; ``eval_trajectory --seq_generation_npy_path`` on the
+   4-minute take (7,200 frames in one call);
+28. the SMPL body model at SMPL's sizes (V 6,890, J 24, 10 betas, 207
+   pose correctives, F 13,776; made from the seed): the LBS on the card for
+   64 and 640 frames of a solve's output against the CPU,
+   ``vertex_error_from_rotmats``, ``save_mesh_obj`` through
+   ``HM_VAE_SMPL_MODEL``, timed by ``utils/profiling.time_fn``;
 24. print the kernel summary line and, last, the device line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -324,8 +343,8 @@ def fwd_level_row(name, conv, T_in, stride, batch, dtype, gen, bits=False):
     with `bits`, two runs bit-equal), and the device times of kernel, plain
     version and cuDNN."""
     from hm_vae_torch.ops.fused_conv_pool import (
-        CHUNK_CHANNELS, fused_conv_pool, fused_conv_pool_packed, fused_conv_pool_reference,
-        unpack_level)
+        CHUNK_CHANNELS, _sm_count, forward_plan, fused_conv_pool, fused_conv_pool_packed,
+        fused_conv_pool_reference, last_forward_plan, unpack_level)
 
     dt = str(dtype).replace("torch.", "")
     conv = copy.deepcopy(conv)
@@ -338,6 +357,11 @@ def fwd_level_row(name, conv, T_in, stride, batch, dtype, gen, bits=False):
     slope = conv.negative_slope
     x = torch.randn((batch, fw.shape[1], T_in), generator=gen).to(DEV, dtype)
     out = fused_conv_pool_packed(x, packed)
+    plan = last_forward_plan()  # the staging the launcher ran
+    if plan != forward_plan(dtype, batch, T_in, fw.shape[2], packed.rows, out.shape[2], stride,
+                            s.padding, max_live=packed.max_live, sms=_sm_count(x.device.index)):
+        fail(f"{name} {dt} B={batch}: the launch ran plan {plan}, its planner built for the "
+             f"host gives another")
     ref = fused_conv_pool_reference(x, fw, fb, None, None, stride, s.padding,
                                     s.padding_mode, slope)
     torch.cuda.synchronize()
@@ -364,6 +388,8 @@ def fwd_level_row(name, conv, T_in, stride, batch, dtype, gen, bits=False):
         "shape": {"C_in": fw.shape[1], "T": T_in, "C_out": s.out_channels,
                   "P": out.shape[1], "T_out": out.shape[2], "stride": stride,
                   "mask": raw[2] is not None, "pool": raw[3] is not None},
+        # the launch's staging: whole rows or windows, tap segments, bytes
+        "plan": plan,
         "live_tiles": int(packed.tile_start[-1]),
         "tiles": (packed.tile_start.numel() - 1) * -(-fw.shape[1] // CHUNK_CHANNELS[dtype]),
         "max_abs_err": max(err, err_api), "tol": tol, "library_err": lib_err,
@@ -381,8 +407,9 @@ def fwd_level_row(name, conv, T_in, stride, batch, dtype, gen, bits=False):
 
 def build_report(proc, cubin, kind):
     """Registers, shared memory and spills per kernel from ``nvcc -Xptxas
-    -v``, and the count of HGMMA (wgmma), HMMA (mma.sync) and UBLKCP (bulk
-    copy) instructions in each one's SASS; ``kind(mangled name)`` names the
+    -v``, ptxas's notes that it serialized a kernel's wgmma (C7520), and the
+    count of HGMMA (wgmma), HMMA (mma.sync) and UBLKCP (bulk copy)
+    instructions in each one's SASS; ``kind(mangled name)`` names the
     kernel."""
     out, err = proc.communicate()
     if proc.returncode != 0:
@@ -396,6 +423,9 @@ def build_report(proc, cubin, kind):
             report.setdefault(key, {})["ptxas"] = line.split("info    :")[-1].strip()
         elif key and "spill" in line:
             report.setdefault(key, {})["spills"] = line.strip()
+        if "C7520" in line:
+            r = report.setdefault(kind(line), {})
+            r["wgmma_serialized"] = r.get("wgmma_serialized", 0) + 1
     from hm_vae_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -408,7 +438,9 @@ def build_report(proc, cubin, kind):
 
 
 def fwd_kind(name):
-    return "bf16" if "nv_bfloat16" in name else "f32"
+    """bf16 or f32, and "_windows" for the instantiation that stages rows as
+    windows (``conv_gemm_kernel<T, true>``)."""
+    return ("bf16" if "nv_bfloat16" in name else "f32") + ("_windows" if "Lb1E" in name else "")
 
 
 def bwd_kind(name):
@@ -535,8 +567,9 @@ TRACE_NAME = {"fused_conv_pool": "conv_gemm_kernel", "fused_conv_pool_dgrad": "d
               "fused_conv_pool_wgrad": "wgrad_kernel"}
 
 
-def profile_calls(fn, calls: int = 10):
-    """Device time by kernel over `calls` calls of `fn` (torch.profiler), the
+def profile_calls(fn, calls: int = 10, warm: bool = True):
+    """Device time by kernel over `calls` calls of `fn` (torch.profiler), after
+    one call unprofiled unless `warm` is false, the
     wall time they took, the device's idle share of that wall time, the
     device operations (kernels, copies, sets) per call, and the port's
     kernels' launches per call in the trace (TRACE_KERNELS).  It records the
@@ -545,7 +578,8 @@ def profile_calls(fn, calls: int = 10):
     of processing."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1792,10 +1826,16 @@ def production_step_phase(data_root, calls=4):
     port's kernels' launches a call in the device trace (torch.profiler,
     device only) over two calls; then the same config at steps_per_call 1
     (eager steps), measured the same way in the same run over half as many
-    steps (one unit profiled).  The entries' own launch counts, set to 0
+    steps (32 steps profiled).  The entries' own launch counts, set to 0
     before the run and read after it, are the warm-up's and the capture's
     on the graph (a replay calls no entry) and every step's eagerly; the
-    trace must show 256 / 224 / 256 launches per 32 steps either way."""
+    kernels' runs counted on the device (``device_runs``, set to 0 after the
+    first call and read at the end) must be 8 / 7 / 8 a step over every
+    later step either way, graph replays included.  The device trace's
+    launches per 32 steps are reported beside them and not held to them:
+    the profiler has dropped one step's records from a trace of 32 eager
+    steps and from one of two 32-step graph calls (the 32 eager steps are
+    traced as four consecutive units of 8, their counts summed)."""
     from hm_vae_torch.ops import fused_conv_pool as fcp
     from hm_vae_torch.train.trainer import build_trainer
 
@@ -1812,6 +1852,7 @@ def production_step_phase(data_root, calls=4):
         trainer.fit(train_ds, None, max_iter=n)  # the first call captures the graph
         torch.cuda.synchronize()
         first = {k: v for k, v in fcp.launch_counts().items() if v}
+        fcp.device_runs(torch.cuda.current_device(), reset=True)
         torch.cuda.reset_peak_memory_stats()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1821,26 +1862,36 @@ def production_step_phase(data_root, calls=4):
         ms = start.elapsed_time(end) / (n * units)
         peak = torch.cuda.max_memory_allocated()
         state = {"i": n * (1 + units)}
+        n_prof = n if K > 1 else 8  # steps a profiled unit
 
         def unit():
-            state["i"] += n
+            state["i"] += n_prof
             trainer.fit(train_ds, None, max_iter=state["i"])
 
         prof = profile_calls(unit, calls=profiled)
+        per_32 = dict(prof["trace_launches_per_call"])
+        for _ in range(n // n_prof - 1):  # the eager steps' next units of 8
+            more = profile_calls(unit, calls=1, warm=False)["trace_launches_per_call"]
+            per_32 = {k: per_32.get(k, 0) + more.get(k, 0) for k in {*per_32, *more}}
         in_run = {k: v for k, v in fcp.launch_counts().items() if v}
+        runs = fcp.device_runs(torch.cuda.current_device())
         steps = state["i"]
+        runs_want = {TRACE_NAME[k]: (steps - n) * v for k, v in TRAIN_LAUNCHES.items()}
         want_first = {k: (3 if K > 1 else n) * v for k, v in TRAIN_LAUNCHES.items()}
         want_run = {k: (3 if K > 1 else steps) * v for k, v in TRAIN_LAUNCHES.items()}
         if first != want_first or in_run != want_run:
             fail(f"production step K={K}: entry launch counts {first} after the first call, "
                  f"{in_run} after {steps} steps; expected {want_first}, {want_run}")
-        if prof["trace_launches_per_call"] != trace_want:
-            fail(f"production step K={K}: {prof['trace_launches_per_call']} kernel launches "
-                 f"per 32 steps in the device trace, expected {trace_want}")
+        if runs != runs_want:
+            fail(f"production step K={K}: {runs} kernel runs on the device over steps "
+                 f"{n + 1}-{steps}, expected {runs_want}")
         out[K] = {"ms_per_step": ms, "steps": steps, "entry_launches_in_run": in_run,
-                  "trace_launches_per_32_steps": prof["trace_launches_per_call"],
-                  "peak_memory_bytes": peak, "profile_per_32_steps": prof,
-                  "device_ms_per_step": prof["device_us_per_call"] / n / 1e3,
+                  "device_runs_after_first_call": runs,
+                  "device_runs_per_32_steps": {k: 32 * v / (steps - n) for k, v in runs.items()},
+                  "trace_launches_per_32_steps": per_32,
+                  "trace_complete": per_32 == trace_want, "profiled_steps": n_prof,
+                  "peak_memory_bytes": peak, "profile_per_unit": prof,
+                  "device_ms_per_step": prof["device_us_per_call"] / n_prof / 1e3,
                   "idle_share": prof["idle_share"]}
     row = {"phase": "production_step", "config": os.path.relpath(PRODUCTION_CONFIG, ROOT),
            "batch": PROD_BATCH, "graph_steps_per_call_32": out[32],
@@ -2161,6 +2212,368 @@ def serve_exported(export_dir):
                       "load_seconds": load_seconds, "runs": len(runs)}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# trajectories of any length, data preparation, the SMPL body model
+
+# (case, batch, T): a 4-minute take at 30 fps, four 2,048-frame sequences,
+# and the exported bundle's two 4,096-frame sequences; every one past the
+# rows the forward kernel staged whole before it staged windows
+LONG_CASES = (("b1_t7200", 1, 7200), ("b4_t2048", 4, 2048), ("b2_t4096", 2, 4096))
+# the exported bundles' calls of the long phase: f32 at (2, 4096), bf16 at all
+LONG_BUNDLE_CASES = {"float32": ("b2_t4096",), "bfloat16": ("b1_t7200", "b4_t2048", "b2_t4096")}
+
+
+def long_trajectory_phase(tmodel, gen):
+    """26. Trajectories longer than the forward kernel's whole-row staging
+    held: (a) the kernel at the trajectory model's four K-31 levels at each
+    of LONG_CASES, f32 and bf16, against its plain version on the card and
+    timed beside it and cuDNN (:func:`fwd_level_row`, which records the
+    launch's staging plan); (b) ``TrajectoryRunner`` on the card at (1,
+    7200) and (4, 2048) in f32 against the same runner on the CPU (root_v
+    and world poses, 1e-4 * max(1, max|ref|)), 4 forward launches a call;
+    (c) phase 25's exported ``trajectory`` functions, loaded here, at the
+    cases of LONG_BUNDLE_CASES against the in-process path on the card
+    (f32 1e-4 * max(1, max|ref|), bf16 0.02 * max|ref|), 4 launches a call,
+    timed; (d) :func:`index_checks`, the window staging at other strides,
+    paddings and windowed.  Returns ({(case, dtype): [rows over the
+    levels]}, the phase's row)."""
+    from hm_vae_torch.apps import export as texport
+    from hm_vae_torch.data import layout, synthetic
+    from hm_vae_torch.models.trajectory import TrajectoryRunner
+    from hm_vae_torch.ops import fk as fk_mod
+    from hm_vae_torch.ops import rotations as rot
+
+    t_phase = time.perf_counter()
+    rows = {}
+    for i in range(len(tmodel.encoder.structure.levels)):
+        conv = getattr(tmodel.encoder, f"conv_{i}")
+        for case, batch, T in LONG_CASES:
+            for dtype in (torch.float32, torch.bfloat16):
+                dt = str(dtype).replace("torch.", "")
+                rows.setdefault((case, dt), []).append(
+                    fwd_level_row(f"traj{i}_long_{case}", conv, T, 1, batch, dtype, gen))
+                if rows[(case, dt)][-1]["plan"]["rows"] != "window":
+                    fail(f"traj{i} {case} {dt}: the launch stages whole rows of {T} steps")
+    index = index_checks(tmodel.encoder.conv_0, gen)
+
+    # one long smooth motion (a 4-minute take); the shorter sequences are
+    # windows of it
+    ms = layout.load_mean_std()
+    frames = synthetic.synth_sequence(np.random.default_rng(SEED + 7), 7200)
+    six = torch.from_numpy(frames[:, layout.ROT6D].reshape(7200, 24, 6))
+
+    def sequences(case):
+        _, b, T = next(c for c in LONG_CASES if c[0] == case)
+        starts = np.linspace(0, 7200 - T, b).astype(int)
+        return torch.stack([six[s:s + T] for s in starts])
+
+    counters = launch_counters()
+
+    def counted(fn, x):
+        for c in counters:
+            c.launches = 0
+        with torch.inference_mode():
+            out = fn(x)
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        if launches["fused_conv_pool"] != 4 or sum(launches.values()) != 4:
+            fail(f"long trajectory: kernel launches {launches}, expected 4 forward a call")
+        return out, launches
+
+    gpu, cpu = TrajectoryRunner(tmodel, ms), TrajectoryRunner(copy.deepcopy(tmodel).cpu(), ms)
+    runner = {}
+    for case in ("b1_t7200", "b4_t2048"):
+        x = sequences(case)
+        (world, root_v), launches = counted(gpu, x.to(DEV))
+        world_c, root_v_c = cpu(x)
+        errs = {k: check(f"TrajectoryRunner {case} {k} GPU vs CPU", a.cpu(), b,
+                         torch.float32)[0]
+                for k, a, b in (("root_v", root_v, root_v_c), ("world", world, world_c))}
+        runner[case] = {"shape": list(world.shape), "launches": launches, "max_abs_err": errs,
+                        "ms": time_ms(lambda x=x.to(DEV): gpu(x), reps=5, samples=5)}
+
+    bundles = {}
+    offsets = fk_mod.default_offsets()
+    for dt, cases in LONG_BUNDLE_CASES.items():
+        fn = texport.load_exported(os.path.join(EXPORT_DIR, dt))["trajectory"]
+        t = tmodel if dt == "float32" else texport._bf16_copy(tmodel)
+        ref_runner = TrajectoryRunner(t, ms)
+        for case in cases:
+            pose = fk_mod.fk_from_rotmat(rot.rot6d_to_rotmat(sequences(case)), offsets).to(DEV)
+            out, launches = counted(fn, pose)
+            with torch.inference_mode():
+                ref = ref_runner._predict(pose)
+            err = check(f"exported {dt} trajectory {case}", out.float(), ref.float(),
+                        getattr(torch, dt))[0]
+            bundles[f"{dt}_{case}"] = {"shape": list(out.shape), "launches": launches,
+                                       "max_abs_err": err,
+                                       **timing(lambda fn=fn, pose=pose: fn(pose))}
+    row = {"phase": "long_trajectory", "config": os.path.relpath(TRAJ_CONFIG, ROOT),
+           "plans": {f"{case}_{dt}": r[0]["plan"] for (case, dt), r in rows.items()},
+           "index_checks": index, "runner": runner, "bundles": bundles, "seconds": time.perf_counter() - t_phase}
+    print(json.dumps(row), flush=True)
+    return rows, row
+
+
+def index_checks(conv, gen):
+    """The window staging's index arithmetic past the trajectory model's
+    stride 1 and reflect padding, each launch against its plain version on
+    the card and required to stage windows: a long row (batch 2, T 4,096)
+    at stride 2 with reflect and at stride 3 with zeros, f32 and bf16
+    (:func:`fwd_level_row`); and the windowed launch, WINDOWS windows of one
+    2,048-step row each, f32, at stride 1 reflect and stride 2 zeros."""
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+
+    def variant(stride, mode):
+        c = copy.deepcopy(conv)
+        c.spec = dataclasses.replace(c.spec, stride=stride, padding_mode=mode)
+        return c
+
+    out = {}
+    for stride, mode in ((2, "reflect"), (3, "constant")):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = f"traj0_long_s{stride}_{mode}_{str(dtype).replace('torch.', '')}"
+            r = fwd_level_row(name, variant(stride, mode), 4096, stride, 2, dtype, gen)
+            out[name] = {k: r[k] for k in ("max_abs_err", "tol", "plan")}
+    with torch.inference_mode():
+        for stride, mode in ((1, "reflect"), (2, "constant")):
+            name = f"traj0_windowed_s{stride}_{mode}"
+            s, w, b, _, x, y, _ = windowed_inputs(variant(stride, mode), 2048, gen)
+            plan = fcp.last_forward_plan()
+            ref = fcp.fused_conv_pool_windowed_reference(x, w, b, stride, s.padding, mode,
+                                                         s.negative_slope)
+            err, tol = check(name, y, ref, torch.float32)
+            out[name] = {"max_abs_err": err, "tol": tol, "plan": plan}
+    for name, r in out.items():
+        if r["plan"]["rows"] != "window":
+            fail(f"{name}: the launch stages whole rows ({r['plan']})")
+    return out
+
+
+# raw AMASS-layout takes of the prep phase: (subset, frames at 120 fps);
+# CMU trains, HumanEva validates, Transitions_mocap tests; the last CMU take
+# is 4 minutes long (7,200 frames at 30 fps)
+PREP_RAW = (("CMU", 1200), ("CMU", 2400), ("CMU", 3600), ("CMU", 4800), ("CMU", 6000),
+            ("CMU", 9600), ("CMU", 12000), ("CMU", 28800), ("HumanEva", 1200),
+            ("HumanEva", 7200), ("Transitions_mocap", 2400), ("Transitions_mocap", 4800))
+PREP_STEPS = 4  # Trainer steps on the prepared data
+
+
+def prep_phase():
+    """27. Data preparation end to end: raw AMASS-layout takes made from the
+    seed (PREP_RAW: SMPL-H ``poses`` (N, 156) as smooth random joint
+    motions, ``trans``, ``mocap_framerate`` 120, ``betas``) converted by
+    ``python -m hm_vae_torch.cli.prep_data`` (a subprocess, as a user runs
+    it) at 30 fps, then ``--gen_masks 0.1 0.5``; every split filled, every
+    file of its shape and finite.  Then PREP_STEPS steps of ``Trainer.fit``
+    of the len-64 VAE on the prepared data (8 / 7 / 8 launches a step), and
+    ``eval_trajectory --seq_generation_npy_path`` on the 4-minute take's
+    rotation matrices: one 7,200-frame run of the trajectory model through
+    the forward kernel (4 launches)."""
+    from hm_vae_torch.cli import eval_trajectory
+    from hm_vae_torch.data import layout
+    from hm_vae_torch.train.trainer import build_trainer
+
+    t_phase = time.perf_counter()
+    root = os.path.join(OUT_DIR, "prep")
+    shutil.rmtree(root, ignore_errors=True)
+    raw, dest = os.path.join(root, "amass"), os.path.join(root, "prepared")
+    rng = np.random.default_rng(SEED + 11)
+    names = []
+    for k, (subset, n) in enumerate(PREP_RAW):
+        d = os.path.join(raw, subset, f"subject{k % 3}")
+        os.makedirs(d, exist_ok=True)
+        t = np.arange(n)[:, None] / 120.0
+        freq, phase, amp = (rng.uniform(0.1, 1.0, 156), rng.uniform(0, 2 * np.pi, 156),
+                            rng.uniform(0.05, 0.6, 156))
+        np.savez(os.path.join(d, f"take{k}_poses.npz"),
+                 poses=amp * np.sin(2 * np.pi * freq * t + phase),
+                 trans=np.cumsum(rng.normal(scale=0.005, size=(n, 3)), axis=0),
+                 mocap_framerate=np.float64(120.0), betas=rng.normal(size=16))
+        names.append(f"{subset}_subject{k % 3}_take{k}_poses.npy")
+    t0 = time.perf_counter()
+    for extra in (["--amass_dir", raw], ["--gen_masks", "0.1", "0.5"]):
+        proc = subprocess.run([sys.executable, "-m", "hm_vae_torch.cli.prep_data", "--dest", dest,
+                               *extra], cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"prep_data {extra[0]} failed:\n{proc.stderr[-4000:]}")
+    prep_seconds = time.perf_counter() - t0
+    splits = {}
+    for split in ("train", "val", "test"):
+        with open(os.path.join(dest, f"{split}.json")) as f:
+            splits[split] = list(json.load(f).values())
+    want = {"train": 8, "val": 2, "test": 2}
+    if {k: len(v) for k, v in splits.items()} != want or sorted(sum(splits.values(), [])) != \
+            sorted(names):
+        fail(f"prep_data wrote the splits {splits}, expected {want} of {names}")
+    frames = {}
+    for name, (_, n) in zip(names, PREP_RAW):
+        a = np.load(os.path.join(dest, "seqs", name), mmap_mode="r")
+        frames[name] = a.shape[0]
+        if a.shape != (n // 4, layout.FRAME_DIM) or not np.isfinite(a).all():
+            fail(f"prep_data {name}: {a.shape}, expected ({n // 4}, {layout.FRAME_DIM}), finite")
+        for prob in (0.1, 0.5):
+            if name in splits["test"]:
+                m = np.load(os.path.join(dest, "eval_masks", f"missing_prob_{prob}", name))
+                if m.shape != (n // 4, 24) or not set(np.unique(m)) <= {0.0, 1.0}:
+                    fail(f"mask {prob} {name}: {m.shape}")
+    ms = np.load(os.path.join(dest, "mean_std.npy"))
+    if ms.shape != (2, layout.FRAME_DIM) or not np.isfinite(ms).all():
+        fail(f"prep_data mean_std: {ms.shape} or non-finite")
+
+    # the Trainer on the prepared data
+    cfg = train_config(dest)
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, synthetic=False))
+    trainer, train_ds, _, test_ds = build_trainer(cfg, os.path.join(root, "train"), device=DEV)
+    counters = launch_counters()
+    for c in counters:
+        c.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    trainer.fit(train_ds, None, max_iter=PREP_STEPS, test_ds=test_ds,
+                log_cb=lambda step, m: losses.append(m["loss_total"]))
+    torch.cuda.synchronize()
+    fit_seconds = time.perf_counter() - t0
+    train_launches = {c.__name__: c.launches for c in counters}
+    if len(losses) != PREP_STEPS or not np.isfinite(losses).all():
+        fail(f"training on the prepared data: losses {losses}")
+    if train_launches != {c.__name__: TRAIN_LAUNCHES.get(c.__name__, 0) * PREP_STEPS
+                          for c in counters}:
+        fail(f"training on the prepared data: kernel launches {train_launches}")
+
+    # the 4-minute take through eval_trajectory, in one call
+    long_name = names[PREP_RAW.index(("CMU", 28800))]
+    seq = os.path.join(root, "take_4min.npy")
+    a = np.load(os.path.join(dest, "seqs", long_name))
+    np.save(seq, a[:, layout.ROTMAT].reshape(-1, 24, 3, 3))
+    out = os.path.join(root, "eval_trajectory")
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    eval_trajectory.main(["--config", CONFIG, "--trajectory_config", TRAJ_CONFIG,
+                          "--output_path", out, "--data_root", dest,
+                          "--seq_generation_npy_path", seq, "--device", DEV])
+    torch.cuda.synchronize()
+    eval_seconds = time.perf_counter() - t0
+    eval_launches = {c.__name__: c.launches for c in counters}
+    if eval_launches["fused_conv_pool"] != 4 or sum(eval_launches.values()) != 4:
+        fail(f"eval_trajectory on the 4-minute take: kernel launches {eval_launches}, "
+             "expected 4 forward")
+    d = os.path.join(out, "eval_trajectory", os.path.splitext(os.path.basename(CONFIG))[0])
+    for suffix, shape in (("", (7200, 24, 9)), ("_trans", (7200, 3))):
+        f = os.path.join(d, f"take_4min_traj_0{suffix}.npy")
+        r = np.load(f) if os.path.exists(f) else None
+        if r is None or r.shape != shape or not np.isfinite(r).all():
+            fail(f"eval_trajectory {f}: {None if r is None else r.shape}, expected {shape}")
+    row = {"phase": "prep", "raw_frames": [n for _, n in PREP_RAW], "frames": frames,
+           "splits": {k: len(v) for k, v in splits.items()}, "prep_data_seconds": prep_seconds,
+           "train_losses": losses, "train_launches": train_launches,
+           "fit_seconds": fit_seconds, "eval_trajectory_launches": eval_launches,
+           "eval_trajectory_seconds": eval_seconds, "seconds": time.perf_counter() - t_phase}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+# SMPL's published sizes: vertices, joints, shape coefficients, faces (the
+# pose correctives: 9 * (J - 1) = 207)
+SMPL_V, SMPL_J, SMPL_BETAS, SMPL_F = 6890, 24, 10, 13776
+SMPL_PARENTS = (-1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16, 17, 18, 19, 20, 21)
+
+
+def smpl_model_file(path):
+    """A body model npz in the official layout at SMPL's sizes, made from the
+    seed: each vertex skinned to up to 4 joints, each joint regressed from 32
+    vertices (rows summing to 1), the root's parent stored as uint32 -1."""
+    rng = np.random.default_rng(SEED + 13)
+    V, J = SMPL_V, SMPL_J
+    weights = np.zeros((V, J))
+    for k in range(4):  # a dominant joint, then up to 3 lesser ones
+        weights[np.arange(V), rng.integers(0, J, V)] += rng.uniform(0.1, 1.0, V) * (
+            1.0 if k == 0 else 0.3)
+    weights /= weights.sum(1, keepdims=True)
+    jreg = np.zeros((J, V))
+    for j in range(J):
+        jreg[j, rng.choice(V, 32, replace=False)] = rng.uniform(0.1, 1.0, 32)
+    jreg /= jreg.sum(1, keepdims=True)
+    kintree = np.stack([np.asarray(SMPL_PARENTS), np.arange(J)])
+    kintree[0, 0] = 2 ** 32 - 1
+    np.savez(path, v_template=rng.normal(scale=0.3, size=(V, 3)),
+             shapedirs=rng.normal(scale=0.01, size=(V, 3, SMPL_BETAS)),
+             posedirs=rng.normal(scale=0.005, size=(V, 3, 9 * (J - 1))),
+             J_regressor=jreg, weights=weights, kintree_table=kintree.astype(np.uint32),
+             f=rng.integers(0, V, (SMPL_F, 3)))
+    return path
+
+
+def smpl_phase(model, seq, root_trans):
+    """28. The SMPL body model on the card (``utils/smpl.py``), at SMPL's
+    published sizes (a model made from the seed): the LBS forward (float64
+    on the device, float32 out) for one 64-frame window and for 10 windows
+    (640 frames) of a short solve's output, with betas and the root
+    translation, against the same module on the CPU (1e-5 * max(1,
+    max|ref|)); ``vertex_error_from_rotmats`` of the solve's output against
+    its input, on the card and the CPU; ``save_mesh_obj`` of one window
+    through ``HM_VAE_SMPL_MODEL`` (64 .obj files of V vertices and F faces);
+    each timed by ``utils/profiling.time_fn`` (CUDA events)."""
+    from hm_vae_torch.apps.metrics import vertex_error_from_rotmats
+    from hm_vae_torch.apps.tasks import LatentOptApps
+    from hm_vae_torch.utils import profiling, viz
+    from hm_vae_torch.utils.smpl import SMPLBodyModel
+
+    t_phase = time.perf_counter()
+    root = os.path.join(OUT_DIR, "smpl")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    path = smpl_model_file(os.path.join(root, "smpl_seeded.npz"))
+    gpu, cpu = SMPLBodyModel(path, device=DEV), SMPLBodyModel(path, device="cpu")
+    out = LatentOptApps(model, latent_config(opt_it=3, prev_epochs=0)).interpolate(
+        seq, torch.Generator().manual_seed(SEED))
+    rot_mat = out["rot_mat"].detach().float()
+    trans = torch.from_numpy(root_trans.astype(np.float32))
+    betas = np.random.default_rng(SEED + 14).normal(size=SMPL_BETAS)
+    lbs = {}
+    for name, T in (("window", 64), ("windows_10", WINDOWS * 64)):
+        r, tr = rot_mat[:T].to(DEV), trans[:T].to(DEV)
+        verts = gpu(r, transl=tr, betas=betas)
+        ref = cpu(r.cpu(), transl=tr.cpu(), betas=betas)
+        if verts.device.type != torch.device(DEV).type or verts.dtype != torch.float32:
+            fail(f"smpl {name}: vertices on {verts.device} in {verts.dtype}")
+        err = float((verts.cpu() - ref).abs().max())
+        tol = 1e-5 * max(1.0, float(ref.abs().max()))
+        if tuple(verts.shape) != (T, SMPL_V, 3) or not err <= tol:
+            fail(f"smpl {name}: shape {tuple(verts.shape)}, max |gpu - cpu| {err} > {tol}")
+        lbs[name] = {"frames": T, "max_abs_err": err, "tol": tol,
+                     "ms": 1e3 * profiling.time_fn(lambda r=r, tr=tr: gpu(r, transl=tr,
+                                                                          betas=betas), iters=5)}
+    seq_t = torch.from_numpy(seq.astype(np.float32))
+    v_err = vertex_error_from_rotmats(gpu, rot_mat.to(DEV), seq_t.to(DEV))
+    v_err_cpu = vertex_error_from_rotmats(cpu, rot_mat.cpu(), seq_t)
+    if not (np.isfinite(v_err) and v_err > 0 and abs(v_err - v_err_cpu) <= 1e-5 * max(1, v_err)):
+        fail(f"vertex_error_from_rotmats: {v_err} on the card, {v_err_cpu} on the CPU")
+    v_ms = 1e3 * profiling.time_fn(
+        lambda: vertex_error_from_rotmats(gpu, rot_mat.to(DEV), seq_t.to(DEV)), iters=3)
+    os.environ["HM_VAE_SMPL_MODEL"] = path
+    mask = np.zeros(64)
+    mask[::8] = 1
+    with profiling.Timer(verbose=False) as t_obj:
+        obj_dir = viz.save_mesh_obj(os.path.join(root, "mesh"), rot_mat[:64], trans[:64],
+                                    temporal_mask=mask, device=DEV)
+    objs = sorted(os.listdir(obj_dir))
+    with open(os.path.join(obj_dir, objs[0])) as f:
+        lines = f.read().splitlines()
+    if (len(objs) != 64 or sum(ln.startswith("v ") for ln in lines) != SMPL_V
+            or sum(ln.startswith("f ") for ln in lines) != SMPL_F
+            or len(os.listdir(os.path.join(root, "mesh", "k_objs"))) != 8):
+        fail(f"save_mesh_obj wrote {len(objs)} frames, {len(lines)} lines a frame")
+    row = {"phase": "smpl", "sizes": {"V": SMPL_V, "J": SMPL_J, "betas": SMPL_BETAS,
+                                      "F": SMPL_F, "posedirs": 9 * (SMPL_J - 1)},
+           "lbs": lbs, "vertex_error": v_err, "vertex_error_cpu": v_err_cpu,
+           "vertex_error_ms": v_ms, "save_mesh_obj_seconds": t_obj.elapsed,
+           "seconds": time.perf_counter() - t_phase}
+    print(json.dumps(row), flush=True)
+    return row
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
@@ -2338,6 +2751,17 @@ def main() -> None:
     export_rows, export_row = export_phase(model, tmodel, data_root, vae_ck)
 
     elapsed("25")
+    # 26. trajectories of any length: the forward kernel at long rows, the
+    #    runner on the card against the CPU, phase 25's exported functions
+    long_rows, long_row = long_trajectory_phase(tmodel, gen)
+    elapsed("26")
+    # 27. data preparation: raw takes -> prep_data (+ masks) -> training on
+    #    them -> eval_trajectory on the 4-minute take
+    prep_phase()
+    elapsed("27")
+    # 28. the SMPL body model on the card at SMPL's sizes
+    smpl_phase(lmodel, seq, root_trans)
+    elapsed("28")
     # 24. summary: sums over the 8 levels of one reconstruct (forward) or of
     #    one training step (backward), over the 4 decoder levels of a solve's
     #    iteration (windowed), and over the trajectory model's 4 levels
@@ -2482,15 +2906,41 @@ def main() -> None:
                         + " at configs/len64_production.yaml's batch of 64",
             "launches": prod_run["entry_launches_in_run"].get(name, 0),
             **total(rows),
+            "device_launches_per_call": prod_run["device_runs_per_32_steps"][TRACE_NAME[name]],
             "trace_launches_per_call": prod_run["trace_launches_per_32_steps"][TRACE_NAME[name]],
             "note": f"f32 (bf16 parameters are cast to f32 before the fold), batch "
                     f"{PROD_BATCH}; sums over the 8 len-64 levels (dgrad: enc0 runs it in this "
                     "timing but not in training); launches: the entry's count over the graphed "
                     f"production step's {prod_run['steps']} steps (the two warm-up steps and the "
-                    "capture: a replay calls no entry); trace_launches_per_call: the kernel's "
-                    "launches in the device trace of one 32-step call (CUDA-graph replays); "
+                    "capture: a replay calls no entry); device_launches_per_call: the "
+                    "kernel's runs a 32-step call (CUDA-graph replays) counted on the device; "
+                    "trace_launches_per_call: its launches in the device trace of one such "
+                    "call; "
                     "times: device time from CUDA-graph replays; library_ms: "
                     f"{lib} on the folded weight, TF32 off"})
+    long_launches = {**{(case, "bfloat16"): long_row["bundles"][f"bfloat16_{case}"]["launches"]
+                        for case in LONG_BUNDLE_CASES["bfloat16"]},
+                     ("b2_t4096", "float32"): long_row["bundles"]["float32_b2_t4096"]["launches"],
+                     **{(case, "float32"): long_row["runner"][case]["launches"]
+                        for case in ("b1_t7200", "b4_t2048")}}
+    long_paths = {("b1_t7200", "float32"): "TrajectoryRunner on a 4-minute take (7,200 frames)",
+                  ("b4_t2048", "float32"): "TrajectoryRunner on four 2,048-frame sequences",
+                  ("b2_t4096", "float32"): "the f32 bundle's trajectory on two 4,096-frame "
+                                           "sequences"}
+    for (case, dt), rows in long_rows.items():
+        summary["kernels"].append({
+            "name": f"fused_conv_pool@trajectory_long_{case}" + ("_bf16" if dt == "bfloat16"
+                                                                  else ""),
+            "route": "cuda", "source": "hm_vae_torch/csrc/fused_conv_pool.cu",
+            "replaces": "hm_vae_tpu/ops/pallas_kernels.py:65 (at hm_vae_tpu/models/"
+                        "trajectory.py:45-50, any T)",
+            "launches": long_launches[(case, dt)]["fused_conv_pool"],
+            **total(rows), "plan": rows[0]["plan"],
+            "note": f"{dt}, K 31, sums over the 4 trajectory levels at batch and T "
+                    f"{case[1:].replace('_t', ', ')}, rows staged as windows; launches: in one "
+                    + long_paths.get((case, dt), "call of the bf16 bundle's trajectory")
+                    + " (phase 26); times: device time from CUDA-graph replays; library_ms: "
+                      "cuDNN conv1d on the folded weight, TF32 off"})
     print(json.dumps(summary), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """Evaluation metrics: MPJPE, PA-MPJPE, acceleration, trajectory errors.
 
 Port of ``hm_vae_tpu.apps.metrics`` as torch functions (batched; numpy
-inputs are taken as tensors).  ``vertex_error_from_rotmats`` waits for the
-SMPL body model (``utils/smpl.py``, ROADMAP Queue 1 item 10).
+inputs are taken as tensors); the mesh metrics pose the SMPL body model of
+``utils/smpl.py`` on its device.
 """
 
 from __future__ import annotations
@@ -46,6 +46,21 @@ def trajectory_fde(pred_trans, gt_trans) -> torch.Tensor:
     """Final displacement error: the distance at the last step."""
     return torch.linalg.vector_norm(_t(pred_trans)[..., -1, :] - _t(gt_trans)[..., -1, :],
                                     dim=-1).mean()
+
+
+def vertex_error(pred_verts, gt_verts) -> torch.Tensor:
+    """Mean per-vertex position error over (..., V, 3) mesh vertices: the
+    mesh-space analogue of :func:`mpjpe` (VIBE's ``compute_error_verts``)."""
+    return torch.linalg.vector_norm(_t(pred_verts) - _t(gt_verts), dim=-1).mean()
+
+
+def vertex_error_from_rotmats(smpl_model, pred_rotmat, gt_rotmat, pred_transl=None,
+                              gt_transl=None) -> float:
+    """Pose ``smpl_model`` (a :class:`~hm_vae_torch.utils.smpl.SMPLBodyModel`,
+    on its device) with both (T, 24, 3, 3) rotation sets and compare the
+    meshes; a Python float."""
+    return float(vertex_error(smpl_model(pred_rotmat, transl=pred_transl),
+                              smpl_model(gt_rotmat, transl=gt_transl)))
 
 
 def accel(joints) -> torch.Tensor:

@@ -30,8 +30,12 @@ the evaluation: the model is built at the defaults, f32, so that
 ``configs/len64_production.yaml`` evaluates as it solves (its bf16 clone
 and moments).
 
-Not ported, each raising with the ROADMAP item that brings it:
-``--gen_vis`` (``utils/viz.py``, item 10) and ``--data_parallel`` (item 11).
+``--gen_vis`` also renders each sequence (``<name>.mp4``, or a gif without
+ffmpeg; it needs matplotlib): the trajectory model's world-space poses where
+one is given, else the result's FK poses.
+
+Not ported, raising with the ROADMAP item that brings it: ``--data_parallel``
+(item 11).
 """
 
 from __future__ import annotations
@@ -99,9 +103,6 @@ def main(argv=None):
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
 
-    if args.gen_vis:
-        raise NotImplementedError("--gen_vis needs utils/viz.py, not ported yet (ROADMAP "
-                                  "Queue 1 item 10)")
     if args.data_parallel > 1:
         raise NotImplementedError("--data_parallel: the port solves on one device (ROADMAP "
                                   "Queue 1 item 11)")
@@ -272,15 +273,27 @@ def _pad_chunk(chunk, size, ci):
     return chunk + [chunk[-1]] * (size - n_real), n_real
 
 
-def _save_seq_outputs(name, rotmat, output_dir, traj_runner=None):
+def _save_seq_outputs(name, rotmat, output_dir, traj_runner=None, gen_vis=False):
     """The optimised rotations and, with a trajectory model, its world-space
-    poses of them."""
-    np.save(os.path.join(output_dir, f"{name}_rot_opt_res.npy"), _np(rotmat))
+    poses of them; with ``gen_vis`` an animation of those (or of the
+    rotations' FK poses)."""
+    from ..ops import fk as fk_mod
+
+    rotmat = _np(rotmat)
+    np.save(os.path.join(output_dir, f"{name}_rot_opt_res.npy"), rotmat)
+    pose = None
     if traj_runner is not None:
         from ..ops import rotations as rot
 
-        world, _ = traj_runner(rot.rotmat_to_rot6d(torch.as_tensor(_np(rotmat)))[None])
-        np.save(os.path.join(output_dir, f"{name}_root_trans_opt_res.npy"), _np(world[0]))
+        world, _ = traj_runner(rot.rotmat_to_rot6d(torch.as_tensor(rotmat))[None])
+        pose = _np(world[0])
+        np.save(os.path.join(output_dir, f"{name}_root_trans_opt_res.npy"), pose)
+    if gen_vis:
+        from ..utils.viz import save_animation
+
+        if pose is None:
+            pose = fk_mod.fk_numpy(rotmat.astype(np.float32))
+        save_animation(pose[None], os.path.join(output_dir, f"{name}.mp4"))
 
 
 def _write_summary(results, output_dir):
@@ -324,7 +337,7 @@ def _run_interpolation(apps, seed, cfg, args, eval_ds, n_eval, W, output_dir, tr
                 m["slerp_mpjpe"] = float(mpjpe(torch.as_tensor(fk_mod.fk_numpy(slerp)),
                                                torch.as_tensor(gt_pose)))
             name = it["name"].replace(".npy", "")
-            _save_seq_outputs(name, out["rot_mat"], output_dir, traj_runner)
+            _save_seq_outputs(name, out["rot_mat"], output_dir, traj_runner, args.gen_vis)
             results.append((name, m))
             print(name, m, flush=True)
     _write_summary(results, output_dir)
@@ -358,7 +371,7 @@ def _run_reconstruction(infer, args, eval_ds, n_eval, W, output_dir, traj_runner
             m = _metrics(seq_pose, gt_pose)
             m["pa_mpjpe"] = float(pa_mpjpe(torch.as_tensor(seq_pose), torch.as_tensor(gt_pose)))
             name = it["name"].replace(".npy", "")
-            _save_seq_outputs(name, seq_rm, output_dir, traj_runner)
+            _save_seq_outputs(name, seq_rm, output_dir, traj_runner, args.gen_vis)
             results.append((name, m))
             print(name, m, flush=True)
     _write_summary(results, output_dir)
@@ -379,7 +392,7 @@ def _run_completion_batched(apps, seed, missing, args, eval_ds, n_eval, W, outpu
             pose = _np(out["pose"])
             m = _metrics(pose, fk_mod.fk_numpy(it["rot_mat"][:pose.shape[0]]))
             name = it["name"].replace(".npy", "")
-            _save_seq_outputs(name, out["rot_mat"], output_dir, traj_runner)
+            _save_seq_outputs(name, out["rot_mat"], output_dir, traj_runner, args.gen_vis)
             results.append((name, m))
             print(name, m, flush=True)
     _write_summary(results, output_dir)
@@ -396,7 +409,7 @@ def _run_generation_batched(apps, seed, args, eval_ds, n_eval, W, output_dir, tr
         for it, out in zip(chunk[:n_real], outs[:n_real]):
             m = {"length": out["pose"].shape[0]}
             name = it["name"].replace(".npy", "")
-            _save_seq_outputs(name, out["rot_mat"], output_dir, traj_runner)
+            _save_seq_outputs(name, out["rot_mat"], output_dir, traj_runner, args.gen_vis)
             results.append((name, m))
             print(name, m, flush=True)
     _write_summary(results, output_dir)
@@ -431,7 +444,7 @@ def _run_single_window(apps, seed, task, args, eval_ds, n_eval, W, output_dir, t
                 err = np.linalg.norm(pose[j] - gt_pose, axis=-1)
                 m["mpjpe_missing"] = float((err * missing).sum() / missing.sum())
             name = it["name"].replace(".npy", "")
-            _save_seq_outputs(name, rotm[j], output_dir, traj_runner)
+            _save_seq_outputs(name, rotm[j], output_dir, traj_runner, args.gen_vis)
             results.append((name, m))
             print(name, m, flush=True)
     _write_summary(results, output_dir)

@@ -14,11 +14,11 @@ test windows through it.  Each sequence b of a run tagged ``tag`` is saved as
 and ``{tag}_{b}_trans.npy`` (the root's world positions, (T, 3)) under
 ``<output_path>/eval_trajectory/<config name>[_<out_tag>]/``.  ``--device``
 defaults to ``cuda`` and raises without CUDA unless ``--device cpu`` is
-given.
+given.  ``--gen_vis`` also renders each sequence's world-space poses
+(``{tag}_{b}.mp4``, or a gif without ffmpeg; it needs matplotlib).
 
-Not ported, each raising with the ROADMAP item that brings it:
-``--sequence_parallel`` > 1 (Queue 1 item 11) and ``--gen_vis``
-(``utils/viz.py``, item 10).
+Not ported, raising with the ROADMAP item that brings it:
+``--sequence_parallel`` > 1 (Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -61,10 +61,6 @@ def main(argv=None):
     if args.sequence_parallel > 1:
         raise NotImplementedError("--sequence_parallel: the port runs the trajectory model "
                                   "on one device (ROADMAP Queue 1 item 11)")
-    if args.gen_vis:
-        raise NotImplementedError("--gen_vis needs utils/viz.py, not ported yet (ROADMAP "
-                                  "Queue 1 item 10)")
-
     from ..apps.inference import VAEInference
     from ..models.trajectory import TrajectoryRunner
     from ..ops import rotations as rot
@@ -105,6 +101,10 @@ def main(argv=None):
             np.save(os.path.join(output_dir, f"{tag}_{b}.npy"),
                     np.concatenate([six[b], pos[b]], axis=-1))
             np.save(os.path.join(output_dir, f"{tag}_{b}_trans.npy"), pos[b][:, 0, :])
+            if args.gen_vis:
+                from ..utils.viz import save_animation
+
+                save_animation(pos[b][None], os.path.join(output_dir, f"{tag}_{b}.mp4"))
         return world
 
     if args.pred_trajectory_for_single_window:

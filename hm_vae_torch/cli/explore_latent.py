@@ -10,8 +10,9 @@ saved ``np.savez`` z list (its arrays in the order of their sorted keys).
 Each probe writes ``<name>_pose.npy`` and ``<name>_rot.npy`` under
 ``<output_path>/latent_space/<config name>/``, and ``index.json`` maps the
 names to the poses' shapes, as the JAX package's CLI writes them.  Runs on
-``--device cuda`` unless told otherwise.  ``--gen_vis`` raises: it needs
-``utils/viz.py`` (ROADMAP Queue 1 item 10).
+``--device cuda`` unless told otherwise.  ``--gen_vis`` also renders each
+probe's first sequence (``<name>.mp4``, or a gif without ffmpeg; it needs
+matplotlib).
 """
 
 from __future__ import annotations
@@ -42,10 +43,6 @@ def main(argv=None):
     args = p.parse_args(argv)
     if not (args.check_hier_latent_space or args.vis_given_z_vec):
         p.error("choose --check_hier_latent_space and/or --vis_given_z_vec")
-    if args.gen_vis:
-        raise NotImplementedError("--gen_vis needs utils/viz.py, not ported yet (ROADMAP "
-                                  "Queue 1 item 10)")
-
     import torch
 
     from ..apps import latent_space as ls
@@ -76,6 +73,10 @@ def main(argv=None):
         np.save(os.path.join(output_dir, f"{name}_pose.npy"), pose)
         np.save(os.path.join(output_dir, f"{name}_rot.npy"), rm)
         index[name] = list(pose.shape)
+        if args.gen_vis:
+            from ..utils.viz import save_animation
+
+            save_animation(pose[:1], os.path.join(output_dir, f"{name}.mp4"))
 
     if args.vis_given_z_vec:
         with np.load(args.vis_given_z_vec) as zf:

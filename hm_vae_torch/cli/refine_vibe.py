@@ -9,7 +9,9 @@ our and VIBE's rotation matrices.
         --vibe_output poses.npy --output_path out/ [--test_model gen_00250000.pt]
 
 ``--test_model`` takes a reference-format ``gen_*.pt``; without it the model
-is a seeded random init (``--seed``).  Runs on ``--device cuda`` unless told
+is a seeded random init (``--seed``).  ``--gen_vis`` also renders VIBE's
+and the refined poses side by side (``<name>_cmp.mp4``, or a gif without
+ffmpeg; it needs matplotlib).  Runs on ``--device cuda`` unless told
 otherwise.
 """
 
@@ -52,13 +54,12 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random init when no --test_model is given")
     args = p.parse_args(argv)
-    if args.gen_vis:
-        raise NotImplementedError("--gen_vis: visualization is not ported yet")
 
     import torch
 
     from ..apps.inference import VAEInference, aa_to_all_reps
     from ..models.hm_vae import HMVAE
+    from ..ops import fk as fk_mod
     from ..ops import rotations as rot
     from ..utils.config import load_config
     from ..utils.device import resolve_device
@@ -81,7 +82,7 @@ def main(argv=None):
 
     with torch.inference_mode():
         for name, aa in load_pose_sequences(args.vibe_output):
-            six, mats, _ = aa_to_all_reps(torch.as_tensor(aa[None], device=device))
+            six, mats, pose = aa_to_all_reps(torch.as_tensor(aa[None], device=device))
             refined_rot = rot.rot6d_to_rotmat(infer.refine_sliding_window(six[0]))
             np.save(os.path.join(output_dir, f"{name}_our_rot_mat.npy"),
                     to_numpy(refined_rot))
@@ -91,6 +92,13 @@ def main(argv=None):
                 vibe6d = rot.rot6d_ours_to_vibe(rot.rotmat_to_rot6d(refined_rot))
                 np.save(os.path.join(output_dir, f"{name}_our_6d_vibe_order.npy"),
                         to_numpy(vibe6d))
+            if args.gen_vis:
+                from ..utils.viz import save_animation
+
+                ours = to_numpy(fk_mod.fk_from_rotmat(refined_rot, fk_mod.default_offsets()))
+                ours[:, :, 0] += 1.0  # offset for side-by-side (reference :904)
+                save_animation(np.stack([to_numpy(pose[0]), ours]),
+                               os.path.join(output_dir, f"{name}_cmp.mp4"))
             print(f"refined {name}: {aa.shape[0]} frames")
 
 

@@ -76,6 +76,22 @@
 //   are one bulk copy each, and the im2col tile is built for those taps
 //   only.  The launcher picks the fewest segments that fit; at K <= 16 a
 //   chunk is one stage, as before.
+// - long rows: where whole rows do not fit shared memory, or fit only with
+//   more tap segments, and a row is longer than the window a block's 64
+//   output columns can read ((64 - 1) * stride + K columns, or padding + 1
+//   where reflect folds more back), a stage holds, per batch the block
+//   touches, only the columns [lo, hi] of each of the chunk's rows that its
+//   outputs read, the padding resolved into the unpadded row: one bulk copy
+//   a row, widened to whole 16-byte granules (so a row starts d < 16 bytes
+//   into its slot), issued by the lanes of warp 0 together (the
+//   conv_gemm_kernel<T, true> instantiation).  Its shared memory depends on
+//   stride and K only, never on T, so any sequence length runs.  Where both
+//   fit, whole rows are staged, one bulk copy of a batch's CC rows: fewer
+//   copies a stage, and faster (PERF.md).
+// - the plan (whole rows or windows, tap segments, shared memory, cluster
+//   split) is fused_conv_pool_plan.h's, plain C++ that the wrapper also
+//   builds for the host; hmvae_fused_conv_pool_last_plan returns the plan
+//   the last launch ran.
 // A block builds a stage's im2col tile and then runs its products; two
 // blocks per SM (bf16) overlap the two.  Times against the bounds are in
 // PERF.md.
@@ -87,34 +103,43 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "fused_conv_pool_plan.h"
+#include "run_counter.h"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;       // two warpgroups
-constexpr int kBM = 64;             // rows per tile (wgmma M)
-constexpr int kBN = 64;             // columns per tile
-constexpr int kWN = 32;             // columns per warpgroup (wgmma N)
-constexpr int kKStep = 2048;        // bytes of one k-step of a 64-row operand
-constexpr int kMaxSplit = 8;        // blocks per cluster (the portable maximum)
-constexpr int kRedBytes = kBM * kBN * 4;
-constexpr int kSmemPerSM = 233472;  // 228 KB
-constexpr int kMaxSmem = 232448;    // 227 KB a block
+using namespace hmvae_fwd;  // kBM, kBN, kMaxSplit, kRedBytes, kMaxSmem, the plan
+
+constexpr int kThreads = 256;  // two warpgroups
+constexpr int kWN = 32;        // columns per warpgroup (wgmma N)
+constexpr int kKStep = 2048;   // bytes of one k-step of a 64-row operand
 constexpr int kMaxDevices = 64;
+
+__device__ unsigned long long g_runs[1];  // conv_gemm_kernel (run_counter.h)
 
 template <typename T> struct Traits;
 template <> struct Traits<__nv_bfloat16> {
-  static constexpr int kCC = 16;     // input channels per chunk
-  static constexpr int kPlanes = 1;  // weight and im2col planes
-  static constexpr int kVec = 8;     // values per 16-byte core-matrix row
-  static constexpr int kStages = 2;  // weight tiles in flight
+  static constexpr Elem kElem = kBf16;
+  static constexpr int kCC = kElem.cc;          // input channels per chunk
+  static constexpr int kPlanes = kElem.planes;  // weight and im2col planes
+  static constexpr int kVec = 8;                // values per 16-byte core-matrix row
+  static constexpr int kStages = kElem.stages;  // weight tiles in flight
 };
 template <> struct Traits<float> {
-  static constexpr int kCC = 8;
-  static constexpr int kPlanes = 2;  // TF32 big and small
+  static constexpr Elem kElem = kF32;
+  static constexpr int kCC = kElem.cc;
+  static constexpr int kPlanes = kElem.planes;  // TF32 big and small
   static constexpr int kVec = 4;
-  static constexpr int kStages = 2;
+  static constexpr int kStages = kElem.stages;
 };
+static_assert(Traits<float>::kElem.bytes == sizeof(float) &&
+                  Traits<__nv_bfloat16>::kElem.bytes == sizeof(__nv_bfloat16),
+              "the plan's element sizes");
+
+// The plan of the last launch in this process (hmvae_fused_conv_pool_last_plan).
+Plan last_plan = {};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -217,16 +242,37 @@ __device__ __forceinline__ int core_offset(int r, int g) {
   return (g >> 1) * kKStep + (g & 1) * 128 + (r >> 3) * 256 + (r & 7) * 16;
 }
 
-template <typename T>
+// The columns [lo, hi] of batch b's unpadded row that the output columns
+// [n0, n1) read, the padding resolved: reflect folds padded positions back
+// into the row, zeros read nothing (hi < lo: no column).
+__device__ __forceinline__ void row_window(int b, int n0, int n1, int T_out, int T_in, int K,
+                                           int stride, int padding, int reflect, int& lo,
+                                           int& hi) {
+  const int t0 = max(n0 - b * T_out, 0), t1 = min(n1 - b * T_out, T_out) - 1;
+  const int s0 = t0 * stride - padding, s1 = t1 * stride - padding + K - 1;
+  lo = max(s0, 0);
+  hi = min(s1, T_in - 1);
+  if (lo > hi) lo = T_in, hi = -1;
+  if (reflect && s0 < 0) lo = min(lo, -min(s1, -1)), hi = max(hi, -s0);
+  if (reflect && s1 >= T_in)
+    lo = min(lo, 2 * T_in - 2 - s1), hi = max(hi, 2 * T_in - 2 - max(s0, T_in));
+}
+
+// kWin: rows staged as windows (xp: a row's slot), else whole (xp = T_in).
+template <typename T, bool kWin>
 __global__ void __launch_bounds__(kThreads, 2)
 conv_gemm_kernel(const T* __restrict__ x, const T* __restrict__ wpack,
                  const float* __restrict__ bias, const int* __restrict__ tile_start,
                  const int* __restrict__ tile_chunk, T* __restrict__ out, int C_in, int T_in,
                  int K, int P, int T_out, int win_cols, int win_tiles, size_t w_stride,
-                 int stride, int padding, int reflect, float slope, int nb_max, int seg) {
+                 int stride, int padding, int reflect, float slope, int nb_max, int seg,
+                 int xp) {
+  count_run(&g_runs[0]);
   using Tr = Traits<T>;
   constexpr int CC = Tr::kCC;
+  constexpr int G = 16 / static_cast<int>(sizeof(T));  // values of a 16-byte granule
   static_assert(CC == 2 * Tr::kVec, "a tap's CC channels are two 16-byte groups");
+  static_assert(G == Tr::kVec, "a thread's channel group is one granule wide");
   cg::cluster_group cluster = cg::this_cluster();
   const int split = static_cast<int>(cluster.block_rank());
   const int n_split = static_cast<int>(cluster.num_blocks());
@@ -277,42 +323,84 @@ conv_gemm_kernel(const T* __restrict__ x, const T* __restrict__ wpack,
   const bool col_ok = n < n_end;
   const int b_n = col_ok ? n / T_out : b_lo;
   const int t_base = (n - b_n * T_out) * stride - padding;
-  // A batch's CC x T_in rows of x, 16 bytes apart from the next batch's so
-  // that columns of different batches read different banks.
-  const int x_row = CC * T_in + 16 / static_cast<int>(sizeof(T));
+  // A batch's CC rows of x, xp values apart (whole rows: xp = T_in; windows:
+  // row c's columns [lo, hi] from d_c, its granule offset in x, on), 16
+  // bytes apart from the next batch's so that columns of different batches
+  // read different banks.
+  const int x_row = CC * xp + G;
   const int xs_stage = nb_max * x_row;  // elements of x a stage holds
-  const int x_col = (b_n - b_lo) * x_row + h * Tr::kVec * T_in;
+  const int n1 = min(n0 + kBN, n_end);
+  int lo_n = 0, hi_n = 0;  // windows: the columns of x this column's batch stages
+  if constexpr (kWin)
+    row_window(b_n, n0, n1, T_out, T_in, K, stride, padding, reflect, lo_n, hi_n);
+  const int x_col = (b_n - b_lo) * x_row + h * Tr::kVec * xp - lo_n;
 
   if (tid < kBM) bias_s[tid] = p0 + tid < P ? bias_w[p0 + tid] : 0.f;
-  // Stage `slot` of the ring: stage i's taps of its chunk's weight tile
-  // (the whole tile in one bulk copy, or one copy per plane) and
+  // Stage `slot` of the ring: stage i's taps of its chunk's weight tile (the
+  // whole tile in one bulk copy, or one copy per plane) and
   // x[b_lo:b_lo+n_b, c0:c0+nc, :], all completing on the slot's barrier.
+  // Whole rows: thread 0 issues every copy, one a batch.  Windows: one copy
+  // a row, issued by lane bb * CC + c of warp 0.
+  constexpr int kIssuers = kWin ? 32 : 1;
+  const int lane = tid & 31;
   auto issue = [&](int i, int slot) {
     const int idx = first + split + (i / nseg) * n_split;
     const int k0 = (i % nseg) * seg, nk = min(seg, K - k0);
-    const int c0 = tile_chunk[idx] * CC;
-    chunk_s[slot] = c0;  // published to the block by the barrier's phase
-    const uint32_t x_bytes = static_cast<uint32_t>(min(CC, C_in - c0) * T_in * sizeof(T));
+    const int c0 = tile_chunk[idx] * CC, nc = min(CC, C_in - c0);
     const uint32_t bar = smem_addr(bars + slot);
-    const uint32_t w_bytes = static_cast<uint32_t>(nk) * kKStep;  // a plane's taps
-    const unsigned char* src = reinterpret_cast<const unsigned char*>(wtiles) +
-                               static_cast<size_t>(idx) * tile_bytes +
-                               static_cast<size_t>(k0) * kKStep;
-    mbar_expect(bar, w_bytes * Tr::kPlanes + n_b * x_bytes);
-    if (nk == K) {
-      bulk_copy(smem_addr(a_s + slot * seg_bytes), src, tile_bytes, bar);
-    } else {
-      for (int pl = 0; pl < Tr::kPlanes; ++pl)
-        bulk_copy(smem_addr(a_s + slot * seg_bytes + pl * seg_plane), src + pl * plane_bytes,
-                  w_bytes, bar);
+    T* xd = xs + slot * xs_stage;
+    const uint32_t rows_bytes = static_cast<uint32_t>(nc * T_in * sizeof(T));  // whole rows
+    uint32_t x_bytes = rows_bytes * n_b;
+    uint32_t mine = 0, dst = 0;  // windows: this lane's row copy
+    const T* src_x = x;
+    if constexpr (kWin) {
+      const int bb = lane / CC, c = lane % CC;
+      int lo, hi;
+      if (bb < n_b && c < nc) {
+        row_window(b_lo + bb, n0, n1, T_out, T_in, K, stride, padding, reflect, lo, hi);
+        if (hi >= lo) {
+          const size_t e0 = (static_cast<size_t>(b_lo + bb) * C_in + c0 + c) * T_in + lo;
+          // ng * G <= xp by the launcher's choice of xp; no check here: a
+          // trap on this path, which only warp 0 takes, makes ptxas
+          // serialize the wgmma (C7520)
+          const size_t g0 = e0 / G, ng = (e0 + (hi - lo)) / G - g0 + 1;
+          mine = static_cast<uint32_t>(ng * 16);
+          src_x = x + g0 * G;
+          dst = smem_addr(xd + bb * x_row + c * xp);
+        }
+      }
+      x_bytes = __reduce_add_sync(0xffffffffu, mine);
     }
-    for (int bb = 0; bb < n_b; ++bb)
-      bulk_copy(smem_addr(xs + slot * xs_stage + bb * x_row),
-                x + (static_cast<size_t>(b_lo + bb) * C_in + c0) * T_in, x_bytes, bar);
+    if (tid == 0) {
+      chunk_s[slot] = c0;  // published to the block by the barrier's phase
+      const uint32_t w_bytes = static_cast<uint32_t>(nk) * kKStep;  // a plane's taps
+      const unsigned char* src = reinterpret_cast<const unsigned char*>(wtiles) +
+                                 static_cast<size_t>(idx) * tile_bytes +
+                                 static_cast<size_t>(k0) * kKStep;
+      mbar_expect(bar, w_bytes * Tr::kPlanes + x_bytes);
+      if (nk == K) {
+        bulk_copy(smem_addr(a_s + slot * seg_bytes), src, tile_bytes, bar);
+      } else {
+        for (int pl = 0; pl < Tr::kPlanes; ++pl)
+          bulk_copy(smem_addr(a_s + slot * seg_bytes + pl * seg_plane), src + pl * plane_bytes,
+                    w_bytes, bar);
+      }
+      if constexpr (!kWin)
+        for (int bb = 0; bb < n_b; ++bb)
+          bulk_copy(smem_addr(xd + bb * x_row),
+                    x + (static_cast<size_t>(b_lo + bb) * C_in + c0) * T_in, rows_bytes, bar);
+    }
+    if constexpr (kWin) {
+      __syncwarp();  // the barrier expects the bytes before any copy lands
+      if (mine) bulk_copy(dst, src_x, mine, bar);
+    }
   };
-  if (tid == 0) {
-    for (int s = 0; s < Tr::kStages; ++s) mbar_init(smem_addr(bars + s), 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  if (tid < kIssuers) {
+    if (tid == 0) {
+      for (int s = 0; s < Tr::kStages; ++s) mbar_init(smem_addr(bars + s), 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    if constexpr (kWin) __syncwarp();
     for (int i = 0; i < Tr::kStages && i < n_mine; ++i) issue(i, i);
   }
 
@@ -328,7 +416,7 @@ conv_gemm_kernel(const T* __restrict__ x, const T* __restrict__ wpack,
     // Every thread has waited for the previous wgmma and reads nothing of
     // the previous stage any more: refill that stage.
     __syncthreads();
-    if (tid == 0 && i > 0 && i - 1 + Tr::kStages < n_mine)
+    if (tid < kIssuers && i > 0 && i - 1 + Tr::kStages < n_mine)
       issue(i - 1 + Tr::kStages, (i - 1) % Tr::kStages);
     mbar_wait(smem_addr(bars + stage), (i / Tr::kStages) & 1);
 
@@ -336,8 +424,20 @@ conv_gemm_kernel(const T* __restrict__ x, const T* __restrict__ wpack,
     // tap-major (j = k*CC + c), so the 16-byte group 2k + h of a column is
     // the kVec channels h*kVec.. of x at time t*stride + k0 + k - padding.
     const int k0 = (i % nseg) * seg, nk = min(seg, K - k0);
-    const bool group_ok = col_ok && h * Tr::kVec < C_in - chunk_s[stage];
+    const int c0 = chunk_s[stage];
+    const bool group_ok = col_ok && h * Tr::kVec < C_in - c0;
+    // this thread's kVec rows of x in the stage, from s = 0: whole rows T_in
+    // apart; a window's row at its slot, d_j values in (its granule offset)
     const T* xcol = xs + stage * xs_stage + x_col;
+    int xo[Tr::kVec];
+    const unsigned e0 = kWin ? static_cast<unsigned>(b_n * C_in + c0 + h * Tr::kVec) *
+                                       static_cast<unsigned>(T_in) +
+                                   static_cast<unsigned>(lo_n)
+                             : 0u;
+#pragma unroll
+    for (int j = 0; j < Tr::kVec; ++j)
+      xo[j] = j * xp + (kWin ? static_cast<int>((e0 + j * static_cast<unsigned>(T_in)) & (G - 1))
+                             : 0);
 #pragma unroll 4
     for (int k = kp; k < nk; k += 2) {
       int s = t_base + k0 + k;
@@ -349,12 +449,12 @@ conv_gemm_kernel(const T* __restrict__ x, const T* __restrict__ wpack,
           const uint16_t* xv = reinterpret_cast<const uint16_t*>(xcol) + s;
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            qv[e] = static_cast<uint32_t>(xv[(2 * e) * T_in]) |
-                    (static_cast<uint32_t>(xv[(2 * e + 1) * T_in]) << 16);
+            qv[e] = static_cast<uint32_t>(xv[xo[2 * e]]) |
+                    (static_cast<uint32_t>(xv[xo[2 * e + 1]]) << 16);
         } else {
           const uint32_t* xv = reinterpret_cast<const uint32_t*>(xcol) + s;
 #pragma unroll
-          for (int e = 0; e < 4; ++e) qv[e] = xv[e * T_in];
+          for (int e = 0; e < 4; ++e) qv[e] = xv[xo[e]];
         }
       }
       unsigned char* dst = b_s + core_offset(col, 2 * k + h);
@@ -403,7 +503,7 @@ conv_gemm_kernel(const T* __restrict__ x, const T* __restrict__ wpack,
   // wgmma's accumulator: warp w of a warpgroup holds rows 16w..16w+15;
   // register r is row lane/4 (+8 if r&2), column 8*(r/4) + 2*(lane%4) +
   // (r&1) of the warpgroup's 32.
-  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int warp = (tid >> 5) & 3;
   auto store = [&](int row, int c, float v) {
     const int p = p0 + row, nn = n0 + c;
     if (p < P && nn < n_end) {
@@ -454,39 +554,29 @@ cudaError_t launch(const void* x, const void* w, const void* bias, const void* t
                    int T_out, int stride, int padding, int reflect, float slope, int max_live,
                    int windows, int n_tiles, int device, int sms, cudaStream_t stream) {
   using Tr = Traits<T>;
-  auto kernel = conv_gemm_kernel<T>;
   // The shared-memory cap is set once per device, not per launch.
   static bool ready[kMaxDevices] = {};
   if (!ready[device]) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return err;
+    decltype(&conv_gemm_kernel<T, false>) kernels[] = {conv_gemm_kernel<T, false>,
+                                                       conv_gemm_kernel<T, true>};
+    for (auto k : kernels) {
+      cudaError_t err =
+          cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      if (err != cudaSuccess) return err;
+    }
     ready[device] = true;
   }
   // the batch is `windows` windows of B / windows batches each
   const int win_cols = B / windows * T_out;
   const int win_tiles = (win_cols + kBN - 1) / kBN;
-  // batches one block's 64 columns span, at most
-  const int nb = min(B / windows, (kBN - 1) / T_out + 2);
-  const size_t xs_bytes =
-      static_cast<size_t>(Tr::kStages) * nb * (Tr::kCC * T_in * sizeof(T) + 16);
-  // the fewest tap segments a chunk splits into for the stages to fit
-  int seg = K;
-  size_t smem = 0;
-  for (int nseg = 1;; ++nseg) {
-    seg = (K + nseg - 1) / nseg;
-    const size_t stage = static_cast<size_t>(kBM) * Tr::kCC * seg * sizeof(T) * Tr::kPlanes;
-    smem = 384 + 127 + Tr::kStages * stage + (stage > kRedBytes ? stage : kRedBytes) + xs_bytes;
-    if (smem <= static_cast<size_t>(kMaxSmem) || seg == 1) break;
-  }
-  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  const Plan plan =
+      plan_forward(Tr::kElem, B, T_in, K, P, T_out, stride, padding, windows, max_live, sms);
+  last_plan = plan;
+  if (!plan.fits) return cudaErrorInvalidValue;
+  const size_t smem = static_cast<size_t>(plan.smem);
   const size_t tile = static_cast<size_t>(kBM) * Tr::kCC * K * sizeof(T) * Tr::kPlanes;
-
-  const int nt = windows * win_tiles, rts = (P + kBM - 1) / kBM;
-  const int per_sm = max(1, min(8, kSmemPerSM / static_cast<int>(smem + 1024)));
-  // split the live chunks until the grid fills the card once
-  int split = (per_sm * sms + nt * rts - 1) / (nt * rts);
-  split = max(1, min(split, min(kMaxSplit, max_live)));
+  auto kernel = plan.window ? conv_gemm_kernel<T, true> : conv_gemm_kernel<T, false>;
+  const int nt = windows * win_tiles, rts = (P + kBM - 1) / kBM, split = plan.split;
 
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(nt, rts, split);
@@ -505,7 +595,7 @@ cudaError_t launch(const void* x, const void* w, const void* bias, const void* t
       static_cast<const float*>(bias), static_cast<const int*>(tile_start),
       static_cast<const int*>(tile_chunk), static_cast<T*>(out), C_in, T_in, K, P, T_out,
       win_cols, win_tiles, static_cast<size_t>(n_tiles) * (tile / sizeof(T)), stride, padding,
-      reflect, slope, nb, seg);
+      reflect, slope, plan.nb, plan.seg, plan.xp);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -545,6 +635,16 @@ int hmvae_fused_conv_pool(const void* x, const void* w, const void* bias,
                                                   reflect, negative_slope, max_live, windows,
                                                   n_tiles, device, sms, s));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The plan (hm_vae_torch/csrc/fused_conv_pool_plan.h) of the last launch in
+// this process, on any thread, into out[kPlanInts]; zeros before the first.
+void hmvae_fused_conv_pool_last_plan(int* out) { plan_ints(last_plan, out); }
+
+// The kernel's runs on `device` since the last reset (run_counter.h), after
+// the device has finished its work, into *out; then 0 where `reset`.
+int hmvae_fused_conv_pool_device_runs(int device, int reset, unsigned long long* out) {
+  return static_cast<int>(read_runs(g_runs, device, reset, out));
 }
 
 const char* hmvae_error_string(int err) {

@@ -111,6 +111,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "run_counter.h"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -128,6 +130,8 @@ constexpr int kMaxK = 31;     // wgrad: K + 1 tap tiles (the bias's last) over 8
 constexpr int kMaxSmem = 232448;   // a block
 constexpr int kSmemPerSM = 233472;  // 228 KB
 constexpr int kMaxDevices = 64;
+
+__device__ unsigned long long g_runs[2];  // dgrad_kernel, wgrad_kernel (run_counter.h)
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -252,6 +256,7 @@ dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
              const int* __restrict__ dgrad_row, float* __restrict__ gx, int B, int C, int T_in,
              int K, int P, int T_out, int t_ld, int stride, int padding, int reflect,
              float slope, int nbb, int gpw, size_t w_stride) {
+  count_run(&g_runs[0]);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int split = static_cast<int>(cluster.num_blocks());
@@ -505,6 +510,7 @@ wgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
              const int* __restrict__ wchunk, float* __restrict__ gw, float* __restrict__ gb,
              int B, int C, int T_in, int K, int P, int T_out, int t_ld, int stride, int padding,
              int reflect, float slope, int sb) {
+  count_run(&g_runs[1]);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int split = static_cast<int>(cluster.num_blocks());
@@ -860,6 +866,13 @@ int hmvae_conv_wgrad(const void* gy, const void* y, const void* x, const void* w
       static_cast<const int*>(wrow), static_cast<const int*>(wchunk), static_cast<float*>(gw),
       static_cast<float*>(gb), n_win, C, T_in, K, P, T_out, t_ld, stride, padding, reflect,
       slope, sb));
+}
+
+// The runs on `device` of dgrad_kernel, then wgrad_kernel, since the last
+// reset (run_counter.h), after the device has finished its work, into
+// out[2]; then 0 where `reset`.
+int hmvae_conv_bwd_device_runs(int device, int reset, unsigned long long* out) {
+  return static_cast<int>(read_runs(g_runs, device, reset, out));
 }
 
 const char* hmvae_error_string(int err) {

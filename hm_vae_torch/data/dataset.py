@@ -221,12 +221,12 @@ def resolve_split_json(cfg: Config, split: str, data_dir: Optional[str] = None) 
     """The ``split`` manifest: ``DataConfig.{split}_json`` as a path (as
     given, then relative to the data dir), else the prep-generated
     ``{split}.json``.  An explicitly configured manifest that does not
-    exist raises.  The JAX package's vendored historical manifests
-    (``"reference"``) are not copied into the port."""
+    exist raises.  ``"reference"`` selects the vendored historical manifest
+    (:func:`~hm_vae_torch.data.layout.reference_split_path`)."""
     d = data_dir or cfg.data.data_root
     field = getattr(cfg.data, f"{split}_json", "")
     if field == "reference":
-        raise NotImplementedError("the vendored reference split manifests are not ported")
+        return layout.reference_split_path(split)
     candidates = (field, os.path.join(d, field)) if field else ()
     for cand in candidates:
         if os.path.exists(cand):

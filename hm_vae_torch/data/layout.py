@@ -45,3 +45,15 @@ def load_mean_std(path: str | None = None) -> np.ndarray:
     ms = np.load(path).astype(np.float32)
     ms[1, ms[1] == 0] = 1.0
     return ms
+
+
+def reference_split_path(split: str) -> str:
+    """The vendored historical split manifest of ``split``: the reference's
+    literal train/val/test file inventories (10818/363/140 entries), a copy
+    of the JAX package's, so that the paper-era index -> name mapping is
+    reproducible.  :func:`hm_vae_torch.data.amass_prep.process_amass_root`
+    applies the same split rule but walks the file system, so its order can
+    differ."""
+    if split not in ("train", "val", "test"):
+        raise ValueError(f"unknown split: {split!r}")
+    return os.path.join(ASSETS_DIR, "splits", f"{split}_all_amass_motion_data.json")

@@ -59,8 +59,8 @@ class TrajectoryModel(nn.Module):
     def __init__(self, cfg: ModelConfig, init_type: str = "kaiming",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.lora_rank > 0:
-            raise NotImplementedError("lora_rank > 0 is not ported yet")
+        # lora_rank is ignored, as in the JAX model: the adapters are the
+        # VAE decoder's, the trajectory model declares none
         if cfg.param_layout != "dense":
             raise NotImplementedError(f"param_layout {cfg.param_layout!r} is not "
                                       "ported yet (dense only)")

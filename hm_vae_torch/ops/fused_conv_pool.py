@@ -46,7 +46,8 @@ On CPU tensors every entry runs its plain PyTorch version
 (:func:`fused_conv_pool_reference`, :func:`fused_conv_pool_dgrad_reference`,
 :func:`fused_conv_pool_wgrad_reference` and their ``_windowed`` forms); on
 CUDA tensors they launch the kernel or raise.  The ``launches`` attribute of
-each of the six entries counts its kernel launches.
+each of the six entries counts its kernel launches; :func:`device_runs`
+counts, on the device, the kernels' runs (those of CUDA-graph replays too).
 """
 
 from __future__ import annotations
@@ -733,6 +734,57 @@ def _bwd_checks(s: LevelStructure, gy: torch.Tensor, y: torch.Tensor, **tensors)
         raise ValueError("gy must be contiguous")
 
 
+# hmvae_fused_conv_pool_plan(dtype, B, T_in, K, P, T_out, stride, padding,
+# windows, max_live, sms, out): csrc/fused_conv_pool_plan.h, its Plan's fields
+PLAN_FIELDS = ("window", "win", "nb", "xp", "seg", "segments", "smem", "split", "fits")
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_library():
+    """The forward's planner (``csrc/fused_conv_pool_plan.h``, which the
+    kernel's launcher includes) built alone for the host."""
+    fn = _build.load_host("fused_conv_pool_plan").hmvae_fused_conv_pool_plan
+    fn.argtypes = [ctypes.c_int] * 11 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _plan_dict(ints) -> dict:
+    p = dict(zip(PLAN_FIELDS, ints))
+    p["rows"] = "window" if p.pop("window") else "whole"
+    p["window"], p["fits"] = p.pop("win"), bool(p["fits"])
+    return p
+
+
+def forward_plan(dtype: torch.dtype, B: int, T_in: int, K: int, P: int, T_out: int,
+                 stride: int, padding: int, windows: int = 1, max_live: int = 1,
+                 sms: int = 132) -> dict:
+    """The forward launch's plan, from the planner its launcher runs
+    (``csrc/fused_conv_pool_plan.h``, compiled for the host): ``rows``
+    ``"whole"`` (a batch's rows of a chunk in one bulk copy) where they fit
+    shared memory with no more tap segments than windows take, else
+    ``"window"`` (of each row only the ``window`` columns a block's 64
+    outputs read, a copy a row: bytes that depend on K and stride only, so
+    any T fits); ``seg`` taps a stage (``segments`` stages a chunk),
+    ``smem`` a block's bytes, ``nb`` batches a block spans, ``xp`` a row's
+    slot, ``split`` blocks of a cluster, ``fits``."""
+    out = (ctypes.c_int * len(PLAN_FIELDS))()
+    if _plan_library()(_DTYPES[dtype], B, T_in, K, P, T_out, stride, padding, windows,
+                       max_live, sms, out):
+        raise ValueError(f"no forward launch takes B={B} T_in={T_in} K={K} P={P} "
+                         f"T_out={T_out} stride={stride} padding={padding} windows={windows}")
+    return _plan_dict(out)
+
+
+def last_forward_plan() -> dict:
+    """The plan (as :func:`forward_plan`) that the last forward launch in this
+    process ran, as its launcher recorded it."""
+    lib, _ = _library()
+    out = (ctypes.c_int * len(PLAN_FIELDS))()
+    lib.hmvae_fused_conv_pool_last_plan(out)
+    return _plan_dict(out)
+
+
 def dgrad_plan(B: int, T_in: int, K: int, stride: int, padding: int, t_ld: int,
                pairs: int, max_live: int, sms: int, windows: int = 1) -> Tuple[int, int, int]:
     """(nbb, groups, split) of the dgrad kernel: a block owns a pair of
@@ -1069,3 +1121,19 @@ def launch_entries():
 def launch_counts() -> dict:
     """Every entry's launch count by its name."""
     return {f.__name__: f.launches for f in launch_entries()}
+
+
+def device_runs(device: int, reset: bool = False) -> dict:
+    """The runs of each kernel on CUDA device ``device`` since its last reset,
+    by kernel name: counted on the device by block 0 of every launch
+    (``csrc/run_counter.h``), so a CUDA-graph replay, which calls no entry,
+    counts too.  Waits for the device first; sets the counts to 0 after
+    reading them where ``reset``.  Builds both libraries if they are
+    missing."""
+    fwd, _ = _library()
+    bwd = _bwd_library()[0]
+    out = (ctypes.c_ulonglong * 3)()
+    for lib, fn, at in ((fwd, "hmvae_fused_conv_pool_device_runs", 0),
+                        (bwd, "hmvae_conv_bwd_device_runs", 1)):
+        _build.check(lib, getattr(lib, fn)(device, int(reset), ctypes.byref(out, 8 * at)), fn)
+    return {"conv_gemm_kernel": out[0], "dgrad_kernel": out[1], "wgrad_kernel": out[2]}

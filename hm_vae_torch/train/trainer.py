@@ -34,9 +34,11 @@ model on the dataset's ``mean_std`` (``build_trainer`` passes it; without it
 a trajectory step raises, as in the JAX package), its checkpoints in the
 reference ``TrajectoryModel``'s names.
 
-Runs on ``cuda`` unless told otherwise.  Not ported, each raising or logging:
-a model with adapters (``model.lora_rank > 0``; no config trains one), a
-device mesh and multi-host runs, and image saving (logged and skipped).
+Runs on ``cuda`` unless told otherwise.  Every ``run.image_save_iter`` steps
+of a VAE run with a test split it saves animations (``_save_visualizations``,
+which needs matplotlib).  Not ported, each raising: a VAE with adapters
+(``model.lora_rank > 0``; no config trains one; the trajectory model ignores
+the rank, as in the JAX package), a device mesh and multi-host runs.
 
 The noise of step i comes from a CPU generator seeded by (``run.seed``, i),
 and the rotations of a batch consumed at step i from one seeded by
@@ -112,7 +114,7 @@ class Trainer:
         name = cfg.model.model_name
         if name not in ("TwoHierSAVAEModel", "TrajectoryModel"):
             raise ValueError(f"unknown model_name: {name}")
-        if cfg.model.lora_rank > 0:
+        if name == "TwoHierSAVAEModel" and cfg.model.lora_rank > 0:
             raise NotImplementedError(
                 "model.lora_rank > 0: the adapters are the test-time solver's (finetune_scope "
                 "lora); training a model with them is not ported (ROADMAP Queue 1 item 6b)")
@@ -306,6 +308,34 @@ class Trainer:
         return [e.view((K,) + tuple(s)) for e, s in zip(flat.split(sizes), shapes)]
 
     # ------------------------------------------------------------------
+    def _save_visualizations(self, test_ds, step: int) -> None:
+        """The train loop's periodic animations (``train_motion_vae.py:113-150``
+        + ``model.test``, ``seq_two_hier_sa_vae.py:560-639``), under
+        ``images/<step>/``: a test window beside its posterior-mean
+        reconstruction (``mean_seq_rot_6d.mp4``) and a prior sample
+        (``sampled_seq_rot_6d.mp4``); gifs without ffmpeg.  Needs
+        matplotlib."""
+        from ..apps.inference import VAEInference
+        from ..ops import fk as fk_mod
+        from ..utils.viz import save_animation
+
+        model = self.state.model
+        was_training = model.training
+        try:
+            infer = VAEInference(model, self.cfg, device=self.device)
+            b = test_ds.sample_batch(1)
+            _, _, mean_pose = infer.mean_reconstruction(b["rot_6d"])
+            _, _, samp_pose = infer.prior_samples(
+                1, torch.Generator().manual_seed(self.cfg.run.seed * 1000003 + step))
+        finally:
+            model.train(was_training)
+        gt_pose = fk_mod.fk_numpy(np.asarray(b["rot_mat"][0], np.float32))
+        dest = os.path.join(self.image_dir, str(step))
+        save_animation(np.stack([gt_pose, mean_pose[0].float().cpu().numpy()]),
+                       os.path.join(dest, "mean_seq_rot_6d.mp4"))
+        save_animation(samp_pose[0].float().cpu().numpy()[None],
+                       os.path.join(dest, "sampled_seq_rot_6d.mp4"))
+
     def _val_pass(self, val_ds: MotionDataset, step: int) -> None:
         cfg = self.cfg
         vals = []
@@ -357,7 +387,6 @@ class Trainer:
         metrics: Dict[str, torch.Tensor] = {}
         pending = None
         nan_restored_from = -1
-        images_logged = False
         self._preempted = False
         prev_handler, handler_installed = None, False
         if cfg.run.preemption_checkpoint:
@@ -425,9 +454,9 @@ class Trainer:
                     self._val_pass(val_ds, i)
                 if crossed(cfg.run.snapshot_save_iter):
                     self.save(i)
-                if test_ds is not None and crossed(cfg.run.image_save_iter) and not images_logged:
-                    log.warning("image saving is not ported (needs utils/viz.py): skipped")
-                    images_logged = True
+                if (test_ds is not None and not isinstance(self.state.model, TrajectoryModel)
+                        and crossed(cfg.run.image_save_iter)):
+                    self._save_visualizations(test_ds, i)
         finally:
             if handler_installed:
                 signal.signal(signal.SIGTERM,

@@ -167,7 +167,8 @@ def build(variant: str, kernel: str) -> ctypes.CDLL:
     with open(src, "w") as f:
         f.write(patched_source(variant, kernel))
     lib = os.path.join(OUT, f"libtrace_{kernel}_{variant}.so")
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, src], check=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR), "-o", lib,
+                    src], check=True)
     lib = ctypes.CDLL(lib)
     lib.hmvae_error_string.argtypes = [ctypes.c_int]
     lib.hmvae_error_string.restype = ctypes.c_char_p

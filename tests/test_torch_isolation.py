@@ -22,7 +22,9 @@ TRAINING = tuple(f"hm_vae_torch.{m}" for m in (
     # the trajectory model
     "models.trajectory", "cli.eval_trajectory",
     # the serving export and the latent-space probes
-    "apps.export", "cli.export_model", "apps.latent_space", "cli.explore_latent"))
+    "apps.export", "cli.export_model", "apps.latent_space", "cli.explore_latent",
+    # data preparation, the SMPL body model, visualization and profiling
+    "data.amass_prep", "cli.prep_data", "utils.smpl", "utils.viz", "utils.profiling"))
 
 
 def _port_sources():

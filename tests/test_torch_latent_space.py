@@ -229,5 +229,3 @@ def test_explore_latent_cli_writes_the_jax_files(checkpoints, tmp_path):
             assert a.shape == b.shape and np.isfinite(b).all()
             if probe not in ("sweep_level_0", "sweep_level_3"):  # the noise differs
                 np.testing.assert_allclose(b, a, atol=1e-4, rtol=1e-4)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        texplore.main(args + ["--gen_vis", "--device", "cpu"])

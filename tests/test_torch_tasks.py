@@ -326,7 +326,6 @@ def test_eval_recovery_cli_solver_modes(tmp_path, monkeypatch, extra, config_tai
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--final_try_long_seq_interpolation", "--gen_vis"], "item 10"),
     (["--final_try_long_seq_interpolation", "--data_parallel", "2"], "item 11"),
 ])
 def test_eval_recovery_unported_flags_raise(tmp_path, extra, match):

@@ -25,9 +25,14 @@ weights (``trajectory_params_from_flax``) and numpy inputs:
   ``interpolate_single_window`` with ``root_trans``: the tolerances of
   ``test_torch_latent_opt.py`` / ``test_torch_tasks.py``;
 - ``eval_trajectory`` and ``eval_recovery
-  --try_interpolation_w_trajectory_single_window`` on the CPU.
+  --try_interpolation_w_trajectory_single_window`` on the CPU;
+- ``TrajectoryRunner`` and a loaded CPU bundle's ``trajectory`` at batch 2,
+  T 4,000 (past the forward kernel's former row limit): 1e-5 * max(1,
+  max|ref|); both models at ``lora_rank=4`` (ignored, as in JAX); the
+  forward launch's staging plan at long rows.
 """
 
+import dataclasses
 import itertools
 import json
 import os
@@ -533,8 +538,7 @@ def test_eval_trajectory_and_trajectory_interpolation_clis(tmp_path):
         eval_recovery.main(base + ["--try_interpolation_w_trajectory_single_window"])
 
 
-@pytest.mark.parametrize("extra,match", [(["--sequence_parallel", "2"], "item 11"),
-                                         (["--gen_vis"], "item 10")])
+@pytest.mark.parametrize("extra,match", [(["--sequence_parallel", "2"], "item 11")])
 def test_eval_trajectory_unported_flags_raise(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         eval_trajectory.main(["--config", os.path.join(ROOT, "configs", "len8_smoke.yaml"),
@@ -556,3 +560,90 @@ def test_no_kernel_launches_on_the_cpu():
     x = torch.randn(2, 8, 24, 3, requires_grad=True)
     tm(x).sum().backward()
     assert fcp.fused_conv_pool.launches == fcp.fused_conv_pool_dgrad.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# sequences of any length, and lora_rank
+
+
+def test_runner_and_loaded_bundle_match_jax_at_batch_2_t_4000(tmp_path):
+    """The semantics the card must reach past the forward kernel's old row
+    limit: the full-width model (K 31) on two 4,000-frame sequences, by
+    ``TrajectoryRunner`` and by the CPU-exported ``trajectory`` function of
+    a bundle loaded back, against the JAX package's runner: root_v within
+    1e-5 * max(1, max|ref|); the world poses, a cumulative sum over 4,000
+    steps taken in another order, within 1e-5 * max(1, max|ref|) too."""
+    from hm_vae_torch.apps.export import export_bundle, load_exported
+
+    jm, params, tm, _, _ = _models("full")
+    ms = _mean_std(3)
+    rm = _rotmats((2, 4000), 11, scale=0.3)
+    six = np.concatenate((rm[..., :, 0], rm[..., :, 1]), axis=-1)
+    jw, jv = (np.asarray(a) for a in jtr.TrajectoryRunner(jm, params, ms)(jnp.asarray(six)))
+    tw, tv = ttr.TrajectoryRunner(tm, ms)(six)
+    assert tuple(tv.shape) == jv.shape == (2, 4000, 3)
+    np.testing.assert_allclose(tv.numpy(), jv, atol=_tol(jv), rtol=0)
+    np.testing.assert_allclose(tw.numpy(), jw, atol=_tol(jw), rtol=0)
+
+    vae = HMVAE(tcfg.ModelConfig(**LEN8))
+    cfg = dataclasses.replace(tcfg.Config(), model=tcfg.ModelConfig(**LEN8))
+    export_bundle(str(tmp_path / "bundle"), vae, cfg, trajectory=(tm, ms))
+    fn = load_exported(str(tmp_path / "bundle"))["trajectory"]
+    pose = jtr.fk_mod.fk_from_rot6d(jnp.asarray(six), jtr.fk_mod.default_offsets())
+    got = fn(torch.from_numpy(np.array(pose)))
+    np.testing.assert_allclose(got.numpy(), jv, atol=_tol(jv), rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["small", "full"])
+def test_lora_rank_is_ignored_as_in_jax(kind, tmp_path):
+    """Both packages build the trajectory model at ``lora_rank=4`` with the
+    rank-0 parameters (the adapters are the VAE decoder's) and compute the
+    same outputs on the same weights (1e-5 * max(1, max|ref|)); the Trainer
+    accepts the rank for the trajectory model."""
+    _, _, tm0, jc0, tc0 = _models(kind)
+    jc, tc = dataclasses.replace(jc0, lora_rank=4), dataclasses.replace(tc0, lora_rank=4)
+    jm = jtr.TrajectoryModel(jc)
+    T = 8 if kind == "small" else 40
+    params = jm.init(jax.random.PRNGKey(2), jnp.zeros((1, T, 24, 3)))
+    rank0 = jtr.TrajectoryModel(jc0).init(jax.random.PRNGKey(2), jnp.zeros((1, T, 24, 3)))
+    assert (jax.tree.map(np.shape, params) == jax.tree.map(np.shape, rank0))
+    tm = ttr.TrajectoryModel(tc)
+    assert set(tm.state_dict()) == set(tm0.state_dict())
+    tm.load_state_dict(trajectory_params_from_flax(jax.tree.map(np.asarray, params), tc),
+                       strict=False)
+    x = np.random.default_rng(4).normal(size=(2, T, 24, 3)).astype(np.float32)
+    ref = np.asarray(jm.apply(params, jnp.asarray(x)))
+    with torch.no_grad():
+        ours = tm(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(ours, ref, atol=_tol(ref), rtol=0)
+    if kind == "small":
+        cfg = _train_cfg(tcfg, str(tmp_path))
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, lora_rank=4))
+        Trainer(cfg, str(tmp_path / "run"), device="cpu", mean_std=_mean_std())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_forward_plan_stages_windows_of_long_rows(dtype):
+    """The forward launch's plan (``forward_plan``: the planner that ``launch``
+    in ``csrc/fused_conv_pool.cu`` runs, built for the host) at the
+    trajectory model's K-31 levels: rows that do not fit shared memory
+    whole, or fit only with more tap segments, are staged as windows of the 94 columns a block's 64 outputs read, whose
+    bytes do not grow with T and fit at any length; the rows of the earlier
+    operating points (T 16-300, and the len-64 levels) stay whole; f32
+    splits a chunk's 31 taps into 2 segments, bf16 keeps 1."""
+    plan = lambda B, T: fcp.forward_plan(dtype, B, T, 31, 64, T, 1, 15)  # noqa: E731
+    cases = ((1, 7200), (4, 2048), (2, 4096), (1, 10 ** 6), (3, 10 ** 5),
+             (2, 600 if dtype == torch.float32 else 330))  # whole would need more segments
+    long = [plan(B, T) for B, T in cases]
+    assert all(p["rows"] == "window" and p["window"] == 94 and p["fits"] for p in long)
+    # a block's bytes depend on the batches it can touch (1, or 2), not on T
+    for one in (True, False):
+        assert len({p["smem"] for (B, _), p in zip(cases, long) if (B == 1) == one}) == 1
+    for B, T in ((8, 128), (1, 300), (10, 64), (1, 16), (8, 94)):
+        assert plan(B, T)["rows"] == "whole" and plan(B, T)["fits"]
+    want = 2 if dtype == torch.float32 else 1
+    assert {p["segments"] for p in long} | {plan(8, 128)["segments"]} == {want}
+    # the len-64 levels (K 15) stay whole rows at every batch
+    for B, T, stride in ((8, 64, 2), (237, 64, 1), (64, 32, 2), (8, 8, 1)):
+        p = fcp.forward_plan(dtype, B, T, 15, 256, (T + 14 - 15) // stride + 1, stride, 7)
+        assert p["rows"] == "whole" and p["segments"] == 1 and p["fits"]
