@@ -32,7 +32,7 @@ Phases, each of which exits non-zero on failure:
    shapes, batch 8, f32, each giving the same bits on two runs, timed on the
    device beside the plain versions and ``torch.nn.grad.conv1d_input`` /
    ``conv1d_weight``;
-6. training end to end: 20 steps of ``Trainer.fit`` on the full-width len-64
+6. training end to end: 12 steps of ``Trainer.fit`` on the full-width len-64
    config with synthetic data made from the seed (sampled by the native C++
    sampler on the compact rot6d wire), on the GPU and on the CPU
    from the same init, batches and noise; per-step losses compared, kernel
@@ -47,7 +47,7 @@ Phases, each of which exits non-zero on failure:
    also against autograd of the plain forward, each giving the same bits on
    two runs, and against 10 one-window launches; timed on the device beside
    the plain versions and cuDNN's grouped convolution;
-9. a short 10-window solve (12 iterations across the z-to-decoder switch)
+9. a short 10-window solve (9 iterations across the z-to-decoder switch)
    through ``LatentOptApps.interpolate`` on the GPU against the CPU, from
    the same weights and z, losses inside a band calibrated by runs from
    weights scaled by 1 + 1e-7 on both sides; and a 7-iteration solve (the
@@ -66,7 +66,7 @@ Phases, each of which exits non-zero on failure:
    dgrad at 10 windows of T 64 (the solver's trajectory loss), the forward
    at batch 1 and T 300 (``eval_trajectory``), each as phases 2 and 5 hold
    and time theirs;
-13. trajectory training: 20 steps of ``Trainer.fit`` on the GPU against the
+13. trajectory training: 12 steps of ``Trainer.fit`` on the GPU against the
    CPU as in phase 6 (4 / 3 / 4 launches a step), then
    ``hm_vae_torch.cli.train`` on its config with a checkpoint and resume;
 14. ``hm_vae_torch.cli.eval_trajectory`` with phase 7's VAE checkpoint and
@@ -150,6 +150,38 @@ Phases, each of which exits non-zero on failure:
    64 and 640 frames of a solve's output against the CPU,
    ``vertex_error_from_rotmats``, ``save_mesh_obj`` through
    ``HM_VAE_SMPL_MODEL``, timed by ``utils/profiling.time_fn``;
+29. (run after 28) the backward over rows of any length: dgrad and wgrad
+   at the trajectory model's four K-31 levels at batch 1, T 7,200 and
+   batch 8, T 1,024, and at the len-64 model's stride-2 K-15 level at
+   batch 8, T 1,024 (all past one block's whole-row staging: spans), each
+   against its plain version and autograd, bit-equal on two runs, with the
+   plan its launch ran, timed as phase 5's; then 5 steps of the trajectory
+   model at train_seq_len 1,024 on the card against the CPU, under phase
+   13's gate (4 / 3 / 4 launches a step);
+30. data-parallel training over torch.distributed ranks started by
+   ``python -m torch.distributed.run`` with ``HMVAE_DIST=1`` (the ranks run
+   ``chip_smoke.py --rank-audit <report> <root> <runs.json>``, which runs
+   entry points as ``python -m`` does and records the files each rank
+   writes under ``root``, its output and its launches): (a) two gloo ranks
+   sharing cuda:0 train the len-64 VAE 5 steps on fixed global batches and
+   noise, against the one-process run (both ranks the same bits; 8 / 7 / 8
+   runs a step on each rank's device counters); (b) in the same launch,
+   ``hm_vae_torch.cli.train`` under two ranks, then ``--resume``: only rank
+   0 writes, both print the same metrics; (c) one NCCL rank (a group of one
+   in this process): the production config's 32-step CUDA graph with the
+   gradients' all-reduce captured in it, bit-equal to the graph without a
+   group (256 / 224 / 256 runs a call);
+31. ``eval_recovery --data_parallel 2`` under two gloo ranks on a 10-window
+   take against the one-process run (per-window clones at the config's
+   opt_it, the shared clone at 30), inside the band of a run from weights
+   scaled by 1 + 1e-7; only rank 0 writes;
+32. the VALID-packed forward (padding 0) on a rank's halo-extended shard
+   (batch 1, 3,600 + 30 frames), then ``eval_trajectory
+   --sequence_parallel 2`` under two gloo ranks on takes of 7,200 and
+   7,201 frames against the one-process run (7,201: all but the last
+   4 x 15 frames), and ``--sequence_parallel_strict`` raising at 7,201.
+   Times of two ranks sharing the one card are labelled so: they are not
+   scaling numbers;
 24. print the kernel summary line and, last, the device line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -160,6 +192,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import datetime
 import io
 import json
 import os
@@ -189,7 +222,7 @@ VIBE_BATCH = 237  # refine_vibe's windows for a 300-frame sequence
 # backward kernels are bounded at the same rate, whatever unit they use.
 MEM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
-TRAIN_STEPS = 20
+TRAIN_STEPS = 12  # phases 6 and 13 (20 until PR 12; cut for the time limit)
 WINDOWS = 10  # the solve's windows (bench.py's latent-opt shape)
 # kernel vs plain version on the same inputs: f32 sums differ only in order;
 # bf16 rounds its operands and output
@@ -337,11 +370,12 @@ def kernel_phase(model, st, dtype, batch, gen):
 
 
 @torch.inference_mode()
-def fwd_level_row(name, conv, T_in, stride, batch, dtype, gen, bits=False):
-    """One level at `batch`: the packed entry against unpack + plain
-    version, the Pallas-signature entry against the plain version (and,
-    with `bits`, two runs bit-equal), and the device times of kernel, plain
-    version and cuDNN."""
+def fwd_level_row(name, conv, T_in, stride, batch, dtype, gen, bits=False, padding=None):
+    """One level at `batch` (and `padding`, default the conv's: 0 for the
+    VALID packing of sequence parallelism): the packed entry against unpack
+    + plain version, the Pallas-signature entry against the plain version
+    (and, with `bits`, two runs bit-equal), and the device times of kernel,
+    plain version and cuDNN."""
     from hm_vae_torch.ops.fused_conv_pool import (
         CHUNK_CHANNELS, _sm_count, forward_plan, fused_conv_pool, fused_conv_pool_packed,
         fused_conv_pool_reference, last_forward_plan, unpack_level)
@@ -349,7 +383,8 @@ def fwd_level_row(name, conv, T_in, stride, batch, dtype, gen, bits=False):
     dt = str(dtype).replace("torch.", "")
     conv = copy.deepcopy(conv)
     conv.dtype = dtype
-    conv.spec = dataclasses.replace(conv.spec, stride=stride)
+    conv.spec = dataclasses.replace(conv.spec, stride=stride,
+                                    padding=conv.spec.padding if padding is None else padding)
     packed = conv.packed_operands()  # prepared once, outside the timing
     fw, fb = unpack_level(packed)
     raw = raw_operands(conv, dtype)
@@ -444,15 +479,20 @@ def fwd_kind(name):
 
 
 def bwd_kind(name):
-    """dgrad, or wgrad by its tap tiles a warp: two (K <= 15, "wgrad"),
-    three (K <= 23, "wgrad_nq3") or four (K <= 31, "wgrad_nq4", the
-    trajectory model's K 31)."""
+    """dgrad ("dgrad_spans" for ``dgrad_kernel<true>``, "dgrad_fold" for the
+    spans' padding adjoint), or wgrad by its tap tiles a warp: two (K <= 15,
+    "wgrad"), three (K <= 23, "wgrad_nq3") or four (K <= 31, "wgrad_nq4",
+    the trajectory model's K 31), "wgrad_spans..." for
+    ``wgrad_span_kernel``."""
+    if "dgrad_fold" in name:
+        return "dgrad_fold"
     if "dgrad" in name:
-        return "dgrad"
+        return "dgrad_spans" if "ILb1E" in name else "dgrad"
+    kind = "wgrad_spans" if "wgrad_span" in name else "wgrad"
     for nq in (3, 4):
         if f"ILi{nq}E" in name:
-            return f"wgrad_nq{nq}"
-    return "wgrad"
+            return f"{kind}_nq{nq}"
+    return kind
 
 
 def ancestors_ok(ok):
@@ -562,7 +602,7 @@ def e2e_phase(cfg, dtype, x6d):
 
 # the port's kernels by their names in a device trace (a CUDA-graph replay
 # runs them with no call of their entries, so only the trace sees them)
-TRACE_KERNELS = re.compile(r"::(conv_gemm_kernel|dgrad_kernel|wgrad_kernel)[<(]")
+TRACE_KERNELS = re.compile(r"::(conv_gemm_kernel|dgrad_kernel|wgrad_kernel|wgrad_span_kernel)[<(]")
 TRACE_NAME = {"fused_conv_pool": "conv_gemm_kernel", "fused_conv_pool_dgrad": "dgrad_kernel",
               "fused_conv_pool_wgrad": "wgrad_kernel"}
 
@@ -719,6 +759,7 @@ def bwd_level_row(name, conv, T_in, batch, gen, with_wgrad=True):
 
     f32 = torch.float32
     gx, rx = dgrad(), d_plain()
+    plan = {"dgrad": fcp.last_backward_plans()["dgrad"]}  # what the launch ran
     # autograd of the plain forward, the kernels reading its output
     leaves = [x.clone().requires_grad_(), wf.clone().requires_grad_()]
     if bf is not None:
@@ -737,6 +778,7 @@ def bwd_level_row(name, conv, T_in, batch, gen, with_wgrad=True):
     cases = [("dgrad", dgrad, d_plain, d_lib, err_d, d_bytes, d_ops)]
     if with_wgrad:
         (gw, gb), (rw, rb) = wgrad(), w_plain()
+        plan["wgrad"] = fcp.last_backward_plans()["wgrad"]
         gw_a, gb_a = wgrad(ya)
         torch.cuda.synchronize()
         err_w = max(check(f"{name} wgrad", gw, rw, f32)[0],
@@ -756,7 +798,8 @@ def bwd_level_row(name, conv, T_in, batch, gen, with_wgrad=True):
         row[what] = {"max_abs_err": err, "ms": device_ms(fn), "plain_ms": device_ms(plain),
                      "library_ms": device_ms(lib), "eager_ms": time_ms(fn),
                      "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
-                     "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "plan": plan[what]}
     print(json.dumps(row), flush=True)
     return row
 
@@ -782,8 +825,9 @@ TRAJ_TRAIN_LAUNCHES = {"fused_conv_pool": 4, "fused_conv_pool_dgrad": 3,
                        "fused_conv_pool_wgrad": 4}
 
 
-def train_phase(data_root, path=CONFIG, want=TRAIN_LAUNCHES, phase="train"):
-    """TRAIN_STEPS steps of Trainer.fit of `path`'s model (the len-64 VAE,
+def train_phase(data_root, path=CONFIG, want=TRAIN_LAUNCHES, phase="train",
+                steps=TRAIN_STEPS):
+    """`steps` (TRAIN_STEPS) steps of Trainer.fit of `path`'s model (the len-64 VAE,
     or the trajectory model) on the GPU and on the CPU from the
     same init, batches and noise, and on each a run from the init scaled by
     1 + 1e-7: Adam amplifies last-place differences (and the random-weight
@@ -812,16 +856,16 @@ def train_phase(data_root, path=CONFIG, want=TRAIN_LAUNCHES, phase="train"):
         for c in counters:
             c.launches = 0
         t0 = time.perf_counter()
-        trainer.fit(train_ds, None, max_iter=TRAIN_STEPS,
+        trainer.fit(train_ds, None, max_iter=steps,
                     log_cb=lambda step, m: out.append(m["loss_total"]))
         wall[run] = time.perf_counter() - t0
         if run == "gpu":
             in_run = {c.__name__: c.launches for c in counters}
-            launches = {k: v // TRAIN_STEPS if v % TRAIN_STEPS == 0 else v / TRAIN_STEPS
+            launches = {k: v // steps if v % steps == 0 else v / steps
                         for k, v in in_run.items()}
             gpu, gpu_ds = trainer, train_ds
         losses[run] = np.array(out)
-    if any(len(v) != TRAIN_STEPS or not np.isfinite(v).all() for v in losses.values()):
+    if any(len(v) != steps or not np.isfinite(v).all() for v in losses.values()):
         fail(f"{phase}: losses {losses}")
     if launches != want:
         fail(f"{phase}: kernel launches per step {launches}, expected {want} (the first "
@@ -852,7 +896,7 @@ def train_phase(data_root, path=CONFIG, want=TRAIN_LAUNCHES, phase="train"):
         return [repack(c.structure(), *c.folded_weight()) for c in convs]
 
     row = {"phase": phase, "config": os.path.relpath(path, ROOT), "batch": cfg.optim.batch_size,
-           "steps": TRAIN_STEPS, "loss_gpu": losses["gpu"].tolist(),
+           "steps": steps, "loss_gpu": losses["gpu"].tolist(),
            "loss_cpu": losses["cpu"].tolist(), "max_rel_diff": float(rel.max()),
            "rel_diff": rel.tolist(), "band": band.tolist(),
            "spread": {k: v.tolist() for k, v in spread.items()},
@@ -1053,10 +1097,15 @@ def solve_sequence(rng):
     return frames[:, layout.ROTMAT].reshape(T, 24, 3, 3), np.cumsum(steps, axis=0)
 
 
+# the agreement solves' depth: 9 iterations (z 5, clone 3, the last a clone
+# step); 12 (z 6, clone 5) until PR 12, cut for the time limit
+AGREE_IT, AGREE_PREV = 9, 4
+
+
 def solve_agreement_phase(seq, traj=None, root_trans=None, phase="solve_agreement",
                           lat=None):
-    """A 12-iteration 10-window interpolation (z phase 6, decoder phase 5,
-    the last a decoder step) through ``LatentOptApps.interpolate`` on the
+    """An AGREE_IT-iteration 10-window interpolation (z phase 5, decoder
+    phase 3, the last a decoder step) through ``LatentOptApps.interpolate`` on the
     GPU and on the CPU from the same weights and z, and on each side from
     the weights scaled by 1 + 1e-7: the losses agree to 1e-4 relative over
     the first 5 iterations and within 10x the larger perturbed spread (so
@@ -1070,16 +1119,17 @@ def solve_agreement_phase(seq, traj=None, root_trans=None, phase="solve_agreemen
     amplified by Gram-Schmidt (1/COND_MIN) and FK (the pose's extent).
 
     With `traj` = (trajectory model, mean_std) and the sequence's
-    `root_trans`: the 12-iteration solve under the keyframe trajectory loss
-    (reg_w_trajectory 1), the trajectory model on each side's device.  With
-    `lat` (solver overrides: the lora scope, the bf16 clone) the
-    12-iteration solve in that mode, its adapters drawn on the CPU by the
-    solver on both sides.  Either runs the 12-iteration solve only."""
+    `root_trans`: the AGREE_IT-iteration solve under the keyframe trajectory
+    loss (reg_w_trajectory 1), the trajectory model on each side's device.
+    With `lat` (solver overrides: the lora scope, the bf16 clone) the
+    AGREE_IT-iteration solve in that mode, its adapters drawn on the CPU by
+    the solver on both sides.  Either runs the AGREE_IT-iteration solve
+    only."""
     from hm_vae_torch.apps.tasks import LatentOptApps
     from hm_vae_torch.models.hm_vae import HMVAE
 
     extra = {} if traj is None else {"optimize_trajectory": True, "reg_w_trajectory": 1.0}
-    cfg = latent_config(opt_it=12, prev_epochs=5, **extra, **(lat or {}))
+    cfg = latent_config(opt_it=AGREE_IT, prev_epochs=AGREE_PREV, **extra, **(lat or {}))
     base = HMVAE(cfg.model, cfg.optim.init, generator=torch.Generator().manual_seed(SEED))
     outs, wall = {}, {}
 
@@ -1099,7 +1149,7 @@ def solve_agreement_phase(seq, traj=None, root_trans=None, phase="solve_agreemen
                             ("cpu_perturbed", "cpu", 1.0 + 1e-7)):
         outs[run], wall[run] = run_on(dev, scale, cfg)
     loss = {k: v["loss_history"].numpy().astype(np.float64) for k, v in outs.items()}
-    if any(len(v) != 12 or not np.isfinite(v).all() for v in loss.values()):
+    if any(len(v) != AGREE_IT or not np.isfinite(v).all() for v in loss.values()):
         fail(f"{phase}: loss histories {loss}")
     rel = np.abs(loss["gpu"] / loss["cpu"] - 1)
     spread = {d: np.maximum.accumulate(np.abs(loss[f"{d}_perturbed"] / loss[d] - 1))
@@ -1126,7 +1176,8 @@ def solve_agreement_phase(seq, traj=None, root_trans=None, phase="solve_agreemen
             fail(f"{phase} {what}: max |gpu - cpu| {err:.3e} > {tol:.3e}")
         errs[what] = {"err": err, "tol": tol}
     row = {"phase": phase, "config": os.path.relpath(LATENT_CONFIG, ROOT),
-           "windows": WINDOWS, "opt_it": 12, "prev_epochs": 5, "trajectory": traj is not None,
+           "windows": WINDOWS, "opt_it": AGREE_IT, "prev_epochs": AGREE_PREV,
+           "trajectory": traj is not None,
            "overrides": lat or {},
            "loss_gpu": loss["gpu"].tolist(), "loss_cpu": loss["cpu"].tolist(),
            "rel_diff": rel.tolist(), "band": band.tolist(),
@@ -1703,7 +1754,7 @@ def perturb_inputs(trainer, scale):
     trainer._consume = lambda staged: {k: v * scale for k, v in consume(trainer, staged).items()}
 
 
-def production_agreement_phase(data_root, steps=20):
+def production_agreement_phase(data_root, steps=12):
     """(b) The production config's dtypes (bf16 parameters and moments, the
     f16 aa wire) at batch 8, 4 steps a call (a CUDA graph on the card), the
     curriculum boundary at step 10 inside the third call: Trainer.fit on the
@@ -2574,11 +2625,605 @@ def smpl_phase(model, seq, root_trans):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phases 29-32: the backward over long rows, and the parallel package over
+# torch.distributed ranks (two ranks share the one card under gloo; NCCL runs
+# one rank)
+
+LONG_BWD_CASES = (("b1_t7200", 1, 7200), ("b8_t1024", 8, 1024))
+LONG_TRAIN_T = 1024  # the trajectory model's train_seq_len in long_backward's steps
+LONG_TRAIN_STEPS = 5
+
+
+def long_backward_phase(model, tmodel, gen):
+    """29. dgrad and wgrad over padded rows past one block's whole-row
+    staging: the trajectory model's four K-31 levels at batch 1, T 7,200
+    and batch 8, T 1,024, and the len-64 model's stride-2 K-15 level (enc1)
+    at batch 8, T 1,024 (the old limit: 256 / stride padded columns), each
+    against its plain version and autograd, bit-equal on two runs, timed,
+    with the plan its launch ran (spans); then LONG_TRAIN_STEPS steps of the
+    trajectory model at train_seq_len 1,024 on the card against the CPU,
+    under the training gate (:func:`train_phase`), on synthetic takes of
+    1,100-1,500 frames.  Returns ({case: [rows over the levels]}, the train
+    row, the phase's row)."""
+    from hm_vae_torch.data import synthetic
+
+    t_phase = time.perf_counter()
+    rows = {}
+    for case, batch, T in LONG_BWD_CASES:
+        for i in range(len(tmodel.encoder.structure.levels)):
+            conv = getattr(tmodel.encoder, f"conv_{i}")
+            rows.setdefault(case, []).append(
+                bwd_level_row(f"traj{i}_long_{case}", conv, T, batch, gen))
+    rows["enc1_b8_t1024"] = [bwd_level_row("enc1_long_b8_t1024", model.encoder.conv_1, 1024,
+                                           BATCH, gen)]
+    for case, rs in rows.items():
+        for r in rs:
+            if not (r["dgrad"]["plan"]["span"] > 0 and r["wgrad"]["plan"]["span"] > 0):
+                fail(f"long_backward {r['level']}: plans {r['dgrad']['plan']} / "
+                     f"{r['wgrad']['plan']} stage whole rows")
+    data_root = os.path.join(OUT_DIR, "long_train_data")
+    shutil.rmtree(data_root, ignore_errors=True)
+    synthetic.generate_dataset(data_root, num_seqs=10, min_len=1100, max_len=1500, seed=SEED)
+    path = os.path.join(OUT_DIR, "trajectory_model_t1024.yaml")
+    with open(TRAJ_CONFIG) as f:
+        text = f.read()
+    with open(path, "w") as f:
+        f.write(re.sub(r"(?m)^train_seq_len:.*$", f"train_seq_len: {LONG_TRAIN_T}", text))
+    train = train_phase(data_root, path, TRAJ_TRAIN_LAUNCHES, "train_trajectory_t1024",
+                        steps=LONG_TRAIN_STEPS)
+    row = {"phase": "long_backward", "cases": {c: [r["level"] for r in rs]
+                                               for c, rs in rows.items()},
+           "plans": {r["level"]: {"dgrad": r["dgrad"]["plan"], "wgrad": r["wgrad"]["plan"]}
+                     for rs in rows.values() for r in rs},
+           "train_steps": LONG_TRAIN_STEPS, "train_seq_len": LONG_TRAIN_T,
+           "elapsed_s": time.perf_counter() - t_phase}
+    print(json.dumps(row), flush=True)
+    return rows, train, row
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def torchrun(nproc, args, timeout, expect_fail=False):
+    """``python -m torch.distributed.run --nproc_per_node nproc`` on
+    localhost with ``HMVAE_DIST=1``; the whole process group is killed at
+    ``timeout``.  A non-zero exit (or a zero one where `expect_fail`) fails
+    the run.  Returns (stdout, stderr, seconds)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
+           "--master_addr", "127.0.0.1", "--master_port", str(free_port()),
+           "--max_restarts", "0", *args]
+    env = dict(os.environ, HMVAE_DIST="1", OMP_NUM_THREADS="4")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, err = proc.communicate()
+        fail(f"torchrun {args[:3]} hung past {timeout} s:\n{out[-3000:]}\n{err[-3000:]}")
+    if (proc.returncode != 0) != expect_fail:
+        fail(f"torchrun {args} exited {proc.returncode}:\n{out[-3000:]}\n{err[-6000:]}")
+    return out, err, time.perf_counter() - t0
+
+
+def rank_reports(prefix, nproc):
+    reports = []
+    for r in range(nproc):
+        with open(f"{prefix}_rank{r}.json") as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def rank_audit(argv):
+    """``chip_smoke.py --rank-audit <report prefix> <root> <runs.json>``, a
+    rank started by torchrun: runs each entry point of ``runs.json`` (a list
+    of {"module", "argv", "expect_error"}) in turn as ``python -m`` runs it,
+    in this process (the group joined by the first run stays), recording
+    every file it writes, makes, renames or removes under ``root`` (an audit
+    hook), each run's standard output and kernel launches (the entries'
+    counts and the device's run counters), and the group's backend, into
+    ``<prefix>_rank<r>.json``.  A run whose ``expect_error`` is set must
+    raise a ValueError containing it (recorded); any other error fails the
+    rank.  The module name ``ddp_steps`` runs :func:`ddp_steps` instead, on
+    this rank's rows, its parameters into ``<argv[0]>_rank<r>.npz``."""
+    import runpy
+
+    import torch.distributed as dist
+
+    prefix, root = argv[0], os.path.abspath(argv[1])
+    with open(argv[2]) as f:
+        runs = json.load(f)
+    writes = []
+
+    def hook(event, a):
+        path = None
+        if event == "open" and a[0] is not None and not isinstance(a[0], int):
+            mode, flags = a[1] or "", a[2] or 0
+            if any(c in mode for c in "wax+") or flags & (os.O_WRONLY | os.O_RDWR | os.O_CREAT):
+                path = a[0]
+        elif event in ("os.mkdir", "os.remove", "os.rmdir"):
+            path = a[0]
+        elif event == "os.rename":
+            path = a[1]
+        if path is not None:
+            p = os.path.abspath(os.fsdecode(path))
+            if p.startswith(root + os.sep):
+                writes.append(os.path.relpath(p, root))
+
+    sys.addaudithook(hook)
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+
+    done = []
+    for run in runs:
+        for c in fcp.launch_entries():
+            c.launches = 0
+        if torch.cuda.is_initialized():
+            fcp.device_runs(torch.cuda.current_device(), reset=True)
+        if run["module"] == "ddp_steps":  # :func:`ddp_steps` on this rank's rows
+            from hm_vae_torch.parallel import multihost as mh
+            from hm_vae_torch.utils.config import load_config
+
+            mh.maybe_initialize_distributed(DEV)
+            params, losses, runs_ = ddp_steps(load_config(CONFIG), mh.process_group())
+            np.savez(f"{run['argv'][0]}_rank{mh.process_index()}.npz", **params)
+            done.append({"losses": losses, "device_runs": runs_})
+            continue
+        buf, error = io.StringIO(), None
+        sys.argv = [run["module"]] + run["argv"]
+        with contextlib.redirect_stdout(buf):
+            try:
+                runpy.run_module(run["module"], run_name="__main__", alter_sys=True)
+            except ValueError as e:
+                if not run.get("expect_error") or run["expect_error"] not in str(e):
+                    raise
+                error = str(e)
+        if run.get("expect_error") and error is None:
+            raise RuntimeError(f"{run['module']} {run['argv']} did not raise "
+                               f"{run['expect_error']!r}")
+        done.append({"stdout": buf.getvalue(), "error": error,
+                     "launches": fcp.launch_counts(),
+                     "device_runs": fcp.device_runs(torch.cuda.current_device())})
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    report = {"rank": rank, "world": dist.get_world_size() if dist.is_initialized() else 1,
+              "backend": dist.get_backend() if dist.is_initialized() else None,
+              "device": torch.cuda.current_device(), "writes": sorted(set(writes)),
+              "runs": done}
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    with open(f"{prefix}_rank{rank}.json", "w") as f:
+        json.dump(report, f)
+
+
+def audited(nproc, prefix, root, runs, timeout):
+    """``runs`` ([(module, argv, expect_error)]) in ``nproc`` ranks under
+    torchrun through :func:`rank_audit`; (each rank's report, seconds)."""
+    with open(f"{prefix}_runs.json", "w") as f:
+        json.dump([{"module": m, "argv": a, "expect_error": e} for m, a, e in runs], f)
+    _, _, seconds = torchrun(nproc, [os.path.join(ROOT, "chip_smoke.py"), "--rank-audit",
+                                     prefix, root, f"{prefix}_runs.json"], timeout=timeout)
+    return rank_reports(prefix, nproc), seconds
+
+
+DDP_STEPS = 5
+
+
+def ddp_inputs(cfg, steps=DDP_STEPS):
+    """Fixed global batches (steps, B, 64, 24, ...) of smooth random
+    rotations and each step's noise for the global batch, made from the
+    seed on the host: the same on every rank and in the one-process run."""
+    from hm_vae_torch.data import layout, synthetic
+    from hm_vae_torch.train.losses import draw_noise, eps_shapes
+    from hm_vae_torch.train.trainer import step_generator
+
+    B, T = cfg.optim.batch_size, cfg.model.train_seq_len
+    rng = np.random.default_rng(SEED + 29)
+    frames = np.stack([synthetic.synth_sequence(rng, T) for _ in range(steps * B)])
+    rm = frames[..., layout.ROTMAT].reshape(steps, B, T, 24, 3, 3).astype(np.float32)
+    six = np.concatenate((rm[..., :, 0], rm[..., :, 1]), axis=-1)
+    shapes = eps_shapes(cfg, B)
+    eps = [draw_noise(shapes, step_generator(cfg.run.seed, k)) for k in range(steps)]
+    return {"rot_6d": six, "rot_mat": rm}, [np.stack([e[lv].numpy() for e in eps])
+                                            for lv in range(len(shapes))]
+
+
+def ddp_steps(cfg, group, scale=1.0):
+    """DDP_STEPS train_step calls of `cfg`'s model on the card from the
+    seeded init (scaled by `scale`), on this rank's rows of
+    :func:`ddp_inputs` (all of them without a group); the parameters, each
+    step's loss averaged over the ranks, and the device's kernel runs."""
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+    from hm_vae_torch.parallel.sharding import allreduce_mean, rank_rows
+    from hm_vae_torch.train.train_step import create_state, train_step
+
+    batches, eps = ddp_inputs(cfg)
+    r0, r1 = rank_rows(cfg.optim.batch_size, group)
+    dev = torch.device(DEV, torch.cuda.current_device())
+    state = create_state(cfg, dev)
+    with torch.no_grad():
+        for p in state.model.parameters():
+            p.mul_(scale)
+    fcp.device_runs(dev.index, reset=True)
+    losses = []
+    for k in range(DDP_STEPS):
+        m = train_step(state, {f: torch.from_numpy(v[k, r0:r1]).to(dev)
+                               for f, v in batches.items()}, cfg,
+                       [torch.from_numpy(e[k, r0:r1]).to(dev) for e in eps], group=group)
+        losses.append(float(allreduce_mean(m, group)["loss_total"]))
+    runs = fcp.device_runs(dev.index)
+    return ({n: p.detach().float().cpu().numpy() for n, p in state.model.named_parameters()},
+            losses, runs)
+
+
+def nccl_graph(data_root, group):
+    """The production config's 32 steps at batch 64 on one superbatch, as
+    :func:`graph_agreement_phase` runs them: MultiStep's CUDA graph with
+    the gradients' all-reduce over `group` captured in it, against the same
+    graph without a group; the largest state difference (0: the same bits)
+    and the graphed run's kernel runs on the device."""
+    from hm_vae_torch.data.dataset import make_loaders
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+    from hm_vae_torch.train.losses import draw_noise, eps_shapes
+    from hm_vae_torch.train.train_step import MultiStep, create_state
+    from hm_vae_torch.train.trainer import step_generator
+
+    cfg = production_config(data_root)
+    K, B = cfg.run.steps_per_call, cfg.optim.batch_size
+    dev = torch.device(DEV, torch.cuda.current_device())
+    train_ds = make_loaders(cfg)[0]
+    stream = train_ds.iter_compact_superbatches(K, B, False, cfg.data.native_threads, "aa",
+                                                dtype=np.float16)
+    host = next(stream)
+    stream.close()
+    batches = {"aa": torch.from_numpy(host["aa"]).to(dev).float()}
+    shapes = eps_shapes(cfg, B)
+    draws = [draw_noise(shapes, step_generator(cfg.run.seed, k)) for k in range(K)]
+    eps = [torch.stack([d[lv] for d in draws]).to(dev) for lv in range(len(shapes))]
+    states, metrics, runs, graphed = {}, {}, {}, {}
+    for mode, g in (("group", group), ("no_group", None)):
+        states[mode] = create_state(cfg, dev)
+        multi = MultiStep(states[mode], cfg, graph=True, group=g)
+        graphed[mode] = multi.graph
+        multi(batches, eps)  # capture and the first call
+        fcp.device_runs(dev.index, reset=True)
+        metrics[mode] = {k: float(v) for k, v in multi(batches, eps).items()}
+        runs[mode] = fcp.device_runs(dev.index)
+    diff = state_diff(states["group"], states["no_group"])
+    return {"steps": 2 * K, "batch": B, "graphed": graphed, "max_abs_diff": diff,
+            "bit_equal": all(v == 0 for v in diff.values())
+            and metrics["group"] == metrics["no_group"],
+            "metrics": metrics, "device_runs_per_call": runs}
+
+
+def ddp_train_phase(data_root):
+    """30. Data-parallel training on the card.  (a) Two gloo ranks on
+    cuda:0 (``chip_smoke.py --rank-audit`` under torchrun) train the
+    len-64 VAE DDP_STEPS steps, batch 8 (4 a rank), on fixed global batches
+    and noise: both ranks' parameters the same bits; the losses (averaged
+    over the ranks) against the one-process run's in the training gate
+    (1e-4 relative, and 10x the spread of a run from the init scaled by
+    1 + 1e-7, as :func:`train_phase`); the parameters within Adam's
+    amplification of last-place differences (at most 2 lr a step, on at
+    most 1% of the elements beyond 1e-5); 8 / 7 / 8 kernel runs a step on
+    each rank.  (b) In the same launch, ``hm_vae_torch.cli.train`` under
+    the two ranks for 3 steps, then ``--resume`` to 5: only rank 0 writes
+    under the output directory, both ranks print the same metrics.  (c) One
+    NCCL rank, a group of one in this process (destroyed after): the
+    production config's 32-step CUDA graph with the all-reduce captured in
+    it, bit-equal to the graph without a group, 256 / 224 / 256 runs a
+    call."""
+    from hm_vae_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    out = os.path.join(OUT_DIR, "ddp")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    cfg = load_config(CONFIG)
+    lr = cfg.optim.lr
+    # (b)'s config: log every step, a snapshot at step 3
+    cli_root = os.path.join(out, "cli")
+    path = os.path.join(out, "len64_cli.yaml")
+    with open(CONFIG) as f:
+        text = f.read()
+    for key, value in (("log_iter", 1), ("snapshot_save_iter", 3), ("validation_iter", 10 ** 9),
+                       ("image_save_iter", 10 ** 9)):
+        text, n = re.subn(rf"(?m)^{key}:.*$", f"{key}: {value}", text)
+        if not n:
+            text += f"\n{key}: {value}\n"
+    with open(path, "w") as f:
+        f.write(text)
+    base = ["--config", path, "--output_path", cli_root, "--data_root", data_root]
+    # (a) and (b) in one launch: the steps, then the CLI for 3 steps and again
+    # with --resume, in each rank
+    prefix = os.path.join(out, "steps")
+    audits, seconds = audited(
+        2, os.path.join(out, "audit"), cli_root,
+        [("ddp_steps", [prefix], None),
+         ("hm_vae_torch.cli.train", base + ["--max_iter", "3"], None),
+         ("hm_vae_torch.cli.train", base + ["--max_iter", "5", "--resume"], None)], 300)
+    # (a)
+    reports = [a["runs"][0] for a in audits]
+    params = [dict(np.load(f"{prefix}_rank{r}.npz")) for r in range(2)]
+    one, one_losses, _ = ddp_steps(cfg, None)
+    _, pert_losses, _ = ddp_steps(cfg, None, 1.0 + 1e-7)
+    if any(not np.array_equal(params[0][n], params[1][n]) for n in params[0]):
+        fail("ddp_train: the two ranks' parameters differ")
+    want_runs = {"conv_gemm_kernel": 8 * DDP_STEPS, "dgrad_kernel": 7 * DDP_STEPS,
+                 "wgrad_kernel": 8 * DDP_STEPS}
+    for a, r in zip(audits, reports):
+        if a["backend"] != "gloo" or r["device_runs"] != want_runs:
+            fail(f"ddp_train rank {a['rank']}: backend {a['backend']}, device runs "
+                 f"{r['device_runs']}, expected gloo and {want_runs}")
+    two_losses = np.array(reports[0]["losses"])
+    if reports[1]["losses"] != reports[0]["losses"]:
+        fail(f"ddp_train: the ranks' averaged losses differ: {[r['losses'] for r in reports]}")
+    rel = np.abs(two_losses / np.array(one_losses) - 1)
+    band = 10 * np.maximum.accumulate(np.abs(np.array(pert_losses) / one_losses - 1)) + 1e-4
+    diffs = {n: np.abs(params[0][n] - one[n]) for n in one}
+    max_diff = max(float(d.max()) for d in diffs.values())
+    share = sum(int((d > 1e-5).sum()) for d in diffs.values()) / sum(d.size for d in
+                                                                    diffs.values())
+    if not ((rel <= 1e-4).all() and (rel <= band).all() and max_diff <= 2 * lr * DDP_STEPS
+            and share <= 0.01):
+        fail(f"ddp_train: losses {two_losses.tolist()} against one process {one_losses} "
+             f"(rel {rel.tolist()}, band {band.tolist()}); parameters max |diff| {max_diff}, "
+             f"share beyond 1e-5 {share}")
+    steps_row = {"backend": audits[0]["backend"], "graphed": False, "ranks": 2,
+                 "device": "cuda:0 (shared)", "losses_two_ranks": two_losses.tolist(),
+                 "losses_one_process": one_losses, "rel_diff": rel.tolist(),
+                 "band": band.tolist(), "params_max_abs_diff": max_diff,
+                 "params_share_beyond_1e-5": share,
+                 "device_runs_per_rank": [r["device_runs"] for r in reports]}
+    # (b)
+    ck = os.path.join(cli_root, "outputs", "len64_cli", "checkpoints")
+    names = sorted(os.listdir(ck)) if os.path.isdir(ck) else []
+    # logged[run][rank]: the step lines each rank printed
+    logged = [[[ln for ln in a["runs"][i]["stdout"].splitlines() if ln.startswith("[0")]
+               for a in audits] for i in (1, 2)]
+    resumed = [ln for a in audits for ln in a["runs"][2]["stdout"].splitlines()
+               if ln.startswith("Resume from")]
+    if (audits[1]["writes"] or names != ["gen_00000003.pt", "gen_00000005.pt"]
+            or any(lg[0] != lg[1] or not lg[0] for lg in logged)
+            or resumed != ["Resume from iteration 3"] * 2
+            or not any(w.endswith("gen_00000005.pt") for w in audits[0]["writes"])):
+        fail(f"ddp_train cli: rank 1 wrote {audits[1]['writes']}, rank 0 "
+             f"{audits[0]['writes']}; checkpoints {names}; logged {logged}; resumed {resumed}")
+    cli_row = {"backend": audits[0]["backend"], "checkpoints": names,
+               "rank0_writes": audits[0]["writes"], "rank1_writes": audits[1]["writes"],
+               "logged_rank0": logged[1][0][-1], "logged_same_on_both_ranks": True,
+               "resumed": resumed, "seconds_two_ranks_sharing_one_card_a_b": seconds}
+    # (c) one NCCL rank, in this process (a group of one, destroyed after)
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        nccl = nccl_graph(data_root, dist.group.WORLD)
+        nccl["backend"] = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    want = {"conv_gemm_kernel": 256, "dgrad_kernel": 224, "wgrad_kernel": 256}
+    if (nccl["backend"] != "nccl" or not nccl["bit_equal"] or not all(nccl["graphed"].values())
+            or nccl["device_runs_per_call"]["group"] != want):
+        fail(f"ddp_train nccl: {nccl}")
+    row = {"phase": "ddp_train", "steps": steps_row, "cli": cli_row,
+           "nccl_graph": {**nccl, "seconds": time.perf_counter() - t0},
+           "elapsed_s": time.perf_counter() - t_phase}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+SOLVE_SHARED = {"opt_it": 12, "prev_epochs": 6}  # the shared clone's solve, cut from 150 / 50
+
+
+def parallel_solve_phase(vae_ck):
+    """31. ``eval_recovery --data_parallel 2`` under two gloo ranks on the
+    card (one torchrun launch, ``chip_smoke.py --rank-audit``) against the
+    one-process run, on one synthetic test take of 10 windows
+    (``configs/len_64_test_interpolation.yaml``, interpolation): the
+    per-window clones at the config's opt_it (150), the shared clone at
+    SOLVE_SHARED (12 iterations: 7 on z, 5 on the clone, as phase 9's
+    agreement solve, before Adam amplifies the summation order over the
+    ranks).  The summary within the solve gate (10x the spread of a
+    one-process run from the checkpoint scaled by 1 + 1e-7, + 1e-4
+    relative), the outputs likewise; rank 0 writes every file, rank 1 none;
+    each rank's kernel launches (windowed under per-window clones)."""
+    from hm_vae_torch.cli import eval_recovery
+    from hm_vae_torch.data import synthetic
+
+    t_phase = time.perf_counter()
+    out = os.path.join(OUT_DIR, "parallel_solve")
+    shutil.rmtree(out, ignore_errors=True)
+    data_root = os.path.join(out, "data")
+    # 10 takes of 640 frames: the test split holds one, 10 windows of 64
+    synthetic.generate_dataset(data_root, num_seqs=10, min_len=640, max_len=640, seed=SEED)
+    blob = torch.load(vae_ck, map_location="cpu", weights_only=False)
+    blob["state_dict"] = {k: v * (1 + 1e-7) if v.is_floating_point() else v
+                          for k, v in blob["state_dict"].items()}
+    pert_ck = os.path.join(out, "perturbed.pt")
+    torch.save(blob, pert_ck)
+    shared_cfg = os.path.join(out, "len_64_test_interpolation_shared.yaml")
+    with open(LATENT_CONFIG) as f:
+        text = f.read()
+    for key, value in SOLVE_SHARED.items():
+        text, n = re.subn(rf"(?m)^{key}:.*$", f"{key}: {value}", text)
+        if not n:
+            fail(f"parallel_solve: the latent config names no {key}")
+    with open(shared_cfg, "w") as f:
+        f.write(text)
+    modes = (("per_window", LATENT_CONFIG, []),
+             ("shared", shared_cfg, ["--shared_decoder_clone"]))
+
+    def base(config, extra):
+        return ["--config", config, "--data_root", data_root,
+                "--final_try_long_seq_interpolation", "--max_seqs", "1", "--device", DEV,
+                "--seed", str(SEED)] + extra
+
+    two = os.path.join(out, "two")
+    audits, seconds = audited(
+        2, os.path.join(out, "audit"), two,
+        [("hm_vae_torch.cli.eval_recovery",
+          base(c, e) + ["--test_model", vae_ck, "--output_path", os.path.join(two, m),
+                        "--data_parallel", "2"], None) for m, c, e in modes], 400)
+    rows = {}
+    for i, (mode, config, extra) in enumerate(modes):
+        name = os.path.splitext(os.path.basename(config))[0]
+        res = {}
+        for run, ck in (("one", vae_ck), ("perturbed", pert_ck)):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                eval_recovery.main(base(config, extra) + ["--test_model", ck, "--output_path",
+                                                         os.path.join(out, run, mode)])
+            torch.cuda.synchronize()
+            res[f"{run}_seconds"] = time.perf_counter() - t0
+        dirs = {run: os.path.join(out, run, mode, "eval_long_seq_interpolation", name)
+                for run in ("one", "perturbed", "two")}
+        summaries = {}
+        for run, d in dirs.items():
+            with open(os.path.join(d, "summary.json")) as f:
+                summaries[run] = json.load(f)
+        files = sorted(f for f in os.listdir(dirs["one"]) if f.endswith((".npy", ".json")))
+        w0 = sorted(os.path.basename(w) for w in audits[0]["writes"]
+                    if w.startswith(mode + os.sep) and w.endswith((".npy", ".json")))
+        if audits[1]["writes"] or w0 != files or len(files) != 2:
+            fail(f"parallel_solve {mode}: rank 0 wrote {audits[0]['writes']}, rank 1 "
+                 f"{audits[1]['writes']}; the one-process run {files}")
+        gate = {}
+        for k, v in summaries["one"].items():
+            if k == "num_seqs":
+                if summaries["two"][k] != v:
+                    fail(f"parallel_solve {mode}: num_seqs {summaries['two'][k]} != {v}")
+                continue
+            rel = abs(summaries["two"][k] / v - 1)
+            band = 10 * abs(summaries["perturbed"][k] / v - 1) + 1e-4
+            gate[k] = {"rel_diff": rel, "band": band}
+            if rel > band:
+                fail(f"parallel_solve {mode}: {k} {summaries['two'][k]} against {v} (rel {rel} "
+                     f"> band {band})")
+        res_file = next(f for f in files if f.endswith("_rot_opt_res.npy"))
+        a, b, p = (np.load(os.path.join(dirs[r], res_file)) for r in ("two", "one", "perturbed"))
+        out_err, out_band = float(np.abs(a - b).max()), 10 * float(np.abs(p - b).max()) + 1e-4
+        if out_err > out_band or a.shape != (640, 24, 3, 3):
+            fail(f"parallel_solve {mode}: rotations differ by {out_err} > {out_band}, shape "
+                 f"{a.shape}")
+        launches = [r["runs"][i]["launches"] for r in audits]
+        windowed = all(n["fused_conv_pool_wgrad_windowed"] > 0 for n in launches)
+        if windowed != (mode == "per_window") or not all(n["fused_conv_pool_dgrad"] > 0
+                                                         for n in launches):
+            fail(f"parallel_solve {mode}: launches per rank {launches}")
+        rows[mode] = {"config": os.path.relpath(LATENT_CONFIG, ROOT)
+                      + ("" if mode == "per_window" else f" at {SOLVE_SHARED}"),
+                      "windows": 10, "summary_two_ranks": summaries["two"],
+                      "summary_one": summaries["one"], "gate": gate,
+                      "rotations_max_abs_diff": out_err, "rotations_band": out_band,
+                      "launches_per_rank": launches, **res}
+    row = {"phase": "parallel_solve", "backend": audits[0]["backend"], "graphed": False,
+           **rows, "seconds_two_ranks_sharing_one_card": seconds,
+           "elapsed_s": time.perf_counter() - t_phase}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+SP_T = 7200
+SP_TAIL = 4 * 15  # pad_incomplete: the last num_levels * halo frames see repeated frames
+
+
+def sequence_parallel_phase(data_root, vae_ck, traj_ck, tmodel, gen):
+    """32. The VALID-packed forward (padding 0) at the trajectory model's four
+    levels on a rank's halo-extended shard of the 7,200-frame take (batch 1,
+    3,600 + 2 x 15 frames), held and timed as phase 2's rows; then
+    ``eval_trajectory --sequence_parallel 2`` under two gloo ranks on the
+    card (torchrun, ``chip_smoke.py --rank-audit``) on a 7,200-frame
+    synthetic take against the one-process run (the runner unsharded):
+    within the f32 kernel tolerance; at 7,201 frames (pad_incomplete) all
+    but the last 4 x 15 frames; ``--sequence_parallel_strict`` at 7,201
+    raising on the ranks; rank 0 writing the files; each rank's 4
+    launches of the VALID-packed forward a run.  Returns (the VALID rows,
+    the phase's row)."""
+    from hm_vae_torch.cli import eval_trajectory
+    from hm_vae_torch.data import layout, synthetic
+
+    t_phase = time.perf_counter()
+    halo = (tmodel.cfg.kernel_size - 1) // 2
+    valid = [fwd_level_row(f"traj{i}_valid_b1_t{SP_T // 2}", getattr(tmodel.encoder, f"conv_{i}"),
+                           SP_T // 2 + 2 * halo, 1, 1, torch.float32, gen, padding=0)
+             for i in range(len(tmodel.encoder.structure.levels))]
+    out = os.path.join(OUT_DIR, "sequence_parallel")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    frames = synthetic.synth_sequence(np.random.default_rng(SEED + 32), SP_T + 1)
+    rm = frames[:, layout.ROTMAT].reshape(SP_T + 1, 24, 3, 3)
+    folder = os.path.join(out, "takes")
+    os.makedirs(folder)
+    for T in (SP_T, SP_T + 1):
+        np.save(os.path.join(folder, f"take{T}.npy"), rm[:T])
+    base = ["--config", CONFIG, "--test_model", vae_ck, "--trajectory_config", TRAJ_CONFIG,
+            "--trajectory_test_model", traj_ck, "--data_root", data_root, "--device", DEV]
+    takes = ["--seq_generation_npy_folder", folder]  # both takes in one run
+    one, two = os.path.join(out, "one"), os.path.join(out, "two")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        eval_trajectory.main(base + takes + ["--output_path", one])
+    torch.cuda.synchronize()
+    one_seconds = time.perf_counter() - t0
+    # one launch: both takes, then --sequence_parallel_strict raising at 7,201
+    strict = ["--seq_generation_npy_path", os.path.join(folder, f"take{SP_T + 1}.npy"),
+              "--output_path", os.path.join(out, "strict"), "--sequence_parallel", "2",
+              "--sequence_parallel_strict"]
+    audits, seconds = audited(
+        2, os.path.join(out, "audit"), two,
+        [("hm_vae_torch.cli.eval_trajectory",
+          base + takes + ["--output_path", two, "--sequence_parallel", "2"], None),
+         ("hm_vae_torch.cli.eval_trajectory", base + strict,
+          f"T={SP_T + 1} not divisible by 2 shards")], 300)
+    names = sorted(f"take{T}_traj_0{sfx}.npy" for T in (SP_T, SP_T + 1) for sfx in ("", "_trans"))
+    w0 = sorted(os.path.basename(w) for w in audits[0]["writes"] if w.endswith(".npy"))
+    if audits[1]["writes"] or w0 != names:
+        fail(f"sequence_parallel: rank 0 wrote {audits[0]['writes']}, rank 1 "
+             f"{audits[1]['writes']}")
+    launches = [r["runs"][0]["launches"] for r in audits]
+    if any(n["fused_conv_pool"] != 8 or sum(n.values()) != 8 for n in launches):
+        fail(f"sequence_parallel: launches per rank {launches}, expected 4 forward a take")
+    if not all(r["runs"][1]["error"] for r in audits):
+        fail("sequence_parallel strict: a rank did not raise")
+    rows = {}
+    for T in (SP_T, SP_T + 1):
+        keep = T if T % 2 == 0 else T - SP_TAIL
+        errs = {}
+        for f in (f"take{T}_traj_0.npy", f"take{T}_traj_0_trans.npy"):
+            d = os.path.join("eval_trajectory", os.path.splitext(os.path.basename(CONFIG))[0], f)
+            a, b = np.load(os.path.join(two, d)), np.load(os.path.join(one, d))
+            if a.shape != b.shape or a.shape[0] != T:
+                fail(f"sequence_parallel {f}: shapes {a.shape} / {b.shape}")
+            errs[f] = check(f"sequence_parallel {f} (first {keep} frames)",
+                            torch.from_numpy(a[:keep]), torch.from_numpy(b[:keep]),
+                            torch.float32)[0]
+        rows[f"t{T}"] = {"compared_frames": keep, "max_abs_err": errs}
+    rows.update(backend=audits[0]["backend"], graphed=False, launches_per_rank=launches,
+                seconds_one_process=one_seconds, seconds_two_ranks_sharing_one_card=seconds)
+    row = {"phase": "sequence_parallel", **rows,
+           "strict_error": audits[0]["runs"][1]["error"],
+           "valid_plans": [r["plan"] for r in valid],
+           "elapsed_s": time.perf_counter() - t_phase}
+    print(json.dumps(row), flush=True)
+    return valid, row
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
     if sys.argv[1:2] == ["--serve-exported"]:
         serve_exported(sys.argv[2])
+        return
+    if sys.argv[1:2] == ["--rank-audit"]:  # a rank of phases 30-32, started by torchrun
+        rank_audit(sys.argv[2:])
         return
     smi = nvidia_smi()
     print(smi, flush=True)
@@ -2616,7 +3261,7 @@ def main() -> None:
     print(json.dumps({"phase": "build_report", **report}), flush=True)
     if not report["fused_conv_pool"].get("bf16", {}).get("hgmma"):
         fail("the bf16 instantiation has no HGMMA (wgmma) instruction")
-    for what in ("dgrad", "wgrad", "wgrad_nq4"):
+    for what in ("dgrad", "dgrad_spans", "wgrad", "wgrad_nq4", "wgrad_spans", "wgrad_spans_nq4"):
         r = report["fused_conv_pool_bwd"].get(what, {})
         if not (r.get("hgmma") or r.get("hmma")):
             fail(f"the {what} kernel has no HGMMA or HMMA (tensor-core) instruction")
@@ -2762,6 +3407,20 @@ def main() -> None:
     # 28. the SMPL body model on the card at SMPL's sizes
     smpl_phase(lmodel, seq, root_trans)
     elapsed("28")
+    # 29. the backward over rows of any length: dgrad and wgrad spans at the
+    #     trajectory levels and a stride-2 level, trajectory training at T 1,024
+    long_bwd, long_train, _ = long_backward_phase(model, tmodel, gen)
+    elapsed("29")
+    # 30-32. the parallel package over torch.distributed ranks (torchrun):
+    #     data-parallel training (two gloo ranks on the card, the CLI, one
+    #     NCCL rank in the production graph), eval_recovery --data_parallel 2,
+    #     eval_trajectory --sequence_parallel 2
+    ddp_train_phase(data_root)
+    elapsed("30")
+    parallel_solve_phase(vae_ck)
+    elapsed("31")
+    sp_valid, sp_row = sequence_parallel_phase(data_root, vae_ck, traj_ck, tmodel, gen)
+    elapsed("32")
     # 24. summary: sums over the 8 levels of one reconstruct (forward) or of
     #    one training step (backward), over the 4 decoder levels of a solve's
     #    iteration (windowed), and over the trajectory model's 4 levels
@@ -2941,6 +3600,39 @@ def main() -> None:
                     + long_paths.get((case, dt), "call of the bf16 bundle's trajectory")
                     + " (phase 26); times: device time from CUDA-graph replays; library_ms: "
                       "cuDNN conv1d on the folded weight, TF32 off"})
+    for what, lib in (("dgrad", "torch.nn.grad.conv1d_input"),
+                      ("wgrad", "torch.nn.grad.conv1d_weight")):
+        main_rows = long_bwd["b8_t1024"]
+        summary["kernels"].append({
+            "name": f"fused_conv_pool_{what}@long_rows", "route": "cuda",
+            "source": "hm_vae_torch/csrc/fused_conv_pool_bwd.cu",
+            "replaces": "hm_vae_tpu/models/trajectory.py:45-50 (JAX autodiff of the level at "
+                        "any T; no Pallas backward exists)",
+            "launches": long_train["launches_per_step"][f"fused_conv_pool_{what}"],
+            **total([r[what] for r in main_rows]), "plan": main_rows[0][what]["plan"],
+            "b1_t7200": {**total([r[what] for r in long_bwd["b1_t7200"]]),
+                         "plan": long_bwd["b1_t7200"][0][what]["plan"]},
+            "enc1_b8_t1024": {**total([r[what] for r in long_bwd["enc1_b8_t1024"]]),
+                              "plan": long_bwd["enc1_b8_t1024"][0][what]["plan"]},
+            "note": "f32, rows past one block's whole-row staging, run as spans (plan); top "
+                    "level: sums over the trajectory model's 4 K-31 levels at batch 8, T 1,024; "
+                    "\"b1_t7200\": the same at batch 1, T 7,200; \"enc1_b8_t1024\": the "
+                    "len-64 model's stride-2 K-15 level at batch 8, T 1,024; launches: per "
+                    f"step of the trajectory model's training at train_seq_len {LONG_TRAIN_T} "
+                    "(phase 29); times: device time from CUDA-graph replays; library_ms: "
+                    f"{lib} on the folded weight, TF32 off"})
+    summary["kernels"].append({
+        "name": "fused_conv_pool@sequence_parallel_valid", "route": "cuda",
+        "source": "hm_vae_torch/csrc/fused_conv_pool.cu",
+        "replaces": "hm_vae_tpu/ops/pallas_kernels.py:65 (at hm_vae_tpu/parallel/"
+                    "sequence_parallel.py:95-127, the VALID conv after the halo exchange)",
+        "launches": sp_row["launches_per_rank"][0]["fused_conv_pool"],
+        **total(sp_valid), "plan": sp_valid[0]["plan"],
+        "note": f"f32, K 31, padding 0: sums over the 4 trajectory levels on one rank's "
+                f"halo-extended shard, batch 1, T {SP_T // 2} + 30; launches: rank 0's, in one "
+                f"eval_trajectory --sequence_parallel 2 run on takes of {SP_T} and {SP_T + 1} "
+                "frames (4 a take, phase 32); times: device time from CUDA-graph replays; "
+                "library_ms: cuDNN conv1d on the folded weight, TF32 off"})
     print(json.dumps(summary), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

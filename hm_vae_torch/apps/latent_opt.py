@@ -72,6 +72,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data import layout
 from ..models.hm_vae import HMVAE, SkeletonConv, lora_b_init
@@ -79,6 +80,7 @@ from ..models.structure import get_structure
 from ..models.trajectory import accumulate_root_trajectory
 from ..ops import fk as fk_mod
 from ..ops import rotations as rot
+from ..parallel.sharding import world_size
 from ..train.optim import chain_init, chain_update, flax_salts, make_schedule_raw
 from ..utils.config import Config, LatentOptConfig
 
@@ -241,7 +243,7 @@ def draw_adapters(model: HMVAE, rank: int, lora_init=None) -> Dict[str, torch.Te
 
 
 def make_latent_optimizer(model: HMVAE, cfg: Config, lat: Optional[LatentOptConfig] = None,
-                          trajectory=None, key_frames=None, lora_init=None):
+                          trajectory=None, key_frames=None, lora_init=None, group=None):
     """The solver over ``model``'s decoder (its parameters at each call).
 
     Returns ``solve(targets, mask, z_init, z_reg_target) -> LatentOptResult``
@@ -253,6 +255,16 @@ def make_latent_optimizer(model: HMVAE, cfg: Config, lat: Optional[LatentOptConf
     and ``key_frames`` (frame indices) adds the keyframe trajectory loss.
     Under the lora scope ``lora_init`` replaces adapter draws
     (:func:`draw_adapters`).
+
+    ``group``: the batch is this rank's equal share of a global (padded)
+    batch split over the group's ranks (``LatentOptApps._dispatch``).  The
+    per-window clones are independent: no collective.  The shared clone
+    (``per_window_decoder: false``) is not: each rank's batch terms are its
+    share of the global batch mean (divided by the world size, as is the
+    pull-back, which every rank adds), the clone's gradients are summed
+    over the ranks every iteration, and the total (the history's value,
+    ``track_best``'s scalar) is the all-reduced global one, so that the
+    solve equals the one of the whole batch.
     """
     lat = lat or cfg.latent_opt
     lcfg = cfg.loss
@@ -274,6 +286,7 @@ def make_latent_optimizer(model: HMVAE, cfg: Config, lat: Optional[LatentOptConf
     wd = float(cfg.optim.weight_decay)
     lr_z = _steplr(lat.opt_lr, lat)
     per_win = lat.per_window_decoder
+    shared_ranks = None if per_win or group is None else world_size(group)
     n_scan = lat.opt_it - 1
     n_z = min(lat.prev_epochs + 1, n_scan) if lat.optimize_decoder else n_scan
     dec_step_last = lat.optimize_decoder and lat.opt_it - 1 > lat.prev_epochs
@@ -347,14 +360,24 @@ def make_latent_optimizer(model: HMVAE, cfg: Config, lat: Optional[LatentOptConf
             if traj_term is not None:
                 t = traj_term(op)
                 total = total + lat.reg_w_trajectory * (t if per_win else t.mean())
+            if shared_ranks is not None:  # this rank's share of the global total
+                total = total / shared_ranks
             return total
 
         def objective(total):
             """Per window: the sum of the windows' totals (the vmapped
-            gradient) and, for the history, their mean."""
-            return (total.sum(), total.mean()) if per_win else (total, total)
+            gradient) and, for the history, their mean; the shared clone
+            under ranks: the rank's share and the global total."""
+            if per_win:
+                return total.sum(), total.mean()
+            if shared_ranks is not None:
+                value = total.detach().clone()
+                dist.all_reduce(value, group=group)
+                return total, value
+            return total, total
 
-        # track_best: per window (or of the batch) the least total so far and
+        # track_best: per window (or of the batch: the global total under
+        # ranks, the same decision on every rank) the least total so far and
         # the outputs of its forward, from the starting point's
         best = None
         if lat.track_best:
@@ -384,7 +407,7 @@ def make_latent_optimizer(model: HMVAE, cfg: Config, lat: Optional[LatentOptConf
             grads = torch.autograd.grad(obj, zs, allow_unused=True)
             z = chain_update(zs, grads, z_state, lr_z, wd)
             history.append(value.detach())
-            track(total, out)
+            track(total if per_win else value, out)
         z = [t.detach() for t in z]
 
         # decoder phase: z frozen, the clones (one per window) step
@@ -399,9 +422,13 @@ def make_latent_optimizer(model: HMVAE, cfg: Config, lat: Optional[LatentOptConf
                 total = total_loss(out, z, leaves)
                 obj, value = objective(total)
                 grads = torch.autograd.grad(obj, list(leaves.values()), allow_unused=True)
+                if shared_ranks is not None:  # the shared clone's gradient: every rank's share
+                    for g in grads:
+                        if g is not None:
+                            dist.all_reduce(g, group=group)
                 dec_p = dict(zip(names, dec_step(list(leaves.values()), grads, d_state)))
                 history.append(value.detach())
-                track(total, out)
+                track(total if per_win else value, out)
 
         # the last iteration: its forward, before its update, is the result
         # (its update is never read, so it is not computed)
@@ -415,8 +442,9 @@ def make_latent_optimizer(model: HMVAE, cfg: Config, lat: Optional[LatentOptConf
             else:
                 last = forward(z, train0)
                 total = total_loss(last, z, None)
-            history.append(objective(total)[1])
-            track(total, last)
+            value = objective(total)[1]
+            history.append(value)
+            track(total if per_win else value, last)
             final = (lcfg.rec_6d_w * _per_sample(last[0], tgt["rot_6d"], m6)
                      + lcfg.rec_rot_w * _per_sample(last[1], tgt["rot_mat"], mm)
                      + lcfg.rec_pose_w * _per_sample(last[2], tgt["pose"], m6))

@@ -25,10 +25,12 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.hm_vae import HMVAE
 from ..ops import fk as fk_mod
 from ..ops import rotations as rot
+from ..parallel.sharding import gather_rows, rank_rows, world_size
 from ..utils.config import Config
 from .latent_opt import LatentOptResult, init_z, make_latent_optimizer, replace_with_target
 
@@ -78,28 +80,67 @@ class LatentOptApps:
     """The applications over one model (its weights at each call), on the
     model's device.  ``trajectory=(traj_model, mean_std)`` with
     ``cfg.latent_opt.optimize_trajectory`` set adds the keyframe trajectory
-    loss to interpolation given a ``root_trans``."""
+    loss to interpolation given a ``root_trans``.
 
-    def __init__(self, model: HMVAE, cfg: Config, trajectory=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("sharding the window batch over a device mesh is not "
-                                      "ported yet (ROADMAP Queue 1 item 11)")
+    ``group`` (a ``torch.distributed`` group): every batched solve's window
+    batch is split over its ranks (:meth:`_dispatch`), each rank holding the
+    same model and drawing the same starting points."""
+
+    def __init__(self, model: HMVAE, cfg: Config, trajectory=None, group=None):
         self.model = model
         self.cfg = cfg
+        self.group = group
         self.W = cfg.model.train_seq_len
-        self.solve = make_latent_optimizer(model, cfg)
+        self.solve = make_latent_optimizer(model, cfg, group=group)
         # completion switches phase later than the other tasks
         lat = cfg.latent_opt
         if lat.prev_epochs_completion != lat.prev_epochs:
             self.solve_completion = make_latent_optimizer(
-                model, cfg, lat=dataclasses.replace(lat, prev_epochs=lat.prev_epochs_completion))
+                model, cfg, lat=dataclasses.replace(lat, prev_epochs=lat.prev_epochs_completion),
+                group=group)
         else:
             self.solve_completion = self.solve
         self._traj_solve = None
         if trajectory is not None and lat.optimize_trajectory:
             key = tuple(np.nonzero(interpolation_mask(self.W, lat.interpolation_window))[0])
             self._traj_solve = make_latent_optimizer(model, cfg, trajectory=trajectory,
-                                                     key_frames=key)
+                                                     key_frames=key, group=group)
+
+    def _dispatch(self, solve, targets, mask, z_init, z_reg) -> LatentOptResult:
+        """One batched solve; under a group, split over its ranks, as the
+        JAX package shards the window batch over its mesh's data axis.
+
+        The batch is padded to a multiple of the world size by cycling real
+        windows (the JAX package's policy), each rank solves its contiguous
+        rows, the per-window results are gathered to every rank (zeroed
+        buffers and one all-reduce each: exact) and the padding is trimmed.
+        ``loss_history`` is the padded batch's mean, as in JAX (per-window
+        clones: the ranks' means averaged; the shared clone's total is
+        global already)."""
+        if self.group is None:
+            return solve(targets, mask, z_init, z_reg)
+        n = world_size(self.group)
+        B = int(mask.shape[0])
+        B_pad = -(-B // n) * n
+        r0, r1 = rank_rows(B_pad, self.group)
+        rows = np.arange(r0, r1) % B  # the rank's rows of the cyclically padded batch
+
+        def take(x):
+            if torch.is_tensor(x):
+                return x[torch.as_tensor(rows, device=x.device)]
+            return np.asarray(x)[rows]
+
+        res = solve({k: take(v) for k, v in targets.items()}, take(mask),
+                    [take(z) for z in z_init], [take(z) for z in z_reg])
+        fields = {f.name: getattr(res, f.name) for f in dataclasses.fields(res)}
+        out = {k: gather_rows(v, B_pad, r0, self.group)[:B]
+               for k, v in fields.items() if k != "loss_history"}
+        history = res.loss_history
+        if self.cfg.latent_opt.per_window_decoder:
+            history = history.clone()
+            dist.all_reduce(history, group=self.group)
+            history /= n
+        return LatentOptResult(loss_history=history, **out)
 
     @property
     def device(self) -> torch.device:
@@ -133,10 +174,11 @@ class LatentOptApps:
         z_reg = [torch.zeros_like(z) for z in z_init]
         if self._traj_solve is not None and root_trans is not None:
             rt = _np(root_trans)[: n_win * W].reshape(n_win, W, 3)
-            res = self._traj_solve(dict(targets, root_trans=np.repeat(rt, R, axis=0)), mask,
-                                   z_init, z_reg)
+            res = self._dispatch(self._traj_solve,
+                                 dict(targets, root_trans=np.repeat(rt, R, axis=0)), mask,
+                                 z_init, z_reg)
         else:
-            res = self.solve(targets, mask, z_init, z_reg)
+            res = self._dispatch(self.solve, targets, mask, z_init, z_reg)
 
         if R > 1:
             per = res.final_loss.reshape(n_win, R)
@@ -189,7 +231,7 @@ class LatentOptApps:
         mask = self._put(np.tile(tmask[None, :, None], (B_pad, 1, 24)))
         z_init = init_z(generator, self.cfg, B_pad)
         z_reg = [torch.zeros_like(z) for z in z_init]
-        res = self.solve(targets, mask, z_init, z_reg)
+        res = self._dispatch(self.solve, targets, mask, z_init, z_reg)
 
         out6d, outrot, outpose = res.last_6d, res.last_rotmat, res.last_pose
         if lat.replace_frame_with_gt:
@@ -224,9 +266,10 @@ class LatentOptApps:
         z_init = init_z(generator, self.cfg, B)
         z_reg = [torch.zeros_like(z) for z in z_init]
         if self._traj_solve is not None and root_trans is not None:
-            res = self._traj_solve(dict(targets, root_trans=root_trans), mask, z_init, z_reg)
+            res = self._dispatch(self._traj_solve, dict(targets, root_trans=root_trans), mask,
+                                 z_init, z_reg)
         else:
-            res = self.solve(targets, mask, z_init, z_reg)
+            res = self._dispatch(self.solve, targets, mask, z_init, z_reg)
         out6d, outrot, outpose = res.last_6d, res.last_rotmat, res.last_pose
         if lat.replace_frame_with_gt:
             out6d = replace_with_target(out6d, targets["rot_6d"], mask)
@@ -248,7 +291,7 @@ class LatentOptApps:
         mask = self._put(_np(masks))
         z_init = init_z(generator, self.cfg, B)
         z_reg = [torch.zeros_like(z) for z in z_init]
-        res = self.solve_completion(targets, mask, z_init, z_reg)
+        res = self._dispatch(self.solve_completion, targets, mask, z_init, z_reg)
         out6d, outrot, outpose = res.last_6d, res.last_rotmat, res.last_pose
         if lat.replace_part_with_gt:
             out6d = replace_with_target(out6d, targets["rot_6d"], mask)
@@ -283,7 +326,7 @@ class LatentOptApps:
             mask = self._put(mask)[None]
             z_init = init_z(generator, self.cfg, 1)
             z_reg = [torch.zeros_like(z) for z in z_init]
-            res = self.solve_completion(tgt, mask, z_init, z_reg)
+            res = self._dispatch(self.solve_completion, tgt, mask, z_init, z_reg)
             out = {"rot_6d": res.last_6d, "rot_mat": res.last_rotmat, "pose": res.last_pose}
             if lat.replace_part_with_gt:
                 out = {k: replace_with_target(v, self._put(tgt[k]), mask)
@@ -334,7 +377,7 @@ class LatentOptApps:
             mask_t = self._put(mask)
             z_init = init_z(generator, self.cfg, B)
             z_reg = [torch.zeros_like(z) for z in z_init]
-            res = self.solve_completion(tgt_t, mask_t, z_init, z_reg)
+            res = self._dispatch(self.solve_completion, tgt_t, mask_t, z_init, z_reg)
             out = {"rot_6d": res.last_6d, "rot_mat": res.last_rotmat, "pose": res.last_pose}
             if lat.replace_part_with_gt:
                 out = {k: replace_with_target(out[k], tgt_t[k], mask_t) for k in out}
@@ -362,7 +405,7 @@ class LatentOptApps:
                                 0)[None] for k, v in whole.items()}
             z_init = init_z(generator, self.cfg, 1)
             # generation regularises z toward its random start
-            res = self.solve(tgt, mask, z_init, z_init)
+            res = self._dispatch(self.solve, tgt, mask, z_init, z_init)
             whole = {"rot_6d": torch.cat((whole["rot_6d"], res.last_6d[0, overlap:]), 0),
                      "rot_mat": torch.cat((whole["rot_mat"], res.last_rotmat[0, overlap:]), 0),
                      "pose": torch.cat((whole["pose"], res.last_pose[0, overlap:]), 0)}
@@ -388,7 +431,7 @@ class LatentOptApps:
                                      axis=1)
                    for k in ("rot_6d", "rot_mat", "pose")}
             z_init = init_z(generator, self.cfg, B)
-            res = self.solve(tgt, mask, z_init, z_init)
+            res = self._dispatch(self.solve, tgt, mask, z_init, z_init)
             out = {"rot_6d": res.last_6d, "rot_mat": res.last_rotmat, "pose": res.last_pose}
             whole = {k: np.concatenate((whole[k], _np(out[k])[:, overlap:]), axis=1)
                      for k in whole}

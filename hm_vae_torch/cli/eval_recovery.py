@@ -34,8 +34,16 @@ and moments).
 ffmpeg; it needs matplotlib): the trajectory model's world-space poses where
 one is given, else the result's FK poses.
 
-Not ported, raising with the ROADMAP item that brings it: ``--data_parallel``
-(item 11).
+``--data_parallel N`` splits every batched solve's window batch (and
+``--test_model_rec``'s batches of 128) over N ranks, each a process started
+by torchrun with ``HMVAE_DIST=1``; the results are gathered to every rank
+and the primary rank writes the files:
+
+    HMVAE_DIST=1 python -m torch.distributed.run --nproc_per_node N \
+        -m hm_vae_torch.cli.eval_recovery --data_parallel N ...
+
+Each rank runs on ``cuda:{LOCAL_RANK % device count}`` (or the CPU); ranks
+that share a card use gloo, as on the CPU.
 """
 
 from __future__ import annotations
@@ -96,24 +104,30 @@ def main(argv=None):
     p.add_argument("--try_final_long_seq_generation", action="store_true")
     p.add_argument("--final_motion_completion", action="store_true")
     p.add_argument("--try_interpolation_w_trajectory_single_window", action="store_true")
-    p.add_argument("--data_parallel", type=int, default=1)
+    p.add_argument("--data_parallel", type=int, default=1,
+                   help="split each batched solve's window batch over N ranks (torchrun "
+                        "with HMVAE_DIST=1; windows padded by cycling, so the summary is "
+                        "the one-process run's)")
     p.add_argument("--test_model_rec", action="store_true",
                    help="posterior-mean reconstruction quality over the test split")
     p.add_argument("--seed", type=int, default=None, help="default: the config's run.seed")
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
 
-    if args.data_parallel > 1:
-        raise NotImplementedError("--data_parallel: the port solves on one device (ROADMAP "
-                                  "Queue 1 item 11)")
-
     from ..apps.tasks import LatentOptApps
     from ..data.dataset import EvalMotionDataset, resolve_split_json
     from ..train.trainer import build_trainer
     from ..utils.config import load_config
-    from ..utils.device import resolve_device
+    from ..parallel import multihost as mh
+    from . import start
 
-    device = resolve_device(args.device)
+    device = start(args.device)
+    if mh.process_count() != args.data_parallel:
+        raise ValueError(
+            f"--data_parallel {args.data_parallel} needs as many ranks, this run has "
+            f"{mh.process_count()}: start it as HMVAE_DIST=1 python -m torch.distributed.run "
+            f"--nproc_per_node {args.data_parallel} -m hm_vae_torch.cli.eval_recovery ...")
+    group = mh.process_group()
     cfg = eval_config(load_config(args.config))
     lat_kw = {k: v for k, v in (
         ("per_window_decoder", False if args.shared_decoder_clone else None),
@@ -150,7 +164,8 @@ def main(argv=None):
         p.error("choose one of the task flags")
     task, out_name = chosen[0]
     output_dir = os.path.join(args.output_path, out_name, model_name)
-    os.makedirs(output_dir, exist_ok=True)
+    if mh.is_primary():  # under several ranks the primary writes every file
+        os.makedirs(output_dir, exist_ok=True)
 
     trainer, _, _, _ = build_trainer(cfg, output_dir, device=device)
     if args.test_model:
@@ -192,15 +207,16 @@ def main(argv=None):
     if task == "reconstruction":
         from ..apps.inference import VAEInference
 
-        _run_reconstruction(VAEInference(model, cfg, device=device), **run)
+        _run_reconstruction(VAEInference(model, cfg, device=device), group=group, **run)
         return
     if task == "interpolation_sw":
         # the keyframe trajectory loss inside the solver
         lat = dataclasses.replace(cfg.latent_opt, optimize_trajectory=True,
                                   reg_w_trajectory=cfg.latent_opt.reg_w_trajectory or 1.0)
-        apps = LatentOptApps(model, dataclasses.replace(cfg, latent_opt=lat), trajectory=traj)
+        apps = LatentOptApps(model, dataclasses.replace(cfg, latent_opt=lat), trajectory=traj,
+                             group=group)
     else:
-        apps = LatentOptApps(model, cfg)
+        apps = LatentOptApps(model, cfg, group=group)
     seed = cfg.run.seed
     if task in ("completion_sw", "interpolation_sw"):
         _run_single_window(apps, seed, task, **run)
@@ -276,8 +292,12 @@ def _pad_chunk(chunk, size, ci):
 def _save_seq_outputs(name, rotmat, output_dir, traj_runner=None, gen_vis=False):
     """The optimised rotations and, with a trajectory model, its world-space
     poses of them; with ``gen_vis`` an animation of those (or of the
-    rotations' FK poses)."""
+    rotations' FK poses).  The primary rank's: every rank holds them."""
     from ..ops import fk as fk_mod
+    from ..parallel.multihost import is_primary
+
+    if not is_primary():
+        return
 
     rotmat = _np(rotmat)
     np.save(os.path.join(output_dir, f"{name}_rot_opt_res.npy"), rotmat)
@@ -297,6 +317,10 @@ def _save_seq_outputs(name, rotmat, output_dir, traj_runner=None, gen_vis=False)
 
 
 def _write_summary(results, output_dir):
+    from ..parallel.multihost import is_primary
+
+    if not is_primary():
+        return
     if not results:
         print("no test sequences long enough for one window")
         return
@@ -343,10 +367,27 @@ def _run_interpolation(apps, seed, cfg, args, eval_ds, n_eval, W, output_dir, tr
     _write_summary(results, output_dir)
 
 
-def _run_reconstruction(infer, args, eval_ds, n_eval, W, output_dir, traj_runner):
+def _rank_split(fn, x: torch.Tensor, group):
+    """``fn`` (a batch -> a tuple of batches) over ``group``'s ranks: the
+    batch padded to a multiple of the world size by cycling its rows, each
+    rank's contiguous rows through ``fn``, every output gathered to every
+    rank (zeroed buffers and an all-reduce: exact) and trimmed."""
+    if group is None:
+        return fn(x)
+    from ..parallel.sharding import gather_rows, rank_rows, world_size
+
+    B = x.shape[0]
+    B_pad = -(-B // world_size(group)) * world_size(group)
+    r0, r1 = rank_rows(B_pad, group)
+    outs = fn(x[torch.arange(r0, r1) % B])
+    return tuple(gather_rows(o, B_pad, r0, group)[:B] for o in outs)
+
+
+def _run_reconstruction(infer, args, eval_ds, n_eval, W, output_dir, traj_runner, group=None):
     """Posterior-mean reconstruction over the test split: every sequence cut
     into non-overlapping windows, a chunk's windows reconstructed in batches
-    of 128; MPJPE, PA-MPJPE and acceleration error against the ground
+    of 128 (under ``--data_parallel``, each batch's rows split over the
+    ranks); MPJPE, PA-MPJPE and acceleration error against the ground
     truth's FK."""
     from ..apps.metrics import pa_mpjpe
     from ..ops import fk as fk_mod
@@ -357,7 +398,8 @@ def _run_reconstruction(infer, args, eval_ds, n_eval, W, output_dir, traj_runner
         counts = [it["rot_mat"].shape[0] // W for it in chunk]
         flat = np.concatenate([it["rot_mat"][:n * W].reshape(n, W, 24, 3, 3)
                                for it, n in zip(chunk, counts)])
-        parts = [infer.mean_reconstruction(rot.rotmat_to_rot6d(torch.as_tensor(flat[s:s + 128])))
+        parts = [_rank_split(infer.mean_reconstruction,
+                             rot.rotmat_to_rot6d(torch.as_tensor(flat[s:s + 128])), group)
                  for s in range(0, flat.shape[0], 128)]
         rec_rm = np.concatenate([_np(rm) for _, rm, _ in parts])
         rec_pose = np.concatenate([_np(rp) for _, _, rp in parts])

@@ -17,8 +17,13 @@ defaults to ``cuda`` and raises without CUDA unless ``--device cpu`` is
 given.  ``--gen_vis`` also renders each sequence's world-space poses
 (``{tag}_{b}.mp4``, or a gif without ffmpeg; it needs matplotlib).
 
-Not ported, raising with the ROADMAP item that brings it:
-``--sequence_parallel`` > 1 (Queue 1 item 11).
+``--sequence_parallel N`` splits the trajectory model's time axis over N
+ranks (torchrun with ``HMVAE_DIST=1``; halo exchange per level, any length
+padded and trimmed unless ``--sequence_parallel_strict``); every rank loads
+the same sequences, and the primary rank writes the files:
+
+    HMVAE_DIST=1 python -m torch.distributed.run --nproc_per_node N \
+        -m hm_vae_torch.cli.eval_trajectory --sequence_parallel N ...
 """
 
 from __future__ import annotations
@@ -52,23 +57,28 @@ def main(argv=None):
     p.add_argument("--seq_generation_npy_folder", type=str, default="")
     p.add_argument("--debug_trajectory", action="store_true")
     p.add_argument("--sequence_parallel", type=int, default=1,
-                   help="shard the time axis over N devices: not ported (one device)")
+                   help="split the trajectory model's time axis over N ranks (torchrun with "
+                        "HMVAE_DIST=1)")
     p.add_argument("--sequence_parallel_strict", action="store_true",
-                   help="with --sequence_parallel: demand T %% N == 0")
+                   help="with --sequence_parallel: demand T %% N == 0 instead of padding and "
+                        "trimming (the padded tail's last velocities see repeated frames)")
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
 
-    if args.sequence_parallel > 1:
-        raise NotImplementedError("--sequence_parallel: the port runs the trajectory model "
-                                  "on one device (ROADMAP Queue 1 item 11)")
     from ..apps.inference import VAEInference
     from ..models.trajectory import TrajectoryRunner
     from ..ops import rotations as rot
+    from ..parallel import multihost as mh
     from ..train.trainer import Trainer, build_trainer
     from ..utils.config import load_config
-    from ..utils.device import resolve_device
+    from . import start
 
-    device = resolve_device(args.device)
+    device = start(args.device)
+    if mh.process_count() != args.sequence_parallel:
+        raise ValueError(
+            f"--sequence_parallel {args.sequence_parallel} needs as many ranks, this run has "
+            f"{mh.process_count()}: start it as HMVAE_DIST=1 python -m torch.distributed.run "
+            f"--nproc_per_node {args.sequence_parallel} -m hm_vae_torch.cli.eval_trajectory ...")
     cfg = load_config(args.config)
     if args.data_root:
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data,
@@ -80,7 +90,8 @@ def main(argv=None):
     if args.out_tag:
         model_name = f"{model_name}_{args.out_tag}"
     output_dir = os.path.join(args.output_path, "eval_trajectory", model_name)
-    os.makedirs(output_dir, exist_ok=True)
+    if mh.is_primary():  # under several ranks the primary writes every file
+        os.makedirs(output_dir, exist_ok=True)
 
     trainer, _, _, test_ds = build_trainer(cfg, output_dir, device=device)
     if args.test_model:
@@ -89,12 +100,16 @@ def main(argv=None):
                         device=device, mean_std=trainer.mean_std)
     if args.trajectory_test_model:
         t_trainer.load_params(args.trajectory_test_model)
-    runner = TrajectoryRunner(t_trainer.state.model, trainer.mean_std)
+    runner = TrajectoryRunner(t_trainer.state.model, trainer.mean_std,
+                              sp_group=mh.process_group(),
+                              sp_pad_incomplete=not args.sequence_parallel_strict)
 
     def run_and_save(rot6d, tag):
         rot6d = torch.as_tensor(np.asarray(rot6d, np.float32)
                                 if not torch.is_tensor(rot6d) else rot6d).to(device)
         world, _ = runner(rot6d)
+        if not mh.is_primary():  # every rank holds the result; one writes it
+            return world
         six, pos = rot6d.cpu().numpy(), world.cpu().numpy()
         for b in range(pos.shape[0]):
             # (T, 24, 9): the 6D rotations beside the world positions

@@ -51,9 +51,9 @@ def main(argv=None):
     from ..ops import rotations as rot
     from ..train.trainer import build_trainer
     from ..utils.config import load_config
-    from ..utils.device import resolve_device
+    from . import start
 
-    device = resolve_device(args.device)
+    device = start(args.device)
     cfg = load_config(args.config)
     if args.data_root:
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data,

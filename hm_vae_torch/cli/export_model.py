@@ -51,10 +51,10 @@ def main(argv=None):
     from ..models.hm_vae import HMVAE
     from ..models.trajectory import TrajectoryModel
     from ..utils.config import load_config
-    from ..utils.device import resolve_device
+    from . import start
     from ..utils.weights import load_reference_checkpoint, state_dict_from_reference
 
-    device = resolve_device(args.device)
+    device = start(args.device)
 
     def model(cls, cfg, path):
         m = cls(cfg.model, cfg.optim.init,

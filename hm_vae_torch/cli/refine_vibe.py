@@ -62,13 +62,13 @@ def main(argv=None):
     from ..ops import fk as fk_mod
     from ..ops import rotations as rot
     from ..utils.config import load_config
-    from ..utils.device import resolve_device
+    from . import start
     from ..utils.weights import load_reference_checkpoint, state_dict_from_reference
 
     def to_numpy(t):
         return t.float().cpu().numpy()
 
-    device = resolve_device(args.device)
+    device = start(args.device)
     cfg = load_config(args.config)
     output_dir = os.path.join(args.output_path, "refine_vibe")
     os.makedirs(output_dir, exist_ok=True)

@@ -4,10 +4,16 @@
         --output_path out/ [--resume] [--max_iter N] [--device cpu]
 
 Flag-compatible with the reference's training script (``--config --output_path --resume
---test_model``; ``--multigpus`` is accepted and ignored: the port trains on
-one device), plus ``--max_iter``, ``--data_root`` and ``--device`` (default
-``cuda``; it raises without CUDA unless ``--device cpu`` is given).
+--test_model``; ``--multigpus`` is accepted and ignored: several cards are
+several ranks, below), plus ``--max_iter``, ``--data_root`` and ``--device``
+(default ``cuda``; it raises without CUDA unless ``--device cpu`` is given).
 Checkpoints go to ``<output_path>/outputs/<config name>/checkpoints/``.
+
+Data parallel over N ranks, one process each (``optim.batch_size`` stays
+the global batch; the primary rank writes the files):
+
+    HMVAE_DIST=1 python -m torch.distributed.run --nproc_per_node N \
+        -m hm_vae_torch.cli.train --config ... --output_path out/
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ def main(argv=None):
     p.add_argument("--output_path", type=str, default="./")
     p.add_argument("--test_batch_size", type=int, default=10)
     p.add_argument("--multigpus", action="store_true",
-                   help="ignored: the port trains on one device")
+                   help="ignored: start one rank a card with torchrun (HMVAE_DIST=1)")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--test_model", type=str, default="",
                    help="reference-format gen_*.pt: load its weights only")
@@ -33,19 +39,21 @@ def main(argv=None):
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
 
+    from ..parallel.multihost import is_primary
     from ..train.trainer import build_trainer
     from ..utils.config import load_config
-    from ..utils.device import resolve_device
+    from . import start
 
-    device = resolve_device(args.device)
+    device = start(args.device)
     cfg = load_config(args.config)
     if args.data_root:
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data,
                                                                 data_root=args.data_root))
     model_name = os.path.splitext(os.path.basename(args.config))[0]
     output_dir = os.path.join(args.output_path, "outputs", model_name)
-    os.makedirs(output_dir, exist_ok=True)
-    shutil.copyfile(args.config, os.path.join(output_dir, "config.yaml"))
+    if is_primary():  # under several ranks the primary writes every file
+        os.makedirs(output_dir, exist_ok=True)
+        shutil.copyfile(args.config, os.path.join(output_dir, "config.yaml"))
 
     trainer, train_ds, val_ds, test_ds = build_trainer(cfg, output_dir, device=device)
     if args.resume:

@@ -77,7 +77,15 @@
 //   Where pairs x batch groups are too few to fill the card the row tiles
 //   are split over a cluster.  The epilogue writes gxpad to shared memory,
 //   sums the cluster's partials, adds each reflected edge column onto its
-//   source (the padding's adjoint) and stores gx row by row;
+//   source (the padding's adjoint) and stores gx row by row.  A padded row
+//   too long for one block (dgrad_kernel<true>, taken only there) is cut
+//   into spans of one batch's padded columns, a multiple of stride: a block
+//   stages only the g columns its span reads (the K-1 halo included, each
+//   row one bulk copy widened to 16-byte granules), so its shared memory
+//   depends on K, stride and the span, never on T_in; it stores its span's
+//   summed gxpad to a scratch row, and dgrad_fold_kernel then adds the
+//   reflected edges onto their sources in the order above, whichever spans
+//   they fell in;
 // - wgrad: a block owns one live tile (64 rows x the chunk's 8 channels x K
 //   taps, plus a ones-column for the bias: the mma's N runs over 8-channel
 //   tap tiles, K + 1 of them, 2, 3 or 4 a warp: a template parameter, so
@@ -88,7 +96,12 @@
 //   once, padded and split by stride phase (so that a tap's columns read
 //   consecutive words); g is staged a few batches at a time and written in
 //   the mma's fragment order, so each lane reads its A fragment as two
-//   16-byte loads.
+//   16-byte loads.  Where x's rows of a block do not fit shared memory
+//   (long rows, even at batch 1), wgrad_span_kernel splits the reduction
+//   over time as well: items of one batch's 64 output columns, contiguous
+//   runs of them over the cluster, each staged alone (x's padded columns
+//   of the span and g's fragments); its partial tiles are summed in rank
+//   order as above, so the bits are the same on every run;
 // - windows: the test-time solver gives every window of its batch its own
 //   decoder clone (hm_vae_tpu/apps/latent_opt.py, jax.vmap over windows
 //   with the decoder on axis 0).  Both kernels then take `windows` weights
@@ -99,9 +112,10 @@
 // Limits: f32, C a multiple of 8 (the wrappers pad), K <= 31 (wgrad's 32
 // tap tiles), and shared memory: dgrad's two weight stages are 32 rows of
 // 16 channels x K taps (127 KB at K 31, so one block an SM there) beside
-// g's padded rows; dgrad's padded rows of a batch group fill at most 16
-// column tiles (dgrad_plan gives a group of several batches at most one
-// tile a warp, so a padded row of up to 256 / stride columns).
+// g's rows; dgrad's columns of a block fill at most 16 column tiles
+// (dgrad_plan gives a group of several batches at most one tile a warp, a
+// batch alone up to two, and cuts a longer padded row into spans).  Rows of
+// any length run.
 // Times against the bounds, and traces of both kernels (kernel_trace.py),
 // are in PERF.md.
 
@@ -221,8 +235,9 @@ __host__ __device__ __forceinline__ size_t align16(size_t n) { return (n + 15) &
 // dgrad
 
 struct DgradLayout {
-  int Tp, off, rs, wr;  // padded width, g's time offset (a phase's taps - 1),
-                        // g2's row stride (8-byte words), a weight row (floats)
+  int Tp, off, rs, wr, gl;  // staged padded width, g's time offset (a phase's taps - 1),
+                            // g2's row stride (8-byte words), a weight row (floats),
+                            // a staged row of gy or y (floats)
   size_t bars, w, g, g2, out, total;  // byte offsets in shared memory
 };
 
@@ -230,19 +245,31 @@ struct DgradLayout {
 // the same rows of gy and y, so that two blocks fit an SM.  Two weight
 // stages in flight (a stage's rows are read by the products); one stage of
 // gy and y, refilled as soon as it is rewritten into g2.  gxpad (16
-// channels x the group's padded rows) reuses the weight stages.
+// channels x the group's padded columns) reuses the weight stages.  With
+// span = 0 a block stages whole padded rows of nbb batches (gy's and y's
+// rows of t_ld floats); with span > 0 one batch's `span` padded columns (a
+// multiple of stride) and only the g columns they read, plus the halo: the
+// layout then depends on K, stride and span, never on T_in.
 __host__ __device__ inline DgradLayout dgrad_layout(int T_in, int K, int T_out, int t_ld,
-                                                    int stride, int padding, int nbb) {
+                                                    int stride, int padding, int nbb, int span) {
   DgradLayout L;
-  L.Tp = T_in + 2 * padding;
   L.off = (K + stride - 1) / stride - 1;
-  const int V0 = (L.Tp + stride - 1) / stride;
-  L.rs = frag_stride(L.off + (V0 > T_out ? V0 : T_out));
+  if (span > 0) {
+    L.Tp = span;
+    L.rs = frag_stride(L.off + span / stride);
+    // g's columns [t0 - off, t0 + span/stride), widened to 16-byte granules
+    L.gl = (L.off + span / stride + 6 + 3) / 4 * 4;
+  } else {
+    L.Tp = T_in + 2 * padding;
+    const int V0 = (L.Tp + stride - 1) / stride;
+    L.rs = frag_stride(L.off + (V0 > T_out ? V0 : T_out));
+    L.gl = t_ld;
+  }
   L.wr = kDC * K + 8;  // 16-byte rows; 8 more floats spread a fragment's rows over the banks
   L.bars = 0;
   L.w = 64;
   L.g = L.w + align16(size_t(kStages) * kHalf * L.wr * 4);
-  L.g2 = L.g + align16(size_t(2) * nbb * kHalf * t_ld * 4);
+  L.g2 = L.g + align16(size_t(2) * nbb * kHalf * L.gl * 4);
   const size_t out_bytes = size_t(kDC) * nbb * L.Tp * 4;
   const size_t g2_end = L.g2 + size_t(nbb) * kHalf * L.rs * 8;
   L.out = out_bytes <= L.g - L.w ? L.w : align16(g2_end);
@@ -250,22 +277,27 @@ __host__ __device__ inline DgradLayout dgrad_layout(int T_in, int K, int T_out, 
   return L;
 }
 
+// kSpan: the block's columns are a span of one batch's padded row, and it
+// writes its gxpad columns to the scratch row gxpad (B, C, T_in + 2*padding),
+// which dgrad_fold_kernel then folds into gx; else whole rows, folded here.
+template <bool kSpan>
 __global__ void __launch_bounds__(kThreads, 2)
 dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
              const float* __restrict__ w, const int* __restrict__ dgrad_start,
              const int* __restrict__ dgrad_row, float* __restrict__ gx, int B, int C, int T_in,
              int K, int P, int T_out, int t_ld, int stride, int padding, int reflect,
-             float slope, int nbb, int gpw, size_t w_stride) {
+             float slope, int nbb, int gpw, size_t w_stride, int span, int nspans,
+             float* __restrict__ gxpad) {
   count_run(&g_runs[0]);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int split = static_cast<int>(cluster.num_blocks());
-  const DgradLayout L = dgrad_layout(T_in, K, T_out, t_ld, stride, padding, nbb);
+  const DgradLayout L = dgrad_layout(T_in, K, T_out, t_ld, stride, padding, nbb, kSpan ? span : 0);
 
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);  // weight [kStages], then g
   float* w_s = reinterpret_cast<float*>(smem + L.w);             // [kStages][32][wr]
-  float* g_s = reinterpret_cast<float*>(smem + L.g);             // [2][nbb][32][t_ld]
+  float* g_s = reinterpret_cast<float*>(smem + L.g);             // [2][nbb][32][gl]
   float2* g2 = reinterpret_cast<float2*>(smem + L.g2);           // [nbb][32][rs]
   float* out_s = reinterpret_cast<float*>(smem + L.out);         // [16][nbb][Tp]
 
@@ -273,26 +305,38 @@ dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
   const int gid = lane >> 2, tig = lane & 3;
   const int c0 = blockIdx.x * kDC;
   const int cw = min(kDC, C - c0);  // 16, or 8 for a last odd chunk
-  // window `win` owns the batches [win*B, (win+1)*B) in gpw groups, and its
-  // own folded weight
-  const int win = blockIdx.y / gpw;
-  const int b0 = win * B + (blockIdx.y - win * gpw) * nbb;
+  // blockIdx.y: (window, batch group[, span]); window `win` owns the batches
+  // [win*B, (win+1)*B) in gpw groups, and its own folded weight
+  const int sp = kSpan ? static_cast<int>(blockIdx.y) % nspans : 0;
+  const int yg = kSpan ? static_cast<int>(blockIdx.y) / nspans : static_cast<int>(blockIdx.y);
+  const int win = yg / gpw;
+  const int b0 = win * B + (yg - win * gpw) * nbb;
   const int nbl = min(nbb, (win + 1) * B - b0);
   const float* wwin = w + win * w_stride;
+  // the block's padded columns [u0, u0 + width) read g's columns [ta, tb),
+  // staged from ta4 (16-byte aligned) on, gl_cols floats a row
+  const int Tp = T_in + 2 * padding;
+  const int u0 = sp * span, width = kSpan ? min(span, Tp - u0) : Tp;
+  const int t0 = u0 / stride;
+  const int ta = kSpan ? max(0, t0 - L.off) : 0;
+  const int tb = kSpan ? min(T_out, t0 + span / stride) : T_out;
+  const int ta4 = ta & ~3;
+  const int gl_cols = !kSpan ? t_ld : tb > ta ? min(t_ld, (tb + 3) & ~3) - ta4 : 0;
   const int first = dgrad_start[blockIdx.x];
   const int live = dgrad_start[blockIdx.x + 1] - first;
   // stages: both halves of each of the block's live row tiles
   const int n_mine = live > rank ? 2 * ((live - rank + split - 1) / split) : 0;
   const int wt = kHalf * L.wr;        // floats of a weight stage
-  const int gt = nbb * kHalf * t_ld;  // floats of gy (or y) in a stage
+  const int gt = nbb * kHalf * L.gl;  // floats of gy (or y) in a stage
   auto stage_row = [&](int i) {
     return dgrad_row[first + rank + (i >> 1) * split] * kRows + (i & 1) * kHalf;
   };
 
   // Stage i: its weight rows (cw*K contiguous floats each; thread r copies
   // row r) into weight stage `slot`, or the batches' rows of gy and y (one
-  // contiguous run each; threads 32.. copy).  Thread 0 arms the barrier; a
-  // copy may land before it does, the phase completes only after both.
+  // contiguous run each, or one a row's span; threads 32.. copy).  Thread 0
+  // arms the barrier; a copy may land before it does, the phase completes
+  // only after both.
   auto issue_w = [&](int i, int slot) {
     const int p0 = stage_row(i), nrows = max(0, min(kHalf, P - p0));
     const uint32_t w_row = cw * K * 4;
@@ -305,22 +349,34 @@ dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
   };
   auto issue_g = [&](int i) {
     const int p0 = stage_row(i), nrows = max(0, min(kHalf, P - p0));
-    const uint32_t g_bytes = nrows * t_ld * 4;
-    if (tid == 0) mbar_expect(smem_addr(bars + kStages), 2 * nbl * g_bytes);
     const int q = tid - kHalf;
-    if (nrows > 0 && q >= 0 && q < 2 * nbl) {
-      const int which = q / nbl, bb = q - which * nbl;
-      fence_async();
-      bulk_copy(g_s + which * gt + bb * kHalf * t_ld,
-                (which ? y : gy) + (size_t(b0 + bb) * P + p0) * t_ld, g_bytes,
-                bars + kStages);
+    if constexpr (kSpan) {
+      const uint32_t row_bytes = gl_cols * 4;
+      if (tid == 0) mbar_expect(smem_addr(bars + kStages), 2 * nrows * row_bytes);
+      if (row_bytes > 0 && q >= 0 && q < 2 * nrows) {
+        const int which = q >= nrows, r = q - which * nrows;
+        fence_async();
+        bulk_copy(g_s + which * gt + r * L.gl,
+                  (which ? y : gy) + (size_t(b0) * P + p0 + r) * t_ld + ta4, row_bytes,
+                  bars + kStages);
+      }
+    } else {
+      const uint32_t g_bytes = nrows * t_ld * 4;
+      if (tid == 0) mbar_expect(smem_addr(bars + kStages), 2 * nbl * g_bytes);
+      if (nrows > 0 && q >= 0 && q < 2 * nbl) {
+        const int which = q / nbl, bb = q - which * nbl;
+        fence_async();
+        bulk_copy(g_s + which * gt + bb * kHalf * t_ld,
+                  (which ? y : gy) + (size_t(b0 + bb) * P + p0) * t_ld, g_bytes,
+                  bars + kStages);
+      }
     }
   };
   if (tid == 0) {
     for (int s = 0; s < kStages + 1; ++s) mbar_init(smem_addr(bars + s), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // g's time padding stays zero (a stage writes only t in [0, T_out)), and
+  // g's time padding stays zero (a stage writes only t in [ta, tb)), and
   // so do the weight rows' second chunk where the block has one chunk
   for (int q = tid; q < nbb * kHalf * L.rs; q += kThreads) g2[q] = make_float2(0.f, 0.f);
   if (cw < kDC)
@@ -336,7 +392,7 @@ dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
   for (int w = 0; w < kMaxTiles; ++w) {
     int phi = 0, mt = warp + kWarps * w, V = 0;
     for (; phi < stride; ++phi) {
-      V = (L.Tp - phi + stride - 1) / stride;
+      V = (width - phi + stride - 1) / stride;
       const int n = (nbl * V + 15) / 16;
       if (mt < n) break;
       mt -= n;
@@ -358,12 +414,22 @@ dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
     const int nrows = max(0, min(kHalf, P - stage_row(i)));
     mbar_wait(smem_addr(bars + kStages), i & 1);
     // g = gy * act'(y), split, into its zero-padded rows
-    for (int q = tid; q < nbl * kHalf * T_out; q += kThreads) {
-      const int bb = q / (kHalf * T_out), rem = q - bb * (kHalf * T_out);
-      const int r = rem / T_out, t = rem - r * T_out;
-      const int o = (bb * kHalf + r) * t_ld + t;
-      const float v = r < nrows ? act_grad(g_s[o], g_s[gt + o], slope) : 0.f;
-      g2[(bb * kHalf + r) * L.rs + L.off + t] = split_tf32(v);
+    if constexpr (kSpan) {
+      const int nt = tb - ta;
+      for (int q = tid; q < kHalf * nt; q += kThreads) {
+        const int r = q / nt, t = ta + q - r * nt;
+        const int o = r * L.gl + t - ta4;
+        const float v = r < nrows ? act_grad(g_s[o], g_s[gt + o], slope) : 0.f;
+        g2[r * L.rs + L.off + t - t0] = split_tf32(v);
+      }
+    } else {
+      for (int q = tid; q < nbl * kHalf * T_out; q += kThreads) {
+        const int bb = q / (kHalf * T_out), rem = q - bb * (kHalf * T_out);
+        const int r = rem / T_out, t = rem - r * T_out;
+        const int o = (bb * kHalf + r) * t_ld + t;
+        const float v = r < nrows ? act_grad(g_s[o], g_s[gt + o], slope) : 0.f;
+        g2[(bb * kHalf + r) * L.rs + L.off + t] = split_tf32(v);
+      }
     }
     mbar_wait(smem_addr(bars + slot), (i / kStages) & 1);
     // weight rows past P (a ragged last tile) read as zeros
@@ -413,8 +479,8 @@ dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
     if (i + kStages < n_mine) issue_w(i + kStages, slot);
   }
 
-  // gxpad of the block's rows -> out_s (over the weight stages, now unread);
-  // a block alone in its cluster skips the cluster barriers
+  // gxpad of the block's columns -> out_s (over the weight stages, now
+  // unread); a block alone in its cluster skips the cluster barriers
 #pragma unroll
   for (int w = 0; w < kMaxTiles; ++w) {
     if (taps[w] == 0) continue;
@@ -439,29 +505,56 @@ dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
 #pragma unroll
     for (int q = 0; q < kMaxSplit; ++q)
       part[q] = q == rank ? out_s : cluster.map_shared_rank(out_s, min(q, split - 1));
-    const int n_el = cw * nbl * T_in;
-    const int lo = n_el * rank / split, hi = n_el * (rank + 1) / split;
-    for (int el = lo + tid; el < hi; el += kThreads) {
-      const int c = el / (nbl * T_in), rem = el - c * (nbl * T_in);
-      const int bb = rem / T_in, i = rem - bb * T_in;
-      const int row = (c * nbb + bb) * L.Tp;
-      // the padded columns that read x[b, c, i]: i + padding, and under
-      // reflect the mirrored columns, each summed over the cluster in order
-      auto column = [&](int u) {
-        float s = part[0][row + u];
+    auto column = [&](int row, int u) {  // summed over the cluster in rank order
+      float s = part[0][row + u];
 #pragma unroll
-        for (int q = 1; q < kMaxSplit; ++q)
-          if (q < split) s += part[q][row + u];
-        return s;
-      };
-      float v = column(i + padding);
-      if (reflect && i >= 1 && i <= padding) v += column(padding - i);
-      if (reflect && i <= T_in - 2 && i >= T_in - 1 - padding)
-        v += column(padding + 2 * (T_in - 1) - i);
-      gx[(size_t(b0 + bb) * C + c0 + c) * T_in + i] = v;
+      for (int q = 1; q < kMaxSplit; ++q)
+        if (q < split) s += part[q][row + u];
+      return s;
+    };
+    if constexpr (kSpan) {
+      const int n_el = cw * width;
+      const int lo = n_el * rank / split, hi = n_el * (rank + 1) / split;
+      for (int el = lo + tid; el < hi; el += kThreads) {
+        const int c = el / width, j = el - c * width;
+        gxpad[(size_t(b0) * C + c0 + c) * Tp + u0 + j] = column(c * L.Tp, j);
+      }
+    } else {
+      const int n_el = cw * nbl * T_in;
+      const int lo = n_el * rank / split, hi = n_el * (rank + 1) / split;
+      for (int el = lo + tid; el < hi; el += kThreads) {
+        const int c = el / (nbl * T_in), rem = el - c * (nbl * T_in);
+        const int bb = rem / T_in, i = rem - bb * T_in;
+        const int row = (c * nbb + bb) * L.Tp;
+        // the padded columns that read x[b, c, i]: i + padding, and under
+        // reflect the mirrored columns
+        float v = column(row, i + padding);
+        if (reflect && i >= 1 && i <= padding) v += column(row, padding - i);
+        if (reflect && i <= T_in - 2 && i >= T_in - 1 - padding)
+          v += column(row, padding + 2 * (T_in - 1) - i);
+        gx[(size_t(b0 + bb) * C + c0 + c) * T_in + i] = v;
+      }
     }
   }
   if (split > 1) cluster.sync();  // no block leaves while another reads its partial gxpad
+}
+
+// The padding's adjoint over gxpad's rows (B*C of T_in + 2*padding columns)
+// into gx (B*C of T_in): the column i + padding, then under reflect the
+// mirrored columns, added in the order dgrad_kernel<false> adds them.
+__global__ void dgrad_fold_kernel(const float* __restrict__ gxpad, float* __restrict__ gx,
+                                  long long n, int T_in, int padding, int reflect) {
+  const int Tp = T_in + 2 * padding;
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; e < n;
+       e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long row = e / T_in;
+    const int i = static_cast<int>(e - row * T_in);
+    const float* g = gxpad + row * Tp;
+    float v = g[i + padding];
+    if (reflect && i >= 1 && i <= padding) v += g[padding - i];
+    if (reflect && i <= T_in - 2 && i >= T_in - 1 - padding) v += g[padding + 2 * (T_in - 1) - i];
+    gx[e] = v;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -501,6 +594,133 @@ __host__ __device__ inline WgradLayout wgrad_layout(int B, int T_in, int K, int 
     if (L.slots == 1 || L.total <= kSmemPerSM / 2 - 1024) break;
   }
   return L;
+}
+
+// One k-step (8 (b, t) columns) of a warp's NQ gradient tiles: B is x at the
+// lane's two columns, xp[xb[h] + koff] (the tap's padded column), or ones
+// for the bias tile; A the g fragments of the k-step.  3xTF32, each kind over
+// all 4*NQ independent tiles before the next; the k-step's sum (24 products)
+// is added in f32.
+template <int NQ>
+__device__ __forceinline__ void wgrad_kstep(float (&sum)[4][NQ][4], const float2* xp,
+                                            const float4* gf, const int (&xb)[2],
+                                            const int (&koff)[NQ], int ks, int K, int warp,
+                                            int lane) {
+  const int gid = lane >> 2;
+  uint32_t bbig[NQ][2], bsml[NQ][2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int qq = 0; qq < NQ; ++qq) {
+      const int q = warp + kWarps * qq;
+      const float2 v = q < K ? xp[xb[h] + koff[qq]]
+                             : make_float2(gid == 0 ? 1.f : 0.f, 0.f);  // the bias: ones
+      bbig[qq][h] = __float_as_uint(v.x);
+      bsml[qq][h] = __float_as_uint(v.y);
+    }
+  }
+  uint32_t ab[4][4], as[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const float4 hi = gf[((ks * 4 + a) * 32 + lane) * 2];
+    const float4 lo = gf[((ks * 4 + a) * 32 + lane) * 2 + 1];
+    ab[a][0] = __float_as_uint(hi.x), ab[a][1] = __float_as_uint(hi.y);
+    ab[a][2] = __float_as_uint(hi.z), ab[a][3] = __float_as_uint(hi.w);
+    as[a][0] = __float_as_uint(lo.x), as[a][1] = __float_as_uint(lo.y);
+    as[a][2] = __float_as_uint(lo.z), as[a][3] = __float_as_uint(lo.w);
+  }
+  float acc[4][NQ][4] = {};
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int qq = 0; qq < NQ; ++qq)
+      if (warp + kWarps * qq <= K) mma_tf32(acc[a][qq], as[a], bbig[qq]);
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int qq = 0; qq < NQ; ++qq)
+      if (warp + kWarps * qq <= K) mma_tf32(acc[a][qq], ab[a], bsml[qq]);
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int qq = 0; qq < NQ; ++qq)
+      if (warp + kWarps * qq <= K) mma_tf32(acc[a][qq], ab[a], bbig[qq]);
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int qq = 0; qq < NQ; ++qq)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) sum[a][qq][r] += acc[a][qq][r];
+}
+
+// The block's partial gradient tile -> red[p][c*K + k] (bias at 8*K), over
+// shared memory no longer read; then block `rank` sums its rows over the
+// cluster in rank order and stores them, 16 bytes at a time (row p's chunk
+// is 8*K contiguous floats of gw).  A block alone in its cluster skips the
+// cluster barriers.  The caller has synchronised the block.
+template <int NQ>
+__device__ __forceinline__ void wgrad_store(const float (&sum)[4][NQ][4], float* red, int rj,
+                                            cg::cluster_group& cluster, int rank, int split,
+                                            bool has_x, bool writes_bias, int nrows, int p0,
+                                            int c0, int C, int K, float* gw_w, float* gb_w) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int qq = 0; qq < NQ; ++qq) {
+      const int q = warp + kWarps * qq;
+      if (q > K) continue;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int p = a * 16 + gid + ((r & 2) ? 8 : 0), c = 2 * tig + (r & 1);
+        if (q < K)
+          red[p * rj + c * K + q] = sum[a][qq][r];
+        else if (c == 0)
+          red[p * rj + kCC * K] = sum[a][qq][r];
+      }
+    }
+  if (split > 1)
+    cluster.sync();  // every block's partial tile is in its shared memory
+  else
+    __syncthreads();
+  const float* part[kMaxSplit];
+#pragma unroll
+  for (int q = 0; q < kMaxSplit; ++q)
+    part[q] = q == rank ? red : cluster.map_shared_rank(red, min(q, split - 1));
+  const int r_lo = nrows * rank / split, r_hi = nrows * (rank + 1) / split;
+  const int row4 = kCC * K / 4;  // 16-byte groups of a row's (c, k)
+  for (int el = r_lo * row4 + tid; has_x && el < r_hi * row4; el += kThreads) {
+    const int r = el / row4, j4 = el - r * row4;
+    const int o = r * rj + 4 * j4;
+    float4 v = *reinterpret_cast<const float4*>(part[0] + o);
+#pragma unroll
+    for (int q = 1; q < kMaxSplit; ++q) {
+      if (q >= split) break;
+      const float4 w = *reinterpret_cast<const float4*>(part[q] + o);
+      v.x += w.x, v.y += w.y, v.z += w.z, v.w += w.w;
+    }
+    *reinterpret_cast<float4*>(gw_w + (size_t(p0 + r) * C + c0) * K + 4 * j4) = v;
+  }
+  if (writes_bias && tid < r_hi - r_lo) {
+    const int o = (r_lo + tid) * rj + kCC * K;
+    float v = part[0][o];
+#pragma unroll
+    for (int q = 1; q < kMaxSplit; ++q)
+      if (q < split) v += part[q][o];
+    gb_w[p0 + r_lo + tid] = v;
+  }
+  if (split > 1) cluster.sync();  // no block leaves while another reads its partial tile
+}
+
+// The padded column u of x's row `row` (batch b, channel c0 + row): x under
+// the padding (reflect without edge repeat, or zeros), 0 past the padded row.
+__device__ __forceinline__ float padded_x(const float* row, int u, int T_in, int padding,
+                                          int reflect) {
+  int s = u - padding;
+  if ((s < 0 || s >= T_in) && u < T_in + 2 * padding)
+    s = reflect ? (s < 0 ? -s : 2 * (T_in - 1) - s) : -1;
+  return s >= 0 && s < T_in ? row[s] : 0.f;
 }
 
 template <int NQ>  // 8-column tiles of the gradient (taps, then the bias) per warp
@@ -573,13 +793,10 @@ wgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
   // u = w*stride + ph at ph*Lh + w, so tap k of column t reads
   // (k % stride)*Lh + k/stride + t
   if (has_x) mbar_wait(smem_addr(bars), 0);
-  const int Tp = T_in + 2 * padding;
   for (int q = tid; q < nb * kCC * stride * L.Lh; q += kThreads) {
     const int row = q / (stride * L.Lh), idx = q - row * (stride * L.Lh);
     const int ph = idx / L.Lh, u = (idx - ph * L.Lh) * stride + ph;
-    int s = u - padding;
-    if ((s < 0 || s >= T_in) && u < Tp) s = reflect ? (s < 0 ? -s : 2 * (T_in - 1) - s) : -1;
-    const float v = has_x && s >= 0 && s < T_in ? x_s[row * T_in + s] : 0.f;
+    const float v = has_x ? padded_x(x_s + row * T_in, u, T_in, padding, reflect) : 0.f;
     xp[row * L.rsx + idx] = split_tf32(v);
   }
 
@@ -643,110 +860,151 @@ wgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
     for (int ks = 0; ks < L.ks; ++ks) {
       // B: x at the lane's two columns n = 8*ks + tig (+4); padded columns
       // past the stage read column 0 (their g is zero)
-      uint32_t bbig[NQ][2], bsml[NQ][2];
+      int xb[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int n = ks * 8 + tig + 4 * h;
         const int bb = n < ncols ? n / T_out : 0, t = n < ncols ? n - bb * T_out : 0;
-        const int xb = ((i * sb + bb) * kCC + gid) * L.rsx + t;
-#pragma unroll
-        for (int qq = 0; qq < NQ; ++qq) {
-          const int q = warp + kWarps * qq;
-          const float2 v = q < K ? xp[xb + koff[qq]]
-                                 : make_float2(gid == 0 ? 1.f : 0.f, 0.f);  // the bias: ones
-          bbig[qq][h] = __float_as_uint(v.x);
-          bsml[qq][h] = __float_as_uint(v.y);
-        }
+        xb[h] = ((i * sb + bb) * kCC + gid) * L.rsx + t;
       }
-      uint32_t ab[4][4], as[4][4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float4 hi = gf[((ks * 4 + a) * 32 + lane) * 2];
-        const float4 lo = gf[((ks * 4 + a) * 32 + lane) * 2 + 1];
-        ab[a][0] = __float_as_uint(hi.x), ab[a][1] = __float_as_uint(hi.y);
-        ab[a][2] = __float_as_uint(hi.z), ab[a][3] = __float_as_uint(hi.w);
-        as[a][0] = __float_as_uint(lo.x), as[a][1] = __float_as_uint(lo.y);
-        as[a][2] = __float_as_uint(lo.z), as[a][3] = __float_as_uint(lo.w);
-      }
-      // 3xTF32, each kind over all 4*NQ independent tiles before the next;
-      // a k-step's sum (24 products) is added in f32
-      float acc[4][NQ][4] = {};
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int qq = 0; qq < NQ; ++qq)
-          if (warp + kWarps * qq <= K) mma_tf32(acc[a][qq], as[a], bbig[qq]);
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int qq = 0; qq < NQ; ++qq)
-          if (warp + kWarps * qq <= K) mma_tf32(acc[a][qq], ab[a], bsml[qq]);
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int qq = 0; qq < NQ; ++qq)
-          if (warp + kWarps * qq <= K) mma_tf32(acc[a][qq], ab[a], bbig[qq]);
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int qq = 0; qq < NQ; ++qq)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) sum[a][qq][r] += acc[a][qq][r];
+      wgrad_kstep<NQ>(sum, xp, gf, xb, koff, ks, K, warp, lane);
     }
   }
 
-  // The partial gradient tile -> red[p][c*K + k] (bias at 8*K), over the
-  // stages, now unread; then block `rank` sums its rows over the cluster in
-  // rank order and stores them, 16 bytes at a time (row p's chunk is 8*K
-  // contiguous floats of gw).  A block alone in its cluster skips the
-  // cluster barriers.
   __syncthreads();
+  wgrad_store<NQ>(sum, red, L.rj, cluster, rank, split, has_x, writes_bias, nrows, p0, c0, C, K,
+                  gw_w, gb_w);
+}
+
+// wgrad over rows of any length: a block's reduction runs over items of
+// one batch's kSpanCols output columns (a window's batches x column spans,
+// contiguous runs of them split over the cluster), one item at a time,
+// read straight from device memory into x's padded columns of the span and
+// g's fragments.  Its shared memory depends on K and stride only.
+constexpr int kSpanCols = 64;
+
+struct WgradSpanLayout {
+  int Lh, rsx, rj;
+  size_t xp, gf, red, total;  // byte offsets in shared memory
+};
+
+__host__ __device__ inline WgradSpanLayout wgrad_span_layout(int K, int stride) {
+  WgradSpanLayout L;
+  L.Lh = ((kSpanCols - 1) * stride + K + stride - 1) / stride;
+  L.rsx = frag_stride(stride * L.Lh);
+  L.rj = kCC * K + 4;
+  L.xp = 64;
+  L.gf = L.xp + align16(size_t(kCC) * L.rsx * 8);
+  const size_t frag_end = L.gf + size_t(kSpanCols / 8) * 4 * 32 * 8 * 4;
+  L.red = 64;  // the partial tile, over x and the fragments at the end
+  const size_t red_end = L.red + size_t(kRows) * L.rj * 4;
+  L.total = frag_end > red_end ? frag_end : red_end;
+  return L;
+}
+
+template <int NQ>
+__global__ void __launch_bounds__(kThreads, 1)
+wgrad_span_kernel(const float* __restrict__ gy, const float* __restrict__ y,
+                  const float* __restrict__ x, const int* __restrict__ wrow,
+                  const int* __restrict__ wchunk, float* __restrict__ gw,
+                  float* __restrict__ gb, int B, int C, int T_in, int K, int P, int T_out,
+                  int t_ld, int stride, int padding, int reflect, float slope) {
+  count_run(&g_runs[1]);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int split = static_cast<int>(cluster.num_blocks());
+  const WgradSpanLayout L = wgrad_span_layout(K, stride);
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  float2* xp = reinterpret_cast<float2*>(smem + L.xp);  // [8][rsx]
+  float4* gf = reinterpret_cast<float4*>(smem + L.gf);  // [kSpanCols/8][4][32][2]
+  float* red = reinterpret_cast<float*>(smem + L.red);  // [64][rj], last
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int e = blockIdx.y;
+  const int rt = wrow[e], chunk = wchunk[e];
+  const bool has_x = chunk >= 0;
+  const bool writes_bias = e == 0 || wrow[e - 1] != rt;
+  const int p0 = rt * kRows, nrows = min(kRows, P - p0);
+  const int c0 = has_x ? chunk * kCC : 0;
+  const int win = static_cast<int>(blockIdx.z);
+  float* gw_w = gw + size_t(win) * P * C * K;
+  float* gb_w = gb + size_t(win) * P;
+  const int nch = (T_out + kSpanCols - 1) / kSpanCols;
+  const int items = B * nch;
+  const int it_lo = items * rank / split, it_hi = items * (rank + 1) / split;
+
+  float sum[4][NQ][4];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int qq = 0; qq < NQ; ++qq) {
-      const int q = warp + kWarps * qq;
-      if (q > K) continue;
+    for (int qq = 0; qq < NQ; ++qq)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int p = a * 16 + gid + ((r & 2) ? 8 : 0), c = 2 * tig + (r & 1);
-        if (q < K)
-          red[p * L.rj + c * K + q] = sum[a][qq][r];
-        else if (c == 0)
-          red[p * L.rj + kCC * K] = sum[a][qq][r];
+      for (int r = 0; r < 4; ++r) sum[a][qq][r] = 0.f;
+  int koff[NQ];
+#pragma unroll
+  for (int qq = 0; qq < NQ; ++qq) {
+    const int q = warp + kWarps * qq;
+    koff[qq] = (q % stride) * L.Lh + q / stride;
+  }
+
+  for (int item = it_lo; item < it_hi; ++item) {
+    const int b = win * B + item / nch, t_lo = (item % nch) * kSpanCols;
+    const int nt = min(kSpanCols, T_out - t_lo), n_ks = (nt + 7) / 8;
+    __syncthreads();  // the previous item's x and fragments are read
+    // x's padded columns t_lo*stride + u of the span, split by stride phase
+    // as wgrad_kernel splits whole rows
+    for (int q = tid; q < kCC * stride * L.Lh; q += kThreads) {
+      const int row = q / (stride * L.Lh), idx = q - row * (stride * L.Lh);
+      const int ph = idx / L.Lh, u = t_lo * stride + (idx - ph * L.Lh) * stride + ph;
+      const float v =
+          has_x ? padded_x(x + (size_t(b) * C + c0 + row) * T_in, u, T_in, padding, reflect)
+                : 0.f;
+      xp[row * L.rsx + idx] = split_tf32(v);
+    }
+    // g = gy * act'(y), split, in the A fragments' order (as wgrad_kernel)
+    for (int it = tid; it < n_ks * 4 * 32; it += kThreads) {
+      const int ln = it & 31, mt = (it >> 5) & 3, ks = it >> 7;
+      const int r0 = mt * 16 + (ln >> 2), n0 = ks * 8 + (ln & 3);
+      float v[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = n0 + 4 * h;
+#pragma unroll
+        for (int lo = 0; lo < 2; ++lo) {
+          const int r = r0 + 8 * lo;
+          const size_t o = (size_t(b) * P + p0 + r) * t_ld + t_lo + n;
+          v[2 * h + lo] = n < nt && r < nrows ? act_grad(gy[o], y[o], slope) : 0.f;
+        }
       }
+      float4 hi, lo;
+      float* hv = reinterpret_cast<float*>(&hi);
+      float* lv = reinterpret_cast<float*>(&lo);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float2 s = split_tf32(v[q]);
+        hv[q] = s.x;
+        lv[q] = s.y;
+      }
+      gf[2 * it] = hi;
+      gf[2 * it + 1] = lo;
     }
-  if (split > 1)
-    cluster.sync();  // every block's partial tile is in its shared memory
-  else
-    __syncthreads();
-  const float* part[kMaxSplit];
+    __syncthreads();  // x and the fragments are staged
+    for (int ks = 0; ks < n_ks; ++ks) {
+      int xb[2];
 #pragma unroll
-  for (int q = 0; q < kMaxSplit; ++q)
-    part[q] = q == rank ? red : cluster.map_shared_rank(red, min(q, split - 1));
-  const int r_lo = nrows * rank / split, r_hi = nrows * (rank + 1) / split;
-  const int row4 = kCC * K / 4;  // 16-byte groups of a row's (c, k)
-  for (int el = r_lo * row4 + tid; has_x && el < r_hi * row4; el += kThreads) {
-    const int r = el / row4, j4 = el - r * row4;
-    const int o = r * L.rj + 4 * j4;
-    float4 v = *reinterpret_cast<const float4*>(part[0] + o);
-#pragma unroll
-    for (int q = 1; q < kMaxSplit; ++q) {
-      if (q >= split) break;
-      const float4 w = *reinterpret_cast<const float4*>(part[q] + o);
-      v.x += w.x, v.y += w.y, v.z += w.z, v.w += w.w;
+      for (int h = 0; h < 2; ++h) {
+        const int n = ks * 8 + tig + 4 * h;
+        xb[h] = gid * L.rsx + (n < nt ? n : 0);  // past the span: column 0, g is zero
+      }
+      wgrad_kstep<NQ>(sum, xp, gf, xb, koff, ks, K, warp, lane);
     }
-    *reinterpret_cast<float4*>(gw_w + (size_t(p0 + r) * C + c0) * K + 4 * j4) = v;
   }
-  if (writes_bias && tid < r_hi - r_lo) {
-    const int o = (r_lo + tid) * L.rj + kCC * K;
-    float v = part[0][o];
-#pragma unroll
-    for (int q = 1; q < kMaxSplit; ++q)
-      if (q < split) v += part[q][o];
-    gb_w[p0 + r_lo + tid] = v;
-  }
-  if (split > 1) cluster.sync();  // no block leaves while another reads its partial tile
+
+  __syncthreads();
+  wgrad_store<NQ>(sum, red, L.rj, cluster, rank, split, has_x, writes_bias, nrows, p0, c0, C, K,
+                  gw_w, gb_w);
 }
 
 // Sets a kernel's shared-memory cap once per device.
@@ -790,6 +1048,12 @@ cudaError_t launch_cluster(Kernel kernel, dim3 grid, int cluster_z, int cluster_
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// The plans of the last dgrad and wgrad launches in this process
+// (hmvae_conv_bwd_last_plan): dgrad nbb, groups, split, span, spans, smem;
+// wgrad sb, split, span, smem.
+int last_dgrad[6] = {};
+int last_wgrad[4] = {};
+
 }  // namespace
 
 extern "C" {
@@ -801,35 +1065,53 @@ extern "C" {
 // the row tiles live in either chunk of each pair of 8-channel chunks
 // (pack_structure).  The plan (dgrad_plan in the wrapper): batch groups of
 // nbb batches within a window, the row tiles of a pair split over `split`
-// blocks of a cluster.  Launches on `stream`, returns the first CUDA error
-// (0 on success).
+// blocks of a cluster; span = 0 for whole padded rows, else (nbb 1) spans
+// of `span` padded columns, a multiple of stride, whose gxpad goes to the
+// scratch gxpad (B, C, T_in + 2*padding) before dgrad_fold_kernel folds it
+// into gx.  Launches on `stream`, returns the first CUDA error (0 on
+// success).
 int hmvae_conv_dgrad(const void* gy, const void* y, const void* w, const void* dgrad_start,
-                     const void* dgrad_row, void* gx, int B, int C, int T_in, int K, int P,
-                     int T_out, int t_ld, int stride, int padding, int reflect, float slope,
-                     int nbb, int split, int windows, int device, void* stream) {
+                     const void* dgrad_row, void* gx, void* gxpad, int B, int C, int T_in,
+                     int K, int P, int T_out, int t_ld, int stride, int padding, int reflect,
+                     float slope, int nbb, int split, int span, int windows, int device,
+                     void* stream) {
   const void* ptrs[] = {gy, y, w, gx};
   if (!shape_ok(B, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, device, ptrs, 4) ||
       windows < 1 || B % windows != 0 || nbb < 1 || nbb > B / windows || split < 1 ||
-      split > kMaxSplit)
+      split > kMaxSplit || span < 0 || (span > 0 && (nbb != 1 || span % stride != 0 ||
+                                                      gxpad == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_win = B / windows;
-  const DgradLayout L = dgrad_layout(T_in, K, T_out, t_ld, stride, padding, nbb);
-  int tiles = 0;  // 16-column tiles of a batch group: one per warp
+  const DgradLayout L = dgrad_layout(T_in, K, T_out, t_ld, stride, padding, nbb, span);
+  const int Tp = T_in + 2 * padding;
+  const int nspans = span > 0 ? (Tp + span - 1) / span : 1;
+  int tiles = 0;  // 16-column tiles of a batch group's columns: one per warp
   for (int phi = 0; phi < stride; ++phi)
     tiles += (nbb * ((L.Tp - phi + stride - 1) / stride) + 15) / 16;
   const int gpw = (n_win + nbb - 1) / nbb;  // batch groups of a window
   if (tiles > kWarps * kMaxTiles || L.total > static_cast<size_t>(kMaxSmem) ||
-      static_cast<long long>(windows) * gpw > 65535)
+      static_cast<long long>(windows) * gpw * nspans > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  static bool ready[kMaxDevices] = {};
-  cudaError_t err = allow_smem(dgrad_kernel, ready, device);
+  const int sel = span > 0;
+  auto kernel = sel ? dgrad_kernel<true> : dgrad_kernel<false>;
+  static bool ready[2][kMaxDevices] = {};
+  cudaError_t err = allow_smem(kernel, ready[sel], device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_cluster(
-      dgrad_kernel, dim3((C + kDC - 1) / kDC, windows * gpw, split), split, 1, L.total, stream,
-      static_cast<const float*>(gy), static_cast<const float*>(y), static_cast<const float*>(w),
-      static_cast<const int*>(dgrad_start), static_cast<const int*>(dgrad_row),
-      static_cast<float*>(gx), n_win, C, T_in, K, P, T_out, t_ld, stride, padding, reflect,
-      slope, nbb, gpw, size_t(P) * C * K));
+  const int plan[6] = {nbb, gpw, split, span, nspans, static_cast<int>(L.total)};
+  for (int i = 0; i < 6; ++i) last_dgrad[i] = plan[i];
+  err = launch_cluster(
+      kernel, dim3((C + kDC - 1) / kDC, windows * gpw * nspans, split), split, 1, L.total,
+      stream, static_cast<const float*>(gy), static_cast<const float*>(y),
+      static_cast<const float*>(w), static_cast<const int*>(dgrad_start),
+      static_cast<const int*>(dgrad_row), static_cast<float*>(gx), n_win, C, T_in, K, P, T_out,
+      t_ld, stride, padding, reflect, slope, nbb, gpw, size_t(P) * C * K, span, nspans,
+      static_cast<float*>(gxpad));
+  if (err != cudaSuccess || span == 0) return static_cast<int>(err);
+  const long long n = static_cast<long long>(B) * C * T_in;
+  const int blocks = static_cast<int>(n / kThreads + 1 < 4096 ? n / kThreads + 1 : 4096);
+  dgrad_fold_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(gxpad), static_cast<float*>(gx), n, T_in, padding, reflect);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Folded-weight gradient gw (windows x (P, C, K)) on the n_tiles entries of
@@ -839,33 +1121,62 @@ int hmvae_conv_dgrad(const void* gy, const void* y, const void* w, const void* d
 // (B, C, T_in), all f32, C a multiple of 8, every pointer 16-byte aligned.
 // Window i's gradient sums over its own B / windows batches only.  The plan
 // (wgrad_plan in the wrapper): a window's batches split over `split` blocks
-// of a cluster, staged sb at a time.
+// of a cluster, staged sb at a time (span = 0), or (span = kSpanCols) the
+// window's (batch, span of kSpanCols output columns) items split over the
+// cluster in contiguous runs (wgrad_span_kernel: rows of any length).
 int hmvae_conv_wgrad(const void* gy, const void* y, const void* x, const void* wrow,
                      const void* wchunk, void* gw, void* gb, int n_tiles, int B, int C,
                      int T_in, int K, int P, int T_out, int t_ld, int stride, int padding,
-                     int reflect, float slope, int sb, int split, int windows, int device,
-                     void* stream) {
+                     int reflect, float slope, int sb, int split, int span, int windows,
+                     int device, void* stream) {
   const void* ptrs[] = {gy, y, x, gw};
   if (!shape_ok(B, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, device, ptrs, 4) ||
       n_tiles < 0 || n_tiles > 65535 || sb < 1 || split < 1 || split > kMaxSplit ||
-      windows < 1 || windows > 65535 || B % windows != 0 || split > B / windows)
+      windows < 1 || windows > 65535 || B % windows != 0 || (span != 0 && span != kSpanCols))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n_tiles == 0) return 0;
   const int n_win = B / windows;
-  const WgradLayout L = wgrad_layout(n_win, T_in, K, T_out, t_ld, stride, sb, split);
-  if (L.total > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
+  const int items = span > 0 ? n_win * ((T_out + kSpanCols - 1) / kSpanCols) : n_win;
+  if (split > items) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_tiles == 0) return 0;
+  const size_t smem = span > 0
+                          ? wgrad_span_layout(K, stride).total
+                          : wgrad_layout(n_win, T_in, K, T_out, t_ld, stride, sb, split).total;
+  if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
   // K + 1 tap tiles over the 8 warps: 2 a warp up to K = 15, 3 up to 23, 4 up to 31
   const int nq = (K + kWarps) / kWarps;
+  const int sel = max(nq, 2) - 2 + (span > 0 ? 3 : 0);
+  static bool ready[6][kMaxDevices] = {};
+  const int plan[4] = {sb, split, span, static_cast<int>(smem)};
+  for (int i = 0; i < 4; ++i) last_wgrad[i] = plan[i];
+  const dim3 grid(split, n_tiles, windows);
+  if (span > 0) {
+    auto kernel = nq <= 2   ? wgrad_span_kernel<2>
+                  : nq == 3 ? wgrad_span_kernel<3>
+                            : wgrad_span_kernel<4>;
+    cudaError_t err = allow_smem(kernel, ready[sel], device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(launch_cluster(
+        kernel, grid, 1, split, smem, stream, static_cast<const float*>(gy),
+        static_cast<const float*>(y), static_cast<const float*>(x),
+        static_cast<const int*>(wrow), static_cast<const int*>(wchunk), static_cast<float*>(gw),
+        static_cast<float*>(gb), n_win, C, T_in, K, P, T_out, t_ld, stride, padding, reflect,
+        slope));
+  }
   auto kernel = nq <= 2 ? wgrad_kernel<2> : nq == 3 ? wgrad_kernel<3> : wgrad_kernel<4>;
-  static bool ready[3][kMaxDevices] = {};
-  cudaError_t err = allow_smem(kernel, ready[max(nq, 2) - 2], device);
+  cudaError_t err = allow_smem(kernel, ready[sel], device);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_cluster(
-      kernel, dim3(split, n_tiles, windows), 1, split, L.total, stream,
-      static_cast<const float*>(gy), static_cast<const float*>(y), static_cast<const float*>(x),
-      static_cast<const int*>(wrow), static_cast<const int*>(wchunk), static_cast<float*>(gw),
-      static_cast<float*>(gb), n_win, C, T_in, K, P, T_out, t_ld, stride, padding, reflect,
-      slope, sb));
+      kernel, grid, 1, split, smem, stream, static_cast<const float*>(gy),
+      static_cast<const float*>(y), static_cast<const float*>(x), static_cast<const int*>(wrow),
+      static_cast<const int*>(wchunk), static_cast<float*>(gw), static_cast<float*>(gb), n_win,
+      C, T_in, K, P, T_out, t_ld, stride, padding, reflect, slope, sb));
+}
+
+// The plans of the last launches (see last_dgrad, last_wgrad): dgrad's six
+// ints into out[0..5], wgrad's four into out[6..9].
+void hmvae_conv_bwd_last_plan(int* out) {
+  for (int i = 0; i < 6; ++i) out[i] = last_dgrad[i];
+  for (int i = 0; i < 4; ++i) out[6 + i] = last_wgrad[i];
 }
 
 // The runs on `device` of dgrad_kernel, then wgrad_kernel, since the last

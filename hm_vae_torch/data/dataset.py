@@ -244,15 +244,29 @@ def make_loaders(cfg: Config, data_dir: Optional[str] = None):
     ``use_native_loader`` without host augmentation, else a
     :class:`MotionDataset` as val and test are.  With ``cfg.data.synthetic``
     (or no train manifest) a synthetic dataset is generated there from
-    ``cfg.run.seed`` first."""
+    ``cfg.run.seed`` first.
+
+    Under several ranks (:mod:`..parallel.multihost`) the data root is
+    shared: the primary rank generates synthetic data while the others wait
+    at a barrier; each rank's train sampler draws from its own stream
+    (``process_seed``: windows are drawn iid, so distinct streams are the
+    data partition), and val and test keep the base seeds, so that every
+    rank enumerates the same ordered windows (the Trainer takes its rows of
+    them)."""
+    import torch.distributed as dist
+
+    from ..parallel import multihost as mh
     from . import synthetic
 
     d = data_dir or cfg.data.data_root
     if cfg.data.synthetic or not os.path.exists(resolve_split_json(cfg, "train", d)):
         os.makedirs(d, exist_ok=True)
         if not os.path.exists(os.path.join(d, "train.json")):
-            synthetic.generate_dataset(d, num_seqs=cfg.data.synthetic_num_seqs,
-                                       seed=cfg.run.seed)
+            if mh.is_primary():
+                synthetic.generate_dataset(d, num_seqs=cfg.data.synthetic_num_seqs,
+                                           seed=cfg.run.seed)
+            if mh.process_count() > 1:
+                dist.barrier()
     seq_dir = os.path.join(d, "seqs")
     ms_path = os.path.join(d, "mean_std.npy")
     mean_std = (np.load(ms_path).astype(np.float32) if os.path.exists(ms_path)
@@ -269,12 +283,13 @@ def make_loaders(cfg: Config, data_dir: Optional[str] = None):
                              cfg.model.train_seq_len, fps_aug=cfg.data.fps_aug_flag,
                              random_root_rot=host_aug, seed=seed)
 
+    train_seed = mh.process_seed(cfg.run.seed)
     if cfg.data.use_native_loader and not host_aug:
         from .native_loader import NativeMotionLoader
 
         train = NativeMotionLoader(seq_dir, resolve_split_json(cfg, "train", d), mean_std,
                                    cfg.model.train_seq_len, fps_aug=cfg.data.fps_aug_flag,
-                                   seed=cfg.run.seed)
+                                   seed=train_seed)
     else:
-        train = mk("train", cfg.run.seed)
+        train = mk("train", train_seed)
     return train, mk("val", cfg.run.seed + 1), mk("test", cfg.run.seed + 2)

@@ -219,14 +219,18 @@ class SkeletonConv(nn.Module):
         """:meth:`fold` of this conv's own parameters."""
         return self.fold(self.weight, self.bias)
 
-    def structure(self, negative_slope: Optional[float] = None) -> LevelStructure:
+    def structure(self, negative_slope: Optional[float] = None,
+                  padding: Optional[int] = None) -> LevelStructure:
         """The tiles of the folded weight that may be nonzero, from the
         structure alone (mask, unpool and pool folded over a weight of
         ones), so that a trained value of zero keeps its tile; made once per
-        device, compute dtype, spec and slope (default: the conv's own; an
-        adapter's base conv runs at 1.0)."""
+        device, compute dtype, spec, slope (default: the conv's own; an
+        adapter's base conv runs at 1.0) and padding (default: the spec's;
+        0 for the VALID conv of sequence parallelism, which pads by halo
+        exchange)."""
         slope = self.negative_slope if negative_slope is None else float(negative_slope)
-        key = (self.weight.device, self.dtype, self.spec, slope)
+        padding = self.spec.padding if padding is None else int(padding)
+        key = (self.weight.device, self.dtype, self.spec, slope, padding)
         if key not in self._structures:
             live = self.spec.mask != 0
             if self.unpool is not None:
@@ -235,18 +239,18 @@ class SkeletonConv(nn.Module):
                 live = ((self.pool.cpu().numpy() != 0).astype(np.float64) @ live) > 0
             s = self.spec
             self._structures[key] = pack_structure(
-                torch.from_numpy(live), s.kernel_size, self.dtype, s.stride, s.padding,
+                torch.from_numpy(live), s.kernel_size, self.dtype, s.stride, padding,
                 s.padding_mode, slope, device=self.weight.device)
         return self._structures[key]
 
     @torch.no_grad()
-    def packed_operands(self) -> PackedLevel:
+    def packed_operands(self, padding: Optional[int] = None) -> PackedLevel:
         """The folded weight and bias packed for the kernel (block-sparse
-        tiles in the compute dtype)."""
+        tiles in the compute dtype), at the spec's padding or ``padding``."""
         if self.lora_a is not None:
             raise ValueError("a conv with adapters runs through forward_with (the base conv "
                              "at slope 1.0, then bias, adapter and activation)")
-        return repack(self.structure(), *self.folded_weight())
+        return repack(self.structure(padding=padding), *self.folded_weight())
 
     def forward(self, x: torch.Tensor, packed: Optional[PackedLevel] = None) -> torch.Tensor:
         if packed is not None:

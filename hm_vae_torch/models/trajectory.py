@@ -16,8 +16,8 @@ through :class:`~hm_vae_torch.ops.fused_conv_pool.FusedConvPoolFn`, so a step
 launches the forward kernel 4 times, dgrad 3 (level 0's input is data) and
 wgrad 4.
 
-:class:`TrajectoryRunner` takes no sequence-parallel mesh (ROADMAP Queue 1
-item 11).
+:class:`TrajectoryRunner` with ``sp_group`` splits the time axis over a
+group's ranks (:mod:`hm_vae_torch.parallel.sequence_parallel`).
 """
 
 from __future__ import annotations
@@ -133,16 +133,27 @@ class TrajectoryRunner:
     FK -> normalise with the stats' joint-pos slice -> model ->
     de-standardise root_v -> integrate, on the model's device, with the
     convs' operands packed once.
+
+    ``sp_group``: a ``torch.distributed`` group over whose ranks the time
+    axis is split (every rank calls with the same data and gets the whole
+    result): each level exchanges halos with its neighbours and runs VALID
+    (:func:`~hm_vae_torch.parallel.sequence_parallel.make_sp_trajectory_fn`).
+    Any length is padded and trimmed, unless ``sp_pad_incomplete`` is false,
+    which demands ``T % ranks == 0`` (the padded tail's last velocities see
+    repeated frames).
     """
 
-    def __init__(self, model: TrajectoryModel, mean_std: np.ndarray, sp_mesh=None):
-        if sp_mesh is not None:
-            raise NotImplementedError("sequence parallelism over a device mesh is not ported "
-                                      "yet (ROADMAP Queue 1 item 11)")
+    def __init__(self, model: TrajectoryModel, mean_std: np.ndarray, sp_group=None,
+                 sp_pad_incomplete: bool = True):
         self.model = model
         self.device = next(model.parameters()).device
         self._predict = make_root_v_fn(model, mean_std, model.conv_operands())
         self._offsets = torch.as_tensor(fk_mod.default_offsets(), device=self.device)
+        self._sp = None
+        if sp_group is not None:
+            from ..parallel.sequence_parallel import make_sp_trajectory_fn
+
+            self._sp = make_sp_trajectory_fn(model, mean_std, sp_group, sp_pad_incomplete)
 
     @torch.no_grad()
     def __call__(self, data) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -154,6 +165,8 @@ class TrajectoryRunner:
             pose = fk_mod.fk_from_rotmat(rot.rot6d_to_rotmat(data), self._offsets)
         else:
             pose = data
+        if self._sp is not None:
+            return self._sp(pose)
         root_v = self._predict(pose)
         return add_trajectory(pose, root_v), root_v
 

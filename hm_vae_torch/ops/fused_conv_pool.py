@@ -55,7 +55,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -72,11 +72,12 @@ CHUNK_CHANNELS = {torch.bfloat16: 16, torch.float32: 8}
 MAX_BWD_K = 31
 MAX_SPLIT = 8  # blocks of a cluster (the portable maximum)
 BWD_WARPS = 8  # dgrad: one 16-column tile of a batch group per warp,
-DGRAD_TILES = 2  # or up to two for a group of one batch (a padded row <= 256 / stride)
+DGRAD_TILES = 2  # or up to two for a group of one batch (a padded row or span <= 256 / stride)
 DGRAD_CHUNKS = 2  # dgrad: channel chunks of a block
 MAX_SMEM = 232448  # shared memory a block may use
 MAX_SMEM_PER_SM = 233472
 WGRAD_STAGE_COLS = 32  # wgrad: (b, t) columns staged at a time, at least one batch
+WGRAD_SPAN_COLS = 64  # wgrad over long rows: output columns of an item (kSpanCols)
 
 
 def fused_conv_pool_reference(
@@ -440,16 +441,16 @@ def _unpack(tiles, bias, tile_start, live_index, C_in: int, K: int, P: int):
 # n_tiles, dtype, device, sms, stream)
 ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float]
             + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-# hmvae_conv_dgrad(gy, y, w, dgrad_start, dgrad_row, gx, B, C, T_in, K, P,
-# T_out, t_ld, stride, padding, reflect, slope, nbb, split, windows, device,
-# stream)
-DGRAD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_float]
-                  + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+# hmvae_conv_dgrad(gy, y, w, dgrad_start, dgrad_row, gx, gxpad, B, C, T_in,
+# K, P, T_out, t_ld, stride, padding, reflect, slope, nbb, split, span,
+# windows, device, stream)
+DGRAD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_float]
+                  + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 # hmvae_conv_wgrad(gy, y, x, wgrad_row, wgrad_chunk, gw, gb, n_tiles, B, C,
-# T_in, K, P, T_out, t_ld, stride, padding, reflect, slope, sb, split,
+# T_in, K, P, T_out, t_ld, stride, padding, reflect, slope, sb, split, span,
 # windows, device, stream)
 WGRAD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_float]
-                  + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                  + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def _bind(lib, name, argtypes):
@@ -785,56 +786,94 @@ def last_forward_plan() -> dict:
     return _plan_dict(out)
 
 
+class DgradPlan(NamedTuple):
+    """dgrad's launch: ``nbb`` batches a block, ``groups`` batch groups a
+    window, ``split`` blocks of a cluster, and ``span``: 0 for whole padded
+    rows, else the padded columns of a block's span of one batch's row."""
+    nbb: int
+    groups: int
+    split: int
+    span: int
+
+
+class WgradPlan(NamedTuple):
+    """wgrad's launch: ``sb`` batches staged at a time, ``split`` blocks of a
+    cluster, and ``span``: 0 for x's whole rows, else the output columns of
+    an item (``WGRAD_SPAN_COLS``)."""
+    sb: int
+    split: int
+    span: int
+
+
+def _dgrad_tiles(width: int, stride: int, nbb: int = 1) -> int:
+    """16-column tiles of ``nbb`` batches' ``width`` padded columns, the
+    columns of each stride phase tiled apart."""
+    return sum(-(-nbb * -(-(width - phi) // stride) // 16) for phi in range(stride))
+
+
 def dgrad_plan(B: int, T_in: int, K: int, stride: int, padding: int, t_ld: int,
-               pairs: int, max_live: int, sms: int, windows: int = 1) -> Tuple[int, int, int]:
-    """(nbb, groups, split) of the dgrad kernel: a block owns a pair of
-    channel chunks and the padded rows of ``nbb`` batches (``groups`` batch
-    groups of each of ``windows`` windows of ``B`` batches: a group never
-    crosses a window), as many as its eight warps' 16-column tiles hold, one
-    a warp (the columns of each stride phase tiled apart; one batch alone
-    may take two a warp, so a padded row of up to 256 / stride columns),
-    and ``split`` blocks of a cluster share the pair's live row tiles (at
-    most ``max_live``).  Chosen for the least time on an SM, counted in row
-    tiles: waves of blocks (two to an SM where their shared memory allows)
-    times the row tiles a block walks, plus one for its prologue and
-    epilogue; ties go to fewer blocks."""
+               pairs: int, max_live: int, sms: int, windows: int = 1) -> DgradPlan:
+    """The dgrad kernel's :class:`DgradPlan`: a block owns a pair of channel
+    chunks and the padded rows of ``nbb`` batches (``groups`` batch groups
+    of each of ``windows`` windows of ``B`` batches: a group never crosses a
+    window), as many as its eight warps' 16-column tiles hold, one a warp
+    (the columns of each stride phase tiled apart; one batch alone may take
+    two a warp), and ``split`` blocks of a cluster share the pair's live row
+    tiles (at most ``max_live``).  A padded row that one batch's block cannot
+    hold (more than 256 / stride columns, or beyond shared memory) is cut
+    into spans of ``span`` columns, one batch a block: two tiles a warp
+    where they fit shared memory, else one.  Chosen for the least time on an
+    SM, counted in row tiles: waves of blocks (two to an SM where their
+    shared memory allows) times the row tiles a block walks, plus one for
+    its prologue and epilogue; ties go to fewer blocks."""
     Tp = T_in + 2 * padding
-    widths = [-(-(Tp - phi) // stride) for phi in range(stride)]
-    if sum(-(-v // 16) for v in widths) > BWD_WARPS * DGRAD_TILES:
-        raise ValueError(f"the dgrad kernel takes T_in + 2*padding <= "
-                         f"{16 * BWD_WARPS * DGRAD_TILES // stride} at stride {stride}, not {Tp}")
-    if _dgrad_smem(T_in, K, t_ld, stride, padding, 1) > MAX_SMEM:
-        raise ValueError(f"the dgrad kernel's shared memory at K={K}, T_in={T_in} exceeds "
-                         f"{MAX_SMEM} bytes")
+    span = 0
+    if (_dgrad_tiles(Tp, stride) > BWD_WARPS * DGRAD_TILES
+            or _dgrad_smem(T_in, K, t_ld, stride, padding, 1) > MAX_SMEM):
+        for tiles in (DGRAD_TILES, 1):
+            span = 16 * stride * (BWD_WARPS * tiles // stride)
+            if span and _dgrad_smem(T_in, K, t_ld, stride, padding, 1, span) <= MAX_SMEM:
+                break
+        else:
+            raise ValueError(f"no dgrad span fits shared memory at K={K}, stride={stride}")
+    spans = -(-Tp // span) if span else 1
     best = None
-    for nb in range(1, B + 1):
-        smem = _dgrad_smem(T_in, K, t_ld, stride, padding, nb)
-        if nb > 1 and (sum(-(-nb * v // 16) for v in widths) > BWD_WARPS or smem > MAX_SMEM):
+    for nb in range(1, 1 + (B if not span else 1)):
+        smem = _dgrad_smem(T_in, K, t_ld, stride, padding, nb, span)
+        if nb > 1 and (_dgrad_tiles(Tp, stride, nb) > BWD_WARPS or smem > MAX_SMEM):
             continue
         groups = -(-B // nb)
         nbb = -(-B // groups)  # the same groups, batches spread evenly
         per_sm = 2 if smem <= MAX_SMEM_PER_SM // 2 - 1024 else 1
         for split in range(1, min(MAX_SPLIT, max(1, max_live)) + 1):
-            blocks = pairs * windows * groups * split
+            blocks = pairs * windows * groups * spans * split
             # a block's prologue and epilogue cost about one row tile
             cost = (-(-blocks // (sms * per_sm)) * (-(-max_live // split) + 1), blocks)
             if best is None or cost < best[0]:
-                best = (cost, (nbb, groups, split))
+                best = (cost, DgradPlan(nbb, groups, split, span))
     return best[1]
 
 
-def _dgrad_smem(T_in: int, K: int, t_ld: int, stride: int, padding: int, nbb: int) -> int:
+def _dgrad_smem(T_in: int, K: int, t_ld: int, stride: int, padding: int, nbb: int,
+                span: int = 0) -> int:
     """Bytes of shared memory a dgrad block takes (``dgrad_layout`` in the
     kernel's source): two weight stages (32 rows of 16 channels), one of gy
     and y, g split and padded, and gxpad (over the weight stages when it
-    fits)."""
-    Tp, kmax = T_in + 2 * padding, -(-K // stride)
-    T_out = (Tp - K) // stride + 1
-    rs = (kmax - 1 + max(-(-Tp // stride), T_out) + 11) // 16 * 16 + 4
+    fits); with a ``span``, only the span's columns and the g columns they
+    read."""
+    kmax = -(-K // stride)
+    if span:
+        Tp, rs = span, (kmax - 1 + span // stride + 11) // 16 * 16 + 4
+        gl = -(-(kmax - 1 + span // stride + 6) // 4) * 4
+    else:
+        Tp = T_in + 2 * padding
+        T_out = (Tp - K) // stride + 1
+        rs = (kmax - 1 + max(-(-Tp // stride), T_out) + 11) // 16 * 16 + 4
+        gl = t_ld
     a16 = lambda n: -(-n // 16) * 16  # noqa: E731
     half = ROWS // 2  # a stage: half a row tile
     w_ring = a16(2 * half * (8 * DGRAD_CHUNKS * K + 8) * 4)
-    g2_end = 64 + w_ring + a16(2 * nbb * half * t_ld * 4) + nbb * half * rs * 8
+    g2_end = 64 + w_ring + a16(2 * nbb * half * gl * 4) + nbb * half * rs * 8
     out = 8 * DGRAD_CHUNKS * nbb * Tp * 4
     return g2_end if out <= w_ring else a16(g2_end) + out
 
@@ -863,15 +902,29 @@ def _wgrad_smem(B: int, T_in: int, K: int, T_out: int, t_ld: int, stride: int, s
         slots -= 1
 
 
+def _wgrad_span_smem(K: int, stride: int) -> int:
+    """Bytes of shared memory a wgrad span block takes
+    (``wgrad_span_layout``): x's padded columns of one span split by phase
+    and g's fragments, the partial gradient tile over both at the end."""
+    a16 = lambda n: -(-n // 16) * 16  # noqa: E731
+    Lh = -(-((WGRAD_SPAN_COLS - 1) * stride + K) // stride)
+    rsx = (stride * Lh + 11) // 16 * 16 + 4
+    frag_end = 64 + a16(8 * rsx * 8) + WGRAD_SPAN_COLS // 8 * 4 * 32 * 8 * 4
+    return max(frag_end, 64 + ROWS * (8 * K + 4) * 4)
+
+
 def wgrad_plan(B: int, T_out: int, entries: int, sms: int, windows: int = 1,
-               smem=None) -> Tuple[int, int]:
-    """(sb, split) of the wgrad kernel: one block per entry (a live tile) of
-    each of ``windows`` windows of ``B`` batches, a window's batches split
-    over ``split`` blocks of a cluster until the grid fills the card once,
-    and staged ``sb`` batches (at most 32 columns, at least one batch) at a
-    time.  ``smem(sb, split)``, where given, is a block's shared memory: a
-    block holds x's rows of all its batches, so a large batch splits
-    further until a block fits (``_wgrad_smem``)."""
+               smem=None) -> WgradPlan:
+    """The wgrad kernel's :class:`WgradPlan`: one block per entry (a live
+    tile) of each of ``windows`` windows of ``B`` batches, a window's
+    batches split over ``split`` blocks of a cluster until the grid fills
+    the card once, and staged ``sb`` batches (at most 32 columns, at least
+    one batch) at a time.  ``smem(sb, split)``, where given, is a block's
+    shared memory: a block holds x's rows of all its batches, so a large
+    batch splits further until a block fits (``_wgrad_smem``); where no
+    split fits (long rows), the reduction is cut over time too: items of
+    one batch's ``WGRAD_SPAN_COLS`` output columns, split over the cluster
+    until the grid fills the card twice (``wgrad_span_kernel``)."""
     split = max(1, min(MAX_SPLIT, B, -(-sms // max(1, entries * windows))))
 
     def stage(split):
@@ -879,7 +932,23 @@ def wgrad_plan(B: int, T_out: int, entries: int, sms: int, windows: int = 1,
 
     while smem is not None and split < min(MAX_SPLIT, B) and smem(stage(split), split) > MAX_SMEM:
         split += 1
-    return stage(split), split
+    if smem is None or smem(stage(split), split) <= MAX_SMEM:
+        return WgradPlan(stage(split), split, 0)
+    items = B * -(-T_out // WGRAD_SPAN_COLS)
+    split = max(1, min(MAX_SPLIT, items, -(-2 * sms // max(1, entries * windows))))
+    return WgradPlan(1, split, WGRAD_SPAN_COLS)
+
+
+def last_backward_plans() -> dict:
+    """The plans that the last dgrad and wgrad launches in this process ran,
+    as their launchers recorded them (``hmvae_conv_bwd_last_plan``):
+    dgrad's :class:`DgradPlan` fields, its ``spans`` and ``smem`` bytes;
+    wgrad's :class:`WgradPlan` fields and ``smem``."""
+    lib = _bwd_library()[0]
+    out = (ctypes.c_int * 10)()
+    lib.hmvae_conv_bwd_last_plan(out)
+    return {"dgrad": dict(zip(DgradPlan._fields + ("spans", "smem"), out[:6])),
+            "wgrad": dict(zip(WgradPlan._fields + ("smem",), out[6:]))}
 
 
 def _aligned(t: torch.Tensor, dim: int, multiple: int) -> torch.Tensor:
@@ -915,14 +984,18 @@ def _dgrad(gy, y, weight, s: LevelStructure, T_in: int, windows: Optional[int]):
     w = _aligned(weight, weight.dim() - 2, CHUNK_CHANNELS[torch.float32])
     C, t_ld = w.shape[-2], gy.shape[2]
     dev = gy.device.index
-    nbb, _, split = dgrad_plan(B // G, T_in, K, s.stride, s.padding, t_ld,
-                               s.dgrad_start.numel() - 1, s.dgrad_max_live, _sm_count(dev), G)
+    plan = dgrad_plan(B // G, T_in, K, s.stride, s.padding, t_ld, s.dgrad_start.numel() - 1,
+                      s.dgrad_max_live, _sm_count(dev), G)
     lib, dgrad, _ = _bwd_library()
     gx = torch.empty((B, C, T_in), dtype=gy.dtype, device=gy.device)
+    # spans write their padded columns here before the padding's adjoint
+    gxpad = (torch.empty((B, C, T_in + 2 * s.padding), dtype=gy.dtype, device=gy.device)
+             if plan.span else None)
     err = _on_device(gy, lambda: dgrad(
         gy.data_ptr(), y.data_ptr(), w.data_ptr(), s.dgrad_start.data_ptr(),
-        s.dgrad_row.data_ptr(), gx.data_ptr(), B, C, T_in, K, P, T_out, t_ld, s.stride,
-        s.padding, int(s.reflect), s.negative_slope, nbb, split, G, dev,
+        s.dgrad_row.data_ptr(), gx.data_ptr(), None if gxpad is None else gxpad.data_ptr(),
+        B, C, T_in, K, P, T_out, t_ld, s.stride, s.padding, int(s.reflect), s.negative_slope,
+        plan.nbb, plan.split, plan.span, G, dev,
         torch.cuda.current_stream(gy.device).cuda_stream))
     _build.check(lib, err, entry.__name__)
     entry.launches += 1
@@ -947,20 +1020,17 @@ def _wgrad(gy, y, x, s: LevelStructure, windows: Optional[int]):
     C, t_ld = x.shape[1], gy.shape[2]
     dev = gy.device.index
     entries = s.wgrad_row.numel()
-    sb, split = wgrad_plan(B // G, T_out, entries, _sm_count(dev), G,
-                           lambda sb, split: _wgrad_smem(B // G, T_in, K, T_out, t_ld, s.stride,
-                                                         sb, split))
-    if _wgrad_smem(B // G, T_in, K, T_out, t_ld, s.stride, sb, split) > MAX_SMEM:
-        raise ValueError(f"the wgrad kernel's shared memory at K={K}, T_in={T_in} and "
-                         f"{B // G} batches a window exceeds {MAX_SMEM} bytes")
+    sb, split, span = wgrad_plan(
+        B // G, T_out, entries, _sm_count(dev), G,
+        lambda sb, split: _wgrad_smem(B // G, T_in, K, T_out, t_ld, s.stride, sb, split))
     lib, _, wgrad = _bwd_library()
     gw = torch.zeros((G, P, C, K), dtype=gy.dtype, device=gy.device)
     gb = torch.empty((G, P), dtype=gy.dtype, device=gy.device)
     err = _on_device(gy, lambda: wgrad(
         gy.data_ptr(), y.data_ptr(), x.data_ptr(), s.wgrad_row.data_ptr(),
         s.wgrad_chunk.data_ptr(), gw.data_ptr(), gb.data_ptr(), entries, B, C, T_in, K, P,
-        T_out, t_ld, s.stride, s.padding, int(s.reflect), s.negative_slope, sb, split, G, dev,
-        torch.cuda.current_stream(gy.device).cuda_stream))
+        T_out, t_ld, s.stride, s.padding, int(s.reflect), s.negative_slope, sb, split, span, G,
+        dev, torch.cuda.current_stream(gy.device).cuda_stream))
     _build.check(lib, err, entry.__name__)
     entry.launches += 1
     if C != C_in:

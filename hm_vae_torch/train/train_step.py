@@ -19,15 +19,17 @@ from device buffers.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.hm_vae import HMVAE
 from ..models.trajectory import TrajectoryModel, trajectory_losses
+from ..parallel.sharding import allreduce_grads, rank_rows, world_size
 from ..utils.config import Config
-from .losses import hmvae_forward
+from .losses import draw_noise, eps_shapes, hmvae_forward
 from .optim import _DTYPES, TorchAdamL2, make_optimizer
 
 # the batch fields the VAE's loss reads (any one wire form)
@@ -117,15 +119,35 @@ def loss_fn(state: TrainState, batch: Dict[str, torch.Tensor], cfg: Config,
                          generator=generator)
 
 
+def rank_noise(state: TrainState, batch: Dict[str, torch.Tensor], cfg: Config,
+               generator: Optional[torch.Generator], group) -> Optional[List[torch.Tensor]]:
+    """Under a group: the noise of the GLOBAL batch (the rank's rows times
+    the world size) drawn from the step's generator, as every rank draws it,
+    and this rank's rows of it, so that the step does not depend on the
+    world size (JAX's noise is the global batch's, sharded).  None where the
+    loss draws no noise or there is no group (the loss draws its own)."""
+    if group is None or isinstance(state.model, TrajectoryModel) or cfg.loss.kl_w == 0:
+        return None
+    B = next(iter(batch.values())).shape[0]
+    start, stop = rank_rows(B * world_size(group), group)
+    dev = state.step_t.device
+    return [e[start:stop].to(dev)
+            for e in draw_noise(eps_shapes(cfg, B * world_size(group)), generator)]
+
+
 def _step_body(state: TrainState, batch: Dict[str, torch.Tensor], cfg: Config,
                eps: Optional[Sequence[torch.Tensor]] = None,
                generator: Optional[torch.Generator] = None,
-               mean_std=None) -> Dict[str, torch.Tensor]:
-    """One step's device work: loss, backward, optimizer step, ``step_t``
-    advanced; the host's ``step`` is left to the caller."""
+               mean_std=None, group=None) -> Dict[str, torch.Tensor]:
+    """One step's device work: loss, backward, the gradients averaged over
+    ``group``'s ranks where one is given (each holding its rows of the
+    global batch), optimizer step, ``step_t`` advanced; the host's ``step``
+    is left to the caller.  The metrics are the rank's own."""
     state.optimizer.zero_grad(set_to_none=True)
     loss, metrics = loss_fn(state, batch, cfg, eps, generator, mean_std)
     loss.backward()
+    if group is not None:
+        allreduce_grads(state.model.parameters(), group)
     state.optimizer.step()
     state.step_t.add_(1)
     return {k: v.detach() for k, v in metrics.items()}
@@ -134,9 +156,14 @@ def _step_body(state: TrainState, batch: Dict[str, torch.Tensor], cfg: Config,
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor], cfg: Config,
                eps: Optional[Sequence[torch.Tensor]] = None,
                generator: Optional[torch.Generator] = None,
-               mean_std: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
-    """One step in place: returns the step's metrics (detached tensors)."""
-    metrics = _step_body(state, batch, cfg, eps, generator, mean_std)
+               mean_std: Optional[np.ndarray] = None, group=None) -> Dict[str, torch.Tensor]:
+    """One step in place: returns the step's metrics (detached tensors).
+    Under ``group`` the batch is this rank's rows of the global batch, and
+    noise not given is the global batch's from ``generator``
+    (:func:`rank_noise`)."""
+    if eps is None:
+        eps = rank_noise(state, batch, cfg, generator, group)
+    metrics = _step_body(state, batch, cfg, eps, generator, mean_std, group)
     state.step += 1
     return metrics
 
@@ -145,8 +172,12 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], cfg: Config,
 def eval_step(state: TrainState, batch: Dict[str, torch.Tensor], cfg: Config,
               eps: Optional[Sequence[torch.Tensor]] = None,
               generator: Optional[torch.Generator] = None,
-              mean_std: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
-    """The loss's metrics on a batch, sampled as in training, no update."""
+              mean_std: Optional[np.ndarray] = None, group=None) -> Dict[str, torch.Tensor]:
+    """The loss's metrics on a batch, sampled as in training, no update;
+    under ``group`` the rank's rows (noise as :func:`train_step`'s) and its
+    own metrics."""
+    if eps is None:
+        eps = rank_noise(state, batch, cfg, generator, group)
     return loss_fn(state, batch, cfg, eps, generator, mean_std)[1]
 
 
@@ -156,6 +187,11 @@ class MultiStep:
     (K, B, ...) on the model's device; ``eps``, each level's noise of the K
     steps (K, B, edges, d), or None where the loss draws none (``kl_w``
     0, or the trajectory model).
+
+    Under ``group`` each rank runs its rows of the global batches and the
+    gradients are all-reduced inside the step (:func:`_step_body`); the
+    all-reduce is captured with the step under NCCL, while gloo's
+    collectives cannot be captured: there ``graph`` must be false.
 
     On CUDA (unless ``graph`` is false) one step is captured in a CUDA graph
     and replayed K times; the step reads its batch and noise at a device
@@ -169,10 +205,14 @@ class MultiStep:
     one :func:`train_step` each.  The state must stay the same objects
     (a resume writes into them)."""
 
-    def __init__(self, state: TrainState, cfg: Config, mean_std=None, graph: bool = True):
-        self.state, self.cfg = state, cfg
+    def __init__(self, state: TrainState, cfg: Config, mean_std=None, graph: bool = True,
+                 group=None):
+        self.state, self.cfg, self.group = state, cfg, group
         self.device = state.step_t.device
         self.graph = graph and self.device.type == "cuda"
+        if self.graph and group is not None and dist.get_backend(group) != "nccl":
+            raise ValueError(f"a {dist.get_backend(group)} group's collectives cannot be "
+                             "captured in a CUDA graph: pass graph=False")
         self.mean_std = (None if mean_std is None else
                          torch.as_tensor(np.asarray(mean_std, np.float32), device=self.device))
         self._graph = None
@@ -186,7 +226,7 @@ class MultiStep:
             for k in range(K):
                 metrics = train_step(self.state, {f: v[k] for f, v in batches.items()},
                                      self.cfg, None if eps is None else [e[k] for e in eps],
-                                     mean_std=self.mean_std)
+                                     mean_std=self.mean_std, group=self.group)
             return metrics
         key = (tuple((f, tuple(v.shape), v.dtype) for f, v in sorted(batches.items())),
                None if eps is None else tuple(tuple(e.shape) for e in eps))
@@ -209,7 +249,8 @@ class MultiStep:
         i = self._index
         batch = {f: v.index_select(0, i)[0] for f, v in self._batches.items()}
         eps = None if self._eps is None else [e.index_select(0, i)[0] for e in self._eps]
-        metrics = _step_body(self.state, batch, self.cfg, eps, mean_std=self.mean_std)
+        metrics = _step_body(self.state, batch, self.cfg, eps, mean_std=self.mean_std,
+                             group=self.group)
         i.add_(1)
         return metrics
 

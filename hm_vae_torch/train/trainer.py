@@ -38,7 +38,20 @@ Runs on ``cuda`` unless told otherwise.  Every ``run.image_save_iter`` steps
 of a VAE run with a test split it saves animations (``_save_visualizations``,
 which needs matplotlib).  Not ported, each raising: a VAE with adapters
 (``model.lora_rank > 0``; no config trains one; the trajectory model ignores
-the rank, as in the JAX package), a device mesh and multi-host runs.
+the rank, as in the JAX package) and tensor parallelism
+(``run.model_parallel > 1``, ROADMAP item 11b).
+
+Data parallel over ranks (:mod:`..parallel.multihost`, a process group
+initialized before the Trainer is made): the degree is the world size and
+``optim.batch_size`` stays global, each rank loading its
+``local_batch_size`` rows from its own sampling stream; the step averages
+the gradients over the ranks (:mod:`..parallel.sharding`), inside the CUDA
+graph under NCCL, eagerly under gloo (whose collectives cannot be
+captured); the noise is the global batch's, each rank taking its rows.
+The metrics logged are the ranks' mean; the metric log, checkpoints and
+images are written by the primary rank only; a resume reads the newest
+checkpoint on every rank; validation takes each rank's ``process_shard``
+rows of the same ordered batches and averages the metrics over the ranks.
 
 The noise of step i comes from a CPU generator seeded by (``run.seed``, i),
 and the rotations of a batch consumed at step i from one seeded by
@@ -58,12 +71,15 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.dataset import MotionDataset, PrefetchIterator, make_loaders
 from ..models.trajectory import TrajectoryModel
+from ..parallel import multihost as mh
+from ..parallel.sharding import allreduce_mean, rank_rows, world_size
 from ..utils.config import Config
 from ..utils.device import resolve_device
-from ..utils.logging import MetricWriter, make_result_folders
+from ..utils.logging import MetricWriter, NullMetricWriter, make_result_folders
 from ..utils.weights import reference_state_dict, state_dict_from_reference
 from .losses import draw_noise, eps_shapes
 from .train_step import (MultiStep, TrainState, create_state, eval_step, loss_fields, to_device,
@@ -119,7 +135,8 @@ class Trainer:
                 "model.lora_rank > 0: the adapters are the test-time solver's (finetune_scope "
                 "lora); training a model with them is not ported (ROADMAP Queue 1 item 6b)")
         if cfg.run.model_parallel > 1:
-            raise NotImplementedError("model_parallel > 1: the port trains on one device")
+            raise NotImplementedError("model_parallel > 1: tensor parallelism over a model "
+                                      "axis is not ported (ROADMAP Queue 1 item 11b)")
         if cfg.run.matmul_precision != "default":
             log.warning("run.matmul_precision=%s is ignored: the port computes f32 in f32",
                         cfg.run.matmul_precision)
@@ -127,8 +144,16 @@ class Trainer:
         self.mean_std = mean_std
         self.device = resolve_device(device)
         self.output_dir = output_dir
-        self.ckpt_dir, self.image_dir = make_result_folders(output_dir)
-        self.writer = MetricWriter(os.path.join(output_dir, "logs"))
+        self.group = mh.process_group()
+        self.world = world_size(self.group)
+        self.primary = mh.is_primary()
+        if self.primary:
+            self.ckpt_dir, self.image_dir = make_result_folders(output_dir)
+            self.writer = MetricWriter(os.path.join(output_dir, "logs"))
+        else:  # the primary rank writes every file
+            self.ckpt_dir, self.image_dir = (os.path.join(output_dir, d)
+                                             for d in ("checkpoints", "images"))
+            self.writer = NullMetricWriter()
         self.state: TrainState = create_state(cfg, self.device)
         self._fields = loss_fields(self.state.model)
         self._preempted = False
@@ -145,6 +170,10 @@ class Trainer:
                              else None)
         n = sum(p.numel() for p in self.state.model.parameters())
         log.info("%s: %.2fM params on %s", name, n / 1e6, self.device)
+        if self.group is not None:
+            log.info("data parallel: rank %d of %d, backend %s, rows %s of batch %d",
+                     mh.process_index(), self.world, dist.get_backend(self.group),
+                     rank_rows(cfg.optim.batch_size, self.group), cfg.optim.batch_size)
 
     # ------------------------------------------------------------------
     # checkpoints
@@ -167,6 +196,8 @@ class Trainer:
         :meth:`wait_for_saves`), from a device-side snapshot taken now."""
         step = self.state.step if step is None else step
         path = os.path.join(os.path.abspath(self.ckpt_dir), f"gen_{step:08d}.pt")
+        if not self.primary:  # every rank holds the same state
+            return path
         if not self.cfg.run.async_checkpoint:
             self._write_checkpoint(path, _to_host(self._blob(
                 self.state.model.state_dict(), self.state.optimizer.state_dict(), step)))
@@ -229,8 +260,11 @@ class Trainer:
 
     def resume(self, path: Optional[str] = None) -> int:
         """Restore params, optimizer state and step (into the existing
-        tensors); returns the step."""
+        tensors); returns the step.  Under several ranks every rank calls
+        it and reads the same checkpoint, after the primary's writes."""
         self.wait_for_saves()  # an asynchronous save in flight may be the newest
+        if self.group is not None:
+            dist.barrier(self.group)
         path = path or self.latest_checkpoint()
         if path is None:
             return 0
@@ -291,19 +325,21 @@ class Trainer:
         return batch
 
     def _call_noise(self, step: int, K: int, B: int):
-        """The noise of steps step .. step+K-1 (K, B, edges, d) per level on
-        the device, drawn on the host from each step's generator and copied
-        in one pinned, non-blocking transfer; or None where the loss draws
-        none."""
+        """The noise of steps step .. step+K-1 (K, B_rank, edges, d) per
+        level on the device, drawn on the host from each step's generator
+        for the global batch ``B`` (this rank's rows of it) and copied in one
+        pinned, non-blocking transfer; or None where the loss draws none."""
         if isinstance(self.state.model, TrajectoryModel) or self.cfg.loss.kl_w == 0:
             return None
+        r0, r1 = rank_rows(B, self.group)
         shapes = eps_shapes(self.cfg, B)
         draws = [draw_noise(shapes, step_generator(self.cfg.run.seed, step + k))
                  for k in range(K)]
-        flat = torch.cat([torch.stack([d[lv] for d in draws]).reshape(-1)
+        flat = torch.cat([torch.stack([d[lv][r0:r1] for d in draws]).reshape(-1)
                           for lv in range(len(shapes))])
         if self.device.type == "cuda":
             flat = flat.pin_memory().to(self.device, non_blocking=True)
+        shapes = [(r1 - r0,) + tuple(s[1:]) for s in shapes]
         sizes = [K * int(np.prod(s)) for s in shapes]
         return [e.view((K,) + tuple(s)) for e, s in zip(flat.split(sizes), shapes)]
 
@@ -339,11 +375,14 @@ class Trainer:
     def _val_pass(self, val_ds: MotionDataset, step: int) -> None:
         cfg = self.cfg
         vals = []
+        v0, v1 = rank_rows(cfg.optim.batch_size, self.group)
         for vi, vb in enumerate(val_ds.ordered_batches(cfg.optim.batch_size, max_batches=50,
                                                        seed=cfg.run.seed)):
+            vb = {k: v[v0:v1] for k, v in vb.items()}  # this rank's rows
             vm = eval_step(self.state, to_device(vb, self.device, self._fields), cfg,
                            generator=step_generator(cfg.run.seed, 10_000_000 + vi),
-                           mean_std=self.mean_std)
+                           mean_std=self.mean_std, group=self.group)
+            vm = allreduce_mean(vm, self.group)
             vals.append({k: float(v) for k, v in vm.items()})
         if vals:  # a val split smaller than one batch yields none
             self.writer.write(step, {f"val_{k}": float(np.mean([v[k] for v in vals]))
@@ -352,7 +391,7 @@ class Trainer:
     def _single(self, host, i: int, stream=None) -> Dict[str, torch.Tensor]:
         return train_step(self.state, self._consume(self._stage(host, i, stream)), self.cfg,
                           generator=step_generator(self.cfg.run.seed, i),
-                          mean_std=self.mean_std)
+                          mean_std=self.mean_std, group=self.group)
 
     def fit(self, train_ds, val_ds: Optional[MotionDataset] = None,
             max_iter: Optional[int] = None, log_cb=None,
@@ -360,6 +399,7 @@ class Trainer:
         cfg = self.cfg
         max_iter = cfg.optim.max_iter if max_iter is None else max_iter
         bs = cfg.optim.batch_size
+        bs_local = mh.local_batch_size(bs, count=self.world)  # the rank's rows
         K = max(1, cfg.run.steps_per_call)
         need_root_v = isinstance(self.state.model, TrajectoryModel)
         pin = self.device.type == "cuda"
@@ -367,16 +407,22 @@ class Trainer:
         native_super = K > 1 and (compact or hasattr(train_ds, "iter_superbatches"))
         wire, threads = cfg.data.wire_format, cfg.data.native_threads
         if native_super and compact:
-            it = train_ds.iter_compact_superbatches(K, bs, need_root_v, threads, wire,
+            it = train_ds.iter_compact_superbatches(K, bs_local, need_root_v, threads, wire,
                                                     dtype=self._wire_dtype, pin_memory=pin)
         elif native_super:
-            it = train_ds.iter_superbatches(K, bs, threads, pin_memory=pin)
+            it = train_ds.iter_superbatches(K, bs_local, threads, pin_memory=pin)
         elif compact:
-            it = _compact_single_iter(train_ds, bs, need_root_v, threads, wire)
+            it = _compact_single_iter(train_ds, bs_local, need_root_v, threads, wire)
         else:
-            it = PrefetchIterator(train_ds.iter_batches(bs), depth=cfg.data.num_prefetch)
+            it = PrefetchIterator(train_ds.iter_batches(bs_local), depth=cfg.data.num_prefetch)
         if K > 1 and self._multi is None:
-            self._multi = MultiStep(self.state, cfg, self.mean_std)
+            # gloo's collectives cannot be captured: its steps run eagerly
+            graph = self.group is None or dist.get_backend(self.group) == "nccl"
+            self._multi = MultiStep(self.state, cfg, self.mean_std, graph=graph,
+                                    group=self.group)
+            if self.group is not None:
+                log.info("MultiStep under %s: graphed=%s", dist.get_backend(self.group),
+                         self._multi.graph)
 
         def next_super():
             if native_super:
@@ -433,7 +479,7 @@ class Trainer:
                     return (i // interval) > (prev_i // interval)
 
                 if crossed(cfg.run.log_iter):
-                    host = {k: float(v) for k, v in metrics.items()}
+                    host = {k: float(v) for k, v in allreduce_mean(metrics, self.group).items()}
                     if cfg.run.nan_guard and not np.isfinite(host["loss_total"]):
                         restored = self.resume()
                         self.writer.write(i, {"nan_guard_restored_to": restored})
@@ -454,7 +500,8 @@ class Trainer:
                     self._val_pass(val_ds, i)
                 if crossed(cfg.run.snapshot_save_iter):
                     self.save(i)
-                if (test_ds is not None and not isinstance(self.state.model, TrajectoryModel)
+                if (test_ds is not None and self.primary
+                        and not isinstance(self.state.model, TrajectoryModel)
                         and crossed(cfg.run.image_save_iter)):
                     self._save_visualizations(test_ds, i)
         finally:
@@ -477,7 +524,7 @@ class Trainer:
                         failed = e
             if failed is not None:
                 raise failed
-        return {k: float(v) for k, v in metrics.items()}
+        return {k: float(v) for k, v in allreduce_mean(metrics, self.group).items()}
 
 
 def build_trainer(cfg: Config, output_dir: str, device="cuda") -> tuple:

@@ -40,6 +40,16 @@ class MetricWriter:
             self._tb.close()
 
 
+class NullMetricWriter:
+    """The writer of a rank that writes no files (the primary rank logs)."""
+
+    def write(self, step: int, metrics: Dict[str, float], prefix: str = "") -> None:
+        pass
+
+    def close(self):
+        pass
+
+
 def make_result_folders(output_directory: str):
     """checkpoints/ + images/ under the run dir."""
     image_directory = os.path.join(output_directory, "images")

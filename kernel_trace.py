@@ -97,8 +97,8 @@ def _dgrad_patches():
         ("    __syncthreads();  // every warp is done with this stage's weight rows and g2\n",
          "    __syncthreads();  // every warp is done with this stage's weight rows and g2\n"
          "    if (i < 4) { " + stamp("4 + 3 * i") + " }\n"),
-        ("  // gxpad of the block's rows -> out_s",
-         "  " + stamp(20) + "\n  // gxpad of the block's rows -> out_s"),
+        ("  // gxpad of the block's columns -> out_s",
+         "  " + stamp(20) + "\n  // gxpad of the block's columns -> out_s"),
         ("    __syncthreads();\n  {\n    const float* part[kMaxSplit];\n",
          "    __syncthreads();\n  " + stamp(21) + "\n  {\n    const float* part[kMaxSplit];\n"),
         ("  if (split > 1) cluster.sync();  // no block leaves while another reads its partial gxpad\n",
@@ -113,10 +113,12 @@ def _wgrad_patches():
     written in fragment order, 4+3i after the products; 21 after the
     partial tile is written (cluster sync), 22 after the cluster's sum and
     the stores."""
-    summed = "          for (int r = 0; r < 4; ++r) sum[a][qq][r] += acc[a][qq][r];\n    }\n  }\n"
+    summed = ("        xb[h] = ((i * sb + bb) * kCC + gid) * L.rsx + t;\n      }\n"
+              "      wgrad_kstep<NQ>(sum, xp, gf, xb, koff, ks, K, warp, lane);\n    }\n  }\n")
     return [
-        ("  const int rt = wrow[e], chunk = wchunk[e];\n",
-         "  const int rt = wrow[e], chunk = wchunk[e];\n  " + stamp(0) + "\n"),
+        ("  const WgradLayout L = wgrad_layout(B, T_in, K, T_out, t_ld, stride, sb, split);\n",
+         "  const WgradLayout L = wgrad_layout(B, T_in, K, T_out, t_ld, stride, sb, split);\n  "
+         + stamp(0) + "\n"),
         ("  for (int i = 0; i < n_st; ++i) {\n",
          f"  {stamp(1)}\n  {stamp(31, 'n_st')}\n  for (int i = 0; i < n_st; ++i) {{\n"),
         ("    mbar_wait(smem_addr(bars + 1 + slot), (i / L.slots) & 1);\n",

@@ -1,0 +1,318 @@
+"""The backward kernels over padded rows of any length, on the CPU (the
+kernels run on the GPU, where chip_smoke.py's ``long_backward`` phase holds
+them against their plain versions, bit-equal on two runs):
+
+- the plans: ``dgrad_plan`` and ``wgrad_plan`` at K 31 and T 1,024 and
+  7,200 (the trajectory model's four levels, batch 1 and 8), and at
+  stride 2 and 3 past 256 / stride padded columns, cut the row into spans
+  that fit shared memory and one block's 16 column tiles (dgrad) and the
+  reduction into items of 64 output columns (wgrad); these raised before
+  spans existed;
+- the plans of every existing shape (the len-64 and production models at
+  batch 8 and 64, the trajectory model's training and solver shapes, the
+  solver's 10 windows) are the plans from before spans, span 0: the same
+  launch, the same bits;
+- the span decomposition's index arithmetic (dgrad: the g columns a span
+  stages with its halo, the phases of its columns, then the padding's
+  adjoint over the scratch row; wgrad: items of 64 columns) in plain
+  PyTorch against the plain versions, at a long row in both paddings and
+  strides 1 to 3;
+- the plain dgrad and wgrad at batch 2, T 1,024, K 31 against ``jax.vjp``
+  of the JAX trajectory level (f32, 1e-4 * max(1, max|ref|): the sums run
+  over 1,024 columns in another order).
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hm_vae_tpu.ops import skeleton_nn as jsnn
+from hm_vae_torch.models.hm_vae import HMVAE
+from hm_vae_torch.models.structure import get_structure, get_trajectory_structure
+from hm_vae_torch.models.trajectory import TrajectoryModel
+from hm_vae_torch.ops import fused_conv_pool as fcp
+from hm_vae_torch.utils import config as tcfg
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIGS = {n: os.path.join(ROOT, "configs", f"{n}.yaml")
+           for n in ("len64_no_aug_hm_vae", "len64_production", "len_64_test_interpolation",
+                     "trajectory_model")}
+SMS = 132
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _t_out(s, T):
+    return (T + 2 * s.padding - s.kernel_size) // s.stride + 1
+
+
+def _tol(ref, scale=1e-4):
+    return scale * max(1.0, float(np.abs(np.asarray(ref)).max()))
+
+
+_MODELS = {}
+
+
+def _traj_convs():
+    if "traj" not in _MODELS:
+        cfg = tcfg.load_config(CONFIGS["trajectory_model"])
+        m = TrajectoryModel(cfg.model, generator=torch.Generator().manual_seed(0))
+        _MODELS["traj"] = [getattr(m.encoder, f"conv_{i}")
+                           for i in range(len(get_trajectory_structure(cfg.model).levels))]
+    return _MODELS["traj"]
+
+
+def _vae_cases(name):
+    """(conv, T_in) of the eight convs of a len-64 config's model."""
+    if name not in _MODELS:
+        cfg = tcfg.load_config(CONFIGS[name])
+        m = HMVAE(cfg.model, cfg.optim.init, generator=torch.Generator().manual_seed(0))
+        st = get_structure(cfg.model)
+        cases = [(getattr(m.encoder, f"conv_{i}"), st.enc_timesteps[i])
+                 for i in range(len(st.encoder_levels))]
+        cases += [(getattr(m.decoder, f"conv_{i}"),
+                   st.dec_timesteps[i] * (2 if lvl.upsample else 1))
+                  for i, lvl in enumerate(st.decoder_levels)]
+        _MODELS[name] = cases
+    return _MODELS[name]
+
+
+def _plans(s, B, T, windows=1):
+    T_out = _t_out(s, T)
+    t_ld = T_out + -T_out % 4
+    d = fcp.dgrad_plan(B, T, s.kernel_size, s.stride, s.padding, t_ld,
+                       s.dgrad_start.numel() - 1, s.dgrad_max_live, SMS, windows)
+    w = fcp.wgrad_plan(B, T_out, s.wgrad_row.numel(), SMS, windows,
+                       lambda sb, split: fcp._wgrad_smem(B, T, s.kernel_size, T_out, t_ld,
+                                                         s.stride, sb, split))
+    return d, w, t_ld
+
+
+def _check_span_plans(s, B, T, d, w, t_ld):
+    """A span plan: one batch a block, the span a multiple of stride within
+    the 16 tiles and shared memory, the spans covering the padded row;
+    wgrad: items of 64 columns over the cluster, its block in shared
+    memory."""
+    Tp = T + 2 * s.padding
+    assert d.span > 0 and d.nbb == 1 and d.groups == B and d.span % s.stride == 0
+    assert fcp._dgrad_tiles(d.span, s.stride) <= fcp.BWD_WARPS * fcp.DGRAD_TILES
+    assert fcp._dgrad_smem(T, s.kernel_size, t_ld, s.stride, s.padding, 1, d.span) \
+        <= fcp.MAX_SMEM
+    assert -(-Tp // d.span) * d.span >= Tp and B * -(-Tp // d.span) <= 65535
+    assert 1 <= d.split <= min(fcp.MAX_SPLIT, s.dgrad_max_live)
+    T_out = _t_out(s, T)
+    if w.span == 0:  # x's whole rows of a block fit: the plan from before spans
+        assert fcp._wgrad_smem(B, T, s.kernel_size, T_out, t_ld, s.stride, w.sb,
+                               w.split) <= fcp.MAX_SMEM
+        return
+    items = B * -(-T_out // fcp.WGRAD_SPAN_COLS)
+    assert w.span == fcp.WGRAD_SPAN_COLS and w.sb == 1 and 1 <= w.split <= min(8, items)
+    assert fcp._wgrad_span_smem(s.kernel_size, s.stride) <= fcp.MAX_SMEM
+
+
+@pytest.mark.parametrize("B,T", [(1, 1024), (8, 1024), (1, 7200)])
+@pytest.mark.parametrize("level", range(4))
+def test_long_trajectory_rows_plan_spans(level, B, T):
+    s = _traj_convs()[level].structure()
+    assert (s.kernel_size, s.stride, s.padding) == (31, 1, 15)
+    d, w, t_ld = _plans(s, B, T)
+    _check_span_plans(s, B, T, d, w, t_ld)
+    # two tiles a warp (256 columns) do not fit beside K 31's weight stages;
+    # no split of x's rows fits a block
+    assert d.span == 128 and w.span == fcp.WGRAD_SPAN_COLS
+
+
+@pytest.mark.parametrize("stride,T", [(2, 1024), (2, 256), (3, 1024)])
+def test_strided_rows_past_the_old_limit_plan_spans(stride, T):
+    live = torch.zeros(128, 24, dtype=torch.bool)
+    live[:64, :16] = True
+    live[64:, 8:] = True
+    s = fcp.pack_structure(live, 15, torch.float32, stride, 7)
+    assert T + 14 > 256 // stride  # past one block's 16 column tiles
+    d, w, t_ld = _plans(s, 4, T)
+    _check_span_plans(s, 4, T, d, w, t_ld)
+    # wgrad: a batch's g fragments at T_out 512 or 342 pass a block's shared memory
+    assert (w.span > 0) == (T == 1024)
+
+
+# the plans before spans (the parent's dgrad_plan / wgrad_plan and the
+# dgrad layout they read), the reference for every existing shape
+def _old_dgrad_smem(T_in, K, t_ld, stride, padding, nbb):
+    Tp, kmax = T_in + 2 * padding, -(-K // stride)
+    T_out = (Tp - K) // stride + 1
+    rs = (kmax - 1 + max(-(-Tp // stride), T_out) + 11) // 16 * 16 + 4
+    a16 = lambda n: -(-n // 16) * 16  # noqa: E731
+    w_ring = a16(2 * 32 * (16 * K + 8) * 4)
+    g2_end = 64 + w_ring + a16(2 * nbb * 32 * t_ld * 4) + nbb * 32 * rs * 8
+    out = 16 * nbb * Tp * 4
+    return g2_end if out <= w_ring else a16(g2_end) + out
+
+
+def _old_dgrad_plan(B, T_in, K, stride, padding, t_ld, pairs, max_live, sms, windows=1):
+    Tp = T_in + 2 * padding
+    widths = [-(-(Tp - phi) // stride) for phi in range(stride)]
+    assert sum(-(-v // 16) for v in widths) <= 16
+    best = None
+    for nb in range(1, B + 1):
+        smem = _old_dgrad_smem(T_in, K, t_ld, stride, padding, nb)
+        if nb > 1 and (sum(-(-nb * v // 16) for v in widths) > 8 or smem > fcp.MAX_SMEM):
+            continue
+        groups = -(-B // nb)
+        nbb = -(-B // groups)
+        per_sm = 2 if smem <= fcp.MAX_SMEM_PER_SM // 2 - 1024 else 1
+        for split in range(1, min(8, max(1, max_live)) + 1):
+            blocks = pairs * windows * groups * split
+            cost = (-(-blocks // (sms * per_sm)) * (-(-max_live // split) + 1), blocks)
+            if best is None or cost < best[0]:
+                best = (cost, (nbb, groups, split))
+    return best[1]
+
+
+def _old_wgrad_plan(B, T_out, entries, sms, windows=1, smem=None):
+    split = max(1, min(8, B, -(-sms // max(1, entries * windows))))
+
+    def stage(split):
+        return max(1, min(-(-B // split), 32 // T_out))
+
+    while smem is not None and split < min(8, B) and smem(stage(split), split) > fcp.MAX_SMEM:
+        split += 1
+    return stage(split), split
+
+
+def _existing_shapes():
+    for name, batches in (("len64_no_aug_hm_vae", (8, 64)), ("len64_production", (8, 64))):
+        for conv, T in _vae_cases(name):
+            for B in batches:
+                yield conv.structure(), B, T, 1
+    for conv, T in _vae_cases("len_64_test_interpolation")[4:]:
+        yield conv.structure(), 1, T, 10  # the solver's 10 windows
+    for conv in _traj_convs():
+        for B, T in ((8, 128), (10, 64), (64, 64), (1, 64)):
+            yield conv.structure(), B, T, 1
+
+
+def test_existing_shapes_keep_their_plans():
+    n = 0
+    for s, B, T, windows in _existing_shapes():
+        d, w, t_ld = _plans(s, B, T, windows)
+        T_out = _t_out(s, T)
+        old_d = _old_dgrad_plan(B, T, s.kernel_size, s.stride, s.padding, t_ld,
+                                s.dgrad_start.numel() - 1, s.dgrad_max_live, SMS, windows)
+        smem = lambda sb, split: fcp._wgrad_smem(B, T, s.kernel_size, T_out, t_ld,  # noqa
+                                                 s.stride, sb, split)
+        old_w = _old_wgrad_plan(B, T_out, s.wgrad_row.numel(), SMS, windows, smem)
+        assert (d, w) == (old_d + (0,), old_w + (0,)), (s.kernel_size, B, T, windows)
+        assert fcp._dgrad_smem(T, s.kernel_size, t_ld, s.stride, s.padding, d.nbb) == \
+            _old_dgrad_smem(T, s.kernel_size, t_ld, s.stride, s.padding, d.nbb)
+        n += 1
+    assert n == 8 * 4 + 4 + 16
+
+
+def dgrad_by_span(g, w, T_in, stride, padding, reflect, span):
+    """The span kernel's arithmetic in plain PyTorch: each span [u0, u0 +
+    span) of the padded row stages g's columns [t0 - off, t0 + span/stride)
+    (t0 = u0 / stride, off = ceil(K/stride) - 1; zeros outside [0, T_out)),
+    sums its columns u = u0 + stride*v + phi over taps k = phi + stride*m
+    from the staged column v - m, and writes gxpad; the padding's adjoint is
+    then folded over the whole scratch row."""
+    B, _, T_out = g.shape
+    C, K = w.shape[1], w.shape[2]
+    Tp, off, Vs = T_in + 2 * padding, -(-K // stride) - 1, span // stride
+    gxpad = g.new_zeros(B, C, Tp)
+    for u0 in range(0, Tp, span):
+        t0, width = u0 // stride, min(span, Tp - u0)
+        staged = g.new_zeros(B, g.shape[1], off + Vs)
+        ta, tb = max(0, t0 - off), min(T_out, t0 + Vs)
+        if tb > ta:
+            staged[:, :, ta - t0 + off:tb - t0 + off] = g[:, :, ta:tb]
+        for phi in range(stride):
+            V = -(-(width - phi) // stride)
+            for m, k in enumerate(range(phi, K, stride)):
+                cols = staged[:, :, off - m:off - m + V]
+                gxpad[:, :, u0 + phi:u0 + phi + stride * (V - 1) + 1:stride] += torch.einsum(
+                    "pc,bpt->bct", w[:, :, k], cols)
+    gx = gxpad[:, :, padding:padding + T_in].clone()
+    if reflect:
+        for i in range(T_in):
+            if 1 <= i <= padding:
+                gx[:, :, i] += gxpad[:, :, padding - i]
+            if T_in - 1 - padding <= i <= T_in - 2:
+                gx[:, :, i] += gxpad[:, :, padding + 2 * (T_in - 1) - i]
+    return gx
+
+
+def wgrad_by_items(g, x, K, stride, padding, mode, cols):
+    """The span kernel's wgrad: the (b, t) reduction as items of ``cols``
+    output columns, each reading x's padded columns [t_lo*stride, t_lo*stride
+    + (cols - 1)*stride + K), summed item after item."""
+    B, P, T_out = g.shape
+    xpad = fcp.pad_temporal(x, padding, mode)
+    gw = g.new_zeros(P, x.shape[1], K)
+    for b in range(B):
+        for t_lo in range(0, T_out, cols):
+            nt = min(cols, T_out - t_lo)
+            seg = xpad[b, :, t_lo * stride:t_lo * stride + (nt - 1) * stride + K]
+            patches = torch.stack([seg[:, k:k + (nt - 1) * stride + 1:stride]
+                                   for k in range(K)], -1)  # (C, nt, K)
+            gw += torch.einsum("pt,ctk->pck", g[b, :, t_lo:t_lo + nt], patches)
+    return gw, g.sum((0, 2))
+
+
+@pytest.mark.parametrize("stride,T", [(1, 300), (2, 301), (3, 299)])
+@pytest.mark.parametrize("mode", ["reflect", "constant"])
+def test_span_arithmetic_matches_the_plain_backward(mode, stride, T):
+    K, padding, P, C = (31, 15, 24, 16) if stride == 1 else (15, 7, 24, 16)
+    gen = torch.Generator().manual_seed(stride * 1000 + T)
+    w = torch.randn(P, C, K, generator=gen, dtype=torch.float64)
+    x = torch.randn(2, C, T, generator=gen, dtype=torch.float64)
+    y = fcp.fused_conv_pool_reference(x, w, None, None, None, stride, padding, mode, 0.2)
+    gy = torch.randn(y.shape, generator=gen, dtype=torch.float64)
+    g = fcp._act_grad(gy, y, 0.2)
+    span = 128 if stride == 1 else 16 * stride * (8 // stride)
+    got = dgrad_by_span(g, w, T, stride, padding, mode == "reflect", span)
+    want = fcp.fused_conv_pool_dgrad_reference(gy, y, w, T, stride, padding, mode, 0.2)
+    torch.testing.assert_close(got, want, atol=1e-10, rtol=0)
+    gw, gb = wgrad_by_items(g, x, K, stride, padding, mode, fcp.WGRAD_SPAN_COLS)
+    rw, rb = fcp.fused_conv_pool_wgrad_reference(gy, y, x, K, stride, padding, mode, 0.2, None)
+    torch.testing.assert_close(gw, rw, atol=1e-10, rtol=0)
+    torch.testing.assert_close(gb, rb, atol=1e-10, rtol=0)
+
+
+@pytest.mark.parametrize("level", [0, 3])
+def test_plain_backward_at_t1024_matches_jax_vjp(level):
+    """The wrappers' CPU path on the folded level at batch 2, T 1,024,
+    against jax.vjp of the JAX level on the raw weight, the weight's and
+    bias's gradients carried back through the fold (mask, pool)."""
+    conv = _traj_convs()[level]
+    spec, s, T = conv.spec, conv.structure(), 1024
+    rng = np.random.default_rng(level)
+    w, b = conv.weight.detach().numpy(), conv.bias.detach().numpy()
+    mask, pool = spec.mask.astype(np.float32), conv.pool.numpy()
+    x = rng.normal(size=(2, spec.in_channels, T)).astype(np.float32)
+
+    def level_fn(x, w, b):
+        y = jsnn.skeleton_conv_w(x, w * mask[:, :, None], b, 1, spec.padding, "reflect")
+        return jsnn.leaky_relu(jsnn.apply_channel_matrix(y, jnp.asarray(pool)), 0.2)
+
+    y, vjp = jax.vjp(level_fn, jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    gy = rng.normal(size=y.shape).astype(np.float32)
+    gx_ref, gw_ref, gb_ref = (np.asarray(a) for a in vjp(jnp.asarray(gy)))
+    with torch.no_grad():
+        wf, _ = conv.folded_weight()
+    yt, gyt = torch.from_numpy(np.array(y)), torch.from_numpy(gy)
+    gx = fcp.fused_conv_pool_dgrad(gyt, yt, wf, s, T).numpy()
+    gwf, gbf = fcp.fused_conv_pool_wgrad(gyt, yt, torch.from_numpy(x), s)
+    gw = torch.einsum("qo,qck->ock", conv.pool, gwf) * torch.from_numpy(mask)[:, :, None]
+    np.testing.assert_allclose(gx, gx_ref, atol=_tol(gx_ref), rtol=0)
+    np.testing.assert_allclose(gw.numpy(), gw_ref, atol=_tol(gw_ref), rtol=0)
+    np.testing.assert_allclose((conv.pool.T @ gbf).numpy(), gb_ref, atol=_tol(gb_ref), rtol=0)

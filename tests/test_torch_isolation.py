@@ -1,6 +1,6 @@
 """The port stands alone: importing all of ``hm_vae_torch`` (and
 chip_smoke.py, kernel_trace.py), the training and latent-optimization paths
-included, loads neither JAX nor the JAX package, and no source of the port
+and the parallel package included, loads neither JAX nor the JAX package, and no source of the port
 imports them (its C++ sampler, ``native/loader.cpp``, includes nothing of
 them either)."""
 
@@ -24,7 +24,9 @@ TRAINING = tuple(f"hm_vae_torch.{m}" for m in (
     # the serving export and the latent-space probes
     "apps.export", "cli.export_model", "apps.latent_space", "cli.explore_latent",
     # data preparation, the SMPL body model, visualization and profiling
-    "data.amass_prep", "cli.prep_data", "utils.smpl", "utils.viz", "utils.profiling"))
+    "data.amass_prep", "cli.prep_data", "utils.smpl", "utils.viz", "utils.profiling",
+    # data, solver and sequence parallelism over torch.distributed ranks
+    "parallel.multihost", "parallel.sharding", "parallel.sequence_parallel"))
 
 
 def _port_sources():

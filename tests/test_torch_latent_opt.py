@@ -284,8 +284,11 @@ def test_production_config_solves_with_the_bf16_clone():
 def test_unported_arguments_raise():
     tc = _cfgs()[1]
     tm = _setup()["tm"]
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # the JAX package's device mesh is a process group's ranks here
+    # (tests/test_torch_parallel_solve.py): no mesh argument
+    with pytest.raises(TypeError, match="mesh"):
         LatentOptApps(tm, tc, mesh=object())
+    assert LatentOptApps(tm, tc).group is None
     # a trajectory without optimize_trajectory is not used, as in the JAX package
     assert LatentOptApps(tm, tc, trajectory=(None, None))._traj_solve is None
     with pytest.raises(ValueError, match="opt_param_dtype"):

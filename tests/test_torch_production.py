@@ -387,13 +387,14 @@ def test_batch64_backward_plans_fit_shared_memory():
             T_out = fcp._t_out(T, K, stride, pad, s.reflect)
             t_ld = T_out + -T_out % 4
             for B in (8, 64):
-                nbb, _, _ = fcp.dgrad_plan(B, T, K, stride, pad, t_ld, s.dgrad_start.numel() - 1,
-                                           s.dgrad_max_live, 132)
-                assert fcp._dgrad_smem(T, K, t_ld, stride, pad, nbb) <= fcp.MAX_SMEM
+                nbb, _, _, span = fcp.dgrad_plan(B, T, K, stride, pad, t_ld,
+                                                 s.dgrad_start.numel() - 1, s.dgrad_max_live, 132)
+                assert span == 0 and fcp._dgrad_smem(T, K, t_ld, stride, pad, nbb) <= fcp.MAX_SMEM
                 smem = lambda sb, split: fcp._wgrad_smem(B, T, K, T_out, t_ld, stride,  # noqa
                                                          sb, split)
                 plan = fcp.wgrad_plan(B, T_out, s.wgrad_row.numel(), 132, smem=smem)
-                assert smem(*plan) <= fcp.MAX_SMEM, (part, i, B, plan)
+                assert plan.span == 0 and smem(plan.sb, plan.split) <= fcp.MAX_SMEM, (
+                    part, i, B, plan)
                 if B == 8:
                     assert plan == fcp.wgrad_plan(B, T_out, s.wgrad_row.numel(), 132)
     assert len(convs) == 8

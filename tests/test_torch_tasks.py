@@ -326,10 +326,13 @@ def test_eval_recovery_cli_solver_modes(tmp_path, monkeypatch, extra, config_tai
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--final_try_long_seq_interpolation", "--data_parallel", "2"], "item 11"),
+    # --data_parallel runs under torchrun (tests/test_torch_parallel_solve.py);
+    # one process asked for two ranks says how to start them
+    (["--final_try_long_seq_interpolation", "--data_parallel", "2"],
+     "--nproc_per_node 2 -m hm_vae_torch.cli.eval_recovery"),
 ])
 def test_eval_recovery_unported_flags_raise(tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         eval_recovery.main(["--config", os.path.join(ROOT, "configs", "len8_smoke.yaml"),
                             "--output_path", str(tmp_path), "--device", "cpu"] + extra)
 

@@ -371,7 +371,9 @@ def test_runner_matches_jax(kind):
         tw, tv = tr(data)
         np.testing.assert_allclose(tv.numpy(), jv, atol=_tol(jv), rtol=0)
         np.testing.assert_allclose(tw.numpy(), jw, atol=_tol(jw), rtol=0)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # sequence parallelism takes a process group (sp_group), not a mesh
+    # (tests/test_torch_sequence_parallel.py)
+    with pytest.raises(TypeError, match="sp_mesh"):
         ttr.TrajectoryRunner(tm, ms, sp_mesh=object())
 
 
@@ -538,9 +540,13 @@ def test_eval_trajectory_and_trajectory_interpolation_clis(tmp_path):
         eval_recovery.main(base + ["--try_interpolation_w_trajectory_single_window"])
 
 
-@pytest.mark.parametrize("extra,match", [(["--sequence_parallel", "2"], "item 11")])
+@pytest.mark.parametrize("extra,match", [
+    # --sequence_parallel runs under torchrun (tests/test_torch_sequence_parallel.py);
+    # one process asked for two ranks says how to start them
+    (["--sequence_parallel", "2"], "--nproc_per_node 2 -m hm_vae_torch.cli.eval_trajectory"),
+])
 def test_eval_trajectory_unported_flags_raise(tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         eval_trajectory.main(["--config", os.path.join(ROOT, "configs", "len8_smoke.yaml"),
                               "--trajectory_config", FULL, "--output_path", str(tmp_path),
                               "--device", "cpu"] + extra)

@@ -191,9 +191,10 @@ def test_windowed_plans_cover_each_window_once(level, n):
     s = conv.structure()
     T_out, pairs = _t_out(s, T), s.dgrad_start.numel() - 1
     for windows in (1, 10):
-        nbb, gpw, split = fcp.dgrad_plan(n, T, s.kernel_size, s.stride, s.padding, T_out,
+        nbb, gpw, split, span = fcp.dgrad_plan(n, T, s.kernel_size, s.stride, s.padding, T_out,
                                          pairs, s.dgrad_max_live, SMS, windows)
         assert 1 <= nbb <= n and gpw == -(-n // nbb) and 1 <= split <= fcp.MAX_SPLIT
+        assert span == 0
         seen = []
         for y in range(windows * gpw):
             win = y // gpw
@@ -204,7 +205,8 @@ def test_windowed_plans_cover_each_window_once(level, n):
             assert all(r // n == win for r in rows)
             seen += rows
         assert seen == list(range(windows * n))
-        sb, wsplit = fcp.wgrad_plan(n, T_out, s.wgrad_row.numel(), SMS, windows)
+        sb, wsplit, span = fcp.wgrad_plan(n, T_out, s.wgrad_row.numel(), SMS, windows)
+        assert span == 0
         assert 1 <= wsplit <= min(fcp.MAX_SPLIT, n) and (sb == 1 or sb * T_out <= 32)
         shares = [list(range(z * n + n * r // wsplit, z * n + n * (r + 1) // wsplit))
                   for z in range(windows) for r in range(wsplit)]
