@@ -151,13 +151,17 @@ Phases, each of which exits non-zero on failure:
    ``vertex_error_from_rotmats``, ``save_mesh_obj`` through
    ``HM_VAE_SMPL_MODEL``, timed by ``utils/profiling.time_fn``;
 29. (run after 28) the backward over rows of any length: dgrad and wgrad
-   at the trajectory model's four K-31 levels at batch 1, T 7,200 and
-   batch 8, T 1,024, and at the len-64 model's stride-2 K-15 level at
-   batch 8, T 1,024 (all past one block's whole-row staging: spans), each
-   against its plain version and autograd, bit-equal on two runs, with the
-   plan its launch ran, timed as phase 5's; then 5 steps of the trajectory
-   model at train_seq_len 1,024 on the card against the CPU, under phase
-   13's gate (4 / 3 / 4 launches a step);
+   at the trajectory model's four K-31 levels at batch 1, T 7,200, batch
+   8, T 1,024 and batch 8, T 1,000 (a last item of 104 columns), and at
+   the len-64 model's stride-2 K-15 level at batch 8, T 1,024 (all past one
+   block's whole-row staging: spans), each against its plain version and
+   autograd, bit-equal on two runs, with the plan its launch ran (wgrad:
+   item width, stages, split, bytes), timed as phase 5's; the wgrad span
+   kernel timed, unrouted, beside the whole-row kernel at shapes whose rows
+   fit whole (the len-64 levels at batch 8 and 64, the trajectory's at
+   batch 8, T 128); then 5 steps of the trajectory model at train_seq_len
+   1,024 on the card against the CPU, under phase 13's gate (4 / 3 / 4
+   launches a step);
 30. data-parallel training over torch.distributed ranks started by
    ``python -m torch.distributed.run`` with ``HMVAE_DIST=1`` (the ranks run
    ``chip_smoke.py --rank-audit <report> <root> <runs.json>``, which runs
@@ -183,6 +187,10 @@ Phases, each of which exits non-zero on failure:
    Times of two ranks sharing the one card are labelled so: they are not
    scaling numbers;
 24. print the kernel summary line and, last, the device line.
+
+``python3 chip_smoke.py --long-backward`` runs phase 1 and then phase 29
+alone, and ends with the card's line: a short check of the backward
+kernels over long rows.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -458,7 +466,7 @@ def build_report(proc, cubin, kind):
             report.setdefault(key, {})["ptxas"] = line.split("info    :")[-1].strip()
         elif key and "spill" in line:
             report.setdefault(key, {})["spills"] = line.strip()
-        if "C7520" in line:
+        if "C7520" in line or "wgmma.mma_async instructions are serialized" in line:
             r = report.setdefault(kind(line), {})
             r["wgmma_serialized"] = r.get("wgmma_serialized", 0) + 1
     from hm_vae_torch.ops import _build
@@ -482,17 +490,18 @@ def bwd_kind(name):
     """dgrad ("dgrad_spans" for ``dgrad_kernel<true>``, "dgrad_fold" for the
     spans' padding adjoint), or wgrad by its tap tiles a warp: two (K <= 15,
     "wgrad"), three (K <= 23, "wgrad_nq3") or four (K <= 31, "wgrad_nq4",
-    the trajectory model's K 31), "wgrad_spans..." for
-    ``wgrad_span_kernel``."""
+    the trajectory model's K 31); ``wgrad_span_kernel`` by its m64 tiles a
+    warpgroup: "wgrad_spans_nt1" (K <= 15) or "wgrad_spans_nt2" (K <= 31)."""
     if "dgrad_fold" in name:
         return "dgrad_fold"
     if "dgrad" in name:
         return "dgrad_spans" if "ILb1E" in name else "dgrad"
-    kind = "wgrad_spans" if "wgrad_span" in name else "wgrad"
+    if "wgrad_span" in name:
+        return "wgrad_spans_nt2" if "ILi2E" in name else "wgrad_spans_nt1"
     for nq in (3, 4):
         if f"ILi{nq}E" in name:
-            return f"{kind}_nq{nq}"
-    return kind
+            return f"wgrad_nq{nq}"
+    return "wgrad"
 
 
 def ancestors_ok(ok):
@@ -779,6 +788,8 @@ def bwd_level_row(name, conv, T_in, batch, gen, with_wgrad=True):
     if with_wgrad:
         (gw, gb), (rw, rb) = wgrad(), w_plain()
         plan["wgrad"] = fcp.last_backward_plans()["wgrad"]
+        if plan["wgrad"]["span"]:
+            plan["wgrad"]["stages"] = fcp.WGRAD_SPAN_STAGES
         gw_a, gb_a = wgrad(ya)
         torch.cuda.synchronize()
         err_w = max(check(f"{name} wgrad", gw, rw, f32)[0],
@@ -2630,22 +2641,67 @@ def smpl_phase(model, seq, root_trans):
 # torch.distributed ranks (two ranks share the one card under gloo; NCCL runs
 # one rank)
 
-LONG_BWD_CASES = (("b1_t7200", 1, 7200), ("b8_t1024", 8, 1024))
+LONG_BWD_CASES = (("b1_t7200", 1, 7200), ("b8_t1024", 8, 1024), ("b8_t1000", 8, 1000))
 LONG_TRAIN_T = 1024  # the trajectory model's train_seq_len in long_backward's steps
 LONG_TRAIN_STEPS = 5
 
 
-def long_backward_phase(model, tmodel, gen):
+def span_vs_whole_rows(model, st, tmodel, gen):
+    """The wgrad span kernel (items of one batch's output columns, its own
+    plan) beside the whole-row kernel that these shapes' plans run, on the
+    same inputs, unrouted: the len-64 model's 8 levels at batch 8 and at the
+    production batch of 64, and the trajectory model's 4 levels at batch 8,
+    T 128.  Each row: both kernels' device ms, the span kernel's max |err|
+    against the plain version and its plan.  Returns {shape: rows}."""
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+
+    shapes = {f"len64_b{b}": [(f"{n}@b{b}", c, T, b) for n, c, T in level_cases(model, st)]
+              for b in (BATCH, PROD_BATCH)}
+    shapes["traj_b8_t128"] = [(f"traj{i}@b8_t128", getattr(tmodel.encoder, f"conv_{i}"), 128, 8)
+                              for i in range(len(tmodel.encoder.structure.levels))]
+    out = {}
+    for shape, cases in shapes.items():
+        for name, conv, T_in, batch in cases:
+            s, wf, bf, x, y, gy = bwd_inputs(conv, T_in, gen, batch)
+            K, stride = s.kernel_size, s.stride
+            plan = fcp.wgrad_span_plan(batch, y.shape[2], s.wgrad_row.numel(),
+                                       fcp._sm_count(torch.cuda.current_device()), 1,
+                                       fcp.wgrad_span_cols(K, stride))
+
+            def span():
+                return fcp._wgrad(gy, y, x, s, None, plan)
+
+            def whole():
+                return fcp.fused_conv_pool_wgrad(gy, y, x, s)
+
+            gw, gb = span()
+            rw, rb = fcp.fused_conv_pool_wgrad_reference(
+                gy, y, x, K, stride, s.padding, "reflect" if s.reflect else "constant",
+                s.negative_slope, s.live_elements())
+            err = check(f"{name} wgrad span kernel", gw, rw, torch.float32)[0]
+            if bf is not None:
+                err = max(err, check(f"{name} span bias grad", gb, rb, torch.float32)[0])
+            row = {"level": name, "batch": batch, "T_in": T_in, "max_abs_err": err,
+                   "span_ms": device_ms(span), "whole_ms": device_ms(whole),
+                   "plan": plan._asdict()}
+            print(json.dumps({"span_vs_whole": shape, **row}), flush=True)
+            out.setdefault(shape, []).append(row)
+    return out
+
+
+def long_backward_phase(model, st, tmodel, gen):
     """29. dgrad and wgrad over padded rows past one block's whole-row
-    staging: the trajectory model's four K-31 levels at batch 1, T 7,200
-    and batch 8, T 1,024, and the len-64 model's stride-2 K-15 level (enc1)
-    at batch 8, T 1,024 (the old limit: 256 / stride padded columns), each
-    against its plain version and autograd, bit-equal on two runs, timed,
-    with the plan its launch ran (spans); then LONG_TRAIN_STEPS steps of the
+    staging: the trajectory model's four K-31 levels at batch 1, T 7,200,
+    batch 8, T 1,024 and batch 8, T 1,000, and the len-64 model's stride-2
+    K-15 level (enc1) at batch 8, T 1,024 (the old limit: 256 / stride
+    padded columns), each against its plain version and autograd,
+    bit-equal on two runs, timed, with the plan its launch ran (spans); the
+    wgrad span kernel beside the whole-row one (:func:`span_vs_whole_rows`);
+    then LONG_TRAIN_STEPS steps of the
     trajectory model at train_seq_len 1,024 on the card against the CPU,
     under the training gate (:func:`train_phase`), on synthetic takes of
     1,100-1,500 frames.  Returns ({case: [rows over the levels]}, the train
-    row, the phase's row)."""
+    row, the phase's row with the span-vs-whole rows)."""
     from hm_vae_torch.data import synthetic
 
     t_phase = time.perf_counter()
@@ -2662,6 +2718,7 @@ def long_backward_phase(model, tmodel, gen):
             if not (r["dgrad"]["plan"]["span"] > 0 and r["wgrad"]["plan"]["span"] > 0):
                 fail(f"long_backward {r['level']}: plans {r['dgrad']['plan']} / "
                      f"{r['wgrad']['plan']} stage whole rows")
+    span_vs_whole = span_vs_whole_rows(model, st, tmodel, gen)
     data_root = os.path.join(OUT_DIR, "long_train_data")
     shutil.rmtree(data_root, ignore_errors=True)
     synthetic.generate_dataset(data_root, num_seqs=10, min_len=1100, max_len=1500, seed=SEED)
@@ -2676,6 +2733,9 @@ def long_backward_phase(model, tmodel, gen):
                                                for c, rs in rows.items()},
            "plans": {r["level"]: {"dgrad": r["dgrad"]["plan"], "wgrad": r["wgrad"]["plan"]}
                      for rs in rows.values() for r in rs},
+           "span_vs_whole": {shape: {"span_ms": sum(r["span_ms"] for r in rs),
+                                     "whole_ms": sum(r["whole_ms"] for r in rs)}
+                             for shape, rs in span_vs_whole.items()},
            "train_steps": LONG_TRAIN_STEPS, "train_seq_len": LONG_TRAIN_T,
            "elapsed_s": time.perf_counter() - t_phase}
     print(json.dumps(row), flush=True)
@@ -3261,15 +3321,27 @@ def main() -> None:
     print(json.dumps({"phase": "build_report", **report}), flush=True)
     if not report["fused_conv_pool"].get("bf16", {}).get("hgmma"):
         fail("the bf16 instantiation has no HGMMA (wgmma) instruction")
-    for what in ("dgrad", "dgrad_spans", "wgrad", "wgrad_nq4", "wgrad_spans", "wgrad_spans_nq4"):
+    for what in ("dgrad", "dgrad_spans", "wgrad", "wgrad_nq4", "wgrad_spans_nt1",
+                 "wgrad_spans_nt2"):
         r = report["fused_conv_pool_bwd"].get(what, {})
         if not (r.get("hgmma") or r.get("hmma")):
             fail(f"the {what} kernel has no HGMMA or HMMA (tensor-core) instruction")
+        if r.get("wgmma_serialized"):
+            fail(f"ptxas serialized the {what} kernel's wgmma: {r}")
 
     cfg = load_config(CONFIG)
     st = get_structure(cfg.model)
     gen = torch.Generator().manual_seed(SEED)
     model = HMVAE(cfg.model, cfg.optim.init, generator=gen).to(DEV)
+    if sys.argv[1:2] == ["--long-backward"]:  # phase 29 alone
+        from hm_vae_torch.models.trajectory import TrajectoryModel
+
+        tcfg = load_config(TRAJ_CONFIG)
+        tmodel = TrajectoryModel(tcfg.model, tcfg.optim.init,
+                                 generator=torch.Generator().manual_seed(SEED)).to(DEV)
+        long_backward_phase(model, st, tmodel, gen)
+        print(smi, flush=True)
+        return
 
     elapsed("1")
     # 2. kernel against its plain version at the main path's shapes: the
@@ -3409,7 +3481,7 @@ def main() -> None:
     elapsed("28")
     # 29. the backward over rows of any length: dgrad and wgrad spans at the
     #     trajectory levels and a stride-2 level, trajectory training at T 1,024
-    long_bwd, long_train, _ = long_backward_phase(model, tmodel, gen)
+    long_bwd, long_train, long_bwd_row = long_backward_phase(model, st, tmodel, gen)
     elapsed("29")
     # 30-32. the parallel package over torch.distributed ranks (torchrun):
     #     data-parallel training (two gloo ranks on the card, the CLI, one
@@ -3612,12 +3684,17 @@ def main() -> None:
             **total([r[what] for r in main_rows]), "plan": main_rows[0][what]["plan"],
             "b1_t7200": {**total([r[what] for r in long_bwd["b1_t7200"]]),
                          "plan": long_bwd["b1_t7200"][0][what]["plan"]},
+            "b8_t1000": {**total([r[what] for r in long_bwd["b8_t1000"]]),
+                         "plan": long_bwd["b8_t1000"][0][what]["plan"]},
             "enc1_b8_t1024": {**total([r[what] for r in long_bwd["enc1_b8_t1024"]]),
                               "plan": long_bwd["enc1_b8_t1024"][0][what]["plan"]},
+            **({"span_vs_whole": long_bwd_row["span_vs_whole"]} if what == "wgrad" else {}),
             "note": "f32, rows past one block's whole-row staging, run as spans (plan); top "
                     "level: sums over the trajectory model's 4 K-31 levels at batch 8, T 1,024; "
-                    "\"b1_t7200\": the same at batch 1, T 7,200; \"enc1_b8_t1024\": the "
-                    "len-64 model's stride-2 K-15 level at batch 8, T 1,024; launches: per "
+                    "\"b1_t7200\", \"b8_t1000\": the same at batch 1, T 7,200 and batch 8, "
+                    "T 1,000; \"enc1_b8_t1024\": the len-64 model's stride-2 K-15 level at "
+                    "batch 8, T 1,024; \"span_vs_whole\" (wgrad): the span kernel, unrouted, "
+                    "beside the whole-row kernel at shapes whose rows fit whole; launches: per "
                     f"step of the trajectory model's training at train_seq_len {LONG_TRAIN_T} "
                     "(phase 29); times: device time from CUDA-graph replays; library_ms: "
                     f"{lib} on the folded weight, TF32 off"})

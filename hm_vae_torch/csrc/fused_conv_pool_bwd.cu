@@ -49,7 +49,9 @@
 //   reduction runs over the rows p) and its g operand is g shifted by the
 //   tap; both kernels' tiles are narrow (8 channels, 64 rows).  mma.sync's
 //   fragments are loaded by each lane from shared memory in whatever layout
-//   is staged;
+//   is staged.  wgrad over long rows (wgrad_span_kernel) runs wgmma with A
+//   from registers: its transposed product takes x's taps as A and g's
+//   tile, K-major along time, as B;
 // - every copy from global memory is a cp.async.bulk onto an mbarrier, and
 //   the next stage's copies are in flight while the current stage
 //   multiplies: dgrad keeps two weight stages and refills its one stage of
@@ -98,10 +100,16 @@
 //   the mma's fragment order, so each lane reads its A fragment as two
 //   16-byte loads.  Where x's rows of a block do not fit shared memory
 //   (long rows, even at batch 1), wgrad_span_kernel splits the reduction
-//   over time as well: items of one batch's 64 output columns, contiguous
-//   runs of them over the cluster, each staged alone (x's padded columns
-//   of the span and g's fragments); its partial tiles are summed in rank
-//   order as above, so the bits are the same on every run;
+//   over time as well: items of one batch's output columns (128 where two
+//   stages fit, as at K 31), contiguous runs of them over the cluster.
+//   Each item's operands arrive by bulk copies (gy's and y's as 2D tensor
+//   boxes) two items ahead, and its products are wgmma with the gradient
+//   transposed (rows (tap, channel): x's taps in registers; columns p: g
+//   split into a shared-memory tile a 32-column chunk at a time), 3xTF32,
+//   the tensor cores' sums added in f32 after every chunk.  The products
+//   and then the next chunk's build set its pace, not the copies
+//   (PERF.md).  Its partial tiles are summed in rank order as above, so the
+//   bits are the same on every run;
 // - windows: the test-time solver gives every window of its batch its own
 //   decoder clone (hm_vae_tpu/apps/latent_opt.py, jax.vmap over windows
 //   with the decoder on axis 0).  Both kernels then take `windows` weights
@@ -120,6 +128,8 @@
 // are in PERF.md.
 
 #include <cooperative_groups.h>
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 
 #include <stddef.h>
@@ -189,6 +199,17 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// One box (columns x0.., rows y0..) of a 2D tensor map into shared memory,
+// completing on `bar`; the map is a __grid_constant__ kernel parameter.
+__device__ __forceinline__ void tensor_copy(void* dst, const CUtensorMap* map, int x0, int y0,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], "
+      "[%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x0), "r"(y0), "r"(smem_addr(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ void fence_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -222,6 +243,45 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       "{%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// wgmma shared-memory descriptor, no swizzle, K-major: core matrices of
+// 8 rows x 16 bytes; the two along k 128 bytes apart (leading byte offset),
+// row groups of 8 rows 256 bytes apart (stride byte offset), as the
+// forward's (fused_conv_pool.cu).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32);
+}
+
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define HMVAE_D32                                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define HMVAE_ACC32(d)                                                                      \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),       \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// d = A (64 x 8, tf32, in registers) * B (8 x 64, tf32, K-major in shared
+// memory) + (acc ? d : 0).  Warp w of the warpgroup holds A's rows
+// 16w..16w+15: a[0] row lane/4, column lane%4; a[1] row lane/4 + 8; a[2],
+// a[3] the same rows at column lane%4 + 4.  d[i]: row 16w + lane/4 (+8 if
+// i&2), column 8*(i/4) + 2*(lane%4) + (i&1).
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " HMVAE_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : HMVAE_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
 // The smallest row stride >= len (in 8-byte words) that is 4 mod 16: a
@@ -653,33 +713,15 @@ __device__ __forceinline__ void wgrad_kstep(float (&sum)[4][NQ][4], const float2
       for (int r = 0; r < 4; ++r) sum[a][qq][r] += acc[a][qq][r];
 }
 
-// The block's partial gradient tile -> red[p][c*K + k] (bias at 8*K), over
-// shared memory no longer read; then block `rank` sums its rows over the
-// cluster in rank order and stores them, 16 bytes at a time (row p's chunk
-// is 8*K contiguous floats of gw).  A block alone in its cluster skips the
-// cluster barriers.  The caller has synchronised the block.
-template <int NQ>
-__device__ __forceinline__ void wgrad_store(const float (&sum)[4][NQ][4], float* red, int rj,
-                                            cg::cluster_group& cluster, int rank, int split,
-                                            bool has_x, bool writes_bias, int nrows, int p0,
-                                            int c0, int C, int K, float* gw_w, float* gb_w) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int qq = 0; qq < NQ; ++qq) {
-      const int q = warp + kWarps * qq;
-      if (q > K) continue;
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int p = a * 16 + gid + ((r & 2) ? 8 : 0), c = 2 * tig + (r & 1);
-        if (q < K)
-          red[p * rj + c * K + q] = sum[a][qq][r];
-        else if (c == 0)
-          red[p * rj + kCC * K] = sum[a][qq][r];
-      }
-    }
+// Block `rank` sums its rows of the cluster's partial gradient tiles
+// red[p][c*K + k] (bias at 8*K) in rank order and stores them, 16 bytes at
+// a time (row p's chunk is 8*K contiguous floats of gw).  A block alone in
+// its cluster skips the cluster barriers.  The caller has written its tile.
+__device__ __forceinline__ void wgrad_reduce(float* red, int rj, cg::cluster_group& cluster,
+                                             int rank, int split, bool has_x, bool writes_bias,
+                                             int nrows, int p0, int c0, int C, int K,
+                                             float* gw_w, float* gb_w) {
+  const int tid = threadIdx.x;
   if (split > 1)
     cluster.sync();  // every block's partial tile is in its shared memory
   else
@@ -711,6 +753,35 @@ __device__ __forceinline__ void wgrad_store(const float (&sum)[4][NQ][4], float*
     gb_w[p0 + r_lo + tid] = v;
   }
   if (split > 1) cluster.sync();  // no block leaves while another reads its partial tile
+}
+
+// The block's partial gradient tile (wgrad_kstep's sums) -> red, over
+// shared memory no longer read, then wgrad_reduce.  The caller has
+// synchronised the block.
+template <int NQ>
+__device__ __forceinline__ void wgrad_store(const float (&sum)[4][NQ][4], float* red, int rj,
+                                            cg::cluster_group& cluster, int rank, int split,
+                                            bool has_x, bool writes_bias, int nrows, int p0,
+                                            int c0, int C, int K, float* gw_w, float* gb_w) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int qq = 0; qq < NQ; ++qq) {
+      const int q = warp + kWarps * qq;
+      if (q > K) continue;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int p = a * 16 + gid + ((r & 2) ? 8 : 0), c = 2 * tig + (r & 1);
+        if (q < K)
+          red[p * rj + c * K + q] = sum[a][qq][r];
+        else if (c == 0)
+          red[p * rj + kCC * K] = sum[a][qq][r];
+      }
+    }
+  wgrad_reduce(red, rj, cluster, rank, split, has_x, writes_bias, nrows, p0, c0, C, K, gw_w,
+               gb_w);
 }
 
 // The padded column u of x's row `row` (batch b, channel c0 + row): x under
@@ -877,47 +948,99 @@ wgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
 }
 
 // wgrad over rows of any length: a block's reduction runs over items of
-// one batch's kSpanCols output columns (a window's batches x column spans,
-// contiguous runs of them split over the cluster), one item at a time,
-// read straight from device memory into x's padded columns of the span and
-// g's fragments.  Its shared memory depends on K and stride only.
-constexpr int kSpanCols = 64;
+// one batch's `span` output columns (a window's batches x column spans,
+// contiguous runs of them split over the cluster), its shared memory
+// independent of T.  An item's operands arrive by bulk copies onto its
+// stage's barrier, kSpanStages items in flight, issued by warp 0's lanes:
+// gy's and y's 64 rows of the row tile over the item's columns as 2D
+// tensor copies, one box of kSpanChunk columns each (128-byte swizzle, so
+// that a warp reading 8 rows at one column hits 32 banks; one copy a row
+// had cost a block ~4 us an item in copy issue, PERF.md), and x's 8 channel
+// rows over the unpadded window the item's taps read (the padding
+// resolved: reflect folds padded columns back into the row), widened to
+// 16-byte granules, one bulk copy a row.  The block then pads and splits the
+// item's x by stride phase into TF32 big + small (xp, two buffers), and
+// splits g = gy * act'(y) kSpanChunk columns at a time into the products'
+// B tile (two buffers).  The products are wgmma, not wgrad_kstep's
+// mma.sync, which kept a block's tensor cores a third busy (PERF.md): the
+// gradient transposed, rows (tap, channel) = x's taps read from xp into
+// registers, columns p = g's tile in shared memory, 3xTF32.  The warps
+// issue one chunk's products, build the next chunk (with the next item's x
+// at an item's first chunk) while they run, then add their sums; one
+// __syncthreads a chunk orders both.  An item's stage takes the copies of
+// the item kSpanStages on as soon as its last chunk is built, so they land
+// while the products of the chunks between run.
+constexpr int kSpanCols = 128;  // the widest item (WGRAD_SPAN_COLS)
+constexpr int kSpanChunk = 32;  // g's columns split into a B tile at a time: 4 k-steps
+constexpr int kSpanStages = 2;  // items whose copies are in flight
+
+constexpr int kBox = kRows * kSpanChunk * 4;  // bytes of a box of gy or y: 64 rows x 32 columns
 
 struct WgradSpanLayout {
-  int Lh, rsx, rj;
-  size_t xp, gf, red, total;  // byte offsets in shared memory
+  int Lh, rsx, rj;  // xp: a stride phase's padded columns, a row (8-byte words); a gradient row
+  int xr;           // a staged row of x's window (floats)
+  size_t stage, st, xp, bt, red, total;  // a stage's bytes; byte offsets in shared memory
 };
 
-__host__ __device__ inline WgradSpanLayout wgrad_span_layout(int K, int stride) {
+// A stage: gy's boxes, then y's (span / kSpanChunk each), then x's 8 rows
+// of the window.  The window of an item's columns never holds more than
+// the (span - 1)*stride + K padded columns its taps read (reflected columns
+// lie inside the direct ones), plus up to 3 a side for the granules.  The
+// stages start at the first 1024-byte boundary past the barriers (the
+// swizzle's period); st is the furthest that can be.
+__host__ __device__ inline WgradSpanLayout wgrad_span_layout(int K, int stride, int span) {
   WgradSpanLayout L;
-  L.Lh = ((kSpanCols - 1) * stride + K + stride - 1) / stride;
+  const int Lx = (span - 1) * stride + K;  // padded columns of an item's taps
+  L.Lh = (Lx + stride - 1) / stride;
   L.rsx = frag_stride(stride * L.Lh);
   L.rj = kCC * K + 4;
-  L.xp = 64;
-  L.gf = L.xp + align16(size_t(kCC) * L.rsx * 8);
-  const size_t frag_end = L.gf + size_t(kSpanCols / 8) * 4 * 32 * 8 * 4;
-  L.red = 64;  // the partial tile, over x and the fragments at the end
+  L.xr = (Lx + 6 + 3) / 4 * 4;
+  L.stage = (size_t(2) * span / kSpanChunk * kBox + size_t(kCC) * L.xr * 4 + 1023) & ~size_t(1023);
+  L.st = 64 + 1024;
+  L.xp = L.st + kSpanStages * L.stage;
+  L.bt = L.xp + align16(size_t(2) * kCC * L.rsx * 8);
+  const size_t bt_end = L.bt + size_t(2) * 2 * (kSpanChunk / 8) * kRows * 8 * 4;  // B tiles
+  L.red = 64;  // the partial tile, over the stages at the end
   const size_t red_end = L.red + size_t(kRows) * L.rj * 4;
-  L.total = frag_end > red_end ? frag_end : red_end;
+  L.total = bt_end > red_end ? bt_end : red_end;
   return L;
 }
 
-template <int NQ>
+// The columns [lo, hi] of x's unpadded row that the output columns
+// [t_lo, t_lo + nt) read, the padding resolved (hi < lo: none).
+__device__ __forceinline__ void span_window(int t_lo, int nt, int T_in, int K, int stride,
+                                            int padding, int reflect, int& lo, int& hi) {
+  const int s0 = t_lo * stride - padding, s1 = s0 + (nt - 1) * stride + K - 1;
+  lo = max(s0, 0);
+  hi = min(s1, T_in - 1);
+  if (lo > hi) lo = T_in, hi = -1;
+  if (reflect && s0 < 0) lo = min(lo, -min(s1, -1)), hi = max(hi, -s0);
+  if (reflect && s1 >= T_in)
+    lo = min(lo, 2 * T_in - 2 - s1), hi = max(hi, 2 * T_in - 2 - max(s0, T_in));
+}
+
+// NT m64 tiles of (tap, channel) rows a warpgroup: 1 up to K = 15, 2 up to 31
+template <int NT>
 __global__ void __launch_bounds__(kThreads, 1)
-wgrad_span_kernel(const float* __restrict__ gy, const float* __restrict__ y,
-                  const float* __restrict__ x, const int* __restrict__ wrow,
-                  const int* __restrict__ wchunk, float* __restrict__ gw,
-                  float* __restrict__ gb, int B, int C, int T_in, int K, int P, int T_out,
-                  int t_ld, int stride, int padding, int reflect, float slope) {
+wgrad_span_kernel(const __grid_constant__ CUtensorMap gy_map,
+                  const __grid_constant__ CUtensorMap y_map, const float* __restrict__ x,
+                  const int* __restrict__ wrow, const int* __restrict__ wchunk,
+                  float* __restrict__ gw, float* __restrict__ gb, int B, int C, int T_in, int K,
+                  int P, int T_out, int stride, int padding, int reflect, float slope,
+                  int span) {
   count_run(&g_runs[1]);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int split = static_cast<int>(cluster.num_blocks());
-  const WgradSpanLayout L = wgrad_span_layout(K, stride);
+  const WgradSpanLayout L = wgrad_span_layout(K, stride, span);
+  constexpr int kPlane = kSpanChunk / 8 * 2048;  // bytes of a chunk's B plane: 2 KB a k-step
 
   extern __shared__ __align__(128) unsigned char smem[];
-  float2* xp = reinterpret_cast<float2*>(smem + L.xp);  // [8][rsx]
-  float4* gf = reinterpret_cast<float4*>(smem + L.gf);  // [kSpanCols/8][4][32][2]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // [kSpanStages]
+  // [kSpanStages]: gy, y [span / kSpanChunk][64 rows][kSpanChunk], swizzled; x [8][xr]
+  unsigned char* st = smem + (((smem_addr(smem) + 64 + 1023) & ~1023u) - smem_addr(smem));
+  float2* xp = reinterpret_cast<float2*>(smem + L.xp);  // [2][8][rsx]
+  unsigned char* bt = smem + L.bt;                       // [2][big, small plane]
   float* red = reinterpret_cast<float*>(smem + L.red);  // [64][rj], last
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -931,80 +1054,253 @@ wgrad_span_kernel(const float* __restrict__ gy, const float* __restrict__ y,
   const int win = static_cast<int>(blockIdx.z);
   float* gw_w = gw + size_t(win) * P * C * K;
   float* gb_w = gb + size_t(win) * P;
-  const int nch = (T_out + kSpanCols - 1) / kSpanCols;
+  const int nch = (T_out + span - 1) / span;
   const int items = B * nch;
-  const int it_lo = items * rank / split, it_hi = items * (rank + 1) / split;
+  const int it_lo = items * rank / split, n_items = items * (rank + 1) / split - it_lo;
+  const int boxes = span / kSpanChunk;  // of gy (or y) in a stage
 
-  float sum[4][NQ][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int qq = 0; qq < NQ; ++qq)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) sum[a][qq][r] = 0.f;
-  int koff[NQ];
-#pragma unroll
-  for (int qq = 0; qq < NQ; ++qq) {
-    const int q = warp + kWarps * qq;
-    koff[qq] = (q % stride) * L.Lh + q / stride;
-  }
+  // The block's item i: its batch b, first output column t_lo; returns its columns.
+  auto item_of = [&](int i, int& b, int& t_lo) {
+    const int item = it_lo + i;
+    b = win * B + item / nch;
+    t_lo = (item % nch) * span;
+    return min(span, T_out - t_lo);
+  };
+  auto chunks = [&](int i) {
+    int b, t_lo;
+    return (item_of(i, b, t_lo) + kSpanChunk - 1) / kSpanChunk;
+  };
 
-  for (int item = it_lo; item < it_hi; ++item) {
-    const int b = win * B + item / nch, t_lo = (item % nch) * kSpanCols;
-    const int nt = min(kSpanCols, T_out - t_lo), n_ks = (nt + 7) / 8;
-    __syncthreads();  // the previous item's x and fragments are read
-    // x's padded columns t_lo*stride + u of the span, split by stride phase
-    // as wgrad_kernel splits whole rows
-    for (int q = tid; q < kCC * stride * L.Lh; q += kThreads) {
-      const int row = q / (stride * L.Lh), idx = q - row * (stride * L.Lh);
-      const int ph = idx / L.Lh, u = t_lo * stride + (idx - ph * L.Lh) * stride + ph;
-      const float v =
-          has_x ? padded_x(x + (size_t(b) * C + c0 + row) * T_in, u, T_in, padding, reflect)
-                : 0.f;
-      xp[row * L.rsx + idx] = split_tf32(v);
+  // Item i's copies into stage `slot`, by warp 0's lanes: the boxes of gy
+  // and y over the item's columns (rows past the tile or the tensor are
+  // masked or zero-filled, columns past T_out masked), x's rows from the
+  // granule holding the window's first column.
+  auto issue = [&](int i, int slot) {
+    int b, t_lo;
+    const int nt = item_of(i, b, t_lo);
+    unsigned char* dst = st + slot * L.stage;
+    const int nbox = (nt + kSpanChunk - 1) / kSpanChunk;
+    int lo, hi;
+    span_window(t_lo, nt, T_in, K, stride, padding, reflect, lo, hi);
+    uint32_t x_bytes = 0;
+    size_t g0 = 0;
+    if (has_x && lane < kCC && hi >= lo) {
+      const size_t e0 = (size_t(b) * C + c0 + lane) * T_in + lo;
+      g0 = e0 / 4;
+      x_bytes = static_cast<uint32_t>((e0 + hi - lo) / 4 - g0 + 1) * 16;
     }
-    // g = gy * act'(y), split, in the A fragments' order (as wgrad_kernel)
-    for (int it = tid; it < n_ks * 4 * 32; it += kThreads) {
-      const int ln = it & 31, mt = (it >> 5) & 3, ks = it >> 7;
-      const int r0 = mt * 16 + (ln >> 2), n0 = ks * 8 + (ln & 3);
-      float v[4];
+    const uint32_t bytes = 2 * nbox * kBox + __reduce_add_sync(0xffffffffu, x_bytes);
+    if (lane == 0) mbar_expect(smem_addr(bars + slot), bytes);
+    fence_async();  // the stage's reads by the block come before these writes
+    if (lane < 2 * nbox) {
+      const int which = lane >= nbox, jb = lane - which * nbox;
+      tensor_copy(dst + (which * boxes + jb) * kBox, which ? &y_map : &gy_map,
+                  t_lo + jb * kSpanChunk, b * P + p0, bars + slot);
+    }
+    if (x_bytes > 0)
+      bulk_copy(dst + 2 * boxes * kBox + lane * L.xr * 4, x + g0 * 4, x_bytes, bars + slot);
+  };
+  // Once item i's chunk j is built: after its last, its stage takes the
+  // item kSpanStages on.  The block has synchronised.
+  auto refill = [&](int i, int j) {
+    if (warp == 0 && j == chunks(i) - 1 && i + kSpanStages < n_items)
+      issue(i + kSpanStages, i % kSpanStages);
+  };
+
+  // Item i's x, padded and split by stride phase as wgrad_kernel splits
+  // whole rows: the item's padded column u at xp[i & 1][row][(u % stride)*Lh
+  // + u/stride]; zeros under a zero padding and past the window (columns
+  // whose g is zero).
+  auto build_x = [&](int i) {
+    int b, t_lo;
+    const int nt = item_of(i, b, t_lo);
+    int lo, hi;
+    span_window(t_lo, nt, T_in, K, stride, padding, reflect, lo, hi);
+    const float* xs =
+        reinterpret_cast<const float*>(st + (i % kSpanStages) * L.stage + 2 * boxes * kBox);
+    float2* xo = xp + (i & 1) * kCC * L.rsx;
+    const int w = stride * L.Lh;
+    for (int q = tid; q < kCC * w; q += kThreads) {
+      const int row = q / w, idx = q - row * w;
+      const int ph = idx / L.Lh, u = t_lo * stride + (idx - ph * L.Lh) * stride + ph;
+      int s = u - padding;
+      if (reflect && (s < 0 || s >= T_in) && u < T_in + 2 * padding)
+        s = s < 0 ? -s : 2 * (T_in - 1) - s;
+      float v = 0.f;
+      if (has_x && s >= lo && s <= hi) {
+        const int a = static_cast<int>(((size_t(b) * C + c0 + row) * T_in + lo) & 3);
+        v = xs[row * L.xr + s - lo + a];
+      }
+      xo[row * L.rsx + idx] = split_tf32(v);
+    }
+  };
+  // Chunk j of item i's g = gy * act'(y), split into TF32 big + small, as
+  // the products' B operand in buffer `buf`: 64 rows p x kSpanChunk columns
+  // t, K-major in 8x16-byte core matrices (the two of a k-step 128 bytes
+  // apart, row groups 256 bytes apart, k-steps 2 KB apart), the small plane
+  // after the big; zeros past the item's columns and the tile's rows.  A
+  // thread takes a row's 4 columns (16-byte group grp of the row's 128
+  // bytes in box j, at grp ^ (row % 8) under the swizzle); consecutive
+  // lanes consecutive rows.
+  auto build_g = [&](int i, int j, int buf) {
+    int b, t_lo;
+    const int nt = item_of(i, b, t_lo);
+    const unsigned char* gs = st + (i % kSpanStages) * L.stage + j * kBox;
+    const unsigned char* ys = gs + boxes * kBox;
+    unsigned char* out = bt + buf * 2 * kPlane;
+    for (int q = tid; q < kRows * kSpanChunk / 4; q += kThreads) {
+      const int r = q % kRows, grp = q / kRows, n = j * kSpanChunk + 4 * grp;
+      float4 big = make_float4(0.f, 0.f, 0.f, 0.f), small = big;
+      if (r < nrows) {
+        const int o = r * 128 + ((grp ^ (r & 7)) << 4);
+        const float4 g4 = *reinterpret_cast<const float4*>(gs + o);
+        const float4 y4 = *reinterpret_cast<const float4*>(ys + o);
+        const float gv[4] = {g4.x, g4.y, g4.z, g4.w}, yv[4] = {y4.x, y4.y, y4.z, y4.w};
+        float* bv = reinterpret_cast<float*>(&big);
+        float* sv = reinterpret_cast<float*>(&small);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int n = n0 + 4 * h;
-#pragma unroll
-        for (int lo = 0; lo < 2; ++lo) {
-          const int r = r0 + 8 * lo;
-          const size_t o = (size_t(b) * P + p0 + r) * t_ld + t_lo + n;
-          v[2 * h + lo] = n < nt && r < nrows ? act_grad(gy[o], y[o], slope) : 0.f;
+        for (int q4 = 0; q4 < 4; ++q4) {
+          const float2 s = split_tf32(n + q4 < nt ? act_grad(gv[q4], yv[q4], slope) : 0.f);
+          bv[q4] = s.x;
+          sv[q4] = s.y;
         }
       }
-      float4 hi, lo;
-      float* hv = reinterpret_cast<float*>(&hi);
-      float* lv = reinterpret_cast<float*>(&lo);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float2 s = split_tf32(v[q]);
-        hv[q] = s.x;
-        lv[q] = s.y;
-      }
-      gf[2 * it] = hi;
-      gf[2 * it + 1] = lo;
+      const int off = (grp >> 1) * 2048 + (grp & 1) * 128 + (r >> 3) * 256 + (r & 7) * 16;
+      *reinterpret_cast<float4*>(out + off) = big;
+      *reinterpret_cast<float4*>(out + kPlane + off) = small;
     }
-    __syncthreads();  // x and the fragments are staged
-    for (int ks = 0; ks < n_ks; ++ks) {
-      int xb[2];
+  };
+
+  // The products: gW^T (rows (k, c) = 8k + c, columns p) = X (rows (k, c),
+  // the reduction over t) * g^T, on wgmma m64n64k8 in 3xTF32.  Warpgroup wg
+  // takes the NT m64 tiles of taps 8*(wg*NT + mt) ..; its warp w the taps
+  // kb[mt] and kb[mt] + 1 (A rows 16w + lane/4 and + 8, channel lane/4).
+  // A is x at the lane's columns, read from xp into registers (the bias
+  // tap: ones at channel 0; taps past it: zeros); B the chunk's g tile.
+  const int wg = warp >> 2, w4 = warp & 3;
+  int kb[NT], koff[NT][2];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int n = ks * 8 + tig + 4 * h;
-        xb[h] = gid * L.rsx + (n < nt ? n : 0);  // past the span: column 0, g is zero
-      }
-      wgrad_kstep<NQ>(sum, xp, gf, xb, koff, ks, K, warp, lane);
+  for (int mt = 0; mt < NT; ++mt) {
+    kb[mt] = (wg * NT + mt) * 8 + 2 * w4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = kb[mt] + h;
+      koff[mt][h] = (k % stride) * L.Lh + k / stride;
     }
   }
+  float acc[NT][32], sum[NT][32];
+#pragma unroll
+  for (int mt = 0; mt < NT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 32; ++r) acc[mt][r] = sum[mt][r] = 0.f;
+  // A at k-step ks of chunk j of item i: big and small parts; columns past
+  // the item read column 0 (their g is zero)
+  auto load_a = [&](uint32_t (&ab)[NT][4], uint32_t (&as)[NT][4], int i, int j, int ks) {
+    int b, t_lo;
+    const int left = item_of(i, b, t_lo) - j * kSpanChunk;
+    const float2* xi = xp + (i & 1) * kCC * L.rsx + gid * L.rsx;
+#pragma unroll
+    for (int mt = 0; mt < NT; ++mt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int h = q & 1, col = ks * 8 + tig + 4 * (q >> 1), k = kb[mt] + h;
+        const int n = col < left ? j * kSpanChunk + col : 0;
+        const float2 v =
+            k < K ? xi[koff[mt][h] + n] : make_float2(k == K && gid == 0 ? 1.f : 0.f, 0.f);
+        ab[mt][q] = __float_as_uint(v.x);
+        as[mt][q] = __float_as_uint(v.y);
+      }
+  };
+  // Chunk c = (item i, chunk j) from B buffer `buf`: every k-step's three
+  // products issued, the A registers of one k-step loaded while the one
+  // before multiplies; the last k-step's products are left in flight.
+  auto issue_products = [&](int i, int j, int buf) {
+    const uint32_t b0 = smem_addr(bt + buf * 2 * kPlane);
+    uint32_t ab[2][NT][4], as[2][NT][4];
+    load_a(ab[0], as[0], i, j, 0);
+#pragma unroll
+    for (int ks = 0; ks < kSpanChunk / 8; ++ks) {
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int mt = 0; mt < NT; ++mt) {
+        const uint32_t big = b0 + ks * 2048;
+        wgmma_rs_tf32(acc[mt], as[ks & 1][mt], gmma_desc(big), ks > 0);
+        wgmma_rs_tf32(acc[mt], ab[ks & 1][mt], gmma_desc(big + kPlane), 1);
+        wgmma_rs_tf32(acc[mt], ab[ks & 1][mt], gmma_desc(big), 1);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      if (ks + 1 < kSpanChunk / 8) {
+        // the k-step before has finished: its A registers take the next one's
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        load_a(ab[(ks + 1) & 1], as[(ks + 1) & 1], i, j, ks + 1);
+      }
+    }
+  };
+  // The chunk's products done: its sums added in f32, so that no
+  // tensor-core sum runs longer than a chunk.
+  auto finish_products = [&]() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int mt = 0; mt < NT; ++mt) {
+      fence_acc(acc[mt]);
+#pragma unroll
+      for (int r = 0; r < 32; ++r) sum[mt][r] += acc[mt][r];
+    }
+  };
 
+  if (tid == 0) {
+    for (int s = 0; s < kSpanStages; ++s) mbar_init(smem_addr(bars + s), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  wgrad_store<NQ>(sum, red, L.rj, cluster, rank, split, has_x, writes_bias, nrows, p0, c0, C, K,
-                  gw_w, gb_w);
+  if (warp == 0)
+    for (int i = 0; i < kSpanStages && i < n_items; ++i) issue(i, i);
+  if (n_items > 0) {
+    mbar_wait(smem_addr(bars), 0);
+    build_x(0);
+    build_g(0, 0, 0);
+  }
+  fence_async();    // the B tile's writes before the products read it
+  __syncthreads();  // the first item's x and first chunk are staged
+  if (n_items > 0) refill(0, 0);
+
+  // Chunk c (item i, chunk j): the warps issue its products, build chunk
+  // c + 1 (and, at an item's first chunk, its x) while they run, then add
+  // their sums.
+  int nc = n_items > 0 ? chunks(0) : 0;
+#pragma unroll 1
+  for (int i = 0, j = 0, c = 0; i < n_items; ++c) {
+    int ni = i, nj = j + 1, nnc = nc;
+    if (nj == nc) ni = i + 1, nj = 0;
+    const bool next = ni < n_items;
+    issue_products(i, j, c & 1);
+    if (next && nj == 0) {
+      mbar_wait(smem_addr(bars + ni % kSpanStages), (ni / kSpanStages) & 1);
+      build_x(ni);
+      nnc = chunks(ni);
+    }
+    if (next) build_g(ni, nj, (c + 1) & 1);
+    fence_async();  // the B tile's writes before the products read it
+    finish_products();
+    __syncthreads();  // chunk c and its x are read; chunk c + 1 is staged
+    if (next) refill(ni, nj);
+    i = ni, j = nj, nc = nnc;
+  }
+
+  // the partial tile -> red (over the stages, no longer read): gW[p, c, k]
+  // at p*rj + c*K + k, the bias (tap K, channel 0) at p*rj + 8K
+#pragma unroll
+  for (int mt = 0; mt < NT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      const int k = kb[mt] + ((r >> 1) & 1), p = 8 * (r >> 2) + 2 * tig + (r & 1);
+      if (k < K)
+        red[p * L.rj + gid * K + k] = sum[mt][r];
+      else if (k == K && gid == 0)
+        red[p * L.rj + kCC * K] = sum[mt][r];
+    }
+  wgrad_reduce(red, L.rj, cluster, rank, split, has_x, writes_bias, nrows, p0, c0, C, K, gw_w,
+               gb_w);
 }
 
 // Sets a kernel's shared-memory cap once per device.
@@ -1046,6 +1342,32 @@ cudaError_t launch_cluster(Kernel kernel, dim3 grid, int cluster_z, int cluster_
   cfg.numAttrs = 1;
   cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// A 2D tensor map over `rows` rows of t_ld floats (gy or y of the span
+// kernel): boxes of kSpanChunk columns x 64 rows, 128-byte swizzle.
+// cuTensorMapEncodeTiled is looked up once through the runtime's entry-point
+// query (no link against libcuda).  False where it is missing or refuses
+// the map.
+bool span_row_map(CUtensorMap* map, const void* base, int t_ld, long long rows) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return false;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(t_ld), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(t_ld) * 4};
+  const cuuint32_t box[2] = {kSpanChunk, kRows};
+  const cuuint32_t steps[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims, strides,
+                box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // The plans of the last dgrad and wgrad launches in this process
@@ -1121,9 +1443,10 @@ int hmvae_conv_dgrad(const void* gy, const void* y, const void* w, const void* d
 // (B, C, T_in), all f32, C a multiple of 8, every pointer 16-byte aligned.
 // Window i's gradient sums over its own B / windows batches only.  The plan
 // (wgrad_plan in the wrapper): a window's batches split over `split` blocks
-// of a cluster, staged sb at a time (span = 0), or (span = kSpanCols) the
-// window's (batch, span of kSpanCols output columns) items split over the
-// cluster in contiguous runs (wgrad_span_kernel: rows of any length).
+// of a cluster, staged sb at a time (span = 0), or (span > 0: a multiple
+// of kSpanChunk up to kSpanCols) the window's (batch, span output columns)
+// items split over the cluster in contiguous runs (wgrad_span_kernel: rows
+// of any length).
 int hmvae_conv_wgrad(const void* gy, const void* y, const void* x, const void* wrow,
                      const void* wchunk, void* gw, void* gb, int n_tiles, int B, int C,
                      int T_in, int K, int P, int T_out, int t_ld, int stride, int padding,
@@ -1132,35 +1455,38 @@ int hmvae_conv_wgrad(const void* gy, const void* y, const void* x, const void* w
   const void* ptrs[] = {gy, y, x, gw};
   if (!shape_ok(B, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, device, ptrs, 4) ||
       n_tiles < 0 || n_tiles > 65535 || sb < 1 || split < 1 || split > kMaxSplit ||
-      windows < 1 || windows > 65535 || B % windows != 0 || (span != 0 && span != kSpanCols))
+      windows < 1 || windows > 65535 || B % windows != 0 || span < 0 ||
+      span % kSpanChunk != 0 || span > kSpanCols)
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_win = B / windows;
-  const int items = span > 0 ? n_win * ((T_out + kSpanCols - 1) / kSpanCols) : n_win;
+  const int items = span > 0 ? n_win * ((T_out + span - 1) / span) : n_win;
   if (split > items) return static_cast<int>(cudaErrorInvalidValue);
   if (n_tiles == 0) return 0;
   const size_t smem = span > 0
-                          ? wgrad_span_layout(K, stride).total
+                          ? wgrad_span_layout(K, stride, span).total
                           : wgrad_layout(n_win, T_in, K, T_out, t_ld, stride, sb, split).total;
   if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
   // K + 1 tap tiles over the 8 warps: 2 a warp up to K = 15, 3 up to 23, 4 up to 31
   const int nq = (K + kWarps) / kWarps;
-  const int sel = max(nq, 2) - 2 + (span > 0 ? 3 : 0);
+  const int sel = span > 0 ? 3 + ((K + 1) * kCC > 2 * 64) : max(nq, 2) - 2;
   static bool ready[6][kMaxDevices] = {};
   const int plan[4] = {sb, split, span, static_cast<int>(smem)};
   for (int i = 0; i < 4; ++i) last_wgrad[i] = plan[i];
   const dim3 grid(split, n_tiles, windows);
   if (span > 0) {
-    auto kernel = nq <= 2   ? wgrad_span_kernel<2>
-                  : nq == 3 ? wgrad_span_kernel<3>
-                            : wgrad_span_kernel<4>;
+    // (K + 1) * 8 (tap, channel) rows in m64 tiles over the two warpgroups
+    auto kernel = (K + 1) * kCC <= 2 * 64 ? wgrad_span_kernel<1> : wgrad_span_kernel<2>;
     cudaError_t err = allow_smem(kernel, ready[sel], device);
     if (err != cudaSuccess) return static_cast<int>(err);
+    CUtensorMap gy_map, y_map;
+    if (!span_row_map(&gy_map, gy, t_ld, static_cast<long long>(B) * P) ||
+        !span_row_map(&y_map, y, t_ld, static_cast<long long>(B) * P))
+      return static_cast<int>(cudaErrorNotSupported);
     return static_cast<int>(launch_cluster(
-        kernel, grid, 1, split, smem, stream, static_cast<const float*>(gy),
-        static_cast<const float*>(y), static_cast<const float*>(x),
+        kernel, grid, 1, split, smem, stream, gy_map, y_map, static_cast<const float*>(x),
         static_cast<const int*>(wrow), static_cast<const int*>(wchunk), static_cast<float*>(gw),
-        static_cast<float*>(gb), n_win, C, T_in, K, P, T_out, t_ld, stride, padding, reflect,
-        slope));
+        static_cast<float*>(gb), n_win, C, T_in, K, P, T_out, stride, padding, reflect, slope,
+        span));
   }
   auto kernel = nq <= 2 ? wgrad_kernel<2> : nq == 3 ? wgrad_kernel<3> : wgrad_kernel<4>;
   cudaError_t err = allow_smem(kernel, ready[sel], device);

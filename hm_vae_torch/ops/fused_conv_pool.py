@@ -77,7 +77,9 @@ DGRAD_CHUNKS = 2  # dgrad: channel chunks of a block
 MAX_SMEM = 232448  # shared memory a block may use
 MAX_SMEM_PER_SM = 233472
 WGRAD_STAGE_COLS = 32  # wgrad: (b, t) columns staged at a time, at least one batch
-WGRAD_SPAN_COLS = 64  # wgrad over long rows: output columns of an item (kSpanCols)
+WGRAD_SPAN_COLS = 128  # wgrad over long rows: the widest item's output columns (kSpanCols)
+WGRAD_SPAN_CHUNK = 32  # an item's g split into a wgmma B tile this many columns at a time
+WGRAD_SPAN_STAGES = 2  # items whose copies are in flight
 
 
 def fused_conv_pool_reference(
@@ -799,7 +801,7 @@ class DgradPlan(NamedTuple):
 class WgradPlan(NamedTuple):
     """wgrad's launch: ``sb`` batches staged at a time, ``split`` blocks of a
     cluster, and ``span``: 0 for x's whole rows, else the output columns of
-    an item (``WGRAD_SPAN_COLS``)."""
+    an item (at most ``WGRAD_SPAN_COLS``)."""
     sb: int
     split: int
     span: int
@@ -902,19 +904,50 @@ def _wgrad_smem(B: int, T_in: int, K: int, T_out: int, t_ld: int, stride: int, s
         slots -= 1
 
 
-def _wgrad_span_smem(K: int, stride: int) -> int:
+def _wgrad_span_smem(K: int, stride: int, cols: int = WGRAD_SPAN_COLS) -> int:
     """Bytes of shared memory a wgrad span block takes
-    (``wgrad_span_layout``): x's padded columns of one span split by phase
-    and g's fragments, the partial gradient tile over both at the end."""
+    (``wgrad_span_layout``) at items of ``cols`` output columns: two stages
+    of an item's gy and y boxes (64 rows x 32 columns each) and x's window
+    (16-byte granules), from the first 1024-byte boundary past the barriers;
+    x's padded columns split by phase and g's wgmma tile of a 32-column
+    chunk, two of each; the partial gradient tile over the stages at the
+    end.  Independent of T."""
     a16 = lambda n: -(-n // 16) * 16  # noqa: E731
-    Lh = -(-((WGRAD_SPAN_COLS - 1) * stride + K) // stride)
-    rsx = (stride * Lh + 11) // 16 * 16 + 4
-    frag_end = 64 + a16(8 * rsx * 8) + WGRAD_SPAN_COLS // 8 * 4 * 32 * 8 * 4
-    return max(frag_end, 64 + ROWS * (8 * K + 4) * 4)
+    Lx = (cols - 1) * stride + K
+    rsx = (stride * -(-Lx // stride) + 11) // 16 * 16 + 4
+    box = ROWS * WGRAD_SPAN_CHUNK * 4
+    stage = -(-(2 * cols // WGRAD_SPAN_CHUNK * box + 8 * ((Lx + 9) // 4 * 4) * 4) // 1024) * 1024
+    tiles = 2 * 2 * (WGRAD_SPAN_CHUNK // 8) * ROWS * 8 * 4  # B tiles, big + small
+    return max(64 + 1024 + WGRAD_SPAN_STAGES * stage + a16(2 * 8 * rsx * 8) + tiles,
+               64 + ROWS * (8 * K + 4) * 4)
+
+
+def wgrad_span_cols(K: int, stride: int) -> int:
+    """The widest item (a multiple of ``WGRAD_SPAN_CHUNK`` up to
+    ``WGRAD_SPAN_COLS`` output columns) whose span block fits shared
+    memory: 128 at every model's levels (K 15 and 31, stride 1 and 2)."""
+    for cols in range(WGRAD_SPAN_COLS, 0, -WGRAD_SPAN_CHUNK):
+        if _wgrad_span_smem(K, stride, cols) <= MAX_SMEM:
+            return cols
+    raise ValueError(f"no wgrad item fits shared memory at K={K}, stride={stride}")
+
+
+def wgrad_span_plan(B: int, T_out: int, entries: int, sms: int, windows: int = 1,
+                    cols: int = WGRAD_SPAN_COLS) -> WgradPlan:
+    """``wgrad_span_kernel``'s :class:`WgradPlan`: a window's items of one
+    batch's ``cols`` output columns split over ``split`` blocks of a cluster
+    in contiguous runs.  A block takes an SM (its stages fill shared
+    memory), so the split is chosen for the least time, counted in items:
+    waves of blocks times the items a block takes, plus one for its
+    prologue and epilogue; ties go to fewer blocks."""
+    items = B * -(-T_out // cols)
+    tiles = max(1, entries * windows)
+    cost = lambda split: (-(-tiles * split // sms) * (-(-items // split) + 1), split)  # noqa
+    return WgradPlan(1, min(range(1, min(MAX_SPLIT, items) + 1), key=cost), cols)
 
 
 def wgrad_plan(B: int, T_out: int, entries: int, sms: int, windows: int = 1,
-               smem=None) -> WgradPlan:
+               smem=None, span_cols: int = WGRAD_SPAN_COLS) -> WgradPlan:
     """The wgrad kernel's :class:`WgradPlan`: one block per entry (a live
     tile) of each of ``windows`` windows of ``B`` batches, a window's
     batches split over ``split`` blocks of a cluster until the grid fills
@@ -923,8 +956,8 @@ def wgrad_plan(B: int, T_out: int, entries: int, sms: int, windows: int = 1,
     shared memory: a block holds x's rows of all its batches, so a large
     batch splits further until a block fits (``_wgrad_smem``); where no
     split fits (long rows), the reduction is cut over time too: items of
-    one batch's ``WGRAD_SPAN_COLS`` output columns, split over the cluster
-    until the grid fills the card twice (``wgrad_span_kernel``)."""
+    one batch's ``span_cols`` output columns (:func:`wgrad_span_cols`),
+    :func:`wgrad_span_plan`."""
     split = max(1, min(MAX_SPLIT, B, -(-sms // max(1, entries * windows))))
 
     def stage(split):
@@ -934,9 +967,7 @@ def wgrad_plan(B: int, T_out: int, entries: int, sms: int, windows: int = 1,
         split += 1
     if smem is None or smem(stage(split), split) <= MAX_SMEM:
         return WgradPlan(stage(split), split, 0)
-    items = B * -(-T_out // WGRAD_SPAN_COLS)
-    split = max(1, min(MAX_SPLIT, items, -(-2 * sms // max(1, entries * windows))))
-    return WgradPlan(1, split, WGRAD_SPAN_COLS)
+    return wgrad_span_plan(B, T_out, entries, sms, windows, span_cols)
 
 
 def last_backward_plans() -> dict:
@@ -1002,9 +1033,12 @@ def _dgrad(gy, y, weight, s: LevelStructure, T_in: int, windows: Optional[int]):
     return gx if C == C_in else gx[:, :C_in].contiguous()
 
 
-def _wgrad(gy, y, x, s: LevelStructure, windows: Optional[int]):
+def _wgrad(gy, y, x, s: LevelStructure, windows: Optional[int],
+           plan: Optional[WgradPlan] = None):
     """Checks, then one wgrad launch: (P, C_in, K) and (P,), or per window
-    (G, P, C_in, K) and (G, P) when ``windows`` is G."""
+    (G, P, C_in, K) and (G, P) when ``windows`` is G; ``plan`` in place of
+    :func:`wgrad_plan`'s (a span plan times the span kernel at shapes whose
+    rows fit whole)."""
     entry = fused_conv_pool_wgrad if windows is None else fused_conv_pool_wgrad_windowed
     _bwd_checks(s, gy, y, x=x)
     B, P, T_out = gy.shape
@@ -1020,9 +1054,10 @@ def _wgrad(gy, y, x, s: LevelStructure, windows: Optional[int]):
     C, t_ld = x.shape[1], gy.shape[2]
     dev = gy.device.index
     entries = s.wgrad_row.numel()
-    sb, split, span = wgrad_plan(
+    sb, split, span = plan or wgrad_plan(
         B // G, T_out, entries, _sm_count(dev), G,
-        lambda sb, split: _wgrad_smem(B // G, T_in, K, T_out, t_ld, s.stride, sb, split))
+        lambda sb, split: _wgrad_smem(B // G, T_in, K, T_out, t_ld, s.stride, sb, split),
+        wgrad_span_cols(K, s.stride))
     lib, _, wgrad = _bwd_library()
     gw = torch.zeros((G, P, C, K), dtype=gy.dtype, device=gy.device)
     gb = torch.empty((G, P), dtype=gy.dtype, device=gy.device)

@@ -1,8 +1,9 @@
 """Where a launch of one of the port's kernels spends its time, from inside
 the kernel (run from the repo root on a GPU):
 
-    python3 kernel_trace.py [--kernel fwd|dgrad|wgrad] [--variant base|nobuild|nomma]
-                            [--levels enc0,dec0]
+    python3 kernel_trace.py [--kernel fwd|dgrad|wgrad|wgrad_span]
+                            [--variant base|nobuild|nomma] [--levels enc0,dec0]
+                            [--source FILE]
 
 Builds a copy of the kernel's source (``hm_vae_torch/csrc/fused_conv_pool.cu``
 for ``fwd``, ``fused_conv_pool_bwd.cu`` for ``dgrad`` and ``wgrad``) with
@@ -18,6 +19,18 @@ and 237 in bf16 and f32; the backward at batch 8 in f32, on the operands
 
 ``--variant nobuild`` skips the forward's im2col build and ``nomma`` its
 wgmma: their outputs are wrong, their times say what the skipped phase costs.
+
+``--kernel wgrad_span`` traces the wgrad kernel over long rows
+(``wgrad_span_kernel``) at the trajectory model's four K-31 levels at batch
+8, T 1,024 and batch 1, T 7,200: per block the prologue (to the first item
+staged), then summed over its chunks of 32 columns (an item's chunks, or
+the whole item where the source stages items of 64 columns alone) the wait
+for an item's copies, the build (x's window padded and split, g's
+fragments), the products, and the epilogue, with the means per item.
+``--source FILE`` traces that copy of ``fused_conv_pool_bwd.cu`` instead
+(``git show <commit>:hm_vae_torch/csrc/fused_conv_pool_bwd.cu``): a source
+whose span kernel stages items of 64 output columns without bulk copies
+runs under that design's plan.
 """
 
 from __future__ import annotations
@@ -38,7 +51,10 @@ SLOTS, BLOCKS = 32, 8192
 STAMP = ("if (threadIdx.x == 0) g_trace[((blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x "
          "+ blockIdx.x) % {B} * {S} + ({{slot}})] = {{value}};").format(B=BLOCKS, S=SLOTS)
 SOURCES = {"fwd": "fused_conv_pool", "dgrad": "fused_conv_pool_bwd",
-           "wgrad": "fused_conv_pool_bwd"}
+           "wgrad": "fused_conv_pool_bwd", "wgrad_span": "fused_conv_pool_bwd"}
+# the span kernel that stages items of 64 output columns alone, read from
+# device memory without bulk copies (its layout's signature)
+ITEMS64 = "  const WgradSpanLayout L = wgrad_span_layout(K, stride);\n"
 
 
 def stamp(slot, value="gtime()"):
@@ -137,13 +153,81 @@ def _wgrad_patches():
     ]
 
 
-def patched_source(variant: str = "base", kernel: str = "fwd") -> str:
-    """The kernel's source with stamps (slots: see the patch lists)."""
-    src = open(os.path.join(ROOT, "hm_vae_torch", "csrc", SOURCES[kernel] + ".cu")).read()
+_EPILOGUE = [  # wgrad_store, shared by both wgrad kernels: 21 and 22 as in _wgrad_patches
+    ("    __syncthreads();\n  const float* part[kMaxSplit];\n",
+     "    __syncthreads();\n  " + stamp(21) + "\n  const float* part[kMaxSplit];\n"),
+    ("  if (split > 1) cluster.sync();  // no block leaves while another reads its partial tile\n",
+     "  if (split > 1) cluster.sync();  // no block leaves while another reads its partial tile\n  "
+     + stamp(22) + "\n"),
+]
+_SPAN_SUMS = ("  " + stamp(20) + "\n  " + stamp(2, "tr_w") + "\n  " + stamp(3, "tr_b") + "\n  "
+              + stamp(4, "tr_m") + "\n  " + stamp(30, "tr_n") + "\n")
+
+
+def _wgrad_span_patches():
+    """wgrad_span_kernel: 0 start, 1 after the prologue (the first item
+    staged), 31 the block's items; summed over its chunks by thread 0 (ns):
+    2 the waits for an item's copies, 3 the builds (the next item's x, the
+    next chunk's B tile), 4 the products: their issue (the A registers'
+    loads and the waits between k-steps) and the wait for the last k-step
+    with the f32 sums, to the chunk's barrier, 5 the copies it issues after
+    the barrier (warp 0's refills); 30 the chunks; 20 after the loop; 21, 22
+    the epilogue."""
+    decl = "unsigned long long tr_w = 0, tr_b = 0, tr_m = 0, tr_r = 0, tr_n = 0, tr_t = 0;"
+    lap = "{ const unsigned long long t = gtime(); tr_%s += t - tr_t; tr_t = t; }"
+    wait = "      mbar_wait(smem_addr(bars + ni % kSpanStages), (ni / kSpanStages) & 1);\n"
+    issued = "    issue_products(i, j, c & 1);\n"
+    built = "    fence_async();  // the B tile's writes before the products read it\n    finish_products();\n"
+    synced = "    __syncthreads();  // chunk c and its x are read; chunk c + 1 is staged\n"
+    refill = "    if (next) refill(ni, nj);\n"
+    sums = ("  " + stamp(20) + "\n  " + stamp(2, "tr_w") + "\n  " + stamp(3, "tr_b") + "\n  "
+            + stamp(4, "tr_m") + "\n  " + stamp(5, "tr_r") + "\n  " + stamp(30, "tr_n") + "\n")
+    return [
+        ("  const WgradSpanLayout L = wgrad_span_layout(K, stride, span);\n",
+         "  const WgradSpanLayout L = wgrad_span_layout(K, stride, span);\n  " + stamp(0) + "\n  "
+         + decl + "\n"),
+        ("  int nc = n_items > 0 ? chunks(0) : 0;\n",
+         f"  {stamp(1)}\n  {stamp(31, 'n_items')}\n  int nc = n_items > 0 ? chunks(0) : 0;\n"),
+        ("    int ni = i, nj = j + 1, nnc = nc;\n",
+         "    tr_t = gtime();\n    ++tr_n;\n    int ni = i, nj = j + 1, nnc = nc;\n"),
+        (issued, issued + "    " + lap % "m" + "\n"),
+        (wait, wait + "      " + lap % "w" + "\n"),
+        (built, "    " + lap % "b" + "\n" + built),
+        (synced, synced + "    " + lap % "m" + "\n"),
+        (refill, refill + "    " + lap % "r" + "\n"),
+        ("    i = ni, j = nj, nc = nnc;\n  }\n", "    i = ni, j = nj, nc = nnc;\n  }\n" + sums),
+    ] + _EPILOGUE
+
+
+def _wgrad_items64_patches():
+    """The span kernel that stages items of 64 columns alone (no copies in
+    flight): the slots of :func:`_wgrad_span_patches`, an item a chunk; its
+    build reads x and g from device memory, so its wait is 0."""
+    decl = "unsigned long long tr_w = 0, tr_b = 0, tr_m = 0, tr_n = 0, tr_t = 0;"
+    products = ("        xb[h] = gid * L.rsx + (n < nt ? n : 0);  // past the span: column 0, g is "
+                "zero\n      }\n      wgrad_kstep<NQ>(sum, xp, gf, xb, koff, ks, K, warp, lane);\n"
+                "    }\n  }\n")
+    staged = "    __syncthreads();  // x and the fragments are staged\n"
+    return [
+        (ITEMS64, ITEMS64 + "  " + stamp(0) + "\n  " + decl + "\n"),
+        ("  for (int item = it_lo; item < it_hi; ++item) {\n",
+         f"  {stamp(1)}\n  {stamp(31, 'it_hi - it_lo')}\n"
+         "  for (int item = it_lo; item < it_hi; ++item) {\n    tr_t = gtime();\n    ++tr_n;\n"),
+        (staged, staged + "    { const unsigned long long t = gtime(); tr_b += t - tr_t; tr_t = t; }\n"),
+        (products, products[:-4] + "    tr_m += gtime() - tr_t;\n  }\n" + _SPAN_SUMS),
+    ] + _EPILOGUE
+
+
+def patched_source(variant: str = "base", kernel: str = "fwd", source=None) -> str:
+    """The kernel's source (or ``source``, a copy of it) with stamps
+    (slots: see the patch lists)."""
+    src = open(source or os.path.join(ROOT, "hm_vae_torch", "csrc", SOURCES[kernel] + ".cu")).read()
     if kernel != "fwd" and variant != "base":
         raise ValueError(f"--variant {variant} is for the forward kernel only")
     patches = {"fwd": lambda: _fwd_patches(variant), "dgrad": _dgrad_patches,
-               "wgrad": _wgrad_patches}[kernel]()
+               "wgrad": _wgrad_patches,
+               "wgrad_span": lambda: (_wgrad_items64_patches() if ITEMS64 in src
+                                      else _wgrad_span_patches())}[kernel]()
     patches.insert(0, ("namespace {\n", "namespace {\n__device__ unsigned long long g_trace[%d];\n"
                        "__device__ __forceinline__ unsigned long long gtime() { unsigned long "
                        'long t; asm volatile("mov.u64 %%0, %%globaltimer;" : "=l"(t)); '
@@ -161,17 +245,19 @@ def patched_source(variant: str = "base", kernel: str = "fwd") -> str:
         % (BLOCKS * SLOTS))
 
 
-def build(variant: str, kernel: str) -> ctypes.CDLL:
+def build(variant: str, kernel: str, source=None) -> ctypes.CDLL:
     from hm_vae_torch.ops import _build
 
     os.makedirs(OUT, exist_ok=True)
-    src = os.path.join(OUT, f"{kernel}_{variant}.cu")
+    tag = f"{kernel}_{variant}" + ("_source" if source else "")
+    src = os.path.join(OUT, f"{tag}.cu")
     with open(src, "w") as f:
-        f.write(patched_source(variant, kernel))
-    lib = os.path.join(OUT, f"libtrace_{kernel}_{variant}.so")
+        f.write(patched_source(variant, kernel, source))
+    lib = os.path.join(OUT, f"libtrace_{tag}.so")
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR), "-o", lib,
                     src], check=True)
     lib = ctypes.CDLL(lib)
+    lib.hmvae_trace_copy.argtypes = [ctypes.c_void_p]  # a 64-bit host pointer
     lib.hmvae_error_string.argtypes = [ctypes.c_int]
     lib.hmvae_error_string.restype = ctypes.c_char_p
     return lib
@@ -193,7 +279,25 @@ def phases(trace: np.ndarray) -> dict:
     return out
 
 
-def _trace(lib, buf, launch) -> dict:
+def span_phases(trace: np.ndarray) -> dict:
+    """Means over a span launch's blocks (slots: :func:`_wgrad_span_patches`),
+    and the summed phases per item (refill 0 where the source's items have
+    no copies)."""
+    t = trace[trace[:, 0] > 0].astype(np.int64)
+    us = lambda a, b: float(np.mean(t[:, b] - t[:, a]) / 1e3)  # noqa: E731
+    items = max(1, int(t[:, 31].sum()))
+    out = {"blocks": len(t), "items_max": int(t[:, 31].max()),
+           "chunks_max": int(t[:, 30].max()),
+           "span_us": float((t[:, 22].max() - t[:, 0].min()) / 1e3),
+           "prologue_us": us(0, 1), "loop_us": us(1, 20), "epilogue_us": us(20, 22),
+           "reduce_us": us(20, 21)}
+    for slot, what in ((2, "wait"), (3, "build"), (4, "mma"), (5, "refill")):
+        out[f"{what}_us"] = float(t[:, slot].mean() / 1e3)
+        out[f"{what}_us_per_item"] = float(t[:, slot].sum() / 1e3 / items)
+    return out
+
+
+def _trace(lib, buf, launch, read=phases) -> dict:
     """Device ms of a launch (CUDA graph), then one stamped launch's phases."""
     import chip_smoke
 
@@ -202,13 +306,48 @@ def _trace(lib, buf, launch) -> dict:
     launch()
     torch.cuda.synchronize()
     lib.hmvae_trace_copy(buf.ctypes.data)
-    return {"graph_us": graph_ms * 1e3, **phases(buf.reshape(BLOCKS, SLOTS))}
+    return {"graph_us": graph_ms * 1e3, **read(buf.reshape(BLOCKS, SLOTS))}
+
+
+def _items64_plan(fcp, B, T_out, entries, sms):
+    """The plan of the span kernel that stages items of 64 columns: the
+    items split over the cluster until the grid fills the card twice."""
+    items = B * -(-T_out // 64)
+    return fcp.WgradPlan(1, max(1, min(fcp.MAX_SPLIT, items, -(-2 * sms // max(1, entries)))), 64)
+
+
+def trace_span(lib, buf, items64: bool) -> None:
+    """The wgrad span kernel at the trajectory model's four levels, batch
+    8, T 1,024 and batch 1, T 7,200, under its plan: one JSON line a level."""
+    import chip_smoke
+    from hm_vae_torch.models.trajectory import TrajectoryModel
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+    from hm_vae_torch.utils.config import load_config
+
+    tcfg = load_config(chip_smoke.TRAJ_CONFIG)
+    gen = torch.Generator().manual_seed(chip_smoke.SEED)
+    tmodel = TrajectoryModel(tcfg.model, tcfg.optim.init, generator=gen).to("cuda")
+    sms = fcp._sm_count(torch.cuda.current_device())
+    for batch, T in ((8, 1024), (1, 7200)):
+        for i in range(len(tmodel.encoder.structure.levels)):
+            conv = getattr(tmodel.encoder, f"conv_{i}")
+            s, wf, bf, x, y, gy = chip_smoke.bwd_inputs(conv, T, gen, batch)
+            T_out, entries = y.shape[2], s.wgrad_row.numel()
+            plan = (_items64_plan(fcp, batch, T_out, entries, sms) if items64 else
+                    fcp.wgrad_span_plan(batch, T_out, entries, sms, 1,
+                                        fcp.wgrad_span_cols(s.kernel_size, s.stride)))
+            row = _trace(lib, buf, lambda: fcp._wgrad(gy, y, x, s, None, plan), span_phases)
+            print(json.dumps({"kernel": "wgrad_span", "items": 64 if items64 else plan.span,
+                              "level": f"traj{i}", "batch": batch, "T": T,
+                              "plan": plan._asdict(), **row}), flush=True)
 
 
 @torch.inference_mode()
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", default="fwd", choices=tuple(SOURCES))
+    ap.add_argument("--source", default=None,
+                    help="a copy of the backward source to trace instead of the repo's")
     ap.add_argument("--variant", default="base", choices=("base", "nobuild", "nomma"))
     ap.add_argument("--levels", default=None,
                     help="comma-separated levels (default: enc0,enc3,dec0,dec3 for fwd, all "
@@ -224,13 +363,18 @@ def main() -> None:
     from hm_vae_torch.ops import fused_conv_pool as fcp
     from hm_vae_torch.utils.config import load_config
 
-    lib = build(args.variant, args.kernel)
+    lib = build(args.variant, args.kernel, args.source)
     if args.kernel == "fwd":
         fcp._library = lambda: (lib, fcp._bind(lib, "hmvae_fused_conv_pool", fcp.ARGTYPES))
     else:
         _build.load("fused_conv_pool")  # the forward, for y
         fcp._bwd_library = lambda: (lib, fcp._bind(lib, "hmvae_conv_dgrad", fcp.DGRAD_ARGTYPES),
                                     fcp._bind(lib, "hmvae_conv_wgrad", fcp.WGRAD_ARGTYPES))
+    if args.kernel == "wgrad_span":
+        with open(args.source or os.path.join(_build.CSRC_DIR, "fused_conv_pool_bwd.cu")) as f:
+            trace_span(lib, np.zeros(BLOCKS * SLOTS, dtype=np.uint64), ITEMS64 in f.read())
+        print(chip_smoke.nvidia_smi(), flush=True)
+        return
     levels = args.levels or ("enc0,enc3,dec0,dec3" if args.kernel == "fwd" else
                              "enc0,enc1,enc2,enc3,dec0,dec1,dec2,dec3")
 

@@ -6,17 +6,20 @@ them against their plain versions, bit-equal on two runs):
   7,200 (the trajectory model's four levels, batch 1 and 8), and at
   stride 2 and 3 past 256 / stride padded columns, cut the row into spans
   that fit shared memory and one block's 16 column tiles (dgrad) and the
-  reduction into items of 64 output columns (wgrad); these raised before
-  spans existed;
+  reduction into items of up to 128 output columns (wgrad: the widest
+  whose two stages fit, the same at every T); these raised before spans
+  existed;
 - the plans of every existing shape (the len-64 and production models at
   batch 8 and 64, the trajectory model's training and solver shapes, the
   solver's 10 windows) are the plans from before spans, span 0: the same
   launch, the same bits;
 - the span decomposition's index arithmetic (dgrad: the g columns a span
   stages with its halo, the phases of its columns, then the padding's
-  adjoint over the scratch row; wgrad: items of 64 columns) in plain
-  PyTorch against the plain versions, at a long row in both paddings and
-  strides 1 to 3;
+  adjoint over the scratch row; wgrad: the items a cluster rank takes,
+  each one's x window as its bulk copies stage it (16-byte granules, the
+  padding resolved), g chunk by chunk, the ranks' sums in rank order) in
+  plain PyTorch against the plain versions, in float64, at long rows in
+  both paddings and strides 1 to 3, T_out no multiple of the item width;
 - the plain dgrad and wgrad at batch 2, T 1,024, K 31 against ``jax.vjp``
   of the JAX trajectory level (f32, 1e-4 * max(1, max|ref|): the sums run
   over 1,024 columns in another order).
@@ -94,15 +97,15 @@ def _plans(s, B, T, windows=1):
                        s.dgrad_start.numel() - 1, s.dgrad_max_live, SMS, windows)
     w = fcp.wgrad_plan(B, T_out, s.wgrad_row.numel(), SMS, windows,
                        lambda sb, split: fcp._wgrad_smem(B, T, s.kernel_size, T_out, t_ld,
-                                                         s.stride, sb, split))
+                                                         s.stride, sb, split),
+                       fcp.wgrad_span_cols(s.kernel_size, s.stride))
     return d, w, t_ld
 
 
 def _check_span_plans(s, B, T, d, w, t_ld):
     """A span plan: one batch a block, the span a multiple of stride within
     the 16 tiles and shared memory, the spans covering the padded row;
-    wgrad: items of 64 columns over the cluster, its block in shared
-    memory."""
+    wgrad: items of the widest width whose block fits, over the cluster."""
     Tp = T + 2 * s.padding
     assert d.span > 0 and d.nbb == 1 and d.groups == B and d.span % s.stride == 0
     assert fcp._dgrad_tiles(d.span, s.stride) <= fcp.BWD_WARPS * fcp.DGRAD_TILES
@@ -115,9 +118,10 @@ def _check_span_plans(s, B, T, d, w, t_ld):
         assert fcp._wgrad_smem(B, T, s.kernel_size, T_out, t_ld, s.stride, w.sb,
                                w.split) <= fcp.MAX_SMEM
         return
-    items = B * -(-T_out // fcp.WGRAD_SPAN_COLS)
-    assert w.span == fcp.WGRAD_SPAN_COLS and w.sb == 1 and 1 <= w.split <= min(8, items)
-    assert fcp._wgrad_span_smem(s.kernel_size, s.stride) <= fcp.MAX_SMEM
+    items = B * -(-T_out // w.span)
+    assert w.span == fcp.wgrad_span_cols(s.kernel_size, s.stride) > 64
+    assert w.sb == 1 and 1 <= w.split <= min(8, items)
+    assert fcp._wgrad_span_smem(s.kernel_size, s.stride, w.span) <= fcp.MAX_SMEM
 
 
 @pytest.mark.parametrize("B,T", [(1, 1024), (8, 1024), (1, 7200)])
@@ -251,21 +255,72 @@ def dgrad_by_span(g, w, T_in, stride, padding, reflect, span):
     return gx
 
 
-def wgrad_by_items(g, x, K, stride, padding, mode, cols):
-    """The span kernel's wgrad: the (b, t) reduction as items of ``cols``
-    output columns, each reading x's padded columns [t_lo*stride, t_lo*stride
-    + (cols - 1)*stride + K), summed item after item."""
+def span_window(t_lo, nt, T_in, K, stride, padding, reflect):
+    """The columns [lo, hi] of x's unpadded row that the output columns
+    [t_lo, t_lo + nt) read, the padding resolved (the kernel's
+    ``span_window``)."""
+    s0 = t_lo * stride - padding
+    s1 = s0 + (nt - 1) * stride + K - 1
+    lo, hi = max(s0, 0), min(s1, T_in - 1)
+    if lo > hi:
+        lo, hi = T_in, -1
+    if reflect and s0 < 0:
+        lo, hi = min(lo, -min(s1, -1)), max(hi, -s0)
+    if reflect and s1 >= T_in:
+        lo, hi = min(lo, 2 * T_in - 2 - s1), max(hi, 2 * T_in - 2 - max(s0, T_in))
+    return lo, hi
+
+
+def wgrad_by_items(g, x, K, stride, padding, reflect, cols, split=1):
+    """The span kernel's wgrad in plain PyTorch: the (b, t) reduction as
+    items of one batch's ``cols`` output columns, contiguous runs of them on
+    each of ``split`` cluster ranks.  An item stages x's rows over the
+    window its taps read, from the 16-byte granule that holds the window's
+    first column of the flat x (the stage's ``(Lx + 9) // 4 * 4`` columns
+    hold it), and resolves the padding from there; its g is taken chunk by
+    chunk; each rank sums its items in order, then the ranks' tiles are
+    added in rank order."""
     B, P, T_out = g.shape
-    xpad = fcp.pad_temporal(x, padding, mode)
-    gw = g.new_zeros(P, x.shape[1], K)
-    for b in range(B):
-        for t_lo in range(0, T_out, cols):
+    C, T_in = x.shape[1], x.shape[2]
+    nch = -(-T_out // cols)
+    items = B * nch
+    Lx = (cols - 1) * stride + K
+    flat = x.reshape(-1)
+    parts = []
+    for rank in range(split):
+        gw, gb = g.new_zeros(P, C, K), g.new_zeros(P)
+        for item in range(items * rank // split, items * (rank + 1) // split):
+            b, t_lo = item // nch, item % nch * cols
             nt = min(cols, T_out - t_lo)
-            seg = xpad[b, :, t_lo * stride:t_lo * stride + (nt - 1) * stride + K]
-            patches = torch.stack([seg[:, k:k + (nt - 1) * stride + 1:stride]
-                                   for k in range(K)], -1)  # (C, nt, K)
-            gw += torch.einsum("pt,ctk->pck", g[b, :, t_lo:t_lo + nt], patches)
-    return gw, g.sum((0, 2))
+            lo, hi = span_window(t_lo, nt, T_in, K, stride, padding, reflect)
+            assert hi < lo or hi - lo + 1 <= Lx
+            # the item's padded columns u = t_lo*stride + j, j < Lx
+            s = torch.arange(Lx) + t_lo * stride - padding
+            if reflect:
+                u = s + padding
+                edge = ((s < 0) | (s >= T_in)) & (u < T_in + 2 * padding)
+                s = torch.where(edge, torch.where(s < 0, -s, 2 * (T_in - 1) - s), s)
+            inside = (s >= lo) & (s <= hi)
+            padded = g.new_zeros(C, Lx)
+            for c in range(C):
+                e0 = (b * C + c) * T_in + lo
+                g0 = e0 // 4
+                staged = flat[4 * g0:4 * ((e0 + hi - lo) // 4 + 1)]  # the row's bulk copy
+                assert staged.numel() <= (Lx + 9) // 4 * 4
+                if hi >= lo:
+                    padded[c, inside] = staged[s[inside] - lo + e0 % 4]
+            for j0 in range(0, nt, fcp.WGRAD_SPAN_CHUNK):
+                n = min(fcp.WGRAD_SPAN_CHUNK, nt - j0)
+                patches = torch.stack([padded[:, j0 * stride + k:(j0 + n - 1) * stride + k + 1:stride]
+                                       for k in range(K)], -1)  # (C, n, K)
+                gc = g[b, :, t_lo + j0:t_lo + j0 + n]
+                gw += torch.einsum("pt,ctk->pck", gc, patches)
+                gb += gc.sum(1)
+        parts.append((gw, gb))
+    gw, gb = parts[0]
+    for w, bias in parts[1:]:
+        gw, gb = gw + w, gb + bias
+    return gw, gb
 
 
 @pytest.mark.parametrize("stride,T", [(1, 300), (2, 301), (3, 299)])
@@ -282,10 +337,55 @@ def test_span_arithmetic_matches_the_plain_backward(mode, stride, T):
     got = dgrad_by_span(g, w, T, stride, padding, mode == "reflect", span)
     want = fcp.fused_conv_pool_dgrad_reference(gy, y, w, T, stride, padding, mode, 0.2)
     torch.testing.assert_close(got, want, atol=1e-10, rtol=0)
-    gw, gb = wgrad_by_items(g, x, K, stride, padding, mode, fcp.WGRAD_SPAN_COLS)
+    gw, gb = wgrad_by_items(g, x, K, stride, padding, mode == "reflect",
+                            fcp.wgrad_span_cols(K, stride))
     rw, rb = fcp.fused_conv_pool_wgrad_reference(gy, y, x, K, stride, padding, mode, 0.2, None)
     torch.testing.assert_close(gw, rw, atol=1e-10, rtol=0)
     torch.testing.assert_close(gb, rb, atol=1e-10, rtol=0)
+
+
+@pytest.mark.parametrize("T", [1000, 7201])
+@pytest.mark.parametrize("stride", [1, 2, 3])
+@pytest.mark.parametrize("mode", ["reflect", "constant"])
+def test_wgrad_items_match_the_plain_wgrad(mode, stride, T):
+    """The span kernel's decomposition at its plan (item width, the split
+    over 8 ranks of a level with 3 live tiles) in float64 against the plain
+    wgrad, at lengths whose T_out is no multiple of the item width."""
+    K, padding, P, C, B = (31, 15, 16, 16, 2) if stride == 1 else (15, 7, 16, 16, 2)
+    gen = torch.Generator().manual_seed(stride * 10000 + T)
+    w = torch.randn(P, C, K, generator=gen, dtype=torch.float64)
+    x = torch.randn(B, C, T, generator=gen, dtype=torch.float64)
+    y = fcp.fused_conv_pool_reference(x, w, None, None, None, stride, padding, mode, 0.2)
+    gy = torch.randn(y.shape, generator=gen, dtype=torch.float64)
+    T_out = y.shape[2]
+    plan = fcp.wgrad_span_plan(B, T_out, 3, SMS, 1, fcp.wgrad_span_cols(K, stride))
+    assert T_out % plan.span and plan.split == 8
+    gw, gb = wgrad_by_items(fcp._act_grad(gy, y, 0.2), x, K, stride, padding,
+                            mode == "reflect", plan.span, plan.split)
+    rw, rb = fcp.fused_conv_pool_wgrad_reference(gy, y, x, K, stride, padding, mode, 0.2, None)
+    torch.testing.assert_close(gw, rw, atol=1e-10, rtol=0)
+    torch.testing.assert_close(gb, rb, atol=1e-10, rtol=0)
+
+
+@pytest.mark.parametrize("stride", [1, 2, 3])
+@pytest.mark.parametrize("K", [15, 31])
+def test_wgrad_span_block_fits_at_any_length(K, stride):
+    """The widest item whose two stages fit a block: 128 columns at
+    strides 1 and 2, 96 at stride 3; its shared memory, and so the plan's
+    width, the same at every length."""
+    cols = fcp.wgrad_span_cols(K, stride)
+    assert cols == (128 if stride < 3 else 96) and cols % fcp.WGRAD_SPAN_CHUNK == 0
+    assert fcp._wgrad_span_smem(K, stride, cols) <= fcp.MAX_SMEM
+    if cols < fcp.WGRAD_SPAN_COLS:
+        assert fcp._wgrad_span_smem(K, stride, cols + fcp.WGRAD_SPAN_CHUNK) > fcp.MAX_SMEM
+    live = torch.zeros(128, 24, dtype=torch.bool)
+    live[:64, :16] = True
+    live[64:, 8:] = True
+    s = fcp.pack_structure(live, K, torch.float32, stride, (K - 1) // 2)
+    for T in (4000, 7201, 100000):
+        d, w, t_ld = _plans(s, 1, T)
+        _check_span_plans(s, 1, T, d, w, t_ld)
+        assert w.span == cols
 
 
 @pytest.mark.parametrize("level", [0, 3])
