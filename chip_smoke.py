@@ -174,7 +174,13 @@ Phases, each of which exits non-zero on failure:
    0 writes, both print the same metrics; (c) one NCCL rank (a group of one
    in this process): the production config's 32-step CUDA graph with the
    gradients' all-reduce captured in it, bit-equal to the graph without a
-   group (256 / 224 / 256 runs a call);
+   group (256 / 224 / 256 runs a call); (d) in (a)'s launch, tensor
+   parallelism: the two ranks at ``run.model_parallel`` 2 (the latent heads
+   sharded over them) train the same steps, both ranks the same bits, the
+   sharded heads after the first step the one-process run's bits, in (a)'s
+   gate, 8 / 7 / 8 runs a step on each rank; then ``hm_vae_torch.cli.train``
+   at model_parallel 2 resumes (b)'s checkpoint (written at 1), only rank 0
+   writing;
 31. ``eval_recovery --data_parallel 2`` under two gloo ranks on a 10-window
    take against the one-process run (per-window clones at the config's
    opt_it, the shared clone at 30), inside the band of a run from weights
@@ -186,6 +192,17 @@ Phases, each of which exits non-zero on failure:
    4 x 15 frames), and ``--sequence_parallel_strict`` raising at 7,201.
    Times of two ranks sharing the one card are labelled so: they are not
    scaling numbers;
+33. the compact parameter layout (``model.param_layout: compact``): 5 steps
+   of the len-64 VAE on the card against the CPU (phase 6's gate); on the
+   card against the dense layout from the same weights, batches and noise,
+   every loss, live entry and Adam moment the same bits; phase 7's dense
+   checkpoint resumed compact, written and resumed dense; the serving
+   forward the dense model's bits at batch 8 and 237;
+34. training with adapters (``model.lora_rank`` 16): 5 steps of the len-64
+   VAE on the card against the CPU (phase 6's gate, 8 / 7 / 8 launches a
+   step); the three kernels at its base convs (slope 1.0, no bias, batch 8,
+   the weight trained), held and timed as phases 2 and 5 hold and time
+   theirs;
 24. print the kernel summary line and, last, the device line.
 
 ``python3 chip_smoke.py --long-backward`` runs phase 1 and then phase 29
@@ -815,16 +832,18 @@ def bwd_level_row(name, conv, T_in, batch, gen, with_wgrad=True):
     return row
 
 
-def train_config(data_root, path=CONFIG):
+def train_config(data_root, path=CONFIG, model=None):
     """A full-width config (the len-64 VAE's unless `path` names another) on
     synthetic data made from the seed, logging every step, no validation or
-    snapshot inside the run."""
+    snapshot inside the run; `model`: its model section's overrides (a
+    nested ``model:`` section's keys)."""
     from hm_vae_torch.utils.config import load_config
 
     cfg = load_config(path)
     big = 10 ** 9
     return dataclasses.replace(
-        cfg, data=dataclasses.replace(cfg.data, synthetic=True, data_root=data_root),
+        cfg, model=dataclasses.replace(cfg.model, **(model or {})),
+        data=dataclasses.replace(cfg.data, synthetic=True, data_root=data_root),
         run=dataclasses.replace(cfg.run, log_iter=1, validation_iter=big,
                                 snapshot_save_iter=big, image_save_iter=big))
 
@@ -837,7 +856,7 @@ TRAJ_TRAIN_LAUNCHES = {"fused_conv_pool": 4, "fused_conv_pool_dgrad": 3,
 
 
 def train_phase(data_root, path=CONFIG, want=TRAIN_LAUNCHES, phase="train",
-                steps=TRAIN_STEPS):
+                steps=TRAIN_STEPS, model=None):
     """`steps` (TRAIN_STEPS) steps of Trainer.fit of `path`'s model (the len-64 VAE,
     or the trajectory model) on the GPU and on the CPU from the
     same init, batches and noise, and on each a run from the init scaled by
@@ -847,12 +866,13 @@ def train_phase(data_root, path=CONFIG, want=TRAIN_LAUNCHES, phase="train",
     stay within 10x the larger perturbed run's spread (so far) + 1e-4 after.
     The perturbation is run on both sides because its spread differs by 10x
     between them at some steps.  Then kernel launches per step, step time
-    (CUDA events) and the profile."""
+    (CUDA events) and the profile.  `model`: the model section's overrides
+    (:func:`train_config`)."""
     from hm_vae_torch.ops import fused_conv_pool as fcp
     from hm_vae_torch.train.train_step import loss_fields, to_device, train_step
     from hm_vae_torch.train.trainer import build_trainer
 
-    cfg = train_config(data_root, path)
+    cfg = train_config(data_root, path, model)
     counters = (fcp.fused_conv_pool, fcp.fused_conv_pool_dgrad, fcp.fused_conv_pool_wgrad)
     losses, launches, wall = {}, None, {}
     for run, dev, scale in (("gpu", DEV, 1.0), ("cpu", "cpu", 1.0),
@@ -906,8 +926,8 @@ def train_phase(data_root, path=CONFIG, want=TRAIN_LAUNCHES, phase="train",
     def repack_all():
         return [repack(c.structure(), *c.folded_weight()) for c in convs]
 
-    row = {"phase": phase, "config": os.path.relpath(path, ROOT), "batch": cfg.optim.batch_size,
-           "steps": steps, "loss_gpu": losses["gpu"].tolist(),
+    row = {"phase": phase, "config": os.path.relpath(path, ROOT), "model_overrides": model,
+           "batch": cfg.optim.batch_size, "steps": steps, "loss_gpu": losses["gpu"].tolist(),
            "loss_cpu": losses["cpu"].tolist(), "max_rel_diff": float(rel.max()),
            "rel_diff": rel.tolist(), "band": band.tolist(),
            "spread": {k: v.tolist() for k, v in spread.items()},
@@ -2791,8 +2811,10 @@ def rank_audit(argv):
     counts and the device's run counters), and the group's backend, into
     ``<prefix>_rank<r>.json``.  A run whose ``expect_error`` is set must
     raise a ValueError containing it (recorded); any other error fails the
-    rank.  The module name ``ddp_steps`` runs :func:`ddp_steps` instead, on
-    this rank's rows, its parameters into ``<argv[0]>_rank<r>.npz``."""
+    rank.  The module name ``ddp_steps`` runs :func:`ddp_steps` instead
+    (argv: a prefix and ``run.model_parallel``), on this rank's data row's
+    rows, its parameters after the first and the last step (the sharded
+    heads gathered) into ``<prefix>_rank<r>_first.npz`` and ``_last.npz``."""
     import runpy
 
     import torch.distributed as dist
@@ -2831,8 +2853,12 @@ def rank_audit(argv):
             from hm_vae_torch.utils.config import load_config
 
             mh.maybe_initialize_distributed(DEV)
-            params, losses, runs_ = ddp_steps(load_config(CONFIG), mh.process_group())
-            np.savez(f"{run['argv'][0]}_rank{mh.process_index()}.npz", **params)
+            cfg = load_config(CONFIG)
+            cfg = dataclasses.replace(cfg, run=dataclasses.replace(
+                cfg.run, model_parallel=int(run["argv"][1])))
+            first, params, losses, runs_ = ddp_steps(cfg)
+            for what, p in (("first", first), ("last", params)):
+                np.savez(f"{run['argv'][0]}_rank{mh.process_index()}_{what}.npz", **p)
             done.append({"losses": losses, "device_runs": runs_})
             continue
         buf, error = io.StringIO(), None
@@ -2893,32 +2919,45 @@ def ddp_inputs(cfg, steps=DDP_STEPS):
                                             for lv in range(len(shapes))]
 
 
-def ddp_steps(cfg, group, scale=1.0):
+def ddp_steps(cfg, scale=1.0):
     """DDP_STEPS train_step calls of `cfg`'s model on the card from the
-    seeded init (scaled by `scale`), on this rank's rows of
-    :func:`ddp_inputs` (all of them without a group); the parameters, each
-    step's loss averaged over the ranks, and the device's kernel runs."""
+    seeded init (scaled by `scale`), on the (data, model) grid of
+    ``cfg.run.model_parallel`` (``make_groups``: the latent heads sharded
+    over the model group, the gradients averaged over the data group), on
+    this rank's data row's rows of :func:`ddp_inputs` (all of them in one
+    process); the parameters after the first step and after the last (the
+    sharded heads gathered), each step's loss averaged over the data group,
+    and the device's kernel runs."""
     from hm_vae_torch.ops import fused_conv_pool as fcp
-    from hm_vae_torch.parallel.sharding import allreduce_mean, rank_rows
+    from hm_vae_torch.parallel.sharding import (allreduce_mean, gather_state, make_groups,
+                                                model_shards, rank_rows)
     from hm_vae_torch.train.train_step import create_state, train_step
 
     batches, eps = ddp_inputs(cfg)
-    r0, r1 = rank_rows(cfg.optim.batch_size, group)
+    g = make_groups(cfg.run.model_parallel)
+    r0, r1 = rank_rows(cfg.optim.batch_size, g.data)
     dev = torch.device(DEV, torch.cuda.current_device())
-    state = create_state(cfg, dev)
+    state = create_state(cfg, dev, model_group=g.model)
+    shards = model_shards(state.model)
     with torch.no_grad():
         for p in state.model.parameters():
             p.mul_(scale)
+
+    def params():
+        full = gather_state(dict(state.model.named_parameters()), shards, g.model)
+        return {n: p.detach().float().cpu().numpy() for n, p in full.items()}
+
     fcp.device_runs(dev.index, reset=True)
     losses = []
     for k in range(DDP_STEPS):
         m = train_step(state, {f: torch.from_numpy(v[k, r0:r1]).to(dev)
                                for f, v in batches.items()}, cfg,
-                       [torch.from_numpy(e[k, r0:r1]).to(dev) for e in eps], group=group)
-        losses.append(float(allreduce_mean(m, group)["loss_total"]))
+                       [torch.from_numpy(e[k, r0:r1]).to(dev) for e in eps], group=g.data)
+        losses.append(float(allreduce_mean(m, g.data)["loss_total"]))
+        if k == 0:
+            first = params()  # collectives and copies: no kernel of ours runs
     runs = fcp.device_runs(dev.index)
-    return ({n: p.detach().float().cpu().numpy() for n, p in state.model.named_parameters()},
-            losses, runs)
+    return first, params(), losses, runs
 
 
 def nccl_graph(data_root, group):
@@ -2977,7 +3016,14 @@ def ddp_train_phase(data_root):
     NCCL rank, a group of one in this process (destroyed after): the
     production config's 32-step CUDA graph with the all-reduce captured in
     it, bit-equal to the graph without a group, 256 / 224 / 256 runs a
-    call."""
+    call.  (d) In (a)'s launch, tensor parallelism: the two ranks at
+    ``run.model_parallel`` 2 (data 1, the latent heads sharded over them)
+    train the same DDP_STEPS steps: both ranks' parameters the same bits,
+    the sharded heads after the first step the one-process step's bits, the
+    losses and parameters in (a)'s gate, 8 / 7 / 8 runs a step on each rank;
+    then ``hm_vae_torch.cli.train`` at model_parallel 2 ``--resume``s (b)'s
+    checkpoint of step 5 (written at model_parallel 1) to step 7: only rank 0
+    writes."""
     from hm_vae_torch.utils.config import load_config
 
     t_phase = time.perf_counter()
@@ -2998,66 +3044,97 @@ def ddp_train_phase(data_root):
             text += f"\n{key}: {value}\n"
     with open(path, "w") as f:
         f.write(text)
+    # (d)'s: the same at model_parallel 2, its name the same (the same output
+    # directory: it resumes (b)'s checkpoint)
+    os.makedirs(os.path.join(out, "mp2"))
+    path_mp2 = os.path.join(out, "mp2", "len64_cli.yaml")
+    with open(path_mp2, "w") as f:
+        f.write(text + "\nmodel_parallel: 2\n")
     base = ["--config", path, "--output_path", cli_root, "--data_root", data_root]
-    # (a) and (b) in one launch: the steps, then the CLI for 3 steps and again
-    # with --resume, in each rank
-    prefix = os.path.join(out, "steps")
+    # (a), (b) and (d) in one launch: the steps, the CLI for 3 steps and again
+    # with --resume, the steps at model_parallel 2 and the CLI at 2, in each rank
+    prefix, tp_prefix = os.path.join(out, "steps"), os.path.join(out, "tp_steps")
     audits, seconds = audited(
         2, os.path.join(out, "audit"), cli_root,
-        [("ddp_steps", [prefix], None),
+        [("ddp_steps", [prefix, "1"], None),
          ("hm_vae_torch.cli.train", base + ["--max_iter", "3"], None),
-         ("hm_vae_torch.cli.train", base + ["--max_iter", "5", "--resume"], None)], 300)
+         ("hm_vae_torch.cli.train", base + ["--max_iter", "5", "--resume"], None),
+         ("ddp_steps", [tp_prefix, "2"], None),
+         ("hm_vae_torch.cli.train", ["--config", path_mp2] + base[2:]
+          + ["--max_iter", "7", "--resume"], None)], 400)
     # (a)
-    reports = [a["runs"][0] for a in audits]
-    params = [dict(np.load(f"{prefix}_rank{r}.npz")) for r in range(2)]
-    one, one_losses, _ = ddp_steps(cfg, None)
-    _, pert_losses, _ = ddp_steps(cfg, None, 1.0 + 1e-7)
-    if any(not np.array_equal(params[0][n], params[1][n]) for n in params[0]):
-        fail("ddp_train: the two ranks' parameters differ")
+    one_first, one, one_losses, _ = ddp_steps(cfg)
+    _, _, pert_losses, _ = ddp_steps(cfg, 1.0 + 1e-7)
     want_runs = {"conv_gemm_kernel": 8 * DDP_STEPS, "dgrad_kernel": 7 * DDP_STEPS,
                  "wgrad_kernel": 8 * DDP_STEPS}
-    for a, r in zip(audits, reports):
-        if a["backend"] != "gloo" or r["device_runs"] != want_runs:
-            fail(f"ddp_train rank {a['rank']}: backend {a['backend']}, device runs "
-                 f"{r['device_runs']}, expected gloo and {want_runs}")
-    two_losses = np.array(reports[0]["losses"])
-    if reports[1]["losses"] != reports[0]["losses"]:
-        fail(f"ddp_train: the ranks' averaged losses differ: {[r['losses'] for r in reports]}")
-    rel = np.abs(two_losses / np.array(one_losses) - 1)
-    band = 10 * np.maximum.accumulate(np.abs(np.array(pert_losses) / one_losses - 1)) + 1e-4
-    diffs = {n: np.abs(params[0][n] - one[n]) for n in one}
-    max_diff = max(float(d.max()) for d in diffs.values())
-    share = sum(int((d > 1e-5).sum()) for d in diffs.values()) / sum(d.size for d in
-                                                                    diffs.values())
-    if not ((rel <= 1e-4).all() and (rel <= band).all() and max_diff <= 2 * lr * DDP_STEPS
-            and share <= 0.01):
-        fail(f"ddp_train: losses {two_losses.tolist()} against one process {one_losses} "
-             f"(rel {rel.tolist()}, band {band.tolist()}); parameters max |diff| {max_diff}, "
-             f"share beyond 1e-5 {share}")
-    steps_row = {"backend": audits[0]["backend"], "graphed": False, "ranks": 2,
-                 "device": "cuda:0 (shared)", "losses_two_ranks": two_losses.tolist(),
-                 "losses_one_process": one_losses, "rel_diff": rel.tolist(),
-                 "band": band.tolist(), "params_max_abs_diff": max_diff,
-                 "params_share_beyond_1e-5": share,
-                 "device_runs_per_rank": [r["device_runs"] for r in reports]}
-    # (b)
+
+    def steps_gate(what, run, prefix):
+        """Both ranks' parameters the same bits; the losses and parameters
+        against the one-process run's in the training gate; the kernels'
+        runs a step on each rank."""
+        reports = [a["runs"][run] for a in audits]
+        first, params = ([dict(np.load(f"{prefix}_rank{r}_{w}.npz")) for r in range(2)]
+                         for w in ("first", "last"))
+        if any(not np.array_equal(p[0][n], p[1][n]) for p in (first, params) for n in p[0]):
+            fail(f"{what}: the two ranks' parameters differ")
+        for a, r in zip(audits, reports):
+            if a["backend"] != "gloo" or r["device_runs"] != want_runs:
+                fail(f"{what} rank {a['rank']}: backend {a['backend']}, device runs "
+                     f"{r['device_runs']}, expected gloo and {want_runs}")
+        two_losses = np.array(reports[0]["losses"])
+        if reports[1]["losses"] != reports[0]["losses"]:
+            fail(f"{what}: the ranks' averaged losses differ: {[r['losses'] for r in reports]}")
+        rel = np.abs(two_losses / np.array(one_losses) - 1)
+        band = 10 * np.maximum.accumulate(np.abs(np.array(pert_losses) / one_losses - 1)) + 1e-4
+        diffs = {n: np.abs(params[0][n] - one[n]) for n in one}
+        max_diff = max(float(d.max()) for d in diffs.values())
+        share = sum(int((d > 1e-5).sum()) for d in diffs.values()) / sum(d.size for d in
+                                                                        diffs.values())
+        if not ((rel <= 1e-4).all() and (rel <= band).all() and max_diff <= 2 * lr * DDP_STEPS
+                and share <= 0.01):
+            fail(f"{what}: losses {two_losses.tolist()} against one process {one_losses} "
+                 f"(rel {rel.tolist()}, band {band.tolist()}); parameters max |diff| "
+                 f"{max_diff}, share beyond 1e-5 {share}")
+        row = {"backend": audits[0]["backend"], "graphed": False, "ranks": 2,
+               "device": "cuda:0 (shared)", "losses_two_ranks": two_losses.tolist(),
+               "losses_one_process": one_losses, "rel_diff": rel.tolist(),
+               "band": band.tolist(), "params_max_abs_diff": max_diff,
+               "params_share_beyond_1e-5": share,
+               "device_runs_per_rank": [r["device_runs"] for r in reports]}
+        equal = [n for n in one if np.array_equal(first[0][n], one_first[n])]
+        return row, equal
+
+    steps_row, _ = steps_gate("ddp_train", 0, prefix)
+    # (d)
+    tp_row, equal_first = steps_gate("tensor_parallel", 3, tp_prefix)
+    heads = sorted(n for n in one if n.split(".")[1].startswith("latent_"))
+    if not set(heads) <= set(equal_first):
+        fail(f"tensor_parallel: sharded heads {sorted(set(heads) - set(equal_first))} differ "
+             "from the one-process run's after the first step")
+    tp_row.update(model_parallel=2, data_parallel=1, sharded_leaves=len(heads),
+                  heads_bit_equal_after_first_step=True,
+                  params_bit_equal_after_first_step=f"{len(equal_first)} of {len(one)}")
+    # (b) and (d)'s CLI
     ck = os.path.join(cli_root, "outputs", "len64_cli", "checkpoints")
     names = sorted(os.listdir(ck)) if os.path.isdir(ck) else []
     # logged[run][rank]: the step lines each rank printed
     logged = [[[ln for ln in a["runs"][i]["stdout"].splitlines() if ln.startswith("[0")]
-               for a in audits] for i in (1, 2)]
-    resumed = [ln for a in audits for ln in a["runs"][2]["stdout"].splitlines()
-               if ln.startswith("Resume from")]
-    if (audits[1]["writes"] or names != ["gen_00000003.pt", "gen_00000005.pt"]
+               for a in audits] for i in (1, 2, 4)]
+    resumed = [[ln for a in audits for ln in a["runs"][i]["stdout"].splitlines()
+                if ln.startswith("Resume from")] for i in (2, 4)]
+    want_names = ["gen_00000003.pt", "gen_00000005.pt", "gen_00000006.pt", "gen_00000007.pt"]
+    if (audits[1]["writes"] or names != want_names
             or any(lg[0] != lg[1] or not lg[0] for lg in logged)
-            or resumed != ["Resume from iteration 3"] * 2
-            or not any(w.endswith("gen_00000005.pt") for w in audits[0]["writes"])):
+            or resumed != [["Resume from iteration 3"] * 2, ["Resume from iteration 5"] * 2]
+            or not any(w.endswith("gen_00000007.pt") for w in audits[0]["writes"])):
         fail(f"ddp_train cli: rank 1 wrote {audits[1]['writes']}, rank 0 "
              f"{audits[0]['writes']}; checkpoints {names}; logged {logged}; resumed {resumed}")
     cli_row = {"backend": audits[0]["backend"], "checkpoints": names,
                "rank0_writes": audits[0]["writes"], "rank1_writes": audits[1]["writes"],
                "logged_rank0": logged[1][0][-1], "logged_same_on_both_ranks": True,
-               "resumed": resumed, "seconds_two_ranks_sharing_one_card_a_b": seconds}
+               "resumed": resumed[0], "seconds_two_ranks_sharing_one_card_a_b_d": seconds}
+    tp_row["cli"] = {"config": "len64_cli.yaml + model_parallel: 2", "resumed": resumed[1],
+                     "logged_rank0": logged[2][0][-1], "logged_same_on_both_ranks": True}
     # (c) one NCCL rank, in this process (a group of one, destroyed after)
     import torch.distributed as dist
 
@@ -3075,7 +3152,7 @@ def ddp_train_phase(data_root):
         fail(f"ddp_train nccl: {nccl}")
     row = {"phase": "ddp_train", "steps": steps_row, "cli": cli_row,
            "nccl_graph": {**nccl, "seconds": time.perf_counter() - t0},
-           "elapsed_s": time.perf_counter() - t_phase}
+           "tensor_parallel": tp_row, "elapsed_s": time.perf_counter() - t_phase}
     print(json.dumps(row), flush=True)
     return row
 
@@ -3276,6 +3353,182 @@ def sequence_parallel_phase(data_root, vae_ck, traj_ck, tmodel, gen):
     return valid, row
 
 
+# phases 33-34: the compact parameter layout, and training with adapters
+
+NEW_STEPS = 5  # the steps of phases 33 and 34's training gates
+LORA_TRAIN_RANK = 16
+
+
+def compact_phase(data_root, vae_ck, x6d):
+    """33. ``model.param_layout: compact`` on the card.  (a) The len-64 VAE
+    with it, NEW_STEPS steps of ``Trainer.fit`` on the card against the CPU
+    in phase 6's gate, 8 / 7 / 8 launches a step.  (b) On the card against
+    the dense layout from the same weights (the compact model loaded with
+    the dense init's live entries), batches and noise: every step's loss,
+    every live entry and its Adam moments the same bits.  (c) Phase 7's
+    dense checkpoint resumed compact, written, and resumed dense: the live
+    entries and moments the same bits, the dead entries zeros.  (d) The
+    serving forward (``VAEInference.mean_reconstruction``, packed operands)
+    of the compact model at batch 8 and 237, the dense model's bits, 8
+    launches a reconstruct."""
+    from hm_vae_torch.apps.inference import VAEInference
+    from hm_vae_torch.models import param_layout as pl
+    from hm_vae_torch.models.hm_vae import HMVAE, SkeletonConv
+    from hm_vae_torch.ops import rotations as rot
+    from hm_vae_torch.ops.fused_conv_pool import fused_conv_pool
+    from hm_vae_torch.train.trainer import Trainer, build_trainer
+
+    t_phase = time.perf_counter()
+    compact = {"param_layout": "compact"}
+    train = train_phase(data_root, CONFIG, TRAIN_LAUNCHES, "train_compact", NEW_STEPS, compact)
+    cfg_d, cfg_c = train_config(data_root), train_config(data_root, model=compact)
+    out = os.path.join(OUT_DIR, "compact")
+    shutil.rmtree(out, ignore_errors=True)
+
+    def live_state(trainer):
+        """(parameters, optimizer state) in the compact layout."""
+        sd = trainer.state.model.state_dict()
+        opt = trainer.state.optimizer.state_dict()
+        if trainer.cfg.model.param_layout == "dense":
+            names = [n for n, _ in trainer.state.model.named_parameters()]
+            sd = pl.convert_state_dict(sd, cfg_d.model, "compact")
+            opt = pl.convert_optimizer_state(opt, names, cfg_d.model, "compact")
+        return sd, opt
+
+    def same_bits(a, b):
+        (sa, oa), (sb, ob) = live_state(a), live_state(b)
+        return (sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
+                and all(torch.equal(t, ob["state"][i][k]) for i, st in oa["state"].items()
+                        for k, t in st.items()))
+
+    # (b)
+    runs, init = {}, None
+    for name, cfg in (("dense", cfg_d), ("compact", cfg_c)):
+        trainer, train_ds, _, _ = build_trainer(cfg, os.path.join(out, name), device=DEV)
+        if init is None:  # copies: the dense run trains its tensors in place
+            init = {k: v.clone() for k, v in pl.convert_state_dict(
+                trainer.state.model.state_dict(), cfg_d.model, "compact").items()}
+        else:
+            trainer.state.model.load_state_dict(init)
+        losses = []
+        trainer.fit(train_ds, None, max_iter=NEW_STEPS,
+                    log_cb=lambda step, m: losses.append(m["loss_total"]))
+        runs[name] = (trainer, losses)
+    if runs["dense"][1] != runs["compact"][1] or not same_bits(runs["dense"][0],
+                                                               runs["compact"][0]):
+        fail(f"compact: the layouts' runs differ: losses {runs['dense'][1]} (dense), "
+             f"{runs['compact'][1]} (compact)")
+    n_live = sum(p.numel() for p in runs["compact"][0].state.model.parameters())
+    n_dense = sum(p.numel() for p in runs["dense"][0].state.model.parameters())
+    # (c)
+    resumed_c = Trainer(cfg_c, os.path.join(out, "resume_c"), device=DEV)
+    resumed_d = Trainer(cfg_d, os.path.join(out, "resume_d"), device=DEV)
+    steps = (resumed_c.resume(vae_ck), resumed_d.resume(vae_ck))
+    back = Trainer(cfg_d, os.path.join(out, "back"), device=DEV)
+    steps += (back.resume(resumed_c.save()),)
+    zeros = all(bool((m.weight[~m.mask.bool()] == 0).all())
+                for m in back.state.model.modules()
+                if isinstance(m, SkeletonConv) and m.mask is not None)
+    if (len(set(steps)) != 1 or not same_bits(resumed_c, resumed_d)
+            or not same_bits(back, resumed_c) or not zeros):
+        fail(f"compact: resume across layouts: steps {steps}, zeros {zeros}")
+    # (d)
+    rng = np.random.default_rng(SEED + 33)
+    T = cfg_d.model.train_seq_len
+    aa = torch.from_numpy((rng.normal(size=(VIBE_BATCH, T, 24, 3)) * 0.3).astype(np.float32))
+    cases = {BATCH: x6d, VIBE_BATCH: rot.rotmat_to_rot6d(rot.aa_to_rotmat(aa)).to(DEV)}
+    dense_model = HMVAE(cfg_d.model, cfg_d.optim.init,
+                        generator=torch.Generator().manual_seed(SEED))
+    compact_model = HMVAE(cfg_c.model)
+    compact_model.load_state_dict(pl.convert_state_dict(dense_model.state_dict(), cfg_d.model,
+                                                        "compact"))
+    serve = {}
+    for batch, x in cases.items():
+        outs = {}
+        for name, m in (("dense", dense_model), ("compact", compact_model)):
+            infer = VAEInference(m, cfg_d, device=DEV)
+            fused_conv_pool.launches = 0
+            outs[name] = infer.mean_reconstruction(x)
+            torch.cuda.synchronize()
+            if fused_conv_pool.launches != 8:
+                fail(f"compact: {fused_conv_pool.launches} launches a reconstruct ({name})")
+        if not all(torch.equal(a, b) for a, b in zip(outs["dense"], outs["compact"])):
+            fail(f"compact: the serving forward differs from the dense one at batch {batch}")
+        serve[batch] = {"bit_equal": True, "launches": 8}
+    row = {"phase": "compact", "config": os.path.relpath(CONFIG, ROOT),
+           "train_gpu_vs_cpu": {k: train[k] for k in ("max_rel_diff", "launches_per_step",
+                                                      "ms_per_step")},
+           "dense_vs_compact_on_card": {"steps": NEW_STEPS, "losses": runs["compact"][1],
+                                        "losses_bit_equal": True,
+                                        "live_entries_and_moments_bit_equal": True,
+                                        "parameters": {"compact": n_live, "dense": n_dense}},
+           "resume_across_layouts": {"steps": steps, "bit_equal": True,
+                                     "dead_entries_zero": zeros},
+           "serving_forward": serve, "elapsed_s": time.perf_counter() - t_phase}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def lora_train_phase(data_root, model, st, gen):
+    """34. Training a VAE with adapters: the len-64 VAE with ``model.lora_rank``
+    LORA_TRAIN_RANK (a nested ``model: {lora_rank: 16}``), NEW_STEPS steps of
+    ``Trainer.fit`` on the card against the CPU in phase 6's gate, 8 / 7 / 8
+    launches a step (the decoder's base convs at slope 1.0 without bias: the
+    forward, dgrad and wgrad of a trained weight); then the kernels at that
+    operating point (the four decoder convs' folded weights, slope 1.0, no
+    bias, batch 8, not windowed): the forward (two runs bit-equal), dgrad and
+    wgrad against their plain versions and autograd, two runs bit-equal,
+    timed as phase 5's rows beside cuDNN's conv1d / conv1d_input /
+    conv1d_weight."""
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+    from hm_vae_torch.train.losses import eps_shapes
+    from hm_vae_torch.train.train_step import create_state
+
+    t_phase = time.perf_counter()
+    train = train_phase(data_root, CONFIG, TRAIN_LAUNCHES, "train_lora", NEW_STEPS,
+                        {"lora_rank": LORA_TRAIN_RANK})
+    # the launches at the decoder's 4 base convs, counted: one forward and
+    # backward of the decoder alone (its latents need a gradient, as a
+    # step's do), then of the encoder alone (its input is data), of the
+    # model the Trainer builds; the two must make up the step's counts
+    lcfg = train_config(data_root, CONFIG, {"lora_rank": LORA_TRAIN_RANK})
+    lmodel = create_state(lcfg, DEV).model
+    counters = (fcp.fused_conv_pool, fcp.fused_conv_pool_dgrad, fcp.fused_conv_pool_wgrad)
+
+    def counted(loss):
+        for c in counters:
+            c.launches = 0
+        loss().backward()
+        torch.cuda.synchronize()
+        return {c.__name__: c.launches for c in counters}
+
+    z = [torch.randn(s, generator=gen).to(DEV).requires_grad_()
+         for s in eps_shapes(lcfg, BATCH)]
+    x = torch.randn((BATCH, lcfg.model.train_seq_len, 24, 6), generator=gen).to(DEV)
+    dec = counted(lambda: lmodel.decode(z).float().square().sum())
+    enc = counted(lambda: sum(s.float().square().sum() for s in lmodel.encode(x)[1]))
+    if (any(dec[k] + enc[k] != train["launches_per_step"][k] for k in dec)
+            or not all(dec.values())):
+        fail(f"lora_train: the decoder's launches {dec} and the encoder's {enc} do not make "
+             f"up a step's {train['launches_per_step']}, or a kernel ran no time")
+    fwd, bwd = [], []
+    for name, conv, T_in in level_cases(model, st):
+        if not name.startswith("dec"):
+            continue
+        base = copy.deepcopy(conv)
+        base.negative_slope, base.bias = 1.0, None
+        fwd.append(fwd_level_row(f"{name}_lora_train_base", base, T_in, base.spec.stride, BATCH,
+                                 torch.float32, gen, bits=True))
+        bwd.append(bwd_level_row(f"{name}_lora_train_base", base, T_in, BATCH, gen))
+    row = {"phase": "lora_train", "rank": LORA_TRAIN_RANK, "steps": NEW_STEPS,
+           "launches_per_step": train["launches_per_step"],
+           "launches_decoder": dec, "launches_encoder": enc,
+           "ms_per_step": train["ms_per_step"], "max_rel_diff": train["max_rel_diff"],
+           "elapsed_s": time.perf_counter() - t_phase}
+    print(json.dumps(row), flush=True)
+    return row, fwd, bwd
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
@@ -3342,7 +3595,6 @@ def main() -> None:
         long_backward_phase(model, st, tmodel, gen)
         print(smi, flush=True)
         return
-
     elapsed("1")
     # 2. kernel against its plain version at the main path's shapes: the
     #    batch-8 reconstruct and refine_vibe's batch of 237 windows
@@ -3493,6 +3745,13 @@ def main() -> None:
     elapsed("31")
     sp_valid, sp_row = sequence_parallel_phase(data_root, vae_ck, traj_ck, tmodel, gen)
     elapsed("32")
+    # 33. the compact parameter layout: training on the card against the CPU
+    #     and against the dense layout, resume across layouts, serving
+    compact_phase(data_root, vae_ck, x6d)
+    elapsed("33")
+    # 34. training with adapters, and the kernels at its base convs
+    lora_train, lora_train_fwd, lora_train_bwd = lora_train_phase(data_root, model, st, gen)
+    elapsed("34")
     # 24. summary: sums over the 8 levels of one reconstruct (forward) or of
     #    one training step (backward), over the 4 decoder levels of a solve's
     #    iteration (windowed), and over the trajectory model's 4 levels
@@ -3697,6 +3956,29 @@ def main() -> None:
                     "beside the whole-row kernel at shapes whose rows fit whole; launches: per "
                     f"step of the trajectory model's training at train_seq_len {LONG_TRAIN_T} "
                     "(phase 29); times: device time from CUDA-graph replays; library_ms: "
+                    f"{lib} on the folded weight, TF32 off"})
+    for what, rows, lib in (("", lora_train_fwd, "cuDNN conv1d"),
+                            ("_dgrad", [r["dgrad"] for r in lora_train_bwd],
+                             "torch.nn.grad.conv1d_input"),
+                            ("_wgrad", [r["wgrad"] for r in lora_train_bwd],
+                             "torch.nn.grad.conv1d_weight")):
+        name = f"fused_conv_pool{what}"
+        summary["kernels"].append({
+            "name": f"{name}@lora_train", "route": "cuda",
+            "source": "hm_vae_torch/csrc/" + ("fused_conv_pool_bwd.cu" if what
+                                              else "fused_conv_pool.cu"),
+            "replaces": ("hm_vae_tpu/ops/pallas_kernels.py:65" if not what else
+                         "hm_vae_tpu/models/hm_vae.py:200 (JAX autodiff of the level; no "
+                         "Pallas backward exists)")
+                        + " at the trained base conv of a decoder with adapters "
+                          "(hm_vae_tpu/models/hm_vae.py:200-226, model.lora_rank > 0)",
+            "launches": lora_train["launches_decoder"][name],
+            **total(rows),
+            "note": f"f32, slope 1.0, no bias, batch {BATCH}, not windowed; sums over the 4 "
+                    "decoder levels; launches: counted over one forward and backward of the "
+                    f"decoder alone of the lora_rank {LORA_TRAIN_RANK} model (phase 34), which "
+                    "with the encoder's make up a training step's; "
+                    "times: device time from CUDA-graph replays; library_ms: "
                     f"{lib} on the folded weight, TF32 off"})
     summary["kernels"].append({
         "name": "fused_conv_pool@sequence_parallel_valid", "route": "cuda",

@@ -14,6 +14,9 @@ the global batch; the primary rank writes the files):
 
     HMVAE_DIST=1 python -m torch.distributed.run --nproc_per_node N \
         -m hm_vae_torch.cli.train --config ... --output_path out/
+
+With ``model_parallel: M`` in the config (M dividing N) the ranks form N // M
+data rows of M model ranks, the latent heads sharded over each row.
 """
 
 from __future__ import annotations

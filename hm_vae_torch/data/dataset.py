@@ -250,7 +250,8 @@ def make_loaders(cfg: Config, data_dir: Optional[str] = None):
     shared: the primary rank generates synthetic data while the others wait
     at a barrier; each rank's train sampler draws from its own stream
     (``process_seed``: windows are drawn iid, so distinct streams are the
-    data partition), and val and test keep the base seeds, so that every
+    data partition) keyed by its data index (the model ranks of one data row
+    under ``run.model_parallel`` draw the same windows), and val and test keep the base seeds, so that every
     rank enumerates the same ordered windows (the Trainer takes its rows of
     them)."""
     import torch.distributed as dist
@@ -283,7 +284,8 @@ def make_loaders(cfg: Config, data_dir: Optional[str] = None):
                              cfg.model.train_seq_len, fps_aug=cfg.data.fps_aug_flag,
                              random_root_rot=host_aug, seed=seed)
 
-    train_seed = mh.process_seed(cfg.run.seed)
+    mp = cfg.run.model_parallel
+    train_seed = mh.process_seed(cfg.run.seed, mh.data_index(mp), mh.data_count(mp))
     if cfg.data.use_native_loader and not host_aug:
         from .native_loader import NativeMotionLoader
 

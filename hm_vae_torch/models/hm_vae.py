@@ -36,6 +36,11 @@ batched over windows under per-window adapters), then the LeakyReLU: with
 scope passes the adapters in its parameter dict, beside the shared base
 weights.
 
+Under ``param_layout: compact`` a masked conv stores its mask-live entries
+only (``weight_c`` (L, K), :mod:`.param_layout`) and its fold expands them
+first, so the fold, the packing, the kernels, the export and the solver see
+the dense layout's folded weight.
+
 Hierarchical latents (shallow -> deep), for len-64/SMPL-24:
 ``[(B,14,2*shallow_d), (B,9,2*latent_d), (B,7,2*latent_d), (B,7,2*latent_d)]``.
 The decoder reads only the deepest z (seeds level 0) and the shallowest z
@@ -56,6 +61,7 @@ from ..ops.fused_conv_pool import (FusedConvPoolFn, LevelStructure, PackedLevel,
                                    WindowedFusedConvPoolFn, fold_operands,
                                    fused_conv_pool_packed, pack_structure, repack)
 from ..utils.config import ModelConfig
+from . import param_layout as pl
 from .structure import ConvSpec, get_structure
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -155,25 +161,35 @@ class SkeletonConv(nn.Module):
     pool after it (``pool_matrix`` (Q, C_out)), an optional skeleton unpool
     folded in before it (``unpool_matrix`` (C_in, P)) and a LeakyReLU
     (``negative_slope`` 1.0 is none); with ``lora_rank`` > 0, a rank-r
-    adapter on the folded weight (see the module docstring)."""
+    adapter on the folded weight (see the module docstring).  Under the
+    compact ``param_layout`` a masked conv holds ``weight_c`` (L, K), drawn
+    within its rows' bounds as the JAX module's
+    ``_skeleton_conv_compact_weight_init``; otherwise ``weight``."""
 
     def __init__(self, spec: ConvSpec, compute_dtype: str = "float32",
                  pool_matrix: Optional[np.ndarray] = None,
                  unpool_matrix: Optional[np.ndarray] = None,
                  negative_slope: float = 1.0,
-                 generator: Optional[torch.Generator] = None, lora_rank: int = 0):
+                 generator: Optional[torch.Generator] = None, lora_rank: int = 0,
+                 param_layout: str = "dense"):
         super().__init__()
         self.spec = spec
         self.dtype = _DTYPES[compute_dtype]
         self.negative_slope = negative_slope
-        self.weight = nn.Parameter(_block_uniform(
-            spec, (spec.out_channels, spec.in_channels, spec.kernel_size), generator))
+        self.compact = pl.is_compact_spec(spec, param_layout)
+        if self.compact:
+            meta = pl.compact_meta(spec)
+            u = torch.rand((meta.n_live, spec.kernel_size), generator=generator) * 2.0 - 1.0
+            self.weight_c = nn.Parameter(u * torch.from_numpy(meta.row_bounds)[:, None])
+        else:
+            self.weight = nn.Parameter(_block_uniform(
+                spec, (spec.out_channels, spec.in_channels, spec.kernel_size), generator))
         self.bias = (nn.Parameter(_block_uniform(spec, (spec.out_channels,), generator))
                      if spec.bias else None)
-        # a fully dense level (enc3, dec0 at len-64) skips the mask multiply
-        dense = bool(spec.mask.all())
-        self.register_buffer("mask", None if dense else _const(spec.mask),
-                             persistent=False)
+        # a fully dense level (enc3, dec0 at len-64) skips the mask multiply,
+        # and a compact one expands to exact zeros
+        skip = bool(spec.mask.all()) or self.compact
+        self.register_buffer("mask", None if skip else _const(spec.mask), persistent=False)
         self.register_buffer("pool", _const(pool_matrix), persistent=False)
         self.register_buffer("unpool", _const(unpool_matrix), persistent=False)
         self._structures: Dict[tuple, LevelStructure] = {}
@@ -184,6 +200,11 @@ class SkeletonConv(nn.Module):
                                                    generator))
         else:
             self.lora_a = self.lora_b = None
+
+    @property
+    def raw_weight(self) -> nn.Parameter:
+        """The stored weight: ``weight_c`` (compact) or ``weight``."""
+        return self.weight_c if self.compact else self.weight
 
     def folded_shape(self) -> Tuple[int, int]:
         """(out_f, in_f) of the folded weight: the pool's rows, the unpool's
@@ -197,10 +218,13 @@ class SkeletonConv(nn.Module):
         """The JAX module's single conv weight and bias from this conv's
         ``weight`` and ``bias``: ``W*mask`` with the unpool folded in
         (``@ U``) and the pool folded on (``P @``, ``P @ b``).  G windows'
-        weights (G, C_out, C_in, K) and biases (G, C_out) fold each."""
+        weights (G, C_out, C_in, K) and biases (G, C_out) fold each.  A
+        compact weight ((L, K), or (G, L, K)) is expanded first."""
         w = weight.to(self.dtype)
         b = None if bias is None else bias.to(self.dtype)
-        if self.mask is not None:
+        if self.compact:
+            w = pl.expand(w, self.spec)
+        elif self.mask is not None:
             w = w * self.mask.to(self.dtype)[:, :, None]
         if w.dim() == 3:
             if self.unpool is not None:
@@ -217,7 +241,7 @@ class SkeletonConv(nn.Module):
 
     def folded_weight(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """:meth:`fold` of this conv's own parameters."""
-        return self.fold(self.weight, self.bias)
+        return self.fold(self.raw_weight, self.bias)
 
     def structure(self, negative_slope: Optional[float] = None,
                   padding: Optional[int] = None) -> LevelStructure:
@@ -230,7 +254,8 @@ class SkeletonConv(nn.Module):
         exchange)."""
         slope = self.negative_slope if negative_slope is None else float(negative_slope)
         padding = self.spec.padding if padding is None else int(padding)
-        key = (self.weight.device, self.dtype, self.spec, slope, padding)
+        device = self.raw_weight.device
+        key = (device, self.dtype, self.spec, slope, padding)
         if key not in self._structures:
             live = self.spec.mask != 0
             if self.unpool is not None:
@@ -240,7 +265,7 @@ class SkeletonConv(nn.Module):
             s = self.spec
             self._structures[key] = pack_structure(
                 torch.from_numpy(live), s.kernel_size, self.dtype, s.stride, padding,
-                s.padding_mode, slope, device=self.weight.device)
+                s.padding_mode, slope, device=device)
         return self._structures[key]
 
     @torch.no_grad()
@@ -255,13 +280,14 @@ class SkeletonConv(nn.Module):
     def forward(self, x: torch.Tensor, packed: Optional[PackedLevel] = None) -> torch.Tensor:
         if packed is not None:
             return fused_conv_pool_packed(x.to(packed.dtype).contiguous(), packed)
-        return self.forward_with(x, self.weight, self.bias, self.lora_a, self.lora_b)
+        return self.forward_with(x, self.raw_weight, self.bias, self.lora_a, self.lora_b)
 
     def forward_with(self, x: torch.Tensor, weight: torch.Tensor,
                      bias: Optional[torch.Tensor], lora_a: Optional[torch.Tensor] = None,
                      lora_b: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The conv on given parameters, differentiable: G windows' weights
-        (G, C_out, C_in, K) take x (G*n, ...) window by window.  With an
+        """The conv on given parameters (``weight`` in this conv's layout),
+        differentiable: G windows' weights (G, C_out, C_in, K), or (G, L, K),
+        take x (G*n, ...) window by window.  With an
         adapter (``lora_a``, ``lora_b``; G windows' stacked, with their
         biases (G, C_out)) the one shared base weight runs through the
         kernel at slope 1.0 without its bias, then the bias and the
@@ -271,7 +297,7 @@ class SkeletonConv(nn.Module):
             w, b = self.fold(weight, bias)
             fn = WindowedFusedConvPoolFn if w.dim() == 4 else FusedConvPoolFn
             return fn.apply(x, w, b, self.structure())
-        if weight.dim() != 3:
+        if weight.dim() != (2 if self.compact else 3):
             raise ValueError("an adapter's base weight is shared by every window")
         w, _ = self.fold(weight, None)
         out = FusedConvPoolFn.apply(x, w, None, self.structure(1.0))
@@ -294,7 +320,8 @@ ParamMap = Mapping[str, torch.Tensor]
 def _run(conv: SkeletonConv, x: torch.Tensor, ops: Optional[OperandMap],
          params: Optional[ParamMap] = None, name: str = "") -> torch.Tensor:
     if params is not None:
-        return conv.forward_with(x, params[f"{name}.weight"], params.get(f"{name}.bias"),
+        weight = params[f"{name}.weight_c" if conv.compact else f"{name}.weight"]
+        return conv.forward_with(x, weight, params.get(f"{name}.bias"),
                                  params.get(f"{name}.lora_a"), params.get(f"{name}.lora_b"))
     return conv(x, None if ops is None else ops[conv])
 
@@ -310,13 +337,14 @@ class Encoder(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.structure = st = get_structure(cfg)
+        layout = cfg.param_layout
         for i, lvl in enumerate(st.encoder_levels):
             for e, espec in enumerate(lvl.extra_convs):
                 self.add_module(f"conv_{i}_extra_{e}", SkeletonConv(
-                    espec, cfg.compute_dtype, generator=generator))
+                    espec, cfg.compute_dtype, generator=generator, param_layout=layout))
             self.add_module(f"conv_{i}", SkeletonConv(
                 lvl.conv, cfg.compute_dtype, pool_matrix=lvl.pool_matrix,
-                negative_slope=0.2, generator=generator))
+                negative_slope=0.2, generator=generator, param_layout=layout))
             self.add_module(f"latent_head_{i}", _linear(
                 lvl.latent_in, lvl.latent_out, init_type, generator))
 
@@ -339,13 +367,15 @@ class Decoder(nn.Module):
     (B, n_joints*output_dim, T).  With ``params`` (every decoder parameter
     by its name here, ``latent_dec_0.weight``, ..., and a conv's adapter
     ``conv_0.lora_a`` / ``conv_0.lora_b`` where it has one) it decodes
-    through those tensors instead of its own."""
+    through those tensors instead of its own (a compact conv's weight as
+    ``conv_0.weight_c``)."""
 
     def __init__(self, cfg: ModelConfig, init_type: str = "kaiming",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.structure = st = get_structure(cfg)
         nl = cfg.num_layers
+        layout = cfg.param_layout
         for i, lvl in enumerate(st.decoder_levels):
             self.add_module(f"latent_dec_{i}", _linear(
                 lvl.latent_in, lvl.latent_out, init_type, generator))
@@ -353,7 +383,8 @@ class Decoder(nn.Module):
             slope = 0.2 if lvl.leaky else 1.0
             for e, espec in enumerate(lvl.extra_convs):
                 self.add_module(f"conv_{i}_extra_{e}", SkeletonConv(
-                    espec, cfg.compute_dtype, generator=generator, lora_rank=cfg.lora_rank))
+                    espec, cfg.compute_dtype, generator=generator, lora_rank=cfg.lora_rank,
+                    param_layout=layout))
             if lvl.extra_convs:
                 # extra convs sit between the unpool and the main conv: the
                 # unpool is applied as a matrix, not folded
@@ -362,7 +393,8 @@ class Decoder(nn.Module):
             self.add_module(f"conv_{i}", SkeletonConv(
                 lvl.conv, cfg.compute_dtype,
                 unpool_matrix=None if lvl.extra_convs else lvl.unpool_matrix,
-                negative_slope=slope, generator=generator, lora_rank=cfg.lora_rank))
+                negative_slope=slope, generator=generator, lora_rank=cfg.lora_rank,
+                param_layout=layout))
         self.num_layers = nl
 
     def forward(self, z_list: Sequence[torch.Tensor], ops: Optional[OperandMap] = None,
@@ -411,9 +443,7 @@ class HMVAE(nn.Module):
     def __init__(self, cfg: ModelConfig, init_type: str = "kaiming",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.param_layout != "dense":
-            raise NotImplementedError(f"param_layout {cfg.param_layout!r} is not "
-                                      "ported yet (dense only)")
+        pl.validate_layout(cfg.param_layout)
         self.cfg = cfg
         self.encoder = Encoder(cfg, init_type, generator)
         self.decoder = Decoder(cfg, init_type, generator)

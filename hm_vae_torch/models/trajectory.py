@@ -7,7 +7,9 @@ regresses the normalised root velocity; the trajectory is the velocity
 accumulated from frame 1 on.  Fully convolutional: any T in one call.
 
 Module and parameter names follow the flax tree (``encoder.conv_{i}.weight``,
-``fc_mapping.weight``), the Linear weight stored (out, in).  On a CUDA
+``fc_mapping.weight``), the Linear weight stored (out, in); under
+``param_layout: compact`` a masked level stores ``encoder.conv_{i}.weight_c``
+(:mod:`.param_layout`), as the JAX module's levels do.  On a CUDA
 device every level is one launch of the ``fused_conv_pool`` kernel on the
 level's folded weight ``P @ (W*mask)`` and bias ``P @ b``, then
 LeakyReLU(0.2): the JAX module runs the conv and applies the pool after it
@@ -33,6 +35,7 @@ from ..ops import fk as fk_mod
 from ..ops import rotations as rot
 from ..utils.config import Config, ModelConfig
 from .hm_vae import OperandMap, SkeletonConv, _linear, _run
+from .param_layout import validate_layout
 from .structure import get_trajectory_structure
 
 
@@ -45,7 +48,7 @@ class TrajectoryEncoder(nn.Module):
         for i, lvl in enumerate(st.levels):
             self.add_module(f"conv_{i}", SkeletonConv(
                 lvl.conv, cfg.compute_dtype, pool_matrix=lvl.pool_matrix,
-                negative_slope=0.2, generator=generator))
+                negative_slope=0.2, generator=generator, param_layout=cfg.param_layout))
 
     def forward(self, x: torch.Tensor, ops: Optional[OperandMap] = None) -> torch.Tensor:
         for i in range(len(self.structure.levels)):
@@ -61,9 +64,7 @@ class TrajectoryModel(nn.Module):
         super().__init__()
         # lora_rank is ignored, as in the JAX model: the adapters are the
         # VAE decoder's, the trajectory model declares none
-        if cfg.param_layout != "dense":
-            raise NotImplementedError(f"param_layout {cfg.param_layout!r} is not "
-                                      "ported yet (dense only)")
+        validate_layout(cfg.param_layout)
         self.cfg = cfg
         st = get_trajectory_structure(cfg)
         self.encoder = TrajectoryEncoder(cfg, generator)

@@ -13,7 +13,10 @@ shares), joined by ``torch.distributed``:
   rank that writes files), :func:`process_group` (the default group once
   initialized, else None: one process);
 - :func:`process_seed`, :func:`process_shard`, :func:`local_batch_size`:
-  the same numbers and errors as the JAX package's for every (index, count);
+  the same numbers and errors as the JAX package's for every (index, count),
+  which a caller under ``run.model_parallel`` gives as the rank's
+  :func:`data_index` and :func:`data_count` (the model ranks of one data row
+  draw the same rows);
 - :func:`rank_device`: the rank's device, ``cuda:{LOCAL_RANK % device
   count}`` unless the caller asks for the CPU.
 
@@ -113,6 +116,22 @@ def is_primary() -> bool:
     """True on the rank that owns filesystem writes (checkpoints, metric
     logs, images, evaluation outputs).  Always True in one process."""
     return process_index() == 0
+
+
+def data_count(model_parallel: int = 1) -> int:
+    """The data axis's size of the (data, model) grid: ``world //
+    model_parallel``; raises ValueError where it does not divide."""
+    mp, world = max(1, int(model_parallel)), process_count()
+    if world % mp:
+        raise ValueError(f"run.model_parallel={mp} does not divide the {world} ranks")
+    return world // mp
+
+
+def data_index(model_parallel: int = 1) -> int:
+    """The rank's index on the data axis: ``rank // model_parallel``
+    (:func:`~.sharding.make_groups`)."""
+    data_count(model_parallel)  # raises where it does not divide
+    return process_index() // max(1, int(model_parallel))
 
 
 def process_seed(base_seed: int, index: Optional[int] = None,

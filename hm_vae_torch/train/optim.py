@@ -26,7 +26,12 @@ the global count before the step.
 with bits from :func:`_hash_bits16`, salted by the parameter's index + 1 in
 the flax tree-flatten order of the JAX package's parameters and hashed over
 the flax leaf's layout (a Linear weight is the transpose of a flax kernel),
-so that both packages round the same way.
+so that both packages round the same way.  A leaf sharded over a model
+group (``run.model_parallel``: a latent head's rows of output features) is
+hashed at its elements' global positions in that flax layout, and it steps
+where any rank of the group holds a nonzero gradient (one ``all_reduce`` of
+the sharded leaves' flags a step), so that a sharded run rounds and counts
+as the one-process run does.
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ import dataclasses
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
+
+import torch.distributed as dist
 
 from ..utils.config import OptimConfig
 
@@ -93,15 +100,20 @@ def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
     return (h * lo + (((h * hi) & 0xFFFF) << 16)) & _M32
 
 
-def _hash_bits16(shape, salt: int, count, device=None) -> torch.Tensor:
+def _hash_bits16(shape, salt: int, count, device=None,
+                 index: Optional[torch.Tensor] = None) -> torch.Tensor:
     """16 uniform bits per element (int64) from a murmur3-finalised counter
     hash of (element index, salt, count): the JAX package's ``_hash_bits16``
-    bit for bit.  ``count`` is an int or an int64 tensor on ``device``."""
+    bit for bit.  ``count`` is an int or an int64 tensor on ``device``;
+    ``index`` (int64, of ``shape``), the elements' indices where they are not
+    ``0 .. n-1`` (a shard's global positions)."""
     n = 1
     for d in shape:
         n *= int(d)
     base = ((salt * 0x9E3779B1) + (count * 0x85EBCA6B)) & _M32
-    h = (torch.arange(n, dtype=torch.int64, device=device) + base) & _M32
+    idx = torch.arange(n, dtype=torch.int64, device=device) if index is None else \
+        index.reshape(-1)
+    h = (idx + base) & _M32
     h = h ^ (h >> 16)
     h = _mul32(h, 0x85EBCA6B)
     h = h ^ (h >> 13)
@@ -110,19 +122,41 @@ def _hash_bits16(shape, salt: int, count, device=None) -> torch.Tensor:
     return (h & 0xFFFF).reshape(tuple(shape))
 
 
+def _shard_positions(shape, transposed: bool, start: int, full: int, device) -> torch.Tensor:
+    """The flat positions, in the flax leaf's layout, of a port tensor of
+    ``shape`` that is rows [start, start + shape[0]) of ``full`` rows: for a
+    Linear weight (out, in) whose flax kernel is (in, out), ``i * full + o``;
+    else row-major over (full, *shape[1:])."""
+    rows = torch.arange(start, start + shape[0], dtype=torch.int64, device=device)
+    inner = 1
+    for d in shape[1:]:
+        inner *= int(d)
+    cols = torch.arange(inner, dtype=torch.int64, device=device)
+    if transposed:
+        return cols[None, :] * full + rows[:, None]
+    return (rows[:, None] * inner + cols[None, :]).reshape(tuple(shape))
+
+
 def stochastic_round_bf16_hash(x32: torch.Tensor, salt: int, count,
-                               transposed: bool = False, lead: int = 0) -> torch.Tensor:
+                               transposed: bool = False, lead: int = 0,
+                               shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Stochastically round f32 values to the bf16 grid, returned as f32:
     add 16 hashed random bits to the IEEE bits and truncate the low 16, so
     ``E[round(x)] == x``.  ``transposed``: hash over the transposed layout
     (a flax kernel of this Linear weight).  ``lead``: leading (window) axes
     the hash does not see, every window drawing the same bits, as the JAX
-    hash under ``jax.vmap`` over windows.  Not inf/NaN-safe."""
+    hash under ``jax.vmap`` over windows.  ``shard``: (start, full), the
+    tensor is rows [start, start + its rows) of a leaf of ``full`` rows,
+    hashed at their global positions.  Not inf/NaN-safe."""
     x32 = x32.float()
     shape = tuple(x32.shape[lead:])
-    r = _hash_bits16(shape[::-1] if transposed else shape, salt, count, x32.device)
-    if transposed:
-        r = r.T
+    if shard is not None:
+        index = _shard_positions(shape, transposed, shard[0], shard[1], x32.device)
+        r = _hash_bits16(shape, salt, count, x32.device, index)
+    else:
+        r = _hash_bits16(shape[::-1] if transposed else shape, salt, count, x32.device)
+        if transposed:
+            r = r.T
     bits = x32.contiguous().view(torch.int32).to(torch.int64) & _M32
     bits = (bits + r) & 0xFFFF0000
     bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
@@ -228,10 +262,16 @@ class TorchAdamL2(torch.optim.Optimizer):
     through by ``where``.  (A parameter in the graph never has an all-zero
     f32 gradient in practice; the curriculum's gated head always has one.)
     ``load_state_dict`` writes into the existing state tensors, so a
-    captured step stays valid across a resume."""
+    captured step stays valid across a resume.
+
+    ``shards``: the parameters sharded over ``model_group`` by name, (dim,
+    start, full) (:func:`~hm_vae_torch.parallel.sharding.model_shards`):
+    hashed at their global positions, and touched where the group's any is
+    (see the module docstring)."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
-                 cfg: OptimConfig):
+                 cfg: OptimConfig, shards: Optional[Dict[str, Tuple[int, int, int]]] = None,
+                 model_group=None):
         named = list(named_params)
         self.cfg = cfg
         self.schedule = make_schedule(cfg)
@@ -245,6 +285,10 @@ class TorchAdamL2(torch.optim.Optimizer):
         names = [n for n, _ in named]
         salts = flax_salts(names)
         device = named[0][1].device if named else torch.device("cpu")
+        shards = shards or {}
+        self.model_group = model_group if shards else None
+        # the hash's (start, full rows) of each sharded parameter
+        self._shards = {p: shards[n][1:] for n, p in named if n in shards}
         super().__init__([{"params": [p for _, p in named],
                            "salts": [salts[n] for n in names],
                            "step": torch.zeros((), dtype=torch.int64, device=device)}],
@@ -267,6 +311,7 @@ class TorchAdamL2(torch.optim.Optimizer):
             gstep = group["step"]
             lr = self.schedule(gstep)  # at the count before the step
             gstep.add_(1)
+            touched_shard = self._touched_shards(group["params"]) if skip else {}
             for p, (salt, transposed) in zip(group["params"], group["salts"]):
                 g = p.grad
                 if g is None and skip:
@@ -275,7 +320,9 @@ class TorchAdamL2(torch.optim.Optimizer):
                 p32 = p.float()
                 g32 = torch.zeros_like(p32) if g is None else g.float()
                 if skip:
-                    touched = torch.any(g32 != 0)
+                    touched = touched_shard.get(p)
+                    if touched is None:
+                        touched = torch.any(g32 != 0)
                     state["step"].add_(touched.to(torch.int64))
                     # an untouched count may be 0: clamp the discarded branch
                     cf = state["step"].clamp_min(1).float()
@@ -289,7 +336,8 @@ class TorchAdamL2(torch.optim.Optimizer):
                 u, m32, v32 = _adam_math(g32, m, v, 1 - _f32(B1) ** cf, 1 - _f32(B2) ** cf)
                 u = -lr * u  # CPU 0-dim tensors act as scalars on any device
                 if self.param_sr:
-                    new = stochastic_round_bf16_hash(p32 + u, salt, gstep, transposed)
+                    new = stochastic_round_bf16_hash(p32 + u, salt, gstep, transposed,
+                                                     shard=self._shards.get(p))
                 else:
                     new = p + u.to(p.dtype)
                 if touched is not None:
@@ -300,6 +348,17 @@ class TorchAdamL2(torch.optim.Optimizer):
                 m.copy_(m32)
                 v.copy_(v32)
         return None
+
+    def _touched_shards(self, params) -> Dict[torch.Tensor, torch.Tensor]:
+        """Whether each sharded parameter with a gradient has a nonzero entry
+        on any rank of the model group: one ``all_reduce`` MAX of the flags
+        (the same parameters have gradients on every rank of the group)."""
+        mine = [p for p in params if p in self._shards and p.grad is not None]
+        if not mine or self.model_group is None:
+            return {}
+        flags = torch.stack([torch.any(p.grad != 0) for p in mine]).to(torch.float32)
+        dist.all_reduce(flags, op=dist.ReduceOp.MAX, group=self.model_group)
+        return dict(zip(mine, (flags > 0).unbind()))
 
     def load_state_dict(self, state_dict) -> None:
         """Restore the counts and moments into the existing state tensors
@@ -326,7 +385,10 @@ class TorchAdamL2(torch.optim.Optimizer):
                     t.copy_(torch.as_tensor(s[k]))
 
 
-def make_optimizer(named_params, cfg: OptimConfig) -> TorchAdamL2:
+def make_optimizer(named_params, cfg: OptimConfig, shards=None, model_group=None
+                   ) -> TorchAdamL2:
     """The training optimizer: torch-exact Adam with L2 and the grad-None
-    skip (``none_grad_skip``, the default), else the plain chain."""
-    return TorchAdamL2(named_params, cfg)
+    skip (``none_grad_skip``, the default), else the plain chain; its
+    sharded parameters (``shards`` over ``model_group``) as TorchAdamL2
+    says."""
+    return TorchAdamL2(named_params, cfg, shards, model_group)

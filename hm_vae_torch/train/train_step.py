@@ -14,6 +14,13 @@ The step is device work only: its count is a tensor on the model's device
 gate and the optimizer's counts, learning rate and skip are decided on the
 device (``losses.py``, ``optim.py``), and the noise and the batch are read
 from device buffers.
+
+Under ranks the ``group`` these functions take is the data group (the ranks
+of the rank's model index: :func:`~hm_vae_torch.parallel.sharding.
+make_groups`), over which the gradients and metrics are averaged; a model
+with sharded latent heads (``create_state(..., model_group=)``, which hands
+the whole model to :func:`~hm_vae_torch.parallel.sharding.shard_model`)
+runs its model group's collectives inside its own forward and backward.
 """
 
 from __future__ import annotations
@@ -27,7 +34,8 @@ import torch.distributed as dist
 
 from ..models.hm_vae import HMVAE
 from ..models.trajectory import TrajectoryModel, trajectory_losses
-from ..parallel.sharding import allreduce_grads, rank_rows, world_size
+from ..parallel.sharding import (allreduce_grads, model_group_of, model_shards, rank_rows,
+                                 shard_model, world_size)
 from ..utils.config import Config
 from .losses import draw_noise, eps_shapes, hmvae_forward
 from .optim import _DTYPES, TorchAdamL2, make_optimizer
@@ -80,16 +88,17 @@ def cast_params(model: torch.nn.Module, param_dtype: str) -> torch.nn.Module:
     return model
 
 
-def create_state(cfg: Config, device, generator: Optional[torch.Generator] = None
-                 ) -> TrainState:
+def create_state(cfg: Config, device, generator: Optional[torch.Generator] = None,
+                 model_group=None) -> TrainState:
     """A model drawn from ``generator`` (default: seeded by ``cfg.run.seed``)
-    on the CPU, cast to the storage dtype, moved to ``device``, and its
-    optimizer."""
+    on the CPU (whole: a sharded head keeps its rows of the same draw),
+    cast to the storage dtype, moved to ``device``, and its optimizer."""
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.run.seed)
-    model = build_model(cfg, generator)
+    model = shard_model(build_model(cfg, generator), model_group)
     cast_params(model, cfg.optim.param_dtype).to(device)
-    return TrainState(model, make_optimizer(model.named_parameters(), cfg.optim))
+    return TrainState(model, make_optimizer(model.named_parameters(), cfg.optim,
+                                            model_shards(model), model_group_of(model)))
 
 
 def to_device(batch: Dict[str, np.ndarray], device,
@@ -190,8 +199,9 @@ class MultiStep:
 
     Under ``group`` each rank runs its rows of the global batches and the
     gradients are all-reduced inside the step (:func:`_step_body`); the
-    all-reduce is captured with the step under NCCL, while gloo's
-    collectives cannot be captured: there ``graph`` must be false.
+    all-reduce (and a sharded model's collectives) is captured with the
+    step under NCCL, while gloo's collectives cannot be captured: there
+    ``graph`` must be false.
 
     On CUDA (unless ``graph`` is false) one step is captured in a CUDA graph
     and replayed K times; the step reads its batch and noise at a device
@@ -210,9 +220,10 @@ class MultiStep:
         self.state, self.cfg, self.group = state, cfg, group
         self.device = state.step_t.device
         self.graph = graph and self.device.type == "cuda"
-        if self.graph and group is not None and dist.get_backend(group) != "nccl":
-            raise ValueError(f"a {dist.get_backend(group)} group's collectives cannot be "
-                             "captured in a CUDA graph: pass graph=False")
+        for g in (group, model_group_of(state.model)):
+            if self.graph and g is not None and dist.get_backend(g) != "nccl":
+                raise ValueError(f"a {dist.get_backend(g)} group's collectives cannot be "
+                                 "captured in a CUDA graph: pass graph=False")
         self.mean_std = (None if mean_std is None else
                          torch.as_tensor(np.asarray(mean_std, np.float32), device=self.device))
         self._graph = None

@@ -36,22 +36,33 @@ reference ``TrajectoryModel``'s names.
 
 Runs on ``cuda`` unless told otherwise.  Every ``run.image_save_iter`` steps
 of a VAE run with a test split it saves animations (``_save_visualizations``,
-which needs matplotlib).  Not ported, each raising: a VAE with adapters
-(``model.lora_rank > 0``; no config trains one; the trajectory model ignores
-the rank, as in the JAX package) and tensor parallelism
-(``run.model_parallel > 1``, ROADMAP item 11b).
+which needs matplotlib).  A VAE with adapters (``model.lora_rank > 0``, a
+nested ``model: {lora_rank: N}``) trains its base weights and adapters
+together, as the JAX Trainer does (the trajectory model ignores the rank);
+its checkpoints keep the adapters under the port's names
+(``decoder.conv_*.lora_a``, ``lora_b``) beside the reference names.  Under
+``model.param_layout: compact`` the masked convs train their live entries
+only (:mod:`..models.param_layout`); checkpoints are dense either way, so
+``resume`` and ``load_params`` read a checkpoint of either layout, the Adam
+moments converted with the weights.
 
-Data parallel over ranks (:mod:`..parallel.multihost`, a process group
-initialized before the Trainer is made): the degree is the world size and
-``optim.batch_size`` stays global, each rank loading its
-``local_batch_size`` rows from its own sampling stream; the step averages
-the gradients over the ranks (:mod:`..parallel.sharding`), inside the CUDA
-graph under NCCL, eagerly under gloo (whose collectives cannot be
-captured); the noise is the global batch's, each rank taking its rows.
-The metrics logged are the ranks' mean; the metric log, checkpoints and
-images are written by the primary rank only; a resume reads the newest
-checkpoint on every rank; validation takes each rank's ``process_shard``
-rows of the same ordered batches and averages the metrics over the ranks.
+Parallel over ranks (:mod:`..parallel.multihost`, a process group
+initialized before the Trainer is made), on the JAX Trainer's (data, model)
+grid (:func:`~..parallel.sharding.make_groups`): ``run.model_parallel`` (mp)
+must divide the world, the data degree is ``world // mp``, and
+``optim.batch_size`` stays global, each data row loading its
+``local_batch_size`` rows from its own sampling stream (the model ranks of
+a row draw the same rows and noise); the latent heads are sharded over the
+model group; the step averages the gradients over the data group, inside
+the CUDA graph under NCCL, eagerly under gloo (whose collectives cannot be
+captured); the noise is the global batch's, each data row taking its rows.
+The metrics logged are the data group's mean; the metric log, checkpoints
+and images are written by the primary rank only, checkpoints with full
+tensors (the sharded heads and their moments gathered on every rank first),
+so that a checkpoint of any ``model_parallel`` resumes at any other; a
+resume reads the newest checkpoint on every rank and takes its part;
+validation takes each data row's ``process_shard`` rows of the same ordered
+batches and averages the metrics over the data group.
 
 The noise of step i comes from a CPU generator seeded by (``run.seed``, i),
 and the rotations of a batch consumed at step i from one seeded by
@@ -74,20 +85,24 @@ import torch
 import torch.distributed as dist
 
 from ..data.dataset import MotionDataset, PrefetchIterator, make_loaders
+from ..models.param_layout import convert_optimizer_state
 from ..models.trajectory import TrajectoryModel
 from ..parallel import multihost as mh
-from ..parallel.sharding import allreduce_mean, rank_rows, world_size
+from ..parallel.sharding import (allreduce_mean, gather_state, make_groups, model_shards,
+                                 rank_rows, shard_state)
 from ..utils.config import Config
 from ..utils.device import resolve_device
 from ..utils.logging import MetricWriter, NullMetricWriter, make_result_folders
 from ..utils.weights import reference_state_dict, state_dict_from_reference
 from .losses import draw_noise, eps_shapes
-from .train_step import (MultiStep, TrainState, create_state, eval_step, loss_fields, to_device,
-                         train_step)
+from .train_step import (MultiStep, TrainState, build_model, cast_params, create_state, eval_step,
+                         loss_fields, to_device, train_step)
 
 log = logging.getLogger(__name__)
 
 _CKPT = re.compile(r"gen_(\d{8,})\.pt")
+_MOMENTS = ("exp_avg", "exp_avg_sq")
+_ADAPTERS = (".lora_a", ".lora_b")
 
 
 def step_generator(seed: int, step: int) -> torch.Generator:
@@ -130,13 +145,6 @@ class Trainer:
         name = cfg.model.model_name
         if name not in ("TwoHierSAVAEModel", "TrajectoryModel"):
             raise ValueError(f"unknown model_name: {name}")
-        if name == "TwoHierSAVAEModel" and cfg.model.lora_rank > 0:
-            raise NotImplementedError(
-                "model.lora_rank > 0: the adapters are the test-time solver's (finetune_scope "
-                "lora); training a model with them is not ported (ROADMAP Queue 1 item 6b)")
-        if cfg.run.model_parallel > 1:
-            raise NotImplementedError("model_parallel > 1: tensor parallelism over a model "
-                                      "axis is not ported (ROADMAP Queue 1 item 11b)")
         if cfg.run.matmul_precision != "default":
             log.warning("run.matmul_precision=%s is ignored: the port computes f32 in f32",
                         cfg.run.matmul_precision)
@@ -144,8 +152,9 @@ class Trainer:
         self.mean_std = mean_std
         self.device = resolve_device(device)
         self.output_dir = output_dir
-        self.group = mh.process_group()
-        self.world = world_size(self.group)
+        self.groups = make_groups(cfg.run.model_parallel)  # ValueError where mp does not divide
+        self.data_group = self.groups.data
+        self.world = mh.process_count()
         self.primary = mh.is_primary()
         if self.primary:
             self.ckpt_dir, self.image_dir = make_result_folders(output_dir)
@@ -154,7 +163,9 @@ class Trainer:
             self.ckpt_dir, self.image_dir = (os.path.join(output_dir, d)
                                              for d in ("checkpoints", "images"))
             self.writer = NullMetricWriter()
-        self.state: TrainState = create_state(cfg, self.device)
+        self.state: TrainState = create_state(cfg, self.device, model_group=self.groups.model)
+        self.shards = model_shards(self.state.model)  # name -> (dim, start, full)
+        self._names = [n for n, _ in self.state.model.named_parameters()]
         self._fields = loss_fields(self.state.model)
         self._preempted = False
         self._multi: Optional[MultiStep] = None
@@ -170,16 +181,62 @@ class Trainer:
                              else None)
         n = sum(p.numel() for p in self.state.model.parameters())
         log.info("%s: %.2fM params on %s", name, n / 1e6, self.device)
-        if self.group is not None:
-            log.info("data parallel: rank %d of %d, backend %s, rows %s of batch %d",
-                     mh.process_index(), self.world, dist.get_backend(self.group),
-                     rank_rows(cfg.optim.batch_size, self.group), cfg.optim.batch_size)
+        if self.world > 1:
+            g = self.groups
+            log.info("rank %d of %d, backend %s: data %d of %d (rows %s of batch %d), model "
+                     "%d of %d (%d sharded leaves)", mh.process_index(), self.world,
+                     dist.get_backend(), g.data_index, g.data_count,
+                     rank_rows(cfg.optim.batch_size, self.data_group), cfg.optim.batch_size,
+                     g.model_index, g.model_count, len(self.shards))
 
     # ------------------------------------------------------------------
     # checkpoints
     def _blob(self, model_sd, optim_sd, step: int) -> dict:
+        """A checkpoint from full tensors: the reference's dense names, the
+        optimizer's moments dense too."""
+        if self.cfg.model.param_layout != "dense":
+            optim_sd = convert_optimizer_state(optim_sd, self._names, self.cfg.model, "dense")
         return {"state_dict": reference_state_dict(model_sd, self.cfg.model),
                 "optimizer": optim_sd, "step": step}
+
+    def _full_state(self):
+        """The model's and the optimizer's state dicts with full tensors: a
+        sharded leaf and its moments gathered over the model group (a
+        collective: every rank calls it; new tensors), the rest the live
+        state's own tensors."""
+        model_sd = self.state.model.state_dict()
+        optim_sd = self.state.optimizer.state_dict()
+        if not self.shards:
+            return model_sd, optim_sd
+        group = self.groups.model
+        model_sd = gather_state(model_sd, self.shards, group)
+        state = {}
+        for i, st in sorted(optim_sd["state"].items()):
+            shard = self.shards.get(self._names[i])
+            if shard is not None:
+                st = {**st, **gather_state({k: st[k] for k in _MOMENTS},
+                                           {k: shard for k in _MOMENTS}, group)}
+            state[i] = st
+        return model_sd, {**optim_sd, "state": state}
+
+    def _local_optimizer_state(self, optim_sd) -> dict:
+        """A checkpoint's optimizer state (full, dense) as this rank holds
+        it: in the model's layout, a sharded leaf's moments cut to its rows."""
+        if self.cfg.model.param_layout != "dense":
+            optim_sd = convert_optimizer_state(optim_sd, self._names, self.cfg.model,
+                                               self.cfg.model.param_layout)
+        if not self.shards:
+            return optim_sd
+        params = dict(self.state.model.named_parameters())
+        state = {}
+        for i, st in optim_sd["state"].items():
+            name = self._names[int(i)]
+            if name in self.shards:
+                st = {**st, **shard_state({k: st[k] for k in _MOMENTS},
+                                          {k: self.shards[name] for k in _MOMENTS},
+                                          {k: params[name].shape[0] for k in _MOMENTS})}
+            state[i] = st
+        return {**optim_sd, "state": state}
 
     def _write_checkpoint(self, path: str, blob: dict) -> None:
         tmp = f"{path}.{os.getpid()}.tmp"
@@ -196,16 +253,16 @@ class Trainer:
         :meth:`wait_for_saves`), from a device-side snapshot taken now."""
         step = self.state.step if step is None else step
         path = os.path.join(os.path.abspath(self.ckpt_dir), f"gen_{step:08d}.pt")
-        if not self.primary:  # every rank holds the same state
+        full = self._full_state()  # every rank: the sharded leaves are gathered
+        if not self.primary:  # every rank holds the same (full) state
             return path
         if not self.cfg.run.async_checkpoint:
-            self._write_checkpoint(path, _to_host(self._blob(
-                self.state.model.state_dict(), self.state.optimizer.state_dict(), step)))
+            self._write_checkpoint(path, _to_host(self._blob(*full, step)))
             return path
         self.wait_for_saves()
         # the next calls update the state in place: copy it first, on the
         # compute stream after the steps that wrote it
-        snap = _clone((self.state.model.state_dict(), self.state.optimizer.state_dict()))
+        snap = _clone(full)
         done = None
         if self.device.type == "cuda":
             done = torch.cuda.Event()
@@ -253,24 +310,33 @@ class Trainer:
         return os.path.join(os.path.abspath(self.ckpt_dir), names[-1]) if names else None
 
     def _load_weights(self, sd) -> None:
+        """A reference-layout state dict (full, dense) into the model: in its
+        layout, a sharded leaf cut to this rank's rows.  Adapters the
+        checkpoint lacks keep their values; adapters the model lacks are
+        not read."""
         model = self.state.model
+        own = model.state_dict()
         params = state_dict_from_reference(sd, self.cfg.model)
-        dtypes = {k: v.dtype for k, v in model.state_dict().items()}
-        model.load_state_dict({k: v.to(dtypes[k]) for k, v in params.items()})
+        params = shard_state(params, self.shards, {n: own[n].shape[0] for n in self.shards})
+        params = {k: v for k, v in params.items() if k in own or not k.endswith(_ADAPTERS)}
+        params.update({k: v for k, v in own.items()
+                       if k.endswith(_ADAPTERS) and k not in params})
+        model.load_state_dict({k: v.to(own[k].dtype) for k, v in params.items()})
 
     def resume(self, path: Optional[str] = None) -> int:
         """Restore params, optimizer state and step (into the existing
-        tensors); returns the step.  Under several ranks every rank calls
-        it and reads the same checkpoint, after the primary's writes."""
+        tensors) from a checkpoint of either layout and any
+        ``model_parallel``; returns the step.  Under several ranks every rank
+        calls it and reads the same checkpoint, after the primary's writes."""
         self.wait_for_saves()  # an asynchronous save in flight may be the newest
-        if self.group is not None:
-            dist.barrier(self.group)
+        if self.world > 1:
+            dist.barrier()
         path = path or self.latest_checkpoint()
         if path is None:
             return 0
         blob = torch.load(path, map_location="cpu", weights_only=True)
         self._load_weights(blob["state_dict"])
-        self.state.optimizer.load_state_dict(blob["optimizer"])
+        self.state.optimizer.load_state_dict(self._local_optimizer_state(blob["optimizer"]))
         self.state.set_step(int(blob["step"]))
         return self.state.step
 
@@ -331,7 +397,7 @@ class Trainer:
         pinned, non-blocking transfer; or None where the loss draws none."""
         if isinstance(self.state.model, TrajectoryModel) or self.cfg.loss.kl_w == 0:
             return None
-        r0, r1 = rank_rows(B, self.group)
+        r0, r1 = rank_rows(B, self.data_group)
         shapes = eps_shapes(self.cfg, B)
         draws = [draw_noise(shapes, step_generator(self.cfg.run.seed, step + k))
                  for k in range(K)]
@@ -350,12 +416,20 @@ class Trainer:
         ``images/<step>/``: a test window beside its posterior-mean
         reconstruction (``mean_seq_rot_6d.mp4``) and a prior sample
         (``sampled_seq_rot_6d.mp4``); gifs without ffmpeg.  Needs
-        matplotlib."""
+        matplotlib.  Every rank calls it (a sharded model is gathered into an
+        unsharded copy first); the primary draws."""
         from ..apps.inference import VAEInference
         from ..ops import fk as fk_mod
         from ..utils.viz import save_animation
 
         model = self.state.model
+        if self.shards:
+            full = gather_state(model.state_dict(), self.shards, self.groups.model)
+            model = cast_params(build_model(self.cfg, torch.Generator()),
+                                self.cfg.optim.param_dtype).to(self.device)
+            model.load_state_dict(full)
+        if not self.primary:
+            return
         was_training = model.training
         try:
             infer = VAEInference(model, self.cfg, device=self.device)
@@ -375,14 +449,14 @@ class Trainer:
     def _val_pass(self, val_ds: MotionDataset, step: int) -> None:
         cfg = self.cfg
         vals = []
-        v0, v1 = rank_rows(cfg.optim.batch_size, self.group)
+        v0, v1 = rank_rows(cfg.optim.batch_size, self.data_group)
         for vi, vb in enumerate(val_ds.ordered_batches(cfg.optim.batch_size, max_batches=50,
                                                        seed=cfg.run.seed)):
             vb = {k: v[v0:v1] for k, v in vb.items()}  # this rank's rows
             vm = eval_step(self.state, to_device(vb, self.device, self._fields), cfg,
                            generator=step_generator(cfg.run.seed, 10_000_000 + vi),
-                           mean_std=self.mean_std, group=self.group)
-            vm = allreduce_mean(vm, self.group)
+                           mean_std=self.mean_std, group=self.data_group)
+            vm = allreduce_mean(vm, self.data_group)
             vals.append({k: float(v) for k, v in vm.items()})
         if vals:  # a val split smaller than one batch yields none
             self.writer.write(step, {f"val_{k}": float(np.mean([v[k] for v in vals]))
@@ -391,7 +465,7 @@ class Trainer:
     def _single(self, host, i: int, stream=None) -> Dict[str, torch.Tensor]:
         return train_step(self.state, self._consume(self._stage(host, i, stream)), self.cfg,
                           generator=step_generator(self.cfg.run.seed, i),
-                          mean_std=self.mean_std, group=self.group)
+                          mean_std=self.mean_std, group=self.data_group)
 
     def fit(self, train_ds, val_ds: Optional[MotionDataset] = None,
             max_iter: Optional[int] = None, log_cb=None,
@@ -399,7 +473,7 @@ class Trainer:
         cfg = self.cfg
         max_iter = cfg.optim.max_iter if max_iter is None else max_iter
         bs = cfg.optim.batch_size
-        bs_local = mh.local_batch_size(bs, count=self.world)  # the rank's rows
+        bs_local = mh.local_batch_size(bs, count=self.groups.data_count)  # the row's rows
         K = max(1, cfg.run.steps_per_call)
         need_root_v = isinstance(self.state.model, TrajectoryModel)
         pin = self.device.type == "cuda"
@@ -417,11 +491,11 @@ class Trainer:
             it = PrefetchIterator(train_ds.iter_batches(bs_local), depth=cfg.data.num_prefetch)
         if K > 1 and self._multi is None:
             # gloo's collectives cannot be captured: its steps run eagerly
-            graph = self.group is None or dist.get_backend(self.group) == "nccl"
+            graph = self.world == 1 or dist.get_backend() == "nccl"
             self._multi = MultiStep(self.state, cfg, self.mean_std, graph=graph,
-                                    group=self.group)
-            if self.group is not None:
-                log.info("MultiStep under %s: graphed=%s", dist.get_backend(self.group),
+                                    group=self.data_group)
+            if self.world > 1:
+                log.info("MultiStep under %s: graphed=%s", dist.get_backend(),
                          self._multi.graph)
 
         def next_super():
@@ -479,7 +553,8 @@ class Trainer:
                     return (i // interval) > (prev_i // interval)
 
                 if crossed(cfg.run.log_iter):
-                    host = {k: float(v) for k, v in allreduce_mean(metrics, self.group).items()}
+                    host = {k: float(v)
+                            for k, v in allreduce_mean(metrics, self.data_group).items()}
                     if cfg.run.nan_guard and not np.isfinite(host["loss_total"]):
                         restored = self.resume()
                         self.writer.write(i, {"nan_guard_restored_to": restored})
@@ -500,8 +575,7 @@ class Trainer:
                     self._val_pass(val_ds, i)
                 if crossed(cfg.run.snapshot_save_iter):
                     self.save(i)
-                if (test_ds is not None and self.primary
-                        and not isinstance(self.state.model, TrajectoryModel)
+                if (test_ds is not None and not isinstance(self.state.model, TrajectoryModel)
                         and crossed(cfg.run.image_save_iter)):
                     self._save_visualizations(test_ds, i)
         finally:
@@ -524,7 +598,7 @@ class Trainer:
                         failed = e
             if failed is not None:
                 raise failed
-        return {k: float(v) for k, v in allreduce_mean(metrics, self.group).items()}
+        return {k: float(v) for k, v in allreduce_mean(metrics, self.data_group).items()}
 
 
 def build_trainer(cfg: Config, output_dir: str, device="cuda") -> tuple:

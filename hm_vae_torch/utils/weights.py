@@ -22,7 +22,15 @@ and :class:`~hm_vae_torch.models.trajectory.TrajectoryModel`.
 The port's names follow the flax tree; Linear weights are (out, in), the
 transpose of a flax Dense kernel.  A decoder conv's adapters
 (``decoder/conv_*/lora_a``, ``lora_b``, of a model with ``lora_rank`` > 0)
-keep their names and layout (``decoder.conv_*.lora_a``, ...).
+keep their names and layout (``decoder.conv_*.lora_a``, ...), and so they
+stand in a reference state dict too, beside the reference names (the
+reference has no adapters).
+
+Both parameter layouts (:mod:`~hm_vae_torch.models.param_layout`): a flax
+tree of either (``weight`` or ``weight_c`` leaves) gives the state dict of
+``cfg.param_layout``; the reference names speak dense, as the reference and
+the JAX package's ``torch_import`` do, so a compact model's conv weights are
+written dense (dead entries 0) and read back by ``compact_from_dense``.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from ..models.param_layout import convert_state_dict, params_layout
 from ..models.structure import get_structure, get_trajectory_structure
 from .config import ModelConfig
 
@@ -42,9 +51,8 @@ def _t(a) -> torch.Tensor:
 
 def params_from_flax(params_np: Mapping, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """Flax ``{'encoder': {...}, 'decoder': {...}}`` (optionally under
-    ``'params'``) -> port state_dict."""
-    if cfg.param_layout != "dense":
-        raise NotImplementedError("only the dense parameter layout is ported")
+    ``'params'``), of either layout -> port state_dict in
+    ``cfg.param_layout``."""
     if cfg.model_name == "TrajectoryModel":
         return trajectory_params_from_flax(params_np, cfg)
     tree = params_np.get("params", params_np)
@@ -57,22 +65,32 @@ def params_from_flax(params_np: Mapping, cfg: ModelConfig) -> Dict[str, torch.Te
             else:
                 for k, v in leaf.items():
                     sd[f"{part}.{name}.{k}"] = _t(v)
-    return sd
+    return _in_layout(sd, cfg)
+
+
+def _in_layout(sd: Dict[str, torch.Tensor], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """A state dict of either layout in ``cfg.param_layout``."""
+    if params_layout(sd) == cfg.param_layout:
+        return sd
+    return convert_state_dict(sd, cfg, cfg.param_layout)
+
+
+def _dense(sd: Mapping[str, torch.Tensor], cfg: ModelConfig) -> Mapping[str, torch.Tensor]:
+    return sd if params_layout(sd) == "dense" else convert_state_dict(sd, cfg, "dense")
 
 
 def trajectory_params_from_flax(params_np: Mapping, cfg: ModelConfig
                                 ) -> Dict[str, torch.Tensor]:
     """Flax trajectory tree ``{'encoder': {conv_i: {weight, bias}},
-    'fc_mapping': {kernel, bias}}`` (optionally under ``'params'``) -> port
-    state_dict."""
-    if cfg.param_layout != "dense":
-        raise NotImplementedError("only the dense parameter layout is ported")
+    'fc_mapping': {kernel, bias}}`` (optionally under ``'params'``; a level
+    ``weight_c`` in the compact layout) -> port state_dict in
+    ``cfg.param_layout``."""
     tree = params_np.get("params", params_np)
     sd = {f"encoder.{name}.{k}": _t(v)
           for name, leaf in tree["encoder"].items() for k, v in leaf.items()}
     sd["fc_mapping.weight"] = _t(np.asarray(tree["fc_mapping"]["kernel"]).T)
     sd["fc_mapping.bias"] = _t(tree["fc_mapping"]["bias"])
-    return sd
+    return _in_layout(sd, cfg)
 
 
 def load_reference_checkpoint(path: str) -> Dict[str, np.ndarray]:
@@ -85,9 +103,11 @@ def load_reference_checkpoint(path: str) -> Dict[str, np.ndarray]:
 
 def reference_state_dict(sd: Mapping[str, torch.Tensor],
                          cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """Port state_dict -> the reference ``TwoHierSAVAEModel`` state dict
-    (f32, on the CPU), with the conv masks and the pool/unpool matrices
-    (the trajectory model's: :func:`trajectory_reference_state_dict`)."""
+    """Port state_dict (either layout) -> the reference ``TwoHierSAVAEModel``
+    state dict (f32, on the CPU, dense), with the conv masks and the
+    pool/unpool matrices, and a decoder conv's adapters under the port's
+    names (the trajectory model's: :func:`trajectory_reference_state_dict`)."""
+    sd = _dense(sd, cfg)
     if cfg.model_name == "TrajectoryModel":
         return trajectory_reference_state_dict(sd, cfg)
     st = get_structure(cfg)
@@ -119,6 +139,9 @@ def reference_state_dict(sd: Mapping[str, torch.Tensor],
         put(f"dec.layers.{i}.{unpool_idx}.weight", lvl.unpool_matrix)
         put(f"dec.latent_dec_layers.{i}.weight", sd[f"decoder.latent_dec_{i}.weight"])
         put(f"dec.latent_dec_layers.{i}.bias", sd[f"decoder.latent_dec_{i}.bias"])
+    for name in sd:
+        if name.startswith("decoder.") and name.endswith((".lora_a", ".lora_b")):
+            put(name, sd[name])
     return out
 
 
@@ -133,7 +156,8 @@ def _check_constant(sd: Mapping[str, np.ndarray], name: str, ours: np.ndarray):
 
 def state_dict_from_reference(sd: Mapping[str, np.ndarray],
                               cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """Reference ``TwoHierSAVAEModel`` state dict -> port state_dict.
+    """Reference ``TwoHierSAVAEModel`` state dict -> port state_dict in
+    ``cfg.param_layout``, with the adapters it holds under the port's names.
 
     Encoder Sequential: ``[extra_conv x E, conv, pool, leaky]``; decoder
     Sequential: ``[upsample?, unpool, extra_conv x E, conv, leaky?]``.  (The
@@ -172,14 +196,19 @@ def state_dict_from_reference(sd: Mapping[str, np.ndarray],
         _check_constant(sd, f"dec.unpools.{i}.weight", lvl.unpool_matrix)
         out[f"decoder.latent_dec_{i}.weight"] = _t(sd[f"dec.latent_dec_layers.{i}.weight"])
         out[f"decoder.latent_dec_{i}.bias"] = _t(sd[f"dec.latent_dec_layers.{i}.bias"])
-    return out
+    for name in sd:
+        if name.startswith("decoder.") and name.endswith((".lora_a", ".lora_b")):
+            out[name] = _t(sd[name])
+    return _in_layout(out, cfg)
 
 
 def trajectory_reference_state_dict(sd: Mapping[str, torch.Tensor],
                                     cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """Port trajectory state_dict -> the reference ``TrajectoryModel`` state
     dict (f32, on the CPU): each level's Sequential ``[conv, pool, leaky]``
-    with the conv mask and the pool matrix, and ``fc_mapping``."""
+    with the conv mask and the pool matrix, and ``fc_mapping``; a compact
+    level's weight written dense."""
+    sd = _dense(sd, cfg)
     st = get_trajectory_structure(cfg)
     out: Dict[str, torch.Tensor] = {}
     for i, lvl in enumerate(st.levels):
@@ -209,4 +238,4 @@ def trajectory_state_dict_from_reference(sd: Mapping[str, np.ndarray],
         _check_constant(sd, f"enc.layers.{i}.1.weight", lvl.pool_matrix)
     out["fc_mapping.weight"] = _t(sd["fc_mapping.weight"])
     out["fc_mapping.bias"] = _t(sd["fc_mapping.bias"])
-    return out
+    return _in_layout(out, cfg)

@@ -106,8 +106,9 @@ def test_reference_checkpoint_keys_round_trip(tmp_path):
 
 
 def test_unported_options_raise():
-    for kw in (dict(param_layout="compact"),):
-        with pytest.raises(NotImplementedError):
+    """Both parameter layouts are ported; an unknown one raises ValueError."""
+    for kw in (dict(param_layout="sparse"),):
+        with pytest.raises(ValueError, match="param_layout"):
             HMVAE(tcfg.ModelConfig(**LEN8, **kw))
 
 

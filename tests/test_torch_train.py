@@ -3,7 +3,8 @@
 package's ``import_hmvae_params`` reads; a 20-step loss trajectory tracks the
 JAX ``Trainer`` from the same init on the same batches; the KL curriculum's
 heads keep their optimizer counts at 0 until ``iteration_interval``; the NaN
-guard restores; the training CLI trains and resumes; unported options raise.
+guard restores; the training CLI trains and resumes; a model with adapters
+trains, and a ``model_parallel`` that does not divide the world raises.
 (The trajectory model's training: ``test_torch_trajectory.py``; the
 production path's options: ``test_torch_production.py``.)
 """
@@ -217,11 +218,23 @@ def test_cli_trains_and_resumes(tmp_path, capsys):
     {"run": {"model_parallel": 2}},
 ])
 def test_unported_options_raise(tmp_path, change):
+    """The options that were not ported: a Trainer of a model with adapters
+    builds and steps (the adapters train); ``run.model_parallel`` that does
+    not divide the world (one process) raises ValueError naming both."""
     cfg = _cfg(tcfg, str(tmp_path))
     cfg = dataclasses.replace(cfg, **{k: dataclasses.replace(getattr(cfg, k), **v)
                                       for k, v in change.items()})
-    with pytest.raises(NotImplementedError):
-        Trainer(cfg, str(tmp_path / "run"), device="cpu")
+    if "run" in change:
+        with pytest.raises(ValueError, match="model_parallel=2 does not divide the 1 ranks"):
+            Trainer(cfg, str(tmp_path / "run"), device="cpu")
+        return
+    trainer, train_ds, _, _ = build_trainer(cfg, str(tmp_path / "run"), device="cpu")
+    init = {n: p.detach().clone() for n, p in trainer.state.model.named_parameters()}
+    metrics = trainer.fit(train_ds, None, max_iter=2)
+    assert trainer.state.step == 2 and np.isfinite(metrics["loss_total"])
+    moved = [n for n, p in trainer.state.model.named_parameters()
+             if n.endswith("lora_a") and not torch.equal(p.detach(), init[n])]
+    assert len(moved) == 4
 
 
 def test_default_device_is_cuda(tmp_path):

@@ -164,6 +164,79 @@ def fit_resume(rank, world, cfg, out_dir, max_iter):
             _params(again.state.model))
 
 
+def _full_params(model, groups):
+    """A model's parameters with its sharded heads gathered (numpy, f32)."""
+    from hm_vae_torch.parallel.sharding import gather_state, model_shards
+
+    full = gather_state(dict(model.named_parameters()), model_shards(model), groups.model)
+    return {n: p.detach().float().numpy().copy() for n, p in full.items()}
+
+
+def tp_train_steps(rank, world, cfg, init, batches, eps, model_parallel):
+    """``len(batches[f])`` ``train_step`` calls on the (data, model) grid of
+    ``model_parallel`` (the latent heads sharded over the model group, the
+    gradients averaged over the data group), from the full weights
+    ``init``, on this rank's data row's rows of the global batches and
+    noise.  Returns the parameters after the first step and after the last,
+    the first step's gradients (the heads' gathered) and every step's loss
+    averaged over the data group, and (data index, model index, sharded
+    leaves)."""
+    from hm_vae_torch.parallel.sharding import (allreduce_mean, gather_state, make_groups,
+                                                model_shards, rank_rows, shard_state)
+    from hm_vae_torch.train.train_step import create_state, train_step
+
+    g = make_groups(model_parallel)
+    state = create_state(cfg, "cpu", model_group=g.model)
+    shards = model_shards(state.model)
+    own = state.model.state_dict()
+    local = shard_state({k: torch.from_numpy(v) for k, v in init.items()}, shards,
+                        {n: own[n].shape[0] for n in shards})
+    state.model.load_state_dict({k: v.to(own[k].dtype) for k, v in local.items()})
+    K, B = next(iter(batches.values())).shape[:2]
+    r0, r1 = rank_rows(B, g.data)
+    losses = []
+    for k in range(K):
+        m = train_step(state, {f: torch.from_numpy(v[k, r0:r1].copy()) for f, v in
+                               batches.items()}, cfg,
+                       [torch.from_numpy(e[k, r0:r1].copy()) for e in eps], group=g.data)
+        losses.append(float(allreduce_mean(m, g.data)["loss_total"]))
+        if k == 0:
+            first = _full_params(state.model, g)
+            grads = gather_state({n: p.grad for n, p in state.model.named_parameters()
+                                  if p.grad is not None}, shards, g.model)
+            grads = {n: v.float().numpy().copy() for n, v in grads.items()}
+    return (first, _full_params(state.model, g), grads, losses,
+            (g.data_index, g.model_index, len(shards)))
+
+
+def tp_fit_resume(rank, world, cfg, out_dir, max_iter):
+    """``Trainer.fit`` to ``max_iter`` and a save under the ranks (resumed
+    first from the newest checkpoint, if any), then a new Trainer resumed
+    from it.  Returns the files this rank wrote, the step each trainer ended
+    at, and both trainers' gathered parameters."""
+    from hm_vae_torch.train import trainer as tr
+
+    writes = []
+    write_checkpoint = tr.Trainer._write_checkpoint
+
+    def record(self, path, blob):
+        writes.append(os.path.basename(path))
+        write_checkpoint(self, path, blob)
+
+    tr.Trainer._write_checkpoint = record
+    try:
+        trainer, train_ds, val_ds, _ = tr.build_trainer(cfg, out_dir, device="cpu")
+        start = trainer.resume()
+        trainer.fit(train_ds, val_ds, max_iter=max_iter)
+        trainer.save()
+        again = tr.build_trainer(cfg, out_dir, device="cpu")[0]
+        step = again.resume()
+    finally:
+        tr.Trainer._write_checkpoint = write_checkpoint
+    return (writes, start, step, _full_params(trainer.state.model, trainer.groups),
+            _full_params(again.state.model, again.groups))
+
+
 def solve(rank, world, cfg, state_dict, targets, mask, z, zr):
     """One batched solve through ``LatentOptApps._dispatch`` over the ranks:
     every field of the gathered result."""
