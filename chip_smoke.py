@@ -36,8 +36,9 @@ Phases, each of which exits non-zero on failure:
    config with synthetic data made from the seed (sampled by the native C++
    sampler on the compact rot6d wire), on the GPU and on the CPU
    from the same init, batches and noise; per-step losses compared, kernel
-   launches per step counted, step time by CUDA events, device time and
-   idle share by ``torch.profiler``;
+   launches per step counted by the entries and by the device (as every
+   training phase below), step time by CUDA events, device time and idle
+   share by ``torch.profiler``;
 7. the training entry point: ``hm_vae_torch.cli.train`` for a few steps with
    a checkpoint, then ``--resume``;
 8. the windowed kernels of the test-time solver (each window of a batch
@@ -155,11 +156,12 @@ Phases, each of which exits non-zero on failure:
    8, T 1,024 and batch 8, T 1,000 (a last item of 104 columns), and at
    the len-64 model's stride-2 K-15 level at batch 8, T 1,024 (all past one
    block's whole-row staging: spans), each against its plain version and
-   autograd, bit-equal on two runs, with the plan its launch ran (wgrad:
-   item width, stages, split, bytes), timed as phase 5's; the wgrad span
-   kernel timed, unrouted, beside the whole-row kernel at shapes whose rows
-   fit whole (the len-64 levels at batch 8 and 64, the trajectory's at
-   batch 8, T 128); then 5 steps of the trajectory model at train_seq_len
+   autograd, bit-equal on two runs, with the plan its launch ran (dgrad:
+   span, spans, stages, channels a block, split, bytes; wgrad: item width,
+   stages, split, bytes), timed as phase 5's; both span kernels timed,
+   unrouted, beside the whole-row kernels at shapes whose rows fit whole
+   (the len-64 levels at batch 8 and 64, the trajectory's at batch 8, T
+   128); then 5 steps of the trajectory model at train_seq_len
    1,024 on the card against the CPU, under phase 13's gate (4 / 3 / 4
    launches a step);
 30. data-parallel training over torch.distributed ranks started by
@@ -486,6 +488,7 @@ def build_report(proc, cubin, kind):
         if "C7520" in line or "wgmma.mma_async instructions are serialized" in line:
             r = report.setdefault(kind(line), {})
             r["wgmma_serialized"] = r.get("wgmma_serialized", 0) + 1
+            r["wgmma_serialized_note"] = line.strip()[-300:]
     from hm_vae_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -504,15 +507,13 @@ def fwd_kind(name):
 
 
 def bwd_kind(name):
-    """dgrad ("dgrad_spans" for ``dgrad_kernel<true>``, "dgrad_fold" for the
-    spans' padding adjoint), or wgrad by its tap tiles a warp: two (K <= 15,
-    "wgrad"), three (K <= 23, "wgrad_nq3") or four (K <= 31, "wgrad_nq4",
-    the trajectory model's K 31); ``wgrad_span_kernel`` by its m64 tiles a
-    warpgroup: "wgrad_spans_nt1" (K <= 15) or "wgrad_spans_nt2" (K <= 31)."""
-    if "dgrad_fold" in name:
-        return "dgrad_fold"
+    """dgrad ("dgrad_spans" for ``dgrad_span_kernel``), or wgrad by its tap
+    tiles a warp: two (K <= 15, "wgrad"), three (K <= 23, "wgrad_nq3") or
+    four (K <= 31, "wgrad_nq4", the trajectory model's K 31);
+    ``wgrad_span_kernel`` by its m64 tiles a warpgroup: "wgrad_spans_nt1"
+    (K <= 15) or "wgrad_spans_nt2" (K <= 31)."""
     if "dgrad" in name:
-        return "dgrad_spans" if "ILb1E" in name else "dgrad"
+        return "dgrad_spans" if "dgrad_span" in name else "dgrad"
     if "wgrad_span" in name:
         return "wgrad_spans_nt2" if "ILi2E" in name else "wgrad_spans_nt1"
     for nq in (3, 4):
@@ -628,7 +629,8 @@ def e2e_phase(cfg, dtype, x6d):
 
 # the port's kernels by their names in a device trace (a CUDA-graph replay
 # runs them with no call of their entries, so only the trace sees them)
-TRACE_KERNELS = re.compile(r"::(conv_gemm_kernel|dgrad_kernel|wgrad_kernel|wgrad_span_kernel)[<(]")
+TRACE_KERNELS = re.compile(
+    r"::(conv_gemm_kernel|dgrad_kernel|dgrad_span_kernel|wgrad_kernel|wgrad_span_kernel)[<(]")
 TRACE_NAME = {"fused_conv_pool": "conv_gemm_kernel", "fused_conv_pool_dgrad": "dgrad_kernel",
               "fused_conv_pool_wgrad": "wgrad_kernel"}
 
@@ -867,7 +869,9 @@ def train_phase(data_root, path=CONFIG, want=TRAIN_LAUNCHES, phase="train",
     The perturbation is run on both sides because its spread differs by 10x
     between them at some steps.  Then kernel launches per step, step time
     (CUDA events) and the profile.  `model`: the model section's overrides
-    (:func:`train_config`)."""
+    (:func:`train_config`).  The kernels' runs a step of the GPU run, as
+    the device counted them (both dgrad kernels on one count, both wgrad
+    kernels on another), are held to `want` too."""
     from hm_vae_torch.ops import fused_conv_pool as fcp
     from hm_vae_torch.train.train_step import loss_fields, to_device, train_step
     from hm_vae_torch.train.trainer import build_trainer
@@ -886,6 +890,8 @@ def train_phase(data_root, path=CONFIG, want=TRAIN_LAUNCHES, phase="train",
         out = []
         for c in counters:
             c.launches = 0
+        if run == "gpu":
+            fcp.device_runs(torch.cuda.current_device(), reset=True)
         t0 = time.perf_counter()
         trainer.fit(train_ds, None, max_iter=steps,
                     log_cb=lambda step, m: out.append(m["loss_total"]))
@@ -894,6 +900,8 @@ def train_phase(data_root, path=CONFIG, want=TRAIN_LAUNCHES, phase="train",
             in_run = {c.__name__: c.launches for c in counters}
             launches = {k: v // steps if v % steps == 0 else v / steps
                         for k, v in in_run.items()}
+            runs = {k: v / steps for k, v in
+                    fcp.device_runs(torch.cuda.current_device()).items()}
             gpu, gpu_ds = trainer, train_ds
         losses[run] = np.array(out)
     if any(len(v) != steps or not np.isfinite(v).all() for v in losses.values()):
@@ -901,6 +909,8 @@ def train_phase(data_root, path=CONFIG, want=TRAIN_LAUNCHES, phase="train",
     if launches != want:
         fail(f"{phase}: kernel launches per step {launches}, expected {want} (the first "
              "conv's input is data and needs no input gradient)")
+    if runs != {TRACE_NAME[k]: v for k, v in want.items()}:
+        fail(f"{phase}: the device counted {runs} kernel runs a step, expected {want}")
     rel = np.abs(losses["gpu"] / losses["cpu"] - 1)
     spread = {dev: np.maximum.accumulate(np.abs(losses[f"{dev}_perturbed"] / losses[dev] - 1))
               for dev in ("gpu", "cpu")}
@@ -931,7 +941,8 @@ def train_phase(data_root, path=CONFIG, want=TRAIN_LAUNCHES, phase="train",
            "loss_cpu": losses["cpu"].tolist(), "max_rel_diff": float(rel.max()),
            "rel_diff": rel.tolist(), "band": band.tolist(),
            "spread": {k: v.tolist() for k, v in spread.items()},
-           "launches_per_step": launches, "launches_in_run": in_run, "fit_seconds": wall,
+           "launches_per_step": launches, "launches_in_run": in_run,
+           "device_runs_per_step": runs, "fit_seconds": wall,
            "ms_per_step": time_ms(step, reps=10, samples=5),
            "profile": profile_calls(step, calls=5),
            "repack_profile": profile_calls(repack_all, calls=5)}
@@ -2667,12 +2678,14 @@ LONG_TRAIN_STEPS = 5
 
 
 def span_vs_whole_rows(model, st, tmodel, gen):
-    """The wgrad span kernel (items of one batch's output columns, its own
-    plan) beside the whole-row kernel that these shapes' plans run, on the
-    same inputs, unrouted: the len-64 model's 8 levels at batch 8 and at the
-    production batch of 64, and the trajectory model's 4 levels at batch 8,
-    T 128.  Each row: both kernels' device ms, the span kernel's max |err|
-    against the plain version and its plan.  Returns {shape: rows}."""
+    """The span kernels (wgrad: items of one batch's output columns; dgrad:
+    spans of one batch's padded row; each its own plan) beside the
+    whole-row kernels that these shapes' plans run, on the same inputs,
+    unrouted: the len-64 model's 8 levels at batch 8 (wgrad only) and at
+    the production batch of 64, and the trajectory model's 4 levels at
+    batch 8, T 128.  Each row: the kernels' device ms (dgrad's span time
+    with its weight packing), the span kernels' max |err| against the plain
+    versions and their plans.  Returns {shape: rows}."""
     from hm_vae_torch.ops import fused_conv_pool as fcp
 
     shapes = {f"len64_b{b}": [(f"{n}@b{b}", c, T, b) for n, c, T in level_cases(model, st)]
@@ -2688,22 +2701,43 @@ def span_vs_whole_rows(model, st, tmodel, gen):
                                        fcp._sm_count(torch.cuda.current_device()), 1,
                                        fcp.wgrad_span_cols(K, stride))
 
+            d_plan = fcp.dgrad_span_plan(batch, T_in, K, stride, s.padding,
+                                         s.dgrad_span_start.numel() - 1, s.dgrad_span_max_live,
+                                         fcp._sm_count(torch.cuda.current_device()))
+            mode = "reflect" if s.reflect else "constant"
+
             def span():
                 return fcp._wgrad(gy, y, x, s, None, plan)
 
             def whole():
                 return fcp.fused_conv_pool_wgrad(gy, y, x, s)
 
+            def d_span():
+                return fcp._dgrad(gy, y, wf, s, T_in, None, d_plan)
+
+            def d_whole():
+                return fcp.fused_conv_pool_dgrad(gy, y, wf, s, T_in)
+
             gw, gb = span()
             rw, rb = fcp.fused_conv_pool_wgrad_reference(
-                gy, y, x, K, stride, s.padding, "reflect" if s.reflect else "constant",
-                s.negative_slope, s.live_elements())
+                gy, y, x, K, stride, s.padding, mode, s.negative_slope, s.live_elements())
             err = check(f"{name} wgrad span kernel", gw, rw, torch.float32)[0]
             if bf is not None:
                 err = max(err, check(f"{name} span bias grad", gb, rb, torch.float32)[0])
             row = {"level": name, "batch": batch, "T_in": T_in, "max_abs_err": err,
                    "span_ms": device_ms(span), "whole_ms": device_ms(whole),
                    "plan": plan._asdict()}
+            if shape != f"len64_b{BATCH}":
+                gx = d_span()
+                d_err = check(f"{name} dgrad span kernel", gx,
+                              fcp.fused_conv_pool_dgrad_reference(gy, y, wf, T_in, stride,
+                                                                  s.padding, mode,
+                                                                  s.negative_slope),
+                              torch.float32)[0]
+                if not torch.equal(d_span(), gx):
+                    fail(f"{name}: the dgrad span kernel differs between two runs")
+                row["dgrad"] = {"max_abs_err": d_err, "span_ms": device_ms(d_span),
+                                "whole_ms": device_ms(d_whole), "plan": d_plan._asdict()}
             print(json.dumps({"span_vs_whole": shape, **row}), flush=True)
             out.setdefault(shape, []).append(row)
     return out
@@ -2716,7 +2750,7 @@ def long_backward_phase(model, st, tmodel, gen):
     K-15 level (enc1) at batch 8, T 1,024 (the old limit: 256 / stride
     padded columns), each against its plain version and autograd,
     bit-equal on two runs, timed, with the plan its launch ran (spans); the
-    wgrad span kernel beside the whole-row one (:func:`span_vs_whole_rows`);
+    span kernels beside the whole-row ones (:func:`span_vs_whole_rows`);
     then LONG_TRAIN_STEPS steps of the
     trajectory model at train_seq_len 1,024 on the card against the CPU,
     under the training gate (:func:`train_phase`), on synthetic takes of
@@ -2738,7 +2772,9 @@ def long_backward_phase(model, st, tmodel, gen):
             if not (r["dgrad"]["plan"]["span"] > 0 and r["wgrad"]["plan"]["span"] > 0):
                 fail(f"long_backward {r['level']}: plans {r['dgrad']['plan']} / "
                      f"{r['wgrad']['plan']} stage whole rows")
+    t_svw = time.perf_counter()
     span_vs_whole = span_vs_whole_rows(model, st, tmodel, gen)
+    t_svw = time.perf_counter() - t_svw
     data_root = os.path.join(OUT_DIR, "long_train_data")
     shutil.rmtree(data_root, ignore_errors=True)
     synthetic.generate_dataset(data_root, num_seqs=10, min_len=1100, max_len=1500, seed=SEED)
@@ -2754,8 +2790,13 @@ def long_backward_phase(model, st, tmodel, gen):
            "plans": {r["level"]: {"dgrad": r["dgrad"]["plan"], "wgrad": r["wgrad"]["plan"]}
                      for rs in rows.values() for r in rs},
            "span_vs_whole": {shape: {"span_ms": sum(r["span_ms"] for r in rs),
-                                     "whole_ms": sum(r["whole_ms"] for r in rs)}
+                                     "whole_ms": sum(r["whole_ms"] for r in rs),
+                                     **({"dgrad_span_ms": sum(r["dgrad"]["span_ms"] for r in rs),
+                                         "dgrad_whole_ms": sum(r["dgrad"]["whole_ms"]
+                                                               for r in rs)}
+                                        if "dgrad" in rs[0] else {})}
                              for shape, rs in span_vs_whole.items()},
+           "span_vs_whole_s": t_svw,
            "train_steps": LONG_TRAIN_STEPS, "train_seq_len": LONG_TRAIN_T,
            "elapsed_s": time.perf_counter() - t_phase}
     print(json.dumps(row), flush=True)
@@ -3947,13 +3988,16 @@ def main() -> None:
                          "plan": long_bwd["b8_t1000"][0][what]["plan"]},
             "enc1_b8_t1024": {**total([r[what] for r in long_bwd["enc1_b8_t1024"]]),
                               "plan": long_bwd["enc1_b8_t1024"][0][what]["plan"]},
-            **({"span_vs_whole": long_bwd_row["span_vs_whole"]} if what == "wgrad" else {}),
+            "span_vs_whole": {shape: part for shape, r in long_bwd_row["span_vs_whole"].items()
+                              if (part := {k: v for k, v in r.items()
+                                           if k.startswith("dgrad_") == (what == "dgrad")})},
             "note": "f32, rows past one block's whole-row staging, run as spans (plan); top "
                     "level: sums over the trajectory model's 4 K-31 levels at batch 8, T 1,024; "
                     "\"b1_t7200\", \"b8_t1000\": the same at batch 1, T 7,200 and batch 8, "
                     "T 1,000; \"enc1_b8_t1024\": the len-64 model's stride-2 K-15 level at "
-                    "batch 8, T 1,024; \"span_vs_whole\" (wgrad): the span kernel, unrouted, "
-                    "beside the whole-row kernel at shapes whose rows fit whole; launches: per "
+                    "batch 8, T 1,024; \"span_vs_whole\": the span kernel, unrouted, beside "
+                    "the whole-row kernel at shapes whose rows fit whole (dgrad: with its "
+                    "weight packing); launches: per "
                     f"step of the trajectory model's training at train_seq_len {LONG_TRAIN_T} "
                     "(phase 29); times: device time from CUDA-graph replays; library_ms: "
                     f"{lib} on the folded weight, TF32 off"})

@@ -49,9 +49,11 @@
 //   reduction runs over the rows p) and its g operand is g shifted by the
 //   tap; both kernels' tiles are narrow (8 channels, 64 rows).  mma.sync's
 //   fragments are loaded by each lane from shared memory in whatever layout
-//   is staged.  wgrad over long rows (wgrad_span_kernel) runs wgmma with A
-//   from registers: its transposed product takes x's taps as A and g's
-//   tile, K-major along time, as B;
+//   is staged.  Over long rows both kernels run wgmma with A from
+//   registers: wgrad_span_kernel's transposed product takes x's taps as A
+//   and g's tile, K-major along time, as B; dgrad_span_kernel takes g
+//   shifted by the tap as A and the tap's weight slice, split into TF32
+//   planes by the wrapper in the K-major layout, as B;
 // - every copy from global memory is a cp.async.bulk onto an mbarrier, and
 //   the next stage's copies are in flight while the current stage
 //   multiplies: dgrad keeps two weight stages and refills its one stage of
@@ -80,14 +82,9 @@
 //   are split over a cluster.  The epilogue writes gxpad to shared memory,
 //   sums the cluster's partials, adds each reflected edge column onto its
 //   source (the padding's adjoint) and stores gx row by row.  A padded row
-//   too long for one block (dgrad_kernel<true>, taken only there) is cut
-//   into spans of one batch's padded columns, a multiple of stride: a block
-//   stages only the g columns its span reads (the K-1 halo included, each
-//   row one bulk copy widened to 16-byte granules), so its shared memory
-//   depends on K, stride and the span, never on T_in; it stores its span's
-//   summed gxpad to a scratch row, and dgrad_fold_kernel then adds the
-//   reflected edges onto their sources in the order above, whichever spans
-//   they fell in;
+//   too long for one block is cut into spans of one batch's padded columns
+//   (dgrad_span_kernel, taken only there: wgmma, warp-specialised, its own
+//   section below);
 // - wgrad: a block owns one live tile (64 rows x the chunk's 8 channels x K
 //   taps, plus a ones-column for the bias: the mma's N runs over 8-channel
 //   tap tiles, K + 1 of them, 2, 3 or 4 a warp: a template parameter, so
@@ -155,7 +152,7 @@ constexpr int kMaxSmem = 232448;   // a block
 constexpr int kSmemPerSM = 233472;  // 228 KB
 constexpr int kMaxDevices = 64;
 
-__device__ unsigned long long g_runs[2];  // dgrad_kernel, wgrad_kernel (run_counter.h)
+__device__ unsigned long long g_runs[2];  // the dgrad kernels, the wgrad kernels (run_counter.h)
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -254,9 +251,11 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
          (static_cast<uint64_t>(256 >> 4) << 32);
 }
 
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+// Pins a wgmma's accumulators: no access to them moves across this point.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define HMVAE_D32                                                                          \
@@ -305,26 +304,17 @@ struct DgradLayout {
 // the same rows of gy and y, so that two blocks fit an SM.  Two weight
 // stages in flight (a stage's rows are read by the products); one stage of
 // gy and y, refilled as soon as it is rewritten into g2.  gxpad (16
-// channels x the group's padded columns) reuses the weight stages.  With
-// span = 0 a block stages whole padded rows of nbb batches (gy's and y's
-// rows of t_ld floats); with span > 0 one batch's `span` padded columns (a
-// multiple of stride) and only the g columns they read, plus the halo: the
-// layout then depends on K, stride and span, never on T_in.
+// channels x the group's padded columns) reuses the weight stages.  A
+// block stages whole padded rows of nbb batches (gy's and y's rows of t_ld
+// floats).
 __host__ __device__ inline DgradLayout dgrad_layout(int T_in, int K, int T_out, int t_ld,
-                                                    int stride, int padding, int nbb, int span) {
+                                                    int stride, int padding, int nbb) {
   DgradLayout L;
   L.off = (K + stride - 1) / stride - 1;
-  if (span > 0) {
-    L.Tp = span;
-    L.rs = frag_stride(L.off + span / stride);
-    // g's columns [t0 - off, t0 + span/stride), widened to 16-byte granules
-    L.gl = (L.off + span / stride + 6 + 3) / 4 * 4;
-  } else {
-    L.Tp = T_in + 2 * padding;
-    const int V0 = (L.Tp + stride - 1) / stride;
-    L.rs = frag_stride(L.off + (V0 > T_out ? V0 : T_out));
-    L.gl = t_ld;
-  }
+  L.Tp = T_in + 2 * padding;
+  const int V0 = (L.Tp + stride - 1) / stride;
+  L.rs = frag_stride(L.off + (V0 > T_out ? V0 : T_out));
+  L.gl = t_ld;
   L.wr = kDC * K + 8;  // 16-byte rows; 8 more floats spread a fragment's rows over the banks
   L.bars = 0;
   L.w = 64;
@@ -337,22 +327,18 @@ __host__ __device__ inline DgradLayout dgrad_layout(int T_in, int K, int T_out, 
   return L;
 }
 
-// kSpan: the block's columns are a span of one batch's padded row, and it
-// writes its gxpad columns to the scratch row gxpad (B, C, T_in + 2*padding),
-// which dgrad_fold_kernel then folds into gx; else whole rows, folded here.
-template <bool kSpan>
+// Whole padded rows of a batch group a block, folded here.
 __global__ void __launch_bounds__(kThreads, 2)
 dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
              const float* __restrict__ w, const int* __restrict__ dgrad_start,
              const int* __restrict__ dgrad_row, float* __restrict__ gx, int B, int C, int T_in,
              int K, int P, int T_out, int t_ld, int stride, int padding, int reflect,
-             float slope, int nbb, int gpw, size_t w_stride, int span, int nspans,
-             float* __restrict__ gxpad) {
+             float slope, int nbb, int gpw, size_t w_stride) {
   count_run(&g_runs[0]);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int split = static_cast<int>(cluster.num_blocks());
-  const DgradLayout L = dgrad_layout(T_in, K, T_out, t_ld, stride, padding, nbb, kSpan ? span : 0);
+  const DgradLayout L = dgrad_layout(T_in, K, T_out, t_ld, stride, padding, nbb);
 
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);  // weight [kStages], then g
@@ -365,23 +351,14 @@ dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
   const int gid = lane >> 2, tig = lane & 3;
   const int c0 = blockIdx.x * kDC;
   const int cw = min(kDC, C - c0);  // 16, or 8 for a last odd chunk
-  // blockIdx.y: (window, batch group[, span]); window `win` owns the batches
+  // blockIdx.y: (window, batch group); window `win` owns the batches
   // [win*B, (win+1)*B) in gpw groups, and its own folded weight
-  const int sp = kSpan ? static_cast<int>(blockIdx.y) % nspans : 0;
-  const int yg = kSpan ? static_cast<int>(blockIdx.y) / nspans : static_cast<int>(blockIdx.y);
+  const int yg = static_cast<int>(blockIdx.y);
   const int win = yg / gpw;
   const int b0 = win * B + (yg - win * gpw) * nbb;
   const int nbl = min(nbb, (win + 1) * B - b0);
   const float* wwin = w + win * w_stride;
-  // the block's padded columns [u0, u0 + width) read g's columns [ta, tb),
-  // staged from ta4 (16-byte aligned) on, gl_cols floats a row
-  const int Tp = T_in + 2 * padding;
-  const int u0 = sp * span, width = kSpan ? min(span, Tp - u0) : Tp;
-  const int t0 = u0 / stride;
-  const int ta = kSpan ? max(0, t0 - L.off) : 0;
-  const int tb = kSpan ? min(T_out, t0 + span / stride) : T_out;
-  const int ta4 = ta & ~3;
-  const int gl_cols = !kSpan ? t_ld : tb > ta ? min(t_ld, (tb + 3) & ~3) - ta4 : 0;
+  const int width = L.Tp;
   const int first = dgrad_start[blockIdx.x];
   const int live = dgrad_start[blockIdx.x + 1] - first;
   // stages: both halves of each of the block's live row tiles
@@ -394,9 +371,8 @@ dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
 
   // Stage i: its weight rows (cw*K contiguous floats each; thread r copies
   // row r) into weight stage `slot`, or the batches' rows of gy and y (one
-  // contiguous run each, or one a row's span; threads 32.. copy).  Thread 0
-  // arms the barrier; a copy may land before it does, the phase completes
-  // only after both.
+  // contiguous run each; threads 32.. copy).  Thread 0 arms the barrier; a
+  // copy may land before it does, the phase completes only after both.
   auto issue_w = [&](int i, int slot) {
     const int p0 = stage_row(i), nrows = max(0, min(kHalf, P - p0));
     const uint32_t w_row = cw * K * 4;
@@ -410,33 +386,20 @@ dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
   auto issue_g = [&](int i) {
     const int p0 = stage_row(i), nrows = max(0, min(kHalf, P - p0));
     const int q = tid - kHalf;
-    if constexpr (kSpan) {
-      const uint32_t row_bytes = gl_cols * 4;
-      if (tid == 0) mbar_expect(smem_addr(bars + kStages), 2 * nrows * row_bytes);
-      if (row_bytes > 0 && q >= 0 && q < 2 * nrows) {
-        const int which = q >= nrows, r = q - which * nrows;
-        fence_async();
-        bulk_copy(g_s + which * gt + r * L.gl,
-                  (which ? y : gy) + (size_t(b0) * P + p0 + r) * t_ld + ta4, row_bytes,
-                  bars + kStages);
-      }
-    } else {
-      const uint32_t g_bytes = nrows * t_ld * 4;
-      if (tid == 0) mbar_expect(smem_addr(bars + kStages), 2 * nbl * g_bytes);
-      if (nrows > 0 && q >= 0 && q < 2 * nbl) {
-        const int which = q / nbl, bb = q - which * nbl;
-        fence_async();
-        bulk_copy(g_s + which * gt + bb * kHalf * t_ld,
-                  (which ? y : gy) + (size_t(b0 + bb) * P + p0) * t_ld, g_bytes,
-                  bars + kStages);
-      }
+    const uint32_t g_bytes = nrows * t_ld * 4;
+    if (tid == 0) mbar_expect(smem_addr(bars + kStages), 2 * nbl * g_bytes);
+    if (nrows > 0 && q >= 0 && q < 2 * nbl) {
+      const int which = q / nbl, bb = q - which * nbl;
+      fence_async();
+      bulk_copy(g_s + which * gt + bb * kHalf * t_ld,
+                (which ? y : gy) + (size_t(b0 + bb) * P + p0) * t_ld, g_bytes, bars + kStages);
     }
   };
   if (tid == 0) {
     for (int s = 0; s < kStages + 1; ++s) mbar_init(smem_addr(bars + s), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // g's time padding stays zero (a stage writes only t in [ta, tb)), and
+  // g's time padding stays zero (a stage writes only t in [0, T_out)), and
   // so do the weight rows' second chunk where the block has one chunk
   for (int q = tid; q < nbb * kHalf * L.rs; q += kThreads) g2[q] = make_float2(0.f, 0.f);
   if (cw < kDC)
@@ -474,22 +437,12 @@ dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
     const int nrows = max(0, min(kHalf, P - stage_row(i)));
     mbar_wait(smem_addr(bars + kStages), i & 1);
     // g = gy * act'(y), split, into its zero-padded rows
-    if constexpr (kSpan) {
-      const int nt = tb - ta;
-      for (int q = tid; q < kHalf * nt; q += kThreads) {
-        const int r = q / nt, t = ta + q - r * nt;
-        const int o = r * L.gl + t - ta4;
-        const float v = r < nrows ? act_grad(g_s[o], g_s[gt + o], slope) : 0.f;
-        g2[r * L.rs + L.off + t - t0] = split_tf32(v);
-      }
-    } else {
-      for (int q = tid; q < nbl * kHalf * T_out; q += kThreads) {
-        const int bb = q / (kHalf * T_out), rem = q - bb * (kHalf * T_out);
-        const int r = rem / T_out, t = rem - r * T_out;
-        const int o = (bb * kHalf + r) * t_ld + t;
-        const float v = r < nrows ? act_grad(g_s[o], g_s[gt + o], slope) : 0.f;
-        g2[(bb * kHalf + r) * L.rs + L.off + t] = split_tf32(v);
-      }
+    for (int q = tid; q < nbl * kHalf * T_out; q += kThreads) {
+      const int bb = q / (kHalf * T_out), rem = q - bb * (kHalf * T_out);
+      const int r = rem / T_out, t = rem - r * T_out;
+      const int o = (bb * kHalf + r) * t_ld + t;
+      const float v = r < nrows ? act_grad(g_s[o], g_s[gt + o], slope) : 0.f;
+      g2[(bb * kHalf + r) * L.rs + L.off + t] = split_tf32(v);
     }
     mbar_wait(smem_addr(bars + slot), (i / kStages) & 1);
     // weight rows past P (a ragged last tile) read as zeros
@@ -572,49 +525,369 @@ dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
         if (q < split) s += part[q][row + u];
       return s;
     };
-    if constexpr (kSpan) {
-      const int n_el = cw * width;
-      const int lo = n_el * rank / split, hi = n_el * (rank + 1) / split;
-      for (int el = lo + tid; el < hi; el += kThreads) {
-        const int c = el / width, j = el - c * width;
-        gxpad[(size_t(b0) * C + c0 + c) * Tp + u0 + j] = column(c * L.Tp, j);
-      }
-    } else {
-      const int n_el = cw * nbl * T_in;
-      const int lo = n_el * rank / split, hi = n_el * (rank + 1) / split;
-      for (int el = lo + tid; el < hi; el += kThreads) {
-        const int c = el / (nbl * T_in), rem = el - c * (nbl * T_in);
-        const int bb = rem / T_in, i = rem - bb * T_in;
-        const int row = (c * nbb + bb) * L.Tp;
-        // the padded columns that read x[b, c, i]: i + padding, and under
-        // reflect the mirrored columns
-        float v = column(row, i + padding);
-        if (reflect && i >= 1 && i <= padding) v += column(row, padding - i);
-        if (reflect && i <= T_in - 2 && i >= T_in - 1 - padding)
-          v += column(row, padding + 2 * (T_in - 1) - i);
-        gx[(size_t(b0 + bb) * C + c0 + c) * T_in + i] = v;
-      }
+    const int n_el = cw * nbl * T_in;
+    const int lo = n_el * rank / split, hi = n_el * (rank + 1) / split;
+    for (int el = lo + tid; el < hi; el += kThreads) {
+      const int c = el / (nbl * T_in), rem = el - c * (nbl * T_in);
+      const int bb = rem / T_in, i = rem - bb * T_in;
+      const int row = (c * nbb + bb) * L.Tp;
+      // the padded columns that read x[b, c, i]: i + padding, and under
+      // reflect the mirrored columns
+      float v = column(row, i + padding);
+      if (reflect && i >= 1 && i <= padding) v += column(row, padding - i);
+      if (reflect && i <= T_in - 2 && i >= T_in - 1 - padding)
+        v += column(row, padding + 2 * (T_in - 1) - i);
+      gx[(size_t(b0 + bb) * C + c0 + c) * T_in + i] = v;
     }
   }
   if (split > 1) cluster.sync();  // no block leaves while another reads its partial gxpad
 }
 
-// The padding's adjoint over gxpad's rows (B*C of T_in + 2*padding columns)
-// into gx (B*C of T_in): the column i + padding, then under reflect the
-// mirrored columns, added in the order dgrad_kernel<false> adds them.
-__global__ void dgrad_fold_kernel(const float* __restrict__ gxpad, float* __restrict__ gx,
-                                  long long n, int T_in, int padding, int reflect) {
-  const int Tp = T_in + 2 * padding;
-  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; e < n;
-       e += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long row = e / T_in;
-    const int i = static_cast<int>(e - row * T_in);
-    const float* g = gxpad + row * Tp;
-    float v = g[i + padding];
-    if (reflect && i >= 1 && i <= padding) v += g[padding - i];
-    if (reflect && i <= T_in - 2 && i >= T_in - 1 - padding) v += g[padding + 2 * (T_in - 1) - i];
-    gx[e] = v;
+// ---------------------------------------------------------------------------
+// dgrad over long rows
+//
+// A padded row too long for one block's whole-row staging is cut into spans
+// of one batch's padded columns (dgrad_span_kernel).  A block owns a group
+// of four 8-channel chunks (32 channels: the products' N) and one span; it
+// walks the group's live row tiles (dgrad_span_start / dgrad_span_row in
+// pack_structure; a cluster splits them, summed in rank order), one k-step
+// of 8 rows p a stage.  Per stride phase phi the span's columns
+// u = u0 + stride*v + phi read only taps k = phi + stride*m, from g's column
+// t0 + v - m (t0 = u0 / stride), so each phase is a stride-1 product over
+// its taps with g shifted by the tap, in M tiles of 64 columns v, 3xTF32 on
+// wgmma m64n32k8.  What bounds it is shared memory's bandwidth: a tile's A
+// fragments (4 KB a tap) feed only N channels, so N 32 rather than a
+// pair's 16 halves the bytes a multiply-add (PERF.md):
+// - A is g shifted by the tap, from registers: each lane loads its fragment
+//   from the stage's g rows at the tap's column offset (no im2col, no
+//   shifted copy); the rows of g are 8 mod 32 words apart, so a warp's 32
+//   loads hit 32 banks;
+// - B is the tap's weight slice, 8 rows p x 32 channels, K-major in core
+//   matrices, TF32 big and small planes that the wrapper splits once a
+//   backward call (dgrad_span_pack in hm_vae_torch/ops/fused_conv_pool.py):
+//   a stage's K taps are one contiguous bulk copy, and nothing is converted
+//   in the product loop;
+// - the tensor cores' sum of a tap (three products over the stage's 8 rows)
+//   is added in f32 once a tap, in tap order then stage order: the same bits
+//   every run.  A warpgroup issues kSpanTaps taps, each into its own
+//   accumulator, as one wgmma group, waits for it and adds the taps' sums:
+//   a product of 64 x 32 x 8 is short, so a group of one tap left the
+//   tensor cores idle between its products and the wait (PERF.md), and
+//   ptxas serializes wgmma whose accumulators are read while another group
+//   is in flight;
+// Warp-specialised: warps 0-15 are four consumer warpgroups, one M tile of
+// the span each; warp 16 is the producer, which keeps kSpanMaxStages stages
+// of copies in flight (the stage's weight planes and its 8 rows of gy and
+// y, each row one bulk copy widened to 16-byte granules, onto the stage's
+// `full` barrier) and refills a stage as soon as every consumer warp
+// releases it (`empty`); warps 17-19 build g = gy * act'(y), split into
+// TF32 big + small in place of gy and y (`ready`), zero outside [0, T_out)
+// and past P, four columns a thread at a time (the splitters' loads wait
+// behind the consumers' in shared memory: one at a time they took as long
+// as the products).  So no block-wide barrier runs between the stages.  The
+// epilogue writes the span's gxpad to shared memory, sums the cluster's
+// partials in rank order and folds the padding in the block: the plan sizes
+// the first and the last span so that each holds both columns of every
+// reflected pair (dgrad_span_shift), and the block stores gx directly.
+constexpr int kSpanWG = 4;          // consumer warpgroups: a span's 64-column M tiles
+constexpr int kSpanThreads = 640;   // the consumers, the producer and splitter warps
+constexpr int kSpanC = 32;          // channels of a block: the products' N
+constexpr int kSpanTaps = 2;        // taps of a wgmma group (each its own accumulator)
+constexpr int kSpanMaxStages = 4;   // stages in flight
+constexpr int kSpanProducer = 4 * kSpanWG;  // the producer's warp
+constexpr int kSpanSplitters = 96;  // the splitters: the three warps after it
+constexpr int kTapPlane = kSpanC * 32;  // bytes of a tap's TF32 plane: 8 rows p x 32 channels
+constexpr int kSpanSlots = 128 + 2 * kTapPlane;  // barriers, zero planes, then the stages
+
+struct DgradSpanLayout {
+  int off, gw, gl, stages;  // g's halo (a phase's taps - 1), staged columns, a row's pitch
+                            // (floats, 8 mod 32), stages in flight
+  size_t wbytes, slot, total;  // a stage's weight planes, a stage, the block (bytes)
+};
+
+// A stage: the K taps' big and small weight planes, then gy's 8 rows and
+// y's (over which g's big and small planes are built), from the 16-byte
+// granule that holds g's column t0 - off on, gw columns: the shared memory
+// depends on K, stride and span only, never on T_in.  As many stages as fit
+// a block, at most kSpanMaxStages; the epilogue's gxpad (32 x span floats)
+// reuses them.
+__host__ __device__ inline DgradSpanLayout dgrad_span_layout(int K, int stride, int span) {
+  DgradSpanLayout L;
+  L.off = (K + stride - 1) / stride - 1;
+  L.gw = (L.off + span / stride + 6) / 4 * 4;
+  L.gl = L.gw + (40 - L.gw % 32) % 32;
+  L.wbytes = size_t(K) * 2 * kTapPlane;
+  L.slot = (L.wbytes + size_t(2) * 8 * L.gl * 4 + 127) & ~size_t(127);
+  const size_t fit = (size_t(kMaxSmem) - kSpanSlots) / L.slot;
+  L.stages = static_cast<int>(fit < size_t(kSpanMaxStages) ? fit : kSpanMaxStages);
+  L.total = kSpanSlots + size_t(L.stages) * L.slot;
+  return L;
+}
+
+// How much narrower than `span` the first span is: under reflect, enough
+// that the last span holds the row's last 2*padding + 1 columns (the first
+// span holds its first ones as long as span - shift > 2*padding).
+__host__ __device__ inline int dgrad_span_shift(int Tp, int span, int stride, int padding,
+                                                int reflect) {
+  const int n0 = (Tp + span - 1) / span, last = Tp - (n0 - 1) * span;
+  if (!reflect || padding == 0 || n0 < 2 || last > 2 * padding) return 0;
+  return (2 * padding + 1 - last + stride - 1) / stride * stride;
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// d = A (64 x 8, tf32, in registers, as wgmma_rs_tf32's) * B (8 x 32, tf32,
+// K-major in shared memory) + (acc ? d : 0); d[i]: row 16w + lane/4 (+8 if
+// i&2), column 8*(i/4) + 2*(lane%4) + (i&1).
+__device__ __forceinline__ void wgmma_rs_tf32_n32(float (&d)[16], const uint32_t (&a)[4],
+                                                  uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+// One stage's products of a consumer warpgroup's M tile: kSpanTaps taps m
+// at a time, each tap's three products (small*big, big*small, big*big)
+// into its own accumulator, one wgmma group; then the group's sums are
+// added to sum in f32 in tap order.  Branch-free: mtaps is a multiple of
+// kSpanTaps, a phase's taps past K read the zero planes (their A at the
+// last tap, `last`).  gb / gs: the stage's big and small g planes; acol:
+// the tile's A column at tap 0 for the lane's row; kph: its phase (tap k =
+// kph + stride*m); w: the stage's weight planes (tap k's big plane at w +
+// 2*kTapPlane*k, small + kTapPlane), zero: planes of zeros.
+__device__ __forceinline__ void span_stage_products(float (&sum)[16], const float* gb,
+                                                    const float* gs, int gl, int acol, int kph,
+                                                    uint32_t w, uint32_t zero, int stride, int K,
+                                                    int mtaps, int last) {
+  const int tig = threadIdx.x & 3;
+#pragma unroll 1
+  for (int m0 = 0; m0 < mtaps; m0 += kSpanTaps) {
+    float acc[kSpanTaps][16];
+    uint32_t ab[kSpanTaps][4], as[kSpanTaps][4];
+#pragma unroll
+    for (int t = 0; t < kSpanTaps; ++t) {
+      const int o = tig * gl + acol - min(m0 + t, last);
+      ab[t][0] = __float_as_uint(gb[o]);
+      ab[t][1] = __float_as_uint(gb[o + 8]);
+      ab[t][2] = __float_as_uint(gb[o + 4 * gl]);
+      ab[t][3] = __float_as_uint(gb[o + 4 * gl + 8]);
+      as[t][0] = __float_as_uint(gs[o]);
+      as[t][1] = __float_as_uint(gs[o + 8]);
+      as[t][2] = __float_as_uint(gs[o + 4 * gl]);
+      as[t][3] = __float_as_uint(gs[o + 4 * gl + 8]);
+    }
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int t = 0; t < kSpanTaps; ++t) {
+      const int k = kph + stride * (m0 + t);
+      const uint32_t big = k < K ? w + k * 2 * kTapPlane : zero;
+      wgmma_rs_tf32_n32(acc[t], as[t], gmma_desc(big), 0);
+      wgmma_rs_tf32_n32(acc[t], ab[t], gmma_desc(big + kTapPlane), 1);
+      wgmma_rs_tf32_n32(acc[t], ab[t], gmma_desc(big), 1);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int t = 0; t < kSpanTaps; ++t) {
+      fence_acc(acc[t]);
+#pragma unroll
+      for (int r = 0; r < 16; ++r) sum[r] += acc[t][r];
+    }
   }
+}
+
+// gx (B x C x T_in) of batch blockIdx.y / nspans's span blockIdx.y % nspans
+// and the group of chunks blockIdx.x; B is a window's batches (window b / B
+// reads its own packing of wpk, an entry a live row tile of a group).
+__global__ void __launch_bounds__(kSpanThreads, 1)
+dgrad_span_kernel(const float* __restrict__ gy, const float* __restrict__ y,
+                  const float* __restrict__ wpk, const int* __restrict__ span_start,
+                  const int* __restrict__ span_row, float* __restrict__ gx, int B, int C,
+                  int T_in, int P, int T_out, int t_ld, int K, int stride, int padding,
+                  int reflect, float slope, int span, int nspans) {
+  count_run(&g_runs[0]);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int split = static_cast<int>(cluster.num_blocks());
+  const DgradSpanLayout L = dgrad_span_layout(K, stride, span);
+  const int S = L.stages;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [S]: a stage's copies landed
+  uint64_t* ready = full + kSpanMaxStages;              // [S]: its g is built
+  uint64_t* empty = ready + kSpanMaxStages;             // [S]: both warpgroups are done with it
+  float* zero = reinterpret_cast<float*>(smem + 128);   // big and small planes of zeros
+  unsigned char* slots = smem + kSpanSlots;              // [S][weight planes, gy|big, y|small]
+  float* out_s = reinterpret_cast<float*>(slots);       // [32][span] gxpad, at the end
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int group = blockIdx.x, c0 = group * kSpanC;
+  const int cw = min(kSpanC, C - c0);  // 32, or fewer for a last group
+  const int b = static_cast<int>(blockIdx.y) / nspans;
+  const int sp = static_cast<int>(blockIdx.y) - b * nspans;
+  const int win = b / B;
+  const int Tp = T_in + 2 * padding;
+  const int shift = dgrad_span_shift(Tp, span, stride, padding, reflect);
+  const int u0 = sp == 0 ? 0 : sp * span - shift;
+  const int width = min(Tp, (sp + 1) * span - shift) - u0;
+  const int t0 = u0 / stride;
+  const int tb0 = (t0 - L.off) & ~3;  // g's staged column 0: the granule holding t0 - off
+  const int entries = span_start[gridDim.x];  // a window's packing
+  const int first = span_start[group];
+  const int live = span_start[group + 1] - first;
+  const int n_rt = live > rank ? (live - rank + split - 1) / split : 0;
+  auto entry = [&](int j) { return first + rank + j * split; };
+  auto ksteps = [&](int j) { return min(8, (P - span_row[entry(j)] * kRows + 7) / 8); };
+  int n_stages = 0;
+  for (int j = 0; j < n_rt; ++j) n_stages += ksteps(j);
+  // the stages in order: the rank's row tiles, each one k-step at a time
+  struct Cursor {
+    int j, ks;
+  };
+  auto next = [&](Cursor& c) {
+    if (++c.ks == ksteps(c.j)) ++c.j, c.ks = 0;
+  };
+  auto slot_of = [&](int i) { return slots + size_t(i % S) * L.slot; };
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(smem_addr(full + s), 1);
+      mbar_init(smem_addr(ready + s), kSpanSplitters);
+      mbar_init(smem_addr(empty + s), 4 * kSpanWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int q = tid; q < 2 * kTapPlane / 4; q += kSpanThreads) zero[q] = 0.f;
+  fence_async();  // the zero planes before the products read them
+  __syncthreads();
+
+  if (warp == kSpanProducer) {
+    // the producer: stage i's copies into its slot, the first S at once,
+    // then each as soon as the stage S before it is released
+    const int lo = max(tb0, 0), hi = min(t_ld, tb0 + L.gw);
+    const uint32_t row_bytes = hi > lo ? (hi - lo) * 4 : 0;
+    Cursor c = {0, 0};
+    for (int i = 0; i < n_stages; ++i, next(c)) {
+      if (i >= S) mbar_wait(smem_addr(empty + i % S), (i / S - 1) & 1);
+      const int p0 = span_row[entry(c.j)] * kRows + c.ks * 8, nrows = min(8, P - p0);
+      unsigned char* dst = slot_of(i);
+      uint64_t* bar = full + i % S;
+      if (lane == 0) mbar_expect(smem_addr(bar), L.wbytes + 2 * nrows * row_bytes);
+      fence_async();  // the stage's reads by the block come before these writes
+      if (lane == 0)
+        bulk_copy(dst, wpk + ((size_t(win) * entries + entry(c.j)) * 8 + c.ks) * K * 2 *
+                                 (kTapPlane / 4),
+                  L.wbytes, bar);
+      const int q = lane - 1, which = q >= nrows, r = q - which * nrows;
+      if (row_bytes > 0 && q >= 0 && q < 2 * nrows)
+        bulk_copy(dst + L.wbytes + (size_t(which * 8 + r) * L.gl + lo - tb0) * 4,
+                  (which ? y : gy) + (size_t(b) * P + p0 + r) * t_ld + lo, row_bytes, bar);
+    }
+  } else if (warp > kSpanProducer) {
+    // the splitters: g = gy * act'(y), split in place into its big (over gy)
+    // and small (over y) planes; zeros outside [0, T_out) and past P
+    const int q0 = tid - (kSpanProducer + 1) * 32, n4 = L.gw / 4;
+    Cursor c = {0, 0};
+    for (int i = 0; i < n_stages; ++i, next(c)) {
+      mbar_wait(smem_addr(full + i % S), (i / S) & 1);
+      const int nrows = min(8, P - span_row[entry(c.j)] * kRows - c.ks * 8);
+      float4* gs = reinterpret_cast<float4*>(slot_of(i) + L.wbytes);
+      float4* ys = gs + 8 * L.gl / 4;
+#pragma unroll 2
+      for (int e = q0; e < 8 * n4; e += kSpanSplitters) {
+        const int r = e / n4, j4 = e - r * n4, o = r * L.gl / 4 + j4, t = tb0 + 4 * j4;
+        const float4 a = gs[o], yv = ys[o];
+        const float av[4] = {a.x, a.y, a.z, a.w}, y4[4] = {yv.x, yv.y, yv.z, yv.w};
+        float big[4], small[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const bool in = r < nrows && t + q >= 0 && t + q < T_out;
+          const float2 s = split_tf32(in ? act_grad(av[q], y4[q], slope) : 0.f);
+          big[q] = s.x;
+          small[q] = s.y;
+        }
+        gs[o] = make_float4(big[0], big[1], big[2], big[3]);
+        ys[o] = make_float4(small[0], small[1], small[2], small[3]);
+      }
+      mbar_arrive(smem_addr(ready + i % S));
+    }
+  }
+
+  // The consumers' M tiles: warpgroup wg's is tile wg of the span's stride
+  // * (span / (64 * stride)) tiles, phase wg / mt, 64 columns v from 64 *
+  // (wg % mt); a tile past the span's width is idle.
+  const int wg = warp >> 2, w4 = warp & 3;
+  const int mt = span / (64 * stride), phi = wg / mt;
+  const int kph = phi < stride ? phi : 0, v0 = 64 * (wg - phi * mt);
+  const bool active =
+      warp < 4 * kSpanWG && phi < stride && v0 < (width - phi + stride - 1) / stride;
+  float sum[16] = {};
+  if (warp < 4 * kSpanWG) {
+    const int mtaps = (L.off + kSpanTaps) / kSpanTaps * kSpanTaps;  // a phase's taps, padded
+    const int acol = t0 - tb0 + v0 + 16 * w4 + gid;
+    for (int i = 0; i < n_stages; ++i) {
+      unsigned char* st = slot_of(i);
+      mbar_wait(smem_addr(ready + i % S), (i / S) & 1);
+      const float* gb = reinterpret_cast<const float*>(st + L.wbytes);
+      if (active)
+        span_stage_products(sum, gb, gb + 8 * L.gl, L.gl, acol, kph, smem_addr(st),
+                            smem_addr(zero), stride, K, mtaps, L.off);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_addr(empty + i % S));
+    }
+  }
+  __syncthreads();  // every stage is consumed: the slots take gxpad
+
+  // gxpad of the span's columns -> out_s; a block alone in its cluster
+  // skips the cluster barriers
+  if (active) {
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const int v = v0 + 16 * w4 + gid + 8 * ((r >> 1) & 1);
+      const int ul = stride * v + kph, ch = 8 * (r >> 2) + 2 * tig + (r & 1);
+      if (ul < width) out_s[ch * span + ul] = sum[r];
+    }
+  }
+  if (split > 1)
+    cluster.sync();  // every block's partial gxpad is in its shared memory
+  else
+    __syncthreads();
+  {
+    const float* parts[kMaxSplit];
+#pragma unroll
+    for (int q = 0; q < kMaxSplit; ++q)
+      parts[q] = q == rank ? out_s : cluster.map_shared_rank(out_s, min(q, split - 1));
+    auto column = [&](int row, int u) {  // summed over the cluster in rank order
+      float s = parts[0][row + u - u0];
+#pragma unroll
+      for (int q = 1; q < kMaxSplit; ++q)
+        if (q < split) s += parts[q][row + u - u0];
+      return s;
+    };
+    // the x columns whose padded column i + padding lies in the span, with
+    // their reflected columns (in the same span, by the plan)
+    const int i_lo = max(0, u0 - padding), i_hi = min(T_in, u0 + width - padding);
+    const int ncols = max(0, i_hi - i_lo), n_el = cw * ncols;
+    const int lo = n_el * rank / split, hi = n_el * (rank + 1) / split;
+    for (int el = lo + tid; el < hi; el += kSpanThreads) {
+      const int c = el / ncols, i = i_lo + el - c * ncols, row = c * span;
+      float v = column(row, i + padding);
+      if (reflect && i >= 1 && i <= padding) v += column(row, padding - i);
+      if (reflect && i <= T_in - 2 && i >= T_in - 1 - padding)
+        v += column(row, padding + 2 * (T_in - 1) - i);
+      gx[(size_t(b) * C + c0 + c) * T_in + i] = v;
+    }
+  }
+  if (split > 1) cluster.sync();  // no block leaves while another reads its span's gxpad
 }
 
 // ---------------------------------------------------------------------------
@@ -1326,11 +1599,11 @@ bool shape_ok(int B, int C, int T_in, int K, int P, int T_out, int t_ld, int str
 }
 
 template <typename Kernel, typename... Args>
-cudaError_t launch_cluster(Kernel kernel, dim3 grid, int cluster_z, int cluster_x, size_t smem,
-                           void* stream, Args... args) {
+cudaError_t launch_cluster(Kernel kernel, dim3 grid, int threads, int cluster_z, int cluster_x,
+                           size_t smem, void* stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
@@ -1371,9 +1644,9 @@ bool span_row_map(CUtensorMap* map, const void* base, int t_ld, long long rows) 
 }
 
 // The plans of the last dgrad and wgrad launches in this process
-// (hmvae_conv_bwd_last_plan): dgrad nbb, groups, split, span, spans, smem;
-// wgrad sb, split, span, smem.
-int last_dgrad[6] = {};
+// (hmvae_conv_bwd_last_plan): dgrad nbb, groups, split, span, spans, smem,
+// stages, channels a block; wgrad sb, split, span, smem.
+int last_dgrad[8] = {};
 int last_wgrad[4] = {};
 
 }  // namespace
@@ -1387,53 +1660,71 @@ extern "C" {
 // the row tiles live in either chunk of each pair of 8-channel chunks
 // (pack_structure).  The plan (dgrad_plan in the wrapper): batch groups of
 // nbb batches within a window, the row tiles of a pair split over `split`
-// blocks of a cluster; span = 0 for whole padded rows, else (nbb 1) spans
-// of `span` padded columns, a multiple of stride, whose gxpad goes to the
-// scratch gxpad (B, C, T_in + 2*padding) before dgrad_fold_kernel folds it
-// into gx.  Launches on `stream`, returns the first CUDA error (0 on
-// success).
+// blocks of a cluster; span = 0 for whole padded rows (dgrad_kernel), else
+// (nbb 1) spans of `span` padded columns (dgrad_span_kernel: a multiple of
+// 64*stride, at most kSpanWG M tiles of 64 columns, the first span
+// narrower by dgrad_span_shift), whose weight is wpk, the folded weight's
+// live row tiles of each group of four chunks split into TF32 planes
+// (dgrad_span_pack: windows x entries x 8 k-steps x K taps x big, small
+// planes of 8 rows x 32 channels), and whose lists dgrad_start /
+// dgrad_row are the groups' (dgrad_span_start / dgrad_span_row); wpk is
+// unread for whole rows.  Launches on `stream`, returns the first CUDA
+// error (0 on success).
 int hmvae_conv_dgrad(const void* gy, const void* y, const void* w, const void* dgrad_start,
-                     const void* dgrad_row, void* gx, void* gxpad, int B, int C, int T_in,
+                     const void* dgrad_row, void* gx, const void* wpk, int B, int C, int T_in,
                      int K, int P, int T_out, int t_ld, int stride, int padding, int reflect,
                      float slope, int nbb, int split, int span, int windows, int device,
                      void* stream) {
-  const void* ptrs[] = {gy, y, w, gx};
-  if (!shape_ok(B, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, device, ptrs, 4) ||
+  const void* ptrs[] = {gy, y, w, gx, span > 0 ? wpk : gy};
+  if (!shape_ok(B, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, device, ptrs, 5) ||
       windows < 1 || B % windows != 0 || nbb < 1 || nbb > B / windows || split < 1 ||
-      split > kMaxSplit || span < 0 || (span > 0 && (nbb != 1 || span % stride != 0 ||
-                                                      gxpad == nullptr)))
+      split > kMaxSplit || span < 0 || (span > 0 && (nbb != 1 || wpk == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_win = B / windows;
-  const DgradLayout L = dgrad_layout(T_in, K, T_out, t_ld, stride, padding, nbb, span);
+  const int gpw = (n_win + nbb - 1) / nbb;  // batch groups of a window
+  const int pairs = (C + kDC - 1) / kDC, groups = (C + kSpanC - 1) / kSpanC;
+  static bool ready[2][kMaxDevices] = {};
   const int Tp = T_in + 2 * padding;
-  const int nspans = span > 0 ? (Tp + span - 1) / span : 1;
+  if (span > 0) {
+    const DgradSpanLayout L = dgrad_span_layout(K, stride, span);
+    const int shift = dgrad_span_shift(Tp, span, stride, padding, reflect);
+    const int nspans = (Tp + shift + span - 1) / span;
+    const int last = Tp - ((nspans - 1) * span - shift);
+    // whole M tiles of each phase, at most two a consumer warpgroup; the
+    // reflected columns of each edge inside one span
+    if (span % (64 * stride) != 0 || span / 64 > kSpanWG || L.stages < 2 ||
+        L.total > static_cast<size_t>(kMaxSmem) || static_cast<long long>(B) * nspans > 65535 ||
+        (reflect && nspans > 1 && (span - shift <= 2 * padding || last <= 2 * padding)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = allow_smem(dgrad_span_kernel, ready[1], device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int plan[8] = {nbb, gpw, split, span, nspans, static_cast<int>(L.total), L.stages,
+                         kSpanC};
+    for (int i = 0; i < 8; ++i) last_dgrad[i] = plan[i];
+    return static_cast<int>(launch_cluster(
+        dgrad_span_kernel, dim3(groups, B * nspans, split), kSpanThreads, split, 1, L.total,
+        stream, static_cast<const float*>(gy), static_cast<const float*>(y),
+        static_cast<const float*>(wpk), static_cast<const int*>(dgrad_start),
+        static_cast<const int*>(dgrad_row), static_cast<float*>(gx), n_win, C, T_in, P, T_out,
+        t_ld, K, stride, padding, reflect, slope, span, nspans));
+  }
+  const DgradLayout L = dgrad_layout(T_in, K, T_out, t_ld, stride, padding, nbb);
   int tiles = 0;  // 16-column tiles of a batch group's columns: one per warp
   for (int phi = 0; phi < stride; ++phi)
     tiles += (nbb * ((L.Tp - phi + stride - 1) / stride) + 15) / 16;
-  const int gpw = (n_win + nbb - 1) / nbb;  // batch groups of a window
   if (tiles > kWarps * kMaxTiles || L.total > static_cast<size_t>(kMaxSmem) ||
-      static_cast<long long>(windows) * gpw * nspans > 65535)
+      static_cast<long long>(windows) * gpw > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int sel = span > 0;
-  auto kernel = sel ? dgrad_kernel<true> : dgrad_kernel<false>;
-  static bool ready[2][kMaxDevices] = {};
-  cudaError_t err = allow_smem(kernel, ready[sel], device);
+  cudaError_t err = allow_smem(dgrad_kernel, ready[0], device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int plan[6] = {nbb, gpw, split, span, nspans, static_cast<int>(L.total)};
-  for (int i = 0; i < 6; ++i) last_dgrad[i] = plan[i];
-  err = launch_cluster(
-      kernel, dim3((C + kDC - 1) / kDC, windows * gpw * nspans, split), split, 1, L.total,
-      stream, static_cast<const float*>(gy), static_cast<const float*>(y),
-      static_cast<const float*>(w), static_cast<const int*>(dgrad_start),
-      static_cast<const int*>(dgrad_row), static_cast<float*>(gx), n_win, C, T_in, K, P, T_out,
-      t_ld, stride, padding, reflect, slope, nbb, gpw, size_t(P) * C * K, span, nspans,
-      static_cast<float*>(gxpad));
-  if (err != cudaSuccess || span == 0) return static_cast<int>(err);
-  const long long n = static_cast<long long>(B) * C * T_in;
-  const int blocks = static_cast<int>(n / kThreads + 1 < 4096 ? n / kThreads + 1 : 4096);
-  dgrad_fold_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(gxpad), static_cast<float*>(gx), n, T_in, padding, reflect);
-  return static_cast<int>(cudaGetLastError());
+  const int plan[8] = {nbb, gpw, split, 0, 1, static_cast<int>(L.total), kStages, kDC};
+  for (int i = 0; i < 8; ++i) last_dgrad[i] = plan[i];
+  return static_cast<int>(launch_cluster(
+      dgrad_kernel, dim3(pairs, windows * gpw, split), kThreads, split, 1, L.total, stream,
+      static_cast<const float*>(gy), static_cast<const float*>(y), static_cast<const float*>(w),
+      static_cast<const int*>(dgrad_start), static_cast<const int*>(dgrad_row),
+      static_cast<float*>(gx), n_win, C, T_in, K, P, T_out, t_ld, stride, padding, reflect,
+      slope, nbb, gpw, size_t(P) * C * K));
 }
 
 // Folded-weight gradient gw (windows x (P, C, K)) on the n_tiles entries of
@@ -1483,7 +1774,7 @@ int hmvae_conv_wgrad(const void* gy, const void* y, const void* x, const void* w
         !span_row_map(&y_map, y, t_ld, static_cast<long long>(B) * P))
       return static_cast<int>(cudaErrorNotSupported);
     return static_cast<int>(launch_cluster(
-        kernel, grid, 1, split, smem, stream, gy_map, y_map, static_cast<const float*>(x),
+        kernel, grid, kThreads, 1, split, smem, stream, gy_map, y_map, static_cast<const float*>(x),
         static_cast<const int*>(wrow), static_cast<const int*>(wchunk), static_cast<float*>(gw),
         static_cast<float*>(gb), n_win, C, T_in, K, P, T_out, stride, padding, reflect, slope,
         span));
@@ -1492,20 +1783,20 @@ int hmvae_conv_wgrad(const void* gy, const void* y, const void* x, const void* w
   cudaError_t err = allow_smem(kernel, ready[sel], device);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_cluster(
-      kernel, grid, 1, split, smem, stream, static_cast<const float*>(gy),
+      kernel, grid, kThreads, 1, split, smem, stream, static_cast<const float*>(gy),
       static_cast<const float*>(y), static_cast<const float*>(x), static_cast<const int*>(wrow),
       static_cast<const int*>(wchunk), static_cast<float*>(gw), static_cast<float*>(gb), n_win,
       C, T_in, K, P, T_out, t_ld, stride, padding, reflect, slope, sb));
 }
 
-// The plans of the last launches (see last_dgrad, last_wgrad): dgrad's six
-// ints into out[0..5], wgrad's four into out[6..9].
+// The plans of the last launches (see last_dgrad, last_wgrad): dgrad's eight
+// ints into out[0..7], wgrad's four into out[8..11].
 void hmvae_conv_bwd_last_plan(int* out) {
-  for (int i = 0; i < 6; ++i) out[i] = last_dgrad[i];
-  for (int i = 0; i < 4; ++i) out[6 + i] = last_wgrad[i];
+  for (int i = 0; i < 8; ++i) out[i] = last_dgrad[i];
+  for (int i = 0; i < 4; ++i) out[8 + i] = last_wgrad[i];
 }
 
-// The runs on `device` of dgrad_kernel, then wgrad_kernel, since the last
+// The runs on `device` of the dgrad kernels, then the wgrad kernels, since the last
 // reset (run_counter.h), after the device has finished its work, into
 // out[2]; then 0 where `reset`.
 int hmvae_conv_bwd_device_runs(int device, int reset, unsigned long long* out) {

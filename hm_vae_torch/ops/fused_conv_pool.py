@@ -7,8 +7,10 @@ kernel ``hm_vae_torch/csrc/fused_conv_pool.cu`` for Hopper (``sm_90a``): a
 block-sparse implicit GEMM on the level's folded weight, bf16 (or 3xTF32 for
 f32) on ``wgmma``, weight tiles by bulk asynchronous copy.  Its gradient is
 two more hand-written kernels, ``hm_vae_torch/csrc/fused_conv_pool_bwd.cu``
-(dgrad and wgrad + bias grad, f32 as 3xTF32 on ``mma.sync``, planned by
-:func:`dgrad_plan` and :func:`wgrad_plan`), the counterparts of the JAX package's
+(dgrad and wgrad + bias grad, f32 as 3xTF32 on ``mma.sync``, over long rows
+on ``wgmma``, planned by :func:`dgrad_plan` and :func:`wgrad_plan`; dgrad
+over long rows reads the weight split once a call by
+:func:`dgrad_span_pack`), the counterparts of the JAX package's
 autodiff of its XLA level (``hm_vae_tpu/models/hm_vae.py``; the JAX package
 has no backward kernel).  Each source's header note says what bounds it on
 an H100 and what its design does about that.
@@ -76,6 +78,11 @@ DGRAD_TILES = 2  # or up to two for a group of one batch (a padded row or span <
 DGRAD_CHUNKS = 2  # dgrad: channel chunks of a block
 MAX_SMEM = 232448  # shared memory a block may use
 MAX_SMEM_PER_SM = 233472
+DGRAD_SPAN_TILES = 4  # dgrad over long rows: 64-column M tiles of a span, a warpgroup each
+DGRAD_SPAN_CHANNELS = 32  # its channels of a block (the products' N)
+DGRAD_SPAN_MAX_STAGES = 4  # its stages (k-steps of 8 rows p) in flight
+DGRAD_TAP_PLANE = DGRAD_SPAN_CHANNELS * 32  # bytes of a tap's TF32 plane: 8 rows p x 32 channels
+DGRAD_SPAN_SLOTS = 128 + 2 * DGRAD_TAP_PLANE  # barriers and zero planes, before the stages
 WGRAD_STAGE_COLS = 32  # wgrad: (b, t) columns staged at a time, at least one batch
 WGRAD_SPAN_COLS = 128  # wgrad over long rows: the widest item's output columns (kSpanCols)
 WGRAD_SPAN_CHUNK = 32  # an item's g split into a wgmma B tile this many columns at a time
@@ -207,10 +214,14 @@ class LevelStructure:
     by row tile, and ``(row tile, -1)`` for a row tile with none, whose bias
     gradient is still summed); the dgrad kernel walks, for each pair of
     chunks, the row tiles live in either (``dgrad_start`` (pairs + 1)
-    indexes ``dgrad_row``).  ``live_index`` (row tile * chunks + chunk,
+    indexes ``dgrad_row``); over long rows, for each group of
+    ``DGRAD_SPAN_CHANNELS`` channels, the row tiles live in any of its
+    chunks (``dgrad_span_start`` indexes ``dgrad_span_row``, and
+    ``dgrad_span_group`` is each entry's group, for
+    :func:`dgrad_span_pack`).  ``live_index`` (row tile * chunks + chunk,
     int64) is the gather that :func:`repack` writes the values through.
-    ``max_live`` and ``dgrad_max_live``: the most live tiles of a row tile,
-    and row tiles of a pair.
+    ``max_live``, ``dgrad_max_live`` and ``dgrad_span_max_live``: the most
+    live tiles of a row tile, and row tiles of a pair and of a group.
     """
 
     live: torch.Tensor
@@ -220,6 +231,9 @@ class LevelStructure:
     wgrad_chunk: torch.Tensor
     dgrad_start: torch.Tensor
     dgrad_row: torch.Tensor
+    dgrad_span_start: torch.Tensor
+    dgrad_span_row: torch.Tensor
+    dgrad_span_group: torch.Tensor
     live_index: torch.Tensor
     dtype: torch.dtype
     rows: int
@@ -227,6 +241,7 @@ class LevelStructure:
     kernel_size: int
     max_live: int
     dgrad_max_live: int
+    dgrad_span_max_live: int
     stride: int
     padding: int
     reflect: bool
@@ -329,6 +344,13 @@ def pack_structure(
     pairs = torch.zeros(rt, -(-nc // DGRAD_CHUNKS) * DGRAD_CHUNKS, dtype=torch.bool)
     pairs[:, :nc] = tiles
     pairs = pairs.reshape(rt, -1, DGRAD_CHUNKS).any(2)  # (rt, pairs)
+    per = DGRAD_SPAN_CHANNELS // cc
+    groups = torch.zeros(rt, -(-nc // per) * per, dtype=torch.bool)
+    groups[:, :nc] = tiles
+    groups = groups.reshape(rt, -1, per).any(2)  # (rt, groups)
+    by_group = groups.T.nonzero()  # group-major: group, then row tile
+    gstart = torch.zeros(groups.shape[1] + 1, dtype=torch.int32)
+    gstart[1:] = groups.sum(0).cumsum(0)
     start = torch.zeros(rt + 1, dtype=torch.int32)
     start[1:] = tiles.sum(1).cumsum(0)
     dstart = torch.zeros(pairs.shape[1] + 1, dtype=torch.int32)
@@ -344,11 +366,15 @@ def pack_structure(
     return LevelStructure(
         live=tiles.to(device), tile_start=put(start), tile_chunk=put(by_row[:, 1]),
         wgrad_row=put(wg[:, 0]), wgrad_chunk=put(wg[:, 1]), dgrad_start=put(dstart),
-        dgrad_row=put(pairs.T.nonzero()[:, 1]),
+        dgrad_row=put(pairs.T.nonzero()[:, 1]), dgrad_span_start=put(gstart),
+        dgrad_span_row=put(by_group[:, 1]),
+        dgrad_span_group=put(by_group[:, 0]),
         live_index=put(by_row[:, 0] * nc + by_row[:, 1], torch.int64), dtype=dtype,
         rows=P, in_channels=C_in, kernel_size=kernel_size,
         max_live=int(tiles.sum(1).max()) if rt else 0,
-        dgrad_max_live=int(pairs.sum(0).max()) if nc else 0, stride=stride, padding=padding,
+        dgrad_max_live=int(pairs.sum(0).max()) if nc else 0,
+        dgrad_span_max_live=int(groups.sum(0).max()) if nc else 0, stride=stride,
+        padding=padding,
         reflect=mode == "reflect", negative_slope=float(negative_slope))
 
 
@@ -392,6 +418,41 @@ def repack(structure: LevelStructure, weight: torch.Tensor,
             tiles, b = tiles[0], b[0]
     return PackedLevel(tiles=tiles.contiguous(), bias=b, has_bias=bias is not None,
                        structure=s)
+
+
+def dgrad_span_pack(structure: LevelStructure, weight: torch.Tensor) -> torch.Tensor:
+    """The folded weight (P, C_in, K), or G windows' (G, P, C_in, K), as
+    ``dgrad_span_kernel`` reads it, with no host sync: for each window and
+    each entry (``dgrad_span_row``, ``dgrad_span_group``: a row tile live
+    in any chunk of a group of ``DGRAD_SPAN_CHANNELS`` channels), each
+    k-step of 8 rows p and each tap, the TF32 rounding of the slice (8 rows p x 32
+    channels) and its remainder rounded to TF32, each a 1 KB plane in
+    wgmma's K-major core-matrix order (channels in fours of 8, then half of
+    the rows p, then the channel, then 4 rows p).  (G, entries, 8, K, 2,
+    256) f32; rows past P and channels past C_in are zeros.  A stage of the
+    kernel (one k-step, its K taps) is one contiguous run."""
+    s = structure
+    lead, (P, C_in, K) = tuple(weight.shape[:-3]), weight.shape[-3:]
+    if weight.dtype != torch.float32 or len(lead) > 1 or (P, C_in, K) != (
+            s.rows, s.in_channels, s.kernel_size):
+        raise ValueError(f"weight {tuple(weight.shape)} {weight.dtype} does not fit the "
+                         f"structure ([G,] {s.rows}, {s.in_channels}, {s.kernel_size}) f32")
+    G = lead[0] if lead else 1
+    rt, groups = s.tile_start.numel() - 1, s.dgrad_span_start.numel() - 1
+    n = DGRAD_SPAN_CHANNELS
+    with torch.no_grad():
+        w = torch.nn.functional.pad(weight.reshape(G, P, C_in, K),
+                                    (0, 0, 0, groups * n - C_in, 0, rt * ROWS - P))
+        # p = (k-step, half, 4 rows), c = (group, eight, 8 channels)
+        t = w.reshape(G, rt, 8, 2, 4, groups, n // 8, 8, K).permute(0, 1, 5, 2, 8, 6, 3, 7, 4)
+        t = t[:, s.dgrad_span_row, s.dgrad_span_group].reshape(G, -1, 8, K, 8 * n)
+        # the planes written in place (fewer passes than _tf32 and a stack)
+        out = t.new_empty(t.shape[:4] + (2, 8 * n))
+        big, small = out[..., 0, :], out[..., 1, :]
+        torch.bitwise_and(t.view(torch.int32) + 0x1000, -0x2000, out=big.view(torch.int32))
+        torch.sub(t, big, out=small)
+        small.view(torch.int32).add_(0x1000).bitwise_and_(-0x2000)
+        return out
 
 
 def pack_level(
@@ -443,7 +504,7 @@ def _unpack(tiles, bias, tile_start, live_index, C_in: int, K: int, P: int):
 # n_tiles, dtype, device, sms, stream)
 ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float]
             + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-# hmvae_conv_dgrad(gy, y, w, dgrad_start, dgrad_row, gx, gxpad, B, C, T_in,
+# hmvae_conv_dgrad(gy, y, w, dgrad_start, dgrad_row, gx, wpk, B, C, T_in,
 # K, P, T_out, t_ld, stride, padding, reflect, slope, nbb, split, span,
 # windows, device, stream)
 DGRAD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_float]
@@ -814,7 +875,8 @@ def _dgrad_tiles(width: int, stride: int, nbb: int = 1) -> int:
 
 
 def dgrad_plan(B: int, T_in: int, K: int, stride: int, padding: int, t_ld: int,
-               pairs: int, max_live: int, sms: int, windows: int = 1) -> DgradPlan:
+               pairs: int, max_live: int, sms: int, windows: int = 1,
+               span_groups: Optional[Tuple[int, int]] = None) -> DgradPlan:
     """The dgrad kernel's :class:`DgradPlan`: a block owns a pair of channel
     chunks and the padded rows of ``nbb`` batches (``groups`` batch groups
     of each of ``windows`` windows of ``B`` batches: a group never crosses a
@@ -823,61 +885,109 @@ def dgrad_plan(B: int, T_in: int, K: int, stride: int, padding: int, t_ld: int,
     two a warp), and ``split`` blocks of a cluster share the pair's live row
     tiles (at most ``max_live``).  A padded row that one batch's block cannot
     hold (more than 256 / stride columns, or beyond shared memory) is cut
-    into spans of ``span`` columns, one batch a block: two tiles a warp
-    where they fit shared memory, else one.  Chosen for the least time on an
+    into spans (:func:`dgrad_span_plan` over ``span_groups``, the groups of
+    ``DGRAD_SPAN_CHANNELS`` channels and their most live row tiles; by
+    default half the pairs and their most).  Chosen for the least time on an
     SM, counted in row tiles: waves of blocks (two to an SM where their
     shared memory allows) times the row tiles a block walks, plus one for
     its prologue and epilogue; ties go to fewer blocks."""
     Tp = T_in + 2 * padding
-    span = 0
     if (_dgrad_tiles(Tp, stride) > BWD_WARPS * DGRAD_TILES
             or _dgrad_smem(T_in, K, t_ld, stride, padding, 1) > MAX_SMEM):
-        for tiles in (DGRAD_TILES, 1):
-            span = 16 * stride * (BWD_WARPS * tiles // stride)
-            if span and _dgrad_smem(T_in, K, t_ld, stride, padding, 1, span) <= MAX_SMEM:
-                break
-        else:
-            raise ValueError(f"no dgrad span fits shared memory at K={K}, stride={stride}")
-    spans = -(-Tp // span) if span else 1
+        groups, group_live = span_groups or (-(-pairs // 2), max_live)
+        return dgrad_span_plan(B, T_in, K, stride, padding, groups, group_live, sms, windows)
     best = None
-    for nb in range(1, 1 + (B if not span else 1)):
-        smem = _dgrad_smem(T_in, K, t_ld, stride, padding, nb, span)
+    for nb in range(1, 1 + B):
+        smem = _dgrad_smem(T_in, K, t_ld, stride, padding, nb)
         if nb > 1 and (_dgrad_tiles(Tp, stride, nb) > BWD_WARPS or smem > MAX_SMEM):
             continue
         groups = -(-B // nb)
         nbb = -(-B // groups)  # the same groups, batches spread evenly
         per_sm = 2 if smem <= MAX_SMEM_PER_SM // 2 - 1024 else 1
         for split in range(1, min(MAX_SPLIT, max(1, max_live)) + 1):
-            blocks = pairs * windows * groups * spans * split
+            blocks = pairs * windows * groups * split
             # a block's prologue and epilogue cost about one row tile
             cost = (-(-blocks // (sms * per_sm)) * (-(-max_live // split) + 1), blocks)
             if best is None or cost < best[0]:
-                best = (cost, DgradPlan(nbb, groups, split, span))
+                best = (cost, DgradPlan(nbb, groups, split, 0))
     return best[1]
 
 
-def _dgrad_smem(T_in: int, K: int, t_ld: int, stride: int, padding: int, nbb: int,
-                span: int = 0) -> int:
-    """Bytes of shared memory a dgrad block takes (``dgrad_layout`` in the
-    kernel's source): two weight stages (32 rows of 16 channels), one of gy
-    and y, g split and padded, and gxpad (over the weight stages when it
-    fits); with a ``span``, only the span's columns and the g columns they
-    read."""
+def dgrad_span_plan(B: int, T_in: int, K: int, stride: int, padding: int, groups: int,
+                    max_live: int, sms: int, windows: int = 1) -> DgradPlan:
+    """``dgrad_span_kernel``'s :class:`DgradPlan` at any length: a block
+    owns one batch and one of ``groups`` groups of ``DGRAD_SPAN_CHANNELS``
+    channels, its padded row cut into spans of :func:`dgrad_span_cols`
+    columns (the first narrower by :func:`dgrad_span_shift`), and ``split``
+    blocks of a cluster share a group's live row tiles (at most
+    ``max_live``), chosen as :func:`dgrad_plan` chooses it (a block takes an
+    SM)."""
+    span = dgrad_span_cols(K, stride)
+    if span <= 4 * padding + stride:
+        raise ValueError(f"a dgrad span of {span} columns cannot hold both columns of the "
+                         f"reflected pairs of padding {padding}")
+    spans = -(-(T_in + 2 * padding) // span)
+    best = None
+    for split in range(1, min(MAX_SPLIT, max(1, max_live)) + 1):
+        blocks = groups * windows * B * spans * split
+        cost = (-(-blocks // sms) * (-(-max_live // split) + 1), blocks)
+        if best is None or cost < best[0]:
+            best = (cost, DgradPlan(1, B, split, span))
+    return best[1]
+
+
+def _dgrad_smem(T_in: int, K: int, t_ld: int, stride: int, padding: int, nbb: int) -> int:
+    """Bytes of shared memory a whole-row dgrad block takes (``dgrad_layout``
+    in the kernel's source): two weight stages (32 rows of 16 channels), one
+    of gy and y, g split and padded, and gxpad (over the weight stages when
+    it fits)."""
     kmax = -(-K // stride)
-    if span:
-        Tp, rs = span, (kmax - 1 + span // stride + 11) // 16 * 16 + 4
-        gl = -(-(kmax - 1 + span // stride + 6) // 4) * 4
-    else:
-        Tp = T_in + 2 * padding
-        T_out = (Tp - K) // stride + 1
-        rs = (kmax - 1 + max(-(-Tp // stride), T_out) + 11) // 16 * 16 + 4
-        gl = t_ld
+    Tp = T_in + 2 * padding
+    T_out = (Tp - K) // stride + 1
+    rs = (kmax - 1 + max(-(-Tp // stride), T_out) + 11) // 16 * 16 + 4
     a16 = lambda n: -(-n // 16) * 16  # noqa: E731
     half = ROWS // 2  # a stage: half a row tile
     w_ring = a16(2 * half * (8 * DGRAD_CHUNKS * K + 8) * 4)
-    g2_end = 64 + w_ring + a16(2 * nbb * half * gl * 4) + nbb * half * rs * 8
+    g2_end = 64 + w_ring + a16(2 * nbb * half * t_ld * 4) + nbb * half * rs * 8
     out = 8 * DGRAD_CHUNKS * nbb * Tp * 4
     return g2_end if out <= w_ring else a16(g2_end) + out
+
+
+def _dgrad_span_layout(K: int, stride: int, span: int) -> Tuple[int, int]:
+    """(bytes, stages) of a ``dgrad_span_kernel`` block (``dgrad_span_layout``
+    in the kernel's source): the barriers and zero planes, then as many
+    stages as fit (at most ``DGRAD_SPAN_MAX_STAGES``), each the K taps'
+    weight planes and g's 8 rows p in two planes (big over gy, small over
+    y), of the span's g columns and their halo from a 16-byte granule on, a
+    row's pitch 8 mod 32 words.  Independent of T."""
+    off = -(-K // stride) - 1
+    gw = (off + span // stride + 6) // 4 * 4
+    gl = gw + (40 - gw % 32) % 32
+    slot = -(-(K * 2 * DGRAD_TAP_PLANE + 2 * 8 * gl * 4) // 128) * 128
+    stages = min(DGRAD_SPAN_MAX_STAGES, (MAX_SMEM - DGRAD_SPAN_SLOTS) // slot)
+    return DGRAD_SPAN_SLOTS + stages * slot, stages
+
+
+def dgrad_span_cols(K: int, stride: int) -> int:
+    """The widest dgrad span: whole 64-column M tiles of every stride phase,
+    at most ``DGRAD_SPAN_TILES`` of them, with at least two stages in a
+    block: 256 padded columns at strides 1, 2 and 4, 192 at 3."""
+    for tiles in range(DGRAD_SPAN_TILES // stride, 0, -1):
+        if _dgrad_span_layout(K, stride, 64 * stride * tiles)[1] >= 2:
+            return 64 * stride * tiles
+    raise ValueError(f"no dgrad span fits shared memory at K={K}, stride={stride}")
+
+
+def dgrad_span_shift(Tp: int, span: int, stride: int, padding: int, reflect: bool) -> int:
+    """How many columns narrower than ``span`` the first span of a padded
+    row of ``Tp`` columns is (``dgrad_span_shift`` in the kernel's source):
+    under reflect, enough that the last span holds the row's last
+    2*padding + 1 columns, so that each span folds its reflected columns."""
+    n0 = -(-Tp // span)
+    last = Tp - (n0 - 1) * span
+    if not reflect or padding == 0 or n0 < 2 or last > 2 * padding:
+        return 0
+    return -(-(2 * padding + 1 - last) // stride) * stride
 
 
 def _wgrad_smem(B: int, T_in: int, K: int, T_out: int, t_ld: int, stride: int, sb: int,
@@ -973,13 +1083,15 @@ def wgrad_plan(B: int, T_out: int, entries: int, sms: int, windows: int = 1,
 def last_backward_plans() -> dict:
     """The plans that the last dgrad and wgrad launches in this process ran,
     as their launchers recorded them (``hmvae_conv_bwd_last_plan``):
-    dgrad's :class:`DgradPlan` fields, its ``spans`` and ``smem`` bytes;
-    wgrad's :class:`WgradPlan` fields and ``smem``."""
+    dgrad's :class:`DgradPlan` fields, its ``spans``, ``smem`` bytes,
+    ``stages`` in flight and ``channels`` a block; wgrad's
+    :class:`WgradPlan` fields and ``smem``."""
     lib = _bwd_library()[0]
-    out = (ctypes.c_int * 10)()
+    out = (ctypes.c_int * 12)()
     lib.hmvae_conv_bwd_last_plan(out)
-    return {"dgrad": dict(zip(DgradPlan._fields + ("spans", "smem"), out[:6])),
-            "wgrad": dict(zip(WgradPlan._fields + ("smem",), out[6:]))}
+    return {"dgrad": dict(zip(DgradPlan._fields + ("spans", "smem", "stages", "channels"),
+                              out[:8])),
+            "wgrad": dict(zip(WgradPlan._fields + ("smem",), out[8:]))}
 
 
 def _aligned(t: torch.Tensor, dim: int, multiple: int) -> torch.Tensor:
@@ -997,9 +1109,12 @@ def _aligned(t: torch.Tensor, dim: int, multiple: int) -> torch.Tensor:
     return out
 
 
-def _dgrad(gy, y, weight, s: LevelStructure, T_in: int, windows: Optional[int]):
+def _dgrad(gy, y, weight, s: LevelStructure, T_in: int, windows: Optional[int],
+           plan: Optional[DgradPlan] = None):
     """Checks, then one dgrad launch; ``weight`` is (P, C_in, K), or
-    (G, P, C_in, K) when ``windows`` is G."""
+    (G, P, C_in, K) when ``windows`` is G; ``plan`` in place of
+    :func:`dgrad_plan`'s (a span plan times the span kernel at shapes whose
+    rows fit whole)."""
     entry = fused_conv_pool_dgrad if windows is None else fused_conv_pool_dgrad_windowed
     _bwd_checks(s, gy, y, weight=weight)
     B, P, T_out = gy.shape
@@ -1015,16 +1130,20 @@ def _dgrad(gy, y, weight, s: LevelStructure, T_in: int, windows: Optional[int]):
     w = _aligned(weight, weight.dim() - 2, CHUNK_CHANNELS[torch.float32])
     C, t_ld = w.shape[-2], gy.shape[2]
     dev = gy.device.index
-    plan = dgrad_plan(B // G, T_in, K, s.stride, s.padding, t_ld, s.dgrad_start.numel() - 1,
-                      s.dgrad_max_live, _sm_count(dev), G)
+    plan = plan or dgrad_plan(
+        B // G, T_in, K, s.stride, s.padding, t_ld, s.dgrad_start.numel() - 1,
+        s.dgrad_max_live, _sm_count(dev), G,
+        (s.dgrad_span_start.numel() - 1, s.dgrad_span_max_live))
     lib, dgrad, _ = _bwd_library()
     gx = torch.empty((B, C, T_in), dtype=gy.dtype, device=gy.device)
-    # spans write their padded columns here before the padding's adjoint
-    gxpad = (torch.empty((B, C, T_in + 2 * s.padding), dtype=gy.dtype, device=gy.device)
-             if plan.span else None)
+    # spans read the weight split into TF32 planes, once a call, and walk
+    # the live row tiles of groups of channels
+    wpk = dgrad_span_pack(s, weight) if plan.span else None
+    start, rows = ((s.dgrad_span_start, s.dgrad_span_row) if plan.span else
+                   (s.dgrad_start, s.dgrad_row))
     err = _on_device(gy, lambda: dgrad(
-        gy.data_ptr(), y.data_ptr(), w.data_ptr(), s.dgrad_start.data_ptr(),
-        s.dgrad_row.data_ptr(), gx.data_ptr(), None if gxpad is None else gxpad.data_ptr(),
+        gy.data_ptr(), y.data_ptr(), w.data_ptr(), start.data_ptr(),
+        rows.data_ptr(), gx.data_ptr(), None if wpk is None else wpk.data_ptr(),
         B, C, T_in, K, P, T_out, t_ld, s.stride, s.padding, int(s.reflect), s.negative_slope,
         plan.nbb, plan.split, plan.span, G, dev,
         torch.cuda.current_stream(gy.device).cuda_stream))

@@ -1,7 +1,7 @@
 """Where a launch of one of the port's kernels spends its time, from inside
 the kernel (run from the repo root on a GPU):
 
-    python3 kernel_trace.py [--kernel fwd|dgrad|wgrad|wgrad_span]
+    python3 kernel_trace.py [--kernel fwd|dgrad|wgrad|wgrad_span|dgrad_span]
                             [--variant base|nobuild|nomma] [--levels enc0,dec0]
                             [--source FILE]
 
@@ -31,6 +31,18 @@ fragments), the products, and the epilogue, with the means per item.
 (``git show <commit>:hm_vae_torch/csrc/fused_conv_pool_bwd.cu``): a source
 whose span kernel stages items of 64 output columns without bulk copies
 runs under that design's plan.
+
+``--kernel dgrad_span`` traces the dgrad kernel over long rows
+(``dgrad_span_kernel``) at the trajectory model's four K-31 levels at batch
+8, T 1,024 and batch 1, T 7,200 and at the len-64 model's stride-2 level
+enc1 at batch 8, T 1,024: per block the prologue, then summed over its
+stages (k-steps of 8 rows p) the consumers' wait for a built stage and
+their products (warp 0), the splitters' wait for the stage's copies and
+their g build (warp 17), the producer's wait for a released stage (warp 16),
+and the epilogue (the cluster's sum, the fold and the stores), with the
+means per stage.  ``--source FILE`` with a source from before that kernel
+(whose spans ran ``dgrad_kernel<true>`` and ``dgrad_fold_kernel``) traces
+its span mode under its own plan, with ``--kernel dgrad``'s stamps.
 """
 
 from __future__ import annotations
@@ -51,14 +63,18 @@ SLOTS, BLOCKS = 32, 8192
 STAMP = ("if (threadIdx.x == 0) g_trace[((blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x "
          "+ blockIdx.x) % {B} * {S} + ({{slot}})] = {{value}};").format(B=BLOCKS, S=SLOTS)
 SOURCES = {"fwd": "fused_conv_pool", "dgrad": "fused_conv_pool_bwd",
-           "wgrad": "fused_conv_pool_bwd", "wgrad_span": "fused_conv_pool_bwd"}
+           "wgrad": "fused_conv_pool_bwd", "wgrad_span": "fused_conv_pool_bwd",
+           "dgrad_span": "fused_conv_pool_bwd"}
+# the span mode before dgrad_span_kernel: dgrad_kernel<true>, then the fold
+FOLD_KERNEL = "__global__ void dgrad_fold_kernel("
 # the span kernel that stages items of 64 output columns alone, read from
 # device memory without bulk copies (its layout's signature)
 ITEMS64 = "  const WgradSpanLayout L = wgrad_span_layout(K, stride);\n"
 
 
-def stamp(slot, value="gtime()"):
-    return STAMP.format(slot=slot, value=value)
+def stamp(slot, value="gtime()", thread=0):
+    return STAMP.replace("threadIdx.x == 0", f"threadIdx.x == {thread}").format(
+        slot=slot, value=value)
 
 
 def _fwd_patches(variant):
@@ -218,6 +234,48 @@ def _wgrad_items64_patches():
     ] + _EPILOGUE
 
 
+def _dgrad_span_patches():
+    """dgrad_span_kernel: 0 start, 1 after the prologue, 31 the block's
+    stages; summed over them (ns): 2 the consumers' waits for a built stage
+    and 5 their products, to the stage's release (thread 0); 3 the
+    splitters' waits for the stage's copies and 4 their build (thread 544);
+    6 the producer's waits for a released stage (thread 512); 20 after the
+    consumers' loop; 21 after the cluster's barrier; 22 after the fold and
+    the stores."""
+    lap = "{ const unsigned long long t = gtime(); tr_%s += t - tr_t; tr_t = t; }"
+    ready = "      mbar_wait(smem_addr(ready + i % S), (i / S) & 1);\n"
+    released = "      if (lane == 0) mbar_arrive(smem_addr(empty + i % S));\n"
+    full = "      mbar_wait(smem_addr(full + i % S), (i / S) & 1);\n"
+    built = "      mbar_arrive(smem_addr(ready + i % S));\n"
+    empty = "      if (i >= S) mbar_wait(smem_addr(empty + i % S), (i / S - 1) & 1);\n"
+    return [
+        ("  const int S = L.stages;\n",
+         "  const int S = L.stages;\n  " + stamp(0) + "\n"
+         "  unsigned long long tr_a = 0, tr_b = 0, tr_t = 0;\n"),
+        ("  if (warp == kSpanProducer) {\n",
+         f"  {stamp(1)}\n  {stamp(31, 'n_stages')}\n  if (warp == kSpanProducer) {{\n"),
+        (empty, "      tr_t = gtime();\n" + empty + "      " + lap % "a" + "\n"),
+        ("  } else if (warp > kSpanProducer) {\n",
+         "    " + stamp(6, "tr_a", 512) + "\n  } else if (warp > kSpanProducer) {\n"),
+        (full, "      tr_t = gtime();\n" + full + "      " + lap % "a" + "\n"),
+        (built, built + "      " + lap % "b" + "\n"),
+        ("  // The consumers' M tiles:",
+         "  " + stamp(3, "tr_a", 544) + "\n  " + stamp(4, "tr_b", 544) + "\n"
+         "  // The consumers' M tiles:"),
+        (ready, "      tr_t = gtime();\n" + ready + "      " + lap % "a" + "\n"),
+        (released, released + "      " + lap % "b" + "\n"),
+        ("  __syncthreads();  // every stage is consumed: the slots take gxpad\n",
+         "  " + stamp(20) + "\n  " + stamp(2, "tr_a") + "\n  " + stamp(5, "tr_b") + "\n"
+         "  __syncthreads();  // every stage is consumed: the slots take gxpad\n"),
+        ("  {\n    const float* parts[kMaxSplit];\n",
+         "  " + stamp(21) + "\n  {\n    const float* parts[kMaxSplit];\n"),
+        ("  if (split > 1) cluster.sync();  // no block leaves while another reads its span's "
+         "gxpad\n",
+         "  if (split > 1) cluster.sync();  // no block leaves while another reads its span's "
+         "gxpad\n  " + stamp(22) + "\n"),
+    ]
+
+
 def patched_source(variant: str = "base", kernel: str = "fwd", source=None) -> str:
     """The kernel's source (or ``source``, a copy of it) with stamps
     (slots: see the patch lists)."""
@@ -227,7 +285,9 @@ def patched_source(variant: str = "base", kernel: str = "fwd", source=None) -> s
     patches = {"fwd": lambda: _fwd_patches(variant), "dgrad": _dgrad_patches,
                "wgrad": _wgrad_patches,
                "wgrad_span": lambda: (_wgrad_items64_patches() if ITEMS64 in src
-                                      else _wgrad_span_patches())}[kernel]()
+                                      else _wgrad_span_patches()),
+               "dgrad_span": lambda: (_dgrad_patches() if FOLD_KERNEL in src
+                                      else _dgrad_span_patches())}[kernel]()
     patches.insert(0, ("namespace {\n", "namespace {\n__device__ unsigned long long g_trace[%d];\n"
                        "__device__ __forceinline__ unsigned long long gtime() { unsigned long "
                        'long t; asm volatile("mov.u64 %%0, %%globaltimer;" : "=l"(t)); '
@@ -297,6 +357,23 @@ def span_phases(trace: np.ndarray) -> dict:
     return out
 
 
+def dgrad_span_phases(trace: np.ndarray) -> dict:
+    """Means over a dgrad span launch's blocks (slots:
+    :func:`_dgrad_span_patches`), and the summed phases per stage."""
+    t = trace[trace[:, 0] > 0].astype(np.int64)
+    us = lambda a, b: float(np.mean(t[:, b] - t[:, a]) / 1e3)  # noqa: E731
+    stages = max(1, int(t[:, 31].sum()))
+    out = {"blocks": len(t), "stages_max": int(t[:, 31].max()),
+           "span_us": float((t[:, 22].max() - t[:, 0].min()) / 1e3),
+           "prologue_us": us(0, 1), "loop_us": us(1, 20), "epilogue_us": us(20, 22),
+           "reduce_us": us(20, 21)}
+    for slot, what in ((2, "ready_wait"), (5, "products"), (3, "copy_wait"), (4, "build"),
+                       (6, "slot_wait")):
+        out[f"{what}_us"] = float(t[:, slot].mean() / 1e3)
+        out[f"{what}_us_per_stage"] = float(t[:, slot].sum() / 1e3 / stages)
+    return out
+
+
 def _trace(lib, buf, launch, read=phases) -> dict:
     """Device ms of a launch (CUDA graph), then one stamped launch's phases."""
     import chip_smoke
@@ -342,6 +419,92 @@ def trace_span(lib, buf, items64: bool) -> None:
                               "plan": plan._asdict(), **row}), flush=True)
 
 
+def _parent_span_plan(fcp, B, T_in, K, stride, padding, pairs, max_live, sms):
+    """(span, split) of the span mode before dgrad_span_kernel: two 16-column
+    tiles a warp where that block fits shared memory, else one; the split
+    chosen as ``dgrad_plan`` chooses it."""
+    kmax = -(-K // stride)
+    a16 = lambda n: -(-n // 16) * 16  # noqa: E731
+
+    def smem(span):
+        rs = (kmax - 1 + span // stride + 11) // 16 * 16 + 4
+        gl = -(-(kmax - 1 + span // stride + 6) // 4) * 4
+        w_ring = a16(2 * 32 * (16 * K + 8) * 4)
+        g2_end = 64 + w_ring + a16(2 * 32 * gl * 4) + 32 * rs * 8
+        return g2_end if 16 * span * 4 <= w_ring else a16(g2_end) + 16 * span * 4
+
+    span = next(sp for sp in (16 * stride * (8 * t // stride) for t in (2, 1))
+                if sp and smem(sp) <= fcp.MAX_SMEM)
+    per_sm = 2 if smem(span) <= fcp.MAX_SMEM_PER_SM // 2 - 1024 else 1
+    spans = -(-(T_in + 2 * padding) // span)
+
+    def cost(split):
+        blocks = pairs * B * spans * split
+        return (-(-blocks // (sms * per_sm)) * (-(-max_live // split) + 1), blocks)
+
+    return span, min(range(1, min(fcp.MAX_SPLIT, max(1, max_live)) + 1), key=cost)
+
+
+def _parent_span_launch(lib, fcp, s, wf, gy, y, T_in):
+    """One launch of the parent source's span mode (its scratch row and the
+    fold), as its wrapper made it; returns gx."""
+    fn = fcp._bind(lib, "hmvae_conv_dgrad", fcp.DGRAD_ARGTYPES)
+    B, P, T_out = gy.shape
+    w = fcp._aligned(wf, 1, 8)
+    C, dev = w.shape[1], gy.device.index
+    span, split = _parent_span_plan(fcp, B, T_in, s.kernel_size, s.stride, s.padding,
+                                    s.dgrad_start.numel() - 1, s.dgrad_max_live,
+                                    fcp._sm_count(dev))
+    gx = torch.empty((B, C, T_in), device=gy.device)
+    gxpad = torch.empty((B, C, T_in + 2 * s.padding), device=gy.device)
+    err = fn(gy.data_ptr(), y.data_ptr(), w.data_ptr(), s.dgrad_start.data_ptr(),
+             s.dgrad_row.data_ptr(), gx.data_ptr(), gxpad.data_ptr(), B, C, T_in, s.kernel_size,
+             P, T_out, gy.shape[2], s.stride, s.padding, int(s.reflect), s.negative_slope, 1,
+             split, span, 1, dev, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"the parent's dgrad launch failed: {err}")
+    return gx[:, :wf.shape[1]]
+
+
+def trace_dgrad_span(lib, buf, parent: bool) -> None:
+    """The dgrad span kernel (or, ``parent``, the span mode of a source from
+    before it) at the trajectory model's four levels, batch 8, T 1,024 and
+    batch 1, T 7,200, and at enc1, batch 8, T 1,024: one JSON line a level,
+    with its error against the plain version and the packing's device time
+    (in the wrapper's launch, outside the kernel)."""
+    import chip_smoke
+    from hm_vae_torch.models.hm_vae import HMVAE
+    from hm_vae_torch.models.trajectory import TrajectoryModel
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+    from hm_vae_torch.utils.config import load_config
+
+    gen = torch.Generator().manual_seed(chip_smoke.SEED)
+    tcfg = load_config(chip_smoke.TRAJ_CONFIG)
+    tmodel = TrajectoryModel(tcfg.model, tcfg.optim.init, generator=gen).to("cuda")
+    cfg = load_config(chip_smoke.CONFIG)
+    model = HMVAE(cfg.model, cfg.optim.init, generator=gen).to("cuda")
+    cases = [(f"traj{i}", getattr(tmodel.encoder, f"conv_{i}"), batch, T)
+             for batch, T in ((8, 1024), (1, 7200)) for i in range(4)]
+    cases.append(("enc1", model.encoder.conv_1, 8, 1024))
+    for name, conv, batch, T in cases:
+        s, wf, bf, x, y, gy = chip_smoke.bwd_inputs(conv, T, gen, batch)
+        if parent:
+            launch = lambda: _parent_span_launch(lib, fcp, s, wf, gy, y, T)  # noqa: E731
+        else:
+            launch = lambda: fcp.fused_conv_pool_dgrad(gy, y, wf, s, T)  # noqa: E731
+        ref = fcp.fused_conv_pool_dgrad_reference(gy, y, wf, T, s.stride, s.padding,
+                                                  "reflect" if s.reflect else "constant",
+                                                  s.negative_slope)
+        err = float((launch() - ref).abs().max())
+        row = _trace(lib, buf, launch, phases if parent else dgrad_span_phases)
+        extra = {} if parent else {"plan": fcp.last_backward_plans()["dgrad"],
+                                   "pack_us": 1e3 * chip_smoke.device_ms(
+                                       lambda: fcp.dgrad_span_pack(s, wf))}
+        print(json.dumps({"kernel": "dgrad_span", "source": "parent" if parent else "repo",
+                          "level": name, "batch": batch, "T": T, "max_abs_err": err,
+                          **extra, **row}), flush=True)
+
+
 @torch.inference_mode()
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -370,6 +533,12 @@ def main() -> None:
         _build.load("fused_conv_pool")  # the forward, for y
         fcp._bwd_library = lambda: (lib, fcp._bind(lib, "hmvae_conv_dgrad", fcp.DGRAD_ARGTYPES),
                                     fcp._bind(lib, "hmvae_conv_wgrad", fcp.WGRAD_ARGTYPES))
+    if args.kernel == "dgrad_span":
+        with open(args.source or os.path.join(_build.CSRC_DIR, "fused_conv_pool_bwd.cu")) as f:
+            trace_dgrad_span(lib, np.zeros(BLOCKS * SLOTS, dtype=np.uint64),
+                             FOLD_KERNEL in f.read())
+        print(chip_smoke.nvidia_smi(), flush=True)
+        return
     if args.kernel == "wgrad_span":
         with open(args.source or os.path.join(_build.CSRC_DIR, "fused_conv_pool_bwd.cu")) as f:
             trace_span(lib, np.zeros(BLOCKS * SLOTS, dtype=np.uint64), ITEMS64 in f.read())

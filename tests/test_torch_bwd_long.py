@@ -5,17 +5,20 @@ them against their plain versions, bit-equal on two runs):
 - the plans: ``dgrad_plan`` and ``wgrad_plan`` at K 31 and T 1,024 and
   7,200 (the trajectory model's four levels, batch 1 and 8), and at
   stride 2 and 3 past 256 / stride padded columns, cut the row into spans
-  that fit shared memory and one block's 16 column tiles (dgrad) and the
-  reduction into items of up to 128 output columns (wgrad: the widest
-  whose two stages fit, the same at every T); these raised before spans
-  existed;
+  of whole 64-column M tiles whose stages fit shared memory (dgrad: 256
+  padded columns, 192 at stride 3) and the reduction into items of up to
+  128 output columns (wgrad: the widest whose two stages fit, the same at
+  every T); these raised before spans existed;
 - the plans of every existing shape (the len-64 and production models at
   batch 8 and 64, the trajectory model's training and solver shapes, the
   solver's 10 windows) are the plans from before spans, span 0: the same
   launch, the same bits;
-- the span decomposition's index arithmetic (dgrad: the g columns a span
-  stages with its halo, the phases of its columns, then the padding's
-  adjoint over the scratch row; wgrad: the items a cluster rank takes,
+- the span decomposition's index arithmetic (dgrad: the spans, the first
+  narrower so that the last holds the reflected edge, the g columns a span
+  stages from a 16-byte granule with its halo, its M tiles of each stride
+  phase, the taps read at the A operand's offset, the sums of a tap added
+  in stage order over the cluster ranks' row tiles, then the padding
+  folded in the span; wgrad: the items a cluster rank takes,
   each one's x window as its bulk copies stage it (16-byte granules, the
   padding resolved), g chunk by chunk, the ranks' sums in rank order) in
   plain PyTorch against the plain versions, in float64, at long rows in
@@ -107,11 +110,15 @@ def _check_span_plans(s, B, T, d, w, t_ld):
     the 16 tiles and shared memory, the spans covering the padded row;
     wgrad: items of the widest width whose block fits, over the cluster."""
     Tp = T + 2 * s.padding
-    assert d.span > 0 and d.nbb == 1 and d.groups == B and d.span % s.stride == 0
-    assert fcp._dgrad_tiles(d.span, s.stride) <= fcp.BWD_WARPS * fcp.DGRAD_TILES
-    assert fcp._dgrad_smem(T, s.kernel_size, t_ld, s.stride, s.padding, 1, d.span) \
-        <= fcp.MAX_SMEM
-    assert -(-Tp // d.span) * d.span >= Tp and B * -(-Tp // d.span) <= 65535
+    assert d.span > 0 and d.nbb == 1 and d.groups == B and d.span % (64 * s.stride) == 0
+    assert d.span == fcp.dgrad_span_cols(s.kernel_size, s.stride)
+    assert d.span // 64 <= fcp.DGRAD_SPAN_TILES
+    smem, stages = fcp._dgrad_span_layout(s.kernel_size, s.stride, d.span)
+    assert smem <= fcp.MAX_SMEM and stages >= 2
+    shift = fcp.dgrad_span_shift(Tp, d.span, s.stride, s.padding, s.reflect)
+    spans = -(-(Tp + shift) // d.span)
+    assert spans == -(-Tp // d.span) and spans * d.span - shift >= Tp
+    assert B * spans <= 65535
     assert 1 <= d.split <= min(fcp.MAX_SPLIT, s.dgrad_max_live)
     T_out = _t_out(s, T)
     if w.span == 0:  # x's whole rows of a block fit: the plan from before spans
@@ -131,9 +138,10 @@ def test_long_trajectory_rows_plan_spans(level, B, T):
     assert (s.kernel_size, s.stride, s.padding) == (31, 1, 15)
     d, w, t_ld = _plans(s, B, T)
     _check_span_plans(s, B, T, d, w, t_ld)
-    # two tiles a warp (256 columns) do not fit beside K 31's weight stages;
+    # four M tiles of 64 columns, two stages of 31 taps' planes in flight;
     # no split of x's rows fits a block
-    assert d.span == 128 and w.span == fcp.WGRAD_SPAN_COLS
+    assert d.span == 256 and w.span == fcp.WGRAD_SPAN_COLS
+    assert fcp._dgrad_span_layout(31, 1, d.span)[1] == 2
 
 
 @pytest.mark.parametrize("stride,T", [(2, 1024), (2, 256), (3, 1024)])
@@ -222,36 +230,68 @@ def test_existing_shapes_keep_their_plans():
     assert n == 8 * 4 + 4 + 16
 
 
-def dgrad_by_span(g, w, T_in, stride, padding, reflect, span):
-    """The span kernel's arithmetic in plain PyTorch: each span [u0, u0 +
-    span) of the padded row stages g's columns [t0 - off, t0 + span/stride)
-    (t0 = u0 / stride, off = ceil(K/stride) - 1; zeros outside [0, T_out)),
-    sums its columns u = u0 + stride*v + phi over taps k = phi + stride*m
-    from the staged column v - m, and writes gxpad; the padding's adjoint is
-    then folded over the whole scratch row."""
-    B, _, T_out = g.shape
+def dgrad_by_span(g, w, T_in, stride, padding, reflect, span, split=1):
+    """The span kernel's arithmetic in plain PyTorch (w dense: every row
+    tile live).  The padded row is cut into spans of ``span`` columns, the
+    first narrower by ``dgrad_span_shift``; a span [u0, u0 + width) stages
+    g's columns from the 16-byte granule tb0 = floor4(t0 - off) on (t0 =
+    u0 / stride, off = ceil(K / stride) - 1; zeros outside [0, T_out)),
+    ``gw`` of them as the layout has it.  Its columns u = u0 + stride*v +
+    phi (M tiles of 64 columns v of each stride phase phi) sum, for each
+    stage (8 rows p of a row tile; rank r of ``split`` takes row tiles r,
+    r + split, ..) and each tap m (k = phi + stride*m, zero past K), the
+    product of the A operand, the staged columns t0 - tb0 + v - m, with the
+    tap's slice, added to the tile's sum in stage then tap order; the ranks'
+    sums are added in rank order, and the span folds its reflected columns
+    and stores gx."""
+    B, P, T_out = g.shape
     C, K = w.shape[1], w.shape[2]
-    Tp, off, Vs = T_in + 2 * padding, -(-K // stride) - 1, span // stride
-    gxpad = g.new_zeros(B, C, Tp)
-    for u0 in range(0, Tp, span):
-        t0, width = u0 // stride, min(span, Tp - u0)
-        staged = g.new_zeros(B, g.shape[1], off + Vs)
-        ta, tb = max(0, t0 - off), min(T_out, t0 + Vs)
-        if tb > ta:
-            staged[:, :, ta - t0 + off:tb - t0 + off] = g[:, :, ta:tb]
-        for phi in range(stride):
-            V = -(-(width - phi) // stride)
-            for m, k in enumerate(range(phi, K, stride)):
-                cols = staged[:, :, off - m:off - m + V]
-                gxpad[:, :, u0 + phi:u0 + phi + stride * (V - 1) + 1:stride] += torch.einsum(
-                    "pc,bpt->bct", w[:, :, k], cols)
-    gx = gxpad[:, :, padding:padding + T_in].clone()
-    if reflect:
-        for i in range(T_in):
-            if 1 <= i <= padding:
-                gx[:, :, i] += gxpad[:, :, padding - i]
-            if T_in - 1 - padding <= i <= T_in - 2:
-                gx[:, :, i] += gxpad[:, :, padding + 2 * (T_in - 1) - i]
+    Tp, off = T_in + 2 * padding, -(-K // stride) - 1
+    gw = (off + span // stride + 6) // 4 * 4
+    shift = fcp.dgrad_span_shift(Tp, span, stride, padding, reflect)
+    V = span // stride  # columns v of a phase: span // (64 * stride) M tiles
+    assert V % 64 == 0 and stride * V // 64 <= fcp.DGRAD_SPAN_TILES
+    gx = g.new_zeros(B, C, T_in)
+    for sp in range(-(-(Tp + shift) // span)):
+        u0 = 0 if sp == 0 else sp * span - shift
+        width = min(Tp, (sp + 1) * span - shift) - u0
+        t0 = u0 // stride
+        tb0 = (t0 - off) // 4 * 4
+        t = torch.arange(tb0, tb0 + gw)
+        ok = (t >= 0) & (t < T_out)
+        staged = g.new_zeros(B, P, gw)
+        staged[:, :, ok] = g[:, :, t[ok]]
+        total = None
+        for rank in range(split):
+            part = g.new_zeros(B, C, span)
+            for phi in range(stride):
+                v = torch.arange(V)
+                sums = g.new_zeros(B, C, V)
+                for rt in range(rank, -(-P // 64), split):
+                    for p0 in range(64 * rt, min(P, 64 * rt + 64), 8):
+                        rows = slice(p0, min(P, p0 + 8))
+                        for m in range(off + 1):
+                            k = phi + stride * m
+                            if k >= K:
+                                continue
+                            cols = t0 - tb0 + v - m
+                            assert cols.min() >= 0 and cols.max() < gw
+                            sums += torch.einsum("bpv,pc->bcv", staged[:, rows][:, :, cols],
+                                                 w[rows, :, k])
+                keep = stride * v + phi < width
+                part[:, :, (stride * v + phi)[keep]] = sums[:, :, keep]
+            total = part if total is None else total + part
+        for i in range(max(0, u0 - padding), min(T_in, u0 + width - padding)):
+            col = total[:, :, i + padding - u0]
+            mirrors = []
+            if reflect and 1 <= i <= padding:
+                mirrors.append(padding - i)
+            if reflect and T_in - 1 - padding <= i <= T_in - 2:
+                mirrors.append(padding + 2 * (T_in - 1) - i)
+            for u in mirrors:
+                assert 0 <= u - u0 < width  # the reflected column lies in the same span
+                col = col + total[:, :, u - u0]
+            gx[:, :, i] = col
     return gx
 
 
@@ -333,8 +373,8 @@ def test_span_arithmetic_matches_the_plain_backward(mode, stride, T):
     y = fcp.fused_conv_pool_reference(x, w, None, None, None, stride, padding, mode, 0.2)
     gy = torch.randn(y.shape, generator=gen, dtype=torch.float64)
     g = fcp._act_grad(gy, y, 0.2)
-    span = 128 if stride == 1 else 16 * stride * (8 // stride)
-    got = dgrad_by_span(g, w, T, stride, padding, mode == "reflect", span)
+    got = dgrad_by_span(g, w, T, stride, padding, mode == "reflect",
+                        fcp.dgrad_span_cols(K, stride))
     want = fcp.fused_conv_pool_dgrad_reference(gy, y, w, T, stride, padding, mode, 0.2)
     torch.testing.assert_close(got, want, atol=1e-10, rtol=0)
     gw, gb = wgrad_by_items(g, x, K, stride, padding, mode == "reflect",
@@ -342,6 +382,29 @@ def test_span_arithmetic_matches_the_plain_backward(mode, stride, T):
     rw, rb = fcp.fused_conv_pool_wgrad_reference(gy, y, x, K, stride, padding, mode, 0.2, None)
     torch.testing.assert_close(gw, rw, atol=1e-10, rtol=0)
     torch.testing.assert_close(gb, rb, atol=1e-10, rtol=0)
+
+
+@pytest.mark.parametrize("T", [1000, 7201, 301])
+@pytest.mark.parametrize("stride", [1, 2, 3])
+@pytest.mark.parametrize("mode", ["reflect", "constant"])
+def test_dgrad_spans_match_the_plain_dgrad(mode, stride, T):
+    """The dgrad span kernel's decomposition at its plan's span, with the
+    row tiles of a pair split over two cluster ranks (P 80: a second row
+    tile of 16 rows), in float64 against the plain dgrad, at lengths whose
+    padded row is no multiple of the span (T 1,000: the last span under
+    reflect too short for its edge, the first narrower)."""
+    K, padding, P, C, B = (31, 15, 80, 16, 2) if stride == 1 else (15, 7, 80, 16, 2)
+    gen = torch.Generator().manual_seed(stride * 100 + T)
+    w = torch.randn(P, C, K, generator=gen, dtype=torch.float64)
+    x = torch.randn(B, C, T, generator=gen, dtype=torch.float64)
+    y = fcp.fused_conv_pool_reference(x, w, None, None, None, stride, padding, mode, 0.2)
+    gy = torch.randn(y.shape, generator=gen, dtype=torch.float64)
+    span = fcp.dgrad_span_cols(K, stride)
+    assert (T + 2 * padding) % span
+    got = dgrad_by_span(fcp._act_grad(gy, y, 0.2), w, T, stride, padding, mode == "reflect",
+                        span, split=2)
+    want = fcp.fused_conv_pool_dgrad_reference(gy, y, w, T, stride, padding, mode, 0.2)
+    torch.testing.assert_close(got, want, atol=1e-10, rtol=0)
 
 
 @pytest.mark.parametrize("T", [1000, 7201])

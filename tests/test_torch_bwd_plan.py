@@ -268,7 +268,7 @@ def test_plans_at_the_trajectory_shapes(level, B, T):
 def test_plans_reject_what_the_kernels_cannot_take():
     """K past wgrad's 32 tap tiles.  A padded row beyond 16 tiles, which the
     plan once refused, is cut into spans (test_torch_bwd_long.py)."""
-    assert fcp.dgrad_plan(1, 240, 31, 1, 15, 240, 2, 1, SMS).span == 128
+    assert fcp.dgrad_plan(1, 240, 31, 1, 15, 240, 2, 1, SMS).span == fcp.dgrad_span_cols(31, 1)
     live = torch.ones(64, 8, dtype=torch.bool)
     s = fcp.pack_structure(live, 33, torch.float32, 1, 16)
     gy = torch.zeros(1, 64, 8)
