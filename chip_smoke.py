@@ -11,7 +11,8 @@ Phases, each of which exits non-zero on failure:
    and beside them cubins whose ``-Xptxas -v`` reports (registers, shared
    memory, spills) and SASS (``HGMMA``: wgmma; ``HMMA``: mma.sync;
    ``UBLKCP``: bulk copies) are printed; the forward's bf16 instantiation
-   must contain wgmma, and the dgrad and wgrad kernels tensor-core products;
+   must contain wgmma, and the dgrad and wgrad kernels tensor-core products
+   (their bf16 instantiations HMMA);
 2. hold the forward kernel against its plain PyTorch version at the eight
    level shapes of the len-64 model (its real operands: masks, pool matrices,
    unpool-folded weights), in f32 and bf16, at batch 8 (plus one stride-1
@@ -205,11 +206,29 @@ Phases, each of which exits non-zero on failure:
    step); the three kernels at its base convs (slope 1.0, no bias, batch 8,
    the weight trained), held and timed as phases 2 and 5 hold and time
    theirs;
+35. training with bf16 conv compute (``compute_dtype: bfloat16`` on
+   ``configs/len64_production.yaml``: bf16 parameters, moments and
+   compute, the JAX package's "MAX-PERF triple"): the bf16 whole-row dgrad
+   and wgrad at the 8 len-64 levels (batch 8 and 64) and the trajectory
+   model's 4 K-31 levels (batch 8, T 128), held and timed as phase 5 holds
+   and times its rows, in bf16 (0.02 * max|ref|), two runs bit-equal; the
+   triple's 32-step CUDA-graph call at batch 64 against the same steps
+   eagerly, bit for bit, and its cost (ms a step by events, device ms, idle
+   share, peak memory, 8 / 7 / 8 device runs a step); GPU against CPU at
+   batch 4, two 4-step calls, in a band from batches scaled by 1 + 2^-7
+   (a perturbation that survives the cast to bf16) on both sides; JAX's
+   convergence criterion (40 steps on a fixed batch: its small config at lr
+   1e-3 against f32, and the production config at its lr against f32
+   compute); the
+   training CLI on the YAML with ``compute_dtype: bfloat16`` added, two
+   calls and ``--resume``; the trajectory model at bf16 compute, 4 steps;
+   its ``elapsed_s``;
 24. print the kernel summary line and, last, the device line.
 
 ``python3 chip_smoke.py --long-backward`` runs phase 1 and then phase 29
 alone, and ends with the card's line: a short check of the backward
-kernels over long rows.
+kernels over long rows.  ``python3 chip_smoke.py --bf16-train`` runs phase 1
+and then phase 35 alone, the same way.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -511,15 +530,17 @@ def bwd_kind(name):
     tiles a warp: two (K <= 15, "wgrad"), three (K <= 23, "wgrad_nq3") or
     four (K <= 31, "wgrad_nq4", the trajectory model's K 31);
     ``wgrad_span_kernel`` by its m64 tiles a warpgroup: "wgrad_spans_nt1"
-    (K <= 15) or "wgrad_spans_nt2" (K <= 31)."""
+    (K <= 15) or "wgrad_spans_nt2" (K <= 31); "_bf16" after the name of a
+    whole-row kernel's bf16 instantiation."""
+    bf16 = "_bf16" if "nv_bfloat16" in name else ""
     if "dgrad" in name:
-        return "dgrad_spans" if "dgrad_span" in name else "dgrad"
+        return ("dgrad_spans" if "dgrad_span" in name else "dgrad") + bf16
     if "wgrad_span" in name:
         return "wgrad_spans_nt2" if "ILi2E" in name else "wgrad_spans_nt1"
     for nq in (3, 4):
         if f"ILi{nq}E" in name:
-            return f"wgrad_nq{nq}"
-    return "wgrad"
+            return f"wgrad_nq{nq}{bf16}"
+    return "wgrad" + bf16
 
 
 def ancestors_ok(ok):
@@ -722,21 +743,25 @@ def bwd_work(gy, y, x, wf):
     return io + x_bytes, io + x_bytes + P * wf.element_size(), ops, ops + N * P
 
 
-def bwd_inputs(conv, T_in, gen, batch=BATCH):
-    """One level's backward operands at `batch`, f32, on the card: the
-    structure, the folded weight and bias, x, the forward's output y and a
-    random output gradient gy."""
+def bwd_inputs(conv, T_in, gen, batch=BATCH, dtype=torch.float32):
+    """One level's backward operands at `batch` in `dtype` (the conv's
+    compute dtype: f32, or bf16 as under ``compute_dtype: bfloat16``), on
+    the card: the structure, the folded weight and bias, x, the forward's
+    output y and a random output gradient gy."""
     from hm_vae_torch.ops import fused_conv_pool as fcp
 
+    if dtype != conv.dtype:
+        conv = copy.deepcopy(conv)
+        conv.dtype = dtype
     s = conv.structure()
     with torch.no_grad():
         wf, bf = conv.folded_weight()
     wf = wf.detach().contiguous()
     bf = None if bf is None else bf.detach()
-    x = torch.randn((batch, wf.shape[1], T_in), generator=gen).to(DEV)
+    x = torch.randn((batch, wf.shape[1], T_in), generator=gen).to(DEV, dtype)
     with torch.no_grad():
         y = fcp.FusedConvPoolFn.apply(x, wf, bf, s)
-    gy = torch.randn(y.shape, generator=gen).to(DEV)
+    gy = torch.randn(y.shape, generator=gen).to(DEV, dtype)
     return s, wf, bf, x, y, gy
 
 
@@ -747,17 +772,18 @@ def bwd_phase(model, st, gen):
             for name, conv, T_in in level_cases(model, st)]
 
 
-def bwd_level_row(name, conv, T_in, batch, gen, with_wgrad=True):
+def bwd_level_row(name, conv, T_in, batch, gen, with_wgrad=True, dtype=torch.float32):
     """The backward kernels (dgrad, and wgrad unless `with_wgrad` is false)
-    of one level at `batch`, f32: each against its plain version on the
+    of one level at `batch` in `dtype` (f32, or bf16: the compute dtype's
+    kernels, held at TOL[bf16]): each against its plain version on the
     same gy, y and x, and, with y from the plain forward, against autograd
     of the plain forward (cuDNN, TF32 off); two runs bit-equal; device
     times of kernel, plain version and torch.nn.grad's conv1d_input /
     conv1d_weight on the folded weight (with the activation's mask; no
-    reflect fold); and bounds."""
+    reflect fold); and bounds at the dtype's peak."""
     from hm_vae_torch.ops import fused_conv_pool as fcp
 
-    s, wf, bf, x, y, gy = bwd_inputs(conv, T_in, gen, batch)
+    s, wf, bf, x, y, gy = bwd_inputs(conv, T_in, gen, batch, dtype)
     mode = "reflect" if s.reflect else "constant"
     slope, pad, stride, K = s.negative_slope, s.padding, s.stride, s.kernel_size
     live = s.live_elements()
@@ -785,7 +811,6 @@ def bwd_level_row(name, conv, T_in, batch, gen, with_wgrad=True):
         return (torch.nn.grad.conv1d_weight(F.pad(x, (pad, pad), mode=mode), wf.shape, g,
                                             stride=stride), g.sum((0, 2)))
 
-    f32 = torch.float32
     gx, rx = dgrad(), d_plain()
     plan = {"dgrad": fcp.last_backward_plans()["dgrad"]}  # what the launch ran
     # autograd of the plain forward, the kernels reading its output
@@ -798,8 +823,10 @@ def bwd_level_row(name, conv, T_in, batch, gen, with_wgrad=True):
     ya = ya.detach()
     gx_a = dgrad(ya)
     torch.cuda.synchronize()
-    err_d = max(check(f"{name} dgrad", gx, rx, f32)[0],
-                check(f"{name} dgrad vs autograd", gx_a, ag[0], f32)[0])
+    err_d = max(check(f"{name} dgrad", gx, rx, dtype)[0],
+                check(f"{name} dgrad vs autograd", gx_a, ag[0], dtype)[0])
+    if gx.dtype != dtype:
+        fail(f"{name}: dgrad returned {gx.dtype}, expected {dtype}")
     if not torch.equal(dgrad(), gx):
         fail(f"{name}: dgrad differs between two runs on the same inputs")
     d_bytes, w_bytes, d_ops, w_ops = bwd_work(gy, y, x, wf)
@@ -811,20 +838,24 @@ def bwd_level_row(name, conv, T_in, batch, gen, with_wgrad=True):
             plan["wgrad"]["stages"] = fcp.WGRAD_SPAN_STAGES
         gw_a, gb_a = wgrad(ya)
         torch.cuda.synchronize()
-        err_w = max(check(f"{name} wgrad", gw, rw, f32)[0],
+        err_w = max(check(f"{name} wgrad", gw, rw, dtype)[0],
                     check(f"{name} wgrad vs autograd", gw_a, ag[1] * live[:, :, None],
-                          f32)[0])
+                          dtype)[0])
         if bf is not None:
-            err_w = max(err_w, check(f"{name} bias grad", gb, rb, f32)[0],
-                        check(f"{name} bias grad vs autograd", gb_a, ag[2], f32)[0])
-        if not torch.equal(wgrad()[0], gw):
+            err_w = max(err_w, check(f"{name} bias grad", gb, rb, dtype)[0],
+                        check(f"{name} bias grad vs autograd", gb_a, ag[2], dtype)[0])
+        if gw.dtype != dtype or gb.dtype != dtype:
+            fail(f"{name}: wgrad returned {gw.dtype} and {gb.dtype}, expected {dtype}")
+        gw2, gb2 = wgrad()
+        if not (torch.equal(gw2, gw) and torch.equal(gb2, gb)):
             fail(f"{name}: wgrad differs between two runs on the same inputs")
         cases.append(("wgrad", wgrad, w_plain, w_lib, err_w, w_bytes, w_ops))
-    row = {"level": name, "batch": batch, "C_in": wf.shape[1], "T_in": T_in,
-           "P": wf.shape[0], "T_out": y.shape[2], "stride": stride,
+    row = {"level": name, "dtype": str(dtype).replace("torch.", ""), "batch": batch,
+           "C_in": wf.shape[1], "T_in": T_in, "P": wf.shape[0], "T_out": y.shape[2],
+           "stride": stride,
            "live_tiles": int(s.tile_chunk.numel()), "chunk_pairs": s.dgrad_start.numel() - 1}
     for what, fn, plain, lib, err, nbytes, ops in cases:
-        t_bytes, t_ops = nbytes / MEM_BPS * 1e3, ops / PEAK_FLOPS[f32] * 1e3
+        t_bytes, t_ops = nbytes / MEM_BPS * 1e3, ops / PEAK_FLOPS[dtype] * 1e3
         row[what] = {"max_abs_err": err, "ms": device_ms(fn), "plain_ms": device_ms(plain),
                      "library_ms": device_ms(lib), "eager_ms": time_ms(fn),
                      "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
@@ -1732,7 +1763,7 @@ def state_diff(a, b):
     return out
 
 
-def graph_agreement_phase(data_root):
+def graph_agreement_phase(data_root, model=None, phase="production_graph_vs_eager"):
     """(a) 32 steps of the production config at batch 64 from one init and
     one superbatch (the native sampler's f16 aa wire, upcast on the card),
     the curriculum boundary set at step 16 inside the call: MultiStep's CUDA
@@ -1741,14 +1772,16 @@ def graph_agreement_phase(data_root):
     largest difference is printed (0: the same bits).  The entries' launch
     counts (set to 0 before each run) are a step's launches 3 times on the
     graph (two warm-up steps and the capture; a replay calls no entry) and
-    32 times eagerly."""
+    32 times eagerly.  `model`: the model section's overrides (phase 35's
+    ``compute_dtype: bfloat16``)."""
     from hm_vae_torch.data.dataset import make_loaders
     from hm_vae_torch.ops import fused_conv_pool as fcp
     from hm_vae_torch.train.losses import draw_noise, eps_shapes
     from hm_vae_torch.train.train_step import MultiStep, create_state
     from hm_vae_torch.train.trainer import step_generator
 
-    cfg = production_config(data_root, loss={"iteration_interval": 16})
+    cfg = production_config(data_root, loss={"iteration_interval": 16},
+                            **({"model": model} if model else {}))
     K, B = cfg.run.steps_per_call, cfg.optim.batch_size
     train_ds = make_loaders(cfg)[0]
     stream = train_ds.iter_compact_superbatches(K, B, False, cfg.data.native_threads, "aa",
@@ -1773,18 +1806,18 @@ def graph_agreement_phase(data_root):
     head = states["graph"].model.encoder.latent_head_0.weight
     head_count = int(states["graph"].optimizer.state[head]["step"])
     if head_count != K - 16:
-        fail(f"production graph: the shallow head stepped {head_count} times, expected "
+        fail(f"{phase}: the shallow head stepped {head_count} times, expected "
              f"{K - 16} (from the boundary at 16)")
     want = {m: {k: n * v for k, v in TRAIN_LAUNCHES.items()} for m, n in (("graph", 3),
                                                                          ("eager", K))}
     if launches != want:
-        fail(f"production graph: entry launch counts {launches}, expected {want} (graph: "
+        fail(f"{phase}: entry launch counts {launches}, expected {want} (graph: "
              "two warm-up steps and the capture)")
     if not all(np.isfinite(v) for m in metrics.values() for v in m.values()):
-        fail(f"production graph: metrics {metrics}")
-    row = {"phase": "production_graph_vs_eager", "config": os.path.relpath(PRODUCTION_CONFIG, ROOT),
-           "batch": B, "steps": K, "iteration_interval": 16, "bit_equal": same,
-           "max_abs_diff": diff, "metrics": metrics, "launches": launches}
+        fail(f"{phase}: metrics {metrics}")
+    row = {"phase": phase, "config": os.path.relpath(PRODUCTION_CONFIG, ROOT),
+           "model_overrides": model, "batch": B, "steps": K, "iteration_interval": 16,
+           "bit_equal": same, "max_abs_diff": diff, "metrics": metrics, "launches": launches}
     print(json.dumps(row), flush=True)
     return row
 
@@ -1796,45 +1829,50 @@ def perturb_inputs(trainer, scale):
     trainer._consume = lambda staged: {k: v * scale for k, v in consume(trainer, staged).items()}
 
 
-def production_agreement_phase(data_root, steps=12):
+def production_agreement_phase(data_root, steps=12, model=None, scale=1.0 + 1e-7,
+                               first_tol=1e-4, phase="production_agreement", batch=BATCH):
     """(b) The production config's dtypes (bf16 parameters and moments, the
     f16 aa wire) at batch 8, 4 steps a call (a CUDA graph on the card), the
     curriculum boundary at step 10 inside the third call: Trainer.fit on the
     GPU against the CPU from the same init and windows, the loss after every
     call within 10x the larger spread of runs whose batches are scaled by
-    1 + 1e-7 after the upcast on each side, + 1e-4 (the bf16 gradients and
-    stochastic write-back amplify last places, as the CPU test of the
-    production path calibrates its band), and within 1e-4 after the first
-    call."""
+    `scale` (1 + 1e-7) after the upcast on each side, + 1e-4 (the bf16
+    gradients and stochastic write-back amplify last places, as the CPU test
+    of the production path calibrates its band), and within `first_tol`
+    (1e-4; None: the band alone) after the first call.  `model`: the model
+    section's overrides (phase 35's ``compute_dtype: bfloat16``, whose band
+    needs a scale that survives the cast to bf16, and a smaller `batch` for
+    its slower CPU side)."""
     from hm_vae_torch.train.trainer import build_trainer
 
-    cfg = production_config(data_root, optim={"batch_size": BATCH},
+    cfg = production_config(data_root, optim={"batch_size": batch},
                             run={"steps_per_call": 4, "log_iter": 1},
-                            loss={"iteration_interval": 10})
+                            loss={"iteration_interval": 10},
+                            **({"model": model} if model else {}))
     losses, wall = {}, {}
-    for run, dev, scale in (("gpu", DEV, 1.0), ("cpu", "cpu", 1.0),
-                            ("gpu_perturbed", DEV, 1.0 + 1e-7),
-                            ("cpu_perturbed", "cpu", 1.0 + 1e-7)):
+    for run, dev, sc in (("gpu", DEV, 1.0), ("cpu", "cpu", 1.0),
+                         ("gpu_perturbed", DEV, scale), ("cpu_perturbed", "cpu", scale)):
         trainer, train_ds, _, _ = build_trainer(
-            cfg, os.path.join(OUT_DIR, f"production_agreement_{run}"), device=dev)
-        if scale != 1.0:
-            perturb_inputs(trainer, scale)
+            cfg, os.path.join(OUT_DIR, f"{phase}_{run}"), device=dev)
+        if sc != 1.0:
+            perturb_inputs(trainer, sc)
         out = []
         t0 = time.perf_counter()
         trainer.fit(train_ds, None, max_iter=steps, log_cb=lambda s, m: out.append(m["loss_total"]))
         wall[run] = time.perf_counter() - t0
         losses[run] = np.array(out)
     if any(len(v) != steps // 4 or not np.isfinite(v).all() for v in losses.values()):
-        fail(f"production agreement: losses {losses}")
+        fail(f"{phase}: losses {losses}")
     rel = np.abs(losses["gpu"] / losses["cpu"] - 1)
     spread = {d: np.maximum.accumulate(np.abs(losses[f"{d}_perturbed"] / losses[d] - 1))
               for d in ("gpu", "cpu")}
     band = 10 * np.maximum(spread["gpu"], spread["cpu"]) + 1e-4
-    if not (rel[0] <= 1e-4 and (rel <= band).all()):
-        fail(f"production agreement: GPU vs CPU loss relative difference {rel.tolist()} "
-             f"outside {band.tolist()} (first call: 1e-4)")
-    row = {"phase": "production_agreement", "config": os.path.relpath(PRODUCTION_CONFIG, ROOT),
-           "batch": BATCH, "steps": steps, "steps_per_call": 4, "iteration_interval": 10,
+    if not ((first_tol is None or rel[0] <= first_tol) and (rel <= band).all()):
+        fail(f"{phase}: GPU vs CPU loss relative difference {rel.tolist()} "
+             f"outside {band.tolist()} (first call: {first_tol})")
+    row = {"phase": phase, "config": os.path.relpath(PRODUCTION_CONFIG, ROOT),
+           "model_overrides": model, "batch": batch, "steps": steps, "steps_per_call": 4,
+           "iteration_interval": 10, "perturbation": scale, "first_call_tol": first_tol,
            "loss_gpu": losses["gpu"].tolist(), "loss_cpu": losses["cpu"].tolist(),
            "rel_diff": rel.tolist(), "band": band.tolist(),
            "spread": {k: v.tolist() for k, v in spread.items()}, "fit_seconds": wall}
@@ -1842,12 +1880,14 @@ def production_agreement_phase(data_root, steps=12):
     return row
 
 
-def production_cli_phase(data_root):
+def production_cli_phase(data_root, calls=4, compute_dtype=None):
     """``python -m hm_vae_torch.cli.train --config <production>`` (in this
-    process) on synthetic data: 4 calls of 32 steps with an asynchronous
-    snapshot after every call and keep_checkpoints 2, then ``--resume`` for
-    one more call.  The train split must be the native sampler on the aa
-    wire, the steps a CUDA graph; returns the checkpoint names."""
+    process) on synthetic data: `calls` calls of 32 steps with an
+    asynchronous snapshot after every call and keep_checkpoints 2, then
+    ``--resume`` for one more call.  The train split must be the native
+    sampler on the aa wire, the steps a CUDA graph; returns the checkpoint
+    names.  `compute_dtype`: a ``compute_dtype:`` line added to the written
+    YAML (the CLI has no override flag)."""
     from hm_vae_torch.cli import train as train_cli
     from hm_vae_torch.data.native_loader import NativeMotionLoader
     from hm_vae_torch.train import trainer as trainer_mod
@@ -1858,10 +1898,16 @@ def production_cli_phase(data_root):
         text, n = re.subn(rf"(?m)^{key}: .*$", f"{key}: {value}", text)
         if n != 1:
             fail(f"production CLI: no single {key} line in {PRODUCTION_CONFIG}")
-    path = os.path.join(OUT_DIR, "len64_production_smoke.yaml")
+    name = "len64_production_smoke"
+    if compute_dtype:
+        if re.search(r"(?m)^compute_dtype:", text):
+            fail(f"production CLI: {PRODUCTION_CONFIG} already sets compute_dtype")
+        text += f"\ncompute_dtype: {compute_dtype}\n"
+        name = f"len64_production_{compute_dtype}_smoke"
+    path = os.path.join(OUT_DIR, f"{name}.yaml")
     with open(path, "w") as f:
         f.write(text)
-    out = os.path.join(OUT_DIR, "production_cli")
+    out = os.path.join(OUT_DIR, "production_cli" + (f"_{compute_dtype}" if compute_dtype else ""))
     shutil.rmtree(out, ignore_errors=True)
     seen = []
     fit = trainer_mod.Trainer.fit
@@ -1870,6 +1916,7 @@ def production_cli_phase(data_root):
         r = fit(self, train_ds, *a, **kw)
         seen.append({"train_split": type(train_ds).__name__, "wire": self.cfg.data.wire_format,
                      "transfer_dtype": self.cfg.data.transfer_dtype,
+                     "compute_dtype": self.cfg.model.compute_dtype,
                      "graph": bool(self._multi and self._multi.graph),
                      "async_checkpoint": self.cfg.run.async_checkpoint,
                      "native": isinstance(train_ds, NativeMotionLoader)})
@@ -1879,30 +1926,33 @@ def production_cli_phase(data_root):
     buf = io.StringIO()
     t0 = time.perf_counter()
     trainer_mod.Trainer.fit = recorded_fit
+    end = 32 * calls
     try:
         with contextlib.redirect_stdout(buf):
-            train_cli.main(args + ["--max_iter", "128"])
-            first = sorted(os.listdir(os.path.join(out, "outputs", "len64_production_smoke",
-                                                   "checkpoints")))
-            train_cli.main(args + ["--max_iter", "160", "--resume"])
+            train_cli.main(args + ["--max_iter", str(end)])
+            first = sorted(os.listdir(os.path.join(out, "outputs", name, "checkpoints")))
+            train_cli.main(args + ["--max_iter", str(end + 32), "--resume"])
     finally:
         trainer_mod.Trainer.fit = fit
     text = buf.getvalue()
-    ck = os.path.join(out, "outputs", "len64_production_smoke", "checkpoints")
+    ck = os.path.join(out, "outputs", name, "checkpoints")
     names = sorted(os.listdir(ck))
     resumed = [line for line in text.splitlines() if line.startswith("Resume from")]
-    if (resumed != ["Resume from iteration 128"] or first != ["gen_00000096.pt", "gen_00000128.pt"]
-            or names != ["gen_00000128.pt", "gen_00000160.pt"]):
+    gen = [f"gen_{i:08d}.pt" for i in (end - 32, end, end + 32)]
+    if resumed != [f"Resume from iteration {end}"] or first != gen[:2] or names != gen[1:]:
         fail(f"production CLI: resume lines {resumed}, checkpoints {first} then {names}:\n{text}")
     if not all(s["native"] and s["wire"] == "aa" and s["graph"] and s["async_checkpoint"]
+               and s["compute_dtype"] == (compute_dtype or "float32")
                for s in seen) or len(seen) != 2:
         fail(f"production CLI: the runs were {seen}")
     blob = torch.load(os.path.join(ck, names[-1]), map_location="cpu", weights_only=True)
-    if blob["step"] != 160 or not all(torch.isfinite(v).all() for v in blob["state_dict"].values()):
+    if blob["step"] != end + 32 or not all(torch.isfinite(v).all()
+                                           for v in blob["state_dict"].values()):
         fail(f"production CLI: checkpoint step {blob['step']} or non-finite weights")
     logged = [line for line in text.splitlines() if line.startswith("[")]
     row = {"phase": "production_train_cli", "config": os.path.relpath(PRODUCTION_CONFIG, ROOT),
-           "overrides": {"log_iter": 32, "snapshot_save_iter": 32, "keep_checkpoints": 2},
+           "overrides": {"log_iter": 32, "snapshot_save_iter": 32, "keep_checkpoints": 2,
+                         **({"compute_dtype": compute_dtype} if compute_dtype else {})},
            "runs": seen, "resumed": resumed[0], "checkpoints_after_128": first,
            "checkpoints_after_resume": names, "logged_steps": [line[1:9] for line in logged],
            "seconds": time.perf_counter() - t0,
@@ -1911,13 +1961,16 @@ def production_cli_phase(data_root):
     return row
 
 
-def production_step_phase(data_root, calls=4):
+def production_step_phase(data_root, calls=4, model=None, eager=True,
+                          phase="production_step", profiled=2):
     """The production step's cost through Trainer.fit at batch 64 (32 steps
     a call, a CUDA graph; the native sampler's f16 aa wire, double-buffered
     ingest): ms a step by CUDA events over `calls` calls after a first call
-    (the capture), peak memory, and the device time, idle share and the
-    port's kernels' launches a call in the device trace (torch.profiler,
-    device only) over two calls; then the same config at steps_per_call 1
+    (the capture), peak memory and its rise above what was allocated as the
+    timed calls began (the state, and whatever earlier phases keep), and
+    the device time, idle share and the port's kernels' launches a call in
+    the device trace (torch.profiler, device only) over `profiled` calls
+    (two); then the same config at steps_per_call 1
     (eager steps), measured the same way in the same run over half as many
     steps (32 steps profiled).  The entries' own launch counts, set to 0
     before the run and read after it, are the warm-up's and the capture's
@@ -1928,17 +1981,21 @@ def production_step_phase(data_root, calls=4):
     launches per 32 steps are reported beside them and not held to them:
     the profiler has dropped one step's records from a trace of 32 eager
     steps and from one of two 32-step graph calls (the 32 eager steps are
-    traced as four consecutive units of 8, their counts summed)."""
+    traced as four consecutive units of 8, their counts summed).  `model`:
+    the model section's overrides; `eager`: false times the graph alone;
+    `profiled`: the graph's calls in the device trace."""
     from hm_vae_torch.ops import fused_conv_pool as fcp
     from hm_vae_torch.train.trainer import build_trainer
 
     per_32 = {k: 32 * v for k, v in TRAIN_LAUNCHES.items()}
     trace_want = {TRACE_NAME[k]: v for k, v in per_32.items()}
     out = {}
-    for K, units, profiled in ((32, calls, 2), (1, calls // 2, 1)):
-        cfg = production_config(data_root, run={"steps_per_call": K, "log_iter": 10 ** 9})
-        trainer, train_ds, _, _ = build_trainer(cfg, os.path.join(OUT_DIR, f"production_K{K}"),
-                                                device=DEV)
+    modes = ((32, calls, profiled),) + (((1, calls // 2, 1),) if eager else ())
+    for K, units, profiled in modes:
+        cfg = production_config(data_root, run={"steps_per_call": K, "log_iter": 10 ** 9},
+                                **({"model": model} if model else {}))
+        trainer, train_ds, _, _ = build_trainer(
+            cfg, os.path.join(OUT_DIR, f"{phase.replace('_step', '')}_K{K}"), device=DEV)
         for c in fcp.launch_entries():
             c.launches = 0
         n = 32  # steps a measured unit: one call, or 32 eager steps
@@ -1947,6 +2004,7 @@ def production_step_phase(data_root, calls=4):
         first = {k: v for k, v in fcp.launch_counts().items() if v}
         fcp.device_runs(torch.cuda.current_device(), reset=True)
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()  # what earlier phases and the state hold
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         trainer.fit(train_ds, None, max_iter=n * (1 + units))
@@ -1973,22 +2031,23 @@ def production_step_phase(data_root, calls=4):
         want_first = {k: (3 if K > 1 else n) * v for k, v in TRAIN_LAUNCHES.items()}
         want_run = {k: (3 if K > 1 else steps) * v for k, v in TRAIN_LAUNCHES.items()}
         if first != want_first or in_run != want_run:
-            fail(f"production step K={K}: entry launch counts {first} after the first call, "
+            fail(f"{phase} K={K}: entry launch counts {first} after the first call, "
                  f"{in_run} after {steps} steps; expected {want_first}, {want_run}")
         if runs != runs_want:
-            fail(f"production step K={K}: {runs} kernel runs on the device over steps "
+            fail(f"{phase} K={K}: {runs} kernel runs on the device over steps "
                  f"{n + 1}-{steps}, expected {runs_want}")
         out[K] = {"ms_per_step": ms, "steps": steps, "entry_launches_in_run": in_run,
                   "device_runs_after_first_call": runs,
                   "device_runs_per_32_steps": {k: 32 * v / (steps - n) for k, v in runs.items()},
                   "trace_launches_per_32_steps": per_32,
                   "trace_complete": per_32 == trace_want, "profiled_steps": n_prof,
-                  "peak_memory_bytes": peak, "profile_per_unit": prof,
+                  "peak_memory_bytes": peak, "peak_above_start_bytes": peak - base,
+                  "profile_per_unit": prof,
                   "device_ms_per_step": prof["device_us_per_call"] / n_prof / 1e3,
                   "idle_share": prof["idle_share"]}
-    row = {"phase": "production_step", "config": os.path.relpath(PRODUCTION_CONFIG, ROOT),
-           "batch": PROD_BATCH, "graph_steps_per_call_32": out[32],
-           "eager_steps_per_call_1": out[1]}
+    row = {"phase": phase, "config": os.path.relpath(PRODUCTION_CONFIG, ROOT),
+           "model_overrides": model, "batch": PROD_BATCH, "graph_steps_per_call_32": out[32],
+           **({"eager_steps_per_call_1": out[1]} if eager else {})}
     print(json.dumps(row), flush=True)
     return row
 
@@ -3570,6 +3629,207 @@ def lora_train_phase(data_root, model, st, gen):
     return row, fwd, bwd
 
 
+# phase 35: the production config with bf16 conv compute, the JAX package's
+# "MAX-PERF triple" (bf16 parameters, moments and compute; its bench.py)
+BF16_TRIPLE = {"compute_dtype": "bfloat16"}
+# its GPU-against-CPU band: batches scaled by 1 + 2^-7 after the upcast.  The
+# first conv casts its input to bf16 (8 significant bits), where 1 + 1e-7
+# rounds away and would leave the band at its 1e-4 floor; 2^-7 is one bf16
+# step, which survives the cast
+BF16_SCALE = 1.0 + 2.0 ** -7
+BF16_AGREEMENT_STEPS = 8  # (c): two 4-step calls
+BF16_AGREEMENT_BATCH = 4  # (c)'s batch: the CPU side's bf16 steps set the phase's time
+BF16_CONVERGE_STEPS = 40  # (d): tests/test_train_step.py's criterion
+BF16_TRAJ_STEPS = 4
+# the bf16 instantiations of the whole-row backward kernels (build_report)
+BF16_BWD_KINDS = ("dgrad_bf16", "wgrad_bf16", "wgrad_nq4_bf16")
+
+
+# (d)'s small model: tests/test_train_step.py's TINY config (latent 6, K 3,
+# 8 frames), batch 4, as JAX's criterion runs it
+BF16_TINY = {"latent_d": 6, "shallow_latent_d": 6, "kernel_size": 3, "train_seq_len": 8}
+
+
+def _criterion_run(cfg, batch, steps):
+    """`steps` eager steps of a fresh state on one fixed batch, fresh noise
+    each step: the losses, the entries' launch counts and the device's."""
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+    from hm_vae_torch.train.losses import draw_noise, eps_shapes
+    from hm_vae_torch.train.train_step import create_state, train_step
+    from hm_vae_torch.train.trainer import step_generator
+
+    shapes = eps_shapes(cfg, cfg.optim.batch_size)
+    state = create_state(cfg, DEV)
+    for c in fcp.launch_entries():
+        c.launches = 0
+    fcp.device_runs(torch.cuda.current_device(), reset=True)
+    out = []
+    for k in range(steps):
+        eps = [e.to(DEV) for e in draw_noise(shapes, step_generator(cfg.run.seed, k))]
+        out.append(float(train_step(state, batch, cfg, eps)["loss_total"]))
+    return (np.array(out), {k: v for k, v in fcp.launch_counts().items() if v},
+            fcp.device_runs(torch.cuda.current_device()))
+
+
+def bf16_converge(data_root):
+    """(d) JAX's convergence criterion for the triple
+    (``tests/test_train_step.py::test_bf16_params_track_f32_training``), on
+    the card, each run BF16_CONVERGE_STEPS eager steps on one fixed batch
+    (fresh noise each step) from the same init: the triple's last loss below
+    0.9x the reference run's first (and its own first), and the means of
+    the last 10 losses within 15%.  Two cases: JAX's own (its TINY model,
+    batch 4, lr 1e-3, the triple against f32 parameters, moments and
+    compute), and the production config at batch 8 and its own lr (1e-4)
+    against the same config at f32 compute (bf16 parameters and moments
+    both).  At lr 1e-3 the production model does not meet the criterion at
+    f32 compute either (a loss that rises between; PERF.md).  The entries'
+    and the device's counts over the production triple's steps are 8 / 7 /
+    8 a step."""
+    from hm_vae_torch.data.dataset import make_loaders
+    from hm_vae_torch.utils import config as tcfg
+
+    n = BF16_CONVERGE_STEPS
+    aa = np.random.default_rng(SEED).normal(size=(4, 8, 24, 3)).astype(np.float32) * 0.3
+    tiny = {"aa": torch.from_numpy(aa).to(DEV)}
+    out = {}
+    for case in ("jax_tiny", "production"):
+        losses, launches = {}, {}
+        for triple in (True, False):
+            if case == "jax_tiny":
+                pd = "bfloat16" if triple else "float32"
+                cfg = tcfg.Config(
+                    model=tcfg.ModelConfig(**BF16_TINY, compute_dtype=pd),
+                    loss=tcfg.LossConfig(iteration_interval=5),
+                    optim=tcfg.OptimConfig(lr=1e-3, batch_size=4, param_dtype=pd,
+                                           moment_dtype=pd))
+                batch = tiny
+            else:
+                cfg = production_config(
+                    data_root, optim={"batch_size": BATCH},
+                    model={"compute_dtype": "bfloat16" if triple else "float32"})
+                stream = make_loaders(cfg)[0].iter_compact_superbatches(
+                    1, BATCH, False, cfg.data.native_threads, "aa", dtype=np.float16)
+                batch = {"aa": torch.from_numpy(next(stream)["aa"][0]).to(DEV).float()}
+                stream.close()
+            losses[triple], entries, runs = _criterion_run(cfg, batch, n)
+            launches[triple] = {"entries": entries, "device": runs}
+        bf, ref = losses[True], losses[False]
+        rel = abs(bf[-10:].mean() - ref[-10:].mean()) / ref[-10:].mean()
+        if not (np.isfinite(bf).all() and np.isfinite(ref).all() and bf[-1] < 0.9 * ref[0]
+                and bf[-1] < 0.9 * bf[0] and rel < 0.15):
+            fail(f"bf16 convergence ({case}): losses {bf.tolist()} against {ref.tolist()} "
+                 f"(last-10 means {rel:.3f} apart)")
+        out[case] = {"steps": n, "lr": cfg.optim.lr, "batch": cfg.optim.batch_size,
+                     "loss_triple": bf.tolist(), "loss_reference": ref.tolist(),
+                     "last10_rel_diff": rel, "launches_in_run": launches[True]["entries"],
+                     "device_runs_in_run": launches[True]["device"]}
+    prod = out["production"]
+    want = {"entries": {k: n * v for k, v in TRAIN_LAUNCHES.items()},
+            "device": {TRACE_NAME[k]: n * v for k, v in TRAIN_LAUNCHES.items()}}
+    got = {"entries": prod["launches_in_run"], "device": prod["device_runs_in_run"]}
+    if got != want:
+        fail(f"bf16 convergence: launches {got} over {n} production steps, expected {want}")
+    prod["launches_per_step"] = {k: v // n for k, v in prod["launches_in_run"].items()}
+    return out
+
+
+def bf16_trajectory_steps(data_root):
+    """The trajectory model (K 31, batch 8, T 128: whole rows) at bf16
+    compute, a few Trainer.fit steps on the card: finite losses, and the
+    kernels' runs on the device 4 / 3 / 4 a step (the bf16 kernels: its
+    rows fit a whole-row block)."""
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+    from hm_vae_torch.train.trainer import build_trainer
+
+    cfg = train_config(data_root, TRAJ_CONFIG, BF16_TRIPLE)
+    trainer, train_ds, _, _ = build_trainer(cfg, os.path.join(OUT_DIR, "bf16_trajectory"),
+                                            device=DEV)
+    for c in fcp.launch_entries():
+        c.launches = 0
+    fcp.device_runs(torch.cuda.current_device(), reset=True)
+    out = []
+    trainer.fit(train_ds, None, max_iter=BF16_TRAJ_STEPS,
+                log_cb=lambda step, m: out.append(m["loss_total"]))
+    entries = {k: v for k, v in fcp.launch_counts().items() if v}
+    runs = fcp.device_runs(torch.cuda.current_device())
+    want = {TRACE_NAME[k]: BF16_TRAJ_STEPS * v for k, v in TRAJ_TRAIN_LAUNCHES.items()}
+    if runs != want or not out or not np.isfinite(out).all():
+        fail(f"bf16 trajectory: losses {out}, device runs {runs}, expected {want}")
+    return {"config": os.path.relpath(TRAJ_CONFIG, ROOT), "model_overrides": BF16_TRIPLE,
+            "steps": BF16_TRAJ_STEPS, "losses": out, "entry_launches_in_run": entries,
+            "device_runs_in_run": runs}
+
+
+def bf16_train_phase(data_root, model, st, tmodel, gen):
+    """35. Training with bf16 conv compute (``compute_dtype: bfloat16`` on
+    ``configs/len64_production.yaml``: the JAX package's bf16 parameters +
+    moments + compute triple), through the bf16 whole-row dgrad and wgrad:
+    (a) both kernels in bf16 at the 8 len-64 levels (batch 8 and 64) and
+    the trajectory model's 4 K-31 levels (batch 8, T 128), as phase 5 holds
+    and times them at TOL[bf16]; (b) the triple's 32-step call at batch 64,
+    the CUDA graph against the same steps eagerly (bit for bit, phase 21's
+    gate), then its cost through Trainer.fit (ms a step by events, device
+    ms, idle share, peak memory, 8 / 7 / 8 device runs a step; graph only);
+    (c) GPU against CPU at batch 4, 4 steps a call, BF16_AGREEMENT_STEPS
+    steps, in a band calibrated by batches scaled by BF16_SCALE (1 + 2^-7)
+    on both sides and no separate first-call bound: the two sides round
+    each level's bf16 output after sums in another order; (d) JAX's
+    convergence criterion (:func:`bf16_converge`: at JAX's own small config
+    and lr 1e-3, and on the production config at its lr); (e) the training CLI on
+    the YAML with ``compute_dtype: bfloat16`` added, 2 calls then
+    ``--resume``; and the trajectory model at bf16 compute for a few steps
+    (:func:`bf16_trajectory_steps`).  Returns the kernel rows by case and
+    the step's, the convergence runs' and the trajectory's rows."""
+    t_phase = time.perf_counter()
+    seconds, last = {}, [t_phase]
+
+    def part(name):  # the seconds since the last part ended
+        t = time.perf_counter()
+        seconds[name], last[0] = t - last[0], t
+
+    bf16 = torch.bfloat16
+    kernels = {case: [bwd_level_row(f"{n}@bf16_{case}", c, T, batch, gen, dtype=bf16)
+                      for n, c, T in level_cases(model, st)]
+               for case, batch in (("b8", BATCH), ("b64", PROD_BATCH))}
+    kernels["trajectory"] = [
+        bwd_level_row(f"traj{i}@bf16_trajectory", getattr(tmodel.encoder, f"conv_{i}"),
+                      tmodel.cfg.train_seq_len, BATCH, gen, dtype=bf16)
+        for i in range(len(tmodel.encoder.structure.levels))]
+    part("a_kernels")
+    graph = graph_agreement_phase(data_root, BF16_TRIPLE, "bf16_graph_vs_eager")
+    if not graph["bit_equal"]:
+        fail(f"bf16 triple: the graphed steps differ from the eager ones: {graph['max_abs_diff']}")
+    part("b_graph_vs_eager")
+    step = production_step_phase(data_root, calls=1, model=BF16_TRIPLE, eager=False,
+                                 phase="bf16_step", profiled=1)
+    part("b_step_cost")
+    agree = production_agreement_phase(data_root, BF16_AGREEMENT_STEPS, BF16_TRIPLE,
+                                       BF16_SCALE, None, "bf16_agreement",
+                                       BF16_AGREEMENT_BATCH)
+    part("c_agreement")
+    converge = bf16_converge(data_root)
+    part("d_convergence")
+    cli = production_cli_phase(data_root, calls=2, compute_dtype="bfloat16")
+    part("e_cli")
+    traj = bf16_trajectory_steps(data_root)
+    part("trajectory")
+    g = step["graph_steps_per_call_32"]
+    row = {"phase": "bf16_train", "config": os.path.relpath(PRODUCTION_CONFIG, ROOT),
+           "model_overrides": BF16_TRIPLE,
+           "graph_vs_eager": {k: graph[k] for k in ("bit_equal", "max_abs_diff", "launches")},
+           "step": {k: g[k] for k in ("ms_per_step", "device_ms_per_step", "idle_share",
+                                      "peak_memory_bytes", "peak_above_start_bytes",
+                                      "device_runs_per_32_steps",
+                                      "trace_launches_per_32_steps")},
+           "agreement": {k: agree[k] for k in ("batch", "rel_diff", "band", "perturbation",
+                                               "loss_gpu", "loss_cpu", "fit_seconds")},
+           "convergence": converge, "cli": {k: cli[k] for k in ("resumed", "runs",
+                                                               "checkpoints_after_resume")},
+           "trajectory": traj, "seconds": seconds, "elapsed_s": time.perf_counter() - t_phase}
+    print(json.dumps(row), flush=True)
+    return kernels, step, converge, traj
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
@@ -3616,10 +3876,12 @@ def main() -> None:
     if not report["fused_conv_pool"].get("bf16", {}).get("hgmma"):
         fail("the bf16 instantiation has no HGMMA (wgmma) instruction")
     for what in ("dgrad", "dgrad_spans", "wgrad", "wgrad_nq4", "wgrad_spans_nt1",
-                 "wgrad_spans_nt2"):
+                 "wgrad_spans_nt2") + BF16_BWD_KINDS:
         r = report["fused_conv_pool_bwd"].get(what, {})
         if not (r.get("hgmma") or r.get("hmma")):
             fail(f"the {what} kernel has no HGMMA or HMMA (tensor-core) instruction")
+        if what in BF16_BWD_KINDS and not r.get("hmma"):
+            fail(f"the {what} kernel has no HMMA (bf16 mma.sync) instruction: {r}")
         if r.get("wgmma_serialized"):
             fail(f"ptxas serialized the {what} kernel's wgmma: {r}")
 
@@ -3634,6 +3896,18 @@ def main() -> None:
         tmodel = TrajectoryModel(tcfg.model, tcfg.optim.init,
                                  generator=torch.Generator().manual_seed(SEED)).to(DEV)
         long_backward_phase(model, st, tmodel, gen)
+        print(smi, flush=True)
+        return
+    if sys.argv[1:2] == ["--bf16-train"]:  # phase 35 alone
+        from hm_vae_torch.models.trajectory import TrajectoryModel
+
+        tcfg = load_config(TRAJ_CONFIG)
+        tmodel = TrajectoryModel(tcfg.model, tcfg.optim.init,
+                                 generator=torch.Generator().manual_seed(SEED)).to(DEV)
+        data_root = os.path.join(OUT_DIR, "train_data")
+        shutil.rmtree(data_root, ignore_errors=True)
+        bf16_train_phase(data_root, model, st, tmodel, gen)
+        elapsed("1, 35")
         print(smi, flush=True)
         return
     elapsed("1")
@@ -3793,6 +4067,12 @@ def main() -> None:
     # 34. training with adapters, and the kernels at its base convs
     lora_train, lora_train_fwd, lora_train_bwd = lora_train_phase(data_root, model, st, gen)
     elapsed("34")
+    # 35. training with bf16 conv compute: the bf16 whole-row dgrad and
+    #     wgrad, the triple's graphed call against eager steps and its cost,
+    #     GPU against CPU, JAX's convergence criterion, the CLI and a resume
+    bf16_rows, bf16_step, bf16_conv, bf16_traj = bf16_train_phase(data_root, model, st,
+                                                                  tmodel, gen)
+    elapsed("35")
     # 24. summary: sums over the 8 levels of one reconstruct (forward) or of
     #    one training step (backward), over the 4 decoder levels of a solve's
     #    iteration (windowed), and over the trajectory model's 4 levels
@@ -4024,6 +4304,41 @@ def main() -> None:
                     "with the encoder's make up a training step's; "
                     "times: device time from CUDA-graph replays; library_ms: "
                     f"{lib} on the folded weight, TF32 off"})
+    bf16_run = bf16_step["graph_steps_per_call_32"]
+    bf16_paths = {
+        "b8": ("batch 8; launches: the entries' count over phase 35's "
+               f"{BF16_CONVERGE_STEPS} eager steps of the production triple (its "
+               "convergence run)",
+               bf16_conv["production"]["launches_in_run"]),
+        "b64": (f"batch {PROD_BATCH}; launches: the entries' count over the graphed triple's "
+                f"{bf16_run['steps']} steps (the two warm-up steps and the capture: a replay "
+                "calls no entry); device_launches_per_call: the kernel's runs a 32-step call "
+                "counted on the device", bf16_run["entry_launches_in_run"]),
+        "trajectory": ("the trajectory model's 4 K-31 levels at batch 8, T 128 (whole rows); "
+                       f"launches: the entries' count over {BF16_TRAJ_STEPS} Trainer steps of "
+                       "configs/trajectory_model.yaml at bf16 compute",
+                       bf16_traj["entry_launches_in_run"])}
+    for what, lib in (("dgrad", "torch.nn.grad.conv1d_input"),
+                      ("wgrad", "torch.nn.grad.conv1d_weight")):
+        name = f"fused_conv_pool_{what}"
+        for case, rows in bf16_rows.items():
+            note, launches = bf16_paths[case]
+            summary["kernels"].append({
+                "name": f"{name}@bf16_{case}", "route": "cuda",
+                "source": "hm_vae_torch/csrc/fused_conv_pool_bwd.cu",
+                "replaces": ("hm_vae_tpu/models/trajectory.py:45-50" if case == "trajectory"
+                             else "hm_vae_tpu/models/hm_vae.py:200")
+                            + " (JAX autodiff of the level in bf16, compute_dtype bfloat16: "
+                              "hm_vae_tpu/models/hm_vae.py:174-195; no Pallas backward exists)",
+                "launches": launches.get(name, 0),
+                **total([r[what] for r in rows]),
+                **({"device_launches_per_call": bf16_run["device_runs_per_32_steps"][
+                    TRACE_NAME[name]]} if case == "b64" else {}),
+                "note": "bf16 (the whole-row kernel's bf16 instantiation), sums over the "
+                        + ("8 len-64 levels (dgrad: enc0 runs it in this timing but not in "
+                           "training), " if case != "trajectory" else "")
+                        + note + "; times: device time from CUDA-graph replays; library_ms: "
+                        f"{lib} in bf16 on the folded weight"})
     summary["kernels"].append({
         "name": "fused_conv_pool@sequence_parallel_valid", "route": "cuda",
         "source": "hm_vae_torch/csrc/fused_conv_pool.cu",

@@ -1,6 +1,7 @@
 // The backward of one skeleton-conv level (fused_conv_pool.cu's forward) on
-// Hopper, in f32: the input gradient (dgrad) and the folded weight's and
-// bias's gradients (wgrad), two kernels on the tensor cores.
+// Hopper, in f32 and, over whole rows, in bf16: the input gradient (dgrad)
+// and the folded weight's and bias's gradients (wgrad), two kernels on the
+// tensor cores.
 //
 // The JAX package has no backward kernel: it differentiates its XLA level in
 // hm_vae_tpu/models/hm_vae.py (SkeletonConv: the conv on the folded weight
@@ -31,8 +32,8 @@
 // function of the shapes that the CPU tests check.
 //
 // What bounds them on an H100 (data sheet: 3.35 TB/s; 495 TFLOP/s TF32 on
-// the tensor cores, 165 as 3xTF32).  At the len-64 model's batch of 8 each
-// kernel does ~1/3 of the forward's multiply-adds per level (a few GFLOP
+// the tensor cores, 165 as 3xTF32, 989 in bf16).  At the len-64 model's
+// batch of 8 each kernel does ~1/3 of the forward's multiply-adds per level (a few GFLOP
 // over the eight levels) and moves the live weight (or its gradient), x, y
 // and gy: tens of megabytes.  Both bounds are microseconds: a launch is
 // bound by latency (copies in flight, the dependent steps of a block) and
@@ -114,7 +115,20 @@
 //   batch group lies inside one window and stages that window's weight
 //   rows; a wgrad block (grid z: the window) sums over its window's batches
 //   only, its cluster split too.  One window is the kernels' plain form.
-// Limits: f32, C a multiple of 8 (the wrappers pad), K <= 31 (wgrad's 32
+// - bf16 (the models' compute_dtype bfloat16, where JAX's autodiff
+//   differentiates the level in bf16): dgrad_kernel and wgrad_kernel take
+//   the element type as a template parameter.  The bf16 forms stage gy, y,
+//   x and the weight rows as bf16 (half the bytes a copy, 16-byte granules
+//   of 8 elements) and run one mma.sync.m16n8k16 bf16 product a k-step of
+//   16 in place of the three m16n8k8 TF32 products and the splits: g =
+//   gy * act'(y) is rounded to bf16 once, as the plain version rounds it,
+//   and staged two rows p (dgrad) or two columns (wgrad) to a 32-bit word
+//   in the operands' fragment order; the sums are f32, added after each
+//   tap (dgrad) or k-step (wgrad) as in f32, the cluster's partials summed
+//   in rank order; each output is rounded to bf16 once, at its store.
+//   Over long rows and windows the backward is f32 only (the wrapper raises
+//   for bf16 there before any launch);
+// Limits: C a multiple of 8 (the wrappers pad), K <= 31 (wgrad's 32
 // tap tiles), and shared memory: dgrad's two weight stages are 32 rows of
 // 16 channels x K taps (127 KB at K 31, so one block an SM there) beside
 // g's rows; dgrad's columns of a block fill at most 16 column tiles
@@ -126,6 +140,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 
@@ -229,6 +244,29 @@ __device__ __forceinline__ float act_grad(float gy, float y, float slope) {
   return y >= 0.f ? gy : gy * slope;
 }
 
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// f32 as the element type T: itself, or rounded to bf16 (to nearest even)
+template <typename T>
+__device__ __forceinline__ T from_f(float v) {
+  if constexpr (sizeof(T) == 2)
+    return __float2bfloat16_rn(v);
+  else
+    return v;
+}
+
+// Two bf16 as one 32-bit mma operand register: `lo` in the low half (the
+// lower k index of a fragment's pair).
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return pack_bf16(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
+}
+
 // d += A (16 x 8, row) * B (8 x 8, col), TF32 in, f32 accumulate.  Lane
 // (g = lane/4, q = lane%4) holds a = A[g][q], A[g+8][q], A[g][q+4],
 // A[g+8][q+4]; b = B[q][g], B[q+4][g]; d = D[g][2q], D[g][2q+1],
@@ -237,6 +275,20 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
   asm volatile(
       "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += A (16 x 16, row) * B (16 x 8, col), bf16 in, f32 accumulate.  Lane
+// (g = lane/4, q = lane%4) holds, two bf16 a register (the lower column of
+// A, row of B, in the low half): a = A[g][2q..2q+1], A[g+8][2q..2q+1],
+// A[g][2q+8..2q+9], A[g+8][2q+8..2q+9]; b = B[2q..2q+1][g],
+// B[2q+8..2q+9][g]; d as mma_tf32's.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
       "{%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
@@ -288,6 +340,16 @@ __device__ __forceinline__ void wgmma_rs_tf32(float (&d)[32], const uint32_t (&a
 // different bank pairs.
 __host__ __device__ __forceinline__ int frag_stride(int len) { return (len + 11) / 16 * 16 + 4; }
 
+// bf16 dgrad's g: the smallest row stride >= len (in 4-byte words, a pair of
+// rows p a word) that is 8 mod 32: a warp's 32 loads, eight consecutive
+// columns of four pair rows, hit 32 banks.
+__host__ __device__ __forceinline__ int pair_stride(int len) { return (len + 23) / 32 * 32 + 8; }
+
+// bf16 wgrad's x: the smallest row stride >= len (in bf16 values) that is 8
+// mod 64: the eight channel rows of a warp's 16-bit loads lie 4 words mod 32
+// apart, each row's four lanes on consecutive words.
+__host__ __device__ __forceinline__ int half_stride(int len) { return (len + 55) / 64 * 64 + 8; }
+
 __host__ __device__ __forceinline__ size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
 // ---------------------------------------------------------------------------
@@ -295,8 +357,8 @@ __host__ __device__ __forceinline__ size_t align16(size_t n) { return (n + 15) &
 
 struct DgradLayout {
   int Tp, off, rs, wr, gl;  // staged padded width, g's time offset (a phase's taps - 1),
-                            // g2's row stride (8-byte words), a weight row (floats),
-                            // a staged row of gy or y (floats)
+                            // g2's row stride (f32: 8-byte words, bf16: 4-byte words), a
+                            // weight row (values), a staged row of gy or y (values)
   size_t bars, w, g, g2, out, total;  // byte offsets in shared memory
 };
 
@@ -306,45 +368,53 @@ struct DgradLayout {
 // gy and y, refilled as soon as it is rewritten into g2.  gxpad (16
 // channels x the group's padded columns) reuses the weight stages.  A
 // block stages whole padded rows of nbb batches (gy's and y's rows of t_ld
-// floats).
+// values).  `esz` is the element's bytes: 4 (f32: g2 holds each row p's
+// TF32 big and small parts) or 2 (bf16: g2 holds a pair of rows p a word);
+// gxpad is f32 either way.
 __host__ __device__ inline DgradLayout dgrad_layout(int T_in, int K, int T_out, int t_ld,
-                                                    int stride, int padding, int nbb) {
+                                                    int stride, int padding, int nbb, int esz) {
   DgradLayout L;
   L.off = (K + stride - 1) / stride - 1;
   L.Tp = T_in + 2 * padding;
   const int V0 = (L.Tp + stride - 1) / stride;
-  L.rs = frag_stride(L.off + (V0 > T_out ? V0 : T_out));
+  const int len = L.off + (V0 > T_out ? V0 : T_out);
+  L.rs = esz == 4 ? frag_stride(len) : pair_stride(len);
   L.gl = t_ld;
-  L.wr = kDC * K + 8;  // 16-byte rows; 8 more floats spread a fragment's rows over the banks
+  L.wr = kDC * K + 8;  // 16-byte rows; 8 more values spread a fragment's rows over the banks
   L.bars = 0;
   L.w = 64;
-  L.g = L.w + align16(size_t(kStages) * kHalf * L.wr * 4);
-  L.g2 = L.g + align16(size_t(2) * nbb * kHalf * L.gl * 4);
+  L.g = L.w + align16(size_t(kStages) * kHalf * L.wr * esz);
+  L.g2 = L.g + align16(size_t(2) * nbb * kHalf * L.gl * esz);
   const size_t out_bytes = size_t(kDC) * nbb * L.Tp * 4;
-  const size_t g2_end = L.g2 + size_t(nbb) * kHalf * L.rs * 8;
+  const size_t g2_end = L.g2 + size_t(nbb) * kHalf * L.rs * (esz == 4 ? 8 : 2);
   L.out = out_bytes <= L.g - L.w ? L.w : align16(g2_end);
   L.total = L.out == L.w ? g2_end : L.out + out_bytes;
   return L;
 }
 
-// Whole padded rows of a batch group a block, folded here.
+// Whole padded rows of a batch group a block, folded here; T is float or
+// __nv_bfloat16 (gy, y, the weight and gx).
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
-             const float* __restrict__ w, const int* __restrict__ dgrad_start,
-             const int* __restrict__ dgrad_row, float* __restrict__ gx, int B, int C, int T_in,
+dgrad_kernel(const T* __restrict__ gy, const T* __restrict__ y,
+             const T* __restrict__ w, const int* __restrict__ dgrad_start,
+             const int* __restrict__ dgrad_row, T* __restrict__ gx, int B, int C, int T_in,
              int K, int P, int T_out, int t_ld, int stride, int padding, int reflect,
              float slope, int nbb, int gpw, size_t w_stride) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int kPr = kBf16 ? kHalf / 2 : kHalf;  // g2's rows of a batch: rows p, or pairs (bf16)
   count_run(&g_runs[0]);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int split = static_cast<int>(cluster.num_blocks());
-  const DgradLayout L = dgrad_layout(T_in, K, T_out, t_ld, stride, padding, nbb);
+  const DgradLayout L = dgrad_layout(T_in, K, T_out, t_ld, stride, padding, nbb, sizeof(T));
 
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);  // weight [kStages], then g
-  float* w_s = reinterpret_cast<float*>(smem + L.w);             // [kStages][32][wr]
-  float* g_s = reinterpret_cast<float*>(smem + L.g);             // [2][nbb][32][gl]
-  float2* g2 = reinterpret_cast<float2*>(smem + L.g2);           // [nbb][32][rs]
+  T* w_s = reinterpret_cast<T*>(smem + L.w);                     // [kStages][32][wr]
+  T* g_s = reinterpret_cast<T*>(smem + L.g);                     // [2][nbb][32][gl]
+  float2* g2 = reinterpret_cast<float2*>(smem + L.g2);           // f32: [nbb][32][rs]
+  uint32_t* g2h = reinterpret_cast<uint32_t*>(smem + L.g2);      // bf16: [nbb][16][rs]
   float* out_s = reinterpret_cast<float*>(smem + L.out);         // [16][nbb][Tp]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -357,25 +427,25 @@ dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
   const int win = yg / gpw;
   const int b0 = win * B + (yg - win * gpw) * nbb;
   const int nbl = min(nbb, (win + 1) * B - b0);
-  const float* wwin = w + win * w_stride;
+  const T* wwin = w + win * w_stride;
   const int width = L.Tp;
   const int first = dgrad_start[blockIdx.x];
   const int live = dgrad_start[blockIdx.x + 1] - first;
   // stages: both halves of each of the block's live row tiles
   const int n_mine = live > rank ? 2 * ((live - rank + split - 1) / split) : 0;
-  const int wt = kHalf * L.wr;        // floats of a weight stage
-  const int gt = nbb * kHalf * L.gl;  // floats of gy (or y) in a stage
+  const int wt = kHalf * L.wr;        // values of a weight stage
+  const int gt = nbb * kHalf * L.gl;  // values of gy (or y) in a stage
   auto stage_row = [&](int i) {
     return dgrad_row[first + rank + (i >> 1) * split] * kRows + (i & 1) * kHalf;
   };
 
-  // Stage i: its weight rows (cw*K contiguous floats each; thread r copies
+  // Stage i: its weight rows (cw*K contiguous values each; thread r copies
   // row r) into weight stage `slot`, or the batches' rows of gy and y (one
   // contiguous run each; threads 32.. copy).  Thread 0 arms the barrier; a
   // copy may land before it does, the phase completes only after both.
   auto issue_w = [&](int i, int slot) {
     const int p0 = stage_row(i), nrows = max(0, min(kHalf, P - p0));
-    const uint32_t w_row = cw * K * 4;
+    const uint32_t w_row = cw * K * sizeof(T);
     if (tid == 0) mbar_expect(smem_addr(bars + slot), nrows * w_row);
     if (tid < nrows) {
       fence_async();
@@ -386,7 +456,7 @@ dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
   auto issue_g = [&](int i) {
     const int p0 = stage_row(i), nrows = max(0, min(kHalf, P - p0));
     const int q = tid - kHalf;
-    const uint32_t g_bytes = nrows * t_ld * 4;
+    const uint32_t g_bytes = nrows * t_ld * sizeof(T);
     if (tid == 0) mbar_expect(smem_addr(bars + kStages), 2 * nbl * g_bytes);
     if (nrows > 0 && q >= 0 && q < 2 * nbl) {
       const int which = q / nbl, bb = q - which * nbl;
@@ -401,9 +471,14 @@ dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
   }
   // g's time padding stays zero (a stage writes only t in [0, T_out)), and
   // so do the weight rows' second chunk where the block has one chunk
-  for (int q = tid; q < nbb * kHalf * L.rs; q += kThreads) g2[q] = make_float2(0.f, 0.f);
+  for (int q = tid; q < nbb * kPr * L.rs; q += kThreads) {
+    if constexpr (kBf16)
+      g2h[q] = 0u;
+    else
+      g2[q] = make_float2(0.f, 0.f);
+  }
   if (cw < kDC)
-    for (int q = tid; q < kStages * wt; q += kThreads) w_s[q] = 0.f;
+    for (int q = tid; q < kStages * wt; q += kThreads) w_s[q] = from_f<T>(0.f);
   __syncthreads();
   for (int i = 0; i < kStages && i < n_mine; ++i) issue_w(i, i);
   if (n_mine > 0) issue_g(0);
@@ -427,7 +502,7 @@ dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
     for (int h = 0; h < 2; ++h) {
       const int r = mt * 16 + gid + 8 * h;
       const int bb = r / Vs[w];
-      base[w][h] = has_tile && bb < nbl ? bb * kHalf * L.rs + L.off + r - bb * Vs[w] : L.off;
+      base[w][h] = has_tile && bb < nbl ? bb * kPr * L.rs + L.off + r - bb * Vs[w] : L.off;
     }
   }
 
@@ -436,56 +511,95 @@ dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
     const int slot = i % kStages;
     const int nrows = max(0, min(kHalf, P - stage_row(i)));
     mbar_wait(smem_addr(bars + kStages), i & 1);
-    // g = gy * act'(y), split, into its zero-padded rows
-    for (int q = tid; q < nbl * kHalf * T_out; q += kThreads) {
-      const int bb = q / (kHalf * T_out), rem = q - bb * (kHalf * T_out);
-      const int r = rem / T_out, t = rem - r * T_out;
-      const int o = (bb * kHalf + r) * t_ld + t;
-      const float v = r < nrows ? act_grad(g_s[o], g_s[gt + o], slope) : 0.f;
-      g2[(bb * kHalf + r) * L.rs + L.off + t] = split_tf32(v);
+    // g = gy * act'(y) into its zero-padded rows: f32 split, bf16 rounded
+    // and paired (rows 2r, 2r + 1 in one word)
+    if constexpr (kBf16) {
+      for (int q = tid; q < nbl * kPr * T_out; q += kThreads) {
+        const int bb = q / (kPr * T_out), rem = q - bb * (kPr * T_out);
+        const int r = rem / T_out, t = rem - r * T_out;
+        const int o = (bb * kHalf + 2 * r) * t_ld + t;
+        const float v0 = 2 * r < nrows ? act_grad(to_f(g_s[o]), to_f(g_s[gt + o]), slope) : 0.f;
+        const float v1 = 2 * r + 1 < nrows
+                             ? act_grad(to_f(g_s[o + t_ld]), to_f(g_s[gt + o + t_ld]), slope)
+                             : 0.f;
+        g2h[(bb * kPr + r) * L.rs + L.off + t] = pack_bf16(v0, v1);
+      }
+    } else {
+      for (int q = tid; q < nbl * kHalf * T_out; q += kThreads) {
+        const int bb = q / (kHalf * T_out), rem = q - bb * (kHalf * T_out);
+        const int r = rem / T_out, t = rem - r * T_out;
+        const int o = (bb * kHalf + r) * t_ld + t;
+        const float v = r < nrows ? act_grad(g_s[o], g_s[gt + o], slope) : 0.f;
+        g2[(bb * kHalf + r) * L.rs + L.off + t] = split_tf32(v);
+      }
     }
     mbar_wait(smem_addr(bars + slot), (i / kStages) & 1);
     // weight rows past P (a ragged last tile) read as zeros
-    for (int q = nrows * L.wr + tid; q < wt; q += kThreads) w_s[slot * wt + q] = 0.f;
+    for (int q = nrows * L.wr + tid; q < wt; q += kThreads) w_s[slot * wt + q] = from_f<T>(0.f);
     __syncthreads();  // g and the weight rows are staged
     if (i + 1 < n_mine) issue_g(i + 1);  // overlaps the products
 
 #pragma unroll
     for (int w = 0; w < kMaxTiles; ++w) {
-      // per chunk four independent sums (small and big products, even and
-      // odd rows of 8), so that consecutive mma.sync do not wait on each
+      // f32: per chunk four independent sums (small and big products, even
+      // and odd rows of 8), so that consecutive mma.sync do not wait on each
       // other, added in f32 after each tap; each g fragment feeds both chunks
-      const float* ws = w_s + slot * wt;
+      const T* ws = w_s + slot * wt;
       for (int m = 0; m < taps[w]; ++m) {
         const int k = phis[w] + stride * m;
-        float acc[2][4][4] = {};
+        if constexpr (kBf16) {
+          // two k-steps of 16 rows p, a sum each; A: the pair rows 8j + tig
+          // (+4) at the lane's columns, shifted by the tap; B: the weight at
+          // rows 16j + 2tig (+1, +8, +9), the lane's channel, tap k
+          float acc[2][2][4] = {};
 #pragma unroll
-        for (int j = 0; j < kHalf / 8; ++j) {
-          const int pr = 8 * j + tig;
-          const float2 a0 = g2[base[w][0] + pr * L.rs - m];
-          const float2 a1 = g2[base[w][1] + pr * L.rs - m];
-          const float2 a2 = g2[base[w][0] + (pr + 4) * L.rs - m];
-          const float2 a3 = g2[base[w][1] + (pr + 4) * L.rs - m];
-          const uint32_t ab[4] = {__float_as_uint(a0.x), __float_as_uint(a1.x),
-                                  __float_as_uint(a2.x), __float_as_uint(a3.x)};
-          const uint32_t as[4] = {__float_as_uint(a0.y), __float_as_uint(a1.y),
-                                  __float_as_uint(a2.y), __float_as_uint(a3.y)};
+          for (int j = 0; j < kHalf / 16; ++j) {
+            const int pr = 8 * j + tig;
+            const uint32_t a[4] = {g2h[base[w][0] + pr * L.rs - m], g2h[base[w][1] + pr * L.rs - m],
+                                   g2h[base[w][0] + (pr + 4) * L.rs - m],
+                                   g2h[base[w][1] + (pr + 4) * L.rs - m]};
 #pragma unroll
-          for (int n = 0; n < 2; ++n) {
-            const float2 b0v = split_tf32(ws[pr * L.wr + (n * kCC + gid) * K + k]);
-            const float2 b1v = split_tf32(ws[(pr + 4) * L.wr + (n * kCC + gid) * K + k]);
-            const uint32_t bb[2] = {__float_as_uint(b0v.x), __float_as_uint(b1v.x)};
-            const uint32_t bs[2] = {__float_as_uint(b0v.y), __float_as_uint(b1v.y)};
-            mma_tf32(acc[n][j & 1], as, bb);
-            mma_tf32(acc[n][j & 1], ab, bs);
-            mma_tf32(acc[n][2 + (j & 1)], ab, bb);
+            for (int n = 0; n < 2; ++n) {
+              const T* wc = ws + 2 * pr * L.wr + (n * kCC + gid) * K + k;
+              const uint32_t b[2] = {pack_bf16(wc[0], wc[L.wr]),
+                                     pack_bf16(wc[8 * L.wr], wc[9 * L.wr])};
+              mma_bf16(acc[n][j], a, b);
+            }
           }
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) sum[w][n][r] += acc[n][0][r] + acc[n][1][r];
+        } else {
+          float acc[2][4][4] = {};
+#pragma unroll
+          for (int j = 0; j < kHalf / 8; ++j) {
+            const int pr = 8 * j + tig;
+            const float2 a0 = g2[base[w][0] + pr * L.rs - m];
+            const float2 a1 = g2[base[w][1] + pr * L.rs - m];
+            const float2 a2 = g2[base[w][0] + (pr + 4) * L.rs - m];
+            const float2 a3 = g2[base[w][1] + (pr + 4) * L.rs - m];
+            const uint32_t ab[4] = {__float_as_uint(a0.x), __float_as_uint(a1.x),
+                                    __float_as_uint(a2.x), __float_as_uint(a3.x)};
+            const uint32_t as[4] = {__float_as_uint(a0.y), __float_as_uint(a1.y),
+                                    __float_as_uint(a2.y), __float_as_uint(a3.y)};
+#pragma unroll
+            for (int n = 0; n < 2; ++n) {
+              const float2 b0v = split_tf32(ws[pr * L.wr + (n * kCC + gid) * K + k]);
+              const float2 b1v = split_tf32(ws[(pr + 4) * L.wr + (n * kCC + gid) * K + k]);
+              const uint32_t bb[2] = {__float_as_uint(b0v.x), __float_as_uint(b1v.x)};
+              const uint32_t bs[2] = {__float_as_uint(b0v.y), __float_as_uint(b1v.y)};
+              mma_tf32(acc[n][j & 1], as, bb);
+              mma_tf32(acc[n][j & 1], ab, bs);
+              mma_tf32(acc[n][2 + (j & 1)], ab, bb);
+            }
+          }
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              sum[w][n][r] += ((acc[n][0][r] + acc[n][1][r]) + acc[n][2][r]) + acc[n][3][r];
         }
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-            sum[w][n][r] += ((acc[n][0][r] + acc[n][1][r]) + acc[n][2][r]) + acc[n][3][r];
       }
     }
     __syncthreads();  // every warp is done with this stage's weight rows and g2
@@ -537,7 +651,7 @@ dgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
       if (reflect && i >= 1 && i <= padding) v += column(row, padding - i);
       if (reflect && i <= T_in - 2 && i >= T_in - 1 - padding)
         v += column(row, padding + 2 * (T_in - 1) - i);
-      gx[(size_t(b0 + bb) * C + c0 + c) * T_in + i] = v;
+      gx[(size_t(b0 + bb) * C + c0 + c) * T_in + i] = from_f<T>(v);
     }
   }
   if (split > 1) cluster.sync();  // no block leaves while another reads its partial gxpad
@@ -894,7 +1008,8 @@ dgrad_span_kernel(const float* __restrict__ gy, const float* __restrict__ y,
 // wgrad
 
 struct WgradLayout {
-  int Lh, rsx;       // x: a stride phase's padded columns, the row stride (8-byte words)
+  int Lh, rsx;       // x: a stride phase's padded columns, the row stride (f32: 8-byte words,
+                     // bf16: values)
   int ks, rj;        // k-steps of a stage; a row of the gradient tile: (c, k), the bias, pad
   int nb_max, slots;  // the most batches of a block; stages of gy and y in flight
   size_t bars, xp, g, gf, total;  // byte offsets in shared memory
@@ -902,23 +1017,28 @@ struct WgradLayout {
 
 // x's raw rows wait in the fragment buffer until x is padded; the partial
 // gradient tile reuses the stages at the end.  Two stages of gy and y are
-// in flight where the block still fits two to an SM, else one.
+// in flight where the block still fits two to an SM, else one.  `esz` is
+// the element's bytes: 4 (f32: x's padded columns as TF32 big + small, a
+// k-step 8 columns, a lane's A fragments big + small) or 2 (bf16: x's
+// values, a k-step 16 columns, one 16-byte A fragment a lane); the partial
+// gradient tile is f32 either way.
 __host__ __device__ inline WgradLayout wgrad_layout(int B, int T_in, int K, int T_out, int t_ld,
-                                                    int stride, int sb, int split) {
+                                                    int stride, int sb, int split, int esz) {
   WgradLayout L;
   L.nb_max = (B + split - 1) / split;
   const int n_st = (L.nb_max + sb - 1) / sb;
   const int Lx = (T_out - 1) * stride + K;  // padded columns the taps read
   L.Lh = (Lx + stride - 1) / stride;
-  L.rsx = frag_stride(stride * L.Lh);
-  L.ks = (sb * T_out + 7) / 8;
+  L.rsx = esz == 4 ? frag_stride(stride * L.Lh) : half_stride(stride * L.Lh);
+  const int kw = esz == 4 ? 8 : 16;  // columns of a k-step
+  L.ks = (sb * T_out + kw - 1) / kw;
   L.rj = kCC * K + 4;  // 16-byte rows
   L.bars = 0;
   L.xp = 64;
-  L.g = L.xp + align16(size_t(L.nb_max) * kCC * L.rsx * 8);
-  const size_t stage = align16(size_t(2) * sb * kRows * t_ld * 4);
-  const size_t gf = size_t(L.ks) * 4 * 32 * 8 * 4;
-  const size_t x_raw = size_t(L.nb_max) * kCC * T_in * 4;
+  L.g = L.xp + align16(size_t(L.nb_max) * kCC * L.rsx * (esz == 4 ? 8 : 2));
+  const size_t stage = align16(size_t(2) * sb * kRows * t_ld * esz);
+  const size_t gf = size_t(L.ks) * 4 * 32 * (esz == 4 ? 32 : 16);
+  const size_t x_raw = size_t(L.nb_max) * kCC * T_in * esz;
   const size_t red = size_t(kRows) * L.rj * 4;
   for (L.slots = n_st < kStages ? n_st : kStages;; --L.slots) {
     L.gf = L.g + L.slots * stage;
@@ -986,14 +1106,56 @@ __device__ __forceinline__ void wgrad_kstep(float (&sum)[4][NQ][4], const float2
       for (int r = 0; r < 4; ++r) sum[a][qq][r] += acc[a][qq][r];
 }
 
+// wgrad_kstep in bf16: one k-step of 16 (b, t) columns.  B is x at the
+// lane's columns 2*tig, 2*tig + 1, 8 + 2*tig, 9 + 2*tig of the k-step
+// (xh[xb[i] + koff], two values a register), or ones for the bias tile; A
+// the g fragments (one 16-byte load a row tile).  One bf16 product a tile,
+// its sum added in f32.
+template <int NQ>
+__device__ __forceinline__ void wgrad_kstep_bf16(float (&sum)[4][NQ][4], const __nv_bfloat16* xh,
+                                                 const uint4* gh, const int (&xb)[4],
+                                                 const int (&koff)[NQ], int ks, int K, int warp,
+                                                 int lane) {
+  const int gid = lane >> 2;
+  uint32_t b[NQ][2];
+#pragma unroll
+  for (int qq = 0; qq < NQ; ++qq) {
+    const int q = warp + kWarps * qq;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      b[qq][h] = q < K ? pack_bf16(xh[xb[2 * h] + koff[qq]], xh[xb[2 * h + 1] + koff[qq]])
+                       : (gid == 0 ? 0x3F803F80u : 0u);  // the bias: ones (bf16 1.0 twice)
+  }
+  uint32_t a[4][4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const uint4 f = gh[(ks * 4 + t) * 32 + lane];
+    a[t][0] = f.x, a[t][1] = f.y, a[t][2] = f.z, a[t][3] = f.w;
+  }
+  float acc[4][NQ][4] = {};
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int qq = 0; qq < NQ; ++qq)
+      if (warp + kWarps * qq <= K) mma_bf16(acc[t][qq], a[t], b[qq]);
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int qq = 0; qq < NQ; ++qq)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) sum[t][qq][r] += acc[t][qq][r];
+}
+
 // Block `rank` sums its rows of the cluster's partial gradient tiles
-// red[p][c*K + k] (bias at 8*K) in rank order and stores them, 16 bytes at
-// a time (row p's chunk is 8*K contiguous floats of gw).  A block alone in
-// its cluster skips the cluster barriers.  The caller has written its tile.
+// red[p][c*K + k] (bias at 8*K) in rank order and stores them, four values
+// at a time (row p's chunk is 8*K contiguous values of gw; T float or
+// __nv_bfloat16, rounded once here).  A block alone in its cluster skips
+// the cluster barriers.  The caller has written its tile.
+template <typename T>
 __device__ __forceinline__ void wgrad_reduce(float* red, int rj, cg::cluster_group& cluster,
                                              int rank, int split, bool has_x, bool writes_bias,
                                              int nrows, int p0, int c0, int C, int K,
-                                             float* gw_w, float* gb_w) {
+                                             T* gw_w, T* gb_w) {
   const int tid = threadIdx.x;
   if (split > 1)
     cluster.sync();  // every block's partial tile is in its shared memory
@@ -1015,7 +1177,15 @@ __device__ __forceinline__ void wgrad_reduce(float* red, int rj, cg::cluster_gro
       const float4 w = *reinterpret_cast<const float4*>(part[q] + o);
       v.x += w.x, v.y += w.y, v.z += w.z, v.w += w.w;
     }
-    *reinterpret_cast<float4*>(gw_w + (size_t(p0 + r) * C + c0) * K + 4 * j4) = v;
+    T* dst = gw_w + (size_t(p0 + r) * C + c0) * K + 4 * j4;
+    if constexpr (sizeof(T) == 2) {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+      *reinterpret_cast<uint2*>(dst) = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                                                  *reinterpret_cast<const uint32_t*>(&hi));
+    } else {
+      *reinterpret_cast<float4*>(dst) = v;
+    }
   }
   if (writes_bias && tid < r_hi - r_lo) {
     const int o = (r_lo + tid) * rj + kCC * K;
@@ -1023,7 +1193,7 @@ __device__ __forceinline__ void wgrad_reduce(float* red, int rj, cg::cluster_gro
 #pragma unroll
     for (int q = 1; q < kMaxSplit; ++q)
       if (q < split) v += part[q][o];
-    gb_w[p0 + r_lo + tid] = v;
+    gb_w[p0 + r_lo + tid] = from_f<T>(v);
   }
   if (split > 1) cluster.sync();  // no block leaves while another reads its partial tile
 }
@@ -1031,11 +1201,11 @@ __device__ __forceinline__ void wgrad_reduce(float* red, int rj, cg::cluster_gro
 // The block's partial gradient tile (wgrad_kstep's sums) -> red, over
 // shared memory no longer read, then wgrad_reduce.  The caller has
 // synchronised the block.
-template <int NQ>
+template <int NQ, typename T>
 __device__ __forceinline__ void wgrad_store(const float (&sum)[4][NQ][4], float* red, int rj,
                                             cg::cluster_group& cluster, int rank, int split,
                                             bool has_x, bool writes_bias, int nrows, int p0,
-                                            int c0, int C, int K, float* gw_w, float* gb_w) {
+                                            int c0, int C, int K, T* gw_w, T* gb_w) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
 #pragma unroll
@@ -1059,33 +1229,39 @@ __device__ __forceinline__ void wgrad_store(const float (&sum)[4][NQ][4], float*
 
 // The padded column u of x's row `row` (batch b, channel c0 + row): x under
 // the padding (reflect without edge repeat, or zeros), 0 past the padded row.
-__device__ __forceinline__ float padded_x(const float* row, int u, int T_in, int padding,
+template <typename T>
+__device__ __forceinline__ float padded_x(const T* row, int u, int T_in, int padding,
                                           int reflect) {
   int s = u - padding;
   if ((s < 0 || s >= T_in) && u < T_in + 2 * padding)
     s = reflect ? (s < 0 ? -s : 2 * (T_in - 1) - s) : -1;
-  return s >= 0 && s < T_in ? row[s] : 0.f;
+  return s >= 0 && s < T_in ? to_f(row[s]) : 0.f;
 }
 
-template <int NQ>  // 8-column tiles of the gradient (taps, then the bias) per warp
+// NQ: 8-column tiles of the gradient (taps, then the bias) per warp; T float
+// or __nv_bfloat16 (gy, y, x, gw, gb)
+template <int NQ, typename T>
 __global__ void __launch_bounds__(kThreads, NQ == 2 ? 2 : 1)
-wgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
-             const float* __restrict__ x, const int* __restrict__ wrow,
-             const int* __restrict__ wchunk, float* __restrict__ gw, float* __restrict__ gb,
+wgrad_kernel(const T* __restrict__ gy, const T* __restrict__ y,
+             const T* __restrict__ x, const int* __restrict__ wrow,
+             const int* __restrict__ wchunk, T* __restrict__ gw, T* __restrict__ gb,
              int B, int C, int T_in, int K, int P, int T_out, int t_ld, int stride, int padding,
              int reflect, float slope, int sb) {
+  constexpr bool kBf16 = sizeof(T) == 2;
   count_run(&g_runs[1]);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int split = static_cast<int>(cluster.num_blocks());
-  const WgradLayout L = wgrad_layout(B, T_in, K, T_out, t_ld, stride, sb, split);
+  const WgradLayout L = wgrad_layout(B, T_in, K, T_out, t_ld, stride, sb, split, sizeof(T));
 
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);  // x, then [slots]
-  float2* xp = reinterpret_cast<float2*>(smem + L.xp);           // [nb_max][8][rsx]
-  float* g_s = reinterpret_cast<float*>(smem + L.g);             // [slots][2][sb][64][t_ld]
-  float4* gf = reinterpret_cast<float4*>(smem + L.gf);           // [ks][4][32][2]
-  float* x_s = reinterpret_cast<float*>(smem + L.gf);            // [nb_max][8][T_in], first
+  float2* xp = reinterpret_cast<float2*>(smem + L.xp);           // f32: [nb_max][8][rsx]
+  T* xh = reinterpret_cast<T*>(smem + L.xp);                     // bf16: [nb_max][8][rsx]
+  T* g_s = reinterpret_cast<T*>(smem + L.g);                     // [slots][2][sb][64][t_ld]
+  float4* gf = reinterpret_cast<float4*>(smem + L.gf);           // f32: [ks][4][32][2]
+  uint4* gh = reinterpret_cast<uint4*>(smem + L.gf);             // bf16: [ks][4][32]
+  T* x_s = reinterpret_cast<T*>(smem + L.gf);                    // [nb_max][8][T_in], first
   float* red = reinterpret_cast<float*>(smem + L.g);             // [64][rj], last
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -1101,18 +1277,18 @@ wgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
   const int win = static_cast<int>(blockIdx.z);
   const int b_lo = win * B + B * rank / split;
   const int nb = B * (rank + 1) / split - B * rank / split;
-  float* gw_w = gw + size_t(win) * P * C * K;
-  float* gb_w = gb + size_t(win) * P;
+  T* gw_w = gw + size_t(win) * P * C * K;
+  T* gb_w = gb + size_t(win) * P;
   const int n_st = (nb + sb - 1) / sb;
-  const int gt = sb * kRows * t_ld;  // floats of gy (or y) in a stage
-  const size_t stage_floats = (L.gf - L.g) / 4 / L.slots;
+  const int gt = sb * kRows * t_ld;  // values of gy (or y) in a stage
+  const size_t stage_values = (L.gf - L.g) / sizeof(T) / L.slots;
 
   // Stage i into `slot`: batches b_lo + i*sb .. of gy and y, rows p0.. (one
   // contiguous run per batch and tensor).  Thread 0 issues.
   auto issue = [&](int i, int slot) {
     const int nbs = min(sb, nb - i * sb);
-    const uint32_t bytes = nrows * t_ld * 4;
-    float* dst = g_s + slot * stage_floats;
+    const uint32_t bytes = nrows * t_ld * sizeof(T);
+    T* dst = g_s + slot * stage_values;
     mbar_expect(smem_addr(bars + 1 + slot), 2 * nbs * bytes);
     for (int bb = 0; bb < nbs; ++bb) {
       const size_t src = (size_t(b_lo + i * sb + bb) * P + p0) * t_ld;
@@ -1124,7 +1300,7 @@ wgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
     for (int s = 0; s < 1 + kStages; ++s) mbar_init(smem_addr(bars + s), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     if (has_x) {
-      const uint32_t bytes = kCC * T_in * 4;
+      const uint32_t bytes = kCC * T_in * sizeof(T);
       mbar_expect(smem_addr(bars), nb * bytes);
       for (int bb = 0; bb < nb; ++bb)
         bulk_copy(x_s + bb * kCC * T_in, x + (size_t(b_lo + bb) * C + c0) * T_in, bytes, bars);
@@ -1141,7 +1317,10 @@ wgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
     const int row = q / (stride * L.Lh), idx = q - row * (stride * L.Lh);
     const int ph = idx / L.Lh, u = (idx - ph * L.Lh) * stride + ph;
     const float v = has_x ? padded_x(x_s + row * T_in, u, T_in, padding, reflect) : 0.f;
-    xp[row * L.rsx + idx] = split_tf32(v);
+    if constexpr (kBf16)
+      xh[row * L.rsx + idx] = from_f<T>(v);
+    else
+      xp[row * L.rsx + idx] = split_tf32(v);
   }
 
   // This warp's tiles: q = warp + 8*qq, tap q (q < K) or the bias (q == K).
@@ -1164,36 +1343,63 @@ wgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
     __syncthreads();  // x is padded (x_s is read); the previous fragments are read
     mbar_wait(smem_addr(bars + 1 + slot), (i / L.slots) & 1);
     const int nbs = min(sb, nb - i * sb), ncols = nbs * T_out;
-    // g = gy * act'(y), split, in the A fragments' order: a thread writes
-    // one lane's four values of one k-step and row tile (rows r, r + 8 at
-    // columns n, n + 4) as a 16-byte big and a 16-byte small part
-    const float* gys = g_s + slot * stage_floats;
-    for (int it = tid; it < L.ks * 4 * 32; it += kThreads) {
-      const int ln = it & 31, mt = (it >> 5) & 3, ks = it >> 7;
-      const int r0 = mt * 16 + (ln >> 2), n0 = ks * 8 + (ln & 3);
-      float v[4];
+    // g = gy * act'(y) in the A fragments' order: a thread writes one
+    // lane's values of one k-step and row tile; f32: rows r, r + 8 at
+    // columns n, n + 4, split, as a 16-byte big and a 16-byte small part;
+    // bf16: rows r, r + 8 at columns n, n + 1, n + 8, n + 9, rounded, as 16
+    // bytes
+    const T* gys = g_s + slot * stage_values;
+    if constexpr (kBf16) {
+      for (int it = tid; it < L.ks * 4 * 32; it += kThreads) {
+        const int ln = it & 31, mt = (it >> 5) & 3, ks = it >> 7;
+        const int r0 = mt * 16 + (ln >> 2), n0 = ks * 16 + 2 * (ln & 3);
+        float v[8];  // register 2h + lo: row r0 + 8*lo, columns n0 + 8*h, + 1
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int n = n0 + 4 * h;
-        const int bb = n / T_out, t = n - bb * T_out;
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int lo = 0; lo < 2; ++lo) {
-          const int r = r0 + 8 * lo;
-          const int o = (bb * kRows + r) * t_ld + t;
-          v[2 * h + lo] = n < ncols && r < nrows ? act_grad(gys[o], gys[gt + o], slope) : 0.f;
+          for (int e = 0; e < 2; ++e) {
+            const int n = n0 + 8 * h + e;
+            const int bb = n / T_out, t = n - bb * T_out;
+#pragma unroll
+            for (int lo = 0; lo < 2; ++lo) {
+              const int r = r0 + 8 * lo;
+              const int o = (bb * kRows + r) * t_ld + t;
+              v[2 * (2 * h + lo) + e] =
+                  n < ncols && r < nrows ? act_grad(to_f(gys[o]), to_f(gys[gt + o]), slope) : 0.f;
+            }
+          }
+        gh[it] = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                            pack_bf16(v[6], v[7]));
+      }
+    } else {
+      for (int it = tid; it < L.ks * 4 * 32; it += kThreads) {
+        const int ln = it & 31, mt = (it >> 5) & 3, ks = it >> 7;
+        const int r0 = mt * 16 + (ln >> 2), n0 = ks * 8 + (ln & 3);
+        float v[4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int n = n0 + 4 * h;
+          const int bb = n / T_out, t = n - bb * T_out;
+#pragma unroll
+          for (int lo = 0; lo < 2; ++lo) {
+            const int r = r0 + 8 * lo;
+            const int o = (bb * kRows + r) * t_ld + t;
+            v[2 * h + lo] =
+                n < ncols && r < nrows ? act_grad(to_f(gys[o]), to_f(gys[gt + o]), slope) : 0.f;
+          }
         }
-      }
-      float4 hi, lo;
-      float* hv = reinterpret_cast<float*>(&hi);
-      float* lv = reinterpret_cast<float*>(&lo);
+        float4 hi, lo;
+        float* hv = reinterpret_cast<float*>(&hi);
+        float* lv = reinterpret_cast<float*>(&lo);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float2 s = split_tf32(v[q]);
-        hv[q] = s.x;
-        lv[q] = s.y;
+        for (int q = 0; q < 4; ++q) {
+          const float2 s = split_tf32(v[q]);
+          hv[q] = s.x;
+          lv[q] = s.y;
+        }
+        gf[2 * it] = hi;
+        gf[2 * it + 1] = lo;
       }
-      gf[2 * it] = hi;
-      gf[2 * it + 1] = lo;
     }
     __syncthreads();  // the fragments are staged; the stage's copies are read
     if (tid == 0 && i + L.slots < n_st) {  // the next copy overlaps the products
@@ -1202,16 +1408,28 @@ wgrad_kernel(const float* __restrict__ gy, const float* __restrict__ y,
     }
 
     for (int ks = 0; ks < L.ks; ++ks) {
-      // B: x at the lane's two columns n = 8*ks + tig (+4); padded columns
-      // past the stage read column 0 (their g is zero)
-      int xb[2];
+      if constexpr (kBf16) {
+        // B: x at the lane's columns n = 16*ks + 2*tig (+1, +8, +9), as in f32
+        int xc[4];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int n = ks * 8 + tig + 4 * h;
-        const int bb = n < ncols ? n / T_out : 0, t = n < ncols ? n - bb * T_out : 0;
-        xb[h] = ((i * sb + bb) * kCC + gid) * L.rsx + t;
+        for (int h = 0; h < 4; ++h) {
+          const int n = ks * 16 + 2 * tig + (h & 1) + 8 * (h >> 1);
+          const int bb = n < ncols ? n / T_out : 0, t = n < ncols ? n - bb * T_out : 0;
+          xc[h] = ((i * sb + bb) * kCC + gid) * L.rsx + t;
+        }
+        wgrad_kstep_bf16<NQ>(sum, xh, gh, xc, koff, ks, K, warp, lane);
+      } else {
+        // B: x at the lane's two columns n = 8*ks + tig (+4); padded columns
+        // past the stage read column 0 (their g is zero)
+        int xb[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int n = ks * 8 + tig + 4 * h;
+          const int bb = n < ncols ? n / T_out : 0, t = n < ncols ? n - bb * T_out : 0;
+          xb[h] = ((i * sb + bb) * kCC + gid) * L.rsx + t;
+        }
+        wgrad_kstep<NQ>(sum, xp, gf, xb, koff, ks, K, warp, lane);
       }
-      wgrad_kstep<NQ>(sum, xp, gf, xb, koff, ks, K, warp, lane);
     }
   }
 
@@ -1586,12 +1804,15 @@ cudaError_t allow_smem(Kernel kernel, bool (&ready)[kMaxDevices], int device) {
   return err;
 }
 
+// Rows of gy and y (t_ld values) are whole 16-byte granules: 4 f32 or 8
+// bf16 values (esz bytes each).
 bool shape_ok(int B, int C, int T_in, int K, int P, int T_out, int t_ld, int stride,
-              int padding, int reflect, int device, const void* const* ptrs, int n_ptrs) {
+              int padding, int reflect, int device, const void* const* ptrs, int n_ptrs,
+              int esz) {
   for (int i = 0; i < n_ptrs; ++i)
     if (reinterpret_cast<uintptr_t>(ptrs[i]) & 15) return false;
   return B > 0 && C > 0 && C % kCC == 0 && T_in > 0 && K > 0 && K <= kMaxK && P > 0 &&
-         T_out > 0 && t_ld >= T_out && t_ld % 4 == 0 && stride > 0 && padding >= 0 &&
+         T_out > 0 && t_ld >= T_out && t_ld % (16 / esz) == 0 && stride > 0 && padding >= 0 &&
          !(reflect && padding >= T_in) && (T_out - 1) * stride + K <= T_in + 2 * padding &&
          T_in + 2 * padding - K < T_out * stride && device >= 0 && device < kMaxDevices &&
          static_cast<long long>(B) * C * T_in < 0x7FFFFFFFLL &&
@@ -1649,14 +1870,46 @@ bool span_row_map(CUtensorMap* map, const void* base, int t_ld, long long rows) 
 int last_dgrad[8] = {};
 int last_wgrad[4] = {};
 
+// One whole-row dgrad_kernel launch in element type T (after its checks).
+template <typename T>
+int dgrad_rows(bool (&ready)[kMaxDevices], int device, dim3 grid, int split, size_t smem,
+               void* stream, const void* gy, const void* y, const void* w,
+               const void* dgrad_start, const void* dgrad_row, void* gx, int B, int C, int T_in,
+               int K, int P, int T_out, int t_ld, int stride, int padding, int reflect,
+               float slope, int nbb, int gpw, size_t w_stride) {
+  cudaError_t err = allow_smem(dgrad_kernel<T>, ready, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_cluster(
+      dgrad_kernel<T>, grid, kThreads, split, 1, smem, stream, static_cast<const T*>(gy),
+      static_cast<const T*>(y), static_cast<const T*>(w), static_cast<const int*>(dgrad_start),
+      static_cast<const int*>(dgrad_row), static_cast<T*>(gx), B, C, T_in, K, P, T_out, t_ld,
+      stride, padding, reflect, slope, nbb, gpw, w_stride));
+}
+
+// One whole-row wgrad_kernel launch, NQ tap tiles a warp, element type T.
+template <int NQ, typename T>
+int wgrad_rows(bool (&ready)[kMaxDevices], int device, dim3 grid, int split, size_t smem,
+               void* stream, const void* gy, const void* y, const void* x, const void* wrow,
+               const void* wchunk, void* gw, void* gb, int B, int C, int T_in, int K, int P,
+               int T_out, int t_ld, int stride, int padding, int reflect, float slope, int sb) {
+  cudaError_t err = allow_smem(wgrad_kernel<NQ, T>, ready, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_cluster(
+      wgrad_kernel<NQ, T>, grid, kThreads, 1, split, smem, stream, static_cast<const T*>(gy),
+      static_cast<const T*>(y), static_cast<const T*>(x), static_cast<const int*>(wrow),
+      static_cast<const int*>(wchunk), static_cast<T*>(gw), static_cast<T*>(gb), B, C, T_in, K,
+      P, T_out, t_ld, stride, padding, reflect, slope, sb));
+}
+
 }  // namespace
 
 extern "C" {
 
 // Input gradient gx (B, C, T_in) of a level from gy, y (B, P, rows of t_ld
-// >= T_out floats) and the folded weight w (windows x (P, C, K): window i
-// of the batch, B / windows batches, reads the i-th), all f32, C a
-// multiple of 8, every pointer 16-byte aligned; dgrad_start / dgrad_row:
+// >= T_out values, whole 16-byte granules) and the folded weight w
+// (windows x (P, C, K): window i of the batch, B / windows batches, reads
+// the i-th), all f32 (dtype 0) or all bf16 (dtype 1: whole rows only, span
+// 0), C a multiple of 8, every pointer 16-byte aligned; dgrad_start / dgrad_row:
 // the row tiles live in either chunk of each pair of 8-channel chunks
 // (pack_structure).  The plan (dgrad_plan in the wrapper): batch groups of
 // nbb batches within a window, the row tiles of a pair split over `split`
@@ -1673,17 +1926,19 @@ extern "C" {
 int hmvae_conv_dgrad(const void* gy, const void* y, const void* w, const void* dgrad_start,
                      const void* dgrad_row, void* gx, const void* wpk, int B, int C, int T_in,
                      int K, int P, int T_out, int t_ld, int stride, int padding, int reflect,
-                     float slope, int nbb, int split, int span, int windows, int device,
-                     void* stream) {
+                     float slope, int nbb, int split, int span, int windows, int dtype,
+                     int device, void* stream) {
   const void* ptrs[] = {gy, y, w, gx, span > 0 ? wpk : gy};
-  if (!shape_ok(B, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, device, ptrs, 5) ||
-      windows < 1 || B % windows != 0 || nbb < 1 || nbb > B / windows || split < 1 ||
-      split > kMaxSplit || span < 0 || (span > 0 && (nbb != 1 || wpk == nullptr)))
+  const int esz = dtype == 1 ? 2 : 4;
+  if (!shape_ok(B, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, device, ptrs, 5, esz) ||
+      dtype < 0 || dtype > 1 || windows < 1 || B % windows != 0 || nbb < 1 ||
+      nbb > B / windows || split < 1 || split > kMaxSplit || span < 0 ||
+      (span > 0 && (nbb != 1 || wpk == nullptr || dtype != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_win = B / windows;
   const int gpw = (n_win + nbb - 1) / nbb;  // batch groups of a window
   const int pairs = (C + kDC - 1) / kDC, groups = (C + kSpanC - 1) / kSpanC;
-  static bool ready[2][kMaxDevices] = {};
+  static bool ready[3][kMaxDevices] = {};  // dgrad_kernel f32, the span kernel, bf16
   const int Tp = T_in + 2 * padding;
   if (span > 0) {
     const DgradSpanLayout L = dgrad_span_layout(K, stride, span);
@@ -1708,30 +1963,29 @@ int hmvae_conv_dgrad(const void* gy, const void* y, const void* w, const void* d
         static_cast<const int*>(dgrad_row), static_cast<float*>(gx), n_win, C, T_in, P, T_out,
         t_ld, K, stride, padding, reflect, slope, span, nspans));
   }
-  const DgradLayout L = dgrad_layout(T_in, K, T_out, t_ld, stride, padding, nbb);
+  const DgradLayout L = dgrad_layout(T_in, K, T_out, t_ld, stride, padding, nbb, esz);
   int tiles = 0;  // 16-column tiles of a batch group's columns: one per warp
   for (int phi = 0; phi < stride; ++phi)
     tiles += (nbb * ((L.Tp - phi + stride - 1) / stride) + 15) / 16;
   if (tiles > kWarps * kMaxTiles || L.total > static_cast<size_t>(kMaxSmem) ||
       static_cast<long long>(windows) * gpw > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(dgrad_kernel, ready[0], device);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int plan[8] = {nbb, gpw, split, 0, 1, static_cast<int>(L.total), kStages, kDC};
   for (int i = 0; i < 8; ++i) last_dgrad[i] = plan[i];
-  return static_cast<int>(launch_cluster(
-      dgrad_kernel, dim3(pairs, windows * gpw, split), kThreads, split, 1, L.total, stream,
-      static_cast<const float*>(gy), static_cast<const float*>(y), static_cast<const float*>(w),
-      static_cast<const int*>(dgrad_start), static_cast<const int*>(dgrad_row),
-      static_cast<float*>(gx), n_win, C, T_in, K, P, T_out, t_ld, stride, padding, reflect,
-      slope, nbb, gpw, size_t(P) * C * K));
+  const dim3 grid(pairs, windows * gpw, split);
+  auto launch = dtype == 1 ? dgrad_rows<__nv_bfloat16> : dgrad_rows<float>;
+  return launch(ready[dtype == 1 ? 2 : 0], device, grid, split, L.total, stream, gy, y, w,
+                dgrad_start, dgrad_row, gx, n_win, C, T_in, K, P, T_out, t_ld, stride, padding,
+                reflect, slope, nbb, gpw, size_t(P) * C * K);
 }
 
 // Folded-weight gradient gw (windows x (P, C, K)) on the n_tiles entries of
 // wgrad_row / wgrad_chunk (pack_structure: the live tiles by row tile,
 // chunk -1 for a row tile with none; the caller zeroes the rest) and bias
-// gradient gb (windows x (P,)), from gy, y (B, P, rows of t_ld floats) and x
-// (B, C, T_in), all f32, C a multiple of 8, every pointer 16-byte aligned.
+// gradient gb (windows x (P,)), from gy, y (B, P, rows of t_ld values,
+// whole 16-byte granules) and x (B, C, T_in), all f32 (dtype 0) or all
+// bf16 (dtype 1: whole rows only, span 0), C a multiple of 8, every pointer
+// 16-byte aligned.
 // Window i's gradient sums over its own B / windows batches only.  The plan
 // (wgrad_plan in the wrapper): a window's batches split over `split` blocks
 // of a cluster, staged sb at a time (span = 0), or (span > 0: a multiple
@@ -1742,25 +1996,27 @@ int hmvae_conv_wgrad(const void* gy, const void* y, const void* x, const void* w
                      const void* wchunk, void* gw, void* gb, int n_tiles, int B, int C,
                      int T_in, int K, int P, int T_out, int t_ld, int stride, int padding,
                      int reflect, float slope, int sb, int split, int span, int windows,
-                     int device, void* stream) {
+                     int dtype, int device, void* stream) {
   const void* ptrs[] = {gy, y, x, gw};
-  if (!shape_ok(B, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, device, ptrs, 4) ||
-      n_tiles < 0 || n_tiles > 65535 || sb < 1 || split < 1 || split > kMaxSplit ||
-      windows < 1 || windows > 65535 || B % windows != 0 || span < 0 ||
-      span % kSpanChunk != 0 || span > kSpanCols)
+  const int esz = dtype == 1 ? 2 : 4;
+  if (!shape_ok(B, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, device, ptrs, 4, esz) ||
+      dtype < 0 || dtype > 1 || n_tiles < 0 || n_tiles > 65535 || sb < 1 || split < 1 ||
+      split > kMaxSplit || windows < 1 || windows > 65535 || B % windows != 0 || span < 0 ||
+      span % kSpanChunk != 0 || span > kSpanCols || (span > 0 && dtype != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_win = B / windows;
   const int items = span > 0 ? n_win * ((T_out + span - 1) / span) : n_win;
   if (split > items) return static_cast<int>(cudaErrorInvalidValue);
   if (n_tiles == 0) return 0;
-  const size_t smem = span > 0
-                          ? wgrad_span_layout(K, stride, span).total
-                          : wgrad_layout(n_win, T_in, K, T_out, t_ld, stride, sb, split).total;
+  const size_t smem =
+      span > 0 ? wgrad_span_layout(K, stride, span).total
+               : wgrad_layout(n_win, T_in, K, T_out, t_ld, stride, sb, split, esz).total;
   if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
   // K + 1 tap tiles over the 8 warps: 2 a warp up to K = 15, 3 up to 23, 4 up to 31
   const int nq = (K + kWarps) / kWarps;
-  const int sel = span > 0 ? 3 + ((K + 1) * kCC > 2 * 64) : max(nq, 2) - 2;
-  static bool ready[6][kMaxDevices] = {};
+  // whole rows f32 (0-2), the span kernels (3, 4), whole rows bf16 (5-7)
+  const int sel = span > 0 ? 3 + ((K + 1) * kCC > 2 * 64) : max(nq, 2) - 2 + 5 * dtype;
+  static bool ready[8][kMaxDevices] = {};
   const int plan[4] = {sb, split, span, static_cast<int>(smem)};
   for (int i = 0; i < 4; ++i) last_wgrad[i] = plan[i];
   const dim3 grid(split, n_tiles, windows);
@@ -1779,14 +2035,13 @@ int hmvae_conv_wgrad(const void* gy, const void* y, const void* x, const void* w
         static_cast<float*>(gb), n_win, C, T_in, K, P, T_out, stride, padding, reflect, slope,
         span));
   }
-  auto kernel = nq <= 2 ? wgrad_kernel<2> : nq == 3 ? wgrad_kernel<3> : wgrad_kernel<4>;
-  cudaError_t err = allow_smem(kernel, ready[sel], device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_cluster(
-      kernel, grid, kThreads, 1, split, smem, stream, static_cast<const float*>(gy),
-      static_cast<const float*>(y), static_cast<const float*>(x), static_cast<const int*>(wrow),
-      static_cast<const int*>(wchunk), static_cast<float*>(gw), static_cast<float*>(gb), n_win,
-      C, T_in, K, P, T_out, t_ld, stride, padding, reflect, slope, sb));
+  auto launch = dtype == 1 ? (nq <= 2   ? wgrad_rows<2, __nv_bfloat16>
+                              : nq == 3 ? wgrad_rows<3, __nv_bfloat16>
+                                        : wgrad_rows<4, __nv_bfloat16>)
+                           : (nq <= 2 ? wgrad_rows<2, float>
+                              : nq == 3 ? wgrad_rows<3, float> : wgrad_rows<4, float>);
+  return launch(ready[sel], device, grid, split, smem, stream, gy, y, x, wrow, wchunk, gw, gb,
+                n_win, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, slope, sb);
 }
 
 // The plans of the last launches (see last_dgrad, last_wgrad): dgrad's eight

@@ -10,7 +10,8 @@ two more hand-written kernels, ``hm_vae_torch/csrc/fused_conv_pool_bwd.cu``
 (dgrad and wgrad + bias grad, f32 as 3xTF32 on ``mma.sync``, over long rows
 on ``wgmma``, planned by :func:`dgrad_plan` and :func:`wgrad_plan`; dgrad
 over long rows reads the weight split once a call by
-:func:`dgrad_span_pack`), the counterparts of the JAX package's
+:func:`dgrad_span_pack`; over whole rows also bf16, one bf16 ``mma.sync`` a
+k-step: the models' ``compute_dtype: bfloat16``), the counterparts of the JAX package's
 autodiff of its XLA level (``hm_vae_tpu/models/hm_vae.py``; the JAX package
 has no backward kernel).  Each source's header note says what bounds it on
 an H100 and what its design does about that.
@@ -72,6 +73,13 @@ ROWS = 64  # rows of a weight tile (the kernel's wgmma M)
 CHUNK_CHANNELS = {torch.bfloat16: 16, torch.float32: 8}
 # the backward kernels' tiles: K up to 31 taps (wgrad: K + 1 tap tiles, 4 a warp)
 MAX_BWD_K = 31
+BWD_CHUNK_CHANNELS = 8  # the backward kernels' channel chunk (the mma's N), in f32 and bf16
+# where the backward runs in float32 only, bf16 raises before any launch,
+# naming the work that will port it
+BF16_SPANS = ("the bf16 backward kernels take whole rows only; rows this long run the span "
+              "kernels, float32 only (bf16 spans: ROADMAP Queue 6 item 1)")
+BF16_WINDOWED = ("the windowed backward kernels run in float32 only (bf16 windowed kernels: "
+                 "ROADMAP Queue 6 item 2)")
 MAX_SPLIT = 8  # blocks of a cluster (the portable maximum)
 BWD_WARPS = 8  # dgrad: one 16-column tile of a batch group per warp,
 DGRAD_TILES = 2  # or up to two for a group of one batch (a padded row or span <= 256 / stride)
@@ -218,13 +226,17 @@ class LevelStructure:
     ``DGRAD_SPAN_CHANNELS`` channels, the row tiles live in any of its
     chunks (``dgrad_span_start`` indexes ``dgrad_span_row``, and
     ``dgrad_span_group`` is each entry's group, for
-    :func:`dgrad_span_pack`).  ``live_index`` (row tile * chunks + chunk,
-    int64) is the gather that :func:`repack` writes the values through.
-    ``max_live``, ``dgrad_max_live`` and ``dgrad_span_max_live``: the most
-    live tiles of a row tile, and row tiles of a pair and of a group.
+    :func:`dgrad_span_pack`).  The forward's chunks are the dtype's
+    (``CHUNK_CHANNELS``); the backward's lists are over chunks of
+    ``BWD_CHUNK_CHANNELS`` in either dtype (``bwd_live``: their live
+    tiles).  ``live_index`` (row tile * chunks + chunk, int64) is the gather
+    that :func:`repack` writes the values through.  ``max_live``,
+    ``dgrad_max_live`` and ``dgrad_span_max_live``: the most live tiles of a
+    row tile, and row tiles of a pair and of a group.
     """
 
     live: torch.Tensor
+    bwd_live: torch.Tensor
     tile_start: torch.Tensor
     tile_chunk: torch.Tensor
     wgrad_row: torch.Tensor
@@ -252,9 +264,9 @@ class LevelStructure:
         return self.tile_start.device
 
     def live_elements(self) -> torch.Tensor:
-        """(P, C_in) bool: the entries of the live tiles."""
-        cc = CHUNK_CHANNELS[self.dtype]
-        t = self.live.repeat_interleave(ROWS, 0).repeat_interleave(cc, 1)
+        """(P, C_in) bool: the entries of the backward's live tiles, those
+        the wgrad kernel writes."""
+        t = self.bwd_live.repeat_interleave(ROWS, 0).repeat_interleave(BWD_CHUNK_CHANNELS, 1)
         return t[:self.rows, :self.in_channels]
 
 
@@ -335,18 +347,25 @@ def pack_structure(
     mode = _mode(padding_mode)
     device = live.device if device is None else torch.device(device)
     P, C_in = live.shape
-    cc = CHUNK_CHANNELS[dtype]
-    rt, nc = -(-P // ROWS), -(-C_in // cc)
-    pad = torch.zeros(rt * ROWS, nc * cc, dtype=torch.bool)
-    pad[:P, :C_in] = live.cpu()
-    tiles = pad.reshape(rt, ROWS, nc, cc).any(3).any(1)  # (rt, nc)
+    rt = -(-P // ROWS)
+
+    def chunk_tiles(cc):  # (rt, chunks): the live ROWS x cc tiles
+        nc = -(-C_in // cc)
+        pad = torch.zeros(rt * ROWS, nc * cc, dtype=torch.bool)
+        pad[:P, :C_in] = live.cpu()
+        return pad.reshape(rt, ROWS, nc, cc).any(3).any(1)
+
+    tiles = chunk_tiles(CHUNK_CHANNELS[dtype])  # the forward's
     by_row = tiles.nonzero()  # row-major: row tile, then chunk
-    pairs = torch.zeros(rt, -(-nc // DGRAD_CHUNKS) * DGRAD_CHUNKS, dtype=torch.bool)
-    pairs[:, :nc] = tiles
+    nc = tiles.shape[1]
+    bt = chunk_tiles(BWD_CHUNK_CHANNELS)  # the backward's (the same in f32)
+    nb = bt.shape[1]
+    pairs = torch.zeros(rt, -(-nb // DGRAD_CHUNKS) * DGRAD_CHUNKS, dtype=torch.bool)
+    pairs[:, :nb] = bt
     pairs = pairs.reshape(rt, -1, DGRAD_CHUNKS).any(2)  # (rt, pairs)
-    per = DGRAD_SPAN_CHANNELS // cc
-    groups = torch.zeros(rt, -(-nc // per) * per, dtype=torch.bool)
-    groups[:, :nc] = tiles
+    per = DGRAD_SPAN_CHANNELS // BWD_CHUNK_CHANNELS
+    groups = torch.zeros(rt, -(-nb // per) * per, dtype=torch.bool)
+    groups[:, :nb] = bt
     groups = groups.reshape(rt, -1, per).any(2)  # (rt, groups)
     by_group = groups.T.nonzero()  # group-major: group, then row tile
     gstart = torch.zeros(groups.shape[1] + 1, dtype=torch.int32)
@@ -356,15 +375,16 @@ def pack_structure(
     dstart = torch.zeros(pairs.shape[1] + 1, dtype=torch.int32)
     dstart[1:] = pairs.sum(0).cumsum(0)
     # wgrad's entries: the live tiles by row, (row, -1) where a row has none
-    empty = (~tiles.any(1)).nonzero()[:, 0]
-    wg = torch.cat([by_row, torch.stack([empty, torch.full_like(empty, -1)], 1)])
-    wg = wg[torch.argsort(wg[:, 0] * (nc + 1) + wg[:, 1], stable=True)]
+    empty = (~bt.any(1)).nonzero()[:, 0]
+    wg = torch.cat([bt.nonzero(), torch.stack([empty, torch.full_like(empty, -1)], 1)])
+    wg = wg[torch.argsort(wg[:, 0] * (nb + 1) + wg[:, 1], stable=True)]
 
     def put(t, dt=torch.int32):
         return t.to(dt).contiguous().to(device)
 
     return LevelStructure(
-        live=tiles.to(device), tile_start=put(start), tile_chunk=put(by_row[:, 1]),
+        live=tiles.to(device), bwd_live=bt.to(device), tile_start=put(start),
+        tile_chunk=put(by_row[:, 1]),
         wgrad_row=put(wg[:, 0]), wgrad_chunk=put(wg[:, 1]), dgrad_start=put(dstart),
         dgrad_row=put(pairs.T.nonzero()[:, 1]), dgrad_span_start=put(gstart),
         dgrad_span_row=put(by_group[:, 1]),
@@ -372,8 +392,8 @@ def pack_structure(
         live_index=put(by_row[:, 0] * nc + by_row[:, 1], torch.int64), dtype=dtype,
         rows=P, in_channels=C_in, kernel_size=kernel_size,
         max_live=int(tiles.sum(1).max()) if rt else 0,
-        dgrad_max_live=int(pairs.sum(0).max()) if nc else 0,
-        dgrad_span_max_live=int(groups.sum(0).max()) if nc else 0, stride=stride,
+        dgrad_max_live=int(pairs.sum(0).max()) if nb else 0,
+        dgrad_span_max_live=int(groups.sum(0).max()) if nb else 0, stride=stride,
         padding=padding,
         reflect=mode == "reflect", negative_slope=float(negative_slope))
 
@@ -506,14 +526,14 @@ ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float]
             + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 # hmvae_conv_dgrad(gy, y, w, dgrad_start, dgrad_row, gx, wpk, B, C, T_in,
 # K, P, T_out, t_ld, stride, padding, reflect, slope, nbb, split, span,
-# windows, device, stream)
+# windows, dtype, device, stream)
 DGRAD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_float]
-                  + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                  + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 # hmvae_conv_wgrad(gy, y, x, wgrad_row, wgrad_chunk, gw, gb, n_tiles, B, C,
 # T_in, K, P, T_out, t_ld, stride, padding, reflect, slope, sb, split, span,
-# windows, device, stream)
+# windows, dtype, device, stream)
 WGRAD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_float]
-                  + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                  + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def _bind(lib, name, argtypes):
@@ -780,9 +800,11 @@ fused_conv_pool_windowed.launches = 0
 
 
 def _bwd_checks(s: LevelStructure, gy: torch.Tensor, y: torch.Tensor, **tensors) -> None:
-    if gy.dtype != torch.float32 or s.dtype != torch.float32:
-        raise TypeError("the fused_conv_pool backward kernels run in float32 only "
-                        f"(got {gy.dtype}, structure {s.dtype})")
+    """The backward kernels take float32, or bfloat16 where gy, y, the
+    other operands and the structure all share it."""
+    if gy.dtype not in _DTYPES or s.dtype != gy.dtype:
+        raise TypeError("the fused_conv_pool backward kernels take float32 or bfloat16, gy in "
+                        f"its structure's dtype (got {gy.dtype}, structure {s.dtype})")
     if s.kernel_size > MAX_BWD_K:
         raise ValueError(f"the backward kernels take K <= {MAX_BWD_K}, not {s.kernel_size}")
     if not s.negative_slope > 0:
@@ -790,8 +812,10 @@ def _bwd_checks(s: LevelStructure, gy: torch.Tensor, y: torch.Tensor, **tensors)
                          f"slope must be > 0, not {s.negative_slope}")
     _check("y", y, gy, gy.shape)
     for name, t in tensors.items():
-        if t.device != gy.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 tensor on {gy.device}")
+        if t.dtype != gy.dtype:
+            raise TypeError(f"{name} has dtype {t.dtype}, gy has {gy.dtype}")
+        if t.device != gy.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous tensor on {gy.device}")
     if gy.device != s.device:
         raise ValueError(f"gy is on {gy.device}, the structure on {s.device}")
     if not gy.is_contiguous():
@@ -874,9 +898,18 @@ def _dgrad_tiles(width: int, stride: int, nbb: int = 1) -> int:
     return sum(-(-nbb * -(-(width - phi) // stride) // 16) for phi in range(stride))
 
 
+def dgrad_whole_rows(T_in: int, K: int, stride: int, padding: int, t_ld: int,
+                     esz: int = 4) -> bool:
+    """Whether one batch's padded row fits a whole-row dgrad block: at most
+    ``DGRAD_TILES`` 16-column tiles a warp and within shared memory, in
+    elements of ``esz`` bytes (4: f32, 2: bf16)."""
+    return (_dgrad_tiles(T_in + 2 * padding, stride) <= BWD_WARPS * DGRAD_TILES
+            and _dgrad_smem(T_in, K, t_ld, stride, padding, 1, esz) <= MAX_SMEM)
+
+
 def dgrad_plan(B: int, T_in: int, K: int, stride: int, padding: int, t_ld: int,
                pairs: int, max_live: int, sms: int, windows: int = 1,
-               span_groups: Optional[Tuple[int, int]] = None) -> DgradPlan:
+               span_groups: Optional[Tuple[int, int]] = None, esz: int = 4) -> DgradPlan:
     """The dgrad kernel's :class:`DgradPlan`: a block owns a pair of channel
     chunks and the padded rows of ``nbb`` batches (``groups`` batch groups
     of each of ``windows`` windows of ``B`` batches: a group never crosses a
@@ -890,15 +923,16 @@ def dgrad_plan(B: int, T_in: int, K: int, stride: int, padding: int, t_ld: int,
     default half the pairs and their most).  Chosen for the least time on an
     SM, counted in row tiles: waves of blocks (two to an SM where their
     shared memory allows) times the row tiles a block walks, plus one for
-    its prologue and epilogue; ties go to fewer blocks."""
+    its prologue and epilogue; ties go to fewer blocks.  ``esz``: the
+    element's bytes (4: f32, 2: bf16, whose smaller stages may let a block
+    take more batches)."""
     Tp = T_in + 2 * padding
-    if (_dgrad_tiles(Tp, stride) > BWD_WARPS * DGRAD_TILES
-            or _dgrad_smem(T_in, K, t_ld, stride, padding, 1) > MAX_SMEM):
+    if not dgrad_whole_rows(T_in, K, stride, padding, t_ld, esz):
         groups, group_live = span_groups or (-(-pairs // 2), max_live)
         return dgrad_span_plan(B, T_in, K, stride, padding, groups, group_live, sms, windows)
     best = None
     for nb in range(1, 1 + B):
-        smem = _dgrad_smem(T_in, K, t_ld, stride, padding, nb)
+        smem = _dgrad_smem(T_in, K, t_ld, stride, padding, nb, esz)
         if nb > 1 and (_dgrad_tiles(Tp, stride, nb) > BWD_WARPS or smem > MAX_SMEM):
             continue
         groups = -(-B // nb)
@@ -936,19 +970,23 @@ def dgrad_span_plan(B: int, T_in: int, K: int, stride: int, padding: int, groups
     return best[1]
 
 
-def _dgrad_smem(T_in: int, K: int, t_ld: int, stride: int, padding: int, nbb: int) -> int:
+def _dgrad_smem(T_in: int, K: int, t_ld: int, stride: int, padding: int, nbb: int,
+                esz: int = 4) -> int:
     """Bytes of shared memory a whole-row dgrad block takes (``dgrad_layout``
-    in the kernel's source): two weight stages (32 rows of 16 channels), one
-    of gy and y, g split and padded, and gxpad (over the weight stages when
-    it fits)."""
+    in the kernel's source) in elements of ``esz`` bytes: two weight stages
+    (32 rows of 16 channels), one of gy and y, g padded (f32: split, 8 bytes
+    a value; bf16: two rows p a 4-byte word), and gxpad, f32 (over the
+    weight stages when it fits)."""
     kmax = -(-K // stride)
     Tp = T_in + 2 * padding
     T_out = (Tp - K) // stride + 1
-    rs = (kmax - 1 + max(-(-Tp // stride), T_out) + 11) // 16 * 16 + 4
+    n = kmax - 1 + max(-(-Tp // stride), T_out)
+    rs = (n + 11) // 16 * 16 + 4 if esz == 4 else (n + 23) // 32 * 32 + 8
     a16 = lambda n: -(-n // 16) * 16  # noqa: E731
     half = ROWS // 2  # a stage: half a row tile
-    w_ring = a16(2 * half * (8 * DGRAD_CHUNKS * K + 8) * 4)
-    g2_end = 64 + w_ring + a16(2 * nbb * half * t_ld * 4) + nbb * half * rs * 8
+    w_ring = a16(2 * half * (8 * DGRAD_CHUNKS * K + 8) * esz)
+    g2_end = (64 + w_ring + a16(2 * nbb * half * t_ld * esz)
+              + nbb * half * rs * (8 if esz == 4 else 2))
     out = 8 * DGRAD_CHUNKS * nbb * Tp * 4
     return g2_end if out <= w_ring else a16(g2_end) + out
 
@@ -991,20 +1029,23 @@ def dgrad_span_shift(Tp: int, span: int, stride: int, padding: int, reflect: boo
 
 
 def _wgrad_smem(B: int, T_in: int, K: int, T_out: int, t_ld: int, stride: int, sb: int,
-                split: int) -> int:
+                split: int, esz: int = 4) -> int:
     """Bytes of shared memory a wgrad block takes (``wgrad_layout`` in the
-    kernel's source): x's rows of the block's batches padded and split, one
-    or two stages of gy and y, and g in fragment order (x's raw rows first,
-    the partial gradient tile over the stages last)."""
+    kernel's source) in elements of ``esz`` bytes: x's rows of the block's
+    batches padded (f32: split, 8 bytes a value), one or two stages of gy
+    and y, and g in fragment order (k-steps of 8 columns, big + small, in
+    f32; of 16, one part, in bf16; x's raw rows first, the f32 partial
+    gradient tile over the stages last)."""
     a16 = lambda n: -(-n // 16) * 16  # noqa: E731
     nb_max = -(-B // split)
     n_st = -(-nb_max // sb)
     Lh = -(-((T_out - 1) * stride + K) // stride)
-    rsx = (stride * Lh + 11) // 16 * 16 + 4
-    g = 64 + a16(nb_max * 8 * rsx * 8)
-    stage = a16(2 * sb * ROWS * t_ld * 4)
-    frags = -(-sb * T_out // 8) * 4 * 32 * 8 * 4
-    tail = max(frags, nb_max * 8 * T_in * 4)
+    f32 = esz == 4
+    rsx = (stride * Lh + 11) // 16 * 16 + 4 if f32 else (stride * Lh + 55) // 64 * 64 + 8
+    g = 64 + a16(nb_max * 8 * rsx * (8 if f32 else 2))
+    stage = a16(2 * sb * ROWS * t_ld * esz)
+    frags = -(-sb * T_out // (8 if f32 else 16)) * 4 * 32 * (32 if f32 else 16)
+    tail = max(frags, nb_max * 8 * T_in * esz)
     red = ROWS * (8 * K + 4) * 4
     slots = min(n_st, 2)
     while True:
@@ -1056,6 +1097,16 @@ def wgrad_span_plan(B: int, T_out: int, entries: int, sms: int, windows: int = 1
     return WgradPlan(1, min(range(1, min(MAX_SPLIT, items) + 1), key=cost), cols)
 
 
+def wgrad_whole_rows(B: int, T_in: int, K: int, T_out: int, t_ld: int, stride: int,
+                     esz: int = 4) -> bool:
+    """Whether x's rows of a wgrad block fit shared memory at the widest
+    split (``MAX_SPLIT`` blocks, at most B), in elements of ``esz`` bytes:
+    else :func:`wgrad_plan` cuts the reduction into items."""
+    split = min(MAX_SPLIT, B)
+    sb = max(1, min(-(-B // split), WGRAD_STAGE_COLS // T_out))
+    return _wgrad_smem(B, T_in, K, T_out, t_ld, stride, sb, split, esz) <= MAX_SMEM
+
+
 def wgrad_plan(B: int, T_out: int, entries: int, sms: int, windows: int = 1,
                smem=None, span_cols: int = WGRAD_SPAN_COLS) -> WgradPlan:
     """The wgrad kernel's :class:`WgradPlan`: one block per entry (a live
@@ -1094,6 +1145,16 @@ def last_backward_plans() -> dict:
             "wgrad": dict(zip(WgradPlan._fields + ("smem",), out[8:]))}
 
 
+def _bf16_checks(windows: Optional[int], plan, whole_rows) -> None:
+    """The bf16 backward kernels take whole rows of one window: bf16 over
+    spans or windows raises, before any launch.  ``whole_rows()``: whether
+    the call's rows fit a whole-row block."""
+    if windows is not None:
+        raise TypeError(BF16_WINDOWED)
+    if (plan is not None and plan.span) or not whole_rows():
+        raise TypeError(BF16_SPANS)
+
+
 def _aligned(t: torch.Tensor, dim: int, multiple: int) -> torch.Tensor:
     """``t`` zero-padded along ``dim`` to a multiple of ``multiple``, on a
     16-byte aligned address: the kernels bulk-copy whole rows (``t`` itself
@@ -1126,14 +1187,19 @@ def _dgrad(gy, y, weight, s: LevelStructure, T_in: int, windows: Optional[int],
                          f"the structure and {G} windows")
     if _t_out(T_in, K, s.stride, s.padding, s.reflect) != T_out:
         raise ValueError(f"T_in {T_in} does not give T_out {T_out}")
-    gy, y = _aligned(gy, 2, 4), _aligned(y, 2, 4)
-    w = _aligned(weight, weight.dim() - 2, CHUNK_CHANNELS[torch.float32])
+    esz = gy.element_size()
+    gran = 16 // esz  # the kernels bulk-copy rows of gy and y as whole 16-byte granules
+    if gy.dtype == torch.bfloat16:
+        _bf16_checks(windows, plan, lambda: dgrad_whole_rows(
+            T_in, K, s.stride, s.padding, -(-T_out // gran) * gran, esz))
+    gy, y = _aligned(gy, 2, gran), _aligned(y, 2, gran)
+    w = _aligned(weight, weight.dim() - 2, BWD_CHUNK_CHANNELS)
     C, t_ld = w.shape[-2], gy.shape[2]
     dev = gy.device.index
     plan = plan or dgrad_plan(
         B // G, T_in, K, s.stride, s.padding, t_ld, s.dgrad_start.numel() - 1,
         s.dgrad_max_live, _sm_count(dev), G,
-        (s.dgrad_span_start.numel() - 1, s.dgrad_span_max_live))
+        (s.dgrad_span_start.numel() - 1, s.dgrad_span_max_live), esz)
     lib, dgrad, _ = _bwd_library()
     gx = torch.empty((B, C, T_in), dtype=gy.dtype, device=gy.device)
     # spans read the weight split into TF32 planes, once a call, and walk
@@ -1145,7 +1211,7 @@ def _dgrad(gy, y, weight, s: LevelStructure, T_in: int, windows: Optional[int],
         gy.data_ptr(), y.data_ptr(), w.data_ptr(), start.data_ptr(),
         rows.data_ptr(), gx.data_ptr(), None if wpk is None else wpk.data_ptr(),
         B, C, T_in, K, P, T_out, t_ld, s.stride, s.padding, int(s.reflect), s.negative_slope,
-        plan.nbb, plan.split, plan.span, G, dev,
+        plan.nbb, plan.split, plan.span, G, _DTYPES[gy.dtype], dev,
         torch.cuda.current_stream(gy.device).cuda_stream))
     _build.check(lib, err, entry.__name__)
     entry.launches += 1
@@ -1168,14 +1234,19 @@ def _wgrad(gy, y, x, s: LevelStructure, windows: Optional[int],
                          f"and {G} windows")
     if _t_out(T_in, K, s.stride, s.padding, s.reflect) != T_out:
         raise ValueError(f"T_in {T_in} does not give T_out {T_out}")
-    gy, y = _aligned(gy, 2, 4), _aligned(y, 2, 4)
-    x = _aligned(x, 1, CHUNK_CHANNELS[torch.float32])
+    esz = gy.element_size()
+    gran = 16 // esz
+    if gy.dtype == torch.bfloat16:
+        _bf16_checks(windows, plan, lambda: wgrad_whole_rows(
+            B // G, T_in, K, T_out, -(-T_out // gran) * gran, s.stride, esz))
+    gy, y = _aligned(gy, 2, gran), _aligned(y, 2, gran)
+    x = _aligned(x, 1, BWD_CHUNK_CHANNELS)
     C, t_ld = x.shape[1], gy.shape[2]
     dev = gy.device.index
     entries = s.wgrad_row.numel()
     sb, split, span = plan or wgrad_plan(
         B // G, T_out, entries, _sm_count(dev), G,
-        lambda sb, split: _wgrad_smem(B // G, T_in, K, T_out, t_ld, s.stride, sb, split),
+        lambda sb, split: _wgrad_smem(B // G, T_in, K, T_out, t_ld, s.stride, sb, split, esz),
         wgrad_span_cols(K, s.stride))
     lib, _, wgrad = _bwd_library()
     gw = torch.zeros((G, P, C, K), dtype=gy.dtype, device=gy.device)
@@ -1184,7 +1255,7 @@ def _wgrad(gy, y, x, s: LevelStructure, windows: Optional[int],
         gy.data_ptr(), y.data_ptr(), x.data_ptr(), s.wgrad_row.data_ptr(),
         s.wgrad_chunk.data_ptr(), gw.data_ptr(), gb.data_ptr(), entries, B, C, T_in, K, P,
         T_out, t_ld, s.stride, s.padding, int(s.reflect), s.negative_slope, sb, split, span, G,
-        dev, torch.cuda.current_stream(gy.device).cuda_stream))
+        _DTYPES[gy.dtype], dev, torch.cuda.current_stream(gy.device).cuda_stream))
     _build.check(lib, err, entry.__name__)
     entry.launches += 1
     if C != C_in:
@@ -1196,8 +1267,9 @@ def fused_conv_pool_dgrad(gy: torch.Tensor, y: torch.Tensor, weight: torch.Tenso
                           structure: LevelStructure, T_in: int) -> torch.Tensor:
     """The input gradient (B, C_in, T_in) of a folded level, from the output
     gradient ``gy`` and output ``y`` (B, P, T_out) and the folded weight
-    (P, C_in, K).  One kernel launch on CUDA (f32), fixed-order sums (the
-    same bits every run); the plain version on the CPU."""
+    (P, C_in, K), in gy's dtype.  One kernel launch on CUDA (f32; bf16 over
+    whole rows), fixed-order sums (the same bits every run); the plain
+    version on the CPU."""
     s = structure
     if gy.device.type == "cpu":
         return fused_conv_pool_dgrad_reference(gy, y, weight, T_in, s.stride, s.padding,
@@ -1209,9 +1281,9 @@ def fused_conv_pool_wgrad(gy: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
                           structure: LevelStructure):
     """The folded weight's gradient (P, C_in, K), zero outside the live
     tiles, and the bias gradient (P,), from ``gy`` and ``y`` (B, P, T_out)
-    and the input x (B, C_in, T_in).  One kernel launch on CUDA (f32),
-    fixed-order sums (the same bits every run); the plain version on the
-    CPU."""
+    and the input x (B, C_in, T_in), in gy's dtype.  One kernel launch on
+    CUDA (f32; bf16 over whole rows), fixed-order sums (the same bits every
+    run); the plain version on the CPU."""
     s = structure
     if gy.device.type == "cpu":
         return fused_conv_pool_wgrad_reference(gy, y, x, s.kernel_size, s.stride, s.padding,
@@ -1223,7 +1295,7 @@ def fused_conv_pool_dgrad_windowed(gy: torch.Tensor, y: torch.Tensor, weight: to
                                    structure: LevelStructure, T_in: int) -> torch.Tensor:
     """:func:`fused_conv_pool_dgrad` of G windows: gy, y (G*n, P, T_out),
     folded weights (G, P, C_in, K), window g's batches through weight g.
-    One kernel launch on CUDA."""
+    One kernel launch on CUDA (f32 only)."""
     s = structure
     if gy.device.type == "cpu":
         return fused_conv_pool_dgrad_windowed_reference(gy, y, weight, T_in, s.stride,
@@ -1237,7 +1309,7 @@ def fused_conv_pool_wgrad_windowed(gy: torch.Tensor, y: torch.Tensor, x: torch.T
     """:func:`fused_conv_pool_wgrad` of ``windows`` windows of gy, y
     (G*n, P, T_out) and x (G*n, C_in, T_in): each window's gradients
     (G, P, C_in, K) and (G, P), summed over its own n batches only.  One
-    kernel launch on CUDA."""
+    kernel launch on CUDA (f32 only)."""
     s = structure
     if gy.device.type == "cpu":
         return fused_conv_pool_wgrad_windowed_reference(
@@ -1260,7 +1332,9 @@ class FusedConvPoolFn(torch.autograd.Function):
     On CUDA the forward writes the weight's current values into the
     structure's tiles (:func:`repack`) and launches the forward kernel; the
     backward launches the dgrad kernel (only when x needs a gradient) and
-    the wgrad kernel.  The weight's entries outside the live tiles must be
+    the wgrad kernel, in the structure's dtype (f32, or bf16 over whole
+    rows), so that the gradients come back in the dtypes of x, the weight
+    and the bias.  The weight's entries outside the live tiles must be
     zero, as a fold of the structure leaves them.  It saves x and the output:
     LeakyReLU's gradient is read from the output's sign.
     """

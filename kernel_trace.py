@@ -145,12 +145,12 @@ def _wgrad_patches():
     written in fragment order, 4+3i after the products; 21 after the
     partial tile is written (cluster sync), 22 after the cluster's sum and
     the stores."""
-    summed = ("        xb[h] = ((i * sb + bb) * kCC + gid) * L.rsx + t;\n      }\n"
-              "      wgrad_kstep<NQ>(sum, xp, gf, xb, koff, ks, K, warp, lane);\n    }\n  }\n")
+    summed = ("        wgrad_kstep<NQ>(sum, xp, gf, xb, koff, ks, K, warp, lane);\n      }\n"
+              "    }\n  }\n")
+    layout = ("  const WgradLayout L = wgrad_layout(B, T_in, K, T_out, t_ld, stride, sb, split, "
+              "sizeof(T));\n")
     return [
-        ("  const WgradLayout L = wgrad_layout(B, T_in, K, T_out, t_ld, stride, sb, split);\n",
-         "  const WgradLayout L = wgrad_layout(B, T_in, K, T_out, t_ld, stride, sb, split);\n  "
-         + stamp(0) + "\n"),
+        (layout, layout + "  " + stamp(0) + "\n"),
         ("  for (int i = 0; i < n_st; ++i) {\n",
          f"  {stamp(1)}\n  {stamp(31, 'n_st')}\n  for (int i = 0; i < n_st; ++i) {{\n"),
         ("    mbar_wait(smem_addr(bars + 1 + slot), (i / L.slots) & 1);\n",
@@ -445,10 +445,15 @@ def _parent_span_plan(fcp, B, T_in, K, stride, padding, pairs, max_live, sms):
     return span, min(range(1, min(fcp.MAX_SPLIT, max(1, max_live)) + 1), key=cost)
 
 
+# the parent source's hmvae_conv_dgrad: DGRAD_ARGTYPES without the dtype
+PARENT_DGRAD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_float]
+                         + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+
 def _parent_span_launch(lib, fcp, s, wf, gy, y, T_in):
     """One launch of the parent source's span mode (its scratch row and the
     fold), as its wrapper made it; returns gx."""
-    fn = fcp._bind(lib, "hmvae_conv_dgrad", fcp.DGRAD_ARGTYPES)
+    fn = fcp._bind(lib, "hmvae_conv_dgrad", PARENT_DGRAD_ARGTYPES)
     B, P, T_out = gy.shape
     w = fcp._aligned(wf, 1, 8)
     C, dev = w.shape[1], gy.device.index

@@ -215,11 +215,26 @@ def test_trained_zero_keeps_its_tile():
 
 
 def test_backward_wrappers_take_float32_only():
-    """On a non-CPU device the wrappers check before they launch: the bf16
-    backward raises instead of falling back."""
-    s = fcp.pack_structure(torch.ones(64, 8, dtype=torch.bool), 3, torch.bfloat16, 1, 1)
-    gy = torch.empty((1, 64, 4), dtype=torch.bfloat16, device="meta")
-    with pytest.raises(TypeError, match="float32 only"):
+    """On a non-CPU device the wrappers check before they launch: bf16 runs
+    the backward kernels over whole rows of one window only, so a bf16 call
+    over spans (rows past whole-row staging) or over windows raises,
+    naming the ROADMAP item that will port it, instead of falling back; so
+    does a weight or x whose dtype is not gy's."""
+    def meta(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device="meta")
+
+    s = fcp.pack_structure(torch.ones(64, 8, dtype=torch.bool), 3, torch.bfloat16, 1, 1,
+                           device="meta")
+    T = 1024  # past one block's whole-row staging: spans, float32 only
+    gy = meta(1, 64, T)
+    with pytest.raises(TypeError, match="float32 only.*Queue 6 item 1"):
+        fcp.fused_conv_pool_dgrad(gy, gy, meta(64, 8, 3), s, T)
+    with pytest.raises(TypeError, match="float32 only.*Queue 6 item 1"):
+        fcp.fused_conv_pool_wgrad(gy, gy, meta(1, 8, T), s)
+    gy = meta(2, 64, 4)  # two windows of one batch
+    with pytest.raises(TypeError, match="float32 only.*Queue 6 item 2"):
+        fcp.fused_conv_pool_dgrad_windowed(gy, gy, meta(2, 64, 8, 3), s, 4)
+    with pytest.raises(TypeError, match="float32 only.*Queue 6 item 2"):
+        fcp.fused_conv_pool_wgrad_windowed(gy, gy, meta(2, 8, 4), s, 2)
+    with pytest.raises(TypeError, match="weight has dtype torch.float32"):
         fcp.fused_conv_pool_dgrad(gy, gy, torch.empty((64, 8, 3), device="meta"), s, 4)
-    with pytest.raises(TypeError, match="float32 only"):
-        fcp.fused_conv_pool_wgrad(gy, gy, torch.empty((1, 8, 4), device="meta"), s)
