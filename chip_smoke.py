@@ -12,7 +12,8 @@ Phases, each of which exits non-zero on failure:
    memory, spills) and SASS (``HGMMA``: wgmma; ``HMMA``: mma.sync;
    ``UBLKCP``: bulk copies) are printed; the forward's bf16 instantiation
    must contain wgmma, and the dgrad and wgrad kernels tensor-core products
-   (their bf16 instantiations HMMA);
+   (their whole-row bf16 instantiations HMMA, dgrad's span kernel HGMMA in
+   both element types);
 2. hold the forward kernel against its plain PyTorch version at the eight
    level shapes of the len-64 model (its real operands: masks, pool matrices,
    unpool-folded weights), in f32 and bf16, at batch 8 (plus one stride-1
@@ -100,7 +101,10 @@ Phases, each of which exits non-zero on failure:
 20. (run right after phase 12, beside the other kernels) the three kernels
    at ``configs/len64_production.yaml``'s batch of 64, f32, at the eight
    len-64 levels, held and timed as phases 2 and 5 hold and time theirs,
-   each giving the same bits on two runs;
+   each giving the same bits on two runs; dgrad as routed there (spans of
+   several batches' whole rows), the whole-row kernel held and timed beside
+   it, unrouted, and the spans' weight layout (``dgrad_span_pack``) bit for
+   bit against its plain version;
 21. the production config's steps: 32 steps at batch 64, one step captured
    in a CUDA graph and replayed 32 times, against the same steps run
    eagerly, from one init and one superbatch of the f16 aa wire, the
@@ -115,9 +119,10 @@ Phases, each of which exits non-zero on failure:
    keep_checkpoints 2, then ``--resume``; the train split the native
    sampler on the aa wire, the steps a CUDA graph; then the step's cost
    through ``Trainer.fit``: ms a step by CUDA events, the kernels'
-   launches a call in the device trace (256 / 224 / 256), peak memory,
-   device time and idle share, beside the same config at
-   ``steps_per_call: 1`` (eager);
+   launches a call in the device trace (256 / 224 / 256), dgrad's device
+   ms a step, the weight layout's launches (one a step at each level
+   whose dgrad runs spans), peak memory, device time and idle share,
+   beside the same config at ``steps_per_call: 1`` (eager);
 23. random root rotation on the card: ``configs/len8_data_aug_hm_vae.yaml``
    trains through the native sampler with ``device_augment``, and
    ``apply_root_rot`` on the GPU agrees with the CPU on the same rotations;
@@ -162,9 +167,11 @@ Phases, each of which exits non-zero on failure:
    stages, split, bytes), timed as phase 5's; both span kernels timed,
    unrouted, beside the whole-row kernels at shapes whose rows fit whole
    (the len-64 levels at batch 8 and 64, the trajectory's at batch 8, T
-   128); then 5 steps of the trajectory model at train_seq_len
-   1,024 on the card against the CPU, under phase 13's gate (4 / 3 / 4
-   launches a step);
+   128); dgrad's spans in bf16 at the K-31 levels at (1, 7,200) and (8,
+   1,024) and at the stride-2 level, held at 0.02 * max|ref|, bit-equal on
+   two runs (bf16 wgrad items raise); then 5 steps of the trajectory model
+   at train_seq_len 1,024 on the card against the CPU, under phase 13's
+   gate (4 / 3 / 4 launches a step);
 30. data-parallel training over torch.distributed ranks started by
    ``python -m torch.distributed.run`` with ``HMVAE_DIST=1`` (the ranks run
    ``chip_smoke.py --rank-audit <report> <root> <runs.json>``, which runs
@@ -208,13 +215,15 @@ Phases, each of which exits non-zero on failure:
    theirs;
 35. training with bf16 conv compute (``compute_dtype: bfloat16`` on
    ``configs/len64_production.yaml``: bf16 parameters, moments and
-   compute, the JAX package's "MAX-PERF triple"): the bf16 whole-row dgrad
-   and wgrad at the 8 len-64 levels (batch 8 and 64) and the trajectory
-   model's 4 K-31 levels (batch 8, T 128), held and timed as phase 5 holds
-   and times its rows, in bf16 (0.02 * max|ref|), two runs bit-equal; the
-   triple's 32-step CUDA-graph call at batch 64 against the same steps
-   eagerly, bit for bit, and its cost (ms a step by events, device ms, idle
-   share, peak memory, 8 / 7 / 8 device runs a step); GPU against CPU at
+   compute, the JAX package's "MAX-PERF triple"): the bf16 dgrad and wgrad
+   at the 8 len-64 levels (batch 8 and 64: dgrad's spans of several
+   batches' rows, routed there, with the whole-row kernel timed beside
+   them) and the trajectory model's 4 K-31 levels (batch 8, T 128), held
+   and timed as phase 5 holds and times its rows, in bf16 (0.02 *
+   max|ref|), two runs bit-equal; the triple's 32-step CUDA-graph call at
+   batch 64 against the same steps eagerly, bit for bit, and its cost (ms a
+   step by events, device ms, dgrad's ms, idle share, peak memory, 8 / 7 /
+   8 device runs a step); GPU against CPU at
    batch 4, two 4-step calls, in a band from batches scaled by 1 + 2^-7
    (a perturbation that survives the cast to bf16) on both sides; JAX's
    convergence criterion (40 steps on a fixed batch: its small config at lr
@@ -526,13 +535,15 @@ def fwd_kind(name):
 
 
 def bwd_kind(name):
-    """dgrad ("dgrad_spans" for ``dgrad_span_kernel``), or wgrad by its tap
-    tiles a warp: two (K <= 15, "wgrad"), three (K <= 23, "wgrad_nq3") or
-    four (K <= 31, "wgrad_nq4", the trajectory model's K 31);
-    ``wgrad_span_kernel`` by its m64 tiles a warpgroup: "wgrad_spans_nt1"
-    (K <= 15) or "wgrad_spans_nt2" (K <= 31); "_bf16" after the name of a
-    whole-row kernel's bf16 instantiation."""
+    """dgrad ("dgrad_spans" for ``dgrad_span_kernel``, "dgrad_span_pack"
+    for its weight's layout), or wgrad by its tap tiles a warp: two (K <=
+    15, "wgrad"), three (K <= 23, "wgrad_nq3") or four (K <= 31,
+    "wgrad_nq4", the trajectory model's K 31); ``wgrad_span_kernel`` by its
+    m64 tiles a warpgroup: "wgrad_spans_nt1" (K <= 15) or "wgrad_spans_nt2"
+    (K <= 31); "_bf16" after the name of a bf16 instantiation."""
     bf16 = "_bf16" if "nv_bfloat16" in name else ""
+    if "dgrad_span_pack" in name:
+        return "dgrad_span_pack" + bf16
     if "dgrad" in name:
         return ("dgrad_spans" if "dgrad_span" in name else "dgrad") + bf16
     if "wgrad_span" in name:
@@ -651,7 +662,11 @@ def e2e_phase(cfg, dtype, x6d):
 # the port's kernels by their names in a device trace (a CUDA-graph replay
 # runs them with no call of their entries, so only the trace sees them)
 TRACE_KERNELS = re.compile(
-    r"::(conv_gemm_kernel|dgrad_kernel|dgrad_span_kernel|wgrad_kernel|wgrad_span_kernel)[<(]")
+    r"::(conv_gemm_kernel|dgrad_kernel|dgrad_span_kernel|dgrad_span_pack_kernel|wgrad_kernel"
+    r"|wgrad_span_kernel)[<(]")
+# the dgrad kernels of a training step in a device trace: whole rows, spans
+# and the spans' weight layout
+DGRAD_TRACE = ("dgrad_kernel", "dgrad_span_kernel", "dgrad_span_pack_kernel")
 TRACE_NAME = {"fused_conv_pool": "conv_gemm_kernel", "fused_conv_pool_dgrad": "dgrad_kernel",
               "fused_conv_pool_wgrad": "wgrad_kernel"}
 
@@ -676,7 +691,7 @@ def profile_calls(fn, calls: int = 10, warm: bool = True):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels, count, ours = {}, 0, {}
+    kernels, count, ours, ours_us = {}, 0, {}, {}
     for ev in prof.events():
         # a user annotation (such as Optimizer.step) is a range on the
         # device's timeline over kernels counted on their own
@@ -686,6 +701,7 @@ def profile_calls(fn, calls: int = 10, warm: bool = True):
             m = TRACE_KERNELS.search(ev.name)
             if m:
                 ours[m.group(1)] = ours.get(m.group(1), 0) + 1
+                ours_us[m.group(1)] = ours_us.get(m.group(1), 0.0) + ev.time_range.elapsed_us()
     busy = sum(kernels.values())
     by_name = {}  # kernel names cut to 60 characters, their times summed
     for k, v in kernels.items():
@@ -696,6 +712,7 @@ def profile_calls(fn, calls: int = 10, warm: bool = True):
             "idle_share": 1.0 - busy / wall_us if wall_us > 0 else None,
             "device_ops_per_call": count / calls,
             "trace_launches_per_call": {k: v / calls for k, v in sorted(ours.items())},
+            "trace_us_per_call": {k: v / calls for k, v in sorted(ours_us.items())},
             "top_us_per_call": {k: v / calls for k, v in top}}
 
 
@@ -780,7 +797,12 @@ def bwd_level_row(name, conv, T_in, batch, gen, with_wgrad=True, dtype=torch.flo
     of the plain forward (cuDNN, TF32 off); two runs bit-equal; device
     times of kernel, plain version and torch.nn.grad's conv1d_input /
     conv1d_weight on the folded weight (with the activation's mask; no
-    reflect fold); and bounds at the dtype's peak."""
+    reflect fold); and bounds at the dtype's peak.  Where dgrad's plan runs
+    the span kernel over rows that fit a whole-row block (several batches'
+    rows a span), the whole-row kernel is held and timed beside it,
+    unrouted ("whole_rows"), and the span kernel's weight layout
+    (``dgrad_span_pack``) is held bit for bit against its plain version and
+    timed beside it ("pack")."""
     from hm_vae_torch.ops import fused_conv_pool as fcp
 
     s, wf, bf, x, y, gy = bwd_inputs(conv, T_in, gen, batch, dtype)
@@ -813,6 +835,19 @@ def bwd_level_row(name, conv, T_in, batch, gen, with_wgrad=True, dtype=torch.flo
 
     gx, rx = dgrad(), d_plain()
     plan = {"dgrad": fcp.last_backward_plans()["dgrad"]}  # what the launch ran
+    extra = {}
+    if plan["dgrad"]["span"]:
+        extra["pack"] = pack_row(name, s, wf)
+    if plan["dgrad"]["span"] and plan["dgrad"]["spans"] == 1:
+        wp = whole_row_plan(s, gy, T_in)
+        if not wp.span:
+
+            def d_whole():
+                return fcp._dgrad(gy, y, wf, s, T_in, None, wp)
+
+            extra["whole_rows"] = {
+                "max_abs_err": check(f"{name} dgrad whole rows", d_whole(), rx, dtype)[0],
+                "ms": device_ms(d_whole), "plan": wp._asdict()}
     # autograd of the plain forward, the kernels reading its output
     leaves = [x.clone().requires_grad_(), wf.clone().requires_grad_()]
     if bf is not None:
@@ -860,9 +895,37 @@ def bwd_level_row(name, conv, T_in, batch, gen, with_wgrad=True, dtype=torch.flo
                      "library_ms": device_ms(lib), "eager_ms": time_ms(fn),
                      "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                     "plan": plan[what]}
+                     "plan": plan[what], **(extra if what == "dgrad" else {})}
     print(json.dumps(row), flush=True)
     return row
+
+
+def whole_row_plan(s, gy, T_in):
+    """The whole-row dgrad plan of a call (``dgrad_whole_plan``): the plan
+    that ``dgrad_kernel`` runs at shapes routed to spans."""
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+
+    gran = 16 // gy.element_size()
+    return fcp.dgrad_whole_plan(gy.shape[0], T_in, s.kernel_size, s.stride, s.padding,
+                                -(-gy.shape[2] // gran) * gran, s.dgrad_start.numel() - 1,
+                                s.dgrad_max_live, fcp._sm_count(gy.device.index), 1,
+                                esz=gy.element_size())
+
+
+def pack_row(name, s, wf):
+    """``dgrad_span_pack``'s kernel on a folded weight: bit for bit its plain
+    version, two runs bit-equal; device ms beside the plain version's, and
+    its bound: the weight read and the layout written once."""
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+
+    got, ref = fcp.dgrad_span_pack(s, wf), fcp.dgrad_span_pack_reference(s, wf)
+    if not (torch.equal(got, ref) and torch.equal(fcp.dgrad_span_pack(s, wf), got)):
+        fail(f"{name}: dgrad_span_pack differs from its plain version or between two runs")
+    nbytes = wf.numel() * wf.element_size() + got.numel() * got.element_size()
+    return {"max_abs_err": 0.0, "ms": device_ms(lambda: fcp.dgrad_span_pack(s, wf)),
+            "plain_ms": device_ms(lambda: fcp.dgrad_span_pack_reference(s, wf)),
+            "library_ms": None, "bytes": nbytes, "bound_ms": nbytes / MEM_BPS * 1e3,
+            "bound_by": "bytes"}
 
 
 def train_config(data_root, path=CONFIG, model=None):
@@ -1961,6 +2024,36 @@ def production_cli_phase(data_root, calls=4, compute_dtype=None):
     return row
 
 
+def trace_launches(per_call, kernel):
+    """A kernel's launches in a device trace's counts (``profile_calls``):
+    dgrad's are those of its whole-row and its span kernel, as the device
+    counts them."""
+    if kernel == "dgrad_kernel":
+        return per_call.get("dgrad_kernel", 0) + per_call.get("dgrad_span_kernel", 0)
+    return per_call.get(kernel, 0)
+
+
+def span_dgrad_levels(model, cfg):
+    """How many of a training step's 7 dgrad levels (all but enc0, whose
+    input is data) run the span kernel at the config's batch and compute
+    dtype (``dgrad_plan``)."""
+    from hm_vae_torch.models.structure import get_structure
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+
+    n = 0
+    for _, conv, T in level_cases(model, get_structure(cfg.model))[1:]:
+        s = conv.structure()
+        esz = torch.empty((), dtype=s.dtype).element_size()
+        gran = 16 // esz
+        T_out = (T + 2 * s.padding - s.kernel_size) // s.stride + 1
+        n += fcp.dgrad_plan(cfg.optim.batch_size, T, s.kernel_size, s.stride, s.padding,
+                            -(-T_out // gran) * gran, s.dgrad_start.numel() - 1,
+                            s.dgrad_max_live, fcp._sm_count(torch.cuda.current_device()), 1,
+                            (s.dgrad_span_start.numel() - 1, s.dgrad_span_max_live),
+                            esz).span > 0
+    return n
+
+
 def production_step_phase(data_root, calls=4, model=None, eager=True,
                           phase="production_step", profiled=2):
     """The production step's cost through Trainer.fit at batch 64 (32 steps
@@ -1970,7 +2063,8 @@ def production_step_phase(data_root, calls=4, model=None, eager=True,
     timed calls began (the state, and whatever earlier phases keep), and
     the device time, idle share and the port's kernels' launches a call in
     the device trace (torch.profiler, device only) over `profiled` calls
-    (two); then the same config at steps_per_call 1
+    (two), and dgrad's device ms a step there (its kernels: whole rows, or
+    spans and their weight's layout); then the same config at steps_per_call 1
     (eager steps), measured the same way in the same run over half as many
     steps (32 steps profiled).  The entries' own launch counts, set to 0
     before the run and read after it, are the warm-up's and the capture's
@@ -1996,7 +2090,7 @@ def production_step_phase(data_root, calls=4, model=None, eager=True,
                                 **({"model": model} if model else {}))
         trainer, train_ds, _, _ = build_trainer(
             cfg, os.path.join(OUT_DIR, f"{phase.replace('_step', '')}_K{K}"), device=DEV)
-        for c in fcp.launch_entries():
+        for c in fcp.launch_entries() + (fcp.dgrad_span_pack,):
             c.launches = 0
         n = 32  # steps a measured unit: one call, or 32 eager steps
         trainer.fit(train_ds, None, max_iter=n)  # the first call captures the graph
@@ -2027,6 +2121,9 @@ def production_step_phase(data_root, calls=4, model=None, eager=True,
         in_run = {k: v for k, v in fcp.launch_counts().items() if v}
         runs = fcp.device_runs(torch.cuda.current_device())
         steps = state["i"]
+        # dgrad's launches in the trace: whole rows or spans, as the device
+        # counts them (the spans' weight layout apart)
+        seen = {k: trace_launches(per_32, k) for k in trace_want}
         runs_want = {TRACE_NAME[k]: (steps - n) * v for k, v in TRAIN_LAUNCHES.items()}
         want_first = {k: (3 if K > 1 else n) * v for k, v in TRAIN_LAUNCHES.items()}
         want_run = {k: (3 if K > 1 else steps) * v for k, v in TRAIN_LAUNCHES.items()}
@@ -2036,14 +2133,23 @@ def production_step_phase(data_root, calls=4, model=None, eager=True,
         if runs != runs_want:
             fail(f"{phase} K={K}: {runs} kernel runs on the device over steps "
                  f"{n + 1}-{steps}, expected {runs_want}")
+        # the span kernel's weight layout: one launch a step at each level
+        # whose dgrad runs spans (a replay calls no entry)
+        pack_want = (3 if K > 1 else steps) * span_dgrad_levels(trainer.state.model, cfg)
+        if fcp.dgrad_span_pack.launches != pack_want:
+            fail(f"{phase} K={K}: dgrad_span_pack launched {fcp.dgrad_span_pack.launches} "
+                 f"times, expected {pack_want}")
         out[K] = {"ms_per_step": ms, "steps": steps, "entry_launches_in_run": in_run,
+                  "pack_launches_in_run": fcp.dgrad_span_pack.launches,
                   "device_runs_after_first_call": runs,
                   "device_runs_per_32_steps": {k: 32 * v / (steps - n) for k, v in runs.items()},
                   "trace_launches_per_32_steps": per_32,
-                  "trace_complete": per_32 == trace_want, "profiled_steps": n_prof,
+                  "trace_complete": seen == trace_want, "profiled_steps": n_prof,
                   "peak_memory_bytes": peak, "peak_above_start_bytes": peak - base,
                   "profile_per_unit": prof,
                   "device_ms_per_step": prof["device_us_per_call"] / n_prof / 1e3,
+                  "dgrad_ms_per_step": sum(prof["trace_us_per_call"].get(k, 0.0)
+                                           for k in DGRAD_TRACE) / n_prof / 1e3,
                   "idle_share": prof["idle_share"]}
     row = {"phase": phase, "config": os.path.relpath(PRODUCTION_CONFIG, ROOT),
            "model_overrides": model, "batch": PROD_BATCH, "graph_steps_per_call_32": out[32],
@@ -2738,11 +2844,11 @@ LONG_TRAIN_STEPS = 5
 
 def span_vs_whole_rows(model, st, tmodel, gen):
     """The span kernels (wgrad: items of one batch's output columns; dgrad:
-    spans of one batch's padded row; each its own plan) beside the
-    whole-row kernels that these shapes' plans run, on the same inputs,
-    unrouted: the len-64 model's 8 levels at batch 8 (wgrad only) and at
-    the production batch of 64, and the trajectory model's 4 levels at
-    batch 8, T 128.  Each row: the kernels' device ms (dgrad's span time
+    spans of several batches' whole padded rows; each its own plan) beside
+    the whole-row kernels, on the same inputs, each unrouted where its plan
+    does not take the shape: the len-64 model's 8 levels at batch 8 (wgrad
+    only) and at the production batch of 64, and the trajectory model's 4
+    levels at batch 8, T 128.  Each row: the kernels' device ms (dgrad's span time
     with its weight packing), the span kernels' max |err| against the plain
     versions and their plans.  Returns {shape: rows}."""
     from hm_vae_torch.ops import fused_conv_pool as fcp
@@ -2763,6 +2869,7 @@ def span_vs_whole_rows(model, st, tmodel, gen):
             d_plan = fcp.dgrad_span_plan(batch, T_in, K, stride, s.padding,
                                          s.dgrad_span_start.numel() - 1, s.dgrad_span_max_live,
                                          fcp._sm_count(torch.cuda.current_device()))
+            w_plan = whole_row_plan(s, gy, T_in)
             mode = "reflect" if s.reflect else "constant"
 
             def span():
@@ -2775,7 +2882,7 @@ def span_vs_whole_rows(model, st, tmodel, gen):
                 return fcp._dgrad(gy, y, wf, s, T_in, None, d_plan)
 
             def d_whole():
-                return fcp.fused_conv_pool_dgrad(gy, y, wf, s, T_in)
+                return fcp._dgrad(gy, y, wf, s, T_in, None, w_plan)
 
             gw, gb = span()
             rw, rb = fcp.fused_conv_pool_wgrad_reference(
@@ -2813,8 +2920,10 @@ def long_backward_phase(model, st, tmodel, gen):
     then LONG_TRAIN_STEPS steps of the
     trajectory model at train_seq_len 1,024 on the card against the CPU,
     under the training gate (:func:`train_phase`), on synthetic takes of
-    1,100-1,500 frames.  Returns ({case: [rows over the levels]}, the train
-    row, the phase's row with the span-vs-whole rows)."""
+    1,100-1,500 frames; dgrad's spans in bf16 at (1, 7,200), (8, 1,024) and
+    enc1, held at TOL[bf16] (wgrad's bf16 items raise).  Returns ({case:
+    [rows over the levels]}, the train row, the phase's row with the
+    span-vs-whole rows, {case: bf16 dgrad rows})."""
     from hm_vae_torch.data import synthetic
 
     t_phase = time.perf_counter()
@@ -2831,6 +2940,20 @@ def long_backward_phase(model, st, tmodel, gen):
             if not (r["dgrad"]["plan"]["span"] > 0 and r["wgrad"]["plan"]["span"] > 0):
                 fail(f"long_backward {r['level']}: plans {r['dgrad']['plan']} / "
                      f"{r['wgrad']['plan']} stage whole rows")
+    # dgrad's spans in bf16 over the same long rows (bf16 wgrad items raise:
+    # ROADMAP Queue 6 item 1)
+    bf16 = {case: [bwd_level_row(f"traj{i}_long_{case}@bf16",
+                                 getattr(tmodel.encoder, f"conv_{i}"), T, batch, gen,
+                                 with_wgrad=False, dtype=torch.bfloat16)
+                   for i in range(len(tmodel.encoder.structure.levels))]
+            for case, batch, T in LONG_BWD_CASES if case != "b8_t1000"}
+    bf16["enc1_b8_t1024"] = [bwd_level_row("enc1_long_b8_t1024@bf16", model.encoder.conv_1,
+                                           1024, BATCH, gen, with_wgrad=False,
+                                           dtype=torch.bfloat16)]
+    for case, rs in bf16.items():
+        for r in rs:
+            if not (r["dgrad"]["plan"]["span"] > 0 and r["dgrad"]["plan"]["spans"] > 1):
+                fail(f"long_backward {r['level']}: plan {r['dgrad']['plan']} is no span plan")
     t_svw = time.perf_counter()
     span_vs_whole = span_vs_whole_rows(model, st, tmodel, gen)
     t_svw = time.perf_counter() - t_svw
@@ -2848,6 +2971,9 @@ def long_backward_phase(model, st, tmodel, gen):
                                                for c, rs in rows.items()},
            "plans": {r["level"]: {"dgrad": r["dgrad"]["plan"], "wgrad": r["wgrad"]["plan"]}
                      for rs in rows.values() for r in rs},
+           "bf16_dgrad": {case: {"ms": sum(r["dgrad"]["ms"] for r in rs),
+                                 "max_abs_err": max(r["dgrad"]["max_abs_err"] for r in rs),
+                                 "plan": rs[0]["dgrad"]["plan"]} for case, rs in bf16.items()},
            "span_vs_whole": {shape: {"span_ms": sum(r["span_ms"] for r in rs),
                                      "whole_ms": sum(r["whole_ms"] for r in rs),
                                      **({"dgrad_span_ms": sum(r["dgrad"]["span_ms"] for r in rs),
@@ -2859,7 +2985,7 @@ def long_backward_phase(model, st, tmodel, gen):
            "train_steps": LONG_TRAIN_STEPS, "train_seq_len": LONG_TRAIN_T,
            "elapsed_s": time.perf_counter() - t_phase}
     print(json.dumps(row), flush=True)
-    return rows, train, row
+    return rows, train, row, bf16
 
 
 def free_port() -> int:
@@ -3817,7 +3943,8 @@ def bf16_train_phase(data_root, model, st, tmodel, gen):
     row = {"phase": "bf16_train", "config": os.path.relpath(PRODUCTION_CONFIG, ROOT),
            "model_overrides": BF16_TRIPLE,
            "graph_vs_eager": {k: graph[k] for k in ("bit_equal", "max_abs_diff", "launches")},
-           "step": {k: g[k] for k in ("ms_per_step", "device_ms_per_step", "idle_share",
+           "step": {k: g[k] for k in ("ms_per_step", "device_ms_per_step", "dgrad_ms_per_step",
+                                      "idle_share",
                                       "peak_memory_bytes", "peak_above_start_bytes",
                                       "device_runs_per_32_steps",
                                       "trace_launches_per_32_steps")},
@@ -3875,8 +4002,8 @@ def main() -> None:
     print(json.dumps({"phase": "build_report", **report}), flush=True)
     if not report["fused_conv_pool"].get("bf16", {}).get("hgmma"):
         fail("the bf16 instantiation has no HGMMA (wgmma) instruction")
-    for what in ("dgrad", "dgrad_spans", "wgrad", "wgrad_nq4", "wgrad_spans_nt1",
-                 "wgrad_spans_nt2") + BF16_BWD_KINDS:
+    for what in ("dgrad", "dgrad_spans", "dgrad_spans_bf16", "wgrad", "wgrad_nq4",
+                 "wgrad_spans_nt1", "wgrad_spans_nt2") + BF16_BWD_KINDS:
         r = report["fused_conv_pool_bwd"].get(what, {})
         if not (r.get("hgmma") or r.get("hmma")):
             fail(f"the {what} kernel has no HGMMA or HMMA (tensor-core) instruction")
@@ -4048,7 +4175,7 @@ def main() -> None:
     elapsed("28")
     # 29. the backward over rows of any length: dgrad and wgrad spans at the
     #     trajectory levels and a stride-2 level, trajectory training at T 1,024
-    long_bwd, long_train, long_bwd_row = long_backward_phase(model, st, tmodel, gen)
+    long_bwd, long_train, long_bwd_row, long_bf16 = long_backward_phase(model, st, tmodel, gen)
     elapsed("29")
     # 30-32. the parallel package over torch.distributed ranks (torchrun):
     #     data-parallel training (two gloo ranks on the card, the CLI, one
@@ -4083,6 +4210,17 @@ def main() -> None:
         out["bound_by"] = "bytes" if by_bytes >= out["bound_ms"] / 2 else "operations"
         out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
         return out
+
+    def beside(rows):
+        """The whole-row kernel timed beside the routed span kernel, summed
+        over the levels where it was (every level, or none)."""
+        if not any("whole_rows" in r for r in rows):
+            return {}
+        if not all("whole_rows" in r for r in rows):
+            fail(f"the whole-row dgrad was timed at some levels only: {rows}")
+        return {"whole_rows_ms": sum(r["whole_rows"]["ms"] for r in rows),
+                "whole_rows_max_abs_err": max(r["whole_rows"]["max_abs_err"] for r in rows),
+                "pack_ms": sum(r["pack"]["ms"] for r in rows)}
 
     def sums(dtype, batch):
         out = total([r for r in levels[(dtype, batch)] if not r["level"].endswith("stride1")])
@@ -4216,9 +4354,10 @@ def main() -> None:
                          "Pallas backward exists)")
                         + " at configs/len64_production.yaml's batch of 64",
             "launches": prod_run["entry_launches_in_run"].get(name, 0),
-            **total(rows),
+            **total(rows), **(beside(rows) if what == "_dgrad" else {}),
             "device_launches_per_call": prod_run["device_runs_per_32_steps"][TRACE_NAME[name]],
-            "trace_launches_per_call": prod_run["trace_launches_per_32_steps"][TRACE_NAME[name]],
+            "trace_launches_per_call": trace_launches(prod_run["trace_launches_per_32_steps"],
+                                                      TRACE_NAME[name]),
             "note": f"f32 (bf16 parameters are cast to f32 before the fold), batch "
                     f"{PROD_BATCH}; sums over the 8 len-64 levels (dgrad: enc0 runs it in this "
                     "timing but not in training); launches: the entry's count over the graphed "
@@ -4227,7 +4366,9 @@ def main() -> None:
                     "kernel's runs a 32-step call (CUDA-graph replays) counted on the device; "
                     "trace_launches_per_call: its launches in the device trace of one such "
                     "call; "
-                    "times: device time from CUDA-graph replays; library_ms: "
+                    "times: device time from CUDA-graph replays (dgrad's with its weight "
+                    "layout where it runs spans; whole_rows_ms: dgrad_kernel timed beside it, "
+                    "unrouted); library_ms: "
                     f"{lib} on the folded weight, TF32 off"})
     long_launches = {**{(case, "bfloat16"): long_row["bundles"][f"bfloat16_{case}"]["launches"]
                         for case in LONG_BUNDLE_CASES["bfloat16"]},
@@ -4268,6 +4409,9 @@ def main() -> None:
                          "plan": long_bwd["b8_t1000"][0][what]["plan"]},
             "enc1_b8_t1024": {**total([r[what] for r in long_bwd["enc1_b8_t1024"]]),
                               "plan": long_bwd["enc1_b8_t1024"][0][what]["plan"]},
+            **({"bf16": {case: {**total([r["dgrad"] for r in rs]),
+                                "plan": rs[0]["dgrad"]["plan"]}
+                         for case, rs in long_bf16.items()}} if what == "dgrad" else {}),
             "span_vs_whole": {shape: part for shape, r in long_bwd_row["span_vs_whole"].items()
                               if (part := {k: v for k, v in r.items()
                                            if k.startswith("dgrad_") == (what == "dgrad")})},
@@ -4275,9 +4419,10 @@ def main() -> None:
                     "level: sums over the trajectory model's 4 K-31 levels at batch 8, T 1,024; "
                     "\"b1_t7200\", \"b8_t1000\": the same at batch 1, T 7,200 and batch 8, "
                     "T 1,000; \"enc1_b8_t1024\": the len-64 model's stride-2 K-15 level at "
-                    "batch 8, T 1,024; \"span_vs_whole\": the span kernel, unrouted, beside "
-                    "the whole-row kernel at shapes whose rows fit whole (dgrad: with its "
-                    "weight packing); launches: per "
+                    "batch 8, T 1,024; \"bf16\" (dgrad): the bf16 spans at (1, 7,200), "
+                    "(8, 1,024) and enc1, held at 0.02 * max|ref|; \"span_vs_whole\": the "
+                    "span kernel, unrouted, beside the whole-row kernel at shapes whose rows "
+                    "fit whole (dgrad: with its weight packing); launches: per "
                     f"step of the trajectory model's training at train_seq_len {LONG_TRAIN_T} "
                     "(phase 29); times: device time from CUDA-graph replays; library_ms: "
                     f"{lib} on the folded weight, TF32 off"})
@@ -4332,13 +4477,41 @@ def main() -> None:
                               "hm_vae_tpu/models/hm_vae.py:174-195; no Pallas backward exists)",
                 "launches": launches.get(name, 0),
                 **total([r[what] for r in rows]),
+                **(beside([r[what] for r in rows]) if what == "dgrad" else {}),
                 **({"device_launches_per_call": bf16_run["device_runs_per_32_steps"][
                     TRACE_NAME[name]]} if case == "b64" else {}),
-                "note": "bf16 (the whole-row kernel's bf16 instantiation), sums over the "
+                "note": "bf16 (the kernels' bf16 instantiations; dgrad as its plan routes "
+                        "it: spans of several batches' rows at batch 64, its time with their "
+                        "weight layout, whole_rows_ms the whole-row kernel beside it), sums "
+                        "over the "
                         + ("8 len-64 levels (dgrad: enc0 runs it in this timing but not in "
                            "training), " if case != "trajectory" else "")
                         + note + "; times: device time from CUDA-graph replays; library_ms: "
                         f"{lib} in bf16 on the folded weight"})
+    pack = {dt: [r["dgrad"]["pack"] for r in rows if "pack" in r["dgrad"]]
+            for dt, rows in (("float32", b64_bwd), ("bfloat16", bf16_rows["b64"]))}
+    top = "float32" if pack["float32"] else "bfloat16"
+    if not pack[top]:
+        fail("no dgrad level at the production batch runs the span kernel")
+    pack_total = lambda rows: {  # noqa: E731
+        **{k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms", "bytes")},
+        "max_abs_err": 0.0, "library_ms": None, "bound_by": "bytes", "levels": len(rows)}
+    summary["kernels"].append({
+        "name": "dgrad_span_pack@b64", "route": "cuda",
+        "source": "hm_vae_torch/csrc/fused_conv_pool_bwd.cu",
+        "replaces": "hm_vae_tpu/models/hm_vae.py:200 (JAX autodiff of the level; no Pallas "
+                    "backward exists): the folded weight laid out for dgrad's span kernel, "
+                    "once a backward call",
+        "launches": (prod_run if top == "float32" else bf16_run)["pack_launches_in_run"],
+        **pack_total(pack[top]),
+        **({"bfloat16": pack_total(pack["bfloat16"])} if top == "float32" and pack["bfloat16"]
+           else {}),
+        "note": f"{top}, batch {PROD_BATCH}: sums over the len-64 levels whose dgrad runs "
+                "spans (bit for bit its plain version, dgrad_span_pack_reference); launches: "
+                "its entry's count over the graphed production step's warm-up and capture "
+                f"({top} compute); times: device time from CUDA-graph replays; bound: the "
+                "weight read and the layout written once at 3.35 TB/s; no library call lays "
+                "a weight out so"})
     summary["kernels"].append({
         "name": "fused_conv_pool@sequence_parallel_valid", "route": "cuda",
         "source": "hm_vae_torch/csrc/fused_conv_pool.cu",

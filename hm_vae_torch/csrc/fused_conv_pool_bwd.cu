@@ -1,7 +1,7 @@
 // The backward of one skeleton-conv level (fused_conv_pool.cu's forward) on
-// Hopper, in f32 and, over whole rows, in bf16: the input gradient (dgrad)
-// and the folded weight's and bias's gradients (wgrad), two kernels on the
-// tensor cores.
+// Hopper, in f32 and in bf16 (wgrad over whole rows): the input gradient
+// (dgrad) and the folded weight's and bias's gradients (wgrad), kernels on
+// the tensor cores.
 //
 // The JAX package has no backward kernel: it differentiates its XLA level in
 // hm_vae_tpu/models/hm_vae.py (SkeletonConv: the conv on the folded weight
@@ -52,9 +52,11 @@
 //   fragments are loaded by each lane from shared memory in whatever layout
 //   is staged.  Over long rows both kernels run wgmma with A from
 //   registers: wgrad_span_kernel's transposed product takes x's taps as A
-//   and g's tile, K-major along time, as B; dgrad_span_kernel takes g
-//   shifted by the tap as A and the tap's weight slice, split into TF32
-//   planes by the wrapper in the K-major layout, as B;
+//   and g's tile, K-major along time, as B; dgrad_span_kernel (also over
+//   the short rows of a large batch, several batches' rows a span) takes g
+//   shifted by the tap as A and the tap's weight slice, laid out in the
+//   K-major layout by dgrad_span_pack_kernel once a call (f32: TF32
+//   planes), as B;
 // - every copy from global memory is a cp.async.bulk onto an mbarrier, and
 //   the next stage's copies are in flight while the current stage
 //   multiplies: dgrad keeps two weight stages and refills its one stage of
@@ -83,8 +85,9 @@
 //   are split over a cluster.  The epilogue writes gxpad to shared memory,
 //   sums the cluster's partials, adds each reflected edge column onto its
 //   source (the padding's adjoint) and stores gx row by row.  A padded row
-//   too long for one block is cut into spans of one batch's padded columns
-//   (dgrad_span_kernel, taken only there: wgmma, warp-specialised, its own
+//   too long for one block is cut into spans of one batch's padded columns,
+//   and at a large batch (dgrad_plan) the short rows of several batches
+//   share a span (dgrad_span_kernel: wgmma, warp-specialised, its own
 //   section below);
 // - wgrad: a block owns one live tile (64 rows x the chunk's 8 channels x K
 //   taps, plus a ones-column for the bias: the mma's N runs over 8-channel
@@ -126,8 +129,9 @@
 //   in the operands' fragment order; the sums are f32, added after each
 //   tap (dgrad) or k-step (wgrad) as in f32, the cluster's partials summed
 //   in rank order; each output is rounded to bf16 once, at its store.
-//   Over long rows and windows the backward is f32 only (the wrapper raises
-//   for bf16 there before any launch);
+//   dgrad_span_kernel's bf16 form runs one wgmma.m64n32k16 a tap.  wgrad
+//   over long rows and the windowed backward are f32 only (the wrapper
+//   raises for bf16 there before any launch);
 // Limits: C a multiple of 8 (the wrappers pad), K <= 31 (wgrad's 32
 // tap tiles), and shared memory: dgrad's two weight stages are 32 rows of
 // 16 channels x K taps (127 KB at K 31, so one block an SM there) beside
@@ -658,51 +662,64 @@ dgrad_kernel(const T* __restrict__ gy, const T* __restrict__ y,
 }
 
 // ---------------------------------------------------------------------------
-// dgrad over long rows
+// dgrad over long rows, and over the short rows of a large batch
 //
-// A padded row too long for one block's whole-row staging is cut into spans
-// of one batch's padded columns (dgrad_span_kernel).  A block owns a group
-// of four 8-channel chunks (32 channels: the products' N) and one span; it
-// walks the group's live row tiles (dgrad_span_start / dgrad_span_row in
-// pack_structure; a cluster splits them, summed in rank order), one k-step
-// of 8 rows p a stage.  Per stride phase phi the span's columns
-// u = u0 + stride*v + phi read only taps k = phi + stride*m, from g's column
-// t0 + v - m (t0 = u0 / stride), so each phase is a stride-1 product over
-// its taps with g shifted by the tap, in M tiles of 64 columns v, 3xTF32 on
-// wgmma m64n32k8.  What bounds it is shared memory's bandwidth: a tile's A
-// fragments (4 KB a tap) feed only N channels, so N 32 rather than a
-// pair's 16 halves the bytes a multiply-add (PERF.md):
-// - A is g shifted by the tap, from registers: each lane loads its fragment
-//   from the stage's g rows at the tap's column offset (no im2col, no
-//   shifted copy); the rows of g are 8 mod 32 words apart, so a warp's 32
-//   loads hit 32 banks;
-// - B is the tap's weight slice, 8 rows p x 32 channels, K-major in core
-//   matrices, TF32 big and small planes that the wrapper splits once a
-//   backward call (dgrad_span_pack in hm_vae_torch/ops/fused_conv_pool.py):
-//   a stage's K taps are one contiguous bulk copy, and nothing is converted
-//   in the product loop;
-// - the tensor cores' sum of a tap (three products over the stage's 8 rows)
-//   is added in f32 once a tap, in tap order then stage order: the same bits
-//   every run.  A warpgroup issues kSpanTaps taps, each into its own
-//   accumulator, as one wgmma group, waits for it and adds the taps' sums:
-//   a product of 64 x 32 x 8 is short, so a group of one tap left the
-//   tensor cores idle between its products and the wait (PERF.md), and
-//   ptxas serializes wgmma whose accumulators are read while another group
-//   is in flight;
+// dgrad_span_kernel<T> (T float or __nv_bfloat16).  A block owns a group of
+// four 8-channel chunks (32 channels: the products' N) and a span of padded
+// columns; it walks the group's live row tiles (dgrad_span_start /
+// dgrad_span_row in pack_structure; a cluster splits them, summed in rank
+// order), one k-step of rows p a stage (8 in f32, 16 in bf16).  Per stride
+// phase phi the columns u = stride*v + phi read only taps k = phi + stride*m,
+// from g's column v - m, so each phase is a stride-1 product over its taps
+// with g shifted by the tap, in M tiles of 64 columns v.  A span is one of
+// two things:
+// - spans of one batch's padded row (a row too long for one block): a span
+//   [u0, u0 + width) stages g's columns t0 - off.. (t0 = u0 / stride) from
+//   the 16-byte granule that holds them; the plan sizes the first and the
+//   last span so that each holds both columns of every reflected pair
+//   (dgrad_span_shift);
+// - whole padded rows of nbb batches of a window (short rows at a large
+//   batch, where one batch's row fills one or two of the span's M tiles and
+//   the stage's cost, the same whether a tile is full or not, bought little
+//   work): each phase's M rows are the batches' columns v in turn, a period
+//   of R (dgrad_span_period) rows a batch, and g is staged with the same
+//   period: a batch's T_out columns after off zeros, zeros up to the next
+//   batch's.  A tap's shifted read of a batch's row then lands in its own
+//   g or in zeros: no im2col, no shifted copy, no column of another batch.
+//   The epilogue folds each batch's reflected columns in the block.
+// The products are wgmma with A from registers and B from shared memory:
+// - A is g shifted by the tap: each lane loads its fragment from the stage's
+//   g at the tap's column offset; g's rows are 8 mod 32 words apart, so a
+//   warp's 32 loads hit 32 banks.  f32: g split into TF32 big and small
+//   planes of 8 rows p; bf16: g rounded once (as the plain version rounds
+//   it), two rows p a 32-bit word (a register of the bf16 A fragment);
+// - B is the tap's weight slice, K-major in core matrices: f32, 8 rows p x
+//   32 channels as TF32 big and small planes; bf16, 16 rows p x 32 channels.
+//   dgrad_span_pack_kernel lays the folded weight out so once a backward
+//   call: a stage's K taps are one contiguous bulk copy, and nothing is
+//   converted in the product loop;
+// - f32 runs three m64n32k8 products a tap (small*big, big*small, big*big),
+//   bf16 one m64n32k16; the tensor cores' sum of a tap is added in f32 once
+//   a tap, in tap order then stage order: the same bits every run.  A
+//   warpgroup issues kSpanTaps taps, each into its own accumulator, as one
+//   wgmma group, waits for it and adds the taps' sums: a product of 64 x 32
+//   is short, so a group of one tap left the tensor cores idle between its
+//   products and the wait (PERF.md), and ptxas serializes wgmma whose
+//   accumulators are read while another group is in flight.
+// What bounds it is shared memory's bandwidth: a tile's A fragments (4 KB a
+// tap) feed only N channels, so N 32 rather than a pair's 16 halves the bytes
+// a multiply-add (PERF.md).
 // Warp-specialised: warps 0-15 are four consumer warpgroups, one M tile of
-// the span each; warp 16 is the producer, which keeps kSpanMaxStages stages
-// of copies in flight (the stage's weight planes and its 8 rows of gy and
-// y, each row one bulk copy widened to 16-byte granules, onto the stage's
-// `full` barrier) and refills a stage as soon as every consumer warp
-// releases it (`empty`); warps 17-19 build g = gy * act'(y), split into
-// TF32 big + small in place of gy and y (`ready`), zero outside [0, T_out)
-// and past P, four columns a thread at a time (the splitters' loads wait
-// behind the consumers' in shared memory: one at a time they took as long
-// as the products).  So no block-wide barrier runs between the stages.  The
-// epilogue writes the span's gxpad to shared memory, sums the cluster's
-// partials in rank order and folds the padding in the block: the plan sizes
-// the first and the last span so that each holds both columns of every
-// reflected pair (dgrad_span_shift), and the block stores gx directly.
+// the span each; warp 16 is the producer, which keeps up to kSpanMaxStages
+// stages of copies in flight (the stage's weight planes, and gy's and y's
+// rows: a span's window of each row p, or each batch's rows of the stage as
+// one contiguous run, onto the stage's `full` barrier) and refills a stage
+// as soon as every consumer warp releases it (`empty`); warps 17-19, the
+// splitters, build g = gy * act'(y) from those rows into the A layout
+// (`ready`), zero outside [0, T_out), between batches and past P.  So no
+// block-wide barrier runs between the stages.  The epilogue writes the
+// span's gxpad to shared memory, sums the cluster's partials in rank order,
+// folds the padding and stores gx (rounded to bf16 once, at the store).
 constexpr int kSpanWG = 4;          // consumer warpgroups: a span's 64-column M tiles
 constexpr int kSpanThreads = 640;   // the consumers, the producer and splitter warps
 constexpr int kSpanC = 32;          // channels of a block: the products' N
@@ -710,32 +727,58 @@ constexpr int kSpanTaps = 2;        // taps of a wgmma group (each its own accum
 constexpr int kSpanMaxStages = 4;   // stages in flight
 constexpr int kSpanProducer = 4 * kSpanWG;  // the producer's warp
 constexpr int kSpanSplitters = 96;  // the splitters: the three warps after it
-constexpr int kTapPlane = kSpanC * 32;  // bytes of a tap's TF32 plane: 8 rows p x 32 channels
+// bytes of a tap's weight plane: 8 rows p x 32 channels in TF32, or 16 rows
+// p x 32 channels in bf16
+constexpr int kTapPlane = 1024;
 constexpr int kSpanSlots = 128 + 2 * kTapPlane;  // barriers, zero planes, then the stages
 
-struct DgradSpanLayout {
-  int off, gw, gl, stages;  // g's halo (a phase's taps - 1), staged columns, a row's pitch
-                            // (floats, 8 mod 32), stages in flight
-  size_t wbytes, slot, total;  // a stage's weight planes, a stage, the block (bytes)
+// A stage's rows p (a k-step of the products) and weight planes a tap.
+template <typename T>
+struct SpanStep {
+  static constexpr int kRowsP = sizeof(T) == 2 ? 16 : 8;
+  static constexpr int kPlanes = sizeof(T) == 2 ? 1 : 2;
 };
 
-// A stage: the K taps' big and small weight planes, then gy's 8 rows and
-// y's (over which g's big and small planes are built), from the 16-byte
-// granule that holds g's column t0 - off on, gw columns: the shared memory
-// depends on K, stride and span only, never on T_in.  As many stages as fit
-// a block, at most kSpanMaxStages; the epilogue's gxpad (32 x span floats)
+struct DgradSpanLayout {
+  int off, gw, gl, stages;  // g's halo (a phase's taps - 1), staged columns, g's row pitch
+                            // (4-byte words, 8 mod 32), stages in flight
+  size_t wbytes, raw, slot, total;  // a stage's weight planes, its rows of gy and y, a
+                                    // stage, the block (bytes)
+};
+
+// A stage: the K taps' weight planes, then gy's and y's rows of the stage
+// (a span's window, gw columns a row from a 16-byte granule on; or each
+// batch's rows one after the other, t_ld values a row, which never takes
+// more), then g in the A layout (f32: big and small planes of 8 rows, bf16:
+// 8 rows of pairs of rows p), gw columns a row.  `esz` is the element's
+// bytes (4: f32, 2: bf16).  The shared memory depends on K, stride, span and
+// the element only, never on T_in or the batch.  As many stages as fit a
+// block, at most kSpanMaxStages; the epilogue's gxpad (32 x span floats)
 // reuses them.
-__host__ __device__ inline DgradSpanLayout dgrad_span_layout(int K, int stride, int span) {
+__host__ __device__ inline DgradSpanLayout dgrad_span_layout(int K, int stride, int span,
+                                                             int esz) {
   DgradSpanLayout L;
+  const int gran = 16 / esz, rows_p = esz == 2 ? 16 : 8, planes = esz == 2 ? 1 : 2;
   L.off = (K + stride - 1) / stride - 1;
-  L.gw = (L.off + span / stride + 6) / 4 * 4;
+  L.gw = (L.off + span / stride + 2 * gran - 2) / gran * gran;
   L.gl = L.gw + (40 - L.gw % 32) % 32;
-  L.wbytes = size_t(K) * 2 * kTapPlane;
-  L.slot = (L.wbytes + size_t(2) * 8 * L.gl * 4 + 127) & ~size_t(127);
+  L.wbytes = size_t(K) * planes * kTapPlane;
+  L.raw = size_t(2) * rows_p * L.gw * esz;
+  L.slot = (L.wbytes + L.raw + size_t(planes) * 8 * L.gl * 4 + 127) & ~size_t(127);
   const size_t fit = (size_t(kMaxSmem) - kSpanSlots) / L.slot;
   L.stages = static_cast<int>(fit < size_t(kSpanMaxStages) ? fit : kSpanMaxStages);
   L.total = kSpanSlots + size_t(L.stages) * L.slot;
   return L;
+}
+
+// The M rows (columns v) a batch's padded row takes in each stride phase of
+// a span of whole rows: its widest phase, and at least T_out + off, so that
+// the off zeros ahead of the next batch's g stay between them.
+__host__ __device__ inline int dgrad_span_period(int T_in, int K, int T_out, int stride,
+                                                 int padding) {
+  const int V0 = (T_in + 2 * padding + stride - 1) / stride;
+  const int tail = T_out + (K + stride - 1) / stride - 1;
+  return V0 > tail ? V0 : tail;
 }
 
 // How much narrower than `span` the first span is: under reflect, enough
@@ -768,19 +811,64 @@ __device__ __forceinline__ void wgmma_rs_tf32_n32(float (&d)[16], const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
+// d = A (64 x 16, bf16, in registers) * B (16 x 32, bf16, K-major in shared
+// memory) + (acc ? d : 0).  Warp w of the warpgroup holds A's rows
+// 16w..16w+15, two bf16 a register (the lower k in the low half): a[0] row
+// lane/4, k 2*(lane%4) and + 1; a[1] row lane/4 + 8; a[2], a[3] the same
+// rows at k + 8.  d as wgmma_rs_tf32_n32's.
+__device__ __forceinline__ void wgmma_rs_bf16_n32(float (&d)[16], const uint32_t (&a)[4],
+                                                  uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+// N values of T from shared memory at p as floats: 4 f32 (16-byte
+// aligned), 4 bf16 (8-byte aligned) or 8 bf16 (16-byte aligned), one load.
+template <int N, typename T>
+__device__ __forceinline__ void load_vals(float (&v)[N], const T* p) {
+  if constexpr (sizeof(T) == 4) {
+    static_assert(N == 4, "four f32 a load");
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  } else {
+    static_assert(N == 4 || N == 8, "four or eight bf16 a load");
+    uint32_t w[N / 2];
+    if constexpr (N == 8) {
+      const uint4 a = *reinterpret_cast<const uint4*>(p);
+      w[0] = a.x, w[1] = a.y, w[2] = a.z, w[3] = a.w;
+    } else {
+      const uint2 a = *reinterpret_cast<const uint2*>(p);
+      w[0] = a.x, w[1] = a.y;
+    }
+#pragma unroll
+    for (int q = 0; q < N / 2; ++q)
+      v[2 * q] = __uint_as_float(w[q] << 16), v[2 * q + 1] = __uint_as_float(w[q] & 0xFFFF0000u);
+  }
+}
+
 // One stage's products of a consumer warpgroup's M tile: kSpanTaps taps m
-// at a time, each tap's three products (small*big, big*small, big*big)
-// into its own accumulator, one wgmma group; then the group's sums are
+// at a time, each tap's products (f32: small*big, big*small, big*big; bf16:
+// one) into its own accumulator, one wgmma group; then the group's sums are
 // added to sum in f32 in tap order.  Branch-free: mtaps is a multiple of
 // kSpanTaps, a phase's taps past K read the zero planes (their A at the
-// last tap, `last`).  gb / gs: the stage's big and small g planes; acol:
-// the tile's A column at tap 0 for the lane's row; kph: its phase (tap k =
-// kph + stride*m); w: the stage's weight planes (tap k's big plane at w +
-// 2*kTapPlane*k, small + kTapPlane), zero: planes of zeros.
-__device__ __forceinline__ void span_stage_products(float (&sum)[16], const float* gb,
-                                                    const float* gs, int gl, int acol, int kph,
-                                                    uint32_t w, uint32_t zero, int stride, int K,
-                                                    int mtaps, int last) {
+// last tap, `last`).  g: the stage's g (f32: the big plane, the small plane
+// 8 rows on; bf16: the pairs of rows p); acol: the tile's A column at tap 0
+// for the lane's row; kph: its phase (tap k = kph + stride*m); w: the
+// stage's weight planes (tap k's at w + k * planes * kTapPlane, f32's small
+// plane kTapPlane after its big), zero: planes of zeros.
+template <typename T>
+__device__ __forceinline__ void span_stage_products(float (&sum)[16], const uint32_t* g, int gl,
+                                                    int acol, int kph, uint32_t w, uint32_t zero,
+                                                    int stride, int K, int mtaps, int last) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr uint32_t kTapBytes = SpanStep<T>::kPlanes * kTapPlane;
   const int tig = threadIdx.x & 3;
 #pragma unroll 1
   for (int m0 = 0; m0 < mtaps; m0 += kSpanTaps) {
@@ -789,23 +877,29 @@ __device__ __forceinline__ void span_stage_products(float (&sum)[16], const floa
 #pragma unroll
     for (int t = 0; t < kSpanTaps; ++t) {
       const int o = tig * gl + acol - min(m0 + t, last);
-      ab[t][0] = __float_as_uint(gb[o]);
-      ab[t][1] = __float_as_uint(gb[o + 8]);
-      ab[t][2] = __float_as_uint(gb[o + 4 * gl]);
-      ab[t][3] = __float_as_uint(gb[o + 4 * gl + 8]);
-      as[t][0] = __float_as_uint(gs[o]);
-      as[t][1] = __float_as_uint(gs[o + 8]);
-      as[t][2] = __float_as_uint(gs[o + 4 * gl]);
-      as[t][3] = __float_as_uint(gs[o + 4 * gl + 8]);
+      ab[t][0] = g[o];
+      ab[t][1] = g[o + 8];
+      ab[t][2] = g[o + 4 * gl];
+      ab[t][3] = g[o + 4 * gl + 8];
+      if constexpr (!kBf16) {
+        as[t][0] = g[8 * gl + o];
+        as[t][1] = g[8 * gl + o + 8];
+        as[t][2] = g[8 * gl + o + 4 * gl];
+        as[t][3] = g[8 * gl + o + 4 * gl + 8];
+      }
     }
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
     for (int t = 0; t < kSpanTaps; ++t) {
       const int k = kph + stride * (m0 + t);
-      const uint32_t big = k < K ? w + k * 2 * kTapPlane : zero;
-      wgmma_rs_tf32_n32(acc[t], as[t], gmma_desc(big), 0);
-      wgmma_rs_tf32_n32(acc[t], ab[t], gmma_desc(big + kTapPlane), 1);
-      wgmma_rs_tf32_n32(acc[t], ab[t], gmma_desc(big), 1);
+      const uint32_t big = k < K ? w + k * kTapBytes : zero;
+      if constexpr (kBf16) {
+        wgmma_rs_bf16_n32(acc[t], ab[t], gmma_desc(big), 0);
+      } else {
+        wgmma_rs_tf32_n32(acc[t], as[t], gmma_desc(big), 0);
+        wgmma_rs_tf32_n32(acc[t], ab[t], gmma_desc(big + kTapPlane), 1);
+        wgmma_rs_tf32_n32(acc[t], ab[t], gmma_desc(big), 1);
+      }
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
@@ -818,20 +912,27 @@ __device__ __forceinline__ void span_stage_products(float (&sum)[16], const floa
   }
 }
 
-// gx (B x C x T_in) of batch blockIdx.y / nspans's span blockIdx.y % nspans
-// and the group of chunks blockIdx.x; B is a window's batches (window b / B
-// reads its own packing of wpk, an entry a live row tile of a group).
+// gx (B x C x T_in) of the group of chunks blockIdx.x and, where nbb > 0,
+// the whole padded rows of the nbb batches of batch group blockIdx.y (gpw
+// groups a window), else (nbb 0) of batch blockIdx.y / nspans's span
+// blockIdx.y % nspans; B is a window's batches (window b / B reads its own
+// packing of wpk, an entry a live row tile of a group).
+template <typename T>
 __global__ void __launch_bounds__(kSpanThreads, 1)
-dgrad_span_kernel(const float* __restrict__ gy, const float* __restrict__ y,
-                  const float* __restrict__ wpk, const int* __restrict__ span_start,
-                  const int* __restrict__ span_row, float* __restrict__ gx, int B, int C,
+dgrad_span_kernel(const T* __restrict__ gy, const T* __restrict__ y,
+                  const T* __restrict__ wpk, const int* __restrict__ span_start,
+                  const int* __restrict__ span_row, T* __restrict__ gx, int B, int C,
                   int T_in, int P, int T_out, int t_ld, int K, int stride, int padding,
-                  int reflect, float slope, int span, int nspans) {
+                  int reflect, float slope, int span, int nspans, int nbb, int gpw) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int kKS = SpanStep<T>::kRowsP;  // rows p of a stage
+  constexpr int kTile = kRows / kKS;        // stages of a row tile
+  constexpr int kGran = 16 / sizeof(T);     // values of a 16-byte granule
   count_run(&g_runs[0]);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int split = static_cast<int>(cluster.num_blocks());
-  const DgradSpanLayout L = dgrad_span_layout(K, stride, span);
+  const DgradSpanLayout L = dgrad_span_layout(K, stride, span, sizeof(T));
   const int S = L.stages;
 
   extern __shared__ __align__(128) unsigned char smem[];
@@ -839,28 +940,41 @@ dgrad_span_kernel(const float* __restrict__ gy, const float* __restrict__ y,
   uint64_t* ready = full + kSpanMaxStages;              // [S]: its g is built
   uint64_t* empty = ready + kSpanMaxStages;             // [S]: both warpgroups are done with it
   float* zero = reinterpret_cast<float*>(smem + 128);   // big and small planes of zeros
-  unsigned char* slots = smem + kSpanSlots;              // [S][weight planes, gy|big, y|small]
+  unsigned char* slots = smem + kSpanSlots;              // [S][weight planes, gy, y, g]
   float* out_s = reinterpret_cast<float*>(slots);       // [32][span] gxpad, at the end
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const int group = blockIdx.x, c0 = group * kSpanC;
   const int cw = min(kSpanC, C - c0);  // 32, or fewer for a last group
-  const int b = static_cast<int>(blockIdx.y) / nspans;
-  const int sp = static_cast<int>(blockIdx.y) - b * nspans;
-  const int win = b / B;
   const int Tp = T_in + 2 * padding;
-  const int shift = dgrad_span_shift(Tp, span, stride, padding, reflect);
-  const int u0 = sp == 0 ? 0 : sp * span - shift;
-  const int width = min(Tp, (sp + 1) * span - shift) - u0;
-  const int t0 = u0 / stride;
-  const int tb0 = (t0 - L.off) & ~3;  // g's staged column 0: the granule holding t0 - off
+  const bool rows = nbb > 0;
+  const int R = dgrad_span_period(T_in, K, T_out, stride, padding);
+  // the block's batches [b0, b0 + nbl) of window `win`, and its span
+  // [u0, u0 + width) of their padded rows (g's staged column 0 is t = tb0)
+  int win, b0, nbl, u0, width, t0, tb0;
+  if (rows) {
+    const int yg = static_cast<int>(blockIdx.y);
+    win = yg / gpw;
+    b0 = win * B + (yg - win * gpw) * nbb;
+    nbl = min(nbb, (win + 1) * B - b0);
+    u0 = 0, width = Tp, t0 = 0, tb0 = -L.off;
+  } else {
+    b0 = static_cast<int>(blockIdx.y) / nspans;
+    const int sp = static_cast<int>(blockIdx.y) - b0 * nspans;
+    const int shift = dgrad_span_shift(Tp, span, stride, padding, reflect);
+    win = b0 / B, nbl = 1;
+    u0 = sp == 0 ? 0 : sp * span - shift;
+    width = min(Tp, (sp + 1) * span - shift) - u0;
+    t0 = u0 / stride;
+    tb0 = (t0 - L.off) & ~(kGran - 1);  // the granule holding g's column t0 - off
+  }
   const int entries = span_start[gridDim.x];  // a window's packing
   const int first = span_start[group];
   const int live = span_start[group + 1] - first;
   const int n_rt = live > rank ? (live - rank + split - 1) / split : 0;
   auto entry = [&](int j) { return first + rank + j * split; };
-  auto ksteps = [&](int j) { return min(8, (P - span_row[entry(j)] * kRows + 7) / 8); };
+  auto ksteps = [&](int j) { return min(kTile, (P - span_row[entry(j)] * kRows + kKS - 1) / kKS); };
   int n_stages = 0;
   for (int j = 0; j < n_rt; ++j) n_stages += ksteps(j);
   // the stages in order: the rank's row tiles, each one k-step at a time
@@ -881,56 +995,134 @@ dgrad_span_kernel(const float* __restrict__ gy, const float* __restrict__ y,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   for (int q = tid; q < 2 * kTapPlane / 4; q += kSpanThreads) zero[q] = 0.f;
+  if (rows)  // g's columns that no batch's row lands on stay zeros through the stages
+    for (int q = tid; q < S * SpanStep<T>::kPlanes * 8 * L.gl; q += kSpanThreads) {
+      const int s = q / (SpanStep<T>::kPlanes * 8 * L.gl);
+      reinterpret_cast<uint32_t*>(slots + size_t(s) * L.slot + L.wbytes +
+                                  L.raw)[q - s * SpanStep<T>::kPlanes * 8 * L.gl] = 0u;
+    }
   fence_async();  // the zero planes before the products read them
   __syncthreads();
 
   if (warp == kSpanProducer) {
     // the producer: stage i's copies into its slot, the first S at once,
-    // then each as soon as the stage S before it is released
+    // then each as soon as the stage S before it is released: the weight
+    // planes, and gy's and y's rows (a span's window of each row, or each
+    // batch's rows of the stage as one run)
     const int lo = max(tb0, 0), hi = min(t_ld, tb0 + L.gw);
-    const uint32_t row_bytes = hi > lo ? (hi - lo) * 4 : 0;
+    const uint32_t row_bytes = hi > lo ? (hi - lo) * sizeof(T) : 0;
+    const int per = rows ? nbl : kKS;  // copies of gy (and of y) a stage, at most
     Cursor c = {0, 0};
     for (int i = 0; i < n_stages; ++i, next(c)) {
       if (i >= S) mbar_wait(smem_addr(empty + i % S), (i / S - 1) & 1);
-      const int p0 = span_row[entry(c.j)] * kRows + c.ks * 8, nrows = min(8, P - p0);
+      const int p0 = span_row[entry(c.j)] * kRows + c.ks * kKS, nrows = min(kKS, P - p0);
       unsigned char* dst = slot_of(i);
+      T* raw = reinterpret_cast<T*>(dst + L.wbytes);
       uint64_t* bar = full + i % S;
-      if (lane == 0) mbar_expect(smem_addr(bar), L.wbytes + 2 * nrows * row_bytes);
+      const uint32_t bytes = rows ? nbl * nrows * t_ld * sizeof(T) : nrows * row_bytes;
+      if (lane == 0) mbar_expect(smem_addr(bar), L.wbytes + 2 * bytes);
       fence_async();  // the stage's reads by the block come before these writes
-      if (lane == 0)
-        bulk_copy(dst, wpk + ((size_t(win) * entries + entry(c.j)) * 8 + c.ks) * K * 2 *
-                                 (kTapPlane / 4),
-                  L.wbytes, bar);
-      const int q = lane - 1, which = q >= nrows, r = q - which * nrows;
-      if (row_bytes > 0 && q >= 0 && q < 2 * nrows)
-        bulk_copy(dst + L.wbytes + (size_t(which * 8 + r) * L.gl + lo - tb0) * 4,
-                  (which ? y : gy) + (size_t(b) * P + p0 + r) * t_ld + lo, row_bytes, bar);
+      for (int q = lane; q <= 2 * per; q += 32) {
+        if (q == 0) {
+          bulk_copy(dst,
+                    reinterpret_cast<const unsigned char*>(wpk) +
+                        ((size_t(win) * entries + entry(c.j)) * kTile + c.ks) * L.wbytes,
+                    L.wbytes, bar);
+          continue;
+        }
+        const int which = (q - 1) / per, r = q - 1 - which * per;
+        const T* src = which ? y : gy;
+        T* to = raw + which * kKS * L.gw;
+        if (rows)
+          bulk_copy(to + r * kKS * t_ld, src + (size_t(b0 + r) * P + p0) * t_ld,
+                    nrows * t_ld * sizeof(T), bar);
+        else if (r < nrows && row_bytes > 0)
+          bulk_copy(to + r * L.gw + lo - tb0, src + (size_t(b0) * P + p0 + r) * t_ld + lo,
+                    row_bytes, bar);
+      }
     }
   } else if (warp > kSpanProducer) {
-    // the splitters: g = gy * act'(y), split in place into its big (over gy)
-    // and small (over y) planes; zeros outside [0, T_out) and past P
-    const int q0 = tid - (kSpanProducer + 1) * 32, n4 = L.gw / 4;
+    // the splitters: g = gy * act'(y) from the stage's rows into the A
+    // layout, zero past P.  Spans of one batch's row: four columns of g a
+    // thread at a time, zeros outside [0, T_out).  Whole rows: each batch's
+    // T_out columns of g, a 16-byte granule of its row at a time (g's other
+    // columns, zeros between the batches, were written before the stages).
+    const int q0 = tid - (kSpanProducer + 1) * 32;
     Cursor c = {0, 0};
     for (int i = 0; i < n_stages; ++i, next(c)) {
       mbar_wait(smem_addr(full + i % S), (i / S) & 1);
-      const int nrows = min(8, P - span_row[entry(c.j)] * kRows - c.ks * 8);
-      float4* gs = reinterpret_cast<float4*>(slot_of(i) + L.wbytes);
-      float4* ys = gs + 8 * L.gl / 4;
-#pragma unroll 2
-      for (int e = q0; e < 8 * n4; e += kSpanSplitters) {
-        const int r = e / n4, j4 = e - r * n4, o = r * L.gl / 4 + j4, t = tb0 + 4 * j4;
-        const float4 a = gs[o], yv = ys[o];
-        const float av[4] = {a.x, a.y, a.z, a.w}, y4[4] = {yv.x, yv.y, yv.z, yv.w};
-        float big[4], small[4];
+      const int nrows = min(kKS, P - span_row[entry(c.j)] * kRows - c.ks * kKS);
+      const T* gys = reinterpret_cast<const T*>(slot_of(i) + L.wbytes);
+      const T* ys = gys + kKS * L.gw;
+      uint32_t* gw = reinterpret_cast<uint32_t*>(slot_of(i) + L.wbytes + L.raw);
+      if (rows) {
+        const int ng = t_ld / kGran, per_row = nbl * ng;
+        for (int e = q0; e < 8 * per_row; e += kSpanSplitters) {
+          const int r = e / per_row, rem = e - r * per_row, bb = rem / ng;
+          const int t = (rem - bb * ng) * kGran, dst = r * L.gl + L.off + bb * R + t;
+          if constexpr (kBf16) {
+            // g's pair row r: rows p 2r and 2r + 1 of batch bb
+            const int o = (bb * kKS + 2 * r) * t_ld + t;
+            float a0[kGran], a1[kGran], y0[kGran], y1[kGran];
+            load_vals(a0, gys + o);
+            load_vals(a1, gys + o + t_ld);
+            load_vals(y0, ys + o);
+            load_vals(y1, ys + o + t_ld);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const bool in = r < nrows && t + q >= 0 && t + q < T_out;
-          const float2 s = split_tf32(in ? act_grad(av[q], y4[q], slope) : 0.f);
-          big[q] = s.x;
-          small[q] = s.y;
+            for (int q = 0; q < kGran; ++q)
+              if (t + q < T_out)
+                gw[dst + q] = pack_bf16(2 * r < nrows ? act_grad(a0[q], y0[q], slope) : 0.f,
+                                        2 * r + 1 < nrows ? act_grad(a1[q], y1[q], slope) : 0.f);
+          } else {
+            const int o = (bb * kKS + r) * t_ld + t;
+            float a[kGran], yv[kGran];
+            load_vals(a, gys + o);
+            load_vals(yv, ys + o);
+#pragma unroll
+            for (int q = 0; q < kGran; ++q)
+              if (t + q < T_out) {
+                const float2 sp = split_tf32(r < nrows ? act_grad(a[q], yv[q], slope) : 0.f);
+                gw[dst + q] = __float_as_uint(sp.x);
+                gw[8 * L.gl + dst + q] = __float_as_uint(sp.y);
+              }
+          }
         }
-        gs[o] = make_float4(big[0], big[1], big[2], big[3]);
-        ys[o] = make_float4(small[0], small[1], small[2], small[3]);
+      } else {
+        const int n4 = L.gw / 4;
+        uint4* g4 = reinterpret_cast<uint4*>(gw);
+#pragma unroll 2
+        for (int e = q0; e < 8 * n4; e += kSpanSplitters) {
+          const int r = e / n4, j0 = 4 * (e - r * n4), t = tb0 + j0;  // g's row r, column t..
+          uint32_t v[4], sm[4];
+          if constexpr (kBf16) {
+            const int o = 2 * r * L.gw + j0;
+            float a0[4], a1[4], y0[4], y1[4];
+            load_vals(a0, gys + o);
+            load_vals(a1, gys + o + L.gw);
+            load_vals(y0, ys + o);
+            load_vals(y1, ys + o + L.gw);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const bool in = t + q >= 0 && t + q < T_out;
+              v[q] = pack_bf16(in && 2 * r < nrows ? act_grad(a0[q], y0[q], slope) : 0.f,
+                               in && 2 * r + 1 < nrows ? act_grad(a1[q], y1[q], slope) : 0.f);
+            }
+          } else {
+            const int o = r * L.gw + j0;
+            float a[4], yv[4];
+            load_vals(a, gys + o);
+            load_vals(yv, ys + o);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const bool in = r < nrows && t + q >= 0 && t + q < T_out;
+              const float2 sp = split_tf32(in ? act_grad(a[q], yv[q], slope) : 0.f);
+              v[q] = __float_as_uint(sp.x), sm[q] = __float_as_uint(sp.y);
+            }
+          }
+          g4[(r * L.gl + j0) / 4] = make_uint4(v[0], v[1], v[2], v[3]);
+          if constexpr (!kBf16)
+            g4[((8 + r) * L.gl + j0) / 4] = make_uint4(sm[0], sm[1], sm[2], sm[3]);
+        }
       }
       mbar_arrive(smem_addr(ready + i % S));
     }
@@ -938,12 +1130,13 @@ dgrad_span_kernel(const float* __restrict__ gy, const float* __restrict__ y,
 
   // The consumers' M tiles: warpgroup wg's is tile wg of the span's stride
   // * (span / (64 * stride)) tiles, phase wg / mt, 64 columns v from 64 *
-  // (wg % mt); a tile past the span's width is idle.
+  // (wg % mt); a tile past the phase's columns (the span's width, or the
+  // batches' periods) is idle.
   const int wg = warp >> 2, w4 = warp & 3;
   const int mt = span / (64 * stride), phi = wg / mt;
   const int kph = phi < stride ? phi : 0, v0 = 64 * (wg - phi * mt);
-  const bool active =
-      warp < 4 * kSpanWG && phi < stride && v0 < (width - phi + stride - 1) / stride;
+  const int nv = rows ? nbl * R : (width - phi + stride - 1) / stride;
+  const bool active = warp < 4 * kSpanWG && phi < stride && v0 < nv;
   float sum[16] = {};
   if (warp < 4 * kSpanWG) {
     const int mtaps = (L.off + kSpanTaps) / kSpanTaps * kSpanTaps;  // a phase's taps, padded
@@ -951,24 +1144,25 @@ dgrad_span_kernel(const float* __restrict__ gy, const float* __restrict__ y,
     for (int i = 0; i < n_stages; ++i) {
       unsigned char* st = slot_of(i);
       mbar_wait(smem_addr(ready + i % S), (i / S) & 1);
-      const float* gb = reinterpret_cast<const float*>(st + L.wbytes);
       if (active)
-        span_stage_products(sum, gb, gb + 8 * L.gl, L.gl, acol, kph, smem_addr(st),
-                            smem_addr(zero), stride, K, mtaps, L.off);
+        span_stage_products<T>(sum, reinterpret_cast<const uint32_t*>(st + L.wbytes + L.raw),
+                               L.gl, acol, kph, smem_addr(st), smem_addr(zero), stride, K,
+                               mtaps, L.off);
       __syncwarp();
       if (lane == 0) mbar_arrive(smem_addr(empty + i % S));
     }
   }
   __syncthreads();  // every stage is consumed: the slots take gxpad
 
-  // gxpad of the span's columns -> out_s; a block alone in its cluster
-  // skips the cluster barriers
+  // gxpad of the span's columns -> out_s (a batch's padded row at bb * Tp);
+  // a block alone in its cluster skips the cluster barriers
   if (active) {
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
       const int v = v0 + 16 * w4 + gid + 8 * ((r >> 1) & 1);
-      const int ul = stride * v + kph, ch = 8 * (r >> 2) + 2 * tig + (r & 1);
-      if (ul < width) out_s[ch * span + ul] = sum[r];
+      const int ch = 8 * (r >> 2) + 2 * tig + (r & 1);
+      const int bb = rows ? v / R : 0, u = stride * (v - bb * R) + kph;
+      if (bb < nbl && u < width) out_s[ch * span + bb * Tp + u] = sum[r];
     }
   }
   if (split > 1)
@@ -987,21 +1181,95 @@ dgrad_span_kernel(const float* __restrict__ gy, const float* __restrict__ y,
         if (q < split) s += parts[q][row + u - u0];
       return s;
     };
-    // the x columns whose padded column i + padding lies in the span, with
-    // their reflected columns (in the same span, by the plan)
+    // each batch's x columns whose padded column i + padding lies in the
+    // span, with their reflected columns (in the same span, by the plan)
     const int i_lo = max(0, u0 - padding), i_hi = min(T_in, u0 + width - padding);
-    const int ncols = max(0, i_hi - i_lo), n_el = cw * ncols;
+    const int ncols = max(0, i_hi - i_lo), n_el = cw * nbl * ncols;
     const int lo = n_el * rank / split, hi = n_el * (rank + 1) / split;
     for (int el = lo + tid; el < hi; el += kSpanThreads) {
-      const int c = el / ncols, i = i_lo + el - c * ncols, row = c * span;
+      const int c = el / (nbl * ncols), rem = el - c * (nbl * ncols);
+      const int bb = rem / ncols, i = i_lo + rem - bb * ncols, row = c * span + bb * Tp;
       float v = column(row, i + padding);
       if (reflect && i >= 1 && i <= padding) v += column(row, padding - i);
       if (reflect && i <= T_in - 2 && i >= T_in - 1 - padding)
         v += column(row, padding + 2 * (T_in - 1) - i);
-      gx[(size_t(b) * C + c0 + c) * T_in + i] = v;
+      gx[(size_t(b0 + bb) * C + c0 + c) * T_in + i] = from_f<T>(v);
     }
   }
   if (split > 1) cluster.sync();  // no block leaves while another reads its span's gxpad
+}
+
+// The folded weight (windows x (P, C, K)) as dgrad_span_kernel<T> reads it
+// (dgrad_span_pack in hm_vae_torch/ops/fused_conv_pool.py, whose plain
+// version this is): for each window, entry e (row tile span_row[e] of the
+// group of 32 channels span_group[e]), k-step of a stage's rows p and tap,
+// the planes of a stage's rows p x 32 channels in wgmma's K-major
+// core-matrix order (channels in fours of 8, then half of the rows p, then
+// the channel, then the rows p of the half); f32, the TF32 rounding and the
+// remainder rounded to TF32 (ties away from zero, as the plain version's
+// integer arithmetic rounds), bf16 the values.  Rows past P and channels
+// past C are zeros.  A block lays out one k-step of one entry: it reads the
+// rows p of the group's 32 channels, each one contiguous run of 32 * K
+// values, into shared memory and writes the k-step's K taps' planes, one
+// contiguous run: one pass, read and written once.  It replaces eight
+// plain PyTorch passes a call.
+template <typename T>
+__global__ void __launch_bounds__(256)
+dgrad_span_pack_kernel(const T* __restrict__ w, const int* __restrict__ span_row,
+                       const int* __restrict__ span_group, T* __restrict__ out, int P, int C,
+                       int K, int entries) {
+  constexpr int kKS = SpanStep<T>::kRowsP, kPlanes = SpanStep<T>::kPlanes;
+  constexpr int kPV = kTapPlane / sizeof(T);  // values of a plane
+  constexpr int kHalf = kKS / 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* tile = reinterpret_cast<T*>(smem);  // [kKS][32 * K + pad]: rows p, then (channel, tap)
+  const int n = kSpanC * K, pitch = n + 4 / static_cast<int>(sizeof(T));
+  const int e = static_cast<int>(blockIdx.x) / (kRows / kKS);
+  const int ks = static_cast<int>(blockIdx.x) - e * (kRows / kKS);
+  const int win = static_cast<int>(blockIdx.y);
+  const int p0 = span_row[e] * kRows + ks * kKS, c0 = span_group[e] * kSpanC;
+  const int nc = min(kSpanC, C - c0) * K;  // the row's values past which channels are zeros
+  // kLoads loads of a thread in flight at a time (a loop of one load and
+  // its store waits out each load's latency)
+  constexpr int kLoads = 8;
+  for (int q0 = threadIdx.x; q0 < kKS * n; q0 += kLoads * blockDim.x) {
+    T v[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int q = q0 + u * blockDim.x, r = q / n, j = q - r * n;
+      v[u] = q < kKS * n && p0 + r < P && j < nc
+                 ? w[(size_t(win) * P + p0 + r) * C * K + size_t(c0) * K + j]
+                 : from_f<T>(0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int q = q0 + u * blockDim.x, r = q / n;
+      if (q < kKS * n) tile[r * pitch + q - r * n] = v[u];
+    }
+  }
+  __syncthreads();
+  T* o = out + ((size_t(win) * entries + e) * (kRows / kKS) + ks) * K * kPlanes * kPV;
+  // a thread writes the kHalf rows p of one channel (16 bytes) at a time
+  for (int gq = threadIdx.x; gq < K * kPlanes * kPV / kHalf; gq += blockDim.x) {
+    const int q = gq * kHalf;
+    const int k = q / (kPlanes * kPV), rem = q - k * (kPlanes * kPV);
+    const int plane = rem / kPV, i = rem - plane * kPV;
+    const int cc = (i / kHalf) % 8, half = (i / (8 * kHalf)) % 2, c8 = i / (16 * kHalf);
+    const T* src = tile + half * kHalf * pitch + (c8 * 8 + cc) * K + k;
+    alignas(16) T vals[kHalf];
+#pragma unroll
+    for (int pr = 0; pr < kHalf; ++pr) {
+      const T v = src[pr * pitch];
+      if constexpr (sizeof(T) == 2) {
+        vals[pr] = v;
+      } else {
+        auto tf32 = [](float a) { return __int_as_float((__float_as_int(a) + 0x1000) & -0x2000); };
+        const float big = tf32(v);
+        vals[pr] = plane ? tf32(v - big) : big;
+      }
+    }
+    *reinterpret_cast<uint4*>(o + q) = *reinterpret_cast<const uint4*>(vals);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1886,6 +2154,36 @@ int dgrad_rows(bool (&ready)[kMaxDevices], int device, dim3 grid, int split, siz
       stride, padding, reflect, slope, nbb, gpw, w_stride));
 }
 
+// One dgrad_span_kernel launch in element type T (after its checks).
+template <typename T>
+int dgrad_spans(bool (&ready)[kMaxDevices], int device, dim3 grid, int split, size_t smem,
+                void* stream, const void* gy, const void* y, const void* wpk,
+                const void* span_start, const void* span_row, void* gx, int B, int C, int T_in,
+                int P, int T_out, int t_ld, int K, int stride, int padding, int reflect,
+                float slope, int span, int nspans, int nbb, int gpw) {
+  cudaError_t err = allow_smem(dgrad_span_kernel<T>, ready, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_cluster(
+      dgrad_span_kernel<T>, grid, kSpanThreads, split, 1, smem, stream,
+      static_cast<const T*>(gy), static_cast<const T*>(y), static_cast<const T*>(wpk),
+      static_cast<const int*>(span_start), static_cast<const int*>(span_row),
+      static_cast<T*>(gx), B, C, T_in, P, T_out, t_ld, K, stride, padding, reflect, slope, span,
+      nspans, nbb, gpw));
+}
+
+// One dgrad_span_pack_kernel launch in element type T.
+template <typename T>
+int span_pack(const void* w, const void* span_row, const void* span_group, void* out,
+              int entries, int P, int C, int K, int windows, void* stream) {
+  constexpr int kKS = SpanStep<T>::kRowsP;
+  const size_t smem = size_t(kKS) * (kSpanC * K + 4 / sizeof(T)) * sizeof(T);
+  dgrad_span_pack_kernel<T><<<dim3(entries * (kRows / kKS), windows), 256, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(w), static_cast<const int*>(span_row),
+      static_cast<const int*>(span_group), static_cast<T*>(out), P, C, K, entries);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // One whole-row wgrad_kernel launch, NQ tap tiles a warp, element type T.
 template <int NQ, typename T>
 int wgrad_rows(bool (&ready)[kMaxDevices], int device, dim3 grid, int split, size_t smem,
@@ -1908,21 +2206,20 @@ extern "C" {
 // Input gradient gx (B, C, T_in) of a level from gy, y (B, P, rows of t_ld
 // >= T_out values, whole 16-byte granules) and the folded weight w
 // (windows x (P, C, K): window i of the batch, B / windows batches, reads
-// the i-th), all f32 (dtype 0) or all bf16 (dtype 1: whole rows only, span
-// 0), C a multiple of 8, every pointer 16-byte aligned; dgrad_start / dgrad_row:
-// the row tiles live in either chunk of each pair of 8-channel chunks
-// (pack_structure).  The plan (dgrad_plan in the wrapper): batch groups of
-// nbb batches within a window, the row tiles of a pair split over `split`
-// blocks of a cluster; span = 0 for whole padded rows (dgrad_kernel), else
-// (nbb 1) spans of `span` padded columns (dgrad_span_kernel: a multiple of
-// 64*stride, at most kSpanWG M tiles of 64 columns, the first span
-// narrower by dgrad_span_shift), whose weight is wpk, the folded weight's
-// live row tiles of each group of four chunks split into TF32 planes
-// (dgrad_span_pack: windows x entries x 8 k-steps x K taps x big, small
-// planes of 8 rows x 32 channels), and whose lists dgrad_start /
-// dgrad_row are the groups' (dgrad_span_start / dgrad_span_row); wpk is
-// unread for whole rows.  Launches on `stream`, returns the first CUDA
-// error (0 on success).
+// the i-th), all f32 (dtype 0) or all bf16 (dtype 1), C a multiple of 8,
+// every pointer 16-byte aligned; dgrad_start / dgrad_row: the row tiles live
+// in either chunk of each pair of 8-channel chunks (pack_structure).  The
+// plan (dgrad_plan in the wrapper): batch groups of nbb batches within a
+// window, the row tiles split over `split` blocks of a cluster; span = 0
+// for whole padded rows (dgrad_kernel), else dgrad_span_kernel (span a
+// multiple of 64*stride, at most kSpanWG M tiles of 64 columns) over
+// whole padded rows of nbb batches a span where they fit its M tiles
+// (dgrad_span_period), else (nbb 1) spans of one batch's row, the first
+// narrower by dgrad_span_shift.  A span launch reads the weight as wpk, the
+// folded weight's live row tiles of each group of four chunks laid out by
+// hmvae_dgrad_span_pack, and its lists dgrad_start / dgrad_row are the
+// groups' (dgrad_span_start / dgrad_span_row); wpk is unread for whole
+// rows.  Launches on `stream`, returns the first CUDA error (0 on success).
 int hmvae_conv_dgrad(const void* gy, const void* y, const void* w, const void* dgrad_start,
                      const void* dgrad_row, void* gx, const void* wpk, int B, int C, int T_in,
                      int K, int P, int T_out, int t_ld, int stride, int padding, int reflect,
@@ -1933,35 +2230,44 @@ int hmvae_conv_dgrad(const void* gy, const void* y, const void* w, const void* d
   if (!shape_ok(B, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, device, ptrs, 5, esz) ||
       dtype < 0 || dtype > 1 || windows < 1 || B % windows != 0 || nbb < 1 ||
       nbb > B / windows || split < 1 || split > kMaxSplit || span < 0 ||
-      (span > 0 && (nbb != 1 || wpk == nullptr || dtype != 0)))
+      (span > 0 && wpk == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_win = B / windows;
   const int gpw = (n_win + nbb - 1) / nbb;  // batch groups of a window
   const int pairs = (C + kDC - 1) / kDC, groups = (C + kSpanC - 1) / kSpanC;
-  static bool ready[3][kMaxDevices] = {};  // dgrad_kernel f32, the span kernel, bf16
+  // dgrad_kernel f32, the span kernel f32, dgrad_kernel bf16, the span kernel bf16
+  static bool ready[4][kMaxDevices] = {};
   const int Tp = T_in + 2 * padding;
   if (span > 0) {
-    const DgradSpanLayout L = dgrad_span_layout(K, stride, span);
-    const int shift = dgrad_span_shift(Tp, span, stride, padding, reflect);
-    const int nspans = (Tp + shift + span - 1) / span;
-    const int last = Tp - ((nspans - 1) * span - shift);
-    // whole M tiles of each phase, at most two a consumer warpgroup; the
-    // reflected columns of each edge inside one span
+    const DgradSpanLayout L = dgrad_span_layout(K, stride, span, esz);
+    // whole M tiles of each phase, at most one a consumer warpgroup
     if (span % (64 * stride) != 0 || span / 64 > kSpanWG || L.stages < 2 ||
-        L.total > static_cast<size_t>(kMaxSmem) || static_cast<long long>(B) * nspans > 65535 ||
-        (reflect && nspans > 1 && (span - shift <= 2 * padding || last <= 2 * padding)))
+        L.total > static_cast<size_t>(kMaxSmem))
       return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err = allow_smem(dgrad_span_kernel, ready[1], device);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    const bool rows = nbb * dgrad_span_period(T_in, K, T_out, stride, padding) <= span / stride;
+    int nspans = 1;
+    dim3 grid(groups, windows * gpw, split);
+    if (rows) {
+      // the batches' rows of a stage are one copy each, within the stage's rows
+      if (nbb * t_ld > L.gw || static_cast<long long>(windows) * gpw > 65535)
+        return static_cast<int>(cudaErrorInvalidValue);
+    } else {
+      // spans of one batch's row: the reflected columns of each edge inside one span
+      const int shift = dgrad_span_shift(Tp, span, stride, padding, reflect);
+      nspans = (Tp + shift + span - 1) / span;
+      const int last = Tp - ((nspans - 1) * span - shift);
+      if (nbb != 1 || static_cast<long long>(B) * nspans > 65535 ||
+          (reflect && nspans > 1 && (span - shift <= 2 * padding || last <= 2 * padding)))
+        return static_cast<int>(cudaErrorInvalidValue);
+      grid.y = B * nspans;
+    }
     const int plan[8] = {nbb, gpw, split, span, nspans, static_cast<int>(L.total), L.stages,
                          kSpanC};
     for (int i = 0; i < 8; ++i) last_dgrad[i] = plan[i];
-    return static_cast<int>(launch_cluster(
-        dgrad_span_kernel, dim3(groups, B * nspans, split), kSpanThreads, split, 1, L.total,
-        stream, static_cast<const float*>(gy), static_cast<const float*>(y),
-        static_cast<const float*>(wpk), static_cast<const int*>(dgrad_start),
-        static_cast<const int*>(dgrad_row), static_cast<float*>(gx), n_win, C, T_in, P, T_out,
-        t_ld, K, stride, padding, reflect, slope, span, nspans));
+    auto launch = dtype == 1 ? dgrad_spans<__nv_bfloat16> : dgrad_spans<float>;
+    return launch(ready[dtype == 1 ? 3 : 1], device, grid, split, L.total, stream, gy, y, wpk,
+                  dgrad_start, dgrad_row, gx, n_win, C, T_in, P, T_out, t_ld, K, stride,
+                  padding, reflect, slope, span, nspans, rows ? nbb : 0, gpw);
   }
   const DgradLayout L = dgrad_layout(T_in, K, T_out, t_ld, stride, padding, nbb, esz);
   int tiles = 0;  // 16-column tiles of a batch group's columns: one per warp
@@ -1977,6 +2283,26 @@ int hmvae_conv_dgrad(const void* gy, const void* y, const void* w, const void* d
   return launch(ready[dtype == 1 ? 2 : 0], device, grid, split, L.total, stream, gy, y, w,
                 dgrad_start, dgrad_row, gx, n_win, C, T_in, K, P, T_out, t_ld, stride, padding,
                 reflect, slope, nbb, gpw, size_t(P) * C * K);
+}
+
+// The folded weight w (windows x (P, C, K), f32 (dtype 0) or bf16 (dtype
+// 1)) laid out for dgrad_span_kernel into out (16-byte aligned: windows x
+// entries x the k-steps of a row tile x K taps x planes: f32 8 rows p, big
+// and small TF32 planes; bf16 16 rows p, one plane; each 1 KB, 32
+// channels), entry e the row tile span_row[e] of the group of 32 channels
+// span_group[e] (pack_structure's dgrad_span_row / dgrad_span_group).
+// Launches on `stream`, returns the first CUDA error (0 on success).
+int hmvae_dgrad_span_pack(const void* w, const void* span_row, const void* span_group, void* out,
+                          int entries, int P, int C, int K, int windows, int dtype,
+                          void* stream) {
+  if (w == nullptr || out == nullptr || entries < 1 || P < 1 || C < 1 || K < 1 ||
+      K > kMaxK || windows < 1 || windows > 65535 || dtype < 0 || dtype > 1 ||
+      static_cast<long long>(entries) * kRows > 0x7FFFFFFFLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dtype == 1 ? span_pack<__nv_bfloat16>(w, span_row, span_group, out, entries, P, C, K,
+                                               windows, stream)
+                    : span_pack<float>(w, span_row, span_group, out, entries, P, C, K, windows,
+                                       stream);
 }
 
 // Folded-weight gradient gw (windows x (P, C, K)) on the n_tiles entries of

@@ -8,10 +8,12 @@ block-sparse implicit GEMM on the level's folded weight, bf16 (or 3xTF32 for
 f32) on ``wgmma``, weight tiles by bulk asynchronous copy.  Its gradient is
 two more hand-written kernels, ``hm_vae_torch/csrc/fused_conv_pool_bwd.cu``
 (dgrad and wgrad + bias grad, f32 as 3xTF32 on ``mma.sync``, over long rows
-on ``wgmma``, planned by :func:`dgrad_plan` and :func:`wgrad_plan`; dgrad
-over long rows reads the weight split once a call by
-:func:`dgrad_span_pack`; over whole rows also bf16, one bf16 ``mma.sync`` a
-k-step: the models' ``compute_dtype: bfloat16``), the counterparts of the JAX package's
+on ``wgmma``, planned by :func:`dgrad_plan` and :func:`wgrad_plan`; dgrad's
+span kernel, over long rows and over the short rows of a large batch, reads
+the weight laid out once a call by :func:`dgrad_span_pack`, a kernel of its
+own; also bf16: dgrad everywhere, wgrad over whole rows, one bf16
+``mma.sync`` or ``wgmma`` a k-step: the models' ``compute_dtype:
+bfloat16``), the counterparts of the JAX package's
 autodiff of its XLA level (``hm_vae_tpu/models/hm_vae.py``; the JAX package
 has no backward kernel).  Each source's header note says what bounds it on
 an H100 and what its design does about that.
@@ -76,8 +78,8 @@ MAX_BWD_K = 31
 BWD_CHUNK_CHANNELS = 8  # the backward kernels' channel chunk (the mma's N), in f32 and bf16
 # where the backward runs in float32 only, bf16 raises before any launch,
 # naming the work that will port it
-BF16_SPANS = ("the bf16 backward kernels take whole rows only; rows this long run the span "
-              "kernels, float32 only (bf16 spans: ROADMAP Queue 6 item 1)")
+BF16_SPANS = ("the bf16 wgrad kernel takes whole rows only; rows this long run its items, "
+              "float32 only (bf16 wgrad items: ROADMAP Queue 6 item 1)")
 BF16_WINDOWED = ("the windowed backward kernels run in float32 only (bf16 windowed kernels: "
                  "ROADMAP Queue 6 item 2)")
 MAX_SPLIT = 8  # blocks of a cluster (the portable maximum)
@@ -86,11 +88,24 @@ DGRAD_TILES = 2  # or up to two for a group of one batch (a padded row or span <
 DGRAD_CHUNKS = 2  # dgrad: channel chunks of a block
 MAX_SMEM = 232448  # shared memory a block may use
 MAX_SMEM_PER_SM = 233472
-DGRAD_SPAN_TILES = 4  # dgrad over long rows: 64-column M tiles of a span, a warpgroup each
+DGRAD_SPAN_TILES = 4  # dgrad's span kernel: 64-column M tiles of a span, a warpgroup each
 DGRAD_SPAN_CHANNELS = 32  # its channels of a block (the products' N)
-DGRAD_SPAN_MAX_STAGES = 4  # its stages (k-steps of 8 rows p) in flight
-DGRAD_TAP_PLANE = DGRAD_SPAN_CHANNELS * 32  # bytes of a tap's TF32 plane: 8 rows p x 32 channels
+DGRAD_SPAN_MAX_STAGES = 4  # its stages (k-steps of rows p) in flight
+# rows p of its stage (a k-step) by element bytes: 8 in TF32, 16 in bf16
+DGRAD_SPAN_KSTEP = {4: 8, 2: 16}
+# bytes of a tap's weight plane: a k-step's rows p x 32 channels (f32: a TF32
+# big and a small plane a tap; bf16: one)
+DGRAD_TAP_PLANE = 1024
 DGRAD_SPAN_SLOTS = 128 + 2 * DGRAD_TAP_PLANE  # barriers and zero planes, before the stages
+# dgrad_plan routes whole rows to the span kernel (several batches' padded
+# rows a span), in f32 and bf16, only at the shapes where the card timed it
+# faster than dgrad_kernel: the len-64 levels (K 15, rows of at most 64
+# frames) from the production batch of 64 on (PERF.md).  Batch 8 keeps its
+# whole rows: its bf16 spans lost by 3%, though its f32 spans were faster
+# (ROADMAP Queue 4)
+DGRAD_ROWS_MIN_BATCH = 64
+DGRAD_ROWS_K = 15
+DGRAD_ROWS_MAX_T = 64
 WGRAD_STAGE_COLS = 32  # wgrad: (b, t) columns staged at a time, at least one batch
 WGRAD_SPAN_COLS = 128  # wgrad over long rows: the widest item's output columns (kSpanCols)
 WGRAD_SPAN_CHUNK = 32  # an item's g split into a wgmma B tile this many columns at a time
@@ -440,39 +455,82 @@ def repack(structure: LevelStructure, weight: torch.Tensor,
                        structure=s)
 
 
-def dgrad_span_pack(structure: LevelStructure, weight: torch.Tensor) -> torch.Tensor:
-    """The folded weight (P, C_in, K), or G windows' (G, P, C_in, K), as
-    ``dgrad_span_kernel`` reads it, with no host sync: for each window and
-    each entry (``dgrad_span_row``, ``dgrad_span_group``: a row tile live
-    in any chunk of a group of ``DGRAD_SPAN_CHANNELS`` channels), each
-    k-step of 8 rows p and each tap, the TF32 rounding of the slice (8 rows p x 32
-    channels) and its remainder rounded to TF32, each a 1 KB plane in
-    wgmma's K-major core-matrix order (channels in fours of 8, then half of
-    the rows p, then the channel, then 4 rows p).  (G, entries, 8, K, 2,
-    256) f32; rows past P and channels past C_in are zeros.  A stage of the
-    kernel (one k-step, its K taps) is one contiguous run."""
-    s = structure
+def _span_pack_checks(s: LevelStructure, weight: torch.Tensor) -> int:
+    """G of a weight (P, C_in, K) or G windows' (G, P, C_in, K) in the
+    structure's dtype, else raises."""
     lead, (P, C_in, K) = tuple(weight.shape[:-3]), weight.shape[-3:]
-    if weight.dtype != torch.float32 or len(lead) > 1 or (P, C_in, K) != (
+    if weight.dtype != s.dtype or len(lead) > 1 or (P, C_in, K) != (
             s.rows, s.in_channels, s.kernel_size):
         raise ValueError(f"weight {tuple(weight.shape)} {weight.dtype} does not fit the "
-                         f"structure ([G,] {s.rows}, {s.in_channels}, {s.kernel_size}) f32")
-    G = lead[0] if lead else 1
+                         f"structure ([G,] {s.rows}, {s.in_channels}, {s.kernel_size}) {s.dtype}")
+    return lead[0] if lead else 1
+
+
+def dgrad_span_pack_reference(structure: LevelStructure, weight: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`dgrad_span_pack`: the folded weight
+    (P, C_in, K), or G windows' (G, P, C_in, K), as ``dgrad_span_kernel``
+    reads it, with no host sync: for each window and each entry
+    (``dgrad_span_row``, ``dgrad_span_group``: a row tile live in any chunk
+    of a group of ``DGRAD_SPAN_CHANNELS`` channels), each k-step of ks rows
+    p (``DGRAD_SPAN_KSTEP``: 8 in f32, 16 in bf16) and each tap, 1 KB planes
+    of the slice (ks rows p x 32 channels) in wgmma's K-major core-matrix
+    order (channels in fours of 8, then half of the rows p, then the
+    channel, then ks / 2 rows p): f32, the TF32 rounding and its remainder
+    rounded to TF32, (G, entries, 8, K, 2, 256); bf16, the values, (G,
+    entries, 4, K, 1, 512).  Rows past P and channels past C_in are zeros.
+    A stage of the kernel (one k-step, its K taps) is one contiguous run."""
+    s = structure
+    G = _span_pack_checks(s, weight)
+    P, C_in, K = weight.shape[-3:]
     rt, groups = s.tile_start.numel() - 1, s.dgrad_span_start.numel() - 1
     n = DGRAD_SPAN_CHANNELS
+    ks = DGRAD_SPAN_KSTEP[weight.element_size()]
     with torch.no_grad():
         w = torch.nn.functional.pad(weight.reshape(G, P, C_in, K),
                                     (0, 0, 0, groups * n - C_in, 0, rt * ROWS - P))
-        # p = (k-step, half, 4 rows), c = (group, eight, 8 channels)
-        t = w.reshape(G, rt, 8, 2, 4, groups, n // 8, 8, K).permute(0, 1, 5, 2, 8, 6, 3, 7, 4)
-        t = t[:, s.dgrad_span_row, s.dgrad_span_group].reshape(G, -1, 8, K, 8 * n)
+        # p = (k-step, half, ks / 2 rows), c = (group, eight, 8 channels)
+        t = w.reshape(G, rt, ROWS // ks, 2, ks // 2, groups, n // 8, 8, K)
+        t = t.permute(0, 1, 5, 2, 8, 6, 3, 7, 4)
+        t = t[:, s.dgrad_span_row, s.dgrad_span_group].reshape(G, -1, ROWS // ks, K, ks * n)
+        if weight.dtype == torch.bfloat16:
+            return t[:, :, :, :, None].contiguous()
         # the planes written in place (fewer passes than _tf32 and a stack)
-        out = t.new_empty(t.shape[:4] + (2, 8 * n))
+        out = t.new_empty(t.shape[:4] + (2, ks * n))
         big, small = out[..., 0, :], out[..., 1, :]
         torch.bitwise_and(t.view(torch.int32) + 0x1000, -0x2000, out=big.view(torch.int32))
         torch.sub(t, big, out=small)
         small.view(torch.int32).add_(0x1000).bitwise_and_(-0x2000)
         return out
+
+
+def dgrad_span_pack(structure: LevelStructure, weight: torch.Tensor) -> torch.Tensor:
+    """The folded weight laid out for ``dgrad_span_kernel`` (the layout of
+    :func:`dgrad_span_pack_reference`), once a backward call: on CUDA one
+    launch of ``dgrad_span_pack_kernel`` (one pass over the weight, counted
+    in ``launches``), on the CPU the plain version."""
+    s = structure
+    if weight.device.type == "cpu":
+        return dgrad_span_pack_reference(s, weight)
+    G = _span_pack_checks(s, weight)
+    if weight.device != s.device or not weight.is_contiguous():
+        raise ValueError(f"the weight must be a contiguous tensor on {s.device}")
+    P, C_in, K = weight.shape[-3:]
+    ks = DGRAD_SPAN_KSTEP[weight.element_size()]
+    entries = s.dgrad_span_row.numel()
+    out = weight.new_empty((G, entries, ROWS // ks, K, 16 // ks,
+                            DGRAD_TAP_PLANE // weight.element_size()))
+    if entries:
+        lib, pack = _bwd_library()[0], _bwd_library()[3]
+        err = _on_device(weight, lambda: pack(
+            weight.data_ptr(), s.dgrad_span_row.data_ptr(), s.dgrad_span_group.data_ptr(),
+            out.data_ptr(), entries, P, C_in, K, G, _DTYPES[weight.dtype],
+            torch.cuda.current_stream(weight.device).cuda_stream))
+        _build.check(lib, err, "dgrad_span_pack")
+        dgrad_span_pack.launches += 1
+    return out
+
+
+dgrad_span_pack.launches = 0
 
 
 def pack_level(
@@ -534,6 +592,9 @@ DGRAD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_float]
 # windows, dtype, device, stream)
 WGRAD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_float]
                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+# hmvae_dgrad_span_pack(w, span_row, span_group, out, entries, P, C, K,
+# windows, dtype, stream)
+PACK_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def _bind(lib, name, argtypes):
@@ -552,10 +613,12 @@ def _library():
 
 @functools.lru_cache(maxsize=None)
 def _bwd_library():
-    """The backward kernels' library, built at first use, and its entries."""
+    """The backward kernels' library, built at first use, and its entries:
+    dgrad, wgrad and dgrad's weight layout for spans."""
     lib = _build.load("fused_conv_pool_bwd")
     return (lib, _bind(lib, "hmvae_conv_dgrad", DGRAD_ARGTYPES),
-            _bind(lib, "hmvae_conv_wgrad", WGRAD_ARGTYPES))
+            _bind(lib, "hmvae_conv_wgrad", WGRAD_ARGTYPES),
+            _bind(lib, "hmvae_dgrad_span_pack", PACK_ARGTYPES))
 
 
 @functools.lru_cache(maxsize=None)
@@ -910,26 +973,40 @@ def dgrad_whole_rows(T_in: int, K: int, stride: int, padding: int, t_ld: int,
 def dgrad_plan(B: int, T_in: int, K: int, stride: int, padding: int, t_ld: int,
                pairs: int, max_live: int, sms: int, windows: int = 1,
                span_groups: Optional[Tuple[int, int]] = None, esz: int = 4) -> DgradPlan:
-    """The dgrad kernel's :class:`DgradPlan`: a block owns a pair of channel
+    """The dgrad kernel's :class:`DgradPlan`: whole padded rows that fit a
+    block take :func:`dgrad_whole_plan`.  A padded row that one batch's
+    block cannot hold (more than 256 / stride columns, or beyond shared
+    memory) is cut into spans, and the short rows of a large batch of one
+    window (:func:`dgrad_rows_routed`) take spans of several batches' whole
+    rows: :func:`dgrad_span_plan` over ``span_groups``, the groups of
+    ``DGRAD_SPAN_CHANNELS`` channels and their most live row tiles (by
+    default half the pairs and their most).  ``esz``: the element's bytes
+    (4: f32, 2: bf16)."""
+    if not dgrad_whole_rows(T_in, K, stride, padding, t_ld, esz) or (
+            windows == 1 and dgrad_rows_routed(B, T_in, K, stride, padding, esz)):
+        groups, group_live = span_groups or (-(-pairs // 2), max_live)
+        return dgrad_span_plan(B, T_in, K, stride, padding, groups, group_live, sms, windows,
+                               esz)
+    return dgrad_whole_plan(B, T_in, K, stride, padding, t_ld, pairs, max_live, sms, windows,
+                            esz)
+
+
+def dgrad_whole_plan(B: int, T_in: int, K: int, stride: int, padding: int, t_ld: int,
+                     pairs: int, max_live: int, sms: int, windows: int = 1,
+                     esz: int = 4) -> DgradPlan:
+    """``dgrad_kernel``'s :class:`DgradPlan` over whole padded rows that fit
+    a block (:func:`dgrad_whole_rows`): a block owns a pair of channel
     chunks and the padded rows of ``nbb`` batches (``groups`` batch groups
     of each of ``windows`` windows of ``B`` batches: a group never crosses a
     window), as many as its eight warps' 16-column tiles hold, one a warp
     (the columns of each stride phase tiled apart; one batch alone may take
     two a warp), and ``split`` blocks of a cluster share the pair's live row
-    tiles (at most ``max_live``).  A padded row that one batch's block cannot
-    hold (more than 256 / stride columns, or beyond shared memory) is cut
-    into spans (:func:`dgrad_span_plan` over ``span_groups``, the groups of
-    ``DGRAD_SPAN_CHANNELS`` channels and their most live row tiles; by
-    default half the pairs and their most).  Chosen for the least time on an
-    SM, counted in row tiles: waves of blocks (two to an SM where their
-    shared memory allows) times the row tiles a block walks, plus one for
-    its prologue and epilogue; ties go to fewer blocks.  ``esz``: the
-    element's bytes (4: f32, 2: bf16, whose smaller stages may let a block
-    take more batches)."""
+    tiles (at most ``max_live``).  Chosen for the least time on an SM,
+    counted in row tiles: waves of blocks (two to an SM where their shared
+    memory allows) times the row tiles a block walks, plus one for its
+    prologue and epilogue; ties go to fewer blocks.  ``esz``: the element's
+    bytes (bf16's smaller stages may let a block take more batches)."""
     Tp = T_in + 2 * padding
-    if not dgrad_whole_rows(T_in, K, stride, padding, t_ld, esz):
-        groups, group_live = span_groups or (-(-pairs // 2), max_live)
-        return dgrad_span_plan(B, T_in, K, stride, padding, groups, group_live, sms, windows)
     best = None
     for nb in range(1, 1 + B):
         smem = _dgrad_smem(T_in, K, t_ld, stride, padding, nb, esz)
@@ -948,26 +1025,64 @@ def dgrad_plan(B: int, T_in: int, K: int, stride: int, padding: int, t_ld: int,
 
 
 def dgrad_span_plan(B: int, T_in: int, K: int, stride: int, padding: int, groups: int,
-                    max_live: int, sms: int, windows: int = 1) -> DgradPlan:
-    """``dgrad_span_kernel``'s :class:`DgradPlan` at any length: a block
-    owns one batch and one of ``groups`` groups of ``DGRAD_SPAN_CHANNELS``
-    channels, its padded row cut into spans of :func:`dgrad_span_cols`
-    columns (the first narrower by :func:`dgrad_span_shift`), and ``split``
+                    max_live: int, sms: int, windows: int = 1, esz: int = 4) -> DgradPlan:
+    """``dgrad_span_kernel``'s :class:`DgradPlan` at any length, in elements
+    of ``esz`` bytes: a block owns one of ``groups`` groups of
+    ``DGRAD_SPAN_CHANNELS`` channels and a span of :func:`dgrad_span_cols`
+    padded columns.  Where a padded row fits a span, the span holds the
+    whole rows of ``nbb`` batches of a window, as many as its M tiles hold
+    (:func:`dgrad_span_rows`), spread evenly over ``groups`` batch groups a
+    window; else a block owns one batch and its padded row is cut into
+    spans (the first narrower by :func:`dgrad_span_shift`).  ``split``
     blocks of a cluster share a group's live row tiles (at most
     ``max_live``), chosen as :func:`dgrad_plan` chooses it (a block takes an
     SM)."""
-    span = dgrad_span_cols(K, stride)
-    if span <= 4 * padding + stride:
-        raise ValueError(f"a dgrad span of {span} columns cannot hold both columns of the "
-                         f"reflected pairs of padding {padding}")
-    spans = -(-(T_in + 2 * padding) // span)
+    span = dgrad_span_cols(K, stride, esz)
+    per = dgrad_span_rows(T_in, K, stride, padding, span)
+    if per:
+        bgroups = -(-B // min(per, B))
+        nbb, units = -(-B // bgroups), bgroups
+    else:
+        if span <= 4 * padding + stride:
+            raise ValueError(f"a dgrad span of {span} columns cannot hold both columns of the "
+                             f"reflected pairs of padding {padding}")
+        nbb, bgroups, units = 1, B, B * -(-(T_in + 2 * padding) // span)
     best = None
     for split in range(1, min(MAX_SPLIT, max(1, max_live)) + 1):
-        blocks = groups * windows * B * spans * split
+        blocks = groups * windows * units * split
         cost = (-(-blocks // sms) * (-(-max_live // split) + 1), blocks)
         if best is None or cost < best[0]:
-            best = (cost, DgradPlan(1, B, split, span))
+            best = (cost, DgradPlan(nbb, bgroups, split, span))
     return best[1]
+
+
+def dgrad_span_period(T_in: int, K: int, stride: int, padding: int) -> int:
+    """The M rows (columns v) a batch's padded row takes in each stride
+    phase of a span of whole rows (``dgrad_span_period`` in the kernel's
+    source): its widest phase, and at least T_out + off, so that the off =
+    ceil(K / stride) - 1 zeros ahead of the next batch's g stay between
+    them."""
+    Tp = T_in + 2 * padding
+    return max(-(-Tp // stride), (Tp - K) // stride + 1 + -(-K // stride) - 1)
+
+
+def dgrad_span_rows(T_in: int, K: int, stride: int, padding: int, span: int) -> int:
+    """Whole padded rows a span of ``span`` columns holds: its M tiles of
+    each stride phase (span / stride rows) over :func:`dgrad_span_period`;
+    0 where one row is longer (spans of one batch's row)."""
+    return span // stride // dgrad_span_period(T_in, K, stride, padding)
+
+
+def dgrad_rows_routed(B: int, T_in: int, K: int, stride: int, padding: int,
+                      esz: int = 4) -> bool:
+    """Whether :func:`dgrad_plan` gives whole rows that fit a whole-row
+    block to the span kernel (several batches' padded rows a span): only at
+    the shapes where the card timed it faster than ``dgrad_kernel`` (K
+    ``DGRAD_ROWS_K``, rows of at most ``DGRAD_ROWS_MAX_T`` frames, from
+    ``DGRAD_ROWS_MIN_BATCH`` batches a window on; PERF.md), and only where
+    a span holds a row."""
+    return (B >= DGRAD_ROWS_MIN_BATCH and K == DGRAD_ROWS_K and T_in <= DGRAD_ROWS_MAX_T
+            and dgrad_span_rows(T_in, K, stride, padding, dgrad_span_cols(K, stride, esz)) > 0)
 
 
 def _dgrad_smem(T_in: int, K: int, t_ld: int, stride: int, padding: int, nbb: int,
@@ -991,27 +1106,31 @@ def _dgrad_smem(T_in: int, K: int, t_ld: int, stride: int, padding: int, nbb: in
     return g2_end if out <= w_ring else a16(g2_end) + out
 
 
-def _dgrad_span_layout(K: int, stride: int, span: int) -> Tuple[int, int]:
+def _dgrad_span_layout(K: int, stride: int, span: int, esz: int = 4) -> Tuple[int, int]:
     """(bytes, stages) of a ``dgrad_span_kernel`` block (``dgrad_span_layout``
-    in the kernel's source): the barriers and zero planes, then as many
-    stages as fit (at most ``DGRAD_SPAN_MAX_STAGES``), each the K taps'
-    weight planes and g's 8 rows p in two planes (big over gy, small over
-    y), of the span's g columns and their halo from a 16-byte granule on, a
-    row's pitch 8 mod 32 words.  Independent of T."""
+    in the kernel's source) in elements of ``esz`` bytes: the barriers and
+    zero planes, then as many stages as fit (at most
+    ``DGRAD_SPAN_MAX_STAGES``), each the K taps' weight planes, the stage's
+    rows of gy and of y (gw columns a row p, from a 16-byte granule on) and
+    g in the A layout (f32: big and small planes of 8 rows p; bf16: 8 rows
+    of pairs of rows p), gw columns a row, a row's pitch 8 mod 32 words.
+    Independent of T and of the batch."""
     off = -(-K // stride) - 1
-    gw = (off + span // stride + 6) // 4 * 4
+    gran, ks, planes = 16 // esz, DGRAD_SPAN_KSTEP[esz], esz // 2
+    gw = (off + span // stride + 2 * gran - 2) // gran * gran
     gl = gw + (40 - gw % 32) % 32
-    slot = -(-(K * 2 * DGRAD_TAP_PLANE + 2 * 8 * gl * 4) // 128) * 128
+    slot = -(-(K * planes * DGRAD_TAP_PLANE + 2 * ks * gw * esz + planes * 8 * gl * 4)
+             // 128) * 128
     stages = min(DGRAD_SPAN_MAX_STAGES, (MAX_SMEM - DGRAD_SPAN_SLOTS) // slot)
     return DGRAD_SPAN_SLOTS + stages * slot, stages
 
 
-def dgrad_span_cols(K: int, stride: int) -> int:
+def dgrad_span_cols(K: int, stride: int, esz: int = 4) -> int:
     """The widest dgrad span: whole 64-column M tiles of every stride phase,
     at most ``DGRAD_SPAN_TILES`` of them, with at least two stages in a
     block: 256 padded columns at strides 1, 2 and 4, 192 at 3."""
     for tiles in range(DGRAD_SPAN_TILES // stride, 0, -1):
-        if _dgrad_span_layout(K, stride, 64 * stride * tiles)[1] >= 2:
+        if _dgrad_span_layout(K, stride, 64 * stride * tiles, esz)[1] >= 2:
             return 64 * stride * tiles
     raise ValueError(f"no dgrad span fits shared memory at K={K}, stride={stride}")
 
@@ -1145,13 +1264,14 @@ def last_backward_plans() -> dict:
             "wgrad": dict(zip(WgradPlan._fields + ("smem",), out[8:]))}
 
 
-def _bf16_checks(windows: Optional[int], plan, whole_rows) -> None:
-    """The bf16 backward kernels take whole rows of one window: bf16 over
-    spans or windows raises, before any launch.  ``whole_rows()``: whether
-    the call's rows fit a whole-row block."""
+def _bf16_checks(windows: Optional[int], plan=None, whole_rows=None) -> None:
+    """The bf16 backward kernels take one window, and wgrad whole rows: bf16
+    over windows, or wgrad over items, raises before any launch.
+    ``whole_rows()`` (wgrad): whether the call's rows fit a whole-row
+    block."""
     if windows is not None:
         raise TypeError(BF16_WINDOWED)
-    if (plan is not None and plan.span) or not whole_rows():
+    if whole_rows is not None and ((plan is not None and plan.span) or not whole_rows()):
         raise TypeError(BF16_SPANS)
 
 
@@ -1190,8 +1310,7 @@ def _dgrad(gy, y, weight, s: LevelStructure, T_in: int, windows: Optional[int],
     esz = gy.element_size()
     gran = 16 // esz  # the kernels bulk-copy rows of gy and y as whole 16-byte granules
     if gy.dtype == torch.bfloat16:
-        _bf16_checks(windows, plan, lambda: dgrad_whole_rows(
-            T_in, K, s.stride, s.padding, -(-T_out // gran) * gran, esz))
+        _bf16_checks(windows)
     gy, y = _aligned(gy, 2, gran), _aligned(y, 2, gran)
     w = _aligned(weight, weight.dim() - 2, BWD_CHUNK_CHANNELS)
     C, t_ld = w.shape[-2], gy.shape[2]
@@ -1200,10 +1319,10 @@ def _dgrad(gy, y, weight, s: LevelStructure, T_in: int, windows: Optional[int],
         B // G, T_in, K, s.stride, s.padding, t_ld, s.dgrad_start.numel() - 1,
         s.dgrad_max_live, _sm_count(dev), G,
         (s.dgrad_span_start.numel() - 1, s.dgrad_span_max_live), esz)
-    lib, dgrad, _ = _bwd_library()
+    lib, dgrad = _bwd_library()[:2]
     gx = torch.empty((B, C, T_in), dtype=gy.dtype, device=gy.device)
-    # spans read the weight split into TF32 planes, once a call, and walk
-    # the live row tiles of groups of channels
+    # spans read the weight laid out in planes (f32: split into TF32), once
+    # a call, and walk the live row tiles of groups of channels
     wpk = dgrad_span_pack(s, weight) if plan.span else None
     start, rows = ((s.dgrad_span_start, s.dgrad_span_row) if plan.span else
                    (s.dgrad_start, s.dgrad_row))
@@ -1248,7 +1367,7 @@ def _wgrad(gy, y, x, s: LevelStructure, windows: Optional[int],
         B // G, T_out, entries, _sm_count(dev), G,
         lambda sb, split: _wgrad_smem(B // G, T_in, K, T_out, t_ld, s.stride, sb, split, esz),
         wgrad_span_cols(K, s.stride))
-    lib, _, wgrad = _bwd_library()
+    lib, wgrad = _bwd_library()[0], _bwd_library()[2]
     gw = torch.zeros((G, P, C, K), dtype=gy.dtype, device=gy.device)
     gb = torch.empty((G, P), dtype=gy.dtype, device=gy.device)
     err = _on_device(gy, lambda: wgrad(
@@ -1267,9 +1386,10 @@ def fused_conv_pool_dgrad(gy: torch.Tensor, y: torch.Tensor, weight: torch.Tenso
                           structure: LevelStructure, T_in: int) -> torch.Tensor:
     """The input gradient (B, C_in, T_in) of a folded level, from the output
     gradient ``gy`` and output ``y`` (B, P, T_out) and the folded weight
-    (P, C_in, K), in gy's dtype.  One kernel launch on CUDA (f32; bf16 over
-    whole rows), fixed-order sums (the same bits every run); the plain
-    version on the CPU."""
+    (P, C_in, K), in gy's dtype.  One kernel launch on CUDA, f32 or bf16
+    (where the plan runs the span kernel, after the launch that lays its
+    weight out: :func:`dgrad_span_pack`), fixed-order sums (the same bits
+    every run); the plain version on the CPU."""
     s = structure
     if gy.device.type == "cpu":
         return fused_conv_pool_dgrad_reference(gy, y, weight, T_in, s.stride, s.padding,
@@ -1332,9 +1452,9 @@ class FusedConvPoolFn(torch.autograd.Function):
     On CUDA the forward writes the weight's current values into the
     structure's tiles (:func:`repack`) and launches the forward kernel; the
     backward launches the dgrad kernel (only when x needs a gradient) and
-    the wgrad kernel, in the structure's dtype (f32, or bf16 over whole
-    rows), so that the gradients come back in the dtypes of x, the weight
-    and the bias.  The weight's entries outside the live tiles must be
+    the wgrad kernel, in the structure's dtype (f32, or bf16: wgrad over
+    whole rows), so that the gradients come back in the dtypes of x, the
+    weight and the bias.  The weight's entries outside the live tiles must be
     zero, as a fold of the structure leaves them.  It saves x and the output:
     LeakyReLU's gradient is read from the output's sign.
     """

@@ -3,7 +3,7 @@ the kernel (run from the repo root on a GPU):
 
     python3 kernel_trace.py [--kernel fwd|dgrad|wgrad|wgrad_span|dgrad_span]
                             [--variant base|nobuild|nomma] [--levels enc0,dec0]
-                            [--source FILE]
+                            [--batch N] [--dtype float32|bfloat16] [--source FILE]
 
 Builds a copy of the kernel's source (``hm_vae_torch/csrc/fused_conv_pool.cu``
 for ``fwd``, ``fused_conv_pool_bwd.cu`` for ``dgrad`` and ``wgrad``) with
@@ -15,7 +15,9 @@ to the first stage), per stage (a forward chunk, a backward column or row
 tile) the wait for its copies, the staging (im2col build), the product, and
 the epilogue (its reduction, then the stores).  The forward runs at batch 8
 and 237 in bf16 and f32; the backward at batch 8 in f32, on the operands
-``chip_smoke.py`` gives it.
+``chip_smoke.py`` gives it (``--batch`` and ``--dtype`` choose another batch
+and the element type of ``dgrad`` and ``dgrad_span``: the production batch of
+64, bf16 as under ``compute_dtype: bfloat16``).
 
 ``--variant nobuild`` skips the forward's im2col build and ``nomma`` its
 wgmma: their outputs are wrong, their times say what the skipped phase costs.
@@ -43,6 +45,8 @@ and the epilogue (the cluster's sum, the fold and the stores), with the
 means per stage.  ``--source FILE`` with a source from before that kernel
 (whose spans ran ``dgrad_kernel<true>`` and ``dgrad_fold_kernel``) traces
 its span mode under its own plan, with ``--kernel dgrad``'s stamps.
+With ``--batch N`` it traces the span kernel at the len-64 model's levels at
+batch N instead, under its own plan (``dgrad_span_plan``), in ``--dtype``.
 """
 
 from __future__ import annotations
@@ -471,14 +475,18 @@ def _parent_span_launch(lib, fcp, s, wf, gy, y, T_in):
     return gx[:, :wf.shape[1]]
 
 
-def trace_dgrad_span(lib, buf, parent: bool) -> None:
+def trace_dgrad_span(lib, buf, parent: bool, batch=None, dtype=torch.float32) -> None:
     """The dgrad span kernel (or, ``parent``, the span mode of a source from
-    before it) at the trajectory model's four levels, batch 8, T 1,024 and
-    batch 1, T 7,200, and at enc1, batch 8, T 1,024: one JSON line a level,
-    with its error against the plain version and the packing's device time
-    (in the wrapper's launch, outside the kernel)."""
+    before it) in ``dtype`` at the trajectory model's four levels, batch 8,
+    T 1,024 and batch 1, T 7,200, and at enc1, batch 8, T 1,024; or, where
+    ``batch`` is given, at the len-64 model's eight levels at that batch
+    under the span kernel's plan (``dgrad_span_plan``, whether or not
+    ``dgrad_plan`` routes the shape there): one JSON line a level, with its
+    error against the plain version and the packing's device time (in the
+    wrapper's launch, outside the kernel)."""
     import chip_smoke
     from hm_vae_torch.models.hm_vae import HMVAE
+    from hm_vae_torch.models.structure import get_structure
     from hm_vae_torch.models.trajectory import TrajectoryModel
     from hm_vae_torch.ops import fused_conv_pool as fcp
     from hm_vae_torch.utils.config import load_config
@@ -488,25 +496,35 @@ def trace_dgrad_span(lib, buf, parent: bool) -> None:
     tmodel = TrajectoryModel(tcfg.model, tcfg.optim.init, generator=gen).to("cuda")
     cfg = load_config(chip_smoke.CONFIG)
     model = HMVAE(cfg.model, cfg.optim.init, generator=gen).to("cuda")
-    cases = [(f"traj{i}", getattr(tmodel.encoder, f"conv_{i}"), batch, T)
-             for batch, T in ((8, 1024), (1, 7200)) for i in range(4)]
-    cases.append(("enc1", model.encoder.conv_1, 8, 1024))
-    for name, conv, batch, T in cases:
-        s, wf, bf, x, y, gy = chip_smoke.bwd_inputs(conv, T, gen, batch)
+    if batch is None:
+        cases = [(f"traj{i}", getattr(tmodel.encoder, f"conv_{i}"), b, T)
+                 for b, T in ((8, 1024), (1, 7200)) for i in range(4)]
+        cases.append(("enc1", model.encoder.conv_1, 8, 1024))
+    else:
+        cases = [(n, c, batch, T) for n, c, T in
+                 chip_smoke.level_cases(model, get_structure(cfg.model))]
+    esz = torch.empty((), dtype=dtype).element_size()
+    for name, conv, b, T in cases:
+        s, wf, bf, x, y, gy = chip_smoke.bwd_inputs(conv, T, gen, b, dtype)
+        plan = None if batch is None or parent else fcp.dgrad_span_plan(
+            b, T, s.kernel_size, s.stride, s.padding, s.dgrad_span_start.numel() - 1,
+            s.dgrad_span_max_live, fcp._sm_count(torch.cuda.current_device()), 1, esz)
         if parent:
             launch = lambda: _parent_span_launch(lib, fcp, s, wf, gy, y, T)  # noqa: E731
         else:
-            launch = lambda: fcp.fused_conv_pool_dgrad(gy, y, wf, s, T)  # noqa: E731
+            launch = lambda: fcp._dgrad(gy, y, wf, s, T, None, plan)  # noqa: E731
         ref = fcp.fused_conv_pool_dgrad_reference(gy, y, wf, T, s.stride, s.padding,
                                                   "reflect" if s.reflect else "constant",
                                                   s.negative_slope)
-        err = float((launch() - ref).abs().max())
+        err = float((launch().float() - ref.float()).abs().max())
         row = _trace(lib, buf, launch, phases if parent else dgrad_span_phases)
         extra = {} if parent else {"plan": fcp.last_backward_plans()["dgrad"],
                                    "pack_us": 1e3 * chip_smoke.device_ms(
                                        lambda: fcp.dgrad_span_pack(s, wf))}
         print(json.dumps({"kernel": "dgrad_span", "source": "parent" if parent else "repo",
-                          "level": name, "batch": batch, "T": T, "max_abs_err": err,
+                          "level": name, "batch": b, "T": T,
+                          "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+                          "max_abs_ref": float(ref.float().abs().max()),
                           **extra, **row}), flush=True)
 
 
@@ -520,7 +538,15 @@ def main() -> None:
     ap.add_argument("--levels", default=None,
                     help="comma-separated levels (default: enc0,enc3,dec0,dec3 for fwd, all "
                          "eight for the backward)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="dgrad / wgrad: the batch (default 8); dgrad_span: the len-64 levels "
+                         "at this batch in place of the long rows")
+    ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
+                    help="the element type of dgrad and dgrad_span (default float32)")
     args = ap.parse_args()
+    dtype = getattr(torch, args.dtype)
+    if dtype != torch.float32 and args.kernel not in ("dgrad", "dgrad_span"):
+        raise SystemExit("--dtype bfloat16 is for --kernel dgrad and dgrad_span")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_trace.py needs a GPU")
 
@@ -537,11 +563,12 @@ def main() -> None:
     else:
         _build.load("fused_conv_pool")  # the forward, for y
         fcp._bwd_library = lambda: (lib, fcp._bind(lib, "hmvae_conv_dgrad", fcp.DGRAD_ARGTYPES),
-                                    fcp._bind(lib, "hmvae_conv_wgrad", fcp.WGRAD_ARGTYPES))
+                                    fcp._bind(lib, "hmvae_conv_wgrad", fcp.WGRAD_ARGTYPES),
+                                    fcp._bind(lib, "hmvae_dgrad_span_pack", fcp.PACK_ARGTYPES))
     if args.kernel == "dgrad_span":
         with open(args.source or os.path.join(_build.CSRC_DIR, "fused_conv_pool_bwd.cu")) as f:
             trace_dgrad_span(lib, np.zeros(BLOCKS * SLOTS, dtype=np.uint64),
-                             FOLD_KERNEL in f.read())
+                             FOLD_KERNEL in f.read(), args.batch, dtype)
         print(chip_smoke.nvidia_smi(), flush=True)
         return
     if args.kernel == "wgrad_span":
@@ -572,14 +599,17 @@ def main() -> None:
                                       "batch": batch, "dtype": str(dtype).replace("torch.", ""),
                                       **row}), flush=True)
     else:
+        batch = args.batch or chip_smoke.BATCH
         for name, conv, T_in in cases:
-            s, wf, bf, x, y, gy = chip_smoke.bwd_inputs(conv, T_in, gen)
+            s, wf, bf, x, y, gy = chip_smoke.bwd_inputs(conv, T_in, gen, batch, dtype)
             if args.kernel == "dgrad":
                 launch = lambda: fcp.fused_conv_pool_dgrad(gy, y, wf, s, T_in)  # noqa: E731
             else:
                 launch = lambda: fcp.fused_conv_pool_wgrad(gy, y, x, s)  # noqa: E731
-            print(json.dumps({"kernel": args.kernel, "level": name, "batch": chip_smoke.BATCH,
-                              "dtype": "float32", **_trace(lib, buf, launch)}), flush=True)
+            row = _trace(lib, buf, launch)
+            print(json.dumps({"kernel": args.kernel, "level": name, "batch": batch,
+                              "dtype": args.dtype, "plan": fcp.last_backward_plans()["dgrad"
+                              if args.kernel == "dgrad" else "wgrad"], **row}), flush=True)
     print(chip_smoke.nvidia_smi(), flush=True)
 
 

@@ -11,7 +11,8 @@ where chip_smoke.py phase 35 holds them against these plain versions):
   len-64 levels (batch 8 and 64) and the trajectory's (8, 128); the
   Python layouts against a transcription of the kernels' (``dgrad_layout``
   and ``wgrad_layout`` in ``csrc/fused_conv_pool_bwd.cu``) in both element
-  sizes; bf16 over spans or windows raising before any launch, and a bf16
+  sizes; bf16 wgrad over items and the bf16 windowed backward raising
+  before any launch (dgrad's span plans in bf16 over long rows), and a bf16
   structure's backward lists at the kernels' 8-channel chunks.
 
 Training at bf16 compute is held against JAX in
@@ -201,9 +202,14 @@ def test_bf16_whole_row_plans_fit_shared_memory():
         T_out = (T + 2 * pad - K) // stride + 1
         t_ld = -(-T_out // 8) * 8  # rows of gy and y in 16-byte granules of 8 bf16
         assert fcp.dgrad_whole_rows(T, K, stride, pad, t_ld, 2)
-        d = fcp.dgrad_plan(B, T, K, stride, pad, t_ld, s.dgrad_start.numel() - 1,
-                           s.dgrad_max_live, SMS, esz=2)
+        d = fcp.dgrad_whole_plan(B, T, K, stride, pad, t_ld, s.dgrad_start.numel() - 1,
+                                 s.dgrad_max_live, SMS, esz=2)
         assert d.span == 0 and fcp._dgrad_smem(T, K, t_ld, stride, pad, d.nbb, 2) <= fcp.MAX_SMEM
+        # routed: at the production batch dgrad takes spans of whole rows
+        routed = fcp.dgrad_plan(B, T, K, stride, pad, t_ld, s.dgrad_start.numel() - 1,
+                                s.dgrad_max_live, SMS, esz=2)
+        assert (routed.span > 0) == (B == 64)
+        assert not routed.span or routed.nbb * (T + 2 * pad) <= routed.span
         # a group never holds more columns than its warps' tiles
         assert d.nbb == 1 or fcp._dgrad_tiles(T + 2 * pad, stride, d.nbb) <= fcp.BWD_WARPS
         assert fcp.wgrad_whole_rows(B, T, K, T_out, t_ld, stride, 2)
@@ -212,8 +218,8 @@ def test_bf16_whole_row_plans_fit_shared_memory():
         w = fcp.wgrad_plan(B, T_out, s.wgrad_row.numel(), SMS, smem=smem)
         assert w.span == 0 and smem(w.sb, w.split) <= fcp.MAX_SMEM
         # bf16 stages are half as large: never a smaller group than f32's
-        d32 = fcp.dgrad_plan(B, T, K, stride, pad, -(-T_out // 4) * 4,
-                             s.dgrad_start.numel() - 1, s.dgrad_max_live, SMS)
+        d32 = fcp.dgrad_whole_plan(B, T, K, stride, pad, -(-T_out // 4) * 4,
+                                   s.dgrad_start.numel() - 1, s.dgrad_max_live, SMS)
         assert d.nbb >= d32.nbb
         n += 1
     assert n == 8 * 2 + 4
@@ -250,18 +256,28 @@ def _meta(*shape):
     ("traj", 0, 1024, True), ("traj", 3, 7200, True), ("len64", 1, 1024, False)])
 def test_bf16_spans_raise_before_a_launch(model, level, T, wgrad_spans):
     """Rows past a whole-row block (the trajectory at T 1,024 and 7,200, a
-    stride-2 len-64 level at T 1,024) take the span kernels, f32 only: a
-    bf16 call raises, naming ROADMAP Queue 6 item 1.  At the len-64 level
-    wgrad's bf16 stages, half as large, still fit whole rows (batch 2)."""
+    stride-2 len-64 level at T 1,024): dgrad takes its span kernel in bf16
+    too (spans of one batch's row, two or more stages of its bf16 planes in
+    a block; the wrapper's bf16 check passes), while wgrad's items are f32
+    only: a bf16 call raises, naming ROADMAP Queue 6 item 1.  At the len-64
+    level wgrad's bf16 stages, half as large, still fit whole rows (batch
+    2)."""
     _, conv, _ = _cases(model)[level]
     sp = conv.spec
     s = fcp.pack_structure(conv.structure().live_elements(), sp.kernel_size, BF16, sp.stride,
                            sp.padding, sp.padding_mode, conv.negative_slope, device="meta")
     T_out = (T + 2 * sp.padding - sp.kernel_size) // sp.stride + 1
     gy = _meta(2, s.rows, T_out)
-    with pytest.raises(TypeError, match="Queue 6 item 1"):
-        fcp.fused_conv_pool_dgrad(gy, gy, _meta(s.rows, s.in_channels, sp.kernel_size), s, T)
     t_ld = -(-T_out // 8) * 8
+    fcp._bf16_checks(None)  # dgrad's: one window, any row
+    d = fcp.dgrad_plan(2, T, sp.kernel_size, sp.stride, sp.padding, t_ld,
+                       s.dgrad_start.numel() - 1, s.dgrad_max_live, SMS, 1,
+                       (s.dgrad_span_start.numel() - 1, s.dgrad_span_max_live), esz=2)
+    assert d.nbb == 1 and d.groups == 2 and d.span == fcp.dgrad_span_cols(
+        sp.kernel_size, sp.stride, 2) == 256
+    assert fcp.dgrad_span_rows(T, sp.kernel_size, sp.stride, sp.padding, d.span) == 0
+    smem, stages = fcp._dgrad_span_layout(sp.kernel_size, sp.stride, d.span, 2)
+    assert smem <= fcp.MAX_SMEM and stages >= 3
     assert fcp.wgrad_whole_rows(2, T, sp.kernel_size, T_out, t_ld, sp.stride, 2) != wgrad_spans
     assert not fcp.wgrad_whole_rows(2, T, sp.kernel_size, T_out, -(-T_out // 4) * 4,
                                     sp.stride, 4)  # f32 takes spans at every one

@@ -12,7 +12,9 @@ them against their plain versions, bit-equal on two runs):
 - the plans of every existing shape (the len-64 and production models at
   batch 8 and 64, the trajectory model's training and solver shapes, the
   solver's 10 windows) are the plans from before spans, span 0: the same
-  launch, the same bits;
+  launch, the same bits; but the len-64 levels' dgrad at batch 64, routed
+  to spans of several batches' whole rows, whose whole-row plan
+  (``dgrad_whole_plan``) is still that plan;
 - the span decomposition's index arithmetic (dgrad: the spans, the first
   narrower so that the last holds the reflected edge, the g columns a span
   stages from a 16-byte granule with its halo, its M tiles of each stride
@@ -214,7 +216,12 @@ def _existing_shapes():
 
 
 def test_existing_shapes_keep_their_plans():
-    n = 0
+    """Every existing shape keeps its plans, but dgrad at the routed large
+    batch (the len-64 levels at the production batch of 64; the
+    trajectory's K-31 levels at batch 64 are not routed), which takes spans
+    of several batches' whole rows (``dgrad_rows_routed``): its whole-row
+    plan, ``dgrad_whole_plan``, is still the one from before."""
+    n = routed = 0
     for s, B, T, windows in _existing_shapes():
         d, w, t_ld = _plans(s, B, T, windows)
         T_out = _t_out(s, T)
@@ -223,11 +230,22 @@ def test_existing_shapes_keep_their_plans():
         smem = lambda sb, split: fcp._wgrad_smem(B, T, s.kernel_size, T_out, t_ld,  # noqa
                                                  s.stride, sb, split)
         old_w = _old_wgrad_plan(B, T_out, s.wgrad_row.numel(), SMS, windows, smem)
-        assert (d, w) == (old_d + (0,), old_w + (0,)), (s.kernel_size, B, T, windows)
+        assert w == old_w + (0,), (s.kernel_size, B, T, windows)
+        if windows == 1 and fcp.dgrad_rows_routed(B, T, s.kernel_size, s.stride, s.padding):
+            assert B == 64 and s.kernel_size == 15
+            assert d == fcp.dgrad_span_plan(B, T, s.kernel_size, s.stride, s.padding,
+                                            s.dgrad_span_start.numel() - 1,
+                                            s.dgrad_span_max_live, SMS)
+            assert d.nbb > 1 and d.span == fcp.dgrad_span_cols(s.kernel_size, s.stride)
+            d = fcp.dgrad_whole_plan(B, T, s.kernel_size, s.stride, s.padding, t_ld,
+                                     s.dgrad_start.numel() - 1, s.dgrad_max_live, SMS, windows)
+            routed += 1
+        assert d == old_d + (0,), (s.kernel_size, B, T, windows)
         assert fcp._dgrad_smem(T, s.kernel_size, t_ld, s.stride, s.padding, d.nbb) == \
             _old_dgrad_smem(T, s.kernel_size, t_ld, s.stride, s.padding, d.nbb)
         n += 1
     assert n == 8 * 4 + 4 + 16
+    assert routed == 8 * 2
 
 
 def dgrad_by_span(g, w, T_in, stride, padding, reflect, span, split=1):

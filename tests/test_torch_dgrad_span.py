@@ -145,15 +145,17 @@ def test_span_pack_drops_dead_tiles_and_packs_each_window():
 @pytest.mark.parametrize("K", [15, 31])
 def test_dgrad_span_block_fits_at_any_length(K, stride):
     """Whole M tiles of every phase, four at most: 256 padded columns (192 at
-    stride 3), two to four stages of the K taps' planes and g's 8 rows in a
-    block, whatever the length."""
+    stride 3), two to four stages of the K taps' planes, the stage's rows of
+    gy and y and g's 8 rows in a block, whatever the length."""
     span = fcp.dgrad_span_cols(K, stride)
     assert span == (192 if stride == 3 else 256) and span % (64 * stride) == 0
     smem, stages = fcp._dgrad_span_layout(K, stride, span)
     assert smem <= fcp.MAX_SMEM and 2 <= stages <= fcp.DGRAD_SPAN_MAX_STAGES
-    # K 31's planes of 32 channels (63.5 KB a stage) leave room for two at
-    # stride 1 (the trajectory's levels), K 15 for four
-    assert stages == {(31, 1): 2, (31, 2): 3, (31, 3): 3}.get((K, stride), 4)
+    # K 31's planes of 32 channels (62 KB a stage) beside the stage's rows of
+    # gy and y and g's planes leave room for two at strides 1 (the
+    # trajectory's levels) and 2; K 15 for three at stride 1 (30 KB of
+    # planes, 37 KB of rows) and four at strides 2 (enc1's) and 3
+    assert stages == {(15, 1): 3, (31, 1): 2, (31, 2): 2, (31, 3): 3}.get((K, stride), 4)
     live = torch.ones(128, 24, dtype=torch.bool)
     s = fcp.pack_structure(live, K, torch.float32, stride, (K - 1) // 2)
     for T in (1000, 4000, 7201, 100000):

@@ -216,19 +216,22 @@ def test_trained_zero_keeps_its_tile():
 
 def test_backward_wrappers_take_float32_only():
     """On a non-CPU device the wrappers check before they launch: bf16 runs
-    the backward kernels over whole rows of one window only, so a bf16 call
-    over spans (rows past whole-row staging) or over windows raises,
-    naming the ROADMAP item that will port it, instead of falling back; so
-    does a weight or x whose dtype is not gy's."""
+    the backward kernels over one window only, and wgrad over whole rows
+    only, so a bf16 wgrad call over items (rows past whole-row staging) or a
+    bf16 call over windows raises, naming the ROADMAP item that will port
+    it, instead of falling back; so does a weight or x whose dtype is not
+    gy's.  bf16 dgrad over such rows plans the span kernel's bf16 form."""
     def meta(*shape):
         return torch.empty(shape, dtype=torch.bfloat16, device="meta")
 
     s = fcp.pack_structure(torch.ones(64, 8, dtype=torch.bool), 3, torch.bfloat16, 1, 1,
                            device="meta")
-    T = 1024  # past one block's whole-row staging: spans, float32 only
+    T = 1024  # past one block's whole-row staging: spans (wgrad's items: float32 only)
     gy = meta(1, 64, T)
-    with pytest.raises(TypeError, match="float32 only.*Queue 6 item 1"):
-        fcp.fused_conv_pool_dgrad(gy, gy, meta(64, 8, 3), s, T)
+    fcp._bf16_checks(None)  # dgrad's check passes: its spans run in bf16
+    d = fcp.dgrad_plan(1, T, 3, 1, 1, T, s.dgrad_start.numel() - 1, s.dgrad_max_live, 132, 1,
+                       (s.dgrad_span_start.numel() - 1, s.dgrad_span_max_live), esz=2)
+    assert d.span == fcp.dgrad_span_cols(3, 1, 2) and d.nbb == 1
     with pytest.raises(TypeError, match="float32 only.*Queue 6 item 1"):
         fcp.fused_conv_pool_wgrad(gy, gy, meta(1, 8, T), s)
     gy = meta(2, 64, 4)  # two windows of one batch

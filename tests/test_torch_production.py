@@ -370,8 +370,9 @@ def test_trainer_on_fixed_batches_without_a_native_stream(tmp_path):
 def test_batch64_backward_plans_fit_shared_memory():
     """At the production batch of 64 every len-64 level's dgrad and wgrad
     plan fits a block's shared memory (a wgrad block holds x's rows of its
-    batches: dec3 splits its batches over 3 blocks, not 2); the batch-8
-    plans are those chosen before."""
+    batches: dec3 splits its batches over 3 blocks, not 2; dgrad's whole-row
+    plan, and the spans of several batches' whole rows it is routed to);
+    the batch-8 plans are those chosen before."""
     from hm_vae_torch.models.hm_vae import HMVAE, SkeletonConv
     from hm_vae_torch.ops import fused_conv_pool as fcp
 
@@ -387,9 +388,18 @@ def test_batch64_backward_plans_fit_shared_memory():
             T_out = fcp._t_out(T, K, stride, pad, s.reflect)
             t_ld = T_out + -T_out % 4
             for B in (8, 64):
-                nbb, _, _, span = fcp.dgrad_plan(B, T, K, stride, pad, t_ld,
-                                                 s.dgrad_start.numel() - 1, s.dgrad_max_live, 132)
+                nbb, _, _, span = fcp.dgrad_whole_plan(B, T, K, stride, pad, t_ld,
+                                                       s.dgrad_start.numel() - 1,
+                                                       s.dgrad_max_live, 132)
                 assert span == 0 and fcp._dgrad_smem(T, K, t_ld, stride, pad, nbb) <= fcp.MAX_SMEM
+                # routed, batch 64's dgrad takes spans of several batches' whole rows
+                d = fcp.dgrad_plan(B, T, K, stride, pad, t_ld, s.dgrad_start.numel() - 1,
+                                   s.dgrad_max_live, 132, 1,
+                                   (s.dgrad_span_start.numel() - 1, s.dgrad_span_max_live))
+                assert (d.span > 0) == (B == 64)
+                if d.span:
+                    assert d.nbb > 1 and fcp._dgrad_span_layout(K, stride, d.span)[0] <= \
+                        fcp.MAX_SMEM
                 smem = lambda sb, split: fcp._wgrad_smem(B, T, K, T_out, t_ld, stride,  # noqa
                                                          sb, split)
                 plan = fcp.wgrad_plan(B, T_out, s.wgrad_row.numel(), 132, smem=smem)
