@@ -12,8 +12,8 @@ Phases, each of which exits non-zero on failure:
    memory, spills) and SASS (``HGMMA``: wgmma; ``HMMA``: mma.sync;
    ``UBLKCP``: bulk copies) are printed; the forward's bf16 instantiation
    must contain wgmma, and the dgrad and wgrad kernels tensor-core products
-   (their whole-row bf16 instantiations HMMA, dgrad's span kernel HGMMA in
-   both element types);
+   (their whole-row bf16 instantiations HMMA, dgrad's span kernel and every
+   form of wgrad's item kernel HGMMA in both element types);
 2. hold the forward kernel against its plain PyTorch version at the eight
    level shapes of the len-64 model (its real operands: masks, pool matrices,
    unpool-folded weights), in f32 and bf16, at batch 8 (plus one stride-1
@@ -101,10 +101,10 @@ Phases, each of which exits non-zero on failure:
 20. (run right after phase 12, beside the other kernels) the three kernels
    at ``configs/len64_production.yaml``'s batch of 64, f32, at the eight
    len-64 levels, held and timed as phases 2 and 5 hold and time theirs,
-   each giving the same bits on two runs; dgrad as routed there (spans of
-   several batches' whole rows), the whole-row kernel held and timed beside
-   it, unrouted, and the spans' weight layout (``dgrad_span_pack``) bit for
-   bit against its plain version;
+   each giving the same bits on two runs; dgrad and wgrad as routed there
+   (spans and items of several batches' whole rows), the whole-row kernels
+   held and timed beside them, unrouted, and the spans' weight layout
+   (``dgrad_span_pack``) bit for bit against its plain version;
 21. the production config's steps: 32 steps at batch 64, one step captured
    in a CUDA graph and replayed 32 times, against the same steps run
    eagerly, from one init and one superbatch of the f16 aa wire, the
@@ -119,8 +119,8 @@ Phases, each of which exits non-zero on failure:
    keep_checkpoints 2, then ``--resume``; the train split the native
    sampler on the aa wire, the steps a CUDA graph; then the step's cost
    through ``Trainer.fit``: ms a step by CUDA events, the kernels'
-   launches a call in the device trace (256 / 224 / 256), dgrad's device
-   ms a step, the weight layout's launches (one a step at each level
+   launches a call in the device trace (256 / 224 / 256), dgrad's and
+   wgrad's device ms a step, the weight layout's launches (one a step at each level
    whose dgrad runs spans), peak memory, device time and idle share,
    beside the same config at ``steps_per_call: 1`` (eager);
 23. random root rotation on the card: ``configs/len8_data_aug_hm_vae.yaml``
@@ -167,9 +167,9 @@ Phases, each of which exits non-zero on failure:
    stages, split, bytes), timed as phase 5's; both span kernels timed,
    unrouted, beside the whole-row kernels at shapes whose rows fit whole
    (the len-64 levels at batch 8 and 64, the trajectory's at batch 8, T
-   128); dgrad's spans in bf16 at the K-31 levels at (1, 7,200) and (8,
-   1,024) and at the stride-2 level, held at 0.02 * max|ref|, bit-equal on
-   two runs (bf16 wgrad items raise); then 5 steps of the trajectory model
+   128); dgrad's spans and wgrad's items in bf16 at the K-31 levels at (1,
+   7,200) and (8, 1,024) and at the stride-2 level, held at 0.02 *
+   max|ref|, bit-equal on two runs; then 5 steps of the trajectory model
    at train_seq_len 1,024 on the card against the CPU, under phase 13's
    gate (4 / 3 / 4 launches a step);
 30. data-parallel training over torch.distributed ranks started by
@@ -216,14 +216,14 @@ Phases, each of which exits non-zero on failure:
 35. training with bf16 conv compute (``compute_dtype: bfloat16`` on
    ``configs/len64_production.yaml``: bf16 parameters, moments and
    compute, the JAX package's "MAX-PERF triple"): the bf16 dgrad and wgrad
-   at the 8 len-64 levels (batch 8 and 64: dgrad's spans of several
-   batches' rows, routed there, with the whole-row kernel timed beside
-   them) and the trajectory model's 4 K-31 levels (batch 8, T 128), held
+   at the 8 len-64 levels (batch 8 and 64: dgrad's spans and wgrad's items
+   of several batches' rows, routed there, with the whole-row kernels timed
+   beside them) and the trajectory model's 4 K-31 levels (batch 8, T 128), held
    and timed as phase 5 holds and times its rows, in bf16 (0.02 *
    max|ref|), two runs bit-equal; the triple's 32-step CUDA-graph call at
    batch 64 against the same steps eagerly, bit for bit, and its cost (ms a
-   step by events, device ms, dgrad's ms, idle share, peak memory, 8 / 7 /
-   8 device runs a step); GPU against CPU at
+   step by events, device ms, dgrad's and wgrad's ms, idle share, peak
+   memory, 8 / 7 / 8 device runs a step); GPU against CPU at
    batch 4, two 4-step calls, in a band from batches scaled by 1 + 2^-7
    (a perturbation that survives the cast to bf16) on both sides; JAX's
    convergence criterion (40 steps on a fixed batch: its small config at lr
@@ -538,16 +538,20 @@ def bwd_kind(name):
     """dgrad ("dgrad_spans" for ``dgrad_span_kernel``, "dgrad_span_pack"
     for its weight's layout), or wgrad by its tap tiles a warp: two (K <=
     15, "wgrad"), three (K <= 23, "wgrad_nq3") or four (K <= 31,
-    "wgrad_nq4", the trajectory model's K 31); ``wgrad_span_kernel`` by its
-    m64 tiles a warpgroup: "wgrad_spans_nt1" (K <= 15) or "wgrad_spans_nt2"
-    (K <= 31); "_bf16" after the name of a bf16 instantiation."""
+    "wgrad_nq4", the trajectory model's K 31); ``wgrad_span_kernel``, the
+    item kernel: over items of one batch's columns by its m64 tiles a
+    warpgroup, "wgrad_spans_nt1" (K <= 15) or "wgrad_spans_nt2" (K <= 31),
+    over items of several batches' whole rows "wgrad_spans_rows"; "_bf16"
+    after the name of a bf16 instantiation."""
     bf16 = "_bf16" if "nv_bfloat16" in name else ""
     if "dgrad_span_pack" in name:
         return "dgrad_span_pack" + bf16
     if "dgrad" in name:
         return ("dgrad_spans" if "dgrad_span" in name else "dgrad") + bf16
     if "wgrad_span" in name:
-        return "wgrad_spans_nt2" if "ILi2E" in name else "wgrad_spans_nt1"
+        if "Lb1E" in name:
+            return "wgrad_spans_rows" + bf16
+        return ("wgrad_spans_nt2" if "ILi2E" in name else "wgrad_spans_nt1") + bf16
     for nq in (3, 4):
         if f"ILi{nq}E" in name:
             return f"wgrad_nq{nq}{bf16}"
@@ -665,8 +669,9 @@ TRACE_KERNELS = re.compile(
     r"::(conv_gemm_kernel|dgrad_kernel|dgrad_span_kernel|dgrad_span_pack_kernel|wgrad_kernel"
     r"|wgrad_span_kernel)[<(]")
 # the dgrad kernels of a training step in a device trace: whole rows, spans
-# and the spans' weight layout
+# and the spans' weight layout; the wgrad kernels: whole rows and items
 DGRAD_TRACE = ("dgrad_kernel", "dgrad_span_kernel", "dgrad_span_pack_kernel")
+WGRAD_TRACE = ("wgrad_kernel", "wgrad_span_kernel")
 TRACE_NAME = {"fused_conv_pool": "conv_gemm_kernel", "fused_conv_pool_dgrad": "dgrad_kernel",
               "fused_conv_pool_wgrad": "wgrad_kernel"}
 
@@ -802,7 +807,9 @@ def bwd_level_row(name, conv, T_in, batch, gen, with_wgrad=True, dtype=torch.flo
     rows a span), the whole-row kernel is held and timed beside it,
     unrouted ("whole_rows"), and the span kernel's weight layout
     (``dgrad_span_pack``) is held bit for bit against its plain version and
-    timed beside it ("pack")."""
+    timed beside it ("pack"); where wgrad's plan runs the item kernel over
+    rows that fit a whole-row block (several batches' rows an item), the
+    whole-row wgrad is held and timed beside it the same way."""
     from hm_vae_torch.ops import fused_conv_pool as fcp
 
     s, wf, bf, x, y, gy = bwd_inputs(conv, T_in, gen, batch, dtype)
@@ -866,11 +873,23 @@ def bwd_level_row(name, conv, T_in, batch, gen, with_wgrad=True, dtype=torch.flo
         fail(f"{name}: dgrad differs between two runs on the same inputs")
     d_bytes, w_bytes, d_ops, w_ops = bwd_work(gy, y, x, wf)
     cases = [("dgrad", dgrad, d_plain, d_lib, err_d, d_bytes, d_ops)]
+    w_extra = {}
     if with_wgrad:
         (gw, gb), (rw, rb) = wgrad(), w_plain()
         plan["wgrad"] = fcp.last_backward_plans()["wgrad"]
         if plan["wgrad"]["span"]:
             plan["wgrad"]["stages"] = fcp.WGRAD_SPAN_STAGES
+        if plan["wgrad"]["span"] and plan["wgrad"]["sb"] > 1:
+            wp = whole_row_wgrad_plan(s, gy, T_in)
+
+            def w_whole():
+                return fcp._wgrad(gy, y, x, s, None, wp)
+
+            ww, wb = w_whole()
+            w_extra["whole_rows"] = {
+                "max_abs_err": max(check(f"{name} wgrad whole rows", ww, rw, dtype)[0],
+                                   check(f"{name} bias grad whole rows", wb, rb, dtype)[0]),
+                "ms": device_ms(w_whole), "plan": wp._asdict()}
         gw_a, gb_a = wgrad(ya)
         torch.cuda.synchronize()
         err_w = max(check(f"{name} wgrad", gw, rw, dtype)[0],
@@ -895,7 +914,7 @@ def bwd_level_row(name, conv, T_in, batch, gen, with_wgrad=True, dtype=torch.flo
                      "library_ms": device_ms(lib), "eager_ms": time_ms(fn),
                      "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                     "plan": plan[what], **(extra if what == "dgrad" else {})}
+                     "plan": plan[what], **(extra if what == "dgrad" else w_extra)}
     print(json.dumps(row), flush=True)
     return row
 
@@ -910,6 +929,22 @@ def whole_row_plan(s, gy, T_in):
                                 -(-gy.shape[2] // gran) * gran, s.dgrad_start.numel() - 1,
                                 s.dgrad_max_live, fcp._sm_count(gy.device.index), 1,
                                 esz=gy.element_size())
+
+
+def whole_row_wgrad_plan(s, gy, T_in):
+    """The whole-row wgrad plan of a call (``wgrad_whole_plan``): the plan
+    that ``wgrad_kernel`` runs at shapes routed to items of several
+    batches' rows."""
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+
+    esz = gy.element_size()
+    B, _, T_out = gy.shape
+    t_ld = -(-T_out // (16 // esz)) * (16 // esz)
+    K, stride = s.kernel_size, s.stride
+    return fcp.wgrad_whole_plan(
+        B, T_out, s.wgrad_row.numel(), fcp._sm_count(gy.device.index), 1,
+        lambda sb, split: fcp._wgrad_smem(B, T_in, K, T_out, t_ld, stride, sb, split, esz),
+        fcp.wgrad_span_cols(K, stride, esz))
 
 
 def pack_row(name, s, wf):
@@ -2026,10 +2061,11 @@ def production_cli_phase(data_root, calls=4, compute_dtype=None):
 
 def trace_launches(per_call, kernel):
     """A kernel's launches in a device trace's counts (``profile_calls``):
-    dgrad's are those of its whole-row and its span kernel, as the device
-    counts them."""
-    if kernel == "dgrad_kernel":
-        return per_call.get("dgrad_kernel", 0) + per_call.get("dgrad_span_kernel", 0)
+    dgrad's are those of its whole-row and its span kernel, wgrad's those of
+    its whole-row and its item kernel, as the device counts them."""
+    if kernel in ("dgrad_kernel", "wgrad_kernel"):
+        stem = kernel[:5]
+        return per_call.get(f"{stem}_kernel", 0) + per_call.get(f"{stem}_span_kernel", 0)
     return per_call.get(kernel, 0)
 
 
@@ -2064,7 +2100,8 @@ def production_step_phase(data_root, calls=4, model=None, eager=True,
     the device time, idle share and the port's kernels' launches a call in
     the device trace (torch.profiler, device only) over `profiled` calls
     (two), and dgrad's device ms a step there (its kernels: whole rows, or
-    spans and their weight's layout); then the same config at steps_per_call 1
+    spans and their weight's layout) and wgrad's (whole rows, or items);
+    then the same config at steps_per_call 1
     (eager steps), measured the same way in the same run over half as many
     steps (32 steps profiled).  The entries' own launch counts, set to 0
     before the run and read after it, are the warm-up's and the capture's
@@ -2150,6 +2187,8 @@ def production_step_phase(data_root, calls=4, model=None, eager=True,
                   "device_ms_per_step": prof["device_us_per_call"] / n_prof / 1e3,
                   "dgrad_ms_per_step": sum(prof["trace_us_per_call"].get(k, 0.0)
                                            for k in DGRAD_TRACE) / n_prof / 1e3,
+                  "wgrad_ms_per_step": sum(prof["trace_us_per_call"].get(k, 0.0)
+                                           for k in WGRAD_TRACE) / n_prof / 1e3,
                   "idle_share": prof["idle_share"]}
     row = {"phase": phase, "config": os.path.relpath(PRODUCTION_CONFIG, ROOT),
            "model_overrides": model, "batch": PROD_BATCH, "graph_steps_per_call_32": out[32],
@@ -2843,14 +2882,16 @@ LONG_TRAIN_STEPS = 5
 
 
 def span_vs_whole_rows(model, st, tmodel, gen):
-    """The span kernels (wgrad: items of one batch's output columns; dgrad:
+    """The span kernels (wgrad: items of several batches' whole rows where
+    an item holds two or more, else of one batch's output columns; dgrad:
     spans of several batches' whole padded rows; each its own plan) beside
-    the whole-row kernels, on the same inputs, each unrouted where its plan
-    does not take the shape: the len-64 model's 8 levels at batch 8 (wgrad
-    only) and at the production batch of 64, and the trajectory model's 4
-    levels at batch 8, T 128.  Each row: the kernels' device ms (dgrad's span time
-    with its weight packing), the span kernels' max |err| against the plain
-    versions and their plans.  Returns {shape: rows}."""
+    the whole-row kernels (their whole-row plans), on the same inputs, f32,
+    each unrouted where its plan does not take the shape: the len-64
+    model's 8 levels at batch 8 (wgrad only) and at the production batch of
+    64 (both routed there), and the trajectory model's 4 levels at batch 8,
+    T 128.  Each row: the kernels' device ms (dgrad's span time with its
+    weight packing), the span kernels' max |err| against the plain versions
+    and their plans.  Returns {shape: rows}."""
     from hm_vae_torch.ops import fused_conv_pool as fcp
 
     shapes = {f"len64_b{b}": [(f"{n}@b{b}", c, T, b) for n, c, T in level_cases(model, st)]
@@ -2861,10 +2902,14 @@ def span_vs_whole_rows(model, st, tmodel, gen):
     for shape, cases in shapes.items():
         for name, conv, T_in, batch in cases:
             s, wf, bf, x, y, gy = bwd_inputs(conv, T_in, gen, batch)
-            K, stride = s.kernel_size, s.stride
-            plan = fcp.wgrad_span_plan(batch, y.shape[2], s.wgrad_row.numel(),
-                                       fcp._sm_count(torch.cuda.current_device()), 1,
-                                       fcp.wgrad_span_cols(K, stride))
+            K, stride, T_out = s.kernel_size, s.stride, y.shape[2]
+            cols = fcp.wgrad_span_cols(K, stride)
+            nbb = max(1, fcp.wgrad_span_rows(batch, T_in, K, stride, s.padding, 4, cols))
+            plan = fcp.wgrad_span_plan(
+                batch, T_out, s.wgrad_row.numel(), fcp._sm_count(torch.cuda.current_device()),
+                1, cols, nbb, fcp.wgrad_items_per_sm(K, stride, cols, 4, nbb, T_in, T_out,
+                                                     -(-T_out // 4) * 4))
+            ww_plan = whole_row_wgrad_plan(s, gy, T_in)
 
             d_plan = fcp.dgrad_span_plan(batch, T_in, K, stride, s.padding,
                                          s.dgrad_span_start.numel() - 1, s.dgrad_span_max_live,
@@ -2876,7 +2921,7 @@ def span_vs_whole_rows(model, st, tmodel, gen):
                 return fcp._wgrad(gy, y, x, s, None, plan)
 
             def whole():
-                return fcp.fused_conv_pool_wgrad(gy, y, x, s)
+                return fcp._wgrad(gy, y, x, s, None, ww_plan)
 
             def d_span():
                 return fcp._dgrad(gy, y, wf, s, T_in, None, d_plan)
@@ -2892,7 +2937,7 @@ def span_vs_whole_rows(model, st, tmodel, gen):
                 err = max(err, check(f"{name} span bias grad", gb, rb, torch.float32)[0])
             row = {"level": name, "batch": batch, "T_in": T_in, "max_abs_err": err,
                    "span_ms": device_ms(span), "whole_ms": device_ms(whole),
-                   "plan": plan._asdict()}
+                   "plan": plan._asdict(), "whole_plan": ww_plan._asdict()}
             if shape != f"len64_b{BATCH}":
                 gx = d_span()
                 d_err = check(f"{name} dgrad span kernel", gx,
@@ -2920,10 +2965,11 @@ def long_backward_phase(model, st, tmodel, gen):
     then LONG_TRAIN_STEPS steps of the
     trajectory model at train_seq_len 1,024 on the card against the CPU,
     under the training gate (:func:`train_phase`), on synthetic takes of
-    1,100-1,500 frames; dgrad's spans in bf16 at (1, 7,200), (8, 1,024) and
-    enc1, held at TOL[bf16] (wgrad's bf16 items raise).  Returns ({case:
-    [rows over the levels]}, the train row, the phase's row with the
-    span-vs-whole rows, {case: bf16 dgrad rows})."""
+    1,100-1,500 frames; dgrad's spans and wgrad's items in bf16 at (1,
+    7,200), (8, 1,024) and enc1 (whose rows wgrad's bf16 block takes whole),
+    held at TOL[bf16], bit-equal on two runs, timed beside cuDNN's bf16.  Returns ({case: [rows over the levels]}, the
+    train row, the phase's row with the span-vs-whole rows, {case: bf16
+    rows})."""
     from hm_vae_torch.data import synthetic
 
     t_phase = time.perf_counter()
@@ -2940,20 +2986,23 @@ def long_backward_phase(model, st, tmodel, gen):
             if not (r["dgrad"]["plan"]["span"] > 0 and r["wgrad"]["plan"]["span"] > 0):
                 fail(f"long_backward {r['level']}: plans {r['dgrad']['plan']} / "
                      f"{r['wgrad']['plan']} stage whole rows")
-    # dgrad's spans in bf16 over the same long rows (bf16 wgrad items raise:
-    # ROADMAP Queue 6 item 1)
+    # dgrad's spans and wgrad's items (but at enc1, whose rows fit whole) in
+    # bf16 over the same long rows
     bf16 = {case: [bwd_level_row(f"traj{i}_long_{case}@bf16",
                                  getattr(tmodel.encoder, f"conv_{i}"), T, batch, gen,
-                                 with_wgrad=False, dtype=torch.bfloat16)
+                                 dtype=torch.bfloat16)
                    for i in range(len(tmodel.encoder.structure.levels))]
             for case, batch, T in LONG_BWD_CASES if case != "b8_t1000"}
     bf16["enc1_b8_t1024"] = [bwd_level_row("enc1_long_b8_t1024@bf16", model.encoder.conv_1,
-                                           1024, BATCH, gen, with_wgrad=False,
-                                           dtype=torch.bfloat16)]
+                                           1024, BATCH, gen, dtype=torch.bfloat16)]
     for case, rs in bf16.items():
         for r in rs:
-            if not (r["dgrad"]["plan"]["span"] > 0 and r["dgrad"]["plan"]["spans"] > 1):
-                fail(f"long_backward {r['level']}: plan {r['dgrad']['plan']} is no span plan")
+            # wgrad's bf16 stages, half as large, take enc1's rows whole
+            items = r["wgrad"]["plan"]["span"] > 0 and r["wgrad"]["plan"]["sb"] == 1
+            if not (r["dgrad"]["plan"]["span"] > 0 and r["dgrad"]["plan"]["spans"] > 1
+                    and items == (case != "enc1_b8_t1024")):
+                fail(f"long_backward {r['level']}: plans {r['dgrad']['plan']} / "
+                     f"{r['wgrad']['plan']}: no span plan, or wgrad's not its expected one")
     t_svw = time.perf_counter()
     span_vs_whole = span_vs_whole_rows(model, st, tmodel, gen)
     t_svw = time.perf_counter() - t_svw
@@ -2971,9 +3020,12 @@ def long_backward_phase(model, st, tmodel, gen):
                                                for c, rs in rows.items()},
            "plans": {r["level"]: {"dgrad": r["dgrad"]["plan"], "wgrad": r["wgrad"]["plan"]}
                      for rs in rows.values() for r in rs},
-           "bf16_dgrad": {case: {"ms": sum(r["dgrad"]["ms"] for r in rs),
-                                 "max_abs_err": max(r["dgrad"]["max_abs_err"] for r in rs),
-                                 "plan": rs[0]["dgrad"]["plan"]} for case, rs in bf16.items()},
+           **{f"bf16_{what}": {case: {"ms": sum(r[what]["ms"] for r in rs),
+                                      "library_ms": sum(r[what]["library_ms"] for r in rs),
+                                      "max_abs_err": max(r[what]["max_abs_err"] for r in rs),
+                                      "plan": rs[0][what]["plan"]}
+                               for case, rs in bf16.items()}
+              for what in ("dgrad", "wgrad")},
            "span_vs_whole": {shape: {"span_ms": sum(r["span_ms"] for r in rs),
                                      "whole_ms": sum(r["whole_ms"] for r in rs),
                                      **({"dgrad_span_ms": sum(r["dgrad"]["span_ms"] for r in rs),
@@ -3769,6 +3821,11 @@ BF16_CONVERGE_STEPS = 40  # (d): tests/test_train_step.py's criterion
 BF16_TRAJ_STEPS = 4
 # the bf16 instantiations of the whole-row backward kernels (build_report)
 BF16_BWD_KINDS = ("dgrad_bf16", "wgrad_bf16", "wgrad_nq4_bf16")
+# the wgrad item kernel's forms (build_report): f32 and bf16, items of one
+# batch's columns (one or two m64 tiles a warpgroup) and of several batches'
+# whole rows
+WGRAD_ITEM_KINDS = tuple(f"wgrad_spans_{f}{d}" for d in ("", "_bf16")
+                         for f in ("nt1", "nt2", "rows"))
 
 
 # (d)'s small model: tests/test_train_step.py's TINY config (latent 6, K 3,
@@ -3944,6 +4001,7 @@ def bf16_train_phase(data_root, model, st, tmodel, gen):
            "model_overrides": BF16_TRIPLE,
            "graph_vs_eager": {k: graph[k] for k in ("bit_equal", "max_abs_diff", "launches")},
            "step": {k: g[k] for k in ("ms_per_step", "device_ms_per_step", "dgrad_ms_per_step",
+                                      "wgrad_ms_per_step",
                                       "idle_share",
                                       "peak_memory_bytes", "peak_above_start_bytes",
                                       "device_runs_per_32_steps",
@@ -4002,13 +4060,15 @@ def main() -> None:
     print(json.dumps({"phase": "build_report", **report}), flush=True)
     if not report["fused_conv_pool"].get("bf16", {}).get("hgmma"):
         fail("the bf16 instantiation has no HGMMA (wgmma) instruction")
-    for what in ("dgrad", "dgrad_spans", "dgrad_spans_bf16", "wgrad", "wgrad_nq4",
-                 "wgrad_spans_nt1", "wgrad_spans_nt2") + BF16_BWD_KINDS:
+    for what in ("dgrad", "dgrad_spans", "dgrad_spans_bf16", "wgrad",
+                 "wgrad_nq4") + WGRAD_ITEM_KINDS + BF16_BWD_KINDS:
         r = report["fused_conv_pool_bwd"].get(what, {})
         if not (r.get("hgmma") or r.get("hmma")):
             fail(f"the {what} kernel has no HGMMA or HMMA (tensor-core) instruction")
         if what in BF16_BWD_KINDS and not r.get("hmma"):
             fail(f"the {what} kernel has no HMMA (bf16 mma.sync) instruction: {r}")
+        if what in WGRAD_ITEM_KINDS and not r.get("hgmma"):
+            fail(f"the {what} kernel has no HGMMA (wgmma) instruction: {r}")
         if r.get("wgmma_serialized"):
             fail(f"ptxas serialized the {what} kernel's wgmma: {r}")
 
@@ -4212,15 +4272,17 @@ def main() -> None:
         return out
 
     def beside(rows):
-        """The whole-row kernel timed beside the routed span kernel, summed
-        over the levels where it was (every level, or none)."""
+        """The whole-row kernel timed beside the routed span (dgrad) or item
+        (wgrad) kernel, summed over the levels where it was (every level, or
+        none), and dgrad's spans' weight layout."""
         if not any("whole_rows" in r for r in rows):
             return {}
         if not all("whole_rows" in r for r in rows):
-            fail(f"the whole-row dgrad was timed at some levels only: {rows}")
+            fail(f"the whole-row kernel was timed at some levels only: {rows}")
         return {"whole_rows_ms": sum(r["whole_rows"]["ms"] for r in rows),
                 "whole_rows_max_abs_err": max(r["whole_rows"]["max_abs_err"] for r in rows),
-                "pack_ms": sum(r["pack"]["ms"] for r in rows)}
+                **({"pack_ms": sum(r["pack"]["ms"] for r in rows)} if "pack" in rows[0]
+                   else {})}
 
     def sums(dtype, batch):
         out = total([r for r in levels[(dtype, batch)] if not r["level"].endswith("stride1")])
@@ -4261,6 +4323,10 @@ def main() -> None:
         **bwd_sums(what),
         "note": bwd_note % ("input" if what == "dgrad" else "weight"),
         "build": report["fused_conv_pool_bwd"][what],
+        # every form of the kernels (whole rows, spans and items, f32 and
+        # bf16), each held against its plain version in a row of this line
+        "build_forms": {k: v for k, v in report["fused_conv_pool_bwd"].items()
+                        if k.startswith(what)},
     } for what in ("dgrad", "wgrad")] + [{
         "name": f"fused_conv_pool{suffix}_windowed", "route": "cuda",
         "source": f"hm_vae_torch/csrc/{src}",
@@ -4354,7 +4420,7 @@ def main() -> None:
                          "Pallas backward exists)")
                         + " at configs/len64_production.yaml's batch of 64",
             "launches": prod_run["entry_launches_in_run"].get(name, 0),
-            **total(rows), **(beside(rows) if what == "_dgrad" else {}),
+            **total(rows), **(beside(rows) if what else {}),
             "device_launches_per_call": prod_run["device_runs_per_32_steps"][TRACE_NAME[name]],
             "trace_launches_per_call": trace_launches(prod_run["trace_launches_per_32_steps"],
                                                       TRACE_NAME[name]),
@@ -4367,8 +4433,8 @@ def main() -> None:
                     "trace_launches_per_call: its launches in the device trace of one such "
                     "call; "
                     "times: device time from CUDA-graph replays (dgrad's with its weight "
-                    "layout where it runs spans; whole_rows_ms: dgrad_kernel timed beside it, "
-                    "unrouted); library_ms: "
+                    "layout where it runs spans; whole_rows_ms: dgrad_kernel, or wgrad_kernel "
+                    "beside wgrad's items, timed beside it, unrouted); library_ms: "
                     f"{lib} on the folded weight, TF32 off"})
     long_launches = {**{(case, "bfloat16"): long_row["bundles"][f"bfloat16_{case}"]["launches"]
                         for case in LONG_BUNDLE_CASES["bfloat16"]},
@@ -4409,9 +4475,8 @@ def main() -> None:
                          "plan": long_bwd["b8_t1000"][0][what]["plan"]},
             "enc1_b8_t1024": {**total([r[what] for r in long_bwd["enc1_b8_t1024"]]),
                               "plan": long_bwd["enc1_b8_t1024"][0][what]["plan"]},
-            **({"bf16": {case: {**total([r["dgrad"] for r in rs]),
-                                "plan": rs[0]["dgrad"]["plan"]}
-                         for case, rs in long_bf16.items()}} if what == "dgrad" else {}),
+            "bf16": {case: {**total([r[what] for r in rs]), "plan": rs[0][what]["plan"]}
+                     for case, rs in long_bf16.items()},
             "span_vs_whole": {shape: part for shape, r in long_bwd_row["span_vs_whole"].items()
                               if (part := {k: v for k, v in r.items()
                                            if k.startswith("dgrad_") == (what == "dgrad")})},
@@ -4419,8 +4484,9 @@ def main() -> None:
                     "level: sums over the trajectory model's 4 K-31 levels at batch 8, T 1,024; "
                     "\"b1_t7200\", \"b8_t1000\": the same at batch 1, T 7,200 and batch 8, "
                     "T 1,000; \"enc1_b8_t1024\": the len-64 model's stride-2 K-15 level at "
-                    "batch 8, T 1,024; \"bf16\" (dgrad): the bf16 spans at (1, 7,200), "
-                    "(8, 1,024) and enc1, held at 0.02 * max|ref|; \"span_vs_whole\": the "
+                    "batch 8, T 1,024; \"bf16\": the bf16 spans (dgrad) or items (wgrad) at "
+                    "(1, 7,200), (8, 1,024) and enc1, held at 0.02 * max|ref|, library_ms "
+                    "cuDNN's in bf16; \"span_vs_whole\": the "
                     "span kernel, unrouted, beside the whole-row kernel at shapes whose rows "
                     "fit whole (dgrad: with its weight packing); launches: per "
                     f"step of the trajectory model's training at train_seq_len {LONG_TRAIN_T} "
@@ -4477,13 +4543,13 @@ def main() -> None:
                               "hm_vae_tpu/models/hm_vae.py:174-195; no Pallas backward exists)",
                 "launches": launches.get(name, 0),
                 **total([r[what] for r in rows]),
-                **(beside([r[what] for r in rows]) if what == "dgrad" else {}),
+                **beside([r[what] for r in rows]),
                 **({"device_launches_per_call": bf16_run["device_runs_per_32_steps"][
                     TRACE_NAME[name]]} if case == "b64" else {}),
-                "note": "bf16 (the kernels' bf16 instantiations; dgrad as its plan routes "
-                        "it: spans of several batches' rows at batch 64, its time with their "
-                        "weight layout, whole_rows_ms the whole-row kernel beside it), sums "
-                        "over the "
+                "note": "bf16 (the kernels' bf16 instantiations, as their plans route "
+                        "them: at batch 64 dgrad spans of several batches' rows, its time "
+                        "with their weight layout, wgrad items of several batches' rows; "
+                        "whole_rows_ms the whole-row kernel beside either), sums over the "
                         + ("8 len-64 levels (dgrad: enc0 runs it in this timing but not in "
                            "training), " if case != "trajectory" else "")
                         + note + "; times: device time from CUDA-graph replays; library_ms: "

@@ -1,11 +1,10 @@
 // The backward of one skeleton-conv level (fused_conv_pool.cu's forward) on
-// Hopper, in f32 and in bf16 (wgrad over whole rows): the input gradient
-// (dgrad) and the folded weight's and bias's gradients (wgrad), kernels on
-// the tensor cores.
+// Hopper, in f32 and in bf16: the input gradient (dgrad) and the folded
+// weight's and bias's gradients (wgrad), kernels on the tensor cores.
 //
 // The JAX package has no backward kernel: it differentiates its XLA level in
-// hm_vae_tpu/models/hm_vae.py (SkeletonConv: the conv on the folded weight
-// P @ (W*mask) @ U, bias P @ b, then LeakyReLU).  These kernels are the
+// hm_vae_tpu/models/hm_vae.py:200 (SkeletonConv: the conv on the folded
+// weight P @ (W*mask) @ U, bias P @ b, then LeakyReLU).  These kernels are the
 // counterparts of that autodiff for the port, whose forward is a kernel.
 // For the forward
 //
@@ -99,18 +98,24 @@
 //   once, padded and split by stride phase (so that a tap's columns read
 //   consecutive words); g is staged a few batches at a time and written in
 //   the mma's fragment order, so each lane reads its A fragment as two
-//   16-byte loads.  Where x's rows of a block do not fit shared memory
-//   (long rows, even at batch 1), wgrad_span_kernel splits the reduction
-//   over time as well: items of one batch's output columns (128 where two
-//   stages fit, as at K 31), contiguous runs of them over the cluster.
-//   Each item's operands arrive by bulk copies (gy's and y's as 2D tensor
-//   boxes) two items ahead, and its products are wgmma with the gradient
+//   16-byte loads.  The item kernel (wgrad_span_kernel, its own section
+//   below) cuts the (b, t) reduction into items of 128 output columns, a
+//   contiguous run of them a cluster rank, two items' copies in flight:
+//   where x's rows of a block do not fit shared memory (long rows, even at
+//   batch 1), items of one batch's columns; at a large batch of short rows
+//   (wgrad_plan routes the len-64 levels from batch 64 on), items of
+//   several batches' whole rows.  Its products are wgmma with the gradient
 //   transposed (rows (tap, channel): x's taps in registers; columns p: g
-//   split into a shared-memory tile a 32-column chunk at a time), 3xTF32,
-//   the tensor cores' sums added in f32 after every chunk.  The products
-//   and then the next chunk's build set its pace, not the copies
-//   (PERF.md).  Its partial tiles are summed in rank order as above, so the
-//   bits are the same on every run;
+//   in a shared-memory tile a chunk at a time), f32 3xTF32 with the sums
+//   added in f32 after every chunk, bf16 one m64n64k16 a k-step; the
+//   partial tiles summed in rank order as above, so the bits are the same
+//   on every run.  At batch 64 the whole-row kernel walks 8-32 stages of 32
+//   columns a block, each a serial chain (the stage's wait, g's build, a
+//   barrier, mma.sync products whose x fragments are scalar shared-memory
+//   loads: 22% of its time in f32, 29% in bf16; the tensor cores 2-7%,
+//   PERF.md): what bounds it there is that chain, not bytes or the units,
+//   and items of 2-32 batches' rows, 2-4 chunks each, cut a block's serial
+//   steps several times over;
 // - windows: the test-time solver gives every window of its batch its own
 //   decoder clone (hm_vae_tpu/apps/latent_opt.py, jax.vmap over windows
 //   with the decoder on axis 0).  Both kernels then take `windows` weights
@@ -129,9 +134,9 @@
 //   in the operands' fragment order; the sums are f32, added after each
 //   tap (dgrad) or k-step (wgrad) as in f32, the cluster's partials summed
 //   in rank order; each output is rounded to bf16 once, at its store.
-//   dgrad_span_kernel's bf16 form runs one wgmma.m64n32k16 a tap.  wgrad
-//   over long rows and the windowed backward are f32 only (the wrapper
-//   raises for bf16 there before any launch);
+//   dgrad_span_kernel's bf16 form runs one wgmma.m64n32k16 a tap, the item
+//   kernel's one wgmma.m64n64k16 a k-step.  The windowed backward is f32
+//   only (the wrapper raises for bf16 there before any launch);
 // Limits: C a multiple of 8 (the wrappers pad), K <= 31 (wgrad's 32
 // tap tiles), and shared memory: dgrad's two weight stages are 32 rows of
 // 16 channels x K taps (127 KB at K 31, so one block an SM there) beside
@@ -223,6 +228,17 @@ __device__ __forceinline__ void tensor_copy(void* dst, const CUtensorMap* map, i
       "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], "
       "[%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(x0), "r"(y0), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// One box (x0.., y0.., z0..) of a 3D tensor map into shared memory, dense
+// in box order, completing on `bar`.
+__device__ __forceinline__ void tensor_copy3(void* dst, const CUtensorMap* map, int x0, int y0,
+                                             int z0, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], "
+      "[%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x0), "r"(y0), "r"(z0), "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -1706,62 +1722,134 @@ wgrad_kernel(const T* __restrict__ gy, const T* __restrict__ y,
                   gw_w, gb_w);
 }
 
-// wgrad over rows of any length: a block's reduction runs over items of
-// one batch's `span` output columns (a window's batches x column spans,
-// contiguous runs of them split over the cluster), its shared memory
-// independent of T.  An item's operands arrive by bulk copies onto its
-// stage's barrier, kSpanStages items in flight, issued by warp 0's lanes:
-// gy's and y's 64 rows of the row tile over the item's columns as 2D
-// tensor copies, one box of kSpanChunk columns each (128-byte swizzle, so
-// that a warp reading 8 rows at one column hits 32 banks; one copy a row
-// had cost a block ~4 us an item in copy issue, PERF.md), and x's 8 channel
-// rows over the unpadded window the item's taps read (the padding
-// resolved: reflect folds padded columns back into the row), widened to
-// 16-byte granules, one bulk copy a row.  The block then pads and splits the
-// item's x by stride phase into TF32 big + small (xp, two buffers), and
-// splits g = gy * act'(y) kSpanChunk columns at a time into the products'
-// B tile (two buffers).  The products are wgmma, not wgrad_kstep's
-// mma.sync, which kept a block's tensor cores a third busy (PERF.md): the
-// gradient transposed, rows (tap, channel) = x's taps read from xp into
-// registers, columns p = g's tile in shared memory, 3xTF32.  The warps
-// issue one chunk's products, build the next chunk (with the next item's x
-// at an item's first chunk) while they run, then add their sums; one
-// __syncthreads a chunk orders both.  An item's stage takes the copies of
-// the item kSpanStages on as soon as its last chunk is built, so they land
-// while the products of the chunks between run.
-constexpr int kSpanCols = 128;  // the widest item (WGRAD_SPAN_COLS)
-constexpr int kSpanChunk = 32;  // g's columns split into a B tile at a time: 4 k-steps
-constexpr int kSpanStages = 2;  // items whose copies are in flight
+// wgrad over items: a block's reduction over the (b, t) columns runs item by
+// item (a window's items split over the cluster in contiguous runs), its
+// shared memory independent of the batch.  An item is one of two things,
+// each its own instantiation (kRowsMode), so that neither's loop carries the
+// other's code:
+// - one batch's `span` output columns: rows of any length, the shared
+//   memory independent of T too.  Its operands arrive by bulk copies: gy's
+//   and y's 64 rows of the row tile over the item's columns as 2D tensor
+//   copies, one box of a chunk's columns each (128-byte swizzle, so that a
+//   warp reading 8 rows at one column hits 32 banks; one copy a row had
+//   cost a block ~4 us an item in copy issue, PERF.md), and x's 8 channel
+//   rows over the unpadded window the item's taps read (the padding
+//   resolved: reflect folds padded columns back into the row), widened to
+//   16-byte granules, one bulk copy a row;
+// - the whole rows of nbb batches of a window (the short rows of a large
+//   batch, K <= 15), where one batch's T_out columns would fill a fraction
+//   of an item and the item's fixed costs (its copies' wait, x's build, a
+//   chunk's barrier) would buy little work.  Its columns are the batches'
+//   T_out columns in turn, as many batches as fill `span` columns where the
+//   block fits (in bf16: two blocks an SM).  gy's and y's rows p0.. of the
+//   nbb batches, and their x's 8 channel rows, arrive as three 3D tensor
+//   boxes, several short rows merged into a box row (box_merge: the copy
+//   engine moves a box row at a time, and 16-byte rows had cost a block's
+//   prologue ~4 us, PERF.md).  x is padded batch by batch with a period of
+//   R = T_out + off columns a stride phase (off = ceil(K / stride) - 1, the
+//   taps' reach) through a table of a batch's padded columns, so that a
+//   tap's read of a batch's column stays in that batch's padded row: item
+//   column n of batch bb = n / T_out reads x's column n + bb * (R - T_out)
+//   at the tap's offset.  A k-step may hold columns of two batches: their
+//   sum is the same.
+// Two items' copies are in flight on their stages' barriers, issued by warp
+// 0.  The block pads x by stride phase (two buffers; f32 split into TF32
+// big + small, bf16 as it is), and builds g = gy * act'(y) a chunk at a
+// time (4 k-steps: 32 columns in f32, 64 in bf16; rounded to bf16 once, as
+// the plain version rounds it) into the products' B tile (two buffers: f32
+// as TF32 big and small planes, bf16 one plane).  The products are wgmma
+// with the gradient transposed: rows (tap, channel) = x's taps read into
+// registers (bf16: two columns a register), columns p = the chunk's g
+// tile; f32 three m64n64k8 a k-step (3xTF32), bf16 one m64n64k16.  The
+// warps issue one chunk's products, build the next chunk (with the next
+// item's x at an item's first chunk) while they run, then wait for them;
+// one __syncthreads a chunk orders both.  f32 adds a chunk's sums in f32,
+// so that no tensor-core sum runs longer than a chunk (sums kept in the
+// tensor cores over whole items gave 17x the error of its 1e-4 gate,
+// PERF.md); bf16 keeps the block's sums in the tensor cores' f32
+// accumulators over all its items (held at its 0.02 * max|ref| gate, the
+// same bits every run), which frees the registers for two blocks an SM.
+// An item's stage takes the copies of the item kSpanStages on as soon as
+// its last chunk is built.  The partial tiles are summed in rank order
+// (wgrad_reduce): the same bits every run.
+constexpr int kSpanCols = 128;         // the widest item (WGRAD_SPAN_COLS)
+constexpr int kSpanStages = 2;         // items whose copies are in flight
+constexpr int kBox = kRows * 128;      // bytes of a box of gy or y: 64 rows of a chunk's 128 bytes
+constexpr int kChunkPlane = 4 * 2048;  // bytes of a chunk's B plane: 4 k-steps of 64 rows p
 
-constexpr int kBox = kRows * kSpanChunk * 4;  // bytes of a box of gy or y: 64 rows x 32 columns
-
-struct WgradSpanLayout {
-  int Lh, rsx, rj;  // xp: a stride phase's padded columns, a row (8-byte words); a gradient row
-  int xr;           // a staged row of x's window (floats)
-  size_t stage, st, xp, bt, red, total;  // a stage's bytes; byte offsets in shared memory
+// A chunk of an item: 4 k-steps of the products and a box row of 128
+// bytes, so 32 columns in f32 (k-steps of 8; TF32 big and small B planes)
+// and 64 in bf16 (k-steps of 16; one plane); X, a padded value of x as the
+// products' A reads it: f32 its TF32 big and small parts, bf16 itself.
+template <typename T>
+struct ItemStep;
+template <>
+struct ItemStep<float> {
+  static constexpr int kChunk = 32, kPlanes = 2;
+  using X = float2;
+  static __device__ __forceinline__ X x(float v) { return split_tf32(v); }
+};
+template <>
+struct ItemStep<__nv_bfloat16> {
+  static constexpr int kChunk = 64, kPlanes = 1;
+  using X = __nv_bfloat16;
+  static __device__ __forceinline__ X x(float v) { return __float2bfloat16_rn(v); }
 };
 
-// A stage: gy's boxes, then y's (span / kSpanChunk each), then x's 8 rows
-// of the window.  The window of an item's columns never holds more than
-// the (span - 1)*stride + K padded columns its taps read (reflected columns
-// lie inside the direct ones), plus up to 3 a side for the granules.  The
-// stages start at the first 1024-byte boundary past the barriers (the
-// swizzle's period); st is the furthest that can be.
-__host__ __device__ inline WgradSpanLayout wgrad_span_layout(int K, int stride, int span) {
+struct WgradSpanLayout {
+  int R;            // several batches' rows: a batch's columns of a stride phase in x (else 0)
+  int Lh, rsx, rj;  // x: a stride phase's padded columns, a row (elements); a gradient row
+  int xr;           // a staged row of x's window, or a batch's staged x rows (elements)
+  size_t gbytes;    // gy's part of a stage (y's follows, then x's)
+  size_t stage, st, xs, bt, tab, red, total;  // a stage's bytes; byte offsets in shared memory
+};
+
+// A stage: gy's part, then y's, then x's.  One batch's columns: span /
+// chunk boxes each, then x's 8 rows of the window, which never holds more
+// than the (span - 1)*stride + K padded columns its taps read (reflected
+// columns lie inside the direct ones) and a granule less one a side.
+// Several batches' rows (nbb > 1): a 3D box of each, nbb batches' (at most)
+// 64 rows of t_ld values, then their 8 channel rows of x.  The stages
+// start at the first 1024-byte boundary past the barriers (the swizzle's
+// period); st is the furthest that can be.  Then x's padded rows, two
+// buffers (f32: a value's TF32 big and small parts, 8 bytes; rows 4 mod 16
+// of them apart; bf16: rows 8 mod 64 values apart, one more for the second
+// value of a register's pair), so that a warp's A loads spread over the
+// banks; the B tiles, two; and (nbb > 1) the padding's table,
+// an int2 a padded column of a batch.  The partial gradient tile reuses the
+// stages at the end.  `esz`: the element's bytes (4 f32, 2 bf16).
+__host__ __device__ inline WgradSpanLayout wgrad_span_layout(int K, int stride, int span, int esz,
+                                                             int nbb, int T_in, int T_out,
+                                                             int t_ld) {
   WgradSpanLayout L;
-  const int Lx = (span - 1) * stride + K;  // padded columns of an item's taps
-  L.Lh = (Lx + stride - 1) / stride;
-  L.rsx = frag_stride(stride * L.Lh);
+  const int gran = 16 / esz, chunk = 128 / esz, planes = esz == 4 ? 2 : 1;
+  size_t raw;
+  if (nbb > 1) {
+    L.R = T_out + (K + stride - 1) / stride - 1;
+    L.Lh = nbb * L.R;
+    L.xr = kCC * T_in;
+    L.gbytes = size_t(nbb) * kRows * t_ld * esz;
+    raw = 2 * L.gbytes + size_t(nbb) * L.xr * esz;
+  } else {
+    const int Lx = (span - 1) * stride + K;  // padded columns of an item's taps
+    L.R = 0;
+    L.Lh = (Lx + stride - 1) / stride;
+    L.xr = (Lx + 3 * gran - 3) / gran * gran;
+    L.gbytes = size_t(span / chunk) * kBox;
+    raw = 2 * L.gbytes + size_t(kCC) * L.xr * esz;
+  }
+  const int len = stride * L.Lh;
+  L.rsx = esz == 4 ? frag_stride(len) : half_stride(len + 1);
   L.rj = kCC * K + 4;
-  L.xr = (Lx + 6 + 3) / 4 * 4;
-  L.stage = (size_t(2) * span / kSpanChunk * kBox + size_t(kCC) * L.xr * 4 + 1023) & ~size_t(1023);
+  L.stage = (raw + 1023) & ~size_t(1023);
   L.st = 64 + 1024;
-  L.xp = L.st + kSpanStages * L.stage;
-  L.bt = L.xp + align16(size_t(2) * kCC * L.rsx * 8);
-  const size_t bt_end = L.bt + size_t(2) * 2 * (kSpanChunk / 8) * kRows * 8 * 4;  // B tiles
-  L.red = 64;  // the partial tile, over the stages at the end
+  L.xs = L.st + kSpanStages * L.stage;
+  L.bt = L.xs + align16(size_t(2) * kCC * L.rsx * (esz == 4 ? 8 : 2));
+  L.tab = L.bt + size_t(2) * planes * kChunkPlane;
+  const size_t tab_end = L.tab + (nbb > 1 ? size_t(stride) * L.R * 8 : 0);
+  L.red = 64;
   const size_t red_end = L.red + size_t(kRows) * L.rj * 4;
-  L.total = bt_end > red_end ? bt_end : red_end;
+  L.total = tab_end > red_end ? tab_end : red_end;
   return L;
 }
 
@@ -1778,28 +1866,65 @@ __device__ __forceinline__ void span_window(int t_lo, int nt, int T_in, int K, i
     lo = min(lo, 2 * T_in - 2 - s1), hi = max(hi, 2 * T_in - 2 - max(s0, T_in));
 }
 
-// NT m64 tiles of (tap, channel) rows a warpgroup: 1 up to K = 15, 2 up to 31
-template <int NT>
-__global__ void __launch_bounds__(kThreads, 1)
+// Rows of a (batches, rows, cols) tensor that a 3D copy of several
+// batches' rows merges into one row of its box: the most of 8, 4, 2 or 1
+// that divide `rows` and `box_rows` and keep a box row within the copy
+// engine's 256 values.  A row of gy, y or x here is 16-128 bytes, and the
+// engine moves a box row at a time: merged, it moves 8x fewer, 8x longer.
+__host__ __device__ inline int box_merge(int cols, int rows, int box_rows) {
+  int m = 8;
+  while (m > 1 && (m * cols > 256 || rows % m != 0 || box_rows % m != 0)) m >>= 1;
+  return m;
+}
+
+// d = A (64 x 16, bf16, in registers, as wgmma_rs_bf16_n32's) * B (16 x 64,
+// bf16, K-major in shared memory) + (acc ? d : 0); d as wgmma_rs_tf32's.
+__device__ __forceinline__ void wgmma_rs_bf16(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HMVAE_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : HMVAE_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+// NT m64 tiles of (tap, channel) rows a warpgroup: 1 up to K = 15, 2 up to
+// 31; T float or __nv_bfloat16 (gy, y, x, gw, gb); kRowsMode: items of
+// several batches' whole rows (nbb of them, NT 1: at K <= 15), else of one
+// batch's span output columns (x_map unread; nbb 1).  The two forms are
+// instantiations apart: the loop's code of one stays as small as it was.
+template <int NT, typename T, bool kRowsMode>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 && NT == 1 ? 2 : 1)
 wgrad_span_kernel(const __grid_constant__ CUtensorMap gy_map,
-                  const __grid_constant__ CUtensorMap y_map, const float* __restrict__ x,
+                  const __grid_constant__ CUtensorMap y_map,
+                  const __grid_constant__ CUtensorMap x_map, const T* __restrict__ gy,
+                  const T* __restrict__ y, const T* __restrict__ x,
                   const int* __restrict__ wrow, const int* __restrict__ wchunk,
-                  float* __restrict__ gw, float* __restrict__ gb, int B, int C, int T_in, int K,
-                  int P, int T_out, int stride, int padding, int reflect, float slope,
-                  int span) {
+                  T* __restrict__ gw, T* __restrict__ gb, int B, int C, int T_in, int K, int P,
+                  int T_out, int t_ld, int stride, int padding, int reflect, float slope,
+                  int span, int nbb) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int kChunk = ItemStep<T>::kChunk, kPlanes = ItemStep<T>::kPlanes;
+  using X = typename ItemStep<T>::X;
+  constexpr int kGran = 16 / sizeof(T);  // values of a 16-byte granule
   count_run(&g_runs[1]);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int split = static_cast<int>(cluster.num_blocks());
-  const WgradSpanLayout L = wgrad_span_layout(K, stride, span);
-  constexpr int kPlane = kSpanChunk / 8 * 2048;  // bytes of a chunk's B plane: 2 KB a k-step
+  constexpr bool rows = kRowsMode;
+  static_assert(!rows || NT == 1, "items of several batches' rows at K <= 15");
+  const WgradSpanLayout L =
+      wgrad_span_layout(K, stride, span, sizeof(T), nbb, T_in, T_out, t_ld);
 
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // [kSpanStages]
-  // [kSpanStages]: gy, y [span / kSpanChunk][64 rows][kSpanChunk], swizzled; x [8][xr]
+  // [kSpanStages]: gy, y (one batch's columns: [span / kChunk][64 rows][128
+  // bytes] swizzled; several batches' rows: [nbb][64 rows][t_ld]), then x
   unsigned char* st = smem + (((smem_addr(smem) + 64 + 1023) & ~1023u) - smem_addr(smem));
-  float2* xp = reinterpret_cast<float2*>(smem + L.xp);  // [2][8][rsx]
-  unsigned char* bt = smem + L.bt;                       // [2][big, small plane]
+  X* xs = reinterpret_cast<X*>(smem + L.xs);            // [2][8][rsx]
+  unsigned char* bt = smem + L.bt;                      // [2][kPlanes][kChunkPlane]
+  int2* tab = reinterpret_cast<int2*>(smem + L.tab);    // [stride * R]
   float* red = reinterpret_cast<float*>(smem + L.red);  // [64][rj], last
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -1811,42 +1936,69 @@ wgrad_span_kernel(const __grid_constant__ CUtensorMap gy_map,
   const int p0 = rt * kRows, nrows = min(kRows, P - p0);
   const int c0 = has_x ? chunk * kCC : 0;
   const int win = static_cast<int>(blockIdx.z);
-  float* gw_w = gw + size_t(win) * P * C * K;
-  float* gb_w = gb + size_t(win) * P;
-  const int nch = (T_out + span - 1) / span;
-  const int items = B * nch;
+  T* gw_w = gw + size_t(win) * P * C * K;
+  T* gb_w = gb + size_t(win) * P;
+  const int rows_b = min(kRows, P);  // several batches' rows: a batch's rows in a stage
+  const int nch = rows ? 1 : (T_out + span - 1) / span;
+  const int items = (rows ? (B + nbb - 1) / nbb : B) * nch;
   const int it_lo = items * rank / split, n_items = items * (rank + 1) / split - it_lo;
-  const int boxes = span / kSpanChunk;  // of gy (or y) in a stage
+  // several batches' rows: item column n is batch (n * mag) >> 16's (exact
+  // for n < span <= 128 and T_out <= 64), x's column n + gap * that batch
+  const int mag = rows ? (65536 + T_out - 1) / T_out : 0;
+  const int gap = rows ? L.R - T_out : 0;
 
-  // The block's item i: its batch b, first output column t_lo; returns its columns.
-  auto item_of = [&](int i, int& b, int& t_lo) {
+  // The block's item i: its first batch b0 and batches nbl, first output
+  // column t_lo; returns its columns.
+  auto item_of = [&](int i, int& b0, int& nbl, int& t_lo) {
     const int item = it_lo + i;
-    b = win * B + item / nch;
+    if (rows) {
+      b0 = win * B + item * nbb;
+      nbl = min(nbb, B - item * nbb);
+      t_lo = 0;
+      return nbl * T_out;
+    }
+    b0 = win * B + item / nch;
+    nbl = 1;
     t_lo = (item % nch) * span;
     return min(span, T_out - t_lo);
   };
   auto chunks = [&](int i) {
-    int b, t_lo;
-    return (item_of(i, b, t_lo) + kSpanChunk - 1) / kSpanChunk;
+    int b0, nbl, t_lo;
+    return (item_of(i, b0, nbl, t_lo) + kChunk - 1) / kChunk;
   };
 
-  // Item i's copies into stage `slot`, by warp 0's lanes: the boxes of gy
-  // and y over the item's columns (rows past the tile or the tensor are
-  // masked or zero-filled, columns past T_out masked), x's rows from the
-  // granule holding the window's first column.
+  // Item i's copies into stage `slot`, by warp 0's lanes.  One batch's
+  // columns: the boxes of gy and y over the item's columns (rows past the
+  // tile or the tensor are masked or zero-filled, columns past T_out
+  // masked), x's rows from the granule holding the window's first column.
+  // Several batches' rows: three 3D boxes, nbb batches' rows_b rows of gy
+  // and of y and their x's 8 channel rows, rows merged by box_merge
+  // (batches past the tensor zero-filled; those past the item's unread).
   auto issue = [&](int i, int slot) {
-    int b, t_lo;
-    const int nt = item_of(i, b, t_lo);
+    int b0, nbl, t_lo;
+    const int nt = item_of(i, b0, nbl, t_lo);
     unsigned char* dst = st + slot * L.stage;
-    const int nbox = (nt + kSpanChunk - 1) / kSpanChunk;
+    if (rows) {
+      if (lane == 0) {
+        const uint32_t gbox = nbb * rows_b * t_ld * sizeof(T);
+        mbar_expect(smem_addr(bars + slot), 2 * gbox + (has_x ? nbb * kCC * T_in * sizeof(T) : 0));
+        fence_async();  // the stage's reads by the block come before these writes
+        const int mg = box_merge(t_ld, P, rows_b), mx = box_merge(T_in, C, kCC);
+        tensor_copy3(dst, &gy_map, 0, p0 / mg, b0, bars + slot);
+        tensor_copy3(dst + L.gbytes, &y_map, 0, p0 / mg, b0, bars + slot);
+        if (has_x) tensor_copy3(dst + 2 * L.gbytes, &x_map, 0, c0 / mx, b0, bars + slot);
+      }
+      return;
+    }
+    const int nbox = (nt + kChunk - 1) / kChunk, boxes = span / kChunk;
     int lo, hi;
     span_window(t_lo, nt, T_in, K, stride, padding, reflect, lo, hi);
     uint32_t x_bytes = 0;
     size_t g0 = 0;
     if (has_x && lane < kCC && hi >= lo) {
-      const size_t e0 = (size_t(b) * C + c0 + lane) * T_in + lo;
-      g0 = e0 / 4;
-      x_bytes = static_cast<uint32_t>((e0 + hi - lo) / 4 - g0 + 1) * 16;
+      const size_t e0 = (size_t(b0) * C + c0 + lane) * T_in + lo;
+      g0 = e0 / kGran;
+      x_bytes = static_cast<uint32_t>((e0 + hi - lo) / kGran - g0 + 1) * 16;
     }
     const uint32_t bytes = 2 * nbox * kBox + __reduce_add_sync(0xffffffffu, x_bytes);
     if (lane == 0) mbar_expect(smem_addr(bars + slot), bytes);
@@ -1854,10 +2006,11 @@ wgrad_span_kernel(const __grid_constant__ CUtensorMap gy_map,
     if (lane < 2 * nbox) {
       const int which = lane >= nbox, jb = lane - which * nbox;
       tensor_copy(dst + (which * boxes + jb) * kBox, which ? &y_map : &gy_map,
-                  t_lo + jb * kSpanChunk, b * P + p0, bars + slot);
+                  t_lo + jb * kChunk, b0 * P + p0, bars + slot);
     }
     if (x_bytes > 0)
-      bulk_copy(dst + 2 * boxes * kBox + lane * L.xr * 4, x + g0 * 4, x_bytes, bars + slot);
+      bulk_copy(dst + 2 * L.gbytes + lane * L.xr * sizeof(T), x + g0 * kGran, x_bytes,
+                bars + slot);
   };
   // Once item i's chunk j is built: after its last, its stage takes the
   // item kSpanStages on.  The block has synchronised.
@@ -1867,17 +2020,30 @@ wgrad_span_kernel(const __grid_constant__ CUtensorMap gy_map,
   };
 
   // Item i's x, padded and split by stride phase as wgrad_kernel splits
-  // whole rows: the item's padded column u at xp[i & 1][row][(u % stride)*Lh
-  // + u/stride]; zeros under a zero padding and past the window (columns
-  // whose g is zero).
+  // whole rows, into buffer i & 1.  One batch's columns: the item's padded
+  // column u at [row][(u % stride)*Lh + u/stride]; zeros under a zero
+  // padding and past the window (columns whose g is zero).  Several
+  // batches' rows: batch bb's padded column u at [row][bb*R + tab[u].x],
+  // x's column tab[u].y of its staged row (-1: a zero).
   auto build_x = [&](int i) {
-    int b, t_lo;
-    const int nt = item_of(i, b, t_lo);
+    int b0, nbl, t_lo;
+    const int nt = item_of(i, b0, nbl, t_lo);
+    const T* xraw = reinterpret_cast<const T*>(st + (i % kSpanStages) * L.stage + 2 * L.gbytes);
+    X* xo = xs + (i & 1) * kCC * L.rsx;
+    if (rows) {
+      // q / U as a multiply-high (exact for q < 2^32 / U)
+      const uint32_t U = stride * L.R, magic = static_cast<uint32_t>((0x100000000ull + U - 1) / U);
+#pragma unroll 4
+      for (uint32_t q = tid; q < nbl * kCC * U; q += kThreads) {
+        const uint32_t row = __umulhi(q, magic), u = q - row * U;  // row: batch row / 8, channel
+        const int2 tu = tab[u];
+        const float v = has_x && tu.y >= 0 ? to_f(xraw[row * T_in + tu.y]) : 0.f;
+        xo[(row & 7) * L.rsx + (row >> 3) * L.R + tu.x] = ItemStep<T>::x(v);
+      }
+      return;
+    }
     int lo, hi;
     span_window(t_lo, nt, T_in, K, stride, padding, reflect, lo, hi);
-    const float* xs =
-        reinterpret_cast<const float*>(st + (i % kSpanStages) * L.stage + 2 * boxes * kBox);
-    float2* xo = xp + (i & 1) * kCC * L.rsx;
     const int w = stride * L.Lh;
     for (int q = tid; q < kCC * w; q += kThreads) {
       const int row = q / w, idx = q - row * w;
@@ -1887,54 +2053,91 @@ wgrad_span_kernel(const __grid_constant__ CUtensorMap gy_map,
         s = s < 0 ? -s : 2 * (T_in - 1) - s;
       float v = 0.f;
       if (has_x && s >= lo && s <= hi) {
-        const int a = static_cast<int>(((size_t(b) * C + c0 + row) * T_in + lo) & 3);
-        v = xs[row * L.xr + s - lo + a];
+        const int a = static_cast<int>(((size_t(b0) * C + c0 + row) * T_in + lo) % kGran);
+        v = to_f(xraw[row * L.xr + s - lo + a]);
       }
-      xo[row * L.rsx + idx] = split_tf32(v);
+      xo[row * L.rsx + idx] = ItemStep<T>::x(v);
     }
   };
-  // Chunk j of item i's g = gy * act'(y), split into TF32 big + small, as
-  // the products' B operand in buffer `buf`: 64 rows p x kSpanChunk columns
-  // t, K-major in 8x16-byte core matrices (the two of a k-step 128 bytes
-  // apart, row groups 256 bytes apart, k-steps 2 KB apart), the small plane
-  // after the big; zeros past the item's columns and the tile's rows.  A
-  // thread takes a row's 4 columns (16-byte group grp of the row's 128
-  // bytes in box j, at grp ^ (row % 8) under the swizzle); consecutive
-  // lanes consecutive rows.
-  auto build_g = [&](int i, int j, int buf) {
-    int b, t_lo;
-    const int nt = item_of(i, b, t_lo);
-    const unsigned char* gs = st + (i % kSpanStages) * L.stage + j * kBox;
-    const unsigned char* ys = gs + boxes * kBox;
-    unsigned char* out = bt + buf * 2 * kPlane;
-    for (int q = tid; q < kRows * kSpanChunk / 4; q += kThreads) {
-      const int r = q % kRows, grp = q / kRows, n = j * kSpanChunk + 4 * grp;
-      float4 big = make_float4(0.f, 0.f, 0.f, 0.f), small = big;
-      if (r < nrows) {
-        const int o = r * 128 + ((grp ^ (r & 7)) << 4);
-        const float4 g4 = *reinterpret_cast<const float4*>(gs + o);
-        const float4 y4 = *reinterpret_cast<const float4*>(ys + o);
-        const float gv[4] = {g4.x, g4.y, g4.z, g4.w}, yv[4] = {y4.x, y4.y, y4.z, y4.w};
-        float* bv = reinterpret_cast<float*>(&big);
-        float* sv = reinterpret_cast<float*>(&small);
+  // Chunk j of item i's g = gy * act'(y) as the products' B operand in
+  // buffer `buf`: 64 rows p x kChunk columns, K-major in 8x16-byte core
+  // matrices (the two of a k-step 128 bytes apart, row groups 256 bytes
+  // apart, k-steps 2 KB apart; f32: TF32 big, then small plane; bf16:
+  // rounded once); zeros past the item's columns and the tile's rows.  A
+  // thread takes two 16-byte groups of a row's chunk (4 f32 or 8 bf16
+  // columns each), consecutive lanes consecutive rows: one batch's columns,
+  // group grp of the box's row at grp ^ (row % 8) under the swizzle;
+  // several batches' rows, group grp ^ (row % 8) of the chunk, so that 8
+  // lanes' loads of rows t_ld apart spread over the banks.  build_g builds
+  // group h of the two.
+  // this thread's row of the B tile and its two groups of it, and their
+  // places in the tile
+  static_assert(kRows * 8 == 2 * kThreads, "two 16-byte groups of the B tile a thread");
+  const int br = tid % kRows;
+  int bgrp[2], boff[2];
 #pragma unroll
-        for (int q4 = 0; q4 < 4; ++q4) {
-          const float2 s = split_tf32(n + q4 < nt ? act_grad(gv[q4], yv[q4], slope) : 0.f);
-          bv[q4] = s.x;
-          sv[q4] = s.y;
+  for (int h = 0; h < 2; ++h) {
+    const int gp = tid / kRows + 4 * h;
+    bgrp[h] = rows ? gp ^ (br & 7) : gp;
+    boff[h] = (bgrp[h] >> 1) * 2048 + (bgrp[h] & 1) * 128 + (br >> 3) * 256 + (br & 7) * 16;
+  }
+  auto build_g = [&](int i, int j, int buf, int h) {
+    int b0, nbl, t_lo;
+    const int nt = item_of(i, b0, nbl, t_lo);
+    const unsigned char* sg = st + (i % kSpanStages) * L.stage;
+    const int grp = bgrp[h], r = br;
+    const int n = j * kChunk + kGran * grp;  // the group's first column of the item
+    float gv[kGran], yv[kGran];
+#pragma unroll
+    for (int q2 = 0; q2 < kGran; ++q2) gv[q2] = yv[q2] = 0.f;
+    if (r < nrows && n < nt) {
+      if (!rows) {
+        const int o = j * kBox + r * 128 + ((grp ^ (r & 7)) << 4);
+        load_vals<kGran>(gv, reinterpret_cast<const T*>(sg + o));
+        load_vals<kGran>(yv, reinterpret_cast<const T*>(sg + L.gbytes + o));
+      } else if (T_out % kGran == 0) {  // the group lies in one batch's row
+        const int bb = (n * mag) >> 16;
+        const size_t o = (size_t(bb * rows_b + r) * t_ld + n - bb * T_out) * sizeof(T);
+        load_vals<kGran>(gv, reinterpret_cast<const T*>(sg + o));
+        load_vals<kGran>(yv, reinterpret_cast<const T*>(sg + L.gbytes + o));
+      } else {
+#pragma unroll
+        for (int q2 = 0; q2 < kGran; ++q2) {
+          const int m = min(n + q2, nt - 1), bb = (m * mag) >> 16;
+          const size_t o = size_t(bb * rows_b + r) * t_ld + m - bb * T_out;
+          gv[q2] = to_f(reinterpret_cast<const T*>(sg)[o]);
+          yv[q2] = to_f(reinterpret_cast<const T*>(sg + L.gbytes)[o]);
         }
       }
-      const int off = (grp >> 1) * 2048 + (grp & 1) * 128 + (r >> 3) * 256 + (r & 7) * 16;
-      *reinterpret_cast<float4*>(out + off) = big;
-      *reinterpret_cast<float4*>(out + kPlane + off) = small;
+    }
+    float v[kGran];
+#pragma unroll
+    for (int q2 = 0; q2 < kGran; ++q2)
+      v[q2] = n + q2 < nt ? act_grad(gv[q2], yv[q2], slope) : 0.f;
+    unsigned char* out = bt + buf * kPlanes * kChunkPlane + boff[h];
+    if constexpr (kBf16) {
+      *reinterpret_cast<uint4*>(out) = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                                                  pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+    } else {
+      float4 big, small;
+      float* bv = reinterpret_cast<float*>(&big);
+      float* sv = reinterpret_cast<float*>(&small);
+#pragma unroll
+      for (int q2 = 0; q2 < 4; ++q2) {
+        const float2 sp = split_tf32(v[q2]);
+        bv[q2] = sp.x;
+        sv[q2] = sp.y;
+      }
+      *reinterpret_cast<float4*>(out) = big;
+      *reinterpret_cast<float4*>(out + kChunkPlane) = small;
     }
   };
 
   // The products: gW^T (rows (k, c) = 8k + c, columns p) = X (rows (k, c),
-  // the reduction over t) * g^T, on wgmma m64n64k8 in 3xTF32.  Warpgroup wg
-  // takes the NT m64 tiles of taps 8*(wg*NT + mt) ..; its warp w the taps
-  // kb[mt] and kb[mt] + 1 (A rows 16w + lane/4 and + 8, channel lane/4).
-  // A is x at the lane's columns, read from xp into registers (the bias
+  // the reduction over the item's columns) * g^T.  Warpgroup wg takes the NT
+  // m64 tiles of taps 8*(wg*NT + mt) ..; its warp w the taps kb[mt] and
+  // kb[mt] + 1 (A rows 16w + lane/4 and + 8, channel lane/4).  A is x at
+  // the lane's columns, read from the x buffer into registers (the bias
   // tap: ones at channel 0; taps past it: zeros); B the chunk's g tile.
   const int wg = warp >> 2, w4 = warp & 3;
   int kb[NT], koff[NT][2];
@@ -1952,58 +2155,80 @@ wgrad_span_kernel(const __grid_constant__ CUtensorMap gy_map,
   for (int mt = 0; mt < NT; ++mt)
 #pragma unroll
     for (int r = 0; r < 32; ++r) acc[mt][r] = sum[mt][r] = 0.f;
-  // A at k-step ks of chunk j of item i: big and small parts; columns past
-  // the item read column 0 (their g is zero)
-  auto load_a = [&](uint32_t (&ab)[NT][4], uint32_t (&as)[NT][4], int i, int j, int ks) {
-    int b, t_lo;
-    const int left = item_of(i, b, t_lo) - j * kSpanChunk;
-    const float2* xi = xp + (i & 1) * kCC * L.rsx + gid * L.rsx;
+  // A at k-step ks of a chunk j whose item has `left` columns from the
+  // chunk on, from x's rows xi (the lane's channel): f32, the big and small
+  // parts at the lane's columns 8*ks + tig (+4); bf16, two columns 16*ks +
+  // 2*tig, + 1 (and + 8, + 9) a register, the lower in the low half.
+  // Columns past the item read column 0 (their g is zero).
+  auto load_a = [&](uint32_t (&ab)[NT][4], uint32_t (&as)[NT][4], int left, int j, int ks,
+                    const X* xi) {
+    int col[2];
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int c = kBf16 ? ks * 16 + 2 * tig + 8 * h2 : ks * 8 + tig + 4 * h2;
+      const int n = j * kChunk + c;
+      col[h2] = c < left ? n + gap * ((n * mag) >> 16) : 0;
+    }
 #pragma unroll
     for (int mt = 0; mt < NT; ++mt)
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const int h = q & 1, col = ks * 8 + tig + 4 * (q >> 1), k = kb[mt] + h;
-        const int n = col < left ? j * kSpanChunk + col : 0;
-        const float2 v =
-            k < K ? xi[koff[mt][h] + n] : make_float2(k == K && gid == 0 ? 1.f : 0.f, 0.f);
-        ab[mt][q] = __float_as_uint(v.x);
-        as[mt][q] = __float_as_uint(v.y);
+        const int h = q & 1, k = kb[mt] + h;
+        const X* p = xi + koff[mt][h] + col[q >> 1];
+        if constexpr (kBf16) {
+          ab[mt][q] = k < K ? pack_bf16(p[0], p[1]) : (k == K && gid == 0 ? 0x3F803F80u : 0u);
+        } else {
+          const float2 v = k < K ? p[0] : make_float2(k == K && gid == 0 ? 1.f : 0.f, 0.f);
+          ab[mt][q] = __float_as_uint(v.x);
+          as[mt][q] = __float_as_uint(v.y);
+        }
       }
   };
-  // Chunk c = (item i, chunk j) from B buffer `buf`: every k-step's three
-  // products issued, the A registers of one k-step loaded while the one
-  // before multiplies; the last k-step's products are left in flight.
+  // Chunk c = (item i, chunk j) from B buffer `buf`: every k-step's
+  // products issued (f32: small*big, big*small, big*big), the A registers
+  // of one k-step loaded while the one before multiplies; the last k-step's
+  // products are left in flight.
   auto issue_products = [&](int i, int j, int buf) {
-    const uint32_t b0 = smem_addr(bt + buf * 2 * kPlane);
+    int b0, nbl, t_lo;
+    const int left = item_of(i, b0, nbl, t_lo) - j * kChunk;
+    const X* xi = xs + ((i & 1) * kCC + gid) * L.rsx;
+    const uint32_t bb0 = smem_addr(bt + buf * kPlanes * kChunkPlane);
     uint32_t ab[2][NT][4], as[2][NT][4];
-    load_a(ab[0], as[0], i, j, 0);
+    load_a(ab[0], as[0], left, j, 0, xi);
 #pragma unroll
-    for (int ks = 0; ks < kSpanChunk / 8; ++ks) {
+    for (int ks = 0; ks < 4; ++ks) {
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int mt = 0; mt < NT; ++mt) {
-        const uint32_t big = b0 + ks * 2048;
-        wgmma_rs_tf32(acc[mt], as[ks & 1][mt], gmma_desc(big), ks > 0);
-        wgmma_rs_tf32(acc[mt], ab[ks & 1][mt], gmma_desc(big + kPlane), 1);
-        wgmma_rs_tf32(acc[mt], ab[ks & 1][mt], gmma_desc(big), 1);
+        const uint32_t big = bb0 + ks * 2048;
+        if constexpr (kBf16) {
+          wgmma_rs_bf16(acc[mt], ab[ks & 1][mt], gmma_desc(big), 1);
+        } else {
+          wgmma_rs_tf32(acc[mt], as[ks & 1][mt], gmma_desc(big), ks > 0);
+          wgmma_rs_tf32(acc[mt], ab[ks & 1][mt], gmma_desc(big + kChunkPlane), 1);
+          wgmma_rs_tf32(acc[mt], ab[ks & 1][mt], gmma_desc(big), 1);
+        }
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      if (ks + 1 < kSpanChunk / 8) {
+      if (ks + 1 < 4) {
         // the k-step before has finished: its A registers take the next one's
         asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-        load_a(ab[(ks + 1) & 1], as[(ks + 1) & 1], i, j, ks + 1);
+        load_a(ab[(ks + 1) & 1], as[(ks + 1) & 1], left, j, ks + 1, xi);
       }
     }
   };
-  // The chunk's products done: its sums added in f32, so that no
-  // tensor-core sum runs longer than a chunk.
+  // The chunk's products done; f32: their sums added in f32, so that no
+  // tensor-core sum runs longer than a chunk (bf16 sums the block's items
+  // in the tensor cores' f32 accumulators).
   auto finish_products = [&]() {
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
     for (int mt = 0; mt < NT; ++mt) {
       fence_acc(acc[mt]);
+      if constexpr (!kBf16) {
 #pragma unroll
-      for (int r = 0; r < 32; ++r) sum[mt][r] += acc[mt][r];
+        for (int r = 0; r < 32; ++r) sum[mt][r] += acc[mt][r];
+      }
     }
   };
 
@@ -2011,13 +2236,28 @@ wgrad_span_kernel(const __grid_constant__ CUtensorMap gy_map,
     for (int s = 0; s < kSpanStages; ++s) mbar_init(smem_addr(bars + s), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  // zeros past each x row's padded columns (the second value of the last
+  // register pairs there; never written by a build)
+  const int pad_x = L.rsx - stride * L.Lh;
+  for (int q = tid; q < 2 * kCC * pad_x; q += kThreads)
+    xs[(q / pad_x) * L.rsx + stride * L.Lh + q % pad_x] = ItemStep<T>::x(0.f);
+  // several batches' rows: a batch's padded column u = w*stride + ph (w <
+  // R) at ph*Lh + w of its x row, and the column of x it holds
+  if (rows)
+    for (int u = tid; u < stride * L.R; u += kThreads) {
+      int s = u - padding;
+      if (reflect && (s < 0 || s >= T_in) && u < T_in + 2 * padding)
+        s = s < 0 ? -s : 2 * (T_in - 1) - s;
+      tab[u] = make_int2((u % stride) * L.Lh + u / stride, s >= 0 && s < T_in ? s : -1);
+    }
   __syncthreads();
   if (warp == 0)
     for (int i = 0; i < kSpanStages && i < n_items; ++i) issue(i, i);
   if (n_items > 0) {
     mbar_wait(smem_addr(bars), 0);
     build_x(0);
-    build_g(0, 0, 0);
+    build_g(0, 0, 0, 0);
+    build_g(0, 0, 0, 1);
   }
   fence_async();    // the B tile's writes before the products read it
   __syncthreads();  // the first item's x and first chunk are staged
@@ -2029,21 +2269,24 @@ wgrad_span_kernel(const __grid_constant__ CUtensorMap gy_map,
   int nc = n_items > 0 ? chunks(0) : 0;
 #pragma unroll 1
   for (int i = 0, j = 0, c = 0; i < n_items; ++c) {
-    int ni = i, nj = j + 1, nnc = nc;
+    int ni = i, nj = j + 1;
     if (nj == nc) ni = i + 1, nj = 0;
     const bool next = ni < n_items;
     issue_products(i, j, c & 1);
     if (next && nj == 0) {
       mbar_wait(smem_addr(bars + ni % kSpanStages), (ni / kSpanStages) & 1);
       build_x(ni);
-      nnc = chunks(ni);
     }
-    if (next) build_g(ni, nj, (c + 1) & 1);
+    if (next) {
+      build_g(ni, nj, (c + 1) & 1, 0);
+      build_g(ni, nj, (c + 1) & 1, 1);
+    }
     fence_async();  // the B tile's writes before the products read it
     finish_products();
     __syncthreads();  // chunk c and its x are read; chunk c + 1 is staged
     if (next) refill(ni, nj);
-    i = ni, j = nj, nc = nnc;
+    if (next && nj == 0) nc = chunks(ni);
+    i = ni, j = nj;
   }
 
   // the partial tile -> red (over the stages, no longer read): gW[p, c, k]
@@ -2053,10 +2296,11 @@ wgrad_span_kernel(const __grid_constant__ CUtensorMap gy_map,
 #pragma unroll
     for (int r = 0; r < 32; ++r) {
       const int k = kb[mt] + ((r >> 1) & 1), p = 8 * (r >> 2) + 2 * tig + (r & 1);
+      const float v = kBf16 ? acc[mt][r] : sum[mt][r];
       if (k < K)
-        red[p * L.rj + gid * K + k] = sum[mt][r];
+        red[p * L.rj + gid * K + k] = v;
       else if (k == K && gid == 0)
-        red[p * L.rj + kCC * K] = sum[mt][r];
+        red[p * L.rj + kCC * K] = v;
     }
   wgrad_reduce(red, L.rj, cluster, rank, split, has_x, writes_bias, nrows, p0, c0, C, K, gw_w,
                gb_w);
@@ -2106,28 +2350,61 @@ cudaError_t launch_cluster(Kernel kernel, dim3 grid, int threads, int cluster_z,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// A 2D tensor map over `rows` rows of t_ld floats (gy or y of the span
-// kernel): boxes of kSpanChunk columns x 64 rows, 128-byte swizzle.
-// cuTensorMapEncodeTiled is looked up once through the runtime's entry-point
-// query (no link against libcuda).  False where it is missing or refuses
-// the map.
-bool span_row_map(CUtensorMap* map, const void* base, int t_ld, long long rows) {
+// cuTensorMapEncodeTiled, looked up once through the runtime's entry-point
+// query (no link against libcuda); null where it is missing.
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return false;
-    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
   }
+  return encode;
+}
+
+// A 2D tensor map over `rows` rows of t_ld values of `esz` bytes (gy or y
+// of the item kernel over one batch's columns, f32 or bf16): boxes of a
+// chunk's 128 bytes (32 f32 or 64 bf16 columns) x 64 rows, 128-byte
+// swizzle.  False where the encoder is missing or refuses the map.
+bool span_row_map(CUtensorMap* map, const void* base, int t_ld, long long rows, int esz) {
+  const auto encode = tensor_map_encoder();
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(t_ld), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(t_ld) * 4};
-  const cuuint32_t box[2] = {kSpanChunk, kRows};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(t_ld) * esz};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / esz), kRows};
   const cuuint32_t steps[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims, strides,
-                box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode != nullptr &&
+         encode(map, esz == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                2, const_cast<void*>(base), dims, strides, box, steps,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 3D tensor map over a (batches, rows, cols) tensor of `esz`-byte values
+// (gy, y or x of the item kernel over several batches' rows), boxes of
+// (nbb, box_rows, cols), box_merge(cols, rows, box_rows) rows a box row, no
+// swizzle: a box lands dense, a batch's rows after another's.  False where
+// the encoder is missing or refuses the map.
+bool batch_rows_map(CUtensorMap* map, const void* base, int cols, int rows, int batches,
+                    int box_rows, int nbb, int esz) {
+  const auto encode = tensor_map_encoder();
+  const int m = box_merge(cols, rows, box_rows);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(m) * cols,
+                              static_cast<cuuint64_t>(rows / m),
+                              static_cast<cuuint64_t>(batches)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(m) * cols * esz,
+                                 static_cast<cuuint64_t>(cols) * rows * esz};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(m * cols),
+                             static_cast<cuuint32_t>(box_rows / m),
+                             static_cast<cuuint32_t>(nbb)};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  return encode != nullptr &&
+         encode(map, esz == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                3, const_cast<void*>(base), dims, strides, box, steps,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -2197,6 +2474,27 @@ int wgrad_rows(bool (&ready)[kMaxDevices], int device, dim3 grid, int split, siz
       static_cast<const T*>(y), static_cast<const T*>(x), static_cast<const int*>(wrow),
       static_cast<const int*>(wchunk), static_cast<T*>(gw), static_cast<T*>(gb), B, C, T_in, K,
       P, T_out, t_ld, stride, padding, reflect, slope, sb));
+}
+
+// One wgrad_span_kernel launch, NT m64 tiles a warpgroup, element type T,
+// items of several batches' rows or not (after its checks).
+template <int NT, typename T, bool kRowsMode>
+int wgrad_items(bool (&ready)[kMaxDevices], int device, dim3 grid, int split, size_t smem,
+                void* stream, const CUtensorMap& gy_map, const CUtensorMap& y_map,
+                const CUtensorMap& x_map, const void* gy, const void* y, const void* x,
+                const void* wrow,
+                const void* wchunk, void* gw, void* gb, int B, int C, int T_in, int K, int P,
+                int T_out, int t_ld, int stride, int padding, int reflect, float slope,
+                int span, int nbb) {
+  cudaError_t err = allow_smem(wgrad_span_kernel<NT, T, kRowsMode>, ready, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_cluster(
+      wgrad_span_kernel<NT, T, kRowsMode>, grid, kThreads, 1, split, smem, stream, gy_map, y_map,
+      x_map,
+      static_cast<const T*>(gy), static_cast<const T*>(y), static_cast<const T*>(x),
+      static_cast<const int*>(wrow), static_cast<const int*>(wchunk), static_cast<T*>(gw),
+      static_cast<T*>(gb), B, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, slope, span,
+      nbb));
 }
 
 }  // namespace
@@ -2310,14 +2608,16 @@ int hmvae_dgrad_span_pack(const void* w, const void* span_row, const void* span_
 // chunk -1 for a row tile with none; the caller zeroes the rest) and bias
 // gradient gb (windows x (P,)), from gy, y (B, P, rows of t_ld values,
 // whole 16-byte granules) and x (B, C, T_in), all f32 (dtype 0) or all
-// bf16 (dtype 1: whole rows only, span 0), C a multiple of 8, every pointer
-// 16-byte aligned.
+// bf16 (dtype 1), C a multiple of 8, every pointer 16-byte aligned.
 // Window i's gradient sums over its own B / windows batches only.  The plan
-// (wgrad_plan in the wrapper): a window's batches split over `split` blocks
-// of a cluster, staged sb at a time (span = 0), or (span > 0: a multiple
-// of kSpanChunk up to kSpanCols) the window's (batch, span output columns)
-// items split over the cluster in contiguous runs (wgrad_span_kernel: rows
-// of any length).
+// (wgrad_plan in the wrapper): span = 0, a window's batches split over
+// `split` blocks of a cluster, staged sb at a time (wgrad_kernel: whole
+// rows); span > 0 (a multiple of a chunk, 32 f32 or 64 bf16 columns, up to
+// kSpanCols), the window's items split over the cluster in contiguous runs
+// (wgrad_span_kernel): sb 1, items of one batch's span output columns (rows
+// of any length); sb > 1, items of the whole rows of sb batches (sb * T_out
+// <= span; in bf16 T_out even, so that no register's pair of columns
+// straddles two batches).
 int hmvae_conv_wgrad(const void* gy, const void* y, const void* x, const void* wrow,
                      const void* wchunk, void* gw, void* gb, int n_tiles, int B, int C,
                      int T_in, int K, int P, int T_out, int t_ld, int stride, int padding,
@@ -2328,38 +2628,55 @@ int hmvae_conv_wgrad(const void* gy, const void* y, const void* x, const void* w
   if (!shape_ok(B, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, device, ptrs, 4, esz) ||
       dtype < 0 || dtype > 1 || n_tiles < 0 || n_tiles > 65535 || sb < 1 || split < 1 ||
       split > kMaxSplit || windows < 1 || windows > 65535 || B % windows != 0 || span < 0 ||
-      span % kSpanChunk != 0 || span > kSpanCols || (span > 0 && dtype != 0))
+      span % (128 / esz) != 0 || span > kSpanCols)
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_win = B / windows;
-  const int items = span > 0 ? n_win * ((T_out + span - 1) / span) : n_win;
+  const bool rows = span > 0 && sb > 1;  // items of several batches' whole rows
+  // their 3D boxes: rows of whole 16-byte granules, at most 256 values a box
+  // side; K <= 15 (one m64 tile a warpgroup)
+  if (rows && (sb > n_win || sb * T_out > span || (dtype == 1 && T_out % 2 != 0) ||
+               (T_in * esz) % 16 != 0 || T_in > 256 || t_ld > 256 || sb > 256 ||
+               (K + 1) * kCC > 2 * 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int items = span == 0 ? n_win
+                    : rows    ? (n_win + sb - 1) / sb
+                              : n_win * ((T_out + span - 1) / span);
   if (split > items) return static_cast<int>(cudaErrorInvalidValue);
   if (n_tiles == 0) return 0;
   const size_t smem =
-      span > 0 ? wgrad_span_layout(K, stride, span).total
+      span > 0 ? wgrad_span_layout(K, stride, span, esz, rows ? sb : 1, T_in, T_out, t_ld).total
                : wgrad_layout(n_win, T_in, K, T_out, t_ld, stride, sb, split, esz).total;
   if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
   // K + 1 tap tiles over the 8 warps: 2 a warp up to K = 15, 3 up to 23, 4 up to 31
   const int nq = (K + kWarps) / kWarps;
-  // whole rows f32 (0-2), the span kernels (3, 4), whole rows bf16 (5-7)
-  const int sel = span > 0 ? 3 + ((K + 1) * kCC > 2 * 64) : max(nq, 2) - 2 + 5 * dtype;
-  static bool ready[8][kMaxDevices] = {};
+  // (K + 1) * 8 (tap, channel) rows of the item kernel in m64 tiles over its two warpgroups
+  const bool nt2 = (K + 1) * kCC > 2 * 64;
+  // whole rows f32 (0-2) and bf16 (3-5); the item kernels f32 (6, 7) and
+  // bf16 (8, 9), over several batches' rows f32 (10) and bf16 (11)
+  const int sel = span == 0 ? max(nq, 2) - 2 + 3 * dtype
+                  : rows    ? 10 + dtype
+                            : 6 + 2 * dtype + nt2;
+  static bool ready[12][kMaxDevices] = {};
   const int plan[4] = {sb, split, span, static_cast<int>(smem)};
   for (int i = 0; i < 4; ++i) last_wgrad[i] = plan[i];
   const dim3 grid(split, n_tiles, windows);
   if (span > 0) {
-    // (K + 1) * 8 (tap, channel) rows in m64 tiles over the two warpgroups
-    auto kernel = (K + 1) * kCC <= 2 * 64 ? wgrad_span_kernel<1> : wgrad_span_kernel<2>;
-    cudaError_t err = allow_smem(kernel, ready[sel], device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    CUtensorMap gy_map, y_map;
-    if (!span_row_map(&gy_map, gy, t_ld, static_cast<long long>(B) * P) ||
-        !span_row_map(&y_map, y, t_ld, static_cast<long long>(B) * P))
-      return static_cast<int>(cudaErrorNotSupported);
-    return static_cast<int>(launch_cluster(
-        kernel, grid, kThreads, 1, split, smem, stream, gy_map, y_map, static_cast<const float*>(x),
-        static_cast<const int*>(wrow), static_cast<const int*>(wchunk), static_cast<float*>(gw),
-        static_cast<float*>(gb), n_win, C, T_in, K, P, T_out, stride, padding, reflect, slope,
-        span));
+    CUtensorMap gy_map = {}, y_map = {}, x_map = {};
+    const bool mapped =
+        rows ? batch_rows_map(&gy_map, gy, t_ld, P, B, min(kRows, P), sb, esz) &&
+                   batch_rows_map(&y_map, y, t_ld, P, B, min(kRows, P), sb, esz) &&
+                   batch_rows_map(&x_map, x, T_in, C, B, kCC, sb, esz)
+             : span_row_map(&gy_map, gy, t_ld, static_cast<long long>(B) * P, esz) &&
+                   span_row_map(&y_map, y, t_ld, static_cast<long long>(B) * P, esz);
+    if (!mapped) return static_cast<int>(cudaErrorNotSupported);
+    auto launch = rows ? (dtype == 1 ? wgrad_items<1, __nv_bfloat16, true>
+                                     : wgrad_items<1, float, true>)
+                  : dtype == 1 ? (nt2 ? wgrad_items<2, __nv_bfloat16, false>
+                                      : wgrad_items<1, __nv_bfloat16, false>)
+                               : (nt2 ? wgrad_items<2, float, false> : wgrad_items<1, float, false>);
+    return launch(ready[sel], device, grid, split, smem, stream, gy_map, y_map, x_map, gy, y, x,
+                  wrow, wchunk, gw, gb, n_win, C, T_in, K, P, T_out, t_ld, stride, padding,
+                  reflect, slope, span, rows ? sb : 1);
   }
   auto launch = dtype == 1 ? (nq <= 2   ? wgrad_rows<2, __nv_bfloat16>
                               : nq == 3 ? wgrad_rows<3, __nv_bfloat16>

@@ -8,10 +8,11 @@ block-sparse implicit GEMM on the level's folded weight, bf16 (or 3xTF32 for
 f32) on ``wgmma``, weight tiles by bulk asynchronous copy.  Its gradient is
 two more hand-written kernels, ``hm_vae_torch/csrc/fused_conv_pool_bwd.cu``
 (dgrad and wgrad + bias grad, f32 as 3xTF32 on ``mma.sync``, over long rows
-on ``wgmma``, planned by :func:`dgrad_plan` and :func:`wgrad_plan`; dgrad's
-span kernel, over long rows and over the short rows of a large batch, reads
-the weight laid out once a call by :func:`dgrad_span_pack`, a kernel of its
-own; also bf16: dgrad everywhere, wgrad over whole rows, one bf16
+and over the short rows of a large batch on ``wgmma``, planned by
+:func:`dgrad_plan` and :func:`wgrad_plan`; dgrad's span kernel reads the
+weight laid out once a call by :func:`dgrad_span_pack`, a kernel of its
+own; wgrad's item kernel takes items of one batch's columns or of several
+batches' whole rows; also bf16, but the windowed forms, one bf16
 ``mma.sync`` or ``wgmma`` a k-step: the models' ``compute_dtype:
 bfloat16``), the counterparts of the JAX package's
 autodiff of its XLA level (``hm_vae_tpu/models/hm_vae.py``; the JAX package
@@ -76,10 +77,8 @@ CHUNK_CHANNELS = {torch.bfloat16: 16, torch.float32: 8}
 # the backward kernels' tiles: K up to 31 taps (wgrad: K + 1 tap tiles, 4 a warp)
 MAX_BWD_K = 31
 BWD_CHUNK_CHANNELS = 8  # the backward kernels' channel chunk (the mma's N), in f32 and bf16
-# where the backward runs in float32 only, bf16 raises before any launch,
+# the windowed backward runs in float32 only: bf16 raises before any launch,
 # naming the work that will port it
-BF16_SPANS = ("the bf16 wgrad kernel takes whole rows only; rows this long run its items, "
-              "float32 only (bf16 wgrad items: ROADMAP Queue 6 item 1)")
 BF16_WINDOWED = ("the windowed backward kernels run in float32 only (bf16 windowed kernels: "
                  "ROADMAP Queue 6 item 2)")
 MAX_SPLIT = 8  # blocks of a cluster (the portable maximum)
@@ -107,9 +106,18 @@ DGRAD_ROWS_MIN_BATCH = 64
 DGRAD_ROWS_K = 15
 DGRAD_ROWS_MAX_T = 64
 WGRAD_STAGE_COLS = 32  # wgrad: (b, t) columns staged at a time, at least one batch
-WGRAD_SPAN_COLS = 128  # wgrad over long rows: the widest item's output columns (kSpanCols)
-WGRAD_SPAN_CHUNK = 32  # an item's g split into a wgmma B tile this many columns at a time
+WGRAD_SPAN_COLS = 128  # wgrad's items: the widest item's output columns (kSpanCols)
+# an item's g built into a wgmma B tile this many columns at a time in f32
+# (4 k-steps; a box row of 128 bytes): twice as many in bf16
+WGRAD_SPAN_CHUNK = 32
 WGRAD_SPAN_STAGES = 2  # items whose copies are in flight
+# wgrad_plan routes whole rows to the item kernel (items of several batches'
+# whole rows) only at the shapes where the card timed it faster than
+# wgrad_kernel, in f32 and bf16: the len-64 levels (K 15, rows of at most 64
+# frames) from the production batch of 64 on (PERF.md)
+WGRAD_ROWS_MIN_BATCH = 64
+WGRAD_ROWS_K = 15
+WGRAD_ROWS_MAX_T = 64
 
 
 def fused_conv_pool_reference(
@@ -947,9 +955,11 @@ class DgradPlan(NamedTuple):
 
 
 class WgradPlan(NamedTuple):
-    """wgrad's launch: ``sb`` batches staged at a time, ``split`` blocks of a
-    cluster, and ``span``: 0 for x's whole rows, else the output columns of
-    an item (at most ``WGRAD_SPAN_COLS``)."""
+    """wgrad's launch: ``sb`` batches staged at a time (the item kernel's: 1
+    for items of one batch's columns, else the batches whose whole rows an
+    item holds), ``split`` blocks of a cluster, and ``span``: 0 for x's
+    whole rows, else the output columns of an item (at most
+    ``WGRAD_SPAN_COLS``)."""
     sb: int
     split: int
     span: int
@@ -1174,46 +1184,115 @@ def _wgrad_smem(B: int, T_in: int, K: int, T_out: int, t_ld: int, stride: int, s
         slots -= 1
 
 
-def _wgrad_span_smem(K: int, stride: int, cols: int = WGRAD_SPAN_COLS) -> int:
-    """Bytes of shared memory a wgrad span block takes
-    (``wgrad_span_layout``) at items of ``cols`` output columns: two stages
-    of an item's gy and y boxes (64 rows x 32 columns each) and x's window
-    (16-byte granules), from the first 1024-byte boundary past the barriers;
-    x's padded columns split by phase and g's wgmma tile of a 32-column
-    chunk, two of each; the partial gradient tile over the stages at the
-    end.  Independent of T."""
+def _wgrad_span_smem(K: int, stride: int, cols: int = WGRAD_SPAN_COLS, esz: int = 4,
+                     nbb: int = 1, T_in: int = 0, T_out: int = 0, t_ld: int = 0) -> int:
+    """Bytes of shared memory a block of the item kernel takes
+    (``wgrad_span_layout`` in the kernel's source) at items of ``cols``
+    output columns, in elements of ``esz`` bytes: two stages of an item's
+    gy and y and x (one batch's columns, ``nbb`` 1: boxes of 64 rows x a
+    chunk's 128 bytes, x's window in 16-byte granules, independent of T;
+    several batches' rows, ``nbb`` > 1: each batch's 64 rows of ``t_ld``
+    values and its x rows), from the first 1024-byte boundary past the
+    barriers; x padded by stride phase (f32: split into TF32 big and small
+    parts; rows of nbb periods of T_out + off columns where nbb > 1) and the
+    chunk's B tile, two of each; the
+    padding's table (nbb > 1); the partial gradient tile over the stages at
+    the end."""
     a16 = lambda n: -(-n // 16) * 16  # noqa: E731
-    Lx = (cols - 1) * stride + K
-    rsx = (stride * -(-Lx // stride) + 11) // 16 * 16 + 4
-    box = ROWS * WGRAD_SPAN_CHUNK * 4
-    stage = -(-(2 * cols // WGRAD_SPAN_CHUNK * box + 8 * ((Lx + 9) // 4 * 4) * 4) // 1024) * 1024
-    tiles = 2 * 2 * (WGRAD_SPAN_CHUNK // 8) * ROWS * 8 * 4  # B tiles, big + small
-    return max(64 + 1024 + WGRAD_SPAN_STAGES * stage + a16(2 * 8 * rsx * 8) + tiles,
-               64 + ROWS * (8 * K + 4) * 4)
+    gran, chunk, planes = 16 // esz, 128 // esz, 2 if esz == 4 else 1
+    if nbb > 1:
+        R = T_out + -(-K // stride) - 1
+        Lh, xr = nbb * R, 8 * T_in
+        gbytes = nbb * ROWS * t_ld * esz
+        raw = 2 * gbytes + nbb * xr * esz
+    else:
+        Lx = (cols - 1) * stride + K
+        R, Lh, xr = 0, -(-Lx // stride), (Lx + 3 * gran - 3) // gran * gran
+        raw = 2 * (cols // chunk) * ROWS * 128 + 8 * xr * esz
+    n = stride * Lh
+    # f32: a value's TF32 big and small parts, 8 bytes; bf16: the value
+    rsx, xsz = ((n + 11) // 16 * 16 + 4, 8) if esz == 4 else ((n + 56) // 64 * 64 + 8, 2)
+    stage = -(-raw // 1024) * 1024
+    tiles = 2 * planes * 4 * 2048  # B tiles: 4 k-steps of 64 rows p a plane
+    end = 64 + 1024 + WGRAD_SPAN_STAGES * stage + a16(2 * 8 * rsx * xsz) + tiles + 8 * stride * R
+    return max(end, 64 + ROWS * (8 * K + 4) * 4)
 
 
-def wgrad_span_cols(K: int, stride: int) -> int:
-    """The widest item (a multiple of ``WGRAD_SPAN_CHUNK`` up to
-    ``WGRAD_SPAN_COLS`` output columns) whose span block fits shared
-    memory: 128 at every model's levels (K 15 and 31, stride 1 and 2)."""
-    for cols in range(WGRAD_SPAN_COLS, 0, -WGRAD_SPAN_CHUNK):
-        if _wgrad_span_smem(K, stride, cols) <= MAX_SMEM:
+def wgrad_span_cols(K: int, stride: int, esz: int = 4) -> int:
+    """The widest item of one batch's columns (a multiple of a chunk, 32
+    f32 or 64 bf16 columns, up to ``WGRAD_SPAN_COLS``) whose block fits
+    shared memory: 128 at every model's levels (K 15 and 31, stride 1 and
+    2), in f32 and bf16."""
+    chunk = 128 // esz
+    for cols in range(WGRAD_SPAN_COLS, 0, -chunk):
+        if _wgrad_span_smem(K, stride, cols, esz) <= MAX_SMEM:
             return cols
     raise ValueError(f"no wgrad item fits shared memory at K={K}, stride={stride}")
 
 
+def wgrad_span_rows(B: int, T_in: int, K: int, stride: int, padding: int, esz: int = 4,
+                    cols: int = WGRAD_SPAN_COLS) -> int:
+    """The batches an item of several batches' whole rows holds: as many
+    rows of T_out output columns as fill ``cols`` columns (at most B),
+    fewer where the block would not fit shared memory, or, in bf16 (``esz``
+    2), where fewer let two blocks share an SM (:func:`wgrad_items_per_sm`),
+    then spread evenly over the items.  0 (items of one batch's columns)
+    where fewer than two fit; where x's rows are no whole 16-byte granules
+    or longer than a box's 256 values (its 3D copies); at K > 15 (that
+    form of the kernel has one m64 tile of (tap, channel) rows a
+    warpgroup); or in bf16 where T_out is odd (a register pairs two
+    columns, which must lie in one batch)."""
+    T_out = (T_in + 2 * padding - K) // stride + 1
+    t_ld = -(-T_out // (16 // esz)) * (16 // esz)
+    if (esz == 2 and T_out % 2) or (T_in * esz) % 16 or T_in > 256 or (K + 1) * 8 > 128:
+        return 0
+    fits = [nbb for nbb in range(min(B, cols // T_out), 1, -1)
+            if _wgrad_span_smem(K, stride, cols, esz, nbb, T_in, T_out, t_ld) <= MAX_SMEM]
+    two = [nbb for nbb in fits
+           if wgrad_items_per_sm(K, stride, cols, esz, nbb, T_in, T_out, t_ld) == 2]
+    nbb = (two or fits or [0])[0]
+    return -(-B // -(-B // nbb)) if nbb else 0  # the same items, batches spread evenly
+
+
+def wgrad_items_per_sm(K: int, stride: int, cols: int = WGRAD_SPAN_COLS, esz: int = 4,
+                       nbb: int = 1, T_in: int = 0, T_out: int = 0, t_ld: int = 0) -> int:
+    """Blocks of the item kernel an SM holds (its arguments are
+    :func:`_wgrad_span_smem`'s): two in bf16 at K <= 15 (one m64 tile a
+    warpgroup: its launch bounds leave registers for two) where the block's
+    shared memory fits half an SM, else one."""
+    smem = _wgrad_span_smem(K, stride, cols, esz, nbb, T_in, T_out, t_ld)
+    return 2 if esz == 2 and (K + 1) * 8 <= 128 and smem <= MAX_SMEM_PER_SM // 2 - 1024 else 1
+
+
+def wgrad_rows_routed(B: int, T_in: int, K: int, stride: int, padding: int,
+                      esz: int = 4) -> bool:
+    """Whether :func:`wgrad_plan` gives whole rows that fit a whole-row
+    block to the item kernel (items of several batches' whole rows), in
+    elements of ``esz`` bytes: only at the shapes where the card timed it
+    faster than ``wgrad_kernel`` in f32 and bf16 (K ``WGRAD_ROWS_K``, rows
+    of at most ``WGRAD_ROWS_MAX_T`` frames, from ``WGRAD_ROWS_MIN_BATCH``
+    batches a window on; PERF.md), and only where an item holds two rows or
+    more."""
+    return (B >= WGRAD_ROWS_MIN_BATCH and K == WGRAD_ROWS_K and T_in <= WGRAD_ROWS_MAX_T
+            and wgrad_span_rows(B, T_in, K, stride, padding, esz,
+                                wgrad_span_cols(K, stride, esz)) > 1)
+
+
 def wgrad_span_plan(B: int, T_out: int, entries: int, sms: int, windows: int = 1,
-                    cols: int = WGRAD_SPAN_COLS) -> WgradPlan:
-    """``wgrad_span_kernel``'s :class:`WgradPlan`: a window's items of one
-    batch's ``cols`` output columns split over ``split`` blocks of a cluster
-    in contiguous runs.  A block takes an SM (its stages fill shared
-    memory), so the split is chosen for the least time, counted in items:
-    waves of blocks times the items a block takes, plus one for its
-    prologue and epilogue; ties go to fewer blocks."""
-    items = B * -(-T_out // cols)
+                    cols: int = WGRAD_SPAN_COLS, nbb: int = 1, per_sm: int = 1) -> WgradPlan:
+    """``wgrad_span_kernel``'s :class:`WgradPlan`: a window's items split
+    over ``split`` blocks of a cluster in contiguous runs; an item is one
+    batch's ``cols`` output columns (``nbb`` 1), or the whole rows of
+    ``nbb`` batches (``nbb`` > 1: :func:`wgrad_span_rows`, the plan's
+    ``sb``).  A block takes an SM, or half of one (``per_sm``:
+    :func:`wgrad_items_per_sm`), so the split is chosen for the least time,
+    counted in items: waves of blocks times the items a block takes, plus
+    one for its prologue and epilogue; ties go to fewer blocks."""
+    items = -(-B // nbb) if nbb > 1 else B * -(-T_out // cols)
     tiles = max(1, entries * windows)
-    cost = lambda split: (-(-tiles * split // sms) * (-(-items // split) + 1), split)  # noqa
-    return WgradPlan(1, min(range(1, min(MAX_SPLIT, items) + 1), key=cost), cols)
+    slots = sms * per_sm
+    cost = lambda split: (-(-tiles * split // slots) * (-(-items // split) + 1), split)  # noqa
+    return WgradPlan(nbb, min(range(1, min(MAX_SPLIT, items) + 1), key=cost), cols)
 
 
 def wgrad_whole_rows(B: int, T_in: int, K: int, T_out: int, t_ld: int, stride: int,
@@ -1227,8 +1306,23 @@ def wgrad_whole_rows(B: int, T_in: int, K: int, T_out: int, t_ld: int, stride: i
 
 
 def wgrad_plan(B: int, T_out: int, entries: int, sms: int, windows: int = 1,
-               smem=None, span_cols: int = WGRAD_SPAN_COLS) -> WgradPlan:
-    """The wgrad kernel's :class:`WgradPlan`: one block per entry (a live
+               smem=None, span_cols: int = WGRAD_SPAN_COLS, rows: int = 0,
+               per_sm: int = 1) -> WgradPlan:
+    """The wgrad kernel's :class:`WgradPlan`: where the call is routed to
+    items of several batches' whole rows (``rows``, the batches an item
+    holds, from :func:`wgrad_span_rows` where :func:`wgrad_rows_routed`;
+    one window), :func:`wgrad_span_plan` over them; else
+    :func:`wgrad_whole_plan`.  ``per_sm``: the item kernel's blocks an SM
+    (:func:`wgrad_items_per_sm`)."""
+    if rows > 1 and windows == 1:
+        return wgrad_span_plan(B, T_out, entries, sms, 1, span_cols, rows, per_sm)
+    return wgrad_whole_plan(B, T_out, entries, sms, windows, smem, span_cols, per_sm)
+
+
+def wgrad_whole_plan(B: int, T_out: int, entries: int, sms: int, windows: int = 1,
+                     smem=None, span_cols: int = WGRAD_SPAN_COLS,
+                     per_sm: int = 1) -> WgradPlan:
+    """``wgrad_kernel``'s :class:`WgradPlan`: one block per entry (a live
     tile) of each of ``windows`` windows of ``B`` batches, a window's
     batches split over ``split`` blocks of a cluster until the grid fills
     the card once, and staged ``sb`` batches (at most 32 columns, at least
@@ -1237,7 +1331,7 @@ def wgrad_plan(B: int, T_out: int, entries: int, sms: int, windows: int = 1,
     batch splits further until a block fits (``_wgrad_smem``); where no
     split fits (long rows), the reduction is cut over time too: items of
     one batch's ``span_cols`` output columns (:func:`wgrad_span_cols`),
-    :func:`wgrad_span_plan`."""
+    :func:`wgrad_span_plan` (``per_sm`` of its blocks an SM)."""
     split = max(1, min(MAX_SPLIT, B, -(-sms // max(1, entries * windows))))
 
     def stage(split):
@@ -1247,7 +1341,7 @@ def wgrad_plan(B: int, T_out: int, entries: int, sms: int, windows: int = 1,
         split += 1
     if smem is None or smem(stage(split), split) <= MAX_SMEM:
         return WgradPlan(stage(split), split, 0)
-    return wgrad_span_plan(B, T_out, entries, sms, windows, span_cols)
+    return wgrad_span_plan(B, T_out, entries, sms, windows, span_cols, 1, per_sm)
 
 
 def last_backward_plans() -> dict:
@@ -1264,15 +1358,11 @@ def last_backward_plans() -> dict:
             "wgrad": dict(zip(WgradPlan._fields + ("smem",), out[8:]))}
 
 
-def _bf16_checks(windows: Optional[int], plan=None, whole_rows=None) -> None:
-    """The bf16 backward kernels take one window, and wgrad whole rows: bf16
-    over windows, or wgrad over items, raises before any launch.
-    ``whole_rows()`` (wgrad): whether the call's rows fit a whole-row
-    block."""
+def _bf16_checks(windows: Optional[int]) -> None:
+    """The bf16 backward kernels take one window: bf16 over windows raises
+    before any launch."""
     if windows is not None:
         raise TypeError(BF16_WINDOWED)
-    if whole_rows is not None and ((plan is not None and plan.span) or not whole_rows()):
-        raise TypeError(BF16_SPANS)
 
 
 def _aligned(t: torch.Tensor, dim: int, multiple: int) -> torch.Tensor:
@@ -1356,17 +1446,24 @@ def _wgrad(gy, y, x, s: LevelStructure, windows: Optional[int],
     esz = gy.element_size()
     gran = 16 // esz
     if gy.dtype == torch.bfloat16:
-        _bf16_checks(windows, plan, lambda: wgrad_whole_rows(
-            B // G, T_in, K, T_out, -(-T_out // gran) * gran, s.stride, esz))
+        _bf16_checks(windows)
     gy, y = _aligned(gy, 2, gran), _aligned(y, 2, gran)
     x = _aligned(x, 1, BWD_CHUNK_CHANNELS)
     C, t_ld = x.shape[1], gy.shape[2]
     dev = gy.device.index
     entries = s.wgrad_row.numel()
-    sb, split, span = plan or wgrad_plan(
-        B // G, T_out, entries, _sm_count(dev), G,
-        lambda sb, split: _wgrad_smem(B // G, T_in, K, T_out, t_ld, s.stride, sb, split, esz),
-        wgrad_span_cols(K, s.stride))
+    if plan is None:
+        cols = wgrad_span_cols(K, s.stride, esz)
+        rows = (wgrad_span_rows(B, T_in, K, s.stride, s.padding, esz, cols)
+                if windows is None and wgrad_rows_routed(B, T_in, K, s.stride, s.padding, esz)
+                else 0)
+        plan = wgrad_plan(
+            B // G, T_out, entries, _sm_count(dev), G,
+            lambda sb, split: _wgrad_smem(B // G, T_in, K, T_out, t_ld, s.stride, sb, split,
+                                          esz),
+            cols, rows, wgrad_items_per_sm(K, s.stride, cols, esz, max(1, rows), T_in, T_out,
+                                           t_ld))
+    sb, split, span = plan
     lib, wgrad = _bwd_library()[0], _bwd_library()[2]
     gw = torch.zeros((G, P, C, K), dtype=gy.dtype, device=gy.device)
     gb = torch.empty((G, P), dtype=gy.dtype, device=gy.device)
@@ -1402,8 +1499,8 @@ def fused_conv_pool_wgrad(gy: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
     """The folded weight's gradient (P, C_in, K), zero outside the live
     tiles, and the bias gradient (P,), from ``gy`` and ``y`` (B, P, T_out)
     and the input x (B, C_in, T_in), in gy's dtype.  One kernel launch on
-    CUDA (f32; bf16 over whole rows), fixed-order sums (the same bits every
-    run); the plain version on the CPU."""
+    CUDA (f32 or bf16), fixed-order sums (the same bits every run); the
+    plain version on the CPU."""
     s = structure
     if gy.device.type == "cpu":
         return fused_conv_pool_wgrad_reference(gy, y, x, s.kernel_size, s.stride, s.padding,
@@ -1452,8 +1549,8 @@ class FusedConvPoolFn(torch.autograd.Function):
     On CUDA the forward writes the weight's current values into the
     structure's tiles (:func:`repack`) and launches the forward kernel; the
     backward launches the dgrad kernel (only when x needs a gradient) and
-    the wgrad kernel, in the structure's dtype (f32, or bf16: wgrad over
-    whole rows), so that the gradients come back in the dtypes of x, the
+    the wgrad kernel, in the structure's dtype (f32 or bf16), so that the
+    gradients come back in the dtypes of x, the
     weight and the bias.  The weight's entries outside the live tiles must be
     zero, as a fold of the structure leaves them.  It saves x and the output:
     LeakyReLU's gradient is read from the output's sign.

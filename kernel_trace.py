@@ -2,7 +2,7 @@
 the kernel (run from the repo root on a GPU):
 
     python3 kernel_trace.py [--kernel fwd|dgrad|wgrad|wgrad_span|dgrad_span]
-                            [--variant base|nobuild|nomma] [--levels enc0,dec0]
+                            [--variant base|nobuild|nomma|noxb] [--levels enc0,dec0]
                             [--batch N] [--dtype float32|bfloat16] [--source FILE]
 
 Builds a copy of the kernel's source (``hm_vae_torch/csrc/fused_conv_pool.cu``
@@ -16,11 +16,15 @@ tile) the wait for its copies, the staging (im2col build), the product, and
 the epilogue (its reduction, then the stores).  The forward runs at batch 8
 and 237 in bf16 and f32; the backward at batch 8 in f32, on the operands
 ``chip_smoke.py`` gives it (``--batch`` and ``--dtype`` choose another batch
-and the element type of ``dgrad`` and ``dgrad_span``: the production batch of
-64, bf16 as under ``compute_dtype: bfloat16``).
+and the element type of a backward kernel: the production batch of 64, bf16
+as under ``compute_dtype: bfloat16``).
 
 ``--variant nobuild`` skips the forward's im2col build and ``nomma`` its
-wgmma: their outputs are wrong, their times say what the skipped phase costs.
+wgmma; for ``--kernel wgrad``, ``nomma`` skips its products and ``noxb``
+takes x's B fragments as constants in place of their shared-memory loads;
+for ``--kernel wgrad_span``, ``nomma`` skips its products and ``nobuild``
+the B tile's build of every chunk but the first.  Their outputs are wrong,
+their times say what the skipped phase costs.
 
 ``--kernel wgrad_span`` traces the wgrad kernel over long rows
 (``wgrad_span_kernel``) at the trajectory model's four K-31 levels at batch
@@ -32,7 +36,10 @@ fragments), the products, and the epilogue, with the means per item.
 ``--source FILE`` traces that copy of ``fused_conv_pool_bwd.cu`` instead
 (``git show <commit>:hm_vae_torch/csrc/fused_conv_pool_bwd.cu``): a source
 whose span kernel stages items of 64 output columns without bulk copies
-runs under that design's plan.
+runs under that design's plan.  With ``--batch N`` it traces the item
+kernel at the len-64 model's levels at batch N instead, under its own plan
+(``wgrad_span_plan``: items of several batches' whole rows,
+``wgrad_span_rows``, where the source has them), in ``--dtype``.
 
 ``--kernel dgrad_span`` traces the dgrad kernel over long rows
 (``dgrad_span_kernel``) at the trajectory model's four K-31 levels at batch
@@ -74,6 +81,11 @@ FOLD_KERNEL = "__global__ void dgrad_fold_kernel("
 # the span kernel that stages items of 64 output columns alone, read from
 # device memory without bulk copies (its layout's signature)
 ITEMS64 = "  const WgradSpanLayout L = wgrad_span_layout(K, stride);\n"
+# the item kernel's layout line: items of several batches' rows in f32 and
+# bf16, or (an older source) items of one batch's columns in f32
+SPAN_LAYOUTS = ("  const WgradSpanLayout L =\n      wgrad_span_layout(K, stride, span, sizeof(T), nbb, "
+                "T_in, T_out, t_ld);\n",
+                "  const WgradSpanLayout L = wgrad_span_layout(K, stride, span);\n")
 
 
 def stamp(slot, value="gtime()", thread=0):
@@ -184,7 +196,7 @@ _SPAN_SUMS = ("  " + stamp(20) + "\n  " + stamp(2, "tr_w") + "\n  " + stamp(3, "
               + stamp(4, "tr_m") + "\n  " + stamp(30, "tr_n") + "\n")
 
 
-def _wgrad_span_patches():
+def _wgrad_span_patches(src):
     """wgrad_span_kernel: 0 start, 1 after the prologue (the first item
     staged), 31 the block's items; summed over its chunks by thread 0 (ns):
     2 the waits for an item's copies, 3 the builds (the next item's x, the
@@ -195,28 +207,32 @@ def _wgrad_span_patches():
     the epilogue."""
     decl = "unsigned long long tr_w = 0, tr_b = 0, tr_m = 0, tr_r = 0, tr_n = 0, tr_t = 0;"
     lap = "{ const unsigned long long t = gtime(); tr_%s += t - tr_t; tr_t = t; }"
-    wait = "      mbar_wait(smem_addr(bars + ni % kSpanStages), (ni / kSpanStages) & 1);\n"
-    issued = "    issue_products(i, j, c & 1);\n"
-    built = "    fence_async();  // the B tile's writes before the products read it\n    finish_products();\n"
     synced = "    __syncthreads();  // chunk c and its x are read; chunk c + 1 is staged\n"
     refill = "    if (next) refill(ni, nj);\n"
     sums = ("  " + stamp(20) + "\n  " + stamp(2, "tr_w") + "\n  " + stamp(3, "tr_b") + "\n  "
             + stamp(4, "tr_m") + "\n  " + stamp(5, "tr_r") + "\n  " + stamp(30, "tr_n") + "\n")
-    return [
-        ("  const WgradSpanLayout L = wgrad_span_layout(K, stride, span);\n",
-         "  const WgradSpanLayout L = wgrad_span_layout(K, stride, span);\n  " + stamp(0) + "\n  "
-         + decl + "\n"),
-        ("  int nc = n_items > 0 ? chunks(0) : 0;\n",
-         f"  {stamp(1)}\n  {stamp(31, 'n_items')}\n  int nc = n_items > 0 ? chunks(0) : 0;\n"),
-        ("    int ni = i, nj = j + 1, nnc = nc;\n",
-         "    tr_t = gtime();\n    ++tr_n;\n    int ni = i, nj = j + 1, nnc = nc;\n"),
+    layout = next(a for a in SPAN_LAYOUTS if a in src)
+    head = [(layout, layout + "  " + stamp(0) + "\n  " + decl + "\n"),
+            ("  int nc = n_items > 0 ? chunks(0) : 0;\n",
+             f"  {stamp(1)}\n  {stamp(31, 'n_items')}\n  int nc = n_items > 0 ? chunks(0) : 0;\n")]
+    tail = [(synced, synced + "    " + lap % "m" + "\n"),
+            (refill, refill + "    " + lap % "r" + "\n")] + _EPILOGUE
+    wait = "      mbar_wait(smem_addr(bars + ni % kSpanStages), (ni / kSpanStages) & 1);\n"
+    issued = "    issue_products(i, j, c & 1);\n"
+    built = ("    fence_async();  // the B tile's writes before the products read it\n"
+             "    finish_products();\n")
+    # the loop's first and last lines (an older source carries the next
+    # item's chunk count through the loop)
+    first, last = (("    int ni = i, nj = j + 1;\n", "    i = ni, j = nj;\n  }\n")
+                   if "    int ni = i, nj = j + 1;\n" in src else
+                   ("    int ni = i, nj = j + 1, nnc = nc;\n", "    i = ni, j = nj, nc = nnc;\n  }\n"))
+    return head + [
+        (first, "    tr_t = gtime();\n    ++tr_n;\n" + first),
         (issued, issued + "    " + lap % "m" + "\n"),
         (wait, wait + "      " + lap % "w" + "\n"),
         (built, "    " + lap % "b" + "\n" + built),
-        (synced, synced + "    " + lap % "m" + "\n"),
-        (refill, refill + "    " + lap % "r" + "\n"),
-        ("    i = ni, j = nj, nc = nnc;\n  }\n", "    i = ni, j = nj, nc = nnc;\n  }\n" + sums),
-    ] + _EPILOGUE
+        (last, last + sums),
+    ] + tail
 
 
 def _wgrad_items64_patches():
@@ -280,16 +296,44 @@ def _dgrad_span_patches():
     ]
 
 
+# the whole-row wgrad's variants: its products skipped (nomma), or x's B
+# fragments taken as constants in place of their shared-memory loads (noxb);
+# every occurrence replaced, in wgrad_kstep and wgrad_kstep_bf16 only
+WGRAD_VARIANTS = {
+    "nomma": [("if (warp + kWarps * qq <= K) mma_", "if (warp + kWarps * qq < 0) mma_")],
+    "noxb": [("const float2 v = q < K ? xp[xb[h] + koff[qq]]",
+              "const float2 v = q < K ? make_float2(1.f, 0.f)"),
+             ("b[qq][h] = q < K ? pack_bf16(xh[xb[2 * h] + koff[qq]], xh[xb[2 * h + 1] + koff[qq]])",
+              "b[qq][h] = q < K ? 0x3F803F80u")],
+}
+
+
+# the item kernel's variants: its products skipped (nomma), or the B tile's
+# build of every chunk but the first skipped (nobuild)
+WGRAD_SPAN_VARIANTS = {
+    "nomma": [("wgmma_rs_tf32(acc[mt],", "if (0) wgmma_rs_tf32(acc[mt],"),
+              ("wgmma_rs_bf16(acc[mt],", "if (0) wgmma_rs_bf16(acc[mt],")],
+    "nobuild": [("    if (next) {\n      build_g(ni, nj, (c + 1) & 1, 0);",
+                 "    if (0) {\n      build_g(ni, nj, (c + 1) & 1, 0);")],
+}
+
+
 def patched_source(variant: str = "base", kernel: str = "fwd", source=None) -> str:
     """The kernel's source (or ``source``, a copy of it) with stamps
     (slots: see the patch lists)."""
     src = open(source or os.path.join(ROOT, "hm_vae_torch", "csrc", SOURCES[kernel] + ".cu")).read()
-    if kernel != "fwd" and variant != "base":
-        raise ValueError(f"--variant {variant} is for the forward kernel only")
+    variants = {"fwd": {"nobuild": [], "nomma": []}, "wgrad": WGRAD_VARIANTS,
+                "wgrad_span": WGRAD_SPAN_VARIANTS}.get(kernel, {})
+    if variant != "base" and variant not in variants:
+        raise ValueError(f"--variant {variant} is not a variant of --kernel {kernel}")
+    for old, new in variants.get(variant, []) if kernel != "fwd" else []:
+        if old not in src:
+            raise RuntimeError(f"kernel source changed; variant anchor not found: {old!r}")
+        src = src.replace(old, new)
     patches = {"fwd": lambda: _fwd_patches(variant), "dgrad": _dgrad_patches,
                "wgrad": _wgrad_patches,
                "wgrad_span": lambda: (_wgrad_items64_patches() if ITEMS64 in src
-                                      else _wgrad_span_patches()),
+                                      else _wgrad_span_patches(src)),
                "dgrad_span": lambda: (_dgrad_patches() if FOLD_KERNEL in src
                                       else _dgrad_span_patches())}[kernel]()
     patches.insert(0, ("namespace {\n", "namespace {\n__device__ unsigned long long g_trace[%d];\n"
@@ -397,30 +441,58 @@ def _items64_plan(fcp, B, T_out, entries, sms):
     return fcp.WgradPlan(1, max(1, min(fcp.MAX_SPLIT, items, -(-2 * sms // max(1, entries)))), 64)
 
 
-def trace_span(lib, buf, items64: bool) -> None:
-    """The wgrad span kernel at the trajectory model's four levels, batch
-    8, T 1,024 and batch 1, T 7,200, under its plan: one JSON line a level."""
+def trace_span(lib, buf, items64: bool, batch=None, dtype=torch.float32, rows=True,
+               variant="base") -> None:
+    """The wgrad item kernel in ``dtype`` at the trajectory model's four
+    levels, batch 8, T 1,024 and batch 1, T 7,200, under its plan; or,
+    where ``batch`` is given, at the len-64 model's eight levels at that
+    batch under the item kernel's plan (``wgrad_span_plan``: items of
+    several batches' whole rows, ``wgrad_span_rows``, where ``rows`` and
+    the source has them, else of one batch's columns), whether or not
+    ``wgrad_plan`` routes the shape there: one JSON line a level, with its
+    error against the plain version."""
     import chip_smoke
+    from hm_vae_torch.models.hm_vae import HMVAE
+    from hm_vae_torch.models.structure import get_structure
     from hm_vae_torch.models.trajectory import TrajectoryModel
     from hm_vae_torch.ops import fused_conv_pool as fcp
     from hm_vae_torch.utils.config import load_config
 
-    tcfg = load_config(chip_smoke.TRAJ_CONFIG)
     gen = torch.Generator().manual_seed(chip_smoke.SEED)
-    tmodel = TrajectoryModel(tcfg.model, tcfg.optim.init, generator=gen).to("cuda")
+    if batch is None:
+        tcfg = load_config(chip_smoke.TRAJ_CONFIG)
+        tmodel = TrajectoryModel(tcfg.model, tcfg.optim.init, generator=gen).to("cuda")
+        cases = [(f"traj{i}", getattr(tmodel.encoder, f"conv_{i}"), b, T)
+                 for b, T in ((8, 1024), (1, 7200)) for i in range(4)]
+    else:
+        cfg = load_config(chip_smoke.CONFIG)
+        model = HMVAE(cfg.model, cfg.optim.init, generator=gen).to("cuda")
+        cases = [(n, c, batch, T) for n, c, T in
+                 chip_smoke.level_cases(model, get_structure(cfg.model))]
     sms = fcp._sm_count(torch.cuda.current_device())
-    for batch, T in ((8, 1024), (1, 7200)):
-        for i in range(len(tmodel.encoder.structure.levels)):
-            conv = getattr(tmodel.encoder, f"conv_{i}")
-            s, wf, bf, x, y, gy = chip_smoke.bwd_inputs(conv, T, gen, batch)
-            T_out, entries = y.shape[2], s.wgrad_row.numel()
-            plan = (_items64_plan(fcp, batch, T_out, entries, sms) if items64 else
-                    fcp.wgrad_span_plan(batch, T_out, entries, sms, 1,
-                                        fcp.wgrad_span_cols(s.kernel_size, s.stride)))
-            row = _trace(lib, buf, lambda: fcp._wgrad(gy, y, x, s, None, plan), span_phases)
-            print(json.dumps({"kernel": "wgrad_span", "items": 64 if items64 else plan.span,
-                              "level": f"traj{i}", "batch": batch, "T": T,
-                              "plan": plan._asdict(), **row}), flush=True)
+    for name, conv, b, T in cases:
+        s, wf, bf, x, y, gy = chip_smoke.bwd_inputs(conv, T, gen, b, dtype)
+        T_out, entries, esz = y.shape[2], s.wgrad_row.numel(), gy.element_size()
+        cols = fcp.wgrad_span_cols(s.kernel_size, s.stride, esz)
+        nbb = (fcp.wgrad_span_rows(b, T, s.kernel_size, s.stride, s.padding, esz, cols)
+               if batch is not None and rows else 0)
+        t_ld = -(-T_out // (16 // esz)) * (16 // esz)
+        plan = (_items64_plan(fcp, b, T_out, entries, sms) if items64 else
+                fcp.wgrad_span_plan(b, T_out, entries, sms, 1, cols, max(1, nbb),
+                                    fcp.wgrad_items_per_sm(s.kernel_size, s.stride, cols, esz,
+                                                           max(1, nbb), T, T_out, t_ld)))
+        launch = lambda: fcp._wgrad(gy, y, x, s, None, plan)  # noqa: E731
+        ref = fcp.fused_conv_pool_wgrad_reference(gy, y, x, s.kernel_size, s.stride, s.padding,
+                                                  "reflect" if s.reflect else "constant",
+                                                  s.negative_slope, s.live_elements())[0]
+        err = float((launch()[0].float() - ref.float()).abs().max())
+        row = _trace(lib, buf, launch, span_phases)
+        print(json.dumps({"kernel": "wgrad_span", "variant": variant,
+                          "items": 64 if items64 else plan.span,
+                          "level": name, "batch": b, "T": T,
+                          "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+                          "max_abs_ref": float(ref.float().abs().max()),
+                          "plan": plan._asdict(), **row}), flush=True)
 
 
 def _parent_span_plan(fcp, B, T_in, K, stride, padding, pairs, max_live, sms):
@@ -534,19 +606,19 @@ def main() -> None:
     ap.add_argument("--kernel", default="fwd", choices=tuple(SOURCES))
     ap.add_argument("--source", default=None,
                     help="a copy of the backward source to trace instead of the repo's")
-    ap.add_argument("--variant", default="base", choices=("base", "nobuild", "nomma"))
+    ap.add_argument("--variant", default="base", choices=("base", "nobuild", "nomma", "noxb"))
     ap.add_argument("--levels", default=None,
                     help="comma-separated levels (default: enc0,enc3,dec0,dec3 for fwd, all "
                          "eight for the backward)")
     ap.add_argument("--batch", type=int, default=None,
-                    help="dgrad / wgrad: the batch (default 8); dgrad_span: the len-64 levels "
-                         "at this batch in place of the long rows")
+                    help="dgrad / wgrad: the batch (default 8); dgrad_span / wgrad_span: the "
+                         "len-64 levels at this batch in place of the long rows")
     ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
-                    help="the element type of dgrad and dgrad_span (default float32)")
+                    help="the element type of the backward kernels (default float32)")
     args = ap.parse_args()
     dtype = getattr(torch, args.dtype)
-    if dtype != torch.float32 and args.kernel not in ("dgrad", "dgrad_span"):
-        raise SystemExit("--dtype bfloat16 is for --kernel dgrad and dgrad_span")
+    if dtype != torch.float32 and args.kernel == "fwd":
+        raise SystemExit("--dtype is for the backward kernels (the forward runs both)")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_trace.py needs a GPU")
 
@@ -573,7 +645,9 @@ def main() -> None:
         return
     if args.kernel == "wgrad_span":
         with open(args.source or os.path.join(_build.CSRC_DIR, "fused_conv_pool_bwd.cu")) as f:
-            trace_span(lib, np.zeros(BLOCKS * SLOTS, dtype=np.uint64), ITEMS64 in f.read())
+            src = f.read()
+        trace_span(lib, np.zeros(BLOCKS * SLOTS, dtype=np.uint64), ITEMS64 in src, args.batch,
+                   dtype, SPAN_LAYOUTS[0] in src, args.variant)
         print(chip_smoke.nvidia_smi(), flush=True)
         return
     levels = args.levels or ("enc0,enc3,dec0,dec3" if args.kernel == "fwd" else
@@ -607,8 +681,8 @@ def main() -> None:
             else:
                 launch = lambda: fcp.fused_conv_pool_wgrad(gy, y, x, s)  # noqa: E731
             row = _trace(lib, buf, launch)
-            print(json.dumps({"kernel": args.kernel, "level": name, "batch": batch,
-                              "dtype": args.dtype, "plan": fcp.last_backward_plans()["dgrad"
+            print(json.dumps({"kernel": args.kernel, "variant": args.variant, "level": name,
+                              "batch": batch, "dtype": args.dtype, "plan": fcp.last_backward_plans()["dgrad"
                               if args.kernel == "dgrad" else "wgrad"], **row}), flush=True)
     print(chip_smoke.nvidia_smi(), flush=True)
 

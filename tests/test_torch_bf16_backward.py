@@ -11,9 +11,11 @@ where chip_smoke.py phase 35 holds them against these plain versions):
   len-64 levels (batch 8 and 64) and the trajectory's (8, 128); the
   Python layouts against a transcription of the kernels' (``dgrad_layout``
   and ``wgrad_layout`` in ``csrc/fused_conv_pool_bwd.cu``) in both element
-  sizes; bf16 wgrad over items and the bf16 windowed backward raising
-  before any launch (dgrad's span plans in bf16 over long rows), and a bf16
-  structure's backward lists at the kernels' 8-channel chunks.
+  sizes, and the item kernel's (``wgrad_span_layout``) over one batch's
+  columns and several batches' rows; long rows planning dgrad's spans and
+  wgrad's items in bf16, the bf16 windowed backward raising before any
+  launch, and a bf16 structure's backward lists at the kernels' 8-channel
+  chunks.
 
 Training at bf16 compute is held against JAX in
 ``tests/test_torch_bf16_training.py``.
@@ -184,6 +186,30 @@ def _c_wgrad_layout(B, T_in, K, T_out, t_ld, stride, sb, split, esz):
         slots -= 1
 
 
+def _c_wgrad_span_layout(K, stride, span, esz, nbb, T_in, T_out, t_ld):
+    gran, chunk, planes = 16 // esz, 128 // esz, 2 if esz == 4 else 1
+    if nbb > 1:
+        R = T_out + (K + stride - 1) // stride - 1
+        Lh = nbb * R
+        xr = 8 * T_in
+        gbytes = nbb * 64 * t_ld * esz
+        raw = 2 * gbytes + nbb * xr * esz
+    else:
+        Lx = (span - 1) * stride + K
+        R, Lh = 0, (Lx + stride - 1) // stride
+        xr = (Lx + 3 * gran - 3) // gran * gran
+        gbytes = span // chunk * 64 * 128
+        raw = 2 * gbytes + 8 * xr * esz
+    ln = stride * Lh
+    rsx = (ln + 11) // 16 * 16 + 4 if esz == 4 else (ln + 1 + 55) // 64 * 64 + 8
+    stage = (raw + 1023) & ~1023
+    xs = 64 + 1024 + 2 * stage
+    bt = xs + _a16(2 * 8 * rsx * (8 if esz == 4 else 2))
+    tab = bt + 2 * planes * 4 * 2048
+    tab_end = tab + (stride * R * 8 if nbb > 1 else 0)
+    return max(tab_end, 64 + 64 * (8 * K + 4) * 4)
+
+
 def _shapes():
     """(structure, batch, T) of the whole-row shapes training reaches: the
     len-64 levels at batch 8 and 64, the trajectory's at (8, 128)."""
@@ -244,6 +270,14 @@ def test_planner_layouts_mirror_the_kernels(esz):
                     sb = max(1, min(-(-B // split), 32 // T_out))
                     assert fcp._wgrad_smem(B, T, K, T_out, t_ld, stride, sb, split, esz) == \
                         _c_wgrad_layout(B, T, K, T_out, t_ld, stride, sb, split, esz)
+                # the item kernel's: one batch's columns, and several batches'
+                # rows at every count an item can take
+                span = fcp.wgrad_span_cols(K, stride, esz)
+                for nbb in (1, 2, 5, max(1, span // T_out)):
+                    if nbb > 1 and nbb * T_out > span:
+                        continue
+                    assert fcp._wgrad_span_smem(K, stride, span, esz, nbb, T, T_out, t_ld) == \
+                        _c_wgrad_span_layout(K, stride, span, esz, nbb, T, T_out, t_ld)
                 n += 1
     assert n > 30
 
@@ -254,36 +288,43 @@ def _meta(*shape):
 
 @pytest.mark.parametrize("model,level,T,wgrad_spans", [
     ("traj", 0, 1024, True), ("traj", 3, 7200, True), ("len64", 1, 1024, False)])
-def test_bf16_spans_raise_before_a_launch(model, level, T, wgrad_spans):
+def test_bf16_long_rows_plan_kernels_that_fit(model, level, T, wgrad_spans):
     """Rows past a whole-row block (the trajectory at T 1,024 and 7,200, a
-    stride-2 len-64 level at T 1,024): dgrad takes its span kernel in bf16
-    too (spans of one batch's row, two or more stages of its bf16 planes in
-    a block; the wrapper's bf16 check passes), while wgrad's items are f32
-    only: a bf16 call raises, naming ROADMAP Queue 6 item 1.  At the len-64
-    level wgrad's bf16 stages, half as large, still fit whole rows (batch
-    2)."""
+    stride-2 len-64 level at T 1,024) run in bf16 too: dgrad its span
+    kernel (spans of one batch's row, two or more stages of its bf16
+    planes in a block), wgrad its item kernel (items of one batch's 128
+    columns, two stages of bf16 boxes in a block); the wrapper's bf16 check
+    passes for one window.  At the len-64 level wgrad's bf16 stages, half
+    as large, still fit whole rows (batch 2)."""
     _, conv, _ = _cases(model)[level]
     sp = conv.spec
     s = fcp.pack_structure(conv.structure().live_elements(), sp.kernel_size, BF16, sp.stride,
                            sp.padding, sp.padding_mode, conv.negative_slope, device="meta")
-    T_out = (T + 2 * sp.padding - sp.kernel_size) // sp.stride + 1
-    gy = _meta(2, s.rows, T_out)
+    K, stride, pad = sp.kernel_size, sp.stride, sp.padding
+    T_out = (T + 2 * pad - K) // stride + 1
     t_ld = -(-T_out // 8) * 8
-    fcp._bf16_checks(None)  # dgrad's: one window, any row
-    d = fcp.dgrad_plan(2, T, sp.kernel_size, sp.stride, sp.padding, t_ld,
-                       s.dgrad_start.numel() - 1, s.dgrad_max_live, SMS, 1,
-                       (s.dgrad_span_start.numel() - 1, s.dgrad_span_max_live), esz=2)
-    assert d.nbb == 1 and d.groups == 2 and d.span == fcp.dgrad_span_cols(
-        sp.kernel_size, sp.stride, 2) == 256
-    assert fcp.dgrad_span_rows(T, sp.kernel_size, sp.stride, sp.padding, d.span) == 0
-    smem, stages = fcp._dgrad_span_layout(sp.kernel_size, sp.stride, d.span, 2)
+    fcp._bf16_checks(None)  # one window, any row
+    d = fcp.dgrad_plan(2, T, K, stride, pad, t_ld, s.dgrad_start.numel() - 1, s.dgrad_max_live,
+                       SMS, 1, (s.dgrad_span_start.numel() - 1, s.dgrad_span_max_live), esz=2)
+    assert d.nbb == 1 and d.groups == 2 and d.span == fcp.dgrad_span_cols(K, stride, 2) == 256
+    assert fcp.dgrad_span_rows(T, K, stride, pad, d.span) == 0
+    smem, stages = fcp._dgrad_span_layout(K, stride, d.span, 2)
     assert smem <= fcp.MAX_SMEM and stages >= 3
-    assert fcp.wgrad_whole_rows(2, T, sp.kernel_size, T_out, t_ld, sp.stride, 2) != wgrad_spans
-    assert not fcp.wgrad_whole_rows(2, T, sp.kernel_size, T_out, -(-T_out // 4) * 4,
-                                    sp.stride, 4)  # f32 takes spans at every one
+    assert fcp.wgrad_whole_rows(2, T, K, T_out, t_ld, stride, 2) != wgrad_spans
+    assert not fcp.wgrad_whole_rows(2, T, K, T_out, -(-T_out // 4) * 4, stride,
+                                    4)  # f32 takes items at every one
+    cols = fcp.wgrad_span_cols(K, stride, 2)
+    assert not fcp.wgrad_rows_routed(2, T, K, stride, pad, 2)
+    w = fcp.wgrad_plan(2, T_out, s.wgrad_row.numel(), SMS, 1,
+                       lambda sb, split: fcp._wgrad_smem(2, T, K, T_out, t_ld, stride, sb,
+                                                         split, 2), cols)
+    assert (w.span > 0) == wgrad_spans
     if wgrad_spans:
-        with pytest.raises(TypeError, match="Queue 6 item 1"):
-            fcp.fused_conv_pool_wgrad(gy, gy, _meta(2, s.in_channels, T), s)
+        # items of one batch's columns, two chunks of 64 bf16 columns each
+        assert w.sb == 1 and w.span == cols == 128 and 1 <= w.split <= fcp.MAX_SPLIT
+        assert fcp._wgrad_span_smem(K, stride, w.span, 2) <= fcp.MAX_SMEM
+        # K 31: two m64 tiles a warpgroup, one block an SM
+        assert fcp.wgrad_items_per_sm(K, stride, w.span, 2) == 1
 
 
 def test_bf16_windowed_backward_raises_before_a_launch():

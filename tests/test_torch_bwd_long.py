@@ -96,14 +96,21 @@ def _vae_cases(name):
 
 
 def _plans(s, B, T, windows=1):
+    """dgrad's and wgrad's f32 plans as the wrappers choose them (wgrad:
+    routed to items of several batches' whole rows where
+    ``wgrad_rows_routed``)."""
     T_out = _t_out(s, T)
     t_ld = T_out + -T_out % 4
-    d = fcp.dgrad_plan(B, T, s.kernel_size, s.stride, s.padding, t_ld,
+    K, stride, pad = s.kernel_size, s.stride, s.padding
+    d = fcp.dgrad_plan(B, T, K, stride, pad, t_ld,
                        s.dgrad_start.numel() - 1, s.dgrad_max_live, SMS, windows)
+    cols = fcp.wgrad_span_cols(K, stride)
+    rows = (fcp.wgrad_span_rows(B, T, K, stride, pad, 4, cols)
+            if windows == 1 and fcp.wgrad_rows_routed(B, T, K, stride, pad) else 0)
     w = fcp.wgrad_plan(B, T_out, s.wgrad_row.numel(), SMS, windows,
-                       lambda sb, split: fcp._wgrad_smem(B, T, s.kernel_size, T_out, t_ld,
-                                                         s.stride, sb, split),
-                       fcp.wgrad_span_cols(s.kernel_size, s.stride))
+                       lambda sb, split: fcp._wgrad_smem(B, T, K, T_out, t_ld, stride, sb,
+                                                         split),
+                       cols, rows)
     return d, w, t_ld
 
 
@@ -216,12 +223,14 @@ def _existing_shapes():
 
 
 def test_existing_shapes_keep_their_plans():
-    """Every existing shape keeps its plans, but dgrad at the routed large
-    batch (the len-64 levels at the production batch of 64; the
-    trajectory's K-31 levels at batch 64 are not routed), which takes spans
-    of several batches' whole rows (``dgrad_rows_routed``): its whole-row
-    plan, ``dgrad_whole_plan``, is still the one from before."""
-    n = routed = 0
+    """Every existing shape keeps its plans, but dgrad and wgrad at the
+    routed large batch (the len-64 levels at the production batch of 64;
+    the trajectory's K-31 levels at batch 64 are not routed): dgrad takes
+    spans of several batches' whole rows (``dgrad_rows_routed``), wgrad
+    items of several batches' whole rows (``wgrad_rows_routed``); their
+    whole-row plans, ``dgrad_whole_plan`` and ``wgrad_whole_plan``, are
+    still the ones from before."""
+    n = routed = w_routed = 0
     for s, B, T, windows in _existing_shapes():
         d, w, t_ld = _plans(s, B, T, windows)
         T_out = _t_out(s, T)
@@ -230,6 +239,14 @@ def test_existing_shapes_keep_their_plans():
         smem = lambda sb, split: fcp._wgrad_smem(B, T, s.kernel_size, T_out, t_ld,  # noqa
                                                  s.stride, sb, split)
         old_w = _old_wgrad_plan(B, T_out, s.wgrad_row.numel(), SMS, windows, smem)
+        if windows == 1 and fcp.wgrad_rows_routed(B, T, s.kernel_size, s.stride, s.padding):
+            assert B == 64 and s.kernel_size == 15
+            cols = fcp.wgrad_span_cols(s.kernel_size, s.stride)
+            nbb = fcp.wgrad_span_rows(B, T, s.kernel_size, s.stride, s.padding, 4, cols)
+            assert w == fcp.wgrad_span_plan(B, T_out, s.wgrad_row.numel(), SMS, 1, cols, nbb)
+            assert w.sb == nbb > 1 and w.span == cols and nbb * T_out <= cols
+            w = fcp.wgrad_whole_plan(B, T_out, s.wgrad_row.numel(), SMS, windows, smem, cols)
+            w_routed += 1
         assert w == old_w + (0,), (s.kernel_size, B, T, windows)
         if windows == 1 and fcp.dgrad_rows_routed(B, T, s.kernel_size, s.stride, s.padding):
             assert B == 64 and s.kernel_size == 15
@@ -245,7 +262,7 @@ def test_existing_shapes_keep_their_plans():
             _old_dgrad_smem(T, s.kernel_size, t_ld, s.stride, s.padding, d.nbb)
         n += 1
     assert n == 8 * 4 + 4 + 16
-    assert routed == 8 * 2
+    assert routed == w_routed == 8 * 2
 
 
 def dgrad_by_span(g, w, T_in, stride, padding, reflect, span, split=1):
@@ -453,12 +470,16 @@ def test_wgrad_items_match_the_plain_wgrad(mode, stride, T):
 def test_wgrad_span_block_fits_at_any_length(K, stride):
     """The widest item whose two stages fit a block: 128 columns at
     strides 1 and 2, 96 at stride 3; its shared memory, and so the plan's
-    width, the same at every length."""
+    width, the same at every length.  In bf16 (chunks of 64 columns, half
+    the bytes) 128 at every stride."""
     cols = fcp.wgrad_span_cols(K, stride)
     assert cols == (128 if stride < 3 else 96) and cols % fcp.WGRAD_SPAN_CHUNK == 0
     assert fcp._wgrad_span_smem(K, stride, cols) <= fcp.MAX_SMEM
     if cols < fcp.WGRAD_SPAN_COLS:
         assert fcp._wgrad_span_smem(K, stride, cols + fcp.WGRAD_SPAN_CHUNK) > fcp.MAX_SMEM
+    cols16 = fcp.wgrad_span_cols(K, stride, 2)
+    assert cols16 == fcp.WGRAD_SPAN_COLS and fcp._wgrad_span_smem(K, stride, cols16, 2) <= \
+        fcp.MAX_SMEM
     live = torch.zeros(128, 24, dtype=torch.bool)
     live[:64, :16] = True
     live[64:, 8:] = True
@@ -497,3 +518,140 @@ def test_plain_backward_at_t1024_matches_jax_vjp(level):
     np.testing.assert_allclose(gx, gx_ref, atol=_tol(gx_ref), rtol=0)
     np.testing.assert_allclose(gw.numpy(), gw_ref, atol=_tol(gw_ref), rtol=0)
     np.testing.assert_allclose((conv.pool.T @ gbf).numpy(), gb_ref, atol=_tol(gb_ref), rtol=0)
+
+
+def wgrad_by_rows(g, x, K, stride, padding, reflect, cols, nbb, split=1,
+                  chunk=fcp.WGRAD_SPAN_CHUNK, esz=4):
+    """The item kernel's wgrad over items of several batches' whole rows in
+    plain PyTorch: item q holds batches [q*nbb, q*nbb + nbl), contiguous
+    runs of items on each of ``split`` cluster ranks.  Each batch's 8-channel
+    rows of x are staged as the 3D box stages them, dense (its rows whole
+    16-byte granules of ``esz``-byte values), and padded by stride phase
+    through the padding's table with a period of R = T_out + off columns a
+    batch (batch bb's padded column u at (u % stride)*Lh + bb*R + u //
+    stride, Lh = nbb*R: x's column or a zero).  Item column n (batch n // T_out) reads x at n + (n //
+    T_out)*(R - T_out) from the tap's offset (k % stride)*Lh + k // stride;
+    the item's columns are summed ``chunk`` at a time (a chunk's k-steps
+    may hold two batches' columns), each chunk's sum added in order; then
+    the ranks' tiles in rank order."""
+    B, P, T_out = g.shape
+    C, T_in = x.shape[1], x.shape[2]
+    assert C % 8 == 0 and nbb * T_out <= cols and (T_in * esz) % 16 == 0
+    R = T_out + -(-K // stride) - 1
+    Lh, U = nbb * R, stride * R
+    u = torch.arange(U)
+    s = u - padding
+    if reflect:
+        edge = ((s < 0) | (s >= T_in)) & (u < T_in + 2 * padding)
+        s = torch.where(edge, torch.where(s < 0, -s, 2 * (T_in - 1) - s), s)
+    dst = (u % stride) * Lh + u // stride
+    inside = (s >= 0) & (s < T_in)
+    flat = x.reshape(-1)
+    items = -(-B // nbb)
+    parts = []
+    for rank in range(split):
+        gw, gb = g.new_zeros(P, C, K), g.new_zeros(P)
+        for item in range(items * rank // split, items * (rank + 1) // split):
+            b0, nbl = item * nbb, min(nbb, B - item * nbb)
+            xs = g.new_zeros(C, stride * Lh)
+            for bb in range(nbl):
+                for c0 in range(0, C, 8):
+                    e0 = ((b0 + bb) * C + c0) * T_in
+                    staged = flat[e0:e0 + 8 * T_in]  # the box's rows of this batch
+                    src = torch.arange(8)[:, None] * T_in + s[inside][None]
+                    xs[c0:c0 + 8, bb * R + dst[inside]] = staged[src]
+            nt = nbl * T_out
+            for j0 in range(0, nt, chunk):
+                n = torch.arange(j0, min(nt, j0 + chunk))
+                col = n + n // T_out * (R - T_out)
+                patches = torch.stack([xs[:, (k % stride) * Lh + k // stride + col]
+                                       for k in range(K)], -1)  # (C, n, K)
+                gc = g[b0 + n // T_out, :, n % T_out]  # (n, P)
+                gw += torch.einsum("np,cnk->pck", gc, patches)
+                gb += gc.sum(0)
+        parts.append((gw, gb))
+    gw, gb = parts[0]
+    for w, bias in parts[1:]:
+        gw, gb = gw + w, gb + bias
+    return gw, gb
+
+
+# the len-64 model's levels: (T_in, stride), K 15, padding 7
+LEN64_LEVELS = ((64, 2), (32, 2), (16, 2), (8, 2), (8, 1), (16, 1), (32, 1), (64, 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["reflect", "constant"])
+@pytest.mark.parametrize("T_in,stride", LEN64_LEVELS)
+def test_wgrad_rows_items_match_the_plain_wgrad(T_in, stride, mode, dtype):
+    """Items of several batches' whole rows at each len-64 level's T and
+    stride, K 15: a batch of 23 (41 at enc3; the last item ragged), the plan's batches
+    an item and its chunk (32 columns in f32, 64 in bf16), the items over
+    the plan's cluster ranks (one live tile: as many as items); in float64 on inputs rounded to the dtype (g rounded once, as
+    the kernel rounds it) against the plain wgrad in float64 (1e-10: the
+    same sums in another order), and in bf16 the output rounded once
+    against the plain bf16 version at the kernels' 0.02 * max|ref|."""
+    K, padding, P, C = 15, 7, 24, 16
+    B = 41 if T_in // stride == 4 else 23  # enc3: up to 32 batches an item
+    esz = torch.empty((), dtype=dtype).element_size()
+    gen = torch.Generator().manual_seed(T_in * 10 + stride)
+    x = torch.randn(B, C, T_in, generator=gen).to(dtype).double()
+    w = torch.randn(P, C, K, generator=gen).double()
+    y = fcp.fused_conv_pool_reference(x, w, None, None, None, stride, padding, mode, 0.2)
+    gy = torch.randn(y.shape, generator=gen).to(dtype).double()
+    y = y.to(dtype).double()
+    g = fcp._act_grad(gy, y, 0.2).to(dtype).double()
+    T_out = y.shape[2]
+    cols = fcp.wgrad_span_cols(K, stride, esz)
+    nbb = fcp.wgrad_span_rows(B, T_in, K, stride, padding, esz, cols)
+    # as many rows as fill an item (fewer where the block would not fit
+    # shared memory, or in bf16 two blocks an SM), spread evenly over the
+    # items; the last item ragged
+    full = -(-B // -(-B // min(B, cols // T_out)))
+    assert 1 < nbb <= full and B % nbb
+    t_ld = -(-T_out // (16 // esz)) * (16 // esz)
+    assert fcp.wgrad_items_per_sm(K, stride, cols, esz, nbb, T_in, T_out, t_ld) == 3 - esz // 2
+    plan = fcp.wgrad_span_plan(B, T_out, 1, SMS, 1, cols, nbb)
+    # one live tile: its items split over the cluster, a rank's run ragged or not
+    assert plan.sb == nbb and plan.span == cols and 1 < plan.split <= min(8, -(-B // nbb))
+    gw, gb = wgrad_by_rows(g, x, K, stride, padding, mode == "reflect", cols, nbb, plan.split,
+                           fcp.WGRAD_SPAN_CHUNK * 4 // esz, esz)
+    rw, rb = fcp.fused_conv_pool_wgrad_reference(g, torch.ones_like(y), x, K, stride, padding,
+                                                 mode, 0.2, None)
+    torch.testing.assert_close(gw, rw, atol=1e-10, rtol=0)
+    torch.testing.assert_close(gb, rb, atol=1e-10, rtol=0)
+    if dtype == torch.bfloat16:
+        pw, pb = fcp.fused_conv_pool_wgrad_reference(gy.to(dtype), y.to(dtype), x.to(dtype), K,
+                                                     stride, padding, mode, 0.2, None)
+        for got, plain in ((gw, pw), (gb, pb)):
+            err = float((got.to(dtype).float() - plain.float()).abs().max())
+            assert err <= 0.02 * float(plain.float().abs().max())
+
+
+@pytest.mark.parametrize("T_in,stride", [(16, 2), (32, 1)])
+def test_wgrad_rows_items_match_jax_vjp(T_in, stride):
+    """The decomposition into items of several batches' whole rows, at
+    small widths (16 channels, 24 rows, batch 23) on f32 inputs, against
+    jax.vjp of the JAX package's level (the conv, then LeakyReLU) for the
+    weight's and bias's gradients: f32, 1e-4 * max(1, max|ref|) (JAX sums
+    the 23 batches' columns in f32, the decomposition in float64)."""
+    K, padding, P, C, B = 15, 7, 24, 16, 23
+    rng = np.random.default_rng(T_in + stride)
+    x = rng.normal(size=(B, C, T_in)).astype(np.float32)
+    w = (rng.normal(size=(P, C, K)) * 0.1).astype(np.float32)
+    b = rng.normal(size=(P,)).astype(np.float32)
+
+    def level_fn(w, b):
+        return jsnn.leaky_relu(jsnn.skeleton_conv_w(jnp.asarray(x), w, b, stride, padding,
+                                                    "reflect"), 0.2)
+
+    y, vjp = jax.vjp(level_fn, jnp.asarray(w), jnp.asarray(b))
+    gy = rng.normal(size=y.shape).astype(np.float32)
+    gw_ref, gb_ref = (np.asarray(a) for a in vjp(jnp.asarray(gy)))
+    g = fcp._act_grad(torch.from_numpy(gy).double(), torch.from_numpy(np.array(y)).double(), 0.2)
+    cols = fcp.wgrad_span_cols(K, stride)
+    nbb = fcp.wgrad_span_rows(B, T_in, K, stride, padding, 4, cols)
+    gw, gb = wgrad_by_rows(g, torch.from_numpy(x).double(), K, stride, padding, True, cols, nbb,
+                           2)
+    np.testing.assert_allclose(gw.numpy(), gw_ref, atol=_tol(gw_ref), rtol=0)
+    np.testing.assert_allclose(gb.numpy(), gb_ref, atol=_tol(gb_ref), rtol=0)

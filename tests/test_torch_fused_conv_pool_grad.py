@@ -216,24 +216,27 @@ def test_trained_zero_keeps_its_tile():
 
 def test_backward_wrappers_take_float32_only():
     """On a non-CPU device the wrappers check before they launch: bf16 runs
-    the backward kernels over one window only, and wgrad over whole rows
-    only, so a bf16 wgrad call over items (rows past whole-row staging) or a
-    bf16 call over windows raises, naming the ROADMAP item that will port
-    it, instead of falling back; so does a weight or x whose dtype is not
-    gy's.  bf16 dgrad over such rows plans the span kernel's bf16 form."""
+    the backward kernels over one window only, so a bf16 call over windows
+    raises, naming the ROADMAP item that will port it, instead of falling
+    back; so does a weight or x whose dtype is not gy's.  bf16 over rows
+    past whole-row staging plans the span kernel's bf16 form (dgrad) and
+    the item kernel's (wgrad: items of one batch's columns that fit a
+    block)."""
     def meta(*shape):
         return torch.empty(shape, dtype=torch.bfloat16, device="meta")
 
     s = fcp.pack_structure(torch.ones(64, 8, dtype=torch.bool), 3, torch.bfloat16, 1, 1,
                            device="meta")
-    T = 1024  # past one block's whole-row staging: spans (wgrad's items: float32 only)
-    gy = meta(1, 64, T)
-    fcp._bf16_checks(None)  # dgrad's check passes: its spans run in bf16
+    T = 1024  # past one block's whole-row staging: spans and items
+    fcp._bf16_checks(None)  # one window: the bf16 check passes for dgrad and wgrad
     d = fcp.dgrad_plan(1, T, 3, 1, 1, T, s.dgrad_start.numel() - 1, s.dgrad_max_live, 132, 1,
                        (s.dgrad_span_start.numel() - 1, s.dgrad_span_max_live), esz=2)
     assert d.span == fcp.dgrad_span_cols(3, 1, 2) and d.nbb == 1
-    with pytest.raises(TypeError, match="float32 only.*Queue 6 item 1"):
-        fcp.fused_conv_pool_wgrad(gy, gy, meta(1, 8, T), s)
+    w = fcp.wgrad_plan(1, T, s.wgrad_row.numel(), 132, 1,
+                       lambda sb, split: fcp._wgrad_smem(1, T, 3, T, T, 1, sb, split, 2),
+                       fcp.wgrad_span_cols(3, 1, 2))
+    assert w.sb == 1 and w.span == fcp.wgrad_span_cols(3, 1, 2) == 128
+    assert fcp._wgrad_span_smem(3, 1, w.span, 2) <= fcp.MAX_SMEM
     gy = meta(2, 64, 4)  # two windows of one batch
     with pytest.raises(TypeError, match="float32 only.*Queue 6 item 2"):
         fcp.fused_conv_pool_dgrad_windowed(gy, gy, meta(2, 64, 8, 3), s, 4)
