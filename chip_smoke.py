@@ -68,9 +68,12 @@ Phases, each of which exits non-zero on failure:
    forward, dgrad and wgrad at batch 8 and T 128 (training), forward and
    dgrad at 10 windows of T 64 (the solver's trajectory loss), the forward
    at batch 1 and T 300 (``eval_trajectory``), each as phases 2 and 5 hold
-   and time theirs;
+   and time theirs; dgrad runs spans and wgrad (at T 128) items of one
+   batch's row there, as routed, the whole-row kernels held and timed
+   beside them;
 13. trajectory training: 12 steps of ``Trainer.fit`` on the GPU against the
-   CPU as in phase 6 (4 / 3 / 4 launches a step), then
+   CPU as in phase 6 (4 / 3 / 4 launches a step; the step's device ms,
+   dgrad's and wgrad's ms and idle share as "cost"), then
    ``hm_vae_torch.cli.train`` on its config with a checkpoint and resume;
 14. ``hm_vae_torch.cli.eval_trajectory`` with phase 7's VAE checkpoint and
    phase 13's trajectory checkpoint: prior samples, GT test windows and a
@@ -165,13 +168,17 @@ Phases, each of which exits non-zero on failure:
    autograd, bit-equal on two runs, with the plan its launch ran (dgrad:
    span, spans, stages, channels a block, split, bytes; wgrad: item width,
    stages, split, bytes), timed as phase 5's; both span kernels timed,
-   unrouted, beside the whole-row kernels at shapes whose rows fit whole
-   (the len-64 levels at batch 8 and 64, the trajectory's at batch 8, T
-   128); dgrad's spans and wgrad's items in bf16 at the K-31 levels at (1,
-   7,200) and (8, 1,024) and at the stride-2 level, held at 0.02 *
-   max|ref|, bit-equal on two runs; then 5 steps of the trajectory model
-   at train_seq_len 1,024 on the card against the CPU, under phase 13's
-   gate (4 / 3 / 4 launches a step);
+   beside the whole-row kernels at shapes whose rows fit whole (the len-64
+   levels at batch 8 and 64, f32; the trajectory's at batch 8, T 128, and
+   dgrad's at 10 windows of T 64, each in f32 and bf16), routed or not;
+   dgrad's spans and wgrad's items in bf16 at the K-31 levels at (1,
+   7,200) and (8, 1,024) and at the stride-2 level (wgrad's whole rows
+   timed beside its items there), held at 0.02 * max|ref|, bit-equal on
+   two runs; the clusters of 1-8 span blocks the card runs at once (the
+   span plan's waves at the trajectory's short rows); then 5 steps of the
+   trajectory model at train_seq_len 1,024 on the card against the CPU,
+   under phase 13's gate (4 / 3 / 4 launches a step), and 5 more at bf16
+   compute (finite losses, 4 / 3 / 4 device runs a step, the step's cost);
 30. data-parallel training over torch.distributed ranks started by
    ``python -m torch.distributed.run`` with ``HMVAE_DIST=1`` (the ranks run
    ``chip_smoke.py --rank-audit <report> <root> <runs.json>``, which runs
@@ -218,7 +225,9 @@ Phases, each of which exits non-zero on failure:
    compute, the JAX package's "MAX-PERF triple"): the bf16 dgrad and wgrad
    at the 8 len-64 levels (batch 8 and 64: dgrad's spans and wgrad's items
    of several batches' rows, routed there, with the whole-row kernels timed
-   beside them) and the trajectory model's 4 K-31 levels (batch 8, T 128), held
+   beside them) and the trajectory model's 4 K-31 levels (batch 8, T 128:
+   dgrad's spans and wgrad's items of one batch's row, routed there, the
+   whole-row kernels beside them), held
    and timed as phase 5 holds and times its rows, in bf16 (0.02 *
    max|ref|), two runs bit-equal; the triple's 32-step CUDA-graph call at
    batch 64 against the same steps eagerly, bit for bit, and its cost (ms a
@@ -230,8 +239,9 @@ Phases, each of which exits non-zero on failure:
    1e-3 against f32, and the production config at its lr against f32
    compute); the
    training CLI on the YAML with ``compute_dtype: bfloat16`` added, two
-   calls and ``--resume``; the trajectory model at bf16 compute, 4 steps;
-   its ``elapsed_s``;
+   calls and ``--resume``; the trajectory model at bf16 compute, 4 steps,
+   and its step's cost (ms by events, device ms, dgrad's and wgrad's ms,
+   idle share); its ``elapsed_s``;
 24. print the kernel summary line and, last, the device line.
 
 ``python3 chip_smoke.py --long-backward`` runs phase 1 and then phase 29
@@ -721,6 +731,17 @@ def profile_calls(fn, calls: int = 10, warm: bool = True):
             "top_us_per_call": {k: v / calls for k, v in top}}
 
 
+def step_cost(prof):
+    """A profiled step's device ms, idle share and dgrad's and wgrad's
+    device ms (every form of each kernel, dgrad's weight layout included),
+    from :func:`profile_calls` of one step a call."""
+    return {"device_ms_per_step": prof["device_us_per_call"] / 1e3,
+            "idle_share": prof["idle_share"],
+            **{f"{what}_ms_per_step": sum(prof["trace_us_per_call"].get(k, 0.0)
+                                          for k in names) / 1e3
+               for what, names in (("dgrad", DGRAD_TRACE), ("wgrad", WGRAD_TRACE))}}
+
+
 def cli_phase(rng):
     from hm_vae_torch.cli import refine_vibe
     from hm_vae_torch.ops.fused_conv_pool import fused_conv_pool
@@ -808,8 +829,10 @@ def bwd_level_row(name, conv, T_in, batch, gen, with_wgrad=True, dtype=torch.flo
     unrouted ("whole_rows"), and the span kernel's weight layout
     (``dgrad_span_pack``) is held bit for bit against its plain version and
     timed beside it ("pack"); where wgrad's plan runs the item kernel over
-    rows that fit a whole-row block (several batches' rows an item), the
-    whole-row wgrad is held and timed beside it the same way."""
+    rows that fit a whole-row block (several batches' rows an item, or one
+    batch's columns at the trajectory's routed short rows and bf16 rows
+    too long for f32's whole-row block), the whole-row wgrad is held and
+    timed beside it the same way."""
     from hm_vae_torch.ops import fused_conv_pool as fcp
 
     s, wf, bf, x, y, gy = bwd_inputs(conv, T_in, gen, batch, dtype)
@@ -879,8 +902,8 @@ def bwd_level_row(name, conv, T_in, batch, gen, with_wgrad=True, dtype=torch.flo
         plan["wgrad"] = fcp.last_backward_plans()["wgrad"]
         if plan["wgrad"]["span"]:
             plan["wgrad"]["stages"] = fcp.WGRAD_SPAN_STAGES
-        if plan["wgrad"]["span"] and plan["wgrad"]["sb"] > 1:
-            wp = whole_row_wgrad_plan(s, gy, T_in)
+        wp = whole_row_wgrad_plan(s, gy, T_in) if plan["wgrad"]["span"] else None
+        if wp is not None and not wp.span:
 
             def w_whole():
                 return fcp._wgrad(gy, y, x, s, None, wp)
@@ -1075,6 +1098,7 @@ def train_phase(data_root, path=CONFIG, want=TRAIN_LAUNCHES, phase="train",
            "ms_per_step": time_ms(step, reps=10, samples=5),
            "profile": profile_calls(step, calls=5),
            "repack_profile": profile_calls(repack_all, calls=5)}
+    row["cost"] = step_cost(row["profile"])
     print(json.dumps(row), flush=True)
     return row
 
@@ -1475,9 +1499,10 @@ def mode_solve(model, seq, name, overrides, want, reps=1, profile=True):
             fail(f"{name}: {k} of shape {tuple(out[k].shape)} or non-finite")
     row = {"ms_per_solve": ms, "launches": launches, "peak_memory_bytes": peak,
            "loss_first": float(hist[0]), "loss_last": float(hist[-1])}
-    if profile:
+    if profile:  # the timed solves warmed it up
         row["profile"] = profile_calls(
-            lambda: apps.interpolate(seq, torch.Generator().manual_seed(SEED)), calls=1)
+            lambda: apps.interpolate(seq, torch.Generator().manual_seed(SEED)), calls=1,
+            warm=False)
     return row
 
 
@@ -1532,7 +1557,8 @@ def traj_kernel_phase(tmodel, gen):
     non-windowed: the weights are shared); the forward at batch 1 and T 300
     (eval_trajectory); the forward in bf16 at batch 8, T 128 and at batch 1,
     T 300 (the bf16 serving bundle's trajectory, phase 25).  Each row as
-    phases 2 and 5 check and time them.
+    phases 2 and 5 check and time them (dgrad's spans and wgrad's items, as
+    routed at these short rows, with the whole-row kernels beside them).
     Returns {(case, kernel): [rows over the levels]}."""
     f32, bf16, T = torch.float32, torch.bfloat16, tmodel.cfg.train_seq_len
     rows = {}
@@ -1641,8 +1667,10 @@ def traj_solve_phase(model, traj, seq, root_trans):
            "decoder_iterations": n_d, "launches_per_iteration": per_iter,
            "ms_per_solve": ms, "launches": launches, "loss_first": float(hist[0]),
            "loss_last": float(hist[-1]),
+           # the timed solves warmed it up
            "profile": profile_calls(lambda: apps.interpolate(
-               seq, torch.Generator().manual_seed(SEED), root_trans=root_trans), calls=1)}
+               seq, torch.Generator().manual_seed(SEED), root_trans=root_trans), calls=1,
+               warm=False)}
     print(json.dumps(row), flush=True)
     return row
 
@@ -2884,71 +2912,91 @@ LONG_TRAIN_STEPS = 5
 def span_vs_whole_rows(model, st, tmodel, gen):
     """The span kernels (wgrad: items of several batches' whole rows where
     an item holds two or more, else of one batch's output columns; dgrad:
-    spans of several batches' whole padded rows; each its own plan) beside
-    the whole-row kernels (their whole-row plans), on the same inputs, f32,
-    each unrouted where its plan does not take the shape: the len-64
+    spans of whole padded rows, one or more batches' a span; each its own
+    plan) beside the whole-row kernels (their whole-row plans), on the same
+    inputs, each unrouted where its plan does not take the shape: the len-64
     model's 8 levels at batch 8 (wgrad only) and at the production batch of
-    64 (both routed there), and the trajectory model's 4 levels at batch 8,
-    T 128.  Each row: the kernels' device ms (dgrad's span time with its
-    weight packing), the span kernels' max |err| against the plain versions
-    and their plans.  Returns {shape: rows}."""
+    64 (both routed there), f32; and the trajectory model's 4 levels at
+    batch 8, T 128 (both routed there), in f32 and bf16, and, dgrad only,
+    at 10 windows of T 64 (the solve's, routed), in f32.  Each row: the
+    kernels' device ms (dgrad's span time with its weight packing), the
+    span kernels' max |err| against the plain versions (TOL of the dtype),
+    their plans and two runs bit-equal.  Returns {shape: rows}."""
     from hm_vae_torch.ops import fused_conv_pool as fcp
 
-    shapes = {f"len64_b{b}": [(f"{n}@b{b}", c, T, b) for n, c, T in level_cases(model, st)]
+    f32, bf16 = torch.float32, torch.bfloat16
+    shapes = {f"len64_b{b}": [(f"{n}@b{b}", c, T, b, f32, True) for n, c, T in
+                              level_cases(model, st)]
               for b in (BATCH, PROD_BATCH)}
-    shapes["traj_b8_t128"] = [(f"traj{i}@b8_t128", getattr(tmodel.encoder, f"conv_{i}"), 128, 8)
-                              for i in range(len(tmodel.encoder.structure.levels))]
+    for dtype, tag in ((f32, ""), (bf16, "@bf16")):
+        for b, T, with_wgrad in ((BATCH, 128, True),) + (((WINDOWS, 64, False),)
+                                                          if dtype == f32 else ()):
+            shapes[f"traj_b{b}_t{T}{tag}"] = [
+                (f"traj{i}@b{b}_t{T}{tag}", getattr(tmodel.encoder, f"conv_{i}"), T, b, dtype,
+                 with_wgrad) for i in range(len(tmodel.encoder.structure.levels))]
+    sms = fcp._sm_count(torch.cuda.current_device())
     out = {}
     for shape, cases in shapes.items():
-        for name, conv, T_in, batch in cases:
-            s, wf, bf, x, y, gy = bwd_inputs(conv, T_in, gen, batch)
-            K, stride, T_out = s.kernel_size, s.stride, y.shape[2]
-            cols = fcp.wgrad_span_cols(K, stride)
-            nbb = max(1, fcp.wgrad_span_rows(batch, T_in, K, stride, s.padding, 4, cols))
-            plan = fcp.wgrad_span_plan(
-                batch, T_out, s.wgrad_row.numel(), fcp._sm_count(torch.cuda.current_device()),
-                1, cols, nbb, fcp.wgrad_items_per_sm(K, stride, cols, 4, nbb, T_in, T_out,
-                                                     -(-T_out // 4) * 4))
-            ww_plan = whole_row_wgrad_plan(s, gy, T_in)
-
-            d_plan = fcp.dgrad_span_plan(batch, T_in, K, stride, s.padding,
-                                         s.dgrad_span_start.numel() - 1, s.dgrad_span_max_live,
-                                         fcp._sm_count(torch.cuda.current_device()))
-            w_plan = whole_row_plan(s, gy, T_in)
+        for name, conv, T_in, batch, dtype, with_wgrad in cases:
+            s, wf, bf, x, y, gy = bwd_inputs(conv, T_in, gen, batch, dtype)
+            K, stride, T_out, esz = s.kernel_size, s.stride, y.shape[2], gy.element_size()
             mode = "reflect" if s.reflect else "constant"
+            row = {"level": name, "batch": batch, "T_in": T_in,
+                   "dtype": str(dtype).replace("torch.", "")}
+            if with_wgrad:
+                cols = fcp.wgrad_span_cols(K, stride, esz)
+                nbb = max(1, fcp.wgrad_span_rows(batch, T_in, K, stride, s.padding, esz, cols))
+                gran = 16 // esz
+                plan = fcp.wgrad_span_plan(
+                    batch, T_out, s.wgrad_row.numel(), sms, 1, cols, nbb,
+                    fcp.wgrad_items_per_sm(K, stride, cols, esz, nbb, T_in, T_out,
+                                           -(-T_out // gran) * gran))
+                ww_plan = whole_row_wgrad_plan(s, gy, T_in)
 
-            def span():
-                return fcp._wgrad(gy, y, x, s, None, plan)
+                def span():
+                    return fcp._wgrad(gy, y, x, s, None, plan)
 
-            def whole():
-                return fcp._wgrad(gy, y, x, s, None, ww_plan)
+                def whole():
+                    return fcp._wgrad(gy, y, x, s, None, ww_plan)
 
-            def d_span():
-                return fcp._dgrad(gy, y, wf, s, T_in, None, d_plan)
-
-            def d_whole():
-                return fcp._dgrad(gy, y, wf, s, T_in, None, w_plan)
-
-            gw, gb = span()
-            rw, rb = fcp.fused_conv_pool_wgrad_reference(
-                gy, y, x, K, stride, s.padding, mode, s.negative_slope, s.live_elements())
-            err = check(f"{name} wgrad span kernel", gw, rw, torch.float32)[0]
-            if bf is not None:
-                err = max(err, check(f"{name} span bias grad", gb, rb, torch.float32)[0])
-            row = {"level": name, "batch": batch, "T_in": T_in, "max_abs_err": err,
-                   "span_ms": device_ms(span), "whole_ms": device_ms(whole),
-                   "plan": plan._asdict(), "whole_plan": ww_plan._asdict()}
+                gw, gb = span()
+                rw, rb = fcp.fused_conv_pool_wgrad_reference(
+                    gy, y, x, K, stride, s.padding, mode, s.negative_slope, s.live_elements())
+                err = check(f"{name} wgrad span kernel", gw, rw, dtype)[0]
+                if bf is not None:
+                    err = max(err, check(f"{name} span bias grad", gb, rb, dtype)[0])
+                gw2, gb2 = span()
+                if not (torch.equal(gw2, gw) and torch.equal(gb2, gb)):
+                    fail(f"{name}: the wgrad item kernel differs between two runs")
+                row.update({"max_abs_err": err, "span_ms": device_ms(span),
+                            "whole_ms": device_ms(whole), "plan": plan._asdict(),
+                            "whole_plan": ww_plan._asdict()})
             if shape != f"len64_b{BATCH}":
+                # at the trajectory's short rows the split is counted in stages and
+                # the waves in the clusters the card holds, as routed
+                d_plan = fcp.dgrad_span_plan(
+                    batch, T_in, K, stride, s.padding, s.dgrad_span_start.numel() - 1,
+                    s.dgrad_span_max_live, sms, 1, esz,
+                    lambda: fcp.span_clusters(torch.cuda.current_device(), K, stride, esz))
+                w_plan = whole_row_plan(s, gy, T_in)
+
+                def d_span():
+                    return fcp._dgrad(gy, y, wf, s, T_in, None, d_plan)
+
+                def d_whole():
+                    return fcp._dgrad(gy, y, wf, s, T_in, None, w_plan)
+
                 gx = d_span()
                 d_err = check(f"{name} dgrad span kernel", gx,
                               fcp.fused_conv_pool_dgrad_reference(gy, y, wf, T_in, stride,
                                                                   s.padding, mode,
                                                                   s.negative_slope),
-                              torch.float32)[0]
+                              dtype)[0]
                 if not torch.equal(d_span(), gx):
                     fail(f"{name}: the dgrad span kernel differs between two runs")
                 row["dgrad"] = {"max_abs_err": d_err, "span_ms": device_ms(d_span),
-                                "whole_ms": device_ms(d_whole), "plan": d_plan._asdict()}
+                                "whole_ms": device_ms(d_whole), "plan": d_plan._asdict(),
+                                "whole_plan": w_plan._asdict()}
             print(json.dumps({"span_vs_whole": shape, **row}), flush=True)
             out.setdefault(shape, []).append(row)
     return out
@@ -2965,12 +3013,15 @@ def long_backward_phase(model, st, tmodel, gen):
     then LONG_TRAIN_STEPS steps of the
     trajectory model at train_seq_len 1,024 on the card against the CPU,
     under the training gate (:func:`train_phase`), on synthetic takes of
-    1,100-1,500 frames; dgrad's spans and wgrad's items in bf16 at (1,
-    7,200), (8, 1,024) and enc1 (whose rows wgrad's bf16 block takes whole),
+    1,100-1,500 frames, and as many at bf16 compute (finite losses, 4 / 3
+    / 4 device runs a step: :func:`bf16_trajectory_steps`); dgrad's spans
+    and wgrad's items in bf16 at (1, 7,200), (8, 1,024) and enc1 (whose
+    rows wgrad's bf16 whole-row block would take: timed beside the items),
     held at TOL[bf16], bit-equal on two runs, timed beside cuDNN's bf16.  Returns ({case: [rows over the levels]}, the
     train row, the phase's row with the span-vs-whole rows, {case: bf16
     rows})."""
     from hm_vae_torch.data import synthetic
+    from hm_vae_torch.ops import fused_conv_pool as fcp
 
     t_phase = time.perf_counter()
     rows = {}
@@ -2997,10 +3048,11 @@ def long_backward_phase(model, st, tmodel, gen):
                                            1024, BATCH, gen, dtype=torch.bfloat16)]
     for case, rs in bf16.items():
         for r in rs:
-            # wgrad's bf16 stages, half as large, take enc1's rows whole
+            # wgrad's bf16 stages, half as large, would take enc1's rows
+            # whole; its plan takes items there as f32's does (timed beside)
             items = r["wgrad"]["plan"]["span"] > 0 and r["wgrad"]["plan"]["sb"] == 1
             if not (r["dgrad"]["plan"]["span"] > 0 and r["dgrad"]["plan"]["spans"] > 1
-                    and items == (case != "enc1_b8_t1024")):
+                    and items and ("whole_rows" in r["wgrad"]) == (case == "enc1_b8_t1024")):
                 fail(f"long_backward {r['level']}: plans {r['dgrad']['plan']} / "
                      f"{r['wgrad']['plan']}: no span plan, or wgrad's not its expected one")
     t_svw = time.perf_counter()
@@ -3016,6 +3068,9 @@ def long_backward_phase(model, st, tmodel, gen):
         f.write(re.sub(r"(?m)^train_seq_len:.*$", f"train_seq_len: {LONG_TRAIN_T}", text))
     train = train_phase(data_root, path, TRAJ_TRAIN_LAUNCHES, "train_trajectory_t1024",
                         steps=LONG_TRAIN_STEPS)
+    # the same at bf16 compute: dgrad's bf16 spans and wgrad's bf16 items over long rows
+    train_bf16 = bf16_trajectory_steps(data_root, path, LONG_TRAIN_STEPS,
+                                       "bf16_trajectory_t1024")
     row = {"phase": "long_backward", "cases": {c: [r["level"] for r in rs]
                                                for c, rs in rows.items()},
            "plans": {r["level"]: {"dgrad": r["dgrad"]["plan"], "wgrad": r["wgrad"]["plan"]}
@@ -3026,16 +3081,22 @@ def long_backward_phase(model, st, tmodel, gen):
                                       "plan": rs[0][what]["plan"]}
                                for case, rs in bf16.items()}
               for what in ("dgrad", "wgrad")},
-           "span_vs_whole": {shape: {"span_ms": sum(r["span_ms"] for r in rs),
-                                     "whole_ms": sum(r["whole_ms"] for r in rs),
+           "span_vs_whole": {shape: {**({"span_ms": sum(r["span_ms"] for r in rs),
+                                         "whole_ms": sum(r["whole_ms"] for r in rs)}
+                                        if "span_ms" in rs[0] else {}),
                                      **({"dgrad_span_ms": sum(r["dgrad"]["span_ms"] for r in rs),
                                          "dgrad_whole_ms": sum(r["dgrad"]["whole_ms"]
                                                                for r in rs)}
                                         if "dgrad" in rs[0] else {})}
                              for shape, rs in span_vs_whole.items()},
            "span_vs_whole_s": t_svw,
+           # the dgrad span kernel's clusters the card runs at once, by split
+           # (1-8), at K 31: the trajectory's short rows' waves
+           "span_clusters": {str(dt).replace("torch.", ""): fcp.span_clusters(
+               torch.cuda.current_device(), 31, 1, torch.empty((), dtype=dt).element_size())
+               for dt in (torch.float32, torch.bfloat16)},
            "train_steps": LONG_TRAIN_STEPS, "train_seq_len": LONG_TRAIN_T,
-           "elapsed_s": time.perf_counter() - t_phase}
+           "train_bf16": train_bf16, "elapsed_s": time.perf_counter() - t_phase}
     print(json.dumps(row), flush=True)
     return rows, train, row, bf16
 
@@ -3916,31 +3977,46 @@ def bf16_converge(data_root):
     return out
 
 
-def bf16_trajectory_steps(data_root):
-    """The trajectory model (K 31, batch 8, T 128: whole rows) at bf16
-    compute, a few Trainer.fit steps on the card: finite losses, and the
-    kernels' runs on the device 4 / 3 / 4 a step (the bf16 kernels: its
-    rows fit a whole-row block)."""
+def bf16_trajectory_steps(data_root, path=TRAJ_CONFIG, steps=BF16_TRAJ_STEPS,
+                          name="bf16_trajectory"):
+    """The trajectory model (``path``: K 31, batch 8, T 128, routed to
+    dgrad's spans and wgrad's items; or a copy at train_seq_len 1,024, rows
+    past a whole-row block) at bf16 compute, `steps` Trainer.fit steps on
+    the card: finite losses, and the kernels' runs on the device 4 / 3 / 4
+    a step (the bf16 span and item kernels)."""
     from hm_vae_torch.ops import fused_conv_pool as fcp
+    from hm_vae_torch.train.train_step import loss_fields, to_device, train_step
     from hm_vae_torch.train.trainer import build_trainer
 
-    cfg = train_config(data_root, TRAJ_CONFIG, BF16_TRIPLE)
-    trainer, train_ds, _, _ = build_trainer(cfg, os.path.join(OUT_DIR, "bf16_trajectory"),
-                                            device=DEV)
+    cfg = train_config(data_root, path, BF16_TRIPLE)
+    trainer, train_ds, _, _ = build_trainer(cfg, os.path.join(OUT_DIR, name), device=DEV)
     for c in fcp.launch_entries():
         c.launches = 0
     fcp.device_runs(torch.cuda.current_device(), reset=True)
     out = []
-    trainer.fit(train_ds, None, max_iter=BF16_TRAJ_STEPS,
+    trainer.fit(train_ds, None, max_iter=steps,
                 log_cb=lambda step, m: out.append(m["loss_total"]))
     entries = {k: v for k, v in fcp.launch_counts().items() if v}
     runs = fcp.device_runs(torch.cuda.current_device())
-    want = {TRACE_NAME[k]: BF16_TRAJ_STEPS * v for k, v in TRAJ_TRAIN_LAUNCHES.items()}
-    if runs != want or not out or not np.isfinite(out).all():
-        fail(f"bf16 trajectory: losses {out}, device runs {runs}, expected {want}")
-    return {"config": os.path.relpath(TRAJ_CONFIG, ROOT), "model_overrides": BF16_TRIPLE,
-            "steps": BF16_TRAJ_STEPS, "losses": out, "entry_launches_in_run": entries,
-            "device_runs_in_run": runs}
+    want = {TRACE_NAME[k]: steps * v for k, v in TRAJ_TRAIN_LAUNCHES.items()}
+    if runs != want or len(out) != steps or not np.isfinite(out).all():
+        fail(f"{name}: losses {out}, device runs {runs}, expected {want}")
+    plans = fcp.last_backward_plans()
+    # the step's cost on the trained state, as train_phase takes it
+    batch = to_device(train_ds.sample_batch(cfg.optim.batch_size), DEV,
+                      loss_fields(trainer.state.model))
+    noise = torch.Generator()
+
+    def step():
+        return train_step(trainer.state, batch, cfg, generator=noise.manual_seed(0),
+                          mean_std=trainer.mean_std)
+
+    prof = profile_calls(step, calls=5)
+    return {"config": os.path.relpath(path, ROOT), "model_overrides": BF16_TRIPLE,
+            "train_seq_len": cfg.model.train_seq_len, "steps": steps, "losses": out,
+            "entry_launches_in_run": entries, "device_runs_in_run": runs, "plans": plans,
+            "ms_per_step": time_ms(step, reps=10, samples=5), "cost": step_cost(prof),
+            "profile": prof}
 
 
 def bf16_train_phase(data_root, model, st, tmodel, gen):
@@ -4397,10 +4473,12 @@ def main() -> None:
                          "hm_vae_tpu/models/trajectory.py:45-50 (JAX autodiff of the level; "
                          "no Pallas backward exists)"),
             "launches": traj_launches[case][name],
-            **total(rows),
+            **total(rows), **(beside(rows) if what != "fwd" else {}),
             "note": f"{'bf16' if 'bf16' in case else 'f32'}, K 31, sums over the 4 "
                     f"trajectory levels; {traj_notes[case]}; "
-                    "times: device time from CUDA-graph replays; library_ms: "
+                    "times: device time from CUDA-graph replays (dgrad's spans with their "
+                    "weight layout; whole_rows_ms: dgrad_kernel or wgrad_kernel, timed "
+                    "beside the routed spans or items, unrouted); library_ms: "
                     + {"fwd": "cuDNN conv1d", "dgrad": "torch.nn.grad.conv1d_input",
                        "wgrad": "torch.nn.grad.conv1d_weight"}[what]
                     + " on the folded weight, TF32 off"})
@@ -4525,7 +4603,8 @@ def main() -> None:
                 f"{bf16_run['steps']} steps (the two warm-up steps and the capture: a replay "
                 "calls no entry); device_launches_per_call: the kernel's runs a 32-step call "
                 "counted on the device", bf16_run["entry_launches_in_run"]),
-        "trajectory": ("the trajectory model's 4 K-31 levels at batch 8, T 128 (whole rows); "
+        "trajectory": ("the trajectory model's 4 K-31 levels at batch 8, T 128 (dgrad spans "
+                       "of one batch's padded row, wgrad items of one batch's 128 columns); "
                        f"launches: the entries' count over {BF16_TRAJ_STEPS} Trainer steps of "
                        "configs/trajectory_model.yaml at bf16 compute",
                        bf16_traj["entry_launches_in_run"])}
@@ -4548,7 +4627,8 @@ def main() -> None:
                     TRACE_NAME[name]]} if case == "b64" else {}),
                 "note": "bf16 (the kernels' bf16 instantiations, as their plans route "
                         "them: at batch 64 dgrad spans of several batches' rows, its time "
-                        "with their weight layout, wgrad items of several batches' rows; "
+                        "with their weight layout, wgrad items of several batches' rows; at "
+                        "the trajectory's (8, 128) spans and items of one batch's row; "
                         "whole_rows_ms the whole-row kernel beside either), sums over the "
                         + ("8 len-64 levels (dgrad: enc0 runs it in this timing but not in "
                            "training), " if case != "trajectory" else "")

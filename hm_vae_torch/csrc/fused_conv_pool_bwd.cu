@@ -86,8 +86,9 @@
 //   source (the padding's adjoint) and stores gx row by row.  A padded row
 //   too long for one block is cut into spans of one batch's padded columns,
 //   and at a large batch (dgrad_plan) the short rows of several batches
-//   share a span (dgrad_span_kernel: wgmma, warp-specialised, its own
-//   section below);
+//   share a span, at the trajectory's short rows one or two batches' rows
+//   a span (dgrad_span_kernel: wgmma, warp-specialised, its own section
+//   below);
 // - wgrad: a block owns one live tile (64 rows x the chunk's 8 channels x K
 //   taps, plus a ones-column for the bias: the mma's N runs over 8-channel
 //   tap tiles, K + 1 of them, 2, 3 or 4 a warp: a template parameter, so
@@ -683,12 +684,18 @@ dgrad_kernel(const T* __restrict__ gy, const T* __restrict__ y,
 // dgrad_span_kernel<T> (T float or __nv_bfloat16).  A block owns a group of
 // four 8-channel chunks (32 channels: the products' N) and a span of padded
 // columns; it walks the group's live row tiles (dgrad_span_start /
-// dgrad_span_row in pack_structure; a cluster splits them, summed in rank
-// order), one k-step of rows p a stage (8 in f32, 16 in bf16).  Per stride
-// phase phi the columns u = stride*v + phi read only taps k = phi + stride*m,
-// from g's column v - m, so each phase is a stride-1 product over its taps
-// with g shifted by the tap, in M tiles of 64 columns v.  A span is one of
-// two things:
+// dgrad_span_row in pack_structure), one k-step of rows p a stage (8 in
+// f32, 16 in bf16); a cluster splits the group's stages into contiguous
+// runs, one a rank, its partial sums added in rank order.  At the short
+// rows of a small batch (the trajectory's (8, 128) and (10, 64)) a level
+// has 2-6 live row tiles and 15-48 span blocks, so a block walked up to 24
+// stages of ~5.5 us (f32) while most SMs idled, and a rank whose last row
+// tile was part-filled waited for the others (PERF.md): a run of stages
+// splits the work at any count up to the cluster's 8 blocks, evenly.
+// Per stride phase phi the columns u = stride*v + phi read only taps k =
+// phi + stride*m, from g's column v - m, so each phase is a stride-1
+// product over its taps with g shifted by the tap, in M tiles of 64
+// columns v.  A span is one of two things:
 // - spans of one batch's padded row (a row too long for one block): a span
 //   [u0, u0 + width) stages g's columns t0 - off.. (t0 = u0 / stride) from
 //   the 16-byte granule that holds them; the plan sizes the first and the
@@ -988,14 +995,21 @@ dgrad_span_kernel(const T* __restrict__ gy, const T* __restrict__ y,
   const int entries = span_start[gridDim.x];  // a window's packing
   const int first = span_start[group];
   const int live = span_start[group + 1] - first;
-  const int n_rt = live > rank ? (live - rank + split - 1) / split : 0;
-  auto entry = [&](int j) { return first + rank + j * split; };
+  auto entry = [&](int j) { return first + j; };
   auto ksteps = [&](int j) { return min(kTile, (P - span_row[entry(j)] * kRows + kKS - 1) / kKS); };
-  int n_stages = 0;
-  for (int j = 0; j < n_rt; ++j) n_stages += ksteps(j);
-  // the stages in order: the rank's row tiles, each one k-step at a time
+  // the group's stages in order (its live row tiles, each one k-step at a
+  // time), a contiguous run of them a cluster rank: the ranks' runs differ
+  // by one stage at most, so a split may exceed the live row tiles
+  int total = 0;
+  for (int j = 0; j < live; ++j) total += ksteps(j);
+  const int s_lo = total * rank / split, n_stages = total * (rank + 1) / split - s_lo;
   struct Cursor {
     int j, ks;
+  };
+  auto start = [&]() {  // the rank's first stage
+    Cursor c = {0, s_lo};
+    while (c.j < live && c.ks >= ksteps(c.j)) c.ks -= ksteps(c.j++);
+    return c;
   };
   auto next = [&](Cursor& c) {
     if (++c.ks == ksteps(c.j)) ++c.j, c.ks = 0;
@@ -1028,7 +1042,7 @@ dgrad_span_kernel(const T* __restrict__ gy, const T* __restrict__ y,
     const int lo = max(tb0, 0), hi = min(t_ld, tb0 + L.gw);
     const uint32_t row_bytes = hi > lo ? (hi - lo) * sizeof(T) : 0;
     const int per = rows ? nbl : kKS;  // copies of gy (and of y) a stage, at most
-    Cursor c = {0, 0};
+    Cursor c = start();
     for (int i = 0; i < n_stages; ++i, next(c)) {
       if (i >= S) mbar_wait(smem_addr(empty + i % S), (i / S - 1) & 1);
       const int p0 = span_row[entry(c.j)] * kRows + c.ks * kKS, nrows = min(kKS, P - p0);
@@ -1064,7 +1078,7 @@ dgrad_span_kernel(const T* __restrict__ gy, const T* __restrict__ y,
     // T_out columns of g, a 16-byte granule of its row at a time (g's other
     // columns, zeros between the batches, were written before the stages).
     const int q0 = tid - (kSpanProducer + 1) * 32;
-    Cursor c = {0, 0};
+    Cursor c = start();
     for (int i = 0; i < n_stages; ++i, next(c)) {
       mbar_wait(smem_addr(full + i % S), (i / S) & 1);
       const int nrows = min(kKS, P - span_row[entry(c.j)] * kRows - c.ks * kKS);
@@ -1768,7 +1782,12 @@ wgrad_kernel(const T* __restrict__ gy, const T* __restrict__ y,
 // tensor cores over whole items gave 17x the error of its 1e-4 gate,
 // PERF.md); bf16 keeps the block's sums in the tensor cores' f32
 // accumulators over all its items (held at its 0.02 * max|ref| gate, the
-// same bits every run), which frees the registers for two blocks an SM.
+// same bits every run), which frees the registers for two blocks an SM, at
+// one m64 tile a warpgroup (K <= 15) and at two (K <= 31: 64 accumulator
+// registers a thread).  At the trajectory's short K-31 rows a block's items
+// are a serial chain (copy wait, x's and g's builds, the refill's issue,
+// products: a third of it, PERF.md), so a second block on the SM runs its
+// chain beside the first's.
 // An item's stage takes the copies of the item kSpanStages on as soon as
 // its last chunk is built.  The partial tiles are summed in rank order
 // (wgrad_reduce): the same bits every run.
@@ -1895,7 +1914,7 @@ __device__ __forceinline__ void wgmma_rs_bf16(float (&d)[32], const uint32_t (&a
 // batch's span output columns (x_map unread; nbb 1).  The two forms are
 // instantiations apart: the loop's code of one stays as small as it was.
 template <int NT, typename T, bool kRowsMode>
-__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 && NT == 1 ? 2 : 1)
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
 wgrad_span_kernel(const __grid_constant__ CUtensorMap gy_map,
                   const __grid_constant__ CUtensorMap y_map,
                   const __grid_constant__ CUtensorMap x_map, const T* __restrict__ gy,
@@ -2448,6 +2467,28 @@ int dgrad_spans(bool (&ready)[kMaxDevices], int device, dim3 grid, int split, si
       nspans, nbb, gpw));
 }
 
+// The most clusters of `split` dgrad_span_kernel<T> blocks of `smem` bytes
+// that the current device runs at once (cudaOccupancyMaxActiveClusters): a
+// cluster's blocks share a GPC, so clusters of 4 or 6 one-SM blocks leave
+// SMs idle and fewer than sms / split fit (PERF.md).
+template <typename T>
+int span_clusters(bool (&ready)[kMaxDevices], int device, int split, size_t smem, int* out) {
+  cudaError_t err = allow_smem(dgrad_span_kernel<T>, ready, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1, 1, split);
+  cfg.blockDim = dim3(kSpanThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = split;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, dgrad_span_kernel<T>, &cfg));
+}
+
 // One dgrad_span_pack_kernel launch in element type T.
 template <typename T>
 int span_pack(const void* w, const void* span_row, const void* span_group, void* out,
@@ -2508,7 +2549,8 @@ extern "C" {
 // every pointer 16-byte aligned; dgrad_start / dgrad_row: the row tiles live
 // in either chunk of each pair of 8-channel chunks (pack_structure).  The
 // plan (dgrad_plan in the wrapper): batch groups of nbb batches within a
-// window, the row tiles split over `split` blocks of a cluster; span = 0
+// window, the row tiles (dgrad_span_kernel: a group's stages, contiguous
+// runs) split over `split` blocks of a cluster; span = 0
 // for whole padded rows (dgrad_kernel), else dgrad_span_kernel (span a
 // multiple of 64*stride, at most kSpanWG M tiles of 64 columns) over
 // whole padded rows of nbb batches a span where they fit its M tiles
@@ -2685,6 +2727,20 @@ int hmvae_conv_wgrad(const void* gy, const void* y, const void* x, const void* w
                               : nq == 3 ? wgrad_rows<3, float> : wgrad_rows<4, float>);
   return launch(ready[sel], device, grid, split, smem, stream, gy, y, x, wrow, wchunk, gw, gb,
                 n_win, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, slope, sb);
+}
+
+// The most clusters of `split` (1 to kMaxSplit) dgrad_span_kernel blocks of
+// span `span` at K, stride, f32 (dtype 0) or bf16 (dtype 1), that `device`
+// (current) runs at once, into *out; returns the first CUDA error.
+int hmvae_dgrad_span_clusters(int K, int stride, int span, int split, int dtype, int device,
+                              int* out) {
+  if (K < 1 || K > kMaxK || stride < 1 || span < 1 || split < 1 || split > kMaxSplit ||
+      dtype < 0 || dtype > 1 || device < 0 || device >= kMaxDevices || out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool ready[2][kMaxDevices] = {};
+  const size_t smem = dgrad_span_layout(K, stride, span, dtype == 1 ? 2 : 4).total;
+  return dtype == 1 ? span_clusters<__nv_bfloat16>(ready[1], device, split, smem, out)
+                    : span_clusters<float>(ready[0], device, split, smem, out);
 }
 
 // The plans of the last launches (see last_dgrad, last_wgrad): dgrad's eight

@@ -61,7 +61,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -118,6 +118,18 @@ WGRAD_SPAN_STAGES = 2  # items whose copies are in flight
 WGRAD_ROWS_MIN_BATCH = 64
 WGRAD_ROWS_K = 15
 WGRAD_ROWS_MAX_T = 64
+# the trajectory model's short K-31 rows (traj_rows: K 31, stride 1,
+# padding 15, fewer than DGRAD_ROWS_MIN_BATCH batches a window, frames a row
+# within TRAJ_ROWS_T, so that a padded row fits a span and an output row one
+# item): a level has few live row tiles against the card's SMs, so
+# dgrad_span_plan counts their split in stages.  wgrad_plan routes them to
+# items, dgrad_plan to spans from DGRAD_TRAJ_MIN_BATCH batches on: the card
+# timed those faster than the whole-row kernels over batches 1-63 and T
+# 64-128 in f32 and bf16, but bf16 dgrad at 1 and 2 batches (PERF.md)
+TRAJ_ROWS_K = 31
+TRAJ_ROWS_PADDING = 15
+TRAJ_ROWS_T = (64, 128)
+DGRAD_TRAJ_MIN_BATCH = 4
 
 
 def fused_conv_pool_reference(
@@ -634,6 +646,24 @@ def _sm_count(device: int) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+@functools.lru_cache(maxsize=None)
+def span_clusters(device: int, K: int, stride: int, esz: int = 4) -> Tuple[int, ...]:
+    """The most clusters of 1 to ``MAX_SPLIT`` blocks of ``dgrad_span_kernel``
+    (its widest span at K and stride, elements of ``esz`` bytes) that CUDA
+    device ``device`` runs at once (``cudaOccupancyMaxActiveClusters``), by
+    split: :func:`dgrad_span_plan`'s waves where it splits a group's stages."""
+    lib = _bwd_library()[0]
+    fn = _bind(lib, "hmvae_dgrad_span_clusters", [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    span, dtype, out = dgrad_span_cols(K, stride, esz), int(esz == 2), []
+    with torch.cuda.device(device):
+        for split in range(1, MAX_SPLIT + 1):
+            n = ctypes.c_int(0)
+            _build.check(lib, fn(K, stride, span, split, dtype, device, ctypes.byref(n)),
+                         "span_clusters")
+            out.append(n.value)
+    return tuple(out)
+
+
 def _check(name: str, t: Optional[torch.Tensor], x: torch.Tensor, shape) -> None:
     if t is None:
         return
@@ -947,7 +977,9 @@ def last_forward_plan() -> dict:
 class DgradPlan(NamedTuple):
     """dgrad's launch: ``nbb`` batches a block, ``groups`` batch groups a
     window, ``split`` blocks of a cluster, and ``span``: 0 for whole padded
-    rows, else the padded columns of a block's span of one batch's row."""
+    rows (``dgrad_kernel``), else the padded columns of a span
+    (``dgrad_span_kernel``: whole padded rows of ``nbb`` batches, or a span
+    of one batch's row)."""
     nbb: int
     groups: int
     split: int
@@ -982,21 +1014,23 @@ def dgrad_whole_rows(T_in: int, K: int, stride: int, padding: int, t_ld: int,
 
 def dgrad_plan(B: int, T_in: int, K: int, stride: int, padding: int, t_ld: int,
                pairs: int, max_live: int, sms: int, windows: int = 1,
-               span_groups: Optional[Tuple[int, int]] = None, esz: int = 4) -> DgradPlan:
+               span_groups: Optional[Tuple[int, int]] = None, esz: int = 4,
+               clusters: Optional[Callable[[], Tuple[int, ...]]] = None) -> DgradPlan:
     """The dgrad kernel's :class:`DgradPlan`: whole padded rows that fit a
     block take :func:`dgrad_whole_plan`.  A padded row that one batch's
     block cannot hold (more than 256 / stride columns, or beyond shared
-    memory) is cut into spans, and the short rows of a large batch of one
-    window (:func:`dgrad_rows_routed`) take spans of several batches' whole
-    rows: :func:`dgrad_span_plan` over ``span_groups``, the groups of
+    memory) is cut into spans, and the short rows of one window that
+    :func:`dgrad_rows_routed` takes (a large batch's; the trajectory's short
+    K-31 rows) take spans of whole rows, one or more batches' a span:
+    :func:`dgrad_span_plan` over ``span_groups``, the groups of
     ``DGRAD_SPAN_CHANNELS`` channels and their most live row tiles (by
     default half the pairs and their most).  ``esz``: the element's bytes
-    (4: f32, 2: bf16)."""
+    (4: f32, 2: bf16); ``clusters``: :func:`dgrad_span_plan`'s."""
     if not dgrad_whole_rows(T_in, K, stride, padding, t_ld, esz) or (
             windows == 1 and dgrad_rows_routed(B, T_in, K, stride, padding, esz)):
         groups, group_live = span_groups or (-(-pairs // 2), max_live)
         return dgrad_span_plan(B, T_in, K, stride, padding, groups, group_live, sms, windows,
-                               esz)
+                               esz, clusters)
     return dgrad_whole_plan(B, T_in, K, stride, padding, t_ld, pairs, max_live, sms, windows,
                             esz)
 
@@ -1035,7 +1069,8 @@ def dgrad_whole_plan(B: int, T_in: int, K: int, stride: int, padding: int, t_ld:
 
 
 def dgrad_span_plan(B: int, T_in: int, K: int, stride: int, padding: int, groups: int,
-                    max_live: int, sms: int, windows: int = 1, esz: int = 4) -> DgradPlan:
+                    max_live: int, sms: int, windows: int = 1, esz: int = 4,
+                    clusters: Optional[Callable[[], Tuple[int, ...]]] = None) -> DgradPlan:
     """``dgrad_span_kernel``'s :class:`DgradPlan` at any length, in elements
     of ``esz`` bytes: a block owns one of ``groups`` groups of
     ``DGRAD_SPAN_CHANNELS`` channels and a span of :func:`dgrad_span_cols`
@@ -1044,9 +1079,16 @@ def dgrad_span_plan(B: int, T_in: int, K: int, stride: int, padding: int, groups
     (:func:`dgrad_span_rows`), spread evenly over ``groups`` batch groups a
     window; else a block owns one batch and its padded row is cut into
     spans (the first narrower by :func:`dgrad_span_shift`).  ``split``
-    blocks of a cluster share a group's live row tiles (at most
-    ``max_live``), chosen as :func:`dgrad_plan` chooses it (a block takes an
-    SM)."""
+    blocks of a cluster share a group's stages (its live row tiles, at most
+    ``max_live``, a k-step each), a contiguous run a block, the split chosen
+    as :func:`dgrad_plan` chooses it (a block takes an SM), counted in row
+    tiles up to ``max_live`` blocks; or, at the trajectory's short rows of
+    one window (:func:`traj_rows`, whose few row tiles leave most SMs idle),
+    counted in stages up to ``MAX_SPLIT`` blocks, a row tile's stages for
+    the prologue and epilogue, the waves counted in clusters:
+    ``clusters()[split - 1]`` of them run at once (``clusters``: the
+    device's :func:`span_clusters`, asked only there; by default sms //
+    split)."""
     span = dgrad_span_cols(K, stride, esz)
     per = dgrad_span_rows(T_in, K, stride, padding, span)
     if per:
@@ -1057,10 +1099,17 @@ def dgrad_span_plan(B: int, T_in: int, K: int, stride: int, padding: int, groups
             raise ValueError(f"a dgrad span of {span} columns cannot hold both columns of the "
                              f"reflected pairs of padding {padding}")
         nbb, bgroups, units = 1, B, B * -(-(T_in + 2 * padding) // span)
+    # the work of a group's block counted in row tiles, or in stages
+    by_stages = windows == 1 and traj_rows(B, T_in, K, stride, padding)
+    fits = clusters() if by_stages and clusters else None
+    tile = ROWS // DGRAD_SPAN_KSTEP[esz] if by_stages else 1
+    work, most = max(1, max_live) * tile, MAX_SPLIT if by_stages else max(1, max_live)
     best = None
-    for split in range(1, min(MAX_SPLIT, max(1, max_live)) + 1):
+    for split in range(1, min(MAX_SPLIT, most) + 1):
         blocks = groups * windows * units * split
-        cost = (-(-blocks // sms) * (-(-max_live // split) + 1), blocks)
+        waves = -(-blocks // sms) if not by_stages else -(-(groups * windows * units) // max(
+            1, fits[split - 1] if fits else sms // split))
+        cost = (waves * (-(-work // split) + tile), blocks)
         if best is None or cost < best[0]:
             best = (cost, DgradPlan(nbb, bgroups, split, span))
     return best[1]
@@ -1083,16 +1132,28 @@ def dgrad_span_rows(T_in: int, K: int, stride: int, padding: int, span: int) -> 
     return span // stride // dgrad_span_period(T_in, K, stride, padding)
 
 
+def traj_rows(B: int, T_in: int, K: int, stride: int, padding: int) -> bool:
+    """Whether a window's rows are the trajectory model's short K-31 rows:
+    K ``TRAJ_ROWS_K``, stride 1, padding ``TRAJ_ROWS_PADDING``, fewer than
+    ``DGRAD_ROWS_MIN_BATCH`` batches, frames within ``TRAJ_ROWS_T`` (a
+    padded row fits a span, an output row one item)."""
+    return (K == TRAJ_ROWS_K and stride == 1 and padding == TRAJ_ROWS_PADDING
+            and B < DGRAD_ROWS_MIN_BATCH and TRAJ_ROWS_T[0] <= T_in <= TRAJ_ROWS_T[1])
+
+
 def dgrad_rows_routed(B: int, T_in: int, K: int, stride: int, padding: int,
                       esz: int = 4) -> bool:
     """Whether :func:`dgrad_plan` gives whole rows that fit a whole-row
-    block to the span kernel (several batches' padded rows a span): only at
-    the shapes where the card timed it faster than ``dgrad_kernel`` (K
-    ``DGRAD_ROWS_K``, rows of at most ``DGRAD_ROWS_MAX_T`` frames, from
-    ``DGRAD_ROWS_MIN_BATCH`` batches a window on; PERF.md), and only where
-    a span holds a row."""
-    return (B >= DGRAD_ROWS_MIN_BATCH and K == DGRAD_ROWS_K and T_in <= DGRAD_ROWS_MAX_T
-            and dgrad_span_rows(T_in, K, stride, padding, dgrad_span_cols(K, stride, esz)) > 0)
+    block to the span kernel (whole padded rows of one or more batches a
+    span): only at the shapes where the card timed it faster than
+    ``dgrad_kernel`` (K ``DGRAD_ROWS_K``, rows of at most
+    ``DGRAD_ROWS_MAX_T`` frames, from ``DGRAD_ROWS_MIN_BATCH`` batches a
+    window on; and the trajectory's short K-31 rows, :func:`traj_rows`,
+    from ``DGRAD_TRAJ_MIN_BATCH`` batches on; PERF.md), and only where a
+    span holds a row."""
+    return ((B >= DGRAD_ROWS_MIN_BATCH and K == DGRAD_ROWS_K and T_in <= DGRAD_ROWS_MAX_T)
+            or (traj_rows(B, T_in, K, stride, padding) and B >= DGRAD_TRAJ_MIN_BATCH)) and \
+        dgrad_span_rows(T_in, K, stride, padding, dgrad_span_cols(K, stride, esz)) > 0
 
 
 def _dgrad_smem(T_in: int, K: int, t_ld: int, stride: int, padding: int, nbb: int,
@@ -1257,11 +1318,12 @@ def wgrad_span_rows(B: int, T_in: int, K: int, stride: int, padding: int, esz: i
 def wgrad_items_per_sm(K: int, stride: int, cols: int = WGRAD_SPAN_COLS, esz: int = 4,
                        nbb: int = 1, T_in: int = 0, T_out: int = 0, t_ld: int = 0) -> int:
     """Blocks of the item kernel an SM holds (its arguments are
-    :func:`_wgrad_span_smem`'s): two in bf16 at K <= 15 (one m64 tile a
-    warpgroup: its launch bounds leave registers for two) where the block's
-    shared memory fits half an SM, else one."""
+    :func:`_wgrad_span_smem`'s): two in bf16 (its sums stay in the
+    accumulators, so its launch bounds leave registers for two at one or
+    two m64 tiles a warpgroup) where the block's shared memory fits half an
+    SM, else one."""
     smem = _wgrad_span_smem(K, stride, cols, esz, nbb, T_in, T_out, t_ld)
-    return 2 if esz == 2 and (K + 1) * 8 <= 128 and smem <= MAX_SMEM_PER_SM // 2 - 1024 else 1
+    return 2 if esz == 2 and smem <= MAX_SMEM_PER_SM // 2 - 1024 else 1
 
 
 def wgrad_rows_routed(B: int, T_in: int, K: int, stride: int, padding: int,
@@ -1276,6 +1338,29 @@ def wgrad_rows_routed(B: int, T_in: int, K: int, stride: int, padding: int,
     return (B >= WGRAD_ROWS_MIN_BATCH and K == WGRAD_ROWS_K and T_in <= WGRAD_ROWS_MAX_T
             and wgrad_span_rows(B, T_in, K, stride, padding, esz,
                                 wgrad_span_cols(K, stride, esz)) > 1)
+
+
+def wgrad_items_routed(B: int, T_in: int, K: int, stride: int, padding: int,
+                       esz: int = 4) -> bool:
+    """Whether :func:`wgrad_plan` gives rows that fit a whole-row block to
+    the item kernel's items of one batch's columns: the trajectory's short
+    K-31 rows (:func:`traj_rows`), and in bf16 (``esz`` 2) rows too long for
+    an f32 whole-row block, which f32 runs as items (the stride-2 level enc1
+    at (8, 1,024)); where the card timed items faster (PERF.md)."""
+    T_out = (T_in + 2 * padding - K) // stride + 1
+    return traj_rows(B, T_in, K, stride, padding) or (
+        esz == 2 and not wgrad_whole_rows(B, T_in, K, T_out, -(-T_out // 4) * 4, stride))
+
+
+def wgrad_routed_rows(B: int, T_in: int, K: int, stride: int, padding: int, esz: int = 4,
+                      cols: int = WGRAD_SPAN_COLS) -> int:
+    """The ``rows`` that :func:`wgrad_plan` takes for one window's call: the
+    batches an item holds where it routes whole rows to items of several
+    batches' rows (:func:`wgrad_rows_routed`), 1 where it routes them to
+    items of one batch's columns (:func:`wgrad_items_routed`), else 0."""
+    if wgrad_rows_routed(B, T_in, K, stride, padding, esz):
+        return wgrad_span_rows(B, T_in, K, stride, padding, esz, cols)
+    return int(wgrad_items_routed(B, T_in, K, stride, padding, esz))
 
 
 def wgrad_span_plan(B: int, T_out: int, entries: int, sms: int, windows: int = 1,
@@ -1309,12 +1394,12 @@ def wgrad_plan(B: int, T_out: int, entries: int, sms: int, windows: int = 1,
                smem=None, span_cols: int = WGRAD_SPAN_COLS, rows: int = 0,
                per_sm: int = 1) -> WgradPlan:
     """The wgrad kernel's :class:`WgradPlan`: where the call is routed to
-    items of several batches' whole rows (``rows``, the batches an item
-    holds, from :func:`wgrad_span_rows` where :func:`wgrad_rows_routed`;
-    one window), :func:`wgrad_span_plan` over them; else
-    :func:`wgrad_whole_plan`.  ``per_sm``: the item kernel's blocks an SM
+    the item kernel (``rows``: :func:`wgrad_routed_rows`, the batches an
+    item holds, 1 for items of one batch's columns; one window),
+    :func:`wgrad_span_plan` over them; else :func:`wgrad_whole_plan`.
+    ``per_sm``: the item kernel's blocks an SM
     (:func:`wgrad_items_per_sm`)."""
-    if rows > 1 and windows == 1:
+    if rows and windows == 1:
         return wgrad_span_plan(B, T_out, entries, sms, 1, span_cols, rows, per_sm)
     return wgrad_whole_plan(B, T_out, entries, sms, windows, smem, span_cols, per_sm)
 
@@ -1408,7 +1493,8 @@ def _dgrad(gy, y, weight, s: LevelStructure, T_in: int, windows: Optional[int],
     plan = plan or dgrad_plan(
         B // G, T_in, K, s.stride, s.padding, t_ld, s.dgrad_start.numel() - 1,
         s.dgrad_max_live, _sm_count(dev), G,
-        (s.dgrad_span_start.numel() - 1, s.dgrad_span_max_live), esz)
+        (s.dgrad_span_start.numel() - 1, s.dgrad_span_max_live), esz,
+        functools.partial(span_clusters, dev, K, s.stride, esz))
     lib, dgrad = _bwd_library()[:2]
     gx = torch.empty((B, C, T_in), dtype=gy.dtype, device=gy.device)
     # spans read the weight laid out in planes (f32: split into TF32), once
@@ -1454,9 +1540,8 @@ def _wgrad(gy, y, x, s: LevelStructure, windows: Optional[int],
     entries = s.wgrad_row.numel()
     if plan is None:
         cols = wgrad_span_cols(K, s.stride, esz)
-        rows = (wgrad_span_rows(B, T_in, K, s.stride, s.padding, esz, cols)
-                if windows is None and wgrad_rows_routed(B, T_in, K, s.stride, s.padding, esz)
-                else 0)
+        rows = (wgrad_routed_rows(B, T_in, K, s.stride, s.padding, esz, cols)
+                if windows is None else 0)
         plan = wgrad_plan(
             B // G, T_out, entries, _sm_count(dev), G,
             lambda sb, split: _wgrad_smem(B // G, T_in, K, T_out, t_ld, s.stride, sb, split,

@@ -3,7 +3,8 @@ the kernel (run from the repo root on a GPU):
 
     python3 kernel_trace.py [--kernel fwd|dgrad|wgrad|wgrad_span|dgrad_span]
                             [--variant base|nobuild|nomma|noxb] [--levels enc0,dec0]
-                            [--batch N] [--dtype float32|bfloat16] [--source FILE]
+                            [--batch N | --rows BxT[,BxT]] [--dtype float32|bfloat16]
+                            [--source FILE]
 
 Builds a copy of the kernel's source (``hm_vae_torch/csrc/fused_conv_pool.cu``
 for ``fwd``, ``fused_conv_pool_bwd.cu`` for ``dgrad`` and ``wgrad``) with
@@ -17,7 +18,21 @@ the epilogue (its reduction, then the stores).  The forward runs at batch 8
 and 237 in bf16 and f32; the backward at batch 8 in f32, on the operands
 ``chip_smoke.py`` gives it (``--batch`` and ``--dtype`` choose another batch
 and the element type of a backward kernel: the production batch of 64, bf16
-as under ``compute_dtype: bfloat16``).
+as under ``compute_dtype: bfloat16``).  ``--kernel dgrad`` and ``wgrad``
+trace the whole-row kernels (``dgrad_kernel``, ``wgrad_kernel``) under their
+whole-row plans, also at shapes that the wrapper routes to the span kernels.
+
+``--rows BxT[,BxT]`` runs any backward kernel at the trajectory model's four
+K-31 levels (C_in 72 / 84 / 108 / 168, stride 1, padding 15) at batch B and
+T frames a row instead: training's ``8x128``, the solve's trajectory term
+``10x64``; each kernel under its own plan (``dgrad_span`` and
+``wgrad_span``: ``dgrad_span_plan``, its split counted in stages as the
+wrapper plans these rows, ``wgrad_span_plan``), whether or not the wrapper
+routes the shape to it, each row with its error against the plain version.
+A ``--source`` whose span kernel splits a group's row tiles over a
+cluster's ranks (``ROW_TILE_SPLIT``), or whose bf16 item kernel takes one
+block an SM at K 31 (``ITEMS_ONE_BF16_K31``), is planned as it was then:
+the split counted in row tiles, one item block an SM.
 
 ``--variant nobuild`` skips the forward's im2col build and ``nomma`` its
 wgmma; for ``--kernel wgrad``, ``nomma`` skips its products and ``noxb``
@@ -61,6 +76,7 @@ from __future__ import annotations
 import argparse
 import copy
 import ctypes
+import hashlib
 import json
 import os
 import subprocess
@@ -81,6 +97,12 @@ FOLD_KERNEL = "__global__ void dgrad_fold_kernel("
 # the span kernel that stages items of 64 output columns alone, read from
 # device memory without bulk copies (its layout's signature)
 ITEMS64 = "  const WgradSpanLayout L = wgrad_span_layout(K, stride);\n"
+# a span kernel whose cluster ranks take interleaved live row tiles (before
+# the contiguous runs of stages), planned over row tiles
+ROW_TILE_SPLIT = "  auto entry = [&](int j) { return first + rank + j * split; };\n"
+# an item kernel whose bf16 form takes two blocks an SM only at one m64 tile
+# a warpgroup (K <= 15)
+ITEMS_ONE_BF16_K31 = "__launch_bounds__(kThreads, sizeof(T) == 2 && NT == 1 ? 2 : 1)"
 # the item kernel's layout line: items of several batches' rows in f32 and
 # bf16, or (an older source) items of one batch's columns in f32
 SPAN_LAYOUTS = ("  const WgradSpanLayout L =\n      wgrad_span_layout(K, stride, span, sizeof(T), nbb, "
@@ -358,12 +380,20 @@ def build(variant: str, kernel: str, source=None) -> ctypes.CDLL:
 
     os.makedirs(OUT, exist_ok=True)
     tag = f"{kernel}_{variant}" + ("_source" if source else "")
-    src = os.path.join(OUT, f"{tag}.cu")
-    with open(src, "w") as f:
-        f.write(patched_source(variant, kernel, source))
-    lib = os.path.join(OUT, f"libtrace_{tag}.so")
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR), "-o", lib,
-                    src], check=True)
+    text = patched_source(variant, kernel, source)
+    # the library's name carries a hash of the patched source, the headers it
+    # includes and the flags; it is renamed into place only once nvcc succeeds
+    headers = b"".join(p.read_bytes() for p in sorted(_build.CSRC_DIR.glob("*.h")))
+    digest = hashlib.sha256(text.encode() + headers + " ".join(_build.NVCC_FLAGS).encode())
+    lib = os.path.join(OUT, f"libtrace_{tag}-{digest.hexdigest()[:16]}.so")
+    if not os.path.exists(lib):
+        src = os.path.join(OUT, f"{tag}.cu")
+        with open(src, "w") as f:
+            f.write(text)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR), "-o",
+                        tmp, src], check=True)
+        os.replace(tmp, lib)
     lib = ctypes.CDLL(lib)
     lib.hmvae_trace_copy.argtypes = [ctypes.c_void_p]  # a 64-bit host pointer
     lib.hmvae_error_string.argtypes = [ctypes.c_int]
@@ -441,16 +471,32 @@ def _items64_plan(fcp, B, T_out, entries, sms):
     return fcp.WgradPlan(1, max(1, min(fcp.MAX_SPLIT, items, -(-2 * sms // max(1, entries)))), 64)
 
 
+def trajectory_cases(gen, shapes):
+    """(name, conv, batch, T) of the trajectory model's four K-31 levels at
+    each (batch, T) of ``shapes`` (seeded random weights, on the card)."""
+    import chip_smoke
+    from hm_vae_torch.models.trajectory import TrajectoryModel
+    from hm_vae_torch.utils.config import load_config
+
+    tcfg = load_config(chip_smoke.TRAJ_CONFIG)
+    tmodel = TrajectoryModel(tcfg.model, tcfg.optim.init, generator=gen).to("cuda")
+    return [(f"traj{i}", getattr(tmodel.encoder, f"conv_{i}"), b, T)
+            for b, T in shapes for i in range(4)]
+
+
 def trace_span(lib, buf, items64: bool, batch=None, dtype=torch.float32, rows=True,
-               variant="base") -> None:
+               variant="base", shapes=None, one_bf16_k31=False) -> None:
     """The wgrad item kernel in ``dtype`` at the trajectory model's four
     levels, batch 8, T 1,024 and batch 1, T 7,200, under its plan; or,
     where ``batch`` is given, at the len-64 model's eight levels at that
     batch under the item kernel's plan (``wgrad_span_plan``: items of
     several batches' whole rows, ``wgrad_span_rows``, where ``rows`` and
     the source has them, else of one batch's columns), whether or not
-    ``wgrad_plan`` routes the shape there: one JSON line a level, with its
-    error against the plain version."""
+    ``wgrad_plan`` routes the shape there; or, where ``shapes`` is given,
+    at the trajectory model's levels at each (batch, T) of it, under the
+    same plan (one block an SM at two m64 tiles a warpgroup where
+    ``one_bf16_k31``, as a source whose bf16 form took one was planned): one
+    JSON line a level, with its error against the plain version."""
     import chip_smoke
     from hm_vae_torch.models.hm_vae import HMVAE
     from hm_vae_torch.models.structure import get_structure
@@ -459,7 +505,9 @@ def trace_span(lib, buf, items64: bool, batch=None, dtype=torch.float32, rows=Tr
     from hm_vae_torch.utils.config import load_config
 
     gen = torch.Generator().manual_seed(chip_smoke.SEED)
-    if batch is None:
+    if shapes:
+        cases = trajectory_cases(gen, shapes)
+    elif batch is None:
         tcfg = load_config(chip_smoke.TRAJ_CONFIG)
         tmodel = TrajectoryModel(tcfg.model, tcfg.optim.init, generator=gen).to("cuda")
         cases = [(f"traj{i}", getattr(tmodel.encoder, f"conv_{i}"), b, T)
@@ -475,12 +523,13 @@ def trace_span(lib, buf, items64: bool, batch=None, dtype=torch.float32, rows=Tr
         T_out, entries, esz = y.shape[2], s.wgrad_row.numel(), gy.element_size()
         cols = fcp.wgrad_span_cols(s.kernel_size, s.stride, esz)
         nbb = (fcp.wgrad_span_rows(b, T, s.kernel_size, s.stride, s.padding, esz, cols)
-               if batch is not None and rows else 0)
+               if (batch is not None or shapes) and rows else 0)
         t_ld = -(-T_out // (16 // esz)) * (16 // esz)
+        per_sm = (1 if one_bf16_k31 and (s.kernel_size + 1) * 8 > 128 else
+                  fcp.wgrad_items_per_sm(s.kernel_size, s.stride, cols, esz, max(1, nbb), T,
+                                         T_out, t_ld))
         plan = (_items64_plan(fcp, b, T_out, entries, sms) if items64 else
-                fcp.wgrad_span_plan(b, T_out, entries, sms, 1, cols, max(1, nbb),
-                                    fcp.wgrad_items_per_sm(s.kernel_size, s.stride, cols, esz,
-                                                           max(1, nbb), T, T_out, t_ld)))
+                fcp.wgrad_span_plan(b, T_out, entries, sms, 1, cols, max(1, nbb), per_sm))
         launch = lambda: fcp._wgrad(gy, y, x, s, None, plan)  # noqa: E731
         ref = fcp.fused_conv_pool_wgrad_reference(gy, y, x, s.kernel_size, s.stride, s.padding,
                                                   "reflect" if s.reflect else "constant",
@@ -547,15 +596,31 @@ def _parent_span_launch(lib, fcp, s, wf, gy, y, T_in):
     return gx[:, :wf.shape[1]]
 
 
-def trace_dgrad_span(lib, buf, parent: bool, batch=None, dtype=torch.float32) -> None:
+def _row_tiles_plan(fcp, plan, s, sms):
+    """``plan`` (``dgrad_span_plan``'s at the trajectory's short rows) as a
+    source whose cluster ranks took interleaved row tiles planned it: the
+    split over a group's live row tiles, counted in row tiles (waves of one
+    block an SM times the row tiles a block walks, plus one)."""
+    groups, live = s.dgrad_span_start.numel() - 1, max(1, s.dgrad_span_max_live)
+    split = min(range(1, min(fcp.MAX_SPLIT, live) + 1),
+                key=lambda k: (-(-groups * plan.groups * k // sms) * (-(-live // k) + 1), k))
+    return plan._replace(split=split)
+
+
+def trace_dgrad_span(lib, buf, parent: bool, batch=None, dtype=torch.float32,
+                     shapes=None, row_tiles=False) -> None:
     """The dgrad span kernel (or, ``parent``, the span mode of a source from
     before it) in ``dtype`` at the trajectory model's four levels, batch 8,
     T 1,024 and batch 1, T 7,200, and at enc1, batch 8, T 1,024; or, where
     ``batch`` is given, at the len-64 model's eight levels at that batch
     under the span kernel's plan (``dgrad_span_plan``, whether or not
-    ``dgrad_plan`` routes the shape there): one JSON line a level, with its
-    error against the plain version and the packing's device time (in the
-    wrapper's launch, outside the kernel)."""
+    ``dgrad_plan`` routes the shape there), or, where ``shapes`` is given,
+    at the trajectory model's levels at each (batch, T) of it under the
+    span kernel's plan (its split counted in stages; counted in row tiles
+    where ``row_tiles``, as a source whose ranks took row tiles planned
+    it): one JSON line a level, with its error against the plain
+    version and the packing's device time (in the wrapper's launch, outside
+    the kernel)."""
     import chip_smoke
     from hm_vae_torch.models.hm_vae import HMVAE
     from hm_vae_torch.models.structure import get_structure
@@ -568,7 +633,9 @@ def trace_dgrad_span(lib, buf, parent: bool, batch=None, dtype=torch.float32) ->
     tmodel = TrajectoryModel(tcfg.model, tcfg.optim.init, generator=gen).to("cuda")
     cfg = load_config(chip_smoke.CONFIG)
     model = HMVAE(cfg.model, cfg.optim.init, generator=gen).to("cuda")
-    if batch is None:
+    if shapes:
+        cases = trajectory_cases(gen, shapes)
+    elif batch is None:
         cases = [(f"traj{i}", getattr(tmodel.encoder, f"conv_{i}"), b, T)
                  for b, T in ((8, 1024), (1, 7200)) for i in range(4)]
         cases.append(("enc1", model.encoder.conv_1, 8, 1024))
@@ -578,9 +645,13 @@ def trace_dgrad_span(lib, buf, parent: bool, batch=None, dtype=torch.float32) ->
     esz = torch.empty((), dtype=dtype).element_size()
     for name, conv, b, T in cases:
         s, wf, bf, x, y, gy = chip_smoke.bwd_inputs(conv, T, gen, b, dtype)
-        plan = None if batch is None or parent else fcp.dgrad_span_plan(
+        dev = torch.cuda.current_device()
+        plan = None if (batch is None and not shapes) or parent else fcp.dgrad_span_plan(
             b, T, s.kernel_size, s.stride, s.padding, s.dgrad_span_start.numel() - 1,
-            s.dgrad_span_max_live, fcp._sm_count(torch.cuda.current_device()), 1, esz)
+            s.dgrad_span_max_live, fcp._sm_count(dev), 1, esz,
+            None if row_tiles else lambda: fcp.span_clusters(dev, s.kernel_size, s.stride, esz))
+        if plan and row_tiles and fcp.traj_rows(b, T, s.kernel_size, s.stride, s.padding):
+            plan = _row_tiles_plan(fcp, plan, s, fcp._sm_count(dev))
         if parent:
             launch = lambda: _parent_span_launch(lib, fcp, s, wf, gy, y, T)  # noqa: E731
         else:
@@ -613,14 +684,24 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=None,
                     help="dgrad / wgrad: the batch (default 8); dgrad_span / wgrad_span: the "
                          "len-64 levels at this batch in place of the long rows")
+    ap.add_argument("--rows", default=None,
+                    help="BxT[,BxT]: the backward kernels at the trajectory model's four K-31 "
+                         "levels at batch B and T frames (training 8x128, the solve 10x64)")
     ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
                     help="the element type of the backward kernels (default float32)")
     args = ap.parse_args()
     dtype = getattr(torch, args.dtype)
     if dtype != torch.float32 and args.kernel == "fwd":
         raise SystemExit("--dtype is for the backward kernels (the forward runs both)")
+    shapes = [tuple(int(v) for v in r.split("x")) for r in args.rows.split(",")] \
+        if args.rows else None
+    if shapes and (args.kernel == "fwd" or args.batch):
+        raise SystemExit("--rows is for the backward kernels, in place of --batch")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_trace.py needs a GPU")
+    # the plain versions that max_abs_err reads, in full f32 (no TF32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     import chip_smoke
     from hm_vae_torch.models.hm_vae import HMVAE
@@ -639,15 +720,16 @@ def main() -> None:
                                     fcp._bind(lib, "hmvae_dgrad_span_pack", fcp.PACK_ARGTYPES))
     if args.kernel == "dgrad_span":
         with open(args.source or os.path.join(_build.CSRC_DIR, "fused_conv_pool_bwd.cu")) as f:
-            trace_dgrad_span(lib, np.zeros(BLOCKS * SLOTS, dtype=np.uint64),
-                             FOLD_KERNEL in f.read(), args.batch, dtype)
+            src = f.read()
+        trace_dgrad_span(lib, np.zeros(BLOCKS * SLOTS, dtype=np.uint64), FOLD_KERNEL in src,
+                         args.batch, dtype, shapes, ROW_TILE_SPLIT in src)
         print(chip_smoke.nvidia_smi(), flush=True)
         return
     if args.kernel == "wgrad_span":
         with open(args.source or os.path.join(_build.CSRC_DIR, "fused_conv_pool_bwd.cu")) as f:
             src = f.read()
         trace_span(lib, np.zeros(BLOCKS * SLOTS, dtype=np.uint64), ITEMS64 in src, args.batch,
-                   dtype, SPAN_LAYOUTS[0] in src, args.variant)
+                   dtype, SPAN_LAYOUTS[0] in src, args.variant, shapes, ITEMS_ONE_BF16_K31 in src)
         print(chip_smoke.nvidia_smi(), flush=True)
         return
     levels = args.levels or ("enc0,enc3,dec0,dec3" if args.kernel == "fwd" else
@@ -658,11 +740,14 @@ def main() -> None:
     gen = torch.Generator().manual_seed(chip_smoke.SEED)
     model = HMVAE(cfg.model, cfg.optim.init, generator=gen).to("cuda")
     buf = np.zeros(BLOCKS * SLOTS, dtype=np.uint64)
-    cases = [c for c in chip_smoke.level_cases(model, st) if c[0] in levels.split(",")]
+    cases = [(n, c, args.batch or chip_smoke.BATCH, T)
+             for n, c, T in chip_smoke.level_cases(model, st) if n in levels.split(",")]
+    if shapes:
+        cases = trajectory_cases(gen, shapes)
     if args.kernel == "fwd":
         for dtype in (torch.bfloat16, torch.float32):
             for batch in (chip_smoke.BATCH, chip_smoke.VIBE_BATCH):
-                for name, conv, T_in in cases:
+                for name, conv, _, T_in in cases:
                     conv = copy.deepcopy(conv)
                     conv.dtype = dtype
                     packed = conv.packed_operands()
@@ -673,17 +758,30 @@ def main() -> None:
                                       "batch": batch, "dtype": str(dtype).replace("torch.", ""),
                                       **row}), flush=True)
     else:
-        batch = args.batch or chip_smoke.BATCH
-        for name, conv, T_in in cases:
+        # the whole-row kernels under their whole-row plans, routed or not
+        for name, conv, batch, T_in in cases:
             s, wf, bf, x, y, gy = chip_smoke.bwd_inputs(conv, T_in, gen, batch, dtype)
+            mode = "reflect" if s.reflect else "constant"
             if args.kernel == "dgrad":
-                launch = lambda: fcp.fused_conv_pool_dgrad(gy, y, wf, s, T_in)  # noqa: E731
+                plan = chip_smoke.whole_row_plan(s, gy, T_in)
+                launch = lambda: fcp._dgrad(gy, y, wf, s, T_in, None, plan)  # noqa: E731
+                ref = fcp.fused_conv_pool_dgrad_reference(gy, y, wf, T_in, s.stride, s.padding,
+                                                          mode, s.negative_slope)
             else:
-                launch = lambda: fcp.fused_conv_pool_wgrad(gy, y, x, s)  # noqa: E731
+                plan = chip_smoke.whole_row_wgrad_plan(s, gy, T_in)
+                launch = lambda: fcp._wgrad(gy, y, x, s, None, plan)[0]  # noqa: E731
+                ref = fcp.fused_conv_pool_wgrad_reference(
+                    gy, y, x, s.kernel_size, s.stride, s.padding, mode, s.negative_slope,
+                    s.live_elements())[0]
+            if plan.span:
+                raise SystemExit(f"{name}: the whole-row {args.kernel} cannot take rows of "
+                                 f"{T_in} frames")
+            err = float((launch().float() - ref.float()).abs().max())
             row = _trace(lib, buf, launch)
             print(json.dumps({"kernel": args.kernel, "variant": args.variant, "level": name,
-                              "batch": batch, "dtype": args.dtype, "plan": fcp.last_backward_plans()["dgrad"
-                              if args.kernel == "dgrad" else "wgrad"], **row}), flush=True)
+                              "batch": batch, "T": T_in, "dtype": args.dtype,
+                              "max_abs_err": err, "max_abs_ref": float(ref.float().abs().max()),
+                              "plan": plan._asdict(), **row}), flush=True)
     print(chip_smoke.nvidia_smi(), flush=True)
 
 

@@ -6,8 +6,9 @@ from the repo root on a GPU):
 
 At the len-64 model's eight levels at batch 64 and 8 and the trajectory
 model's four K-31 levels at (8, 128), the span kernel runs spans of
-several batches' whole rows under its own plan (``dgrad_span_plan``),
-whether or not ``dgrad_plan`` routes the shape there; at (8, 1,024), (1,
+several batches' whole rows under its own plan (``dgrad_span_plan``; at
+the trajectory's (8, 128) its split counted in stages, as routed), whether
+or not ``dgrad_plan`` routes the shape there; at (8, 1,024), (1,
 7,200) and the stride-2 level at (8, 1,024), spans of one batch's long
 row.  Each case, in f32 and bf16: the kernel against
 ``fused_conv_pool_dgrad_reference`` (f32 1e-4 * max(1, max|ref|), bf16 0.02
@@ -15,7 +16,9 @@ row.  Each case, in f32 and bf16: the kernel against
 bit for bit its plain version.  ``--parent FILE``: a copy of
 ``fused_conv_pool_bwd.cu`` from another commit (``git show
 <commit>:hm_vae_torch/csrc/fused_conv_pool_bwd.cu > FILE``), built beside;
-its f32 long-row dgrad, on the same weight layout, must give the same bits.
+its f32 long-row dgrad, on the same weight layout, must give the same bits
+where the plan's split is 1 (a cluster's ranks walk the same stages as
+one block; a source from before the stages' runs split row tiles).
 ``--time``: device ms (CUDA graphs) of the span kernel with its layout, the
 whole-row kernel and cuDNN's ``conv1d_input`` at the rows' shapes, summed a
 shape.  One JSON line a case, then the sums and the card; exits 1 if a
@@ -88,7 +91,10 @@ def main() -> None:
             s, wf, bf, x, y, gy = cs.bwd_inputs(conv, T, gen, b, dtype)
             plan = fcp.dgrad_span_plan(b, T, s.kernel_size, s.stride, s.padding,
                                        s.dgrad_span_start.numel() - 1, s.dgrad_span_max_live,
-                                       sms, 1, gy.element_size())
+                                       sms, 1, gy.element_size(),
+                                       lambda: fcp.span_clusters(torch.cuda.current_device(),
+                                                                 s.kernel_size, s.stride,
+                                                                 gy.element_size()))
 
             def span():
                 return fcp._dgrad(gy, y, wf, s, T, None, plan)
@@ -106,7 +112,8 @@ def main() -> None:
                    and err <= cs.TOL[dtype](float(ref.float().abs().max())),
                    "bits_two_runs": torch.equal(span(), gx),
                    "pack_equal": torch.equal(pk, fcp.dgrad_span_pack_reference(s, wf))}
-            if parent is not None and dtype == torch.float32 and row["plan"]["spans"] > 1:
+            if (parent is not None and dtype == torch.float32 and row["plan"]["spans"] > 1
+                    and plan.split == 1):
                 w8 = fcp._aligned(wf, 1, fcp.BWD_CHUNK_CHANNELS)
                 g2 = torch.empty((b, w8.shape[1], T), device="cuda")
                 e = parent(gy.data_ptr(), y.data_ptr(), w8.data_ptr(),

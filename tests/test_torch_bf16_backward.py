@@ -231,10 +231,11 @@ def test_bf16_whole_row_plans_fit_shared_memory():
         d = fcp.dgrad_whole_plan(B, T, K, stride, pad, t_ld, s.dgrad_start.numel() - 1,
                                  s.dgrad_max_live, SMS, esz=2)
         assert d.span == 0 and fcp._dgrad_smem(T, K, t_ld, stride, pad, d.nbb, 2) <= fcp.MAX_SMEM
-        # routed: at the production batch dgrad takes spans of whole rows
+        # routed: at the production batch, and at the trajectory's (8, 128),
+        # dgrad takes spans of whole rows
         routed = fcp.dgrad_plan(B, T, K, stride, pad, t_ld, s.dgrad_start.numel() - 1,
                                 s.dgrad_max_live, SMS, esz=2)
-        assert (routed.span > 0) == (B == 64)
+        assert (routed.span > 0) == (B == 64 or K == 31)
         assert not routed.span or routed.nbb * (T + 2 * pad) <= routed.span
         # a group never holds more columns than its warps' tiles
         assert d.nbb == 1 or fcp._dgrad_tiles(T + 2 * pad, stride, d.nbb) <= fcp.BWD_WARPS
@@ -287,15 +288,17 @@ def _meta(*shape):
 
 
 @pytest.mark.parametrize("model,level,T,wgrad_spans", [
-    ("traj", 0, 1024, True), ("traj", 3, 7200, True), ("len64", 1, 1024, False)])
+    ("traj", 0, 1024, True), ("traj", 3, 7200, True), ("len64", 1, 1024, True)])
 def test_bf16_long_rows_plan_kernels_that_fit(model, level, T, wgrad_spans):
     """Rows past a whole-row block (the trajectory at T 1,024 and 7,200, a
     stride-2 len-64 level at T 1,024) run in bf16 too: dgrad its span
     kernel (spans of one batch's row, two or more stages of its bf16
     planes in a block), wgrad its item kernel (items of one batch's 128
-    columns, two stages of bf16 boxes in a block); the wrapper's bf16 check
-    passes for one window.  At the len-64 level wgrad's bf16 stages, half
-    as large, still fit whole rows (batch 2)."""
+    columns, two stages of bf16 boxes in a block, two blocks an SM); the
+    wrapper's bf16 check passes for one window.  At the len-64 level
+    wgrad's bf16 stages, half as large, would still fit whole rows (batch
+    2), but the plan takes items there as f32 does (``wgrad_items_routed``:
+    the card timed them faster)."""
     _, conv, _ = _cases(model)[level]
     sp = conv.spec
     s = fcp.pack_structure(conv.structure().live_elements(), sp.kernel_size, BF16, sp.stride,
@@ -310,21 +313,23 @@ def test_bf16_long_rows_plan_kernels_that_fit(model, level, T, wgrad_spans):
     assert fcp.dgrad_span_rows(T, K, stride, pad, d.span) == 0
     smem, stages = fcp._dgrad_span_layout(K, stride, d.span, 2)
     assert smem <= fcp.MAX_SMEM and stages >= 3
-    assert fcp.wgrad_whole_rows(2, T, K, T_out, t_ld, stride, 2) != wgrad_spans
+    # bf16's whole rows fit at the len-64 level only
+    assert fcp.wgrad_whole_rows(2, T, K, T_out, t_ld, stride, 2) == (model == "len64")
     assert not fcp.wgrad_whole_rows(2, T, K, T_out, -(-T_out // 4) * 4, stride,
                                     4)  # f32 takes items at every one
     cols = fcp.wgrad_span_cols(K, stride, 2)
     assert not fcp.wgrad_rows_routed(2, T, K, stride, pad, 2)
+    assert fcp.wgrad_items_routed(2, T, K, stride, pad, 2)  # as f32's
+    rows = fcp.wgrad_routed_rows(2, T, K, stride, pad, 2, cols)
     w = fcp.wgrad_plan(2, T_out, s.wgrad_row.numel(), SMS, 1,
                        lambda sb, split: fcp._wgrad_smem(2, T, K, T_out, t_ld, stride, sb,
-                                                         split, 2), cols)
-    assert (w.span > 0) == wgrad_spans
-    if wgrad_spans:
-        # items of one batch's columns, two chunks of 64 bf16 columns each
-        assert w.sb == 1 and w.span == cols == 128 and 1 <= w.split <= fcp.MAX_SPLIT
-        assert fcp._wgrad_span_smem(K, stride, w.span, 2) <= fcp.MAX_SMEM
-        # K 31: two m64 tiles a warpgroup, one block an SM
-        assert fcp.wgrad_items_per_sm(K, stride, w.span, 2) == 1
+                                                         split, 2), cols, rows)
+    assert (rows == 1 and w.span > 0) == wgrad_spans
+    # items of one batch's columns, two chunks of 64 bf16 columns each
+    assert w.sb == 1 and w.span == cols == 128 and 1 <= w.split <= fcp.MAX_SPLIT
+    assert fcp._wgrad_span_smem(K, stride, w.span, 2) <= fcp.MAX_SMEM
+    # bf16: one or two m64 tiles a warpgroup, two blocks an SM
+    assert fcp.wgrad_items_per_sm(K, stride, w.span, 2) == 2
 
 
 def test_bf16_windowed_backward_raises_before_a_launch():

@@ -44,6 +44,7 @@ from hm_vae_torch.models.structure import get_structure, get_trajectory_structur
 from hm_vae_torch.models.trajectory import TrajectoryModel
 from hm_vae_torch.ops import fused_conv_pool as fcp
 from hm_vae_torch.utils import config as tcfg
+from test_torch_dgrad_rows import rank_stages
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = {n: os.path.join(ROOT, "configs", f"{n}.yaml")
@@ -97,16 +98,14 @@ def _vae_cases(name):
 
 def _plans(s, B, T, windows=1):
     """dgrad's and wgrad's f32 plans as the wrappers choose them (wgrad:
-    routed to items of several batches' whole rows where
-    ``wgrad_rows_routed``)."""
+    routed to the item kernel where ``wgrad_routed_rows``)."""
     T_out = _t_out(s, T)
     t_ld = T_out + -T_out % 4
     K, stride, pad = s.kernel_size, s.stride, s.padding
     d = fcp.dgrad_plan(B, T, K, stride, pad, t_ld,
                        s.dgrad_start.numel() - 1, s.dgrad_max_live, SMS, windows)
     cols = fcp.wgrad_span_cols(K, stride)
-    rows = (fcp.wgrad_span_rows(B, T, K, stride, pad, 4, cols)
-            if windows == 1 and fcp.wgrad_rows_routed(B, T, K, stride, pad) else 0)
+    rows = fcp.wgrad_routed_rows(B, T, K, stride, pad, 4, cols) if windows == 1 else 0
     w = fcp.wgrad_plan(B, T_out, s.wgrad_row.numel(), SMS, windows,
                        lambda sb, split: fcp._wgrad_smem(B, T, K, T_out, t_ld, stride, sb,
                                                          split),
@@ -224,45 +223,66 @@ def _existing_shapes():
 
 def test_existing_shapes_keep_their_plans():
     """Every existing shape keeps its plans, but dgrad and wgrad at the
-    routed large batch (the len-64 levels at the production batch of 64;
-    the trajectory's K-31 levels at batch 64 are not routed): dgrad takes
-    spans of several batches' whole rows (``dgrad_rows_routed``), wgrad
-    items of several batches' whole rows (``wgrad_rows_routed``); their
-    whole-row plans, ``dgrad_whole_plan`` and ``wgrad_whole_plan``, are
-    still the ones from before."""
-    n = routed = w_routed = 0
+    routed shapes: the len-64 levels at the production batch of 64, where
+    dgrad takes spans of several batches' whole rows
+    (``dgrad_rows_routed``) and wgrad items of several batches' whole rows
+    (``wgrad_rows_routed``); and the trajectory's short K-31 rows (fewer
+    than 64 batches, T 64-128: ``traj_rows``), where the card timed the
+    span kernels faster (f32 here): wgrad items of one batch's columns at
+    (8, 128), (10, 64) and (1, 64) (``wgrad_items_routed``); dgrad spans
+    from 4 batches on, at (8, 128) one batch's padded row a span, at (10,
+    64) two.  dgrad at (1, 64) and both at (64, 64) are not routed.  The
+    whole-row plans,
+    ``dgrad_whole_plan`` and ``wgrad_whole_plan``, are still the ones from
+    before at every shape."""
+    n = routed = w_routed = traj_d = traj_w = 0
     for s, B, T, windows in _existing_shapes():
         d, w, t_ld = _plans(s, B, T, windows)
         T_out = _t_out(s, T)
-        old_d = _old_dgrad_plan(B, T, s.kernel_size, s.stride, s.padding, t_ld,
+        K = s.kernel_size
+        old_d = _old_dgrad_plan(B, T, K, s.stride, s.padding, t_ld,
                                 s.dgrad_start.numel() - 1, s.dgrad_max_live, SMS, windows)
-        smem = lambda sb, split: fcp._wgrad_smem(B, T, s.kernel_size, T_out, t_ld,  # noqa
+        smem = lambda sb, split: fcp._wgrad_smem(B, T, K, T_out, t_ld,  # noqa
                                                  s.stride, sb, split)
         old_w = _old_wgrad_plan(B, T_out, s.wgrad_row.numel(), SMS, windows, smem)
-        if windows == 1 and fcp.wgrad_rows_routed(B, T, s.kernel_size, s.stride, s.padding):
-            assert B == 64 and s.kernel_size == 15
-            cols = fcp.wgrad_span_cols(s.kernel_size, s.stride)
-            nbb = fcp.wgrad_span_rows(B, T, s.kernel_size, s.stride, s.padding, 4, cols)
+        cols = fcp.wgrad_span_cols(K, s.stride)
+        if windows == 1 and fcp.wgrad_rows_routed(B, T, K, s.stride, s.padding):
+            assert B == 64 and K == 15
+            nbb = fcp.wgrad_span_rows(B, T, K, s.stride, s.padding, 4, cols)
             assert w == fcp.wgrad_span_plan(B, T_out, s.wgrad_row.numel(), SMS, 1, cols, nbb)
             assert w.sb == nbb > 1 and w.span == cols and nbb * T_out <= cols
             w = fcp.wgrad_whole_plan(B, T_out, s.wgrad_row.numel(), SMS, windows, smem, cols)
             w_routed += 1
-        assert w == old_w + (0,), (s.kernel_size, B, T, windows)
-        if windows == 1 and fcp.dgrad_rows_routed(B, T, s.kernel_size, s.stride, s.padding):
-            assert B == 64 and s.kernel_size == 15
-            assert d == fcp.dgrad_span_plan(B, T, s.kernel_size, s.stride, s.padding,
+        elif windows == 1 and fcp.wgrad_items_routed(B, T, K, s.stride, s.padding):
+            assert K == 31 and (B, T) in ((8, 128), (10, 64), (1, 64))
+            assert w == fcp.wgrad_span_plan(B, T_out, s.wgrad_row.numel(), SMS, 1, cols, 1)
+            assert w.sb == 1 and w.span == cols == 128
+            w = fcp.wgrad_whole_plan(B, T_out, s.wgrad_row.numel(), SMS, windows, smem, cols)
+            traj_w += 1
+        assert w == old_w + (0,), (K, B, T, windows)
+        if windows == 1 and fcp.dgrad_rows_routed(B, T, K, s.stride, s.padding):
+            assert (B == 64 and K == 15) or (K, B, T) in ((31, 8, 128), (31, 10, 64))
+            # the trajectory's: its split counted in stages
+            assert d == fcp.dgrad_span_plan(B, T, K, s.stride, s.padding,
                                             s.dgrad_span_start.numel() - 1,
-                                            s.dgrad_span_max_live, SMS)
-            assert d.nbb > 1 and d.span == fcp.dgrad_span_cols(s.kernel_size, s.stride)
-            d = fcp.dgrad_whole_plan(B, T, s.kernel_size, s.stride, s.padding, t_ld,
+                                            s.dgrad_span_max_live, SMS, 1, 4)
+            # whole padded rows a span: several at batch 64; at K 31 one at
+            # T 128 (158 columns), two at T 64 (94)
+            assert d.nbb == 256 // (T + 30) if K == 31 else d.nbb > 1
+            assert d.span == fcp.dgrad_span_cols(K, s.stride)
+            d = fcp.dgrad_whole_plan(B, T, K, s.stride, s.padding, t_ld,
                                      s.dgrad_start.numel() - 1, s.dgrad_max_live, SMS, windows)
-            routed += 1
-        assert d == old_d + (0,), (s.kernel_size, B, T, windows)
-        assert fcp._dgrad_smem(T, s.kernel_size, t_ld, s.stride, s.padding, d.nbb) == \
-            _old_dgrad_smem(T, s.kernel_size, t_ld, s.stride, s.padding, d.nbb)
+            if K == 31:
+                traj_d += 1
+            else:
+                routed += 1
+        assert d == old_d + (0,), (K, B, T, windows)
+        assert fcp._dgrad_smem(T, K, t_ld, s.stride, s.padding, d.nbb) == \
+            _old_dgrad_smem(T, K, t_ld, s.stride, s.padding, d.nbb)
         n += 1
     assert n == 8 * 4 + 4 + 16
     assert routed == w_routed == 8 * 2
+    assert traj_d == 4 * 2 and traj_w == 4 * 3
 
 
 def dgrad_by_span(g, w, T_in, stride, padding, reflect, span, split=1):
@@ -273,8 +293,8 @@ def dgrad_by_span(g, w, T_in, stride, padding, reflect, span, split=1):
     u0 / stride, off = ceil(K / stride) - 1; zeros outside [0, T_out)),
     ``gw`` of them as the layout has it.  Its columns u = u0 + stride*v +
     phi (M tiles of 64 columns v of each stride phase phi) sum, for each
-    stage (8 rows p of a row tile; rank r of ``split`` takes row tiles r,
-    r + split, ..) and each tap m (k = phi + stride*m, zero past K), the
+    stage (8 rows p of a row tile; rank r of ``split`` takes its contiguous
+    run of the stages, ``rank_stages``) and each tap m (k = phi + stride*m, zero past K), the
     product of the A operand, the staged columns t0 - tb0 + v - m, with the
     tap's slice, added to the tile's sum in stage then tap order; the ranks'
     sums are added in rank order, and the span folds its reflected columns
@@ -302,17 +322,16 @@ def dgrad_by_span(g, w, T_in, stride, padding, reflect, span, split=1):
             for phi in range(stride):
                 v = torch.arange(V)
                 sums = g.new_zeros(B, C, V)
-                for rt in range(rank, -(-P // 64), split):
-                    for p0 in range(64 * rt, min(P, 64 * rt + 64), 8):
-                        rows = slice(p0, min(P, p0 + 8))
-                        for m in range(off + 1):
-                            k = phi + stride * m
-                            if k >= K:
-                                continue
-                            cols = t0 - tb0 + v - m
-                            assert cols.min() >= 0 and cols.max() < gw
-                            sums += torch.einsum("bpv,pc->bcv", staged[:, rows][:, :, cols],
-                                                 w[rows, :, k])
+                for p0 in rank_stages(P, 8, rank, split):
+                    rows = slice(p0, min(P, p0 + 8))
+                    for m in range(off + 1):
+                        k = phi + stride * m
+                        if k >= K:
+                            continue
+                        cols = t0 - tb0 + v - m
+                        assert cols.min() >= 0 and cols.max() < gw
+                        sums += torch.einsum("bpv,pc->bcv", staged[:, rows][:, :, cols],
+                                             w[rows, :, k])
                 keep = stride * v + phi < width
                 part[:, :, (stride * v + phi)[keep]] = sums[:, :, keep]
             total = part if total is None else total + part

@@ -233,9 +233,11 @@ def _traj_levels():
 @pytest.mark.parametrize("B,T", [(8, 128), (10, 64)], ids=["train", "solver"])
 @pytest.mark.parametrize("level", range(4))
 def test_plans_at_the_trajectory_shapes(level, B, T):
-    """dgrad: one batch a group where the padded row needs more than one
-    tile a warp, every group and live row tile covered once, the block in
-    shared memory; wgrad: the batches covered once, the block in shared
+    """dgrad's whole-row plan (``dgrad_kernel``'s, timed beside the spans
+    these f32 shapes are routed to): one batch a group where the padded row
+    needs more than one tile a warp, every group and live row tile covered
+    once, the block in shared memory; its routed plan the spans'; wgrad's
+    whole-row plan: the batches covered once, the block in shared
     memory."""
     s = _traj_levels()[level]
     assert (s.kernel_size, s.stride, s.padding) == (31, 1, 15)
@@ -244,9 +246,14 @@ def test_plans_at_the_trajectory_shapes(level, B, T):
     assert T_out == T
     pairs = s.dgrad_start.numel() - 1
     assert pairs == -(-s.in_channels // 16)  # C_in 84, 108: a last single chunk
-    nbb, groups, split, span = fcp.dgrad_plan(B, T, 31, 1, 15, T_out, pairs, s.dgrad_max_live,
-                                              SMS)
+    nbb, groups, split, span = fcp.dgrad_whole_plan(B, T, 31, 1, 15, T_out, pairs,
+                                                    s.dgrad_max_live, SMS)
     assert span == 0
+    assert fcp.dgrad_rows_routed(B, T, 31, 1, 15)
+    span_groups = (s.dgrad_span_start.numel() - 1, s.dgrad_span_max_live)
+    assert fcp.dgrad_plan(B, T, 31, 1, 15, T_out, pairs, s.dgrad_max_live, SMS, 1,
+                          span_groups) == fcp.dgrad_span_plan(B, T, 31, 1, 15, *span_groups,
+                                                              SMS, 1, 4)
     Tp = T + 30
     tiles = -(-nbb * Tp // 16)
     assert tiles <= fcp.BWD_WARPS * fcp.DGRAD_TILES

@@ -20,9 +20,11 @@ them against their plain versions, bit-equal on two runs):
   bit for bit against the plain version in f32 and bf16, and the bf16
   layout entry by entry;
 - the planner: which shapes route to spans of whole rows (the len-64 levels
-  at the production batch of 64, in f32 and bf16) and which keep their
-  plans (batch 8, the trajectory's (8, 128), (10, 64) and (64, 64), windows,
-  the lora solve's 10 batches), the plans' batches a span (the fill of 256 columns),
+  at the production batch of 64, in f32 and bf16; the trajectory's K-31
+  rows at (8, 128) and (10, 64) in f32 and bf16, where the card timed
+  spans faster) and which keep their plans (batch 8, the
+  trajectory's (64, 64), windows, the lora solve's 10 batches), the plans'
+  batches a span (the fill of 256 columns),
   and the span layout and period against a transcription of the kernel's
   (``dgrad_span_layout``, ``dgrad_span_period`` in
   ``csrc/fused_conv_pool_bwd.cu``).
@@ -61,6 +63,18 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+def rank_stages(P, rows_p, rank, split):
+    """The first rows p of the stages that cluster rank ``rank`` of
+    ``split`` takes (w dense: every row tile live), as the span kernel
+    splits them: the row tiles' stages in order, ``rows_p`` rows p each (a
+    row tile's last stage the rows left), a contiguous run a rank, total *
+    rank // split on."""
+    stages = [p0 for rt in range(-(-P // 64)) for p0 in range(64 * rt, min(P, 64 * rt + 64),
+                                                            rows_p)]
+    n = len(stages)
+    return stages[n * rank // split:n * (rank + 1) // split]
+
+
 def dgrad_by_rows(g, w, T_in, stride, padding, reflect, plan, rows_p, split):
     """The span kernel's arithmetic over whole rows in plain PyTorch (w
     dense: every row tile live).  Batch group q of the plan holds the
@@ -72,8 +86,9 @@ def dgrad_by_rows(g, w, T_in, stride, padding, reflect, plan, rows_p, split):
     (``rows_p`` rows p of a row tile; rank r of ``split`` takes row tiles r,
     r + split, ..) and each tap m (k = phi + stride*m, zero past K), the
     product of the A operand, the staged columns off + v - m, with the tap's
-    slice, in stage then tap order; the ranks' sums are added in rank order
-    and each batch's reflected columns fold onto their sources."""
+    slice, in stage then tap order (rank r of ``split`` takes its contiguous
+    run of the stages: :func:`rank_stages`); the ranks' sums are added in
+    rank order and each batch's reflected columns fold onto their sources."""
     B, P, T_out = g.shape
     C, K = w.shape[1], w.shape[2]
     Tp, off = T_in + 2 * padding, -(-K // stride) - 1
@@ -105,17 +120,16 @@ def dgrad_by_rows(g, w, T_in, stride, padding, reflect, plan, rows_p, split):
                     if v[0] >= nbl * R:
                         continue  # an idle warpgroup
                     sums = g.new_zeros(C, 64)
-                    for rt in range(rank, -(-P // 64), split):
-                        for p0 in range(64 * rt, min(P, 64 * rt + 64), rows_p):
-                            rows = slice(p0, min(P, p0 + rows_p))
-                            for m in range(off + 1):
-                                k = phi + stride * m
-                                if k >= K:
-                                    continue
-                                cols = off + v - m
-                                assert cols.min() >= 0 and cols.max() < gw
-                                sums += torch.einsum("pv,pc->cv", staged[rows][:, cols],
-                                                     w[rows, :, k])
+                    for p0 in rank_stages(P, rows_p, rank, split):
+                        rows = slice(p0, min(P, p0 + rows_p))
+                        for m in range(off + 1):
+                            k = phi + stride * m
+                            if k >= K:
+                                continue
+                            cols = off + v - m
+                            assert cols.min() >= 0 and cols.max() < gw
+                            sums += torch.einsum("pv,pc->cv", staged[rows][:, cols],
+                                                 w[rows, :, k])
                     vb = torch.div(v, R, rounding_mode="floor")
                     u = stride * (v - vb * R) + phi
                     keep = (vb < nbl) & (u < Tp)
@@ -309,11 +323,13 @@ def test_production_batch_routes_to_spans_of_whole_rows(esz):
 
 
 def test_other_shapes_keep_their_plans():
-    """Batch 8 (both dtypes), the solver's 10 windows, the lora solve's 10
-    batches and the trajectory's (8, 128), (10, 64) and (64, 64) keep whole
-    rows: dgrad_plan gives them what it gave before (span 0).  The
-    trajectory's K-31 levels at batch 64 are not routed: the card never
-    timed spans of whole rows there."""
+    """Batch 8 (both dtypes), the solver's 10 windows and the lora solve's
+    10 batches keep whole rows: dgrad_plan gives them what it gave before
+    (span 0).  The trajectory's K-31 levels take spans at their short rows
+    from 4 batches on (fewer than 64, T 64-128), where the card timed them
+    faster: (8, 128) (one batch's 158-column padded row a span, 8 batch
+    groups) and (10, 64) (two 94-column rows a span, 5 groups), in f32 and
+    bf16; (64, 64) keeps whole rows."""
     from hm_vae_torch.models.trajectory import TrajectoryModel
 
     n = 0
@@ -326,11 +342,22 @@ def test_other_shapes_keep_their_plans():
                 n += 1
     tcfg_ = tcfg.load_config(os.path.join(ROOT, "configs", "trajectory_model.yaml"))
     tm = TrajectoryModel(tcfg_.model, generator=torch.Generator().manual_seed(0))
+    routed = {(8, 128): (4, 2), (10, 64): (4, 2), (64, 64): ()}
     for i in range(4):
         s = getattr(tm.encoder, f"conv_{i}").structure()
-        for B, T in ((8, 128), (10, 64), (64, 64)):
-            assert not any(fcp.dgrad_rows_routed(B, T, 31, 1, 15, esz) for esz in (4, 2))
-            assert _plan(s, B, T).span == 0
+        for (B, T), dtypes in routed.items():
+            for esz in (4, 2):
+                assert fcp.dgrad_rows_routed(B, T, 31, 1, 15, esz) == (esz in dtypes)
+                d = _plan(s, B, T, esz)
+                if esz not in dtypes:
+                    assert d.span == 0
+                    continue
+                per = 256 // (T + 30)  # whole padded rows a span
+                # its split counted in stages, up to the cluster's 8 blocks
+                assert d == fcp.dgrad_span_plan(B, T, 31, 1, 15, s.dgrad_span_start.numel() - 1,
+                                                s.dgrad_span_max_live, SMS, 1, esz)
+                assert d.span == 256 and d.nbb == per and d.groups == -(-B // per)
+                assert d.nbb * fcp.dgrad_span_period(T, 31, 1, 15) <= d.span
             n += 1
     assert n == 8 * 2 * 3 + 4 * 3
 

@@ -213,6 +213,10 @@ def test_spans_planned_where_and_only_where_they_were(K):
             for B in (1, 8):
                 d = fcp.dgrad_plan(B, T, K, stride, s.padding, t_ld, s.dgrad_start.numel() - 1,
                                    s.dgrad_max_live, SMS)
-                assert (d.span > 0) == before, (K, stride, T, B)
+                # and the trajectory's short K-31 rows (T 64-128) from 4 batches on,
+                # where the card timed spans faster
+                routed = (K, stride) == (31, 1) and B == 8 and 64 <= T <= 128
+                assert fcp.dgrad_rows_routed(B, T, K, stride, s.padding) == routed
+                assert (d.span > 0) == (before or routed), (K, stride, T, B)
                 n += before
     assert n > 10

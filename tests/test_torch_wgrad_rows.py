@@ -7,9 +7,11 @@ version, bit-equal on two runs; its arithmetic against the plain wgrad and
 - the routing: the len-64 levels at the production batch of 64 take items
   of several batches' whole rows in f32 and bf16 (``wgrad_rows_routed``),
   as many batches an item as fill 128 columns where the block fits shared
-  memory (in bf16, where two blocks share an SM), spread evenly; batch 8,
-  the solver's windows, the lora solve's 10 batches and the trajectory's
-  K-31 shapes keep their whole-row plans;
+  memory (in bf16, where two blocks share an SM), spread evenly; the
+  trajectory's K-31 rows at (8, 128) take items of one batch's 128
+  columns in f32 and bf16 (``wgrad_items_routed``); batch 8, the solver's
+  windows, the lora solve's 10 batches and the trajectory's (10, 64) and
+  (64, 64) keep their whole-row plans;
 - the plan's coverage: the items that the cluster ranks of each live tile
   take (the kernel's ``item_of``) cover every (batch, column) of the
   batch exactly once, in both element types;
@@ -66,8 +68,7 @@ def _wgrad_plan(s, B, T, esz=4, windows=1):
     T_out = _t_out(T, K, stride, pad)
     t_ld = -(-T_out // (16 // esz)) * (16 // esz)
     cols = fcp.wgrad_span_cols(K, stride, esz)
-    rows = (fcp.wgrad_span_rows(B, T, K, stride, pad, esz, cols)
-            if windows == 1 and fcp.wgrad_rows_routed(B, T, K, stride, pad, esz) else 0)
+    rows = fcp.wgrad_routed_rows(B, T, K, stride, pad, esz, cols) if windows == 1 else 0
     smem = lambda sb, split: fcp._wgrad_smem(B, T, K, T_out, t_ld, stride, sb,  # noqa: E731
                                              split, esz)
     per_sm = fcp.wgrad_items_per_sm(K, stride, cols, esz, max(1, rows), T, T_out, t_ld)
@@ -138,21 +139,28 @@ def test_one_batch_items_cover_long_rows_once(esz):
     s = fcp.pack_structure(live, 31, torch.float32, 1, 15)
     plan, _, T_out, _, per_sm = _wgrad_plan(s, 8, 1024, esz)
     assert plan.sb == 1 and plan.span == 128 and T_out == 1024
-    assert per_sm == 1  # K 31: two m64 tiles a warpgroup
+    # K 31: two m64 tiles a warpgroup; bf16's sums stay in the accumulators
+    # and its block in half an SM's shared memory, so two blocks an SM
+    assert per_sm == (2 if esz == 2 else 1)
     seen = sum((items_of(plan, 8, T_out, r) for r in range(plan.split)), [])
     assert sorted(seen) == [(b, t) for b in range(8) for t in range(T_out)]
 
 
 def test_other_shapes_keep_their_wgrad_plans():
-    """Batch 8 (both dtypes), the solver's 10 windows, the lora solve's 10
-    batches and the trajectory's (8, 128), (10, 64) and (64, 64) are not
-    routed: wgrad_plan gives them their whole-row plans, as before."""
+    """Batch 8 (both dtypes), the solver's 10 windows and the lora solve's
+    10 batches are not routed: wgrad_plan gives them their whole-row plans,
+    as before.  The trajectory's K-31 levels take items of one batch's
+    columns at their short rows (fewer than 64 batches, T 64-128), where the
+    card timed them faster: (8, 128) and (10, 64) in f32 and bf16 (an item
+    a batch, the ranks covering every (batch, column) once); (64, 64) keeps
+    its whole-row plans."""
     n = 0
     for (name, T, stride), s in zip(LEVELS, _structures()):
         for esz in (4, 2):
             for B, windows in ((8, 1), (1, 10), (10, 1)):
                 plan, whole, _, _, _ = _wgrad_plan(s, B, T, esz, windows)
                 assert not fcp.wgrad_rows_routed(B, T, 15, stride, 7, esz) or windows > 1
+                assert not fcp.wgrad_items_routed(B, T, 15, stride, 7, esz)
                 assert plan == whole and plan.span == 0, (name, B, windows)
                 n += 1
     tcfg_ = tcfg.load_config(os.path.join(ROOT, "configs", "trajectory_model.yaml"))
@@ -162,8 +170,19 @@ def test_other_shapes_keep_their_wgrad_plans():
         for B, T in ((8, 128), (10, 64), (64, 64)):
             assert not any(fcp.wgrad_rows_routed(B, T, 31, 1, 15, esz) for esz in (4, 2))
             assert fcp.wgrad_span_rows(B, T, 31, 1, 15) == 0  # K 31: one batch's columns
-            plan, whole, _, _, _ = _wgrad_plan(s, B, T)
-            assert plan == whole and plan.span == 0
+            for esz in (4, 2):
+                routed = B < 64
+                assert fcp.wgrad_items_routed(B, T, 31, 1, 15, esz) == routed
+                plan, whole, T_out, _, per_sm = _wgrad_plan(s, B, T, esz)
+                assert whole.span == 0
+                if not routed:
+                    assert plan == whole
+                    continue
+                assert plan == fcp.wgrad_span_plan(B, T_out, s.wgrad_row.numel(), SMS, 1,
+                                                   128, 1, per_sm)
+                assert plan.sb == 1 and plan.span == 128 and per_sm == (2 if esz == 2 else 1)
+                seen = sum((items_of(plan, B, T_out, r) for r in range(plan.split)), [])
+                assert sorted(seen) == [(b, t) for b in range(B) for t in range(T_out)]
             n += 1
     assert n == 8 * 2 * 3 + 4 * 3
 
