@@ -199,8 +199,8 @@ Phases, each of which exits non-zero on failure:
    at model_parallel 2 resumes (b)'s checkpoint (written at 1), only rank 0
    writing;
 31. ``eval_recovery --data_parallel 2`` under two gloo ranks on a 10-window
-   take against the one-process run (per-window clones at the config's
-   opt_it, the shared clone at 30), inside the band of a run from weights
+   take against the one-process run (per-window clones at 30 iterations,
+   the shared clone at 12), inside the band of a run from weights
    scaled by 1 + 1e-7; only rank 0 writes;
 32. the VALID-packed forward (padding 0) on a rank's halo-extended shard
    (batch 1, 3,600 + 30 frames), then ``eval_trajectory
@@ -241,13 +241,40 @@ Phases, each of which exits non-zero on failure:
    training CLI on the YAML with ``compute_dtype: bfloat16`` added, two
    calls and ``--resume``; the trajectory model at bf16 compute, 4 steps,
    and its step's cost (ms by events, device ms, dgrad's and wgrad's ms,
-   idle share); its ``elapsed_s``;
+   idle share), held against the same steps on the CPU in the 1 + 2^-7
+   band; its ``elapsed_s``;
+
+36. the test-time solve at bf16 conv compute (``compute_dtype: bfloat16``,
+   the triple's model evaluated under its own config): the windowed bf16
+   forward, dgrad and wgrad at the four decoder levels with 10 windows of
+   one batch, held and timed as phase 8 holds and times f32 (0.02 *
+   max|ref|, cuDNN's grouped bf16 convolution, bounds at bf16 rates); the
+   windowed span and item kernels in f32 and bf16 at 4 windows of 512
+   frames (the top two levels' padded rows past 256 columns), their plans
+   reported, the whole-row bf16 wgrad timed beside the items; a short
+   10-window solve at bf16 compute and the production solver dtypes on the
+   GPU against the CPU as in phase 9 (the band never under 2^-7); the full
+   per-window, shared and lora solves at bf16 compute, the launches the f32
+   solves' (by the entries and the device), ms, device ms, idle share and
+   peak memory beside the f32 per-window solve's; ``eval_recovery`` under
+   ``configs/len64_production.yaml`` with ``compute_dtype: bfloat16`` on
+   phase 35's checkpoint, its backward launches all bf16;
 24. print the kernel summary line and, last, the device line.
+
+From the build on, the full run solves the CPU sides of the solve
+agreements (phases 9, 15, 17, 18, 36) in a pool of one worker process (no
+card visible to it, half the host's cores, killed with the script) while
+the card runs the phases before them.  Each ``phases_done`` line counts the
+CPU runs not yet ended: the host-timed numbers (ms by events) of a group
+that began or ended with runs pending were taken beside the worker, and
+are compared with no number taken without it; phase 36's solves, its f32
+per-window solve among them, run after the last.
 
 ``python3 chip_smoke.py --long-backward`` runs phase 1 and then phase 29
 alone, and ends with the card's line: a short check of the backward
 kernels over long rows.  ``python3 chip_smoke.py --bf16-train`` runs phase 1
-and then phase 35 alone, the same way.
+and then phase 35 alone, the same way; ``--bf16-solve`` phase 1 and then
+phase 36 (with its own f32 per-window solve and triple checkpoint).
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -692,9 +719,9 @@ def profile_calls(fn, calls: int = 10, warm: bool = True):
     wall time they took, the device's idle share of that wall time, the
     device operations (kernels, copies, sets) per call, and the port's
     kernels' launches per call in the trace (TRACE_KERNELS).  It records the
-    device's activity only: the host's operator events are read by nothing
-    here, and at a solve's ~140k device operations they cost over a minute
-    of processing."""
+    device's activity only (the host's operator events are read by nothing
+    here) and reads the profiler's raw events: building its event list over
+    a solve's ~150k device operations took ~20 s a solve."""
     from torch.profiler import ProfilerActivity, profile
 
     if warm:
@@ -707,16 +734,17 @@ def profile_calls(fn, calls: int = 10, warm: bool = True):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels, count, ours, ours_us = {}, 0, {}, {}
-    for ev in prof.events():
+    for ev in prof.profiler.kineto_results.events():
         # a user annotation (such as Optimizer.step) is a range on the
         # device's timeline over kernels counted on their own
-        if ev.device_type.name == "CUDA" and not getattr(ev, "is_user_annotation", False):
-            kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+        if ev.device_type().name == "CUDA" and not ev.is_user_annotation():
+            name, us = ev.name(), ev.duration_ns() / 1e3
+            kernels[name] = kernels.get(name, 0.0) + us
             count += 1
-            m = TRACE_KERNELS.search(ev.name)
+            m = TRACE_KERNELS.search(name)
             if m:
                 ours[m.group(1)] = ours.get(m.group(1), 0) + 1
-                ours_us[m.group(1)] = ours_us.get(m.group(1), 0.0) + ev.time_range.elapsed_us()
+                ours_us[m.group(1)] = ours_us.get(m.group(1), 0.0) + us
     busy = sum(kernels.values())
     by_name = {}  # kernel names cut to 60 characters, their times summed
     for k, v in kernels.items():
@@ -1132,49 +1160,66 @@ def train_cli_phase(data_root, path=CONFIG, phase="train_cli"):
     return os.path.join(ck, names[-1])
 
 
-def latent_config(**lat):
-    """``configs/len_64_test_interpolation.yaml`` with solver overrides."""
+def latent_config(model=None, **lat):
+    """``configs/len_64_test_interpolation.yaml`` with solver overrides and
+    `model` overrides of its model section (phase 36's ``compute_dtype``)."""
     from hm_vae_torch.utils.config import load_config
 
     cfg = load_config(LATENT_CONFIG)
-    return dataclasses.replace(cfg, latent_opt=dataclasses.replace(cfg.latent_opt, **lat))
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **(model or {})),
+                               latent_opt=dataclasses.replace(cfg.latent_opt, **lat))
 
 
-def windowed_inputs(conv, T_in, gen):
-    """One decoder level's operands for WINDOWS windows of one batch each, on
-    the card: the conv's fold scaled per window (the structure's zeros
-    kept) and its bias, x, the windowed forward's output y, a random gy."""
+def windowed_inputs(conv, T_in, gen, dtype=torch.float32, windows=WINDOWS):
+    """One decoder level's operands for `windows` windows of one batch each
+    in `dtype` (the conv's compute dtype), on the card: the conv's fold
+    scaled per window (the structure's zeros kept) and its bias, x, the
+    windowed forward's output y, a random gy."""
     from hm_vae_torch.ops import fused_conv_pool as fcp
 
+    if dtype != conv.dtype:
+        conv = copy.deepcopy(conv)
+        conv.dtype = dtype
     s = conv.structure()
-    wf, bf = (None if t is None else t.detach().cpu() for t in conv.folded_weight())
-    scale = 1.0 + 0.3 * torch.randn((WINDOWS, 1, 1, 1), generator=gen)
-    w = (wf[None] * scale).contiguous().to(DEV)
-    b = None if bf is None else (bf[None] * scale[:, :, 0, 0]).contiguous().to(DEV)
-    x = torch.randn((WINDOWS, wf.shape[1], T_in), generator=gen).to(DEV)
+    with torch.no_grad():
+        wf, bf = (None if t is None else t.detach().float().cpu()
+                  for t in conv.folded_weight())
+    scale = 1.0 + 0.3 * torch.randn((windows, 1, 1, 1), generator=gen)
+    w = (wf[None] * scale).to(dtype).contiguous().to(DEV)
+    b = None if bf is None else (bf[None] * scale[:, :, 0, 0]).to(dtype).contiguous().to(DEV)
+    x = torch.randn((windows, wf.shape[1], T_in), generator=gen).to(DEV, dtype)
     packed = fcp.repack(s, w, b)
     y = fcp.fused_conv_pool_windowed(x, packed)
-    gy = torch.randn(y.shape, generator=gen).to(DEV)
+    gy = torch.randn(y.shape, generator=gen).to(DEV, dtype)
     return s, w, b, packed, x, y, gy
 
 
-def windowed_phase(model, st, gen):
-    """The windowed forward, dgrad and wgrad at the four decoder levels, 10
-    windows of one batch each, f32: against their plain versions, the
-    backward also against autograd of the plain forward, each against 10
-    one-window launches on each window's weight, two runs bit-equal; device
-    times of kernel, plain version and cuDNN's grouped convolution
-    (``groups=WINDOWS`` on the stacked folded weights, and its
-    conv1d_input / conv1d_weight), beside the bounds (each window's
-    least bytes and operations, times WINDOWS)."""
+def windowed_phase(model, st, gen, dtype=torch.float32, windows=WINDOWS, frames=64,
+                   levels=None, tag="", spans=False):
+    """The windowed forward, dgrad and wgrad at the decoder levels
+    (`levels`: their names, default all four), `windows` windows of one
+    batch each, in `dtype`, at a window of `frames` frames (the levels' T
+    scaled from the config's 64): against their plain versions, the
+    backward also against autograd of the plain forward, each against
+    `windows` one-window launches on each window's weight, two runs
+    bit-equal, all within TOL[dtype]; device times of kernel, plain version
+    and cuDNN's grouped convolution (``groups=windows`` on the stacked
+    folded weights, and its conv1d_input / conv1d_weight, in `dtype`),
+    beside the bounds (each window's least bytes and operations, times the
+    windows, at `dtype`'s rate); the plans the launches ran.  With `spans`
+    every level must run dgrad's span kernel and wgrad's item kernel, and
+    where the whole-row wgrad would take the rows too (bf16) it is held and
+    timed beside the items, unrouted ("whole_rows")."""
     from hm_vae_torch.ops import fused_conv_pool as fcp
 
-    f32, G = torch.float32, WINDOWS
+    G = windows
     rows = []
     for name, conv, T_in in level_cases(model, st):
-        if not name.startswith("dec"):
+        if not name.startswith("dec") or (levels and name not in levels):
             continue
-        s, w, b, packed, x, y, gy = windowed_inputs(conv, T_in, gen)
+        T_in = T_in * frames // 64
+        name = f"{name}{tag}"
+        s, w, b, packed, x, y, gy = windowed_inputs(conv, T_in, gen, dtype, G)
         mode = "reflect" if s.reflect else "constant"
         slope, pad, stride, K = s.negative_slope, s.padding, s.stride, s.kernel_size
         live = s.live_elements()[None, :, :, None]
@@ -1218,13 +1263,20 @@ def windowed_phase(model, st, gen):
             return (torch.nn.grad.conv1d_weight(F.pad(xg, (pad, pad), mode=mode), wg.shape, g,
                                                 stride=stride, groups=G), g.sum((0, 2)))
 
-        out, gx, (gw, gb) = fwd(), dgrad(), wgrad()
-        err_f = check(f"{name} windowed", out, f_plain(), f32)[0]
-        err_d = check(f"{name} windowed dgrad", gx, d_plain(), f32)[0]
+        out, gx = fwd(), dgrad()
+        plan = {"dgrad": fcp.last_backward_plans()["dgrad"]}  # what the launches ran
+        gw, gb = wgrad()
+        plan["wgrad"] = fcp.last_backward_plans()["wgrad"]
+        if spans and not (plan["dgrad"]["span"] and plan["wgrad"]["span"]):
+            fail(f"{name}: expected dgrad's spans and wgrad's items, the launches ran {plan}")
+        err_f = check(f"{name} windowed", out, f_plain(), dtype)[0]
+        err_d = check(f"{name} windowed dgrad", gx, d_plain(), dtype)[0]
         rw, rb = w_plain()
-        err_w = check(f"{name} windowed wgrad", gw, rw, f32)[0]
+        err_w = check(f"{name} windowed wgrad", gw, rw, dtype)[0]
         if b is not None:
-            err_w = max(err_w, check(f"{name} windowed bias grad", gb, rb, f32)[0])
+            err_w = max(err_w, check(f"{name} windowed bias grad", gb, rb, dtype)[0])
+        if not all(t.dtype == dtype for t in (out, gx, gw, gb)):
+            fail(f"{name}: the windowed kernels returned {[t.dtype for t in (out, gx, gw, gb)]}")
         # autograd of the plain forward, the kernels reading its output
         leaves = [t.clone().requires_grad_() for t in (x, w) + (() if b is None else (b,))]
         ya = fcp.fused_conv_pool_windowed_reference(leaves[0], leaves[1],
@@ -1234,12 +1286,12 @@ def windowed_phase(model, st, gen):
         ya = ya.detach()
         gw_a, gb_a = wgrad(ya)
         err_d = max(err_d, check(f"{name} windowed dgrad vs autograd", dgrad(ya), ag[0],
-                                 f32)[0])
+                                 dtype)[0])
         err_w = max(err_w, check(f"{name} windowed wgrad vs autograd", gw_a, ag[1] * live,
-                                 f32)[0])
+                                 dtype)[0])
         if b is not None:
             err_w = max(err_w, check(f"{name} windowed bias grad vs autograd", gb_a, ag[2],
-                                     f32)[0])
+                                     dtype)[0])
         if not (torch.equal(wgrad()[0], gw) and torch.equal(dgrad(), gx)):
             fail(f"{name}: a windowed backward kernel differs between two runs")
         # against G one-window launches on each window's weight
@@ -1250,30 +1302,51 @@ def windowed_phase(model, st, gen):
                 single = fcp.repack(s, w[g], None if b is None else b[g])
                 one["fwd"] = max(one["fwd"], check(
                     f"{name} window {g} vs one launch", out[sl],
-                    fcp.fused_conv_pool_packed(x[sl], single), f32)[0])
+                    fcp.fused_conv_pool_packed(x[sl], single), dtype)[0])
                 one["dgrad"] = max(one["dgrad"], check(
                     f"{name} window {g} dgrad vs one launch", gx[sl],
-                    fcp.fused_conv_pool_dgrad(gy[sl], y[sl], w[g], s, T_in), f32)[0])
+                    fcp.fused_conv_pool_dgrad(gy[sl], y[sl], w[g], s, T_in), dtype)[0])
                 one["wgrad"] = max(one["wgrad"], check(
                     f"{name} window {g} wgrad vs one launch", gw[g],
-                    fcp.fused_conv_pool_wgrad(gy[sl], y[sl], x[sl], s)[0], f32)[0])
+                    fcp.fused_conv_pool_wgrad(gy[sl], y[sl], x[sl], s)[0], dtype)[0])
         torch.cuda.synchronize()
-        nbytes, ops = level_work(x[:1], raw_operands(conv, f32),
+        w_extra = {}
+        if spans:
+            esz = gy.element_size()
+            t_ld = -(-T_out // (16 // esz)) * (16 // esz)
+            wp = fcp.wgrad_whole_plan(
+                1, T_out, s.wgrad_row.numel(), fcp._sm_count(gy.device.index), G,
+                lambda sb, split: fcp._wgrad_smem(1, T_in, K, T_out, t_ld, stride, sb, split,
+                                                  esz), fcp.wgrad_span_cols(K, stride, esz))
+            if not wp.span:
+
+                def w_whole():
+                    return fcp._wgrad(gy, y, x, s, G, wp)
+
+                ww, wb = w_whole()
+                w_extra["whole_rows"] = {
+                    "max_abs_err": max(check(f"{name} wgrad whole rows", ww, rw, dtype)[0],
+                                       check(f"{name} bias grad whole rows", wb, rb,
+                                             dtype)[0]),
+                    "ms": device_ms(w_whole), "plan": wp._asdict()}
+        nbytes, ops = level_work(x[:1], raw_operands(conv, dtype),
                                  (w[0], None if b is None else b[0]), out[:1])
         d_bytes, w_bytes, d_ops, w_ops = bwd_work(gy[:1], y[:1], x[:1], w[0])
-        row = {"level": name, "windows": G, "batch_per_window": 1, "C_in": C, "T_in": T_in,
-               "P": P, "T_out": T_out, "stride": stride,
-               "live_tiles": int(s.tile_chunk.numel())}
+        row = {"level": name, "dtype": str(dtype).replace("torch.", ""), "windows": G,
+               "batch_per_window": 1, "C_in": C, "T_in": T_in, "P": P, "T_out": T_out,
+               "stride": stride, "live_tiles": int(s.tile_chunk.numel())}
         for what, fn, plain, lib, err, nb, no in (
                 ("fwd", fwd, f_plain, f_lib, err_f, nbytes, ops),
                 ("dgrad", dgrad, d_plain, d_lib, err_d, d_bytes, d_ops),
                 ("wgrad", wgrad, w_plain, w_lib, err_w, w_bytes, w_ops)):
-            t_bytes, t_ops = G * nb / MEM_BPS * 1e3, G * no / PEAK_FLOPS[f32] * 1e3
+            t_bytes, t_ops = G * nb / MEM_BPS * 1e3, G * no / PEAK_FLOPS[dtype] * 1e3
             row[what] = {"max_abs_err": err, "vs_one_window_err": one[what],
                          "ms": device_ms(fn), "plain_ms": device_ms(plain),
                          "library_ms": device_ms(lib), "eager_ms": time_ms(fn),
                          "bytes": G * nb, "ops": G * no, "bound_ms": max(t_bytes, t_ops),
-                         "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+                         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                         **({"plan": plan[what]} if what in plan else {}),
+                         **(w_extra if what == "wgrad" else {})}
         print(json.dumps(row), flush=True)
         rows.append(row)
     return rows
@@ -1297,8 +1370,133 @@ def solve_sequence(rng):
 AGREE_IT, AGREE_PREV = 9, 4
 
 
-def solve_agreement_phase(seq, traj=None, root_trans=None, phase="solve_agreement",
-                          lat=None):
+# phase 9's second solve: 6 z iterations, the last one's forward through the
+# per-window clones
+TIGHT = {"opt_it": 7, "prev_epochs": 5}
+
+
+def agreement_config(traj, lat=None, model=None):
+    """The AGREE_IT-iteration solve's config: under the keyframe trajectory
+    loss where `traj`, with solver overrides `lat` and model overrides
+    `model`."""
+    extra = {"optimize_trajectory": True, "reg_w_trajectory": 1.0} if traj else {}
+    return latent_config(model, opt_it=AGREE_IT, prev_epochs=AGREE_PREV, **extra, **(lat or {}))
+
+
+def agreement_solve(seq, cfg, dev, scale, traj=None, root_trans=None):
+    """One solve of an agreement (``LatentOptApps.interpolate``) on `dev`:
+    the seeded model under `cfg` with its weights scaled by `scale`, the
+    trajectory model (`traj` = (model, mean_std)) copied to `dev`; its
+    outputs on the CPU and its seconds."""
+    from hm_vae_torch.apps.tasks import LatentOptApps
+    from hm_vae_torch.models.hm_vae import HMVAE
+
+    m = HMVAE(cfg.model, cfg.optim.init, generator=torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        for prm in m.parameters():
+            prm.mul_(scale)
+    t = None if traj is None else (copy.deepcopy(traj[0]).to(dev), traj[1])
+    apps = LatentOptApps(m.to(dev), cfg, trajectory=t)
+    t0 = time.perf_counter()
+    out = apps.interpolate(seq, torch.Generator().manual_seed(SEED), root_trans=root_trans)
+    return {k: v.cpu() for k, v in out.items()}, time.perf_counter() - t0
+
+
+# the solver's modes: the lora scope, the bf16 clone and moments (phases
+# 17-19); bf16 conv compute (phase 36: the triple's model, evaluated under
+# its own config)
+LORA = {"finetune_scope": "lora"}
+BF16_CLONE = {"opt_param_dtype": "bfloat16", "opt_moment_dtype": "bfloat16"}
+BF16_COMPUTE = {"compute_dtype": "bfloat16"}
+
+
+# The solve agreements (phases 9, 15, 17, 18, 36): phase -> (under the
+# keyframe trajectory loss, solver overrides, model overrides, the least
+# relative band).  Their CPU runs are a third of the script's host time:
+# main submits them (:func:`submit_cpu_sides`) to a pool of one worker
+# process as soon as their inputs exist, and the card runs the phases
+# before them meanwhile.
+AGREEMENTS = {
+    "solve_agreement": (False, None, None, None),
+    "solve_agreement_trajectory": (True, None, None, None),
+    "solve_agreement_lora": (False, LORA, None, None),
+    "solve_agreement_bf16_clone": (False, BF16_CLONE, None, None),
+    # phase 35's bf16 floor: a 1 + 1e-7 scale of the f32 weights mostly
+    # rounds away in the cast to bf16
+    "solve_agreement_bf16": (False, BF16_CLONE, BF16_COMPUTE, 2.0 ** -7),
+}
+CPU_POOL = []  # the worker pool, made at the first submission
+CPU_SIDES = {}  # "<phase>_<run>" -> the future of (outputs, seconds)
+
+
+def cpu_worker_init(parent):
+    """The worker's start: no card visible, half the host's cores (the
+    other half drive the card), and killed when its parent dies
+    (PR_SET_PDEATHSIG), so that it cannot outlive a killed run."""
+    import ctypes
+    import signal
+
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    ctypes.CDLL(None).prctl(1, signal.SIGKILL)  # 1: PR_SET_PDEATHSIG
+    if os.getppid() != parent:  # the parent died before the prctl
+        os._exit(1)
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+
+
+def cpu_solve(seq, cfg, scale, traj, root_trans):
+    """:func:`agreement_solve` on the CPU in the worker; `traj` = (main's
+    trajectory model's state as numpy, mean_std): the model's packed
+    operands stay on the card, so only its weights cross.  Outputs as
+    numpy."""
+    if traj is not None:
+        from hm_vae_torch.models.trajectory import TrajectoryModel
+        from hm_vae_torch.utils.config import load_config
+
+        tcfg = load_config(TRAJ_CONFIG)
+        m = TrajectoryModel(tcfg.model, tcfg.optim.init)
+        m.load_state_dict({k: torch.from_numpy(v) for k, v in traj[0].items()})
+        traj = (m, traj[1])
+    out, seconds = agreement_solve(seq, cfg, "cpu", scale, traj, root_trans)
+    return {k: v.numpy() for k, v in out.items()}, seconds
+
+
+def submit_cpu_sides(seq, phase, traj=None, root_trans=None):
+    """Submits the CPU runs of the agreement `phase` to the worker, once:
+    from the weights and from the weights scaled by 1 + 1e-7 (and phase 9's
+    TIGHT solve), under main's trajectory model (`traj` = (model,
+    mean_std))."""
+    if f"{phase}_cpu" in CPU_SIDES:
+        return
+    if not CPU_POOL:
+        import concurrent.futures
+        import multiprocessing
+
+        CPU_POOL.append(concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"),
+            initializer=cpu_worker_init, initargs=(os.getpid(),)))
+    with_traj, lat, model, _ = AGREEMENTS[phase]
+    cfg = agreement_config(with_traj, lat, model)
+    t = None if traj is None else (
+        {k: v.detach().cpu().numpy() for k, v in traj[0].state_dict().items()}, traj[1])
+    runs = [("cpu", cfg, 1.0), ("cpu_perturbed", cfg, 1.0 + 1e-7)]
+    if phase == "solve_agreement":
+        runs.append(("tight_cpu", latent_config(**TIGHT), 1.0))
+    for run, c, scale in runs:
+        CPU_SIDES[f"{phase}_{run}"] = CPU_POOL[0].submit(cpu_solve, seq, c, scale, t,
+                                                         root_trans)
+
+
+def cpu_side(name):
+    """The CPU run `name`'s (outputs, seconds), waiting for the worker."""
+    out, seconds = CPU_SIDES[name].result()
+    return {k: torch.from_numpy(v) for k, v in out.items()}, seconds
+
+
+def cpu_sides_pending():
+    return sum(not f.done() for f in CPU_SIDES.values())
+
+
+def solve_agreement_phase(seq, phase="solve_agreement", traj=None, root_trans=None):
     """An AGREE_IT-iteration 10-window interpolation (z phase 5, decoder
     phase 3, the last a decoder step) through ``LatentOptApps.interpolate`` on the
     GPU and on the CPU from the same weights and z, and on each side from
@@ -1313,53 +1511,43 @@ def solve_agreement_phase(seq, traj=None, root_trans=None, phase="solve_agreemen
     rotations and positions on the same joints within the 6D tolerance
     amplified by Gram-Schmidt (1/COND_MIN) and FK (the pose's extent).
 
-    With `traj` = (trajectory model, mean_std) and the sequence's
-    `root_trans`: the AGREE_IT-iteration solve under the keyframe trajectory
-    loss (reg_w_trajectory 1), the trajectory model on each side's device.
-    With `lat` (solver overrides: the lora scope, the bf16 clone) the
-    AGREE_IT-iteration solve in that mode, its adapters drawn on the CPU by
-    the solver on both sides.  Either runs the AGREE_IT-iteration solve
-    only."""
-    from hm_vae_torch.apps.tasks import LatentOptApps
-    from hm_vae_torch.models.hm_vae import HMVAE
-
-    extra = {} if traj is None else {"optimize_trajectory": True, "reg_w_trajectory": 1.0}
-    cfg = latent_config(opt_it=AGREE_IT, prev_epochs=AGREE_PREV, **extra, **(lat or {}))
-    base = HMVAE(cfg.model, cfg.optim.init, generator=torch.Generator().manual_seed(SEED))
+    `phase` names the agreement's mode in AGREEMENTS.  Under the keyframe
+    trajectory loss (reg_w_trajectory 1; `traj` = (trajectory model,
+    mean_std) and the sequence's `root_trans`), the trajectory model on
+    each side's device; with solver overrides (the lora scope, the bf16
+    clone), that mode, its adapters drawn on the CPU by the solver on both
+    sides.  Either runs the AGREE_IT-iteration solve only.  Model overrides
+    (phase 36's ``compute_dtype: bfloat16``) hold the outputs at the bf16
+    tolerances (E2E_TOL, ROT_TOL, POSE_TOL); a floor is the least relative
+    band, over the first 5 iterations too.  The CPU runs come from the
+    worker (:func:`submit_cpu_sides`, here if main has not yet)."""
+    with_traj, lat, model, floor = AGREEMENTS[phase]
+    submit_cpu_sides(seq, phase, traj, root_trans)
+    cfg = agreement_config(with_traj, lat, model)
+    dtype = torch.bfloat16 if cfg.model.compute_dtype == "bfloat16" else torch.float32
     outs, wall = {}, {}
-
-    def run_on(dev, scale, cfg):
-        m = copy.deepcopy(base)
-        with torch.no_grad():
-            for prm in m.parameters():
-                prm.mul_(scale)
-        t = None if traj is None else (copy.deepcopy(traj[0]).to(dev), traj[1])
-        apps = LatentOptApps(m.to(dev), cfg, trajectory=t)
-        t0 = time.perf_counter()
-        out = apps.interpolate(seq, torch.Generator().manual_seed(SEED), root_trans=root_trans)
-        return {k: v.cpu() for k, v in out.items()}, time.perf_counter() - t0
-
-    for run, dev, scale in (("gpu", DEV, 1.0), ("cpu", "cpu", 1.0),
-                            ("gpu_perturbed", DEV, 1.0 + 1e-7),
-                            ("cpu_perturbed", "cpu", 1.0 + 1e-7)):
-        outs[run], wall[run] = run_on(dev, scale, cfg)
+    for run, scale in (("gpu", 1.0), ("gpu_perturbed", 1.0 + 1e-7)):
+        outs[run], wall[run] = agreement_solve(seq, cfg, DEV, scale, traj, root_trans)
+    for run in ("cpu", "cpu_perturbed"):
+        outs[run], wall[run] = cpu_side(f"{phase}_{run}")
     loss = {k: v["loss_history"].numpy().astype(np.float64) for k, v in outs.items()}
     if any(len(v) != AGREE_IT or not np.isfinite(v).all() for v in loss.values()):
         fail(f"{phase}: loss histories {loss}")
     rel = np.abs(loss["gpu"] / loss["cpu"] - 1)
     spread = {d: np.maximum.accumulate(np.abs(loss[f"{d}_perturbed"] / loss[d] - 1))
               for d in ("gpu", "cpu")}
-    band = 10 * np.maximum(spread["gpu"], spread["cpu"]) + 1e-4
-    if not ((rel[:5] <= 1e-4).all() and (rel <= band).all()):
+    band = np.maximum(10 * np.maximum(spread["gpu"], spread["cpu"]) + 1e-4, floor or 0.0)
+    first = max(1e-4, floor or 0.0)
+    if not ((rel[:5] <= first).all() and (rel <= band).all()):
         fail(f"{phase}: GPU vs CPU loss relative difference {rel.tolist()} outside "
-             f"{band.tolist()} (first 5 iterations: 1e-4)")
+             f"{band.tolist()} (first 5 iterations: {first})")
     g, c = outs["gpu"], outs["cpu"]
     well = gram_schmidt_condition(c["rot_6d"]) > COND_MIN
     chain = ancestors_ok(well)
     errs = {}
-    for what, sel, tol0 in (("rot_6d", None, 1e-4 * float(c["rot_6d"].abs().max())),
-                            ("rot_mat", well, ROT_TOL[torch.float32]),
-                            ("pose", chain, POSE_TOL[torch.float32])):
+    tol6 = (1e-4 if dtype == torch.float32 else E2E_TOL[dtype]) * float(c["rot_6d"].abs().max())
+    for what, sel, tol0 in (("rot_6d", None, tol6), ("rot_mat", well, ROT_TOL[dtype]),
+                            ("pose", chain, POSE_TOL[dtype])):
         def dev_of(a, b):
             d = (a[what] - b[what]).abs()
             d = d.reshape(d.shape[:2] + (-1,)).amax(-1)  # per frame and joint
@@ -1372,23 +1560,20 @@ def solve_agreement_phase(seq, traj=None, root_trans=None, phase="solve_agreemen
         errs[what] = {"err": err, "tol": tol}
     row = {"phase": phase, "config": os.path.relpath(LATENT_CONFIG, ROOT),
            "windows": WINDOWS, "opt_it": AGREE_IT, "prev_epochs": AGREE_PREV,
-           "trajectory": traj is not None,
-           "overrides": lat or {},
+           "trajectory": with_traj,
+           "overrides": lat or {}, "model_overrides": model or {}, "floor": floor,
            "loss_gpu": loss["gpu"].tolist(), "loss_cpu": loss["cpu"].tolist(),
            "rel_diff": rel.tolist(), "band": band.tolist(),
            "spread": {k: v.tolist() for k, v in spread.items()}, "outputs": errs,
            "share_well": float(well.float().mean()), "seconds": wall}
-    if traj is not None or lat:
+    if with_traj or lat:
         print(json.dumps(row), flush=True)
         return row
     # before Adam's amplification: 6 z iterations, the last iteration's
     # forward through the 10 per-window clones (the windowed forward), held
     # as the reconstruct is (e2e_phase's tolerances)
-    tight = {}
-    for dev in (DEV, "cpu"):
-        tight[dev], wall[f"tight_{dev}"] = run_on(dev, 1.0, latent_config(opt_it=7,
-                                                                          prev_epochs=5))
-    g, c = tight[DEV], tight["cpu"]
+    g, wall[f"tight_{DEV}"] = agreement_solve(seq, latent_config(**TIGHT), DEV, 1.0)
+    c, wall["tight_cpu"] = cpu_side(f"{phase}_tight_cpu")
     well = gram_schmidt_condition(c["rot_6d"]) > COND_MIN
     chain = ancestors_ok(well)
     err6 = float((g["rot_6d"] - c["rot_6d"]).abs().max())
@@ -1423,15 +1608,32 @@ def launch_counters():
     return list(fcp.launch_entries())  # in LAUNCH_NAMES' order
 
 
-def timed_solve(apps, seq, reps=2, root_trans=None):
+def timed_solve(apps, seq, reps=2, root_trans=None, runs=None, profile=False):
     """Kernel launches of one solve (counts set to 0 just before), its
-    loss history, and ms per solve by CUDA events over ``reps`` solves."""
+    loss history, and ms per solve by CUDA events over ``reps`` solves;
+    with `profile` that counted solve runs under :func:`profile_calls`
+    (the phase's earlier solves warmed the structures) and its profile is
+    returned too.  `runs` (a dict) receives the kernels' runs in that solve
+    as the device counted them."""
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+
     counters = launch_counters()
     for c in counters:
         c.launches = 0
-    out = apps.interpolate(seq, torch.Generator().manual_seed(SEED), root_trans=root_trans)
+    if runs is not None:
+        fcp.device_runs(torch.cuda.current_device(), reset=True)
+    solved = []
+
+    def counted():
+        solved.append(apps.interpolate(seq, torch.Generator().manual_seed(SEED),
+                                       root_trans=root_trans))
+
+    prof = profile_calls(counted, calls=1, warm=False) if profile else counted()
+    out = solved[0]
     torch.cuda.synchronize()
     launches = {c.__name__: c.launches for c in counters}
+    if runs is not None:
+        runs.update(fcp.device_runs(torch.cuda.current_device()))
     ms = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1440,7 +1642,7 @@ def timed_solve(apps, seq, reps=2, root_trans=None):
         end.record()
         end.synchronize()
         ms.append(start.elapsed_time(end))
-    return out, launches, ms
+    return (out, launches, ms, prof) if profile else (out, launches, ms)
 
 
 def solve_phase(model, seq):
@@ -1475,21 +1677,32 @@ def solve_phase(model, seq):
     return row, rows["per_window"]["launches"]
 
 
-def mode_solve(model, seq, name, overrides, want, reps=1, profile=True):
+def mode_solve(model, seq, name, overrides, want, reps=1, profile=True, model_overrides=None,
+               device_check=False):
     """The full solve (10 windows, 150 iterations; the config's solver with
-    `overrides`) on the card: its kernel launches must be exactly `want`
-    (LAUNCH_NAMES order; the first, counted solve warms up), the loss fall,
-    the outputs be finite; ms per solve by CUDA events over `reps` solves,
-    the peak of allocated device memory, and the profile of one solve."""
+    `overrides`, its model section with `model_overrides`, which `model`
+    was made under) on the card: its kernel launches must be exactly `want`
+    (LAUNCH_NAMES order; the first, counted solve warms up), and with
+    `device_check` the kernels' runs counted on the device their sums over
+    the windowed and the plain entries; the loss must fall, the outputs be
+    finite; ms per solve by CUDA events over `reps` solves, the peak of
+    allocated device memory, and with `profile` the counted solve's
+    profile."""
     from hm_vae_torch.apps.tasks import LatentOptApps
 
-    apps = LatentOptApps(model, latent_config(**overrides))
+    apps = LatentOptApps(model, latent_config(model_overrides, **overrides))
     torch.cuda.reset_peak_memory_stats()
-    out, launches, ms = timed_solve(apps, seq, reps=reps)
+    runs = {} if device_check else None
+    out, launches, ms, *prof = timed_solve(apps, seq, reps=reps, runs=runs, profile=profile)
     peak = torch.cuda.max_memory_allocated()
     want = dict(zip(LAUNCH_NAMES, want))
     if launches != want:
         fail(f"{name}: kernel launches {launches}, expected {want}")
+    if device_check:
+        want_runs = {TRACE_NAME[a]: want[a] + want[w]
+                     for a, w in zip(LAUNCH_NAMES[:3], LAUNCH_NAMES[3:])}
+        if runs != want_runs:
+            fail(f"{name}: the device counted {runs}, expected {want_runs}")
     hist = out["loss_history"].cpu().numpy()
     if not (np.isfinite(hist).all() and len(hist) == apps.cfg.latent_opt.opt_it
             and hist[-1] < hist[0]):
@@ -1498,17 +1711,16 @@ def mode_solve(model, seq, name, overrides, want, reps=1, profile=True):
         if out[k].shape[0] != seq.shape[0] or not torch.isfinite(out[k]).all():
             fail(f"{name}: {k} of shape {tuple(out[k].shape)} or non-finite")
     row = {"ms_per_solve": ms, "launches": launches, "peak_memory_bytes": peak,
-           "loss_first": float(hist[0]), "loss_last": float(hist[-1])}
-    if profile:  # the timed solves warmed it up
-        row["profile"] = profile_calls(
-            lambda: apps.interpolate(seq, torch.Generator().manual_seed(SEED)), calls=1,
-            warm=False)
+           "loss_first": float(hist[0]), "loss_last": float(hist[-1]),
+           **({"device_runs": runs} if device_check else {})}
+    if profile:
+        row["profile"] = prof[0]
     return row
 
 
 def eval_phase(data_root, model, ck):
-    """``python -m hm_vae_torch.cli.eval_recovery`` (in this process) on two
-    sequences of the synthetic test split with the training CLI's
+    """``python -m hm_vae_torch.cli.eval_recovery`` (in this process) on
+    EVAL_SEQS sequences of the synthetic test split with the training CLI's
     checkpoint `ck` (:func:`eval_cli`), its solves running the kernels of
     both phases; then completion and generation through LatentOptApps at a
     shorter solve."""
@@ -1648,7 +1860,8 @@ def traj_solve_phase(model, traj, seq, root_trans):
     LatentOptApps(model, latent_config(opt_it=3, prev_epochs=0, optimize_trajectory=True,
                                        reg_w_trajectory=1.0), trajectory=traj).interpolate(
         seq, torch.Generator().manual_seed(SEED), root_trans=root_trans)  # warm-up
-    out, launches, ms = timed_solve(apps, seq, reps=2, root_trans=root_trans)
+    out, launches, ms, prof = timed_solve(apps, seq, reps=2, root_trans=root_trans,
+                                          profile=True)
     want = dict(zip(LAUNCH_NAMES, (4 * n_z + 4 * lat.opt_it, 4 * n_z + 4 * (lat.opt_it - 1), 0,
                                    4 * (n_d + 1), 4 * n_d, 4 * n_d)))
     if launches != want:
@@ -1666,11 +1879,7 @@ def traj_solve_phase(model, traj, seq, root_trans):
            "windows": WINDOWS, "opt_it": lat.opt_it, "z_iterations": n_z,
            "decoder_iterations": n_d, "launches_per_iteration": per_iter,
            "ms_per_solve": ms, "launches": launches, "loss_first": float(hist[0]),
-           "loss_last": float(hist[-1]),
-           # the timed solves warmed it up
-           "profile": profile_calls(lambda: apps.interpolate(
-               seq, torch.Generator().manual_seed(SEED), root_trans=root_trans), calls=1,
-               warm=False)}
+           "loss_last": float(hist[-1]), "profile": prof}
     print(json.dumps(row), flush=True)
     return row
 
@@ -1717,9 +1926,6 @@ def eval_traj_recovery_phase(data_root, vae_ck, traj_ck):
            "summary": summary, "seconds": seconds, "launches": launches}
     print(json.dumps(row), flush=True)
     return row
-
-LORA = {"finetune_scope": "lora"}
-BF16_CLONE = {"opt_param_dtype": "bfloat16", "opt_moment_dtype": "bfloat16"}
 
 
 def lora_base_phase(model, st, gen):
@@ -1800,12 +2006,18 @@ def clone_bytes(model, dtype):
     return WINDOWS * n * torch.empty((), dtype=dtype).element_size()
 
 
+# eval_cli's sequences: 1 (2 before the bf16-compute solve's phase; each
+# is a 150-iteration solve of ~4 s, cut for the time limit)
+EVAL_SEQS = 1
+
+
 def eval_cli(data_root, ck, phase, config, extra, check):
     """``eval_recovery --final_try_long_seq_interpolation`` (in this
-    process) on two sequences of the synthetic test split with the training
-    CLI's checkpoint `ck`, under `config` and the flags `extra`; the files
-    and the summary (two outputs of whole windows, finite), and
-    `check(launches)` on the kernel launches of the run; returns its row."""
+    process) on EVAL_SEQS sequences of the synthetic test split with the
+    training CLI's checkpoint `ck`, under `config` and the flags `extra`;
+    the files and the summary (an output of whole windows for each, finite),
+    and `check(launches)` on the kernel launches of the run; returns its
+    row."""
     from hm_vae_torch.cli import eval_recovery
 
     out = os.path.join(OUT_DIR, phase)
@@ -1816,7 +2028,8 @@ def eval_cli(data_root, ck, phase, config, extra, check):
     t0 = time.perf_counter()
     eval_recovery.main(["--config", config, "--output_path", out, "--data_root", data_root,
                         "--test_model", ck, "--final_try_long_seq_interpolation",
-                        "--max_seqs", "2", "--device", DEV, "--seed", str(SEED)] + extra)
+                        "--max_seqs", str(EVAL_SEQS), "--device", DEV, "--seed", str(SEED)]
+                       + extra)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
@@ -1824,8 +2037,8 @@ def eval_cli(data_root, ck, phase, config, extra, check):
                      os.path.splitext(os.path.basename(config))[0])
     files = sorted(os.listdir(d)) if os.path.isdir(d) else []
     res = [f for f in files if f.endswith("_rot_opt_res.npy")]
-    if len(res) != 2 or "summary.json" not in files:
-        fail(f"{phase} wrote {files}, expected two *_rot_opt_res.npy and summary.json")
+    if len(res) != EVAL_SEQS or "summary.json" not in files:
+        fail(f"{phase} wrote {files}, expected {EVAL_SEQS} *_rot_opt_res.npy and summary.json")
     for f in res:
         a = np.load(os.path.join(d, f))
         if a.ndim != 4 or a.shape[1:] != (24, 3, 3) or a.shape[0] % 64 or not np.isfinite(a).all():
@@ -2080,7 +2293,8 @@ def production_cli_phase(data_root, calls=4, compute_dtype=None):
            "overrides": {"log_iter": 32, "snapshot_save_iter": 32, "keep_checkpoints": 2,
                          **({"compute_dtype": compute_dtype} if compute_dtype else {})},
            "runs": seen, "resumed": resumed[0], "checkpoints_after_128": first,
-           "checkpoints_after_resume": names, "logged_steps": [line[1:9] for line in logged],
+           "checkpoints_after_resume": names, "checkpoint": os.path.join(ck, names[-1]),
+           "logged_steps": [line[1:9] for line in logged],
            "seconds": time.perf_counter() - t0,
            "finish": [line for line in text.splitlines() if line.startswith("Finish")][-1][:200]}
     print(json.dumps(row), flush=True)
@@ -3497,6 +3711,9 @@ def ddp_train_phase(data_root):
 
 
 SOLVE_SHARED = {"opt_it": 12, "prev_epochs": 6}  # the shared clone's solve, cut from 150 / 50
+# the per-window clones' solve, cut from 150 / 50 for the time limit (20 z
+# and 9 clone iterations, the last through the clones)
+SOLVE_PER_WINDOW = {"opt_it": 30, "prev_epochs": 19}
 
 
 def parallel_solve_phase(vae_ck):
@@ -3504,10 +3721,10 @@ def parallel_solve_phase(vae_ck):
     card (one torchrun launch, ``chip_smoke.py --rank-audit``) against the
     one-process run, on one synthetic test take of 10 windows
     (``configs/len_64_test_interpolation.yaml``, interpolation): the
-    per-window clones at the config's opt_it (150), the shared clone at
-    SOLVE_SHARED (12 iterations: 7 on z, 5 on the clone, as phase 9's
-    agreement solve, before Adam amplifies the summation order over the
-    ranks).  The summary within the solve gate (10x the spread of a
+    per-window clones at SOLVE_PER_WINDOW (30 iterations: 20 on z, 9 on
+    the clones, the last through them), the shared clone at SOLVE_SHARED (12 iterations: 7 on z,
+    5 on the clone, as phase 9's agreement solve, before Adam amplifies the
+    summation order over the ranks).  The summary within the solve gate (10x the spread of a
     one-process run from the checkpoint scaled by 1 + 1e-7, + 1e-4
     relative), the outputs likewise; rank 0 writes every file, rank 1 none;
     each rank's kernel launches (windowed under per-window clones)."""
@@ -3525,17 +3742,22 @@ def parallel_solve_phase(vae_ck):
                           for k, v in blob["state_dict"].items()}
     pert_ck = os.path.join(out, "perturbed.pt")
     torch.save(blob, pert_ck)
-    shared_cfg = os.path.join(out, "len_64_test_interpolation_shared.yaml")
     with open(LATENT_CONFIG) as f:
-        text = f.read()
-    for key, value in SOLVE_SHARED.items():
-        text, n = re.subn(rf"(?m)^{key}:.*$", f"{key}: {value}", text)
-        if not n:
-            fail(f"parallel_solve: the latent config names no {key}")
-    with open(shared_cfg, "w") as f:
-        f.write(text)
-    modes = (("per_window", LATENT_CONFIG, []),
-             ("shared", shared_cfg, ["--shared_decoder_clone"]))
+        latent_text = f.read()
+
+    def cut(mode, depth):  # the latent config at `depth`, written for `mode`
+        path = os.path.join(out, f"len_64_test_interpolation_{mode}.yaml")
+        text = latent_text
+        for key, value in depth.items():
+            text, n = re.subn(rf"(?m)^{key}:.*$", f"{key}: {value}", text)
+            if not n:
+                fail(f"parallel_solve: the latent config names no {key}")
+        with open(path, "w") as f:
+            f.write(text)
+        return path
+
+    modes = (("per_window", cut("per_window", SOLVE_PER_WINDOW), []),
+             ("shared", cut("shared", SOLVE_SHARED), ["--shared_decoder_clone"]))
 
     def base(config, extra):
         return ["--config", config, "--data_root", data_root,
@@ -3594,8 +3816,8 @@ def parallel_solve_phase(vae_ck):
         if windowed != (mode == "per_window") or not all(n["fused_conv_pool_dgrad"] > 0
                                                          for n in launches):
             fail(f"parallel_solve {mode}: launches per rank {launches}")
-        rows[mode] = {"config": os.path.relpath(LATENT_CONFIG, ROOT)
-                      + ("" if mode == "per_window" else f" at {SOLVE_SHARED}"),
+        rows[mode] = {"config": os.path.relpath(LATENT_CONFIG, ROOT) + " at "
+                      + str(SOLVE_PER_WINDOW if mode == "per_window" else SOLVE_SHARED),
                       "windows": 10, "summary_two_ranks": summaries["two"],
                       "summary_one": summaries["one"], "gate": gate,
                       "rotations_max_abs_diff": out_err, "rotations_band": out_band,
@@ -3978,17 +4200,33 @@ def bf16_converge(data_root):
 
 
 def bf16_trajectory_steps(data_root, path=TRAJ_CONFIG, steps=BF16_TRAJ_STEPS,
-                          name="bf16_trajectory"):
+                          name="bf16_trajectory", agree=False):
     """The trajectory model (``path``: K 31, batch 8, T 128, routed to
     dgrad's spans and wgrad's items; or a copy at train_seq_len 1,024, rows
     past a whole-row block) at bf16 compute, `steps` Trainer.fit steps on
     the card: finite losses, and the kernels' runs on the device 4 / 3 / 4
-    a step (the bf16 span and item kernels)."""
+    a step (the bf16 span and item kernels).  With `agree` the same steps
+    on the CPU from the same init, batches and noise, every step's loss
+    within the band that production_agreement_phase holds the len-64
+    triple to: 10x the larger spread of runs whose batches are scaled by
+    BF16_SCALE (1 + 2^-7) after the upcast on each side, + 1e-4; steps 1-3
+    also within 2^-7 relative."""
     from hm_vae_torch.ops import fused_conv_pool as fcp
     from hm_vae_torch.train.train_step import loss_fields, to_device, train_step
     from hm_vae_torch.train.trainer import build_trainer
 
     cfg = train_config(data_root, path, BF16_TRIPLE)
+    agreement = None
+    if agree:
+        losses = {}
+        for run, dev, sc in (("cpu", "cpu", 1.0), ("gpu_perturbed", DEV, BF16_SCALE),
+                             ("cpu_perturbed", "cpu", BF16_SCALE)):
+            tr, ds, _, _ = build_trainer(cfg, os.path.join(OUT_DIR, f"{name}_{run}"), device=dev)
+            if sc != 1.0:
+                perturb_inputs(tr, sc)
+            losses[run] = []
+            tr.fit(ds, None, max_iter=steps,
+                   log_cb=lambda step, m, out=losses[run]: out.append(m["loss_total"]))
     trainer, train_ds, _, _ = build_trainer(cfg, os.path.join(OUT_DIR, name), device=DEV)
     for c in fcp.launch_entries():
         c.launches = 0
@@ -4002,6 +4240,23 @@ def bf16_trajectory_steps(data_root, path=TRAJ_CONFIG, steps=BF16_TRAJ_STEPS,
     if runs != want or len(out) != steps or not np.isfinite(out).all():
         fail(f"{name}: losses {out}, device runs {runs}, expected {want}")
     plans = fcp.last_backward_plans()
+    if agree:
+        loss = {k: np.array(v, np.float64) for k, v in {"gpu": out, **losses}.items()}
+        if any(len(v) != steps or not np.isfinite(v).all() for v in loss.values()):
+            fail(f"{name}: losses {loss}")
+        rel = np.abs(loss["gpu"] / loss["cpu"] - 1)
+        spread = {d: np.maximum.accumulate(np.abs(loss[f"{d}_perturbed"] / loss[d] - 1))
+                  for d in ("gpu", "cpu")}
+        # the calibrated band is wide (a 1 + 2^-7 batch scale moves the
+        # loss ~1.6%): steps 1-3 are also held to a fixed 2^-7 relative
+        band = 10 * np.maximum(spread["gpu"], spread["cpu"]) + 1e-4
+        band[:3] = np.minimum(band[:3], 2.0 ** -7)
+        if not (rel <= band).all():
+            fail(f"{name}: GPU vs CPU loss relative difference {rel.tolist()} outside "
+                 f"{band.tolist()}")
+        agreement = {"perturbation": BF16_SCALE, "loss_cpu": loss["cpu"].tolist(),
+                     "rel_diff": rel.tolist(), "band": band.tolist(), "fixed": 2.0 ** -7,
+                     "spread": {k: v.tolist() for k, v in spread.items()}}
     # the step's cost on the trained state, as train_phase takes it
     batch = to_device(train_ds.sample_batch(cfg.optim.batch_size), DEV,
                       loss_fields(trainer.state.model))
@@ -4015,6 +4270,7 @@ def bf16_trajectory_steps(data_root, path=TRAJ_CONFIG, steps=BF16_TRAJ_STEPS,
     return {"config": os.path.relpath(path, ROOT), "model_overrides": BF16_TRIPLE,
             "train_seq_len": cfg.model.train_seq_len, "steps": steps, "losses": out,
             "entry_launches_in_run": entries, "device_runs_in_run": runs, "plans": plans,
+            **({"agreement": agreement} if agree else {}),
             "ms_per_step": time_ms(step, reps=10, samples=5), "cost": step_cost(prof),
             "profile": prof}
 
@@ -4070,7 +4326,7 @@ def bf16_train_phase(data_root, model, st, tmodel, gen):
     part("d_convergence")
     cli = production_cli_phase(data_root, calls=2, compute_dtype="bfloat16")
     part("e_cli")
-    traj = bf16_trajectory_steps(data_root)
+    traj = bf16_trajectory_steps(data_root, agree=True)
     part("trajectory")
     g = step["graph_steps_per_call_32"]
     row = {"phase": "bf16_train", "config": os.path.relpath(PRODUCTION_CONFIG, ROOT),
@@ -4088,7 +4344,170 @@ def bf16_train_phase(data_root, model, st, tmodel, gen):
                                                                "checkpoints_after_resume")},
            "trajectory": traj, "seconds": seconds, "elapsed_s": time.perf_counter() - t_phase}
     print(json.dumps(row), flush=True)
-    return kernels, step, converge, traj
+    return kernels, step, converge, traj, cli["checkpoint"]
+
+
+
+# the windowed kernels' rows of the summary: (row key, entry suffix, source,
+# what it replaces, the grouped cuDNN call timed beside it)
+WINDOWED_KINDS = (
+    ("fwd", "", "fused_conv_pool.cu", "hm_vae_tpu/ops/pallas_kernels.py:65", "conv1d"),
+    ("dgrad", "_dgrad", "fused_conv_pool_bwd.cu", "hm_vae_tpu/models/hm_vae.py:200",
+     "torch.nn.grad.conv1d_input"),
+    ("wgrad", "_wgrad", "fused_conv_pool_bwd.cu", "hm_vae_tpu/models/hm_vae.py:200",
+     "torch.nn.grad.conv1d_weight"))
+# (b): 4 windows of one batch at 512 frames, where the top decoder levels'
+# padded rows (256 + 14 and 512 + 14 columns) pass a whole-row block's 256
+LONG_WINDOWS, LONG_FRAMES, LONG_LEVELS = 4, 512, ("dec2", "dec3")
+
+
+@contextlib.contextmanager
+def backward_dtypes(counts):
+    """While open, counts the backward kernels' launches in `counts` by
+    entry and dtype (``dgrad_windowed@bfloat16``, ...)."""
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+
+    dgrad, wgrad = fcp._dgrad, fcp._wgrad
+
+    def counted(fn, what, at):
+        def run(gy, *args, **kw):
+            out = fn(gy, *args, **kw)
+            key = f"{what}{'_windowed' if args[at] is not None else ''}@" + str(
+                gy.dtype).replace("torch.", "")
+            counts[key] = counts.get(key, 0) + 1
+            return out
+        return run
+
+    fcp._dgrad, fcp._wgrad = counted(dgrad, "dgrad", 4), counted(wgrad, "wgrad", 3)
+    try:
+        yield counts
+    finally:
+        fcp._dgrad, fcp._wgrad = dgrad, wgrad
+
+
+def bf16_solve_phase(data_root, lmodel, gen, seq, ck=None, clone_solve=None):
+    """36. The test-time solve at ``compute_dtype: bfloat16`` (per-window
+    decoder clones through the windowed bf16 forward, dgrad and wgrad):
+    (a) the three windowed kernels in bf16 at the 4 decoder levels, 10
+    windows of one batch (:func:`windowed_phase`: 0.02 * max|ref| of the
+    plain versions and of autograd of the plain forward, of 10 one-window
+    launches, two runs bit-equal; timed beside the plain versions and
+    cuDNN's grouped bf16 convolution, bounds at bf16 bytes and 989
+    TFLOP/s); (b) the windowed span and item kernels, f32 and bf16, at 4
+    windows of LONG_FRAMES frames at the top two levels, whose launches
+    must run spans and items, the whole-row bf16 wgrad timed beside the
+    items; (c) an AGREE_IT-iteration 10-window solve at bf16 compute and
+    the production solver dtypes (bf16 clone and moments) on the GPU
+    against the CPU (:func:`solve_agreement_phase`, its band never under
+    2^-7, phase 35's bf16 floor); (d) the full solves at bf16 compute with those
+    dtypes: per-window (2 repetitions), shared and lora (once each), each
+    profiled, launches counted by the entries and by the device exactly as
+    the f32 solves', beside the f32 per-window solve (2 repetitions, here:
+    all after the agreements' last CPU run) and the device time and peak of
+    the f32-compute bf16-clone solve (`clone_solve`, phase 18's row, where
+    given); (e) ``eval_recovery``
+    under ``configs/len64_production.yaml`` with ``compute_dtype:
+    bfloat16`` added, on the triple-trained checkpoint `ck` (phase 35's
+    CLI; made here when absent), on the synthetic test split: its files
+    and summary, its windowed backward launches all bf16, the device's
+    runs the entries' sums.  Returns (a)'s rows, (b)'s rows by dtype and
+    (d)'s rows."""
+    from hm_vae_torch.apps.tasks import LatentOptApps
+    from hm_vae_torch.models.hm_vae import HMVAE
+    from hm_vae_torch.models.structure import get_structure
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+
+    t_phase = time.perf_counter()
+    seconds, last = {}, [t_phase]
+
+    def part(name):  # the seconds since the last part ended
+        t = time.perf_counter()
+        seconds[name], last[0] = t - last[0], t
+
+    bf16 = torch.bfloat16
+    cfg = latent_config(BF16_COMPUTE)
+    st = get_structure(cfg.model)
+    model = HMVAE(cfg.model, cfg.optim.init,
+                  generator=torch.Generator().manual_seed(SEED)).to(DEV)
+    # (a) the solve's shapes
+    rows = windowed_phase(model, st, gen, bf16, tag="@bf16")
+    part("a_kernels")
+    # (b) long windows: dgrad's spans and wgrad's items over windows
+    long_rows = {str(dt).replace("torch.", ""): windowed_phase(
+        m, st, gen, dt, LONG_WINDOWS, LONG_FRAMES, LONG_LEVELS,
+        f"@long{LONG_FRAMES}_{str(dt).replace('torch.', '')}", spans=True)
+        for dt, m in ((torch.float32, lmodel), (bf16, model))}
+    part("b_long_windows")
+    # (c) GPU against CPU
+    agree = solve_agreement_phase(seq, "solve_agreement_bf16")
+    part("c_agreement")
+    # (d) the full solves
+    lat = cfg.latent_opt
+    n_z = min(lat.prev_epochs + 1, lat.opt_it - 1)
+    n_d = lat.opt_it - 1 - n_z
+    LatentOptApps(model, latent_config(BF16_COMPUTE, opt_it=3, prev_epochs=0)).interpolate(
+        seq, torch.Generator().manual_seed(SEED))  # warm-up: structures
+    f32_solve = mode_solve(lmodel, seq, "f32 per_window solve", {},
+                           (4 * n_z, 4 * n_z, 0, 4 * (n_d + 1), 4 * n_d, 4 * n_d), reps=2)
+    solves = {mode: mode_solve(model, seq, f"bf16-compute {mode} solve", {**BF16_CLONE, **ov},
+                               want, reps=2 if mode == "per_window" else 1,
+                               model_overrides=BF16_COMPUTE, device_check=True)
+              for mode, ov, want in (
+                  ("per_window", {}, (4 * n_z, 4 * n_z, 0, 4 * (n_d + 1), 4 * n_d, 4 * n_d)),
+                  ("shared", {"per_window_decoder": False},
+                   (4 * (n_z + n_d + 1), 4 * (n_z + n_d), 4 * n_d, 0, 0, 0)),
+                  ("lora", LORA, (4 * lat.opt_it, 4 * (n_z + n_d), 0, 0, 0, 0)))}
+
+    def cost(r, host=True):  # host: ms by events and the idle share
+        p = r.get("profile", {})
+        return {"peak_memory_bytes": r["peak_memory_bytes"],
+                "device_ms_per_solve": p.get("device_us_per_call", 0.0) / 1e3,
+                **({"ms_per_solve": r["ms_per_solve"], "idle_share": p.get("idle_share")}
+                   if host else {})}
+
+    solve_row = {"phase": "solve_bf16_compute", "config": os.path.relpath(LATENT_CONFIG, ROOT),
+                 "model_overrides": BF16_COMPUTE, "overrides": BF16_CLONE, "windows": WINDOWS,
+                 "opt_it": lat.opt_it, **solves,
+                 "cost": {mode: cost(r) for mode, r in solves.items()},
+                 "f32_per_window": cost(f32_solve),
+                 **({"f32_compute_bf16_clone": cost(clone_solve, host=False)}
+                    if clone_solve else {})}
+    print(json.dumps(solve_row), flush=True)
+    part("d_solves")
+    # (e) the user's path: eval_recovery on the triple's checkpoint under its
+    #     own config
+    if ck is None:
+        ck = production_cli_phase(data_root, calls=2, compute_dtype="bfloat16")["checkpoint"]
+        part("e_checkpoint")
+    with open(PRODUCTION_CONFIG) as f:
+        text = f.read()
+    if re.search(r"(?m)^compute_dtype:", text):
+        fail(f"bf16 eval: {PRODUCTION_CONFIG} already sets compute_dtype")
+    config = os.path.join(OUT_DIR, "len64_production_bfloat16.yaml")
+    with open(config, "w") as f:
+        f.write(text + "\ncompute_dtype: bfloat16\n")
+    counts = {}
+    fcp.device_runs(torch.cuda.current_device(), reset=True)
+    with backward_dtypes(counts):
+        ev = eval_cli(data_root, ck, "eval_recovery_bf16", config, [],
+                      lambda n: n["fused_conv_pool_dgrad_windowed"]
+                      and n["fused_conv_pool_wgrad_windowed"])
+    runs = fcp.device_runs(torch.cuda.current_device())
+    n = ev["launches"]
+    want_runs = {TRACE_NAME[a]: n[a] + n[w] for a, w in zip(LAUNCH_NAMES[:3], LAUNCH_NAMES[3:])}
+    want_counts = {f"{k.replace('fused_conv_pool_', '')}@bfloat16": v
+                   for k, v in n.items() if v and ("dgrad" in k or "wgrad" in k)}
+    if runs != want_runs or counts != want_counts:
+        fail(f"bf16 eval: device runs {runs} (expected {want_runs}), backward launches by "
+             f"dtype {counts} (expected {want_counts}: every one bf16)")
+    ev.update(device_runs=runs, backward_launches_by_dtype=counts,
+              checkpoint=os.path.relpath(ck, ROOT), model_overrides=BF16_COMPUTE)
+    print(json.dumps(ev), flush=True)
+    part("e_eval_recovery")
+    print(json.dumps({"phase": "bf16_solve", "seconds": seconds,
+                      "agreement": {k: agree[k] for k in ("rel_diff", "band", "floor")},
+                      "elapsed_s": time.perf_counter() - t_phase}), flush=True)
+    return rows, long_rows, solves
 
 
 def main() -> None:
@@ -4108,9 +4527,9 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
 
-    def elapsed(phases):
-        print(json.dumps({"phases_done": phases, "elapsed_s": time.perf_counter() - t_start}),
-              flush=True)
+    def elapsed(phases):  # and the agreements' CPU runs not yet ended
+        print(json.dumps({"phases_done": phases, "elapsed_s": time.perf_counter() - t_start,
+                          "cpu_runs_pending": cpu_sides_pending()}), flush=True)
 
     from hm_vae_torch.models.hm_vae import HMVAE
     from hm_vae_torch.models.structure import get_structure
@@ -4173,6 +4592,23 @@ def main() -> None:
         elapsed("1, 35")
         print(smi, flush=True)
         return
+    if sys.argv[1:2] == ["--bf16-solve"]:  # phase 36 alone
+        data_root = os.path.join(OUT_DIR, "train_data")
+        shutil.rmtree(data_root, ignore_errors=True)
+        lcfg = latent_config()
+        lmodel = HMVAE(lcfg.model, lcfg.optim.init,
+                       generator=torch.Generator().manual_seed(SEED)).to(DEV)
+        seq, _ = solve_sequence(np.random.default_rng(SEED))
+        bf16_solve_phase(data_root, lmodel, gen, seq)
+        elapsed("1, 36")
+        print(smi, flush=True)
+        return
+    # the agreements' CPU runs, to the worker in the order they are held
+    #    (the trajectory's once its mean_std exists, after phase 13)
+    seq, root_trans = solve_sequence(np.random.default_rng(SEED))
+    for phase in AGREEMENTS:
+        if not AGREEMENTS[phase][0]:
+            submit_cpu_sides(seq, phase)
     elapsed("1")
     # 2. kernel against its plain version at the main path's shapes: the
     #    batch-8 reconstruct and refine_vibe's batch of 237 windows
@@ -4220,7 +4656,6 @@ def main() -> None:
     lmodel = HMVAE(lcfg.model, lcfg.optim.init,
                    generator=torch.Generator().manual_seed(SEED)).to(DEV)
     windowed = windowed_phase(lmodel, get_structure(lcfg.model), gen)
-    seq, root_trans = solve_sequence(np.random.default_rng(SEED))
     solve_agreement_phase(seq)
     solve, solve_launches = solve_phase(lmodel, seq)
     eval_phase(data_root, lmodel, vae_ck)
@@ -4235,7 +4670,8 @@ def main() -> None:
     traj_eval = eval_trajectory_phase(data_root, vae_ck, traj_ck)
     train_ds = make_loaders(train_config(data_root))[0]
     traj = (tmodel, np.stack([train_ds.mean, train_ds.std]))
-    solve_agreement_phase(seq, traj, root_trans, "solve_agreement_trajectory")
+    submit_cpu_sides(seq, "solve_agreement_trajectory", traj, root_trans)
+    solve_agreement_phase(seq, "solve_agreement_trajectory", traj, root_trans)
     traj_solve = traj_solve_phase(lmodel, traj, seq, root_trans)
     eval_traj_recovery_phase(data_root, vae_ck, traj_ck)
 
@@ -4249,7 +4685,7 @@ def main() -> None:
     # 17. the lora solve: GPU against CPU, then the full solve (the base
     #     convs non-windowed, no wgrad: 4 forward an iteration, 4 dgrad but
     #     the last)
-    solve_agreement_phase(seq, phase="solve_agreement_lora", lat=LORA)
+    solve_agreement_phase(seq, "solve_agreement_lora")
     lora_solve = {"phase": "solve_lora", "config": os.path.relpath(LATENT_CONFIG, ROOT),
                   "overrides": LORA, "windows": WINDOWS, "opt_it": lat0.opt_it,
                   **mode_solve(lmodel, seq, "lora solve", LORA,
@@ -4259,15 +4695,18 @@ def main() -> None:
     print(json.dumps(lora_solve), flush=True)
     # 18. the bf16 clone: GPU against CPU, then the full solve (the launches
     #     of the f32 solve), its clone bytes and time beside the f32 solve's
-    solve_agreement_phase(seq, phase="solve_agreement_bf16_clone", lat=BF16_CLONE)
+    solve_agreement_phase(seq, "solve_agreement_bf16_clone")
     bf16_solve = {"phase": "solve_bf16_clone", "config": os.path.relpath(LATENT_CONFIG, ROOT),
                   "overrides": BF16_CLONE, "windows": WINDOWS, "opt_it": lat0.opt_it,
                   **mode_solve(lmodel, seq, "bf16-clone solve", BF16_CLONE,
                                tuple(solve_launches[n] for n in LAUNCH_NAMES)),
                   "clone_bytes": {"bfloat16": clone_bytes(lmodel, torch.bfloat16),
                                   "float32": clone_bytes(lmodel, torch.float32)},
-                  "f32_solve": {k: solve["per_window"][k]
-                                for k in ("ms_per_solve", "peak_memory_bytes")}}
+                  # the device's numbers only: the worker may have run
+                  # beside phase 10 and not here
+                  "f32_solve": {"peak_memory_bytes": solve["per_window"]["peak_memory_bytes"],
+                                "device_ms_per_solve": solve["per_window"]["profile"][
+                                    "device_us_per_call"] / 1e3}}
     print(json.dumps(bf16_solve), flush=True)
     # 19. the entry points: eval_recovery under the lora scope, and under the
     #     production config (its bf16 clone and moments; its training keys
@@ -4333,9 +4772,16 @@ def main() -> None:
     # 35. training with bf16 conv compute: the bf16 whole-row dgrad and
     #     wgrad, the triple's graphed call against eager steps and its cost,
     #     GPU against CPU, JAX's convergence criterion, the CLI and a resume
-    bf16_rows, bf16_step, bf16_conv, bf16_traj = bf16_train_phase(data_root, model, st,
-                                                                  tmodel, gen)
+    bf16_rows, bf16_step, bf16_conv, bf16_traj, bf16_ck = bf16_train_phase(
+        data_root, model, st, tmodel, gen)
     elapsed("35")
+    # 36. the solve at bf16 conv compute: the windowed bf16 kernels at the
+    #     solve's shapes, the windowed spans and items over long windows,
+    #     GPU against CPU, the full solves, eval_recovery on the triple's
+    #     checkpoint under its own config
+    bf16_win, bf16_long, bf16_solves = bf16_solve_phase(
+        data_root, lmodel, gen, seq, bf16_ck, bf16_solve)
+    elapsed("36")
     # 24. summary: sums over the 8 levels of one reconstruct (forward) or of
     #    one training step (backward), over the 4 decoder levels of a solve's
     #    iteration (windowed), and over the trajectory model's 4 levels
@@ -4415,12 +4861,7 @@ def main() -> None:
                 "launches: in one 150-iteration solve (4 a decoder-phase iteration); "
                 f"library_ms: cuDNN's grouped {lib} (groups = windows) on the stacked folded "
                 "weights, TF32 off",
-    } for what, suffix, src, replaces, lib in (
-        ("fwd", "", "fused_conv_pool.cu", "hm_vae_tpu/ops/pallas_kernels.py:65", "conv1d"),
-        ("dgrad", "_dgrad", "fused_conv_pool_bwd.cu", "hm_vae_tpu/models/hm_vae.py:200",
-         "torch.nn.grad.conv1d_input"),
-        ("wgrad", "_wgrad", "fused_conv_pool_bwd.cu", "hm_vae_tpu/models/hm_vae.py:200",
-         "torch.nn.grad.conv1d_weight"))]}
+    } for what, suffix, src, replaces, lib in WINDOWED_KINDS]}
     for row in summary["kernels"][:6]:
         if row["name"] in LAUNCH_NAMES[:3]:
             row["launches_per_solve"] = solve_launches[row["name"]]
@@ -4634,6 +5075,35 @@ def main() -> None:
                            "training), " if case != "trajectory" else "")
                         + note + "; times: device time from CUDA-graph replays; library_ms: "
                         f"{lib} in bf16 on the folded weight"})
+    for what, suffix, src, replaces, lib in WINDOWED_KINDS:
+        name = f"fused_conv_pool{suffix}_windowed"
+        common = {"route": "cuda", "source": f"hm_vae_torch/csrc/{src}",
+                  "replaces": f"{replaces} in bf16 (compute_dtype bfloat16, "
+                              "hm_vae_tpu/models/hm_vae.py:174-195) under jax.vmap over windows "
+                              "(per-window decoder clones, hm_vae_tpu/apps/latent_opt.py:423)"}
+        summary["kernels"].append({
+            "name": f"{name}@bf16", **common,
+            "launches": bf16_solves["per_window"]["launches"][name],
+            **total([r[what] for r in bf16_win]),
+            "note": f"bf16, {WINDOWS} windows of one batch each (phase 36); times (device time "
+                    "from CUDA-graph replays; eager_ms: eager calls) and bounds (bf16 bytes, "
+                    "989 TFLOP/s) are sums over the 4 decoder levels; launches: in one "
+                    "150-iteration per-window solve at bf16 compute; library_ms: cuDNN's "
+                    f"grouped {lib} in bf16 (groups = windows) on the stacked folded weights"})
+        for dt, rows in bf16_long.items():
+            summary["kernels"].append({
+                "name": f"{name}@long{LONG_FRAMES}" + ("_bf16" if dt == "bfloat16" else ""),
+                **common, "launches": 0,
+                **total([r[what] for r in rows]),
+                **({"plan": rows[0][what]["plan"]} if "plan" in rows[0][what] else {}),
+                **({"whole_rows_ms": sum(r[what]["whole_rows"]["ms"] for r in rows)}
+                   if all("whole_rows" in r[what] for r in rows) else {}),
+                "note": f"{dt}, {LONG_WINDOWS} windows of one batch at {LONG_FRAMES} frames, "
+                        f"sums over the levels {', '.join(LONG_LEVELS)} (padded rows past "
+                        "256 columns: dgrad's span kernel, wgrad's item kernel; whole_rows_ms: "
+                        "the whole-row bf16 wgrad beside the items); launches: 0, checked, on "
+                        "no driven path (phase 36); times: device time from CUDA-graph "
+                        f"replays; library_ms: cuDNN's grouped {lib} in {dt}"})
     pack = {dt: [r["dgrad"]["pack"] for r in rows if "pack" in r["dgrad"]]
             for dt, rows in (("float32", b64_bwd), ("bfloat16", bf16_rows["b64"]))}
     top = "float32" if pack["float32"] else "bfloat16"
@@ -4678,4 +5148,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:  # the worker's current run ends; queued ones are dropped
+        for pool in CPU_POOL:
+            pool.shutdown(wait=False, cancel_futures=True)

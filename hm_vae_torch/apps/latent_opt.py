@@ -51,10 +51,15 @@ windows).  Its pull-back is in weight space (:func:`_lora_reg`) and
 f32 whatever ``opt_param_dtype`` says, as in JAX.
 
 ``opt_param_dtype: bfloat16`` stores the clone (and its per-window stack)
-in bf16: the pull-back target is the cast clone, the convs fold it up-cast
-to f32 (the kernels' backward is f32), its gradients are bf16 as JAX's,
-and each step writes the new value back by stochastic rounding, hashed per
-leaf of the trainable subtree with one draw for every window.
+in bf16: the pull-back target is the cast clone, the convs fold it in the
+model's compute dtype, its gradients are bf16 as JAX's, and each step
+writes the new value back by stochastic rounding, hashed per leaf of the
+trainable subtree with one draw for every window.
+
+At ``compute_dtype: bfloat16`` the convs fold the clone (f32 or bf16) in
+bf16 and run the kernels' bf16 forms, the windowed ones under per-window
+clones, as the JAX solver vmaps its bf16 level over the windows; each
+clone leaf gets its gradient in its own dtype.
 
 The optimizer is the JAX package's optax chain, ``add_decayed_weights ->
 scale_by_adam_stored -> scale_by_learning_rate(StepLR)`` (the decoder

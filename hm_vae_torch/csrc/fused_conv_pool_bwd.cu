@@ -136,8 +136,12 @@
 //   tap (dgrad) or k-step (wgrad) as in f32, the cluster's partials summed
 //   in rank order; each output is rounded to bf16 once, at its store.
 //   dgrad_span_kernel's bf16 form runs one wgmma.m64n32k16 a tap, the item
-//   kernel's one wgmma.m64n64k16 a k-step.  The windowed backward is f32
-//   only (the wrapper raises for bf16 there before any launch);
+//   kernel's one wgmma.m64n64k16 a k-step.  Every bf16 form takes windows
+//   as its f32 form does (the solve at compute_dtype bfloat16, JAX's bf16
+//   level under jax.vmap): the window from grid y (dgrad_kernel, the span
+//   kernel, its weight layout) or z (wgrad_kernel, the item kernel), its
+//   offsets in elements of T, so a window's weight, gradient and batches
+//   lie where the f32 form finds them, at half the bytes;
 // Limits: C a multiple of 8 (the wrappers pad), K <= 31 (wgrad's 32
 // tap tiles), and shared memory: dgrad's two weight stages are 32 rows of
 // 16 channels x K taps (127 KB at K 31, so one block an SM there) beside

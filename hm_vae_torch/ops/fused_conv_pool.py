@@ -12,7 +12,7 @@ and over the short rows of a large batch on ``wgmma``, planned by
 :func:`dgrad_plan` and :func:`wgrad_plan`; dgrad's span kernel reads the
 weight laid out once a call by :func:`dgrad_span_pack`, a kernel of its
 own; wgrad's item kernel takes items of one batch's columns or of several
-batches' whole rows; also bf16, but the windowed forms, one bf16
+batches' whole rows; also bf16, the windowed forms too, one bf16
 ``mma.sync`` or ``wgmma`` a k-step: the models' ``compute_dtype:
 bfloat16``), the counterparts of the JAX package's
 autodiff of its XLA level (``hm_vae_tpu/models/hm_vae.py``; the JAX package
@@ -77,10 +77,6 @@ CHUNK_CHANNELS = {torch.bfloat16: 16, torch.float32: 8}
 # the backward kernels' tiles: K up to 31 taps (wgrad: K + 1 tap tiles, 4 a warp)
 MAX_BWD_K = 31
 BWD_CHUNK_CHANNELS = 8  # the backward kernels' channel chunk (the mma's N), in f32 and bf16
-# the windowed backward runs in float32 only: bf16 raises before any launch,
-# naming the work that will port it
-BF16_WINDOWED = ("the windowed backward kernels run in float32 only (bf16 windowed kernels: "
-                 "ROADMAP Queue 6 item 2)")
 MAX_SPLIT = 8  # blocks of a cluster (the portable maximum)
 BWD_WARPS = 8  # dgrad: one 16-column tile of a batch group per warp,
 DGRAD_TILES = 2  # or up to two for a group of one batch (a padded row or span <= 256 / stride)
@@ -163,7 +159,13 @@ def fused_conv_pool_dgrad_reference(gy, y, weight, T_in: int, stride: int, paddi
     """Plain PyTorch input gradient of one folded level: the transposed conv
     of ``g = gy * act'(y)`` onto the padded input, then the padding's
     adjoint (reflected columns add onto their sources).  (B, C_in, T_in)."""
-    g = _act_grad(gy, y, negative_slope)
+    return _dgrad_of_g(_act_grad(gy, y, negative_slope), weight, T_in, stride, padding,
+                       padding_mode)
+
+
+def _dgrad_of_g(g, weight, T_in: int, stride: int, padding: int,
+                padding_mode: str) -> torch.Tensor:
+    """:func:`fused_conv_pool_dgrad_reference` from g = gy * act'(y)."""
     K, T_out = weight.shape[2], g.shape[2]
     Tp = T_in + 2 * padding
     gxp = torch.nn.functional.conv_transpose1d(
@@ -188,7 +190,13 @@ def fused_conv_pool_wgrad_reference(gy, y, x, K: int, stride: int, padding: int,
     ``sum_{b,t} g`` (P,).  ``live`` (P, C_in) zeroes the dead tiles, as the
     kernel leaves them (their entries are structural zeros of the fold, so
     the raw weight's gradient does not read them)."""
-    g = _act_grad(gy, y, negative_slope)
+    return _wgrad_of_g(_act_grad(gy, y, negative_slope), x, K, stride, padding, padding_mode,
+                       live)
+
+
+def _wgrad_of_g(g, x, K: int, stride: int, padding: int, padding_mode: str,
+                live: Optional[torch.Tensor]):
+    """:func:`fused_conv_pool_wgrad_reference` from g = gy * act'(y)."""
     cols = pad_temporal(x, padding, padding_mode).unfold(2, K, stride)  # (B, C, T_out, K)
     gw = torch.einsum("bpt,bctk->pck", g, cols)
     if live is not None:
@@ -196,27 +204,38 @@ def fused_conv_pool_wgrad_reference(gy, y, x, K: int, stride: int, padding: int,
     return gw, g.sum((0, 2))
 
 
+# The windowed plain versions compute as the kernels do in either dtype: in
+# bf16, f32 sums of the bf16 operands, g = gy * act'(y) rounded to bf16 once
+# and each output rounded once (JAX's bf16 level rounds its conv's output
+# before the bias and the activation; the 0.02 * max|ref| rule covers both)
+
+
 def fused_conv_pool_windowed_reference(x, weight, bias, stride: int, padding: int,
                                        padding_mode: str = "reflect",
                                        negative_slope: float = 0.2) -> torch.Tensor:
     """Plain PyTorch windowed level: x (G*n, C_in, T), folded weights
     (G, P, C_in, K) and biases (G, P) or None; window g's n batches go
-    through its own weight, with :func:`fused_conv_pool_reference`."""
+    through its own weight, with :func:`fused_conv_pool_reference` in f32
+    (the bias added and the activation taken in f32), the output in x's
+    dtype."""
     G = weight.shape[0]
     return torch.cat([fused_conv_pool_reference(
-        xg, weight[g], None if bias is None else bias[g], None, None, stride, padding,
-        padding_mode, negative_slope) for g, xg in enumerate(x.chunk(G))])
+        xg.float(), weight[g].float(), None if bias is None else bias[g].float(), None, None,
+        stride, padding, padding_mode, negative_slope) for g, xg in enumerate(x.chunk(G))]
+    ).to(x.dtype)
 
 
 def fused_conv_pool_dgrad_windowed_reference(gy, y, weight, T_in: int, stride: int,
                                              padding: int, padding_mode: str = "reflect",
                                              negative_slope: float = 0.2) -> torch.Tensor:
     """Plain windowed input gradient: :func:`fused_conv_pool_dgrad_reference`
-    of each window's batches on its own weight (G, P, C_in, K)."""
+    of each window's batches on its own weight (G, P, C_in, K), g in gy's
+    dtype, the sums in f32, the result in gy's dtype."""
     G = weight.shape[0]
-    return torch.cat([fused_conv_pool_dgrad_reference(
-        gg, yg, weight[g], T_in, stride, padding, padding_mode, negative_slope)
-        for g, (gg, yg) in enumerate(zip(gy.chunk(G), y.chunk(G)))])
+    g = _act_grad(gy, y, negative_slope)
+    return torch.cat([_dgrad_of_g(gg.float(), weight[i].float(), T_in, stride, padding,
+                                  padding_mode) for i, gg in enumerate(g.chunk(G))]
+                     ).to(gy.dtype)
 
 
 def fused_conv_pool_wgrad_windowed_reference(gy, y, x, K: int, stride: int, padding: int,
@@ -224,11 +243,13 @@ def fused_conv_pool_wgrad_windowed_reference(gy, y, x, K: int, stride: int, padd
                                              negative_slope: float = 0.2,
                                              live: Optional[torch.Tensor] = None):
     """Plain windowed weight and bias gradients, (G, P, C_in, K) and (G, P):
-    :func:`fused_conv_pool_wgrad_reference` over each window's batches."""
-    parts = [fused_conv_pool_wgrad_reference(gg, yg, xg, K, stride, padding, padding_mode,
-                                             negative_slope, live)
-             for gg, yg, xg in zip(gy.chunk(windows), y.chunk(windows), x.chunk(windows))]
-    return torch.stack([w for w, _ in parts]), torch.stack([b for _, b in parts])
+    :func:`fused_conv_pool_wgrad_reference` over each window's batches, g in
+    gy's dtype, the sums in f32, the results in gy's dtype."""
+    g = _act_grad(gy, y, negative_slope)
+    parts = [_wgrad_of_g(gg.float(), xg.float(), K, stride, padding, padding_mode, live)
+             for gg, xg in zip(g.chunk(windows), x.chunk(windows))]
+    return (torch.stack([w for w, _ in parts]).to(gy.dtype),
+            torch.stack([b for _, b in parts]).to(gy.dtype))
 
 
 def fold_operands(
@@ -1344,12 +1365,21 @@ def wgrad_items_routed(B: int, T_in: int, K: int, stride: int, padding: int,
                        esz: int = 4) -> bool:
     """Whether :func:`wgrad_plan` gives rows that fit a whole-row block to
     the item kernel's items of one batch's columns: the trajectory's short
-    K-31 rows (:func:`traj_rows`), and in bf16 (``esz`` 2) rows too long for
-    an f32 whole-row block, which f32 runs as items (the stride-2 level enc1
-    at (8, 1,024)); where the card timed items faster (PERF.md)."""
+    K-31 rows (:func:`traj_rows`), and bf16 rows past f32's whole rows
+    (:func:`wgrad_bf16_items`); where the card timed items faster (PERF.md)."""
+    return traj_rows(B, T_in, K, stride, padding) or wgrad_bf16_items(B, T_in, K, stride,
+                                                                      padding, esz)
+
+
+def wgrad_bf16_items(B: int, T_in: int, K: int, stride: int, padding: int,
+                     esz: int = 4) -> bool:
+    """Whether bf16 (``esz`` 2) rows of ``B`` batches a window are too long
+    for an f32 whole-row block, which f32 runs as items: bf16 takes items
+    there too, one window (the stride-2 level enc1 at (8, 1,024)) or G
+    windows (the solve's decoder levels at long windows, each window's
+    rows as one window's), as f32 does."""
     T_out = (T_in + 2 * padding - K) // stride + 1
-    return traj_rows(B, T_in, K, stride, padding) or (
-        esz == 2 and not wgrad_whole_rows(B, T_in, K, T_out, -(-T_out // 4) * 4, stride))
+    return esz == 2 and not wgrad_whole_rows(B, T_in, K, T_out, -(-T_out // 4) * 4, stride)
 
 
 def wgrad_routed_rows(B: int, T_in: int, K: int, stride: int, padding: int, esz: int = 4,
@@ -1395,12 +1425,12 @@ def wgrad_plan(B: int, T_out: int, entries: int, sms: int, windows: int = 1,
                per_sm: int = 1) -> WgradPlan:
     """The wgrad kernel's :class:`WgradPlan`: where the call is routed to
     the item kernel (``rows``: :func:`wgrad_routed_rows`, the batches an
-    item holds, 1 for items of one batch's columns; one window),
+    item holds, 1 for items of one batch's columns; over windows 1 at most),
     :func:`wgrad_span_plan` over them; else :func:`wgrad_whole_plan`.
     ``per_sm``: the item kernel's blocks an SM
     (:func:`wgrad_items_per_sm`)."""
-    if rows and windows == 1:
-        return wgrad_span_plan(B, T_out, entries, sms, 1, span_cols, rows, per_sm)
+    if rows:
+        return wgrad_span_plan(B, T_out, entries, sms, windows, span_cols, rows, per_sm)
     return wgrad_whole_plan(B, T_out, entries, sms, windows, smem, span_cols, per_sm)
 
 
@@ -1443,13 +1473,6 @@ def last_backward_plans() -> dict:
             "wgrad": dict(zip(WgradPlan._fields + ("smem",), out[8:]))}
 
 
-def _bf16_checks(windows: Optional[int]) -> None:
-    """The bf16 backward kernels take one window: bf16 over windows raises
-    before any launch."""
-    if windows is not None:
-        raise TypeError(BF16_WINDOWED)
-
-
 def _aligned(t: torch.Tensor, dim: int, multiple: int) -> torch.Tensor:
     """``t`` zero-padded along ``dim`` to a multiple of ``multiple``, on a
     16-byte aligned address: the kernels bulk-copy whole rows (``t`` itself
@@ -1484,8 +1507,6 @@ def _dgrad(gy, y, weight, s: LevelStructure, T_in: int, windows: Optional[int],
         raise ValueError(f"T_in {T_in} does not give T_out {T_out}")
     esz = gy.element_size()
     gran = 16 // esz  # the kernels bulk-copy rows of gy and y as whole 16-byte granules
-    if gy.dtype == torch.bfloat16:
-        _bf16_checks(windows)
     gy, y = _aligned(gy, 2, gran), _aligned(y, 2, gran)
     w = _aligned(weight, weight.dim() - 2, BWD_CHUNK_CHANNELS)
     C, t_ld = w.shape[-2], gy.shape[2]
@@ -1531,8 +1552,6 @@ def _wgrad(gy, y, x, s: LevelStructure, windows: Optional[int],
         raise ValueError(f"T_in {T_in} does not give T_out {T_out}")
     esz = gy.element_size()
     gran = 16 // esz
-    if gy.dtype == torch.bfloat16:
-        _bf16_checks(windows)
     gy, y = _aligned(gy, 2, gran), _aligned(y, 2, gran)
     x = _aligned(x, 1, BWD_CHUNK_CHANNELS)
     C, t_ld = x.shape[1], gy.shape[2]
@@ -1540,8 +1559,11 @@ def _wgrad(gy, y, x, s: LevelStructure, windows: Optional[int],
     entries = s.wgrad_row.numel()
     if plan is None:
         cols = wgrad_span_cols(K, s.stride, esz)
+        # over windows no items of several batches' rows: the card has
+        # timed none (ROADMAP)
         rows = (wgrad_routed_rows(B, T_in, K, s.stride, s.padding, esz, cols)
-                if windows is None else 0)
+                if windows is None else int(wgrad_bf16_items(B // G, T_in, K, s.stride,
+                                                             s.padding, esz)))
         plan = wgrad_plan(
             B // G, T_out, entries, _sm_count(dev), G,
             lambda sb, split: _wgrad_smem(B // G, T_in, K, T_out, t_ld, s.stride, sb, split,
@@ -1597,7 +1619,7 @@ def fused_conv_pool_dgrad_windowed(gy: torch.Tensor, y: torch.Tensor, weight: to
                                    structure: LevelStructure, T_in: int) -> torch.Tensor:
     """:func:`fused_conv_pool_dgrad` of G windows: gy, y (G*n, P, T_out),
     folded weights (G, P, C_in, K), window g's batches through weight g.
-    One kernel launch on CUDA (f32 only)."""
+    One kernel launch on CUDA, f32 or bf16, as the one-window entry."""
     s = structure
     if gy.device.type == "cpu":
         return fused_conv_pool_dgrad_windowed_reference(gy, y, weight, T_in, s.stride,
@@ -1611,7 +1633,7 @@ def fused_conv_pool_wgrad_windowed(gy: torch.Tensor, y: torch.Tensor, x: torch.T
     """:func:`fused_conv_pool_wgrad` of ``windows`` windows of gy, y
     (G*n, P, T_out) and x (G*n, C_in, T_in): each window's gradients
     (G, P, C_in, K) and (G, P), summed over its own n batches only.  One
-    kernel launch on CUDA (f32 only)."""
+    kernel launch on CUDA, f32 or bf16, as the one-window entry."""
     s = structure
     if gy.device.type == "cpu":
         return fused_conv_pool_wgrad_windowed_reference(
@@ -1674,13 +1696,17 @@ class WindowedFusedConvPoolFn(torch.autograd.Function):
     """G folded levels over the G windows of a batch, differentiable:
     ``WindowedFusedConvPoolFn.apply(x, weight, bias, structure)`` with x
     (G*n, C_in, T), folded weights (G, P, C_in, K) and biases (G, P) or None
-    (f32), window g's n batches through weight g.
+    in the structure's dtype (f32 or bf16), window g's n batches through
+    weight g.
 
     On CUDA the forward repacks the G weights (:func:`repack`) and launches
     :func:`fused_conv_pool_windowed`; the backward launches
     :func:`fused_conv_pool_dgrad_windowed` (only when x needs a gradient)
-    and :func:`fused_conv_pool_wgrad_windowed` (one gradient per window).
-    As :class:`FusedConvPoolFn` otherwise.
+    and :func:`fused_conv_pool_wgrad_windowed` (one gradient per window),
+    in the structure's dtype: a solver's clone leaves (f32 or bf16) reach
+    it through the fold's cast to the compute dtype, whose backward returns
+    each leaf its gradient in its own dtype.  As :class:`FusedConvPoolFn`
+    otherwise.
     """
 
     @staticmethod

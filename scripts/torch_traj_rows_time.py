@@ -12,7 +12,10 @@ its split counted in stages and its waves in the clusters the card holds;
 ``wgrad_span_plan``: items of one batch's columns) and the whole-row plans
 (``dgrad_whole_plan``, ``wgrad_whole_plan``), whether or not the wrapper
 routes the shape there, and cuDNN's ``conv1d_input`` / ``conv1d_weight``
-on the same folded weight (TF32 off; unused by the port).  Each span
+on the same folded weight (TF32 off; unused by the port), the plain
+versions (``fused_conv_pool_{dgrad,wgrad}_reference``) and the bounds
+(the larger of the least bytes over 3.35 TB/s and the operations over the
+dtype's peak, ``chip_smoke.bwd_work``).  Each span
 result is held against its plain version (f32 1e-4 * max(1, max|ref|),
 bf16 0.02 * max|ref|) and bit-equal on two runs.  Device ms: 20 launches
 in a CUDA graph, the median of 7 replays (dgrad's span time with its
@@ -94,7 +97,12 @@ def main() -> None:
                             torch.where(y >= 0, gy, gy * s.negative_slope)),
                         "wgrad_lib": lambda: torch.nn.grad.conv1d_weight(
                             F.pad(x, (pad, pad), mode=mode), wf.shape,
-                            torch.where(y >= 0, gy, gy * s.negative_slope))}
+                            torch.where(y >= 0, gy, gy * s.negative_slope)),
+                        "dgrad_plain": lambda: fcp.fused_conv_pool_dgrad_reference(
+                            gy, y, wf, T, stride, pad, mode, s.negative_slope),
+                        "wgrad_plain": lambda: fcp.fused_conv_pool_wgrad_reference(
+                            gy, y, x, K, stride, pad, mode, s.negative_slope,
+                            s.live_elements())}
                     refs = {"dgrad_span": fcp.fused_conv_pool_dgrad_reference(
                                 gy, y, wf, T, stride, pad, mode, s.negative_slope),
                             "wgrad_items": fcp.fused_conv_pool_wgrad_reference(
@@ -112,9 +120,14 @@ def main() -> None:
                     for what, fn in runs.items():
                         lv[what] = cs.device_ms(fn)
                     lv["dgrad_plan"], lv["wgrad_plan"] = d_plan._asdict(), w_plan._asdict()
+                    d_bytes, w_bytes, d_ops, w_ops = cs.bwd_work(gy, y, x, wf)
+                    for what, nb, no in (("dgrad", d_bytes, d_ops), ("wgrad", w_bytes, w_ops)):
+                        lv[f"{what}_bound"] = max(nb / cs.MEM_BPS, no / cs.PEAK_FLOPS[dtype]) * 1e3
                     row["levels"].append(lv)
                 for what in runs:
                     row[f"{what}_ms"] = sum(lv[what] for lv in row["levels"])
+                for what in ("dgrad", "wgrad"):
+                    row[f"{what}_bound_ms"] = sum(lv[f"{what}_bound"] for lv in row["levels"])
                 row["dgrad_routed"] = fcp.dgrad_rows_routed(b, T, 31, 1, 15, esz)
                 row["wgrad_routed"] = fcp.wgrad_items_routed(b, T, 31, 1, 15, esz)
                 for k, span, whole in (("dgrad", "dgrad_span_ms", "dgrad_whole_ms"),

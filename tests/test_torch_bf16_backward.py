@@ -13,9 +13,9 @@ where chip_smoke.py phase 35 holds them against these plain versions):
   and ``wgrad_layout`` in ``csrc/fused_conv_pool_bwd.cu``) in both element
   sizes, and the item kernel's (``wgrad_span_layout``) over one batch's
   columns and several batches' rows; long rows planning dgrad's spans and
-  wgrad's items in bf16, the bf16 windowed backward raising before any
-  launch, and a bf16 structure's backward lists at the kernels' 8-channel
-  chunks.
+  wgrad's items in bf16, and a bf16 structure's backward lists at the
+  kernels' 8-channel chunks.  (The windowed bf16 backward, its plans and
+  the solve at bf16 compute: ``tests/test_torch_bf16_solve.py``.)
 
 Training at bf16 compute is held against JAX in
 ``tests/test_torch_bf16_training.py``.
@@ -283,10 +283,6 @@ def test_planner_layouts_mirror_the_kernels(esz):
     assert n > 30
 
 
-def _meta(*shape):
-    return torch.empty(shape, dtype=BF16, device="meta")
-
-
 @pytest.mark.parametrize("model,level,T,wgrad_spans", [
     ("traj", 0, 1024, True), ("traj", 3, 7200, True), ("len64", 1, 1024, True)])
 def test_bf16_long_rows_plan_kernels_that_fit(model, level, T, wgrad_spans):
@@ -294,8 +290,8 @@ def test_bf16_long_rows_plan_kernels_that_fit(model, level, T, wgrad_spans):
     stride-2 len-64 level at T 1,024) run in bf16 too: dgrad its span
     kernel (spans of one batch's row, two or more stages of its bf16
     planes in a block), wgrad its item kernel (items of one batch's 128
-    columns, two stages of bf16 boxes in a block, two blocks an SM); the
-    wrapper's bf16 check passes for one window.  At the len-64 level
+    columns, two stages of bf16 boxes in a block, two blocks an SM).  At
+    the len-64 level
     wgrad's bf16 stages, half as large, would still fit whole rows (batch
     2), but the plan takes items there as f32 does (``wgrad_items_routed``:
     the card timed them faster)."""
@@ -306,7 +302,6 @@ def test_bf16_long_rows_plan_kernels_that_fit(model, level, T, wgrad_spans):
     K, stride, pad = sp.kernel_size, sp.stride, sp.padding
     T_out = (T + 2 * pad - K) // stride + 1
     t_ld = -(-T_out // 8) * 8
-    fcp._bf16_checks(None)  # one window, any row
     d = fcp.dgrad_plan(2, T, K, stride, pad, t_ld, s.dgrad_start.numel() - 1, s.dgrad_max_live,
                        SMS, 1, (s.dgrad_span_start.numel() - 1, s.dgrad_span_max_live), esz=2)
     assert d.nbb == 1 and d.groups == 2 and d.span == fcp.dgrad_span_cols(K, stride, 2) == 256
@@ -330,23 +325,6 @@ def test_bf16_long_rows_plan_kernels_that_fit(model, level, T, wgrad_spans):
     assert fcp._wgrad_span_smem(K, stride, w.span, 2) <= fcp.MAX_SMEM
     # bf16: one or two m64 tiles a warpgroup, two blocks an SM
     assert fcp.wgrad_items_per_sm(K, stride, w.span, 2) == 2
-
-
-def test_bf16_windowed_backward_raises_before_a_launch():
-    """The windowed backward (the solver's per-window clones) is f32 only:
-    a bf16 call raises, naming ROADMAP Queue 6 item 2, even where a
-    whole-row launch would take the shape."""
-    _, conv, T = _cases("len64")[4]
-    sp = conv.spec
-    s = fcp.pack_structure(conv.structure().live_elements(), sp.kernel_size, BF16, sp.stride,
-                           sp.padding, sp.padding_mode, conv.negative_slope, device="meta")
-    T_out = (T + 2 * sp.padding - sp.kernel_size) // sp.stride + 1
-    gy = _meta(10, s.rows, T_out)
-    with pytest.raises(TypeError, match="Queue 6 item 2"):
-        fcp.fused_conv_pool_dgrad_windowed(
-            gy, gy, _meta(10, s.rows, s.in_channels, sp.kernel_size), s, T)
-    with pytest.raises(TypeError, match="Queue 6 item 2"):
-        fcp.fused_conv_pool_wgrad_windowed(gy, gy, _meta(10, s.in_channels, T), s, 10)
 
 
 def test_bf16_structure_lists_are_the_backward_chunks():

@@ -215,20 +215,17 @@ def test_trained_zero_keeps_its_tile():
 
 
 def test_backward_wrappers_take_float32_only():
-    """On a non-CPU device the wrappers check before they launch: bf16 runs
-    the backward kernels over one window only, so a bf16 call over windows
-    raises, naming the ROADMAP item that will port it, instead of falling
-    back; so does a weight or x whose dtype is not gy's.  bf16 over rows
-    past whole-row staging plans the span kernel's bf16 form (dgrad) and
-    the item kernel's (wgrad: items of one batch's columns that fit a
-    block)."""
+    """On a non-CPU device the wrappers check before they launch: a weight
+    or x whose dtype is not gy's raises, one window or several, instead of
+    falling back.  bf16 over rows past whole-row staging plans the span
+    kernel's bf16 form (dgrad) and the item kernel's (wgrad: items of one
+    batch's columns that fit a block)."""
     def meta(*shape):
         return torch.empty(shape, dtype=torch.bfloat16, device="meta")
 
     s = fcp.pack_structure(torch.ones(64, 8, dtype=torch.bool), 3, torch.bfloat16, 1, 1,
                            device="meta")
     T = 1024  # past one block's whole-row staging: spans and items
-    fcp._bf16_checks(None)  # one window: the bf16 check passes for dgrad and wgrad
     d = fcp.dgrad_plan(1, T, 3, 1, 1, T, s.dgrad_start.numel() - 1, s.dgrad_max_live, 132, 1,
                        (s.dgrad_span_start.numel() - 1, s.dgrad_span_max_live), esz=2)
     assert d.span == fcp.dgrad_span_cols(3, 1, 2) and d.nbb == 1
@@ -238,9 +235,10 @@ def test_backward_wrappers_take_float32_only():
     assert w.sb == 1 and w.span == fcp.wgrad_span_cols(3, 1, 2) == 128
     assert fcp._wgrad_span_smem(3, 1, w.span, 2) <= fcp.MAX_SMEM
     gy = meta(2, 64, 4)  # two windows of one batch
-    with pytest.raises(TypeError, match="float32 only.*Queue 6 item 2"):
-        fcp.fused_conv_pool_dgrad_windowed(gy, gy, meta(2, 64, 8, 3), s, 4)
-    with pytest.raises(TypeError, match="float32 only.*Queue 6 item 2"):
-        fcp.fused_conv_pool_wgrad_windowed(gy, gy, meta(2, 8, 4), s, 2)
+    with pytest.raises(TypeError, match="weight has dtype torch.float32"):
+        fcp.fused_conv_pool_dgrad_windowed(gy, gy, torch.empty((2, 64, 8, 3), device="meta"),
+                                           s, 4)
+    with pytest.raises(TypeError, match="x has dtype torch.float32"):
+        fcp.fused_conv_pool_wgrad_windowed(gy, gy, torch.empty((2, 8, 4), device="meta"), s, 2)
     with pytest.raises(TypeError, match="weight has dtype torch.float32"):
         fcp.fused_conv_pool_dgrad(gy, gy, torch.empty((64, 8, 3), device="meta"), s, 4)
