@@ -578,9 +578,12 @@ def bwd_kind(name):
     "wgrad_nq4", the trajectory model's K 31); ``wgrad_span_kernel``, the
     item kernel: over items of one batch's columns by its m64 tiles a
     warpgroup, "wgrad_spans_nt1" (K <= 15) or "wgrad_spans_nt2" (K <= 31),
-    over items of several batches' whole rows "wgrad_spans_rows"; "_bf16"
-    after the name of a bf16 instantiation."""
+    over items of several batches' whole rows "wgrad_spans_rows";
+    ``wgrad_tiles_kernel``, the tile kernel over many windows' short rows,
+    "wgrad_tiles"; "_bf16" after the name of a bf16 instantiation."""
     bf16 = "_bf16" if "nv_bfloat16" in name else ""
+    if "wgrad_tiles" in name:
+        return "wgrad_tiles" + bf16
     if "dgrad_span_pack" in name:
         return "dgrad_span_pack" + bf16
     if "dgrad" in name:
@@ -704,11 +707,12 @@ def e2e_phase(cfg, dtype, x6d):
 # runs them with no call of their entries, so only the trace sees them)
 TRACE_KERNELS = re.compile(
     r"::(conv_gemm_kernel|dgrad_kernel|dgrad_span_kernel|dgrad_span_pack_kernel|wgrad_kernel"
-    r"|wgrad_span_kernel)[<(]")
+    r"|wgrad_span_kernel|wgrad_tiles_kernel)[<(]")
 # the dgrad kernels of a training step in a device trace: whole rows, spans
-# and the spans' weight layout; the wgrad kernels: whole rows and items
+# and the spans' weight layout; the wgrad kernels: whole rows, items and
+# tiles
 DGRAD_TRACE = ("dgrad_kernel", "dgrad_span_kernel", "dgrad_span_pack_kernel")
-WGRAD_TRACE = ("wgrad_kernel", "wgrad_span_kernel")
+WGRAD_TRACE = ("wgrad_kernel", "wgrad_span_kernel", "wgrad_tiles_kernel")
 TRACE_NAME = {"fused_conv_pool": "conv_gemm_kernel", "fused_conv_pool_dgrad": "dgrad_kernel",
               "fused_conv_pool_wgrad": "wgrad_kernel"}
 
@@ -998,6 +1002,43 @@ def whole_row_wgrad_plan(s, gy, T_in):
         fcp.wgrad_span_cols(K, stride, esz))
 
 
+def wgrad_tiles_plan_of(s, gy, T_in, windows):
+    """The tile kernel's plan (``wgrad_tiles_plan``) for a windowed wgrad of
+    ``windows`` windows, whether or not the wrapper routes the shape there."""
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+
+    esz, (B, _, T_out) = gy.element_size(), gy.shape
+    t_ld = -(-T_out // (16 // esz)) * (16 // esz)
+    smem = fcp._wgrad_tiles_layout(s.kernel_size, s.stride, B // windows, T_in, T_out, t_ld,
+                                   s.wgrad_row.numel(), esz)["total"]
+    return fcp.wgrad_tiles_plan(s.wgrad_row.numel(), windows, fcp._sm_count(gy.device.index),
+                                fcp.wgrad_tiles_per_sm(smem))
+
+
+def wgrad_tiles_poisoned(gy, y, x, s, windows, plan):
+    """The tile kernel's gradients launched into tensors filled with NaN
+    first (the wrapper's are uncleared memory): where the kernel writes
+    every element, the wrapper's bits."""
+    from hm_vae_torch.ops import _build
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+
+    esz = gy.element_size()
+    gy, y = fcp._aligned(gy, 2, 16 // esz), fcp._aligned(y, 2, 16 // esz)
+    x = fcp._aligned(x, 1, fcp.BWD_CHUNK_CHANNELS)
+    (B, P, T_out), (C, T_in), K = gy.shape, x.shape[1:], s.kernel_size
+    gw = torch.full((windows, P, C, K), float("nan"), dtype=gy.dtype, device=gy.device)
+    gb = torch.full((windows, P), float("nan"), dtype=gy.dtype, device=gy.device)
+    lib, tiles = fcp._bwd_library()[0], fcp._bwd_library()[4]
+    err = tiles(gy.data_ptr(), y.data_ptr(), x.data_ptr(), s.wgrad_row.data_ptr(),
+                s.wgrad_chunk.data_ptr(), gw.data_ptr(), gb.data_ptr(), s.wgrad_row.numel(), B,
+                C, T_in, K, P, T_out, gy.shape[2], s.stride, s.padding, int(s.reflect),
+                s.negative_slope, plan.blocks, windows, fcp._DTYPES[gy.dtype],
+                gy.device.index, torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "wgrad_tiles_poisoned")
+    torch.cuda.synchronize()
+    return gw[:, :, :s.in_channels], gb
+
+
 def pack_row(name, s, wf):
     """``dgrad_span_pack``'s kernel on a folded weight: bit for bit its plain
     version, two runs bit-equal; device ms beside the plain version's, and
@@ -1209,7 +1250,12 @@ def windowed_phase(model, st, gen, dtype=torch.float32, windows=WINDOWS, frames=
     windows, at `dtype`'s rate); the plans the launches ran.  With `spans`
     every level must run dgrad's span kernel and wgrad's item kernel, and
     where the whole-row wgrad would take the rows too (bf16) it is held and
-    timed beside the items, unrouted ("whole_rows")."""
+    timed beside the items, unrouted ("whole_rows").  Where the wrapper
+    gives the wgrad to the tile kernel (``wgrad_tiles_routed``: the solve's
+    shapes) its launch must run it; a launch into gradients filled with NaN
+    must give the same bits (it writes every element); the whole-row wgrad
+    is held and timed beside it, unrouted ("whole_rows", its wrapper's
+    clearing included), with the clearing's own time ("memset_ms")."""
     from hm_vae_torch.ops import fused_conv_pool as fcp
 
     G = windows
@@ -1269,6 +1315,10 @@ def windowed_phase(model, st, gen, dtype=torch.float32, windows=WINDOWS, frames=
         plan["wgrad"] = fcp.last_backward_plans()["wgrad"]
         if spans and not (plan["dgrad"]["span"] and plan["wgrad"]["span"]):
             fail(f"{name}: expected dgrad's spans and wgrad's items, the launches ran {plan}")
+        esz = gy.element_size()
+        tiles = fcp.wgrad_tiles_routed(1, T_in, K, stride, pad, s.wgrad_row.numel(), esz, G)
+        if tiles != (plan["wgrad"]["blocks"] > 0):
+            fail(f"{name}: the tile kernel routed {tiles}, the wgrad launch ran {plan['wgrad']}")
         err_f = check(f"{name} windowed", out, f_plain(), dtype)[0]
         err_d = check(f"{name} windowed dgrad", gx, d_plain(), dtype)[0]
         rw, rb = w_plain()
@@ -1311,8 +1361,16 @@ def windowed_phase(model, st, gen, dtype=torch.float32, windows=WINDOWS, frames=
                     fcp.fused_conv_pool_wgrad(gy[sl], y[sl], x[sl], s)[0], dtype)[0])
         torch.cuda.synchronize()
         w_extra = {}
-        if spans:
-            esz = gy.element_size()
+        if tiles:
+            nw, nb_ = wgrad_tiles_poisoned(gy, y, x, s, G, wgrad_tiles_plan_of(s, gy, T_in, G))
+            if not (torch.equal(nw, gw) and torch.equal(nb_, gb)):
+                fail(f"{name}: the tile kernel left elements of NaN-filled gradients unwritten "
+                     "or differs from the wrapper's launch")
+            w_extra["every_element_written"] = True
+            C8 = fcp._aligned(x, 1, fcp.BWD_CHUNK_CHANNELS).shape[1]
+            w_extra["memset_ms"] = device_ms(
+                lambda: torch.zeros((G, P, C8, K), dtype=dtype, device=DEV))
+        if spans or tiles:
             t_ld = -(-T_out // (16 // esz)) * (16 // esz)
             wp = fcp.wgrad_whole_plan(
                 1, T_out, s.wgrad_row.numel(), fcp._sm_count(gy.device.index), G,
@@ -1608,17 +1666,18 @@ def launch_counters():
     return list(fcp.launch_entries())  # in LAUNCH_NAMES' order
 
 
-def timed_solve(apps, seq, reps=2, root_trans=None, runs=None, profile=False):
+def timed_solve(apps, seq, reps=2, root_trans=None, runs=None, profile=False, tiles=None):
     """Kernel launches of one solve (counts set to 0 just before), its
     loss history, and ms per solve by CUDA events over ``reps`` solves;
     with `profile` that counted solve runs under :func:`profile_calls`
     (the phase's earlier solves warmed the structures) and its profile is
     returned too.  `runs` (a dict) receives the kernels' runs in that solve
-    as the device counted them."""
+    as the device counted them, `tiles` (a dict) the launches of wgrad's
+    tile kernel among its windowed wgrad's ("wgrad_tiles")."""
     from hm_vae_torch.ops import fused_conv_pool as fcp
 
     counters = launch_counters()
-    for c in counters:
+    for c in counters + [fcp.wgrad_tiles]:
         c.launches = 0
     if runs is not None:
         fcp.device_runs(torch.cuda.current_device(), reset=True)
@@ -1632,6 +1691,8 @@ def timed_solve(apps, seq, reps=2, root_trans=None, runs=None, profile=False):
     out = solved[0]
     torch.cuda.synchronize()
     launches = {c.__name__: c.launches for c in counters}
+    if tiles is not None:
+        tiles["wgrad_tiles"] = fcp.wgrad_tiles.launches
     if runs is not None:
         runs.update(fcp.device_runs(torch.cuda.current_device()))
     ms = []
@@ -1643,6 +1704,20 @@ def timed_solve(apps, seq, reps=2, root_trans=None, runs=None, profile=False):
         end.synchronize()
         ms.append(start.elapsed_time(end))
     return (out, launches, ms, prof) if profile else (out, launches, ms)
+
+
+def tile_levels(model, dtype):
+    """The decoder levels whose windowed wgrad at the solve's shapes
+    (WINDOWS windows of one batch) the wrapper gives the tile kernel in
+    `dtype` (``wgrad_tiles_routed``)."""
+    from hm_vae_torch.models.structure import get_structure
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+
+    esz = torch.empty((), dtype=dtype).element_size()
+    return [n for n, c, T in level_cases(model, get_structure(model.cfg))
+            if n.startswith("dec") and fcp.wgrad_tiles_routed(
+                1, T, c.spec.kernel_size, c.spec.stride, c.spec.padding,
+                c.structure().wgrad_row.numel(), esz, WINDOWS)]
 
 
 def solve_phase(model, seq):
@@ -1659,9 +1734,11 @@ def solve_phase(model, seq):
     n_d = lat.opt_it - 1 - n_z
     LatentOptApps(model, latent_config(opt_it=3, prev_epochs=0)).interpolate(
         seq, torch.Generator().manual_seed(SEED))  # warm-up: structures, libraries
+    tiles = n_d * len(tile_levels(model, torch.float32))
     rows = {mode: mode_solve(model, seq, f"{mode} solve", overrides, want,
                              reps=2 if mode == "per_window" else 1,
-                             profile=mode == "per_window")
+                             profile=mode == "per_window",
+                             tiles=tiles if mode == "per_window" else None)
             for mode, overrides, want in (
                 ("per_window", {}, (4 * n_z, 4 * n_z, 0, 4 * (n_d + 1), 4 * n_d, 4 * n_d)),
                 ("shared", {"per_window_decoder": False},
@@ -1678,11 +1755,12 @@ def solve_phase(model, seq):
 
 
 def mode_solve(model, seq, name, overrides, want, reps=1, profile=True, model_overrides=None,
-               device_check=False):
+               device_check=False, tiles=None):
     """The full solve (10 windows, 150 iterations; the config's solver with
     `overrides`, its model section with `model_overrides`, which `model`
     was made under) on the card: its kernel launches must be exactly `want`
-    (LAUNCH_NAMES order; the first, counted solve warms up), and with
+    (LAUNCH_NAMES order; the first, counted solve warms up), where given
+    `tiles` of its windowed wgrad's through the tile kernel, and with
     `device_check` the kernels' runs counted on the device their sums over
     the windowed and the plain entries; the loss must fall, the outputs be
     finite; ms per solve by CUDA events over `reps` solves, the peak of
@@ -1693,11 +1771,16 @@ def mode_solve(model, seq, name, overrides, want, reps=1, profile=True, model_ov
     apps = LatentOptApps(model, latent_config(model_overrides, **overrides))
     torch.cuda.reset_peak_memory_stats()
     runs = {} if device_check else None
-    out, launches, ms, *prof = timed_solve(apps, seq, reps=reps, runs=runs, profile=profile)
+    tile_runs = {}
+    out, launches, ms, *prof = timed_solve(apps, seq, reps=reps, runs=runs, profile=profile,
+                                           tiles=tile_runs)
     peak = torch.cuda.max_memory_allocated()
     want = dict(zip(LAUNCH_NAMES, want))
     if launches != want:
         fail(f"{name}: kernel launches {launches}, expected {want}")
+    if tiles is not None and tile_runs["wgrad_tiles"] != tiles:
+        fail(f"{name}: {tile_runs['wgrad_tiles']} windowed wgrad launches ran the tile kernel, "
+             f"expected {tiles}")
     if device_check:
         want_runs = {TRACE_NAME[a]: want[a] + want[w]
                      for a, w in zip(LAUNCH_NAMES[:3], LAUNCH_NAMES[3:])}
@@ -1710,7 +1793,7 @@ def mode_solve(model, seq, name, overrides, want, reps=1, profile=True, model_ov
     for k in ("rot_6d", "rot_mat", "pose"):
         if out[k].shape[0] != seq.shape[0] or not torch.isfinite(out[k]).all():
             fail(f"{name}: {k} of shape {tuple(out[k].shape)} or non-finite")
-    row = {"ms_per_solve": ms, "launches": launches, "peak_memory_bytes": peak,
+    row = {"ms_per_solve": ms, "launches": launches, **tile_runs, "peak_memory_bytes": peak,
            "loss_first": float(hist[0]), "loss_last": float(hist[-1]),
            **({"device_runs": runs} if device_check else {})}
     if profile:
@@ -4109,6 +4192,8 @@ BF16_BWD_KINDS = ("dgrad_bf16", "wgrad_bf16", "wgrad_nq4_bf16")
 # whole rows
 WGRAD_ITEM_KINDS = tuple(f"wgrad_spans_{f}{d}" for d in ("", "_bf16")
                          for f in ("nt1", "nt2", "rows"))
+# wgrad's tile kernel (build_report), f32 and bf16: wgmma in both
+WGRAD_TILE_KINDS = ("wgrad_tiles", "wgrad_tiles_bf16")
 
 
 # (d)'s small model: tests/test_train_step.py's TINY config (latent 6, K 3,
@@ -4448,10 +4533,13 @@ def bf16_solve_phase(data_root, lmodel, gen, seq, ck=None, clone_solve=None):
     LatentOptApps(model, latent_config(BF16_COMPUTE, opt_it=3, prev_epochs=0)).interpolate(
         seq, torch.Generator().manual_seed(SEED))  # warm-up: structures
     f32_solve = mode_solve(lmodel, seq, "f32 per_window solve", {},
-                           (4 * n_z, 4 * n_z, 0, 4 * (n_d + 1), 4 * n_d, 4 * n_d), reps=2)
+                           (4 * n_z, 4 * n_z, 0, 4 * (n_d + 1), 4 * n_d, 4 * n_d), reps=2,
+                           tiles=n_d * len(tile_levels(lmodel, torch.float32)))
+    tiles = n_d * len(tile_levels(model, bf16))
     solves = {mode: mode_solve(model, seq, f"bf16-compute {mode} solve", {**BF16_CLONE, **ov},
                                want, reps=2 if mode == "per_window" else 1,
-                               model_overrides=BF16_COMPUTE, device_check=True)
+                               model_overrides=BF16_COMPUTE, device_check=True,
+                               tiles=tiles if mode == "per_window" else 0)
               for mode, ov, want in (
                   ("per_window", {}, (4 * n_z, 4 * n_z, 0, 4 * (n_d + 1), 4 * n_d, 4 * n_d)),
                   ("shared", {"per_window_decoder": False},
@@ -4556,13 +4644,13 @@ def main() -> None:
     if not report["fused_conv_pool"].get("bf16", {}).get("hgmma"):
         fail("the bf16 instantiation has no HGMMA (wgmma) instruction")
     for what in ("dgrad", "dgrad_spans", "dgrad_spans_bf16", "wgrad",
-                 "wgrad_nq4") + WGRAD_ITEM_KINDS + BF16_BWD_KINDS:
+                 "wgrad_nq4") + WGRAD_ITEM_KINDS + WGRAD_TILE_KINDS + BF16_BWD_KINDS:
         r = report["fused_conv_pool_bwd"].get(what, {})
         if not (r.get("hgmma") or r.get("hmma")):
             fail(f"the {what} kernel has no HGMMA or HMMA (tensor-core) instruction")
         if what in BF16_BWD_KINDS and not r.get("hmma"):
             fail(f"the {what} kernel has no HMMA (bf16 mma.sync) instruction: {r}")
-        if what in WGRAD_ITEM_KINDS and not r.get("hgmma"):
+        if what in WGRAD_ITEM_KINDS + WGRAD_TILE_KINDS and not r.get("hgmma"):
             fail(f"the {what} kernel has no HGMMA (wgmma) instruction: {r}")
         if r.get("wgmma_serialized"):
             fail(f"ptxas serialized the {what} kernel's wgmma: {r}")
@@ -5104,6 +5192,35 @@ def main() -> None:
                         "the whole-row bf16 wgrad beside the items); launches: 0, checked, on "
                         "no driven path (phase 36); times: device time from CUDA-graph "
                         f"replays; library_ms: cuDNN's grouped {lib} in {dt}"})
+    # wgrad's tile kernel, the routed windowed wgrad at the solve's shapes:
+    # its levels' rows, the whole-row kernel and the clearing beside
+    for tag, level_rows, launches in (
+            ("", windowed, solve["per_window"]["wgrad_tiles"]),
+            ("_bf16", bf16_win, bf16_solves["per_window"]["wgrad_tiles"])):
+        tile_rows = [r for r in level_rows if r["wgrad"]["plan"]["blocks"]]
+        if not tile_rows:
+            continue
+        dt = tile_rows[0]["dtype"]
+        summary["kernels"].append({
+            "name": f"wgrad_tiles@solve{tag}", "route": "cuda",
+            "source": "hm_vae_torch/csrc/fused_conv_pool_bwd.cu",
+            "replaces": "hm_vae_tpu/models/hm_vae.py:200 (JAX autodiff of the level"
+                        + (" in bf16" if tag else "") + ") under jax.vmap over windows "
+                        "(per-window decoder clones, hm_vae_tpu/apps/latent_opt.py:423)",
+            "launches": launches, **total([r["wgrad"] for r in tile_rows]),
+            "whole_rows_ms": sum(r["wgrad"]["whole_rows"]["ms"] for r in tile_rows),
+            "whole_rows_max_abs_err": max(r["wgrad"]["whole_rows"]["max_abs_err"]
+                                          for r in tile_rows),
+            "memset_ms": sum(r["wgrad"]["memset_ms"] for r in tile_rows),
+            "levels": [r["level"] for r in tile_rows],
+            "plans": [r["wgrad"]["plan"] for r in tile_rows],
+            "note": f"{dt}, {WINDOWS} windows of one batch each: sums over the decoder levels "
+                    "routed to wgrad_tiles_kernel (wgrad_tiles_routed); launches: its own, in "
+                    "one 150-iteration per-window solve (phase " + ("36" if tag else "10")
+                    + "); times: device time from CUDA-graph replays; whole_rows_ms: "
+                    "wgrad_kernel at the same levels under its whole-row plan, its wrapper's "
+                    "clearing included; memset_ms: that clearing alone; library_ms: cuDNN's "
+                    f"grouped torch.nn.grad.conv1d_weight in {dt} (groups = windows)"})
     pack = {dt: [r["dgrad"]["pack"] for r in rows if "pack" in r["dgrad"]]
             for dt, rows in (("float32", b64_bwd), ("bfloat16", bf16_rows["b64"]))}
     top = "float32" if pack["float32"] else "bfloat16"

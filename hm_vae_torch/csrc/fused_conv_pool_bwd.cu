@@ -142,6 +142,10 @@
 //   kernel, its weight layout) or z (wgrad_kernel, the item kernel), its
 //   offsets in elements of T, so a window's weight, gradient and batches
 //   lie where the f32 form finds them, at half the bytes;
+// - the test-time solve's windows of short rows (several windows, a window's
+//   columns at most 64): wgrad_tiles_kernel, persistent blocks that walk
+//   runs of (window, live tile) units and write the windows' whole
+//   gradients, dead tiles included (its own section below);
 // Limits: C a multiple of 8 (the wrappers pad), K <= 31 (wgrad's 32
 // tap tiles), and shared memory: dgrad's two weight stages are 32 rows of
 // 16 channels x K taps (127 KB at K 31, so one block an SM there) beside
@@ -2329,6 +2333,593 @@ wgrad_span_kernel(const __grid_constant__ CUtensorMap gy_map,
                gb_w);
 }
 
+// ---------------------------------------------------------------------------
+// wgrad over many windows' short rows (the test-time solve)
+//
+// wgrad_tiles_kernel<T> (T float or __nv_bfloat16) replaces the same JAX
+// autodiff as wgrad_kernel (hm_vae_tpu/models/hm_vae.py:200) under jax.vmap
+// over the solve's windows (hm_vae_tpu/apps/latent_opt.py:423), where each
+// window holds one or a few batches' short rows: the decoder levels at 10
+// windows of one batch, T_out 8-64.  There a window's reduction is 8-64
+// columns deep and each (window, live tile) is one small product, so the
+// whole-row kernel's grid of one block a live tile and window (5,040 blocks
+// at dec0, ~20 waves) ran a serial chain a block (barrier init, the copies'
+// wait, g's build, 1-4 k-steps, the store) that made 15 KB of gradient
+// (bf16), and its wrapper cleared the whole gradient first: ~0.5 TB/s.  What
+// bounds the work on an H100 is the gradient's bytes, written once (97.8 MB
+// of nonzeros in bf16 over the 4 levels, PERF.md), not the operations.
+//
+// The design: a persistent grid of min(units, SMs x blocks an SM) blocks; a
+// unit is one (window, entry) of wgrad_row / wgrad_chunk, units in window
+// then entry order, and each block walks a contiguous run of them
+// (wgrad_tiles_run), so that a row tile's chunks come one after another and
+// nothing of a window's reduction lies in another block: no cluster, no
+// partial sums, the same bits every run.  A block stages the entries' lists
+// and the padding's table (a padded column's place and source) in shared
+// memory once; then per unit:
+// - g = gy * act'(y) is built once per (window, row tile) into the
+//   products' B tile (64 rows p x the window's columns, K-major core
+//   matrices as the item kernel's; f32 TF32 big and small planes; bf16
+//   rounded once, as the plain version rounds it) and serves every chunk of
+//   the row tile; the next row tile's gy and y rows are bulk-copied as soon
+//   as the stage is read, two B tiles alternate;
+// - x's 8 channel rows of the unit's chunk for the window's batches arrive
+//   by bulk copy two units ahead (two stages), and are padded in time
+//   (reflect resolved) and split by stride phase into one of two buffers, a
+//   batch's padded columns a period R apart (the item kernel's rows form),
+//   while the unit before multiplies;
+// - the products are wgmma with the gradient transposed (rows m, x's taps
+//   as A in registers; columns p: the B tile), the rows in the output's
+//   order, m = c*K + k, the bias the ones-row m = 8K, two m64 tiles, one a
+//   warpgroup; the window's columns zero-padded to a k-step: bf16 one
+//   m64n64k16 a k-step, sums in f32; f32 3xTF32, the sums added in f32
+//   after each chunk of at most 4 k-steps (32 columns);
+// - the epilogue rounds each value once into one of two output tiles in
+//   shared memory (64 rows p x the chunk's 8K values, dense as the gradient
+//   lies): bf16 by stmatrix, 8 rows m of a fragment transposed into 16
+//   consecutive bytes of a row p (a store of 16-bit values a lane had cost
+//   ~0.9 us a unit, the most of any phase; kernel_trace.py --windows),
+//   f32 a value a lane; one thread stores the tile by a TMA tensor store
+//   while the next unit's products run; warp 2 stores the tile's dead
+//   chunks (between the row tile's live entries, after its last, or all of
+//   a row tile with none) from a constant zero tile, the bias goes out once
+//   per row tile, and another thread issues the copies (in bf16 a ninth
+//   warp does the stores and the copies, so that no warpgroup's products
+//   wait for them), so the kernel writes every element of every window's
+//   (P, C, K) gradient exactly once and the wrapper clears nothing.
+// Limits: K <= 15 ((K + 1) * 8 rows in the two m64 tiles), a window's
+// columns nb * T_out <= kTilesCols, in bf16 T_out even where nb > 1 (a
+// register pairs two columns of one batch).  Times beside the whole-row
+// kernel and traces (kernel_trace.py --windows) are in PERF.md.
+constexpr int kTilesCols = 64;          // a window's columns at most (WGRAD_TILES_COLS)
+constexpr int kZeroRows = 16;           // rows of the zero tile (a box of the zero stores)
+constexpr int kTilesMaxEntries = 2048;  // entries of wgrad_row staged (WGRAD_TILES_MAX_ENTRIES)
+constexpr int kRefill = 32;             // the thread that issues the copies (warp 1's first)
+
+__host__ __device__ __forceinline__ size_t align128(size_t n) { return (n + 127) & ~size_t(127); }
+
+struct WgradTilesLayout {
+  int R, Lh, rsx;  // x: a batch's padded columns of a stride phase, a phase's, a row (elements)
+  int ks;          // k-steps of the window's columns (8 f32 or 16 bf16 a step)
+  size_t gbytes, xbytes, bplane;  // gy's part of the g stage; x's stage; a B plane
+  size_t out, zero, graw, xraw, xs, bt, lists, tab, total;  // byte offsets in shared memory
+};
+
+// Barriers (g's copies, x's two stages), the two output tiles (64 rows of
+// the chunk's 8K values, dense), the zero tile (kZeroRows such rows), the g
+// stage (gy's rows p0.. of the window's nb batches, then y's), x's two
+// stages (nb batches' 8 channel rows), x padded by stride phase (two
+// buffers: f32 a value's TF32 big and small parts, 8 bytes, rows 4 mod 16
+// of them apart; bf16 rows 8 mod 64 values apart, one more for the second
+// value of the last register pair), the two B tiles (k-steps of 2 KB; f32
+// a big plane, then a small one), the entries' lists (wgrad_row,
+// wgrad_chunk: an int2 an entry) and the padding's table (an int2 a padded
+// column of a batch).  `esz`: the element's bytes.
+__host__ __device__ inline WgradTilesLayout wgrad_tiles_layout(int K, int stride, int nb,
+                                                               int T_in, int T_out, int t_ld,
+                                                               int entries, int esz) {
+  WgradTilesLayout L;
+  L.R = T_out + (K + stride - 1) / stride - 1;
+  L.Lh = nb * L.R;
+  const int len = stride * L.Lh;
+  L.rsx = esz == 4 ? frag_stride(len) : half_stride(len + 1);
+  const int kw = esz == 4 ? 8 : 16;
+  L.ks = (nb * T_out + kw - 1) / kw;
+  L.gbytes = size_t(nb) * kRows * t_ld * esz;
+  L.xbytes = size_t(nb) * kCC * T_in * esz;
+  L.bplane = size_t(L.ks) * 2048;
+  L.out = 128;
+  L.zero = L.out + 2 * align128(size_t(kRows) * kCC * K * esz);
+  L.graw = L.zero + align128(size_t(kZeroRows) * kCC * K * esz);
+  L.xraw = L.graw + align128(2 * L.gbytes);
+  L.xs = L.xraw + 2 * align128(L.xbytes);
+  L.bt = L.xs + align128(size_t(2) * kCC * L.rsx * (esz == 4 ? 8 : 2));
+  L.lists = L.bt + 2 * (esz == 4 ? 2 : 1) * L.bplane;
+  L.tab = L.lists + align128(size_t(entries) * 8);
+  L.total = L.tab + align128(size_t(stride) * L.R * 8);
+  return L;
+}
+
+// Block `blk` of `blocks`: the units [lo, hi) of `units`.
+__host__ __device__ inline void wgrad_tiles_run(int units, int blocks, int blk, int& lo,
+                                                int& hi) {
+  lo = static_cast<int>(static_cast<long long>(units) * blk / blocks);
+  hi = static_cast<int>(static_cast<long long>(units) * (blk + 1) / blocks);
+}
+
+// One box of a 3D tensor map from shared memory into global memory (a
+// bulk-group store of this thread).
+__device__ __forceinline__ void tensor_store3(const CUtensorMap* map, const void* src, int x0,
+                                              int y0, int z0) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(x0), "r"(y0), "r"(z0), "r"(smem_addr(src))
+      : "memory");
+}
+
+// Four 8x8 matrices of 16-bit values, transposed, into shared memory: lane
+// l's register v[i] holds row l/4, columns 2(l%4), +1 of matrix i (an mma
+// fragment; the lower column in the low half); lane 8i + r gives the
+// address (16-byte aligned) where column r of matrix i goes, 8 consecutive
+// values (its rows).
+__device__ __forceinline__ void stmatrix_trans(void* row, const uint32_t (&v)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   smem_addr(row)),
+               "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// This thread's stores have read their shared memory (read) or are done.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// gw_map: the windows' gradients (windows, P, C*K), boxes of (8K, 64, 1);
+// zero_map: the same tensor, boxes of (8K, kZeroRows, 1); nb batches a
+// window; T float or __nv_bfloat16 (gy, y, x, the gradients).
+template <typename T>
+__global__ void __launch_bounds__(sizeof(T) == 2 ? kThreads + 32 : kThreads, 2)
+wgrad_tiles_kernel(const __grid_constant__ CUtensorMap gw_map,
+                   const __grid_constant__ CUtensorMap zero_map, const T* __restrict__ gy,
+                   const T* __restrict__ y, const T* __restrict__ x,
+                   const int* __restrict__ wrow, const int* __restrict__ wchunk,
+                   T* __restrict__ gb, int entries, int windows, int nb, int C, int T_in, int K,
+                   int P, int T_out, int t_ld, int stride, int padding, int reflect,
+                   float slope) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int kPlanes = ItemStep<T>::kPlanes;
+  constexpr int kGran = 16 / sizeof(T);  // values of a 16-byte granule
+  using X = typename ItemStep<T>::X;
+  count_run(&g_runs[1]);
+  const WgradTilesLayout L =
+      wgrad_tiles_layout(K, stride, nb, T_in, T_out, t_ld, entries, sizeof(T));
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);    // g's copies, x's two stages
+  T* graw = reinterpret_cast<T*>(smem + L.graw);         // gy [nb][64][t_ld], then y
+  T* xraw = reinterpret_cast<T*>(smem + L.xraw);         // [2][nb][8][T_in]
+  X* xs = reinterpret_cast<X*>(smem + L.xs);             // [2][8][rsx]
+  unsigned char* bt = smem + L.bt;                       // [2][kPlanes][ks][2 KB]
+  int2* lists = reinterpret_cast<int2*>(smem + L.lists);  // [entries]: (row tile, chunk)
+  int2* tab = reinterpret_cast<int2*>(smem + L.tab);      // [stride * R]
+  const size_t x_stage = align128(L.xbytes) / sizeof(T);
+  const size_t out_tile = align128(size_t(kRows) * kCC * K * sizeof(T));
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  // bf16: a ninth warp (the producer) issues the copies and the stores, off
+  // the products' path (a warpgroup issues wgmma together, so a warp that
+  // issued them held its warpgroup's products back); f32 keeps 256 threads
+  // for its registers, thread 0 storing, warp 2 the zeros, kRefill the
+  // copies.  The 256 threads of the warpgroups are the consumers.
+  constexpr bool kProducer = kBf16;
+  const bool consumer = tid < kThreads;
+  constexpr int kStorer = kProducer ? kThreads : 0;
+  constexpr int kIssuer = kProducer ? kThreads : kRefill;
+  constexpr int kZeroWarp = kProducer ? kThreads / 32 : 2;
+  int u_lo, u_hi;
+  wgrad_tiles_run(entries * windows, gridDim.x, blockIdx.x, u_lo, u_hi);
+  const int n = u_hi - u_lo;
+  const int ncols = nb * T_out, nch = C / kCC, row_k = kCC * K;
+
+  struct Unit {
+    int win, e, rt, chunk;
+  };
+  // the lists, staged in the prologue: an entry's row tile and chunk
+  auto unit = [&](int u) {
+    Unit q;
+    q.win = u / entries;
+    q.e = u - q.win * entries;
+    const int2 rc = lists[q.e];
+    q.rt = rc.x;
+    q.chunk = rc.y;
+    return q;
+  };
+  // The first unit past u's (window, row tile): the window's first entry
+  // past the row tile's (the row tiles ascend within a window).
+  auto group_end = [&](int u) {
+    const int win = u / entries, e = u - win * entries, rt = lists[e].x;
+    int lo = e + 1, hi = entries;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (lists[mid].x > rt)
+        hi = mid;
+      else
+        lo = mid + 1;
+    }
+    return win * entries + lo;
+  };
+  // Thread kIssuer's copies: gy's and y's rows of unit q's row tile for its
+  // window's batches into the g stage; unit i's (local) x rows, unit q's,
+  // into stage i & 1 (a row tile with no live tile reads none).
+  // the same from device memory, for the prologue's first copies (issued
+  // while the block stages the lists)
+  auto unit_dev = [&](int u) {
+    Unit q;
+    q.win = u / entries;
+    q.e = u - q.win * entries;
+    q.rt = wrow[q.e];
+    q.chunk = wchunk[q.e];
+    return q;
+  };
+  auto issue_g = [&](const Unit& q) {
+    const int p0 = q.rt * kRows;
+    const uint32_t bytes = min(kRows, P - p0) * t_ld * sizeof(T);
+    mbar_expect(smem_addr(bars), 2 * nb * bytes);
+    for (int bb = 0; bb < nb; ++bb) {
+      const size_t src = (size_t(q.win) * nb + bb) * P * t_ld + size_t(p0) * t_ld;
+      bulk_copy(graw + bb * kRows * t_ld, gy + src, bytes, bars);
+      bulk_copy(graw + L.gbytes / sizeof(T) + bb * kRows * t_ld, y + src, bytes, bars);
+    }
+  };
+  auto issue_x = [&](int i, const Unit& q) {
+    uint64_t* bar = bars + 1 + (i & 1);
+    const uint32_t bytes = q.chunk >= 0 ? kCC * T_in * sizeof(T) : 0;
+    mbar_expect(smem_addr(bar), nb * bytes);
+    if (bytes == 0) return;
+    for (int bb = 0; bb < nb; ++bb)
+      bulk_copy(xraw + (i & 1) * x_stage + bb * kCC * T_in,
+                x + ((size_t(q.win) * nb + bb) * C + q.chunk * kCC) * T_in, bytes, bar);
+  };
+
+  // Unit u's g = gy * act'(y) into B tile `buf`: 64 rows p x the window's
+  // columns (batch n / T_out's column n % T_out), K-major core matrices
+  // (the two 16-byte halves of a k-step 128 bytes apart, row groups 256,
+  // k-steps 2 KB); zeros past the columns and the tile's rows.  A thread
+  // takes a 16-byte group of a row, consecutive threads consecutive rows,
+  // each row's groups rotated by the row (so that 8 lanes reading rows t_ld
+  // apart, read as 16-byte loads where a group lies in one batch's row,
+  // and writing the tile's 16-byte slots spread over the banks).
+  auto build_b = [&](int u, int buf) {
+    const Unit q = unit(u);
+    const int nrows = min(kRows, P - q.rt * kRows), ngrp = 2 * L.ks;
+    unsigned char* bo = bt + buf * kPlanes * L.bplane;
+    const T* gys = graw;
+    const T* ys = graw + L.gbytes / sizeof(T);
+    for (int it = tid; it < kRows * ngrp; it += kThreads) {
+      const int r = it % kRows, grp = (it / kRows + r) % ngrp, c0 = grp * kGran;
+      float gv[kGran], yv[kGran], v[kGran];
+#pragma unroll
+      for (int q2 = 0; q2 < kGran; ++q2) gv[q2] = yv[q2] = 0.f;
+      if (r < nrows && c0 < ncols) {
+        if (T_out % kGran == 0) {  // the group lies in one batch's row
+          const int bb = nb == 1 ? 0 : c0 / T_out;
+          const int o = (bb * kRows + r) * t_ld + c0 - bb * T_out;
+          load_vals<kGran>(gv, gys + o);
+          load_vals<kGran>(yv, ys + o);
+        } else {
+#pragma unroll
+          for (int q2 = 0; q2 < kGran; ++q2) {
+            const int c = min(c0 + q2, ncols - 1), bb = nb == 1 ? 0 : c / T_out;
+            const int o = (bb * kRows + r) * t_ld + c - bb * T_out;
+            gv[q2] = to_f(gys[o]);
+            yv[q2] = to_f(ys[o]);
+          }
+        }
+      }
+#pragma unroll
+      for (int q2 = 0; q2 < kGran; ++q2)
+        v[q2] = c0 + q2 < ncols ? act_grad(gv[q2], yv[q2], slope) : 0.f;
+      unsigned char* out = bo + (grp >> 1) * 2048 + (grp & 1) * 128 + (r >> 3) * 256 + (r & 7) * 16;
+      if constexpr (kBf16) {
+        *reinterpret_cast<uint4*>(out) = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                                                    pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+      } else {
+        float4 big, small;
+        float* bv = reinterpret_cast<float*>(&big);
+        float* sv = reinterpret_cast<float*>(&small);
+#pragma unroll
+        for (int q2 = 0; q2 < 4; ++q2) {
+          const float2 sp = split_tf32(v[q2]);
+          bv[q2] = sp.x;
+          sv[q2] = sp.y;
+        }
+        *reinterpret_cast<float4*>(out) = big;
+        *reinterpret_cast<float4*>(out + L.bplane) = small;
+      }
+    }
+  };
+  // Unit i's (local) x, padded and split by stride phase into buffer i & 1:
+  // batch bb's padded column u = w*stride + ph at [row][ph*Lh + bb*R + w],
+  // x's column tab[u].y of its staged row (-1: a zero, under a zero padding
+  // or past the row), through the table of a batch's padded columns.
+  const int U = stride * L.R;
+  const uint32_t u_magic = static_cast<uint32_t>((0x100000000ull + U - 1) / U);
+  auto build_x = [&](int i) {
+    const bool has_x = unit(u_lo + i).chunk >= 0;
+    const T* raw = xraw + (i & 1) * x_stage;
+    X* xo = xs + (i & 1) * kCC * L.rsx;
+    for (uint32_t q = tid; q < nb * kCC * U; q += kThreads) {
+      const uint32_t row = __umulhi(q, u_magic), u = q - row * U;  // row: batch * 8 + channel
+      const int2 tu = tab[u];
+      const float v = has_x && tu.y >= 0 ? to_f(raw[row * T_in + tu.y]) : 0.f;
+      xo[(row & 7) * L.rsx + (row >> 3) * L.R + tu.x] = ItemStep<T>::x(v);
+    }
+  };
+
+  // The products: gW^T (rows m, columns p) = X * g^T, the rows in the
+  // output tile's order: m = c*K + k (channel c, tap k) for m < 8K, the
+  // bias at m = 8K, zeros past it; warpgroup wg takes rows 64wg.., its warp
+  // w rows 16(w % 4).. (a lane rows lane/4 and lane/4 + 8), so that 8 rows
+  // of a fragment are 8 consecutive values of an output row (the epilogue's
+  // bf16 stores are stmatrix, 16 bytes a row).  A is x at the lane's columns
+  // of the k-step, read from the x buffer at the row's channel and tap
+  // (xoff; the bias row: ones; rows past it: zeros; columns past the
+  // window's: column 0, whose g is zero); B the B tile.
+  int xoff[2], kind[2];  // kind: 0 a tap, 1 the bias, 2 a zero row
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = 64 * (warp >> 2) + 16 * (warp & 3) + gid + 8 * h, c = m / K, k = m - c * K;
+    kind[h] = m < row_k ? 0 : m == row_k ? 1 : 2;
+    xoff[h] = m < row_k ? c * L.rsx + (k % stride) * L.Lh + k / stride : 0;
+  }
+  const int gap = L.R - T_out;
+  auto load_a = [&](uint32_t (&ab)[4], uint32_t (&as)[4], int ks, const X* xi) {
+    int col[2];
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int c = kBf16 ? ks * 16 + 2 * tig + 8 * h2 : ks * 8 + tig + 4 * h2;
+      col[h2] = c < ncols ? c + (nb == 1 ? 0 : gap * (c / T_out)) : 0;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int h = q & 1;
+      const X* p = xi + xoff[h] + col[q >> 1];
+      if constexpr (kBf16) {
+        ab[q] = kind[h] == 0 ? pack_bf16(p[0], p[1]) : kind[h] == 1 ? 0x3F803F80u : 0u;
+      } else {
+        const float2 v = kind[h] == 0 ? p[0] : make_float2(kind[h] == 1 ? 1.f : 0.f, 0.f);
+        ab[q] = __float_as_uint(v.x);
+        as[q] = __float_as_uint(v.y);
+      }
+    }
+  };
+  float acc[32], sum[32];
+#pragma unroll
+  for (int r = 0; r < 32; ++r) acc[r] = sum[r] = 0.f;
+  // nk (1-4) k-steps from ks0, the A registers of one loaded while the one
+  // before multiplies; the last k-step's products are left in flight
+  auto issue_chunk = [&](const X* xi, uint32_t b0, int ks0, int nk) {
+    uint32_t ab[2][4], as[2][4];
+    load_a(ab[0], as[0], ks0, xi);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      if (s < nk) {
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        const uint32_t big = b0 + (ks0 + s) * 2048;
+        if constexpr (kBf16) {
+          wgmma_rs_bf16(acc, ab[s & 1], gmma_desc(big), s > 0);
+        } else {
+          wgmma_rs_tf32(acc, as[s & 1], gmma_desc(big), s > 0);
+          wgmma_rs_tf32(acc, ab[s & 1], gmma_desc(big + static_cast<uint32_t>(L.bplane)), 1);
+          wgmma_rs_tf32(acc, ab[s & 1], gmma_desc(big), 1);
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        if (s + 1 < nk) {
+          asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+          load_a(ab[(s + 1) & 1], as[(s + 1) & 1], ks0 + s + 1, xi);
+        }
+      }
+    }
+  };
+  // a chunk's products done; f32: their sums added in f32
+  auto finish = [&]() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+    if constexpr (!kBf16) {
+#pragma unroll
+      for (int r = 0; r < 32; ++r) sum[r] += acc[r];
+    }
+  };
+  // Unit i's products on B tile `buf`: bf16 all k-steps (at most 4) in one
+  // run of the accumulators; f32 chunks of 4, every chunk but the last
+  // finished here.  The last is left in flight (finish).
+  auto products = [&](int i, int buf) {
+    const X* xi = xs + (i & 1) * kCC * L.rsx;
+    const uint32_t b0 = smem_addr(bt + buf * kPlanes * L.bplane);
+    if constexpr (kBf16) {
+      issue_chunk(xi, b0, 0, L.ks);
+    } else {
+#pragma unroll
+      for (int r = 0; r < 32; ++r) sum[r] = 0.f;
+      for (int ks0 = 0;; ks0 += 4) {
+        issue_chunk(xi, b0, ks0, min(4, L.ks - ks0));
+        if (ks0 + 4 >= L.ks) break;
+        finish();
+      }
+    }
+  };
+
+  if (n <= 0) return;
+  if (tid == kIssuer) {
+    for (int s = 0; s < 3; ++s) mbar_init(smem_addr(bars + s), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    issue_g(unit_dev(u_lo));
+    issue_x(0, unit_dev(u_lo));
+    if (n > 1) issue_x(1, unit_dev(u_lo + 1));
+  }
+  if (consumer) {
+    for (int e = tid; e < entries; e += kThreads) lists[e] = make_int2(wrow[e], wchunk[e]);
+    // a batch's padded column u = w*stride + ph (w < R) at ph*Lh + w of its
+    // x row, and the column of x it holds
+    for (int u = tid; u < U; u += kThreads) {
+      int s = u - padding;
+      if (reflect && (s < 0 || s >= T_in) && u < T_in + 2 * padding)
+        s = s < 0 ? -s : 2 * (T_in - 1) - s;
+      tab[u] = make_int2((u % stride) * L.Lh + u / stride, s >= 0 && s < T_in ? s : -1);
+    }
+    // the zero tile, and zeros past each x row's padded columns (the second
+    // value of the last register pairs there; never written by a build)
+    for (int q = tid; q < kZeroRows * row_k * static_cast<int>(sizeof(T)) / 16; q += kThreads)
+      reinterpret_cast<uint4*>(smem + L.zero)[q] = make_uint4(0u, 0u, 0u, 0u);
+    const int pad_x = L.rsx - stride * L.Lh;
+    for (int q = tid; q < 2 * kCC * pad_x; q += kThreads)
+      xs[(q / pad_x) * L.rsx + stride * L.Lh + q % pad_x] = ItemStep<T>::x(0.f);
+    fence_async();  // the zero tile's writes before the stores read it
+  }
+  __syncthreads();
+  // thread kIssuer: the first unit of the next row tile to copy g for
+  int g_next = tid == kIssuer ? group_end(u_lo) : 0;
+  uint32_t g_phase = 0;
+  if (consumer) {
+    mbar_wait(smem_addr(bars), g_phase);
+    build_b(u_lo, 0);
+    mbar_wait(smem_addr(bars + 1), 0);
+    build_x(0);
+    fence_async();  // the B tile's writes before the products read it
+  }
+  g_phase ^= 1;
+  __syncthreads();  // the first unit is staged; the g stage and x's stage 0 are read
+  if (tid == kIssuer) {
+    fence_async();  // the stages' reads by the block come before these writes
+    if (g_next < u_hi) {
+      issue_g(unit(g_next));
+      g_next = group_end(g_next);
+    }
+    if (n > 2) issue_x(2, unit(u_lo + 2));
+  }
+
+  // Unit i: its products issued; the next unit's B tile (at a new row tile)
+  // and x built while they run; then its epilogue: the tile into output
+  // buffer i & 1, stored after the barrier by thread kStorer (whose wait
+  // before it let the store of unit i - 1 read its buffer), the dead chunks
+  // from the zero tile by warp kZeroWarp's lanes, the refills by thread
+  // kIssuer.
+  Unit cur = unit(u_lo);
+  int gbuf = 0;
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) {
+    const Unit nx = i + 1 < n ? unit(u_lo + i + 1) : cur;
+    const bool new_group = i + 1 < n && (nx.win != cur.win || nx.rt != cur.rt);
+    const int p0 = cur.rt * kRows, nrows = min(kRows, P - p0);
+    const bool first = cur.e == 0 || lists[cur.e - 1].x != cur.rt;
+    T* ob = reinterpret_cast<T*>(smem + L.out + (i & 1) * out_tile);  // [64][8K]
+    if (consumer) {
+      products(i, gbuf);
+      if (i + 1 < n) {
+        if (new_group) {
+          mbar_wait(smem_addr(bars), g_phase);
+          g_phase ^= 1;
+          build_b(u_lo + i + 1, gbuf ^ 1);
+        }
+        mbar_wait(smem_addr(bars + 1 + ((i + 1) & 1)), ((i + 1) >> 1) & 1);
+        build_x(i + 1);
+      }
+      fence_async();  // the B tile's writes before the products read it
+      finish();
+      // the lane's rows m (h: + 8) and columns p = 8j + 2*tig (+1) of
+      // acc[4j + 2h (+1)]; the bias (m = 8K) to gb at the row tile's first
+      // entry
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (kind[h] == 1 && first) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int r = 4 * j + 2 * h + e, p = 8 * j + 2 * tig + e;
+              if (p < nrows) gb[size_t(cur.win) * P + p0 + p] = from_f<T>(kBf16 ? acc[r] : sum[r]);
+            }
+        }
+      }
+      if (cur.chunk >= 0) {
+        const int mw = 64 * (warp >> 2) + 16 * (warp & 3);  // the warp's first row
+        if constexpr (kBf16) {
+          // 8x8 blocks (rows m0 = mw + 8h.., columns 8j..), transposed by
+          // stmatrix into 8 rows p of 8 consecutive values m; blocks past
+          // the tile's 8K values (the bias's and the zero rows') are not
+          // stored
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (mw + 8 * h + 8 > row_k) continue;
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              uint32_t v[4];
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                v[j] = pack_bf16(acc[4 * (4 * q + j) + 2 * h], acc[4 * (4 * q + j) + 2 * h + 1]);
+              const int p = 8 * (4 * q + (lane >> 3)) + (lane & 7);
+              stmatrix_trans(ob + p * row_k + mw + 8 * h, v);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int r = 0; r < 32; ++r) {
+            const int m = mw + gid + 8 * ((r >> 1) & 1), p = 8 * (r >> 2) + 2 * tig + (r & 1);
+            if (m < row_k) ob[p * row_k + m] = sum[r];
+          }
+        }
+      }
+      fence_async();  // the output tile's writes before the store reads it
+    }
+    if (tid == kStorer) bulk_wait_read();
+    __syncthreads();  // unit i's tile is written; unit i - 1's store has read its buffer
+    if (tid == kStorer && cur.chunk >= 0) {
+      tensor_store3(&gw_map, ob, cur.chunk * row_k, p0, cur.win);
+      bulk_commit();
+    }
+    if (warp == kZeroWarp) {
+      // the dead chunks [a0, a1) before the unit's chunk and [b0, b1) after
+      // it (past the row tile's last entry), in boxes of kZeroRows rows
+      int a0 = 0, a1 = nch, b0 = 0, b1 = 0;
+      if (cur.chunk >= 0) {
+        const bool last = cur.e + 1 == entries || lists[cur.e + 1].x != cur.rt;
+        a0 = first ? 0 : lists[cur.e - 1].y + 1;
+        a1 = cur.chunk;
+        b0 = cur.chunk + 1;
+        b1 = last ? nch : b0;
+      }
+      const int boxes = (nrows + kZeroRows - 1) / kZeroRows, na = a1 - a0;
+      for (int q = lane; q < (na + b1 - b0) * boxes; q += 32) {
+        const int d = q / boxes, z = d < na ? a0 + d : b0 + d - na;
+        tensor_store3(&zero_map, smem + L.zero, z * row_k, p0 + (q - d * boxes) * kZeroRows,
+                      cur.win);
+      }
+      bulk_commit();
+    }
+    if (tid == kIssuer) {
+      fence_async();  // the stages' reads by the block come before these writes
+      if (new_group && g_next < u_hi) {
+        issue_g(unit(g_next));
+        g_next = group_end(g_next);
+      }
+      if (i + 3 < n) issue_x(i + 3, unit(u_lo + i + 3));
+    }
+    if (new_group) gbuf ^= 1;
+    cur = nx;
+  }
+  // the stores are done before the block's memory goes
+  if (tid == kStorer || warp == kZeroWarp) bulk_wait_all();
+}
+
 // Sets a kernel's shared-memory cap once per device.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, bool (&ready)[kMaxDevices], int device) {
@@ -2434,9 +3025,10 @@ bool batch_rows_map(CUtensorMap* map, const void* base, int cols, int rows, int 
 
 // The plans of the last dgrad and wgrad launches in this process
 // (hmvae_conv_bwd_last_plan): dgrad nbb, groups, split, span, spans, smem,
-// stages, channels a block; wgrad sb, split, span, smem.
+// stages, channels a block; wgrad sb, split, span, smem, and the tile
+// kernel's blocks (0 for the other wgrad kernels).
 int last_dgrad[8] = {};
-int last_wgrad[4] = {};
+int last_wgrad[5] = {};
 
 // One whole-row dgrad_kernel launch in element type T (after its checks).
 template <typename T>
@@ -2540,6 +3132,47 @@ int wgrad_items(bool (&ready)[kMaxDevices], int device, dim3 grid, int split, si
       static_cast<const int*>(wrow), static_cast<const int*>(wchunk), static_cast<T*>(gw),
       static_cast<T*>(gb), B, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, slope, span,
       nbb));
+}
+
+// A 3D tensor map over the windows' gradients gw (windows, P, C*K values
+// of `esz` bytes) for the tile kernel's stores: boxes of a chunk's 8K
+// values x `rows` rows p x one window, no swizzle (the box lies dense in
+// shared memory, as the gradient lies).  False where the encoder is missing
+// or refuses the map.
+bool tiles_map(CUtensorMap* map, void* gw, int C, int K, int P, int windows, int rows,
+               int esz) {
+  const auto encode = tensor_map_encoder();
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(C) * K, static_cast<cuuint64_t>(P),
+                              static_cast<cuuint64_t>(windows)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(C) * K * esz,
+                                 static_cast<cuuint64_t>(P) * C * K * esz};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kCC * K), static_cast<cuuint32_t>(rows),
+                             1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  return encode != nullptr &&
+         encode(map, esz == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                3, gw, dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// One wgrad_tiles_kernel launch in element type T (after its checks).
+template <typename T>
+int wgrad_tiles(bool (&ready)[kMaxDevices], int device, int blocks, size_t smem, void* stream,
+                const CUtensorMap& gw_map, const CUtensorMap& zero_map, const void* gy,
+                const void* y, const void* x, const void* wrow, const void* wchunk, void* gb,
+                int entries, int windows, int nb, int C, int T_in, int K, int P, int T_out,
+                int t_ld, int stride, int padding, int reflect, float slope) {
+  cudaError_t err = allow_smem(wgrad_tiles_kernel<T>, ready, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // bf16: the warpgroups and a producer warp (wgrad_tiles_kernel)
+  const int threads = sizeof(T) == 2 ? kThreads + 32 : kThreads;
+  wgrad_tiles_kernel<T><<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      gw_map, zero_map, static_cast<const T*>(gy), static_cast<const T*>(y),
+      static_cast<const T*>(x), static_cast<const int*>(wrow), static_cast<const int*>(wchunk),
+      static_cast<T*>(gb), entries, windows, nb, C, T_in, K, P, T_out, t_ld, stride, padding,
+      reflect, slope);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -2703,8 +3336,8 @@ int hmvae_conv_wgrad(const void* gy, const void* y, const void* x, const void* w
                   : rows    ? 10 + dtype
                             : 6 + 2 * dtype + nt2;
   static bool ready[12][kMaxDevices] = {};
-  const int plan[4] = {sb, split, span, static_cast<int>(smem)};
-  for (int i = 0; i < 4; ++i) last_wgrad[i] = plan[i];
+  const int plan[5] = {sb, split, span, static_cast<int>(smem), 0};
+  for (int i = 0; i < 5; ++i) last_wgrad[i] = plan[i];
   const dim3 grid(split, n_tiles, windows);
   if (span > 0) {
     CUtensorMap gy_map = {}, y_map = {}, x_map = {};
@@ -2733,6 +3366,50 @@ int hmvae_conv_wgrad(const void* gy, const void* y, const void* x, const void* w
                 n_win, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, slope, sb);
 }
 
+// Folded-weight gradients gw (windows x (P, C, K)) and bias gradients gb
+// (windows x (P,)) of `windows` windows of B / windows batches each, from
+// gy, y (B, P, rows of t_ld values, whole 16-byte granules) and x (B, C,
+// T_in), all f32 (dtype 0) or all bf16 (dtype 1), C a multiple of 8, every
+// pointer 16-byte aligned: wgrad_tiles_kernel over the n_tiles entries of
+// wgrad_row / wgrad_chunk of every window, in `blocks` persistent blocks
+// (at most the units, n_tiles x windows; wgrad_tiles_plan in the wrapper),
+// every element of gw written (the dead tiles' zeros too), so the caller
+// clears nothing.  A window's columns (B / windows x T_out) at most
+// kTilesCols, K <= 15, in bf16 T_out even where a window has several
+// batches.  Launches on `stream`, returns the first CUDA error (0 on
+// success).
+int hmvae_conv_wgrad_tiles(const void* gy, const void* y, const void* x, const void* wrow,
+                           const void* wchunk, void* gw, void* gb, int n_tiles, int B, int C,
+                           int T_in, int K, int P, int T_out, int t_ld, int stride, int padding,
+                           int reflect, float slope, int blocks, int windows, int dtype,
+                           int device, void* stream) {
+  const void* ptrs[] = {gy, y, x, gw, gb};
+  const int esz = dtype == 1 ? 2 : 4;
+  if (!shape_ok(B, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, device, ptrs, 4, esz) ||
+      dtype < 0 || dtype > 1 || gb == nullptr || n_tiles < 1 || windows < 1 ||
+      B % windows != 0 || (K + 1) * kCC > 2 * 64 ||
+      static_cast<long long>(n_tiles) * windows > 0x7FFFFFFFLL || blocks < 1 ||
+      blocks > n_tiles * windows || blocks > 0x7FFFFFFF / kThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nb = B / windows;
+  if (nb * T_out > kTilesCols || (dtype == 1 && nb > 1 && T_out % 2 != 0) ||
+      n_tiles > kTilesMaxEntries)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = wgrad_tiles_layout(K, stride, nb, T_in, T_out, t_ld, n_tiles, esz).total;
+  if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap gw_map = {}, zero_map = {};
+  if (!tiles_map(&gw_map, gw, C, K, P, windows, kRows, esz) ||
+      !tiles_map(&zero_map, gw, C, K, P, windows, kZeroRows, esz))
+    return static_cast<int>(cudaErrorNotSupported);
+  const int plan[5] = {1, 1, 0, static_cast<int>(smem), blocks};
+  for (int i = 0; i < 5; ++i) last_wgrad[i] = plan[i];
+  static bool ready[2][kMaxDevices] = {};
+  auto launch = dtype == 1 ? wgrad_tiles<__nv_bfloat16> : wgrad_tiles<float>;
+  return launch(ready[dtype], device, blocks, smem, stream, gw_map, zero_map, gy, y, x, wrow,
+                wchunk, gb, n_tiles, windows, nb, C, T_in, K, P, T_out, t_ld, stride, padding,
+                reflect, slope);
+}
+
 // The most clusters of `split` (1 to kMaxSplit) dgrad_span_kernel blocks of
 // span `span` at K, stride, f32 (dtype 0) or bf16 (dtype 1), that `device`
 // (current) runs at once, into *out; returns the first CUDA error.
@@ -2748,10 +3425,10 @@ int hmvae_dgrad_span_clusters(int K, int stride, int span, int split, int dtype,
 }
 
 // The plans of the last launches (see last_dgrad, last_wgrad): dgrad's eight
-// ints into out[0..7], wgrad's four into out[8..11].
+// ints into out[0..7], wgrad's five into out[8..12].
 void hmvae_conv_bwd_last_plan(int* out) {
   for (int i = 0; i < 8; ++i) out[i] = last_dgrad[i];
-  for (int i = 0; i < 4; ++i) out[8 + i] = last_wgrad[i];
+  for (int i = 0; i < 5; ++i) out[8 + i] = last_wgrad[i];
 }
 
 // The runs on `device` of the dgrad kernels, then the wgrad kernels, since the last

@@ -12,7 +12,8 @@ and over the short rows of a large batch on ``wgmma``, planned by
 :func:`dgrad_plan` and :func:`wgrad_plan`; dgrad's span kernel reads the
 weight laid out once a call by :func:`dgrad_span_pack`, a kernel of its
 own; wgrad's item kernel takes items of one batch's columns or of several
-batches' whole rows; also bf16, the windowed forms too, one bf16
+batches' whole rows, and its tile kernel, :func:`wgrad_tiles`, many
+windows' short rows; also bf16, the windowed forms too, one bf16
 ``mma.sync`` or ``wgmma`` a k-step: the models' ``compute_dtype:
 bfloat16``), the counterparts of the JAX package's
 autodiff of its XLA level (``hm_vae_tpu/models/hm_vae.py``; the JAX package
@@ -45,8 +46,9 @@ biases (G, P) and :class:`WindowedFusedConvPoolFn` runs the same three
 kernels with each window reading its own weight:
 :func:`fused_conv_pool_windowed`, :func:`fused_conv_pool_dgrad_windowed` and
 :func:`fused_conv_pool_wgrad_windowed` (one gradient per window, no sum
-across windows).  A ``torch.func.vmap`` cannot see inside a ``ctypes``
-launch, so the window axis is written out.
+across windows; at the solve's shapes, several windows of short rows,
+wgrad's tile kernel, :func:`wgrad_tiles_routed`).  A ``torch.func.vmap``
+cannot see inside a ``ctypes`` launch, so the window axis is written out.
 
 On CPU tensors every entry runs its plain PyTorch version
 (:func:`fused_conv_pool_reference`, :func:`fused_conv_pool_dgrad_reference`,
@@ -126,6 +128,19 @@ TRAJ_ROWS_K = 31
 TRAJ_ROWS_PADDING = 15
 TRAJ_ROWS_T = (64, 128)
 DGRAD_TRAJ_MIN_BATCH = 4
+# wgrad's tile kernel (many windows' short rows, the test-time solve): a
+# window's columns at most (kTilesCols), (K + 1) * 8 rows in its two m64
+# tiles, the rows of its zero tile (kZeroRows)
+WGRAD_TILES_COLS = 64
+WGRAD_TILES_MAX_K = 15
+WGRAD_TILES_ZERO_ROWS = 16
+WGRAD_TILES_MAX_ENTRIES = 2048  # entries (live tiles and empty row tiles) it stages
+# wgrad_tiles_routed gives the windowed wgrad of several windows to the tile
+# kernel at the output lengths T_out (inclusive range) where the card timed
+# it faster than wgrad_kernel's whole rows in the same call, by element
+# bytes (4: f32, 2: bf16): the solve's four decoder levels, T_out 8-64, in
+# both dtypes (PERF.md)
+WGRAD_TILES_T = {4: (8, 64), 2: (8, 64)}
 
 
 def fused_conv_pool_reference(
@@ -636,6 +651,11 @@ WGRAD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_float]
 # hmvae_dgrad_span_pack(w, span_row, span_group, out, entries, P, C, K,
 # windows, dtype, stream)
 PACK_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# hmvae_conv_wgrad_tiles(gy, y, x, wgrad_row, wgrad_chunk, gw, gb, n_tiles,
+# B, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, slope, blocks,
+# windows, dtype, device, stream)
+TILES_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_float]
+                  + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def _bind(lib, name, argtypes):
@@ -655,11 +675,12 @@ def _library():
 @functools.lru_cache(maxsize=None)
 def _bwd_library():
     """The backward kernels' library, built at first use, and its entries:
-    dgrad, wgrad and dgrad's weight layout for spans."""
+    dgrad, wgrad, dgrad's weight layout for spans and wgrad's tile kernel."""
     lib = _build.load("fused_conv_pool_bwd")
     return (lib, _bind(lib, "hmvae_conv_dgrad", DGRAD_ARGTYPES),
             _bind(lib, "hmvae_conv_wgrad", WGRAD_ARGTYPES),
-            _bind(lib, "hmvae_dgrad_span_pack", PACK_ARGTYPES))
+            _bind(lib, "hmvae_dgrad_span_pack", PACK_ARGTYPES),
+            _bind(lib, "hmvae_conv_wgrad_tiles", TILES_ARGTYPES))
 
 
 @functools.lru_cache(maxsize=None)
@@ -1016,6 +1037,14 @@ class WgradPlan(NamedTuple):
     sb: int
     split: int
     span: int
+
+
+class WgradTilesPlan(NamedTuple):
+    """wgrad's tile kernel's launch (``wgrad_tiles_kernel``): ``blocks``
+    persistent blocks over the ``units`` (window, entry) units, a
+    contiguous run of them a block (:func:`wgrad_tiles_runs`)."""
+    blocks: int
+    units: int
 
 
 def _dgrad_tiles(width: int, stride: int, nbb: int = 1) -> int:
@@ -1459,18 +1488,102 @@ def wgrad_whole_plan(B: int, T_out: int, entries: int, sms: int, windows: int = 
     return wgrad_span_plan(B, T_out, entries, sms, windows, span_cols, 1, per_sm)
 
 
+def _wgrad_tiles_layout(K: int, stride: int, nb: int, T_in: int, T_out: int, t_ld: int,
+                        entries: int, esz: int = 4) -> dict:
+    """A block of the tile kernel (``wgrad_tiles_layout`` in the kernel's
+    source) for windows of ``nb`` batches, in elements of ``esz`` bytes:
+    ``R``, ``Lh``, ``rsx`` (x: a batch's padded columns of a stride phase, a
+    phase's, a row's pitch), ``ks`` (k-steps of the window's columns),
+    ``gbytes``, ``xbytes``, ``bplane`` (gy's part of the g stage, x's stage,
+    a B plane) and the byte offsets ``out`` (two output tiles of 64 rows p x
+    8K values), ``zero`` (the zero tile), ``graw``, ``xraw`` (two stages),
+    ``xs`` (two padded buffers), ``bt`` (two B tiles), ``lists`` (the
+    ``entries`` entries' row tile and chunk, 8 bytes each), ``tab`` (the
+    padding's table, 8 bytes a padded column of a batch) and ``total``."""
+    a128 = lambda n: -(-n // 128) * 128  # noqa: E731
+    R = T_out + -(-K // stride) - 1
+    Lh = nb * R
+    n = stride * Lh
+    rsx = (n + 11) // 16 * 16 + 4 if esz == 4 else (n + 56) // 64 * 64 + 8
+    ks = -(-nb * T_out // (8 if esz == 4 else 16))
+    L = {"R": R, "Lh": Lh, "rsx": rsx, "ks": ks, "gbytes": nb * ROWS * t_ld * esz,
+         "xbytes": nb * 8 * T_in * esz, "bplane": ks * 2048, "out": 128}
+    L["zero"] = L["out"] + 2 * a128(ROWS * 8 * K * esz)
+    L["graw"] = L["zero"] + a128(WGRAD_TILES_ZERO_ROWS * 8 * K * esz)
+    L["xraw"] = L["graw"] + a128(2 * L["gbytes"])
+    L["xs"] = L["xraw"] + 2 * a128(L["xbytes"])
+    L["bt"] = L["xs"] + a128(2 * 8 * rsx * (8 if esz == 4 else 2))
+    L["lists"] = L["bt"] + 2 * (2 if esz == 4 else 1) * L["bplane"]
+    L["tab"] = L["lists"] + a128(entries * 8)
+    L["total"] = L["tab"] + a128(stride * R * 8)
+    return L
+
+
+def wgrad_tiles_fits(nb: int, T_in: int, K: int, stride: int, padding: int, entries: int,
+                     esz: int = 4) -> bool:
+    """Whether the tile kernel takes windows of ``nb`` batches' rows of
+    ``T_in`` frames over a structure's ``entries`` (``wgrad_row``), in
+    elements of ``esz`` bytes: a window's columns (nb x T_out) at most
+    ``WGRAD_TILES_COLS``, K at most ``WGRAD_TILES_MAX_K``, at most
+    ``WGRAD_TILES_MAX_ENTRIES`` entries, in bf16 T_out even where a window
+    has several batches (a register pairs two columns of one batch), its
+    block within shared memory."""
+    T_out = (T_in + 2 * padding - K) // stride + 1
+    t_ld = -(-T_out // (16 // esz)) * (16 // esz)
+    return (K <= WGRAD_TILES_MAX_K and nb * T_out <= WGRAD_TILES_COLS
+            and entries <= WGRAD_TILES_MAX_ENTRIES and (esz == 4 or nb == 1 or T_out % 2 == 0)
+            and _wgrad_tiles_layout(K, stride, nb, T_in, T_out, t_ld, entries,
+                                    esz)["total"] <= MAX_SMEM)
+
+
+def wgrad_tiles_routed(nb: int, T_in: int, K: int, stride: int, padding: int, entries: int,
+                       esz: int = 4, windows: Optional[int] = None) -> bool:
+    """Whether the wrapper gives a windowed wgrad of ``windows`` windows of
+    ``nb`` batches to the tile kernel: several windows (the solve's; one
+    window keeps its plan), T_out within ``WGRAD_TILES_T[esz]``, where the
+    card timed the tile kernel faster than the whole rows (PERF.md), and a
+    shape it takes (:func:`wgrad_tiles_fits`)."""
+    T_out = (T_in + 2 * padding - K) // stride + 1
+    lo, hi = WGRAD_TILES_T[esz]
+    return (windows is not None and windows > 1 and lo <= T_out <= hi
+            and wgrad_tiles_fits(nb, T_in, K, stride, padding, entries, esz))
+
+
+def wgrad_tiles_per_sm(smem: int) -> int:
+    """Blocks of the tile kernel an SM holds: two where a block's shared
+    memory fits half an SM (its launch bounds keep registers for two), else
+    one."""
+    return 2 if smem <= MAX_SMEM_PER_SM // 2 - 1024 else 1
+
+
+def wgrad_tiles_plan(entries: int, windows: int, sms: int, per_sm: int) -> WgradTilesPlan:
+    """The tile kernel's :class:`WgradTilesPlan`: one block a unit (a
+    window's entry) up to the blocks the card holds at once (``sms`` x
+    ``per_sm``), each a contiguous run of units."""
+    units = entries * windows
+    return WgradTilesPlan(max(1, min(units, sms * per_sm)), units)
+
+
+def wgrad_tiles_runs(plan: WgradTilesPlan):
+    """Each block's units [lo, hi) (``wgrad_tiles_run`` in the kernel's
+    source): contiguous runs, their lengths within one of each other."""
+    return [(plan.units * b // plan.blocks, plan.units * (b + 1) // plan.blocks)
+            for b in range(plan.blocks)]
+
+
 def last_backward_plans() -> dict:
     """The plans that the last dgrad and wgrad launches in this process ran,
     as their launchers recorded them (``hmvae_conv_bwd_last_plan``):
     dgrad's :class:`DgradPlan` fields, its ``spans``, ``smem`` bytes,
     ``stages`` in flight and ``channels`` a block; wgrad's
-    :class:`WgradPlan` fields and ``smem``."""
+    :class:`WgradPlan` fields, ``smem`` and ``blocks`` (the tile kernel's
+    persistent blocks; 0 for the other wgrad kernels)."""
     lib = _bwd_library()[0]
-    out = (ctypes.c_int * 12)()
+    out = (ctypes.c_int * 13)()
     lib.hmvae_conv_bwd_last_plan(out)
     return {"dgrad": dict(zip(DgradPlan._fields + ("spans", "smem", "stages", "channels"),
                               out[:8])),
-            "wgrad": dict(zip(WgradPlan._fields + ("smem",), out[8:]))}
+            "wgrad": dict(zip(WgradPlan._fields + ("smem", "blocks"), out[8:]))}
 
 
 def _aligned(t: torch.Tensor, dim: int, multiple: int) -> torch.Tensor:
@@ -1534,12 +1647,15 @@ def _dgrad(gy, y, weight, s: LevelStructure, T_in: int, windows: Optional[int],
     return gx if C == C_in else gx[:, :C_in].contiguous()
 
 
-def _wgrad(gy, y, x, s: LevelStructure, windows: Optional[int],
-           plan: Optional[WgradPlan] = None):
+def _wgrad(gy, y, x, s: LevelStructure, windows: Optional[int], plan=None):
     """Checks, then one wgrad launch: (P, C_in, K) and (P,), or per window
-    (G, P, C_in, K) and (G, P) when ``windows`` is G; ``plan`` in place of
-    :func:`wgrad_plan`'s (a span plan times the span kernel at shapes whose
-    rows fit whole)."""
+    (G, P, C_in, K) and (G, P) when ``windows`` is G; ``plan`` (a
+    :class:`WgradPlan` or :class:`WgradTilesPlan`) in place of the routed
+    one (a span plan times the span kernel at shapes whose rows fit whole, a
+    whole-row plan the whole-row kernel at shapes routed to tiles).  Several
+    windows that :func:`wgrad_tiles_routed` takes run the tile kernel, which
+    writes every element of the gradient; the others :func:`wgrad_plan`'s
+    kernel on a cleared gradient."""
     entry = fused_conv_pool_wgrad if windows is None else fused_conv_pool_wgrad_windowed
     _bwd_checks(s, gy, y, x=x)
     B, P, T_out = gy.shape
@@ -1557,6 +1673,12 @@ def _wgrad(gy, y, x, s: LevelStructure, windows: Optional[int],
     C, t_ld = x.shape[1], gy.shape[2]
     dev = gy.device.index
     entries = s.wgrad_row.numel()
+    if plan is None and windows is not None and wgrad_tiles_routed(
+            B // G, T_in, K, s.stride, s.padding, entries, esz, G):
+        plan = wgrad_tiles_plan(entries, G, _sm_count(dev), wgrad_tiles_per_sm(
+            _wgrad_tiles_layout(K, s.stride, B // G, T_in, T_out, t_ld, entries, esz)["total"]))
+    if isinstance(plan, WgradTilesPlan):
+        return wgrad_tiles(gy, y, x, s, G, plan, entry, windows is None)
     if plan is None:
         cols = wgrad_span_cols(K, s.stride, esz)
         # over windows no items of several batches' rows: the card has
@@ -1584,6 +1706,36 @@ def _wgrad(gy, y, x, s: LevelStructure, windows: Optional[int],
     if C != C_in:
         gw = gw[:, :, :C_in].contiguous()
     return (gw[0], gb[0]) if windows is None else (gw, gb)
+
+
+def wgrad_tiles(gy, y, x, s: LevelStructure, G: int, plan: WgradTilesPlan, entry,
+                one: bool):
+    """One launch of wgrad's tile kernel, for :func:`_wgrad` (after its
+    checks; gy, y and x aligned) and counted in ``entry.launches`` and its
+    own ``launches``: G windows' gradients (the first alone where ``one``)
+    allocated uncleared, every element written by the kernel."""
+    B, P, T_out = gy.shape
+    K, C_in, T_in = s.kernel_size, s.in_channels, x.shape[2]
+    C, t_ld, dev = x.shape[1], gy.shape[2], gy.device.index
+    if plan.units != s.wgrad_row.numel() * G:
+        raise ValueError(f"{plan} does not cover {s.wgrad_row.numel()} entries of {G} windows")
+    lib, tiles = _bwd_library()[0], _bwd_library()[4]
+    gw = torch.empty((G, P, C, K), dtype=gy.dtype, device=gy.device)
+    gb = torch.empty((G, P), dtype=gy.dtype, device=gy.device)
+    err = _on_device(gy, lambda: tiles(
+        gy.data_ptr(), y.data_ptr(), x.data_ptr(), s.wgrad_row.data_ptr(),
+        s.wgrad_chunk.data_ptr(), gw.data_ptr(), gb.data_ptr(), s.wgrad_row.numel(), B, C, T_in,
+        K, P, T_out, t_ld, s.stride, s.padding, int(s.reflect), s.negative_slope, plan.blocks, G,
+        _DTYPES[gy.dtype], dev, torch.cuda.current_stream(gy.device).cuda_stream))
+    _build.check(lib, err, entry.__name__)
+    entry.launches += 1
+    wgrad_tiles.launches += 1
+    if C != C_in:
+        gw = gw[:, :, :C_in].contiguous()
+    return (gw[0], gb[0]) if one else (gw, gb)
+
+
+wgrad_tiles.launches = 0
 
 
 def fused_conv_pool_dgrad(gy: torch.Tensor, y: torch.Tensor, weight: torch.Tensor,

@@ -1,9 +1,10 @@
 """Where a launch of one of the port's kernels spends its time, from inside
 the kernel (run from the repo root on a GPU):
 
-    python3 kernel_trace.py [--kernel fwd|dgrad|wgrad|wgrad_span|dgrad_span]
+    python3 kernel_trace.py [--kernel fwd|dgrad|wgrad|wgrad_span|dgrad_span|wgrad_tiles]
                             [--variant base|nobuild|nomma|noxb] [--levels enc0,dec0]
-                            [--batch N | --rows BxT[,BxT]] [--dtype float32|bfloat16]
+                            [--batch N | --rows BxT[,BxT] | --windows G]
+                            [--dtype float32|bfloat16]
                             [--source FILE]
 
 Builds a copy of the kernel's source (``hm_vae_torch/csrc/fused_conv_pool.cu``
@@ -38,8 +39,13 @@ the split counted in row tiles, one item block an SM.
 wgmma; for ``--kernel wgrad``, ``nomma`` skips its products and ``noxb``
 takes x's B fragments as constants in place of their shared-memory loads;
 for ``--kernel wgrad_span``, ``nomma`` skips its products and ``nobuild``
-the B tile's build of every chunk but the first.  Their outputs are wrong,
-their times say what the skipped phase costs.
+the B tile's build of every chunk but the first; for ``--kernel
+wgrad_tiles``, ``nodrain`` skips the storing thread's wait for the last
+store to read its output tile, ``nostore`` the output tile's store,
+``nowrite`` the output tile's writes, ``nb3`` keeps three output tiles
+(each store a unit longer to read its tile) and ``lb3`` plans three blocks
+an SM (registers capped for three).  Their outputs are wrong (but nb3's and
+lb3's), their times say what the skipped phase costs.
 
 ``--kernel wgrad_span`` traces the wgrad kernel over long rows
 (``wgrad_span_kernel``) at the trajectory model's four K-31 levels at batch
@@ -55,6 +61,17 @@ runs under that design's plan.  With ``--batch N`` it traces the item
 kernel at the len-64 model's levels at batch N instead, under its own plan
 (``wgrad_span_plan``: items of several batches' whole rows,
 ``wgrad_span_rows``, where the source has them), in ``--dtype``.
+
+``--windows G`` traces the windowed wgrad at the test-time solve's four
+decoder levels (K 15, T 8-64), G windows of one batch each, in ``--dtype``:
+``--kernel wgrad`` the whole-row kernel under its whole-row plan (one block
+a live tile and window), with per block its one stage's wait, build and
+products and the epilogue, and the launch's waves (the blocks that started
+before the first block ended ran at once); ``--kernel wgrad_tiles`` the
+tile kernel under its plan, per block the prologue, then summed over its
+units the waits for their copies, the builds (B tiles and x), the products
+and the store, and the epilogue (the stores' completion), with the means
+per unit.
 
 ``--kernel dgrad_span`` traces the dgrad kernel over long rows
 (``dgrad_span_kernel``) at the trajectory model's four K-31 levels at batch
@@ -91,7 +108,7 @@ STAMP = ("if (threadIdx.x == 0) g_trace[((blockIdx.z * gridDim.y + blockIdx.y) *
          "+ blockIdx.x) % {B} * {S} + ({{slot}})] = {{value}};").format(B=BLOCKS, S=SLOTS)
 SOURCES = {"fwd": "fused_conv_pool", "dgrad": "fused_conv_pool_bwd",
            "wgrad": "fused_conv_pool_bwd", "wgrad_span": "fused_conv_pool_bwd",
-           "dgrad_span": "fused_conv_pool_bwd"}
+           "dgrad_span": "fused_conv_pool_bwd", "wgrad_tiles": "fused_conv_pool_bwd"}
 # the span mode before dgrad_span_kernel: dgrad_kernel<true>, then the fold
 FOLD_KERNEL = "__global__ void dgrad_fold_kernel("
 # the span kernel that stages items of 64 output columns alone, read from
@@ -276,6 +293,68 @@ def _wgrad_items64_patches():
     ] + _EPILOGUE
 
 
+def _wgrad_tiles_patches(variant="base"):
+    """wgrad_tiles_kernel: 0 start, 10 after the first copies' issue (by
+    another thread in bf16), 9 after the prologue's first barrier (the
+    lists, the table and the zero tile staged), 11 after the first B tile,
+    12 after the first x, 1 after the prologue (its barrier and refills),
+    31 the block's units; summed over them by thread 0 (ns): 2 the
+    waits for the next unit's copies (its row tile's g, its x), 3 the
+    builds (the next row tile's B tile, the next unit's x), 4 the products
+    (their issue, and the wait for them with the f32 sums), 5 the stores'
+    and refills' issue, 6 the output tile's writes, 7 thread 0's wait for
+    the last store to read its tile (0 under nodrain), 8 the barrier after
+    them; 30 the units; 20 after the loop; 21 = 20 (no reduction); 22 after
+    the stores are done."""
+    decl = ("unsigned long long tr_w = 0, tr_b = 0, tr_m = 0, tr_s = 0, tr_o = 0, tr_d = 0, "
+            "tr_y = 0, tr_n = 0, tr_t = 0;")
+    lap = "{ const unsigned long long t = gtime(); tr_%s += t - tr_t; tr_t = t; }"
+    layout = ("  const WgradTilesLayout L =\n      wgrad_tiles_layout(K, stride, nb, T_in, T_out, "
+              "t_ld, entries, sizeof(T));\n")
+    g_wait = "        mbar_wait(smem_addr(bars), g_phase);\n"
+    b_built = "        build_b(u_lo + i + 1, gbuf ^ 1);\n"
+    x_wait = "      mbar_wait(smem_addr(bars + 1 + ((i + 1) & 1)), ((i + 1) >> 1) & 1);\n"
+    x_built = "      build_x(i + 1);\n"
+    finished = ("      fence_async();  // the B tile's writes before the products read it\n"
+                "      finish();\n")
+    last = "    if (new_group) gbuf ^= 1;\n    cur = nx;\n  }\n"
+    done = "  if (tid == kStorer || warp == kZeroWarp) bulk_wait_all();\n"
+    written = ("            if (m < row_k) ob[p * row_k + m] = sum[r];\n          }\n        }\n"
+               "      }\n      fence_async();  // the output tile's writes before the store reads "
+               "it\n")
+    zeroed = ("    fence_async();  // the zero tile's writes before the stores read it\n  }\n"
+              "  __syncthreads();\n")
+    issued = "    if (n > 1) issue_x(1, unit_dev(u_lo + 1));\n  }\n"
+    b0 = "  build_b(u_lo, 0);\n"
+    x0 = "    mbar_wait(smem_addr(bars + 1), 0);\n    build_x(0);\n"
+    drained = "    if (tid == kStorer) bulk_wait_read();\n"
+    synced = ("    __syncthreads();  // unit i's tile is written; unit i - 1's store has read its "
+              "buffer\n")
+    sums = "".join(f"  {stamp(slot, value)}\n" for slot, value in (
+        (20, "gtime()"), (21, "gtime()"), (2, "tr_w"), (3, "tr_b"), (4, "tr_m"), (5, "tr_s"),
+        (6, "tr_o"), (7, "tr_d"), (8, "tr_y"), (30, "tr_n")))
+    return [
+        (layout, layout + "  " + stamp(0) + "\n  " + decl + "\n"),
+        (zeroed, zeroed + "  " + stamp(9) + "\n"),
+        (issued, issued + "  " + stamp(10) + "\n"),
+        (b0, b0 + "  " + stamp(11) + "\n"),
+        (x0, x0 + "  " + stamp(12) + "\n"),
+        ("  Unit cur = unit(u_lo);\n",
+         f"  {stamp(1)}\n  {stamp(31, 'n')}\n  Unit cur = unit(u_lo);\n"),
+        ("    products(i, gbuf);\n",
+         "    tr_t = gtime();\n    ++tr_n;\n    products(i, gbuf);\n    " + lap % "m" + "\n"),
+        (g_wait, g_wait + "        " + lap % "w" + "\n"),
+        (b_built, b_built + "        " + lap % "b" + "\n"),
+        (x_wait, x_wait + "      " + lap % "w" + "\n"),
+        (x_built, x_built + "      " + lap % "b" + "\n"),
+        (finished, finished + "      " + lap % "m" + "\n"),
+        (written, written + "      " + lap % "o" + "\n"),
+        (synced, synced + "    " + lap % "y" + "\n"),
+        (last, "    " + lap % "s" + "\n" + last + sums),
+        (done, done + "  " + stamp(22) + "\n"),
+    ] + ([] if variant == "nodrain" else [(drained, drained + "    " + lap % "d" + "\n")])
+
+
 def _dgrad_span_patches():
     """dgrad_span_kernel: 0 start, 1 after the prologue, 31 the block's
     stages; summed over them (ns): 2 the consumers' waits for a built stage
@@ -340,12 +419,31 @@ WGRAD_SPAN_VARIANTS = {
 }
 
 
+# the tile kernel's variants: the wait for the last store to read its
+# output tile skipped (nodrain), the output tile's store skipped (nostore),
+# three output tiles, each store left a unit longer to read its tile
+# (nb3), or registers for three blocks an SM, planned so (lb3)
+WGRAD_TILES_VARIANTS = {
+    "nodrain": [("    if (tid == kStorer) bulk_wait_read();\n", "")],
+    "nostore": [("tid == kStorer && cur.chunk >= 0) {\n      tensor_store3(&gw_map",
+                 "tid == kStorer && cur.chunk > C) {\n      tensor_store3(&gw_map")],
+    "nowrite": [("      if (cur.chunk >= 0) {\n        const int mw",
+                 "      if (cur.chunk > C) {\n        const int mw")],
+    "lb3": [("__launch_bounds__(sizeof(T) == 2 ? kThreads + 32 : kThreads, 2)\nwgrad_tiles_kernel",
+             "__launch_bounds__(sizeof(T) == 2 ? kThreads + 32 : kThreads, 3)\nwgrad_tiles_kernel")],
+    "nb3": [("  L.zero = L.out + 2 * align128(", "  L.zero = L.out + 3 * align128("),
+            ("(smem + L.out + (i & 1) * out_tile)", "(smem + L.out + (i % 3) * out_tile)"),
+            ("cp.async.bulk.wait_group.read 0;", "cp.async.bulk.wait_group.read 1;")],
+}
+
+
 def patched_source(variant: str = "base", kernel: str = "fwd", source=None) -> str:
     """The kernel's source (or ``source``, a copy of it) with stamps
     (slots: see the patch lists)."""
     src = open(source or os.path.join(ROOT, "hm_vae_torch", "csrc", SOURCES[kernel] + ".cu")).read()
     variants = {"fwd": {"nobuild": [], "nomma": []}, "wgrad": WGRAD_VARIANTS,
-                "wgrad_span": WGRAD_SPAN_VARIANTS}.get(kernel, {})
+                "wgrad_span": WGRAD_SPAN_VARIANTS,
+                "wgrad_tiles": WGRAD_TILES_VARIANTS}.get(kernel, {})
     if variant != "base" and variant not in variants:
         raise ValueError(f"--variant {variant} is not a variant of --kernel {kernel}")
     for old, new in variants.get(variant, []) if kernel != "fwd" else []:
@@ -357,7 +455,8 @@ def patched_source(variant: str = "base", kernel: str = "fwd", source=None) -> s
                "wgrad_span": lambda: (_wgrad_items64_patches() if ITEMS64 in src
                                       else _wgrad_span_patches(src)),
                "dgrad_span": lambda: (_dgrad_patches() if FOLD_KERNEL in src
-                                      else _dgrad_span_patches())}[kernel]()
+                                      else _dgrad_span_patches()),
+               "wgrad_tiles": lambda: _wgrad_tiles_patches(variant)}[kernel]()
     patches.insert(0, ("namespace {\n", "namespace {\n__device__ unsigned long long g_trace[%d];\n"
                        "__device__ __forceinline__ unsigned long long gtime() { unsigned long "
                        'long t; asm volatile("mov.u64 %%0, %%globaltimer;" : "=l"(t)); '
@@ -449,6 +548,39 @@ def dgrad_span_phases(trace: np.ndarray) -> dict:
                        (6, "slot_wait")):
         out[f"{what}_us"] = float(t[:, slot].mean() / 1e3)
         out[f"{what}_us_per_stage"] = float(t[:, slot].sum() / 1e3 / stages)
+    return out
+
+
+def window_phases(trace: np.ndarray) -> dict:
+    """:func:`phases` of a windowed whole-row wgrad launch (one stage a
+    block at one batch a window), and its waves: the blocks that started
+    before the first block ended ran at once, so the launch took about
+    blocks / that many waves."""
+    t = trace[trace[:, 0] > 0].astype(np.int64)
+    resident = int((t[:, 0] < t[:, 22].min()).sum())
+    return {**phases(trace), "resident": resident, "waves": len(t) / max(1, resident),
+            "block_us": float(np.mean(t[:, 22] - t[:, 0]) / 1e3)}
+
+
+def tiles_phases(trace: np.ndarray) -> dict:
+    """Means over a tile-kernel launch's blocks (slots:
+    :func:`_wgrad_tiles_patches`), the summed phases per unit, and its
+    waves as :func:`window_phases` counts them."""
+    t = trace[trace[:, 0] > 0].astype(np.int64)
+    us = lambda a, b: float(np.mean(t[:, b] - t[:, a]) / 1e3)  # noqa: E731
+    units = max(1, int(t[:, 30].sum()))
+    resident = int((t[:, 0] < t[:, 22].min()).sum())
+    out = {"blocks": len(t), "units_max": int(t[:, 31].max()),
+           "span_us": float((t[:, 22].max() - t[:, 0].min()) / 1e3),
+           "prologue_us": us(0, 1), "loop_us": us(1, 20), "epilogue_us": us(20, 22),
+           "resident": resident, "waves": len(t) / max(1, resident),
+           "block_us": us(0, 22), "prologue_parts_us": {
+               "issue": us(0, 10), "init": us(10, 9), "g_and_b": us(9, 11),
+               "x": us(11, 12), "barrier_refill": us(12, 1)}}
+    for slot, what in ((2, "wait"), (3, "build"), (4, "products"), (6, "tile_write"),
+                       (7, "store_drain"), (8, "barrier"), (5, "store_issue")):
+        out[f"{what}_us"] = float(t[:, slot].mean() / 1e3)
+        out[f"{what}_us_per_unit"] = float(t[:, slot].sum() / 1e3 / units)
     return out
 
 
@@ -671,13 +803,63 @@ def trace_dgrad_span(lib, buf, parent: bool, batch=None, dtype=torch.float32,
                           **extra, **row}), flush=True)
 
 
+def trace_windows(lib, buf, kernel: str, windows: int, dtype, variant="base") -> None:
+    """The windowed wgrad at the solve's four decoder levels, ``windows``
+    windows of one batch each (``chip_smoke.windowed_inputs``), in
+    ``dtype``: ``wgrad`` the whole-row kernel under its whole-row plan
+    (``wgrad_whole_plan``, one block a live tile and window), routed or
+    not, or ``wgrad_tiles`` the tile kernel under its plan
+    (``wgrad_tiles_plan``); one JSON line a level with its error against
+    the plain version, the plan and the phases (:func:`window_phases`,
+    :func:`tiles_phases`)."""
+    import chip_smoke
+    from hm_vae_torch.models.hm_vae import HMVAE
+    from hm_vae_torch.models.structure import get_structure
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+
+    gen = torch.Generator().manual_seed(chip_smoke.SEED)
+    lcfg = chip_smoke.latent_config()
+    model = HMVAE(lcfg.model, lcfg.optim.init, generator=gen).to("cuda")
+    sms = fcp._sm_count(torch.cuda.current_device())
+    for name, conv, T in chip_smoke.level_cases(model, get_structure(lcfg.model)):
+        if not name.startswith("dec"):
+            continue
+        s, w, b, packed, x, y, gy = chip_smoke.windowed_inputs(conv, T, gen, dtype, windows)
+        K, stride, T_out, esz = s.kernel_size, s.stride, y.shape[2], gy.element_size()
+        t_ld = -(-T_out // (16 // esz)) * (16 // esz)
+        if kernel == "wgrad_tiles":
+            plan = chip_smoke.wgrad_tiles_plan_of(s, gy, T, windows)
+            if variant == "lb3":
+                plan = fcp.wgrad_tiles_plan(s.wgrad_row.numel(), windows, sms, 3)
+        else:
+            plan = fcp.wgrad_whole_plan(
+                1, T_out, s.wgrad_row.numel(), sms, windows,
+                lambda sb, split: fcp._wgrad_smem(1, T, K, T_out, t_ld, stride, sb, split, esz),
+                fcp.wgrad_span_cols(K, stride, esz))
+            if plan.span:
+                raise SystemExit(f"{name}: the whole-row wgrad cannot take rows of {T} frames")
+        launch = lambda: fcp._wgrad(gy, y, x, s, windows, plan)[0]  # noqa: E731
+        ref = fcp.fused_conv_pool_wgrad_windowed_reference(
+            gy, y, x, K, stride, s.padding, windows, "reflect" if s.reflect else "constant",
+            s.negative_slope, s.live_elements())[0]
+        err = float((launch().float() - ref.float()).abs().max())
+        row = _trace(lib, buf, launch, tiles_phases if kernel == "wgrad_tiles" else window_phases)
+        print(json.dumps({"kernel": kernel, "level": name, "windows": windows, "T": T,
+                          "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+                          "max_abs_ref": float(ref.float().abs().max()),
+                          "live_tiles": s.wgrad_row.numel(), "plan": plan._asdict(),
+                          **row}), flush=True)
+
+
 @torch.inference_mode()
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", default="fwd", choices=tuple(SOURCES))
     ap.add_argument("--source", default=None,
                     help="a copy of the backward source to trace instead of the repo's")
-    ap.add_argument("--variant", default="base", choices=("base", "nobuild", "nomma", "noxb"))
+    ap.add_argument("--variant", default="base",
+                    choices=("base", "nobuild", "nomma", "noxb", "nodrain", "nostore", "nowrite",
+                             "nb3", "lb3"))
     ap.add_argument("--levels", default=None,
                     help="comma-separated levels (default: enc0,enc3,dec0,dec3 for fwd, all "
                          "eight for the backward)")
@@ -687,6 +869,9 @@ def main() -> None:
     ap.add_argument("--rows", default=None,
                     help="BxT[,BxT]: the backward kernels at the trajectory model's four K-31 "
                          "levels at batch B and T frames (training 8x128, the solve 10x64)")
+    ap.add_argument("--windows", type=int, default=None,
+                    help="wgrad, wgrad_tiles: the windowed kernel at the solve's four decoder "
+                         "levels, this many windows of one batch each")
     ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
                     help="the element type of the backward kernels (default float32)")
     args = ap.parse_args()
@@ -697,6 +882,11 @@ def main() -> None:
         if args.rows else None
     if shapes and (args.kernel == "fwd" or args.batch):
         raise SystemExit("--rows is for the backward kernels, in place of --batch")
+    if args.windows and (args.kernel not in ("wgrad", "wgrad_tiles") or shapes or args.batch):
+        raise SystemExit("--windows is for --kernel wgrad and wgrad_tiles, in place of --batch "
+                         "and --rows")
+    if args.kernel == "wgrad_tiles" and not args.windows:
+        raise SystemExit("--kernel wgrad_tiles runs at --windows G")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_trace.py needs a GPU")
     # the plain versions that max_abs_err reads, in full f32 (no TF32)
@@ -717,7 +907,14 @@ def main() -> None:
         _build.load("fused_conv_pool")  # the forward, for y
         fcp._bwd_library = lambda: (lib, fcp._bind(lib, "hmvae_conv_dgrad", fcp.DGRAD_ARGTYPES),
                                     fcp._bind(lib, "hmvae_conv_wgrad", fcp.WGRAD_ARGTYPES),
-                                    fcp._bind(lib, "hmvae_dgrad_span_pack", fcp.PACK_ARGTYPES))
+                                    fcp._bind(lib, "hmvae_dgrad_span_pack", fcp.PACK_ARGTYPES),
+                                    fcp._bind(lib, "hmvae_conv_wgrad_tiles",
+                                              fcp.TILES_ARGTYPES))
+    if args.windows:
+        trace_windows(lib, np.zeros(BLOCKS * SLOTS, dtype=np.uint64), args.kernel,
+                      args.windows, dtype, args.variant)
+        print(chip_smoke.nvidia_smi(), flush=True)
+        return
     if args.kernel == "dgrad_span":
         with open(args.source or os.path.join(_build.CSRC_DIR, "fused_conv_pool_bwd.cu")) as f:
             src = f.read()

@@ -28,9 +28,11 @@ phase 36 holds them against these plain versions):
   adjoint left out falls outside the first tolerance, over 25 clone steps
   (at the len-8 setup's 3 the fault does not show);
 - the plans: bf16 windowed plans at the solve's shapes (10 windows of one
-  batch, the len-64 decoder levels) are whole-row plans whose blocks fit
-  shared memory by the Python layouts, as f32's; at long windows (512 and
-  1,024 frames) dgrad takes spans and wgrad items wherever f32 does.
+  batch, the len-64 decoder levels) are dgrad's whole rows and wgrad's
+  tile kernel, whose blocks fit shared memory by the Python layouts, as
+  f32's; at long windows (512 and 1,024 frames) dgrad takes spans and
+  wgrad items wherever f32 does (dec0 at 512 frames, 64-frame rows, takes
+  the tile kernel in both).
 """
 
 import functools
@@ -345,8 +347,9 @@ def test_a_broken_bf16_windowed_dgrad_falls_outside_the_band(monkeypatch):
 
 def _plans(conv, T, windows, dtype, batch=1):
     """dgrad's and wgrad's plans for ``windows`` windows of ``batch``
-    batches at input T, as the wrappers make them (``_dgrad``, ``_wgrad``),
-    and the whole-row blocks' shared memory where they run whole rows."""
+    batches at input T, as the wrappers make them (``_dgrad``, ``_wgrad``:
+    wgrad's tile kernel where ``wgrad_tiles_routed``), and the blocks'
+    shared memory."""
     s = _structure(conv, dtype, conv.spec.padding_mode, device="meta")
     esz = 4 if dtype == torch.float32 else 2
     K, stride, pad = s.kernel_size, s.stride, s.padding
@@ -355,6 +358,14 @@ def _plans(conv, T, windows, dtype, batch=1):
     d = fcp.dgrad_plan(batch, T, K, stride, pad, t_ld, s.dgrad_start.numel() - 1,
                        s.dgrad_max_live, SMS, windows,
                        (s.dgrad_span_start.numel() - 1, s.dgrad_span_max_live), esz)
+    dsmem = (fcp._dgrad_smem(T, K, t_ld, stride, pad, d.nbb, esz) if not d.span
+             else fcp._dgrad_span_layout(K, stride, d.span, esz)[0])
+    entries = s.wgrad_row.numel()
+    if fcp.wgrad_tiles_routed(batch, T, K, stride, pad, entries, esz, windows):
+        wsmem = fcp._wgrad_tiles_layout(K, stride, batch, T, T_out, t_ld, entries, esz)["total"]
+        w = fcp.wgrad_tiles_plan(s.wgrad_row.numel(), windows, SMS,
+                                 fcp.wgrad_tiles_per_sm(wsmem))
+        return d, w, {"dgrad": dsmem, "wgrad": wsmem}
     cols = fcp.wgrad_span_cols(K, stride, esz)
     rows = int(fcp.wgrad_bf16_items(batch, T, K, stride, pad, esz))
     w = fcp.wgrad_plan(batch, T_out, s.wgrad_row.numel(), SMS, windows,
@@ -362,8 +373,7 @@ def _plans(conv, T, windows, dtype, batch=1):
                                                          split, esz),
                        cols, rows, fcp.wgrad_items_per_sm(K, stride, cols, esz, 1, T, T_out,
                                                           t_ld))
-    smem = {"dgrad": (fcp._dgrad_smem(T, K, t_ld, stride, pad, d.nbb, esz) if not d.span
-                      else fcp._dgrad_span_layout(K, stride, d.span, esz)[0]),
+    smem = {"dgrad": dsmem,
             "wgrad": (fcp._wgrad_smem(batch, T, K, T_out, t_ld, stride, w.sb, w.split, esz)
                       if not w.span else fcp._wgrad_span_smem(K, stride, w.span, esz))}
     return d, w, smem
@@ -371,16 +381,20 @@ def _plans(conv, T, windows, dtype, batch=1):
 
 @pytest.mark.parametrize("level", range(4))
 def test_bf16_windowed_plans_at_the_solve_fit_shared_memory(level):
-    """10 windows of one batch at the decoder level's own length: whole
-    rows in both dtypes, within MAX_SMEM by the Python layouts (which
-    test_torch_bf16_backward.py holds against the kernels'), bf16 never a
-    smaller batch group than f32's, every window's blocks its own."""
+    """10 windows of one batch at the decoder level's own length: dgrad's
+    whole rows and wgrad's tile kernel in both dtypes, within MAX_SMEM by
+    the Python layouts (which test_torch_bf16_backward.py and
+    test_torch_wgrad_tiles.py hold against the kernels'), bf16 never a
+    smaller batch group than f32's, every window's blocks its own (the tile
+    kernel's units a window's entries)."""
     _, conv, T = _decoder_levels()[level]
     d16, w16, smem16 = _plans(conv, T, SOLVE_WINDOWS, BF16)
-    d32, w32, _ = _plans(conv, T, SOLVE_WINDOWS, torch.float32)
-    assert d16.span == 0 and w16.span == 0 and d32.span == 0 and w32.span == 0
-    assert max(smem16.values()) <= fcp.MAX_SMEM
-    assert d16.nbb == d32.nbb == 1 and w16.sb == w32.sb == 1
+    d32, w32, smem32 = _plans(conv, T, SOLVE_WINDOWS, torch.float32)
+    assert d16.span == 0 and d32.span == 0
+    assert isinstance(w16, fcp.WgradTilesPlan) and isinstance(w32, fcp.WgradTilesPlan)
+    assert w16.units == w32.units == conv.structure().wgrad_row.numel() * SOLVE_WINDOWS
+    assert max(smem16.values()) <= fcp.MAX_SMEM and max(smem32.values()) <= fcp.MAX_SMEM
+    assert d16.nbb == d32.nbb == 1
 
 
 @pytest.mark.parametrize("frames", [512, 1024])
@@ -389,7 +403,9 @@ def test_bf16_windowed_plans_at_long_windows_take_spans_and_items(level, frames)
     """4 windows of one batch at window lengths past whole-row staging: a
     padded row past 256 columns takes dgrad's spans in both dtypes, and
     wgrad takes items wherever f32's whole rows do not fit, in both dtypes
-    (``wgrad_bf16_items``); the span and item blocks fit shared memory."""
+    (``wgrad_bf16_items``), and the tile kernel in both at dec0 at 512
+    frames (64-frame rows, the solve's dec3 shape); the span, item and tile
+    blocks fit shared memory."""
     _, conv, T = _decoder_levels()[level]
     T = T * frames // 64
     sp = conv.spec
@@ -397,6 +413,12 @@ def test_bf16_windowed_plans_at_long_windows_take_spans_and_items(level, frames)
     d32, w32, smem32 = _plans(conv, T, 4, torch.float32)
     long_row = T + 2 * sp.padding > 256
     assert (d16.span > 0) == (d32.span > 0) == long_row
+    if isinstance(w16, fcp.WgradTilesPlan) or isinstance(w32, fcp.WgradTilesPlan):
+        # dec0 at 512 frames: 64-frame rows, the solve's dec3 shape
+        assert isinstance(w16, fcp.WgradTilesPlan) and isinstance(w32, fcp.WgradTilesPlan)
+        assert level == 0 and frames == 512 and not long_row
+        assert max(smem16.values()) <= fcp.MAX_SMEM and max(smem32.values()) <= fcp.MAX_SMEM
+        return
     assert (w16.span > 0) == (w32.span > 0)
     assert w32.span > 0 or not long_row
     assert max(smem16.values()) <= fcp.MAX_SMEM and max(smem32.values()) <= fcp.MAX_SMEM

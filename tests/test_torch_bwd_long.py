@@ -98,7 +98,8 @@ def _vae_cases(name):
 
 def _plans(s, B, T, windows=1):
     """dgrad's and wgrad's f32 plans as the wrappers choose them (wgrad:
-    routed to the item kernel where ``wgrad_routed_rows``)."""
+    routed to the item kernel where ``wgrad_routed_rows``), but wgrad's
+    whole-row plan where the wrapper takes the tile kernel."""
     T_out = _t_out(s, T)
     t_ld = T_out + -T_out % 4
     K, stride, pad = s.kernel_size, s.stride, s.padding
@@ -232,12 +233,17 @@ def test_existing_shapes_keep_their_plans():
     (8, 128), (10, 64) and (1, 64) (``wgrad_items_routed``); dgrad spans
     from 4 batches on, at (8, 128) one batch's padded row a span, at (10,
     64) two.  dgrad at (1, 64) and both at (64, 64) are not routed.  The
-    whole-row plans,
+    solve's windowed wgrad (10 windows of one batch at the decoder levels)
+    goes to the tile kernel (``wgrad_tiles_routed``).  The whole-row plans,
     ``dgrad_whole_plan`` and ``wgrad_whole_plan``, are still the ones from
     before at every shape."""
-    n = routed = w_routed = traj_d = traj_w = 0
+    n = routed = w_routed = traj_d = traj_w = tiles = 0
     for s, B, T, windows in _existing_shapes():
         d, w, t_ld = _plans(s, B, T, windows)
+        if fcp.wgrad_tiles_routed(B, T, s.kernel_size, s.stride, s.padding,
+                                  s.wgrad_row.numel(), 4, windows):
+            assert windows == 10 and B == 1 and s.kernel_size == 15
+            tiles += 1
         T_out = _t_out(s, T)
         K = s.kernel_size
         old_d = _old_dgrad_plan(B, T, K, s.stride, s.padding, t_ld,
@@ -282,7 +288,7 @@ def test_existing_shapes_keep_their_plans():
         n += 1
     assert n == 8 * 4 + 4 + 16
     assert routed == w_routed == 8 * 2
-    assert traj_d == 4 * 2 and traj_w == 4 * 3
+    assert traj_d == 4 * 2 and traj_w == 4 * 3 and tiles == 4
 
 
 def dgrad_by_span(g, w, T_in, stride, padding, reflect, span, split=1):

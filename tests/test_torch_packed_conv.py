@@ -226,12 +226,13 @@ def test_packed_entry_on_cpu_never_launches_and_meta_raises():
 @pytest.mark.parametrize("kernel,variant", [("fwd", "base"), ("fwd", "nobuild"),
                                             ("fwd", "nomma"), ("dgrad", "base"),
                                             ("wgrad", "base"), ("wgrad_span", "base"),
-                                            ("dgrad_span", "base")])
+                                            ("dgrad_span", "base"), ("wgrad_tiles", "base")])
 def test_kernel_trace_still_patches_the_kernel(kernel, variant):
     """kernel_trace.py stamps the kernel sources at fixed anchors; each must
     still be found exactly once."""
     import kernel_trace
 
     src = kernel_trace.patched_source(variant, kernel)
-    assert src.count("gtime()") == {"fwd": 11, "wgrad_span": 12, "dgrad_span": 14}.get(kernel, 9)
+    assert src.count("gtime()") == {"fwd": 11, "wgrad_span": 12, "dgrad_span": 14,
+                                    "wgrad_tiles": 21}.get(kernel, 9)
     assert ("k < 0" in src) == (variant != "base")
