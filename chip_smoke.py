@@ -49,7 +49,11 @@ Phases, each of which exits non-zero on failure:
    windows of one batch each, against their plain versions, the backward
    also against autograd of the plain forward, each giving the same bits on
    two runs, and against 10 one-window launches; timed on the device beside
-   the plain versions and cuDNN's grouped convolution;
+   the plain versions and cuDNN's grouped convolution; where the wrapper
+   routes them to the tile kernels (wgrad's and dgrad's: the solve's
+   shapes), each launch must run its tile kernel, a launch into a
+   NaN-filled gradient must give the same bits, and the whole-row kernel
+   is held and timed beside it;
 9. a short 10-window solve (9 iterations across the z-to-decoder switch)
    through ``LatentOptApps.interpolate`` on the GPU against the CPU, from
    the same weights and z, losses inside a band calibrated by runs from
@@ -57,8 +61,10 @@ Phases, each of which exits non-zero on failure:
    z phase, then the last iteration through the per-window clones) whose
    6D outputs agree as the reconstruct's do;
 10. the full solve on the card (10 windows, 150 iterations, per-window
-   clones): ms per solve, kernel launches per iteration and phase, the
-   profile; the shared-clone and ``last_conv`` solves' times;
+   clones): ms per solve, kernel launches per iteration and phase (the
+   tile kernels' among the windowed wgrad's and dgrad's, dgrad's also as
+   the device counts its dgrad runs), the profile; the shared-clone and
+   ``last_conv`` solves' times;
 11. the evaluation entry point: ``hm_vae_torch.cli.eval_recovery`` on the
    synthetic test split with the training CLI's checkpoint, and completion
    and generation through ``LatentOptApps``;
@@ -580,10 +586,14 @@ def bwd_kind(name):
     warpgroup, "wgrad_spans_nt1" (K <= 15) or "wgrad_spans_nt2" (K <= 31),
     over items of several batches' whole rows "wgrad_spans_rows";
     ``wgrad_tiles_kernel``, the tile kernel over many windows' short rows,
-    "wgrad_tiles"; "_bf16" after the name of a bf16 instantiation."""
+    "wgrad_tiles"; ``dgrad_tiles_kernel``, dgrad's, by its N tile,
+    "dgrad_tiles_n8" to "dgrad_tiles_n64"; "_bf16" after the name of a bf16
+    instantiation."""
     bf16 = "_bf16" if "nv_bfloat16" in name else ""
     if "wgrad_tiles" in name:
         return "wgrad_tiles" + bf16
+    if "dgrad_tiles" in name:
+        return "dgrad_tiles_n" + re.search(r"Li(\d+)E", name).group(1) + bf16
     if "dgrad_span_pack" in name:
         return "dgrad_span_pack" + bf16
     if "dgrad" in name:
@@ -707,11 +717,12 @@ def e2e_phase(cfg, dtype, x6d):
 # runs them with no call of their entries, so only the trace sees them)
 TRACE_KERNELS = re.compile(
     r"::(conv_gemm_kernel|dgrad_kernel|dgrad_span_kernel|dgrad_span_pack_kernel|wgrad_kernel"
-    r"|wgrad_span_kernel|wgrad_tiles_kernel)[<(]")
-# the dgrad kernels of a training step in a device trace: whole rows, spans
-# and the spans' weight layout; the wgrad kernels: whole rows, items and
-# tiles
-DGRAD_TRACE = ("dgrad_kernel", "dgrad_span_kernel", "dgrad_span_pack_kernel")
+    r"|wgrad_span_kernel|wgrad_tiles_kernel|dgrad_tiles_kernel)[<(]")
+# the dgrad kernels of a training step in a device trace: whole rows, spans,
+# the spans' weight layout and tiles; the wgrad kernels: whole rows, items
+# and tiles
+DGRAD_TRACE = ("dgrad_kernel", "dgrad_span_kernel", "dgrad_span_pack_kernel",
+               "dgrad_tiles_kernel")
 WGRAD_TRACE = ("wgrad_kernel", "wgrad_span_kernel", "wgrad_tiles_kernel")
 TRACE_NAME = {"fused_conv_pool": "conv_gemm_kernel", "fused_conv_pool_dgrad": "dgrad_kernel",
               "fused_conv_pool_wgrad": "wgrad_kernel"}
@@ -974,16 +985,52 @@ def bwd_level_row(name, conv, T_in, batch, gen, with_wgrad=True, dtype=torch.flo
     return row
 
 
-def whole_row_plan(s, gy, T_in):
-    """The whole-row dgrad plan of a call (``dgrad_whole_plan``): the plan
-    that ``dgrad_kernel`` runs at shapes routed to spans."""
+def whole_row_plan(s, gy, T_in, windows=1):
+    """The whole-row dgrad plan of a call of `windows` windows
+    (``dgrad_whole_plan``): the plan that ``dgrad_kernel`` runs at shapes
+    routed to spans or to the tile kernel."""
     from hm_vae_torch.ops import fused_conv_pool as fcp
 
     gran = 16 // gy.element_size()
-    return fcp.dgrad_whole_plan(gy.shape[0], T_in, s.kernel_size, s.stride, s.padding,
-                                -(-gy.shape[2] // gran) * gran, s.dgrad_start.numel() - 1,
-                                s.dgrad_max_live, fcp._sm_count(gy.device.index), 1,
-                                esz=gy.element_size())
+    return fcp.dgrad_whole_plan(gy.shape[0] // windows, T_in, s.kernel_size, s.stride,
+                                s.padding, -(-gy.shape[2] // gran) * gran,
+                                s.dgrad_start.numel() - 1, s.dgrad_max_live,
+                                fcp._sm_count(gy.device.index), windows, esz=gy.element_size())
+
+
+def dgrad_tiles_plan_of(s, gy, windows):
+    """dgrad's tile kernel's plan (``dgrad_tiles_plan``) for a windowed dgrad
+    of ``windows`` windows, whether or not the wrapper routes the shape
+    there."""
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+
+    return fcp.dgrad_tiles_plan(s.dgrad_chunk_start.numel() - 1, windows,
+                                fcp._sm_count(gy.device.index),
+                                fcp.dgrad_tiles_per_sm(gy.element_size()))
+
+
+def dgrad_tiles_poisoned(gy, y, w, s, T_in, windows, plan):
+    """dgrad's tile kernel launched into input gradients filled with NaN
+    first (the wrapper's are uncleared memory): where the kernel writes
+    every element, the wrapper's bits."""
+    from hm_vae_torch.ops import _build
+    from hm_vae_torch.ops import fused_conv_pool as fcp
+
+    esz = gy.element_size()
+    gy, y = fcp._aligned(gy, 2, 16 // esz), fcp._aligned(y, 2, 16 // esz)
+    w = fcp._aligned(w, w.dim() - 2, fcp.BWD_CHUNK_CHANNELS)
+    (B, P, T_out), C = gy.shape, w.shape[-2]
+    gx = torch.full((B, C, T_in), float("nan"), dtype=gy.dtype, device=gy.device)
+    lib, tiles = fcp._bwd_library()[0], fcp._bwd_library()[5]
+    rows = s.dgrad_chunk_row
+    err = tiles(gy.data_ptr(), y.data_ptr(), w.data_ptr(), s.dgrad_chunk_start.data_ptr(),
+                rows.data_ptr() if rows.numel() else None, gx.data_ptr(), rows.numel(), B, C,
+                T_in, s.kernel_size, P, T_out, gy.shape[2], s.stride, s.padding, int(s.reflect),
+                s.negative_slope, plan.blocks, windows, fcp._DTYPES[gy.dtype], gy.device.index,
+                torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "dgrad_tiles_poisoned")
+    torch.cuda.synchronize()
+    return gx[:, :s.in_channels]
 
 
 def whole_row_wgrad_plan(s, gy, T_in):
@@ -1255,7 +1302,11 @@ def windowed_phase(model, st, gen, dtype=torch.float32, windows=WINDOWS, frames=
     shapes) its launch must run it; a launch into gradients filled with NaN
     must give the same bits (it writes every element); the whole-row wgrad
     is held and timed beside it, unrouted ("whole_rows", its wrapper's
-    clearing included), with the clearing's own time ("memset_ms")."""
+    clearing included), with the clearing's own time ("memset_ms").  Where
+    it gives the dgrad to its tile kernel (``dgrad_tiles_routed``), the
+    same: its launch must run it, a launch into an input gradient filled
+    with NaN must give the same bits, and the whole-row dgrad is held and
+    timed beside it, unrouted ("whole_rows")."""
     from hm_vae_torch.ops import fused_conv_pool as fcp
 
     G = windows
@@ -1319,6 +1370,11 @@ def windowed_phase(model, st, gen, dtype=torch.float32, windows=WINDOWS, frames=
         tiles = fcp.wgrad_tiles_routed(1, T_in, K, stride, pad, s.wgrad_row.numel(), esz, G)
         if tiles != (plan["wgrad"]["blocks"] > 0):
             fail(f"{name}: the tile kernel routed {tiles}, the wgrad launch ran {plan['wgrad']}")
+        dtiles = fcp.dgrad_tiles_routed(1, T_in, K, stride, pad, P, s.dgrad_chunk_start.numel() - 1,
+                                        s.dgrad_chunk_row.numel(), esz, G)
+        if dtiles != (plan["dgrad"]["blocks"] > 0):
+            fail(f"{name}: dgrad's tile kernel routed {dtiles}, the dgrad launch ran "
+                 f"{plan['dgrad']}")
         err_f = check(f"{name} windowed", out, f_plain(), dtype)[0]
         err_d = check(f"{name} windowed dgrad", gx, d_plain(), dtype)[0]
         rw, rb = w_plain()
@@ -1360,7 +1416,23 @@ def windowed_phase(model, st, gen, dtype=torch.float32, windows=WINDOWS, frames=
                     f"{name} window {g} wgrad vs one launch", gw[g],
                     fcp.fused_conv_pool_wgrad(gy[sl], y[sl], x[sl], s)[0], dtype)[0])
         torch.cuda.synchronize()
-        w_extra = {}
+        d_extra, w_extra = {}, {}
+        if dtiles:
+            rx = d_plain()
+            nx = dgrad_tiles_poisoned(gy, y, w, s, T_in, G, dgrad_tiles_plan_of(s, gy, G))
+            if not torch.equal(nx, gx):
+                fail(f"{name}: dgrad's tile kernel left elements of a NaN-filled gradient "
+                     "unwritten or differs from the wrapper's launch")
+            d_extra["every_element_written"] = True
+            dp = whole_row_plan(s, gy, T_in, G)
+            if not dp.span:
+
+                def d_whole():
+                    return fcp._dgrad(gy, y, w, s, T_in, G, dp)
+
+                d_extra["whole_rows"] = {
+                    "max_abs_err": check(f"{name} dgrad whole rows", d_whole(), rx, dtype)[0],
+                    "ms": device_ms(d_whole), "plan": dp._asdict()}
         if tiles:
             nw, nb_ = wgrad_tiles_poisoned(gy, y, x, s, G, wgrad_tiles_plan_of(s, gy, T_in, G))
             if not (torch.equal(nw, gw) and torch.equal(nb_, gb)):
@@ -1404,7 +1476,7 @@ def windowed_phase(model, st, gen, dtype=torch.float32, windows=WINDOWS, frames=
                          "bytes": G * nb, "ops": G * no, "bound_ms": max(t_bytes, t_ops),
                          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                          **({"plan": plan[what]} if what in plan else {}),
-                         **(w_extra if what == "wgrad" else {})}
+                         **{"dgrad": d_extra, "wgrad": w_extra}.get(what, {})}
         print(json.dumps(row), flush=True)
         rows.append(row)
     return rows
@@ -1672,12 +1744,13 @@ def timed_solve(apps, seq, reps=2, root_trans=None, runs=None, profile=False, ti
     with `profile` that counted solve runs under :func:`profile_calls`
     (the phase's earlier solves warmed the structures) and its profile is
     returned too.  `runs` (a dict) receives the kernels' runs in that solve
-    as the device counted them, `tiles` (a dict) the launches of wgrad's
-    tile kernel among its windowed wgrad's ("wgrad_tiles")."""
+    as the device counted them, `tiles` (a dict) the launches of the tile
+    kernels among the windowed wgrad's and dgrad's ("wgrad_tiles",
+    "dgrad_tiles")."""
     from hm_vae_torch.ops import fused_conv_pool as fcp
 
     counters = launch_counters()
-    for c in counters + [fcp.wgrad_tiles]:
+    for c in counters + [fcp.wgrad_tiles, fcp.dgrad_tiles]:
         c.launches = 0
     if runs is not None:
         fcp.device_runs(torch.cuda.current_device(), reset=True)
@@ -1693,6 +1766,7 @@ def timed_solve(apps, seq, reps=2, root_trans=None, runs=None, profile=False, ti
     launches = {c.__name__: c.launches for c in counters}
     if tiles is not None:
         tiles["wgrad_tiles"] = fcp.wgrad_tiles.launches
+        tiles["dgrad_tiles"] = fcp.dgrad_tiles.launches
     if runs is not None:
         runs.update(fcp.device_runs(torch.cuda.current_device()))
     ms = []
@@ -1706,18 +1780,33 @@ def timed_solve(apps, seq, reps=2, root_trans=None, runs=None, profile=False, ti
     return (out, launches, ms, prof) if profile else (out, launches, ms)
 
 
-def tile_levels(model, dtype):
-    """The decoder levels whose windowed wgrad at the solve's shapes
-    (WINDOWS windows of one batch) the wrapper gives the tile kernel in
-    `dtype` (``wgrad_tiles_routed``)."""
+def tile_levels(model, dtype, kernel="wgrad"):
+    """The decoder levels whose windowed wgrad (`kernel` "wgrad") or dgrad
+    ("dgrad") at the solve's shapes (WINDOWS windows of one batch) the
+    wrapper gives its tile kernel in `dtype` (``wgrad_tiles_routed``,
+    ``dgrad_tiles_routed``)."""
     from hm_vae_torch.models.structure import get_structure
     from hm_vae_torch.ops import fused_conv_pool as fcp
 
     esz = torch.empty((), dtype=dtype).element_size()
+
+    def routed(c, T):
+        sp, s = c.spec, c.structure()
+        if kernel == "wgrad":
+            return fcp.wgrad_tiles_routed(1, T, sp.kernel_size, sp.stride, sp.padding,
+                                          s.wgrad_row.numel(), esz, WINDOWS)
+        return fcp.dgrad_tiles_routed(1, T, sp.kernel_size, sp.stride, sp.padding, s.rows,
+                                      s.dgrad_chunk_start.numel() - 1, s.dgrad_chunk_row.numel(),
+                                      esz, WINDOWS)
+
     return [n for n, c, T in level_cases(model, get_structure(model.cfg))
-            if n.startswith("dec") and fcp.wgrad_tiles_routed(
-                1, T, c.spec.kernel_size, c.spec.stride, c.spec.padding,
-                c.structure().wgrad_row.numel(), esz, WINDOWS)]
+            if n.startswith("dec") and routed(c, T)]
+
+
+def solve_tiles(model, dtype, n_d):
+    """The tile kernels' launches a per-window solve of `n_d` decoder-phase
+    iterations makes: one a routed level an iteration, each kernel."""
+    return {f"{k}_tiles": n_d * len(tile_levels(model, dtype, k)) for k in ("wgrad", "dgrad")}
 
 
 def solve_phase(model, seq):
@@ -1734,10 +1823,10 @@ def solve_phase(model, seq):
     n_d = lat.opt_it - 1 - n_z
     LatentOptApps(model, latent_config(opt_it=3, prev_epochs=0)).interpolate(
         seq, torch.Generator().manual_seed(SEED))  # warm-up: structures, libraries
-    tiles = n_d * len(tile_levels(model, torch.float32))
+    tiles = solve_tiles(model, torch.float32, n_d)
     rows = {mode: mode_solve(model, seq, f"{mode} solve", overrides, want,
                              reps=2 if mode == "per_window" else 1,
-                             profile=mode == "per_window",
+                             profile=mode == "per_window", device_check=mode == "per_window",
                              tiles=tiles if mode == "per_window" else None)
             for mode, overrides, want in (
                 ("per_window", {}, (4 * n_z, 4 * n_z, 0, 4 * (n_d + 1), 4 * n_d, 4 * n_d)),
@@ -1760,9 +1849,12 @@ def mode_solve(model, seq, name, overrides, want, reps=1, profile=True, model_ov
     `overrides`, its model section with `model_overrides`, which `model`
     was made under) on the card: its kernel launches must be exactly `want`
     (LAUNCH_NAMES order; the first, counted solve warms up), where given
-    `tiles` of its windowed wgrad's through the tile kernel, and with
-    `device_check` the kernels' runs counted on the device their sums over
-    the windowed and the plain entries; the loss must fall, the outputs be
+    `tiles` (by tile kernel, :func:`solve_tiles`) of its windowed wgrad's
+    and dgrad's through the tile kernels, and with `device_check` the
+    kernels' runs counted on the device their sums over the windowed and
+    the plain entries (where every windowed dgrad runs the tile kernel, its
+    launches the device's dgrad runs less the plain entry's: "dgrad_tiles_
+    device"); the loss must fall, the outputs be
     finite; ms per solve by CUDA events over `reps` solves, the peak of
     allocated device memory, and with `profile` the counted solve's
     profile."""
@@ -1778,14 +1870,19 @@ def mode_solve(model, seq, name, overrides, want, reps=1, profile=True, model_ov
     want = dict(zip(LAUNCH_NAMES, want))
     if launches != want:
         fail(f"{name}: kernel launches {launches}, expected {want}")
-    if tiles is not None and tile_runs["wgrad_tiles"] != tiles:
-        fail(f"{name}: {tile_runs['wgrad_tiles']} windowed wgrad launches ran the tile kernel, "
-             f"expected {tiles}")
+    if tiles is not None and any(tile_runs[k] != v for k, v in tiles.items()):
+        fail(f"{name}: {tile_runs} windowed launches ran the tile kernels, expected {tiles}")
     if device_check:
         want_runs = {TRACE_NAME[a]: want[a] + want[w]
                      for a, w in zip(LAUNCH_NAMES[:3], LAUNCH_NAMES[3:])}
         if runs != want_runs:
             fail(f"{name}: the device counted {runs}, expected {want_runs}")
+        if tiles and tiles["dgrad_tiles"] == want["fused_conv_pool_dgrad_windowed"]:
+            tile_runs["dgrad_tiles_device"] = runs["dgrad_kernel"] - launches[
+                "fused_conv_pool_dgrad"]
+            if tile_runs["dgrad_tiles_device"] != tile_runs["dgrad_tiles"]:
+                fail(f"{name}: the device ran {tile_runs['dgrad_tiles_device']} windowed dgrad "
+                     f"kernels, the tile kernel's count is {tile_runs['dgrad_tiles']}")
     hist = out["loss_history"].cpu().numpy()
     if not (np.isfinite(hist).all() and len(hist) == apps.cfg.latent_opt.opt_it
             and hist[-1] < hist[0]):
@@ -4194,6 +4291,8 @@ WGRAD_ITEM_KINDS = tuple(f"wgrad_spans_{f}{d}" for d in ("", "_bf16")
                          for f in ("nt1", "nt2", "rows"))
 # wgrad's tile kernel (build_report), f32 and bf16: wgmma in both
 WGRAD_TILE_KINDS = ("wgrad_tiles", "wgrad_tiles_bf16")
+# dgrad's tile kernel (build_report), f32 and bf16 at each N tile: wgmma
+DGRAD_TILE_KINDS = tuple(f"dgrad_tiles_n{n}{d}" for d in ("", "_bf16") for n in (8, 16, 32, 64))
 
 
 # (d)'s small model: tests/test_train_step.py's TINY config (latent 6, K 3,
@@ -4534,12 +4633,12 @@ def bf16_solve_phase(data_root, lmodel, gen, seq, ck=None, clone_solve=None):
         seq, torch.Generator().manual_seed(SEED))  # warm-up: structures
     f32_solve = mode_solve(lmodel, seq, "f32 per_window solve", {},
                            (4 * n_z, 4 * n_z, 0, 4 * (n_d + 1), 4 * n_d, 4 * n_d), reps=2,
-                           tiles=n_d * len(tile_levels(lmodel, torch.float32)))
-    tiles = n_d * len(tile_levels(model, bf16))
+                           tiles=solve_tiles(lmodel, torch.float32, n_d))
+    tiles = solve_tiles(model, bf16, n_d)
     solves = {mode: mode_solve(model, seq, f"bf16-compute {mode} solve", {**BF16_CLONE, **ov},
                                want, reps=2 if mode == "per_window" else 1,
                                model_overrides=BF16_COMPUTE, device_check=True,
-                               tiles=tiles if mode == "per_window" else 0)
+                               tiles=tiles if mode == "per_window" else dict.fromkeys(tiles, 0))
               for mode, ov, want in (
                   ("per_window", {}, (4 * n_z, 4 * n_z, 0, 4 * (n_d + 1), 4 * n_d, 4 * n_d)),
                   ("shared", {"per_window_decoder": False},
@@ -4644,13 +4743,14 @@ def main() -> None:
     if not report["fused_conv_pool"].get("bf16", {}).get("hgmma"):
         fail("the bf16 instantiation has no HGMMA (wgmma) instruction")
     for what in ("dgrad", "dgrad_spans", "dgrad_spans_bf16", "wgrad",
-                 "wgrad_nq4") + WGRAD_ITEM_KINDS + WGRAD_TILE_KINDS + BF16_BWD_KINDS:
+                 "wgrad_nq4") + WGRAD_ITEM_KINDS + WGRAD_TILE_KINDS + DGRAD_TILE_KINDS \
+            + BF16_BWD_KINDS:
         r = report["fused_conv_pool_bwd"].get(what, {})
         if not (r.get("hgmma") or r.get("hmma")):
             fail(f"the {what} kernel has no HGMMA or HMMA (tensor-core) instruction")
         if what in BF16_BWD_KINDS and not r.get("hmma"):
             fail(f"the {what} kernel has no HMMA (bf16 mma.sync) instruction: {r}")
-        if what in WGRAD_ITEM_KINDS + WGRAD_TILE_KINDS and not r.get("hgmma"):
+        if what in WGRAD_ITEM_KINDS + WGRAD_TILE_KINDS + DGRAD_TILE_KINDS and not r.get("hgmma"):
             fail(f"the {what} kernel has no HGMMA (wgmma) instruction: {r}")
         if r.get("wgmma_serialized"):
             fail(f"ptxas serialized the {what} kernel's wgmma: {r}")
@@ -5192,35 +5292,44 @@ def main() -> None:
                         "the whole-row bf16 wgrad beside the items); launches: 0, checked, on "
                         "no driven path (phase 36); times: device time from CUDA-graph "
                         f"replays; library_ms: cuDNN's grouped {lib} in {dt}"})
-    # wgrad's tile kernel, the routed windowed wgrad at the solve's shapes:
-    # its levels' rows, the whole-row kernel and the clearing beside
-    for tag, level_rows, launches in (
-            ("", windowed, solve["per_window"]["wgrad_tiles"]),
-            ("_bf16", bf16_win, bf16_solves["per_window"]["wgrad_tiles"])):
-        tile_rows = [r for r in level_rows if r["wgrad"]["plan"]["blocks"]]
+    # the tile kernels, the routed windowed wgrad and dgrad at the solve's
+    # shapes: their levels' rows, the whole-row kernel beside (wgrad's with
+    # its clearing, and the clearing alone)
+    for what, tag, level_rows, solve_row in (
+            (w, t, r, sr) for w in ("wgrad", "dgrad")
+            for t, r, sr in (("", windowed, solve), ("_bf16", bf16_win, bf16_solves))):
+        tile_rows = [r for r in level_rows if r[what]["plan"]["blocks"]]
         if not tile_rows:
             continue
         dt = tile_rows[0]["dtype"]
         summary["kernels"].append({
-            "name": f"wgrad_tiles@solve{tag}", "route": "cuda",
+            "name": f"{what}_tiles@solve{tag}", "route": "cuda",
             "source": "hm_vae_torch/csrc/fused_conv_pool_bwd.cu",
             "replaces": "hm_vae_tpu/models/hm_vae.py:200 (JAX autodiff of the level"
                         + (" in bf16" if tag else "") + ") under jax.vmap over windows "
                         "(per-window decoder clones, hm_vae_tpu/apps/latent_opt.py:423)",
-            "launches": launches, **total([r["wgrad"] for r in tile_rows]),
-            "whole_rows_ms": sum(r["wgrad"]["whole_rows"]["ms"] for r in tile_rows),
-            "whole_rows_max_abs_err": max(r["wgrad"]["whole_rows"]["max_abs_err"]
+            "launches": solve_row["per_window"][f"{what}_tiles"],
+            **({"device_launches": solve_row["per_window"]["dgrad_tiles_device"]}
+               if "dgrad_tiles_device" in solve_row["per_window"] and what == "dgrad" else {}),
+            **total([r[what] for r in tile_rows]),
+            "whole_rows_ms": sum(r[what]["whole_rows"]["ms"] for r in tile_rows),
+            "whole_rows_max_abs_err": max(r[what]["whole_rows"]["max_abs_err"]
                                           for r in tile_rows),
-            "memset_ms": sum(r["wgrad"]["memset_ms"] for r in tile_rows),
+            **({"memset_ms": sum(r[what]["memset_ms"] for r in tile_rows)}
+               if what == "wgrad" else {}),
             "levels": [r["level"] for r in tile_rows],
-            "plans": [r["wgrad"]["plan"] for r in tile_rows],
+            "plans": [r[what]["plan"] for r in tile_rows],
             "note": f"{dt}, {WINDOWS} windows of one batch each: sums over the decoder levels "
-                    "routed to wgrad_tiles_kernel (wgrad_tiles_routed); launches: its own, in "
+                    f"routed to {what}_tiles_kernel ({what}_tiles_routed); launches: its own, in "
                     "one 150-iteration per-window solve (phase " + ("36" if tag else "10")
-                    + "); times: device time from CUDA-graph replays; whole_rows_ms: "
-                    "wgrad_kernel at the same levels under its whole-row plan, its wrapper's "
-                    "clearing included; memset_ms: that clearing alone; library_ms: cuDNN's "
-                    f"grouped torch.nn.grad.conv1d_weight in {dt} (groups = windows)"})
+                    + "; device_launches: the device's dgrad runs less the plain entry's); "
+                    f"times: device time from CUDA-graph replays; whole_rows_ms: {what}_kernel "
+                    "at the same levels under its whole-row plan"
+                    + (", its wrapper's clearing included; memset_ms: that clearing alone"
+                       if what == "wgrad" else "")
+                    + "; library_ms: cuDNN's grouped torch.nn.grad.conv1d_"
+                    + ("weight" if what == "wgrad" else "input")
+                    + f" in {dt} (groups = windows)"})
     pack = {dt: [r["dgrad"]["pack"] for r in rows if "pack" in r["dgrad"]]
             for dt, rows in (("float32", b64_bwd), ("bfloat16", bf16_rows["b64"]))}
     top = "float32" if pack["float32"] else "bfloat16"

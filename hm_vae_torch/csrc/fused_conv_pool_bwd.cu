@@ -145,7 +145,10 @@
 // - the test-time solve's windows of short rows (several windows, a window's
 //   columns at most 64): wgrad_tiles_kernel, persistent blocks that walk
 //   runs of (window, live tile) units and write the windows' whole
-//   gradients, dead tiles included (its own section below);
+//   gradients, dead tiles included; dgrad_tiles_kernel, persistent blocks
+//   that walk runs of (window, channel chunk) units, streaming each unit's
+//   live weight tiles once, g built once a window (their own sections
+//   below);
 // Limits: C a multiple of 8 (the wrappers pad), K <= 31 (wgrad's 32
 // tap tiles), and shared memory: dgrad's two weight stages are 32 rows of
 // 16 channels x K taps (127 KB at K 31, so one block an SM there) beside
@@ -2920,6 +2923,497 @@ wgrad_tiles_kernel(const __grid_constant__ CUtensorMap gw_map,
   if (tid == kStorer || warp == kZeroWarp) bulk_wait_all();
 }
 
+// ---------------------------------------------------------------------------
+// dgrad over many windows' short rows (the test-time solve)
+//
+// dgrad_tiles_kernel<T, NT> (T float or __nv_bfloat16) replaces the same
+// JAX autodiff as dgrad_kernel (hm_vae_tpu/models/hm_vae.py:200) under
+// jax.vmap over the solve's windows (hm_vae_tpu/apps/latent_opt.py:423),
+// where each window holds one or a few batches' short rows and its own
+// folded weight: the decoder levels at 10 windows of one batch, T_out 8-64.
+// There the whole-row kernel ran one block a pair of chunks and window
+// (140-420 blocks a level) whose M side, one batch's padded row of 22-78
+// columns, left most of its 8 warps idle, each stage a serial chain (the
+// stage's wait, g's build, a barrier, the products, the refill), g rebuilt
+// by every block of a window, the weight read at ~0.45 TB/s.  What bounds
+// the work on an H100 is bytes: each window's folded weight read once (195
+// MB in f32, 98 in bf16 over the 4 levels, PERF.md), not the operations.
+//
+// The design turns the product around so that the weight is the operand
+// that streams.  A unit is one (window w, chunk of 8 input channels c0..):
+//
+//   Z[m = c*K + k, n] = sum_p Wf_w[p, c0 + c, k] * g_w[p, n]
+//
+// over the chunk's live row tiles (dgrad_chunk_start / dgrad_chunk_row in
+// pack_structure: 64 rows p each), n a column of the window (batch n /
+// T_out's column n % T_out), then gxpad[c, t*stride + k] += Z[c*K + k, t],
+// the padding's adjoint folded into gx, and the chunk's 8 rows of gx of the
+// window's batches stored.  Every element of gx is written once (a chunk
+// with no live row tile writes its zeros), so the wrapper allocates gx
+// uncleared.
+// - M = 8K <= 120 rows in two m64 tiles, one a warpgroup; a weight tile's
+//   row p is exactly the 8K contiguous values (c, k) of rows m, so the
+//   weight is read in its own layout: one 2D box of a 3D tensor map over
+//   the windows' weights (windows, P, C*K), 64 rows p x 8K values (rows
+//   past P read as zeros), a live (row tile, chunk) a box;
+// - N = NT, the window's columns nb * T_out rounded up to 8, 16, 32 or 64
+//   (a template parameter: wgmma's N is in the instruction), zeros past
+//   them; the reduction runs over p;
+// - g = gy * act'(y) for all P rows of the window is built once, when a
+//   block's run enters the window, into the products' B tile (K-major along
+//   p, core matrices as the other wgmma kernels'; f32 TF32 big and small
+//   planes, bf16 rounded once as the plain version rounds it), and serves
+//   every chunk unit of that window; a thread loads four (f32) or two
+//   (bf16) 16-byte slots' values before it writes any, so that its loads
+//   fly together (more in registers, or 16-byte granules of gy's rows
+//   scattered into the slots, spilled and were slower, PERF.md);
+// - a producer warp streams the weight tiles of the block's run, as many
+//   stages in flight as shared memory holds after the B tile and the Z tile
+//   (at most kDgradTilesMaxStages: 4-6 at the decoder levels; f32 one block
+//   an SM, bf16 two, each within half an SM), so that the copies run on
+//   through g's builds and the epilogues;
+// - persistent blocks, min(units, SMs x blocks an SM), each a contiguous
+//   run of units in window-major order, cut by the live tiles they hold
+//   (a unit costs its tiles + 1: dgrad_tiles_run), so that dec0's uneven
+//   chunks balance and a run builds g for one to three windows; a unit's
+//   whole reduction stays in one block: no cluster, no atomics, the same
+//   bits every run;
+// - the products: wgmma with A = the weight tile's rows m from registers
+//   (TF32 wgmma takes only K-major operands from shared memory, and the
+//   tile is M-major): f32 each lane loads and splits its fragment (3xTF32,
+//   small*big, big*small, big*big), the tensor cores' sums added in f32
+//   after each row tile (64 rows p); bf16 by ldmatrix.trans (8 rows p of 8
+//   consecutive m, transposed into the fragment: one instruction for four
+//   registers, no split, and no MN-major descriptor, whose core matrices
+//   the box's 240-byte rows p do not form), one m64nNTk16 a k-step, the
+//   unit's sums kept in the accumulators (f32); each output rounded once,
+//   at its store.  A row tile's k-steps are one wgmma group, all their A
+//   registers loaded first, and its stage is released once the group is
+//   issued (a group a k-step, each waited for, took ~1 us a tile in f32),
+//   its k-steps past P issued too, on the copy's zero rows: a wgmma under
+//   a branch gets a warpgroup arrive of its own, and ptxas then serializes
+//   every wgmma of the kernel;
+// - the epilogue: the sums into the Z tile (f32, rows m), a barrier of the
+//   two warpgroups, the shift-add and the padding's adjoint in a fixed
+//   order with no division (stride 1 or 2: shifts and masks; a division by
+//   the runtime stride a tap cost ~5.8 us a unit, kernel_trace.py), the
+//   chunk's gx rows stored (a batch's 8 channel rows are 8 * T_in
+//   contiguous values).
+// Limits: K <= 15, a window's columns nb * T_out <= 64, stride 1 or 2,
+// reflect or zero padding, a block within its share of shared memory with
+// two stages at least.
+constexpr int kDgradTilesThreads = kThreads + 32;  // two warpgroups, the producer warp
+constexpr int kDgradTilesMaxStages = 6;
+constexpr int kDgradTilesMaxK = 15;
+
+// The N tile of a window's `cols` columns (0 where none fits).
+__host__ __device__ inline int dgrad_tiles_nt(int cols) {
+  return cols <= 8 ? 8 : cols <= 16 ? 16 : cols <= 32 ? 32 : cols <= 64 ? 64 : 0;
+}
+
+struct DgradTilesLayout {
+  int nt, zp, ks, stages;           // N tile, Z's row pitch (floats), g's k-steps, stages
+  size_t wstage, bplane;            // a weight stage, a B plane (bytes)
+  size_t z, lists, bt, st, total;  // byte offsets in shared memory
+};
+
+// The barriers (full and empty, kDgradTilesMaxStages each), the Z tile (8K
+// rows of zp floats, zp 8 mod 32: a warp's 8-byte stores of a fragment hit
+// every bank once), the lists (the chunks' starts, then their live row
+// tiles), the B tile (g's k-steps over all P rows: f32 a big plane, then a
+// small one), then the weight stages (64 rows p of 8K values each), as
+// many as fit the block's share: the whole of an SM's shared memory in f32
+// (one block an SM), half of it in bf16 (two).  `esz`: the element's bytes.
+__host__ __device__ inline DgradTilesLayout dgrad_tiles_layout(int K, int P, int cols, int nch,
+                                                               int entries, int esz) {
+  DgradTilesLayout L;
+  const int row_k = kCC * K, kw = esz == 4 ? 8 : 16;
+  L.nt = dgrad_tiles_nt(cols);
+  L.zp = (L.nt + 23) / 32 * 32 + 8;
+  L.ks = (P + kw - 1) / kw;
+  L.bplane = size_t(L.ks) * (L.nt / 8) * 256;
+  L.wstage = align128(size_t(kRows) * row_k * esz);
+  L.z = 128;
+  L.lists = L.z + align128(size_t(row_k) * L.zp * 4);
+  L.bt = L.lists + align128(size_t(nch + 1 + entries) * 4);
+  L.st = L.bt + (esz == 4 ? 2 : 1) * L.bplane;
+  const size_t budget = esz == 4 ? size_t(kMaxSmem) : size_t(kSmemPerSM / 2 - 1024);
+  const size_t fit = budget > L.st ? (budget - L.st) / L.wstage : 0;
+  L.stages = static_cast<int>(fit < size_t(kDgradTilesMaxStages) ? fit : kDgradTilesMaxStages);
+  L.total = L.st + size_t(L.stages) * L.wstage;
+  return L;
+}
+
+// Block `blk` of `blocks`: its units [lo, hi) of the windows x nch units,
+// unit u = w * nch + c costing its chunk's live row tiles + 1; the runs are
+// cut where the units' summed cost passes each block's share.  `start`:
+// the chunks' starts in the list of live row tiles (nch + 1, the last the
+// entries).
+__host__ __device__ inline void dgrad_tiles_run(const int* start, int nch, int windows,
+                                                int blocks, int blk, int& lo, int& hi) {
+  const long long per = static_cast<long long>(start[nch]) + nch;
+  const long long total = per * windows;
+  const int units = windows * nch;
+  auto first = [&](long long b) {  // the first unit whose cost before it reaches b's share
+    int a = 0, z = units;
+    while (a < z) {
+      const int mid = (a + z) >> 1, w = mid / nch, c = mid - w * nch;
+      if ((w * per + start[c] + c) * blocks >= total * b)
+        z = mid;
+      else
+        a = mid + 1;
+    }
+    return a;
+  };
+  lo = first(blk);
+  hi = first(blk + 1);
+}
+
+// d = A (64 x 8, tf32, in registers, as wgmma_rs_tf32's) * B (8 x 8 or 8 x
+// 16, tf32, K-major in shared memory) + (acc ? d : 0); d as wgmma_rs_tf32's.
+__device__ __forceinline__ void wgmma_rs_tf32_n8(float (&d)[4], const uint32_t (&a)[4],
+                                                 uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+__device__ __forceinline__ void wgmma_rs_tf32_n16(float (&d)[8], const uint32_t (&a)[4],
+                                                  uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+// the same in bf16, k-steps of 16 (A as wgmma_rs_bf16_n32's)
+__device__ __forceinline__ void wgmma_rs_bf16_n8(float (&d)[4], const uint32_t (&a)[4],
+                                                 uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+__device__ __forceinline__ void wgmma_rs_bf16_n16(float (&d)[8], const uint32_t (&a)[4],
+                                                  uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+// One wgmma of N = NT columns: f32 as TF32 (k-step 8), bf16 (k-step 16).
+template <typename T, int NT>
+__device__ __forceinline__ void wgmma_rs_nt(float (&d)[NT / 2], const uint32_t (&a)[4],
+                                            uint64_t b, int acc) {
+  if constexpr (sizeof(T) == 4) {
+    if constexpr (NT == 8) wgmma_rs_tf32_n8(d, a, b, acc);
+    else if constexpr (NT == 16) wgmma_rs_tf32_n16(d, a, b, acc);
+    else if constexpr (NT == 32) wgmma_rs_tf32_n32(d, a, b, acc);
+    else wgmma_rs_tf32(d, a, b, acc);
+  } else {
+    if constexpr (NT == 8) wgmma_rs_bf16_n8(d, a, b, acc);
+    else if constexpr (NT == 16) wgmma_rs_bf16_n16(d, a, b, acc);
+    else if constexpr (NT == 32) wgmma_rs_bf16_n32(d, a, b, acc);
+    else wgmma_rs_bf16(d, a, b, acc);
+  }
+}
+
+// Four 8x8 matrices of 16-bit values from shared memory, transposed: lane
+// 8i + r gives the address of row r of matrix i (16 consecutive bytes); lane
+// l's v[i] holds rows 2(l%4) and 2(l%4) + 1 of matrix i at column l/4 (the
+// lower row in the low half).
+__device__ __forceinline__ void ldmatrix_trans(uint32_t (&v)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+               : "r"(smem_addr(row)));
+}
+
+// An arrive on `bar` where `pred`, predicated inside the instruction: a
+// branch around it, taken by one lane, while a wgmma group flies makes
+// ptxas serialize the wgmma (C7520).
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::
+          "r"(bar), "r"(static_cast<int>(pred))
+      : "memory");
+}
+
+// The two warpgroups (not the producer warp) at named barrier 1.
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+}
+
+// w_map: the windows' folded weights (windows, P, C*K), boxes of (8K, 64,
+// 1); chunk_start (nch + 1) / chunk_row: each 8-channel chunk's live row
+// tiles; nb batches a window; `stages` weight stages (dgrad_tiles_layout).
+template <typename T, int NT>
+__global__ void __launch_bounds__(kDgradTilesThreads, sizeof(T) == 2 ? 2 : 1)
+dgrad_tiles_kernel(const __grid_constant__ CUtensorMap w_map, const T* __restrict__ gy,
+                   const T* __restrict__ y, const int* __restrict__ chunk_start,
+                   const int* __restrict__ chunk_row, T* __restrict__ gx, int entries,
+                   int windows, int nb, int C, int T_in, int K, int P, int T_out, int t_ld,
+                   int stride, int padding, int reflect, float slope) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int kKw = kBf16 ? 16 : 8;     // rows p of a k-step
+  constexpr int kGran = 16 / sizeof(T);   // rows p of a 16-byte slot of the B tile
+  constexpr int kNA = NT / 2;             // accumulators a thread
+  count_run(&g_runs[0]);
+  const int nch = C / kCC, row_k = kCC * K, ncols = nb * T_out;
+  const DgradTilesLayout L = dgrad_tiles_layout(K, P, ncols, nch, entries, sizeof(T));
+  const int nst = L.stages;  // weight stages
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);     // [kDgradTilesMaxStages]
+  uint64_t* empty = full + kDgradTilesMaxStages;           // [kDgradTilesMaxStages]
+  float* zt = reinterpret_cast<float*>(smem + L.z);        // [8K][zp]
+  int* lst = reinterpret_cast<int*>(smem + L.lists);       // [nch + 1], then [entries]
+  unsigned char* bt = smem + L.bt;                         // [planes][ks][NT / 8][256]
+  unsigned char* st = smem + L.st;                         // [stages][64][8K]
+  const int* lrow = lst + nch + 1;
+  const size_t kstep = size_t(NT / 8) * 256;  // bytes of a B k-step
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  if (tid == kThreads) {
+    for (int s = 0; s < kDgradTilesMaxStages; ++s) {
+      mbar_init(smem_addr(full + s), 1);
+      mbar_init(smem_addr(empty + s), kWarps);  // a lane of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int q = tid; q < nch + 1 + entries; q += kDgradTilesThreads)
+    lst[q] = q <= nch ? chunk_start[q] : chunk_row[q - nch - 1];
+  __syncthreads();
+  int u_lo, u_hi;
+  dgrad_tiles_run(lst, nch, windows, gridDim.x, blockIdx.x, u_lo, u_hi);
+  if (u_lo >= u_hi) return;
+
+  if (warp == kWarps) {
+    // the producer: the run's live (row tile, chunk) boxes, in the
+    // consumers' order, each into the next free stage
+    if (lane == 0) {
+      const uint32_t box = kRows * row_k * sizeof(T);
+      int it = 0;
+      for (int u = u_lo; u < u_hi; ++u) {
+        const int w = u / nch, c = u - w * nch;
+        for (int j = lst[c]; j < lst[c + 1]; ++j, ++it) {
+          const int slot = it % nst;
+          if (it >= nst) mbar_wait(smem_addr(empty + slot), (it / nst - 1) & 1);
+          mbar_expect(smem_addr(full + slot), box);
+          tensor_copy3(st + slot * L.wstage, &w_map, c * row_k, lrow[j] * kRows, w, full + slot);
+        }
+      }
+    }
+    return;
+  }
+
+  // g = gy * act'(y) of window w into the B tile: a 16-byte slot (k-step
+  // ks, half h, column n) holds kGran consecutive rows p of column n;
+  // consecutive threads take consecutive columns (coalesced loads of a row
+  // of gy, a core matrix's 128 bytes a quarter warp's stores).  Zeros past
+  // the columns and the rows.  A thread loads kBatch slots' values before
+  // it writes any, so that its loads fly together.
+  const int items = L.ks * 2 * NT;
+  constexpr int kBatch = kBf16 ? 2 : 4;  // slots a thread loads before it writes any
+  auto build_g = [&](int w) {
+    for (int base = tid; base < items; base += kBatch * kThreads) {
+      float gv[kBatch][kGran], yv[kBatch][kGran];
+#pragma unroll
+      for (int b4 = 0; b4 < kBatch; ++b4) {
+        const int it = base + b4 * kThreads, n = it % NT, p0 = (it / NT) * kGran;
+        const int bb = n / T_out, t = n - bb * T_out;
+        const T* gr = gy + (size_t(w * nb + bb) * P + p0) * t_ld + t;
+        const T* yr = y + (size_t(w * nb + bb) * P + p0) * t_ld + t;
+#pragma unroll
+        for (int q = 0; q < kGran; ++q) {
+          const bool in = it < items && n < ncols && p0 + q < P;
+          gv[b4][q] = in ? to_f(gr[q * t_ld]) : 0.f;
+          yv[b4][q] = in ? to_f(yr[q * t_ld]) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int b4 = 0; b4 < kBatch; ++b4) {
+        const int it = base + b4 * kThreads;
+        if (it >= items) break;
+        const int n = it % NT, slot = it / NT;  // slot: k-step * 2 + half
+        unsigned char* out = bt + (slot >> 1) * kstep + (n >> 3) * 256 + (slot & 1) * 128 +
+                             (n & 7) * 16;
+        float v[kGran];
+#pragma unroll
+        for (int q = 0; q < kGran; ++q) v[q] = act_grad(gv[b4][q], yv[b4][q], slope);
+        if constexpr (kBf16) {
+          *reinterpret_cast<uint4*>(out) = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                                                      pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+        } else {
+          float4 big, small;
+          float* bv = reinterpret_cast<float*>(&big);
+          float* sv = reinterpret_cast<float*>(&small);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float2 sp = split_tf32(v[q]);
+            bv[q] = sp.x;
+            sv[q] = sp.y;
+          }
+          *reinterpret_cast<float4*>(out) = big;
+          *reinterpret_cast<float4*>(out + L.bplane) = small;
+        }
+      }
+    }
+  };
+
+  // The products: warpgroup wg takes rows m 64wg.., its warp rows 16(warp %
+  // 4).. (a lane rows gid and gid + 8).  A: the stage's rows p of the
+  // k-step at the lane's rows m (f32: zeros past 8K); B: the B tile's
+  // k-step.  Rows m past 8K are multiplied but never stored.
+  const int wg = warp >> 2, mw = 64 * wg + 16 * (warp & 3);
+  float acc[kNA], sum[kNA];
+  // f32: the lane's A values (rows mw + gid (+8), columns tig (+4) of k-step
+  // ks) split into TF32 big and small parts
+  auto load_a32 = [&](uint32_t (&ab)[4], uint32_t (&as)[4], const float* ws, int ks) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int m = mw + gid + 8 * (q & 1), p = ks * 8 + tig + 4 * (q >> 1);
+      const float2 v = split_tf32(m < row_k ? ws[p * row_k + m] : 0.f);
+      ab[q] = __float_as_uint(v.x);
+      as[q] = __float_as_uint(v.y);
+    }
+  };
+  // bf16: matrix i = lane / 8 of ldmatrix: rows p 8(i / 2).. of the k-step,
+  // values m mw + 8(i % 2)..; an 8-row group past 8K reads row group 0
+  // (rows m past 8K are never stored)
+  const int lq = lane >> 3, lm = mw + 8 * (lq & 1);
+  auto load_a16 = [&](uint32_t (&a)[4], const __nv_bfloat16* ws, int ks) {
+    const int p = ks * 16 + 8 * (lq >> 1) + (lane & 7);
+    ldmatrix_trans(a, ws + p * row_k + (lm < row_k ? lm : 0));
+  };
+  // A row tile's products, one wgmma group: the A registers of all its
+  // k-steps loaded first, then a wgmma each, with no branch (a wgmma in a
+  // conditional block gets a warpgroup arrive of its own there, and ptxas
+  // serializes them all): the k-steps past P (nks the ones inside) multiply
+  // the stage's rows p past P, the copy's zeros, by the tile's first
+  // k-step of B; f32 from a fresh accumulator (its sums added in f32 after
+  // the tile), bf16 onto the unit's (fresh at its first tile).  Left in
+  // flight.
+  constexpr int kSteps = kRows / kKw;  // k-steps of a row tile
+  auto issue = [&](const T* ws, uint32_t b0, int nks, bool fresh) {
+    uint32_t ab[kSteps][4], as[kSteps][4];
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      if constexpr (kBf16)
+        load_a16(ab[s], ws, s);
+      else
+        load_a32(ab[s], as[s], ws, s);
+    }
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      const uint32_t big = b0 + static_cast<uint32_t>(s < nks ? s * kstep : 0);
+      if constexpr (kBf16) {
+        wgmma_rs_nt<T, NT>(acc, ab[s], gmma_desc(big), s > 0 || !fresh);
+      } else {
+        wgmma_rs_nt<T, NT>(acc, as[s], gmma_desc(big), s > 0);
+        wgmma_rs_nt<T, NT>(acc, ab[s], gmma_desc(big + static_cast<uint32_t>(L.bplane)), 1);
+        wgmma_rs_nt<T, NT>(acc, ab[s], gmma_desc(big), 1);
+      }
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  };
+  auto finish = [&]() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+    if constexpr (!kBf16) {
+#pragma unroll
+      for (int r = 0; r < kNA; ++r) sum[r] += acc[r];
+    }
+  };
+
+  const uint32_t bt_addr = smem_addr(bt);
+  // the epilogue's outputs (a batch's 8 channel rows of T_in) and Z's step
+  // from a tap to the next; rem / T_in as a multiply-high (exact for rem <
+  // 8 * T_in while 8 * T_in^2 < 2^32; at T_in 1 the quotient is rem)
+  const int n_el = nb * kCC * T_in, sh = stride >> 1, zstep = stride * L.zp - 1;
+  const uint32_t tin_magic = static_cast<uint32_t>((0x100000000ull + T_in - 1) / T_in);
+  int it = 0, cur_w = -1;
+#pragma unroll 1
+  for (int u = u_lo; u < u_hi; ++u) {
+    const int w = u / nch, c = u - w * nch;
+    if (w != cur_w) {  // the run enters window w: its g, once
+      consumers_sync();  // the products on the last window's B tile are done
+      build_g(w);
+      fence_async();  // the B tile's writes before the products read it
+      consumers_sync();
+      cur_w = w;
+    }
+#pragma unroll
+    for (int r = 0; r < kNA; ++r) acc[r] = sum[r] = 0.f;
+    bool fresh = true;
+    for (int j = lst[c]; j < lst[c + 1]; ++j, ++it) {
+      const int slot = it % nst, p0 = lrow[j] * kRows;
+      const int nks = min(kRows / kKw, (P - p0 + kKw - 1) / kKw);  // k-steps inside P
+      mbar_wait(smem_addr(full + slot), (it / nst) & 1);
+      const T* ws = reinterpret_cast<const T*>(st + slot * L.wstage);
+      const uint32_t b0 = bt_addr + static_cast<uint32_t>(lrow[j] * kSteps * kstep);
+      issue(ws, b0, nks, fresh);
+      fresh = false;
+      // the A registers are loaded (the warp's wgmma issued on them): the
+      // stage is read, and its refill flies while the products run
+      mbar_arrive_if(smem_addr(empty + slot), lane == 0);
+      finish();
+    }
+    if constexpr (kBf16) {
+      fence_acc(acc);
+#pragma unroll
+      for (int r = 0; r < kNA; ++r) sum[r] = acc[r];
+    }
+
+    // the epilogue: Z's rows m < 8K (d[r]: row mw + gid (+8 if r & 2),
+    // column 8(r / 4) + 2 tig + (r & 1)), then the shift-add and the
+    // padding's adjoint, in a fixed order, into the chunk's gx rows
+    consumers_sync();  // the last unit's Z is read
+#pragma unroll
+    for (int r = 0; r < kNA; r += 2) {
+      const int m = mw + gid + 8 * ((r >> 1) & 1), n = 8 * (r >> 2) + 2 * tig;
+      if (m < row_k)
+        *reinterpret_cast<float2*>(zt + m * L.zp + n) = make_float2(sum[r], sum[r + 1]);
+    }
+    consumers_sync();  // Z is written
+    for (int el = tid; el < n_el; el += kThreads) {
+      const int bb = nb == 1 ? 0 : el / (kCC * T_in), rem = el - bb * (kCC * T_in);
+      const int cc = T_in == 1 ? rem : __umulhi(static_cast<uint32_t>(rem), tin_magic);
+      const int i = rem - cc * T_in;
+      const float* zc = zt + cc * K * L.zp + bb * T_out;  // row c*K + k at k * zp
+      // gxpad at padded column v: Z[c*K + k][t] over t*stride + k = v, k
+      // ascending (stride 1 or 2: no division, which cost ~5.8 us a unit),
+      // a tap stride rows of Z down and a column left of the one before
+      auto column = [&](int v) {
+        float s = 0.f;
+        int k = max(0, v - (T_out - 1) * stride);
+        k += (v - k) & (stride - 1);
+        const float* z = zc + k * L.zp + ((v - k) >> sh);
+        for (const int k1 = min(K - 1, v); k <= k1; k += stride, z += zstep) s += *z;
+        return s;
+      };
+      // the padded columns that read x[b, c, i]: i + padding, and under
+      // reflect the mirrored columns
+      float v = column(i + padding);
+      if (reflect && i >= 1 && i <= padding) v += column(padding - i);
+      if (reflect && i <= T_in - 2 && i >= T_in - 1 - padding)
+        v += column(padding + 2 * (T_in - 1) - i);
+      gx[(size_t(w * nb + bb) * C + c * kCC + cc) * T_in + i] = from_f<T>(v);
+    }
+  }
+}
+
 // Sets a kernel's shared-memory cap once per device.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, bool (&ready)[kMaxDevices], int device) {
@@ -3025,9 +3519,10 @@ bool batch_rows_map(CUtensorMap* map, const void* base, int cols, int rows, int 
 
 // The plans of the last dgrad and wgrad launches in this process
 // (hmvae_conv_bwd_last_plan): dgrad nbb, groups, split, span, spans, smem,
-// stages, channels a block; wgrad sb, split, span, smem, and the tile
-// kernel's blocks (0 for the other wgrad kernels).
-int last_dgrad[8] = {};
+// stages, channels a block, and the tile kernel's blocks (0 for the other
+// dgrad kernels); wgrad sb, split, span, smem, and the tile kernel's blocks
+// (0 for the other wgrad kernels).
+int last_dgrad[9] = {};
 int last_wgrad[5] = {};
 
 // One whole-row dgrad_kernel launch in element type T (after its checks).
@@ -3175,6 +3670,25 @@ int wgrad_tiles(bool (&ready)[kMaxDevices], int device, int blocks, size_t smem,
   return static_cast<int>(cudaGetLastError());
 }
 
+// One dgrad_tiles_kernel launch in element type T, N tile NT (after its
+// checks).
+template <typename T, int NT>
+int dgrad_tiles(bool (&ready)[kMaxDevices], int device, int blocks, size_t smem, void* stream,
+                const CUtensorMap& w_map, const void* gy, const void* y, const void* chunk_start,
+                const void* chunk_row, void* gx, int entries, int windows, int nb, int C,
+                int T_in, int K, int P, int T_out, int t_ld, int stride, int padding, int reflect,
+                float slope) {
+  cudaError_t err = allow_smem(dgrad_tiles_kernel<T, NT>, ready, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dgrad_tiles_kernel<T, NT><<<blocks, kDgradTilesThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      w_map, static_cast<const T*>(gy), static_cast<const T*>(y),
+      static_cast<const int*>(chunk_start), static_cast<const int*>(chunk_row),
+      static_cast<T*>(gx), entries, windows, nb, C, T_in, K, P, T_out, t_ld, stride, padding,
+      reflect, slope);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -3238,9 +3752,9 @@ int hmvae_conv_dgrad(const void* gy, const void* y, const void* w, const void* d
         return static_cast<int>(cudaErrorInvalidValue);
       grid.y = B * nspans;
     }
-    const int plan[8] = {nbb, gpw, split, span, nspans, static_cast<int>(L.total), L.stages,
-                         kSpanC};
-    for (int i = 0; i < 8; ++i) last_dgrad[i] = plan[i];
+    const int plan[9] = {nbb, gpw, split, span, nspans, static_cast<int>(L.total), L.stages,
+                         kSpanC, 0};
+    for (int i = 0; i < 9; ++i) last_dgrad[i] = plan[i];
     auto launch = dtype == 1 ? dgrad_spans<__nv_bfloat16> : dgrad_spans<float>;
     return launch(ready[dtype == 1 ? 3 : 1], device, grid, split, L.total, stream, gy, y, wpk,
                   dgrad_start, dgrad_row, gx, n_win, C, T_in, P, T_out, t_ld, K, stride,
@@ -3253,8 +3767,8 @@ int hmvae_conv_dgrad(const void* gy, const void* y, const void* w, const void* d
   if (tiles > kWarps * kMaxTiles || L.total > static_cast<size_t>(kMaxSmem) ||
       static_cast<long long>(windows) * gpw > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int plan[8] = {nbb, gpw, split, 0, 1, static_cast<int>(L.total), kStages, kDC};
-  for (int i = 0; i < 8; ++i) last_dgrad[i] = plan[i];
+  const int plan[9] = {nbb, gpw, split, 0, 1, static_cast<int>(L.total), kStages, kDC, 0};
+  for (int i = 0; i < 9; ++i) last_dgrad[i] = plan[i];
   const dim3 grid(pairs, windows * gpw, split);
   auto launch = dtype == 1 ? dgrad_rows<__nv_bfloat16> : dgrad_rows<float>;
   return launch(ready[dtype == 1 ? 2 : 0], device, grid, split, L.total, stream, gy, y, w,
@@ -3410,6 +3924,56 @@ int hmvae_conv_wgrad_tiles(const void* gy, const void* y, const void* x, const v
                 reflect, slope);
 }
 
+// Input gradients gx (B, C, T_in) of `windows` windows of B / windows
+// batches each, window i's batches through its own folded weight w
+// (windows x (P, C, K)), from gy, y (B, P, rows of t_ld values, whole
+// 16-byte granules), all f32 (dtype 0) or all bf16 (dtype 1), C a multiple
+// of 8, every pointer 16-byte aligned: dgrad_tiles_kernel over the windows'
+// (window, 8-channel chunk) units, a chunk's live row tiles
+// chunk_start[c]..chunk_start[c + 1] of chunk_row (pack_structure's
+// dgrad_chunk_start / dgrad_chunk_row, `entries` of them), in `blocks`
+// persistent blocks (at most the units; dgrad_tiles_plan in the wrapper),
+// every element of gx written.  A window's columns (B / windows x T_out)
+// at most 64, K <= 15, stride 1 or 2.  Launches on `stream`, returns the
+// first CUDA error (0 on success).
+int hmvae_conv_dgrad_tiles(const void* gy, const void* y, const void* w, const void* chunk_start,
+                           const void* chunk_row, void* gx, int entries, int B, int C, int T_in,
+                           int K, int P, int T_out, int t_ld, int stride, int padding,
+                           int reflect, float slope, int blocks, int windows, int dtype,
+                           int device, void* stream) {
+  const void* ptrs[] = {gy, y, w, gx};
+  const int esz = dtype == 1 ? 2 : 4;
+  if (!shape_ok(B, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, device, ptrs, 4, esz) ||
+      dtype < 0 || dtype > 1 || chunk_start == nullptr || entries < 0 ||
+      (chunk_row == nullptr && entries > 0) ||
+      windows < 1 || windows > 65535 || B % windows != 0 || K > kDgradTilesMaxK || stride > 2 ||
+      blocks < 1 || static_cast<long long>(blocks) > static_cast<long long>(windows) * (C / kCC))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nb = B / windows, nch = C / kCC;
+  const DgradTilesLayout L = dgrad_tiles_layout(K, P, nb * T_out, nch, entries, esz);
+  if (L.nt == 0 || L.stages < 2 || L.total > static_cast<size_t>(kMaxSmem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap w_map = {};
+  if (!tiles_map(&w_map, const_cast<void*>(w), C, K, P, windows, kRows, esz))
+    return static_cast<int>(cudaErrorNotSupported);
+  const int plan[9] = {nb, 1, 1, 0, 1, static_cast<int>(L.total), L.stages, kCC, blocks};
+  for (int i = 0; i < 9; ++i) last_dgrad[i] = plan[i];
+  // f32 then bf16, N tiles 8, 16, 32, 64
+  static bool ready[8][kMaxDevices] = {};
+  using Launch = int (*)(bool (&)[kMaxDevices], int, int, size_t, void*, const CUtensorMap&,
+                         const void*, const void*, const void*, const void*, void*, int, int, int,
+                         int, int, int, int, int, int, int, int, int, float);
+  static const Launch launches[8] = {
+      dgrad_tiles<float, 8>,          dgrad_tiles<float, 16>,
+      dgrad_tiles<float, 32>,         dgrad_tiles<float, 64>,
+      dgrad_tiles<__nv_bfloat16, 8>,  dgrad_tiles<__nv_bfloat16, 16>,
+      dgrad_tiles<__nv_bfloat16, 32>, dgrad_tiles<__nv_bfloat16, 64>};
+  const int sel = 4 * dtype + (L.nt == 8 ? 0 : L.nt == 16 ? 1 : L.nt == 32 ? 2 : 3);
+  return launches[sel](ready[sel], device, blocks, L.total, stream, w_map, gy, y, chunk_start,
+                       chunk_row, gx, entries, windows, nb, C, T_in, K, P, T_out, t_ld, stride,
+                       padding, reflect, slope);
+}
+
 // The most clusters of `split` (1 to kMaxSplit) dgrad_span_kernel blocks of
 // span `span` at K, stride, f32 (dtype 0) or bf16 (dtype 1), that `device`
 // (current) runs at once, into *out; returns the first CUDA error.
@@ -3424,11 +3988,11 @@ int hmvae_dgrad_span_clusters(int K, int stride, int span, int split, int dtype,
                     : span_clusters<float>(ready[0], device, split, smem, out);
 }
 
-// The plans of the last launches (see last_dgrad, last_wgrad): dgrad's eight
-// ints into out[0..7], wgrad's five into out[8..12].
+// The plans of the last launches (see last_dgrad, last_wgrad): dgrad's nine
+// ints into out[0..8], wgrad's five into out[9..13].
 void hmvae_conv_bwd_last_plan(int* out) {
-  for (int i = 0; i < 8; ++i) out[i] = last_dgrad[i];
-  for (int i = 0; i < 5; ++i) out[8 + i] = last_wgrad[i];
+  for (int i = 0; i < 9; ++i) out[i] = last_dgrad[i];
+  for (int i = 0; i < 5; ++i) out[9 + i] = last_wgrad[i];
 }
 
 // The runs on `device` of the dgrad kernels, then the wgrad kernels, since the last

@@ -12,8 +12,8 @@ and over the short rows of a large batch on ``wgmma``, planned by
 :func:`dgrad_plan` and :func:`wgrad_plan`; dgrad's span kernel reads the
 weight laid out once a call by :func:`dgrad_span_pack`, a kernel of its
 own; wgrad's item kernel takes items of one batch's columns or of several
-batches' whole rows, and its tile kernel, :func:`wgrad_tiles`, many
-windows' short rows; also bf16, the windowed forms too, one bf16
+batches' whole rows; both tile kernels, :func:`wgrad_tiles` and
+:func:`dgrad_tiles`, many windows' short rows; also bf16, the windowed forms too, one bf16
 ``mma.sync`` or ``wgmma`` a k-step: the models' ``compute_dtype:
 bfloat16``), the counterparts of the JAX package's
 autodiff of its XLA level (``hm_vae_tpu/models/hm_vae.py``; the JAX package
@@ -47,7 +47,8 @@ kernels with each window reading its own weight:
 :func:`fused_conv_pool_windowed`, :func:`fused_conv_pool_dgrad_windowed` and
 :func:`fused_conv_pool_wgrad_windowed` (one gradient per window, no sum
 across windows; at the solve's shapes, several windows of short rows,
-wgrad's tile kernel, :func:`wgrad_tiles_routed`).  A ``torch.func.vmap``
+the tile kernels, :func:`wgrad_tiles_routed` and
+:func:`dgrad_tiles_routed`).  A ``torch.func.vmap``
 cannot see inside a ``ctypes`` launch, so the window axis is written out.
 
 On CPU tensors every entry runs its plain PyTorch version
@@ -141,6 +142,18 @@ WGRAD_TILES_MAX_ENTRIES = 2048  # entries (live tiles and empty row tiles) it st
 # bytes (4: f32, 2: bf16): the solve's four decoder levels, T_out 8-64, in
 # both dtypes (PERF.md)
 WGRAD_TILES_T = {4: (8, 64), 2: (8, 64)}
+# dgrad's tile kernel (many windows' short rows, the test-time solve): K at
+# most (8K rows in its two m64 tiles), a window's columns at most, the
+# weight stages in flight at most (kDgradTilesMaxK, kDgradTilesMaxStages)
+DGRAD_TILES_MAX_K = 15
+DGRAD_TILES_COLS = 64
+DGRAD_TILES_MAX_STAGES = 6
+# dgrad_tiles_routed gives the windowed dgrad of several windows to the tile
+# kernel at the output lengths T_out (inclusive range) where the card timed
+# it faster than dgrad_kernel's whole rows in the same call, by element
+# bytes (4: f32, 2: bf16): the solve's four decoder levels, T_out 8-64, in
+# both dtypes (PERF.md)
+DGRAD_TILES_T = {4: (8, 64), 2: (8, 64)}
 
 
 def fused_conv_pool_reference(
@@ -297,8 +310,12 @@ class LevelStructure:
     ``DGRAD_SPAN_CHANNELS`` channels, the row tiles live in any of its
     chunks (``dgrad_span_start`` indexes ``dgrad_span_row``, and
     ``dgrad_span_group`` is each entry's group, for
-    :func:`dgrad_span_pack`).  The forward's chunks are the dtype's
-    (``CHUNK_CHANNELS``); the backward's lists are over chunks of
+    :func:`dgrad_span_pack`); at the solve's windows (:func:`dgrad_tiles`),
+    each chunk's own live row tiles (``dgrad_chunk_start`` (chunks + 1)
+    indexes ``dgrad_chunk_row``), so that no chunk reads the zeros of a
+    dead tile that its pair's live one brings into ``dgrad_row``.  The
+    forward's chunks are the dtype's (``CHUNK_CHANNELS``); the backward's
+    lists are over chunks of
     ``BWD_CHUNK_CHANNELS`` in either dtype (``bwd_live``: their live
     tiles).  ``live_index`` (row tile * chunks + chunk, int64) is the gather
     that :func:`repack` writes the values through.  ``max_live``,
@@ -317,6 +334,8 @@ class LevelStructure:
     dgrad_span_start: torch.Tensor
     dgrad_span_row: torch.Tensor
     dgrad_span_group: torch.Tensor
+    dgrad_chunk_start: torch.Tensor
+    dgrad_chunk_row: torch.Tensor
     live_index: torch.Tensor
     dtype: torch.dtype
     rows: int
@@ -445,6 +464,8 @@ def pack_structure(
     start[1:] = tiles.sum(1).cumsum(0)
     dstart = torch.zeros(pairs.shape[1] + 1, dtype=torch.int32)
     dstart[1:] = pairs.sum(0).cumsum(0)
+    cstart = torch.zeros(nb + 1, dtype=torch.int32)
+    cstart[1:] = bt.sum(0).cumsum(0)
     # wgrad's entries: the live tiles by row, (row, -1) where a row has none
     empty = (~bt.any(1)).nonzero()[:, 0]
     wg = torch.cat([bt.nonzero(), torch.stack([empty, torch.full_like(empty, -1)], 1)])
@@ -459,7 +480,8 @@ def pack_structure(
         wgrad_row=put(wg[:, 0]), wgrad_chunk=put(wg[:, 1]), dgrad_start=put(dstart),
         dgrad_row=put(pairs.T.nonzero()[:, 1]), dgrad_span_start=put(gstart),
         dgrad_span_row=put(by_group[:, 1]),
-        dgrad_span_group=put(by_group[:, 0]),
+        dgrad_span_group=put(by_group[:, 0]), dgrad_chunk_start=put(cstart),
+        dgrad_chunk_row=put(bt.T.nonzero()[:, 1]),
         live_index=put(by_row[:, 0] * nc + by_row[:, 1], torch.int64), dtype=dtype,
         rows=P, in_channels=C_in, kernel_size=kernel_size,
         max_live=int(tiles.sum(1).max()) if rt else 0,
@@ -656,6 +678,11 @@ PACK_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 # windows, dtype, device, stream)
 TILES_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_float]
                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+# hmvae_conv_dgrad_tiles(gy, y, w, dgrad_chunk_start, dgrad_chunk_row, gx,
+# entries, B, C, T_in, K, P, T_out, t_ld, stride, padding, reflect, slope,
+# blocks, windows, dtype, device, stream)
+DGRAD_TILES_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_float]
+                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def _bind(lib, name, argtypes):
@@ -675,12 +702,19 @@ def _library():
 @functools.lru_cache(maxsize=None)
 def _bwd_library():
     """The backward kernels' library, built at first use, and its entries:
-    dgrad, wgrad, dgrad's weight layout for spans and wgrad's tile kernel."""
-    lib = _build.load("fused_conv_pool_bwd")
+    dgrad, wgrad, dgrad's weight layout for spans, wgrad's tile kernel and
+    dgrad's."""
+    return _bwd_entries(_build.load("fused_conv_pool_bwd"))
+
+
+def _bwd_entries(lib):
+    """``lib`` (a build of ``csrc/fused_conv_pool_bwd.cu``) and its entries,
+    as :func:`_bwd_library` returns them."""
     return (lib, _bind(lib, "hmvae_conv_dgrad", DGRAD_ARGTYPES),
             _bind(lib, "hmvae_conv_wgrad", WGRAD_ARGTYPES),
             _bind(lib, "hmvae_dgrad_span_pack", PACK_ARGTYPES),
-            _bind(lib, "hmvae_conv_wgrad_tiles", TILES_ARGTYPES))
+            _bind(lib, "hmvae_conv_wgrad_tiles", TILES_ARGTYPES),
+            _bind(lib, "hmvae_conv_dgrad_tiles", DGRAD_TILES_ARGTYPES))
 
 
 @functools.lru_cache(maxsize=None)
@@ -1037,6 +1071,15 @@ class WgradPlan(NamedTuple):
     sb: int
     split: int
     span: int
+
+
+class DgradTilesPlan(NamedTuple):
+    """dgrad's tile kernel's launch (``dgrad_tiles_kernel``): ``blocks``
+    persistent blocks over the ``units`` (window, 8-channel chunk) units, a
+    contiguous run of them a block, cut by the live row tiles they hold
+    (:func:`dgrad_tiles_runs`)."""
+    blocks: int
+    units: int
 
 
 class WgradTilesPlan(NamedTuple):
@@ -1571,19 +1614,119 @@ def wgrad_tiles_runs(plan: WgradTilesPlan):
             for b in range(plan.blocks)]
 
 
+def _dgrad_tiles_layout(K: int, P: int, cols: int, chunks: int, entries: int,
+                        esz: int = 4) -> dict:
+    """A block of dgrad's tile kernel (``dgrad_tiles_layout`` in the
+    kernel's source) for windows of ``cols`` columns (batches x T_out) of a
+    level of ``P`` rows p, ``chunks`` 8-channel chunks and ``entries`` live
+    (chunk, row tile) entries, in elements of ``esz`` bytes: ``nt`` (the N
+    tile: 8, 16, 32 or 64; 0 past 64), ``zp`` (Z's row pitch in floats),
+    ``ks`` (g's k-steps over P), ``wstage``, ``bplane`` (a weight stage, a B
+    plane) and the byte offsets ``z`` (8K rows of zp floats), ``lists`` (the
+    chunks' starts and their row tiles, 4 bytes each), ``bt`` (the B tile:
+    f32 a big and a small plane), ``st`` (the weight stages), ``stages`` (as
+    many as fit the block's share: all of an SM's shared memory in f32, half
+    in bf16; at most ``DGRAD_TILES_MAX_STAGES``) and ``total``."""
+    a128 = lambda n: -(-n // 128) * 128  # noqa: E731
+    row_k, kw = 8 * K, 8 if esz == 4 else 16
+    nt = next((n for n in (8, 16, 32, 64) if cols <= n), 0)
+    zp = (nt + 23) // 32 * 32 + 8
+    ks = -(-P // kw)
+    L = {"nt": nt, "zp": zp, "ks": ks, "bplane": ks * (nt // 8) * 256,
+         "wstage": a128(ROWS * row_k * esz), "z": 128}
+    L["lists"] = L["z"] + a128(row_k * zp * 4)
+    L["bt"] = L["lists"] + a128((chunks + 1 + entries) * 4)
+    L["st"] = L["bt"] + (2 if esz == 4 else 1) * L["bplane"]
+    budget = MAX_SMEM if esz == 4 else MAX_SMEM_PER_SM // 2 - 1024
+    L["stages"] = min(DGRAD_TILES_MAX_STAGES, max(0, budget - L["st"]) // L["wstage"])
+    L["total"] = L["st"] + L["stages"] * L["wstage"]
+    return L
+
+
+def dgrad_tiles_fits(nb: int, T_in: int, K: int, stride: int, padding: int, P: int,
+                     chunks: int, entries: int, esz: int = 4) -> bool:
+    """Whether dgrad's tile kernel takes windows of ``nb`` batches' rows of
+    ``T_in`` frames of a level of ``P`` rows, ``chunks`` 8-channel chunks
+    and ``entries`` live (chunk, row tile) entries (``dgrad_chunk_row``), in
+    elements of ``esz`` bytes: K at most ``DGRAD_TILES_MAX_K``, stride 1 or
+    2, a window's columns (nb x T_out) at most ``DGRAD_TILES_COLS``, two
+    weight stages at least beside the block's B and Z tiles."""
+    T_out = (T_in + 2 * padding - K) // stride + 1
+    if K > DGRAD_TILES_MAX_K or stride > 2 or nb * T_out > DGRAD_TILES_COLS:
+        return False
+    L = _dgrad_tiles_layout(K, P, nb * T_out, chunks, entries, esz)
+    return L["stages"] >= 2 and L["total"] <= MAX_SMEM
+
+
+def dgrad_tiles_routed(nb: int, T_in: int, K: int, stride: int, padding: int, P: int,
+                       chunks: int, entries: int, esz: int = 4,
+                       windows: Optional[int] = None) -> bool:
+    """Whether the wrapper gives a windowed dgrad of ``windows`` windows of
+    ``nb`` batches to the tile kernel: several windows (the solve's; one
+    window, and the calls of several batches through one weight, keep their
+    plans), T_out within ``DGRAD_TILES_T[esz]``, where the card timed the
+    tile kernel faster than the whole rows (PERF.md), and a shape it takes
+    (:func:`dgrad_tiles_fits`)."""
+    T_out = (T_in + 2 * padding - K) // stride + 1
+    lo, hi = DGRAD_TILES_T[esz]
+    return (windows is not None and windows > 1 and lo <= T_out <= hi
+            and dgrad_tiles_fits(nb, T_in, K, stride, padding, P, chunks, entries, esz))
+
+
+def dgrad_tiles_per_sm(esz: int) -> int:
+    """Blocks of dgrad's tile kernel an SM holds: one in f32 (a block takes
+    all of its shared memory for stages), two in bf16 (half each; its
+    launch bounds keep registers for two)."""
+    return 2 if esz == 2 else 1
+
+
+def dgrad_tiles_plan(chunks: int, windows: int, sms: int, per_sm: int) -> DgradTilesPlan:
+    """dgrad's tile kernel's :class:`DgradTilesPlan`: one block a unit (a
+    window's chunk) up to the blocks the card holds at once (``sms`` x
+    ``per_sm``)."""
+    units = chunks * windows
+    return DgradTilesPlan(max(1, min(units, sms * per_sm)), units)
+
+
+def dgrad_tiles_runs(plan: DgradTilesPlan, chunk_start):
+    """Each block's units [lo, hi) (``dgrad_tiles_run`` in the kernel's
+    source): unit u = w * chunks + c costs chunk c's live row tiles + 1
+    (``chunk_start``: ``dgrad_chunk_start`` as a list), and block b's run
+    begins at the first unit whose cost before it reaches b / blocks of the
+    whole."""
+    chunks = len(chunk_start) - 1
+    windows = plan.units // chunks
+    per = chunk_start[-1] + chunks
+    total = per * windows
+
+    def first(b):
+        lo, hi = 0, plan.units
+        while lo < hi:
+            mid = (lo + hi) // 2
+            w, c = divmod(mid, chunks)
+            if (w * per + chunk_start[c] + c) * plan.blocks >= total * b:
+                hi = mid
+            else:
+                lo = mid + 1
+        return lo
+
+    return [(first(b), first(b + 1)) for b in range(plan.blocks)]
+
+
 def last_backward_plans() -> dict:
     """The plans that the last dgrad and wgrad launches in this process ran,
     as their launchers recorded them (``hmvae_conv_bwd_last_plan``):
     dgrad's :class:`DgradPlan` fields, its ``spans``, ``smem`` bytes,
-    ``stages`` in flight and ``channels`` a block; wgrad's
+    ``stages`` in flight, ``channels`` a block and ``blocks`` (the tile
+    kernel's persistent blocks; 0 for the other dgrad kernels); wgrad's
     :class:`WgradPlan` fields, ``smem`` and ``blocks`` (the tile kernel's
     persistent blocks; 0 for the other wgrad kernels)."""
     lib = _bwd_library()[0]
-    out = (ctypes.c_int * 13)()
+    out = (ctypes.c_int * 14)()
     lib.hmvae_conv_bwd_last_plan(out)
-    return {"dgrad": dict(zip(DgradPlan._fields + ("spans", "smem", "stages", "channels"),
-                              out[:8])),
-            "wgrad": dict(zip(WgradPlan._fields + ("smem", "blocks"), out[8:]))}
+    return {"dgrad": dict(zip(DgradPlan._fields + ("spans", "smem", "stages", "channels",
+                                                   "blocks"), out[:9])),
+            "wgrad": dict(zip(WgradPlan._fields + ("smem", "blocks"), out[9:]))}
 
 
 def _aligned(t: torch.Tensor, dim: int, multiple: int) -> torch.Tensor:
@@ -1602,11 +1745,14 @@ def _aligned(t: torch.Tensor, dim: int, multiple: int) -> torch.Tensor:
 
 
 def _dgrad(gy, y, weight, s: LevelStructure, T_in: int, windows: Optional[int],
-           plan: Optional[DgradPlan] = None):
+           plan=None):
     """Checks, then one dgrad launch; ``weight`` is (P, C_in, K), or
-    (G, P, C_in, K) when ``windows`` is G; ``plan`` in place of
-    :func:`dgrad_plan`'s (a span plan times the span kernel at shapes whose
-    rows fit whole)."""
+    (G, P, C_in, K) when ``windows`` is G; ``plan`` (a :class:`DgradPlan` or
+    :class:`DgradTilesPlan`) in place of the routed one (a span plan times
+    the span kernel at shapes whose rows fit whole, a whole-row plan the
+    whole-row kernel at shapes routed to tiles).  Several windows that
+    :func:`dgrad_tiles_routed` takes run the tile kernel; the others
+    :func:`dgrad_plan`'s kernel."""
     entry = fused_conv_pool_dgrad if windows is None else fused_conv_pool_dgrad_windowed
     _bwd_checks(s, gy, y, weight=weight)
     B, P, T_out = gy.shape
@@ -1624,6 +1770,14 @@ def _dgrad(gy, y, weight, s: LevelStructure, T_in: int, windows: Optional[int],
     w = _aligned(weight, weight.dim() - 2, BWD_CHUNK_CHANNELS)
     C, t_ld = w.shape[-2], gy.shape[2]
     dev = gy.device.index
+    entries = s.dgrad_chunk_row.numel()
+    if plan is None and windows is not None and dgrad_tiles_routed(
+            B // G, T_in, K, s.stride, s.padding, P, C // BWD_CHUNK_CHANNELS, entries, esz, G):
+        plan = dgrad_tiles_plan(C // BWD_CHUNK_CHANNELS, G, _sm_count(dev),
+                                dgrad_tiles_per_sm(esz))
+    if isinstance(plan, DgradTilesPlan):
+        gx = dgrad_tiles(gy, y, w, s, T_in, G, plan, entry)
+        return gx if C == C_in else gx[:, :C_in].contiguous()
     plan = plan or dgrad_plan(
         B // G, T_in, K, s.stride, s.padding, t_ld, s.dgrad_start.numel() - 1,
         s.dgrad_max_live, _sm_count(dev), G,
@@ -1738,6 +1892,38 @@ def wgrad_tiles(gy, y, x, s: LevelStructure, G: int, plan: WgradTilesPlan, entry
 wgrad_tiles.launches = 0
 
 
+def dgrad_tiles(gy, y, w, s: LevelStructure, T_in: int, G: int, plan: DgradTilesPlan, entry):
+    """One launch of dgrad's tile kernel, for :func:`_dgrad` (after its
+    checks; gy and y aligned, the weight ``w`` (G, P, C, K) with C a multiple
+    of 8) and counted in ``entry.launches`` and its own ``launches``: the G
+    windows' input gradients (B, C, T_in) allocated uncleared, every element
+    written by the kernel."""
+    B, P, T_out = gy.shape
+    C, t_ld, dev = w.shape[-2], gy.shape[2], gy.device.index
+    nch = C // BWD_CHUNK_CHANNELS
+    if plan.units != G * nch:
+        raise ValueError(f"{plan} does not cover {nch} chunks of {G} windows")
+    if not dgrad_tiles_fits(B // G, T_in, s.kernel_size, s.stride, s.padding, P, nch,
+                            s.dgrad_chunk_row.numel(), gy.element_size()):
+        raise ValueError(f"dgrad's tile kernel does not take windows of {B // G} batches of "
+                         f"{T_in} frames at K={s.kernel_size}, stride={s.stride}, P={P}")
+    lib, tiles = _bwd_library()[0], _bwd_library()[5]
+    gx = torch.empty((B, C, T_in), dtype=gy.dtype, device=gy.device)
+    rows = s.dgrad_chunk_row
+    err = _on_device(gy, lambda: tiles(
+        gy.data_ptr(), y.data_ptr(), w.data_ptr(), s.dgrad_chunk_start.data_ptr(),
+        rows.data_ptr() if rows.numel() else None, gx.data_ptr(), rows.numel(), B, C, T_in,
+        s.kernel_size, P, T_out, t_ld, s.stride, s.padding, int(s.reflect), s.negative_slope,
+        plan.blocks, G, _DTYPES[gy.dtype], dev, torch.cuda.current_stream(gy.device).cuda_stream))
+    _build.check(lib, err, entry.__name__)
+    entry.launches += 1
+    dgrad_tiles.launches += 1
+    return gx
+
+
+dgrad_tiles.launches = 0
+
+
 def fused_conv_pool_dgrad(gy: torch.Tensor, y: torch.Tensor, weight: torch.Tensor,
                           structure: LevelStructure, T_in: int) -> torch.Tensor:
     """The input gradient (B, C_in, T_in) of a folded level, from the output
@@ -1771,7 +1957,9 @@ def fused_conv_pool_dgrad_windowed(gy: torch.Tensor, y: torch.Tensor, weight: to
                                    structure: LevelStructure, T_in: int) -> torch.Tensor:
     """:func:`fused_conv_pool_dgrad` of G windows: gy, y (G*n, P, T_out),
     folded weights (G, P, C_in, K), window g's batches through weight g.
-    One kernel launch on CUDA, f32 or bf16, as the one-window entry."""
+    One kernel launch on CUDA, f32 or bf16, as the one-window entry (at the
+    solve's shapes, several windows of short rows, the tile kernel:
+    :func:`dgrad_tiles_routed`)."""
     s = structure
     if gy.device.type == "cpu":
         return fused_conv_pool_dgrad_windowed_reference(gy, y, weight, T_in, s.stride,

@@ -1,7 +1,8 @@
 """Where a launch of one of the port's kernels spends its time, from inside
 the kernel (run from the repo root on a GPU):
 
-    python3 kernel_trace.py [--kernel fwd|dgrad|wgrad|wgrad_span|dgrad_span|wgrad_tiles]
+    python3 kernel_trace.py [--kernel fwd|dgrad|wgrad|wgrad_span|dgrad_span|wgrad_tiles
+                             |dgrad_tiles]
                             [--variant base|nobuild|nomma|noxb] [--levels enc0,dec0]
                             [--batch N | --rows BxT[,BxT] | --windows G]
                             [--dtype float32|bfloat16]
@@ -71,7 +72,13 @@ before the first block ended ran at once); ``--kernel wgrad_tiles`` the
 tile kernel under its plan, per block the prologue, then summed over its
 units the waits for their copies, the builds (B tiles and x), the products
 and the store, and the epilogue (the stores' completion), with the means
-per unit.
+per unit.  ``--kernel dgrad`` traces the windowed dgrad's whole-row kernel
+there under its whole-row plan (one block a pair of chunks and window:
+per block its first stages' waits, builds and products, its epilogue, and
+the launch's waves), ``--kernel dgrad_tiles`` the tile kernel under its
+plan (per block the prologue, then summed over its (window, chunk) units
+the waits for their weight tiles, g's builds, the products, the Z tile's
+writes and the shift-add with the stores of gx, with the means per unit).
 
 ``--kernel dgrad_span`` traces the dgrad kernel over long rows
 (``dgrad_span_kernel``) at the trajectory model's four K-31 levels at batch
@@ -108,7 +115,8 @@ STAMP = ("if (threadIdx.x == 0) g_trace[((blockIdx.z * gridDim.y + blockIdx.y) *
          "+ blockIdx.x) % {B} * {S} + ({{slot}})] = {{value}};").format(B=BLOCKS, S=SLOTS)
 SOURCES = {"fwd": "fused_conv_pool", "dgrad": "fused_conv_pool_bwd",
            "wgrad": "fused_conv_pool_bwd", "wgrad_span": "fused_conv_pool_bwd",
-           "dgrad_span": "fused_conv_pool_bwd", "wgrad_tiles": "fused_conv_pool_bwd"}
+           "dgrad_span": "fused_conv_pool_bwd", "wgrad_tiles": "fused_conv_pool_bwd",
+           "dgrad_tiles": "fused_conv_pool_bwd"}
 # the span mode before dgrad_span_kernel: dgrad_kernel<true>, then the fold
 FOLD_KERNEL = "__global__ void dgrad_fold_kernel("
 # the span kernel that stages items of 64 output columns alone, read from
@@ -355,6 +363,43 @@ def _wgrad_tiles_patches(variant="base"):
     ] + ([] if variant == "nodrain" else [(drained, drained + "    " + lap % "d" + "\n")])
 
 
+def _dgrad_tiles_patches():
+    """dgrad_tiles_kernel: 0 start, 1 after the prologue (the lists staged,
+    the block's run found), 31 the block's units; summed over them by
+    thread 0 (ns): 2 the waits for a tile's weight stage, 3 g's builds (with
+    their two barriers), 4 the products (their issue, the wait for them, the
+    f32 sums, the stage's release), 5 the Z tile's writes (with its two
+    barriers), 6 the shift-add, the padding's adjoint and the stores of gx;
+    30 the units, 29 the tiles; 20 = 21 = 22 after the loop (no reduction,
+    the stores are plain)."""
+    decl = ("unsigned long long tr_w = 0, tr_g = 0, tr_m = 0, tr_z = 0, tr_e = 0, tr_n = 0, "
+            "tr_k = 0, tr_t = 0;")
+    lap = "{ const unsigned long long t = gtime(); tr_%s += t - tr_t; tr_t = t; }"
+    layout = ("  const DgradTilesLayout L = dgrad_tiles_layout(K, P, ncols, nch, entries, "
+              "sizeof(T));\n")
+    run = "  if (u_lo >= u_hi) return;\n"
+    enter = "    if (w != cur_w) {  // the run enters window w: its g, once\n"
+    entered = "      cur_w = w;\n    }\n"
+    waited = "      mbar_wait(smem_addr(full + slot), (it / nst) & 1);\n"
+    released = "      finish();\n    }\n"
+    z_written = "    consumers_sync();  // Z is written\n"
+    stored = ("      gx[(size_t(w * nb + bb) * C + c * kCC + cc) * T_in + i] = from_f<T>(v);\n"
+              "    }\n  }\n}\n")
+    sums = "".join(f"  {stamp(slot, value)}\n" for slot, value in (
+        (20, "gtime()"), (21, "gtime()"), (22, "gtime()"), (2, "tr_w"), (3, "tr_g"),
+        (4, "tr_m"), (5, "tr_z"), (6, "tr_e"), (30, "tr_n"), (29, "tr_k")))
+    return [
+        (layout, layout + "  " + stamp(0) + "\n  " + decl + "\n"),
+        (run, run + f"  {stamp(1)}\n  {stamp(31, 'u_hi - u_lo')}\n"),
+        (enter, "    tr_t = gtime();\n    ++tr_n;\n" + enter),
+        (entered, entered + "    " + lap % "g" + "\n"),
+        (waited, waited + "      " + lap % "w" + "\n      ++tr_k;\n"),
+        (released, released + "      " + lap % "m" + "\n"),
+        (z_written, z_written + "    " + lap % "z" + "\n"),
+        (stored, stored[:-6] + "    " + lap % "e" + "\n  }\n" + sums + "}\n"),
+    ]
+
+
 def _dgrad_span_patches():
     """dgrad_span_kernel: 0 start, 1 after the prologue, 31 the block's
     stages; summed over them (ns): 2 the consumers' waits for a built stage
@@ -437,13 +482,28 @@ WGRAD_TILES_VARIANTS = {
 }
 
 
+# dgrad's tile kernel's variants: the gx stores skipped (nostore), the
+# shift-add reduced to one Z read an output (noshift), or g's build with no
+# load of gy and y (nogload, g all zeros)
+DGRAD_TILES_VARIANTS = {
+    "nostore": [("        v += column(padding + 2 * (T_in - 1) - i);\n",
+                 "        v += column(padding + 2 * (T_in - 1) - i);\n      if (v != 1234.5f) "
+                 "continue;\n")],
+    "nogload": [("          const bool in = it < items && n < ncols && p0 + q < P;",
+                 "          const bool in = false;")],
+    "noshift": [("      float v = column(i + padding);",
+                 "      float v = zc[i];\n      if (0) v = column(i + padding);")],
+}
+
+
 def patched_source(variant: str = "base", kernel: str = "fwd", source=None) -> str:
     """The kernel's source (or ``source``, a copy of it) with stamps
     (slots: see the patch lists)."""
     src = open(source or os.path.join(ROOT, "hm_vae_torch", "csrc", SOURCES[kernel] + ".cu")).read()
     variants = {"fwd": {"nobuild": [], "nomma": []}, "wgrad": WGRAD_VARIANTS,
                 "wgrad_span": WGRAD_SPAN_VARIANTS,
-                "wgrad_tiles": WGRAD_TILES_VARIANTS}.get(kernel, {})
+                "wgrad_tiles": WGRAD_TILES_VARIANTS,
+                "dgrad_tiles": DGRAD_TILES_VARIANTS}.get(kernel, {})
     if variant != "base" and variant not in variants:
         raise ValueError(f"--variant {variant} is not a variant of --kernel {kernel}")
     for old, new in variants.get(variant, []) if kernel != "fwd" else []:
@@ -456,7 +516,8 @@ def patched_source(variant: str = "base", kernel: str = "fwd", source=None) -> s
                                       else _wgrad_span_patches(src)),
                "dgrad_span": lambda: (_dgrad_patches() if FOLD_KERNEL in src
                                       else _dgrad_span_patches()),
-               "wgrad_tiles": lambda: _wgrad_tiles_patches(variant)}[kernel]()
+               "wgrad_tiles": lambda: _wgrad_tiles_patches(variant),
+               "dgrad_tiles": _dgrad_tiles_patches}[kernel]()
     patches.insert(0, ("namespace {\n", "namespace {\n__device__ unsigned long long g_trace[%d];\n"
                        "__device__ __forceinline__ unsigned long long gtime() { unsigned long "
                        'long t; asm volatile("mov.u64 %%0, %%globaltimer;" : "=l"(t)); '
@@ -579,6 +640,26 @@ def tiles_phases(trace: np.ndarray) -> dict:
                "x": us(11, 12), "barrier_refill": us(12, 1)}}
     for slot, what in ((2, "wait"), (3, "build"), (4, "products"), (6, "tile_write"),
                        (7, "store_drain"), (8, "barrier"), (5, "store_issue")):
+        out[f"{what}_us"] = float(t[:, slot].mean() / 1e3)
+        out[f"{what}_us_per_unit"] = float(t[:, slot].sum() / 1e3 / units)
+    return out
+
+
+def dgrad_tiles_phases(trace: np.ndarray) -> dict:
+    """Means over a dgrad tile-kernel launch's blocks that ran units (slots:
+    :func:`_dgrad_tiles_patches`), the summed phases per unit, and its waves
+    as :func:`window_phases` counts them."""
+    t = trace[trace[:, 22] > 0].astype(np.int64)
+    us = lambda a, b: float(np.mean(t[:, b] - t[:, a]) / 1e3)  # noqa: E731
+    units = max(1, int(t[:, 30].sum()))
+    resident = int((t[:, 0] < t[:, 22].min()).sum())
+    out = {"blocks": len(t), "units_max": int(t[:, 31].max()),
+           "tiles_max": int(t[:, 29].max()), "tiles_per_unit": float(t[:, 29].sum()) / units,
+           "span_us": float((t[:, 22].max() - t[:, 0].min()) / 1e3),
+           "prologue_us": us(0, 1), "loop_us": us(1, 20), "resident": resident,
+           "waves": len(t) / max(1, resident), "block_us": us(0, 22)}
+    for slot, what in ((2, "wait"), (3, "g_build"), (4, "products"), (5, "z_write"),
+                       (6, "shift_add_store")):
         out[f"{what}_us"] = float(t[:, slot].mean() / 1e3)
         out[f"{what}_us_per_unit"] = float(t[:, slot].sum() / 1e3 / units)
     return out
@@ -804,14 +885,16 @@ def trace_dgrad_span(lib, buf, parent: bool, batch=None, dtype=torch.float32,
 
 
 def trace_windows(lib, buf, kernel: str, windows: int, dtype, variant="base") -> None:
-    """The windowed wgrad at the solve's four decoder levels, ``windows``
-    windows of one batch each (``chip_smoke.windowed_inputs``), in
-    ``dtype``: ``wgrad`` the whole-row kernel under its whole-row plan
-    (``wgrad_whole_plan``, one block a live tile and window), routed or
-    not, or ``wgrad_tiles`` the tile kernel under its plan
-    (``wgrad_tiles_plan``); one JSON line a level with its error against
-    the plain version, the plan and the phases (:func:`window_phases`,
-    :func:`tiles_phases`)."""
+    """The windowed wgrad or dgrad at the solve's four decoder levels,
+    ``windows`` windows of one batch each (``chip_smoke.windowed_inputs``),
+    in ``dtype``: ``wgrad`` / ``dgrad`` the whole-row kernel under its
+    whole-row plan (``wgrad_whole_plan``, one block a live tile and window;
+    ``dgrad_whole_plan``, one block a pair of chunks and window), routed or
+    not, or ``wgrad_tiles`` / ``dgrad_tiles`` the tile kernel under its plan
+    (``wgrad_tiles_plan``, ``dgrad_tiles_plan``); one JSON line a level with
+    its error against the plain version, the plan and the phases
+    (:func:`window_phases`, :func:`tiles_phases`,
+    :func:`dgrad_tiles_phases`)."""
     import chip_smoke
     from hm_vae_torch.models.hm_vae import HMVAE
     from hm_vae_torch.models.structure import get_structure
@@ -827,6 +910,24 @@ def trace_windows(lib, buf, kernel: str, windows: int, dtype, variant="base") ->
         s, w, b, packed, x, y, gy = chip_smoke.windowed_inputs(conv, T, gen, dtype, windows)
         K, stride, T_out, esz = s.kernel_size, s.stride, y.shape[2], gy.element_size()
         t_ld = -(-T_out // (16 // esz)) * (16 // esz)
+        mode = "reflect" if s.reflect else "constant"
+        if kernel.startswith("dgrad"):
+            plan = (chip_smoke.dgrad_tiles_plan_of(s, gy, windows) if kernel == "dgrad_tiles"
+                    else chip_smoke.whole_row_plan(s, gy, T, windows))
+            if plan.__class__ is fcp.DgradPlan and plan.span:
+                raise SystemExit(f"{name}: the whole-row dgrad cannot take rows of {T} frames")
+            launch = lambda: fcp._dgrad(gy, y, w, s, T, windows, plan)  # noqa: E731
+            ref = fcp.fused_conv_pool_dgrad_windowed_reference(gy, y, w, T, stride, s.padding,
+                                                               mode, s.negative_slope)
+            err = float((launch().float() - ref.float()).abs().max())
+            row = _trace(lib, buf, launch,
+                         dgrad_tiles_phases if kernel == "dgrad_tiles" else window_phases)
+            print(json.dumps({"kernel": kernel, "level": name, "windows": windows, "T": T,
+                              "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+                              "max_abs_ref": float(ref.float().abs().max()),
+                              "live_tiles": s.dgrad_chunk_row.numel(), "plan": plan._asdict(),
+                              **row}), flush=True)
+            continue
         if kernel == "wgrad_tiles":
             plan = chip_smoke.wgrad_tiles_plan_of(s, gy, T, windows)
             if variant == "lb3":
@@ -840,8 +941,8 @@ def trace_windows(lib, buf, kernel: str, windows: int, dtype, variant="base") ->
                 raise SystemExit(f"{name}: the whole-row wgrad cannot take rows of {T} frames")
         launch = lambda: fcp._wgrad(gy, y, x, s, windows, plan)[0]  # noqa: E731
         ref = fcp.fused_conv_pool_wgrad_windowed_reference(
-            gy, y, x, K, stride, s.padding, windows, "reflect" if s.reflect else "constant",
-            s.negative_slope, s.live_elements())[0]
+            gy, y, x, K, stride, s.padding, windows, mode, s.negative_slope,
+            s.live_elements())[0]
         err = float((launch().float() - ref.float()).abs().max())
         row = _trace(lib, buf, launch, tiles_phases if kernel == "wgrad_tiles" else window_phases)
         print(json.dumps({"kernel": kernel, "level": name, "windows": windows, "T": T,
@@ -859,7 +960,7 @@ def main() -> None:
                     help="a copy of the backward source to trace instead of the repo's")
     ap.add_argument("--variant", default="base",
                     choices=("base", "nobuild", "nomma", "noxb", "nodrain", "nostore", "nowrite",
-                             "nb3", "lb3"))
+                             "nb3", "lb3", "noshift", "nogload"))
     ap.add_argument("--levels", default=None,
                     help="comma-separated levels (default: enc0,enc3,dec0,dec3 for fwd, all "
                          "eight for the backward)")
@@ -870,8 +971,8 @@ def main() -> None:
                     help="BxT[,BxT]: the backward kernels at the trajectory model's four K-31 "
                          "levels at batch B and T frames (training 8x128, the solve 10x64)")
     ap.add_argument("--windows", type=int, default=None,
-                    help="wgrad, wgrad_tiles: the windowed kernel at the solve's four decoder "
-                         "levels, this many windows of one batch each")
+                    help="wgrad, wgrad_tiles, dgrad, dgrad_tiles: the windowed kernel at the "
+                         "solve's four decoder levels, this many windows of one batch each")
     ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
                     help="the element type of the backward kernels (default float32)")
     args = ap.parse_args()
@@ -882,11 +983,12 @@ def main() -> None:
         if args.rows else None
     if shapes and (args.kernel == "fwd" or args.batch):
         raise SystemExit("--rows is for the backward kernels, in place of --batch")
-    if args.windows and (args.kernel not in ("wgrad", "wgrad_tiles") or shapes or args.batch):
-        raise SystemExit("--windows is for --kernel wgrad and wgrad_tiles, in place of --batch "
-                         "and --rows")
-    if args.kernel == "wgrad_tiles" and not args.windows:
-        raise SystemExit("--kernel wgrad_tiles runs at --windows G")
+    if args.windows and (args.kernel not in ("wgrad", "wgrad_tiles", "dgrad", "dgrad_tiles")
+                         or shapes or args.batch):
+        raise SystemExit("--windows is for --kernel wgrad, wgrad_tiles, dgrad and dgrad_tiles, "
+                         "in place of --batch and --rows")
+    if args.kernel in ("wgrad_tiles", "dgrad_tiles") and not args.windows:
+        raise SystemExit(f"--kernel {args.kernel} runs at --windows G")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_trace.py needs a GPU")
     # the plain versions that max_abs_err reads, in full f32 (no TF32)
@@ -905,11 +1007,8 @@ def main() -> None:
         fcp._library = lambda: (lib, fcp._bind(lib, "hmvae_fused_conv_pool", fcp.ARGTYPES))
     else:
         _build.load("fused_conv_pool")  # the forward, for y
-        fcp._bwd_library = lambda: (lib, fcp._bind(lib, "hmvae_conv_dgrad", fcp.DGRAD_ARGTYPES),
-                                    fcp._bind(lib, "hmvae_conv_wgrad", fcp.WGRAD_ARGTYPES),
-                                    fcp._bind(lib, "hmvae_dgrad_span_pack", fcp.PACK_ARGTYPES),
-                                    fcp._bind(lib, "hmvae_conv_wgrad_tiles",
-                                              fcp.TILES_ARGTYPES))
+        entries = fcp._bwd_entries(lib)
+        fcp._bwd_library = lambda: entries
     if args.windows:
         trace_windows(lib, np.zeros(BLOCKS * SLOTS, dtype=np.uint64), args.kernel,
                       args.windows, dtype, args.variant)
